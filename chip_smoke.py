@@ -8,10 +8,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. Print the card (``nvidia-smi`` name and power limit) and the torch/CUDA
    versions; build the hand-written kernels from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all started together) and print the build time.
-2. Hold each kernel against its plain PyTorch version on the card, at the
-   serving slice's shapes, in bf16 and f32, with the stated bound; time the
-   kernel, the plain version and one library call as a yardstick.
-3. The slice: (a) a 2-layer qwen2-7b at full attention width in f32,
+2. Hold each kernel against its plain PyTorch version on the card, with the
+   stated bound, and time the kernel, the plain version and one library
+   call as a yardstick: (a) the serving kernels K7, K9, K10 at the serving
+   slice's shapes, in bf16 and f32; (b) the training kernels K1 ``sgd_step``,
+   K2 ``adamw_step``, K3 ``pullback_mean_momentum`` and K4
+   ``pullback_mean`` (masked and unmasked, ``mean_pre``) in f32 and bf16, at
+   the classifier's plane (16 x 17,408) and on a 4 x 2^27 plane whose times
+   read bandwidth; all four bitwise against their plain versions.
+3. The serving slice: (a) a 2-layer qwen2-7b at full attention width in f32,
    teacher-forced through ``paged_step`` on the card and on the CPU (plain
    versions), logits compared; (b) full-width qwen2-7b in bf16 with random
    weights from a seeded generator, 8 ragged requests through
@@ -19,7 +24,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens, logits are finite, every kernel's launch count is non-zero and
    equals what the number of forwards implies, and a second run of the
    same trace gives the same tokens and scheduler events.
-4. One JSON line with every kernel's numbers, then the device line last.
+4. The training slice, ``examples/quickstart.py``'s configuration at its
+   real width through ``repro_torch.api.Experiment``: 16 workers, the
+   30,000-sample task, batch 32 a worker, SGD + Nesterov, lr warmup then
+   step decay. Overlap-Local-SGD (tau 2, alpha 0.6, beta 0.7) for 600 steps
+   from zeroed counters: K1 launches = steps x buckets and K3 launches =
+   rounds x buckets; a second run gives identical losses and plane; its
+   first 20 rounds agree with the same run on the CPU (plain versions).
+   Then sync-SGD for 600 steps, 20 rounds with AdamW (K2) and 20 with
+   beta = 0 (K4), each with its launch counts, and one profiled overlap run.
+5. One JSON line with every kernel's numbers (K1-K4, K7, K9, K10), then the
+   device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -216,6 +231,183 @@ def check_paged_attend(dev, gen):
             log(json.dumps(rec))
             if not ok:
                 raise AssertionError(f"K9 paged_attend kernel disagrees with plain: {rec}")
+    return worst, timing
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (b): the training kernels K1-K4 against their plain versions
+# ---------------------------------------------------------------------------
+
+# (m, n) planes: the classifier slice's own (16 workers x 17,408 elements, the
+# padded MLP) and a large one, 4 x 2^27, whose times read bandwidth and not
+# launch overhead
+TRAIN_SHAPES = {"slice": (16, 17408), "large": (4, 1 << 27)}
+TIMING_ITERS = {"slice": 50, "large": 10}
+
+
+def _name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _ulp_check(got, want, dtype):
+    """f32: bitwise. bf16: within one bf16 ulp of the plain value (both
+    round at the same points, so 0 is expected). Returns (ok, max_abs_err)."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return bool(torch.equal(got, want)), float(err.max())
+    return bool((err <= bf16_ulp(want)).all()), float(err.max())
+
+
+def _free():
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def check_opt_step(dev, gen):
+    """K1 sgd_step and K2 adamw_step against ref.py on the card, f32 and bf16,
+    at both shapes; times in f32 beside the plain version, torch's fused
+    optimizer op on the same buffers, and the bytes bound."""
+    import torch
+
+    from repro_torch.kernels.opt_step import ops, ref
+
+    worst = {"K1": 0.0, "K2": 0.0}
+    timing = {"K1": {}, "K2": {}}
+    sgd_kw = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
+    adam_kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=1e-4)
+    for shape_name, (w, n) in TRAIN_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            P = torch.finfo(dtype).bits // 8
+            x = torch.randn(w, n, generator=gen, device=dev).to(dtype)
+            g = torch.randn(w, n, generator=gen, device=dev).to(dtype)
+            m = (0.1 * torch.randn(w, n, generator=gen, device=dev)).to(dtype)
+            lr = torch.full((), 0.05, dtype=torch.float32, device=dev)
+            # K1
+            want = ref.sgd_update(x, g, m, lr, **sgd_kw)
+            got = ops.sgd_step(x.clone(), g, m.clone(), lr, **sgd_kw)
+            oks = [_ulp_check(a, b, dtype) for a, b in zip(got, want)]
+            del got, want
+            rec = dict(kernel="K1 sgd_step", dtype=_name(dtype), shape=[w, n], max_abs_err=max(e for _, e in oks),
+                       bound="bitwise" if dtype == torch.float32 else "1 bf16 ulp of plain", ok=all(o for o, _ in oks))
+            worst["K1"] = max(worst["K1"], rec["max_abs_err"])
+            if dtype == torch.float32:
+                it = TIMING_ITERS[shape_name]
+                rec["ms"] = time_ms(lambda: ops.sgd_step(x, g, m, lr, **sgd_kw), it)
+                rec["plain_ms"] = time_ms(lambda: ref.sgd_update(x, g, m, lr, **sgd_kw), it)
+                rec["library_ms"] = time_ms(lambda: torch._fused_sgd_(
+                    [x], [g], [m], weight_decay=1e-4, momentum=0.9, lr=0.05, dampening=0.0, nesterov=True,
+                    maximize=False, is_first_step=False), it)
+                rec["bound_ms"], rec["bound_by"] = bound(5 * P * w * n, 8 * w * n)
+                timing["K1"][shape_name] = rec
+            log(json.dumps(rec))
+            if not rec["ok"]:
+                raise AssertionError(f"K1 sgd_step kernel disagrees with plain: {rec}")
+            # K2 (moments f32, nu >= 0)
+            mu = (0.1 * torch.randn(w, n, generator=gen, device=dev))
+            nu = torch.rand(w, n, generator=gen, device=dev)
+            c1 = torch.full((), 1 - 0.9**3, dtype=torch.float32, device=dev)
+            c2 = torch.full((), 1 - 0.95**3, dtype=torch.float32, device=dev)
+            want = ref.adamw_update(x, g, mu, nu, lr, c1, c2, **adam_kw)
+            got = ops.adamw_step(x.clone(), g, mu.clone(), nu.clone(), lr, c1, c2, **adam_kw)
+            oks = [_ulp_check(a, b, b.dtype) for a, b in zip(got, want)]
+            del got, want
+            rec = dict(kernel="K2 adamw_step", dtype=_name(dtype), shape=[w, n], max_abs_err=max(e for _, e in oks),
+                       bound="bitwise" if dtype == torch.float32 else "1 bf16 ulp of plain (x); mu, nu bitwise",
+                       ok=all(o for o, _ in oks))
+            worst["K2"] = max(worst["K2"], rec["max_abs_err"])
+            if dtype == torch.float32:
+                it = TIMING_ITERS[shape_name]
+                steps = [torch.full((), 3.0, device=dev)]
+                rec["ms"] = time_ms(lambda: ops.adamw_step(x, g, mu, nu, lr, c1, c2, **adam_kw), it)
+                rec["plain_ms"] = time_ms(lambda: ref.adamw_update(x, g, mu, nu, lr, c1, c2, **adam_kw), it)
+                rec["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+                    [x], [g], [mu], [nu], [], steps, amsgrad=False, lr=0.05, beta1=0.9, beta2=0.95,
+                    weight_decay=1e-4, eps=1e-8, maximize=False), it)
+                rec["bound_ms"], rec["bound_by"] = bound((3 * P + 16) * w * n, 16 * w * n)
+                timing["K2"][shape_name] = rec
+            log(json.dumps(rec))
+            if not rec["ok"]:
+                raise AssertionError(f"K2 adamw_step kernel disagrees with plain: {rec}")
+            del x, g, m, mu, nu
+            _free()
+    return worst, timing
+
+
+def check_anchor_mix(dev, gen):
+    """K3 pullback_mean_momentum and K4 pullback_mean against ref.py on the
+    card: f32 and bf16, unmasked and masked (a dead row), K4 also mean_pre,
+    at the slice's shape and unmasked on the large plane. Bound: bitwise,
+    because kernel and plain sum the worker axis in the same order
+    (0 .. m-1, in f32) and round at the same points. Times in f32 beside the
+    plain version, a copy_ of the same bytes and the bytes bound."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix import ops, ref
+
+    alpha, beta = 0.6, 0.7
+    worst = {"K3": 0.0, "K4": 0.0}
+    timing = {"K3": {}, "K4": {}}
+    for shape_name, (m, n) in TRAIN_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            P = torch.finfo(dtype).bits // 8
+            x = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+            z = torch.randn(n, generator=gen, device=dev).to(dtype)
+            v = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+            masks = [None]
+            if shape_name == "slice":
+                w = torch.full((m,), 1.0 / (m - 1), device=dev)
+                w[1] = 0.0
+                masks.append(w)
+            for weights in masks:
+                want = ref.pullback_mean_momentum(x, z, v, alpha, beta, weights=weights)
+                got = ops.pullback_mean_momentum(x.clone(), z, v.clone(), alpha, beta, weights=weights)
+                oks = [_ulp_check(a, b, torch.float32) for a, b in zip(got, want)]
+                del got, want
+                rec = dict(kernel="K3 pullback_mean_momentum", dtype=_name(dtype), shape=[m, n],
+                           masked=weights is not None, max_abs_err=max(e for _, e in oks),
+                           bound="bitwise (same worker-sum order)", ok=all(o for o, _ in oks))
+                worst["K3"] = max(worst["K3"], rec["max_abs_err"])
+                if dtype == torch.float32 and weights is None:
+                    it = TIMING_ITERS[shape_name]
+                    src = torch.empty(m * n + 2 * n, dtype=dtype, device=dev)
+                    dst = torch.empty_like(src)
+                    rec["ms"] = time_ms(lambda: ops.pullback_mean_momentum(x, z, v, alpha, beta), it)
+                    rec["plain_ms"] = time_ms(lambda: ref.pullback_mean_momentum(x, z, v, alpha, beta), it)
+                    rec["library_ms"] = time_ms(lambda: dst.copy_(src), it)
+                    rec["bound_ms"], rec["bound_by"] = bound(2 * P * m * n + 4 * P * n, 4 * m * n + 5 * n)
+                    timing["K3"][shape_name] = rec
+                    del src, dst
+                log(json.dumps(rec))
+                if not rec["ok"]:
+                    raise AssertionError(f"K3 kernel disagrees with plain: {rec}")
+                for mean_pre in (False, True):
+                    want = ref.pullback_mean(x, z, alpha, mean_pre=mean_pre, weights=weights)
+                    got = ops.pullback_mean(x.clone(), z, alpha, mean_pre=mean_pre, weights=weights)
+                    oks = [_ulp_check(a, b, torch.float32) for a, b in zip(got, want)]
+                    del got, want
+                    rec = dict(kernel="K4 pullback_mean", dtype=_name(dtype), shape=[m, n],
+                               masked=weights is not None, mean_pre=mean_pre, max_abs_err=max(e for _, e in oks),
+                               bound="bitwise (same worker-sum order)", ok=all(o for o, _ in oks))
+                    worst["K4"] = max(worst["K4"], rec["max_abs_err"])
+                    if dtype == torch.float32 and weights is None and not mean_pre:
+                        it = TIMING_ITERS[shape_name]
+                        src = torch.empty(m * n + n, dtype=dtype, device=dev)
+                        dst = torch.empty_like(src)
+                        rec["ms"] = time_ms(lambda: ops.pullback_mean(x, z, alpha), it)
+                        rec["plain_ms"] = time_ms(lambda: ref.pullback_mean(x, z, alpha), it)
+                        rec["library_ms"] = time_ms(lambda: dst.copy_(src), it)
+                        rec["bound_ms"], rec["bound_by"] = bound(2 * P * m * n + 2 * P * n, 4 * m * n + n)
+                        timing["K4"][shape_name] = rec
+                        del src, dst
+                    log(json.dumps(rec))
+                    if not rec["ok"]:
+                        raise AssertionError(f"K4 kernel disagrees with plain: {rec}")
+            del x, z, v
+            _free()
     return worst, timing
 
 
@@ -424,6 +616,147 @@ def profile_run(eng, want_results, want_events):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the training slice (the paper's classifier, Overlap-Local-SGD)
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, SHORT_ROUNDS = 600, 20
+
+
+def _experiment(dev, strategy, optimizer="sgd"):
+    """examples/quickstart.py's configuration at its real width: 16 workers,
+    the 30,000-sample task, batch 32 a worker, SGD lr 0.1 with Nesterov
+    momentum 0.9, warmup_step_decay(0.1, 20, (300,)). AdamW runs at lr 1e-3
+    on the same schedule shape."""
+    from repro_torch.api import ClassificationSpec, Experiment
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.optim import schedules
+
+    lr = 0.1 if optimizer == "sgd" else 1e-3
+    return Experiment(
+        task=ClassificationSpec(n=30000, holdout=4000, batch_per_worker=32), strategy=strategy,
+        optimizer=OptimizerConfig(name=optimizer, lr=lr, momentum=0.9, nesterov=True),
+        schedule=schedules.warmup_step_decay(lr, 20, (TRAIN_STEPS // 2,)), workers=16, device=dev,
+    )
+
+
+def _fit(exp, kernels, rounds):
+    """One run from zeroed counters: losses, wall time, launches, test_acc."""
+    import torch
+
+    exp.build()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = exp.fit(rounds=rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    return dict(losses=res.losses, wall_s=wall, rounds_per_s=rounds / wall, steps=res.steps,
+                launches=launches, test_acc=exp.evaluate()["test_acc"])
+
+
+def train_slice(dev, kernels):
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import AlgoConfig
+
+    overlap = AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6, anchor_beta=0.7)
+    runs = {}
+
+    def record(name, exp, rounds, expect):
+        out = _fit(exp, kernels, rounds)
+        buckets = exp.state.x.layout.num_buckets
+        want = {k.name: 0 for k in kernels}
+        want.update({k: v * buckets for k, v in expect.items()})
+        if out["launches"] != want:
+            raise AssertionError(f"{name}: launches {out['launches']} != {want}")
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"{name}: non-finite loss")
+        out["buckets"] = buckets
+        out["plane"] = [list(b.shape) for b in exp.state.x.buffers]
+        log(json.dumps(dict(run=name, rounds=rounds, steps=out["steps"], wall_s=out["wall_s"],
+                            rounds_per_s=out["rounds_per_s"], loss_every_30=out["losses"][::30],
+                            final_loss=out["losses"][-1], test_acc=out["test_acc"], launches=out["launches"],
+                            plane=out["plane"])))
+        runs[name] = out
+        return exp
+
+    rounds = TRAIN_STEPS // overlap.tau
+    # the main path: counts from zero, K1 once a step, K3 once a round (per bucket)
+    exp = record("overlap_local_sgd", _experiment(dev, overlap), rounds,
+                 {"sgd_step": TRAIN_STEPS, "pullback_momentum": rounds})
+    plane = [b.clone() for b in exp.state.x.buffers]
+    # replay: a second run of the same configuration gives the same losses and plane
+    again = _experiment(dev, overlap)
+    again.build()
+    second = again.fit(rounds=rounds)
+    if second.losses != runs["overlap_local_sgd"]["losses"]:
+        raise AssertionError("overlap run is not deterministic: losses differ between two runs")
+    if not all(torch.equal(a, b) for a, b in zip(plane, again.state.x.buffers)):
+        raise AssertionError("overlap run is not deterministic: final planes differ")
+    # the same configuration on the CPU (plain versions), from the same weights
+    cpu = _experiment("cpu", overlap)
+    cpu_losses = cpu.fit(rounds=SHORT_ROUNDS).losses
+    card = np.asarray(runs["overlap_local_sgd"]["losses"][:SHORT_ROUNDS])
+    rel = float(np.max(np.abs(card - np.asarray(cpu_losses)) / np.abs(np.asarray(cpu_losses))))
+    # bound: rtol 1e-4 — f32 matmuls, tanh, exp and log in cuBLAS/CUDA vs the
+    # CPU's libraries sum and round in other orders; 40 SGD steps carry those
+    # differences forward without amplifying them past 1e-4 (the port matches
+    # the JAX package to ~1e-7 on the CPU over the same number of rounds)
+    if not rel <= 1e-4:
+        raise AssertionError(f"card vs CPU losses over {SHORT_ROUNDS} rounds: max rel {rel} > 1e-4")
+    log(json.dumps(dict(check="overlap card vs CPU plain", rounds=SHORT_ROUNDS, max_rel_err=rel,
+                        bound="rtol 1e-4", deterministic_replay=True)))
+    record("sync_sgd", _experiment(dev, AlgoConfig(name="sync_sgd", tau=1, alpha=0.0, anchor_beta=0.7)),
+           TRAIN_STEPS, {"sgd_step": TRAIN_STEPS})
+    record("overlap_adamw", _experiment(dev, overlap, "adamw"), SHORT_ROUNDS,
+           {"adamw_step": 2 * SHORT_ROUNDS, "pullback_momentum": SHORT_ROUNDS})
+    record("overlap_beta0", _experiment(dev, AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6, anchor_beta=0.0)),
+           SHORT_ROUNDS, {"sgd_step": 2 * SHORT_ROUNDS, "pullback_mean": SHORT_ROUNDS})
+    profile = profile_train(_experiment(dev, overlap), SHORT_ROUNDS)
+    log(json.dumps(dict(profile_overlap=profile)))
+    return runs, profile
+
+
+def profile_train(exp, rounds):
+    """One overlap run under torch.profiler after a warm round: device busy
+    time (sum of kernel times; one stream) against wall time, and aten ops
+    and kernel launches per local step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    exp.build()
+    exp.fit(rounds=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = exp.fit(rounds=rounds)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    averages = prof.key_averages()
+    kern = [e for e in averages if e.device_type == DeviceType.CUDA]
+    steps = res.steps
+    if not kern:
+        return dict(device_busy_us="not measured (no device events in the trace)", wall_us=wall_us)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    aten = sum(e.count for e in averages if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
+    launches = sum(e.count for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    host = sorted((e for e in averages if e.device_type == DeviceType.CPU), key=lambda e: -e.self_cpu_time_total)[:12]
+    return dict(
+        rounds=rounds, steps=steps, wall_us=wall_us, device_busy_us=busy_us, device_busy_share=busy_us / wall_us,
+        aten_ops_per_step=aten / steps, kernel_launches_per_step=launches / steps, wall_us_per_step=wall_us / steps,
+        top=[dict(name=e.key[:90], count=e.count, device_us=e.self_device_time_total) for e in top],
+        top_host=[dict(name=e.key[:60], count=e.count, self_cpu_us=e.self_cpu_time_total) for e in host],
+    )
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -465,31 +798,49 @@ def main() -> int:
     rms_err, rms_t = check_rmsnorm(dev, gen)
     app_err, app_t = check_paged_append(dev, gen)
     att_err, att_t = check_paged_attend(dev, gen)
+    opt_err, opt_t = check_opt_step(dev, gen)
+    mix_err, mix_t = check_anchor_mix(dev, gen)
 
-    # phase 3
+    # phases 3 and 4: serving, then training
+    serving = [k for k in kernels if k.name in ("rmsnorm", "paged_attend", "paged_append")]
     check_small_model_against_cpu(dev)
-    summary = serve_full_width(dev, kernels)
+    summary = serve_full_width(dev, serving)
     summary["card"] = card
     log(json.dumps(summary))
+    runs, _ = train_slice(dev, kernels)
 
-    # phase 4
-    launches = summary["launches"]
+    # phase 5
+    launches = dict(summary["launches"])
+    launches["sgd_step"] = runs["overlap_local_sgd"]["launches"]["sgd_step"]
+    launches["pullback_momentum"] = runs["overlap_local_sgd"]["launches"]["pullback_momentum"]
+    launches["adamw_step"] = runs["overlap_adamw"]["launches"]["adamw_step"]
+    launches["pullback_mean"] = runs["overlap_beta0"]["launches"]["pullback_mean"]
     rows = [
-        ("rmsnorm", "K7 rmsnorm_2d", "src/repro/kernels/rmsnorm/kernel.py:26", rms_err, rms_t[4],
-         "bf16 rows=4 d=3584 (decode)"),
-        ("paged_attend", "K9 paged_attend_decode", "src/repro/kernels/paged_attn/kernel.py:89", att_err, att_t,
-         "bf16 S=4 KV=4 G=7 D=128 page=16 maxp=32 lengths 0/17/300/511"),
-        ("paged_append", "K10 paged_append_decode", "src/repro/kernels/paged_attn/kernel.py:145", app_err, app_t[1],
-         "bf16 S=4 T=1 KV=4 D=128 (decode)"),
+        ("rmsnorm", "rmsnorm", "K7 rmsnorm_2d", "src/repro/kernels/rmsnorm/kernel.py:26", rms_err, rms_t[4],
+         "bf16 rows=4 d=3584 (decode)", None),
+        ("paged_attend", "paged_attend", "K9 paged_attend_decode", "src/repro/kernels/paged_attn/kernel.py:89",
+         att_err, att_t, "bf16 S=4 KV=4 G=7 D=128 page=16 maxp=32 lengths 0/17/300/511", None),
+        ("paged_append", "paged_append", "K10 paged_append_decode", "src/repro/kernels/paged_attn/kernel.py:145",
+         app_err, app_t[1], "bf16 S=4 T=1 KV=4 D=128 (decode)", None),
+        ("sgd_step", "opt_step", "K1 sgd_step_flat", "src/repro/kernels/opt_step/kernel.py:48", opt_err["K1"],
+         opt_t["K1"]["slice"], "f32 w=16 n=17408 (the classifier plane)", opt_t["K1"]["large"]),
+        ("adamw_step", "opt_step", "K2 adamw_step_flat", "src/repro/kernels/opt_step/kernel.py:81", opt_err["K2"],
+         opt_t["K2"]["slice"], "f32 w=16 n=17408 (the classifier plane)", opt_t["K2"]["large"]),
+        ("pullback_momentum", "anchor_mix", "K3 pullback_momentum_flat", "src/repro/kernels/anchor_mix/kernel.py:190",
+         mix_err["K3"], mix_t["K3"]["slice"], "f32 m=16 n=17408 (the classifier plane)", mix_t["K3"]["large"]),
+        ("pullback_mean", "anchor_mix", "K4 pullback_mean_flat", "src/repro/kernels/anchor_mix/kernel.py:120",
+         mix_err["K4"], mix_t["K4"]["slice"], "f32 m=16 n=17408 (the classifier plane)", mix_t["K4"]["large"]),
     ]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     out = []
-    for name, label, replaces, err, t, shape in rows:
-        out.append(dict(
-            name=label, route="cuda", source=f"src/repro_torch/csrc/{name}.cu", replaces=replaces,
-            launches=launches[name], max_abs_err=err, ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"], shape=shape,
-            status="ok", card=card,
-        ))
+    for name, source, label, replaces, err, t, shape, large in rows:
+        entry = dict(
+            name=label, route="cuda", source=f"src/repro_torch/csrc/{source}.cu", replaces=replaces,
+            launches=launches[name], max_abs_err=err, **{k: t[k] for k in keys}, shape=shape, status="ok", card=card,
+        )
+        if large is not None:
+            entry["large"] = dict(shape=large["shape"], **{k: large[k] for k in keys})
+        out.append(entry)
     log(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

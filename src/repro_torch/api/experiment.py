@@ -1,0 +1,218 @@
+"""The ``Experiment`` facade for classification training (counterpart of
+``repro.api.experiment``):
+
+    from repro_torch.api import ClassificationSpec, Experiment
+
+    exp = Experiment(task=ClassificationSpec(), strategy="overlap_local_sgd", workers=16)
+    exp.fit(steps=600)
+    print(exp.evaluate())          # {'test_acc': ...} of the consensus model
+
+The experiment runs on the GPU (``device="cuda"``, the default) and raises
+where there is none, unless the caller passes ``device="cpu"``; on the CPU
+every kernel wrapper takes its plain PyTorch version.
+
+The state is plane-resident: ``state.x`` is the worker-stacked packed
+parameter plane. The initial weights come from a seeded ``torch.Generator``
+on the CPU (so the CPU and GPU runs of one seed start equal); they differ
+from the reference's ``jax.random`` draws, so parity tests carry the
+reference's initial state over with :mod:`repro_torch.interop`.
+
+Not here yet (each raises): the LM task ``arch=`` (ROADMAP Queue 1 item 3),
+``fit(adaptive_tau=…)`` (item 5) and ``fit(faults=…)`` (item 6); the
+strategies raise for ``AlgoConfig.packed=False`` (item 4) and
+``AlgoConfig.offload`` (item 9).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.config.base import AlgoConfig, OptimizerConfig
+from repro_torch.core.strategy import CommStrategy, resolve_strategy
+from repro_torch.data.loaders import (
+    ClassificationSplits,
+    classification_batch_fn,
+    make_classification_splits,
+    round_batch,
+)
+from repro_torch.models.classifier import accuracy, init_mlp, mlp_loss
+from repro_torch.optim import from_config as opt_from_config
+from repro_torch.optim import schedules
+from repro_torch.optim.optimizers import Optimizer
+from repro_torch.parallel.packing import Packed, tree_flatten
+from repro_torch.serving.engine import resolve_device
+from repro_torch.training import consensus_params, make_round_step, make_train_state
+
+
+@dataclass
+class ClassificationSpec:
+    """The synthetic classification task (paper §4's CIFAR-10 stand-in)."""
+
+    n: int = 30000
+    dim: int = 64
+    num_classes: int = 10
+    noise: float = 3.0
+    holdout: int = 4000
+    noniid: bool = False
+    skew: float = 0.64
+    batch_per_worker: int = 32
+    hidden: Tuple[int, ...] = (128, 64)
+    seed: int = 0
+    splits: Optional[ClassificationSplits] = None  # pre-built; overrides the fields above
+
+
+@dataclass
+class FitResult:
+    losses: List[float]  # per-round mean loss
+    state: Any  # final TrainState
+    rounds: int
+    steps: int  # local steps taken (rounds × τ)
+    wall_s: float
+
+    @property
+    def final_loss(self) -> float:
+        return self.losses[-1] if self.losses else float("nan")
+
+
+@dataclass
+class Experiment:
+    """Declarative classification training experiment. See module docstring."""
+
+    arch: Any = None  # the LM task: not ported yet
+    task: Optional[ClassificationSpec] = None
+    strategy: Union[str, AlgoConfig, CommStrategy] = "overlap_local_sgd"
+    optimizer: Union[str, OptimizerConfig, Optimizer] = field(default_factory=OptimizerConfig)
+    workers: int = 4
+    rounds: int = 20
+    schedule: Optional[Callable] = None  # lr schedule; default derives from the optimizer config
+    grad_clip: float = 0.0
+    microbatch: Optional[int] = None
+    seed: int = 0
+    device: Union[str, torch.device] = "cuda"
+
+    def __post_init__(self):
+        if self.arch is not None:
+            raise NotImplementedError("the LM task (Experiment(arch=...)) is ROADMAP Queue 1 item 3")
+        if self.task is None:
+            self.task = ClassificationSpec()
+        self._built = False
+        self.state = None
+
+    # -- construction -------------------------------------------------------
+
+    def _resolve_optimizer(self) -> Tuple[Optimizer, Callable]:
+        o = self.optimizer
+        if isinstance(o, str):
+            o = OptimizerConfig(name=o)
+        if isinstance(o, OptimizerConfig):
+            return opt_from_config(o), self.schedule or schedules.from_config(o)
+        if self.schedule is None:
+            raise ValueError("a raw Optimizer carries no learning rate; pass schedule= or use an OptimizerConfig")
+        return o, self.schedule
+
+    def build(self) -> "Experiment":
+        """Resolve configs into data, parameters, state and round step (idempotent)."""
+        if self._built:
+            return self
+        self.dev = resolve_device(self.device)
+        self.strategy_obj = resolve_strategy(self.strategy)
+        self.opt_obj, self.schedule_fn = self._resolve_optimizer()
+        spec = self.task
+        self.splits = spec.splits or make_classification_splits(
+            self.workers, n=spec.n, dim=spec.dim, num_classes=spec.num_classes, noise=spec.noise,
+            holdout=spec.holdout, noniid=spec.noniid, skew=spec.skew, seed=spec.seed,
+        )
+        if self.splits.num_workers != self.workers:
+            raise ValueError(f"task splits have {self.splits.num_workers} partitions but workers={self.workers}")
+        gen = torch.Generator().manual_seed(self.seed)
+        self.params = {k: v.to(self.dev) for k, v in
+                       init_mlp(gen, spec.dim, spec.num_classes, hidden=spec.hidden).items()}
+        self.next_batch = classification_batch_fn(self.splits, spec.batch_per_worker, seed=spec.seed)
+        self.state = make_train_state(self.params, self.workers, self.opt_obj, self.strategy_obj)
+        self.step_fn = make_round_step(mlp_loss, self.opt_obj, self.strategy_obj, self.schedule_fn,
+                                       grad_clip=self.grad_clip, microbatch=self.microbatch)
+        self._built = True
+        return self
+
+    def to_device(self, arrays) -> tuple:
+        """Host numpy arrays → tensors on the experiment's device (pinned and
+        copied without blocking the host on a GPU)."""
+        out = []
+        for a in arrays:
+            t = torch.from_numpy(np.array(a, order="C"))
+            if self.dev.type == "cuda":
+                t = t.pin_memory().to(self.dev, non_blocking=True)
+            out.append(t)
+        return tuple(out)
+
+    # -- introspection ------------------------------------------------------
+
+    @property
+    def tau(self) -> int:
+        self.build()
+        return self.strategy_obj.tau
+
+    @property
+    def num_params(self) -> int:
+        self.build()
+        return sum(t.numel() for t in tree_flatten(self.params)[0])
+
+    # -- training -----------------------------------------------------------
+
+    def fit(self, rounds: Optional[int] = None, steps: Optional[int] = None,
+            log: Optional[Callable[[int, float], None]] = None, adaptive_tau=None, faults=None) -> FitResult:
+        """Run the round loop; ``steps`` (local steps) is an alternative to
+        ``rounds`` (rounds = steps // τ). ``log(round, mean_loss)`` is called
+        each round. Fitting continues from the current state. The round's
+        losses stay on the device until its end: one host read a round."""
+        if adaptive_tau is not None:
+            raise NotImplementedError("fit(adaptive_tau=...) is ROADMAP Queue 1 item 5")
+        if faults is not None:
+            raise NotImplementedError("fit(faults=...) is ROADMAP Queue 1 item 6")
+        self.build()
+        tau = self.strategy_obj.tau
+        if rounds is None:
+            rounds = (steps // tau) if steps is not None else self.rounds
+        losses: List[float] = []
+        t0 = time.time()
+        state = self.state
+        for r in range(rounds):
+            state, ms = self.step_fn(state, self.to_device(round_batch(self.next_batch, tau)))
+            losses.append(float(ms["loss"].cpu().numpy().mean()))
+            if log is not None:
+                log(r, losses[-1])
+        self.state = state
+        return FitResult(losses=losses, state=state, rounds=rounds, steps=rounds * tau, wall_s=time.time() - t0)
+
+    # -- evaluation ---------------------------------------------------------
+
+    def consensus(self) -> dict:
+        """The float32 consensus (worker-averaged) model."""
+        self.build()
+        return consensus_params(self.state)
+
+    def consensus_plane(self) -> Packed:
+        """The consensus model as a packed plane (no lead dim): the f32 worker
+        mean of each bucket, cast back to the bucket dtype."""
+        self.build()
+        x = self.state.x
+        return Packed(tuple(torch.mean(b.float(), dim=0).to(b.dtype) for b in x.buffers), x.layout)
+
+    def anchor_plane(self) -> Packed:
+        """The anchor plane z consumed at the last boundary (anchor-momentum
+        strategies), by reference."""
+        self.build()
+        z = self.state.vars.z if self.state.vars is not None else None
+        if not isinstance(z, Packed):
+            raise ValueError("anchor_plane() requires a packed anchor strategy (state.vars.z is the plane)")
+        return z
+
+    def evaluate(self) -> dict:
+        """Held-out accuracy of the consensus model."""
+        self.build()
+        x, y = self.to_device((self.splits.test.x, self.splits.test.y))
+        return {"test_acc": float(accuracy(self.consensus(), x, y))}

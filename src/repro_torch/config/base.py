@@ -6,11 +6,11 @@ reference, so ``dataclasses.asdict`` of a port config equals that of the
 JAX config for the same arch; the one difference is that
 :attr:`ModelConfig.param_dtype` is a ``torch.dtype``.
 
-Only the pieces the serving slice needs are here: the layer configs that
-``ModelConfig.reduced`` touches, ``ModelConfig`` itself, and the
-``ArchConfig``/``ParallelPlan``/``InputShape`` entries the registry stores.
-Training configs (``AlgoConfig``, ``OptimizerConfig``, ``TrainConfig``) come
-with the training slice.
+Here are the layer configs that ``ModelConfig.reduced`` touches,
+``ModelConfig`` itself, the ``ArchConfig``/``ParallelPlan``/``InputShape``
+entries the registry stores, and the training configs ``AlgoConfig`` and
+``OptimizerConfig`` (the reference's ``config/base.py:288-348``, same fields
+and defaults).
 """
 from __future__ import annotations
 
@@ -283,3 +283,50 @@ class ArchConfig:
         if shape.name == "long_500k":
             return self.long_context_policy != "skip"
         return True
+
+
+# ---------------------------------------------------------------------------
+# Algorithm / training config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AlgoConfig:
+    """Distributed-optimization algorithm selection (the paper's subject).
+    The port runs ``overlap_local_sgd``, ``local_sgd`` and ``sync_sgd`` on
+    the packed plane; the other names, ``packed=False`` and ``offload``
+    raise (see ``repro_torch.core.strategy``)."""
+
+    name: str = "overlap_local_sgd"
+    # overlap_local_sgd | local_sgd | sync_sgd | easgd | cocod | powersgd
+    # | delayed_avg (DaSGD) | sparse_anchor (LOSCAR)
+    # | gossip_pushsum / gossip_full / gossip_ring / gossip_exp (SGP)
+    tau: int = 2  # local updates per round
+    alpha: float = 0.6  # pullback strength (paper: 0.6 for tau>=2, 0.5 for tau=1)
+    anchor_beta: float = 0.7  # anchor momentum (paper §4)
+    easgd_beta: float = 0.9
+    powersgd_rank: int = 2
+    delay_steps: int = 1
+    sparse_k: float = 1.0
+    topology: str = "full"
+    sync_router_stats: bool = True
+    packed: bool = True  # round-boundary math on the packed parameter plane
+    packed_clip: bool = False  # per-bucket (not per-leaf) order for the clip norm
+    offload: bool = False
+    offload_chunk_mb: float = 64.0
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "sgd"  # sgd | adamw
+    lr: float = 0.1
+    momentum: float = 0.9
+    nesterov: bool = True
+    weight_decay: float = 1e-4
+    warmup_steps: int = 0
+    decay_steps: Tuple[int, ...] = ()
+    decay_factor: float = 0.1
+    grad_clip: float = 0.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8

@@ -1,10 +1,16 @@
-"""Parameter transfer from the JAX reference's layout.
+"""Transfer from the JAX reference's data structures, after the caller has
+turned every array into numpy (``jax.tree.map(np.asarray, ...)``). This
+module imports no JAX; it reads the reference's objects by their fields.
 
-:func:`params_from_numpy` takes the tree ``repro.models.transformer.init_model``
-returns, after the caller has turned every leaf into a numpy array (nested
-dicts; stacked ``seg{i}`` leaves keep their leading layer axis), and gives
-the port's parameters: the same nesting and the same ``(d_in, d_out)``
-matrices, so the copy is leaf for leaf. This module imports no JAX.
+* :func:`params_from_numpy` — a parameter tree (nested dicts; stacked
+  ``seg{i}`` leaves keep their leading layer axis) → the port's tree, leaf
+  for leaf.
+* :func:`packed_from_numpy` — a packed plane → the port's ``Packed``, bit
+  for bit (the two packages lay a tree out identically).
+* :func:`state_from_numpy` — a plane-resident ``TrainState`` (x, opt, vars,
+  step, inflight) → the port's ``TrainState``, bit for bit. The parity tests
+  start both packages from the reference's ``Experiment.build()`` state this
+  way, because ``jax.random`` and ``torch.Generator`` draw different weights.
 """
 from __future__ import annotations
 
@@ -28,3 +34,48 @@ def params_from_numpy(tree, device="cpu", dtype: Optional[torch.dtype] = None):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     t = _tensor(tree)
     return t.to(device=device, dtype=dtype or t.dtype).contiguous()
+
+
+def packed_from_numpy(p, layout, device="cpu"):
+    """A reference ``Packed`` whose buffers are numpy arrays → the port's
+    ``Packed`` on ``device``, bit for bit. ``layout`` is the port's layout of
+    the same tree (retagged here for an f32 shadow plane such as AdamW's
+    moments); raises unless the reference places every leaf the same way."""
+    from repro_torch.parallel.packing import Packed
+
+    ref = p.layout
+    if tuple(ref.bucket_dtypes) != layout.bucket_dtypes:
+        layout = layout.with_dtype(getattr(torch, ref.bucket_dtypes[0]))
+
+    def key(s):
+        return (s.index, s.bucket, tuple(s.shape), s.dtype, s.offset, s.size, s.stride)
+
+    if [key(s) for s in ref.slots] != [key(s) for s in layout.slots] or tuple(ref.bucket_sizes) != layout.bucket_sizes:
+        raise ValueError("the reference plane's layout differs from the port's")
+    return Packed(tuple(_tensor(b).to(device) for b in p.buffers), layout)
+
+
+def state_from_numpy(state, layout, device="cpu"):
+    """A reference plane-resident ``TrainState`` whose arrays are numpy
+    (x, opt, vars, step, inflight) → the port's ``TrainState`` on ``device``,
+    bit for bit. ``layout`` is the port's layout of the parameter tree."""
+    from repro_torch.core.strategy import AlgoVars
+    from repro_torch.optim.optimizers import PackedAdamState, PackedSGDState
+    from repro_torch.training.train_state import TrainState
+
+    def plane(p):
+        return None if p is None else packed_from_numpy(p, layout, device)
+
+    opt = state.opt
+    if hasattr(opt, "momentum"):
+        opt = PackedSGDState(momentum=plane(opt.momentum))
+    elif hasattr(opt, "mu"):
+        opt = PackedAdamState(mu=plane(opt.mu), nu=plane(opt.nu), count=_tensor(opt.count).to(device))
+    else:
+        raise ValueError(f"unsupported optimizer state {type(opt).__name__}")
+    v = state.vars
+    if v is not None and v.extra is not None:
+        raise ValueError("strategy state with extra slots is not ported")
+    vars = AlgoVars() if v is None else AlgoVars(z=plane(v.z), v=plane(v.v))
+    return TrainState(x=plane(state.x), opt=opt, vars=vars, step=_tensor(state.step).to(device),
+                      inflight=plane(state.inflight))

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 
 def all_kernels():
+    from repro_torch.kernels.anchor_mix import ops as am_ops
+    from repro_torch.kernels.opt_step import ops as opt_ops
     from repro_torch.kernels.paged_attn import ops as pa_ops
     from repro_torch.kernels.rmsnorm import ops as rms_ops
 
-    return [rms_ops.KERNEL, pa_ops.ATTEND, pa_ops.APPEND]
+    return [rms_ops.KERNEL, pa_ops.ATTEND, pa_ops.APPEND, opt_ops.SGD, opt_ops.ADAMW, am_ops.MEAN, am_ops.MOMENTUM]

@@ -38,6 +38,7 @@ NVCC_FLAGS = [
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 
 
@@ -52,12 +53,14 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One ``csrc/<name>.cu`` library: its C entry points, its build, and
-    the count of launches made through :meth:`launch`."""
+    """One kernel of a ``csrc/<source>.cu`` library: its C entry points, its
+    build, and the count of launches made through :meth:`launch`. Several
+    kernels may share one source (``source=``, default ``name``); they then
+    share one library and keep their own counts."""
 
-    def __init__(self, name: str, entry_points: Dict[str, Sequence]):
+    def __init__(self, name: str, entry_points: Dict[str, Sequence], source: Optional[str] = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.entry_points = dict(entry_points)
         self.launches = 0
         self.build_log = ""
@@ -67,7 +70,7 @@ class Kernel:
     @property
     def library(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{h}.so"
+        return BUILD_DIR / f"{self.source.stem}-{h}.so"
 
     def _command(self, out: Path) -> List[str]:
         return [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out), str(self.source)]
@@ -117,8 +120,9 @@ class Kernel:
 
 
 def build_all(kernels: Sequence[Kernel]) -> None:
-    """Compile every kernel's source in parallel (one ``nvcc`` each), then load."""
-    procs = [(k, k.start_build()) for k in kernels]
+    """Compile every source in parallel (one ``nvcc`` each), then load."""
+    by_source = {k.source: k for k in kernels}
+    procs = [(k, k.start_build()) for k in by_source.values()]
     errors = []
     for k, p in procs:
         try:

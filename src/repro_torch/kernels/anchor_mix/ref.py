@@ -1,0 +1,53 @@
+"""Plain PyTorch fused round boundaries, op for op the reference
+``repro.kernels.anchor_mix.ref`` (counterpart; the CUDA kernels in
+``csrc/anchor_mix.cu`` compute the same chain).
+
+The worker mean is summed in float32 in the fixed order i = 0 .. m-1 and
+divided by m (a true division, by a tensor: PyTorch divides by a Python
+scalar through its rounded reciprocal on the GPU) — the order the CUDA
+kernel uses, so the two agree bit for bit. The reference's ``jnp.mean``
+leaves the order to XLA.
+
+``weights`` ((m,) f32, zero on dead workers) selects the masked boundary:
+dead rows pass through the pullback and the mean is Σ w_i·x_i.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def worker_mean(src: torch.Tensor, weights=None) -> torch.Tensor:
+    """f32 mean over the rows of ``src`` (m, n) in order, or the weighted sum."""
+    m = src.shape[0]
+    if weights is None:
+        acc = src[0].float()
+        for i in range(1, m):
+            acc = acc + src[i].float()
+        return acc / torch.full((), float(m), dtype=torch.float32, device=src.device)
+    w = weights.float()
+    acc = src[0].float() * w[0]
+    for i in range(1, m):
+        acc = acc + src[i].float() * w[i]
+    return acc
+
+
+def pullback_mean(x, z, alpha: float, mean_pre: bool = False, weights=None):
+    """Eq. (4) + worker mean. x: (m, n), z: (n,). Returns new (x_new, mean);
+    the mean is of the pulled-back rows, or of x when ``mean_pre``."""
+    xf = x.float()
+    zf = z.float()
+    x_new = ((1.0 - alpha) * xf + alpha * zf[None]).to(x.dtype)
+    if weights is not None:
+        x_new = torch.where((weights.float() > 0)[:, None], x_new, x)
+    src = x if mean_pre else x_new
+    return x_new, worker_mean(src, weights).to(x.dtype)
+
+
+def pullback_mean_momentum(x, z, v, alpha: float, beta: float, weights=None):
+    """Eq. (4) + eqs. (10)-(11). x: (m, n); z (consumed anchor), v (anchor
+    momentum): (n,). Returns new (x_new, z_next, v_new)."""
+    x_new, mean = pullback_mean(x, z, alpha, weights=weights)
+    zf = z.float()
+    v_new = (beta * v.float() + (mean.float() - zf)).to(v.dtype)
+    z_next = (zf + v_new.float()).to(z.dtype)
+    return x_new, z_next, v_new

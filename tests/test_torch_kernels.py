@@ -9,8 +9,14 @@ the card and skip where there is none.
 Stated tolerances: RMSNorm f32 rtol 1e-6/atol 1e-6 (same formula, sums in
 another order); bf16 one bf16 ulp (the f32 results may straddle a rounding
 boundary). Paged append: bitwise. Paged attend f32 2e-6 (the reference's
-own kernel tolerance: online vs two-pass softmax).
+own kernel tolerance: online vs two-pass softmax). Optimizer steps (K1, K2)
+and fused boundaries (K3, K4): f32 within 2 ulp (XLA's CPU fusion may
+contract or reorder the reference's ops), bf16 equal or 1 bf16 ulp (XLA may
+keep an f32 intermediate where the reference rounds to bf16). On the card
+the kernels equal their plain versions bit for bit (same rounding points,
+same worker-sum order).
 """
+import functools
 import importlib
 from types import SimpleNamespace
 
@@ -19,6 +25,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import all_kernels
+from repro_torch.kernels.anchor_mix import ops as am_ops
+from repro_torch.kernels.anchor_mix import ref as am_ref
+from repro_torch.kernels.opt_step import ops as opt_ops
+from repro_torch.kernels.opt_step import ref as opt_ref
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.kernels.paged_attn import ref as pa_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -46,6 +56,11 @@ def jx():
         pa_ref=mod("repro.kernels.paged_attn.ref"),
         rms_kernel=mod("repro.kernels.rmsnorm.kernel"),
         rms_ref=mod("repro.kernels.rmsnorm.ref"),
+        flags=mod("repro.kernels.flags"),
+        opt_ops=mod("repro.kernels.opt_step.ops"),
+        opt_ref=mod("repro.kernels.opt_step.ref"),
+        am_ops=mod("repro.kernels.anchor_mix.ops"),
+        am_ref=mod("repro.kernels.anchor_mix.ref"),
     )
 
 
@@ -209,6 +224,172 @@ def test_paged_gather_and_targets_match_jax(rng, jx):
         np.testing.assert_array_equal(g_.numpy(), np.asarray(w))
 
 
+# -- K1/K2 optimizer steps ------------------------------------------------------
+
+
+def _close(got, want, dtype, scale=None):
+    """f32: within 2 ulp of the reference; bf16: within 1 bf16 ulp. With
+    ``scale`` (the elementwise largest operand magnitude) the bound grows by
+    that many ulps of the operands: the Pallas kernel in interpret mode
+    contracts ``a*b + c`` into one rounding where ``ref.py`` rounds twice,
+    which moves a result that cancels by up to an ulp of its operands (the
+    reference suite allows it 3e-7 absolute, tests/test_packed_optim.py)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    ulp = (lambda a: 2 * np.spacing(np.abs(a))) if dtype == "float32" else _bf16_ulp
+    lim = ulp(want) + (0 if scale is None else ulp(scale))
+    assert (np.abs(got - want) <= lim).all(), np.abs(got - want).max()
+
+
+def _scale(against, *arrays, like=None):
+    """Elementwise largest operand magnitude (for interpret mode), reduced
+    over the worker axis for a per-column output ``like``."""
+    if against == "ref":
+        return None
+    sc = functools.reduce(np.maximum, [np.abs(a) for a in arrays])
+    return sc.max(axis=0) if like is not None and like.dim() == 1 else sc
+
+
+def _jax_call(jx, against, fn_name, *args, **kw):
+    """The reference op on the CPU: its ``ref.py`` body, or the Pallas kernel
+    in interpret mode through its ``ops`` wrapper."""
+    fam = fn_name.split(".")[0]
+    if against == "ref":
+        return getattr(getattr(jx, fam + "_ref"), fn_name.split(".")[1])(*args, **kw)
+    with jx.flags.force_pallas():
+        return getattr(getattr(jx, fam + "_ops"), fn_name.split(".")[2])(*args, **kw)
+
+
+OPT_NS = [384, 300]  # 128-aligned, and ragged (the JAX wrapper pads)
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-4])
+@pytest.mark.parametrize("nesterov", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("against", ["ref", "pallas_interpret"])
+def test_sgd_step_plain_matches_jax(against, dtype, nesterov, weight_decay, rng, jx):
+    kw = dict(momentum=0.9, nesterov=nesterov, weight_decay=weight_decay)
+    tdt = getattr(torch, dtype)
+    for n in OPT_NS:
+        x, g, m = (rng.normal(size=(4, n)).astype(np.float32) for _ in range(3))
+        jargs = [jx.jnp.asarray(a, dtype) for a in (x, g, m)] + [jx.jnp.asarray(0.05, jx.jnp.float32)]
+        want = _jax_call(jx, against, "opt.sgd_update.sgd_step", *jargs, **kw)
+        tx, tm = _t(x, tdt), _t(m, tdt)
+        got = opt_ops.sgd_step(tx, _t(g, tdt), tm, torch.tensor(0.05), **kw)
+        assert got[0] is tx and got[1] is tm  # in place
+        for a, b in zip(got, want):
+            _close(a.float().numpy(), np.asarray(b.astype(jx.jnp.float32)), dtype, _scale(against, x, g, m))
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("against", ["ref", "pallas_interpret"])
+def test_adamw_step_plain_matches_jax(against, dtype, weight_decay, rng, jx):
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=weight_decay)
+    tdt = getattr(torch, dtype)
+    c1, c2 = np.float32(1 - 0.9**3), np.float32(1 - 0.95**3)
+    for n in OPT_NS:
+        x, g = (rng.normal(size=(4, n)).astype(np.float32) for _ in range(2))
+        mu = 0.1 * rng.normal(size=(4, n)).astype(np.float32)
+        nu = rng.random(size=(4, n)).astype(np.float32)
+        f32 = jx.jnp.float32
+        jargs = [jx.jnp.asarray(x, dtype), jx.jnp.asarray(g, dtype), jx.jnp.asarray(mu), jx.jnp.asarray(nu),
+                 jx.jnp.asarray(0.05, f32), jx.jnp.asarray(c1, f32), jx.jnp.asarray(c2, f32)]
+        want = _jax_call(jx, against, "opt.adamw_update.adamw_step", *jargs, **kw)
+        got = opt_ops.adamw_step(_t(x, tdt), _t(g, tdt), _t(mu), _t(nu), torch.tensor(0.05),
+                                 torch.tensor(c1), torch.tensor(c2), **kw)
+        sc = _scale(against, x, g, mu, nu)
+        _close(got[0].float().numpy(), np.asarray(want[0].astype(f32)), dtype, sc)
+        for a, b in zip(got[1:], want[1:]):
+            _close(a.numpy(), np.asarray(b), "float32", sc)
+
+
+def test_opt_steps_keep_padding_lanes_zero(rng):
+    """Padding lanes (zero in x, g and the state) stay exactly zero."""
+    x = torch.zeros(3, 256)
+    x[:, :200] = _t(rng.normal(size=(3, 200)).astype(np.float32))
+    g = torch.zeros_like(x)
+    g[:, :200] = _t(rng.normal(size=(3, 200)).astype(np.float32))
+    m, mu, nu = torch.zeros_like(x), torch.zeros_like(x), torch.zeros_like(x)
+    lr, c = torch.tensor(0.1), torch.tensor(0.5)
+    for _ in range(3):
+        opt_ops.sgd_step(x, g, m, lr, momentum=0.9, nesterov=True, weight_decay=1e-4)
+    y = x.clone()
+    for _ in range(3):
+        opt_ops.adamw_step(y, g, mu, nu, lr, c, c, b1=0.9, b2=0.95, eps=1e-8, weight_decay=1e-4)
+    for t in (x, m, y, mu, nu):
+        assert torch.count_nonzero(t[:, 200:]) == 0
+    assert torch.count_nonzero(x[:, :200]) > 0
+
+
+def test_weak_constants_round_to_the_tensor_dtype():
+    """JAX's weakly typed Python scalars take the array's dtype: 0.9 in bf16
+    is 0.8984375. PyTorch would multiply by float32(0.9)."""
+    assert opt_ref.weak(0.9, torch.bfloat16) == 0.8984375
+    assert opt_ref.weak(0.9, torch.float32) == float(np.float32(0.9))
+
+
+# -- K3/K4 fused boundaries --------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("against", ["ref", "pallas_interpret"])
+def test_pullback_plain_matches_jax(against, dtype, m, rng, jx):
+    """Masked (one dead row) and unmasked, K4 with and without mean_pre."""
+    n, alpha, beta = 384, 0.6, 0.7
+    tdt = getattr(torch, dtype)
+    x = rng.normal(size=(m, n)).astype(np.float32)
+    z = rng.normal(size=(n,)).astype(np.float32)
+    v = 0.1 * rng.normal(size=(n,)).astype(np.float32)
+    masks = [None]
+    if m > 1:
+        w = np.full(m, 1.0 / (m - 1), np.float32)
+        w[m // 2] = 0.0
+        masks.append(w)
+    jx_ = lambda a: jx.jnp.asarray(a, dtype)  # noqa: E731
+    for w in masks:
+        jw = None if w is None else jx.jnp.asarray(w)
+        tw = None if w is None else _t(w)
+        want = _jax_call(jx, against, "am.pullback_mean_momentum.pullback_mean_momentum",
+                         jx_(x), jx_(z), jx_(v), alpha, beta, weights=jw)
+        tx, tz, tv = _t(x, tdt), _t(z, tdt), _t(v, tdt)
+        got = am_ops.pullback_mean_momentum(tx, tz, tv, alpha, beta, weights=tw)
+        assert got[0] is tx and got[2] is tv and torch.equal(tz, _t(z, tdt))  # x, v in place; z kept
+        for a, b in zip(got, want):
+            sc = _scale(against, x, z[None], v[None], like=a)
+            _close(a.float().numpy(), np.asarray(b.astype(jx.jnp.float32)), dtype, sc)
+        for mean_pre in (False, True):
+            want = _jax_call(jx, against, "am.pullback_mean.pullback_mean", jx_(x), jx_(z), alpha,
+                             mean_pre=mean_pre, weights=jw)
+            got = am_ops.pullback_mean(_t(x, tdt), _t(z, tdt), alpha, mean_pre=mean_pre, weights=tw)
+            for a, b in zip(got, want):
+                sc = _scale(against, x, z[None], like=a)
+                _close(a.float().numpy(), np.asarray(b.astype(jx.jnp.float32)), dtype, sc)
+
+
+def test_worker_mean_sums_rows_in_order(rng):
+    """The plain worker mean is the f32 row sum in order 0..m-1 over m — the
+    order the CUDA kernel uses, so the card can hold them bit for bit."""
+    x = _t(rng.normal(size=(7, 64)).astype(np.float32) * np.float32(1e3))
+    acc = x[0].clone()
+    for i in range(1, 7):
+        acc = acc + x[i]
+    assert torch.equal(am_ref.worker_mean(x), acc / torch.tensor(7.0))
+    w = _t(rng.random(7).astype(np.float32))
+    acc = x[0] * w[0]
+    for i in range(1, 7):
+        acc = acc + x[i] * w[i]
+    assert torch.equal(am_ref.worker_mean(x, w), acc)
+
+
+def test_pullback_probe_raises_until_k8():
+    x, z = torch.zeros(2, 128), torch.zeros(128)
+    with pytest.raises(NotImplementedError, match="K8"):
+        am_ops.pullback_mean(x, z, 0.5, probe=True)
+    with pytest.raises(NotImplementedError, match="K8"):
+        am_ops.pullback_mean_momentum(x, z, z.clone(), 0.5, 0.7, probe=True)
+
+
 # -- dispatch -----------------------------------------------------------------
 
 
@@ -222,6 +403,12 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     q, pk, pv, pt, lens = _attend_case(rng)
     pa_ops.paged_attend_gqa(*map(_t, (q, pk, pv, pt, lens)))
     pa_ops.paged_append_(_t(pk), _t(pk[:3, :1]), _t(pt), _t(lens))
+    buf, lr = torch.zeros(2, 128), torch.tensor(0.1)
+    opt_ops.sgd_step(buf, buf.clone(), buf.clone(), lr, momentum=0.9, nesterov=True, weight_decay=0.0)
+    opt_ops.adamw_step(buf, buf.clone(), buf.clone(), buf.clone(), lr, lr, lr, b1=0.9, b2=0.95, eps=1e-8,
+                       weight_decay=0.0)
+    am_ops.pullback_mean(buf, buf[0].clone(), 0.6)
+    am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7)
     assert {k.name: k.launches for k in all_kernels()} == before
     assert all(k._lib is None for k in all_kernels())
 
@@ -235,6 +422,19 @@ def test_wrappers_reject_bad_inputs(rng):
     with pytest.raises(ValueError, match="window"):
         q, pk, pv, pt, lens = _attend_case(rng)
         pa_ops.paged_attend_gqa(*map(_t, (q, pk, pv, pt, lens)), window=0)
+    buf, lr = torch.zeros(2, 128), torch.tensor(0.1)
+    with pytest.raises(ValueError, match="shape"):
+        opt_ops.sgd_step(buf, torch.zeros(2, 64), buf.clone(), lr, momentum=0.9, nesterov=True, weight_decay=0.0)
+    with pytest.raises(ValueError, match="float32"):
+        opt_ops.sgd_step(buf, buf.clone(), buf.clone(), 0.1 * torch.ones(2), momentum=0.9, nesterov=True,
+                         weight_decay=0.0)
+    with pytest.raises(TypeError, match="float32"):
+        opt_ops.adamw_step(buf, buf.clone(), buf.bfloat16(), buf.clone(), lr, lr, lr, b1=0.9, b2=0.95, eps=1e-8,
+                           weight_decay=0.0)
+    with pytest.raises(ValueError, match="anchor"):
+        am_ops.pullback_mean(buf, torch.zeros(64), 0.6)
+    with pytest.raises(ValueError, match="weights"):
+        am_ops.pullback_mean(buf, torch.zeros(128), 0.6, weights=torch.ones(3))
 
 
 # -- on the card ---------------------------------------------------------------
@@ -281,3 +481,45 @@ def test_paged_attend_kernel_vs_plain_on_card(cuda, window):
     got = pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=window)
     want = pa_ref.paged_attend_gqa(q.reshape(4, 1, 28, 128), pk, pv, pt, lens, window=window).reshape(q.shape)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+
+def _card_case(cuda, dtype, m=16, n=17408):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return [torch.randn(m, n, generator=gen, device=cuda).to(dtype) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_opt_step_kernels_bitwise_on_card(cuda, dtype):
+    x, g, m = _card_case(cuda, dtype)
+    lr = torch.full((), 0.05, device=cuda)
+    kw = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
+    want = opt_ref.sgd_update(x, g, m, lr, **kw)
+    got = opt_ops.sgd_step(x.clone(), g, m.clone(), lr, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    mu, nu = x.float().abs() * 0.1, g.float().abs()
+    c = torch.full((), 0.3, device=cuda)
+    akw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=1e-4)
+    want = opt_ref.adamw_update(x, g, mu, nu, lr, c, c, **akw)
+    got = opt_ops.adamw_step(x.clone(), g, mu.clone(), nu.clone(), lr, c, c, **akw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_anchor_mix_kernels_bitwise_on_card(cuda, dtype, masked):
+    x, zz, vv = _card_case(cuda, dtype)
+    z, v = zz[0].contiguous(), vv[0].contiguous()
+    w = None
+    if masked:
+        w = torch.full((16,), 1 / 15, device=cuda)
+        w[3] = 0.0
+    want = am_ref.pullback_mean_momentum(x, z, v, 0.6, 0.7, weights=w)
+    got = am_ops.pullback_mean_momentum(x.clone(), z, v.clone(), 0.6, 0.7, weights=w)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for mean_pre in (False, True):
+        want = am_ref.pullback_mean(x, z, 0.6, mean_pre=mean_pre, weights=w)
+        got = am_ops.pullback_mean(x.clone(), z, 0.6, mean_pre=mean_pre, weights=w)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -302,9 +302,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
         assert not bad, bad
         assert "repro_torch.serving.engine" in names and "repro_torch.launch.serve" in names, names
+        for n in ("api.experiment", "core.strategy", "training.train_loop", "optim.optimizers",
+                  "parallel.packing", "kernels.opt_step.ops", "kernels.anchor_mix.ops", "data.loaders"):
+            assert "repro_torch." + n in names, n
         print(len(names))
         """
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 40
