@@ -15,7 +15,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2 ``adamw_step``, K3 ``pullback_mean_momentum`` and K4
    ``pullback_mean`` (masked and unmasked, ``mean_pre``) in f32 and bf16, at
    the classifier's plane (16 x 17,408) and on a 4 x 2^27 plane whose times
-   read bandwidth; all four bitwise against their plain versions.
+   read bandwidth; all four bitwise against their plain versions; (c) the
+   LM training kernels, K6 flash attention (forward, dQ and dK/dV
+   backward kernels) at the LM slice's shape (B 2, S 512, 28 heads, 4 KV
+   heads, D 128, causal), a ragged S with a padded K, a window and a
+   q_offset, and K7's backward at 7 and 1024 rows, in f32 and bf16, each
+   against its plain version (the backward also against torch autograd of
+   the plain forward) with the stated bounds; timed beside SDPA (forward;
+   backward alone; both) and F.rms_norm's backward, and K6 also at
+   B 1, S 4096, where the operations bound the work.
 3. The serving slice: (a) a 2-layer qwen2-7b at full attention width in f32,
    teacher-forced through ``paged_step`` on the card and on the CPU (plain
    versions), logits compared; (b) full-width qwen2-7b in bf16 with random
@@ -33,8 +41,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    first 20 rounds agree with the same run on the CPU (plain versions).
    Then sync-SGD for 600 steps, 20 rounds with AdamW (K2) and 20 with
    beta = 0 (K4), each with its launch counts, and one profiled overlap run.
-5. One JSON line with every kernel's numbers (K1-K4, K7, K9, K10), then the
-   device line last.
+5. The LM slice through ``repro_torch.api.Experiment(arch=...)`` with the
+   training CLI's defaults (Overlap-Local-SGD tau 2, alpha 0.6, beta 0.7;
+   SGD lr 1e-2, Nesterov 0.9): (a) the reduced qwen2-7b with 2 KV heads,
+   f32, seq 128, 2 workers, 3 rounds, on the card and on the CPU, losses
+   compared; (b) full-width qwen2-7b cut to 2 layers, bf16, 4 workers,
+   seq 512, 3 rounds from zeroed counters: finite losses, launch counts
+   exactly steps x workers x layers (K6 forward and each backward kernel),
+   steps x workers x (2 layers + 1) (K7 forward and backward), steps x
+   buckets (K1), rounds x buckets (K3); a non-zero gradient in every leaf of
+   every worker in the first step; a second run gives the same losses and
+   final plane bit for bit; a finite eval_loss; rounds/s, step ms, peak
+   memory and one profiled round.
+6. One JSON line with every kernel's numbers (K1-K4, K6 forward and
+   backward, K7 forward and backward, K9, K10), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -102,7 +122,7 @@ def check_rmsnorm(dev, gen):
 
     d, eps, worst, timing = 3584, 1e-6, 0.0, {}
     for dtype in (torch.bfloat16, torch.float32):
-        for rows in (1, 4, 32):
+        for rows in (1, 4, 32, 1024):
             x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
             scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
             got, want = ops.rmsnorm_2d(x, scale, eps=eps), ref.rmsnorm(x, scale, eps)
@@ -117,7 +137,7 @@ def check_rmsnorm(dev, gen):
                        max_abs_err=float(err.max()), max_rel_err=rel, bound=stated, ok=ok)
             if dtype == torch.bfloat16:
                 worst = max(worst, float(err.max()))
-            if dtype == torch.bfloat16 and rows in (4, 32):
+            if dtype == torch.bfloat16 and rows in (4, 32, 1024):
                 rec["ms"] = time_ms(lambda: ops.rmsnorm_2d(x, scale, eps=eps))
                 rec["plain_ms"] = time_ms(lambda: ref.rmsnorm(x, scale, eps))
                 rec["library_ms"] = time_ms(lambda: F.rms_norm(x, (d,), weight=scale, eps=eps))
@@ -408,6 +428,204 @@ def check_anchor_mix(dev, gen):
                         raise AssertionError(f"K4 kernel disagrees with plain: {rec}")
             del x, z, v
             _free()
+    return worst, timing
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (c): the LM training kernels K6 (forward, dQ, dK/dV) and K7's backward
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate, NVIDIA data sheet
+
+# (name, B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM
+# slice's own shape (full-width qwen2-7b at seq 512), a ragged S with a padded
+# K, a sliding window, a q_offset; and a long shape, timed where the
+# operations bound the work
+FA_CASES = [
+    ("slice", 2, 512, 512, 28, 4, 128, True, None, 0, None),
+    ("ragged", 1, 130, 160, 4, 2, 64, False, None, 0, 130),
+    ("window", 2, 256, 256, 8, 2, 128, True, 64, 0, None),
+    ("q_offset", 2, 64, 320, 8, 4, 64, True, None, 256, None),
+]
+FA_LONG = ("long", 1, 4096, 4096, 28, 4, 128, True, None, 0, None)
+# stated bounds, as max|kernel - plain| / max|plain| (see the module docstring
+# of repro_torch/kernels/flash_attention/ops.py): both sides compute in f32 and
+# sum in other orders; in bf16 a value near a rounding boundary (of p before
+# P.V, or of the output) may round either way
+FA_BOUND = {"float32": {"out": 1e-5, "lse": 1e-5, "grad": 2e-5, "autograd": 1e-4},
+            "bfloat16": {"out": 2.0**-7, "lse": 1e-5, "grad": 2.0**-7, "autograd": 2.0**-5}}
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+def _fa_inputs(case, dtype, gen, dev):
+    import torch
+
+    _, b, sq, sk, h, hkv, d, *_ = case
+    q = (torch.randn(b, sq, h, d, generator=gen, device=dev) / d**0.5).to(dtype)
+    k = torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dtype)
+    v = torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dtype)
+    dout = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+def _fa_work(case, dtype):
+    """(bytes, flops) of the forward, the dQ kernel and the dK/dV kernel for
+    these inputs: each input read once, each output written once; the
+    products over the (query, key) pairs the masks leave visible."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    _, b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
+    pairs = int(ref.visible(sq, sk, causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid).sum())
+    P = torch.finfo(dtype).bits // 8
+    nq, nk, stats = b * sq * h * d * P, b * sk * hkv * d * P, b * h * sq * 4
+    per = 2 * b * h * pairs * d  # one product over the visible pairs
+    return {"fwd": (2 * nq + 2 * nk + stats, 2 * per),  # S = QK^T, O = PV
+            "dq": (4 * nq + 2 * nk + 2 * stats, 3 * per),  # S, dP = dO V^T, dQ = dS K
+            "dkdv": (2 * nq + 4 * nk + 2 * stats, 4 * per)}  # S, dP, dV = P^T dO, dK = dS^T Q
+
+
+def check_flash_attention(dev, gen):
+    """K6 forward and both backward kernels against their plain versions on
+    the card (f32 and bf16), the backward also against torch autograd of the
+    plain forward; times in bf16 beside the plain versions, SDPA with GQA
+    expanded (forward; backward alone; forward + backward) and the bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
+    timing = {}
+    for case in FA_CASES + [FA_LONG]:
+        name, b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
+        kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
+        for dtype in (torch.float32, torch.bfloat16) if name != "long" else (torch.bfloat16,):
+            bnd = FA_BOUND[_name(dtype)]
+            q, k, v, dout = _fa_inputs(case, dtype, gen, dev)
+            out, lse = ops.flash_attention_fwd(q, k, v, **kw)
+            out_p, lse_p = ref.flash_attention_fwd(q, k, v, **kw)
+            fin = torch.isfinite(lse_p)
+            lse_err = float(((lse - lse_p).abs() / lse_p.abs().clamp_min(1.0))[fin].max()) if fin.any() else 0.0
+            lse_ok = lse_err <= bnd["lse"] and torch.equal(torch.isfinite(lse), fin)
+            dq, delta = ops.flash_attention_bwd_dq(q, k, v, out, lse, dout, **kw)
+            dk, dv = ops.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, **kw)
+            dq_p, dk_p, dv_p = ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            # the plain backward as torch autograd of the plain forward
+            qa, ka, va = (t.detach().requires_grad_(True) for t in (q, k, v))
+            ag = torch.autograd.grad(ref.flash_attention_fwd(qa, ka, va, **kw)[0], (qa, ka, va), dout)
+            errs = dict(out=_rel(out, out_p), lse=lse_err, dq=_rel(dq, dq_p), dk=_rel(dk, dk_p), dv=_rel(dv, dv_p),
+                        dq_autograd=_rel(dq, ag[0]), dk_autograd=_rel(dk, ag[1]), dv_autograd=_rel(dv, ag[2]))
+            ok = (errs["out"] <= bnd["out"] and lse_ok and all(errs[g] <= bnd["grad"] for g in ("dq", "dk", "dv"))
+                  and all(errs[g + "_autograd"] <= bnd["autograd"] for g in ("dq", "dk", "dv"))
+                  and all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv)))
+            rec = dict(kernel="K6 flash_attention", case=name, dtype=_name(dtype), shape=[b, sq, sk, h, hkv, d],
+                       causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid, rel_err=errs,
+                       max_abs_err=dict(out=float((out.float() - out_p.float()).abs().max()),
+                                        dq=float((dq.float() - dq_p.float()).abs().max()),
+                                        dk=float((dk.float() - dk_p.float()).abs().max()),
+                                        dv=float((dv.float() - dv_p.float()).abs().max())),
+                       bound={k2: f"max|d|/max|plain| <= {v2}" for k2, v2 in bnd.items()}, ok=ok)
+            worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["out"])
+            worst["dq"] = max(worst["dq"], rec["max_abs_err"]["dq"])
+            worst["dkdv"] = max(worst["dkdv"], rec["max_abs_err"]["dk"], rec["max_abs_err"]["dv"])
+            if dtype == torch.bfloat16 and name in ("slice", "long"):
+                rec["timing"] = timing[name] = _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta)
+            log(json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"K6 flash_attention kernels disagree with plain: {rec}")
+            del q, k, v, dout, out, lse, out_p, lse_p, dq, dk, dv, dq_p, dk_p, dv_p, ag, qa, ka, va, delta
+            _free()
+    return worst, timing
+
+
+def _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    name, b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
+    it = 20 if name == "slice" else 3
+    work = _fa_work(case, dtype)
+    # the yardstick: SDPA on (B, H, S, D) with the kv-heads repeated for GQA
+    g = h // hkv
+    qe = q.transpose(1, 2).contiguous().requires_grad_(True)
+    ke = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    ve = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    doe = dout.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal, scale=1.0)
+    oe = sdpa()
+    t = {"sdpa_vs_plain_rel_err": _rel(oe.detach().transpose(1, 2), out)}
+    t["fwd"] = dict(ms=time_ms(lambda: ops.flash_attention_fwd(q, k, v, **kw), it),
+                    plain_ms=time_ms(lambda: ref.flash_attention_fwd(q, k, v, **kw), it),
+                    library_ms=time_ms(sdpa, it))
+    lib_bwd = time_ms(lambda: torch.autograd.grad(oe, (qe, ke, ve), doe, retain_graph=True), it)
+    lib_fwd_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), (qe, ke, ve), doe), it)
+    t["dq"] = dict(ms=time_ms(lambda: ops.flash_attention_bwd_dq(q, k, v, out, lse, dout, **kw), it),
+                   plain_ms=time_ms(lambda: ref.flash_attention_bwd_dq(q, k, v, out, lse, dout, **kw), it),
+                   library_ms=lib_bwd, library_fwd_bwd_ms=lib_fwd_bwd)
+    t["dkdv"] = dict(ms=time_ms(lambda: ops.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, **kw), it),
+                     plain_ms=time_ms(lambda: ref.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, **kw), it),
+                     library_ms=lib_bwd, library_fwd_bwd_ms=lib_fwd_bwd)
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+    for part, (nbytes, flops) in work.items():
+        t[part]["bound_ms"], t[part]["bound_by"] = bound(nbytes, flops, rate)
+        t[part]["flops"], t[part]["bytes"] = flops, nbytes
+        t[part]["flop_rate"] = "989 TFLOP/s dense bf16" if dtype == torch.bfloat16 else "67 TFLOP/s f32"
+    t["library_note"] = "SDPA backward alone (autograd.grad with the graph kept) for both backward kernels"
+    return t
+
+
+RMS_BWD_ROWS = (7, 1024)  # a ragged row count, and the LM slice's rows (B*S = 2*512)
+
+
+def check_rmsnorm_bwd(dev, gen):
+    """K7 backward against torch autograd of the plain forward (f32, bf16);
+    times at the LM slice's rows beside the plain version and F.rms_norm's
+    autograd backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    d, eps, worst, timing = 3584, 1e-6, 0.0, None
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in RMS_BWD_ROWS:
+            x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+            scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+            dy = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+            got = ops.rmsnorm_bwd(x, scale, dy, eps=eps)
+            want = ref.rmsnorm_bwd(x, scale, dy, eps)
+            again = ops.rmsnorm_bwd(x, scale, dy, eps=eps)
+            ok, errs = all(torch.equal(a, b) for a, b in zip(got, again)), {}
+            for nm, g, w in zip(("dx", "dscale"), got, want):
+                err = (g.float() - w.float()).abs()
+                slack = 1e-5 * w.float().abs().max()
+                lim = slack + (bf16_ulp(w) if dtype == torch.bfloat16 else 0.0)
+                ok &= bool((err <= lim).all())
+                errs[nm] = float(err.max())
+            stated = ("1 bf16 ulp of plain + 1e-5*max|plain|" if dtype == torch.bfloat16
+                      else "1e-5*max|plain|")
+            rec = dict(kernel="K7 rmsnorm_bwd", dtype=_name(dtype), rows=rows, d=d, max_abs_err=errs, bound=stated,
+                       deterministic=True, ok=ok)
+            if dtype == torch.bfloat16:
+                worst = max(worst, *errs.values())
+            if dtype == torch.bfloat16 and rows == 1024:
+                xl, sl = x.detach().requires_grad_(True), scale.detach().requires_grad_(True)
+                yl = F.rms_norm(xl, (d,), weight=sl, eps=eps)
+                rec["ms"] = time_ms(lambda: ops.rmsnorm_bwd(x, scale, dy, eps=eps))
+                rec["plain_ms"] = time_ms(lambda: ref.rmsnorm_bwd(x, scale, dy, eps))
+                rec["library_ms"] = time_ms(lambda: torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True))
+                rec["bound_ms"], rec["bound_by"] = bound(3 * rows * d * 2 + 2 * d * 2, 10 * rows * d)
+                timing = rec
+            log(json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"K7 rmsnorm_bwd kernel disagrees with plain (or is not deterministic): {rec}")
     return worst, timing
 
 
@@ -757,6 +975,183 @@ def profile_train(exp, rounds):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the LM slice (qwen2-7b, Overlap-Local-SGD)
+# ---------------------------------------------------------------------------
+
+LM_ROUNDS, LM_WORKERS, LM_LAYERS = 3, 4, 2
+LM_BATCH, LM_SEQ = 2, 512
+
+
+def _lm_experiment(dev, cfg, workers, seq):
+    """The training CLI's defaults: Overlap-Local-SGD tau 2, alpha 0.6, beta
+    0.7, packed; SGD lr 1e-2 constant with Nesterov momentum 0.9."""
+    from repro_torch.api import Experiment, TokenStream
+    from repro_torch.config import AlgoConfig, OptimizerConfig
+    from repro_torch.optim import schedules
+
+    return Experiment(arch=cfg, strategy=AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6, anchor_beta=0.7),
+                      optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
+                      schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=seq),
+                      workers=workers, device=dev)
+
+
+def lm_card_vs_cpu(dev):
+    """The reduced qwen2-7b with 2 KV heads (group 2), f32, seq 128, m = 2,
+    3 rounds on the card (kernels) and on the CPU (plain versions), from the
+    same weights. Bound: per-round losses rtol 1e-4 (f32 matmuls, exp and log
+    on cuBLAS/CUDA and on the CPU sum and round in other orders; six SGD
+    steps carry those differences without amplifying them past 1e-4)."""
+    import numpy as np
+
+    from repro_torch.config import get_arch
+
+    base = get_arch("qwen2-7b").model.reduced()
+    cfg = dataclasses.replace(base, attention=dataclasses.replace(base.attention, num_kv_heads=2))
+    losses = {}
+    for key, device in (("cuda", dev), ("cpu", "cpu")):
+        losses[key] = np.asarray(_lm_experiment(device, cfg, 2, 128).fit(rounds=LM_ROUNDS).losses)
+    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    rec = dict(check="LM reduced qwen2-7b (group 2) f32, card kernels vs CPU plain", rounds=LM_ROUNDS,
+               losses_card=losses["cuda"].tolist(), losses_cpu=losses["cpu"].tolist(), max_rel_err=rel,
+               bound="rtol 1e-4", ok=rel <= 1e-4)
+    log(json.dumps(rec))
+    if not rec["ok"]:
+        raise AssertionError(f"LM card vs CPU losses: max rel {rel} > 1e-4")
+
+
+def _first_step_gradients(exp):
+    """The gradient plane of the first local step (the first batch of the
+    experiment's stream, from the built state): every leaf of every worker
+    must have a non-zero gradient. Returns the leaves' count."""
+    import torch
+
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.packing import leaf_views
+    from repro_torch.training.train_loop import gradient_plane
+
+    first = lm_batch_fn(exp.model_cfg, exp.workers, LM_BATCH, exp.data.seq_len, seed=exp.data.seed)()
+    pg, _ = gradient_plane(exp.loss_fn, exp.state.x, exp.to_device(first), per_worker=T.split_layers)
+    m = exp.workers
+    zero = [("/".join(p), int((~(v.reshape(m, -1) != 0).any(dim=1)).sum()))
+            for p, v in zip(pg.layout.paths, leaf_views(pg))]
+    zero = [z for z in zero if z[1]]
+    del pg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if zero:
+        raise AssertionError(f"leaves with an all-zero gradient in some worker (leaf, workers): {zero}")
+    return len(exp.state.x.layout.paths)
+
+
+def check_plane_scale(exp):
+    """K1 and K3 on the full-width plane (4 x 1.556e9 bf16, 6.2e9 elements,
+    offsets past 2^32): one launch each over the whole plane, then the last
+    2^20 columns of every worker row against the plain version run on those
+    columns alone (both kernels are elementwise across columns). Bound:
+    bitwise, as at the smaller planes."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix import ops as am_ops
+    from repro_torch.kernels.anchor_mix import ref as am_ref
+    from repro_torch.kernels.opt_step import ops as opt_ops
+    from repro_torch.kernels.opt_step import ref as opt_ref
+
+    t = 1 << 20
+    x, mom = exp.state.x.buffers[0], exp.state.opt.momentum.buffers[0]
+    z, v = exp.state.inflight.buffers[0], exp.state.vars.v.buffers[0]
+    g = torch.empty_like(x).normal_(generator=torch.Generator(device=x.device).manual_seed(SEED))
+    lr = torch.full((), 1e-2, dtype=torch.float32, device=x.device)
+    kw = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
+    want = opt_ref.sgd_update(x[:, -t:], g[:, -t:], mom[:, -t:], lr, **kw)
+    opt_ops.sgd_step(x, g, mom, lr, **kw)
+    k1 = torch.equal(x[:, -t:], want[0]) and torch.equal(mom[:, -t:], want[1])
+    del g, want
+    want = am_ref.pullback_mean_momentum(x[:, -t:], z[-t:], v[-t:], 0.6, 0.7)
+    _, z_next, _ = am_ops.pullback_mean_momentum(x, z, v, 0.6, 0.7)
+    k3 = torch.equal(x[:, -t:], want[0]) and torch.equal(z_next[-t:], want[1]) and torch.equal(v[-t:], want[2])
+    rec = dict(check="K1 and K3 on the full-width plane", plane=list(x.shape), dtype=_name(x.dtype),
+               columns_checked=t, bound="bitwise", k1_ok=k1, k3_ok=k3)
+    log(json.dumps(rec))
+    if not (k1 and k3):
+        raise AssertionError(f"K1/K3 disagree with plain at the plane's end: {rec}")
+
+
+def lm_full_width(dev, kernels):
+    """Full-width qwen2-7b cut to 2 layers, bf16, m = 4 workers, seq 512,
+    3 rounds (6 local steps) from zeroed counters: finite losses, exact launch
+    counts, a non-zero gradient in every leaf, bitwise replay, a finite
+    eval_loss; rounds/s, step ms, peak memory and one profiled round."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.config import get_arch
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+    t0 = time.perf_counter()
+    exp = _lm_experiment(dev, cfg, LM_WORKERS, LM_SEQ).build()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plane_shape, n_params = [list(b.shape) for b in exp.state.x.buffers], exp.num_params
+    log(f"full-width {cfg.name} x{LM_LAYERS} layers: {n_params} params in {cfg.dtype}, plane {plane_shape}, "
+        f"built in {build_s:.1f}s")
+    n_leaves = _first_step_gradients(exp)
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = exp.fit(rounds=LM_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    losses, steps = res.losses, res.steps
+    del res  # it holds the final state
+    m, L, buckets = LM_WORKERS, LM_LAYERS, exp.state.x.layout.num_buckets
+    want = {k.name: 0 for k in kernels}
+    want.update(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
+                flash_attention_bwd_dkdv=steps * m * L, rmsnorm=steps * m * (2 * L + 1),
+                rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, pullback_momentum=LM_ROUNDS * buckets)
+    if launches != want:
+        raise AssertionError(f"LM launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"LM losses not finite: {losses}")
+    plane = [b.to("cpu", copy=True) for b in exp.state.x.buffers]
+    evaluation = exp.evaluate()
+    if not math.isfinite(evaluation["eval_loss"]):
+        raise AssertionError(f"eval_loss not finite: {evaluation}")
+    profile = profile_train(exp, 1)
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    again = _lm_experiment(dev, cfg, LM_WORKERS, LM_SEQ).build()
+    second = again.fit(rounds=LM_ROUNDS).losses
+    if second != losses:
+        raise AssertionError(f"LM run is not deterministic: losses {losses} vs {second}")
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(plane, again.state.x.buffers)):
+        raise AssertionError("LM run is not deterministic: final planes differ")
+    del plane
+    check_plane_scale(again)
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(
+        slice=f"{cfg.name} full width, {L} layers, {cfg.dtype}", params=n_params,
+        workers=m, batch_per_worker=LM_BATCH, seq_len=LM_SEQ, rounds=LM_ROUNDS, steps=steps, plane=plane_shape,
+        leaves=n_leaves, build_s=build_s, wall_s=wall, rounds_per_s=LM_ROUNDS / wall, step_ms=wall / steps * 1e3,
+        losses=losses, eval_loss=evaluation["eval_loss"], peak_mem_bytes=peak, launches=launches,
+        nonzero_grad_every_leaf=True, deterministic_replay=True, profile=profile,
+    )
+    log(json.dumps(summary))
+    return summary
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -800,21 +1195,33 @@ def main() -> int:
     att_err, att_t = check_paged_attend(dev, gen)
     opt_err, opt_t = check_opt_step(dev, gen)
     mix_err, mix_t = check_anchor_mix(dev, gen)
+    fa_err, fa_t = check_flash_attention(dev, gen)
+    rb_err, rb_t = check_rmsnorm_bwd(dev, gen)
 
-    # phases 3 and 4: serving, then training
+    # phases 3, 4 and 5: serving, classifier training, LM training
     serving = [k for k in kernels if k.name in ("rmsnorm", "paged_attend", "paged_append")]
     check_small_model_against_cpu(dev)
     summary = serve_full_width(dev, serving)
     summary["card"] = card
     log(json.dumps(summary))
     runs, _ = train_slice(dev, kernels)
+    lm_card_vs_cpu(dev)
+    lm = lm_full_width(dev, kernels)
+    lm["card"] = card
 
-    # phase 5
+    # phase 6
     launches = dict(summary["launches"])
     launches["sgd_step"] = runs["overlap_local_sgd"]["launches"]["sgd_step"]
     launches["pullback_momentum"] = runs["overlap_local_sgd"]["launches"]["pullback_momentum"]
     launches["adamw_step"] = runs["overlap_adamw"]["launches"]["adamw_step"]
     launches["pullback_mean"] = runs["overlap_beta0"]["launches"]["pullback_mean"]
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv", "rmsnorm_bwd"):
+        launches[name] = lm["launches"][name]
+    # kernels on several paths: every path's count (K7's row keeps the serving run's)
+    by_path = {k.name: {"serving": summary["launches"].get(k.name, 0),
+                        "classifier": runs["overlap_local_sgd"]["launches"].get(k.name, 0),
+                        "lm": lm["launches"][k.name]} for k in kernels}
+    fa_slice = "bf16 B=2 S=512 H=28 Hkv=4 D=128 causal (the LM slice)"
     rows = [
         ("rmsnorm", "rmsnorm", "K7 rmsnorm_2d", "src/repro/kernels/rmsnorm/kernel.py:26", rms_err, rms_t[4],
          "bf16 rows=4 d=3584 (decode)", None),
@@ -830,6 +1237,17 @@ def main() -> int:
          mix_err["K3"], mix_t["K3"]["slice"], "f32 m=16 n=17408 (the classifier plane)", mix_t["K3"]["large"]),
         ("pullback_mean", "anchor_mix", "K4 pullback_mean_flat", "src/repro/kernels/anchor_mix/kernel.py:120",
          mix_err["K4"], mix_t["K4"]["slice"], "f32 m=16 n=17408 (the classifier plane)", mix_t["K4"]["large"]),
+        ("flash_attention_fwd", "flash_attention", "K6 flash_attention_bhsd (forward)",
+         "src/repro/kernels/flash_attention/kernel.py:83", fa_err["fwd"], fa_t["slice"]["fwd"], fa_slice,
+         dict(shape="bf16 B=1 S=4096 H=28 Hkv=4 D=128 causal", **fa_t["long"]["fwd"])),
+        ("flash_attention_bwd_dq", "flash_attention", "K6 backward, dQ kernel (new; no TPU kernel)",
+         "src/repro/kernels/flash_attention/ops.py:76", fa_err["dq"], fa_t["slice"]["dq"], fa_slice,
+         dict(shape="bf16 B=1 S=4096 H=28 Hkv=4 D=128 causal", **fa_t["long"]["dq"])),
+        ("flash_attention_bwd_dkdv", "flash_attention", "K6 backward, dK/dV kernel (new; no TPU kernel)",
+         "src/repro/kernels/flash_attention/ops.py:76", fa_err["dkdv"], fa_t["slice"]["dkdv"], fa_slice,
+         dict(shape="bf16 B=1 S=4096 H=28 Hkv=4 D=128 causal", **fa_t["long"]["dkdv"])),
+        ("rmsnorm_bwd", "rmsnorm", "K7 backward (new; the reference has none)", "src/repro/kernels/rmsnorm/ops.py:11",
+         rb_err, rb_t, "bf16 rows=1024 d=3584 (the LM slice)", None),
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     out = []
@@ -838,9 +1256,14 @@ def main() -> int:
             name=label, route="cuda", source=f"src/repro_torch/csrc/{source}.cu", replaces=replaces,
             launches=launches[name], max_abs_err=err, **{k: t[k] for k in keys}, shape=shape, status="ok", card=card,
         )
+        if "library_fwd_bwd_ms" in t:  # K6's backward: SDPA forward + backward too
+            entry["library_fwd_bwd_ms"] = t["library_fwd_bwd_ms"]
         if large is not None:
             entry["large"] = dict(shape=large["shape"], **{k: large[k] for k in keys})
+        if any(by_path[name][p] for p in ("serving", "classifier")) and any(by_path[name][p] for p in ("lm",)):
+            entry["launches_by_path"] = by_path[name]
         out.append(entry)
+    out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys})
     log(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

@@ -1,3 +1,3 @@
-from repro_torch.api.experiment import ClassificationSpec, Experiment, FitResult
+from repro_torch.api.experiment import ClassificationSpec, Experiment, FitResult, TokenStream
 
-__all__ = ["ClassificationSpec", "Experiment", "FitResult"]
+__all__ = ["ClassificationSpec", "Experiment", "FitResult", "TokenStream"]

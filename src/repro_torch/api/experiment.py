@@ -1,11 +1,22 @@
-"""The ``Experiment`` facade for classification training (counterpart of
+"""The ``Experiment`` facade for training (counterpart of
 ``repro.api.experiment``):
 
     from repro_torch.api import ClassificationSpec, Experiment
 
+    exp = Experiment(arch="qwen2-7b", strategy="overlap_local_sgd", workers=4, rounds=20)
+    exp.fit()
+    print(exp.evaluate())          # {'eval_loss': ...} of the consensus model
+
     exp = Experiment(task=ClassificationSpec(), strategy="overlap_local_sgd", workers=16)
     exp.fit(steps=600)
-    print(exp.evaluate())          # {'test_acc': ...} of the consensus model
+    print(exp.evaluate())          # {'test_acc': ...}
+
+Two task families, as in the reference: **LM** (``arch`` names a
+registered architecture, reduced unless ``full=True``, or is a
+``ModelConfig``; data is the synthetic token stream of ``data=``) and
+**classification** (``task=ClassificationSpec(...)``, the paper's CIFAR-10
+stand-in). The LM loss is taken worker by worker (the round engine's
+``per_worker`` mode), each stacked layer its own gradient window.
 
 The experiment runs on the GPU (``device="cuda"``, the default) and raises
 where there is none, unless the caller passes ``device="cpu"``; on the CPU
@@ -17,10 +28,10 @@ on the CPU (so the CPU and GPU runs of one seed start equal); they differ
 from the reference's ``jax.random`` draws, so parity tests carry the
 reference's initial state over with :mod:`repro_torch.interop`.
 
-Not here yet (each raises): the LM task ``arch=`` (ROADMAP Queue 1 item 3),
-``fit(adaptive_tau=…)`` (item 5) and ``fit(faults=…)`` (item 6); the
-strategies raise for ``AlgoConfig.packed=False`` (item 4) and
-``AlgoConfig.offload`` (item 9).
+Not here yet (each raises): ``fit(adaptive_tau=…)`` (ROADMAP Queue 1 item
+5), ``fit(faults=…)`` (item 6), ``serve()`` (item 7) and the archs
+``_check_supported`` rejects (item 8); the strategies raise for
+``AlgoConfig.packed=False`` (item 4) and ``AlgoConfig.offload`` (item 9).
 """
 from __future__ import annotations
 
@@ -31,21 +42,25 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.config.base import AlgoConfig, OptimizerConfig
+from repro_torch.config.base import AlgoConfig, ModelConfig, OptimizerConfig
+from repro_torch.config.registry import get_arch
 from repro_torch.core.strategy import CommStrategy, resolve_strategy
 from repro_torch.data.loaders import (
     ClassificationSplits,
     classification_batch_fn,
+    lm_batch_fn,
     make_classification_splits,
     round_batch,
 )
+from repro_torch.models import transformer as T
 from repro_torch.models.classifier import accuracy, init_mlp, mlp_loss
 from repro_torch.optim import from_config as opt_from_config
 from repro_torch.optim import schedules
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.parallel.packing import Packed, tree_flatten
+from repro_torch.parallel.packing import Packed, tree_flatten, tree_unflatten
 from repro_torch.serving.engine import resolve_device
 from repro_torch.training import consensus_params, make_round_step, make_train_state
+from repro_torch.training.train_loop import batch_map
 
 
 @dataclass
@@ -66,6 +81,15 @@ class ClassificationSpec:
 
 
 @dataclass
+class TokenStream:
+    """Synthetic LM token-stream spec (bigram-structured, per-worker seeds)."""
+
+    batch_per_worker: int = 2
+    seq_len: int = 64
+    seed: int = 0
+
+
+@dataclass
 class FitResult:
     losses: List[float]  # per-round mean loss
     state: Any  # final TrainState
@@ -80,25 +104,27 @@ class FitResult:
 
 @dataclass
 class Experiment:
-    """Declarative classification training experiment. See module docstring."""
+    """Declarative training experiment. See module docstring."""
 
-    arch: Any = None  # the LM task: not ported yet
+    arch: Union[str, ModelConfig, None] = None
     task: Optional[ClassificationSpec] = None
     strategy: Union[str, AlgoConfig, CommStrategy] = "overlap_local_sgd"
     optimizer: Union[str, OptimizerConfig, Optimizer] = field(default_factory=OptimizerConfig)
+    data: Optional[TokenStream] = None
     workers: int = 4
     rounds: int = 20
     schedule: Optional[Callable] = None  # lr schedule; default derives from the optimizer config
     grad_clip: float = 0.0
     microbatch: Optional[int] = None
+    full: bool = False  # the full (not reduced) registered model config
     seed: int = 0
     device: Union[str, torch.device] = "cuda"
 
     def __post_init__(self):
-        if self.arch is not None:
-            raise NotImplementedError("the LM task (Experiment(arch=...)) is ROADMAP Queue 1 item 3")
-        if self.task is None:
+        if self.arch is None and self.task is None:
             self.task = ClassificationSpec()
+        if self.arch is not None and self.task is not None:
+            raise ValueError("specify either arch= (LM) or task= (classification), not both")
         self._built = False
         self.state = None
 
@@ -121,33 +147,50 @@ class Experiment:
         self.dev = resolve_device(self.device)
         self.strategy_obj = resolve_strategy(self.strategy)
         self.opt_obj, self.schedule_fn = self._resolve_optimizer()
-        spec = self.task
-        self.splits = spec.splits or make_classification_splits(
-            self.workers, n=spec.n, dim=spec.dim, num_classes=spec.num_classes, noise=spec.noise,
-            holdout=spec.holdout, noniid=spec.noniid, skew=spec.skew, seed=spec.seed,
-        )
-        if self.splits.num_workers != self.workers:
-            raise ValueError(f"task splits have {self.splits.num_workers} partitions but workers={self.workers}")
         gen = torch.Generator().manual_seed(self.seed)
-        self.params = {k: v.to(self.dev) for k, v in
-                       init_mlp(gen, spec.dim, spec.num_classes, hidden=spec.hidden).items()}
-        self.next_batch = classification_batch_fn(self.splits, spec.batch_per_worker, seed=spec.seed)
+        if self.task is not None:
+            spec = self.task
+            self.splits = spec.splits or make_classification_splits(
+                self.workers, n=spec.n, dim=spec.dim, num_classes=spec.num_classes, noise=spec.noise,
+                holdout=spec.holdout, noniid=spec.noniid, skew=spec.skew, seed=spec.seed,
+            )
+            if self.splits.num_workers != self.workers:
+                raise ValueError(f"task splits have {self.splits.num_workers} partitions but workers={self.workers}")
+            self.model_cfg = None
+            params = init_mlp(gen, spec.dim, spec.num_classes, hidden=spec.hidden)
+            self.loss_fn, per_worker = mlp_loss, None
+            self.next_batch = classification_batch_fn(self.splits, spec.batch_per_worker, seed=spec.seed)
+        else:
+            if isinstance(self.arch, ModelConfig):
+                cfg = self.arch
+            else:
+                model = get_arch(self.arch).model
+                cfg = model if self.full else model.reduced()
+            self.model_cfg = cfg
+            stream = self.data or TokenStream()
+            params = T.init_model(cfg, gen)
+            self.loss_fn, per_worker = (lambda p, b: T.lm_loss(cfg, p, b)), T.split_layers
+            self.next_batch = lm_batch_fn(cfg, self.workers, stream.batch_per_worker, stream.seq_len, seed=stream.seed)
+        leaves, paths = tree_flatten(params)
+        self.params = tree_unflatten(paths, [t.to(self.dev) for t in leaves])
+        del params, leaves
         self.state = make_train_state(self.params, self.workers, self.opt_obj, self.strategy_obj)
-        self.step_fn = make_round_step(mlp_loss, self.opt_obj, self.strategy_obj, self.schedule_fn,
-                                       grad_clip=self.grad_clip, microbatch=self.microbatch)
+        self.step_fn = make_round_step(self.loss_fn, self.opt_obj, self.strategy_obj, self.schedule_fn,
+                                       grad_clip=self.grad_clip, microbatch=self.microbatch, per_worker=per_worker)
         self._built = True
         return self
 
-    def to_device(self, arrays) -> tuple:
-        """Host numpy arrays → tensors on the experiment's device (pinned and
-        copied without blocking the host on a GPU)."""
-        out = []
-        for a in arrays:
+    def to_device(self, batch):
+        """A tuple or dict of host numpy arrays → tensors on the experiment's
+        device (pinned and copied without blocking the host on a GPU)."""
+
+        def move(a):
             t = torch.from_numpy(np.array(a, order="C"))
             if self.dev.type == "cuda":
                 t = t.pin_memory().to(self.dev, non_blocking=True)
-            out.append(t)
-        return tuple(out)
+            return t
+
+        return batch_map(move, batch)
 
     # -- introspection ------------------------------------------------------
 
@@ -211,8 +254,23 @@ class Experiment:
             raise ValueError("anchor_plane() requires a packed anchor strategy (state.vars.z is the plane)")
         return z
 
-    def evaluate(self) -> dict:
-        """Held-out accuracy of the consensus model."""
+    def evaluate(self, eval_batches: int = 8) -> dict:
+        """Evaluate the consensus model: classification → held-out accuracy;
+        LM → mean loss on ``eval_batches`` fresh token batches (the stream
+        seeded ``seed + 7919``, the consensus cast to the param dtype)."""
         self.build()
-        x, y = self.to_device((self.splits.test.x, self.splits.test.y))
-        return {"test_acc": float(accuracy(self.consensus(), x, y))}
+        if self.task is not None:
+            x, y = self.to_device((self.splits.test.x, self.splits.test.y))
+            return {"test_acc": float(accuracy(self.consensus(), x, y))}
+        cfg = self.model_cfg
+        leaves, paths = tree_flatten(self.consensus())
+        p = tree_unflatten(paths, [t.to(cfg.param_dtype) for t in leaves])
+        if not hasattr(self, "_eval_stream"):
+            stream = self.data or TokenStream()
+            self._eval_stream = lm_batch_fn(cfg, 1, stream.batch_per_worker, stream.seq_len, seed=stream.seed + 7919)
+        losses = []
+        with torch.no_grad():
+            for _ in range(eval_batches):
+                batch = self.to_device({k: v[0] for k, v in self._eval_stream().items()})  # drop the worker axis
+                losses.append(float(self.loss_fn(p, batch)[0]))
+        return {"eval_loss": float(np.mean(losses))}

@@ -18,6 +18,17 @@
 // butterfly of shuffles, and warp 0 reduces the eight warp sums the same way,
 // so the result is deterministic from run to run. The second pass re-reads
 // the row (from L2) and writes y * scale, rounded once to the output type.
+//
+// Backward (new for the port; the reference defines no VJP for its kernel,
+// repro/kernels/rmsnorm/ops.py:11-21): with xh = x / rms and dyh = dy * scale,
+//   dx     = (dyh - xh * mean(xh * dyh)) / rms, in f32, rounded once to x's type;
+//   dscale = sum over rows of dy * xh, in two deterministic stages: each block
+//            of rmsnorm_bwd_kernel owns a fixed range of rows and sums them in
+//            row order into its own f32 partial row (a thread owns a fixed set
+//            of columns, so no two threads touch one word); rmsnorm_dscale_kernel
+//            then adds the partial rows in block order and rounds once to
+//            scale's type. No atomics: every run gives the same bits.
+// Bytes bound it too: x, dy and dx once each, plus the partials (blocks x d f32).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -99,6 +110,86 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ scale, T* __restri
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ scale, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ partial, int rows, int d, float eps, int rows_per_block) {
+  extern __shared__ float ds_acc[];  // this block's dscale partial, d floats
+  __shared__ float warp_sums[2][kWarps];
+  __shared__ float stats[2];
+  for (int c = threadIdx.x; c < d; c += kThreads) ds_acc[c] = 0.f;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(rows, r0 + rows_per_block);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int row = r0; row < r1; ++row) {
+    const T* xr = x + (size_t)row * d;
+    const T* gr = dy + (size_t)row * d;
+    float ss = 0.f, dot = 0.f;
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      const float xf = to_f(xr[c]);
+      ss += xf * xf;
+      dot += to_f(gr[c]) * to_f(scale[c]) * xf;
+    }
+    ss = warp_sum(ss);
+    dot = warp_sum(dot);
+    if (lane == 0) {
+      warp_sums[0][warp] = ss;
+      warp_sums[1][warp] = dot;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float a = lane < kWarps ? warp_sums[0][lane] : 0.f;
+      float b = lane < kWarps ? warp_sums[1][lane] : 0.f;
+      a = warp_sum(a);
+      b = warp_sum(b);
+      if (lane == 0) {
+        const float rms = sqrtf(a / (float)d + eps);
+        stats[0] = rms;
+        stats[1] = b / rms / (float)d;  // mean(xh * dyh)
+      }
+    }
+    __syncthreads();
+    const float rms = stats[0], mdot = stats[1];
+    T* dxr = dx + (size_t)row * d;
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      const float g = to_f(gr[c]);
+      const float xh = to_f(xr[c]) / rms;
+      dxr[c] = from_f<T>((g * to_f(scale[c]) - xh * mdot) / rms);
+      ds_acc[c] += g * xh;
+    }
+    __syncthreads();  // stats and warp_sums are reused by the next row
+  }
+  for (int c = threadIdx.x; c < d; c += kThreads) partial[(size_t)blockIdx.x * d + c] = ds_acc[c];
+}
+
+template <typename T>
+__global__ void rmsnorm_dscale_kernel(const float* __restrict__ partial, T* __restrict__ dscale, int blocks, int d) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int b = 0; b < blocks; ++b) s += partial[(size_t)b * d + c];
+  dscale[c] = from_f<T>(s);
+}
+
+template <typename T>
+int bwd(const void* x, const void* scale, const void* dy, void* dx, void* dscale, void* partial, int rows, int d,
+        float eps, int rows_per_block, cudaStream_t st) {
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  const int smem = d * (int)sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  rmsnorm_bwd_kernel<T><<<blocks, kThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(scale), static_cast<const T*>(dy), static_cast<T*>(dx),
+      static_cast<float*>(partial), rows, d, eps, rows_per_block);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rmsnorm_dscale_kernel<T><<<(d + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<T*>(dscale), blocks, d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x, out: (rows, d) contiguous; scale: (d,).
@@ -123,4 +214,16 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* out, int r
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// x, dy, dx: (rows, d) contiguous; scale, dscale: (d,); partial: f32 scratch of
+// ceil(rows / rows_per_block) x d.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale, const void* dy, void* dx, void* dscale,
+                                  void* partial, int rows, int d, float eps, int rows_per_block, int dtype,
+                                  void* stream) {
+  if (rows <= 0 || d <= 0 || rows_per_block <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0) return bwd<float>(x, scale, dy, dx, dscale, partial, rows, d, eps, rows_per_block, st);
+  if (dtype == 1) return bwd<__nv_bfloat16>(x, scale, dy, dx, dscale, partial, rows, d, eps, rows_per_block, st);
+  return (int)cudaErrorInvalidValue;
 }

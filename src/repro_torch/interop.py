@@ -8,9 +8,10 @@ module imports no JAX; it reads the reference's objects by their fields.
 * :func:`packed_from_numpy` — a packed plane → the port's ``Packed``, bit
   for bit (the two packages lay a tree out identically).
 * :func:`state_from_numpy` — a plane-resident ``TrainState`` (x, opt, vars,
-  step, inflight) → the port's ``TrainState``, bit for bit. The parity tests
-  start both packages from the reference's ``Experiment.build()`` state this
-  way, because ``jax.random`` and ``torch.Generator`` draw different weights.
+  step, inflight) → the port's ``TrainState``, bit for bit, f32 or bf16. The
+  parity tests start both packages from the reference's
+  ``Experiment.build()`` state this way (the classifier's and the LM's),
+  because ``jax.random`` and ``torch.Generator`` draw different weights.
 """
 from __future__ import annotations
 

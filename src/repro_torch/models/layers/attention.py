@@ -1,20 +1,29 @@
-"""Grouped-query attention, paged decode path (counterpart of the GQA parts
-of ``repro.models.layers.attention``).
+"""Grouped-query attention (counterpart of the GQA parts of
+``repro.models.layers.attention``).
 
-The serving slice ports ``init_gqa``, ``_project_qkv`` (with ``qkv_bias``),
-the pre-scaling ``q / sqrt(head_dim)`` in the activation dtype, and the
-paged decode branch: append K, append V (kernel K10, in place), then attend
-(kernel K9 for one token per slot; the plain chunked-prefill body for T > 1).
-MLA and the dense train/prefill/decode paths come in later slices.
+Ported: ``init_gqa``, ``_project_qkv`` (with ``qkv_bias``), the pre-scaling
+``q / sqrt(head_dim)`` in the activation dtype, and two modes of
+``gqa_apply``:
+
+* ``mode="train"``: causal (optionally windowed) attention over the whole
+  sequence through ``_sdpa``, which is kernel K6 (``flash_attention``,
+  forward and backward kernels) for CUDA tensors and its plain version for
+  CPU tensors;
+* ``mode="decode"`` with ``paged=``: append K, append V (kernel K10, in
+  place), then attend (kernel K9 for one token per slot; the plain
+  chunked-prefill body for T > 1).
+
+MLA, prefill caches and the dense decode path come in later slices.
 """
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.config.base import AttentionConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models.layers import rope as rope_mod
 
@@ -56,6 +65,11 @@ def _project_qkv(params, cfg: AttentionConfig, x):
     return q.reshape(b_, s, h, hd), k.reshape(b_, s, kv, hd), v.reshape(b_, s, kv, hd)
 
 
+def _sdpa(q, k, v, *, causal: bool, window: Optional[int], q_offset: int) -> torch.Tensor:
+    """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D), q pre-scaled -> (B,Sq,H,D) via K6."""
+    return fa_ops.flash_attention(q, k, v, causal, window, q_offset)
+
+
 def gqa_apply(
     params,
     cfg: AttentionConfig,
@@ -63,10 +77,12 @@ def gqa_apply(
     cos,
     sin,
     *,
-    cache: dict,
-    paged,  # serving.paged_cache.PagedState
-) -> Tuple[torch.Tensor, dict]:
-    """Paged decode: the reference's ``gqa_apply(mode="decode", paged=...)``."""
+    mode: str = "train",
+    cache: Optional[dict] = None,
+    paged=None,  # serving.paged_cache.PagedState
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """The reference's ``gqa_apply`` for ``mode="train"`` and for
+    ``mode="decode"`` with ``paged=`` (pools updated in place)."""
     q, k, v = _project_qkv(params, cfg, x)
     if cfg.rope != "none" and cos is not None:
         q = rope_mod.apply_rope(q, cos, sin)
@@ -74,9 +90,15 @@ def gqa_apply(
     q = q / _sqrt_in(cfg.head_dim, q.dtype)
     window = cfg.sliding_window
 
-    pool_k = pa_ops.paged_append_(cache["pool_k"], k, paged.page_tables, paged.lengths)
-    pool_v = pa_ops.paged_append_(cache["pool_v"], v, paged.page_tables, paged.lengths)
-    out = pa_ops.paged_attend_gqa(q, pool_k, pool_v, paged.page_tables, paged.lengths, window=window)
+    if mode == "train":
+        out = _sdpa(q, k, v, causal=True, window=window, q_offset=0)
+    elif mode == "decode" and paged is not None:
+        pool_k = pa_ops.paged_append_(cache["pool_k"], k, paged.page_tables, paged.lengths)
+        pool_v = pa_ops.paged_append_(cache["pool_v"], v, paged.page_tables, paged.lengths)
+        out = pa_ops.paged_attend_gqa(q, pool_k, pool_v, paged.page_tables, paged.lengths, window=window)
+    else:
+        raise NotImplementedError(f"gqa_apply(mode={mode!r}, paged={paged is not None}): prefill caches and the "
+                                  "dense decode path are ROADMAP Queue 1 item 7")
 
     b_, s = out.shape[0], out.shape[1]
     y = out.to(x.dtype).reshape(b_, s, cfg.num_heads * cfg.head_dim) @ params["wo"]

@@ -1,6 +1,6 @@
 """Rotary position embeddings, rotate-half convention (Llama/Qwen); counterpart
-of ``repro.models.layers.rope`` without M-RoPE (not needed by the serving
-slice). Angles and the rotation are float32; the result is cast back."""
+of ``repro.models.layers.rope`` without M-RoPE (ROADMAP Queue 1 item 8).
+Angles and the rotation are float32; the result is cast back."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -11,6 +11,11 @@ import torch
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     half = head_dim // 2
     return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=device) / half))
+
+
+def text_positions(batch: int, seq: int, offset=0, device=None) -> torch.Tensor:
+    """(batch, seq) int32 positions ``offset .. offset + seq - 1``."""
+    return torch.arange(seq, dtype=torch.int32, device=device)[None, :].expand(batch, seq) + offset
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,23 +1,27 @@
-"""Decoder-only transformer, serving slice (counterpart of
-``repro.models.transformer``).
+"""Decoder-only transformer (counterpart of ``repro.models.transformer``).
 
 A model is a sequence of *segments*, maximal runs of identical block kinds;
 each run keeps its parameters stacked with a leading layer axis, exactly as
 the reference does, so JAX's parameter tree transfers leaf for leaf
 (:mod:`repro_torch.interop`). The reference's ``lax.scan`` over a run is a
-Python loop over its layers here, indexing the stacked weights and pools.
+Python loop over its layers here, indexing the stacked weights and pools
+(a stacked leaf may also be given as a list of per-layer tensors, which is
+how the training loop hands each layer its own gradient window; see
+:func:`split_layers`).
 
-Ported: ``segments``, ``init_model`` and ``apply_model(mode="decode",
-paged=...)`` for ``"attn"`` segments of GQA text archs (pre-norm RMSNorm
-blocks with SwiGLU), with ``_embed``, ``_rope_for`` and ``_head``. MoE, SSM,
-shared-attention, frontends, MTP and the dense train/prefill/decode modes
-come in later slices and raise here.
+Ported for ``"attn"`` segments of GQA text archs (pre-norm RMSNorm blocks
+with SwiGLU): ``segments``, ``init_model``, ``apply_model`` in
+``mode="train"`` (the LM training path: K6 attention, K7 norms) and in
+``mode="decode"`` with ``paged=`` (the serving path), ``softmax_xent`` and
+``lm_loss``. MoE, SSM, shared attention, frontends and MTP (ROADMAP Queue 1
+item 8), prefill caches and dense decode (item 7) raise here.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import params as P
@@ -37,15 +41,20 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return out
 
 
+ITEM8 = "ROADMAP Queue 1 item 8"
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     a = cfg.attention
     if cfg.frontend is not None or a is None or a.kind != "gqa" or a.rope == "mrope":
-        raise NotImplementedError(f"{cfg.name}: the port covers GQA text archs (no frontend, no M-RoPE)")
+        raise NotImplementedError(f"{cfg.name}: the port covers GQA text archs; frontends, MLA and M-RoPE are {ITEM8}")
     if cfg.use_parallel_block or cfg.use_qk_norm or cfg.act != "silu" or cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: parallel blocks, QK-norm, GELU MLPs and tied embeddings come later")
+        raise NotImplementedError(f"{cfg.name}: parallel blocks, QK-norm, GELU MLPs and tied embeddings are {ITEM8}")
+    if cfg.moe is not None or cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}: MoE and multi-token prediction are {ITEM8}")
     kinds = {kind for kind, _ in segments(cfg)}
     if kinds != {"attn"}:
-        raise NotImplementedError(f"{cfg.name}: segment kinds {sorted(kinds)}; the port covers 'attn' only")
+        raise NotImplementedError(f"{cfg.name}: segment kinds {sorted(kinds)}; the port covers 'attn' ({ITEM8})")
 
 
 def _init_block(b, cfg: ModelConfig):
@@ -80,17 +89,27 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _apply_block(cfg: ModelConfig, prm, x, cos, sin, *, cache, eps, paged):
+def split_layers(path: Tuple[str, ...], leaf: torch.Tensor):
+    """A stacked segment leaf (key path ``("seg{i}", ...)``) as the list of
+    its per-layer views, any other leaf as it is. The training loop makes
+    each piece its own autograd leaf, so the backward of layer i writes
+    into layer i's window of the gradient plane instead of a zero-filled
+    copy of the whole stack."""
+    return list(leaf.unbind(0)) if path[0].startswith("seg") else leaf
+
+
+def _apply_block(cfg: ModelConfig, prm, x, cos, sin, *, mode, cache, eps, paged):
     h = rmsnorm(prm["ln1"], x, eps)
-    y, cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, cache=cache, paged=paged)
+    y, cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, mode=mode, cache=cache, paged=paged)
     x = x + y
     h2 = rmsnorm(prm["ln2"], x, eps)
     return x + mlp_mod.swiglu(prm["ffn"], h2)
 
 
 def _embed(cfg: ModelConfig, params, inputs) -> torch.Tensor:
-    toks = inputs["tokens"]
-    return params["tok_emb"][toks.long()].to(cfg.param_dtype)
+    # a row gather; its backward on the card (embedding_dense_backward) sums
+    # repeated tokens in a fixed order, so replays are bitwise
+    return F.embedding(inputs["tokens"].long(), params["tok_emb"]).to(cfg.param_dtype)
 
 
 def _rope_for(cfg: ModelConfig, inputs, batch: int, seq: int, offset=0):
@@ -99,8 +118,7 @@ def _rope_for(cfg: ModelConfig, inputs, batch: int, seq: int, offset=0):
         return None, None
     pos = inputs.get("positions")
     if pos is None:
-        dev = inputs["tokens"].device
-        pos = torch.arange(seq, dtype=torch.int32, device=dev)[None, :].expand(batch, seq) + offset
+        pos = rope_mod.text_positions(batch, seq, offset, device=inputs["tokens"].device)
     return rope_mod.rope_cos_sin(pos, a.head_dim, a.rope_theta)
 
 
@@ -113,25 +131,43 @@ def apply_model(
     params: dict,
     inputs: dict,
     *,
-    mode: str = "decode",
-    caches: Dict[str, Any],
-    paged,
+    mode: str = "train",
+    caches: Optional[Dict[str, Any]] = None,
+    paged=None,
 ) -> Tuple[torch.Tensor, dict]:
-    """Paged decode forward: ``inputs`` holds ``tokens`` (S, T) and per-row
-    ``positions`` (S, T); ``caches`` the per-segment page pools, updated in
-    place. Returns (logits, aux) with aux ``caches`` and ``hidden``."""
-    if mode != "decode" or paged is None:
-        raise NotImplementedError("the port serves the paged decode path only (mode='decode', paged=...)")
+    """Returns (logits, aux) with aux ``caches`` and ``hidden``.
+
+    ``mode="train"``: ``inputs`` holds ``tokens`` (B, S); causal attention
+    over the whole sequence, no caches. ``mode="decode"`` with ``paged``:
+    ``inputs`` holds ``tokens`` (S, T) and per-row ``positions`` (S, T);
+    ``caches`` the per-segment page pools, updated in place."""
     _check_supported(cfg)
     x = _embed(cfg, params, inputs)
     b_, s = x.shape[0], x.shape[1]
     cos, sin = _rope_for(cfg, inputs, b_, s)
     eps = cfg.norm_eps
     for si, (_, n) in enumerate(segments(cfg)):
-        seg_params, seg_cache = params[f"seg{si}"], caches[f"seg{si}"]
+        seg_params = params[f"seg{si}"]
+        seg_cache = caches[f"seg{si}"] if caches else None
         for i in range(n):
-            x = _apply_block(
-                cfg, _layer(seg_params, i), x, cos, sin, cache=_layer(seg_cache, i), eps=eps, paged=paged
-            )
+            cache = _layer(seg_cache, i) if seg_cache is not None else None
+            x = _apply_block(cfg, _layer(seg_params, i), x, cos, sin, mode=mode, cache=cache, eps=eps, paged=paged)
     hidden = rmsnorm(params["final_norm"], x, eps)
-    return _head(cfg, params, hidden), dict(caches=caches, hidden=hidden)
+    return _head(cfg, params, hidden), dict(caches=caches or {}, hidden=hidden)
+
+
+def softmax_xent(logits, targets) -> torch.Tensor:
+    """Mean next-token cross-entropy in f32 (the reference's ``softmax_xent``
+    without the loss mask, which only the vision frontend uses)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
+    """``batch``: dict(tokens=(B, S), targets=(B, S)) -> (loss, metrics), as
+    the reference's ``lm_loss`` for a text arch without MoE or MTP."""
+    logits, _ = apply_model(cfg, params, batch, mode="train")
+    loss = softmax_xent(logits, batch["targets"])
+    return loss, dict(xent=loss, loss=loss)

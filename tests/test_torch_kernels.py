@@ -8,7 +8,16 @@ the card and skip where there is none.
 
 Stated tolerances: RMSNorm f32 rtol 1e-6/atol 1e-6 (same formula, sums in
 another order); bf16 one bf16 ulp (the f32 results may straddle a rounding
-boundary). Paged append: bitwise. Paged attend f32 2e-6 (the reference's
+boundary); its backward (the autograd Function on its plain path) against
+``jax.grad`` of the reference the same. Flash attention (K6), as
+max|port − JAX| / max|JAX|: forward f32 1e-5 and the gradient (against
+``jax.vjp`` of ``chunked_mha``) f32 1e-5 (sums in other orders; observed
+≤ 2e-6); forward bf16 2^-7 (the plain version rounds p to bf16 before P·V
+as the Pallas body does, the exact reference does not, and interpret mode
+also rounds each 128-key block's P·V to bf16; observed ≤ 4.2e-3) and the
+bf16 gradient 2^-5 (the port's Δ = rowsum(dO∘O) reads the bf16-rounded
+output, as FlashAttention-2 does, while JAX differentiates its f32
+recompute, and dS = p∘(dP − Δ) cancels; observed ≤ 1.7e-2). Paged append: bitwise. Paged attend f32 2e-6 (the reference's
 own kernel tolerance: online vs two-pass softmax). Optimizer steps (K1, K2)
 and fused boundaries (K3, K4): f32 within 2 ulp (XLA's CPU fusion may
 contract or reorder the reference's ops), bf16 equal or 1 bf16 ulp (XLA may
@@ -27,6 +36,8 @@ import torch
 from repro_torch.kernels import all_kernels
 from repro_torch.kernels.anchor_mix import ops as am_ops
 from repro_torch.kernels.anchor_mix import ref as am_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.opt_step import ops as opt_ops
 from repro_torch.kernels.opt_step import ref as opt_ref
 from repro_torch.kernels.paged_attn import ops as pa_ops
@@ -61,6 +72,9 @@ def jx():
         opt_ref=mod("repro.kernels.opt_step.ref"),
         am_ops=mod("repro.kernels.anchor_mix.ops"),
         am_ref=mod("repro.kernels.anchor_mix.ref"),
+        jax=mod("jax"),
+        fa_ops=mod("repro.kernels.flash_attention.ops"),
+        fa_ref=mod("repro.kernels.flash_attention.ref"),
     )
 
 
@@ -111,6 +125,133 @@ def test_rmsnorm_leading_dims_and_empty(rng):
     torch.testing.assert_close(out, rms_ref.rmsnorm(x, s), rtol=0, atol=0)
     empty = torch.zeros(0, 64)
     assert rms_ops.rmsnorm(empty, s).shape == (0, 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_function_grads_match_jax(dtype, rng, jx):
+    """The autograd Function (plain path here) against ``jax.vjp`` of the
+    reference ``rmsnorm``: dx and dscale."""
+    x = rng.normal(size=(5, 384)).astype(np.float32)
+    scale = (1 + 0.1 * rng.normal(size=(384,))).astype(np.float32)
+    dy = rng.normal(size=(5, 384)).astype(np.float32)
+    _, vjp = jx.jax.vjp(lambda a, b: jx.rms_ref.rmsnorm(a, b, 1e-6), jx.jnp.asarray(x, dtype), jx.jnp.asarray(scale, dtype))
+    want = [np.asarray(g.astype(jx.jnp.float32)) for g in vjp(jx.jnp.asarray(dy, dtype))]
+    tdt = getattr(torch, dtype)
+    xt, st = _t(x, tdt).requires_grad_(True), _t(scale, tdt).requires_grad_(True)
+    y = rms_ops.rmsnorm(xt, st, 1e-6)
+    assert type(y.grad_fn.next_functions[0][0]).__name__.startswith("RMSNorm")
+    y.backward(_t(dy, tdt))
+    for got, w in zip((xt.grad, st.grad), want):
+        got = got.float().numpy()
+        if dtype == "float32":
+            assert np.abs(got - w).max() <= 1e-6 * np.abs(w).max()
+        else:
+            assert (np.abs(got - w) <= _bf16_ulp(w)).all()
+
+
+def test_rmsnorm_bwd_plain_is_autograd_of_plain_forward(rng):
+    x = _t(rng.normal(size=(7, 64)).astype(np.float32)).requires_grad_(True)
+    s = _t((1 + 0.1 * rng.normal(size=(64,))).astype(np.float32)).requires_grad_(True)
+    dy = _t(rng.normal(size=(7, 64)).astype(np.float32))
+    rms_ref.rmsnorm(x, s, 1e-5).backward(dy)
+    dx, ds = rms_ops.rmsnorm_bwd(x.detach(), s.detach(), dy, eps=1e-5)
+    assert torch.equal(dx, x.grad) and torch.equal(ds, s.grad)
+    # no gradient wanted: the plain forward, no graph
+    assert rms_ops.rmsnorm(x.detach(), s.detach()).grad_fn is None
+
+
+# -- K6 flash attention ------------------------------------------------------------
+
+# the reference's own kernel sweep (tests/test_kernels.py): GQA, a ragged S,
+# a sliding window, bidirectional, one query against a cache (q_offset)
+FA_CASES = [
+    (2, 64, 64, 4, 2, 32, True, None),
+    (1, 130, 130, 4, 4, 64, True, None),
+    (2, 64, 64, 8, 2, 32, True, 16),
+    (1, 64, 64, 2, 1, 32, False, None),
+    (2, 1, 96, 4, 2, 32, True, None),
+]
+FA_FWD_BOUND = {"float32": 1e-5, "bfloat16": 2.0**-7}
+FA_GRAD_BOUND = {"float32": 1e-5, "bfloat16": 2.0**-5}
+
+
+def _fa_case(rng, b, sq, sk, h, hkv, d):
+    return [rng.normal(size=s).astype(np.float32) for s in ((b, sq, h, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+
+
+def _rel(got, want):
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES, ids=["gqa", "ragged", "window", "bidir", "q_offset"])
+def test_flash_attention_plain_matches_jax(case, dtype, rng, jx):
+    """The plain forward against the reference's exact softmax and against
+    its Pallas kernel in interpret mode (its own public wrapper)."""
+    b, sq, sk, h, hkv, d, causal, window = case
+    q_off = sk - sq if sq < sk else 0
+    arrays = _fa_case(rng, b, sq, sk, h, hkv, d)
+    jarr = [jx.jnp.asarray(a, dtype) for a in arrays]
+    tdt = getattr(torch, dtype)
+    got = fa_ops.flash_attention(*[_t(a, tdt) for a in arrays], causal, window, q_off).float().numpy()
+    exact = jx.fa_ref.mha_reference(*jarr, causal=causal, window=window, q_offset=q_off)
+    interp = jx.fa_ops.flash_attention(*jarr, causal, window, q_off)
+    for want in (exact, interp):
+        assert _rel(got, np.asarray(want.astype(jx.jnp.float32))) <= FA_FWD_BOUND[dtype]
+    # the port's copies of the reference's oracles
+    tq, tk, tv = (_t(a) for a in arrays)
+    kw = dict(causal=causal, window=window, q_offset=q_off)
+    if dtype == "float32":
+        np.testing.assert_allclose(fa_ref.mha_reference(tq, tk, tv, **kw).numpy(), np.asarray(exact), rtol=1e-5,
+                                   atol=1e-5)
+        jchunk = jx.fa_ref.chunked_mha(*jarr, block_q=16, block_k=32, **kw)
+        np.testing.assert_allclose(fa_ref.chunked_mha(tq, tk, tv, block_q=16, block_k=32, **kw).numpy(),
+                                   np.asarray(jchunk), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES, ids=["gqa", "ragged", "window", "bidir", "q_offset"])
+def test_flash_attention_function_grads_match_jax_vjp(case, dtype, rng, jx):
+    """The autograd Function (plain FlashAttention-2 backward here) against
+    ``jax.vjp`` of ``chunked_mha``, the reference's own backward."""
+    b, sq, sk, h, hkv, d, causal, window = case
+    q_off = sk - sq if sq < sk else 0
+    arrays = _fa_case(rng, b, sq, sk, h, hkv, d)
+    g = rng.normal(size=(b, sq, h, d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    leaves = [_t(a, tdt).requires_grad_(True) for a in arrays]
+    out = fa_ops.flash_attention(*leaves, causal, window, q_off)
+    assert type(out.grad_fn).__name__.startswith("FlashAttention")
+    out.backward(_t(g, tdt))
+    _, vjp = jx.jax.vjp(lambda q, k, v: jx.fa_ref.chunked_mha(q, k, v, causal=causal, window=window, q_offset=q_off),
+                        *[jx.jnp.asarray(a, dtype) for a in arrays])
+    for leaf, want in zip(leaves, vjp(jx.jnp.asarray(g, dtype))):
+        assert leaf.grad.dtype == tdt
+        assert _rel(leaf.grad.float().numpy(), np.asarray(want.astype(jx.jnp.float32))) <= FA_GRAD_BOUND[dtype]
+
+
+def test_flash_attention_plain_masks_and_empty_rows(rng):
+    """sk_valid masks the padded keys (garbage there, even NaN, cannot leak);
+    a row with every key masked gives a zero output, lse +inf and zero
+    gradients; the backward equals torch autograd of the plain forward in
+    f32."""
+    q, k, v = (_t(a) for a in _fa_case(rng, 1, 8, 12, 2, 1, 16))
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 10:], v2[:, 10:] = float("nan"), float("nan")
+    out, lse = fa_ops.flash_attention_fwd(q, k2, v2, causal=False, window=None, q_offset=0, sk_valid=10)
+    want, _ = fa_ops.flash_attention_fwd(q[:, :], k[:, :10], v[:, :10], causal=False)
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    # window 2 at q_offset 20 over 12 keys: every row sees nothing
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=True, window=2, q_offset=20)
+    assert torch.count_nonzero(out) == 0 and bool(torch.isinf(lse).all())
+    dq, dk, dv = fa_ops.flash_attention_bwd(q, k, v, out, lse, torch.ones_like(q), causal=True, window=2, q_offset=20)
+    assert all(torch.count_nonzero(t) == 0 for t in (dq, dk, dv))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    dout = _t(rng.normal(size=q.shape).astype(np.float32))
+    auto = torch.autograd.grad(fa_ref.flash_attention_fwd(*leaves, causal=True, window=5)[0], leaves, dout)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=True, window=5)
+    for got, want in zip(fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=5), auto):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 # -- K10 paged append ------------------------------------------------------------
@@ -409,6 +550,9 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
                        weight_decay=0.0)
     am_ops.pullback_mean(buf, buf[0].clone(), 0.6)
     am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7)
+    fq = _t(rng.normal(size=(1, 4, 2, 64)).astype(np.float32)).requires_grad_(True)
+    fa_ops.flash_attention(fq, fq[:, :, :1], fq[:, :, :1]).sum().backward()
+    rms_ops.rmsnorm(x.requires_grad_(True), s).sum().backward()
     assert {k.name: k.launches for k in all_kernels()} == before
     assert all(k._lib is None for k in all_kernels())
 
@@ -435,6 +579,17 @@ def test_wrappers_reject_bad_inputs(rng):
         am_ops.pullback_mean(buf, torch.zeros(64), 0.6)
     with pytest.raises(ValueError, match="weights"):
         am_ops.pullback_mean(buf, torch.zeros(128), 0.6, weights=torch.ones(3))
+    q, kv = torch.zeros(1, 4, 3, 64), torch.zeros(1, 4, 2, 64)
+    with pytest.raises(ValueError, match="GQA"):
+        fa_ops.flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="window"):
+        fa_ops.flash_attention(q[:, :, :2], kv, kv, True, 0)
+    with pytest.raises(TypeError, match="dtypes"):
+        fa_ops.flash_attention(q[:, :, :2], kv.bfloat16(), kv)
+    with pytest.raises(ValueError, match="sk_valid"):
+        fa_ops.flash_attention_fwd(q[:, :, :2], kv, kv, sk_valid=5)
+    with pytest.raises(ValueError, match="rows, d"):
+        rms_ops.rmsnorm_bwd(torch.zeros(2, 4), torch.ones(4), torch.zeros(3, 4))
 
 
 # -- on the card ---------------------------------------------------------------
@@ -523,3 +678,60 @@ def test_anchor_mix_kernels_bitwise_on_card(cuda, dtype, masked):
         want = am_ref.pullback_mean(x, z, 0.6, mean_pre=mean_pre, weights=w)
         got = am_ops.pullback_mean(x.clone(), z, 0.6, mean_pre=mean_pre, weights=w)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# (B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM slice's
+# shape, a ragged S with a padded K, a window, a q_offset
+FA_CARD = [
+    (2, 512, 512, 28, 4, 128, True, None, 0, None),
+    (1, 130, 160, 4, 2, 64, False, None, 0, 130),
+    (2, 256, 256, 8, 2, 128, True, 64, 0, None),
+    (2, 64, 320, 8, 4, 64, True, None, 256, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CARD, ids=["slice", "ragged", "window", "q_offset"])
+def test_flash_attention_kernels_vs_plain_on_card(cuda, case, dtype):
+    """Bounds as chip_smoke.py states them (max|Δ| / max|plain|): f32 1e-5
+    forward, 2e-5 gradients; bf16 2^-7 both."""
+    b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = (torch.randn(b, sq, h, d, generator=gen, device=cuda) / d**0.5).to(dtype)
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    dout = torch.randn(b, sq, h, d, generator=gen, device=cuda).to(dtype)
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    out_p, _ = fa_ref.flash_attention_fwd(q, k, v, **kw)
+    f32 = dtype == torch.float32
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    assert rel(out, out_p) <= (1e-5 if f32 else 2.0**-7)
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = fa_ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    for a, w in zip(got, want):
+        assert rel(a, w) <= (2e-5 if f32 else 2.0**-7)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, w) for a, w in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_kernel_vs_plain_on_card(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for rows in (7, 1024):
+        x = torch.randn(rows, 3584, generator=gen, device=cuda).to(dtype)
+        s = (1 + 0.1 * torch.randn(3584, generator=gen, device=cuda)).to(dtype)
+        dy = torch.randn(rows, 3584, generator=gen, device=cuda).to(dtype)
+        got = rms_ops.rmsnorm_bwd(x, s, dy, eps=1e-6)
+        want = rms_ref.rmsnorm_bwd(x, s, dy, 1e-6)
+        for a, w in zip(got, want):
+            err, w = (a.float() - w.float()).abs(), w.float()
+            lim = 1e-5 * w.abs().max()
+            if dtype == torch.bfloat16:
+                lim = lim + torch.from_numpy(_bf16_ulp(w.cpu().numpy())).to(cuda)
+            assert bool((err <= lim).all())
+        assert all(torch.equal(a, b) for a, b in zip(got, rms_ops.rmsnorm_bwd(x, s, dy, eps=1e-6)))

@@ -44,7 +44,7 @@ from repro.training import make_round_step as jmake_round_step
 from repro.training import make_train_state as jmake_train_state
 from repro_torch import interop
 from repro_torch.api import ClassificationSpec, Experiment
-from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
+from repro_torch.config import AlgoConfig, MoEConfig, OptimizerConfig, get_arch
 from repro_torch.core import make_strategy
 from repro_torch.data import loaders
 from repro_torch.models import classifier as clf
@@ -342,8 +342,10 @@ def test_experiment_defaults_to_cuda():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Experiment(arch="qwen2-7b", device="cpu")
+    moe = dataclasses.replace(get_arch("qwen2-7b").model.reduced(), layer_pattern=("moe", "moe"),
+                              moe=MoEConfig(num_experts=4, top_k=2, expert_ff=64))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Experiment(arch=moe, device="cpu").build()
     exp = Experiment(task=ClassificationSpec(**SMALL), device="cpu")
     with pytest.raises(NotImplementedError, match="item 5"):
         exp.fit(rounds=1, adaptive_tau=object())
@@ -377,13 +379,16 @@ def test_training_modules_import_no_jax():
         import sys
         sys.path.insert(0, {str(SRC)!r})
         sys.modules["jax"] = None
-        from repro_torch.api import ClassificationSpec, Experiment
+        from repro_torch.api import ClassificationSpec, Experiment, TokenStream
+        from repro_torch.launch import train
         exp = Experiment(task=ClassificationSpec(n=600, holdout=100), workers=2, device="cpu")
         print(len(exp.fit(rounds=2).losses))
+        lm = Experiment(arch="qwen2-7b", workers=2, data=TokenStream(1, 16), device="cpu")
+        print(len(lm.fit(rounds=1).losses))
         bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
         assert not bad, bad
         """
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "2"
+    assert out.stdout.split() == ["2", "1"]
