@@ -12,10 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    stated bound, and time the kernel, the plain version and one library
    call as a yardstick: (a) the serving kernels K7, K9, K10 at the serving
    slice's shapes, in bf16 and f32; (b) the training kernels K1 ``sgd_step``,
-   K2 ``adamw_step``, K3 ``pullback_mean_momentum`` and K4
-   ``pullback_mean`` (masked and unmasked, ``mean_pre``) in f32 and bf16, at
-   the classifier's plane (16 x 17,408) and on a 4 x 2^27 plane whose times
-   read bandwidth; all four bitwise against their plain versions; (c) the
+   K2 ``adamw_step``, K3 ``pullback_mean_momentum``, K4 ``pullback_mean``
+   (masked and unmasked, ``mean_pre``) and K5 ``anchor_mix`` (beside
+   ``torch.lerp_`` and a ``copy_``) in f32 and bf16, at the classifier's
+   plane (16 x 17,408) and on a 4 x 2^27 plane whose times read bandwidth;
+   all five bitwise against their plain versions; (c) the
    LM training kernels, K6 flash attention (forward, dQ and dK/dV
    backward kernels) at the LM slice's shape (B 2, S 512, 28 heads, 4 KV
    heads, D 128, causal), a ragged S with a padded K, a window and a
@@ -41,6 +42,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    first 20 rounds agree with the same run on the CPU (plain versions).
    Then sync-SGD for 600 steps, 20 rounds with AdamW (K2) and 20 with
    beta = 0 (K4), each with its launch counts, and one profiled overlap run.
+   Then 20 rounds of each remaining strategy: gossip_ring and gossip_exp
+   (K5), gossip_full, easgd and sparse_anchor k 0.25 (K4), cocod,
+   delayed_avg (delay 1) and powersgd rank 2 (K1 only), each with exact
+   launch counts, bitwise replay and its losses against the CPU's.
 5. The LM slice through ``repro_torch.api.Experiment(arch=...)`` with the
    training CLI's defaults (Overlap-Local-SGD tau 2, alpha 0.6, beta 0.7;
    SGD lr 1e-2, Nesterov 0.9): (a) the reduced qwen2-7b with 2 KV heads,
@@ -52,8 +57,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    buckets (K1), rounds x buckets (K3); a non-zero gradient in every leaf of
    every worker in the first step; a second run gives the same losses and
    final plane bit for bit; a finite eval_loss; rounds/s, step ms, peak
-   memory and one profiled round.
-6. One JSON line with every kernel's numbers (K1-K4, K6 forward and
+   memory and one profiled round. (c) This slice's path: the same model
+   and data trained with gossip_ring (push-sum over a ring of 4), 3 rounds
+   from zeroed counters: K5 once a boundary and K3/K4 never, the other
+   counts as in (b); bitwise replay; K5 bitwise at the plane's last
+   columns; rounds/s, step ms, peak memory and one profiled round.
+6. One JSON line with every kernel's numbers (K1-K5, K6 forward and
    backward, K7 forward and backward, K9, K10), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
@@ -358,25 +367,49 @@ def check_opt_step(dev, gen):
 
 
 def check_anchor_mix(dev, gen):
-    """K3 pullback_mean_momentum and K4 pullback_mean against ref.py on the
-    card: f32 and bf16, unmasked and masked (a dead row), K4 also mean_pre,
-    at the slice's shape and unmasked on the large plane. Bound: bitwise,
-    because kernel and plain sum the worker axis in the same order
-    (0 .. m-1, in f32) and round at the same points. Times in f32 beside the
-    plain version, a copy_ of the same bytes and the bytes bound."""
+    """K5 anchor_mix, K3 pullback_mean_momentum and K4 pullback_mean against
+    ref.py on the card: f32 and bf16; K3/K4 unmasked and masked (a dead
+    row), K4 also mean_pre, at the slice's shape and unmasked on the large
+    plane; K5 at both shapes (x and z both (m, n), as the gossip boundary
+    gives it). Bound: bitwise — K5 rounds where its plain version rounds;
+    K3/K4 also sum the worker axis in the same order (0 .. m-1, in f32).
+    Times beside the plain version, a copy_ of the same bytes, K5 also beside
+    torch.lerp_, and the bytes bound (K5 in f32 and bf16, K3/K4 in f32)."""
     import torch
 
     from repro_torch.kernels.anchor_mix import ops, ref
 
     alpha, beta = 0.6, 0.7
-    worst = {"K3": 0.0, "K4": 0.0}
-    timing = {"K3": {}, "K4": {}}
+    worst = {"K3": 0.0, "K4": 0.0, "K5": 0.0}
+    timing = {"K3": {}, "K4": {}, "K5": {}}
     for shape_name, (m, n) in TRAIN_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             P = torch.finfo(dtype).bits // 8
             x = torch.randn(m, n, generator=gen, device=dev).to(dtype)
             z = torch.randn(n, generator=gen, device=dev).to(dtype)
             v = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+            zx = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+            want = ref.anchor_mix(x, zx, alpha)
+            got = ops.anchor_mix(x.clone(), zx, alpha)
+            ok, err = bool(torch.equal(got, want)), float((got.float() - want.float()).abs().max())
+            del got, want
+            rec = dict(kernel="K5 anchor_mix", dtype=_name(dtype), shape=[m, n], max_abs_err=err,
+                       bound="bitwise (same rounding points)", ok=ok)
+            worst["K5"] = max(worst["K5"], err)
+            it = TIMING_ITERS[shape_name]
+            src = torch.empty(3 * m * n // 2, dtype=dtype, device=dev)
+            dst = torch.empty_like(src)
+            rec["ms"] = time_ms(lambda: ops.anchor_mix(x, zx, alpha), it)
+            rec["plain_ms"] = time_ms(lambda: ref.anchor_mix(x, zx, alpha), it)
+            rec["library_ms"] = time_ms(lambda: x.lerp_(zx, alpha), it)
+            rec["copy_ms"] = time_ms(lambda: dst.copy_(src), it)
+            rec["bound_ms"], rec["bound_by"] = bound(3 * P * m * n, 3 * m * n)
+            rec["library"] = "torch.lerp_ (x + a (z - x)); copy_ moves the same 3 P m n bytes"
+            timing["K5"][(shape_name, _name(dtype))] = rec
+            del src, dst, zx
+            log(json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"K5 kernel disagrees with plain: {rec}")
             masks = [None]
             if shape_name == "slice":
                 w = torch.full((m,), 1.0 / (m - 1), device=dev)
@@ -940,6 +973,69 @@ def train_slice(dev, kernels):
     return runs, profile
 
 
+# the remaining strategies, 20 rounds each on the quickstart configuration:
+# (run, AlgoConfig fields, launches a round per bucket, card-vs-CPU rtol).
+# rtol 1e-4 as for the overlap run; sparse_anchor 1e-3: its top-k selection
+# is discontinuous, so an element within an ulp of its leaf's threshold may
+# be sent on one device and held back as error feedback on the other (the
+# port against the JAX package on the CPU: 1.3e-4 after 20 rounds at k 0.25)
+STRATEGY_RUNS = [
+    ("gossip_ring", dict(name="gossip_ring"), {"sgd_step": 2, "anchor_mix": 1}, 1e-4),
+    ("gossip_exp", dict(name="gossip_exp"), {"sgd_step": 2, "anchor_mix": 1}, 1e-4),
+    ("gossip_full", dict(name="gossip_full"), {"sgd_step": 2, "pullback_mean": 1}, 1e-4),
+    ("easgd", dict(name="easgd"), {"sgd_step": 2, "pullback_mean": 1}, 1e-4),
+    ("cocod", dict(name="cocod"), {"sgd_step": 2}, 1e-4),
+    ("delayed_avg", dict(name="delayed_avg", delay_steps=1), {"sgd_step": 2}, 1e-4),
+    ("sparse_anchor", dict(name="sparse_anchor", sparse_k=0.25), {"sgd_step": 2, "pullback_mean": 1}, 1e-3),
+    ("powersgd", dict(name="powersgd", powersgd_rank=2), {"sgd_step": 1}, 1e-4),
+]
+
+
+def train_strategies(dev, kernels):
+    """Each of the remaining strategies on the quickstart configuration
+    (tau 2, alpha 0.6; powersgd tau 1), 20 rounds from zeroed counters:
+    exact launch counts, finite losses, the same losses and final plane on a
+    second run, and the losses of the same run on the CPU (plain versions)
+    within the run's stated rtol."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import AlgoConfig
+
+    runs = {}
+    for name, fields, per_round, rtol in STRATEGY_RUNS:
+        cfg = AlgoConfig(tau=2, alpha=0.6, **fields)
+        exp = _experiment(dev, cfg)
+        out = _fit(exp, kernels, SHORT_ROUNDS)
+        buckets = exp.state.x.layout.num_buckets
+        want = {k.name: 0 for k in kernels}
+        want.update({k: v * SHORT_ROUNDS * buckets for k, v in per_round.items()})
+        if out["launches"] != want:
+            raise AssertionError(f"{name}: launches {out['launches']} != {want}")
+        if not all(math.isfinite(v) for v in out["losses"]):
+            raise AssertionError(f"{name}: non-finite loss {out['losses']}")
+        again = _experiment(dev, cfg)
+        again.build()
+        if again.fit(rounds=SHORT_ROUNDS).losses != out["losses"]:
+            raise AssertionError(f"{name} is not deterministic: losses differ between two runs")
+        if not all(torch.equal(a, b) for a, b in zip(exp.state.x.buffers, again.state.x.buffers)):
+            raise AssertionError(f"{name} is not deterministic: final planes differ")
+        cpu = np.asarray(_experiment("cpu", cfg).fit(rounds=SHORT_ROUNDS).losses)
+        rel = float(np.max(np.abs(np.asarray(out["losses"]) - cpu) / np.abs(cpu)))
+        rec = dict(run=name, algo=fields, rounds=SHORT_ROUNDS, steps=out["steps"],
+                   wall_s=out["wall_s"], rounds_per_s=out["rounds_per_s"], final_loss=out["losses"][-1],
+                   test_acc=out["test_acc"], launches=out["launches"], deterministic_replay=True,
+                   card_vs_cpu_max_rel=rel, bound=f"rtol {rtol}", ok=rel <= rtol)
+        log(json.dumps(rec))
+        if not rec["ok"]:
+            raise AssertionError(f"{name}: card vs CPU losses over {SHORT_ROUNDS} rounds: max rel {rel} > {rtol}")
+        runs[name] = rec
+        del exp, again
+    return runs
+
+
 def profile_train(exp, rounds):
     """One overlap run under torch.profiler after a warm round: device busy
     time (sum of kernel times; one stream) against wall time, and aten ops
@@ -1151,6 +1247,95 @@ def lm_full_width(dev, kernels):
     return summary
 
 
+def lm_gossip_full_width(dev, kernels):
+    """This slice's path: full-width qwen2-7b cut to 2 layers, bf16, m = 4,
+    seq 512, SGD as the LM phase, trained with gossip_ring (tau 2, alpha
+    0.6) for 3 rounds from zeroed counters: exact launch counts (K5 once a
+    boundary, K3 and K4 never), finite losses, the same losses and final
+    plane on a second run, K5 bitwise against its plain version at the last
+    2^20 columns of every row of the plane (offsets past 2^32); rounds/s,
+    step ms, peak memory and one profiled round."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.api import Experiment, TokenStream
+    from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
+    from repro_torch.kernels.anchor_mix import ops as am_ops
+    from repro_torch.kernels.anchor_mix import ref as am_ref
+    from repro_torch.optim import schedules
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+
+    def experiment():
+        return Experiment(arch=cfg, strategy=AlgoConfig(name="gossip_ring", tau=2, alpha=0.6),
+                          optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
+                          schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ),
+                          workers=LM_WORKERS, device=dev).build()
+
+    t0 = time.perf_counter()
+    exp = experiment()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = exp.fit(rounds=LM_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    losses, steps = res.losses, res.steps
+    del res
+    m, L, buckets = LM_WORKERS, LM_LAYERS, exp.state.x.layout.num_buckets
+    want = {k.name: 0 for k in kernels}
+    want.update(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
+                flash_attention_bwd_dkdv=steps * m * L, rmsnorm=steps * m * (2 * L + 1),
+                rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, anchor_mix=LM_ROUNDS * buckets)
+    if launches != want:
+        raise AssertionError(f"LM gossip launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"LM gossip losses not finite: {losses}")
+    plane = [b.to("cpu", copy=True) for b in exp.state.x.buffers]
+    profile = profile_train(exp, 1)
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    again = experiment()
+    second = again.fit(rounds=LM_ROUNDS).losses
+    if second != losses:
+        raise AssertionError(f"LM gossip run is not deterministic: losses {losses} vs {second}")
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(plane, again.state.x.buffers)):
+        raise AssertionError("LM gossip run is not deterministic: final planes differ")
+    del plane
+    # K5 over the whole plane, toward the in-flight mix; the last 2^20 columns
+    # of every row against the plain version on those columns alone
+    t = 1 << 20
+    x, z = again.state.x.buffers[0], again.state.inflight.mix.buffers[0]
+    ref_end = am_ref.anchor_mix(x[:, -t:], z[:, -t:], 0.6)
+    am_ops.anchor_mix(x, z, 0.6)
+    k5_ok = bool(torch.equal(x[:, -t:], ref_end))
+    log(json.dumps(dict(check="K5 on the full-width gossip plane", plane=list(x.shape), dtype=_name(x.dtype),
+                        columns_checked=t, bound="bitwise", ok=k5_ok)))
+    if not k5_ok:
+        raise AssertionError("K5 disagrees with plain at the end of the full-width plane")
+    del again, x, z, ref_end
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(
+        slice=f"{cfg.name} full width, {L} layers, {cfg.dtype}, gossip_ring", workers=m, batch_per_worker=LM_BATCH,
+        seq_len=LM_SEQ, rounds=LM_ROUNDS, steps=steps, build_s=build_s, wall_s=wall, rounds_per_s=LM_ROUNDS / wall,
+        step_ms=wall / steps * 1e3, losses=losses, peak_mem_bytes=peak, launches=launches,
+        deterministic_replay=True, profile=profile,
+    )
+    log(json.dumps(summary))
+    return summary
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1205,9 +1390,12 @@ def main() -> int:
     summary["card"] = card
     log(json.dumps(summary))
     runs, _ = train_slice(dev, kernels)
+    runs.update(train_strategies(dev, kernels))
     lm_card_vs_cpu(dev)
     lm = lm_full_width(dev, kernels)
     lm["card"] = card
+    gossip = lm_gossip_full_width(dev, kernels)
+    gossip["card"] = card
 
     # phase 6
     launches = dict(summary["launches"])
@@ -1250,6 +1438,14 @@ def main() -> int:
          rb_err, rb_t, "bf16 rows=1024 d=3584 (the LM slice)", None),
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    k5 = mix_t["K5"]
+    rows.insert(7, ("anchor_mix", "anchor_mix", "K5 anchor_mix_flat", "src/repro/kernels/anchor_mix/kernel.py:51",
+                    mix_err["K5"], k5[("slice", "float32")], "f32 m=16 n=17408 (the classifier's gossip plane)",
+                    k5[("large", "float32")]))
+    launches["anchor_mix"] = gossip["launches"]["anchor_mix"]
+    by_path["anchor_mix"] = {"classifier gossip_ring": runs["gossip_ring"]["launches"]["anchor_mix"],
+                             "classifier gossip_exp": runs["gossip_exp"]["launches"]["anchor_mix"],
+                             "lm gossip_ring": gossip["launches"]["anchor_mix"]}
     out = []
     for name, source, label, replaces, err, t, shape, large in rows:
         entry = dict(
@@ -1260,7 +1456,12 @@ def main() -> int:
             entry["library_fwd_bwd_ms"] = t["library_fwd_bwd_ms"]
         if large is not None:
             entry["large"] = dict(shape=large["shape"], **{k: large[k] for k in keys})
-        if any(by_path[name][p] for p in ("serving", "classifier")) and any(by_path[name][p] for p in ("lm",)):
+        if name == "anchor_mix":
+            entry["launches_by_path"] = by_path[name]
+            entry["copy_ms"], entry["large"]["copy_ms"] = t["copy_ms"], large["copy_ms"]
+            entry["bf16"] = {sh: {k: k5[(sh, "bfloat16")][k] for k in keys + ("copy_ms",)} for sh in ("slice", "large")}
+            entry["library"] = t["library"]
+        elif any(by_path[name][p] for p in ("serving", "classifier")) and any(by_path[name][p] for p in ("lm",)):
             entry["launches_by_path"] = by_path[name]
         out.append(entry)
     out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys})

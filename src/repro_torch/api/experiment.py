@@ -30,8 +30,9 @@ reference's initial state over with :mod:`repro_torch.interop`.
 
 Not here yet (each raises): ``fit(adaptive_tau=…)`` (ROADMAP Queue 1 item
 5), ``fit(faults=…)`` (item 6), ``serve()`` (item 7) and the archs
-``_check_supported`` rejects (item 8); the strategies raise for
-``AlgoConfig.packed=False`` (item 4) and ``AlgoConfig.offload`` (item 9).
+``_check_supported`` rejects (item 8); the strategies (every name and alias
+of the reference) raise for ``AlgoConfig.packed=False`` (item 4b) and
+``AlgoConfig.offload`` (item 9).
 """
 from __future__ import annotations
 

@@ -293,9 +293,8 @@ class ArchConfig:
 @dataclass(frozen=True)
 class AlgoConfig:
     """Distributed-optimization algorithm selection (the paper's subject).
-    The port runs ``overlap_local_sgd``, ``local_sgd`` and ``sync_sgd`` on
-    the packed plane; the other names, ``packed=False`` and ``offload``
-    raise (see ``repro_torch.core.strategy``)."""
+    The port runs every strategy on the packed plane; ``packed=False`` and
+    ``offload`` raise (see ``repro_torch.core.strategy``)."""
 
     name: str = "overlap_local_sgd"
     # overlap_local_sgd | local_sgd | sync_sgd | easgd | cocod | powersgd

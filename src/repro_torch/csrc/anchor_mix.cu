@@ -1,8 +1,17 @@
-// The fused round boundary of Overlap Local-SGD over one dtype bucket of the
+// The round boundaries of Overlap Local-SGD over one dtype bucket of the
 // packed plane: K4 pullback + worker mean, K3 pullback + worker mean +
-// anchor momentum, each in one pass over x (m, n).
+// anchor momentum, each in one pass over x (m, n); and K5, the plain
+// pullback x <- (1 - a) x + a z of two equal-size buffers (the gossip
+// strategies' pull toward each worker's own debiased neighbour mix).
 //
-// Replaces the Pallas TPU kernels repro/kernels/anchor_mix/kernel.py::
+// K5 replaces repro/kernels/anchor_mix/kernel.py::anchor_mix_flat
+// (_mix_kernel). Bound by bytes: it reads x and z and writes x once
+// (3 P N bytes) at 3 operations an element. A grid-stride loop over 16-byte
+// vectors with 64-bit indices (the full-width gossip plane has 6.2e9
+// elements); x is updated in place, each element rounded as the plain
+// version rounds it (__f*_rn: no contraction), so the two agree bit for bit.
+//
+// K3 and K4 replace the Pallas TPU kernels repro/kernels/anchor_mix/kernel.py::
 // pullback_mean_flat (_pullback_mean_kernel) and pullback_momentum_flat
 // (_pullback_momentum_kernel), without their probe output:
 //   x'_i = (1 - a) x_i + a z                    (eq. 4; dead rows, w_i = 0, keep x_i)
@@ -153,7 +162,53 @@ int dispatch(void* x, const void* z, void* v, void* z_out, const void* w, int m,
   return (int)cudaErrorInvalidValue;
 }
 
+// K5: x[j] <- (1 - a) x[j] + a z[j] for j < n, V elements a vector.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+mix_kernel(T* __restrict__ x, const T* __restrict__ z, long long n, float oma, float alpha, int vec) {
+  constexpr int V = 16 / sizeof(T);
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n / V;
+    for (long long c = tid; c < nv; c += step) {
+      Lanes<T, V> xr, zr;
+      xr.load(x + c * V);
+      zr.load(z + c * V);
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        xr.e[k] = from_f<T>(__fadd_rn(__fmul_rn(oma, to_f(xr.e[k])), __fmul_rn(alpha, to_f(zr.e[k]))));
+      xr.store(x + c * V);
+    }
+    done = nv * V;
+  }
+  for (long long j = done + tid; j < n; j += step)
+    x[j] = from_f<T>(__fadd_rn(__fmul_rn(oma, to_f(x[j])), __fmul_rn(alpha, to_f(z[j]))));
+}
+
+template <typename T>
+int launch_mix(void* x, const void* z, long long n, float oma, float alpha, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const int vec = aligned16(x) && aligned16(z);
+  long long blocks = (n / V + kThreads - 1) / kThreads;
+  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
+  mix_kernel<T><<<(int)blocks, kThreads, 0, st>>>(static_cast<T*>(x), static_cast<const T*>(z), n, oma, alpha, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// K5. x, z: n elements each, x updated in place. dtype: 0 = float32,
+// 1 = bfloat16 (x and z).
+extern "C" int anchor_mix_launch(void* x, const void* z, long long n, float oma, float alpha, int dtype,
+                                 void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_mix<float>(x, z, n, oma, alpha, st);
+  if (dtype == 1) return launch_mix<__nv_bfloat16>(x, z, n, oma, alpha, st);
+  return (int)cudaErrorInvalidValue;
+}
 
 // K4. x: (m, n) updated in place; z, mean: (n,); w: (m,) float32 weights or
 // null (unmasked). dtype: 0 = float32, 1 = bfloat16 (x, z, mean).

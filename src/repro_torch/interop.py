@@ -8,8 +8,11 @@ module imports no JAX; it reads the reference's objects by their fields.
 * :func:`packed_from_numpy` — a packed plane → the port's ``Packed``, bit
   for bit (the two packages lay a tree out identically).
 * :func:`state_from_numpy` — a plane-resident ``TrainState`` (x, opt, vars,
-  step, inflight) → the port's ``TrainState``, bit for bit, f32 or bf16. The
-  parity tests start both packages from the reference's
+  step, inflight) → the port's ``TrainState``, bit for bit, f32 or bf16,
+  with every strategy's slots: the gossip push weights and phase ``(w, t)``
+  and ``GossipInflight(mix, w)``, the rebase strategies' ``Inflight(avg,
+  x0)``, sparse_anchor's f32 error plane and PowerSGD's ``PowerState(q,
+  err)``. The parity tests start both packages from the reference's
   ``Experiment.build()`` state this way (the classifier's and the LM's),
   because ``jax.random`` and ``torch.Generator`` draw different weights.
 """
@@ -59,24 +62,42 @@ def packed_from_numpy(p, layout, device="cpu"):
 def state_from_numpy(state, layout, device="cpu"):
     """A reference plane-resident ``TrainState`` whose arrays are numpy
     (x, opt, vars, step, inflight) → the port's ``TrainState`` on ``device``,
-    bit for bit. ``layout`` is the port's layout of the parameter tree."""
-    from repro_torch.core.strategy import AlgoVars
+    bit for bit. ``layout`` is the port's layout of the parameter tree. The
+    reference's slot types are recognised by their fields, not imported."""
+    from repro_torch.core.powersgd import PowerState
+    from repro_torch.core.strategy import AlgoVars, GossipInflight, _AvgRebaseStrategy
     from repro_torch.optim.optimizers import PackedAdamState, PackedSGDState
+    from repro_torch.parallel.packing import tree_flatten
     from repro_torch.training.train_state import TrainState
 
-    def plane(p):
-        return None if p is None else packed_from_numpy(p, layout, device)
+    def tensor(a):
+        return _tensor(a).to(device)
+
+    def slot(v):
+        """Any strategy slot: a plane, a named slot tuple, a tuple of arrays."""
+        if v is None:
+            return None
+        if hasattr(v, "buffers") and hasattr(v, "layout"):
+            return packed_from_numpy(v, layout, device)
+        fields = getattr(v, "_fields", None)
+        if fields == ("mix", "w"):
+            return GossipInflight(mix=slot(v.mix), w=tensor(v.w))
+        if fields == ("avg", "x0"):
+            return _AvgRebaseStrategy.Inflight(avg=slot(v.avg), x0=slot(v.x0))
+        if fields == ("q", "err"):
+            qs, _ = tree_flatten(v.q)  # the reference's per-leaf tree, in the layout's leaf order
+            return PowerState(q=tuple(None if q is None else tensor(q) for q in qs), err=slot(v.err))
+        if isinstance(v, tuple) and fields is None:
+            return tuple(tensor(a) for a in v)
+        raise ValueError(f"unsupported strategy slot {type(v).__name__}")
 
     opt = state.opt
     if hasattr(opt, "momentum"):
-        opt = PackedSGDState(momentum=plane(opt.momentum))
+        opt = PackedSGDState(momentum=slot(opt.momentum))
     elif hasattr(opt, "mu"):
-        opt = PackedAdamState(mu=plane(opt.mu), nu=plane(opt.nu), count=_tensor(opt.count).to(device))
+        opt = PackedAdamState(mu=slot(opt.mu), nu=slot(opt.nu), count=tensor(opt.count))
     else:
         raise ValueError(f"unsupported optimizer state {type(opt).__name__}")
     v = state.vars
-    if v is not None and v.extra is not None:
-        raise ValueError("strategy state with extra slots is not ported")
-    vars = AlgoVars() if v is None else AlgoVars(z=plane(v.z), v=plane(v.v))
-    return TrainState(x=plane(state.x), opt=opt, vars=vars, step=_tensor(state.step).to(device),
-                      inflight=plane(state.inflight))
+    vars = AlgoVars() if v is None else AlgoVars(z=slot(v.z), v=slot(v.v), extra=slot(v.extra))
+    return TrainState(x=slot(state.x), opt=opt, vars=vars, step=tensor(state.step), inflight=slot(state.inflight))

@@ -1,4 +1,4 @@
-"""Fused round-boundary wrappers (K4 ``pullback_mean``, K3
+"""Round-boundary wrappers (K5 ``anchor_mix``, K4 ``pullback_mean``, K3
 ``pullback_mean_momentum``): the CUDA kernels of ``csrc/anchor_mix.cu`` for
 CUDA tensors, the plain versions of ``ref.py`` for CPU tensors (counterpart
 of ``repro.kernels.anchor_mix.ops``).
@@ -6,6 +6,8 @@ of ``repro.kernels.anchor_mix.ops``).
 x (and K3's momentum v) are updated **in place** and returned; the new
 anchor (K4's mean, K3's ``z_next``) gets a buffer of its own, so the
 consumed anchor ``z`` stays intact (the strategy keeps it as ``vars.z``).
+K5 takes x and z of one shape (any shape, contiguous) and needs no padding:
+the reference pads a flat buffer to 128 lanes, the kernel masks its tail.
 
 ``probe=True`` (the fused consensus probe of adaptive τ) is not ported: it
 needs the deterministic two-stage reduction of K8 and comes with it.
@@ -21,10 +23,37 @@ import torch
 from repro_torch.kernels._build import F, I, L, Kernel, P, dtype_code, stream_ptr
 from repro_torch.kernels.anchor_mix import ref as _ref
 
+MIX = Kernel("anchor_mix", {"anchor_mix_launch": [P, P, L, F, F, I, P]}, source="anchor_mix")
 MEAN = Kernel("pullback_mean", {"pullback_mean_launch": [P, P, P, P, I, L, F, F, I, I, P]}, source="anchor_mix")
 MOMENTUM = Kernel(
     "pullback_momentum", {"pullback_momentum_launch": [P, P, P, P, P, I, L, F, F, F, I, P]}, source="anchor_mix"
 )
+
+
+def anchor_mix(x, z, alpha: float):
+    """Eq. (4), x ← (1−α)·x + α·z, in place on x; x and z of one shape,
+    dtype and device. Replaces ``anchor_mix/kernel.py::anchor_mix_flat``.
+    Returns x."""
+    if z.shape != x.shape or z.dtype != x.dtype or z.device != x.device:
+        raise ValueError(f"anchor_mix: z must match x {tuple(x.shape)} {x.dtype} on {x.device}, "
+                         f"got {tuple(z.shape)} {z.dtype} on {z.device}")
+    if x.device.type == "cpu":
+        return x.copy_(_ref.anchor_mix(x, z, alpha))
+    if x.device.type != "cuda":
+        raise ValueError(f"anchor_mix: unsupported device {x.device}")
+    if not (x.is_contiguous() and z.is_contiguous()):
+        raise ValueError("anchor_mix: CUDA buffers must be contiguous")
+    MIX.launch("anchor_mix_launch", x.data_ptr(), z.data_ptr(), x.numel(), float(1.0 - alpha), float(alpha),
+               dtype_code(x.dtype), stream_ptr(x.device))
+    return x
+
+
+def pullback_tree(x_tree, z_tree, alpha: float):
+    """:func:`anchor_mix` on every leaf of two nested dicts of one
+    structure (the per-leaf pullback), x's leaves in place."""
+    if isinstance(x_tree, dict):
+        return {k: pullback_tree(x_tree[k], z_tree[k], alpha) for k in x_tree}
+    return anchor_mix(x_tree, z_tree, alpha)
 
 
 def _check(name, x, vecs, weights, probe):

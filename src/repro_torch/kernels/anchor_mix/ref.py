@@ -1,6 +1,7 @@
-"""Plain PyTorch fused round boundaries, op for op the reference
+"""Plain PyTorch round boundaries, op for op the reference
 ``repro.kernels.anchor_mix.ref`` (counterpart; the CUDA kernels in
-``csrc/anchor_mix.cu`` compute the same chain).
+``csrc/anchor_mix.cu`` compute the same chain): the plain pullback
+:func:`anchor_mix` (K5) and the fused boundaries (K3, K4).
 
 The worker mean is summed in float32 in the fixed order i = 0 .. m-1 and
 divided by m (a true division, by a tensor: PyTorch divides by a Python
@@ -14,6 +15,11 @@ dead rows pass through the pullback and the mean is Σ w_i·x_i.
 from __future__ import annotations
 
 import torch
+
+
+def anchor_mix(x: torch.Tensor, z: torch.Tensor, alpha: float) -> torch.Tensor:
+    """(1 - alpha)·x + alpha·z (paper eq. 4) in float32, cast to x's dtype."""
+    return ((1.0 - alpha) * x.float() + alpha * z.float()).to(x.dtype)
 
 
 def worker_mean(src: torch.Tensor, weights=None) -> torch.Tensor:

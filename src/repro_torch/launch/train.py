@@ -6,9 +6,10 @@
         [--algo overlap_local_sgd] [--tau 2] [--alpha 0.6] [--workers 4] [--full]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --rounds 3 --device cpu
 
-Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes the
-strategies the port has (the others are ROADMAP Queue 1 item 4);
-``--ckpt`` needs the checkpointer (item 6) and raises.
+Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
+strategy of the reference and its aliases (``dasgd``, ``loscar``,
+``overlap``, ``sgp``); ``--ckpt`` needs the checkpointer (ROADMAP Queue 1
+item 6) and raises.
 """
 from __future__ import annotations
 
@@ -18,13 +19,14 @@ import time
 from repro_torch.api import Experiment, TokenStream
 from repro_torch.config import AlgoConfig, OptimizerConfig, list_archs
 from repro_torch.core import STRATEGIES
+from repro_torch.core.strategy import _ALIASES
 from repro_torch.optim import schedules
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list_archs())
-    ap.add_argument("--algo", default="overlap_local_sgd", choices=sorted(STRATEGIES))
+    ap.add_argument("--algo", default="overlap_local_sgd", choices=sorted(STRATEGIES) + sorted(_ALIASES))
     ap.add_argument("--tau", type=int, default=2)
     ap.add_argument("--alpha", type=float, default=0.6)
     ap.add_argument("--anchor-beta", type=float, default=0.7)

@@ -3,8 +3,9 @@ of ``repro.training.train_loop``).
 
 One round is τ local steps, then the strategy's boundary:
 
-    τ × [gradient plane → transform_grads_packed → optimizer step (K1/K2)]
-    boundary_round (K3/K4 for Overlap-Local-SGD)
+    τ × [gradient plane → transform_grads_packed → optimizer step (K1/K2)
+         → local_post_update_packed]
+    boundary_round (K3/K4 for Overlap-Local-SGD, K5 for sparse gossip)
 
 The gradient is taken with the plane itself as the variable. Each leaf is
 a view of the parameter plane, made an autograd leaf whose ``.grad`` is
@@ -147,6 +148,7 @@ def make_round_step(
             pg, vars = strategy.transform_grads_packed(pg, vars)
             opt, x = optimizer.step_packed(opt, x, pg, lr)
             del pg  # free this step's gradient plane before the next one is made
+            x = strategy.local_post_update_packed(x, vars, inflight, k)
             step = step + 1
             per_step.append(dict(metrics, lr=lr.expand_as(metrics["loss"])))
         x, vars, inflight = strategy.boundary_round(x, vars, inflight)

@@ -21,9 +21,11 @@ recompute, and dS = p∘(dP − Δ) cancels; observed ≤ 1.7e-2). Paged append:
 own kernel tolerance: online vs two-pass softmax). Optimizer steps (K1, K2)
 and fused boundaries (K3, K4): f32 within 2 ulp (XLA's CPU fusion may
 contract or reorder the reference's ops), bf16 equal or 1 bf16 ulp (XLA may
-keep an f32 intermediate where the reference rounds to bf16). On the card
-the kernels equal their plain versions bit for bit (same rounding points,
-same worker-sum order).
+keep an f32 intermediate where the reference rounds to bf16). The plain
+pullback (K5): bitwise against the reference's ``ref.py``, and within one
+ulp of max(|x|, |z|) of the Pallas kernel in interpret mode (which
+contracts ``a*b + c``). On the card the kernels equal their plain versions
+bit for bit (same rounding points, same worker-sum order).
 """
 import functools
 import importlib
@@ -469,6 +471,42 @@ def test_weak_constants_round_to_the_tensor_dtype():
     assert opt_ref.weak(0.9, torch.float32) == float(np.float32(0.9))
 
 
+# -- K5 plain pullback ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8,), (13, 7), (3, 5, 9), (128, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("against", ["ref", "pallas_interpret"])
+def test_anchor_mix_plain_matches_jax(against, dtype, shape, rng, jx):
+    """The cases of the reference's own sweep (tests/test_kernels.py), x
+    updated in place."""
+    tdt = getattr(torch, dtype)
+    x = rng.normal(size=shape).astype(np.float32)
+    z = rng.normal(size=shape).astype(np.float32)
+    for alpha in (0.0, 0.5, 0.6, 1.0):
+        want = _jax_call(jx, against, "am.anchor_mix.anchor_mix", jx.jnp.asarray(x, dtype), jx.jnp.asarray(z, dtype),
+                         alpha)
+        want = np.asarray(want.astype(jx.jnp.float32))
+        tx = _t(x, tdt)
+        got = am_ops.anchor_mix(tx, _t(z, tdt), alpha)
+        assert got is tx and got.dtype == tdt and got.shape == shape
+        got = got.float().numpy()
+        if against == "ref":
+            assert np.array_equal(got, want), alpha
+        else:
+            xz = np.maximum(np.abs(_t(x, tdt).float().numpy()), np.abs(_t(z, tdt).float().numpy()))
+            ulp = np.spacing(xz) if dtype == "float32" else _bf16_ulp(xz)
+            assert (np.abs(got - want) <= ulp).all(), alpha
+
+
+def test_pullback_tree_maps_anchor_mix_over_a_tree(rng):
+    x = {"a": _t(rng.normal(size=(4, 3)).astype(np.float32)), "b": {"c": _t(rng.normal(size=(7,)).astype(np.float32))}}
+    z = {"a": torch.zeros(4, 3), "b": {"c": torch.ones(7)}}
+    want = {"a": am_ref.anchor_mix(x["a"], z["a"], 0.6), "c": am_ref.anchor_mix(x["b"]["c"], z["b"]["c"], 0.6)}
+    out = am_ops.pullback_tree(x, z, 0.6)
+    assert out["a"] is x["a"] and torch.equal(out["a"], want["a"]) and torch.equal(out["b"]["c"], want["c"])
+
+
 # -- K3/K4 fused boundaries --------------------------------------------------------
 
 
@@ -548,6 +586,7 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     opt_ops.sgd_step(buf, buf.clone(), buf.clone(), lr, momentum=0.9, nesterov=True, weight_decay=0.0)
     opt_ops.adamw_step(buf, buf.clone(), buf.clone(), buf.clone(), lr, lr, lr, b1=0.9, b2=0.95, eps=1e-8,
                        weight_decay=0.0)
+    am_ops.anchor_mix(buf, buf.clone(), 0.6)
     am_ops.pullback_mean(buf, buf[0].clone(), 0.6)
     am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7)
     fq = _t(rng.normal(size=(1, 4, 2, 64)).astype(np.float32)).requires_grad_(True)
@@ -577,6 +616,8 @@ def test_wrappers_reject_bad_inputs(rng):
                            weight_decay=0.0)
     with pytest.raises(ValueError, match="anchor"):
         am_ops.pullback_mean(buf, torch.zeros(64), 0.6)
+    with pytest.raises(ValueError, match="z must match"):
+        am_ops.anchor_mix(buf, buf.bfloat16(), 0.6)
     with pytest.raises(ValueError, match="weights"):
         am_ops.pullback_mean(buf, torch.zeros(128), 0.6, weights=torch.ones(3))
     q, kv = torch.zeros(1, 4, 3, 64), torch.zeros(1, 4, 2, 64)
@@ -678,6 +719,19 @@ def test_anchor_mix_kernels_bitwise_on_card(cuda, dtype, masked):
         want = am_ref.pullback_mean(x, z, 0.6, mean_pre=mean_pre, weights=w)
         got = am_ops.pullback_mean(x.clone(), z, 0.6, mean_pre=mean_pre, weights=w)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_anchor_mix_kernel_bitwise_on_card(cuda, dtype):
+    """K5 at the classifier's gossip plane, a ragged length (the scalar
+    tail) and views one element off 16-byte alignment (the scalar path)."""
+    x, z, _ = _card_case(cuda, dtype)
+    n = 100003  # of the 278,528 elements
+    flat_x, flat_z = x.reshape(-1).clone(), z.reshape(-1)
+    for xs, zs in ((x.clone(), z), (flat_x[:n].clone(), flat_z[:n]), (flat_x[1:], flat_z[1:])):
+        want = am_ref.anchor_mix(xs, zs, 0.6)
+        assert am_ops.anchor_mix(xs, zs, 0.6) is xs and torch.equal(xs, want)
 
 
 # (B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM slice's

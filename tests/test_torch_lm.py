@@ -255,7 +255,7 @@ def test_train_launcher_on_cpu(capsys):
     with pytest.raises(NotImplementedError, match="item 6"):
         train_cli.main(["--arch", "qwen2-7b", "--device", "cpu", "--ckpt", "x.npz"])
     with pytest.raises(SystemExit):
-        train_cli.main(["--arch", "qwen2-7b", "--algo", "easgd"])
+        train_cli.main(["--arch", "qwen2-7b", "--algo", "bogus"])
 
 
 def test_lm_paths_outside_the_slice_raise_with_their_roadmap_item():

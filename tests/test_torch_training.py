@@ -353,11 +353,16 @@ def test_unported_paths_raise_with_their_roadmap_item():
         exp.fit(rounds=1, faults=object())
     with pytest.raises(NotImplementedError, match="item 9"):
         make_strategy(AlgoConfig(offload=True))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        make_strategy(AlgoConfig(packed=False))
-    for name in ("easgd", "delayed_avg", "gossip_ring", "loscar"):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            make_strategy(AlgoConfig(name=name))
+    for name in ("overlap_local_sgd", "easgd", "delayed_avg", "gossip_ring", "loscar"):
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            make_strategy(AlgoConfig(name=name, packed=False))
+        strat = make_strategy(AlgoConfig(name=name))
+        px = packing.pack({"w": torch.zeros(2, 3)}, lead=1)
+        vars = strat.init_vars(px)
+        with pytest.raises(NotImplementedError, match="item 5"):
+            strat.boundary_round(px, vars, strat.init_inflight(px, vars), probe=True)
+        with pytest.raises(NotImplementedError, match="item 6"):
+            strat.boundary_round(px, vars, strat.init_inflight(px, vars), membership=object())
     with pytest.raises(ValueError, match="unknown strategy"):
         make_strategy(AlgoConfig(name="nope"))
     with pytest.raises(ValueError, match="anchor_plane"):
@@ -380,9 +385,13 @@ def test_training_modules_import_no_jax():
         sys.path.insert(0, {str(SRC)!r})
         sys.modules["jax"] = None
         from repro_torch.api import ClassificationSpec, Experiment, TokenStream
+        from repro_torch.core import powersgd, topology
         from repro_torch.launch import train
         exp = Experiment(task=ClassificationSpec(n=600, holdout=100), workers=2, device="cpu")
         print(len(exp.fit(rounds=2).losses))
+        for name in ("gossip_ring", "powersgd", "sparse_anchor", "delayed_avg"):
+            exp = Experiment(task=ClassificationSpec(n=600, holdout=100), strategy=name, workers=4, device="cpu")
+            print(len(exp.fit(rounds=2).losses))
         lm = Experiment(arch="qwen2-7b", workers=2, data=TokenStream(1, 16), device="cpu")
         print(len(lm.fit(rounds=1).losses))
         bad = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
@@ -391,4 +400,4 @@ def test_training_modules_import_no_jax():
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["2", "1"]
+    assert out.stdout.split() == ["2", "2", "2", "2", "2", "1"]
