@@ -16,7 +16,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    (masked and unmasked, ``mean_pre``) and K5 ``anchor_mix`` (beside
    ``torch.lerp_`` and a ``copy_``) in f32 and bf16, at the classifier's
    plane (16 x 17,408) and on a 4 x 2^27 plane whose times read bandwidth;
-   all five bitwise against their plain versions; (c) the
+   all five bitwise against their plain versions; (b') K8
+   ``consensus_probe`` (the consensus probe of adaptive tau) in f32 and bf16
+   at both planes, within rtol 1e-6 of its plain version at the classifier's
+   and within two f32 ulps of a float64 sum on the large one, the same bits
+   on a second launch, and the probe output of K3/K4 (masked and unmasked,
+   mean_pre): their other outputs bit for bit those without the probe, their
+   stats bit for bit K8's, timed beside K3/K4 without the probe (K8 beside
+   torch.linalg.vector_norm); (c) the
    LM training kernels, K6 flash attention (forward, dQ and dK/dV
    backward kernels) at the LM slice's shape (B 2, S 512, 28 heads, 4 KV
    heads, D 128, causal), a ragged S with a padded K, a window and a
@@ -45,7 +52,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then 20 rounds of each remaining strategy: gossip_ring and gossip_exp
    (K5), gossip_full, easgd and sparse_anchor k 0.25 (K4), cocod,
    delayed_avg (delay 1) and powersgd rank 2 (K1 only), each with exact
-   launch counts, bitwise replay and its losses against the CPU's.
+   launch counts, bitwise replay and its losses against the CPU's. Then
+   this slice's runs: fit(adaptive_tau=...) for 6 rounds from tau 1 with
+   overlap and easgd (the probe fused into K3 and K4, no K8), local_sgd,
+   cocod and gossip_ring (one K8 a round), fit(faults=...) for 8 rounds
+   (worker 1 crashed for rounds 2-4, worker 2 a 4x straggler) with overlap
+   and easgd, and both together for 4 rounds: exact launch counts, bitwise replay, and the tau
+   schedule, decisions and fault log of the same run on the CPU.
 5. The LM slice through ``repro_torch.api.Experiment(arch=...)`` with the
    training CLI's defaults (Overlap-Local-SGD tau 2, alpha 0.6, beta 0.7;
    SGD lr 1e-2, Nesterov 0.9): (a) the reduced qwen2-7b with 2 KV heads,
@@ -57,13 +70,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    buckets (K1), rounds x buckets (K3); a non-zero gradient in every leaf of
    every worker in the first step; a second run gives the same losses and
    final plane bit for bit; a finite eval_loss; rounds/s, step ms, peak
-   memory and one profiled round. (c) This slice's path: the same model
+   memory and one profiled round. (c) The gossip path: the same model
    and data trained with gossip_ring (push-sum over a ring of 4), 3 rounds
    from zeroed counters: K5 once a boundary and K3/K4 never, the other
    counts as in (b); bitwise replay; K5 bitwise at the plane's last
-   columns; rounds/s, step ms, peak memory and one profiled round.
+   columns; rounds/s, step ms, peak memory and one profiled round. (d) The
+   twin of (a) under a controller with worker 1 crashed for a round: the same
+   tau schedule and fault log on the card and the CPU. (e) This slice's LM
+   path: the model of (b) from tau 1 under adaptive tau with worker 3
+   crashed for rounds 1-2, 6 rounds: fault holds at rounds 1-3, the re-synced
+   row equal to the anchor, dead rows untouched by the masked boundaries, K3
+   once a round with its probe and K8 never, the controller replayed, bitwise
+   replay, the peak within 1% of (b)'s, K8 over the final plane.
 6. One JSON line with every kernel's numbers (K1-K5, K6 forward and
-   backward, K7 forward and backward, K9, K10), then the device line last.
+   backward, K7 forward and backward, K8 and the probe output of K3/K4, K9,
+   K10), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -459,6 +480,147 @@ def check_anchor_mix(dev, gen):
                     log(json.dumps(rec))
                     if not rec["ok"]:
                         raise AssertionError(f"K4 kernel disagrees with plain: {rec}")
+            del x, z, v
+            _free()
+    return worst, timing
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (b'): the consensus probe, K8 standalone and fused into K3/K4
+# ---------------------------------------------------------------------------
+
+PROBE_F64_BOUND = 2.0**-22  # two float32 ulps, relative
+
+
+def probe_f64(x):
+    """Float64 sums of the same float32 squares K8 forms (the f32 worker mean
+    in row order over m, then (x_i - mean)^2 and mean^2 in f32), over column
+    chunks of 2^24: [drift_sq, scale_sq] as Python floats."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix.ref import worker_mean
+
+    drift, scale = 0.0, 0.0
+    step = 1 << 24
+    for c0 in range(0, x.shape[1], step):
+        xf = x[:, c0:c0 + step].float()
+        mu = worker_mean(xf)
+        drift += float(torch.sum(torch.square(xf - mu[None]), dtype=torch.float64))
+        scale += float(torch.sum(torch.square(mu), dtype=torch.float64))
+    return [drift, scale]
+
+
+def _rel_list(got, want):
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def check_consensus_probe(dev, gen):
+    """K8 against its plain version on the card: f32 and bf16, at the
+    classifier's plane within rtol 1e-6 (the kernel adds the squares in
+    float64, the plain version in float32) and on the 4 x 2^27 plane within
+    two float32 ulps of a float64 sum of the same squares (the plain version's
+    error there is printed beside it); the same bits on a second launch. Then
+    the probe output of K3 and K4 (masked and unmasked, K4 also mean_pre):
+    their x, mean, z and v outputs bit for bit those without the probe, their
+    stats bit for bit K8's on a copy of the pre-boundary x. Times in f32 and
+    bf16: K8 beside the plain version, torch.linalg.vector_norm (one call
+    reading and reducing the same bytes) and the bytes bound; K3/K4 with the
+    probe beside K3/K4 without it."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix import ops as am_ops
+    from repro_torch.kernels.anchor_mix import ref as am_ref
+    from repro_torch.kernels.consensus_probe import ops, ref
+
+    alpha, beta = 0.6, 0.7
+    worst = {"K8": 0.0, "K3p": 0.0, "K4p": 0.0}
+    timing = {"K8": {}, "K3p": {}, "K4p": {}}
+    for shape_name, (m, n) in TRAIN_SHAPES.items():
+        it = TIMING_ITERS[shape_name]
+        for dtype in (torch.float32, torch.bfloat16):
+            P = torch.finfo(dtype).bits // 8
+            # workers near consensus: a shared model plus a small per-worker drift
+            x = (torch.randn(1, n, generator=gen, device=dev)
+                 + 0.05 * torch.randn(m, n, generator=gen, device=dev)).to(dtype)
+            got = ops.probe_buffer(x)
+            again = ops.probe_buffer(x)
+            g = got.tolist()
+            if shape_name == "slice":
+                want = ref.plane_probe(x).tolist()
+                err, bound_txt, lim = _rel_list(g, want), "rtol 1e-6 vs plain", 1e-6
+                plain_err = None
+            else:
+                want = probe_f64(x)
+                err, bound_txt, lim = _rel_list(g, want), "2 f32 ulps (rel 2^-22) vs a float64 sum", PROBE_F64_BOUND
+                plain_err = _rel_list(ref.plane_probe(x).tolist(), want)
+            rec = dict(kernel="K8 consensus_probe", dtype=_name(dtype), shape=[m, n], stats=g, reference=want,
+                       max_rel_err=err, plain_rel_err_vs_f64=plain_err, bound=bound_txt,
+                       replay_bitwise=bool(torch.equal(got, again)), ok=err <= lim and bool(torch.equal(got, again)))
+            worst["K8"] = max(worst["K8"], max(abs(a - b) for a, b in zip(g, want)))
+            rec["ms"] = time_ms(lambda: ops.probe_buffer(x), it)
+            rec["plain_ms"] = time_ms(lambda: ref.plane_probe(x), it)
+            rec["library_ms"] = time_ms(lambda: torch.linalg.vector_norm(x, dtype=torch.float32), it)
+            rec["bound_ms"], rec["bound_by"] = bound(P * m * n, 5 * m * n + 3 * n)
+            rec["library"] = "torch.linalg.vector_norm(x, dtype=torch.float32)"
+            timing["K8"][(shape_name, _name(dtype))] = rec
+            log(json.dumps(rec))
+            if not rec["ok"]:
+                raise AssertionError(f"K8 disagrees with its reference or does not replay: {rec}")
+            z = torch.randn(n, generator=gen, device=dev).to(dtype)
+            v = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype)
+            masks = [None]
+            if shape_name == "slice":
+                w = torch.full((m,), 1.0 / (m - 1), device=dev)
+                w[1] = 0.0
+                masks.append(w)
+            for weights in masks:
+                # the timed calls below update x in place: K8 of the plane as it is now
+                k8 = ops.probe_buffer(x)
+                xa, xb, va, vb = x.clone(), x.clone(), v.clone(), v.clone()
+                with_p = am_ops.pullback_mean_momentum(xa, z, va, alpha, beta, probe=True, weights=weights)
+                without = am_ops.pullback_mean_momentum(xb, z, vb, alpha, beta, weights=weights)
+                same = all(torch.equal(a, b) for a, b in zip(with_p[:3], without))
+                fused_eq = bool(torch.equal(with_p[3], k8))
+                worst["K3p"] = max(worst["K3p"], float((with_p[3] - k8).abs().max()),
+                                   *(float((a.float() - b.float()).abs().max()) for a, b in zip(with_p[:3], without)))
+                del xa, xb, with_p, without
+                rec = dict(kernel="K3 pullback_mean_momentum, probe output", dtype=_name(dtype), shape=[m, n],
+                           masked=weights is not None, outputs_bitwise_as_without_probe=same,
+                           stats_bitwise_as_k8=fused_eq, bound="bitwise", ok=same and fused_eq)
+                if dtype == torch.float32 and weights is None:
+                    rec["ms"] = time_ms(lambda: am_ops.pullback_mean_momentum(x, z, v, alpha, beta, probe=True), it)
+                    rec["library_ms"] = time_ms(lambda: am_ops.pullback_mean_momentum(x, z, v, alpha, beta), it)
+                    rec["plain_ms"] = time_ms(lambda: (ref.plane_probe(x), am_ref.pullback_mean_momentum(
+                        x, z, v, alpha, beta)), it)
+                    rec["bound_ms"], rec["bound_by"] = bound(2 * P * m * n + 4 * P * n, 9 * m * n + 5 * n)
+                    rec["library"] = "K3 without the probe"
+                    timing["K3p"][shape_name] = rec
+                log(json.dumps(rec))
+                if not rec["ok"]:
+                    raise AssertionError(f"K3 probe output wrong: {rec}")
+                for mean_pre in (False, True):
+                    k8 = ops.probe_buffer(x)
+                    xa, xb = x.clone(), x.clone()
+                    with_p = am_ops.pullback_mean(xa, z, alpha, mean_pre=mean_pre, probe=True, weights=weights)
+                    without = am_ops.pullback_mean(xb, z, alpha, mean_pre=mean_pre, weights=weights)
+                    same = all(torch.equal(a, b) for a, b in zip(with_p[:2], without))
+                    fused_eq = bool(torch.equal(with_p[2], k8))
+                    worst["K4p"] = max(worst["K4p"], float((with_p[2] - k8).abs().max()),
+                                       *(float((a.float() - b.float()).abs().max()) for a, b in zip(with_p[:2], without)))
+                    del xa, xb, with_p, without
+                    rec = dict(kernel="K4 pullback_mean, probe output", dtype=_name(dtype), shape=[m, n],
+                               masked=weights is not None, mean_pre=mean_pre, outputs_bitwise_as_without_probe=same,
+                               stats_bitwise_as_k8=fused_eq, bound="bitwise", ok=same and fused_eq)
+                    if dtype == torch.float32 and weights is None and not mean_pre:
+                        rec["ms"] = time_ms(lambda: am_ops.pullback_mean(x, z, alpha, probe=True), it)
+                        rec["library_ms"] = time_ms(lambda: am_ops.pullback_mean(x, z, alpha), it)
+                        rec["plain_ms"] = time_ms(lambda: (ref.plane_probe(x), am_ref.pullback_mean(x, z, alpha)), it)
+                        rec["bound_ms"], rec["bound_by"] = bound(2 * P * m * n + 2 * P * n, 9 * m * n + n)
+                        rec["library"] = "K4 without the probe"
+                        timing["K4p"][shape_name] = rec
+                    log(json.dumps(rec))
+                    if not rec["ok"]:
+                        raise AssertionError(f"K4 probe output wrong: {rec}")
             del x, z, v
             _free()
     return worst, timing
@@ -1036,6 +1198,127 @@ def train_strategies(dev, kernels):
     return runs
 
 
+# adaptive tau and faults on the quickstart configuration: the controller of
+# the reference's live test (tests/test_control.py: grows on IID data), the
+# reference's fault plans (tests/test_fault.py) over 16 workers
+ADAPTIVE_CTRL = dict(tau=1, tau_min=1, tau_max=8, lo=0.05, hi=0.5)
+ADAPTIVE_ROUNDS, FAULT_ROUNDS, COMPOSED_ROUNDS = 6, 8, 4
+# (run, AlgoConfig fields, launches a round per bucket besides K1's one a
+# local step): the fused probe (overlap: K3 with the probe, no K8) and the
+# standalone probe (one K8 a bucket)
+ADAPTIVE_RUNS = [
+    ("overlap_local_sgd", dict(name="overlap_local_sgd", anchor_beta=0.7), {"pullback_momentum": 1}),
+    ("local_sgd", dict(name="local_sgd"), {"consensus_probe": 1}),
+    ("cocod", dict(name="cocod"), {"consensus_probe": 1}),
+    ("gossip_ring", dict(name="gossip_ring"), {"consensus_probe": 1, "anchor_mix": 1}),
+    ("easgd", dict(name="easgd"), {"pullback_mean": 1}),
+]
+FAULT_RUNS = [
+    ("overlap_local_sgd", dict(name="overlap_local_sgd", anchor_beta=0.7), {"pullback_momentum": 1}),
+    ("easgd", dict(name="easgd"), {"pullback_mean": 1}),
+]
+
+
+def _schedule(res):
+    """A fit's tau schedule as comparable tuples (drift and scale apart)."""
+    if res.tau_schedule is None:
+        return None
+    return [(h["round"], h["tau"], h["decision"], h["next_tau"], h.get("fault")) for h in res.tau_schedule]
+
+
+def _controlled_fit(dev, fields, kernels, rounds, ctrl=None, plan=None):
+    """One fit of the quickstart configuration from zeroed counters, with a
+    fresh controller (``ctrl`` fields) and/or a fault plan."""
+    import torch
+
+    from repro_torch.config import AlgoConfig
+    from repro_torch.control import TauController
+
+    exp = _experiment(dev, AlgoConfig(tau=2, alpha=0.6, **fields))
+    exp.build()
+    for k in kernels:
+        k.launches = 0
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = exp.fit(rounds=rounds, adaptive_tau=None if ctrl is None else TauController(**ctrl), faults=plan)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return exp, res, time.perf_counter() - t0, {k.name: k.launches for k in kernels}
+
+
+def train_adaptive_and_faulted(dev, kernels):
+    """Adaptive tau (6 rounds from tau 1: overlap and easgd with the probe fused
+    into K3 and K4; local_sgd, cocod and gossip_ring with K8), faults (8 rounds of the reference's
+    "crash:1@2-5,slow:2x4" over 16 workers, overlap and easgd) and both
+    ("crash:1@1-3" under a controller from tau 2, 4 rounds) on the quickstart
+    configuration. Each run: exact launch counts (K1 = the schedule's local
+    steps x buckets; K3/K4 = rounds x buckets with no K8 on the fused path;
+    K8 = rounds x buckets on the standalone path), finite losses, a second
+    run with the same tau schedule, losses and plane bit for bit, and the
+    same run on the CPU (plain versions): the same tau schedule, decisions
+    and fault log exactly, drift and scale within rtol 1e-5, losses within
+    rtol 1e-4 (the bound of the 20-round runs above)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.fault import FaultPlan
+
+    cases = [(f"adaptive {name}", fields, per_round, dict(ctrl=ADAPTIVE_CTRL), ADAPTIVE_ROUNDS)
+             for name, fields, per_round in ADAPTIVE_RUNS]
+    plan = FaultPlan.parse("crash:1@2-5,slow:2x4", m=16, seed=7)
+    cases += [(f"faulted {name}", fields, per_round, dict(plan=plan), FAULT_ROUNDS)
+              for name, fields, per_round in FAULT_RUNS]
+    cases.append(("faulted adaptive overlap_local_sgd", FAULT_RUNS[0][1], FAULT_RUNS[0][2],
+                  dict(ctrl=dict(tau=2, tau_min=1, tau_max=8), plan=FaultPlan.parse("crash:1@1-3", m=16, seed=0)),
+                  COMPOSED_ROUNDS))
+    runs = {}
+    for name, fields, per_round, kw, rounds in cases:
+        exp, res, wall, launches = _controlled_fit(dev, fields, kernels, rounds, **kw)
+        buckets = exp.state.x.layout.num_buckets
+        want = {k.name: 0 for k in kernels}
+        want.update({k: v * rounds * buckets for k, v in per_round.items()}, sgd_step=res.steps * buckets)
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} != {want}")
+        if not all(math.isfinite(v) for v in res.losses):
+            raise AssertionError(f"{name}: non-finite loss {res.losses}")
+        if exp.state.membership is not None:
+            raise AssertionError(f"{name}: the state is not fully live after the fit")
+        again, res2, _, _ = _controlled_fit(dev, fields, [], rounds, **kw)
+        if (res2.losses != res.losses or res2.tau_schedule != res.tau_schedule or res2.fault_log != res.fault_log
+                or not all(torch.equal(a, b) for a, b in zip(exp.state.x.buffers, again.state.x.buffers))):
+            raise AssertionError(f"{name} is not deterministic: a second run differs")
+        _, cpu, _, _ = _controlled_fit("cpu", fields, [], rounds, **kw)
+        rel_loss = float(np.max(np.abs(np.asarray(res.losses) - cpu.losses) / np.abs(cpu.losses)))
+        rel_stats = 0.0
+        if res.tau_schedule is not None:
+            got = np.array([[h["drift"], h["scale"]] for h in res.tau_schedule])
+            ref = np.array([[h["drift"], h["scale"]] for h in cpu.tau_schedule])
+            rel_stats = float(np.max(np.abs(got - ref) / np.abs(ref)))
+        rec = dict(run=name, algo=fields, rounds=rounds, steps=res.steps, wall_s=wall, rounds_per_s=rounds / wall,
+                   final_loss=res.losses[-1], launches=launches, tau_schedule=_schedule(res),
+                   drift_ratios=None if res.tau_schedule is None else [h["drift_ratio"] for h in res.tau_schedule],
+                   fault_log=res.fault_log, deterministic_replay=True,
+                   schedule_as_cpu=_schedule(res) == _schedule(cpu), fault_log_as_cpu=res.fault_log == cpu.fault_log,
+                   card_vs_cpu_stats_max_rel=rel_stats, card_vs_cpu_loss_max_rel=rel_loss,
+                   bound="schedule and fault log exact; drift, scale rtol 1e-5; losses rtol 1e-4")
+        rec["ok"] = rec["schedule_as_cpu"] and rec["fault_log_as_cpu"] and rel_stats <= 1e-5 and rel_loss <= 1e-4
+        log(json.dumps(rec))
+        if not rec["ok"]:
+            raise AssertionError(f"{name}: card and CPU runs disagree: {rec}")
+        decisions = [h["decision"] for h in res.tau_schedule or []]
+        if name == "adaptive overlap_local_sgd" and "grow" not in decisions:
+            raise AssertionError(f"{name}: the controller never grew tau: {decisions}")
+        if name.startswith("faulted adaptive") and (
+                decisions[1:4] != ["fault_hold"] * 3 or res.tau_schedule[3]["fault"] != "rejoin"):
+            raise AssertionError(f"{name}: rounds 1-3 must be fault holds, round 3 a rejoin: {rec['tau_schedule']}")
+        runs[name] = rec
+        del exp, again
+    return runs
+
+
 def profile_train(exp, rounds):
     """One overlap run under torch.profiler after a warm round: device busy
     time (sum of kernel times; one stream) against wall time, and aten ops
@@ -1076,6 +1359,7 @@ def profile_train(exp, rounds):
 
 LM_ROUNDS, LM_WORKERS, LM_LAYERS = 3, 4, 2
 LM_BATCH, LM_SEQ = 2, 512
+LM_TWIN_CTRL = dict(tau=1, tau_min=1, tau_max=4, lo=2e-3, hi=1e-1)
 
 
 def _lm_experiment(dev, cfg, workers, seq):
@@ -1113,6 +1397,29 @@ def lm_card_vs_cpu(dev):
     log(json.dumps(rec))
     if not rec["ok"]:
         raise AssertionError(f"LM card vs CPU losses: max rel {rel} > 1e-4")
+    # the same twin under a controller from tau 1 with worker 1 crashed in round 1:
+    # the same schedule (rounds 1 and 2 fault holds), drift and scale rtol 1e-5
+    from repro_torch.control import TauController
+    from repro_torch.fault import FaultPlan
+
+    runs = {}
+    for key, device in (("cuda", dev), ("cpu", "cpu")):
+        runs[key] = _lm_experiment(device, cfg, 2, 128).fit(
+            rounds=LM_ROUNDS, adaptive_tau=TauController(**LM_TWIN_CTRL), faults=FaultPlan(m=2, crashes=((1, 1, 2),)))
+    card, cpu = runs["cuda"], runs["cpu"]
+    stats = lambda r: np.array([[h["drift"], h["scale"]] for h in r.tau_schedule])  # noqa: E731
+    rel_stats = float(np.max(np.abs(stats(card) - stats(cpu)) / np.abs(stats(cpu))))
+    rel = float(np.max(np.abs(np.asarray(card.losses) - cpu.losses) / np.abs(cpu.losses)))
+    rec = dict(check="LM twin with adaptive tau and a one-round crash, card vs CPU", rounds=LM_ROUNDS,
+               schedule_card=_schedule(card), schedule_cpu=_schedule(cpu),
+               drift_ratios=[h["drift_ratio"] for h in cpu.tau_schedule], fault_log=card.fault_log,
+               stats_max_rel=rel_stats, losses_max_rel=rel,
+               bound="schedule and fault log exact; drift, scale rtol 1e-5; losses rtol 1e-4")
+    rec["ok"] = (_schedule(card) == _schedule(cpu) and card.fault_log == cpu.fault_log and rel_stats <= 1e-5
+                 and rel <= 1e-4)
+    log(json.dumps(rec))
+    if not rec["ok"]:
+        raise AssertionError(f"LM adaptive twin: card and CPU disagree: {rec}")
 
 
 def _first_step_gradients(exp):
@@ -1336,6 +1643,168 @@ def lm_gossip_full_width(dev, kernels):
     return summary
 
 
+LM_ADAPTIVE_ROUNDS = 6
+# drift / scale of full-width random weights after a step or two is small;
+# the band is wide so the schedule may move either way (nothing asserts it)
+LM_CTRL = dict(tau=1, tau_min=1, tau_max=4, lo=1e-3, hi=1e-2)
+
+
+def lm_adaptive_faulted(dev, kernels, cfg, overlap_peak=None):
+    """This slice's LM path: ``cfg`` (full-width qwen2-7b cut to 2 layers,
+    bf16) with m = 4 workers at seq 512, Overlap-Local-SGD from tau 1 (alpha
+    0.6, beta 0.7), 6 rounds of fit(adaptive_tau=..., faults=...) with worker
+    3 crashed for rounds 1-2, from zeroed counters: finite losses; rounds 1-3
+    fault holds ("crash", "crash", "rejoin"), worker 3 excluded in rounds 1-2
+    and re-synced at 3, rounds 0, 4, 5 clean; at the start of round 3 worker
+    3's row equal to the anchor bit for bit (the first and last 2^20 columns
+    of each bucket); in the masked rounds the dead row's columns unchanged by
+    the boundary; K3 once a round a bucket and K8 never (the probe is fused),
+    K1 once a local step, K6 forward and each backward kernel once a step a
+    worker a layer, K7's forward and backward 5 times a step a worker; the
+    controller replayed on the recorded (drift, scale) gives the recorded
+    schedule; a second run the same losses, schedule and plane bit for bit;
+    the peak memory within 1% of the overlap LM run's (``overlap_peak``); K8
+    over the final plane within two float32 ulps of a float64 sum, the same
+    bits twice. Returns its summary."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.api import Experiment, TokenStream
+    from repro_torch.config import AlgoConfig, OptimizerConfig
+    from repro_torch.control import RoundProgramCache, TauController
+    from repro_torch.fault import FaultPlan
+    from repro_torch.kernels.consensus_probe import ops as probe_ops
+    from repro_torch.optim import schedules
+
+    m, L, t = LM_WORKERS, cfg.num_layers, 1 << 20
+    plan = FaultPlan(m=m, crashes=((3, 1, 3),))
+
+    def experiment():
+        return Experiment(arch=cfg, strategy=AlgoConfig(name="overlap_local_sgd", tau=1, alpha=0.6, anchor_beta=0.7),
+                          optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
+                          schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ),
+                          workers=m, device=dev).build()
+
+    def ends(b, i):
+        return b[i, :t].clone(), b[i, -t:].clone()
+
+    def observed(exp, checks):
+        """Watch the run without changing it: the dead rows around each masked
+        boundary, and worker 3's row at the start of round 3."""
+        strat = exp.strategy_obj
+        boundary = strat.boundary_round
+
+        def watched_boundary(px, vars, inflight, probe=False, membership=None):
+            if membership is None:
+                return boundary(px, vars, inflight, probe=probe, membership=membership)
+            dead = [i for i, live in enumerate(membership.mask.tolist()) if not live]
+            before = [[ends(b, i) for i in dead] for b in px.buffers]
+            out = boundary(px, vars, inflight, probe=probe, membership=membership)
+            checks["dead_rows_unchanged"].append(all(
+                torch.equal(a, c) for b, bb in zip(px.buffers, before)
+                for i, ab in zip(dead, bb) for a, c in zip(ab, ends(b, i))))
+            return out
+
+        strat.boundary_round = watched_boundary
+        exp._ensure_tau_programs()
+        probed = exp.tau_programs.make_program(1)  # the probed round step, the same for every tau
+        calls = []
+
+        def watched_step(state, batch):
+            if len(calls) == 3:
+                checks["round3_row_is_anchor"] = all(
+                    torch.equal(a, c) for b, z in zip(state.x.buffers, state.inflight.buffers)
+                    for a, c in zip(ends(b, 3), (z[:t], z[-t:])))
+            calls.append(1)
+            return probed(state, batch)
+
+        exp.tau_programs = RoundProgramCache(lambda tau: watched_step)
+
+    t0 = time.perf_counter()
+    exp = experiment()
+    build_s = time.perf_counter() - t0
+    checks = {"dead_rows_unchanged": [], "round3_row_is_anchor": None}
+    observed(exp, checks)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = exp.fit(rounds=LM_ADAPTIVE_ROUNDS, adaptive_tau=TauController(**LM_CTRL), faults=plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    losses, steps, sched, flog = res.losses, res.steps, res.tau_schedule, res.fault_log
+    del res
+    buckets = exp.state.x.layout.num_buckets
+    want = {k.name: 0 for k in kernels}
+    want.update(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
+                flash_attention_bwd_dkdv=steps * m * L, rmsnorm=steps * m * (2 * L + 1),
+                rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets,
+                pullback_momentum=LM_ADAPTIVE_ROUNDS * buckets)
+    if launches != want:
+        raise AssertionError(f"LM adaptive/faulted launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"LM adaptive/faulted losses not finite: {losses}")
+    want_log = [dict(round=1, live=3, excluded=[3], resynced=[], reason="crash"),
+                dict(round=2, live=3, excluded=[3], resynced=[], reason="crash"),
+                dict(round=3, live=4, excluded=[], resynced=[3], reason="rejoin")]
+    faults = [h.get("fault") for h in sched]
+    if flog != want_log or faults != [None, "crash", "crash", "rejoin", None, None] or any(
+            h["decision"] != "fault_hold" for h in sched[1:4]):
+        raise AssertionError(f"LM fault rounds wrong: log {flog}, schedule {sched}")
+    if checks["round3_row_is_anchor"] is not True or checks["dead_rows_unchanged"] != [True, True]:
+        raise AssertionError(f"LM re-sync / masked boundary checks failed: {checks}")
+    replay = TauController(**LM_CTRL)
+    for h in sched:
+        replay.update(h["drift"], h["scale"], fault=h.get("fault"))
+    if replay.history != sched:
+        raise AssertionError(f"LM controller replay differs: {replay.history} vs {sched}")
+    if overlap_peak is not None and abs(peak - overlap_peak) > 0.01 * overlap_peak:
+        raise AssertionError(f"LM adaptive/faulted peak {peak} is not within 1% of the overlap run's {overlap_peak}")
+    plane = [b.to("cpu", copy=True) for b in exp.state.x.buffers]
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    again = experiment()
+    res2 = again.fit(rounds=LM_ADAPTIVE_ROUNDS, adaptive_tau=TauController(**LM_CTRL), faults=plan)
+    if res2.losses != losses or res2.tau_schedule != sched or res2.fault_log != flog:
+        raise AssertionError(f"LM adaptive/faulted run is not deterministic: {losses} vs {res2.losses}")
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(plane, again.state.x.buffers)):
+        raise AssertionError("LM adaptive/faulted run is not deterministic: final planes differ")
+    del plane, res2
+    # K8 over the final full-width plane
+    x = again.state.x.buffers[0]
+    got, twice = probe_ops.probe_buffer(x), probe_ops.probe_buffer(x)
+    ref64 = probe_f64(x)
+    k8 = dict(check="K8 on the full-width plane", plane=list(x.shape), dtype=_name(x.dtype), stats=got.tolist(),
+              f64=ref64, max_rel_err=_rel_list(got.tolist(), ref64), bound="2 f32 ulps (rel 2^-22) vs a float64 sum",
+              replay_bitwise=bool(torch.equal(got, twice)),
+              ms=time_ms(lambda: probe_ops.probe_buffer(x), 5), bound_ms=bound(x.numel() * x.element_size())[0])
+    k8["ok"] = k8["max_rel_err"] <= PROBE_F64_BOUND and k8["replay_bitwise"]
+    log(json.dumps(k8))
+    if not k8["ok"]:
+        raise AssertionError(f"K8 on the full-width plane: {k8}")
+    del again, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(
+        slice=f"{cfg.name} full width, {L} layers, {cfg.dtype}, adaptive tau + faults", workers=m,
+        batch_per_worker=LM_BATCH, seq_len=LM_SEQ, rounds=LM_ADAPTIVE_ROUNDS, steps=steps, controller=LM_CTRL,
+        tau_schedule=[(h["tau"], h["decision"], h.get("fault")) for h in sched],
+        drift=[h["drift"] for h in sched], scale=[h["scale"] for h in sched], fault_log=flog, build_s=build_s,
+        wall_s=wall, rounds_per_s=LM_ADAPTIVE_ROUNDS / wall, step_ms=wall / steps * 1e3, losses=losses,
+        peak_mem_bytes=peak, overlap_peak_mem_bytes=overlap_peak, launches=launches, checks=checks,
+        controller_replay=True, deterministic_replay=True, k8_full_plane=k8,
+    )
+    log(json.dumps(summary))
+    return summary
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1355,6 +1824,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.config import get_arch
     from repro_torch.kernels import _build, all_kernels
 
     # phase 1
@@ -1380,6 +1850,7 @@ def main() -> int:
     att_err, att_t = check_paged_attend(dev, gen)
     opt_err, opt_t = check_opt_step(dev, gen)
     mix_err, mix_t = check_anchor_mix(dev, gen)
+    probe_err, probe_t = check_consensus_probe(dev, gen)
     fa_err, fa_t = check_flash_attention(dev, gen)
     rb_err, rb_t = check_rmsnorm_bwd(dev, gen)
 
@@ -1391,11 +1862,15 @@ def main() -> int:
     log(json.dumps(summary))
     runs, _ = train_slice(dev, kernels)
     runs.update(train_strategies(dev, kernels))
+    runs.update(train_adaptive_and_faulted(dev, kernels))
     lm_card_vs_cpu(dev)
     lm = lm_full_width(dev, kernels)
     lm["card"] = card
     gossip = lm_gossip_full_width(dev, kernels)
     gossip["card"] = card
+    lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+    adaptive_lm = lm_adaptive_faulted(dev, kernels, lm_cfg, overlap_peak=lm["peak_mem_bytes"])
+    adaptive_lm["card"] = card
 
     # phase 6
     launches = dict(summary["launches"])
@@ -1446,6 +1921,30 @@ def main() -> int:
     by_path["anchor_mix"] = {"classifier gossip_ring": runs["gossip_ring"]["launches"]["anchor_mix"],
                              "classifier gossip_exp": runs["gossip_exp"]["launches"]["anchor_mix"],
                              "lm gossip_ring": gossip["launches"]["anchor_mix"]}
+    # K8 and the probe output of K3/K4: the adaptive classifier runs (K8 on the
+    # standalone path, its main path here; K3 and K4 with the probe on the
+    # fused paths), the LM under adaptive tau and faults (K3 with the probe, K8 never)
+    k8 = probe_t["K8"]
+    rows += [
+        ("consensus_probe", "anchor_mix", "K8 probe_flat", "src/repro/kernels/consensus_probe/kernel.py:66", probe_err["K8"],
+         k8[("slice", "float32")], "f32 m=16 n=17408 (the classifier plane)", k8[("large", "float32")]),
+        ("pullback_momentum_probe", "anchor_mix", "K3 pullback_momentum_flat, probe output (_accum_probe)",
+         "src/repro/kernels/anchor_mix/kernel.py:69", probe_err["K3p"], probe_t["K3p"]["slice"],
+         "f32 m=16 n=17408 (the classifier plane)", probe_t["K3p"]["large"]),
+        ("pullback_mean_probe", "anchor_mix", "K4 pullback_mean_flat, probe output (_accum_probe)",
+         "src/repro/kernels/anchor_mix/kernel.py:69", probe_err["K4p"], probe_t["K4p"]["slice"],
+         "f32 m=16 n=17408 (the classifier plane)", probe_t["K4p"]["large"]),
+    ]
+    launches["consensus_probe"] = runs["adaptive local_sgd"]["launches"]["consensus_probe"]
+    launches["pullback_momentum_probe"] = runs["adaptive overlap_local_sgd"]["launches"]["pullback_momentum"]
+    launches["pullback_mean_probe"] = runs["adaptive easgd"]["launches"]["pullback_mean"]
+    by_path["consensus_probe"] = {f"classifier adaptive {n}": runs[f"adaptive {n}"]["launches"]["consensus_probe"]
+                                  for n in ("local_sgd", "cocod", "gossip_ring", "overlap_local_sgd")}
+    by_path["consensus_probe"]["lm adaptive+faults"] = adaptive_lm["launches"]["consensus_probe"]
+    by_path["pullback_momentum_probe"] = {
+        "classifier adaptive overlap_local_sgd": runs["adaptive overlap_local_sgd"]["launches"]["pullback_momentum"],
+        "lm adaptive+faults": adaptive_lm["launches"]["pullback_momentum"]}
+    by_path["pullback_mean_probe"] = {"classifier adaptive easgd": launches["pullback_mean_probe"]}
     out = []
     for name, source, label, replaces, err, t, shape, large in rows:
         entry = dict(
@@ -1456,12 +1955,21 @@ def main() -> int:
             entry["library_fwd_bwd_ms"] = t["library_fwd_bwd_ms"]
         if large is not None:
             entry["large"] = dict(shape=large["shape"], **{k: large[k] for k in keys})
-        if name == "anchor_mix":
+        if name in ("consensus_probe", "pullback_momentum_probe", "pullback_mean_probe"):
+            entry["launches_by_path"] = by_path[name]
+        if name == "consensus_probe":
+            entry["bf16"] = {sh: {k: k8[(sh, "bfloat16")][k] for k in keys} for sh in ("slice", "large")}
+            entry["library"] = t["library"]
+        elif name.endswith("_probe"):
+            entry["library"] = t["library"]
+            entry["max_abs_err_note"] = "against K3/K4 without the probe (outputs) and K8 (stats): bitwise"
+        elif name == "anchor_mix":
             entry["launches_by_path"] = by_path[name]
             entry["copy_ms"], entry["large"]["copy_ms"] = t["copy_ms"], large["copy_ms"]
             entry["bf16"] = {sh: {k: k5[(sh, "bfloat16")][k] for k in keys + ("copy_ms",)} for sh in ("slice", "large")}
             entry["library"] = t["library"]
-        elif any(by_path[name][p] for p in ("serving", "classifier")) and any(by_path[name][p] for p in ("lm",)):
+        elif name in by_path and any(by_path[name][p] for p in ("serving", "classifier")) and any(
+                by_path[name][p] for p in ("lm",)):
             entry["launches_by_path"] = by_path[name]
         out.append(entry)
     out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys})

@@ -28,8 +28,15 @@ on the CPU (so the CPU and GPU runs of one seed start equal); they differ
 from the reference's ``jax.random`` draws, so parity tests carry the
 reference's initial state over with :mod:`repro_torch.interop`.
 
-Not here yet (each raises): ``fit(adaptive_tau=…)`` (ROADMAP Queue 1 item
-5), ``fit(faults=…)`` (item 6), ``serve()`` (item 7) and the archs
+``fit(adaptive_tau=TauController(...))`` hands τ to the controller between
+rounds, fed by the consensus probe of each boundary; ``fit(faults=FaultPlan(...))``
+runs each round under the plan's membership (rejoining workers re-synced
+from the anchor first); the two compose, fault rounds becoming
+``fault_hold`` decisions. Every fit reads the device once a round: the
+losses (with the probe's two scalars when there is a controller) in one
+copy.
+
+Not here yet (each raises): ``serve()`` (item 7) and the archs
 ``_check_supported`` rejects (item 8); the strategies (every name and alias
 of the reference) raise for ``AlgoConfig.packed=False`` (item 4b) and
 ``AlgoConfig.offload`` (item 9).
@@ -45,6 +52,7 @@ import torch
 
 from repro_torch.config.base import AlgoConfig, ModelConfig, OptimizerConfig
 from repro_torch.config.registry import get_arch
+from repro_torch.control import RoundProgramCache, TauController
 from repro_torch.core.strategy import CommStrategy, resolve_strategy
 from repro_torch.data.loaders import (
     ClassificationSplits,
@@ -95,8 +103,10 @@ class FitResult:
     losses: List[float]  # per-round mean loss
     state: Any  # final TrainState
     rounds: int
-    steps: int  # local steps taken (rounds × τ)
+    steps: int  # local steps taken (rounds × τ, or the τ schedule's sum)
     wall_s: float
+    tau_schedule: Optional[List[dict]] = None  # the controller's records (adaptive τ)
+    fault_log: Optional[List[dict]] = None  # the harness's records of degraded rounds
 
     @property
     def final_loss(self) -> float:
@@ -159,7 +169,7 @@ class Experiment:
                 raise ValueError(f"task splits have {self.splits.num_workers} partitions but workers={self.workers}")
             self.model_cfg = None
             params = init_mlp(gen, spec.dim, spec.num_classes, hidden=spec.hidden)
-            self.loss_fn, per_worker = mlp_loss, None
+            self.loss_fn, self._per_worker = mlp_loss, None
             self.next_batch = classification_batch_fn(self.splits, spec.batch_per_worker, seed=spec.seed)
         else:
             if isinstance(self.arch, ModelConfig):
@@ -170,14 +180,15 @@ class Experiment:
             self.model_cfg = cfg
             stream = self.data or TokenStream()
             params = T.init_model(cfg, gen)
-            self.loss_fn, per_worker = (lambda p, b: T.lm_loss(cfg, p, b)), T.split_layers
+            self.loss_fn, self._per_worker = (lambda p, b: T.lm_loss(cfg, p, b)), T.split_layers
             self.next_batch = lm_batch_fn(cfg, self.workers, stream.batch_per_worker, stream.seq_len, seed=stream.seed)
         leaves, paths = tree_flatten(params)
         self.params = tree_unflatten(paths, [t.to(self.dev) for t in leaves])
         del params, leaves
         self.state = make_train_state(self.params, self.workers, self.opt_obj, self.strategy_obj)
         self.step_fn = make_round_step(self.loss_fn, self.opt_obj, self.strategy_obj, self.schedule_fn,
-                                       grad_clip=self.grad_clip, microbatch=self.microbatch, per_worker=per_worker)
+                                       grad_clip=self.grad_clip, microbatch=self.microbatch,
+                                       per_worker=self._per_worker)
         self._built = True
         return self
 
@@ -208,29 +219,92 @@ class Experiment:
     # -- training -----------------------------------------------------------
 
     def fit(self, rounds: Optional[int] = None, steps: Optional[int] = None,
-            log: Optional[Callable[[int, float], None]] = None, adaptive_tau=None, faults=None) -> FitResult:
+            log: Optional[Callable[[int, float], None]] = None, adaptive_tau: Optional[TauController] = None,
+            faults=None) -> FitResult:
         """Run the round loop; ``steps`` (local steps) is an alternative to
         ``rounds`` (rounds = steps // τ). ``log(round, mean_loss)`` is called
         each round. Fitting continues from the current state. The round's
-        losses stay on the device until its end: one host read a round."""
-        if adaptive_tau is not None:
-            raise NotImplementedError("fit(adaptive_tau=...) is ROADMAP Queue 1 item 5")
-        if faults is not None:
-            raise NotImplementedError("fit(faults=...) is ROADMAP Queue 1 item 6")
+        losses stay on the device until its end: one host read a round.
+
+        ``adaptive_tau`` (a :class:`~repro_torch.control.TauController`) picks
+        each round's τ; the boundary's consensus probe feeds it, and the
+        result's ``tau_schedule`` holds its records (``steps`` then counts the
+        local steps taken). ``faults`` (a :class:`~repro_torch.fault.FaultPlan`)
+        runs every round under the plan's membership and fills ``fault_log``;
+        with both, fault rounds are ``fault_hold`` decisions."""
         self.build()
+        if faults is not None:
+            return self._fit_faulted(faults, rounds or self.rounds, log, ctrl=adaptive_tau)
+        if adaptive_tau is not None:
+            return self._fit_adaptive(adaptive_tau, rounds or self.rounds, log)
         tau = self.strategy_obj.tau
         if rounds is None:
             rounds = (steps // tau) if steps is not None else self.rounds
+        return self._round_loop(rounds, log)
+
+    def _ensure_tau_programs(self) -> None:
+        """``self.tau_programs``: the probed round step per τ, counted."""
+        if not hasattr(self, "tau_programs"):
+            probed = make_round_step(self.loss_fn, self.opt_obj, self.strategy_obj, self.schedule_fn,
+                                     grad_clip=self.grad_clip, microbatch=self.microbatch,
+                                     per_worker=self._per_worker, probe=True)
+            self.tau_programs = RoundProgramCache(lambda tau: probed)
+
+    def _fit_adaptive(self, ctrl: TauController, rounds: int, log) -> FitResult:
+        """Each round at the controller's τ, the probed round step feeding it."""
+        self._ensure_tau_programs()
+        return self._round_loop(rounds, log, ctrl=ctrl)
+
+    def _fit_faulted(self, plan, rounds: int, log, ctrl: Optional[TauController] = None) -> FitResult:
+        """Each round under the fault harness: re-sync the rejoining workers,
+        install the membership, run the (masked) round; with ``ctrl``, fault
+        rounds are fed to it as ``fault_hold``. Leaves the state fully live."""
+        from repro_torch.fault import FaultHarness, FaultPlan
+
+        if not isinstance(plan, FaultPlan):
+            raise TypeError(f"faults= expects a repro_torch.fault.FaultPlan, got {type(plan).__name__}")
+        if plan.m != self.workers:
+            raise ValueError(f"fault plan is over m={plan.m} workers, experiment has workers={self.workers}")
+        if ctrl is not None:
+            self._ensure_tau_programs()
+        harness = FaultHarness(plan)
+        res = self._round_loop(rounds, log, ctrl=ctrl, harness=harness)
+        # a later fit() without faults= runs the unmasked boundary
+        self.state = res.state = self.state._replace(membership=None)
+        res.fault_log = list(harness.records)
+        return res
+
+    def _round_loop(self, rounds: int, log, ctrl: Optional[TauController] = None, harness=None) -> FitResult:
         losses: List[float] = []
+        first = len(ctrl.history) if ctrl is not None else 0
+        total_steps = 0
         t0 = time.time()
         state = self.state
         for r in range(rounds):
-            state, ms = self.step_fn(state, self.to_device(round_batch(self.next_batch, tau)))
-            losses.append(float(ms["loss"].cpu().numpy().mean()))
+            if harness is not None:
+                state = harness.before_round(state, r)
+            if ctrl is None:
+                tau, step = self.strategy_obj.tau, self.step_fn
+            else:
+                tau = ctrl.tau
+                step = self.tau_programs.program_for(tau)
+            state, ms = step(state, self.to_device(round_batch(self.next_batch, tau)))
+            loss = ms["loss"]
+            if ctrl is None:
+                losses.append(float(loss.cpu().numpy().mean()))
+            else:
+                # one copy: the round's losses and the probe's two scalars
+                probe = torch.stack([ms["consensus_drift"], ms["consensus_scale"]])
+                vals = torch.cat([loss.reshape(-1).float(), probe]).cpu().numpy()
+                losses.append(float(vals[:-2].reshape(tuple(loss.shape)).mean()))
+                ctrl.update(float(vals[-2]), float(vals[-1]),
+                            fault=harness.fault_reason(r) if harness is not None else None)
+            total_steps += tau
             if log is not None:
                 log(r, losses[-1])
         self.state = state
-        return FitResult(losses=losses, state=state, rounds=rounds, steps=rounds * tau, wall_s=time.time() - t0)
+        return FitResult(losses=losses, state=state, rounds=rounds, steps=total_steps, wall_s=time.time() - t0,
+                         tau_schedule=list(ctrl.history[first:]) if ctrl is not None else None)
 
     # -- evaluation ---------------------------------------------------------
 

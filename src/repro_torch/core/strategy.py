@@ -25,10 +25,16 @@ Full-plane f32 temporaries are avoided: expressions over a whole plane run
 over column chunks (:func:`_column_chunks`) or as one mixed-dtype in-place
 op, with the values of the reference's expressions.
 
+``boundary_round(..., probe=True)`` also returns the consensus stats of the
+*pre-boundary* plane for the adaptive-τ controller: fused into K3/K4 (no
+extra launch) where the boundary runs them (overlap, easgd, sparse_anchor,
+gossip_full), else one standalone K8 launch a bucket. ``membership`` (a
+:class:`~repro_torch.fault.Membership`) masks the boundary to the live
+workers: dead rows pass through, worker means are the renormalised weighted
+sums; the probe still covers all m rows. ``None`` is the fully-live path.
+
 Not here (each raises, naming its ROADMAP item): the per-leaf oracle
-(``packed=False``, item 4b), host offload (item 9), the consensus probe
-(item 5) and the membership-masked boundaries (item 6), gossip's masked
-matrix composition included.
+(``packed=False``, item 4b) and host offload (item 9).
 """
 from __future__ import annotations
 
@@ -39,8 +45,9 @@ import torch
 
 from repro_torch.config.base import AlgoConfig
 from repro_torch.core import powersgd
-from repro_torch.core.topology import cached_topology
+from repro_torch.core.topology import cached_topology, compose_membership
 from repro_torch.kernels.anchor_mix import ops as anchor_ops
+from repro_torch.kernels.consensus_probe import packed_probe, stats_from_partials
 from repro_torch.kernels.opt_step.ref import weak
 from repro_torch.parallel.packing import Packed, buffer_map, leaf_segments, packed_like
 
@@ -57,9 +64,35 @@ class AlgoVars(NamedTuple):
     extra: Any = None  # gossip (w, t) / sparse error plane / PowerState
 
 
-def _packed_worker_mean(p: Packed) -> Packed:
-    """One f32 worker mean per bucket, cast back to the bucket dtype."""
-    return buffer_map(lambda b: torch.mean(b, dim=0, dtype=torch.float32).to(b.dtype), p)
+def _mem_weights(membership):
+    """The (m,) f32 weights of a membership, or None (fully live)."""
+    return None if membership is None else membership.weights
+
+
+def _packed_worker_mean(p: Packed, weights=None) -> Packed:
+    """One f32 worker mean per bucket, cast back to the bucket dtype; with
+    ``weights`` the weighted sum Σ_i w_i·x_i (over column chunks)."""
+    if weights is None:
+        return buffer_map(lambda b: torch.mean(b, dim=0, dtype=torch.float32).to(b.dtype), p)
+    wf = weights.float()[:, None]
+
+    def weighted(b):
+        out = torch.empty(b.shape[1], dtype=b.dtype, device=b.device)
+        for c in _column_chunks(b):
+            out[c] = torch.sum(b[:, c].float() * wf, dim=0).to(b.dtype)
+        return out
+
+    return buffer_map(weighted, p)
+
+
+def _with_stats(out: tuple, stats) -> tuple:
+    """A boundary's result, with the probe's stats appended when probed."""
+    return out if stats is None else out + (stats,)
+
+
+def _fused_stats(outs, m: int, probe: bool):
+    """The stats K3/K4 emitted with ``probe=True`` (each output's last)."""
+    return stats_from_partials([o[-1] for o in outs], m) if probe else None
 
 
 def _pack_anchor(px: Packed) -> Packed:
@@ -78,15 +111,6 @@ def _column_chunks(b: torch.Tensor):
     step = max(1, _CHUNK_ELEMS // max(m, 1))
     for c0 in range(0, n, step):
         yield slice(c0, min(n, c0 + step))
-
-
-def _plain_boundary(probe: bool, membership) -> None:
-    """The port's boundaries run neither the consensus probe nor a
-    membership mask yet."""
-    if probe:
-        raise NotImplementedError("the consensus probe (adaptive tau) is ROADMAP Queue 1 item 5")
-    if membership is not None:
-        raise NotImplementedError("membership-masked boundaries (faults) are ROADMAP Queue 1 item 6")
 
 
 class CommStrategy:
@@ -122,9 +146,12 @@ class CommStrategy:
 
     def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         """One round boundary: consume ``inflight`` (eq. 4), launch the next
-        collective (eq. 5). Returns ``(px, vars, inflight)``."""
-        _plain_boundary(probe, membership)
-        return px, vars, None
+        collective (eq. 5). Returns ``(px, vars, inflight)``, with ``probe``
+        also the pre-boundary plane's
+        :class:`~repro_torch.kernels.consensus_probe.ConsensusStats`.
+        ``membership`` masks the boundary; with no boundary math (base,
+        sync_sgd, powersgd) the plane passes through."""
+        return _with_stats((px, vars, None), packed_probe(px) if probe else None)
 
 
 class SyncSGDStrategy(CommStrategy):
@@ -149,10 +176,14 @@ class LocalSGDStrategy(CommStrategy):
     name = "local_sgd"
 
     def boundary_round(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
-        _plain_boundary(probe, membership)
-        for b, avg in zip(px.buffers, _packed_worker_mean(px).buffers):
-            b.copy_(avg.expand_as(b))
-        return px, vars, None
+        # the probe reads the pre-average plane: after the average the drift is 0
+        stats = packed_probe(px) if probe else None
+        for b, avg in zip(px.buffers, _packed_worker_mean(px, _mem_weights(membership)).buffers):
+            if membership is None:
+                b.copy_(avg.expand_as(b))
+            else:  # dead rows keep their stale parameters (they re-sync on rejoin); in place
+                torch.where((membership.mask > 0)[:, None], avg[None], b, out=b)
+        return _with_stats((px, vars, None), stats)
 
 
 class OverlapLocalSGDStrategy(CommStrategy):
@@ -178,31 +209,35 @@ class OverlapLocalSGDStrategy(CommStrategy):
         return _pack_anchor(px)
 
     def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
-        _plain_boundary(probe, membership)
-        alpha = self.cfg.alpha
+        alpha, weights = self.cfg.alpha, _mem_weights(membership)
         if self.momentum:
             beta = self.cfg.anchor_beta
-            z_next = tuple(
-                anchor_ops.pullback_mean_momentum(bx, bz, bv, alpha, beta)[1]
+            outs = [
+                anchor_ops.pullback_mean_momentum(bx, bz, bv, alpha, beta, probe=probe, weights=weights)
                 for bx, bz, bv in zip(px.buffers, inflight.buffers, vars.v.buffers)
-            )
+            ]
             # the consumed anchor becomes vars.z; v was updated in place
             vars = AlgoVars(z=inflight, v=vars.v, extra=vars.extra)
         else:
-            z_next = _pullback_mean(px, inflight, alpha)
-        return px, vars, Packed(z_next, inflight.layout)
+            outs = _pullback_mean(px, inflight, alpha, probe=probe, weights=weights)
+        z_next = Packed(tuple(o[1] for o in outs), inflight.layout)
+        return _with_stats((px, vars, z_next), _fused_stats(outs, px.lead_shape[0], probe))
 
 
-def _pullback_mean(px: Packed, z: Packed, alpha: float, mean_pre: bool = False):
-    """K4 per bucket: x pulled back in place; returns the new means."""
-    return tuple(anchor_ops.pullback_mean(bx, bz, alpha, mean_pre=mean_pre)[1] for bx, bz in zip(px.buffers, z.buffers))
+def _pullback_mean(px: Packed, z: Packed, alpha: float, mean_pre: bool = False, probe: bool = False, weights=None):
+    """K4 per bucket: x pulled back in place; returns each bucket's outputs
+    (x, mean[, stats])."""
+    return [anchor_ops.pullback_mean(bx, bz, alpha, mean_pre=mean_pre, probe=probe, weights=weights)
+            for bx, bz in zip(px.buffers, z.buffers)]
 
 
 class EASGDStrategy(CommStrategy):
     """Elastic-averaging SGD [19], blocking: per bucket K4 pulls x toward z
     and takes the mean of the *pre*-pullback plane (``mean_pre``, the
     symmetric mix), then z ← (1 − r)·z + r·mean with r = min(α·m, 1), in
-    the plane's dtype (the reference's ``tree_lerp`` at native dtype)."""
+    the plane's dtype (the reference's ``tree_lerp`` at native dtype). Masked,
+    r = min(α·m_live, 1) is a device tensor and the lerp runs in f32, as the
+    reference's traced rate makes it."""
 
     name = "easgd"
 
@@ -210,13 +245,19 @@ class EASGDStrategy(CommStrategy):
         return AlgoVars(z=_pack_anchor(px))
 
     def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
-        _plain_boundary(probe, membership)
-        rate = min(self.cfg.alpha * px.lead_shape[0], 1.0)
-        for bz, mean in zip(vars.z.buffers, _pullback_mean(px, vars.z, self.cfg.alpha, mean_pre=True)):
-            # (1 - r)·z + r·mean, each product and the sum rounded to z's
-            # dtype; the constants are rounded to it first (JAX weak types)
-            bz.mul_(weak(1.0 - rate, bz.dtype)).add_(mean.mul_(weak(rate, bz.dtype)))
-        return px, vars, None
+        alpha = self.cfg.alpha
+        outs = _pullback_mean(px, vars.z, alpha, mean_pre=True, probe=probe, weights=_mem_weights(membership))
+        if membership is None:
+            rate = min(alpha * px.lead_shape[0], 1.0)
+            for bz, o in zip(vars.z.buffers, outs):
+                # (1 - r)·z + r·mean, each product and the sum rounded to z's
+                # dtype; the constants are rounded to it first (JAX weak types)
+                bz.mul_(weak(1.0 - rate, bz.dtype)).add_(o[1].mul_(weak(rate, bz.dtype)))
+        else:
+            rate = torch.clamp(alpha * membership.live_count(), max=1.0)
+            for bz, o in zip(vars.z.buffers, outs):
+                bz.copy_(((1.0 - rate) * bz.float() + rate * o[1].float()).to(bz.dtype))
+        return _with_stats((px, vars, None), _fused_stats(outs, px.lead_shape[0], probe))
 
 
 class _AvgRebaseStrategy(CommStrategy):
@@ -232,20 +273,23 @@ class _AvgRebaseStrategy(CommStrategy):
         return self.Inflight(avg=_packed_worker_mean(px), x0=_copy_plane(px))
 
     @staticmethod
-    def _rebase_packed(px: Packed, inflight) -> Packed:
+    def _rebase_packed(px: Packed, inflight, membership=None) -> Packed:
         """x_i ← (avg + x_i) − x₀ᵢ in f32, cast to x's dtype, in place, over
-        column chunks."""
+        column chunks; with ``membership`` only the live rows."""
         for bx, b0, av in zip(px.buffers, inflight.x0.buffers, inflight.avg.buffers):
             for c in _column_chunks(bx):
-                bx[:, c] = (av[None, c].float() + bx[:, c].float() - b0[:, c].float()).to(bx.dtype)
+                new = (av[None, c].float() + bx[:, c].float() - b0[:, c].float()).to(bx.dtype)
+                if membership is not None:
+                    new = torch.where((membership.mask > 0)[:, None], new, bx[:, c])
+                bx[:, c] = new
         return px
 
-    def _packed_launch(self, px: Packed, inflight):
-        """The next collective from the plane: the worker mean, and x₀ copied
-        into the consumed in-flight plane's buffer."""
+    def _packed_launch(self, px: Packed, inflight, weights=None):
+        """The next collective from the plane: the (weighted) worker mean, and
+        x₀ copied into the consumed in-flight plane's buffer."""
         for b0, bx in zip(inflight.x0.buffers, px.buffers):
             b0.copy_(bx)
-        return self.Inflight(avg=_packed_worker_mean(px), x0=inflight.x0)
+        return self.Inflight(avg=_packed_worker_mean(px, weights), x0=inflight.x0)
 
 
 class CoCoDStrategy(_AvgRebaseStrategy):
@@ -257,9 +301,10 @@ class CoCoDStrategy(_AvgRebaseStrategy):
     name = "cocod"
 
     def boundary_round(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
-        _plain_boundary(probe, membership)
-        self._rebase_packed(px, inflight)
-        return px, vars, self._packed_launch(px, inflight)
+        # the rebase reads no pullback kernel: the standalone probe of the pre-rebase plane
+        stats = packed_probe(px) if probe else None
+        self._rebase_packed(px, inflight, membership)
+        return _with_stats((px, vars, self._packed_launch(px, inflight, _mem_weights(membership))), stats)
 
 
 class PowerSGDStrategy(CommStrategy):
@@ -302,10 +347,12 @@ class DelayedAveragingStrategy(_AvgRebaseStrategy):
         return px
 
     def boundary_round(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
-        _plain_boundary(probe, membership)
+        # the mask covers the boundary's consumption only: the mid-round rebase
+        # consumes a collective launched under the last round's membership
+        stats = packed_probe(px) if probe else None
         if self.delay >= self.tau:
-            self._rebase_packed(px, inflight)
-        return px, vars, self._packed_launch(px, inflight)
+            self._rebase_packed(px, inflight, membership)
+        return _with_stats((px, vars, self._packed_launch(px, inflight, _mem_weights(membership))), stats)
 
 
 def _quantile_linear(a: torch.Tensor, q: float) -> torch.Tensor:
@@ -365,8 +412,8 @@ class SparseAnchorStrategy(CommStrategy):
         return _pack_anchor(px)
 
     def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
-        _plain_boundary(probe, membership)
-        means = _pullback_mean(px, inflight, self.cfg.alpha)
+        outs = _pullback_mean(px, inflight, self.cfg.alpha, probe=probe, weights=_mem_weights(membership))
+        means = [o[1] for o in outs]
         if self.k >= 1.0:  # dense: z' = mean(x), nothing truncated
             z_next = means
         else:
@@ -377,7 +424,8 @@ class SparseAnchorStrategy(CommStrategy):
                 be.copy_(delta - s)
                 z_next.append((bz.float() + s).to(bz.dtype))
         # the consumed anchor is the base of this round's launched delta
-        return px, AlgoVars(z=inflight, v=vars.v, extra=vars.extra), Packed(tuple(z_next), inflight.layout)
+        out = (px, AlgoVars(z=inflight, v=vars.v, extra=vars.extra), Packed(tuple(z_next), inflight.layout))
+        return _with_stats(out, _fused_stats(outs, px.lead_shape[0], probe))
 
 
 class GossipInflight(NamedTuple):
@@ -398,12 +446,15 @@ class GossipPushSumStrategy(CommStrategy):
         apply:   z_i = mix_i / w'_i,           x_i ← (1 − α)·x_i + α·z_i   (K5)
 
     Per bucket the boundary debiases the consumed mix in place, runs K5,
-    and writes the next mix ``Peff @ x`` (Peff = P_t·diag(w), f32) into the
-    same buffer, column chunk by column chunk. Every row receives push mass
-    (each column of P has its self-loop, w > 0), so the reference's
-    zero-mass row guard, which only a membership mask can trigger, is the
-    identity here. The ``full`` topology takes Overlap-Local-SGD's exact
-    K4 path with β = 0."""
+    and writes the next mix ``Peff @ x`` (Peff = P̃_t·diag(w), f32) into the
+    same buffer, column chunk by column chunk. ``membership`` composes into
+    P̃ (:func:`~repro_torch.core.topology.compose_membership`: dead rows and
+    columns zeroed, live columns renormalised). A row that is dead, or that
+    received no push mass (it was dead when the consumed mix was launched),
+    takes the identity: the boundary reads which rows those are on the host
+    (one (m,) copy), keeps their rows of x aside and puts them back after
+    K5. The ``full`` topology takes Overlap-Local-SGD's exact K4 path with
+    β = 0."""
 
     name = "gossip_pushsum"
     topology: Optional[str] = None  # subclasses pin it; None defers to cfg.topology
@@ -425,33 +476,46 @@ class GossipPushSumStrategy(CommStrategy):
         # w' = 1: round 0's debias divides by exactly 1.0
         return GossipInflight(mix=_copy_plane(px), w=torch.ones_like(vars.extra[0]))
 
-    def _push_matrix(self, m: int, t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        """Round t's P_t · diag(w), (m, m) f32, chosen on the device."""
+    def _push_matrix(self, m: int, t: torch.Tensor, w: torch.Tensor, membership=None) -> torch.Tensor:
+        """Round t's P̃_t · diag(w), (m, m) f32, chosen on the device; P̃ is
+        composed with the membership's mask when there is one."""
         key = (m, w.device)
         if key not in self._mats:
             self._mats[key] = torch.as_tensor(cached_topology(self.topo_name, m).mats, device=w.device)
         mats = self._mats[key]
         P = mats[0] if len(mats) == 1 else torch.index_select(mats, 0, (t % len(mats)).reshape(1))[0]
+        if membership is not None:
+            P = compose_membership(P, membership.mask)
         return P * w[None, :]
 
     def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
-        _plain_boundary(probe, membership)
         alpha = self.cfg.alpha
         w, t = vars.extra
+        m = px.lead_shape[0]
         if self.full:
-            z_next = _pullback_mean(px, inflight, alpha)
-            return px, AlgoVars(z=vars.z, v=vars.v, extra=(w, t + 1)), Packed(z_next, inflight.layout)
+            outs = _pullback_mean(px, inflight, alpha, probe=probe, weights=_mem_weights(membership))
+            out = (px, AlgoVars(z=vars.z, v=vars.v, extra=(w, t + 1)),
+                   Packed(tuple(o[1] for o in outs), inflight.layout))
+            return _with_stats(out, _fused_stats(outs, m, probe))
+        # the push does not read through K3/K4: the standalone probe
+        stats = packed_probe(px) if probe else None
         wmix = inflight.w
-        wb = torch.where(wmix > 0, wmix, torch.ones_like(wmix))[:, None]
-        w_new = torch.where(wmix > 0, wmix, w)
-        Peff = self._push_matrix(px.lead_shape[0], t, w_new)
+        got = wmix > 0
+        moves = got if membership is None else got & (membership.mask > 0)
+        held = np.nonzero(~moves.cpu().numpy())[0].tolist()  # rows that take the identity
+        wb = torch.where(got, wmix, torch.ones_like(wmix))[:, None]
+        w_new = torch.where(moves, wmix, w)
+        Peff = self._push_matrix(m, t, w_new, membership)
         for bx, bm in zip(px.buffers, inflight.mix.buffers):
             bm.div_(wb)  # z = (mix_f32 / w').astype(dtype): one op computed in f32
+            kept = bx[held] if len(held) else None  # a copy of those rows
             anchor_ops.anchor_mix(bx, bm, alpha)
+            if kept is not None:
+                bx[held] = kept
             for c in _column_chunks(bx):
                 bm[:, c] = torch.matmul(Peff, bx[:, c].float())
         vars = AlgoVars(z=vars.z, v=vars.v, extra=(w_new, t + 1))
-        return px, vars, GossipInflight(mix=inflight.mix, w=torch.sum(Peff, dim=1))
+        return _with_stats((px, vars, GossipInflight(mix=inflight.mix, w=torch.sum(Peff, dim=1))), stats)
 
 
 class GossipFullStrategy(GossipPushSumStrategy):

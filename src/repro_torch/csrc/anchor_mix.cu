@@ -1,8 +1,9 @@
 // The round boundaries of Overlap Local-SGD over one dtype bucket of the
 // packed plane: K4 pullback + worker mean, K3 pullback + worker mean +
-// anchor momentum, each in one pass over x (m, n); and K5, the plain
-// pullback x <- (1 - a) x + a z of two equal-size buffers (the gossip
-// strategies' pull toward each worker's own debiased neighbour mix).
+// anchor momentum, each in one pass over x (m, n); K5, the plain pullback
+// x <- (1 - a) x + a z of two equal-size buffers (the gossip strategies' pull
+// toward each worker's own debiased neighbour mix); and K8, the consensus
+// probe of adaptive tau, standalone or fused into K3/K4.
 //
 // K5 replaces repro/kernels/anchor_mix/kernel.py::anchor_mix_flat
 // (_mix_kernel). Bound by bytes: it reads x and z and writes x once
@@ -13,16 +14,40 @@
 //
 // K3 and K4 replace the Pallas TPU kernels repro/kernels/anchor_mix/kernel.py::
 // pullback_mean_flat (_pullback_mean_kernel) and pullback_momentum_flat
-// (_pullback_momentum_kernel), without their probe output:
+// (_pullback_momentum_kernel):
 //   x'_i = (1 - a) x_i + a z                    (eq. 4; dead rows, w_i = 0, keep x_i)
 //   mean = sum_i x'_i / m     or  sum_i w_i x'_i (masked)   (eq. 5; K4: of x_i if mean_pre)
 //   K3:  v' = b v + (mean - z),  z' = z + v'    (eqs. 10-11)
 // with repro/kernels/anchor_mix/ref.py's casts: x', the mean, v' and z' are
 // rounded to the plane's dtype where the reference rounds them.
 //
-// What bounds it on the H100: bytes. x is read and written once (2 P m n
-// bytes, P = 4 or 2) and z, v, z', v' once each (4 P n; K4 2 P n), at about
-// 5 operations an element of x, far below the card's compute rate.
+// K8 replaces repro/kernels/consensus_probe/kernel.py::probe_flat
+// (_probe_kernel) and the probe output of K3/K4 (_accum_probe): over the
+// pre-pullback plane, with xbar the unweighted f32 worker mean of all m rows
+// (dead rows included, masked or not),
+//   drift_sq = sum_{i,j} (x_ij - xbar_j)^2,   scale_sq = sum_j xbar_j^2.
+// The TPU kernels add each block's lane partials into VMEM scratch across a
+// grid that runs in order; blocks here run in no order. So each thread adds
+// its columns' squares into two float64 sums, a block reduces its threads'
+// sums in a fixed tree and writes one pair into a per-device workspace, and
+// the block that finishes last (an unsigned atomic counter after a
+// __threadfence, no float atomics) sums the workspace in a fixed order,
+// writes the (2,) float32 result and resets the counter. The grid depends on
+// n and the dtype only, so the result is the same bits from run to run, and
+// the fused output of K3/K4 equals the standalone K8's on the same plane bit
+// for bit (same grid, same column mapping, same device functions) whenever
+// both take the 16-byte vector path (n a multiple of the vector width, every
+// buffer 16-byte aligned, as fresh allocations are). Each column is read
+// twice for the probe (the f32 mean in row order 0 .. m-1 over m, then the
+// squared deviations, in float32 and then added in float64; not the one-pass
+// sum x^2 - m xbar^2, which cancels near consensus) before the pullback reads
+// it again: the re-reads hit L1/L2, so K3/K4's bytes from device memory do
+// not change, and the fused probe adds no launch.
+//
+// What bounds them on the H100: bytes. K3/K4 read and write x once (2 P m n
+// bytes, P = 4 or 2) and z, v, z', v' once each (4 P n; K4 2 P n); K8 reads
+// x once (P m n). The arithmetic (about 5 float ops an element, K8 about 4
+// and two float64 adds) is far below the card's compute rate.
 //
 // Design: the TPU kernel holds all m rows of a column block in VMEM and
 // reduces over the worker axis there. Here each thread owns one 16-byte
@@ -30,11 +55,11 @@
 // elements apart, so neighbouring threads read neighbouring 16-byte chunks
 // of every row and each load coalesces. The worker sum runs in float32 in
 // the fixed order i = 0 .. m-1 and is divided by m (a true division), as
-// the plain version (repro_torch/kernels/anchor_mix/ref.py) orders it. No
-// atomics, no cross-block reduction: the result is deterministic from run
-// to run and equals the plain version bit for bit. x is updated in place
-// (each thread reads x_i before it writes x'_i); the anchor outputs go to
-// their own buffers. Every op rounds on its own (__f*_rn intrinsics).
+// the plain version (repro_torch/kernels/anchor_mix/ref.py) orders it. The
+// pullback itself needs no cross-block reduction: K3/K4 without the probe
+// equal the plain version bit for bit. x is updated in place (each thread
+// reads x_i before it writes x'_i); the anchor outputs go to their own
+// buffers. Every op rounds on its own (__f*_rn intrinsics).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -80,6 +105,92 @@ struct alignas(16) Lanes {
   }
 };
 
+// The consensus probe's output and scratch: out (2,) float32, ws one float64
+// pair a block, counter an unsigned int that is 0 between launches. out ==
+// nullptr: no probe.
+struct Probe {
+  float* out;
+  double* ws;
+  unsigned int* counter;
+};
+
+// K8's per-column work, shared by the standalone kernel and K3/K4: columns
+// j0 .. j0+V-1 of the m rows of x (before any write to them). The f32 worker
+// mean in row order over m, then (x_ij - xbar_j)^2 and xbar_j^2, each rounded
+// to float32 and added to the thread's float64 sums (rows outer, lanes inner).
+template <typename T, int V>
+__device__ __forceinline__ void probe_columns(const T* x, long long n, long long j0, int m, double& drift,
+                                              double& scale) {
+  float mu[V];
+  for (int i = 0; i < m; ++i) {
+    Lanes<T, V> xr;
+    xr.load(x + (long long)i * n + j0);
+#pragma unroll
+    for (int k = 0; k < V; ++k) mu[k] = i == 0 ? to_f(xr.e[k]) : __fadd_rn(mu[k], to_f(xr.e[k]));
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    mu[k] = __fdiv_rn(mu[k], (float)m);
+    scale += (double)__fmul_rn(mu[k], mu[k]);
+  }
+  for (int i = 0; i < m; ++i) {
+    Lanes<T, V> xr;
+    xr.load(x + (long long)i * n + j0);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float d = __fsub_rn(to_f(xr.e[k]), mu[k]);
+      drift += (double)__fmul_rn(d, d);
+    }
+  }
+}
+
+__device__ __forceinline__ void block_tree(double* sd, double* ss) {
+  const int t = threadIdx.x;
+  __syncthreads();
+#pragma unroll
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
+    if (t < s) {
+      sd[t] += sd[t + s];
+      ss[t] += ss[t + s];
+    }
+    __syncthreads();
+  }
+}
+
+// K8's cross-block stage: every block of the launch calls it once with its
+// threads' sums. Fixed trees and a fixed order only, no float atomics.
+__device__ __forceinline__ void probe_finish(double drift, double scale, const Probe& p) {
+  __shared__ double sd[kThreads], ss[kThreads];
+  __shared__ bool last;
+  const int t = threadIdx.x;
+  sd[t] = drift;
+  ss[t] = scale;
+  block_tree(sd, ss);
+  if (t == 0) {
+    p.ws[2 * blockIdx.x] = sd[0];
+    p.ws[2 * blockIdx.x + 1] = ss[0];
+    __threadfence();
+    last = atomicAdd(p.counter, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // thread t sums blocks t, t + kThreads, ... in order; then the fixed tree
+  double d = 0.0, s = 0.0;
+  for (unsigned int b = t; b < gridDim.x; b += kThreads) {
+    d += __ldcg(p.ws + 2 * b);
+    s += __ldcg(p.ws + 2 * b + 1);
+  }
+  sd[t] = d;
+  ss[t] = s;
+  block_tree(sd, ss);
+  if (t == 0) {
+    p.out[0] = __double2float_rn(sd[0]);
+    p.out[1] = __double2float_rn(ss[0]);
+    *p.counter = 0u;
+  }
+}
+
 // Columns j0 .. j0+V-1: pull back their m rows in place, sum the worker axis
 // in f32 in order, and write the new anchor (K4: the mean; K3, when
 // v != nullptr: z + v' with v' updated in place). w == nullptr: unmasked.
@@ -121,45 +232,95 @@ __device__ __forceinline__ void boundary_columns(T* x, const T* z, T* v, T* z_ou
   zo.store(z_out + j0);
 }
 
-template <typename T>
+template <typename T, bool kProbe>
 __global__ void __launch_bounds__(kThreads)
 boundary_kernel(T* __restrict__ x, const T* __restrict__ z, T* __restrict__ v, T* __restrict__ z_out,
-                const float* __restrict__ w, long long n, MixArgs a, int vec) {
+                const float* __restrict__ w, long long n, MixArgs a, int vec, Probe p) {
   constexpr int V = 16 / sizeof(T);
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
+  double drift = 0.0, scale = 0.0;
   long long done = 0;
   if (vec) {
     const long long nv = n / V;
-    for (long long c = tid; c < nv; c += step) boundary_columns<T, V>(x, z, v, z_out, w, n, c * V, a);
+    for (long long c = tid; c < nv; c += step) {
+      if constexpr (kProbe) probe_columns<T, V>(x, n, c * V, a.m, drift, scale);
+      boundary_columns<T, V>(x, z, v, z_out, w, n, c * V, a);
+    }
     done = nv * V;
   }
-  for (long long j = done + tid; j < n; j += step) boundary_columns<T, 1>(x, z, v, z_out, w, n, j, a);
+  for (long long j = done + tid; j < n; j += step) {
+    if constexpr (kProbe) probe_columns<T, 1>(x, n, j, a.m, drift, scale);
+    boundary_columns<T, 1>(x, z, v, z_out, w, n, j, a);
+  }
+  if constexpr (kProbe) probe_finish(drift, scale, p);
+}
+
+// K8 standalone: the same grid and column mapping as boundary_kernel.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+probe_kernel(const T* __restrict__ x, long long n, int m, int vec, Probe p) {
+  constexpr int V = 16 / sizeof(T);
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads;
+  double drift = 0.0, scale = 0.0;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n / V;
+    for (long long c = tid; c < nv; c += step) probe_columns<T, V>(x, n, c * V, m, drift, scale);
+    done = nv * V;
+  }
+  for (long long j = done + tid; j < n; j += step) probe_columns<T, 1>(x, n, j, m, drift, scale);
+  probe_finish(drift, scale, p);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <typename T>
+int grid_for(long long n) {
+  constexpr int V = 16 / sizeof(T);
+  long long blocks = (n / V + kThreads - 1) / kThreads;
+  return (int)(blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks));
+}
+
+template <typename T>
 int launch(void* x, const void* z, void* v, void* z_out, const float* w, long long n, const MixArgs& a,
-           cudaStream_t st) {
+           const Probe& p, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
   // rows are n apart: the vector path needs n to keep every row 16-byte aligned
   const int vec = (n % V == 0) && aligned16(x) && aligned16(z) && aligned16(z_out) && (v == nullptr || aligned16(v));
-  long long blocks = (n / V + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
-  boundary_kernel<T><<<(int)blocks, kThreads, 0, st>>>(
-      static_cast<T*>(x), static_cast<const T*>(z), static_cast<T*>(v), static_cast<T*>(z_out), w, n, a, vec);
+  auto* xt = static_cast<T*>(x);
+  auto* zt = static_cast<const T*>(z);
+  auto* vt = static_cast<T*>(v);
+  auto* ot = static_cast<T*>(z_out);
+  if (p.out != nullptr)
+    boundary_kernel<T, true><<<grid_for<T>(n), kThreads, 0, st>>>(xt, zt, vt, ot, w, n, a, vec, p);
+  else
+    boundary_kernel<T, false><<<grid_for<T>(n), kThreads, 0, st>>>(xt, zt, vt, ot, w, n, a, vec, p);
   return (int)cudaGetLastError();
 }
 
 int dispatch(void* x, const void* z, void* v, void* z_out, const void* w, int m, long long n, const MixArgs& a,
-             int dtype, void* stream) {
-  if (n <= 0 || m <= 0) return 0;
+             const Probe& p, int dtype, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (n <= 0 || m <= 0)
+    return p.out == nullptr ? 0 : (int)cudaMemsetAsync(p.out, 0, 2 * sizeof(float), st);
   const float* wf = static_cast<const float*>(w);
-  if (dtype == 0) return launch<float>(x, z, v, z_out, wf, n, a, st);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, z, v, z_out, wf, n, a, st);
+  if (dtype == 0) return launch<float>(x, z, v, z_out, wf, n, a, p, st);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, z, v, z_out, wf, n, a, p, st);
   return (int)cudaErrorInvalidValue;
+}
+
+Probe probe_args(void* out, void* ws, void* counter) {
+  return Probe{static_cast<float*>(out), static_cast<double*>(ws), static_cast<unsigned int*>(counter)};
+}
+
+template <typename T>
+int launch_probe(const void* x, int m, long long n, const Probe& p, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const int vec = (n % V == 0) && aligned16(x);
+  probe_kernel<T><<<grid_for<T>(n), kThreads, 0, st>>>(static_cast<const T*>(x), n, m, vec, p);
+  return (int)cudaGetLastError();
 }
 
 // K5: x[j] <- (1 - a) x[j] + a z[j] for j < n, V elements a vector.
@@ -189,11 +350,8 @@ mix_kernel(T* __restrict__ x, const T* __restrict__ z, long long n, float oma, f
 
 template <typename T>
 int launch_mix(void* x, const void* z, long long n, float oma, float alpha, cudaStream_t st) {
-  constexpr int V = 16 / sizeof(T);
   const int vec = aligned16(x) && aligned16(z);
-  long long blocks = (n / V + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
-  mix_kernel<T><<<(int)blocks, kThreads, 0, st>>>(static_cast<T*>(x), static_cast<const T*>(z), n, oma, alpha, vec);
+  mix_kernel<T><<<grid_for<T>(n), kThreads, 0, st>>>(static_cast<T*>(x), static_cast<const T*>(z), n, oma, alpha, vec);
   return (int)cudaGetLastError();
 }
 
@@ -211,17 +369,34 @@ extern "C" int anchor_mix_launch(void* x, const void* z, long long n, float oma,
 }
 
 // K4. x: (m, n) updated in place; z, mean: (n,); w: (m,) float32 weights or
-// null (unmasked). dtype: 0 = float32, 1 = bfloat16 (x, z, mean).
+// null (unmasked). stats: (2,) float32 probe output or null (no probe), with
+// ws (2 kMaxBlocks float64) and counter (one unsigned int, 0) its scratch.
+// dtype: 0 = float32, 1 = bfloat16 (x, z, mean).
 extern "C" int pullback_mean_launch(void* x, const void* z, const void* w, void* mean, int m, long long n,
-                                    float oma, float alpha, int mean_pre, int dtype, void* stream) {
+                                    float oma, float alpha, int mean_pre, void* stats, void* ws, void* counter,
+                                    int dtype, void* stream) {
   const MixArgs a{oma, alpha, 0.f, m, mean_pre};
-  return dispatch(x, z, nullptr, mean, w, m, n, a, dtype, stream);
+  return dispatch(x, z, nullptr, mean, w, m, n, a, probe_args(stats, ws, counter), dtype, stream);
 }
 
 // K3. x: (m, n) and v: (n,) updated in place; z: (n,) read; z_next: (n,)
-// written; w as for K4. dtype: 0 = float32, 1 = bfloat16 (x, z, v, z_next).
+// written; w and the probe as for K4. dtype: 0 = float32, 1 = bfloat16
+// (x, z, v, z_next).
 extern "C" int pullback_momentum_launch(void* x, const void* z, void* v, const void* w, void* z_next, int m,
-                                        long long n, float oma, float alpha, float beta, int dtype, void* stream) {
+                                        long long n, float oma, float alpha, float beta, void* stats, void* ws,
+                                        void* counter, int dtype, void* stream) {
   const MixArgs a{oma, alpha, beta, m, 0};
-  return dispatch(x, z, v, z_next, w, m, n, a, dtype, stream);
+  return dispatch(x, z, v, z_next, w, m, n, a, probe_args(stats, ws, counter), dtype, stream);
+}
+
+// K8. x: (m, n) read; stats: (2,) float32 written, [drift_sq, scale_sq];
+// ws and counter as for K4. dtype: 0 = float32, 1 = bfloat16.
+extern "C" int consensus_probe_launch(const void* x, int m, long long n, void* stats, void* ws, void* counter,
+                                      int dtype, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (n <= 0 || m <= 0) return (int)cudaMemsetAsync(stats, 0, 2 * sizeof(float), st);
+  const Probe p = probe_args(stats, ws, counter);
+  if (dtype == 0) return launch_probe<float>(x, m, n, p, st);
+  if (dtype == 1) return launch_probe<__nv_bfloat16>(x, m, n, p, st);
+  return (int)cudaErrorInvalidValue;
 }

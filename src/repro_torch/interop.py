@@ -66,6 +66,7 @@ def state_from_numpy(state, layout, device="cpu"):
     reference's slot types are recognised by their fields, not imported."""
     from repro_torch.core.powersgd import PowerState
     from repro_torch.core.strategy import AlgoVars, GossipInflight, _AvgRebaseStrategy
+    from repro_torch.fault.membership import Membership
     from repro_torch.optim.optimizers import PackedAdamState, PackedSGDState
     from repro_torch.parallel.packing import tree_flatten
     from repro_torch.training.train_state import TrainState
@@ -100,4 +101,7 @@ def state_from_numpy(state, layout, device="cpu"):
         raise ValueError(f"unsupported optimizer state {type(opt).__name__}")
     v = state.vars
     vars = AlgoVars() if v is None else AlgoVars(z=slot(v.z), v=slot(v.v), extra=slot(v.extra))
-    return TrainState(x=slot(state.x), opt=opt, vars=vars, step=tensor(state.step), inflight=slot(state.inflight))
+    mem = getattr(state, "membership", None)
+    mem = None if mem is None else Membership(mask=tensor(mem.mask), weights=tensor(mem.weights))
+    return TrainState(x=slot(state.x), opt=opt, vars=vars, step=tensor(state.step), inflight=slot(state.inflight),
+                      membership=mem)

@@ -9,12 +9,17 @@ consumed anchor ``z`` stays intact (the strategy keeps it as ``vars.z``).
 K5 takes x and z of one shape (any shape, contiguous) and needs no padding:
 the reference pads a flat buffer to 128 lanes, the kernel masks its tail.
 
-``probe=True`` (the fused consensus probe of adaptive τ) is not ported: it
-needs the deterministic two-stage reduction of K8 and comes with it.
+``probe=True`` adds the consensus probe of adaptive τ to K3/K4: the
+``[drift_sq, scale_sq]`` raw sums of the *pre-pullback* x over all m rows
+(unweighted, dead rows included, masked or not), computed inside the same
+launch by K8's device functions (:mod:`repro_torch.kernels.consensus_probe`)
+and returned as a third (K4) or fourth (K3) output, a (2,) float32 tensor.
 
 Kernel vs plain, stated bound (checked on the card by ``chip_smoke.py``):
 bitwise, in f32 and bf16 — both sum the worker axis in float32 in the order
-0 .. m-1, divide by m, and round after every op at the same points.
+0 .. m-1, divide by m, and round after every op at the same points. The
+probe output: as K8's (``consensus_probe/ops.py``), and bit for bit the
+standalone K8's on the same pre-boundary plane.
 """
 from __future__ import annotations
 
@@ -22,11 +27,15 @@ import torch
 
 from repro_torch.kernels._build import F, I, L, Kernel, P, dtype_code, stream_ptr
 from repro_torch.kernels.anchor_mix import ref as _ref
+from repro_torch.kernels.consensus_probe import ops as _probe
+from repro_torch.kernels.consensus_probe.ref import plane_probe
 
 MIX = Kernel("anchor_mix", {"anchor_mix_launch": [P, P, L, F, F, I, P]}, source="anchor_mix")
-MEAN = Kernel("pullback_mean", {"pullback_mean_launch": [P, P, P, P, I, L, F, F, I, I, P]}, source="anchor_mix")
+MEAN = Kernel("pullback_mean", {"pullback_mean_launch": [P, P, P, P, I, L, F, F, I, P, P, P, I, P]},
+              source="anchor_mix")
 MOMENTUM = Kernel(
-    "pullback_momentum", {"pullback_momentum_launch": [P, P, P, P, P, I, L, F, F, F, I, P]}, source="anchor_mix"
+    "pullback_momentum", {"pullback_momentum_launch": [P, P, P, P, P, I, L, F, F, F, P, P, P, I, P]},
+    source="anchor_mix",
 )
 
 
@@ -56,11 +65,7 @@ def pullback_tree(x_tree, z_tree, alpha: float):
     return anchor_mix(x_tree, z_tree, alpha)
 
 
-def _check(name, x, vecs, weights, probe):
-    if probe:
-        raise NotImplementedError(
-            f"{name}(probe=True): the fused consensus probe comes with K8 (ROADMAP Queue 1 item 5, adaptive tau)"
-        )
+def _check(name, x, vecs, weights):
     if x.dim() != 2:
         raise ValueError(f"{name}: x must be (m, n), got {tuple(x.shape)}")
     for t in vecs:
@@ -81,37 +86,50 @@ def _wptr(weights) -> int:
     return 0 if weights is None else weights.data_ptr()
 
 
+def _probe_args(x, probe: bool):
+    """(stats or None, the three probe pointers: zeros without a probe)."""
+    if not probe:
+        return None, (0, 0, 0)
+    return _probe.probe_args(x)
+
+
 def pullback_mean(x, z, alpha: float, mean_pre: bool = False, probe: bool = False, weights=None):
     """Eq. (4) + worker mean. x: (m, n) pulled back in place; z: (n,).
-    Replaces ``anchor_mix/kernel.py::pullback_mean_flat``. Returns (x, mean)."""
-    _check("pullback_mean", x, (z,), weights, probe)
+    Replaces ``anchor_mix/kernel.py::pullback_mean_flat``. Returns (x, mean),
+    with ``probe`` (x, mean, stats)."""
+    _check("pullback_mean", x, (z,), weights)
     if x.device.type == "cpu":
+        stats = plane_probe(x) if probe else None
         x_new, mean = _ref.pullback_mean(x, z, alpha, mean_pre=mean_pre, weights=weights)
         x.copy_(x_new)
-        return x, mean
+        return (x, mean, stats) if probe else (x, mean)
     mean = torch.empty_like(z)
+    stats, pp = _probe_args(x, probe)
     MEAN.launch(
         "pullback_mean_launch", x.data_ptr(), z.data_ptr(), _wptr(weights), mean.data_ptr(), x.shape[0],
-        x.shape[1], float(1.0 - alpha), float(alpha), int(bool(mean_pre)), dtype_code(x.dtype),
+        x.shape[1], float(1.0 - alpha), float(alpha), int(bool(mean_pre)), *pp, dtype_code(x.dtype),
         stream_ptr(x.device),
     )
-    return x, mean
+    return (x, mean, stats) if probe else (x, mean)
 
 
 def pullback_mean_momentum(x, z, v, alpha: float, beta: float, probe: bool = False, weights=None):
     """Eq. (4) + eqs. (10)-(11). x: (m, n) and v: (n,) updated in place; z:
     (n,) the consumed anchor, left as it is. Replaces
-    ``anchor_mix/kernel.py::pullback_momentum_flat``. Returns (x, z_next, v)."""
-    _check("pullback_mean_momentum", x, (z, v), weights, probe)
+    ``anchor_mix/kernel.py::pullback_momentum_flat``. Returns (x, z_next, v),
+    with ``probe`` (x, z_next, v, stats)."""
+    _check("pullback_mean_momentum", x, (z, v), weights)
     if x.device.type == "cpu":
+        stats = plane_probe(x) if probe else None
         x_new, z_next, v_new = _ref.pullback_mean_momentum(x, z, v, alpha, beta, weights=weights)
         x.copy_(x_new)
         v.copy_(v_new)
-        return x, z_next, v
+        return (x, z_next, v, stats) if probe else (x, z_next, v)
     z_next = torch.empty_like(z)
+    stats, pp = _probe_args(x, probe)
     MOMENTUM.launch(
         "pullback_momentum_launch", x.data_ptr(), z.data_ptr(), v.data_ptr(), _wptr(weights), z_next.data_ptr(),
-        x.shape[0], x.shape[1], float(1.0 - alpha), float(alpha), float(beta), dtype_code(x.dtype),
+        x.shape[0], x.shape[1], float(1.0 - alpha), float(alpha), float(beta), *pp, dtype_code(x.dtype),
         stream_ptr(x.device),
     )
-    return x, z_next, v
+    return (x, z_next, v, stats) if probe else (x, z_next, v)

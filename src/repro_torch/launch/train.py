@@ -9,7 +9,7 @@
 Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
 strategy of the reference and its aliases (``dasgd``, ``loscar``,
 ``overlap``, ``sgp``); ``--ckpt`` needs the checkpointer (ROADMAP Queue 1
-item 6) and raises.
+item 6b) and raises.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     if args.ckpt:
-        raise NotImplementedError("--ckpt needs the checkpointer, ROADMAP Queue 1 item 6")
+        raise NotImplementedError("--ckpt needs the checkpointer, ROADMAP Queue 1 item 6b")
 
     exp = Experiment(
         arch=args.arch,

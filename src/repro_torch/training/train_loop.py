@@ -32,7 +32,11 @@ loss, as the reference's vmapped grad does:
   :func:`repro_torch.models.transformer.split_layers`).
 
 A batch is a tuple of tensors or a dict of them. Metrics stay on the
-device: a round returns them as ``(τ, m)`` tensors.
+device: a round returns them as ``(τ, m)`` tensors. The boundary runs under
+``state.membership`` (installed by the fault harness, carried through
+unchanged); with ``probe=True`` the round's metrics also hold the
+pre-boundary plane's ``consensus_drift`` and ``consensus_scale`` (0-dim),
+the adaptive-τ controller's inputs.
 """
 from __future__ import annotations
 
@@ -129,15 +133,16 @@ def make_round_step(
     grad_clip: float = 0.0,
     microbatch: Optional[int] = None,
     per_worker: Optional[Callable] = None,
+    probe: bool = False,
 ):
     """``round_step(state, round_batch) -> (state, metrics)``; ``round_batch``
     is a tuple or dict of device tensors ``(τ, m, b, ...)``. The state is
     updated in place and returned. ``per_worker``: see the module
-    docstring."""
+    docstring; ``probe``: add the consensus stats to the metrics."""
     per_bucket_clip = bool(strategy.cfg.packed_clip)
 
     def round_step(state: TrainState, round_batch) -> Tuple[TrainState, dict]:
-        x, opt, vars, step, inflight = state
+        x, opt, vars, step, inflight, membership = state
         per_step = []
         for k in range(_first(round_batch).shape[0]):
             lr = schedule(step)
@@ -151,8 +156,11 @@ def make_round_step(
             x = strategy.local_post_update_packed(x, vars, inflight, k)
             step = step + 1
             per_step.append(dict(metrics, lr=lr.expand_as(metrics["loss"])))
-        x, vars, inflight = strategy.boundary_round(x, vars, inflight)
+        out = strategy.boundary_round(x, vars, inflight, probe=probe, membership=membership)
+        x, vars, inflight = out[:3]
         metrics = {name: torch.stack([m[name] for m in per_step]) for name in per_step[0]}
-        return TrainState(x=x, opt=opt, vars=vars, step=step, inflight=inflight), metrics
+        if probe:
+            metrics.update(consensus_drift=out[3].drift, consensus_scale=out[3].scale)
+        return TrainState(x=x, opt=opt, vars=vars, step=step, inflight=inflight, membership=membership), metrics
 
     return round_step

@@ -4,8 +4,10 @@ path of ``repro.training.train_state``).
 ``x`` is the worker-stacked :class:`~repro_torch.parallel.packing.Packed`
 plane for its whole life: packed once here, updated in place by the local
 steps and the round boundaries. ``opt`` holds the optimizer's flat state,
-``vars`` the strategy's anchor-shaped planes and ``inflight`` the anchor
-launched at the last boundary and consumed at the next.
+``vars`` the strategy's anchor-shaped planes, ``inflight`` the anchor
+launched at the last boundary and consumed at the next, and ``membership``
+the live workers of a degraded round (``None``: fully live), which the fault
+harness installs and clears between rounds.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ class TrainState(NamedTuple):
     vars: AlgoVars
     step: torch.Tensor  # 0-dim int32: local steps taken
     inflight: Any = None  # anchor launched last boundary, consumed next
+    membership: Any = None  # repro_torch.fault.Membership of a degraded round; None = fully live
 
 
 def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy: CommStrategy) -> TrainState:

@@ -25,7 +25,12 @@ keep an f32 intermediate where the reference rounds to bf16). The plain
 pullback (K5): bitwise against the reference's ``ref.py``, and within one
 ulp of max(|x|, |z|) of the Pallas kernel in interpret mode (which
 contracts ``a*b + c``). On the card the kernels equal their plain versions
-bit for bit (same rounding points, same worker-sum order).
+bit for bit (same rounding points, same worker-sum order), except the
+consensus probe (K8, and the probe output of K3/K4), whose two sums the
+kernel adds in float64 over its grid: within rtol 1e-6 of the plain
+version; the fused output equals K8's bit for bit, and K8 gives the same
+bits on every run. The probe's CPU tests against the JAX package are in
+``tests/test_torch_control.py``.
 """
 import functools
 import importlib
@@ -38,6 +43,8 @@ import torch
 from repro_torch.kernels import all_kernels
 from repro_torch.kernels.anchor_mix import ops as am_ops
 from repro_torch.kernels.anchor_mix import ref as am_ref
+from repro_torch.kernels.consensus_probe import ops as probe_ops
+from repro_torch.kernels.consensus_probe import ref as probe_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.opt_step import ops as opt_ops
@@ -562,11 +569,14 @@ def test_worker_mean_sums_rows_in_order(rng):
 
 
 def test_pullback_probe_raises_until_k8():
-    x, z = torch.zeros(2, 128), torch.zeros(128)
-    with pytest.raises(NotImplementedError, match="K8"):
-        am_ops.pullback_mean(x, z, 0.5, probe=True)
-    with pytest.raises(NotImplementedError, match="K8"):
-        am_ops.pullback_mean_momentum(x, z, z.clone(), 0.5, 0.7, probe=True)
+    """K8 is ported: ``probe=True`` no longer raises; K3/K4 return the
+    probe of the pre-pullback plane as their last output."""
+    x, z = torch.arange(256.0).reshape(2, 128), torch.zeros(128)
+    want = probe_ref.plane_probe(x)
+    out = am_ops.pullback_mean(x.clone(), z, 0.5, probe=True)
+    assert len(out) == 3 and torch.equal(out[2], want)
+    out = am_ops.pullback_mean_momentum(x.clone(), z, z.clone(), 0.5, 0.7, probe=True)
+    assert len(out) == 4 and torch.equal(out[3], want)
 
 
 # -- dispatch -----------------------------------------------------------------
@@ -589,6 +599,9 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     am_ops.anchor_mix(buf, buf.clone(), 0.6)
     am_ops.pullback_mean(buf, buf[0].clone(), 0.6)
     am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7)
+    am_ops.pullback_mean(buf, buf[0].clone(), 0.6, probe=True)
+    am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7, probe=True)
+    probe_ops.probe_buffer(buf)
     fq = _t(rng.normal(size=(1, 4, 2, 64)).astype(np.float32)).requires_grad_(True)
     fa_ops.flash_attention(fq, fq[:, :, :1], fq[:, :, :1]).sum().backward()
     rms_ops.rmsnorm(x.requires_grad_(True), s).sum().backward()
@@ -620,6 +633,8 @@ def test_wrappers_reject_bad_inputs(rng):
         am_ops.anchor_mix(buf, buf.bfloat16(), 0.6)
     with pytest.raises(ValueError, match="weights"):
         am_ops.pullback_mean(buf, torch.zeros(128), 0.6, weights=torch.ones(3))
+    with pytest.raises(ValueError, match=r"\(m, n\)"):
+        probe_ops.probe_buffer(torch.zeros(3, 4, 5))
     q, kv = torch.zeros(1, 4, 3, 64), torch.zeros(1, 4, 2, 64)
     with pytest.raises(ValueError, match="GQA"):
         fa_ops.flash_attention(q, kv, kv)
@@ -719,6 +734,33 @@ def test_anchor_mix_kernels_bitwise_on_card(cuda, dtype, masked):
         want = am_ref.pullback_mean(x, z, 0.6, mean_pre=mean_pre, weights=w)
         got = am_ops.pullback_mean(x.clone(), z, 0.6, mean_pre=mean_pre, weights=w)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_consensus_probe_kernels_on_card(cuda, dtype):
+    """K8 within rtol 1e-6 of the plain version at the classifier's plane and
+    at a ragged width (the scalar path), the same bits on a second launch;
+    the probe output of K3 and K4 (masked or not, mean_pre) bit for bit
+    K8's on a copy of the pre-boundary plane, and their other outputs bit
+    for bit those without the probe."""
+    x, zz, vv = _card_case(cuda, dtype)
+    z, v = zz[0].contiguous(), vv[0].contiguous()
+    for xs in (x, x[:, :1003].contiguous()):
+        got = probe_ops.probe_buffer(xs)
+        torch.testing.assert_close(got, probe_ref.plane_probe(xs), rtol=1e-6, atol=0)
+        assert torch.equal(probe_ops.probe_buffer(xs), got)
+    want = probe_ops.probe_buffer(x)
+    w = torch.full((16,), 1 / 15, device=cuda)
+    w[3] = 0.0
+    for weights in (None, w):
+        got = am_ops.pullback_mean_momentum(x.clone(), z, v.clone(), 0.6, 0.7, probe=True, weights=weights)
+        plain = am_ops.pullback_mean_momentum(x.clone(), z, v.clone(), 0.6, 0.7, weights=weights)
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], plain)) and torch.equal(got[3], want)
+        for mean_pre in (False, True):
+            got = am_ops.pullback_mean(x.clone(), z, 0.6, mean_pre=mean_pre, probe=True, weights=weights)
+            plain = am_ops.pullback_mean(x.clone(), z, 0.6, mean_pre=mean_pre, weights=weights)
+            assert all(torch.equal(a, b) for a, b in zip(got[:2], plain)) and torch.equal(got[2], want)
 
 
 @pytest.mark.cuda

@@ -252,7 +252,7 @@ def test_train_launcher_on_cpu(capsys):
     train_cli.main(["--arch", "qwen2-7b", "--rounds", "2", "--device", "cpu", "--seq", "16", "--workers", "2"])
     out = capsys.readouterr().out
     assert "qwen2-7b-smoke" in out and "round    1  loss" in out
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         train_cli.main(["--arch", "qwen2-7b", "--device", "cpu", "--ckpt", "x.npz"])
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "qwen2-7b", "--algo", "bogus"])
