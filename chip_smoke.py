@@ -26,12 +26,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    torch.linalg.vector_norm); (c) the
    LM training kernels, K6 flash attention (forward, dQ and dK/dV
    backward kernels) at the LM slice's shape (B 2, S 512, 28 heads, 4 KV
-   heads, D 128, causal), a ragged S with a padded K, a window and a
-   q_offset, and K7's backward at 7 and 1024 rows, in f32 and bf16, each
-   against its plain version (the backward also against torch autograd of
-   the plain forward) with the stated bounds; timed beside SDPA (forward;
-   backward alone; both) and F.rms_norm's backward, and K6 also at
-   B 1, S 4096, where the operations bound the work.
+   heads, D 128, causal), h2o-danube-1.8b's head_dim 80 (32 heads, 8 KV
+   heads), a ragged S with a padded K, a window and a q_offset, and K7's
+   backward at 7 and 1024 rows, in f32 and bf16, each against its plain
+   version (the backward also against torch autograd of the plain forward)
+   with the stated bounds; timed beside SDPA (forward; backward alone;
+   both) and F.rms_norm's backward, and K6 also at B 1, S 4096, where the
+   operations bound the work; K9 also at mistral-large's GQA group of 12;
+   (d) K12, the RWKV-6 chunked WKV, forward and backward, against the plain
+   ``wkv_chunked`` and torch autograd through it at the reduced rwkv6-7b's
+   shape (B 2, S 45, H 4, N 32, chunk 16, f32) and the rwkv6 slice's (B 2,
+   S 512, H 64, N 64, chunk 32, bf16 r/k/v/u and f32 w), the same bits on a
+   second launch, timed beside the plain version and a bound set by its
+   exponentials; K7 forward and backward at the group norm's (65,536, 64).
 3. The serving slice: (a) a 2-layer qwen2-7b at full attention width in f32,
    teacher-forced through ``paged_step`` on the card and on the CPU (plain
    versions), logits compared; (b) full-width qwen2-7b in bf16 with random
@@ -81,10 +88,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    crashed for rounds 1-2, 6 rounds: fault holds at rounds 1-3, the re-synced
    row equal to the anchor, dead rows untouched by the masked boundaries, K3
    once a round with its probe and K8 never, the controller replayed, bitwise
-   replay, the peak within 1% of (b)'s, K8 over the final plane.
+   replay, the peak within 1% of (b)'s, K8 over the final plane. (f) The
+   rwkv6 slice: the reduced rwkv6-7b (f32, seq 128, m = 2, 3 rounds) on the
+   card and the CPU, losses compared; full-width rwkv6-7b (d_model 4096, 64
+   heads of 64) cut to 4 layers, bf16, m = 4, seq 512, 3 rounds as in (b):
+   K12 forward and backward steps x workers x layers, K7 forward and
+   backward steps x workers x (3 layers + 1), no attention kernel, bitwise
+   replay, rounds/s, step ms, peak memory and K12's share of a profiled
+   round.
 6. One JSON line with every kernel's numbers (K1-K5, K6 forward and
    backward, K7 forward and backward, K8 and the probe output of K3/K4, K9,
-   K10), then the device line last.
+   K10, K12 forward and backward), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -239,49 +253,55 @@ def check_paged_attend(dev, gen):
 
     from repro_torch.kernels.paged_attn import ops, ref
 
-    kv, g, d, maxp = 4, 7, 128, MAX_LEN // PAGE
+    d, maxp = 128, MAX_LEN // PAGE
     num_pages = SLOTS * maxp + 1
     lens_list = [0, 17, 300, maxp * PAGE - 1]
-    worst, timing = 0.0, None
-    for dtype in (torch.bfloat16, torch.float32):
-        for window in (None, 64):
-            pt, lens = _tables(gen, dev, SLOTS, maxp, lens_list)
-            pool_k = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
-            pool_v = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
-            q = (torch.randn(SLOTS, kv, g, d, generator=gen, device=dev) / d**0.5).to(dtype)
-            got = ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=window)
-            want = ref.paged_attend_gqa(
-                q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens, window=window
-            ).reshape(SLOTS, kv, g, d)
-            err = (got.float() - want).abs()
-            if dtype == torch.bfloat16:
-                lim, stated = 2.0**-8 * want.abs() + 1e-5, "2^-8*|plain| + 1e-5 (one bf16 rounding)"
-            else:
-                lim, stated = torch.full_like(want, 1e-5), "1e-5 absolute"
-            ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
-            rec = dict(kernel="K9 paged_attend", dtype=str(dtype).split(".")[-1], slots=SLOTS, kv=kv, g=g, d=d,
-                       window=window, lengths=lens_list, max_abs_err=float(err.max()),
-                       max_rel_err=float((err / want.abs().clamp_min(1e-30)).max()), bound=stated, ok=ok)
-            if dtype == torch.bfloat16:
-                worst = max(worst, float(err.max()))
-            if dtype == torch.bfloat16 and window is None:
-                rec["ms"] = time_ms(lambda: ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=None))
-                rec["plain_ms"] = time_ms(lambda: ref.paged_attend_gqa(
-                    q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens, window=None))
-                # yardstick: SDPA over the already gathered cache, q as (S, KV, G, D)
-                kg = ref.paged_gather(pool_k, pt).permute(0, 2, 1, 3).contiguous()
-                vg = ref.paged_gather(pool_v, pt).permute(0, 2, 1, 3).contiguous()
-                mask = (torch.arange(maxp * PAGE, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
-                rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask, scale=1.0))
-                visible = sum(min(n, maxp * PAGE - 1) + 1 for n in lens_list)
-                pages = sum(min(n, maxp * PAGE - 1) // PAGE + 1 for n in lens_list)
-                nbytes = 2 * q.numel() * 2 + 2 * visible * kv * d * 2 + 4 * pages + 4 * SLOTS
-                rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * visible * kv * g * d)
-                timing = rec
-            log(json.dumps(rec))
-            if not ok:
-                raise AssertionError(f"K9 paged_attend kernel disagrees with plain: {rec}")
-    return worst, timing
+    worst, timing, coverage = 0.0, None, None
+    # the serving slice's group (qwen2-7b: 4 KV heads, G 7) and mistral-large's
+    # (8 KV heads, G 12: the kernel instance of group capacity 16)
+    for kv, g in ((4, 7), (8, 12)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in (None, 64):
+                pt, lens = _tables(gen, dev, SLOTS, maxp, lens_list)
+                pool_k = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
+                pool_v = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
+                q = (torch.randn(SLOTS, kv, g, d, generator=gen, device=dev) / d**0.5).to(dtype)
+                got = ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=window)
+                want = ref.paged_attend_gqa(
+                    q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens, window=window
+                ).reshape(SLOTS, kv, g, d)
+                err = (got.float() - want).abs()
+                if dtype == torch.bfloat16:
+                    lim, stated = 2.0**-8 * want.abs() + 1e-5, "2^-8*|plain| + 1e-5 (one bf16 rounding)"
+                else:
+                    lim, stated = torch.full_like(want, 1e-5), "1e-5 absolute"
+                ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
+                rec = dict(kernel="K9 paged_attend", dtype=str(dtype).split(".")[-1], slots=SLOTS, kv=kv, g=g, d=d,
+                           window=window, lengths=lens_list, max_abs_err=float(err.max()),
+                           max_rel_err=float((err / want.abs().clamp_min(1e-30)).max()), bound=stated, ok=ok)
+                if dtype == torch.bfloat16 and g == 7:
+                    worst = max(worst, float(err.max()))
+                if dtype == torch.bfloat16 and window is None:
+                    rec["ms"] = time_ms(lambda: ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=None))
+                    rec["plain_ms"] = time_ms(lambda: ref.paged_attend_gqa(
+                        q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens, window=None))
+                    # yardstick: SDPA over the already gathered cache, q as (S, KV, G, D)
+                    kg = ref.paged_gather(pool_k, pt).permute(0, 2, 1, 3).contiguous()
+                    vg = ref.paged_gather(pool_v, pt).permute(0, 2, 1, 3).contiguous()
+                    mask = (torch.arange(maxp * PAGE, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
+                    rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask, scale=1.0))
+                    visible = sum(min(n, maxp * PAGE - 1) + 1 for n in lens_list)
+                    pages = sum(min(n, maxp * PAGE - 1) // PAGE + 1 for n in lens_list)
+                    nbytes = 2 * q.numel() * 2 + 2 * visible * kv * d * 2 + 4 * pages + 4 * SLOTS
+                    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * visible * kv * g * d)
+                    if g == 7:
+                        timing = rec
+                    else:
+                        coverage = rec
+                log(json.dumps(rec))
+                if not ok:
+                    raise AssertionError(f"K9 paged_attend kernel disagrees with plain: {rec}")
+    return worst, timing, coverage
 
 
 # ---------------------------------------------------------------------------
@@ -633,11 +653,13 @@ def check_consensus_probe(dev, gen):
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate, NVIDIA data sheet
 
 # (name, B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM
-# slice's own shape (full-width qwen2-7b at seq 512), a ragged S with a padded
-# K, a sliding window, a q_offset; and a long shape, timed where the
-# operations bound the work
+# slice's own shape (full-width qwen2-7b at seq 512), h2o-danube-1.8b's
+# (head_dim 80) at the same batch, a ragged S with a padded K, a sliding
+# window, a q_offset; and a long shape, timed where the operations bound the
+# work
 FA_CASES = [
     ("slice", 2, 512, 512, 28, 4, 128, True, None, 0, None),
+    ("danube", 2, 512, 512, 32, 8, 80, True, None, 0, None),
     ("ragged", 1, 130, 160, 4, 2, 64, False, None, 0, 130),
     ("window", 2, 256, 256, 8, 2, 128, True, 64, 0, None),
     ("q_offset", 2, 64, 320, 8, 4, 64, True, None, 256, None),
@@ -694,7 +716,7 @@ def check_flash_attention(dev, gen):
     from repro_torch.kernels.flash_attention import ops, ref
 
     worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
-    timing = {}
+    timing, coverage = {}, {}
     for case in FA_CASES + [FA_LONG]:
         name, b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
         kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
@@ -727,14 +749,16 @@ def check_flash_attention(dev, gen):
             worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["out"])
             worst["dq"] = max(worst["dq"], rec["max_abs_err"]["dq"])
             worst["dkdv"] = max(worst["dkdv"], rec["max_abs_err"]["dk"], rec["max_abs_err"]["dv"])
-            if dtype == torch.bfloat16 and name in ("slice", "long"):
+            if dtype == torch.bfloat16 and name in ("slice", "danube", "long"):
                 rec["timing"] = timing[name] = _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta)
+            if name == "danube":
+                coverage[_name(dtype)] = errs
             log(json.dumps(rec))
             if not ok:
                 raise AssertionError(f"K6 flash_attention kernels disagree with plain: {rec}")
             del q, k, v, dout, out, lse, out_p, lse_p, dq, dk, dv, dq_p, dk_p, dv_p, ag, qa, ka, va, delta
             _free()
-    return worst, timing
+    return worst, timing, coverage
 
 
 def _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta):
@@ -745,7 +769,7 @@ def _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta):
 
     name, b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
     kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
-    it = 20 if name == "slice" else 3
+    it = 3 if name == "long" else 20
     work = _fa_work(case, dtype)
     # the yardstick: SDPA on (B, H, S, D) with the kv-heads repeated for GQA
     g = h // hkv
@@ -822,6 +846,179 @@ def check_rmsnorm_bwd(dev, gen):
             if not ok:
                 raise AssertionError(f"K7 rmsnorm_bwd kernel disagrees with plain (or is not deterministic): {rec}")
     return worst, timing
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (d): K12, the RWKV-6 chunked WKV (forward and backward), and K7 at
+# the rwkv6 group norm's shape
+# ---------------------------------------------------------------------------
+
+# H100 SXM: 16 results a clock per SM of the special-function unit (exp2,
+# log2; CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0) at the 1.98 GHz boost clock
+SFU_PER_S = 132 * 16 * 1.98e9
+# (name, B, S, H, N = P, chunk, r/k/v/u dtype): the reduced rwkv6-7b's shape
+# with S 45 (a ragged last chunk), and the slice's (full-width rwkv6-7b at
+# batch 2 x seq 512); w is f32 in both
+WKV_CASES = [("reduced", 2, 45, 4, 32, 16, "float32"), ("slice", 2, 512, 64, 64, 32, "bfloat16")]
+# stated bounds, max|kernel - plain| / max|plain| (kernels/rwkv6_wkv/ops.py):
+# f32 sums in other orders; in bf16 one rounding of each output where a value
+# near a rounding boundary may round either way. The state is f32 in both.
+WKV_BOUND = {"float32": {"y": 2e-5, "state": 2e-5, "grad": 1e-4},
+             "bfloat16": {"y": 2.0**-7, "state": 2e-5, "grad": 2.0**-5}}
+
+
+def _wkv_work(b, s, h, n, L, elt):
+    """Bytes, exponentials and flops that the forward and the backward of
+    the function need at these shapes, not what this kernel does: each
+    input read once and each output written once (the backward takes r, k,
+    v, w, u, dy and the final state's cotangent, and writes dr, dk, dv, dw
+    and du; the chunk states the forward saves for it are this kernel's
+    choice and not counted); each exponential (and log) once on the SFU,
+    the pairwise e^(cum_excl_l - cum_m) over L(L-1)/2 pairs a chunk plus the
+    per-element ones; the pairwise sums' flops once on the CUDA cores (an
+    exp-weighted sum, no GEMM); the GEMM-shaped products (A.v, the state
+    product and update; their backward) at the tensor-core rate of the
+    input type."""
+    rows, nc, tri = b * h, -(-s // L), L * (L - 1) // 2
+    io, state = b * s * h * n, rows * n * n * 4
+    per = rows * nc
+    exps = per * (tri * n + 3 * L * n + n)
+    fwd = dict(bytes=4 * io * elt + h * n * elt + 4 * io + state, exps=exps,
+               cuda_flops=per * (4 * tri * n + 5 * L * n),
+               tensor_flops=per * (2 * (tri + L) * n + 4 * L * n * n + n * n))
+    # backward, per (l, m, n) pair: the exponent, e*k, e*r, A's sum, dr's,
+    # dk's and the decay's (r * dA * e * k): 11 flops in one pass
+    bwd = dict(bytes=4 * io * elt + h * n * elt + 4 * io + state + 3 * io * elt + 4 * io + h * n * elt, exps=exps,
+               cuda_flops=per * (11 * tri * n + 20 * L * n),
+               tensor_flops=per * (4 * (tri + L) * n + 8 * L * n * n + 3 * n * n))
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _wkv_bound(work, dtype):
+    """The least time (ms) the card could take, and what sets it: the largest
+    of bytes over HBM, CUDA-core flops, tensor-core flops (bf16 inputs at the
+    bf16 rate, f32 inputs at the f32 rate) and exponentials over the SFU."""
+    terms = {"bytes": work["bytes"] / HBM_BYTES_PER_S, "cuda_flops": work["cuda_flops"] / F32_FLOPS,
+             "tensor_flops": work["tensor_flops"] / (BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS),
+             "exponentials": work["exps"] / SFU_PER_S}
+    term = max(terms, key=terms.get)
+    return terms[term] * 1e3, ("bytes" if term == "bytes" else "operations"), term
+
+
+def _wkv_inputs(case, gen, dev):
+    import torch
+
+    _, b, s, h, n, chunk, dtype = case
+    dt = getattr(torch, dtype)
+    r, k, v = (torch.randn(b, s, h, n, generator=gen, device=dev).to(dt) for _ in range(3))
+    w = 0.2 + 0.79 * torch.rand(b, s, h, n, generator=gen, device=dev)  # the reference's kernel-test decays
+    u = torch.randn(h, n, generator=gen, device=dev).to(dt)
+    dy = torch.randn(b, s, h, n, generator=gen, device=dev).to(dt)
+    dstate = torch.randn(b, h, n, n, generator=gen, device=dev)
+    return r, k, v, w, u, dy, dstate
+
+
+def check_wkv(dev, gen):
+    """K12 forward and the backward kernel against the plain ``wkv_chunked``
+    and torch autograd through it, at the reduced shape (f32) and the slice's
+    (bf16 r/k/v/u, f32 w), with cotangents for y and the final state; the
+    same bits on a second launch; times at the slice's shape beside the
+    plain version and the bound. No single torch call computes the WKV."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_wkv import ops, ref
+
+    worst, timing = {"fwd": 0.0, "bwd": 0.0}, {}
+    for case in WKV_CASES:
+        name, b, s, h, n, chunk, dtype = case
+        bnd = WKV_BOUND[dtype]
+        r, k, v, w, u, dy, dstate = _wkv_inputs(case, gen, dev)
+        y, st, states = ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True)
+        grads = ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)
+        y2, st2, states2 = ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True)
+        same = torch.equal(y, y2) and torch.equal(st, st2) and torch.equal(states, states2) and all(
+            torch.equal(a, c) for a, c in zip(grads, ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)))
+        ins = [t.detach().clone().requires_grad_(True) for t in (r, k, v, w, u)]
+        yp, stp = ref.wkv_chunked(*ins, chunk=chunk)
+        plain = torch.autograd.grad((yp, stp), ins, (dy, dstate), retain_graph=True)  # kept: timed below
+        errs = dict(y=_rel(y, yp), state=_rel(st, stp), **{f"d{nm}": _rel(g, pg) for nm, g, pg in zip("rkvwu", grads, plain)})
+        ok = (errs["y"] <= bnd["y"] and errs["state"] <= bnd["state"] and same
+              and all(errs[f"d{nm}"] <= bnd["grad"] for nm in "rkvwu")
+              and all(bool(torch.isfinite(t).all()) for t in (y, st, *grads)))
+        rec = dict(kernel="K12 wkv", case=name, shape=dict(B=b, S=s, H=h, N=n, P=n, chunk=chunk), dtype=dtype,
+                   w_dtype="float32", rel_err=errs,
+                   max_abs_err=dict(y=float((y.float() - yp.float()).abs().max()),
+                                    state=float((st - stp).abs().max()),
+                                    grads=max(float((g.float() - pg.float()).abs().max()) for g, pg in zip(grads, plain))),
+                   bound={key: f"max|d|/max|plain| <= {val}" for key, val in bnd.items()}, deterministic=same, ok=ok)
+        worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["y"], rec["max_abs_err"]["state"])
+        worst["bwd"] = max(worst["bwd"], rec["max_abs_err"]["grads"])
+        if name == "slice":
+            elt = torch.finfo(r.dtype).bits // 8
+            work = _wkv_work(b, s, h, n, chunk, elt)
+            t = {}
+            with torch.no_grad():
+                t["fwd"] = dict(ms=time_ms(lambda: ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True), 20),
+                                plain_ms=time_ms(lambda: ref.wkv_chunked(r, k, v, w, u, chunk=chunk), 5))
+            t["bwd"] = dict(ms=time_ms(lambda: ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk), 20),
+                            plain_ms=time_ms(lambda: torch.autograd.grad((yp, stp), ins, (dy, dstate),
+                                                                         retain_graph=True), 5))
+            for part in ("fwd", "bwd"):
+                t[part]["bound_ms"], t[part]["bound_by"], t[part]["bound_term"] = _wkv_bound(work[part], dtype)
+                t[part].update(work[part], library_ms=None, library="none (no single torch call computes the WKV)")
+            t["plain_note"] = "forward: wkv_chunked under no_grad; backward: torch autograd of it, graph kept"
+            rec["timing"] = timing = t
+        log(json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"K12 wkv kernels disagree with plain (or are not deterministic): {rec}")
+        del r, k, v, w, u, dy, dstate, y, st, states, grads, ins, yp, stp, plain, y2, st2, states2
+        _free()
+    return worst, timing
+
+
+RMS_GROUP = (65536, 64)  # the rwkv6 group norm: B*S*H rows (2 * 512 * 64) of head_dim 64
+
+
+def check_rmsnorm_group(dev, gen):
+    """K7 forward and backward at the rwkv6 group norm's shape, bf16, against
+    the plain versions (bounds as the rows above); times beside the plain
+    versions and F.rms_norm (forward; autograd backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    rows, d = RMS_GROUP
+    eps = 1e-5
+    x = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
+    scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
+    dy = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
+    got, want = ops.rmsnorm_2d(x, scale, eps=eps), ref.rmsnorm(x, scale, eps)
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= bf16_ulp(want)).all())
+    gb, wb = ops.rmsnorm_bwd(x, scale, dy, eps=eps), ref.rmsnorm_bwd(x, scale, dy, eps)
+    errs = {}
+    for nm, g, wv in zip(("dx", "dscale"), gb, wb):
+        e = (g.float() - wv.float()).abs()
+        ok &= bool((e <= bf16_ulp(wv) + 1e-5 * wv.float().abs().max()).all())
+        errs[nm] = float(e.max())
+    xl, sl = x.detach().requires_grad_(True), scale.detach().requires_grad_(True)
+    yl = F.rms_norm(xl, (d,), weight=sl, eps=eps)
+    fwd = dict(ms=time_ms(lambda: ops.rmsnorm_2d(x, scale, eps=eps)), plain_ms=time_ms(lambda: ref.rmsnorm(x, scale, eps)),
+               library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=scale, eps=eps)))
+    fwd["bound_ms"], fwd["bound_by"] = bound(2 * rows * d * 2 + d * 2, 4 * rows * d)
+    bwd = dict(ms=time_ms(lambda: ops.rmsnorm_bwd(x, scale, dy, eps=eps)),
+               plain_ms=time_ms(lambda: ref.rmsnorm_bwd(x, scale, dy, eps)),
+               library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True)))
+    bwd["bound_ms"], bwd["bound_by"] = bound(3 * rows * d * 2 + 2 * d * 2, 10 * rows * d)
+    rec = dict(kernel="K7 rmsnorm forward and backward (the rwkv6 group norm)", dtype="bfloat16", rows=rows, d=d,
+               max_abs_err=dict(y=float(err.max()), **errs),
+               bound="1 bf16 ulp of plain (forward); + 1e-5*max|plain| (backward)", fwd=fwd, bwd=bwd, ok=ok)
+    log(json.dumps(rec))
+    if not ok:
+        raise AssertionError(f"K7 at the group norm's shape disagrees with plain: {rec}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1319,10 +1516,50 @@ def train_adaptive_and_faulted(dev, kernels):
     return runs
 
 
-def profile_train(exp, rounds):
+def _timeline(prof):
+    """The profiled window on the trace's own clock (host and device events
+    on one time base): when the first host op started, when the first and
+    last device ops ran, the device's busy time as the union of its ops'
+    intervals, and the idle gaps between them, the five longest with their
+    offsets from the first device op. This says whether wall time the device
+    did not use lies inside the device's span (host-bound gaps) or before or
+    after it."""
+    from torch.autograd import DeviceType
+
+    host, dev = [], []
+    for e in prof.events():
+        (dev if e.device_type == DeviceType.CUDA else host).append((e.time_range.start, e.time_range.end))
+    if not dev:
+        return "not measured (no device events in the trace)"
+    dev.sort()
+    first, busy, gaps = dev[0][0], 0.0, []
+    cur_s, cur_e = dev[0]
+    for a, b in dev[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            gaps.append((a - cur_e, cur_e - first))
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    host_start = min(a for a, _ in host) if host else first
+    host_end = max(b for _, b in host) if host else cur_e
+    gaps.sort(reverse=True)
+    return dict(
+        host_window_us=host_end - host_start, lead_in_us=first - host_start, device_span_us=cur_e - first,
+        tail_us=host_end - cur_e, device_union_us=busy, busy_share_of_span=busy / (cur_e - first),
+        gaps_us=sum(g for g, _ in gaps), gaps_over_1ms=sum(1 for g, _ in gaps if g > 1e3),
+        gaps_over_1ms_us=sum(g for g, _ in gaps if g > 1e3),
+        longest_gaps=[dict(us=g, at_us=t) for g, t in gaps[:5]],
+    )
+
+
+def profile_train(exp, rounds, shares=()):
     """One overlap run under torch.profiler after a warm round: device busy
-    time (sum of kernel times; one stream) against wall time, and aten ops
-    and kernel launches per local step."""
+    time (sum of kernel times; one stream) against wall time, aten ops and
+    kernel launches per local step, the device time of the kernels whose
+    names contain each of ``shares`` with its share of the wall time, and
+    the trace's timeline (``_timeline``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1345,8 +1582,13 @@ def profile_train(exp, rounds):
     launches = sum(e.count for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     host = sorted((e for e in averages if e.device_type == DeviceType.CPU), key=lambda e: -e.self_cpu_time_total)[:12]
+    share = {}
+    for sub in shares:
+        us = sum(e.self_device_time_total for e in kern if sub in e.key)
+        share[sub] = dict(device_us=us, count=sum(e.count for e in kern if sub in e.key), share_of_wall=us / wall_us)
     return dict(
         rounds=rounds, steps=steps, wall_us=wall_us, device_busy_us=busy_us, device_busy_share=busy_us / wall_us,
+        shares=share, timeline=_timeline(prof),
         aten_ops_per_step=aten / steps, kernel_launches_per_step=launches / steps, wall_us_per_step=wall_us / steps,
         top=[dict(name=e.key[:90], count=e.count, device_us=e.self_device_time_total) for e in top],
         top_host=[dict(name=e.key[:60], count=e.count, self_cpu_us=e.self_cpu_time_total) for e in host],
@@ -1448,8 +1690,9 @@ def _first_step_gradients(exp):
 
 
 def check_plane_scale(exp):
-    """K1 and K3 on the full-width plane (4 x 1.556e9 bf16, 6.2e9 elements,
-    offsets past 2^32): one launch each over the whole plane, then the last
+    """K1 and K3 on a full-width LM plane (qwen2-7b at 2 layers: 4 x 1.556e9
+    bf16, 6.2e9 elements; rwkv6-7b at 4: 4 x 1.417e9, 5.67e9; offsets past
+    2^32 in both): one launch each over the whole plane, then the last
     2^20 columns of every worker row against the plain version run on those
     columns alone (both kernels are elementwise across columns). Bound:
     bitwise, as at the smaller planes."""
@@ -1480,25 +1723,32 @@ def check_plane_scale(exp):
         raise AssertionError(f"K1/K3 disagree with plain at the plane's end: {rec}")
 
 
-def lm_full_width(dev, kernels):
-    """Full-width qwen2-7b cut to 2 layers, bf16, m = 4 workers, seq 512,
-    3 rounds (6 local steps) from zeroed counters: finite losses, exact launch
-    counts, a non-zero gradient in every leaf, bitwise replay, a finite
-    eval_loss; rounds/s, step ms, peak memory and one profiled round."""
+def qwen2_launches(steps, m, L, buckets, rounds):
+    """The qwen2 LM path's launches: K6 forward and both backward kernels
+    once a layer, K7 forward and backward at ln1, ln2 and the final norm."""
+    return dict(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
+                flash_attention_bwd_dkdv=steps * m * L, rmsnorm=steps * m * (2 * L + 1),
+                rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
+
+
+def lm_full_width(dev, kernels, cfg, expect=qwen2_launches, shares=()):
+    """A full-width LM cut in depth (``cfg``; qwen2-7b at 2 layers, rwkv6-7b
+    at 4), bf16, m = 4 workers, seq 512, 3 rounds (6 local steps) from
+    zeroed counters: finite losses, exact launch counts (``expect``), a
+    non-zero gradient in every leaf, bitwise replay, a finite eval_loss;
+    rounds/s, step ms, peak memory and one profiled round; K1 and K3 over
+    the whole plane."""
     import gc
     import math
 
     import torch
 
-    from repro_torch.config import get_arch
-
-    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
     t0 = time.perf_counter()
     exp = _lm_experiment(dev, cfg, LM_WORKERS, LM_SEQ).build()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     plane_shape, n_params = [list(b.shape) for b in exp.state.x.buffers], exp.num_params
-    log(f"full-width {cfg.name} x{LM_LAYERS} layers: {n_params} params in {cfg.dtype}, plane {plane_shape}, "
+    log(f"full-width {cfg.name} x{cfg.num_layers} layers: {n_params} params in {cfg.dtype}, plane {plane_shape}, "
         f"built in {build_s:.1f}s")
     n_leaves = _first_step_gradients(exp)
 
@@ -1514,11 +1764,9 @@ def lm_full_width(dev, kernels):
     peak = torch.cuda.max_memory_allocated()
     losses, steps = res.losses, res.steps
     del res  # it holds the final state
-    m, L, buckets = LM_WORKERS, LM_LAYERS, exp.state.x.layout.num_buckets
+    m, L, buckets = LM_WORKERS, cfg.num_layers, exp.state.x.layout.num_buckets
     want = {k.name: 0 for k in kernels}
-    want.update(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
-                flash_attention_bwd_dkdv=steps * m * L, rmsnorm=steps * m * (2 * L + 1),
-                rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, pullback_momentum=LM_ROUNDS * buckets)
+    want.update(expect(steps, m, L, buckets, LM_ROUNDS))
     if launches != want:
         raise AssertionError(f"LM launches {launches} != {want}")
     if not all(math.isfinite(x) for x in losses):
@@ -1527,7 +1775,7 @@ def lm_full_width(dev, kernels):
     evaluation = exp.evaluate()
     if not math.isfinite(evaluation["eval_loss"]):
         raise AssertionError(f"eval_loss not finite: {evaluation}")
-    profile = profile_train(exp, 1)
+    profile = profile_train(exp, 1, shares)
     del exp
     gc.collect()
     torch.cuda.empty_cache()
@@ -1806,6 +2054,54 @@ def lm_adaptive_faulted(dev, kernels, cfg, overlap_peak=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 5 (f): the rwkv6 LM (K12 forward and backward on every layer)
+# ---------------------------------------------------------------------------
+
+RWKV_LAYERS = 4  # of 32: m = 4 workers' planes at 4 layers hold ~42.5 GB before activations
+
+
+def rwkv6_launches(steps, m, L, buckets, rounds):
+    """The rwkv6 LM path's launches: K12 forward and backward once a layer;
+    K7 forward and backward at ln1, ln2 and the group norm of every layer and
+    at the final norm; no attention kernel."""
+    return dict(wkv_fwd=steps * m * L, wkv_bwd=steps * m * L, rmsnorm=steps * m * (3 * L + 1),
+                rmsnorm_bwd=steps * m * (3 * L + 1), sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
+
+
+def lm_rwkv6_card_vs_cpu(dev):
+    """The reduced rwkv6-7b (d_model 256, 4 heads of 32, chunk 16), f32,
+    seq 128, m = 2, 3 rounds on the card (K12, K7 and the training kernels)
+    and on the CPU (plain versions), from the same weights. Bound: per-round
+    losses rtol 1e-4, as the qwen2 twin (f32 sums in other orders)."""
+    import numpy as np
+
+    from repro_torch.config import get_arch
+
+    cfg = get_arch("rwkv6-7b").model.reduced()
+    losses = {}
+    for key, device in (("cuda", dev), ("cpu", "cpu")):
+        losses[key] = np.asarray(_lm_experiment(device, cfg, 2, 128).fit(rounds=LM_ROUNDS).losses)
+    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    rec = dict(check="LM reduced rwkv6-7b f32, card kernels vs CPU plain", rounds=LM_ROUNDS,
+               losses_card=losses["cuda"].tolist(), losses_cpu=losses["cpu"].tolist(), max_rel_err=rel,
+               bound="rtol 1e-4", ok=rel <= 1e-4)
+    log(json.dumps(rec))
+    if not rec["ok"]:
+        raise AssertionError(f"rwkv6 card vs CPU losses: max rel {rel} > 1e-4")
+
+
+def lm_rwkv6_full_width(dev, kernels):
+    """Full-width rwkv6-7b (d_model 4096, 64 heads of 64, d_ff 14336, vocab
+    65536, bf16) cut to 4 of its 32 layers, through ``lm_full_width``: m = 4,
+    batch 2 x seq 512, 3 rounds; K12's share of the profiled round."""
+    from repro_torch.config import get_arch
+
+    cfg = dataclasses.replace(get_arch("rwkv6-7b").model, num_layers=RWKV_LAYERS,
+                              layer_pattern=("rwkv6",) * RWKV_LAYERS)
+    return lm_full_width(dev, kernels, cfg, rwkv6_launches, shares=("wkv_fwd_kernel", "wkv_bwd_kernel", "rmsnorm"))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1847,12 +2143,14 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rms_err, rms_t = check_rmsnorm(dev, gen)
     app_err, app_t = check_paged_append(dev, gen)
-    att_err, att_t = check_paged_attend(dev, gen)
+    att_err, att_t, att_g12 = check_paged_attend(dev, gen)
     opt_err, opt_t = check_opt_step(dev, gen)
     mix_err, mix_t = check_anchor_mix(dev, gen)
     probe_err, probe_t = check_consensus_probe(dev, gen)
-    fa_err, fa_t = check_flash_attention(dev, gen)
+    fa_err, fa_t, fa_d80 = check_flash_attention(dev, gen)
     rb_err, rb_t = check_rmsnorm_bwd(dev, gen)
+    wkv_err, wkv_t = check_wkv(dev, gen)
+    rms_group = check_rmsnorm_group(dev, gen)
 
     # phases 3, 4 and 5: serving, classifier training, LM training
     serving = [k for k in kernels if k.name in ("rmsnorm", "paged_attend", "paged_append")]
@@ -1864,13 +2162,16 @@ def main() -> int:
     runs.update(train_strategies(dev, kernels))
     runs.update(train_adaptive_and_faulted(dev, kernels))
     lm_card_vs_cpu(dev)
-    lm = lm_full_width(dev, kernels)
+    lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+    lm = lm_full_width(dev, kernels, lm_cfg)
     lm["card"] = card
     gossip = lm_gossip_full_width(dev, kernels)
     gossip["card"] = card
-    lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
     adaptive_lm = lm_adaptive_faulted(dev, kernels, lm_cfg, overlap_peak=lm["peak_mem_bytes"])
     adaptive_lm["card"] = card
+    lm_rwkv6_card_vs_cpu(dev)
+    rwkv = lm_rwkv6_full_width(dev, kernels)
+    rwkv["card"] = card
 
     # phase 6
     launches = dict(summary["launches"])
@@ -1883,8 +2184,11 @@ def main() -> int:
     # kernels on several paths: every path's count (K7's row keeps the serving run's)
     by_path = {k.name: {"serving": summary["launches"].get(k.name, 0),
                         "classifier": runs["overlap_local_sgd"]["launches"].get(k.name, 0),
-                        "lm": lm["launches"][k.name]} for k in kernels}
+                        "lm": lm["launches"][k.name], "lm rwkv6": rwkv["launches"][k.name]} for k in kernels}
     fa_slice = "bf16 B=2 S=512 H=28 Hkv=4 D=128 causal (the LM slice)"
+    wkv_slice = "bf16 r/k/v/u, f32 w: B=2 S=512 H=64 N=P=64 chunk 32 (the rwkv6 slice)"
+    for name in ("wkv_fwd", "wkv_bwd"):
+        launches[name] = rwkv["launches"][name]
     rows = [
         ("rmsnorm", "rmsnorm", "K7 rmsnorm_2d", "src/repro/kernels/rmsnorm/kernel.py:26", rms_err, rms_t[4],
          "bf16 rows=4 d=3584 (decode)", None),
@@ -1911,6 +2215,10 @@ def main() -> int:
          dict(shape="bf16 B=1 S=4096 H=28 Hkv=4 D=128 causal", **fa_t["long"]["dkdv"])),
         ("rmsnorm_bwd", "rmsnorm", "K7 backward (new; the reference has none)", "src/repro/kernels/rmsnorm/ops.py:11",
          rb_err, rb_t, "bf16 rows=1024 d=3584 (the LM slice)", None),
+        ("wkv_fwd", "rwkv6_wkv", "K12 wkv_bh (forward)", "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["fwd"],
+         wkv_t["fwd"], wkv_slice, None),
+        ("wkv_bwd", "rwkv6_wkv", "K12 backward (new; the reference differentiates a jnp recompute, ops.py:43-50)",
+         "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["bwd"], wkv_t["bwd"], wkv_slice, None),
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k5 = mix_t["K5"]
@@ -1969,7 +2277,22 @@ def main() -> int:
             entry["bf16"] = {sh: {k: k5[(sh, "bfloat16")][k] for k in keys + ("copy_ms",)} for sh in ("slice", "large")}
             entry["library"] = t["library"]
         elif name in by_path and any(by_path[name][p] for p in ("serving", "classifier")) and any(
-                by_path[name][p] for p in ("lm",)):
+                by_path[name][p] for p in ("lm", "lm rwkv6")):
+            entry["launches_by_path"] = by_path[name]
+        if name.startswith("wkv_"):
+            entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
+            entry["reduced"] = "f32 B=2 S=45 H=4 N=P=32 chunk 16: checked, not timed"
+        if name.startswith("flash_attention"):  # h2o-danube-1.8b's head_dim 80 (ROADMAP Queue 3 item 1)
+            part = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq", "flash_attention_bwd_dkdv": "dkdv"}[name]
+            entry["head_dim_80"] = dict(shape="bf16 B=2 S=512 H=32 Hkv=8 D=80 causal", rel_err=fa_d80,
+                                        **{k: fa_t["danube"][part][k] for k in keys})
+        if name == "paged_attend":  # mistral-large's group of 12 (the group-capacity-16 instance)
+            entry["group_12"] = dict(shape="bf16 S=4 KV=8 G=12 D=128", max_abs_err=att_g12["max_abs_err"],
+                                     **{k: att_g12[k] for k in keys})
+        if name in ("rmsnorm", "rmsnorm_bwd"):  # the rwkv6 group norm's rows
+            entry["group_norm"] = dict(shape="bf16 rows=65536 d=64 (the rwkv6 group norm)",
+                                       max_abs_err=rms_group["max_abs_err"],
+                                       **{k: rms_group["fwd" if name == "rmsnorm" else "bwd"][k] for k in keys})
             entry["launches_by_path"] = by_path[name]
         out.append(entry)
     out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys})

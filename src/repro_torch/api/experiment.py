@@ -36,10 +36,12 @@ from the anchor first); the two compose, fault rounds becoming
 losses (with the probe's two scalars when there is a controller) in one
 copy.
 
-Not here yet (each raises): ``serve()`` (item 7) and the archs
-``_check_supported`` rejects (item 8); the strategies (every name and alias
-of the reference) raise for ``AlgoConfig.packed=False`` (item 4b) and
-``AlgoConfig.offload`` (item 9).
+LM archs: the GQA text archs (qwen2-7b) and rwkv6-7b (K12 WKV on the
+card). Not here yet (each raises): ``serve()`` (item 7) and the archs
+``_check_supported`` rejects (MoE, MLA, frontends: item 8; mamba2 and
+zamba2: item 8b); the strategies (every name and alias of the reference)
+raise for ``AlgoConfig.packed=False`` (item 4b) and ``AlgoConfig.offload``
+(item 9).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 // Flash attention, forward and backward (FlashAttention-2), causal / sliding
-// window / GQA, for float32 and bfloat16 with head_dim 64 or 128.
+// window / GQA, for float32 and bfloat16 with head_dim 64, 80 or 128.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention_bhsd (_fa_kernel). The reference has no backward kernel (it
@@ -520,14 +520,18 @@ bool shape_ok(int b, int sq, int sk, int h, int hkv) {
 
 }  // namespace
 
+// head_dim 80 (h2o-danube-1.8b): a thread owns 10 of the tile's columns
+// (kTX = 8 divides 80); its tiles need the >48 KB opt-in, as 128's do.
 #define FA_DISPATCH(FN, ...)                                                   \
   if (dtype == 0 && d == 64) return FN<float, 64>(__VA_ARGS__);                \
+  if (dtype == 0 && d == 80) return FN<float, 80>(__VA_ARGS__);                \
   if (dtype == 0 && d == 128) return FN<float, 128>(__VA_ARGS__);              \
   if (dtype == 1 && d == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);        \
+  if (dtype == 1 && d == 80) return FN<__nv_bfloat16, 80>(__VA_ARGS__);        \
   if (dtype == 1 && d == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__);      \
   return (int)cudaErrorInvalidValue;
 
-// dtype: 0 = float32, 1 = bfloat16; d: 64 or 128; window <= 0: none.
+// dtype: 0 = float32, 1 = bfloat16; d: 64, 80 or 128; window <= 0: none.
 // q, out: (b, sq, h, d); k, v: (b, sk, hkv, d); lse: (b, h, sq) f32. All contiguous.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* out, void* lse, int b,
                                           int sq, int sk, int h, int hkv, int d, int causal, int window,

@@ -18,8 +18,9 @@
 // positions) one call reads about a megabyte, so latency and the serial
 // chain of the online softmax dominate.
 //
-// Design: one block of eight warps (four for D = 256) per (slot, kv head),
-// sized so the merge buffer fits static shared memory. The block loads its
+// Design: one block per (slot, kv head) of eight warps, or fewer where the
+// merge buffer would not fit static shared memory (four for D = 256 or for
+// G > 8 at D = 128, one for G > 8 at D = 256). The block loads its
 // slot's length and page-table entries itself (this replaces scalar
 // prefetch) and walks only the visible positions, not all maxp pages. The
 // G query rows sit in shared memory as float32. Each warp takes tiles of 32
@@ -40,10 +41,25 @@
 
 namespace {
 
-constexpr int kGMax = 8;
-// warps per block: 8 while the merge buffer (warps x G x D floats) stays
-// within static shared memory, else 4
-__host__ __device__ constexpr int warps_for(int vpl) { return vpl <= 4 ? 8 : 4; }
+// The kernel is instantiated for a group capacity GM of 8 or 16 (G <= GM
+// query heads per KV head; mistral-large's 12 takes the 16): the registers
+// acc[GM][VPL] and the shared merge buffer grow with GM, so groups of at most
+// 8 keep the smaller instance.
+constexpr int kGroupMax = 16;
+constexpr int kStaticSmem = 48 * 1024;
+// static shared memory of a block: the G query rows, the warps' (m, l) and
+// their accumulators (warps x GM x D floats)
+__host__ __device__ constexpr int smem_bytes(int gm, int vpl, int warps) {
+  return 4 * (gm * vpl * 32 + 2 * warps * gm + warps * gm * vpl * 32);
+}
+// warps per block: the most of 8, 4, 2, 1 whose buffers fit static shared memory
+__host__ __device__ constexpr int warps_for(int vpl, int gm) {
+  return smem_bytes(gm, vpl, 8) <= kStaticSmem ? 8
+         : smem_bytes(gm, vpl, 4) <= kStaticSmem ? 4
+         : smem_bytes(gm, vpl, 2) <= kStaticSmem ? 2 : 1;
+}
+static_assert(warps_for(4, 8) == 8 && warps_for(8, 8) == 4, "G <= 8 keeps its block sizes");
+static_assert(smem_bytes(16, 8, warps_for(8, 16)) <= kStaticSmem, "G 16, D 256 fits static shared memory");
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -93,14 +109,14 @@ __device__ __forceinline__ void load_f(const T* __restrict__ p, float* out) {
   }
 }
 
-template <typename T, int VPL>
-__global__ void __launch_bounds__(warps_for(VPL) * 32)
+template <typename T, int VPL, int kGMax>
+__global__ void __launch_bounds__(warps_for(VPL, kGMax) * 32)
 paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                     const T* __restrict__ pool_v, const int* __restrict__ pt,
                     const int* __restrict__ lengths, T* __restrict__ out, int KV, int G, int maxp,
                     int page, int num_pages, int window) {
   constexpr int D = VPL * 32;
-  constexpr int kWarps = warps_for(VPL);
+  constexpr int kWarps = warps_for(VPL, kGMax);
   constexpr int kBatch = 8;  // V rows loaded together in p @ V
   __shared__ __align__(16) float sq[kGMax][D];
   __shared__ float sm_m[kWarps][kGMax];
@@ -230,28 +246,32 @@ paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* pk, const void* pv, const int* pt, const int* ln, void* out,
-           int S, int KV, int G, int D, int maxp, int page, int num_pages, int window,
-           cudaStream_t st) {
-  dim3 grid(S, KV);
-  constexpr int w1 = warps_for(1), w2 = warps_for(2), w4 = warps_for(4), w8 = warps_for(8);
+template <typename T, int VPL, int GM>
+void launch_one(const T* q, const T* pk, const T* pv, const int* pt, const int* ln, T* out, int S, int KV, int G,
+                int maxp, int page, int num_pages, int window, cudaStream_t st) {
+  paged_attend_kernel<T, VPL, GM><<<dim3(S, KV), warps_for(VPL, GM) * 32, 0, st>>>(
+      q, pk, pv, pt, ln, out, KV, G, maxp, page, num_pages, window);
+}
+
+template <typename T, int GM>
+int launch_group(const void* q, const void* pk, const void* pv, const int* pt, const int* ln, void* out, int S,
+                 int KV, int G, int D, int maxp, int page, int num_pages, int window, cudaStream_t st) {
   const T* qq = static_cast<const T*>(q);
   const T* kk = static_cast<const T*>(pk);
   const T* vv = static_cast<const T*>(pv);
   T* oo = static_cast<T*>(out);
   switch (D) {
     case 32:
-      paged_attend_kernel<T, 1><<<grid, w1 * 32, 0, st>>>(qq, kk, vv, pt, ln, oo, KV, G, maxp, page, num_pages, window);
+      launch_one<T, 1, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
       break;
     case 64:
-      paged_attend_kernel<T, 2><<<grid, w2 * 32, 0, st>>>(qq, kk, vv, pt, ln, oo, KV, G, maxp, page, num_pages, window);
+      launch_one<T, 2, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
       break;
     case 128:
-      paged_attend_kernel<T, 4><<<grid, w4 * 32, 0, st>>>(qq, kk, vv, pt, ln, oo, KV, G, maxp, page, num_pages, window);
+      launch_one<T, 4, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
       break;
     case 256:
-      paged_attend_kernel<T, 8><<<grid, w8 * 32, 0, st>>>(qq, kk, vv, pt, ln, oo, KV, G, maxp, page, num_pages, window);
+      launch_one<T, 8, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -259,18 +279,26 @@ int launch(const void* q, const void* pk, const void* pv, const int* pt, const i
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch(const void* q, const void* pk, const void* pv, const int* pt, const int* ln, void* out,
+           int S, int KV, int G, int D, int maxp, int page, int num_pages, int window,
+           cudaStream_t st) {
+  if (G <= 8) return launch_group<T, 8>(q, pk, pv, pt, ln, out, S, KV, G, D, maxp, page, num_pages, window, st);
+  return launch_group<T, 16>(q, pk, pv, pt, ln, out, S, KV, G, D, maxp, page, num_pages, window, st);
+}
+
 }  // namespace
 
 // q, out: (S, KV, G, D); pool_k, pool_v: (num_pages, page, KV, D), all contiguous,
 // 16-byte aligned and of one element type (dtype 0 = float32, 1 = bfloat16);
 // page_tables (S, maxp) and lengths (S,) int32. window <= 0 means no window.
-// Requires G <= 8 and D in {32, 64, 128, 256}.
+// Requires G <= 16 and D in {32, 64, 128, 256}.
 extern "C" int paged_attend_launch(const void* q, const void* pool_k, const void* pool_v,
                                    const void* page_tables, const void* lengths, void* out, int S,
                                    int KV, int G, int D, int maxp, int page, int num_pages,
                                    int window, int dtype, void* stream) {
   if (S <= 0) return 0;
-  if (G < 1 || G > kGMax || KV < 1 || KV > 65535 || maxp <= 0 || page <= 0)
+  if (G < 1 || G > kGroupMax || KV < 1 || KV > 65535 || maxp <= 0 || page <= 0)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)pool_k | (uintptr_t)pool_v) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

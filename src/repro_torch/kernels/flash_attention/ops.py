@@ -34,7 +34,7 @@ BWD_DQ = Kernel("flash_attention_bwd_dq", {"flash_attention_bwd_dq_launch": [P] 
                 source="flash_attention")
 BWD_DKDV = Kernel("flash_attention_bwd_dkdv", {"flash_attention_bwd_dkdv_launch": [P] * 8 + _INTS + [P]},
                   source="flash_attention")
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 def _check(q, k, v, window, sk_valid):

@@ -28,6 +28,19 @@ APPEND = Kernel("paged_append", {"paged_append_launch": [P, P, P, P, I, I, I, I,
 ATTEND = Kernel(
     "paged_attend", {"paged_attend_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]}
 )
+GROUP_MAX = 16  # query heads per KV head the decode kernel takes (mistral-large's 12 among them)
+HEAD_DIMS = (32, 64, 128, 256)  # a lane owns head_dim / 32 columns
+
+
+def check_decode_shape(group: int, head_dim: int) -> None:
+    """Raise unless the decode kernel takes this GQA group and head dim. The
+    engine calls it before it allocates any pool, on every device, so the
+    CPU and the card refuse the same configs (h2o-danube-1.8b's head_dim 80
+    among them: a lane layout for a head dim that is not a multiple of 32
+    is ROADMAP Queue 3 item 1)."""
+    if not 1 <= group <= GROUP_MAX or head_dim not in HEAD_DIMS:
+        raise NotImplementedError(f"the paged decode kernel takes a GQA group of 1..{GROUP_MAX} and head_dim in "
+                                  f"{HEAD_DIMS}, got group {group}, head_dim {head_dim} (ROADMAP Queue 3 item 1)")
 
 
 def _check_tables(page_tables: torch.Tensor, lengths: torch.Tensor, slots: int, device) -> None:
@@ -91,8 +104,7 @@ def paged_attend_decode(q, pool_k, pool_v, page_tables, lengths, *, window: Opti
     _check_tables(page_tables, lengths, s_, q.device)
     if not (q.dtype == pool_k.dtype == pool_v.dtype):
         raise TypeError(f"q/pool dtypes differ: {q.dtype}, {pool_k.dtype}, {pool_v.dtype}")
-    if g > 8 or d not in (32, 64, 128, 256):
-        raise ValueError(f"paged_attend kernel takes G <= 8 and D in (32, 64, 128, 256), got G={g}, D={d}")
+    check_decode_shape(g, d)
     if not (q.is_contiguous() and pool_k.is_contiguous() and pool_v.is_contiguous()):
         raise ValueError("paged_attend_decode: q and pools must be contiguous")
     out = torch.empty_like(q)

@@ -3,8 +3,9 @@
 ``Builder`` creates nested dicts of tensors with the reference's init rules
 (``params.py:63-96``): ``fan_in`` draws N(0, 1/fan_in) with fan_in the first
 dim of a matrix (the middle dim of an expert stack), ``normal`` draws
-N(0, 0.02²), plus ``zeros``/``ones``. Draws are float32 from an
-explicit ``torch.Generator`` and cast to the parameter dtype. The values
+N(0, 0.02²), plus ``zeros``/``ones`` and ``constant`` (every element
+``scale``). Draws are float32 from an explicit ``torch.Generator`` and cast
+to the parameter dtype. The values
 differ from ``jax.random``'s; parity tests take JAX's weights through
 :func:`repro_torch.interop.params_from_numpy` instead.
 
@@ -80,6 +81,8 @@ class Builder:
                 fan_in = shape[1]
             s = (1.0 / math.sqrt(fan_in)) if scale is None else scale / math.sqrt(fan_in)
             v = self._normal(shape, s, dtype)
+        elif init == "constant":
+            v = torch.full(full, scale, dtype=dtype, device=self.device)
         else:
             raise ValueError(init)
         self._insert(name, v)

@@ -10,11 +10,13 @@ how the training loop hands each layer its own gradient window; see
 :func:`split_layers`).
 
 Ported for ``"attn"`` segments of GQA text archs (pre-norm RMSNorm blocks
-with SwiGLU): ``segments``, ``init_model``, ``apply_model`` in
-``mode="train"`` (the LM training path: K6 attention, K7 norms) and in
-``mode="decode"`` with ``paged=`` (the serving path), ``softmax_xent`` and
-``lm_loss``. MoE, SSM, shared attention, frontends and MTP (ROADMAP Queue 1
-item 8), prefill caches and dense decode (item 7) raise here.
+with SwiGLU) and ``"rwkv6"`` segments (RMSNorm, RWKV-6 time-mix and
+channel-mix): ``segments``, ``init_model``, ``apply_model`` in
+``mode="train"`` (the LM training path: K6 attention or K12 WKV, K7 norms)
+and, for attention, in ``mode="decode"`` with ``paged=`` (the serving
+path), ``softmax_xent`` and ``lm_loss``. MoE, MLA, frontends and MTP
+(ROADMAP Queue 1 item 8), mamba2 and shared attention (item 8b), prefill
+caches and dense decode (item 7) raise here.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.models import params as P
 from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import mlp as mlp_mod
 from repro_torch.models.layers import rope as rope_mod
+from repro_torch.models.layers import rwkv6 as rwkv_mod
 from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 
 
@@ -42,27 +45,47 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 ITEM8 = "ROADMAP Queue 1 item 8"
+ITEM8B = "ROADMAP Queue 1 item 8b"
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    a = cfg.attention
-    if cfg.frontend is not None or a is None or a.kind != "gqa" or a.rope == "mrope":
-        raise NotImplementedError(f"{cfg.name}: the port covers GQA text archs; frontends, MLA and M-RoPE are {ITEM8}")
-    if cfg.use_parallel_block or cfg.use_qk_norm or cfg.act != "silu" or cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: parallel blocks, QK-norm, GELU MLPs and tied embeddings are {ITEM8}")
-    if cfg.moe is not None or cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: MoE and multi-token prediction are {ITEM8}")
+    """Raise unless the port runs ``cfg``: a text arch whose segments are all
+    ``"attn"`` (GQA, SiLU, untied) or all ``"rwkv6"`` (no attention, untied)."""
+    if cfg.frontend is not None or cfg.moe is not None or cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}: frontends, MoE and multi-token prediction are {ITEM8}")
     kinds = {kind for kind, _ in segments(cfg)}
+    if kinds & {"mamba2", "shared_attn"}:
+        raise NotImplementedError(f"{cfg.name}: mamba2 and shared-attention segments are {ITEM8B}")
+    if cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}: tied embeddings are {ITEM8}")
+    if kinds == {"rwkv6"}:
+        if cfg.attention is not None or cfg.ssm is None or cfg.ssm.kind != "rwkv6":
+            raise NotImplementedError(f"{cfg.name}: rwkv6 segments take ssm.kind 'rwkv6' and no attention ({ITEM8})")
+        return
     if kinds != {"attn"}:
-        raise NotImplementedError(f"{cfg.name}: segment kinds {sorted(kinds)}; the port covers 'attn' ({ITEM8})")
+        raise NotImplementedError(f"{cfg.name}: segment kinds {sorted(kinds)}; the port covers all-'attn' and "
+                                  f"all-'rwkv6' archs ({ITEM8})")
+    a = cfg.attention
+    if a is None or a.kind != "gqa" or a.rope == "mrope":
+        raise NotImplementedError(f"{cfg.name}: the port covers GQA text archs; MLA and M-RoPE are {ITEM8}")
+    if cfg.use_parallel_block or cfg.use_qk_norm or cfg.act != "silu":
+        raise NotImplementedError(f"{cfg.name}: parallel blocks, QK-norm and GELU MLPs are {ITEM8}")
 
 
-def _init_block(b, cfg: ModelConfig):
+def _init_block(b, cfg: ModelConfig, kind: str):
     d = cfg.d_model
-    init_rmsnorm(b, "ln1", d)
-    attn_mod.init_gqa(b, "attn", d, cfg.attention)
-    init_rmsnorm(b, "ln2", d)
-    mlp_mod.init_swiglu(b, "ffn", d, cfg.d_ff)
+    if kind == "attn":
+        init_rmsnorm(b, "ln1", d)
+        attn_mod.init_gqa(b, "attn", d, cfg.attention)
+        init_rmsnorm(b, "ln2", d)
+        mlp_mod.init_swiglu(b, "ffn", d, cfg.d_ff)
+    elif kind == "rwkv6":
+        init_rmsnorm(b, "ln1", d)
+        init_rmsnorm(b, "ln2", d)
+        rwkv_mod.init_rwkv6(b, "tm", d, cfg.ssm)
+        rwkv_mod.init_rwkv6_ffn(b, "cm", d, cfg.d_ff)
+    else:
+        raise ValueError(kind)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu") -> dict:
@@ -77,7 +100,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu") -> di
     params = b.params
     for si, (kind, n) in enumerate(segments(cfg)):
         sb = P.Builder(generator, cfg.param_dtype, device, lead=(n,))
-        _init_block(sb, cfg)
+        _init_block(sb, cfg, kind)
         params[f"seg{si}"] = sb.params
     return params
 
@@ -98,7 +121,14 @@ def split_layers(path: Tuple[str, ...], leaf: torch.Tensor):
     return list(leaf.unbind(0)) if path[0].startswith("seg") else leaf
 
 
-def _apply_block(cfg: ModelConfig, prm, x, cos, sin, *, mode, cache, eps, paged):
+def _apply_block(cfg: ModelConfig, kind: str, prm, x, cos, sin, *, mode, cache, eps, paged):
+    if kind == "rwkv6":
+        h = rmsnorm(prm["ln1"], x, eps)
+        y, _ = rwkv_mod.rwkv6_timemix_apply(prm["tm"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
+        x = x + y
+        h2 = rmsnorm(prm["ln2"], x, eps)
+        y2, _ = rwkv_mod.rwkv6_channelmix_apply(prm["tm"], prm["cm"], h2, cache=cache)
+        return x + y2
     h = rmsnorm(prm["ln1"], x, eps)
     y, cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, mode=mode, cache=cache, paged=paged)
     x = x + y
@@ -146,12 +176,13 @@ def apply_model(
     b_, s = x.shape[0], x.shape[1]
     cos, sin = _rope_for(cfg, inputs, b_, s)
     eps = cfg.norm_eps
-    for si, (_, n) in enumerate(segments(cfg)):
+    for si, (kind, n) in enumerate(segments(cfg)):
         seg_params = params[f"seg{si}"]
         seg_cache = caches[f"seg{si}"] if caches else None
         for i in range(n):
             cache = _layer(seg_cache, i) if seg_cache is not None else None
-            x = _apply_block(cfg, _layer(seg_params, i), x, cos, sin, mode=mode, cache=cache, eps=eps, paged=paged)
+            x = _apply_block(cfg, kind, _layer(seg_params, i), x, cos, sin, mode=mode, cache=cache, eps=eps,
+                             paged=paged)
     hidden = rmsnorm(params["final_norm"], x, eps)
     return _head(cfg, params, hidden), dict(caches=caches or {}, hidden=hidden)
 

@@ -14,7 +14,7 @@ given.
 
 The dense fallback, ``generate``, ``hot_swap``, ``swap_plane`` and serving
 off a packed plane come in later slices; the constructor raises on an arch
-that :func:`paged_supported` rejects.
+that :func:`require_paged` refuses.
 """
 from __future__ import annotations
 
@@ -24,8 +24,9 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models import transformer as T
-from repro_torch.serving.paged_cache import PagedState, init_paged_pools, pages_for, paged_supported
+from repro_torch.serving.paged_cache import PagedState, init_paged_pools, pages_for, require_paged
 from repro_torch.serving.scheduler import Request, Scheduler
 
 
@@ -91,8 +92,9 @@ class BatchedEngine:
             raise ValueError(f"max_len must be >= 2 (one prompt token + one generated), got {max_len}")
         if page_size < 1 or chunk < 1:
             raise ValueError(f"page_size and chunk must be >= 1, got {page_size}, {chunk}")
-        if not paged_supported(cfg):
-            raise ValueError(f"{getattr(cfg, 'name', cfg)}: the port serves GQA attention-only text archs (paged)")
+        require_paged(cfg)
+        a = cfg.attention
+        pa_ops.check_decode_shape(a.num_heads // a.num_kv_heads, a.head_dim)
         self.device = resolve_device(device)
         leaf = params["tok_emb"]
         if leaf.device != self.device:

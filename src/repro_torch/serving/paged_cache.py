@@ -25,19 +25,37 @@ class PagedState(NamedTuple):
     lengths: Any  # (S,) — tokens resident before this step's append
 
 
-def paged_supported(cfg: ModelConfig) -> bool:
-    """The port pages GQA text archs whose every segment is ``"attn"``. The
+def _paged_refusal(cfg: ModelConfig) -> Optional[Exception]:
+    """None where the port pages ``cfg``, else the error that says why not.
+    The port pages GQA text archs whose every segment is ``"attn"``. The
     reference also pages MLA and MoE archs; those come to the port with
-    their model code."""
+    their model code. An attention-free (recurrent) arch such as rwkv6 has
+    no KV cache to page: the reference serves it by dense decode, ROADMAP
+    Queue 1 item 7."""
     from repro_torch.models.transformer import _check_supported
 
+    refused = ValueError(f"{getattr(cfg, 'name', cfg)}: the port pages GQA attention-only text archs")
     if cfg is None:
-        return False
+        return refused
+    if cfg.attention is None:
+        return NotImplementedError(f"{cfg.name}: a recurrent arch is served by dense decode, not paged; the dense "
+                                   "path is ROADMAP Queue 1 item 7")
     try:
         _check_supported(cfg)
     except NotImplementedError:
-        return False
-    return True
+        return refused
+    return None
+
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    return _paged_refusal(cfg) is None
+
+
+def require_paged(cfg: ModelConfig) -> None:
+    """Raise unless the port pages ``cfg`` (see :func:`_paged_refusal`)."""
+    err = _paged_refusal(cfg)
+    if err is not None:
+        raise err
 
 
 def pages_for(tokens: int, page_size: int) -> int:
@@ -50,8 +68,7 @@ def init_paged_pools(
     """Zero-initialised per-segment pools keyed ``seg{i}`` like the params."""
     from repro_torch.models.transformer import segments
 
-    if not paged_supported(cfg):
-        raise ValueError(f"{cfg.name}: paged pools require a GQA attention-only text arch (see paged_supported)")
+    require_paged(cfg)
     dtype = dtype or cfg.param_dtype
     a = cfg.attention
     pools: Dict[str, Any] = {}

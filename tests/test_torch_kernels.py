@@ -30,7 +30,11 @@ consensus probe (K8, and the probe output of K3/K4), whose two sums the
 kernel adds in float64 over its grid: within rtol 1e-6 of the plain
 version; the fused output equals K8's bit for bit, and K8 gives the same
 bits on every run. The probe's CPU tests against the JAX package are in
-``tests/test_torch_control.py``.
+``tests/test_torch_control.py``; the WKV's (K12), in
+``tests/test_torch_rwkv6.py``. On the card K12 and its backward kernel are
+held against the plain ``wkv_chunked`` and its torch autograd (f32 2e-5 for
+y and the state, 1e-4 for the gradients; bf16 2^-7 and 2^-5), K6 also at
+head_dim 80, K9 also at a GQA group of 12.
 """
 import functools
 import importlib
@@ -53,6 +57,8 @@ from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.kernels.paged_attn import ref as pa_ref
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
+from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
+from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -605,6 +611,9 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     fq = _t(rng.normal(size=(1, 4, 2, 64)).astype(np.float32)).requires_grad_(True)
     fa_ops.flash_attention(fq, fq[:, :, :1], fq[:, :, :1]).sum().backward()
     rms_ops.rmsnorm(x.requires_grad_(True), s).sum().backward()
+    wr = _t(rng.normal(size=(1, 5, 2, 4)).astype(np.float32)).requires_grad_(True)
+    y, st = wkv_ops.wkv(wr, wr, wr, torch.sigmoid(wr), wr[0, 0], chunk=4)
+    (y.sum() + st.sum()).backward()
     assert {k.name: k.launches for k in all_kernels()} == before
     assert all(k._lib is None for k in all_kernels())
 
@@ -777,9 +786,11 @@ def test_anchor_mix_kernel_bitwise_on_card(cuda, dtype):
 
 
 # (B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM slice's
-# shape, a ragged S with a padded K, a window, a q_offset
+# shape, h2o-danube-1.8b's head_dim 80, a ragged S with a padded K, a window,
+# a q_offset
 FA_CARD = [
     (2, 512, 512, 28, 4, 128, True, None, 0, None),
+    (2, 512, 512, 32, 8, 80, True, None, 0, None),
     (1, 130, 160, 4, 2, 64, False, None, 0, 130),
     (2, 256, 256, 8, 2, 128, True, 64, 0, None),
     (2, 64, 320, 8, 4, 64, True, None, 256, None),
@@ -788,7 +799,7 @@ FA_CARD = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FA_CARD, ids=["slice", "ragged", "window", "q_offset"])
+@pytest.mark.parametrize("case", FA_CARD, ids=["slice", "head_dim_80", "ragged", "window", "q_offset"])
 def test_flash_attention_kernels_vs_plain_on_card(cuda, case, dtype):
     """Bounds as chip_smoke.py states them (max|Δ| / max|plain|): f32 1e-5
     forward, 2e-5 gradients; bf16 2^-7 both."""
@@ -831,3 +842,67 @@ def test_rmsnorm_bwd_kernel_vs_plain_on_card(cuda, dtype):
                 lim = lim + torch.from_numpy(_bf16_ulp(w.cpu().numpy())).to(cuda)
             assert bool((err <= lim).all())
         assert all(torch.equal(a, b) for a, b in zip(got, rms_ops.rmsnorm_bwd(x, s, dy, eps=1e-6)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_kernel_group_12_on_card(cuda, dtype):
+    """mistral-large's GQA group (96 heads over 8 KV heads: G = 12), which
+    takes the kernel's group-capacity-16 instance; bounds as chip_smoke.py
+    states them: f32 1e-5 absolute, bf16 2^-8·|plain| + 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    pk, pv = (torch.randn(129, 16, 8, 128, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    pt = (torch.randperm(128, generator=gen, device=cuda).to(torch.int32) + 1).reshape(4, 32).contiguous()
+    pt[0] = 0
+    lens = torch.tensor([0, 17, 300, 511], dtype=torch.int32, device=cuda)
+    q = (torch.randn(4, 8, 12, 128, generator=gen, device=cuda) / 128**0.5).to(dtype)
+    for window in (None, 64):
+        got = pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=window)
+        want = pa_ref.paged_attend_gqa(q.reshape(4, 1, 96, 128), pk, pv, pt, lens, window=window).reshape(4, 8, 12, 128)
+        lim = 2.0**-8 * want.abs() + 1e-5 if dtype == torch.bfloat16 else torch.full_like(want, 1e-5)
+        assert bool(((got.float() - want).abs() <= lim).all())
+
+
+# (B, S, H, N = P, chunk, r/k/v/u dtype): the reduced rwkv6-7b's shape with a
+# ragged last chunk, and the rwkv6 slice's; w is f32 in both
+WKV_CARD = [(2, 45, 4, 32, 16, torch.float32), (2, 512, 64, 64, 32, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WKV_CARD, ids=["reduced", "slice"])
+def test_wkv_kernels_vs_plain_on_card(cuda, case):
+    """K12 forward and the backward kernel against the plain ``wkv_chunked``
+    and torch autograd through it, with cotangents for y and the final
+    state; bounds as chip_smoke.py states them (max|Δ| / max|plain|): f32
+    2e-5 for y and the state, 1e-4 for each gradient; bf16 2^-7 for y, 2e-5
+    for the f32 state, 2^-5 for each gradient. The same bits on a second
+    launch."""
+    b, s, h, n, chunk, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    r, k, v = (torch.randn(b, s, h, n, generator=gen, device=cuda).to(dtype) for _ in range(3))
+    w = 0.2 + 0.79 * torch.rand(b, s, h, n, generator=gen, device=cuda)
+    u = torch.randn(h, n, generator=gen, device=cuda).to(dtype)
+    dy = torch.randn(b, s, h, n, generator=gen, device=cuda).to(dtype)
+    dstate = torch.randn(b, h, n, n, generator=gen, device=cuda)
+    y, st, states = wkv_ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True)
+    grads = wkv_ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)
+    ins = [t.detach().clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    yp, stp = wkv_ref.wkv_chunked(*ins, chunk=chunk)
+    plain = torch.autograd.grad((yp, stp), ins, (dy, dstate))
+    f32 = dtype == torch.float32
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    assert rel(y, yp) <= (2e-5 if f32 else 2.0**-7) and rel(st, stp) <= 2e-5
+    for g, pg in zip(grads, plain):
+        assert g.dtype == pg.dtype and rel(g, pg) <= (1e-4 if f32 else 2.0**-5)
+    again = wkv_ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    assert torch.equal(wkv_ops.wkv_bh(r, k, v, w, u, chunk=chunk)[0], y)
+    # the autograd Function: the same kernels, counted once each
+    before = (wkv_ops.FWD.launches, wkv_ops.BWD.launches)
+    ya, sa = wkv_ops.wkv(*ins, chunk=chunk)
+    got = torch.autograd.grad((ya, sa), ins, (dy, dstate))
+    assert (wkv_ops.FWD.launches, wkv_ops.BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(ya, y) and all(torch.equal(a, c) for a, c in zip(got, grads))
