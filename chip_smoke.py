@@ -27,18 +27,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    LM training kernels, K6 flash attention (forward, dQ and dK/dV
    backward kernels) at the LM slice's shape (B 2, S 512, 28 heads, 4 KV
    heads, D 128, causal), h2o-danube-1.8b's head_dim 80 (32 heads, 8 KV
-   heads), a ragged S with a padded K, a window and a q_offset, and K7's
+   heads), zamba2-1.2b's shared block (32 heads of 64, window 4096), a
+   ragged S with a padded K, a window and a q_offset, and K7's
    backward at 7 and 1024 rows, in f32 and bf16, each against its plain
    version (the backward also against torch autograd of the plain forward)
    with the stated bounds; timed beside SDPA (forward; backward alone;
    both) and F.rms_norm's backward, and K6 also at B 1, S 4096, where the
-   operations bound the work; K9 also at mistral-large's GQA group of 12;
+   operations bound the work; K9 also at mistral-large's GQA group of 12
+   and at h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV heads), in
+   bf16 and f32, timed beside SDPA on the gathered cache;
    (d) K12, the RWKV-6 chunked WKV, forward and backward, against the plain
    ``wkv_chunked`` and torch autograd through it at the reduced rwkv6-7b's
    shape (B 2, S 45, H 4, N 32, chunk 16, f32) and the rwkv6 slice's (B 2,
    S 512, H 64, N 64, chunk 32, bf16 r/k/v/u and f32 w), the same bits on a
    second launch, timed beside the plain version and a bound set by its
-   exponentials; K7 forward and backward at the group norm's (65,536, 64).
+   exponentials; K7 forward and backward at the group norm's (65,536, 64)
+   and at zamba2-1.2b's (1024, 2048) and (1024, 4096), the same bits on a
+   second backward launch;
+   (e) K11, the Mamba2 SSD chunked scan, forward and backward, against the
+   plain ``ssd_chunked`` (y before the D-skip) and torch autograd through
+   it at the reduced zamba2's shape (B 2, S 45, H 16, P 32, G 1, N 16,
+   chunk 16, f32) and the zamba2 slice's (B 2, S 512, H 64, P = N = 64,
+   G 1, chunk 128, bf16 x/B/C and f32 dt/A), the same bits on a second
+   launch, timed beside the plain version and its bound.
 3. The serving slice: (a) a 2-layer qwen2-7b at full attention width in f32,
    teacher-forced through ``paged_step`` on the card and on the CPU (plain
    versions), logits compared; (b) full-width qwen2-7b in bf16 with random
@@ -95,10 +106,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    K12 forward and backward steps x workers x layers, K7 forward and
    backward steps x workers x (3 layers + 1), no attention kernel, bitwise
    replay, rounds/s, step ms, peak memory and K12's share of a profiled
-   round.
+   round. (g) The zamba2 slice: the reduced zamba2-1.2b (f32, seq 128,
+   m = 2, 3 rounds) on the card and the CPU, losses compared; full-width
+   zamba2-1.2b at full depth (38 layers: 33 mamba2, one shared attention
+   block at 5 positions, tied embeddings; bf16, m = 4, seq 512, 3 rounds)
+   as in (b): K11 forward and backward steps x workers x 33, K6 forward and
+   backward steps x workers x 5, K7 forward and backward steps x workers x
+   77, bitwise replay, rounds/s, step ms, peak memory and K11's share of a
+   profiled round.
 6. One JSON line with every kernel's numbers (K1-K5, K6 forward and
    backward, K7 forward and backward, K8 and the probe output of K3/K4, K9,
-   K10, K12 forward and backward), then the device line last.
+   K10, K11 and K12 forward and backward), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -253,13 +271,14 @@ def check_paged_attend(dev, gen):
 
     from repro_torch.kernels.paged_attn import ops, ref
 
-    d, maxp = 128, MAX_LEN // PAGE
+    maxp = MAX_LEN // PAGE
     num_pages = SLOTS * maxp + 1
     lens_list = [0, 17, 300, maxp * PAGE - 1]
-    worst, timing, coverage = 0.0, None, None
-    # the serving slice's group (qwen2-7b: 4 KV heads, G 7) and mistral-large's
-    # (8 KV heads, G 12: the kernel instance of group capacity 16)
-    for kv, g in ((4, 7), (8, 12)):
+    worst, timing, coverage, d80 = 0.0, None, None, None
+    # the serving slice's group (qwen2-7b: 4 KV heads, G 7, D 128), mistral-large's
+    # (8 KV heads, G 12: the kernel instance of group capacity 16) and
+    # h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV heads: G 4)
+    for kv, g, d in ((4, 7, 128), (8, 12, 128), (8, 4, 80)):
         for dtype in (torch.bfloat16, torch.float32):
             for window in (None, 64):
                 pt, lens = _tables(gen, dev, SLOTS, maxp, lens_list)
@@ -294,14 +313,18 @@ def check_paged_attend(dev, gen):
                     pages = sum(min(n, maxp * PAGE - 1) // PAGE + 1 for n in lens_list)
                     nbytes = 2 * q.numel() * 2 + 2 * visible * kv * d * 2 + 4 * pages + 4 * SLOTS
                     rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * visible * kv * g * d)
-                    if g == 7:
+                    if d == 80:
+                        d80 = rec
+                    elif g == 7:
                         timing = rec
                     else:
                         coverage = rec
+                if d == 80 and dtype == torch.float32 and window is None:
+                    d80["f32_max_abs_err"] = rec["max_abs_err"]
                 log(json.dumps(rec))
                 if not ok:
                     raise AssertionError(f"K9 paged_attend kernel disagrees with plain: {rec}")
-    return worst, timing, coverage
+    return worst, timing, coverage, d80
 
 
 # ---------------------------------------------------------------------------
@@ -654,17 +677,21 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate, NVIDIA data sheet
 
 # (name, B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM
 # slice's own shape (full-width qwen2-7b at seq 512), h2o-danube-1.8b's
-# (head_dim 80) at the same batch, a ragged S with a padded K, a sliding
+# (head_dim 80) and zamba2-1.2b's shared block (32 heads of 64, no GQA,
+# window 4096) at the same batch, a ragged S with a padded K, a sliding
 # window, a q_offset; and a long shape, timed where the operations bound the
 # work
 FA_CASES = [
     ("slice", 2, 512, 512, 28, 4, 128, True, None, 0, None),
     ("danube", 2, 512, 512, 32, 8, 80, True, None, 0, None),
+    ("zamba2", 2, 512, 512, 32, 32, 64, True, 4096, 0, None),
     ("ragged", 1, 130, 160, 4, 2, 64, False, None, 0, 130),
     ("window", 2, 256, 256, 8, 2, 128, True, 64, 0, None),
     ("q_offset", 2, 64, 320, 8, 4, 64, True, None, 256, None),
 ]
 FA_LONG = ("long", 1, 4096, 4096, 28, 4, 128, True, None, 0, None)
+FA_TIMED = ("slice", "danube", "zamba2", "long")
+FA_COVERED = ("danube", "zamba2")  # their errors go into the kernels line
 # stated bounds, as max|kernel - plain| / max|plain| (see the module docstring
 # of repro_torch/kernels/flash_attention/ops.py): both sides compute in f32 and
 # sum in other orders; in bf16 a value near a rounding boundary (of p before
@@ -716,7 +743,7 @@ def check_flash_attention(dev, gen):
     from repro_torch.kernels.flash_attention import ops, ref
 
     worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
-    timing, coverage = {}, {}
+    timing, coverage = {}, {name: {} for name in FA_COVERED}
     for case in FA_CASES + [FA_LONG]:
         name, b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
         kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
@@ -749,10 +776,10 @@ def check_flash_attention(dev, gen):
             worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["out"])
             worst["dq"] = max(worst["dq"], rec["max_abs_err"]["dq"])
             worst["dkdv"] = max(worst["dkdv"], rec["max_abs_err"]["dk"], rec["max_abs_err"]["dv"])
-            if dtype == torch.bfloat16 and name in ("slice", "danube", "long"):
+            if dtype == torch.bfloat16 and name in FA_TIMED:
                 rec["timing"] = timing[name] = _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta)
-            if name == "danube":
-                coverage[_name(dtype)] = errs
+            if name in FA_COVERED:
+                coverage[name][_name(dtype)] = errs
             log(json.dumps(rec))
             if not ok:
                 raise AssertionError(f"K6 flash_attention kernels disagree with plain: {rec}")
@@ -771,7 +798,9 @@ def _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta):
     kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
     it = 3 if name == "long" else 20
     work = _fa_work(case, dtype)
-    # the yardstick: SDPA on (B, H, S, D) with the kv-heads repeated for GQA
+    # the yardstick: SDPA on (B, H, S, D) with the kv-heads repeated for GQA;
+    # causal only, so the timed cases keep any window at least S wide
+    assert window is None or window >= sk, case
     g = h // hkv
     qe = q.transpose(1, 2).contiguous().requires_grad_(True)
     ke = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
@@ -977,19 +1006,31 @@ def check_wkv(dev, gen):
     return worst, timing
 
 
-RMS_GROUP = (65536, 64)  # the rwkv6 group norm: B*S*H rows (2 * 512 * 64) of head_dim 64
+# (key, rows, d, what): the rwkv6 group norm, B*S*H rows (2 * 512 * 64) of
+# head_dim 64; zamba2-1.2b's norms at B*S = 1024 rows, d_model 2048 (ln1 of
+# each mamba2 layer and of the shared block, its ln2, the final norm) and
+# d_inner 4096 (the gated norm of each mamba2 layer); eps 1e-5 in all three
+RMS_SHAPES = [("group_norm", 65536, 64, "the rwkv6 group norm"),
+              ("zamba2_d_model", 1024, 2048, "zamba2 ln1, ln2, final norm"),
+              ("zamba2_gated", 1024, 4096, "zamba2 gated norm, d_inner")]
 
 
-def check_rmsnorm_group(dev, gen):
-    """K7 forward and backward at the rwkv6 group norm's shape, bf16, against
-    the plain versions (bounds as the rows above); times beside the plain
-    versions and F.rms_norm (forward; autograd backward)."""
+def check_rmsnorm_shapes(dev, gen):
+    """K7 forward and backward at the rwkv6 and zamba2 paths' shapes, each by
+    ``check_rmsnorm_at``."""
+    return {key: check_rmsnorm_at(dev, gen, rows, d, what) for key, rows, d, what in RMS_SHAPES}
+
+
+def check_rmsnorm_at(dev, gen, rows, d, what):
+    """K7 forward and backward at (rows, d), bf16, against the plain versions
+    (bounds as the rows above), the backward the same bits on a second
+    launch; times beside the plain versions and F.rms_norm (forward;
+    autograd backward)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm import ops, ref
 
-    rows, d = RMS_GROUP
     eps = 1e-5
     x = torch.randn(rows, d, generator=gen, device=dev).to(torch.bfloat16)
     scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(torch.bfloat16)
@@ -998,6 +1039,7 @@ def check_rmsnorm_group(dev, gen):
     err = (got.float() - want.float()).abs()
     ok = bool((err <= bf16_ulp(want)).all())
     gb, wb = ops.rmsnorm_bwd(x, scale, dy, eps=eps), ref.rmsnorm_bwd(x, scale, dy, eps)
+    ok &= all(torch.equal(a, b) for a, b in zip(gb, ops.rmsnorm_bwd(x, scale, dy, eps=eps)))
     errs = {}
     for nm, g, wv in zip(("dx", "dscale"), gb, wb):
         e = (g.float() - wv.float()).abs()
@@ -1012,13 +1054,121 @@ def check_rmsnorm_group(dev, gen):
                plain_ms=time_ms(lambda: ref.rmsnorm_bwd(x, scale, dy, eps)),
                library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True)))
     bwd["bound_ms"], bwd["bound_by"] = bound(3 * rows * d * 2 + 2 * d * 2, 10 * rows * d)
-    rec = dict(kernel="K7 rmsnorm forward and backward (the rwkv6 group norm)", dtype="bfloat16", rows=rows, d=d,
+    rec = dict(kernel=f"K7 rmsnorm forward and backward ({what})", dtype="bfloat16", rows=rows, d=d,
                max_abs_err=dict(y=float(err.max()), **errs),
-               bound="1 bf16 ulp of plain (forward); + 1e-5*max|plain| (backward)", fwd=fwd, bwd=bwd, ok=ok)
+               bound="1 bf16 ulp of plain (forward); + 1e-5*max|plain| (backward)", deterministic=True, fwd=fwd,
+               bwd=bwd, ok=ok)
     log(json.dumps(rec))
     if not ok:
-        raise AssertionError(f"K7 at the group norm's shape disagrees with plain: {rec}")
+        raise AssertionError(f"K7 at ({rows}, {d}) disagrees with plain (or is not deterministic): {rec}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (e): K11, the Mamba2 SSD chunked scan (forward and backward)
+# ---------------------------------------------------------------------------
+
+# (name, B, S, H, P, G, N, chunk, x/B/C dtype): the reduced zamba2's shape
+# with S 45 (a ragged last chunk) and the zamba2 slice's (full-width
+# zamba2-1.2b at batch 2 x seq 512: d_inner 4096 = 64 heads of 64, state
+# 64, one group, chunk 128); dt and A are f32 in both
+SSD_CASES = [("reduced", 2, 45, 16, 32, 1, 16, 16, "float32"), ("slice", 2, 512, 64, 64, 1, 64, 128, "bfloat16")]
+# stated bounds, max|kernel - plain| / max|plain| (kernels/ssd_scan/ops.py):
+# f32 sums in other orders (y before the D-skip and the states are f32 in
+# both); bf16 inputs: dx, dB, dC rounded once to bf16, where a value near a
+# rounding boundary may round either way; ddt and dA are f32
+SSD_BOUND = {"float32": {"y": 2e-5, "state": 2e-5, "grad": 1e-4, "grad_f32": 1e-4},
+             "bfloat16": {"y": 2e-5, "state": 2e-5, "grad": 2.0**-7, "grad_f32": 1e-4}}
+
+
+def _ssd_work(b, s, h, p, g, n, L, elt):
+    """Bytes, exponentials and flops that the forward and the backward of
+    the function need at these shapes, not what this kernel does: each
+    input read once and each output written once (the forward writes y in
+    x's type and the final state; the backward takes x, dt, A, B, C, dy in
+    x's type and the final state's cotangent, and writes dx, ddt, dA, dB
+    and dC; the chunk states the forward saves for it are this kernel's
+    choice and not counted); the GEMM-shaped products on the causal
+    triangle at the tensor-core rate of the input type (forward C.B^T and
+    G.xbar over L(L+1)/2 pairs a chunk, C.S^T and xbar^T.B; the backward's
+    seven: dy.xbar^T, G^T.dy, dCB.B, dCB^T.C, C.B^T again, and four state
+    products); the pairwise exponentials once on the SFU."""
+    rows, nc, tri = b * h, -(-s // L), L * (L + 1) // 2
+    xio, bcio, dtio, state = b * s * h * p * elt, b * s * g * n * elt, b * s * h * 4, rows * p * n * 4
+    per = rows * nc
+    fwd = dict(bytes=2 * xio + 2 * bcio + dtio + h * 4 + state, exps=per * (tri + 2 * L),
+               tensor_flops=per * (2 * tri * (n + p) + 4 * L * n * p), cuda_flops=per * 6 * L * p)
+    bwd = dict(bytes=3 * xio + 4 * bcio + 2 * dtio + 2 * h * 4 + state, exps=per * (tri + 2 * L),
+               tensor_flops=per * (2 * tri * (2 * p + 3 * n) + 8 * L * n * p), cuda_flops=per * 8 * L * p)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def check_ssd(dev, gen):
+    """K11 forward and the backward kernel against the plain ``ssd_chunked``
+    (y before the D-skip: D = 0, x/B/C read in f32) and torch autograd
+    through it, at the reduced shape (f32) and the slice's (bf16 x/B/C, f32
+    dt and A), with cotangents for y and the final state; the same bits on
+    a second launch; times at the slice's shape beside the plain version
+    and the bound. No single torch call computes the SSD scan."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ops, ref
+
+    worst, timing = {"fwd": 0.0, "bwd": 0.0}, {}
+    for name, b, s, h, p, g, n, chunk, dtype in SSD_CASES:
+        bnd = SSD_BOUND[dtype]
+        dt_ = getattr(torch, dtype)
+        x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dt_)
+        dt = F.softplus(torch.randn(b, s, h, generator=gen, device=dev))  # data only: step sizes near 0.7
+        A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+        B, C = (torch.randn(b, s, g, n, generator=gen, device=dev).to(dt_) for _ in range(2))
+        dy = torch.randn(b, s, h, p, generator=gen, device=dev)
+        dstate = torch.randn(b, h, p, n, generator=gen, device=dev)
+        y, st, states = ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True)
+        grads = ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk)
+        y2, st2, states2 = ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True)
+        same = torch.equal(y, y2) and torch.equal(st, st2) and torch.equal(states, states2) and all(
+            torch.equal(a, c) for a, c in zip(grads, ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk)))
+        ins = [t.detach().clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+        zero_d = torch.zeros(h, device=dev)
+
+        def plain_fwd():
+            return ref.ssd_chunked(ins[0].float(), ins[1], ins[2], ins[3].float(), ins[4].float(), zero_d, chunk=chunk)
+
+        yp, stp = plain_fwd()
+        plain = torch.autograd.grad((yp, stp), ins, (dy, dstate), retain_graph=True)  # kept: timed below
+        errs = dict(y=_rel(y, yp), state=_rel(st, stp), **{f"d{nm}": _rel(gk, pg) for nm, gk, pg in zip(("x", "dt", "A", "B", "C"), grads, plain)})
+        ok = (errs["y"] <= bnd["y"] and errs["state"] <= bnd["state"] and same
+              and all(errs[f"d{nm}"] <= bnd["grad"] for nm in ("x", "B", "C"))
+              and all(errs[f"d{nm}"] <= bnd["grad_f32"] for nm in ("dt", "A"))
+              and all(bool(torch.isfinite(t).all()) for t in (y, st, *grads)))
+        rec = dict(kernel="K11 ssd_scan", case=name, shape=dict(B=b, S=s, H=h, P=p, G=g, N=n, chunk=chunk),
+                   dtype=dtype, dt_dtype="float32", rel_err=errs,
+                   max_abs_err=dict(y=float((y - yp).abs().max()), state=float((st - stp).abs().max()),
+                                    grads=max(float((gk.float() - pg.float()).abs().max()) for gk, pg in zip(grads, plain))),
+                   bound={key: f"max|d|/max|plain| <= {val}" for key, val in bnd.items()}, deterministic=same, ok=ok)
+        worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["y"], rec["max_abs_err"]["state"])
+        worst["bwd"] = max(worst["bwd"], rec["max_abs_err"]["grads"])
+        if name == "slice":
+            work = _ssd_work(b, s, h, p, g, n, chunk, torch.finfo(x.dtype).bits // 8)
+            t = {}
+            with torch.no_grad():
+                t["fwd"] = dict(ms=time_ms(lambda: ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True), 20),
+                                plain_ms=time_ms(plain_fwd, 5))
+            t["bwd"] = dict(ms=time_ms(lambda: ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk), 20),
+                            plain_ms=time_ms(lambda: torch.autograd.grad((yp, stp), ins, (dy, dstate), retain_graph=True), 5))
+            for part in ("fwd", "bwd"):
+                t[part]["bound_ms"], t[part]["bound_by"], t[part]["bound_term"] = _wkv_bound(work[part], dtype)
+                t[part].update(work[part], library_ms=None, library="none (no single torch call computes the SSD scan)")
+            t["plain_note"] = "forward: ssd_chunked under no_grad; backward: torch autograd of it, graph kept"
+            rec["timing"] = timing = t
+        log(json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"K11 ssd_scan kernels disagree with plain (or are not deterministic): {rec}")
+        del x, dt, A, B, C, dy, dstate, y, st, states, grads, ins, yp, stp, plain, y2, st2, states2
+        _free()
+    return worst, timing
 
 
 # ---------------------------------------------------------------------------
@@ -2102,6 +2252,63 @@ def lm_rwkv6_full_width(dev, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 5 (g): the zamba2 LM (K11 forward and backward on every mamba2 layer,
+# K6 at every shared-attention position), full depth
+# ---------------------------------------------------------------------------
+
+
+def zamba2_launches(steps, m, L, buckets, rounds):
+    """The zamba2 LM path's launches: K11 forward and backward once a mamba2
+    layer; K6 forward and both backward kernels once a shared-attention
+    position; K7 forward and backward at each mamba2 layer's ln1 and gated
+    norm, each shared position's ln1 and ln2, and the final norm. The full
+    model's 38 layers: 33 mamba2 and 5 shared positions (i % 7 == 6),
+    counted here by hand, not from the model code."""
+    mamba, shared = 33, 5
+    assert L == mamba + shared, L
+    per = steps * m
+    return dict(ssd_fwd=per * mamba, ssd_bwd=per * mamba, flash_attention_fwd=per * shared,
+                flash_attention_bwd_dq=per * shared, flash_attention_bwd_dkdv=per * shared,
+                rmsnorm=per * (2 * mamba + 2 * shared + 1), rmsnorm_bwd=per * (2 * mamba + 2 * shared + 1),
+                sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
+
+
+def lm_zamba2_card_vs_cpu(dev):
+    """The reduced zamba2-1.2b ([mamba2, shared_attn], d_model 256, SSM heads
+    of 32 with state 16, chunk 16, tied embeddings), f32, seq 128, m = 2, 3
+    rounds on the card (K11, K6, K7 and the training kernels) and on the CPU
+    (plain versions), from the same weights. Bound: per-round losses rtol
+    1e-4, as the qwen2 twin (f32 sums in other orders)."""
+    import numpy as np
+
+    from repro_torch.config import get_arch
+
+    cfg = get_arch("zamba2-1.2b").model.reduced()
+    losses = {}
+    for key, device in (("cuda", dev), ("cpu", "cpu")):
+        losses[key] = np.asarray(_lm_experiment(device, cfg, 2, 128).fit(rounds=LM_ROUNDS).losses)
+    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    rec = dict(check="LM reduced zamba2-1.2b f32, card kernels vs CPU plain", rounds=LM_ROUNDS,
+               losses_card=losses["cuda"].tolist(), losses_cpu=losses["cpu"].tolist(), max_rel_err=rel,
+               bound="rtol 1e-4", ok=rel <= 1e-4)
+    log(json.dumps(rec))
+    if not rec["ok"]:
+        raise AssertionError(f"zamba2 card vs CPU losses: max rel {rel} > 1e-4")
+
+
+def lm_zamba2_full_width(dev, kernels):
+    """Full-width zamba2-1.2b at full depth (38 layers: 33 mamba2 and one
+    shared attention block at 5 positions; d_model 2048, vocab 32000, tied,
+    bf16; 977,005,376 parameters), through ``lm_full_width``: m = 4, batch
+    2 x seq 512, 3 rounds; K11's share of the profiled round."""
+    from repro_torch.config import get_arch
+
+    cfg = get_arch("zamba2-1.2b").model
+    return lm_full_width(dev, kernels, cfg, zamba2_launches,
+                         shares=("ssd_fwd_kernel", "ssd_bwd_kernel", "fa_fwd_kernel", "fa_bwd", "rmsnorm"))
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2143,14 +2350,15 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rms_err, rms_t = check_rmsnorm(dev, gen)
     app_err, app_t = check_paged_append(dev, gen)
-    att_err, att_t, att_g12 = check_paged_attend(dev, gen)
+    att_err, att_t, att_g12, att_d80 = check_paged_attend(dev, gen)
     opt_err, opt_t = check_opt_step(dev, gen)
     mix_err, mix_t = check_anchor_mix(dev, gen)
     probe_err, probe_t = check_consensus_probe(dev, gen)
-    fa_err, fa_t, fa_d80 = check_flash_attention(dev, gen)
+    fa_err, fa_t, fa_cov = check_flash_attention(dev, gen)
     rb_err, rb_t = check_rmsnorm_bwd(dev, gen)
     wkv_err, wkv_t = check_wkv(dev, gen)
-    rms_group = check_rmsnorm_group(dev, gen)
+    rms_shapes = check_rmsnorm_shapes(dev, gen)
+    ssd_err, ssd_t = check_ssd(dev, gen)
 
     # phases 3, 4 and 5: serving, classifier training, LM training
     serving = [k for k in kernels if k.name in ("rmsnorm", "paged_attend", "paged_append")]
@@ -2172,6 +2380,9 @@ def main() -> int:
     lm_rwkv6_card_vs_cpu(dev)
     rwkv = lm_rwkv6_full_width(dev, kernels)
     rwkv["card"] = card
+    lm_zamba2_card_vs_cpu(dev)
+    zamba = lm_zamba2_full_width(dev, kernels)
+    zamba["card"] = card
 
     # phase 6
     launches = dict(summary["launches"])
@@ -2184,11 +2395,15 @@ def main() -> int:
     # kernels on several paths: every path's count (K7's row keeps the serving run's)
     by_path = {k.name: {"serving": summary["launches"].get(k.name, 0),
                         "classifier": runs["overlap_local_sgd"]["launches"].get(k.name, 0),
-                        "lm": lm["launches"][k.name], "lm rwkv6": rwkv["launches"][k.name]} for k in kernels}
+                        "lm": lm["launches"][k.name], "lm rwkv6": rwkv["launches"][k.name],
+                        "lm zamba2": zamba["launches"][k.name]} for k in kernels}
     fa_slice = "bf16 B=2 S=512 H=28 Hkv=4 D=128 causal (the LM slice)"
     wkv_slice = "bf16 r/k/v/u, f32 w: B=2 S=512 H=64 N=P=64 chunk 32 (the rwkv6 slice)"
+    ssd_slice = "bf16 x/B/C, f32 dt and A: B=2 S=512 H=64 P=N=64 G=1 chunk 128 (the zamba2 slice)"
     for name in ("wkv_fwd", "wkv_bwd"):
         launches[name] = rwkv["launches"][name]
+    for name in ("ssd_fwd", "ssd_bwd"):
+        launches[name] = zamba["launches"][name]
     rows = [
         ("rmsnorm", "rmsnorm", "K7 rmsnorm_2d", "src/repro/kernels/rmsnorm/kernel.py:26", rms_err, rms_t[4],
          "bf16 rows=4 d=3584 (decode)", None),
@@ -2219,6 +2434,10 @@ def main() -> int:
          wkv_t["fwd"], wkv_slice, None),
         ("wkv_bwd", "rwkv6_wkv", "K12 backward (new; the reference differentiates a jnp recompute, ops.py:43-50)",
          "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["bwd"], wkv_t["bwd"], wkv_slice, None),
+        ("ssd_fwd", "ssd_scan", "K11 ssd_scan_bh (forward)", "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["fwd"],
+         ssd_t["fwd"], ssd_slice, None),
+        ("ssd_bwd", "ssd_scan", "K11 backward (new; the reference differentiates a jnp recompute, ops.py:52-57)",
+         "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["bwd"], ssd_t["bwd"], ssd_slice, None),
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k5 = mix_t["K5"]
@@ -2276,23 +2495,32 @@ def main() -> int:
             entry["copy_ms"], entry["large"]["copy_ms"] = t["copy_ms"], large["copy_ms"]
             entry["bf16"] = {sh: {k: k5[(sh, "bfloat16")][k] for k in keys + ("copy_ms",)} for sh in ("slice", "large")}
             entry["library"] = t["library"]
-        elif name in by_path and any(by_path[name][p] for p in ("serving", "classifier")) and any(
-                by_path[name][p] for p in ("lm", "lm rwkv6")):
+        elif name in by_path and any(by_path[name][p] for p in ("serving", "classifier", "lm")) and any(
+                by_path[name][p] for p in ("lm rwkv6", "lm zamba2")):
             entry["launches_by_path"] = by_path[name]
         if name.startswith("wkv_"):
             entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
             entry["reduced"] = "f32 B=2 S=45 H=4 N=P=32 chunk 16: checked, not timed"
+        if name.startswith("ssd_"):
+            entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
+            entry["reduced"] = "f32 B=2 S=45 H=16 P=32 G=1 N=16 chunk 16: checked, not timed"
         if name.startswith("flash_attention"):  # h2o-danube-1.8b's head_dim 80 (ROADMAP Queue 3 item 1)
             part = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq", "flash_attention_bwd_dkdv": "dkdv"}[name]
-            entry["head_dim_80"] = dict(shape="bf16 B=2 S=512 H=32 Hkv=8 D=80 causal", rel_err=fa_d80,
+            entry["head_dim_80"] = dict(shape="bf16 B=2 S=512 H=32 Hkv=8 D=80 causal", rel_err=fa_cov["danube"],
                                         **{k: fa_t["danube"][part][k] for k in keys})
+            entry["zamba2"] = dict(shape="bf16 B=2 S=512 H=32 Hkv=32 D=64 causal window 4096 (the zamba2 shared block)",
+                                   rel_err=fa_cov["zamba2"], **{k: fa_t["zamba2"][part][k] for k in keys})
         if name == "paged_attend":  # mistral-large's group of 12 (the group-capacity-16 instance)
             entry["group_12"] = dict(shape="bf16 S=4 KV=8 G=12 D=128", max_abs_err=att_g12["max_abs_err"],
                                      **{k: att_g12[k] for k in keys})
-        if name in ("rmsnorm", "rmsnorm_bwd"):  # the rwkv6 group norm's rows
-            entry["group_norm"] = dict(shape="bf16 rows=65536 d=64 (the rwkv6 group norm)",
-                                       max_abs_err=rms_group["max_abs_err"],
-                                       **{k: rms_group["fwd" if name == "rmsnorm" else "bwd"][k] for k in keys})
+            # h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV heads)
+            entry["head_dim_80"] = dict(shape="bf16 S=4 KV=8 G=4 D=80", max_abs_err=att_d80["max_abs_err"],
+                                        f32_max_abs_err=att_d80["f32_max_abs_err"], **{k: att_d80[k] for k in keys})
+        if name in ("rmsnorm", "rmsnorm_bwd"):  # the rwkv6 group norm's rows, zamba2's two widths
+            for key, rows_, d_, what in RMS_SHAPES:
+                rec_ = rms_shapes[key]
+                entry[key] = dict(shape=f"bf16 rows={rows_} d={d_} ({what})", max_abs_err=rec_["max_abs_err"],
+                                  **{k: rec_["fwd" if name == "rmsnorm" else "bwd"][k] for k in keys})
             entry["launches_by_path"] = by_path[name]
         out.append(entry)
     out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys})

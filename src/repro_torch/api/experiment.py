@@ -36,10 +36,11 @@ from the anchor first); the two compose, fault rounds becoming
 losses (with the probe's two scalars when there is a controller) in one
 copy.
 
-LM archs: the GQA text archs (qwen2-7b) and rwkv6-7b (K12 WKV on the
-card). Not here yet (each raises): ``serve()`` (item 7) and the archs
-``_check_supported`` rejects (MoE, MLA, frontends: item 8; mamba2 and
-zamba2: item 8b); the strategies (every name and alias of the reference)
+LM archs: the GQA text archs (qwen2-7b), rwkv6-7b (K12 WKV on the card)
+and zamba2-1.2b (mamba2 with one shared attention block and tied
+embeddings: K11 SSD scan and K6 on the card). Not here yet (each raises):
+``serve()`` (item 7) and the archs ``_check_supported`` rejects (MoE, MLA,
+frontends: item 8); the strategies (every name and alias of the reference)
 raise for ``AlgoConfig.packed=False`` (item 4b) and ``AlgoConfig.offload``
 (item 9).
 """

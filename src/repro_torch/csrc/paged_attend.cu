@@ -9,7 +9,8 @@
 // k > lengths[s] - w. Scores, softmax statistics and the accumulator are
 // float32; the output is divided by max(l, 1e-30) and rounded once to q's
 // type. The TPU padding of G to 8 and D to 128 (paged_attn/ops.py) is not
-// carried over: G = 7 and D = 128 are handled as they are.
+// carried over: G = 7, D = 128 and D = 80 (h2o-danube-1.8b) are handled as
+// they are.
 //
 // What bounds it on the H100: bytes. Each (slot, kv head) reads its visible
 // keys and values once (2 * len * D elements) and does 4 * G * D flops per
@@ -25,10 +26,13 @@
 // prefetch) and walks only the visible positions, not all maxp pages. The
 // G query rows sit in shared memory as float32. Each warp takes tiles of 32
 // consecutive positions (tiles interleaved across the warps): lane j scores
-// position j of the tile against all G rows from its own K row, the tile's
-// max and sum come from a fixed butterfly of shuffles, and then every lane
-// accumulates its D/32 columns of p @ V over the tile's positions, each V row
-// read by the whole warp at once, eight rows' loads in flight together. The
+// position j of the tile against all G rows from its own K row (32 columns
+// at a time, then a 16-column tail where D is not a multiple of 32), the
+// tile's max and sum come from a fixed butterfly of shuffles, and then every
+// lane accumulates its ceil(D/32) columns of p @ V over the tile's positions
+// (for D = 80, three each: lanes 0-25 own 78 columns, lane 26 the last two,
+// lanes 27-31 none), each V row read by the whole warp at once, eight rows'
+// loads in flight together. The
 // online softmax therefore rescales once per tile of 32 positions (the
 // Pallas body rescales once per page). The warps' (m, l, acc) partials are
 // merged in shared memory in warp order, with
@@ -49,17 +53,18 @@ constexpr int kGroupMax = 16;
 constexpr int kStaticSmem = 48 * 1024;
 // static shared memory of a block: the G query rows, the warps' (m, l) and
 // their accumulators (warps x GM x D floats)
-__host__ __device__ constexpr int smem_bytes(int gm, int vpl, int warps) {
-  return 4 * (gm * vpl * 32 + 2 * warps * gm + warps * gm * vpl * 32);
+__host__ __device__ constexpr int smem_bytes(int gm, int d, int warps) {
+  return 4 * (gm * d + 2 * warps * gm + warps * gm * d);
 }
 // warps per block: the most of 8, 4, 2, 1 whose buffers fit static shared memory
-__host__ __device__ constexpr int warps_for(int vpl, int gm) {
-  return smem_bytes(gm, vpl, 8) <= kStaticSmem ? 8
-         : smem_bytes(gm, vpl, 4) <= kStaticSmem ? 4
-         : smem_bytes(gm, vpl, 2) <= kStaticSmem ? 2 : 1;
+__host__ __device__ constexpr int warps_for(int d, int gm) {
+  return smem_bytes(gm, d, 8) <= kStaticSmem ? 8
+         : smem_bytes(gm, d, 4) <= kStaticSmem ? 4
+         : smem_bytes(gm, d, 2) <= kStaticSmem ? 2 : 1;
 }
-static_assert(warps_for(4, 8) == 8 && warps_for(8, 8) == 4, "G <= 8 keeps its block sizes");
-static_assert(smem_bytes(16, 8, warps_for(8, 16)) <= kStaticSmem, "G 16, D 256 fits static shared memory");
+static_assert(warps_for(128, 8) == 8 && warps_for(256, 8) == 4, "G <= 8 keeps its block sizes");
+static_assert(smem_bytes(16, 256, warps_for(256, 16)) <= kStaticSmem, "G 16, D 256 fits static shared memory");
+static_assert(warps_for(80, 8) == 8 && warps_for(80, 16) == 8, "D 80 runs eight warps");
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -109,14 +114,15 @@ __device__ __forceinline__ void load_f(const T* __restrict__ p, float* out) {
   }
 }
 
-template <typename T, int VPL, int kGMax>
-__global__ void __launch_bounds__(warps_for(VPL, kGMax) * 32)
+template <typename T, int D, int kGMax>
+__global__ void __launch_bounds__(warps_for(D, kGMax) * 32)
 paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
                     const T* __restrict__ pool_v, const int* __restrict__ pt,
                     const int* __restrict__ lengths, T* __restrict__ out, int KV, int G, int maxp,
                     int page, int num_pages, int window) {
-  constexpr int D = VPL * 32;
-  constexpr int kWarps = warps_for(VPL, kGMax);
+  static_assert(D % 16 == 0, "the Q.K loop steps 32 columns, then a 16-column tail");
+  constexpr int VPL = (D + 31) / 32;  // columns a lane owns in p @ V; the last lanes own fewer where D % 32 != 0
+  constexpr int kWarps = warps_for(D, kGMax);
   constexpr int kBatch = 8;  // V rows loaded together in p @ V
   __shared__ __align__(16) float sq[kGMax][D];
   __shared__ float sm_m[kWarps][kGMax];
@@ -157,7 +163,7 @@ paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     if (row >= 0) {
       const T* kr = pool_k + row;
 #pragma unroll 2
-      for (int d0 = 0; d0 < D; d0 += 32) {  // 32 elements of the K row in flight
+      for (int d0 = 0; d0 + 32 <= D; d0 += 32) {  // 32 elements of the K row in flight
         float kf[32];
         load_f<T, 32>(kr + d0, kf);
 #pragma unroll
@@ -165,6 +171,18 @@ paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
           if (g < G) {
 #pragma unroll
             for (int i = 0; i < 32; ++i) sc[g] += sq[g][d0 + i] * kf[i];
+          }
+        }
+      }
+      if constexpr (D % 32 != 0) {  // the last 16 columns, in the same order
+        constexpr int d0 = D - 16;
+        float kf[16];
+        load_f<T, 16>(kr + d0, kf);
+#pragma unroll
+        for (int g = 0; g < kGMax; ++g) {
+          if (g < G) {
+#pragma unroll
+            for (int i = 0; i < 16; ++i) sc[g] += sq[g][d0 + i] * kf[i];
           }
         }
       }
@@ -194,8 +212,11 @@ paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const long long rj = __shfl_sync(kFull, row, j0 + u);
-        if (rj >= 0) {
+        if (rj >= 0 && D % 32 == 0) {
           load_f<T, VPL>(pool_v + rj + lane * VPL, vf[u]);
+        } else if (rj >= 0) {  // a lane's columns past D read as zero
+#pragma unroll
+          for (int i = 0; i < VPL; ++i) vf[u][i] = lane * VPL + i < D ? to_f(pool_v[rj + lane * VPL + i]) : 0.f;
         } else {
 #pragma unroll
           for (int i = 0; i < VPL; ++i) vf[u][i] = 0.f;
@@ -223,7 +244,8 @@ paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
         sm_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int i = 0; i < VPL; ++i) sm_acc[warp][g][lane * VPL + i] = acc[g][i];
+      for (int i = 0; i < VPL; ++i)
+        if (lane * VPL + i < D) sm_acc[warp][g][lane * VPL + i] = acc[g][i];
     }
   }
   __syncthreads();
@@ -246,10 +268,10 @@ paged_attend_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-template <typename T, int VPL, int GM>
+template <typename T, int D, int GM>
 void launch_one(const T* q, const T* pk, const T* pv, const int* pt, const int* ln, T* out, int S, int KV, int G,
                 int maxp, int page, int num_pages, int window, cudaStream_t st) {
-  paged_attend_kernel<T, VPL, GM><<<dim3(S, KV), warps_for(VPL, GM) * 32, 0, st>>>(
+  paged_attend_kernel<T, D, GM><<<dim3(S, KV), warps_for(D, GM) * 32, 0, st>>>(
       q, pk, pv, pt, ln, out, KV, G, maxp, page, num_pages, window);
 }
 
@@ -262,16 +284,19 @@ int launch_group(const void* q, const void* pk, const void* pv, const int* pt, c
   T* oo = static_cast<T*>(out);
   switch (D) {
     case 32:
-      launch_one<T, 1, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
+      launch_one<T, 32, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
       break;
     case 64:
-      launch_one<T, 2, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
+      launch_one<T, 64, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
+      break;
+    case 80:
+      launch_one<T, 80, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
       break;
     case 128:
-      launch_one<T, 4, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
+      launch_one<T, 128, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
       break;
     case 256:
-      launch_one<T, 8, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
+      launch_one<T, 256, GM>(qq, kk, vv, pt, ln, oo, S, KV, G, maxp, page, num_pages, window, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -292,7 +317,7 @@ int launch(const void* q, const void* pk, const void* pv, const int* pt, const i
 // q, out: (S, KV, G, D); pool_k, pool_v: (num_pages, page, KV, D), all contiguous,
 // 16-byte aligned and of one element type (dtype 0 = float32, 1 = bfloat16);
 // page_tables (S, maxp) and lengths (S,) int32. window <= 0 means no window.
-// Requires G <= 16 and D in {32, 64, 128, 256}.
+// Requires G <= 16 and D in {32, 64, 80, 128, 256}.
 extern "C" int paged_attend_launch(const void* q, const void* pool_k, const void* pool_v,
                                    const void* page_tables, const void* lengths, void* out, int S,
                                    int KV, int G, int D, int maxp, int page, int num_pages,

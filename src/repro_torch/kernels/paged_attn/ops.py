@@ -29,18 +29,17 @@ ATTEND = Kernel(
     "paged_attend", {"paged_attend_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]}
 )
 GROUP_MAX = 16  # query heads per KV head the decode kernel takes (mistral-large's 12 among them)
-HEAD_DIMS = (32, 64, 128, 256)  # a lane owns head_dim / 32 columns
+HEAD_DIMS = (32, 64, 80, 128, 256)  # a lane owns ceil(head_dim / 32) columns, the last lanes fewer at 80
 
 
 def check_decode_shape(group: int, head_dim: int) -> None:
     """Raise unless the decode kernel takes this GQA group and head dim. The
     engine calls it before it allocates any pool, on every device, so the
-    CPU and the card refuse the same configs (h2o-danube-1.8b's head_dim 80
-    among them: a lane layout for a head dim that is not a multiple of 32
-    is ROADMAP Queue 3 item 1)."""
+    CPU and the card refuse the same configs: a group above 16, or a head
+    dim the kernel has no instance for."""
     if not 1 <= group <= GROUP_MAX or head_dim not in HEAD_DIMS:
         raise NotImplementedError(f"the paged decode kernel takes a GQA group of 1..{GROUP_MAX} and head_dim in "
-                                  f"{HEAD_DIMS}, got group {group}, head_dim {head_dim} (ROADMAP Queue 3 item 1)")
+                                  f"{HEAD_DIMS}, got group {group}, head_dim {head_dim}")
 
 
 def _check_tables(page_tables: torch.Tensor, lengths: torch.Tensor, slots: int, device) -> None:

@@ -5,8 +5,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --rounds 20 \
         [--algo overlap_local_sgd] [--tau 2] [--alpha 0.6] [--workers 4] [--full]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --rounds 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --full --rounds 3 --seq 512
 
-Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
+``--arch`` takes every ported arch (qwen2-7b, rwkv6-7b, zamba2-1.2b),
+reduced unless ``--full`` is given. Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
 strategy of the reference and its aliases (``dasgd``, ``loscar``,
 ``overlap``, ``sgp``); ``--ckpt`` needs the checkpointer (ROADMAP Queue 1
 item 6b) and raises.

@@ -10,13 +10,18 @@ how the training loop hands each layer its own gradient window; see
 :func:`split_layers`).
 
 Ported for ``"attn"`` segments of GQA text archs (pre-norm RMSNorm blocks
-with SwiGLU) and ``"rwkv6"`` segments (RMSNorm, RWKV-6 time-mix and
-channel-mix): ``segments``, ``init_model``, ``apply_model`` in
-``mode="train"`` (the LM training path: K6 attention or K12 WKV, K7 norms)
-and, for attention, in ``mode="decode"`` with ``paged=`` (the serving
-path), ``softmax_xent`` and ``lm_loss``. MoE, MLA, frontends and MTP
-(ROADMAP Queue 1 item 8), mamba2 and shared attention (item 8b), prefill
-caches and dense decode (item 7) raise here.
+with SwiGLU), ``"rwkv6"`` segments (RMSNorm, RWKV-6 time-mix and
+channel-mix), ``"mamba2"`` segments (RMSNorm, the Mamba2 SSD block) and
+``"shared_attn"`` positions, where the one weight-shared attention block of
+the top-level ``shared_block`` scope is applied (zamba2; it owns no
+``seg{i}`` parameters, so the ``seg{i}`` keys have gaps, and its gradient
+sums every position's), with tied embeddings (the head is
+``hidden @ tok_emb.T`` and there is no ``head`` leaf): ``segments``,
+``init_model``, ``apply_model`` in ``mode="train"`` (the LM training path:
+K6 attention, K12 WKV or K11 SSD scan, K7 norms) and, for attention-only
+archs, in ``mode="decode"`` with ``paged=`` (the serving path),
+``softmax_xent`` and ``lm_loss``. MoE, MLA, frontends and MTP (ROADMAP
+Queue 1 item 8), prefill caches and dense decode (item 7) raise here.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import params as P
 from repro_torch.models.layers import attention as attn_mod
+from repro_torch.models.layers import mamba2 as mamba_mod
 from repro_torch.models.layers import mlp as mlp_mod
 from repro_torch.models.layers import rope as rope_mod
 from repro_torch.models.layers import rwkv6 as rwkv_mod
@@ -45,26 +51,29 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 ITEM8 = "ROADMAP Queue 1 item 8"
-ITEM8B = "ROADMAP Queue 1 item 8b"
+_SSM_KINDS = ("rwkv6", "mamba2")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise unless the port runs ``cfg``: a text arch whose segments are all
-    ``"attn"`` (GQA, SiLU, untied) or all ``"rwkv6"`` (no attention, untied)."""
+    """Raise unless the port runs ``cfg``: a text arch whose segments are
+    ``"attn"`` (GQA, SiLU), ``"rwkv6"``, ``"mamba2"`` or ``"shared_attn"``
+    (with ``shared_attn_every`` set), the recurrent segments taking the
+    ``ssm.kind`` of their name; tied or untied embeddings."""
     if cfg.frontend is not None or cfg.moe is not None or cfg.mtp_depth:
         raise NotImplementedError(f"{cfg.name}: frontends, MoE and multi-token prediction are {ITEM8}")
     kinds = {kind for kind, _ in segments(cfg)}
-    if kinds & {"mamba2", "shared_attn"}:
-        raise NotImplementedError(f"{cfg.name}: mamba2 and shared-attention segments are {ITEM8B}")
-    if cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: tied embeddings are {ITEM8}")
-    if kinds == {"rwkv6"}:
-        if cfg.attention is not None or cfg.ssm is None or cfg.ssm.kind != "rwkv6":
-            raise NotImplementedError(f"{cfg.name}: rwkv6 segments take ssm.kind 'rwkv6' and no attention ({ITEM8})")
+    other = kinds - {"attn", "shared_attn", *_SSM_KINDS}
+    if other:
+        raise NotImplementedError(f"{cfg.name}: segment kinds {sorted(other)} are {ITEM8}")
+    for kind in kinds & set(_SSM_KINDS):
+        if cfg.ssm is None or cfg.ssm.kind != kind:
+            raise NotImplementedError(f"{cfg.name}: {kind} segments take ssm.kind {kind!r} ({ITEM8})")
+    if "shared_attn" in kinds and not cfg.shared_attn_every:
+        raise ValueError(f"{cfg.name}: shared_attn positions need shared_attn_every (the shared_block scope)")
+    if not kinds & {"attn", "shared_attn"}:
+        if cfg.attention is not None:
+            raise NotImplementedError(f"{cfg.name}: attention config without attention segments ({ITEM8})")
         return
-    if kinds != {"attn"}:
-        raise NotImplementedError(f"{cfg.name}: segment kinds {sorted(kinds)}; the port covers all-'attn' and "
-                                  f"all-'rwkv6' archs ({ITEM8})")
     a = cfg.attention
     if a is None or a.kind != "gqa" or a.rope == "mrope":
         raise NotImplementedError(f"{cfg.name}: the port covers GQA text archs; MLA and M-RoPE are {ITEM8}")
@@ -74,7 +83,7 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 def _init_block(b, cfg: ModelConfig, kind: str):
     d = cfg.d_model
-    if kind == "attn":
+    if kind in ("attn", "shared_attn"):
         init_rmsnorm(b, "ln1", d)
         attn_mod.init_gqa(b, "attn", d, cfg.attention)
         init_rmsnorm(b, "ln2", d)
@@ -84,21 +93,32 @@ def _init_block(b, cfg: ModelConfig, kind: str):
         init_rmsnorm(b, "ln2", d)
         rwkv_mod.init_rwkv6(b, "tm", d, cfg.ssm)
         rwkv_mod.init_rwkv6_ffn(b, "cm", d, cfg.d_ff)
+    elif kind == "mamba2":
+        init_rmsnorm(b, "ln1", d)
+        mamba_mod.init_mamba2(b, "block", d, cfg.ssm)
     else:
         raise ValueError(kind)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu") -> dict:
     """Parameters as nested dicts of tensors on ``device``, each stacked
-    segment under ``seg{i}`` with a leading layer axis."""
+    segment under ``seg{i}`` with a leading layer axis, the shared attention
+    block (if any) under ``shared_block``, and no ``head`` when the
+    embeddings are tied."""
     _check_supported(cfg)
     b = P.Builder(generator, cfg.param_dtype, device)
     d = cfg.d_model
     b.param("tok_emb", (cfg.vocab_size, d), init="normal")
     init_rmsnorm(b, "final_norm", d)
-    b.param("head", (d, cfg.vocab_size))
+    if not cfg.tie_embeddings:
+        b.param("head", (d, cfg.vocab_size))
+    if cfg.shared_attn_every:
+        with b.scope("shared_block"):
+            _init_block(b, cfg, "shared_attn")
     params = b.params
     for si, (kind, n) in enumerate(segments(cfg)):
+        if kind == "shared_attn":
+            continue
         sb = P.Builder(generator, cfg.param_dtype, device, lead=(n,))
         _init_block(sb, cfg, kind)
         params[f"seg{si}"] = sb.params
@@ -129,6 +149,10 @@ def _apply_block(cfg: ModelConfig, kind: str, prm, x, cos, sin, *, mode, cache, 
         h2 = rmsnorm(prm["ln2"], x, eps)
         y2, _ = rwkv_mod.rwkv6_channelmix_apply(prm["tm"], prm["cm"], h2, cache=cache)
         return x + y2
+    if kind == "mamba2":
+        h = rmsnorm(prm["ln1"], x, eps)
+        y, _ = mamba_mod.mamba2_apply(prm["block"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
+        return x + y
     h = rmsnorm(prm["ln1"], x, eps)
     y, cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, mode=mode, cache=cache, paged=paged)
     x = x + y
@@ -153,7 +177,8 @@ def _rope_for(cfg: ModelConfig, inputs, batch: int, seq: int, offset=0):
 
 
 def _head(cfg: ModelConfig, params, hidden):
-    return (hidden @ params["head"]) * cfg.logit_scale
+    w = params["tok_emb"].T if cfg.tie_embeddings else params["head"]
+    return (hidden @ w) * cfg.logit_scale
 
 
 def apply_model(
@@ -177,6 +202,11 @@ def apply_model(
     cos, sin = _rope_for(cfg, inputs, b_, s)
     eps = cfg.norm_eps
     for si, (kind, n) in enumerate(segments(cfg)):
+        if kind == "shared_attn":  # the one shared block, at every shared_attn position
+            cache = caches.get(f"seg{si}") if caches else None
+            x = _apply_block(cfg, kind, params["shared_block"], x, cos, sin, mode=mode, cache=cache, eps=eps,
+                             paged=paged)
+            continue
         seg_params = params[f"seg{si}"]
         seg_cache = caches[f"seg{si}"] if caches else None
         for i in range(n):

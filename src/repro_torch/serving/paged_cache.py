@@ -29,17 +29,17 @@ def _paged_refusal(cfg: ModelConfig) -> Optional[Exception]:
     """None where the port pages ``cfg``, else the error that says why not.
     The port pages GQA text archs whose every segment is ``"attn"``. The
     reference also pages MLA and MoE archs; those come to the port with
-    their model code. An attention-free (recurrent) arch such as rwkv6 has
-    no KV cache to page: the reference serves it by dense decode, ROADMAP
-    Queue 1 item 7."""
-    from repro_torch.models.transformer import _check_supported
+    their model code. A recurrent or hybrid arch (rwkv6, zamba2's mamba2
+    segments) keeps an O(1) state, not a KV cache to page: the reference
+    serves it by dense decode, ROADMAP Queue 1 item 7."""
+    from repro_torch.models.transformer import _check_supported, segments
 
     refused = ValueError(f"{getattr(cfg, 'name', cfg)}: the port pages GQA attention-only text archs")
     if cfg is None:
         return refused
-    if cfg.attention is None:
-        return NotImplementedError(f"{cfg.name}: a recurrent arch is served by dense decode, not paged; the dense "
-                                   "path is ROADMAP Queue 1 item 7")
+    if cfg.attention is None or any(kind != "attn" for kind, _ in segments(cfg)):
+        return NotImplementedError(f"{cfg.name}: a recurrent or hybrid arch is served by dense decode, not paged; "
+                                   "the dense path is ROADMAP Queue 1 item 7")
     try:
         _check_supported(cfg)
     except NotImplementedError:

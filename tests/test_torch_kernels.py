@@ -34,7 +34,11 @@ bits on every run. The probe's CPU tests against the JAX package are in
 ``tests/test_torch_rwkv6.py``. On the card K12 and its backward kernel are
 held against the plain ``wkv_chunked`` and its torch autograd (f32 2e-5 for
 y and the state, 1e-4 for the gradients; bf16 2^-7 and 2^-5), K6 also at
-head_dim 80, K9 also at a GQA group of 12.
+head_dim 80, K9 also at a GQA group of 12 and at head_dim 80. K11 and its
+backward kernel are held against the plain ``ssd_chunked`` and its torch
+autograd (f32 2e-5 for y and the state, 1e-4 for the gradients; bf16 x/B/C
+2^-7 for dx, dB, dC); their CPU tests against the JAX package are in
+``tests/test_torch_zamba2.py``.
 """
 import functools
 import importlib
@@ -59,6 +63,8 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm import ref as rms_ref
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -614,6 +620,10 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     wr = _t(rng.normal(size=(1, 5, 2, 4)).astype(np.float32)).requires_grad_(True)
     y, st = wkv_ops.wkv(wr, wr, wr, torch.sigmoid(wr), wr[0, 0], chunk=4)
     (y.sum() + st.sum()).backward()
+    sx = _t(rng.normal(size=(1, 10, 2, 4)).astype(np.float32)).requires_grad_(True)
+    sb = _t(rng.normal(size=(1, 10, 1, 3)).astype(np.float32)).requires_grad_(True)
+    y, st = ssd_ops.ssd_scan(sx, torch.sigmoid(sx[..., 0]), -torch.ones(2), sb, sb, torch.ones(2), chunk=4)
+    (y.sum() + st.sum()).backward()
     assert {k.name: k.launches for k in all_kernels()} == before
     assert all(k._lib is None for k in all_kernels())
 
@@ -906,3 +916,74 @@ def test_wkv_kernels_vs_plain_on_card(cuda, case):
     got = torch.autograd.grad((ya, sa), ins, (dy, dstate))
     assert (wkv_ops.FWD.launches, wkv_ops.BWD.launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(ya, y) and all(torch.equal(a, c) for a, c in zip(got, grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attend_kernel_head_dim_80_on_card(cuda, dtype):
+    """h2o-danube-1.8b's decode attention (32 heads over 8 KV heads, G 4,
+    head_dim 80: lanes own three columns, the last lanes fewer, and the Q.K
+    loop ends on a 16-column tail); bounds as chip_smoke.py states them: f32
+    1e-5 absolute, bf16 2^-8·|plain| + 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    pk, pv = (torch.randn(129, 16, 8, 80, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    pt = (torch.randperm(128, generator=gen, device=cuda).to(torch.int32) + 1).reshape(4, 32).contiguous()
+    pt[0] = 0
+    lens = torch.tensor([0, 17, 300, 511], dtype=torch.int32, device=cuda)
+    q = (torch.randn(4, 8, 4, 80, generator=gen, device=cuda) / 80**0.5).to(dtype)
+    for window in (None, 64):
+        got = pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=window)
+        want = pa_ref.paged_attend_gqa(q.reshape(4, 1, 32, 80), pk, pv, pt, lens, window=window).reshape(4, 8, 4, 80)
+        lim = 2.0**-8 * want.abs() + 1e-5 if dtype == torch.bfloat16 else torch.full_like(want, 1e-5)
+        assert bool(((got.float() - want).abs() <= lim).all())
+
+
+# (B, S, H, P, G, N, chunk, x/B/C dtype): the reduced zamba2's SSM shape with a
+# ragged last chunk, and the zamba2 slice's; dt and A are f32 in both
+SSD_CARD = [(2, 45, 16, 32, 1, 16, 16, torch.float32), (2, 512, 64, 64, 1, 64, 128, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CARD, ids=["reduced", "slice"])
+def test_ssd_kernels_vs_plain_on_card(cuda, case):
+    """K11 forward and the backward kernel against the plain ``ssd_chunked``
+    (y before the D-skip: D = 0, x/B/C read in f32) and torch autograd
+    through it, with cotangents for y and the final state; bounds as
+    chip_smoke.py states them (max|Δ| / max|plain|): f32 2e-5 for y and the
+    state, 1e-4 for each gradient; bf16 inputs the same for the f32 y and
+    state, 2^-7 for dx, dB and dC (rounded once to bf16) and 1e-4 for the
+    f32 ddt and dA. The same bits on a second launch; the autograd Function
+    counts one launch of each."""
+    b, s, h, p, g, n, chunk, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, generator=gen, device=cuda))
+    A = -torch.exp(0.5 * torch.randn(h, generator=gen, device=cuda))
+    B, C = (torch.randn(b, s, g, n, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    dy = torch.randn(b, s, h, p, generator=gen, device=cuda)
+    dstate = torch.randn(b, h, p, n, generator=gen, device=cuda)
+    y, st, states = ssd_ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True)
+    grads = ssd_ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk)
+    ins = [t.detach().clone().requires_grad_(True) for t in (x, dt, A, B, C)]
+    yp, stp = ssd_ref.ssd_chunked(ins[0].float(), ins[1], ins[2], ins[3].float(), ins[4].float(),
+                                  torch.zeros(h, device=cuda), chunk=chunk)
+    plain = torch.autograd.grad((yp, stp), ins, (dy, dstate))
+    f32 = dtype == torch.float32
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    assert rel(y, yp) <= 2e-5 and rel(st, stp) <= 2e-5
+    for name, gk, pg in zip(("x", "dt", "A", "B", "C"), grads, plain):
+        bound = 1e-4 if f32 or name in ("dt", "A") else 2.0**-7
+        assert gk.dtype == pg.dtype and rel(gk, pg) <= bound, (name, rel(gk, pg))
+    again = ssd_ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk)
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    assert torch.equal(ssd_ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk)[0], y)
+    before = (ssd_ops.FWD.launches, ssd_ops.BWD.launches)
+    D = torch.zeros(h, device=cuda)
+    ya, sa = ssd_ops.ssd_scan(*ins, D, chunk=chunk)
+    got = torch.autograd.grad((ya, sa), ins, (dy.to(dtype), dstate))
+    assert (ssd_ops.FWD.launches, ssd_ops.BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(ya, y.to(dtype)) and torch.equal(sa, st)
+    assert all(rel(a, c) <= 2.0**-7 for a, c in zip(got, grads))

@@ -32,15 +32,18 @@ from repro.config import get_arch as jax_get_arch
 from repro.data import loaders as jloaders
 from repro.kernels import flags as jflags
 from repro.kernels.rwkv6_wkv import ops as jwkv_ops
+from repro.kernels.paged_attn import ref as jpa_ref
 from repro.kernels.rwkv6_wkv import ref as jwkv_ref
 from repro.models import params as JP
 from repro.models import transformer as JT
 from repro.models.layers import rwkv6 as jrwkv
 from repro.optim import schedules as jsched
+from repro.serving import BatchedEngine as JaxEngine
 from repro_torch import interop
 from repro_torch.api import Experiment, TokenStream
 from repro_torch.config import AlgoConfig, AttentionConfig, ModelConfig, OptimizerConfig, SSMConfig, get_arch
 from repro_torch.data import loaders
+from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
 from repro_torch.kernels.rwkv6_wkv import ref as wkv_ref
 from repro_torch.launch import train as train_cli
@@ -487,25 +490,78 @@ def _port_model(jcfg) -> ModelConfig:
 
 
 def test_what_the_slice_does_not_cover_raises_with_its_roadmap_item():
-    """zamba2 (mamba2 + shared attention) names item 8b; the engine refuses a
-    recurrent arch naming item 7 (the dense decode path), and a head dim or
-    GQA group its decode kernel does not take naming Queue 3 item 1, before
+    """The engine refuses a recurrent or hybrid arch (rwkv6; zamba2, whose
+    mamba2 segments keep an O(1) state) naming item 7 (the dense decode
+    path), and a GQA group its decode kernel does not take (over 16), before
     it allocates any pool."""
-    zamba = _port_model(jax_get_arch("zamba2-1.2b").model.reduced())
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        Experiment(arch=zamba, device="cpu").build()
     _, tcfg = _cfgs()
     assert not paged_supported(tcfg) and paged_supported(get_arch("qwen2-7b").model.reduced())
     params = T.init_model(tcfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="item 7"):
         BatchedEngine(tcfg, params, device="cpu")
-    danube = _port_model(jax_get_arch("h2o-danube-1.8b").model)
-    danube_r = dataclasses.replace(danube.reduced(), attention=dataclasses.replace(danube.reduced().attention,
-                                                                                  head_dim=80))
-    params = T.init_model(danube_r, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="Queue 3 item 1"):
-        BatchedEngine(danube_r, params, device="cpu")
+    zamba = get_arch("zamba2-1.2b").model.reduced()
+    assert not paged_supported(zamba)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        BatchedEngine(zamba, T.init_model(zamba, torch.Generator().manual_seed(0)), device="cpu")
     qcfg = get_arch("qwen2-7b").model.reduced()
     wide = dataclasses.replace(qcfg, attention=dataclasses.replace(qcfg.attention, num_heads=17, num_kv_heads=1))
-    with pytest.raises(NotImplementedError, match="Queue 3 item 1"):
+    with pytest.raises(NotImplementedError, match="GQA group of 1..16"):
         BatchedEngine(wide, T.init_model(wide, torch.Generator().manual_seed(0)), device="cpu")
+
+
+# -- paged decode at head_dim 80 (h2o-danube-1.8b) -------------------------------
+
+
+@pytest.mark.parametrize("window", [None, 10])
+@pytest.mark.parametrize("g", [1, 4])
+def test_paged_decode_at_head_dim_80_matches_jax(rng, g, window):
+    """One token per slot against the pool at h2o-danube-1.8b's head_dim 80:
+    the port's decode path (on the CPU its plain version, the decode
+    kernel's reference) against the reference's ``paged_attend_gqa``, f32:
+    the reference's own kernel tolerance, 2e-6 (online vs two-pass softmax;
+    observed ≤ 3.6e-7)."""
+    s_, kv, d, page, maxp = 3, 2, 80, 8, 3
+    pool_k = rng.normal(size=(s_ * maxp + 1, page, kv, d)).astype(np.float32)
+    pool_v = rng.normal(size=pool_k.shape).astype(np.float32)
+    pt = np.arange(1, s_ * maxp + 1, dtype=np.int32).reshape(s_, maxp)
+    pt[0] = 0  # idle slot: trash page, length 0
+    lens = np.asarray([0, 11, 23], np.int32)
+    q = (rng.normal(size=(s_, 1, kv * g, d)) / np.sqrt(d)).astype(np.float32)
+    want = jpa_ref.paged_attend_gqa(*map(jnp.asarray, (q, pool_k, pool_v, pt, lens)), window=window)
+    got = pa_ops.paged_attend_gqa(*map(torch.from_numpy, (q, pool_k, pool_v, pt, lens)), window=window)
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-6, atol=2e-6)
+
+
+def test_engine_at_head_dim_80_matches_jax_engine():
+    """The reduced h2o-danube-1.8b with head_dim 80 (the full model's; 4
+    heads over 2 KV heads, a 64-token window) served by both packages'
+    engines from the reference's weights: seven requests over two slots
+    with mid-run arrivals and evictions; the same greedy tokens and the
+    same scheduler events."""
+    jbase = jax_get_arch("h2o-danube-1.8b").model.reduced()
+    jcfg = dataclasses.replace(jbase, attention=dataclasses.replace(jbase.attention, head_dim=80, num_kv_heads=2))
+    tcfg = _port_model(jcfg)
+    jparams, _ = JT.init_model(jcfg, jax.random.PRNGKey(0))
+    tparams = interop.params_from_numpy(_np(jparams))
+    rng = np.random.default_rng(42)
+    trace = [(f"r{i}", rng.integers(1, jcfg.vocab_size, (int(rng.integers(3, 14)),)).astype(np.int32),
+              int(rng.integers(2, 7))) for i in range(7)]
+
+    def drive(engine):
+        for rid, prompt, mn in trace[:4]:
+            engine.submit(rid, prompt, mn)
+        steps = 0
+        while engine.sched.busy:
+            engine.step()
+            steps += 1
+            if steps == 2:
+                for rid, prompt, mn in trace[4:]:
+                    engine.submit(rid, prompt, mn)
+        return {k: np.asarray(v).tolist() for k, v in engine.results.items()}, list(engine.sched.events)
+
+    kw = dict(slots=2, max_len=24, page_size=4, num_pages=7, chunk=8)
+    jres, jev = drive(JaxEngine(jcfg, jparams, **kw))
+    tres, tev = drive(BatchedEngine(tcfg, tparams, device="cpu", **kw))
+    assert any(e[0] == "evict" for e in jev)
+    assert tev == jev and tres == jres
