@@ -25,17 +25,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    stats bit for bit K8's, timed beside K3/K4 without the probe (K8 beside
    torch.linalg.vector_norm); (c) the
    LM training kernels, K6 flash attention (forward, dQ and dK/dV
-   backward kernels) at the LM slice's shape (B 2, S 512, 28 heads, 4 KV
-   heads, D 128, causal), h2o-danube-1.8b's head_dim 80 (32 heads, 8 KV
-   heads), zamba2-1.2b's shared block (32 heads of 64, window 4096), a
-   ragged S with a padded K, a window and a q_offset, and K7's
-   backward at 7 and 1024 rows, in f32 and bf16, each against its plain
-   version (the backward also against torch autograd of the plain forward)
-   with the stated bounds; timed beside SDPA (forward; backward alone;
-   both) and F.rms_norm's backward, and K6 also at B 1, S 4096, where the
-   operations bound the work; K9 also at mistral-large's GQA group of 12
-   and at h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV heads), in
-   bf16 and f32, timed beside SDPA on the gathered cache;
+   backward kernels, and the sum of the dK/dV pass's split partials; bf16
+   on the tensor cores, f32 on the CUDA cores) at
+   the LM slice's shape (B 2, S 512, 28 heads, 4 KV heads, D 128, causal),
+   h2o-danube-1.8b's head_dim 80 (32 heads, 8 KV heads), zamba2-1.2b's
+   shared block (32 heads of 64, window 4096), a ragged S with a padded K
+   (NaN past sk_valid), a window and a q_offset, and K7's backward at 7
+   and 1024 rows, in f32 and bf16, each against its plain version (the
+   backward also against torch autograd of the plain forward) with the
+   stated bounds, the same bits on a second launch of each K6 kernel;
+   timed beside SDPA (forward; backward alone; both) with each part's
+   TFLOP/s and share of its bound, SDPA's beside the forward and the whole
+   backward (whose bound counts the five products S, dP, dV, dK and dQ
+   once), and F.rms_norm's backward, and K6 also at B 1, S 4096 (10
+   iterations), where the operations bound the work; the split sum at the
+   LM slice's and S 4096's partials, bit for bit its plain version; K9
+   also at mistral-large's GQA group of 12 and at h2o-danube-1.8b's
+   head_dim 80 (32 heads over 8 KV heads), in bf16 and f32, timed beside
+   SDPA on the gathered cache;
    (d) K12, the RWKV-6 chunked WKV, forward and backward, against the plain
    ``wkv_chunked`` and torch autograd through it at the reduced rwkv6-7b's
    shape (B 2, S 45, H 4, N 32, chunk 16, f32) and the rwkv6 slice's (B 2,
@@ -83,13 +90,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32, seq 128, 2 workers, 3 rounds, on the card and on the CPU, losses
    compared; (b) full-width qwen2-7b cut to 2 layers, bf16, 4 workers,
    seq 512, 3 rounds from zeroed counters: finite losses, launch counts
-   exactly steps x workers x layers (K6 forward and each backward kernel),
+   exactly steps x workers x layers (K6 forward, each backward kernel and
+   the split sum: qwen2's group of 7 q-heads splits at this shape),
    steps x workers x (2 layers + 1) (K7 forward and backward), steps x
    buckets (K1), rounds x buckets (K3); a non-zero gradient in every leaf of
    every worker in the first step; a second run gives the same losses and
    final plane bit for bit; a finite eval_loss; rounds/s, step ms, peak
-   memory and one profiled round. (c) The gossip path: the same model
-   and data trained with gossip_ring (push-sum over a ring of 4), 3 rounds
+   memory and one profiled round with K6's share of it. (c) The gossip
+   path: the same model and data trained with gossip_ring (push-sum over a
+   ring of 4), 3 rounds
    from zeroed counters: K5 once a boundary and K3/K4 never, the other
    counts as in (b); bitwise replay; K5 bitwise at the plane's last
    columns; rounds/s, step ms, peak memory and one profiled round. (d) The
@@ -111,12 +120,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    zamba2-1.2b at full depth (38 layers: 33 mamba2, one shared attention
    block at 5 positions, tied embeddings; bf16, m = 4, seq 512, 3 rounds)
    as in (b): K11 forward and backward steps x workers x 33, K6 forward and
-   backward steps x workers x 5, K7 forward and backward steps x workers x
-   77, bitwise replay, rounds/s, step ms, peak memory and K11's share of a
-   profiled round.
-6. One JSON line with every kernel's numbers (K1-K5, K6 forward and
-   backward, K7 forward and backward, K8 and the probe output of K3/K4, K9,
-   K10, K11 and K12 forward and backward), then the device line last.
+   backward steps x workers x 5 (group 1: no split sum), K7 forward and
+   backward steps x workers x 77, bitwise replay, rounds/s, step ms, peak memory and K11's and K6's
+   shares of a profiled round.
+6. One JSON line with every kernel's numbers (K1-K5, K6 forward, backward
+   and split sum, K7 forward and backward, K8 and the probe output of
+   K3/K4, K9, K10, K11 and K12 forward and backward), then the device line
+   last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -690,6 +700,8 @@ FA_CASES = [
     ("q_offset", 2, 64, 320, 8, 4, 64, True, None, 256, None),
 ]
 FA_LONG = ("long", 1, 4096, 4096, 28, 4, 128, True, None, 0, None)
+# K6's bf16 kernels in a profile: the forward, the dQ pass, the dK/dV pass with its split sum
+K6_SHARES = ("tc::fwd_kernel", "tc::dq_kernel", "tc::dkdv")
 FA_TIMED = ("slice", "danube", "zamba2", "long")
 FA_COVERED = ("danube", "zamba2")  # their errors go into the kernels line
 # stated bounds, as max|kernel - plain| / max|plain| (see the module docstring
@@ -716,9 +728,11 @@ def _fa_inputs(case, dtype, gen, dev):
 
 
 def _fa_work(case, dtype):
-    """(bytes, flops) of the forward, the dQ kernel and the dK/dV kernel for
-    these inputs: each input read once, each output written once; the
-    products over the (query, key) pairs the masks leave visible."""
+    """(bytes, flops) of the forward, the dQ kernel, the dK/dV kernel and the
+    whole backward for these inputs: each input read once, each output
+    written once; the products over the (query, key) pairs the masks leave
+    visible. Each pass counts what it computes (both recompute S and dP);
+    the whole backward counts each of its five products once."""
     import torch
 
     from repro_torch.kernels.flash_attention import ref
@@ -730,7 +744,9 @@ def _fa_work(case, dtype):
     per = 2 * b * h * pairs * d  # one product over the visible pairs
     return {"fwd": (2 * nq + 2 * nk + stats, 2 * per),  # S = QK^T, O = PV
             "dq": (4 * nq + 2 * nk + 2 * stats, 3 * per),  # S, dP = dO V^T, dQ = dS K
-            "dkdv": (2 * nq + 4 * nk + 2 * stats, 4 * per)}  # S, dP, dV = P^T dO, dK = dS^T Q
+            "dkdv": (2 * nq + 4 * nk + 2 * stats, 4 * per),  # S, dP, dV = P^T dO, dK = dS^T Q
+            # reads q, out, dO, k, v, lse; writes dq, dk, dv; S, dP, dV, dK, dQ
+            "bwd": (4 * nq + 4 * nk + stats, 5 * per)}
 
 
 def check_flash_attention(dev, gen):
@@ -750,6 +766,8 @@ def check_flash_attention(dev, gen):
         for dtype in (torch.float32, torch.bfloat16) if name != "long" else (torch.bfloat16,):
             bnd = FA_BOUND[_name(dtype)]
             q, k, v, dout = _fa_inputs(case, dtype, gen, dev)
+            if sk_valid is not None:  # garbage past sk_valid must not leak
+                k[:, sk_valid:], v[:, sk_valid:] = float("nan"), float("nan")
             out, lse = ops.flash_attention_fwd(q, k, v, **kw)
             out_p, lse_p = ref.flash_attention_fwd(q, k, v, **kw)
             fin = torch.isfinite(lse_p)
@@ -763,16 +781,21 @@ def check_flash_attention(dev, gen):
             ag = torch.autograd.grad(ref.flash_attention_fwd(qa, ka, va, **kw)[0], (qa, ka, va), dout)
             errs = dict(out=_rel(out, out_p), lse=lse_err, dq=_rel(dq, dq_p), dk=_rel(dk, dk_p), dv=_rel(dv, dv_p),
                         dq_autograd=_rel(dq, ag[0]), dk_autograd=_rel(dk, ag[1]), dv_autograd=_rel(dv, ag[2]))
+            # a second launch of each kernel gives the same bits
+            again = (*ops.flash_attention_fwd(q, k, v, **kw), *ops.flash_attention_bwd_dq(q, k, v, out, lse, dout, **kw),
+                     *ops.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, **kw))
+            same_bits = all(torch.equal(a, w) for a, w in zip(again, (out, lse, dq, delta, dk, dv)))
+            del again
             ok = (errs["out"] <= bnd["out"] and lse_ok and all(errs[g] <= bnd["grad"] for g in ("dq", "dk", "dv"))
                   and all(errs[g + "_autograd"] <= bnd["autograd"] for g in ("dq", "dk", "dv"))
-                  and all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv)))
+                  and all(bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv)) and same_bits)
             rec = dict(kernel="K6 flash_attention", case=name, dtype=_name(dtype), shape=[b, sq, sk, h, hkv, d],
                        causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid, rel_err=errs,
                        max_abs_err=dict(out=float((out.float() - out_p.float()).abs().max()),
                                         dq=float((dq.float() - dq_p.float()).abs().max()),
                                         dk=float((dk.float() - dk_p.float()).abs().max()),
                                         dv=float((dv.float() - dv_p.float()).abs().max())),
-                       bound={k2: f"max|d|/max|plain| <= {v2}" for k2, v2 in bnd.items()}, ok=ok)
+                       bound={k2: f"max|d|/max|plain| <= {v2}" for k2, v2 in bnd.items()}, same_bits=same_bits, ok=ok)
             worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["out"])
             worst["dq"] = max(worst["dq"], rec["max_abs_err"]["dq"])
             worst["dkdv"] = max(worst["dkdv"], rec["max_abs_err"]["dk"], rec["max_abs_err"]["dv"])
@@ -796,7 +819,7 @@ def _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta):
 
     name, b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
     kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
-    it = 3 if name == "long" else 20
+    it = 10 if name == "long" else 20
     work = _fa_work(case, dtype)
     # the yardstick: SDPA on (B, H, S, D) with the kv-heads repeated for GQA;
     # causal only, so the timed cases keep any window at least S wide
@@ -820,13 +843,70 @@ def _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta):
     t["dkdv"] = dict(ms=time_ms(lambda: ops.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, **kw), it),
                      plain_ms=time_ms(lambda: ref.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, **kw), it),
                      library_ms=lib_bwd, library_fwd_bwd_ms=lib_fwd_bwd)
+    # the whole backward (the dQ and dK/dV launches, the split sum included)
+    # beside SDPA's backward, which computes dQ, dK and dV together
+    t["bwd"] = dict(ms=t["dq"]["ms"] + t["dkdv"]["ms"], plain_ms=t["dq"]["plain_ms"] + t["dkdv"]["plain_ms"],
+                    library_ms=lib_bwd)
     rate = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
     for part, (nbytes, flops) in work.items():
         t[part]["bound_ms"], t[part]["bound_by"] = bound(nbytes, flops, rate)
         t[part]["flops"], t[part]["bytes"] = flops, nbytes
         t[part]["flop_rate"] = "989 TFLOP/s dense bf16" if dtype == torch.bfloat16 else "67 TFLOP/s f32"
-    t["library_note"] = "SDPA backward alone (autograd.grad with the graph kept) for both backward kernels"
+    # achieved rates and shares of the bound; SDPA's on the same work where it
+    # computes the same function (the forward, the whole backward)
+    for part in ("fwd", "dq", "dkdv", "bwd"):
+        r = t[part]
+        r["tflops"] = r["flops"] / r["ms"] / 1e9
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        if part in ("fwd", "bwd"):
+            r["library_tflops"] = r["flops"] / r["library_ms"] / 1e9
+            r["library_share_of_bound"] = r["bound_ms"] / r["library_ms"]
+    log(f"  K6 {name} {_name(dtype)}: " + "; ".join(
+        f"{part} {t[part]['ms']:.4f} ms {t[part]['tflops']:.1f} TFLOP/s {100 * t[part]['share_of_bound']:.1f}% of "
+        f"{t[part]['bound_ms']:.4f} ms" + (f" (SDPA {t[part]['library_ms']:.4f} ms {t[part]['library_tflops']:.1f} "
+                                          f"TFLOP/s {100 * t[part]['library_share_of_bound']:.1f}%)"
+                                          if "library_tflops" in t[part] else "")
+        for part in ("fwd", "dq", "dkdv", "bwd")))
+    t["library_note"] = ("SDPA backward alone (autograd.grad with the graph kept), which computes dQ, dK and dV "
+                         "together, for both backward kernels; its rates only beside the whole backward")
     return t
+
+
+def check_dkdv_sum(dev, gen):
+    """K6's split sum at the partials the bf16 dK/dV pass writes at the LM
+    slice (B 2, S 512, 4 KV heads, group 7, D 128) and at S 4096, in the
+    split counts the wrapper picks on this card: bit for bit its plain
+    version (the same f32 adds in the same order, one rounding); timed
+    beside it and its bound (each partial read once, dK and dV written
+    once). No single torch call sums in split order and rounds to bf16."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for key, b, sk in (("slice", 2, 512), ("long", 1, 4096)):
+        hkv, group, d = 4, 7, 128
+        n = ops.dkdv_splits(b, hkv, group, sk, sms)
+        part = torch.randn(2, n, b, sk, hkv, d, generator=gen, device=dev)
+        got, want = ops.dkdv_sum(part, torch.bfloat16), ref.dkdv_sum(part, torch.bfloat16)
+        same = all(torch.equal(x, w) for x, w in zip(got, want))
+        n_el = b * sk * hkv * d
+        bound_ms, bound_by = bound(2 * n * n_el * 4 + 2 * n_el * 2, 2 * (n - 1) * n_el)
+        rec = dict(kernel="K6 split sum", case=key, splits=n, sms=sms, shape=[2, n, b, sk, hkv, d],
+                   max_abs_err=max(float((x.float() - w.float()).abs().max()) for x, w in zip(got, want)),
+                   bound="bitwise", same_bits=same,
+                   ms=time_ms(lambda: ops.dkdv_sum(part, torch.bfloat16), 20),
+                   plain_ms=time_ms(lambda: ref.dkdv_sum(part, torch.bfloat16), 20), bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=None,
+                   library="none (no single torch call sums in split order and rounds to bf16)")
+        log(json.dumps(rec))
+        if not same:
+            raise AssertionError(f"K6 split sum disagrees with plain: {rec}")
+        out[key] = rec
+        del part, got, want
+        _free()
+    return out
 
 
 RMS_BWD_ROWS = (7, 1024)  # a ragged row count, and the LM slice's rows (B*S = 2*512)
@@ -1874,10 +1954,14 @@ def check_plane_scale(exp):
 
 
 def qwen2_launches(steps, m, L, buckets, rounds):
-    """The qwen2 LM path's launches: K6 forward and both backward kernels
-    once a layer, K7 forward and backward at ln1, ln2 and the final norm."""
+    """The qwen2 LM path's launches: K6 forward, both backward kernels and
+    the split sum once a layer (28 q-heads over 4 KV heads at B 2, S 512:
+    32 dK/dV CTAs unsplit, fewer than two an SM on any card of more than 16
+    SMs, so the group of 7 splits), K7 forward and backward at ln1, ln2 and
+    the final norm."""
     return dict(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
-                flash_attention_bwd_dkdv=steps * m * L, rmsnorm=steps * m * (2 * L + 1),
+                flash_attention_bwd_dkdv=steps * m * L, flash_attention_dkdv_sum=steps * m * L,
+                rmsnorm=steps * m * (2 * L + 1),
                 rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
 
 
@@ -1998,7 +2082,8 @@ def lm_gossip_full_width(dev, kernels):
     m, L, buckets = LM_WORKERS, LM_LAYERS, exp.state.x.layout.num_buckets
     want = {k.name: 0 for k in kernels}
     want.update(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
-                flash_attention_bwd_dkdv=steps * m * L, rmsnorm=steps * m * (2 * L + 1),
+                flash_attention_bwd_dkdv=steps * m * L, flash_attention_dkdv_sum=steps * m * L,
+                rmsnorm=steps * m * (2 * L + 1),
                 rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, anchor_mix=LM_ROUNDS * buckets)
     if launches != want:
         raise AssertionError(f"LM gossip launches {launches} != {want}")
@@ -2057,7 +2142,8 @@ def lm_adaptive_faulted(dev, kernels, cfg, overlap_peak=None):
     3's row equal to the anchor bit for bit (the first and last 2^20 columns
     of each bucket); in the masked rounds the dead row's columns unchanged by
     the boundary; K3 once a round a bucket and K8 never (the probe is fused),
-    K1 once a local step, K6 forward and each backward kernel once a step a
+    K1 once a local step, K6 forward, each backward kernel and the split sum
+    once a step a
     worker a layer, K7's forward and backward 5 times a step a worker; the
     controller replayed on the recorded (drift, scale) gives the recorded
     schedule; a second run the same losses, schedule and plane bit for bit;
@@ -2140,7 +2226,8 @@ def lm_adaptive_faulted(dev, kernels, cfg, overlap_peak=None):
     buckets = exp.state.x.layout.num_buckets
     want = {k.name: 0 for k in kernels}
     want.update(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
-                flash_attention_bwd_dkdv=steps * m * L, rmsnorm=steps * m * (2 * L + 1),
+                flash_attention_bwd_dkdv=steps * m * L, flash_attention_dkdv_sum=steps * m * L,
+                rmsnorm=steps * m * (2 * L + 1),
                 rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets,
                 pullback_momentum=LM_ADAPTIVE_ROUNDS * buckets)
     if launches != want:
@@ -2300,12 +2387,12 @@ def lm_zamba2_full_width(dev, kernels):
     """Full-width zamba2-1.2b at full depth (38 layers: 33 mamba2 and one
     shared attention block at 5 positions; d_model 2048, vocab 32000, tied,
     bf16; 977,005,376 parameters), through ``lm_full_width``: m = 4, batch
-    2 x seq 512, 3 rounds; K11's share of the profiled round."""
+    2 x seq 512, 3 rounds; K11's and K6's shares of the profiled round."""
     from repro_torch.config import get_arch
 
     cfg = get_arch("zamba2-1.2b").model
     return lm_full_width(dev, kernels, cfg, zamba2_launches,
-                         shares=("ssd_fwd_kernel", "ssd_bwd_kernel", "fa_fwd_kernel", "fa_bwd", "rmsnorm"))
+                         shares=("ssd_fwd_kernel", "ssd_bwd_kernel", *K6_SHARES, "rmsnorm"))
 
 
 # ---------------------------------------------------------------------------
@@ -2342,7 +2429,7 @@ def main() -> int:
     log(f"built {len(kernels)} kernels in {time.perf_counter() - t0:.1f}s")
     for k in kernels:
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {k.name}: {line.strip()}")
 
     # phase 2
@@ -2355,6 +2442,7 @@ def main() -> int:
     mix_err, mix_t = check_anchor_mix(dev, gen)
     probe_err, probe_t = check_consensus_probe(dev, gen)
     fa_err, fa_t, fa_cov = check_flash_attention(dev, gen)
+    fa_sum = check_dkdv_sum(dev, gen)
     rb_err, rb_t = check_rmsnorm_bwd(dev, gen)
     wkv_err, wkv_t = check_wkv(dev, gen)
     rms_shapes = check_rmsnorm_shapes(dev, gen)
@@ -2371,7 +2459,7 @@ def main() -> int:
     runs.update(train_adaptive_and_faulted(dev, kernels))
     lm_card_vs_cpu(dev)
     lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
-    lm = lm_full_width(dev, kernels, lm_cfg)
+    lm = lm_full_width(dev, kernels, lm_cfg, shares=K6_SHARES)
     lm["card"] = card
     gossip = lm_gossip_full_width(dev, kernels)
     gossip["card"] = card
@@ -2390,7 +2478,8 @@ def main() -> int:
     launches["pullback_momentum"] = runs["overlap_local_sgd"]["launches"]["pullback_momentum"]
     launches["adamw_step"] = runs["overlap_adamw"]["launches"]["adamw_step"]
     launches["pullback_mean"] = runs["overlap_beta0"]["launches"]["pullback_mean"]
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv", "rmsnorm_bwd"):
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+                 "flash_attention_dkdv_sum", "rmsnorm_bwd"):
         launches[name] = lm["launches"][name]
     # kernels on several paths: every path's count (K7's row keeps the serving run's)
     by_path = {k.name: {"serving": summary["launches"].get(k.name, 0),
@@ -2428,6 +2517,10 @@ def main() -> int:
         ("flash_attention_bwd_dkdv", "flash_attention", "K6 backward, dK/dV kernel (new; no TPU kernel)",
          "src/repro/kernels/flash_attention/ops.py:76", fa_err["dkdv"], fa_t["slice"]["dkdv"], fa_slice,
          dict(shape="bf16 B=1 S=4096 H=28 Hkv=4 D=128 causal", **fa_t["long"]["dkdv"])),
+        ("flash_attention_dkdv_sum", "flash_attention", "K6 backward, dK/dV split sum (new; no TPU kernel)",
+         "src/repro/kernels/flash_attention/ops.py:76", fa_sum["slice"]["max_abs_err"], fa_sum["slice"],
+         f"f32 partials (2, {fa_sum['slice']['splits']}, 2, 512, 4, 128) -> bf16 (the LM slice)",
+         dict(fa_sum["long"], shape=f"f32 partials (2, {fa_sum['long']['splits']}, 1, 4096, 4, 128) -> bf16")),
         ("rmsnorm_bwd", "rmsnorm", "K7 backward (new; the reference has none)", "src/repro/kernels/rmsnorm/ops.py:11",
          rb_err, rb_t, "bf16 rows=1024 d=3584 (the LM slice)", None),
         ("wkv_fwd", "rwkv6_wkv", "K12 wkv_bh (forward)", "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["fwd"],
@@ -2504,12 +2597,24 @@ def main() -> int:
         if name.startswith("ssd_"):
             entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
             entry["reduced"] = "f32 B=2 S=45 H=16 P=32 G=1 N=16 chunk 16: checked, not timed"
-        if name.startswith("flash_attention"):  # h2o-danube-1.8b's head_dim 80 (ROADMAP Queue 3 item 1)
+        if name == "flash_attention_dkdv_sum":
+            entry["library"], entry["splits"] = t["library"], t["splits"]
+            entry["launches_by_path"] = {"lm": lm["launches"][name], "lm gossip_ring": gossip["launches"][name],
+                                         "lm adaptive+faults": adaptive_lm["launches"][name],
+                                         "lm zamba2 (group 1, no split)": zamba["launches"][name]}
+        elif name.startswith("flash_attention"):  # h2o-danube-1.8b's head_dim 80 (ROADMAP Queue 3 item 1)
             part = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq", "flash_attention_bwd_dkdv": "dkdv"}[name]
             entry["head_dim_80"] = dict(shape="bf16 B=2 S=512 H=32 Hkv=8 D=80 causal", rel_err=fa_cov["danube"],
                                         **{k: fa_t["danube"][part][k] for k in keys})
             entry["zamba2"] = dict(shape="bf16 B=2 S=512 H=32 Hkv=32 D=64 causal window 4096 (the zamba2 shared block)",
                                    rel_err=fa_cov["zamba2"], **{k: fa_t["zamba2"][part][k] for k in keys})
+            rates = ("tflops", "share_of_bound", "library_tflops", "library_share_of_bound")
+            entry.update({k: t[k] for k in rates if k in t})
+            if part == "dkdv":
+                entry["ms_note"] = "the wrapper's call: the dK/dV grid and, where it splits, the split sum"
+            if part != "fwd":  # the dQ and dK/dV launches together, beside SDPA's whole backward
+                entry["backward_total"] = {sh: {k: fa_t[sh]["bwd"][k] for k in keys + rates} for sh in FA_TIMED}
+                entry["backward_total"]["bound"] = "S, dP, dV, dK and dQ once each; q, out, dO, k, v, lse read once"
         if name == "paged_attend":  # mistral-large's group of 12 (the group-capacity-16 instance)
             entry["group_12"] = dict(shape="bf16 S=4 KV=8 G=12 D=128", max_abs_err=att_g12["max_abs_err"],
                                      **{k: att_g12[k] for k in keys})

@@ -10,12 +10,17 @@ pre-scaled q, and ``q_offset``, the absolute position of q[:, 0].
   Pallas body op for op (f32 scores; the masks ``k < sk_valid``, causal and
   window; ``safe_m`` for rows with every key masked; p rounded to v's dtype
   before P·V; f32 accumulation; division by ``max(l, 1e-30)``), walking the
-  keys in the CUDA kernel's blocks of 32. It also returns the per-row f32
+  keys in blocks of 128, the bf16 CUDA kernel's and the Pallas body's own,
+  so p is rounded at the same running max. It also returns the per-row f32
   log-sum-exp the backward kernel needs (``+inf`` for a fully masked row).
 * :func:`flash_attention_bwd` — the plain version of the backward kernels
   (FlashAttention-2): p recomputed in f32 from the log-sum-exp and **not**
   rounded, Δ = rowsum(dO∘O), dV = pᵀdO, dS = p∘(dO·Vᵀ − Δ), dQ = dS·K,
-  dK = dSᵀ·Q, each rounded once to its input's dtype.
+  dK = dSᵀ·Q, each rounded once to its input's dtype. (The bf16 kernels
+  round P and dS to bf16 as tensor-core operands; they are held against
+  this unrounded version within the stated bounds.)
+* :func:`dkdv_sum` — the plain version of the bf16 dK/dV pass's split sum:
+  the f32 partials added in split order, rounded once.
 * :func:`mha_reference` and :func:`chunked_mha` — the reference's oracles,
   op for op (exact masked softmax; KV-block online softmax).
 """
@@ -27,7 +32,7 @@ import torch
 
 F32 = torch.float32
 NEG_INF = float("-inf")
-BLOCK_K = 32  # keys per block of the CUDA kernel's online softmax
+BLOCK_K = 128  # keys per block of the online softmax: the bf16 kernel's and the Pallas body's
 
 
 def visible(sq: int, sk: int, *, causal: bool, window: Optional[int], q_offset: int,
@@ -118,6 +123,16 @@ def flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, *, causal: bool = True, 
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, _grouped(q, hkv))
     pad = (0, 0, 0, 0, 0, sk - dk.shape[1])  # the masked keys' gradients are zero
     return torch.nn.functional.pad(dk, pad).to(k.dtype), torch.nn.functional.pad(dv, pad).to(v.dtype)
+
+
+def dkdv_sum(part: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) in ``dtype`` from f32 partials (2, n, B, Sk, Hkv, D): each
+    the sum over the n splits in split order, rounded once (the split sum
+    kernel's plain version)."""
+    acc = part[:, 0].clone()
+    for i in range(1, part.shape[1]):
+        acc += part[:, i]
+    return acc[0].to(dtype), acc[1].to(dtype)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True, window: Optional[int] = None,

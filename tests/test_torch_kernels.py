@@ -34,7 +34,10 @@ bits on every run. The probe's CPU tests against the JAX package are in
 ``tests/test_torch_rwkv6.py``. On the card K12 and its backward kernel are
 held against the plain ``wkv_chunked`` and its torch autograd (f32 2e-5 for
 y and the state, 1e-4 for the gradients; bf16 2^-7 and 2^-5), K6 also at
-head_dim 80, K9 also at a GQA group of 12 and at head_dim 80. K11 and its
+head_dim 80 and at zamba2's shared block (its bf16 kernels run on the
+tensor cores and round P and dS to bf16, within the same bounds; the split
+of its dK/dV pass over a GQA group is pinned on the CPU), K9 also at a GQA
+group of 12 and at head_dim 80. K11 and its
 backward kernel are held against the plain ``ssd_chunked`` and its torch
 autograd (f32 2e-5 for y and the state, 1e-4 for the gradients; bf16 x/B/C
 2^-7 for dx, dB, dC); their CPU tests against the JAX package are in
@@ -184,14 +187,22 @@ def test_rmsnorm_bwd_plain_is_autograd_of_plain_forward(rng):
 # -- K6 flash attention ------------------------------------------------------------
 
 # the reference's own kernel sweep (tests/test_kernels.py): GQA, a ragged S,
-# a sliding window, bidirectional, one query against a cache (q_offset)
+# a sliding window, bidirectional, one query against a cache (q_offset); then
+# S over several 128-key blocks (the plain forward's and the bf16 kernel's
+# block), with qwen2's group of 7, at head_dim 128 and 80, with a window of
+# 64, and 128 queries at q_offset 256
 FA_CASES = [
     (2, 64, 64, 4, 2, 32, True, None),
     (1, 130, 130, 4, 4, 64, True, None),
     (2, 64, 64, 8, 2, 32, True, 16),
     (1, 64, 64, 2, 1, 32, False, None),
     (2, 1, 96, 4, 2, 32, True, None),
+    (1, 384, 384, 14, 2, 128, True, None),
+    (1, 384, 384, 14, 2, 80, True, None),
+    (1, 384, 384, 14, 2, 128, True, 64),
+    (1, 128, 384, 14, 2, 128, True, None),
 ]
+FA_IDS = ["gqa", "ragged", "window", "bidir", "q_offset", "blocks", "blocks_d80", "blocks_window", "blocks_q_offset"]
 FA_FWD_BOUND = {"float32": 1e-5, "bfloat16": 2.0**-7}
 FA_GRAD_BOUND = {"float32": 1e-5, "bfloat16": 2.0**-5}
 
@@ -205,7 +216,7 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FA_CASES, ids=["gqa", "ragged", "window", "bidir", "q_offset"])
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
 def test_flash_attention_plain_matches_jax(case, dtype, rng, jx):
     """The plain forward against the reference's exact softmax and against
     its Pallas kernel in interpret mode (its own public wrapper)."""
@@ -231,7 +242,7 @@ def test_flash_attention_plain_matches_jax(case, dtype, rng, jx):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FA_CASES, ids=["gqa", "ragged", "window", "bidir", "q_offset"])
+@pytest.mark.parametrize("case", FA_CASES, ids=FA_IDS)
 def test_flash_attention_function_grads_match_jax_vjp(case, dtype, rng, jx):
     """The autograd Function (plain FlashAttention-2 backward here) against
     ``jax.vjp`` of ``chunked_mha``, the reference's own backward."""
@@ -273,6 +284,65 @@ def test_flash_attention_plain_masks_and_empty_rows(rng):
     out, lse = fa_ops.flash_attention_fwd(q, k, v, causal=True, window=5)
     for got, want in zip(fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, causal=True, window=5), auto):
         assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b, hkv, group, sk", [(2, 4, 7, 512), (1, 4, 7, 4096), (2, 8, 4, 512), (2, 2, 4, 256),
+                                             (1, 2, 2, 160), (2, 32, 1, 512), (1, 1, 1, 64)])
+def test_flash_attention_dkdv_splits_cover_each_q_head_once(b, hkv, group, sk):
+    """The bf16 dK/dV kernel's split count n of each kv-head's group: the
+    kernel gives split i the q-heads [i g / n, (i + 1) g / n), so every
+    q-head is covered once and no split is empty while 1 <= n <= group; no
+    split at group 1; short of one q-head a split, two CTAs for each SM;
+    enough CTAs for the H100's 132 SMs at the qwen2 slice (B 2, 4 KV heads,
+    group 7, S 512); never fewer splits on a larger card."""
+    ctas = b * hkv * -(-sk // 128)  # one CTA per (batch, kv-head, 128 keys) and split
+    for sms in (16, 132, 1024):
+        n = fa_ops.dkdv_splits(b, hkv, group, sk, sms)
+        assert 1 <= n <= group
+        assert n == group or ctas * n >= 2 * sms
+        assert n <= fa_ops.dkdv_splits(b, hkv, group, sk, 2 * sms)
+        if group == 1:
+            assert n == 1
+    if (b, hkv, group, sk) == (2, 4, 7, 512):
+        assert ctas * fa_ops.dkdv_splits(b, hkv, group, sk, 132) >= 132
+
+
+@pytest.mark.parametrize("n", [2, 3, 7])
+def test_flash_attention_dkdv_split_partials_sum_to_the_group(rng, n):
+    """The split dK/dV pass: split i's f32 partial is the plain dK/dV over
+    q-heads [i g / n, (i + 1) g / n) of each kv-head's group (the kernel's
+    ranges); ``dkdv_sum`` of the partials (on the CPU, its plain version)
+    adds them in split order, bit for bit as a loop does, and gives the
+    whole group's dK/dV within 1e-5 of max|plain| (the sums run in other
+    orders)."""
+    b, sq, sk, h, hkv, d = 1, 160, 160, 14, 2, 64
+    g = h // hkv
+    kw = dict(causal=True, window=None, q_offset=0, sk_valid=None)
+    q = _t((rng.normal(size=(b, sq, h, d)) / d**0.5).astype(np.float32))
+    k, v = (_t(rng.normal(size=(b, sk, hkv, d)).astype(np.float32)) for _ in range(2))
+    dout = _t(rng.normal(size=(b, sq, h, d)).astype(np.float32))
+    out, lse = fa_ref.flash_attention_fwd(q, k, v, **kw)
+    _, delta = fa_ref.flash_attention_bwd_dq(q, k, v, out, lse, dout, **kw)
+    want = fa_ref.flash_attention_bwd_dkdv(q, k, v, dout, lse, delta, **kw)
+
+    def heads(t, lo, hi):  # q-heads [lo, hi) of every group; (B, S, H, D) or (B, H, S)
+        if t.dim() == 4:
+            return t.reshape(b, sq, hkv, g, d)[:, :, :, lo:hi].reshape(b, sq, hkv * (hi - lo), d)
+        return t.reshape(b, hkv, g, sq)[:, :, lo:hi].reshape(b, hkv * (hi - lo), sq)
+
+    parts = [fa_ref.flash_attention_bwd_dkdv(heads(q, lo, hi), k, v, heads(dout, lo, hi), heads(lse, lo, hi),
+                                             heads(delta, lo, hi), **kw)
+             for lo, hi in ((i * g // n, (i + 1) * g // n) for i in range(n))]
+    part = torch.stack([torch.stack([p[j] for p in parts]) for j in (0, 1)])  # (2, n, B, Sk, Hkv, D)
+    got = fa_ops.dkdv_sum(part, torch.float32)
+    loop = part[:, 0].clone()
+    for i in range(1, n):
+        loop = loop + part[:, i]
+    assert torch.equal(got[0], loop[0]) and torch.equal(got[1], loop[1])
+    for a, w in zip(got, want):
+        assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    bf = fa_ops.dkdv_sum(part, torch.bfloat16)
+    assert all(torch.equal(x, y.to(torch.bfloat16)) for x, y in zip(bf, loop))
 
 
 # -- K10 paged append ------------------------------------------------------------
@@ -616,6 +686,7 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     probe_ops.probe_buffer(buf)
     fq = _t(rng.normal(size=(1, 4, 2, 64)).astype(np.float32)).requires_grad_(True)
     fa_ops.flash_attention(fq, fq[:, :, :1], fq[:, :, :1]).sum().backward()
+    fa_ops.dkdv_sum(torch.zeros(2, 3, 1, 4, 1, 64), torch.bfloat16)
     rms_ops.rmsnorm(x.requires_grad_(True), s).sum().backward()
     wr = _t(rng.normal(size=(1, 5, 2, 4)).astype(np.float32)).requires_grad_(True)
     y, st = wkv_ops.wkv(wr, wr, wr, torch.sigmoid(wr), wr[0, 0], chunk=4)
@@ -796,11 +867,12 @@ def test_anchor_mix_kernel_bitwise_on_card(cuda, dtype):
 
 
 # (B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM slice's
-# shape, h2o-danube-1.8b's head_dim 80, a ragged S with a padded K, a window,
-# a q_offset
+# shape, h2o-danube-1.8b's head_dim 80, zamba2-1.2b's shared block, a ragged
+# S with a padded K (NaN past sk_valid), a window, a q_offset
 FA_CARD = [
     (2, 512, 512, 28, 4, 128, True, None, 0, None),
     (2, 512, 512, 32, 8, 80, True, None, 0, None),
+    (2, 512, 512, 32, 32, 64, True, 4096, 0, None),
     (1, 130, 160, 4, 2, 64, False, None, 0, 130),
     (2, 256, 256, 8, 2, 128, True, 64, 0, None),
     (2, 64, 320, 8, 4, 64, True, None, 256, None),
@@ -809,16 +881,20 @@ FA_CARD = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FA_CARD, ids=["slice", "head_dim_80", "ragged", "window", "q_offset"])
+@pytest.mark.parametrize("case", FA_CARD, ids=["slice", "head_dim_80", "zamba2", "ragged", "window", "q_offset"])
 def test_flash_attention_kernels_vs_plain_on_card(cuda, case, dtype):
     """Bounds as chip_smoke.py states them (max|Δ| / max|plain|): f32 1e-5
-    forward, 2e-5 gradients; bf16 2^-7 both."""
+    forward, 2e-5 gradients; bf16 2^-7 both. Keys past sk_valid hold NaN,
+    which must not leak; a second launch of the forward and of the backward
+    gives the same bits."""
     b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
     kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = (torch.randn(b, sq, h, d, generator=gen, device=cuda) / d**0.5).to(dtype)
     k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
     dout = torch.randn(b, sq, h, d, generator=gen, device=cuda).to(dtype)
+    if sk_valid is not None:
+        k[:, sk_valid:], v[:, sk_valid:] = float("nan"), float("nan")
     out, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
     out_p, _ = fa_ref.flash_attention_fwd(q, k, v, **kw)
     f32 = dtype == torch.float32
@@ -827,12 +903,26 @@ def test_flash_attention_kernels_vs_plain_on_card(cuda, case, dtype):
         return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
     assert rel(out, out_p) <= (1e-5 if f32 else 2.0**-7)
+    assert all(torch.equal(a, w) for a, w in zip((out, lse), fa_ops.flash_attention_fwd(q, k, v, **kw)))
     got = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     want = fa_ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     for a, w in zip(got, want):
-        assert rel(a, w) <= (2e-5 if f32 else 2.0**-7)
+        assert bool(torch.isfinite(a).all()) and rel(a, w) <= (2e-5 if f32 else 2.0**-7)
     again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, w) for a, w in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_flash_attention_dkdv_sum_kernel_on_card(cuda):
+    """The split sum at the qwen2 slice's partials (7 splits of B 2, S 512,
+    4 KV heads, D 128): the same bits as its plain version, which adds in
+    the same order and rounds once."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    part = torch.randn(2, 7, 2, 512, 4, 128, generator=gen, device=cuda)
+    before = fa_ops.BWD_DKDV_SUM.launches
+    got = fa_ops.dkdv_sum(part, torch.bfloat16)
+    assert fa_ops.BWD_DKDV_SUM.launches == before + 1
+    assert all(torch.equal(a, w) for a, w in zip(got, fa_ref.dkdv_sum(part, torch.bfloat16)))
 
 
 @pytest.mark.cuda
