@@ -11,7 +11,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Hold each kernel against its plain PyTorch version on the card, with the
    stated bound, and time the kernel, the plain version and one library
    call as a yardstick: (a) the serving kernels K7, K9, K10 at the serving
-   slice's shapes, in bf16 and f32; (b) the training kernels K1 ``sgd_step``,
+   slice's shapes, in bf16 and f32: K10 bitwise for one pool and for both
+   pools in one launch (the serving path's call) at T 1, T 32 and T 700
+   (S*T over several CTAs and tiles of targets), timed beside one
+   ``index_put_`` a pool and two for both; K7 forward and backward at every
+   branch of its launch planner (d 64, 80, 2048, 3584, 4096, 4097 at ragged
+   rows), the same bits on a second launch; each K7 and K10 timed row also
+   gives the wrapper's host µs a call (``time.perf_counter_ns``) and the
+   kernel's device µs a call (``torch.profiler``), and the K7 and K10
+   wrappers' host time is split step by step at the decode shape; (b) the
+   training kernels K1 ``sgd_step``,
    K2 ``adamw_step``, K3 ``pullback_mean_momentum``, K4 ``pullback_mean``
    (masked and unmasked, ``mean_pre``) and K5 ``anchor_mix`` (beside
    ``torch.lerp_`` and a ``copy_``) in f32 and bf16, at the classifier's
@@ -63,7 +72,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights from a seeded generator, 8 ragged requests through
    ``BatchedEngine``: every request gets exactly ``max_new`` in-vocab
    tokens, logits are finite, every kernel's launch count is non-zero and
-   equals what the number of forwards implies, and a second run of the
+   equals what the number of forwards implies (K10 once a layer a forward,
+   both pools in one launch), and a second run of the
    same trace gives the same tokens and scheduler events.
 4. The training slice, ``examples/quickstart.py``'s configuration at its
    real width through ``repro_torch.api.Experiment``: 16 workers, the
@@ -169,6 +179,63 @@ def time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 200, reps: int = 5) -> float:
+    """Host time of one call of ``fn``: the median over ``reps`` runs of the
+    mean over ``iters`` calls (``time.perf_counter_ns``; the device is idle
+    at the start of each run, and ``iters`` launches stay inside the launch
+    queue, so the host never waits on it)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    means = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(iters):
+            fn()
+        means.append((time.perf_counter_ns() - t0) / iters / 1e3)
+    torch.cuda.synchronize()
+    return sorted(means)[reps // 2]
+
+
+def device_us(fn, iters: int = 200) -> dict:
+    """Device time a call of ``fn`` under ``torch.profiler`` over ``iters``
+    calls: each CUDA kernel's own mean time a launch, summed over the kernels
+    a call launches, and the kernels' names with their launches a call (so a
+    row shows which kernel it timed)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return dict(device_us="not measured (no device events in the trace)", device_kernels={})
+    return dict(device_us=sum(e.self_device_time_total / e.count for e in kern),
+                device_kernels={e.key[:60]: e.count / iters for e in kern})
+
+
+def timed(fn, plain, library, nbytes, flops=0.0) -> dict:
+    """One timed row: the wrapper's event time (``ms``, the median of five
+    runs of :func:`time_ms`), its host µs and device µs a call, the plain
+    version's event time, the library call's (a median as ``ms``), and the
+    bound."""
+    def event_ms(f):  # the median of five event times: these rows are host-bound, and the host is shared
+        return sorted(time_ms(f) for _ in range(5))[2]
+
+    rec = dict(ms=event_ms(fn), host_us=host_us(fn), **device_us(fn), plain_ms=time_ms(plain),
+               library_ms=event_ms(library))
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+    return rec
+
+
 def bound(nbytes: float, flops: float = 0.0, flop_rate: float = F32_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -210,10 +277,9 @@ def check_rmsnorm(dev, gen):
             if dtype == torch.bfloat16:
                 worst = max(worst, float(err.max()))
             if dtype == torch.bfloat16 and rows in (4, 32, 1024):
-                rec["ms"] = time_ms(lambda: ops.rmsnorm_2d(x, scale, eps=eps))
-                rec["plain_ms"] = time_ms(lambda: ref.rmsnorm(x, scale, eps))
-                rec["library_ms"] = time_ms(lambda: F.rms_norm(x, (d,), weight=scale, eps=eps))
-                rec["bound_ms"], rec["bound_by"] = bound(2 * rows * d * 2 + d * 2, 4 * rows * d)
+                rec.update(timed(lambda: ops.rmsnorm_2d(x, scale, eps=eps), lambda: ref.rmsnorm(x, scale, eps),
+                                 lambda: F.rms_norm(x, (d,), weight=scale, eps=eps), 2 * rows * d * 2 + d * 2,
+                                 4 * rows * d))
                 timing[rows] = rec
             log(json.dumps(rec))
             if not ok:
@@ -233,7 +299,23 @@ def _tables(gen, dev, slots, maxp, lengths_list):
     return pt, lens
 
 
+def _last_writer_rows(new, pt, lens, t):
+    """The pool rows and new rows that survive the last-writer rule: what
+    the ``index_put_`` yardstick is handed (its indices already resolved)."""
+    from repro_torch.kernels.paged_attn import ref
+
+    page_ids, offs = ref.append_targets(pt, lens, t, PAGE)
+    flat = (page_ids.long() * PAGE + offs.long()).reshape(-1)
+    keep = ref._last_writer(flat)
+    return flat[keep], new.reshape(-1, *new.shape[2:])[keep]
+
+
 def check_paged_append(dev, gen):
+    """K10 against its plain version, bitwise: one pool (``paged_append_``)
+    and both pools in one launch (``paged_append_kv_``, the serving path's
+    call), at T 1 and T 32 and at an S*T that spans several CTAs and several
+    tiles of targets; timed in bf16 beside ``index_put_`` (one call a pool),
+    with the wrapper's host and device time a call."""
     import torch
 
     from repro_torch.kernels.paged_attn import ops, ref
@@ -242,37 +324,156 @@ def check_paged_append(dev, gen):
     num_pages = SLOTS * maxp + 1
     worst, timing = 0.0, {}
     # ragged lengths, page-boundary crossings, the last position maxp*page-1,
-    # positions clamped past the table end (T=32 from 500), idle slot 0
-    cases = {1: [0, 17, 300, maxp * PAGE - 1], 32: [0, 17, 290, 500]}
+    # positions clamped past the table end (T=32 from 500; T=700 from 0 runs
+    # 188 tokens past it), idle slot 0
+    cases = {1: [0, 17, 300, maxp * PAGE - 1], 32: [0, 17, 290, 500], 700: [0, 0, 17, 300]}
     for dtype in (torch.bfloat16, torch.float32):
         for t, lens_list in cases.items():
             pt, lens = _tables(gen, dev, SLOTS, maxp, lens_list)
             pool0 = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
+            poolv0 = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
             new = torch.randn(SLOTS, t, kv, d, generator=gen, device=dev).to(dtype)
+            newv = torch.randn(SLOTS, t, kv, d, generator=gen, device=dev).to(dtype)
             got = ops.paged_append_(pool0.clone(), new, pt, lens)
             want = ref.paged_append_(pool0.clone(), new, pt, lens)
-            err = float((got.float() - want.float()).abs().max())
+            got_kv = ops.paged_append_kv_(pool0.clone(), poolv0.clone(), new, newv, pt, lens)
+            want_v = ref.paged_append_(poolv0.clone(), newv, pt, lens)
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in
+                      ((got, want), (got_kv[0], want), (got_kv[1], want_v)))
             ok = err == 0.0 and not torch.equal(got, pool0)
             rec = dict(kernel="K10 paged_append", dtype=str(dtype).split(".")[-1], slots=SLOTS, T=t,
-                       lengths=lens_list, max_abs_err=err, bound="bitwise (same last-writer rule)", ok=ok)
-            if dtype == torch.bfloat16:
+                       lengths=lens_list, max_abs_err=err, bound="bitwise (same last-writer rule), one pool and both",
+                       ok=ok)
+            if dtype == torch.bfloat16 and t in (1, 32):
                 worst = max(worst, err)
-                pool = pool0.clone()
-                rec["ms"] = time_ms(lambda: ops.paged_append_(pool, new, pt, lens))
-                rec["plain_ms"] = time_ms(lambda: ref.paged_append_(pool, new, pt, lens))
-                page_ids, offs = ref.append_targets(pt, lens, t, PAGE)
-                flat = (page_ids.long() * PAGE + offs.long()).reshape(-1)
-                keep = ref._last_writer(flat)
-                idx, rows = flat[keep], new.reshape(-1, kv, d)[keep]
-                view = pool.view(-1, kv, d)
-                rec["library_ms"] = time_ms(lambda: view.index_put_((idx,), rows))
+                pool, poolv = pool0.clone(), poolv0.clone()
+                idx, rows = _last_writer_rows(new, pt, lens, t)
+                _, rows_v = _last_writer_rows(newv, pt, lens, t)
+                view, view_v = pool.view(-1, kv, d), poolv.view(-1, kv, d)
                 row_bytes = kv * d * 2
-                rec["bound_ms"], rec["bound_by"] = bound(2 * SLOTS * t * row_bytes + 4 * SLOTS + 4 * SLOTS * t)
+                nbytes = 2 * SLOTS * t * row_bytes + 4 * SLOTS + 4 * SLOTS * t
+                rec.update(timed(lambda: ops.paged_append_(pool, new, pt, lens),
+                                 lambda: ref.paged_append_(pool, new, pt, lens),
+                                 lambda: view.index_put_((idx,), rows), nbytes))
+                rec["library"] = "index_put_ with the last writers already resolved"
+
+                def two_index_puts():
+                    view.index_put_((idx,), rows)
+                    view_v.index_put_((idx,), rows_v)
+
+                rec["kv"] = timed(lambda: ops.paged_append_kv_(pool, poolv, new, newv, pt, lens),
+                                  lambda: (ref.paged_append_(pool, new, pt, lens), ref.paged_append_(poolv, newv, pt, lens)),
+                                  two_index_puts, 2 * nbytes - 4 * SLOTS - 4 * SLOTS * t)
+                rec["kv"]["library"] = "two index_put_ calls (K and V), the last writers already resolved"
                 timing[t] = rec
             log(json.dumps(rec))
             if not ok:
                 raise AssertionError(f"K10 paged_append kernel disagrees with plain: {rec}")
     return worst, timing
+
+
+def paged_append_host_split(dev, gen):
+    """The K10 wrapper's host time, step by step, at serving's decode shape
+    (bf16, S 4, T 1): ``time.perf_counter_ns`` over 1,000 calls of each step
+    (the median of five means of 200).
+    The steps as the wrapper took them before this split was measured (a set
+    of devices, six table checks with two device comparisons, an unconditional
+    ``to(...).contiguous()``, a ``torch.cuda.Stream`` built to read its
+    handle) and as it takes them now, the launch alone (ctypes and the CUDA
+    launch, arguments ready), and the whole calls beside ``index_put_``."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attn import ops
+
+    kv, d, maxp = 4, 128, MAX_LEN // PAGE
+    pt, lens = _tables(gen, dev, SLOTS, maxp, [0, 17, 300, 400])
+    pool = torch.randn(SLOTS * maxp + 1, PAGE, kv, d, generator=gen, device=dev).to(torch.bfloat16)
+    poolv = pool.clone()
+    new = torch.randn(SLOTS, 1, kv, d, generator=gen, device=dev).to(torch.bfloat16)
+    idx, rows = _last_writer_rows(new, pt, lens, 1)
+    view = pool.view(-1, kv, d)
+    ts = (pool, new, pt, lens)
+    args = (pool.data_ptr(), new.data_ptr(), pt.data_ptr(), lens.data_ptr(), SLOTS, 1, maxp, PAGE, pool.shape[0],
+            kv * d * 2, _build.stream_ptr(dev))
+    args0 = args[:4] + (0,) + args[5:]
+
+    def devices_before():
+        devs = {t.device.type for t in ts}
+        return devs == {"cuda"} and len({t.device for t in ts}) == 1
+
+    def tables_before():
+        return (pt.dtype != torch.int32 or lens.dtype != torch.int32, pt.dim() != 2 or pt.shape[0] != SLOTS
+                or lens.shape != (SLOTS,), pt.device != pool.device or lens.device != pool.device,
+                not (pt.is_contiguous() and lens.is_contiguous()), not pool.is_contiguous(), _build.dtype_code(pool.dtype))
+
+    steps = {
+        "before: set of devices": devices_before,
+        "now: _on_cpu": lambda: ops._on_cpu(*ts),
+        "before: table, pool and dtype checks": tables_before,
+        "now: table, pool and dtype checks": lambda: (ops._check_tables(pt, lens, SLOTS), pool.is_contiguous(),
+                                                      _build.dtype_code(pool.dtype), ops._as_pool(new, pool.dtype)),
+        "before: new.to(dtype).contiguous()": lambda: new.to(pool.dtype).contiguous(),
+        "data_ptr() x4": lambda: (pool.data_ptr(), new.data_ptr(), pt.data_ptr(), lens.data_ptr()),
+        "before: torch.cuda.current_stream(dev).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "now: _build.stream_ptr": lambda: _build.stream_ptr(dev),
+        "ctypes call that launches nothing (S 0)": lambda: ops.APPEND.launch("paged_append_launch", *args0),
+        "launch (ctypes + CUDA launch, arguments ready)": lambda: ops.APPEND.launch("paged_append_launch", *args),
+        "whole: paged_append_ (one pool)": lambda: ops.paged_append_(pool, new, pt, lens),
+        "whole: paged_append_kv_ (both pools)": lambda: ops.paged_append_kv_(pool, poolv, new, new, pt, lens),
+        "whole: index_put_": lambda: view.index_put_((idx,), rows),
+    }
+    split = {name: host_us(fn) for name, fn in steps.items()}
+    rec = dict(check="K10 wrapper host time a call, step by step (bf16 S=4 T=1)", host_us=split)
+    log(json.dumps(rec))
+    return split
+
+
+def rmsnorm_host_split(dev, gen):
+    """The K7 forward wrapper's host time, step by step, at serving's decode
+    rows (bf16, 4 x 3584), as :func:`paged_append_host_split` does for K10."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import ops
+
+    d = 3584
+    x = torch.randn(SLOTS, d, generator=gen, device=dev).to(torch.bfloat16)
+    scale = torch.ones(d, device=dev, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    args = (x.data_ptr(), scale.data_ptr(), out.data_ptr(), SLOTS, d, 1e-5, 1, *ops.plan(d, 2), _build.stream_ptr(dev))
+    args0 = args[:3] + (0,) + args[4:]
+    x3 = x.reshape(SLOTS, 1, d)
+
+    def checks():
+        return (x.dim() != 2 or scale.shape != (x.shape[1],), x.is_cpu and scale.is_cpu,
+                not x.is_cuda or scale.get_device() != x.get_device(), scale.dtype != x.dtype,
+                not (x.is_contiguous() and scale.is_contiguous()), _build.dtype_code(x.dtype))
+
+    def reshape_before():  # what rmsnorm() did around rmsnorm_2d before it read x in place
+        x2 = x3.reshape(-1, d).contiguous()
+        wants_grad = torch.is_grad_enabled() and (x3.requires_grad or scale.requires_grad)
+        return x3.numel(), x2, wants_grad, out.reshape(*x3.shape[:-1], d)
+
+    steps = {
+        "checks": checks,
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "torch.empty(shape, dtype, device)": lambda: torch.empty((SLOTS, d), dtype=x.dtype, device=dev),
+        "plan (cached)": lambda: ops.plan(d, x.element_size()),
+        "data_ptr() x3": lambda: (x.data_ptr(), scale.data_ptr(), out.data_ptr()),
+        "_build.stream_ptr": lambda: _build.stream_ptr(x.device),
+        "ctypes call that launches nothing (rows 0)": lambda: ops.KERNEL.launch("rmsnorm_launch", *args0),
+        "launch (ctypes + CUDA launch, arguments ready)": lambda: ops.KERNEL.launch("rmsnorm_launch", *args),
+        "before: rmsnorm's reshape to rows and back": reshape_before,
+        "whole: rmsnorm_2d": lambda: ops.rmsnorm_2d(x, scale),
+        "whole: rmsnorm (4, 1, 3584), as the model calls it": lambda: ops.rmsnorm(x3, scale),
+        "whole: F.rms_norm": lambda: F.rms_norm(x, (d,), weight=scale, eps=1e-5),
+    }
+    split = {name: host_us(fn) for name, fn in steps.items()}
+    rec = dict(check="K7 forward wrapper host time a call, step by step (bf16 4 x 3584)", host_us=split)
+    log(json.dumps(rec))
+    return split
 
 
 def check_paged_attend(dev, gen):
@@ -946,10 +1147,9 @@ def check_rmsnorm_bwd(dev, gen):
             if dtype == torch.bfloat16 and rows == 1024:
                 xl, sl = x.detach().requires_grad_(True), scale.detach().requires_grad_(True)
                 yl = F.rms_norm(xl, (d,), weight=sl, eps=eps)
-                rec["ms"] = time_ms(lambda: ops.rmsnorm_bwd(x, scale, dy, eps=eps))
-                rec["plain_ms"] = time_ms(lambda: ref.rmsnorm_bwd(x, scale, dy, eps))
-                rec["library_ms"] = time_ms(lambda: torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True))
-                rec["bound_ms"], rec["bound_by"] = bound(3 * rows * d * 2 + 2 * d * 2, 10 * rows * d)
+                rec.update(timed(lambda: ops.rmsnorm_bwd(x, scale, dy, eps=eps), lambda: ref.rmsnorm_bwd(x, scale, dy, eps),
+                                 lambda: torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True),
+                                 3 * rows * d * 2 + 2 * d * 2, 10 * rows * d))
                 timing = rec
             log(json.dumps(rec))
             if not ok:
@@ -1086,6 +1286,57 @@ def check_wkv(dev, gen):
     return worst, timing
 
 
+# the K7 planner's branches (kernels/rmsnorm/ops.py::plan, bwd_plan): a
+# sub-warp a row (64, the group norm's width; 80, a sub-warp with idle lanes),
+# a CTA a row (2048, 3584 and 4096, each of whole vectors a thread) and the
+# block kernel (4097, not in whole vectors), each at ragged row counts
+RMS_PLAN_DS = (64, 80, 2048, 3584, 4096, 4097)
+RMS_PLAN_ROWS = (1, 7, 33, 300)
+
+
+def check_rmsnorm_plans(dev, gen):
+    """K7 forward and backward in f32 and bf16 at every branch of the
+    planner, against the plain versions within the stated bounds, the same
+    bits on a second launch of each."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in RMS_PLAN_DS:
+            for rows in RMS_PLAN_ROWS:
+                x = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+                scale = (1 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+                dy = torch.randn(rows, d, generator=gen, device=dev).to(dtype)
+                y, want = ops.rmsnorm_2d(x, scale, eps=1e-5), ref.rmsnorm(x, scale, 1e-5)
+                err = (y.float() - want.float()).abs()
+                if dtype == torch.bfloat16:
+                    lim = bf16_ulp(want)
+                else:
+                    lim = 2e-5 * want.float().abs() + 1e-6
+                ok = bool((err <= lim).all()) and torch.equal(y, ops.rmsnorm_2d(x, scale, eps=1e-5))
+                got, wb = ops.rmsnorm_bwd(x, scale, dy, eps=1e-5), ref.rmsnorm_bwd(x, scale, dy, 1e-5)
+                ok &= all(torch.equal(a, b) for a, b in zip(got, ops.rmsnorm_bwd(x, scale, dy, eps=1e-5)))
+                errs = [float(err.max())]
+                for g, w in zip(got, wb):
+                    e = (g.float() - w.float()).abs()
+                    lim = 1e-5 * w.float().abs().max() + (bf16_ulp(w) if dtype == torch.bfloat16 else 0.0)
+                    ok &= bool((e <= lim).all())
+                    errs.append(float(e.max()))
+                key = f"{_name(dtype)} d={d}"
+                worst[key] = max(worst.get(key, 0.0), *errs)
+                if not ok:
+                    raise AssertionError(f"K7 at ({rows}, {d}) {dtype}: plan {ops.plan(d, x.element_size())}, "
+                                         f"bwd plan {ops.bwd_plan(rows, d, x.element_size())}: max errors {errs}")
+    rec = dict(check="K7 forward and backward at every branch of the planner", rows=RMS_PLAN_ROWS,
+               plans={d: [ops.plan(d, 2), ops.bwd_plan(300, d, 2)[0]] for d in RMS_PLAN_DS}, max_abs_err=worst,
+               bound="forward: 1 bf16 ulp / 2e-5*|plain| + 1e-6; backward: + 1e-5*max|plain|", deterministic=True,
+               ok=True)
+    log(json.dumps(rec))
+    return rec
+
+
 # (key, rows, d, what): the rwkv6 group norm, B*S*H rows (2 * 512 * 64) of
 # head_dim 64; zamba2-1.2b's norms at B*S = 1024 rows, d_model 2048 (ln1 of
 # each mamba2 layer and of the shared block, its ln2, the final norm) and
@@ -1127,13 +1378,11 @@ def check_rmsnorm_at(dev, gen, rows, d, what):
         errs[nm] = float(e.max())
     xl, sl = x.detach().requires_grad_(True), scale.detach().requires_grad_(True)
     yl = F.rms_norm(xl, (d,), weight=sl, eps=eps)
-    fwd = dict(ms=time_ms(lambda: ops.rmsnorm_2d(x, scale, eps=eps)), plain_ms=time_ms(lambda: ref.rmsnorm(x, scale, eps)),
-               library_ms=time_ms(lambda: F.rms_norm(x, (d,), weight=scale, eps=eps)))
-    fwd["bound_ms"], fwd["bound_by"] = bound(2 * rows * d * 2 + d * 2, 4 * rows * d)
-    bwd = dict(ms=time_ms(lambda: ops.rmsnorm_bwd(x, scale, dy, eps=eps)),
-               plain_ms=time_ms(lambda: ref.rmsnorm_bwd(x, scale, dy, eps)),
-               library_ms=time_ms(lambda: torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True)))
-    bwd["bound_ms"], bwd["bound_by"] = bound(3 * rows * d * 2 + 2 * d * 2, 10 * rows * d)
+    fwd = timed(lambda: ops.rmsnorm_2d(x, scale, eps=eps), lambda: ref.rmsnorm(x, scale, eps),
+                lambda: F.rms_norm(x, (d,), weight=scale, eps=eps), 2 * rows * d * 2 + d * 2, 4 * rows * d)
+    bwd = timed(lambda: ops.rmsnorm_bwd(x, scale, dy, eps=eps), lambda: ref.rmsnorm_bwd(x, scale, dy, eps),
+                lambda: torch.autograd.grad(yl, (xl, sl), dy, retain_graph=True), 3 * rows * d * 2 + 2 * d * 2,
+                10 * rows * d)
     rec = dict(kernel=f"K7 rmsnorm forward and backward ({what})", dtype="bfloat16", rows=rows, d=d,
                max_abs_err=dict(y=float(err.max()), **errs),
                bound="1 bf16 ulp of plain (forward); + 1e-5*max|plain| (backward)", deterministic=True, fwd=fwd,
@@ -1405,7 +1654,7 @@ def serve_full_width(dev, kernels):
     profile = profile_run(engine(BatchedEngine), res1, events1)
     n_pre, n_dec = len(timed.ms["prefill"]), len(timed.ms["decode"])
     layers = cfg.num_layers
-    expect = {"rmsnorm": (2 * layers + 1) * (n_pre + n_dec), "paged_append": 2 * layers * (n_pre + n_dec),
+    expect = {"rmsnorm": (2 * layers + 1) * (n_pre + n_dec), "paged_append": layers * (n_pre + n_dec),
               "paged_attend": layers * n_dec}
     if launches != expect:
         raise AssertionError(f"launch counts {launches} != implied by {n_pre} prefill + {n_dec} decode forwards: {expect}")
@@ -2436,7 +2685,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rms_err, rms_t = check_rmsnorm(dev, gen)
+    rms_plans = check_rmsnorm_plans(dev, gen)
+    rms_split = rmsnorm_host_split(dev, gen)
     app_err, app_t = check_paged_append(dev, gen)
+    app_split = paged_append_host_split(dev, gen)
     att_err, att_t, att_g12, att_d80 = check_paged_attend(dev, gen)
     opt_err, opt_t = check_opt_step(dev, gen)
     mix_err, mix_t = check_anchor_mix(dev, gen)
@@ -2533,6 +2785,7 @@ def main() -> int:
          "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["bwd"], ssd_t["bwd"], ssd_slice, None),
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    split_keys = ("host_us", "device_us", "device_kernels")  # K7 and K10: host or device time a call
     k5 = mix_t["K5"]
     rows.insert(7, ("anchor_mix", "anchor_mix", "K5 anchor_mix_flat", "src/repro/kernels/anchor_mix/kernel.py:51",
                     mix_err["K5"], k5[("slice", "float32")], "f32 m=16 n=17408 (the classifier's gossip plane)",
@@ -2569,7 +2822,8 @@ def main() -> int:
     for name, source, label, replaces, err, t, shape, large in rows:
         entry = dict(
             name=label, route="cuda", source=f"src/repro_torch/csrc/{source}.cu", replaces=replaces,
-            launches=launches[name], max_abs_err=err, **{k: t[k] for k in keys}, shape=shape, status="ok", card=card,
+            launches=launches[name], max_abs_err=err, **{k: t[k] for k in keys + split_keys if k in t}, shape=shape,
+            status="ok", card=card,
         )
         if "library_fwd_bwd_ms" in t:  # K6's backward: SDPA forward + backward too
             entry["library_fwd_bwd_ms"] = t["library_fwd_bwd_ms"]
@@ -2623,12 +2877,22 @@ def main() -> int:
                                         f32_max_abs_err=att_d80["f32_max_abs_err"], **{k: att_d80[k] for k in keys})
         if name in ("rmsnorm", "rmsnorm_bwd"):  # the rwkv6 group norm's rows, zamba2's two widths
             for key, rows_, d_, what in RMS_SHAPES:
-                rec_ = rms_shapes[key]
-                entry[key] = dict(shape=f"bf16 rows={rows_} d={d_} ({what})", max_abs_err=rec_["max_abs_err"],
-                                  **{k: rec_["fwd" if name == "rmsnorm" else "bwd"][k] for k in keys})
+                rec_ = rms_shapes[key]["fwd" if name == "rmsnorm" else "bwd"]
+                entry[key] = dict(shape=f"bf16 rows={rows_} d={d_} ({what})", max_abs_err=rms_shapes[key]["max_abs_err"],
+                                  **{k: rec_[k] for k in keys + split_keys})
             entry["launches_by_path"] = by_path[name]
+            entry["planner"] = dict(plans=rms_plans["plans"], max_abs_err=rms_plans["max_abs_err"])
+            if name == "rmsnorm":
+                entry["host_split_us"] = rms_split
+        if name == "paged_append":  # both pools in one launch (the serving path's call), T 32, the host split
+            entry["library"] = t["library"]
+            entry["kv"] = dict(shape="bf16 S=4 T=1 KV=4 D=128, K and V pools", **t["kv"])
+            entry["T32"] = dict(shape="bf16 S=4 T=32 KV=4 D=128 (a prefill chunk)",
+                                **{k: app_t[32][k] for k in keys + split_keys}, kv=app_t[32]["kv"])
+            entry["host_split_us"] = app_split
         out.append(entry)
-    out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys})
+    out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys + split_keys})
+    out[0]["prefill"] = dict(shape="bf16 rows=32 d=3584 (a prefill chunk)", **{k: rms_t[32][k] for k in keys + split_keys})
     log(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}), flush=True)

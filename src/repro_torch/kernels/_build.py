@@ -136,7 +136,10 @@ def build_all(kernels: Sequence[Kernel]) -> None:
 
 
 def stream_ptr(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current CUDA stream of ``device`` (a tensor's,
+    so its index is set), read without building a ``torch.cuda.Stream``
+    object, which costs microseconds a launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -9,9 +9,9 @@ Ported: ``init_gqa``, ``_project_qkv`` (with ``qkv_bias``), the pre-scaling
   sequence through ``_sdpa``, which is kernel K6 (``flash_attention``,
   forward and backward kernels) for CUDA tensors and its plain version for
   CPU tensors;
-* ``mode="decode"`` with ``paged=``: append K, append V (kernel K10, in
-  place), then attend (kernel K9 for one token per slot; the plain
-  chunked-prefill body for T > 1).
+* ``mode="decode"`` with ``paged=``: append K and V (kernel K10, both pools
+  in one launch, in place), then attend (kernel K9 for one token per slot;
+  the plain chunked-prefill body for T > 1).
 
 MLA, prefill caches and the dense decode path come in later slices.
 """
@@ -93,8 +93,8 @@ def gqa_apply(
     if mode == "train":
         out = _sdpa(q, k, v, causal=True, window=window, q_offset=0)
     elif mode == "decode" and paged is not None:
-        pool_k = pa_ops.paged_append_(cache["pool_k"], k, paged.page_tables, paged.lengths)
-        pool_v = pa_ops.paged_append_(cache["pool_v"], v, paged.page_tables, paged.lengths)
+        pool_k, pool_v = pa_ops.paged_append_kv_(cache["pool_k"], cache["pool_v"], k, v, paged.page_tables,
+                                                 paged.lengths)
         out = pa_ops.paged_attend_gqa(q, pool_k, pool_v, paged.page_tables, paged.lengths, window=window)
     else:
         raise NotImplementedError(f"gqa_apply(mode={mode!r}, paged={paged is not None}): prefill caches and the "

@@ -184,6 +184,59 @@ def test_rmsnorm_bwd_plain_is_autograd_of_plain_forward(rng):
     assert rms_ops.rmsnorm(x.detach(), s.detach()).grad_fn is None
 
 
+RMS_PLAN_DS = (64, 80, 2048, 3584, 4096, 4097)
+RMS_PLAN_ROWS = (1, 7, 33, 300, 65536)
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("d", RMS_PLAN_DS)
+def test_rmsnorm_plan_lays_every_vector_once(d, elem):
+    """The forward planner: a sub-warp (a power of two <= 32 lanes) a row up
+    to d 1024, a CTA (a multiple of 32 threads, at most 512) a row above it,
+    the block kernel where d is not in whole 16-byte vectors; thread i holds
+    vectors i, i + lanes, ... (at most ``vecs``), which cover the row's
+    vectors once each; the grid covers ragged row counts."""
+    lanes, vecs = rms_ops.plan(d, elem)
+    per = 16 // elem
+    if d % per:
+        assert (lanes, vecs) == (0, 0)
+        return
+    nv = d // per
+    assert vecs in (1, 2, 4, 8)
+    held = sorted(i + v * lanes for i in range(lanes) for v in range(vecs) if i + v * lanes < nv)
+    assert held == list(range(nv))
+    if d <= rms_ops.NARROW_D:
+        assert lanes <= 32 and lanes & (lanes - 1) == 0
+        for rows in RMS_PLAN_ROWS:
+            per_cta = 256 // lanes
+            ctas = -(-rows // per_cta)
+            assert (ctas - 1) * per_cta < rows <= ctas * per_cta
+    else:
+        assert lanes % 32 == 0 and 32 < lanes <= rms_ops.WIDE_THREADS
+        if elem == 2 and d in (2048, 3584, 4096):  # whole vectors a thread: 256, 448, 512 threads of one
+            assert (lanes, vecs) == (d // 8, 1)
+    assert d != 64 or elem != 2 or (lanes, vecs) == (8, 1)  # the group norm: 8 lanes of one vector, 32 rows a CTA
+
+
+@pytest.mark.parametrize("rows", RMS_PLAN_ROWS)
+@pytest.mark.parametrize("d", RMS_PLAN_DS)
+def test_rmsnorm_bwd_plan_splits_rows_in_fixed_blocks(d, rows):
+    """The backward planner: rows of at most 32 vectors go to the sub-warp
+    kernel with a row range a multiple of its 1024 // lanes sub-warps and at
+    most one block an SM; wider rows to the block kernel over at most
+    ``BWD_BLOCKS`` blocks. The blocks' ranges cover every row once."""
+    for elem in (2, 4):
+        lanes, per_block = rms_ops.bwd_plan(rows, d, elem)
+        blocks = -(-rows // per_block)
+        assert (blocks - 1) * per_block < rows <= blocks * per_block
+        nv = d // (16 // elem)
+        if d % (16 // elem) == 0 and nv <= 32:
+            assert lanes & (lanes - 1) == 0 and nv <= lanes <= 32
+            assert per_block % (rms_ops.BWD_THREADS // lanes) == 0 and blocks <= rms_ops.SMS
+        else:
+            assert lanes == 0 and blocks <= rms_ops.BWD_BLOCKS
+
+
 # -- K6 flash attention ------------------------------------------------------------
 
 # the reference's own kernel sweep (tests/test_kernels.py): GQA, a ragged S,
@@ -387,6 +440,60 @@ def test_paged_append_is_in_place_and_clamps(rng):
     # positions 4..9: page idx 1 (offsets 0..3), then 8, 9 clamp onto page 1 offsets 0, 1
     np.testing.assert_array_equal(pool[1, :, 0, 0].numpy(), [9, 11, 5, 7])
     assert pool[3].abs().sum() == 0 and pool[0].abs().sum() == 0
+
+
+def _append_kv_case(rng, t):
+    """4 slots for both pools: a live mid-page slot, two idle slots (zero
+    table rows, length 0) that both write trash page 0, and a slot whose
+    positions run past the end of its table (clamped onto its last page,
+    where at T > 1 its own later tokens overwrite earlier ones)."""
+    pools = [rng.normal(size=(9, 8, 2, 16)).astype(np.float32) for _ in range(2)]
+    news = [rng.normal(size=(4, t, 2, 16)).astype(np.float32) for _ in range(2)]
+    pt = np.asarray([[3, 5], [0, 0], [7, 8], [0, 0]], np.int32)
+    lens = np.asarray([5, 0, 17, 0], np.int32)
+    return pools, news, pt, lens
+
+
+def test_paged_append_kv_plain_bitwise_vs_pallas_interpret(rng, jx):
+    """T 1 (decode): both pools against the Pallas kernel in interpret mode,
+    slot 3's row winning page 0 over slot 1's."""
+    (pk, pv), (k, v), pt, lens = _append_kv_case(rng, 1)
+    pad = ((0, 0), (0, 0), (0, 0), (0, 112))
+    want = [np.asarray(jx.pa_kernel.paged_append_decode(
+        jx.jnp.pad(jx.jnp.asarray(pool), pad), jx.jnp.pad(jx.jnp.asarray(new[:, 0]), pad[1:]), jx.jnp.asarray(pt),
+        jx.jnp.asarray(lens), interpret=True)[..., :16]) for pool, new in ((pk, k), (pv, v))]
+    got = pa_ops.paged_append_kv_(_t(pk), _t(pv), _t(k), _t(v), _t(pt), _t(lens))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    np.testing.assert_array_equal(got[0][0, 0].numpy(), k[3, 0])
+
+
+@pytest.mark.parametrize("t", [4, 11])
+def test_paged_append_kv_plain_bitwise_vs_jax_ref(t, rng, jx):
+    """T > 1 (prefill chunks): both pools against JAX's plain
+    ``paged_append``, with the clamped slot's and the idle slots' collisions."""
+    (pk, pv), (k, v), pt, lens = _append_kv_case(rng, t)
+    got = pa_ops.paged_append_kv_(_t(pk), _t(pv), _t(k), _t(v), _t(pt), _t(lens))
+    for g, pool, new in zip(got, (pk, pv), (k, v)):
+        want = jx.pa_ref.paged_append(*map(jx.jnp.asarray, (pool, new, pt, lens)))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+
+
+def test_paged_append_kv_checks(rng):
+    (pk, pv), (k, v), pt, lens = _append_kv_case(rng, 1)
+    pk, pv, k, v, pt, lens = map(_t, (pk, pv, k, v, pt, lens))
+    with pytest.raises(ValueError, match="must match"):
+        pa_ops.paged_append_kv_(pk, pv[:4], k, v, pt, lens)
+    with pytest.raises(ValueError, match="must match"):
+        pa_ops.paged_append_kv_(pk, pv, k, v[:, :, :1], pt, lens)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        pa_ops.paged_append_kv_(pk, pv.double(), k, v, pt, lens)
+    # a device the kernels do not run on is refused, not sent to the plain path
+    meta = [t.to("meta") for t in (pk, pv, k, v, pt, lens)]
+    with pytest.raises(ValueError, match="unsupported devices"):
+        pa_ops.paged_append_kv_(*meta)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        pa_ops.paged_append_(meta[0], meta[2], meta[4], meta[5])
 
 
 # -- K9 paged attend -------------------------------------------------------------
@@ -767,6 +874,90 @@ def test_paged_append_kernel_bitwise_on_card(cuda, t):
     got = pa_ops.paged_append_(pool.clone(), new, pt, lens)
     want = pa_ref.paged_append_(pool.clone(), new, pt, lens)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 32, 700])
+def test_paged_append_kv_kernel_bitwise_on_card(cuda, t):
+    """Both pools in one launch, bitwise the plain version on each pool: at
+    decode, at a prefill chunk, and at S*T = 2,800 rows (350 CTAs, the later
+    writers' targets in three tiles), with two idle slots on page 0 and
+    positions clamped past the table's end."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    pools = [torch.randn(129, 16, 4, 128, generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2)]
+    news = [torch.randn(4, t, 4, 128, generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2)]
+    pt = (torch.randperm(128, generator=gen, device=cuda).to(torch.int32) + 1).reshape(4, 32).contiguous()
+    pt[0] = 0
+    pt[2] = 0
+    lens = torch.tensor([0, 17, 0, {1: 511, 32: 500, 700: 300}[t]], dtype=torch.int32, device=cuda)
+    got = pa_ops.paged_append_kv_(pools[0].clone(), pools[1].clone(), news[0], news[1], pt, lens)
+    for g, pool, new in zip(got, pools, news):
+        assert torch.equal(g, pa_ref.paged_append_(pool.clone(), new, pt, lens))
+
+
+@pytest.mark.cuda
+def test_paged_append_and_rmsnorm_wrappers_raise_on_card(cuda):
+    """Each check of the CUDA paths raises its error class: a dtype the
+    kernel does not take, a tensor on another device, a non-contiguous pool
+    or row block, a table of the wrong shape."""
+    pool = torch.zeros(9, 8, 2, 16, device=cuda)
+    new = torch.zeros(2, 1, 2, 16, device=cuda)
+    pt = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    lens = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        pa_ops.paged_append_kv_(pool, pool.clone(), new, new, pt.long(), lens)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        pa_ops.paged_append_(pool.half(), new, pt, lens)
+    with pytest.raises(ValueError, match="devices"):
+        pa_ops.paged_append_kv_(pool, pool.clone(), new, new, pt.cpu(), lens)
+    strided = torch.zeros(9, 8, 16, 2, device=cuda).transpose(2, 3)  # the pool's shape, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        pa_ops.paged_append_(strided, new, pt, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa_ops.paged_append_kv_(pool, strided, new, new, pt, lens)
+    with pytest.raises(ValueError, match="page_tables"):
+        pa_ops.paged_append_kv_(pool, pool.clone(), new, new, pt[:1], lens)
+    x, s = torch.zeros(4, 64, device=cuda), torch.ones(64, device=cuda)
+    with pytest.raises(ValueError, match="scale on cpu"):
+        rms_ops.rmsnorm_2d(x, s.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        rms_ops.rmsnorm_2d(x, s.bfloat16())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rms_ops.rmsnorm_2d(x.half(), s.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        rms_ops.rmsnorm_2d(torch.zeros(64, 4, device=cuda).t(), s)
+    with pytest.raises(ValueError, match="dy on cpu"):
+        rms_ops.rmsnorm_bwd(x, s, x.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", RMS_PLAN_DS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernels_at_every_plan_on_card(cuda, dtype, d):
+    """K7 forward and backward at each branch of the planner (a sub-warp a
+    row at 64 and 80, a CTA a row at 2048, 3584 and 4096, the block kernel
+    at 4097), at ragged row counts, within the stated bounds, and the same
+    bits on a second launch."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    for rows in (1, 7, 33, 300, 4099):
+        x = torch.randn(rows, d, generator=gen, device=cuda).to(dtype)
+        s = (1 + 0.1 * torch.randn(d, generator=gen, device=cuda)).to(dtype)
+        dy = torch.randn(rows, d, generator=gen, device=cuda).to(dtype)
+        y, want = rms_ops.rmsnorm_2d(x, s), rms_ref.rmsnorm(x, s)
+        assert torch.equal(y, rms_ops.rmsnorm_2d(x, s))
+        err = (y.float() - want.float()).abs()
+        if dtype == torch.float32:
+            assert bool((err <= 2e-5 * want.abs() + 1e-6).all())
+        else:
+            assert bool((err <= torch.from_numpy(_bf16_ulp(want.float().cpu().numpy())).to(cuda)).all())
+        got = rms_ops.rmsnorm_bwd(x, s, dy)
+        assert all(torch.equal(a, b) for a, b in zip(got, rms_ops.rmsnorm_bwd(x, s, dy)))
+        for a, w in zip(got, rms_ref.rmsnorm_bwd(x, s, dy)):
+            e, w = (a.float() - w.float()).abs(), w.float()
+            lim = 1e-5 * w.abs().max()
+            if dtype == torch.bfloat16:
+                lim = lim + torch.from_numpy(_bf16_ulp(w.cpu().numpy())).to(cuda)
+            assert bool((e <= lim).all())
 
 
 @pytest.mark.cuda
