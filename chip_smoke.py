@@ -25,7 +25,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    (masked and unmasked, ``mean_pre``) and K5 ``anchor_mix`` (beside
    ``torch.lerp_`` and a ``copy_``) in f32 and bf16, at the classifier's
    plane (16 x 17,408) and on a 4 x 2^27 plane whose times read bandwidth;
-   all five bitwise against their plain versions; (b') K8
+   all five bitwise against their plain versions; K2 and K5 at the
+   classifier's plane also with the wrapper's host µs and the kernel's
+   device µs a call beside the library call's; K5's gossip form (the gossip
+   boundary in one pass: debias, pullback of the rows that move, push)
+   bitwise against its plain version with a held row at both planes, timed
+   beside the three-op sequence it replaced (div_, K5, torch.matmul over
+   column chunks) and its 4 P m n bytes bound; (b') K8
    ``consensus_probe`` (the consensus probe of adaptive tau) in f32 and bf16
    at both planes, within rtol 1e-6 of its plain version at the classifier's
    and within two f32 ulps of a float64 sum on the large one, the same bits
@@ -85,7 +91,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    Then sync-SGD for 600 steps, 20 rounds with AdamW (K2) and 20 with
    beta = 0 (K4), each with its launch counts, and one profiled overlap run.
    Then 20 rounds of each remaining strategy: gossip_ring and gossip_exp
-   (K5), gossip_full, easgd and sparse_anchor k 0.25 (K4), cocod,
+   (K5's gossip form), gossip_full, easgd and sparse_anchor k 0.25 (K4), cocod,
    delayed_avg (delay 1) and powersgd rank 2 (K1 only), each with exact
    launch counts, bitwise replay and its losses against the CPU's. Then
    this slice's runs: fit(adaptive_tau=...) for 6 rounds from tau 1 with
@@ -109,9 +115,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    memory and one profiled round with K6's share of it. (c) The gossip
    path: the same model and data trained with gossip_ring (push-sum over a
    ring of 4), 3 rounds
-   from zeroed counters: K5 once a boundary and K3/K4 never, the other
-   counts as in (b); bitwise replay; K5 bitwise at the plane's last
-   columns; rounds/s, step ms, peak memory and one profiled round. (d) The
+   from zeroed counters: K5's gossip form once a bucket a boundary, the
+   standalone K5 and K3/K4 never, the other counts as in (b); bitwise
+   replay; the gossip form and then the standalone K5 bitwise at the
+   plane's last columns; rounds/s, step ms, peak memory and one profiled
+   round with the gossip form's device time, once a bucket, and no push
+   GEMM or debias division (checked). (d) The
    twin of (a) under a controller with worker 1 crashed for a round: the same
    tau schedule and fault log on the card and the CPU. (e) This slice's LM
    path: the model of (b) from tau 1 under adaptive tau with worker 3
@@ -133,7 +142,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward steps x workers x 5 (group 1: no split sum), K7 forward and
    backward steps x workers x 77, bitwise replay, rounds/s, step ms, peak memory and K11's and K6's
    shares of a profiled round.
-6. One JSON line with every kernel's numbers (K1-K5, K6 forward, backward
+6. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+   with the standalone form beside it, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11 and K12 forward and backward), then the device line
    last.
@@ -177,6 +187,12 @@ def time_ms(fn, iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_ms(fn, iters: int = 50) -> float:
+    """The median of five :func:`time_ms` runs: for rows that a shared host
+    sets, and for rows two kernels are compared on."""
+    return sorted(time_ms(fn, iters) for _ in range(5))[2]
 
 
 def host_us(fn, iters: int = 200, reps: int = 5) -> float:
@@ -227,11 +243,8 @@ def timed(fn, plain, library, nbytes, flops=0.0) -> dict:
     runs of :func:`time_ms`), its host µs and device µs a call, the plain
     version's event time, the library call's (a median as ``ms``), and the
     bound."""
-    def event_ms(f):  # the median of five event times: these rows are host-bound, and the host is shared
-        return sorted(time_ms(f) for _ in range(5))[2]
-
-    rec = dict(ms=event_ms(fn), host_us=host_us(fn), **device_us(fn), plain_ms=time_ms(plain),
-               library_ms=event_ms(library))
+    rec = dict(ms=median_ms(fn), host_us=host_us(fn), **device_us(fn), plain_ms=time_ms(plain),
+               library_ms=median_ms(library))
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
     return rec
 
@@ -626,12 +639,19 @@ def check_opt_step(dev, gen):
             if dtype == torch.float32:
                 it = TIMING_ITERS[shape_name]
                 steps = [torch.full((), 3.0, device=dev)]
-                rec["ms"] = time_ms(lambda: ops.adamw_step(x, g, mu, nu, lr, c1, c2, **adam_kw), it)
-                rec["plain_ms"] = time_ms(lambda: ref.adamw_update(x, g, mu, nu, lr, c1, c2, **adam_kw), it)
-                rec["library_ms"] = time_ms(lambda: torch._fused_adamw_(
+                k2 = lambda: ops.adamw_step(x, g, mu, nu, lr, c1, c2, **adam_kw)  # noqa: E731
+                plain = lambda: ref.adamw_update(x, g, mu, nu, lr, c1, c2, **adam_kw)  # noqa: E731
+                fused = lambda: torch._fused_adamw_(  # noqa: E731
                     [x], [g], [mu], [nu], [], steps, amsgrad=False, lr=0.05, beta1=0.9, beta2=0.95,
-                    weight_decay=1e-4, eps=1e-8, maximize=False), it)
-                rec["bound_ms"], rec["bound_by"] = bound((3 * P + 16) * w * n, 16 * w * n)
+                    weight_decay=1e-4, eps=1e-8, maximize=False)
+                if shape_name == "slice":  # host-bound: medians of five, the host and device split
+                    rec.update(timed(k2, plain, fused, (3 * P + 16) * w * n, 16 * w * n))
+                    rec["library_host_us"], rec["library_device_us"] = host_us(fused), device_us(fused)["device_us"]
+                else:  # K2 against _fused_adamw_: medians of five
+                    rec["ms"] = median_ms(k2, it)
+                    rec["plain_ms"] = time_ms(plain, it)
+                    rec["library_ms"] = median_ms(fused, it)
+                    rec["bound_ms"], rec["bound_by"] = bound((3 * P + 16) * w * n, 16 * w * n)
                 timing["K2"][shape_name] = rec
             log(json.dumps(rec))
             if not rec["ok"]:
@@ -674,11 +694,18 @@ def check_anchor_mix(dev, gen):
             it = TIMING_ITERS[shape_name]
             src = torch.empty(3 * m * n // 2, dtype=dtype, device=dev)
             dst = torch.empty_like(src)
-            rec["ms"] = time_ms(lambda: ops.anchor_mix(x, zx, alpha), it)
-            rec["plain_ms"] = time_ms(lambda: ref.anchor_mix(x, zx, alpha), it)
-            rec["library_ms"] = time_ms(lambda: x.lerp_(zx, alpha), it)
+            k5 = lambda: ops.anchor_mix(x, zx, alpha)  # noqa: E731
+            plain = lambda: ref.anchor_mix(x, zx, alpha)  # noqa: E731
+            lerp = lambda: x.lerp_(zx, alpha)  # noqa: E731
+            if shape_name == "slice":  # host-bound: medians of five, the host and device split
+                rec.update(timed(k5, plain, lerp, 3 * P * m * n, 3 * m * n))
+                rec["library_host_us"], rec["library_device_us"] = host_us(lerp), device_us(lerp)["device_us"]
+            else:  # K5 against lerp_: medians of five
+                rec["ms"] = median_ms(k5, it)
+                rec["plain_ms"] = time_ms(plain, it)
+                rec["library_ms"] = median_ms(lerp, it)
+                rec["bound_ms"], rec["bound_by"] = bound(3 * P * m * n, 3 * m * n)
             rec["copy_ms"] = time_ms(lambda: dst.copy_(src), it)
-            rec["bound_ms"], rec["bound_by"] = bound(3 * P * m * n, 3 * m * n)
             rec["library"] = "torch.lerp_ (x + a (z - x)); copy_ moves the same 3 P m n bytes"
             timing["K5"][(shape_name, _name(dtype))] = rec
             del src, dst, zx
@@ -735,6 +762,82 @@ def check_anchor_mix(dev, gen):
                     if not rec["ok"]:
                         raise AssertionError(f"K4 kernel disagrees with plain: {rec}")
             del x, z, v
+            _free()
+    return worst, timing
+
+
+def _gossip_operands(m, dev, gen, held=True):
+    """A ring's push matrix and the (m,) operands as the gossip boundary
+    forms them. With ``held``: random push weights in [0.6, 1] and row 0
+    with no received mass (live 0, wsafe 1); without: unit weights (a ring's
+    stay at 1) and every row live, so repeated calls keep the plane's scale."""
+    import torch
+
+    from repro_torch.core.topology import cached_topology
+
+    w = 0.6 + 0.4 * torch.rand(m, generator=gen, device=dev) if held else torch.ones(m, device=dev)
+    wsafe, live = w.clone(), torch.ones(m, device=dev)
+    if held:
+        wsafe[0], live[0] = 1.0, 0.0
+    peff = torch.as_tensor(cached_topology("ring", m).mats[0], device=dev) * w[None, :]
+    return wsafe, live, peff.contiguous()
+
+
+def check_gossip_form(dev, gen):
+    """K5's gossip form (the gossip boundary in one pass) against its plain
+    version, bit for bit, with a held row, in f32 and bf16 at the classifier's
+    gossip plane and on a 4 x 2^27 plane; timed with every row live (the
+    bound's 4 P m n bytes: x and mix read and written once) beside the
+    plain version and the three-op sequence it replaced on the same buffers
+    (the debias div_, K5, the push as torch.matmul over column chunks), with
+    the host and device split at the classifier's plane."""
+    import torch
+
+    from repro_torch.core.strategy import _column_chunks
+    from repro_torch.kernels.anchor_mix import ops, ref
+
+    alpha, worst, timing = 0.6, 0.0, {}
+    for shape_name, (m, n) in TRAIN_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            P = torch.finfo(dtype).bits // 8
+            x = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+            mix = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+            wsafe, live, peff = _gossip_operands(m, dev, gen)
+            want = ref.gossip_boundary(x, mix, wsafe, live, peff, alpha)
+            gx, gm = x.clone(), mix.clone()
+            ops.gossip_boundary_(gx, gm, wsafe, live, peff, alpha)
+            ok = bool(torch.equal(gx, want[0]) and torch.equal(gm, want[1]))
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip((gx, gm), want))
+            del want, gx, gm
+            rec = dict(kernel="K5 gossip form", dtype=_name(dtype), shape=[m, n], max_abs_err=err, bound="bitwise (same rounding points, push summed k = 0 .. m-1)", ok=ok)
+            worst = max(worst, err)
+            log(json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"K5 gossip form disagrees with plain: {rec}")
+            wsafe, live, peff = _gossip_operands(m, dev, gen, held=False)
+            wb = wsafe[:, None]
+
+            def form():
+                ops.gossip_boundary_(x, mix, wsafe, live, peff, alpha)
+
+            def three_ops():  # the boundary's body before the gossip form, every row moving
+                mix.div_(wb)
+                ops.anchor_mix(x, mix, alpha)
+                for c in _column_chunks(x):
+                    mix[:, c] = torch.matmul(peff, x[:, c].float())
+
+            it = TIMING_ITERS[shape_name]
+            rec = dict(rec, ms=median_ms(form, it),
+                       plain_ms=time_ms(lambda: ref.gossip_boundary(x, mix, wsafe, live, peff, alpha), it),
+                       library_ms=None, three_op_ms=median_ms(three_ops, it),
+                       library="none (no single torch call); three_op_ms: div_, K5, torch.matmul over column chunks")
+            rec["bound_ms"], rec["bound_by"] = bound(4 * P * m * n, (2 * m + 4) * m * n)
+            if shape_name == "slice":
+                rec.update(host_us=host_us(form), **device_us(form))
+                rec["three_op_device_us"] = device_us(three_ops)["device_us"]
+            timing[(shape_name, _name(dtype))] = rec
+            log(json.dumps(rec))
+            del x, mix
             _free()
     return worst, timing
 
@@ -1818,8 +1921,8 @@ def train_slice(dev, kernels):
 # be sent on one device and held back as error feedback on the other (the
 # port against the JAX package on the CPU: 1.3e-4 after 20 rounds at k 0.25)
 STRATEGY_RUNS = [
-    ("gossip_ring", dict(name="gossip_ring"), {"sgd_step": 2, "anchor_mix": 1}, 1e-4),
-    ("gossip_exp", dict(name="gossip_exp"), {"sgd_step": 2, "anchor_mix": 1}, 1e-4),
+    ("gossip_ring", dict(name="gossip_ring"), {"sgd_step": 2, "gossip_boundary": 1}, 1e-4),
+    ("gossip_exp", dict(name="gossip_exp"), {"sgd_step": 2, "gossip_boundary": 1}, 1e-4),
     ("gossip_full", dict(name="gossip_full"), {"sgd_step": 2, "pullback_mean": 1}, 1e-4),
     ("easgd", dict(name="easgd"), {"sgd_step": 2, "pullback_mean": 1}, 1e-4),
     ("cocod", dict(name="cocod"), {"sgd_step": 2}, 1e-4),
@@ -1886,7 +1989,7 @@ ADAPTIVE_RUNS = [
     ("overlap_local_sgd", dict(name="overlap_local_sgd", anchor_beta=0.7), {"pullback_momentum": 1}),
     ("local_sgd", dict(name="local_sgd"), {"consensus_probe": 1}),
     ("cocod", dict(name="cocod"), {"consensus_probe": 1}),
-    ("gossip_ring", dict(name="gossip_ring"), {"consensus_probe": 1, "anchor_mix": 1}),
+    ("gossip_ring", dict(name="gossip_ring"), {"consensus_probe": 1, "gossip_boundary": 1}),
     ("easgd", dict(name="easgd"), {"pullback_mean": 1}),
 ]
 FAULT_RUNS = [
@@ -2285,14 +2388,25 @@ def lm_full_width(dev, kernels, cfg, expect=qwen2_launches, shares=()):
     return summary
 
 
+# the gossip LM profile's kernels: the boundary's one pass (K5's gossip form),
+# and what it replaced (the push's cuBLAS gemmSN, the debias's division),
+# which the profiled round must not run
+GOSSIP_SHARES = ("gossip_kernel", "gemmSN", "DivFunctor")
+GOSSIP_REPLACED = ("gemmSN", "DivFunctor")
+
+
 def lm_gossip_full_width(dev, kernels):
     """This slice's path: full-width qwen2-7b cut to 2 layers, bf16, m = 4,
     seq 512, SGD as the LM phase, trained with gossip_ring (tau 2, alpha
-    0.6) for 3 rounds from zeroed counters: exact launch counts (K5 once a
-    boundary, K3 and K4 never), finite losses, the same losses and final
-    plane on a second run, K5 bitwise against its plain version at the last
-    2^20 columns of every row of the plane (offsets past 2^32); rounds/s,
-    step ms, peak memory and one profiled round."""
+    0.6) for 3 rounds from zeroed counters: exact launch counts (K5's gossip
+    form once a bucket a boundary, the standalone K5, K3 and K4 never),
+    finite losses, the same losses
+    and final plane on a second run, K5's gossip form and then the
+    standalone K5 bitwise against their plain versions at the last 2^20
+    columns of every row of the plane (offsets past 2^32); rounds/s, step
+    ms, peak memory and one profiled round with the gossip form's device
+    time (``GOSSIP_SHARES``), once a bucket, and no kernel of what it
+    replaced (``GOSSIP_REPLACED``)."""
     import gc
     import math
 
@@ -2333,13 +2447,19 @@ def lm_gossip_full_width(dev, kernels):
     want.update(flash_attention_fwd=steps * m * L, flash_attention_bwd_dq=steps * m * L,
                 flash_attention_bwd_dkdv=steps * m * L, flash_attention_dkdv_sum=steps * m * L,
                 rmsnorm=steps * m * (2 * L + 1),
-                rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, anchor_mix=LM_ROUNDS * buckets)
+                rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, gossip_boundary=LM_ROUNDS * buckets)
     if launches != want:
         raise AssertionError(f"LM gossip launches {launches} != {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"LM gossip losses not finite: {losses}")
     plane = [b.to("cpu", copy=True) for b in exp.state.x.buffers]
-    profile = profile_train(exp, 1)
+    profile = profile_train(exp, 1, GOSSIP_SHARES)
+    shares = profile.get("shares")
+    if shares is None:
+        log(json.dumps(dict(check="LM gossip profile", ok=None, note="not measured: no device events in the trace")))
+    elif shares["gossip_kernel"]["count"] != buckets or any(shares[k]["device_us"] for k in GOSSIP_REPLACED):
+        raise AssertionError(f"LM gossip profile: want the gossip form once a bucket ({buckets}) and no "
+                             f"{GOSSIP_REPLACED} time, got {shares}")
     del exp
     gc.collect()
     torch.cuda.empty_cache()
@@ -2351,18 +2471,33 @@ def lm_gossip_full_width(dev, kernels):
     if not all(torch.equal(a, b.cpu()) for a, b in zip(plane, again.state.x.buffers)):
         raise AssertionError("LM gossip run is not deterministic: final planes differ")
     del plane
-    # K5 over the whole plane, toward the in-flight mix; the last 2^20 columns
-    # of every row against the plain version on those columns alone
+    # the gossip form over the whole plane with the operands of the next
+    # boundary (one launch, 6.2e9 elements a buffer), then the standalone K5
+    # toward the new mix; each time the last 2^20 columns of every row against
+    # the plain version on those columns alone
     t = 1 << 20
-    x, z = again.state.x.buffers[0], again.state.inflight.mix.buffers[0]
-    ref_end = am_ref.anchor_mix(x[:, -t:], z[:, -t:], 0.6)
-    am_ops.anchor_mix(x, z, 0.6)
+    strat, state = again.strategy_obj, again.state
+    x, mix = state.x.buffers[0], state.inflight.mix.buffers[0]
+    w, step = state.vars.extra
+    wmix = state.inflight.w
+    wsafe = torch.where(wmix > 0, wmix, torch.ones_like(wmix))
+    live = (wmix > 0).to(torch.float32)
+    peff = strat._push_matrix(m, step, torch.where(wmix > 0, wmix, w))
+    ref_end = am_ref.gossip_boundary(x[:, -t:], mix[:, -t:], wsafe, live, peff, 0.6)
+    am_ops.gossip_boundary_(x, mix, wsafe, live, peff, 0.6)
+    form_ok = bool(torch.equal(x[:, -t:], ref_end[0]) and torch.equal(mix[:, -t:], ref_end[1]))
+    log(json.dumps(dict(check="K5 gossip form on the full-width gossip plane", plane=list(x.shape),
+                        dtype=_name(x.dtype), columns_checked=t, bound="bitwise", ok=form_ok)))
+    if not form_ok:
+        raise AssertionError("K5's gossip form disagrees with plain at the end of the full-width plane")
+    ref_end = am_ref.anchor_mix(x[:, -t:], mix[:, -t:], 0.6)
+    am_ops.anchor_mix(x, mix, 0.6)
     k5_ok = bool(torch.equal(x[:, -t:], ref_end))
     log(json.dumps(dict(check="K5 on the full-width gossip plane", plane=list(x.shape), dtype=_name(x.dtype),
                         columns_checked=t, bound="bitwise", ok=k5_ok)))
     if not k5_ok:
         raise AssertionError("K5 disagrees with plain at the end of the full-width plane")
-    del again, x, z, ref_end
+    del again, state, x, mix, ref_end
     gc.collect()
     torch.cuda.empty_cache()
     summary = dict(
@@ -2692,6 +2827,7 @@ def main() -> int:
     att_err, att_t, att_g12, att_d80 = check_paged_attend(dev, gen)
     opt_err, opt_t = check_opt_step(dev, gen)
     mix_err, mix_t = check_anchor_mix(dev, gen)
+    gossip_err, gossip_t = check_gossip_form(dev, gen)
     probe_err, probe_t = check_consensus_probe(dev, gen)
     fa_err, fa_t, fa_cov = check_flash_attention(dev, gen)
     fa_sum = check_dkdv_sum(dev, gen)
@@ -2787,13 +2923,21 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     split_keys = ("host_us", "device_us", "device_kernels")  # K7 and K10: host or device time a call
     k5 = mix_t["K5"]
-    rows.insert(7, ("anchor_mix", "anchor_mix", "K5 anchor_mix_flat", "src/repro/kernels/anchor_mix/kernel.py:51",
-                    mix_err["K5"], k5[("slice", "float32")], "f32 m=16 n=17408 (the classifier's gossip plane)",
-                    k5[("large", "float32")]))
-    launches["anchor_mix"] = gossip["launches"]["anchor_mix"]
-    by_path["anchor_mix"] = {"classifier gossip_ring": runs["gossip_ring"]["launches"]["anchor_mix"],
-                             "classifier gossip_exp": runs["gossip_exp"]["launches"]["anchor_mix"],
-                             "lm gossip_ring": gossip["launches"]["anchor_mix"]}
+    # K5's row is its gossip form, which replaces anchor_mix_flat on every main
+    # path (the gossip boundary, once a bucket); the standalone form, which no
+    # main path calls, is measured beside it under "standalone"
+    rows.insert(7, ("gossip_boundary", "anchor_mix",
+                    "K5 anchor_mix_flat, gossip form (gossip_boundary_launch: the debias, K5 on the rows that move "
+                    "and the push in one pass; replaces the reference's GossipPushSumStrategy._packed_boundary body)",
+                    "src/repro/kernels/anchor_mix/kernel.py:51", gossip_err, gossip_t[("slice", "float32")],
+                    "f32 m=16 n=17408 (the classifier's gossip plane)", gossip_t[("large", "float32")]))
+    gossip_paths = {"classifier gossip_ring": runs["gossip_ring"]["launches"],
+                    "classifier gossip_exp": runs["gossip_exp"]["launches"],
+                    "classifier adaptive gossip_ring": runs["adaptive gossip_ring"]["launches"],
+                    "lm gossip_ring": gossip["launches"]}
+    launches["gossip_boundary"] = gossip["launches"]["gossip_boundary"]
+    by_path["gossip_boundary"] = {p: c["gossip_boundary"] for p, c in gossip_paths.items()}
+    by_path["anchor_mix"] = {p: c["anchor_mix"] for p, c in gossip_paths.items()}
     # K8 and the probe output of K3/K4: the adaptive classifier runs (K8 on the
     # standalone path, its main path here; K3 and K4 with the probe on the
     # fused paths), the LM under adaptive tau and faults (K3 with the probe, K8 never)
@@ -2837,11 +2981,29 @@ def main() -> int:
         elif name.endswith("_probe"):
             entry["library"] = t["library"]
             entry["max_abs_err_note"] = "against K3/K4 without the probe (outputs) and K8 (stats): bitwise"
-        elif name == "anchor_mix":
+        elif name == "gossip_boundary":
+            gf = ("three_op_ms", "three_op_device_us")
             entry["launches_by_path"] = by_path[name]
-            entry["copy_ms"], entry["large"]["copy_ms"] = t["copy_ms"], large["copy_ms"]
-            entry["bf16"] = {sh: {k: k5[(sh, "bfloat16")][k] for k in keys + ("copy_ms",)} for sh in ("slice", "large")}
+            entry.update({k: t[k] for k in gf})
+            entry["large"].update(three_op_ms=large["three_op_ms"])
+            entry["bf16"] = {sh: {k: gossip_t[(sh, "bfloat16")][k] for k in keys + split_keys + gf
+                                  if k in gossip_t[(sh, "bfloat16")]} for sh in ("slice", "large")}
             entry["library"] = t["library"]
+            entry["lm_plane"] = dict(check="bitwise at the last 2^20 columns", profile=gossip["profile"].get("shares"))
+            f32 = k5[("slice", "float32")]
+            entry["standalone"] = dict(
+                name="K5 anchor_mix_flat, standalone form (anchor_mix_launch)",
+                launches=gossip["launches"]["anchor_mix"], launches_by_path=by_path["anchor_mix"],
+                max_abs_err=mix_err["K5"],
+                **{k: f32[k] for k in keys + split_keys + ("copy_ms", "library_host_us", "library_device_us")
+                   if k in f32},
+                shape="f32 m=16 n=17408 (the classifier's gossip plane)", library=f32["library"],
+                large=dict(shape=k5[("large", "float32")]["shape"],
+                           **{k: k5[("large", "float32")][k] for k in keys + ("copy_ms",)}),
+                bf16={sh: {k: k5[(sh, "bfloat16")][k] for k in keys + split_keys + ("copy_ms",)
+                           if k in k5[(sh, "bfloat16")]} for sh in ("slice", "large")})
+        elif name == "adamw_step":
+            entry["library_host_us"], entry["library_device_us"] = t["library_host_us"], t["library_device_us"]
         elif name in by_path and any(by_path[name][p] for p in ("serving", "classifier", "lm")) and any(
                 by_path[name][p] for p in ("lm rwkv6", "lm zamba2")):
             entry["launches_by_path"] = by_path[name]

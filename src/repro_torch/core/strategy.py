@@ -445,16 +445,17 @@ class GossipPushSumStrategy(CommStrategy):
         launch:  mix_i = Σ_j P[i,j]·w_j·x_j,   w'_i = Σ_j P[i,j]·w_j
         apply:   z_i = mix_i / w'_i,           x_i ← (1 − α)·x_i + α·z_i   (K5)
 
-    Per bucket the boundary debiases the consumed mix in place, runs K5,
-    and writes the next mix ``Peff @ x`` (Peff = P̃_t·diag(w), f32) into the
-    same buffer, column chunk by column chunk. ``membership`` composes into
-    P̃ (:func:`~repro_torch.core.topology.compose_membership`: dead rows and
+    Per bucket the boundary is one launch of K5's gossip form
+    (:func:`~repro_torch.kernels.anchor_mix.ops.gossip_boundary_`): it
+    debiases the consumed mix, pulls x toward it on the rows that move, and
+    writes the next mix ``Peff @ x`` (Peff = P̃_t·diag(w), f32) into the same
+    buffer, x and the mix in place. ``membership`` composes into P̃
+    (:func:`~repro_torch.core.topology.compose_membership`: dead rows and
     columns zeroed, live columns renormalised). A row that is dead, or that
     received no push mass (it was dead when the consumed mix was launched),
-    takes the identity: the boundary reads which rows those are on the host
-    (one (m,) copy), keeps their rows of x aside and puts them back after
-    K5. The ``full`` topology takes Overlap-Local-SGD's exact K4 path with
-    β = 0."""
+    takes the identity. The (m,)-sized work (which rows move, the weights,
+    Peff) stays on the device: the boundary reads nothing back to the host.
+    The ``full`` topology takes Overlap-Local-SGD's exact K4 path with β = 0."""
 
     name = "gossip_pushsum"
     topology: Optional[str] = None  # subclasses pin it; None defers to cfg.topology
@@ -502,18 +503,12 @@ class GossipPushSumStrategy(CommStrategy):
         wmix = inflight.w
         got = wmix > 0
         moves = got if membership is None else got & (membership.mask > 0)
-        held = np.nonzero(~moves.cpu().numpy())[0].tolist()  # rows that take the identity
-        wb = torch.where(got, wmix, torch.ones_like(wmix))[:, None]
+        wsafe = torch.where(got, wmix, torch.ones_like(wmix))
         w_new = torch.where(moves, wmix, w)
         Peff = self._push_matrix(m, t, w_new, membership)
+        live = moves.to(torch.float32)
         for bx, bm in zip(px.buffers, inflight.mix.buffers):
-            bm.div_(wb)  # z = (mix_f32 / w').astype(dtype): one op computed in f32
-            kept = bx[held] if len(held) else None  # a copy of those rows
-            anchor_ops.anchor_mix(bx, bm, alpha)
-            if kept is not None:
-                bx[held] = kept
-            for c in _column_chunks(bx):
-                bm[:, c] = torch.matmul(Peff, bx[:, c].float())
+            anchor_ops.gossip_boundary_(bx, bm, wsafe, live, Peff, alpha)
         vars = AlgoVars(z=vars.z, v=vars.v, extra=(w_new, t + 1))
         return _with_stats((px, vars, GossipInflight(mix=inflight.mix, w=torch.sum(Peff, dim=1))), stats)
 

@@ -7,10 +7,42 @@
 //
 // K5 replaces repro/kernels/anchor_mix/kernel.py::anchor_mix_flat
 // (_mix_kernel). Bound by bytes: it reads x and z and writes x once
-// (3 P N bytes) at 3 operations an element. A grid-stride loop over 16-byte
-// vectors with 64-bit indices (the full-width gossip plane has 6.2e9
-// elements); x is updated in place, each element rounded as the plain
-// version rounds it (__f*_rn: no contraction), so the two agree bit for bit.
+// (3 P N bytes) at 3 operations an element. A loop over 16-byte vectors
+// with 64-bit indices (the full-width gossip plane has 6.2e9 elements), in a
+// grid that gives every vector a thread of its own: on the H100 a grid of
+// whole resident waves striding over the plane moved the same bytes slower
+// than blocks launched for every tile, as torch's elementwise kernels are
+// (streaming cache hints made no difference). x is updated in place, each
+// element rounded as the plain version rounds it (__f*_rn: no contraction),
+// so the two agree bit for bit.
+//
+// K5, gossip form: the push-sum gossip boundary over one dtype bucket in one
+// pass, in place on x and mix (m, n). Per column j:
+//   z_i    = round(f32(mix_ij) / wsafe_i)                       (the debias)
+//   x'_ij  = live_i ? round((1 - a) x_ij + a z_i) : x_ij        (K5; dead or
+//            massless rows keep x)
+//   mix'_ij = round(sum_k Peff[i,k] f32(x'_kj)), k = 0 .. m-1 in order,
+//            each product and add rounded on its own            (the push)
+// with wsafe, live (m,) and Peff (m, m) float32 on the device. It reads x
+// and mix once and writes each once (4 P m n bytes; dead rows are not
+// rewritten); the push is 2 m operations an element, so at the worker
+// counts the strategies run the bytes bound it. The reference
+// (repro/core/strategy.py, GossipPushSumStrategy._packed_boundary) runs the
+// debias, K5, a select and an einsum as four passes. Every step after the
+// debias works on one column across the m rows, so a thread owns a vector of
+// V columns of all m rows: the m rows' loads go out together, x' stays in
+// the registers x was loaded into for the push. The register path is
+// compiled for a bound mmax on m of 4 (the LM's workers) and 16 (the
+// classifier's); its guards on k < m make each right for every smaller m.
+// V is the widest vector of at most 16 bytes whose mmax rows hold at most
+// 64 values of x': 16 bytes at mmax 4, 16 bytes in f32 and 8 in bf16 at
+// mmax 16 (wider bounds unroll pushes of 32^2 and 64^2 products, which
+// spilled and took minutes to compile). A plane of fewer vectors than one
+// wave of full blocks (the classifier's) runs a column a thread instead, in
+// narrower blocks, so the push spreads over every SM. Past m = 16 a thread
+// owns one column, writes x' row by row and reads it back from x for the
+// push. A scalar tail takes n not a multiple of V and buffers not aligned
+// to V. The grid gives every vector (or column) a thread, as K5's does.
 //
 // K3 and K4 replace the Pallas TPU kernels repro/kernels/anchor_mix/kernel.py::
 // pullback_mean_flat (_pullback_mean_kernel) and pullback_momentum_flat
@@ -64,6 +96,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -82,22 +116,27 @@ struct MixArgs {
   int mean_pre;      // K4: the mean of the pre-pullback rows
 };
 
-// V consecutive elements of T, moved as one 16-byte access when they fill
-// it (V * sizeof(T) == 16) and element by element otherwise (V == 1).
+// V consecutive elements of T, moved as one access of V * sizeof(T) bytes
+// when that is 16, 8 or 4 (the pointer aligned to it) and element by element
+// otherwise.
 template <typename T, int V>
-struct alignas(16) Lanes {
+struct alignas(V * sizeof(T) >= 16 ? 16 : V * sizeof(T)) Lanes {
+  static constexpr int kBytes = V * sizeof(T);
+  using Word = typename std::conditional<kBytes == 16, uint4,
+               typename std::conditional<kBytes == 8, uint2, unsigned int>::type>::type;
+  static constexpr bool kWord = kBytes == 16 || kBytes == 8 || kBytes == 4;
   T e[V];
   __device__ __forceinline__ void load(const T* p) {
-    if constexpr (V * sizeof(T) == 16) {
-      *reinterpret_cast<uint4*>(e) = *reinterpret_cast<const uint4*>(p);
+    if constexpr (kWord) {
+      *reinterpret_cast<Word*>(e) = *reinterpret_cast<const Word*>(p);
     } else {
 #pragma unroll
       for (int k = 0; k < V; ++k) e[k] = p[k];
     }
   }
   __device__ __forceinline__ void store(T* p) const {
-    if constexpr (V * sizeof(T) == 16) {
-      *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(e);
+    if constexpr (kWord) {
+      *reinterpret_cast<Word*>(p) = *reinterpret_cast<const Word*>(e);
     } else {
 #pragma unroll
       for (int k = 0; k < V; ++k) p[k] = e[k];
@@ -323,6 +362,29 @@ int launch_probe(const void* x, int m, long long n, const Probe& p, cudaStream_t
   return (int)cudaGetLastError();
 }
 
+// The SMs of the current device (cards of one host are alike: read once).
+int num_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
+
+// A block for every `per_block` of `units` work items (the kernels' loops
+// stride by the grid, so the cap at 2^31 - 1 blocks keeps any size right).
+int tile_grid(long long units, long long per_block) {
+  const long long want = (units + per_block - 1) / per_block;
+  return (int)(want < 1 ? 1 : (want > 0x7fffffffLL ? 0x7fffffffLL : want));
+}
+
+__device__ __forceinline__ float mix1(float oma, float alpha, float x, float z) {
+  return __fadd_rn(__fmul_rn(oma, x), __fmul_rn(alpha, z));
+}
+
 // K5: x[j] <- (1 - a) x[j] + a z[j] for j < n, V elements a vector.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -338,20 +400,174 @@ mix_kernel(T* __restrict__ x, const T* __restrict__ z, long long n, float oma, f
       xr.load(x + c * V);
       zr.load(z + c * V);
 #pragma unroll
-      for (int k = 0; k < V; ++k)
-        xr.e[k] = from_f<T>(__fadd_rn(__fmul_rn(oma, to_f(xr.e[k])), __fmul_rn(alpha, to_f(zr.e[k]))));
+      for (int k = 0; k < V; ++k) xr.e[k] = from_f<T>(mix1(oma, alpha, to_f(xr.e[k]), to_f(zr.e[k])));
       xr.store(x + c * V);
     }
     done = nv * V;
   }
-  for (long long j = done + tid; j < n; j += step)
-    x[j] = from_f<T>(__fadd_rn(__fmul_rn(oma, to_f(x[j])), __fmul_rn(alpha, to_f(z[j]))));
+  for (long long j = done + tid; j < n; j += step) x[j] = from_f<T>(mix1(oma, alpha, to_f(x[j]), to_f(z[j])));
 }
 
 template <typename T>
 int launch_mix(void* x, const void* z, long long n, float oma, float alpha, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
   const int vec = aligned16(x) && aligned16(z);
-  mix_kernel<T><<<grid_for<T>(n), kThreads, 0, st>>>(static_cast<T*>(x), static_cast<const T*>(z), n, oma, alpha, vec);
+  mix_kernel<T><<<tile_grid(vec ? n / V : n, kThreads), kThreads, 0, st>>>(static_cast<T*>(x), static_cast<const T*>(z),
+                                                                           n, oma, alpha, vec);
+  return (int)cudaGetLastError();
+}
+
+// ---- K5, gossip form -------------------------------------------------------
+
+constexpr int kGossipThreads = 256;
+constexpr int kGossipRegs = 64;  // values of x' a thread holds: m V <= 64
+
+// The vector width of the register path for T at a bound mmax on m.
+template <typename T, int MMAX>
+__host__ __device__ constexpr int gossip_vec() {
+  constexpr int full = 16 / (int)sizeof(T);
+  constexpr int fit = kGossipRegs / MMAX;
+  return full < fit ? full : fit;
+}
+
+struct GossipArgs {
+  const float* wsafe;  // (m,) the consumed push weights, 1 where none arrived
+  const float* live;   // (m,) > 0: the row moves
+  const float* peff;   // (m, m) row-major
+  long long n;
+  int m;
+  float oma, alpha;
+};
+
+// Columns j0 .. j0+V-1 of all m rows: every row's loads first, then the
+// debias and pullback row by row (x' kept in the registers x was loaded into,
+// written back where the row moves), then the push row by row.
+template <typename T, int V, int MMAX>
+__device__ __forceinline__ void gossip_columns(T* x, T* mix, long long j0, const GossipArgs& a, const float* sP,
+                                               const float* sW, const float* sL) {
+  Lanes<T, V> xr[MMAX], mr[MMAX];
+#pragma unroll
+  for (int k = 0; k < MMAX; ++k) {
+    if (k < a.m) {
+      xr[k].load(x + (long long)k * a.n + j0);
+      mr[k].load(mix + (long long)k * a.n + j0);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < MMAX; ++k) {
+    if (k < a.m && sL[k] > 0.f) {
+      const float w = sW[k];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float z = to_f(from_f<T>(__fdiv_rn(to_f(mr[k].e[e]), w)));
+        xr[k].e[e] = from_f<T>(mix1(a.oma, a.alpha, to_f(xr[k].e[e]), z));
+      }
+      xr[k].store(x + (long long)k * a.n + j0);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MMAX; ++i) {
+    if (i < a.m) {
+      float acc[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = __fmul_rn(sP[i * MMAX], to_f(xr[0].e[e]));
+#pragma unroll
+      for (int k = 1; k < MMAX; ++k) {
+        if (k < a.m) {
+          const float p = sP[i * MMAX + k];
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(p, to_f(xr[k].e[e])));
+        }
+      }
+      Lanes<T, V> out;
+#pragma unroll
+      for (int e = 0; e < V; ++e) out.e[e] = from_f<T>(acc[e]);
+      out.store(mix + (long long)i * a.n + j0);
+    }
+  }
+}
+
+// The register path: m <= MMAX <= 16. Peff, wsafe and live go to shared
+// memory once a block; vectors of V columns, then a scalar tail.
+template <typename T, int MMAX>
+__global__ void __launch_bounds__(kGossipThreads)
+gossip_kernel(T* __restrict__ x, T* __restrict__ mix, GossipArgs a, int vec) {
+  constexpr int V = gossip_vec<T, MMAX>();
+  __shared__ float sP[MMAX * MMAX], sW[MMAX], sL[MMAX];
+  for (int t = threadIdx.x; t < MMAX * MMAX; t += blockDim.x) {
+    const int i = t / MMAX, k = t % MMAX;
+    sP[t] = (i < a.m && k < a.m) ? a.peff[i * a.m + k] : 0.f;
+  }
+  for (int t = threadIdx.x; t < MMAX; t += blockDim.x) {
+    sW[t] = t < a.m ? a.wsafe[t] : 1.f;
+    sL[t] = t < a.m ? a.live[t] : 0.f;
+  }
+  __syncthreads();
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  long long done = 0;
+  if (vec) {
+    const long long nv = a.n / V;
+    for (long long c = tid; c < nv; c += step) gossip_columns<T, V, MMAX>(x, mix, c * V, a, sP, sW, sL);
+    done = nv * V;
+  }
+  for (long long j = done + tid; j < a.n; j += step) gossip_columns<T, 1, MMAX>(x, mix, j, a, sP, sW, sL);
+}
+
+// Any m: one column a thread. Pass 1 debiases and pulls back row by row,
+// writing x' into x; pass 2 pushes row by row, reading x' back from x and
+// Peff through the read-only cache (every thread of a warp reads the same
+// element).
+template <typename T>
+__global__ void __launch_bounds__(kGossipThreads)
+gossip_column_kernel(T* __restrict__ x, T* __restrict__ mix, GossipArgs a) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long j = tid; j < a.n; j += step) {
+    for (int k = 0; k < a.m; ++k) {
+      if (__ldg(a.live + k) > 0.f) {
+        T* px = x + (long long)k * a.n + j;
+        const float z = to_f(from_f<T>(__fdiv_rn(to_f(mix[(long long)k * a.n + j]), __ldg(a.wsafe + k))));
+        *px = from_f<T>(mix1(a.oma, a.alpha, to_f(*px), z));
+      }
+    }
+    for (int i = 0; i < a.m; ++i) {
+      const float* prow = a.peff + (long long)i * a.m;
+      float acc = 0.f;
+      for (int k = 0; k < a.m; ++k) {
+        const float prod = __fmul_rn(__ldg(prow + k), to_f(x[(long long)k * a.n + j]));
+        acc = k == 0 ? prod : __fadd_rn(acc, prod);
+      }
+      mix[(long long)i * a.n + j] = from_f<T>(acc);
+    }
+  }
+}
+
+template <typename T, int MMAX>
+int launch_gossip_regs(T* x, T* mix, const GossipArgs& a, cudaStream_t st) {
+  constexpr int V = gossip_vec<T, MMAX>();
+  // rows are n apart: the vector path needs n to keep every row aligned to V
+  // and enough columns: a plane of fewer vectors than one wave of full
+  // blocks takes the scalar path, a column a thread, which spreads the push
+  // over V times more threads (the classifier's 17,408 columns)
+  const uintptr_t mask = (uintptr_t)(V * sizeof(T)) - 1;
+  const int use_vec = (a.n % V == 0) && a.n / V >= (long long)num_sms() * kGossipThreads &&
+                      !(reinterpret_cast<uintptr_t>(x) & mask) && !(reinterpret_cast<uintptr_t>(mix) & mask);
+  const long long units = use_vec ? a.n / V : a.n;
+  // small planes: narrower blocks, so that the columns reach every SM
+  int threads = kGossipThreads;
+  while (threads > 32 && (units + threads - 1) / threads < num_sms()) threads /= 2;
+  gossip_kernel<T, MMAX><<<tile_grid(units, threads), threads, 0, st>>>(x, mix, a, use_vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gossip(void* xv, void* mixv, const GossipArgs& a, cudaStream_t st) {
+  T* x = static_cast<T*>(xv);
+  T* mix = static_cast<T*>(mixv);
+  if (a.m <= 4) return launch_gossip_regs<T, 4>(x, mix, a, st);
+  if (a.m <= 16) return launch_gossip_regs<T, 16>(x, mix, a, st);
+  gossip_column_kernel<T><<<tile_grid(a.n, kGossipThreads), kGossipThreads, 0, st>>>(x, mix, a);
   return (int)cudaGetLastError();
 }
 
@@ -365,6 +581,20 @@ extern "C" int anchor_mix_launch(void* x, const void* z, long long n, float oma,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_mix<float>(x, z, n, oma, alpha, st);
   if (dtype == 1) return launch_mix<__nv_bfloat16>(x, z, n, oma, alpha, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5, gossip form. x, mix: (m, n) updated in place; wsafe, live: (m,)
+// float32; peff: (m, m) float32, row-major. dtype: 0 = float32,
+// 1 = bfloat16 (x, mix).
+extern "C" int gossip_boundary_launch(void* x, void* mix, const void* wsafe, const void* live, const void* peff,
+                                      int m, long long n, float oma, float alpha, int dtype, void* stream) {
+  if (n <= 0 || m <= 0) return 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const GossipArgs a{static_cast<const float*>(wsafe), static_cast<const float*>(live),
+                     static_cast<const float*>(peff), n, m, oma, alpha};
+  if (dtype == 0) return launch_gossip<float>(x, mix, a, st);
+  if (dtype == 1) return launch_gossip<__nv_bfloat16>(x, mix, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

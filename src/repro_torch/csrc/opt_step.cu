@@ -11,9 +11,12 @@
 // (repro_torch/kernels/opt_step/ref.py) bit for bit. Division and sqrt are
 // the IEEE ones (__fdiv_rn, __fsqrt_rn); no fast math.
 //
-// lr (and AdamW's c1 = 1 - b1^t, c2 = 1 - b2^t) are read from a float32
-// array in device memory, as the TPU kernel reads them from SMEM, so a step
-// needs no host synchronisation and can be captured in a CUDA graph.
+// lr (and AdamW's c1 = 1 - b1^t, c2 = 1 - b2^t) are read from float32
+// scalars in device memory, as the TPU kernel reads them from SMEM, so a step
+// needs no host synchronisation and can be captured in a CUDA graph. AdamW
+// takes the three as three pointers: the wrapper makes no array of them (a
+// launch and an allocation each step, in a call whose device work at the
+// classifier's plane is a few microseconds).
 //
 // What bounds it on the H100: bytes. SGD reads x, g, m and writes x, m
 // (5 P bytes an element, P = 4 or 2); AdamW reads x, g, mu, nu and writes
@@ -107,9 +110,10 @@ __device__ __forceinline__ void adamw_elem(T& x, T g, float& mu, float& nu, floa
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(T* __restrict__ x, const T* __restrict__ g, float* __restrict__ mu, float* __restrict__ nu,
-             const float* __restrict__ scalars, long long n, AdamArgs a, int vec) {
+             const float* __restrict__ lr_p, const float* __restrict__ c1_p, const float* __restrict__ c2_p,
+             long long n, AdamArgs a, int vec) {
   constexpr int V = 16 / sizeof(T);  // elements of T in 16 bytes; V / 4 float4s of moments
-  const float lr = scalars[0], c1 = scalars[1], c2 = scalars[2];
+  const float lr = *lr_p, c1 = *c1_p, c2 = *c2_p;
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
   long long done = 0;
@@ -172,23 +176,26 @@ extern "C" int sgd_step_launch(void* x, const void* g, void* m, const void* scal
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, g); mu, nu float32; scalars = [lr, c1, c2].
-extern "C" int adamw_step_launch(void* x, const void* g, void* mu, void* nu, const void* scalars, long long n,
-                                 float b1, float omb1, float b2, float omb2, float eps, float wd, int has_wd,
-                                 int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (x, g); mu, nu float32; lr, c1, c2: one
+// float32 each.
+extern "C" int adamw_step_launch(void* x, const void* g, void* mu, void* nu, const void* lr, const void* c1,
+                                 const void* c2, long long n, float b1, float omb1, float b2, float omb2, float eps,
+                                 float wd, int has_wd, int dtype, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const AdamArgs a{b1, omb1, b2, omb2, eps, wd, has_wd};
   const int vec = aligned16(x) && aligned16(g) && aligned16(mu) && aligned16(nu);
-  const float* s = static_cast<const float*>(scalars);
+  const float* lrf = static_cast<const float*>(lr);
+  const float* c1f = static_cast<const float*>(c1);
+  const float* c2f = static_cast<const float*>(c2);
   float* muf = static_cast<float*>(mu);
   float* nuf = static_cast<float*>(nu);
   if (dtype == 0) {
     adamw_kernel<float><<<blocks_for(n, 4), kThreads, 0, st>>>(
-        static_cast<float*>(x), static_cast<const float*>(g), muf, nuf, s, n, a, vec);
+        static_cast<float*>(x), static_cast<const float*>(g), muf, nuf, lrf, c1f, c2f, n, a, vec);
   } else if (dtype == 1) {
     adamw_kernel<__nv_bfloat16><<<blocks_for(n, 8), kThreads, 0, st>>>(
-        static_cast<__nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), muf, nuf, s, n, a, vec);
+        static_cast<__nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), muf, nuf, lrf, c1f, c2f, n, a, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }

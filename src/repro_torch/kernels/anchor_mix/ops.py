@@ -1,13 +1,17 @@
-"""Round-boundary wrappers (K5 ``anchor_mix``, K4 ``pullback_mean``, K3
-``pullback_mean_momentum``): the CUDA kernels of ``csrc/anchor_mix.cu`` for
-CUDA tensors, the plain versions of ``ref.py`` for CPU tensors (counterpart
-of ``repro.kernels.anchor_mix.ops``).
+"""Round-boundary wrappers (K5 ``anchor_mix`` and its gossip form
+``gossip_boundary_``, K4 ``pullback_mean``, K3 ``pullback_mean_momentum``):
+the CUDA kernels of ``csrc/anchor_mix.cu`` for CUDA tensors, the plain
+versions of ``ref.py`` for CPU tensors (counterpart of
+``repro.kernels.anchor_mix.ops``).
 
 x (and K3's momentum v) are updated **in place** and returned; the new
 anchor (K4's mean, K3's ``z_next``) gets a buffer of its own, so the
 consumed anchor ``z`` stays intact (the strategy keeps it as ``vars.z``).
 K5 takes x and z of one shape (any shape, contiguous) and needs no padding:
 the reference pads a flat buffer to 128 lanes, the kernel masks its tail.
+The gossip form runs the push-sum boundary of one bucket (debias, K5 on the
+rows that move, the push ``Peff @ x'``) in one launch, x and the in-flight
+mix in place; it counts on :data:`GOSSIP`, a count of its own.
 
 ``probe=True`` adds the consensus probe of adaptive τ to K3/K4: the
 ``[drift_sq, scale_sq]`` raw sums of the *pre-pullback* x over all m rows
@@ -17,7 +21,8 @@ and returned as a third (K4) or fourth (K3) output, a (2,) float32 tensor.
 
 Kernel vs plain, stated bound (checked on the card by ``chip_smoke.py``):
 bitwise, in f32 and bf16 — both sum the worker axis in float32 in the order
-0 .. m-1, divide by m, and round after every op at the same points. The
+0 .. m-1, divide by m, and round after every op at the same points (the
+gossip form's push likewise sums k = 0 .. m-1 in order). The
 probe output: as K8's (``consensus_probe/ops.py``), and bit for bit the
 standalone K8's on the same pre-boundary plane.
 """
@@ -31,6 +36,8 @@ from repro_torch.kernels.consensus_probe import ops as _probe
 from repro_torch.kernels.consensus_probe.ref import plane_probe
 
 MIX = Kernel("anchor_mix", {"anchor_mix_launch": [P, P, L, F, F, I, P]}, source="anchor_mix")
+GOSSIP = Kernel("gossip_boundary", {"gossip_boundary_launch": [P, P, P, P, P, I, L, F, F, I, P]},
+                source="anchor_mix")
 MEAN = Kernel("pullback_mean", {"pullback_mean_launch": [P, P, P, P, I, L, F, F, I, P, P, P, I, P]},
               source="anchor_mix")
 MOMENTUM = Kernel(
@@ -43,18 +50,52 @@ def anchor_mix(x, z, alpha: float):
     """Eq. (4), x ← (1−α)·x + α·z, in place on x; x and z of one shape,
     dtype and device. Replaces ``anchor_mix/kernel.py::anchor_mix_flat``.
     Returns x."""
-    if z.shape != x.shape or z.dtype != x.dtype or z.device != x.device:
+    if z.shape != x.shape or z.dtype != x.dtype or z.get_device() != x.get_device():
         raise ValueError(f"anchor_mix: z must match x {tuple(x.shape)} {x.dtype} on {x.device}, "
                          f"got {tuple(z.shape)} {z.dtype} on {z.device}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
+        if not z.is_cpu:
+            raise ValueError(f"anchor_mix: z must match x on {x.device}, got {z.device}")
         return x.copy_(_ref.anchor_mix(x, z, alpha))
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"anchor_mix: unsupported device {x.device}")
     if not (x.is_contiguous() and z.is_contiguous()):
         raise ValueError("anchor_mix: CUDA buffers must be contiguous")
     MIX.launch("anchor_mix_launch", x.data_ptr(), z.data_ptr(), x.numel(), float(1.0 - alpha), float(alpha),
                dtype_code(x.dtype), stream_ptr(x.device))
     return x
+
+
+def gossip_boundary_(x, mix, wsafe, live, peff, alpha: float):
+    """The push-sum gossip boundary of one bucket, in place on x and mix
+    (both (m, n), one dtype): z = mix / wsafe, x ← (1−α)·x + α·z on the rows
+    with ``live > 0``, then mix ← Peff @ x. wsafe, live: (m,) float32;
+    peff: (m, m) float32. K5 fused with the reference's debias and push
+    (``GossipPushSumStrategy._packed_boundary``); the kernel picks its
+    layout from m and the dtype (``csrc/anchor_mix.cu``). Returns (x, mix)."""
+    if x.dim() != 2 or mix.shape != x.shape or mix.dtype != x.dtype:
+        raise ValueError(f"gossip_boundary_: x and mix must be (m, n) of one dtype, got {tuple(x.shape)} "
+                         f"{x.dtype} and {tuple(mix.shape)} {mix.dtype}")
+    m = x.shape[0]
+    f32 = torch.float32
+    if (wsafe.shape != (m,) or live.shape != (m,) or peff.shape != (m, m)
+            or wsafe.dtype != f32 or live.dtype != f32 or peff.dtype != f32):
+        raise ValueError(f"gossip_boundary_: wsafe, live ({m},) and peff ({m}, {m}) must be float32")
+    if x.is_cpu and mix.is_cpu and wsafe.is_cpu and live.is_cpu and peff.is_cpu:
+        x_new, mix_new = _ref.gossip_boundary(x, mix, wsafe, live, peff, alpha)
+        x.copy_(x_new)
+        mix.copy_(mix_new)
+        return x, mix
+    index = x.get_device()
+    if not x.is_cuda or any(t.get_device() != index for t in (mix, wsafe, live, peff)):
+        raise ValueError(f"gossip_boundary_: tensors on mixed or unsupported devices: {x.device}, {mix.device}, "
+                         f"{wsafe.device}, {live.device}, {peff.device}")
+    if not all(t.is_contiguous() for t in (x, mix, wsafe, live, peff)):
+        raise ValueError("gossip_boundary_: CUDA buffers must be contiguous")
+    GOSSIP.launch("gossip_boundary_launch", x.data_ptr(), mix.data_ptr(), wsafe.data_ptr(), live.data_ptr(),
+                  peff.data_ptr(), m, x.shape[1], float(1.0 - alpha), float(alpha), dtype_code(x.dtype),
+                  stream_ptr(x.device))
+    return x, mix
 
 
 def pullback_tree(x_tree, z_tree, alpha: float):

@@ -1,7 +1,8 @@
 """Plain PyTorch round boundaries, op for op the reference
 ``repro.kernels.anchor_mix.ref`` (counterpart; the CUDA kernels in
 ``csrc/anchor_mix.cu`` compute the same chain): the plain pullback
-:func:`anchor_mix` (K5) and the fused boundaries (K3, K4).
+:func:`anchor_mix` (K5), the gossip boundary :func:`gossip_boundary` (K5's
+gossip form) and the fused boundaries (K3, K4).
 
 The worker mean is summed in float32 in the fixed order i = 0 .. m-1 and
 divided by m (a true division, by a tensor: PyTorch divides by a Python
@@ -20,6 +21,23 @@ import torch
 def anchor_mix(x: torch.Tensor, z: torch.Tensor, alpha: float) -> torch.Tensor:
     """(1 - alpha)·x + alpha·z (paper eq. 4) in float32, cast to x's dtype."""
     return ((1.0 - alpha) * x.float() + alpha * z.float()).to(x.dtype)
+
+
+def gossip_boundary(x, mix, wsafe, live, peff, alpha: float):
+    """The push-sum gossip boundary over one bucket, as
+    ``repro.core.strategy.GossipPushSumStrategy._packed_boundary`` computes
+    it: z = (mix_f32 / wsafe).astype(dtype); x' = K5 toward z on the rows
+    with ``live > 0``, x elsewhere; mix' = (Peff @ x'_f32).astype(dtype).
+    x, mix: (m, n); wsafe, live: (m,) f32; peff: (m, m) f32. The push sums
+    k = 0 .. m-1 in order, one rounded mul and add at a time (the order the
+    CUDA kernel uses; XLA's einsum leaves it open). Returns new (x', mix')."""
+    z = (mix.float() / wsafe[:, None]).to(x.dtype)
+    x_new = torch.where((live > 0)[:, None], anchor_mix(x, z, alpha), x)
+    xf = x_new.float()
+    acc = peff[:, :1] * xf[:1]
+    for k in range(1, x.shape[0]):
+        acc = acc + peff[:, k : k + 1] * xf[k : k + 1]
+    return x_new, acc.to(x.dtype)
 
 
 def worker_mean(src: torch.Tensor, weights=None) -> torch.Tensor:

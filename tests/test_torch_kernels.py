@@ -24,7 +24,10 @@ contract or reorder the reference's ops), bf16 equal or 1 bf16 ulp (XLA may
 keep an f32 intermediate where the reference rounds to bf16). The plain
 pullback (K5): bitwise against the reference's ``ref.py``, and within one
 ulp of max(|x|, |z|) of the Pallas kernel in interpret mode (which
-contracts ``a*b + c``). On the card the kernels equal their plain versions
+contracts ``a*b + c``). K5's gossip form (the gossip boundary in one pass):
+its plain version's push is the ordered f32 sum, bitwise a numpy loop; its
+CPU tests against the reference's packed boundary are in
+``tests/test_torch_strategies.py``. On the card the kernels equal their plain versions
 bit for bit (same rounding points, same worker-sum order), except the
 consensus probe (K8, and the probe output of K3/K4), whose two sums the
 kernel adds in float64 over its grid: within rtol 1e-6 of the plain
@@ -703,6 +706,66 @@ def test_pullback_tree_maps_anchor_mix_over_a_tree(rng):
     assert out["a"] is x["a"] and torch.equal(out["a"], want["a"]) and torch.equal(out["b"]["c"], want["c"])
 
 
+# -- K5's gossip form --------------------------------------------------------------
+
+
+def _gossip_case(rng, m, n, dtype):
+    """x, mix (m, n) in ``dtype``; wsafe, live (m,) and peff (m, m) f32, with
+    row 0 holding (live 0) and row m-1 dead (its Peff row and column 0)."""
+    x = _t(rng.normal(size=(m, n)).astype(np.float32), dtype)
+    mix = _t(rng.normal(size=(m, n)).astype(np.float32), dtype)
+    wsafe = _t(rng.uniform(0.6, 1.0, m).astype(np.float32))
+    live = torch.ones(m)
+    live[0] = 0.0
+    peff = _t(rng.uniform(0.0, 1.0, (m, m)).astype(np.float32))
+    if m > 2:
+        live[m - 1] = 0.0
+        peff[m - 1], peff[:, m - 1] = 0.0, 0.0
+    return x, mix, wsafe, live, peff
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [2, 4, 5, 8, 9, 16, 17, 64])
+def test_gossip_boundary_plain_is_the_reference_chain(m, dtype, rng):
+    """The plain gossip form, in place through the wrapper: the debias as
+    one f32 division cast back, K5's plain pullback on the live rows, x kept
+    on the others, and the push as the f32 sum over k = 0 .. m-1 in order,
+    each product and add rounded (bitwise a numpy loop)."""
+    x, mix, wsafe, live, peff = _gossip_case(rng, m, 37, dtype)
+    z = (mix.float() / wsafe[:, None]).to(dtype)
+    want_x = x.clone()
+    for i in range(m):
+        if live[i] > 0:
+            want_x[i] = am_ref.anchor_mix(x[i], z[i], 0.6)
+    xf, pf = want_x.float().numpy(), peff.numpy()
+    acc = np.empty((m, 37), np.float32)
+    for i in range(m):
+        acc[i] = pf[i, 0] * xf[0]
+        for k in range(1, m):
+            acc[i] = acc[i] + pf[i, k] * xf[k]
+    gx, gm = x.clone(), mix.clone()
+    out = am_ops.gossip_boundary_(gx, gm, wsafe, live, peff, 0.6)
+    assert out[0] is gx and out[1] is gm
+    assert torch.equal(gx, want_x) and torch.equal(gm, _t(acc).to(dtype))
+
+
+def test_gossip_boundary_checks(rng):
+    x, mix, wsafe, live, peff = _gossip_case(rng, 4, 16, torch.float32)
+    with pytest.raises(ValueError, match=r"\(m, n\)"):
+        am_ops.gossip_boundary_(x, mix.bfloat16(), wsafe, live, peff, 0.6)
+    with pytest.raises(ValueError, match=r"\(m, n\)"):
+        am_ops.gossip_boundary_(x[0], mix[0], wsafe, live, peff, 0.6)
+    with pytest.raises(ValueError, match="float32"):
+        am_ops.gossip_boundary_(x, mix, wsafe[:3], live, peff, 0.6)
+    with pytest.raises(ValueError, match="float32"):
+        am_ops.gossip_boundary_(x, mix, wsafe, live, peff.double(), 0.6)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="devices"):
+        am_ops.gossip_boundary_(x.to(meta), mix.to(meta), wsafe.to(meta), live.to(meta), peff.to(meta), 0.6)
+    with pytest.raises(ValueError, match="devices"):
+        am_ops.gossip_boundary_(x, mix, wsafe, live, peff.to(meta), 0.6)
+
+
 # -- K3/K4 fused boundaries --------------------------------------------------------
 
 
@@ -786,6 +849,7 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     opt_ops.adamw_step(buf, buf.clone(), buf.clone(), buf.clone(), lr, lr, lr, b1=0.9, b2=0.95, eps=1e-8,
                        weight_decay=0.0)
     am_ops.anchor_mix(buf, buf.clone(), 0.6)
+    am_ops.gossip_boundary_(buf, buf.clone(), torch.ones(2), torch.ones(2), torch.eye(2), 0.6)
     am_ops.pullback_mean(buf, buf[0].clone(), 0.6)
     am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7)
     am_ops.pullback_mean(buf, buf[0].clone(), 0.6, probe=True)
@@ -1055,6 +1119,57 @@ def test_anchor_mix_kernel_bitwise_on_card(cuda, dtype):
     for xs, zs in ((x.clone(), z), (flat_x[:n].clone(), flat_z[:n]), (flat_x[1:], flat_z[1:])):
         want = am_ref.anchor_mix(xs, zs, 0.6)
         assert am_ops.anchor_mix(xs, zs, 0.6) is xs and torch.equal(xs, want)
+
+
+def _gossip_on_card(cuda, m, n, dtype, offset, seed):
+    """A gossip case on the card; with ``offset`` x and mix are views one
+    element into buffers of their own (contiguous, not 16-byte aligned)."""
+    x, mix, wsafe, live, peff = (t.to(cuda) for t in _gossip_case(np.random.default_rng(seed), m, n, dtype))
+    if offset:
+        x, mix = (torch.cat([torch.zeros(1, dtype=dtype, device=cuda), t.reshape(-1)])[1:].view(m, n) for t in (x, mix))
+    return x, mix, wsafe, live, peff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [2, 4, 5, 8, 16, 17, 64, 1700])
+def test_gossip_boundary_kernel_bitwise_on_card(cuda, m, dtype):
+    """K5's gossip form against its plain version, bit for bit, on every
+    path of the kernel (registers at m up to 4 and up to 16, then a column a
+    thread with x' read back from x): a row that holds (live 0), a dead
+    row (its Peff row and column 0), the vector path (2^19 columns, up to 16
+    rows), a plane too narrow for it (4096 columns: a column a thread), a
+    ragged n (the scalar tail) and views one element off alignment (the
+    scalar path); the same bits on a second launch."""
+    cases = [(4096, False), (1001, False), (1024, True)] + ([(1 << 19, False)] if m <= 16 else [])
+    for n, offset in cases:
+        x, mix, wsafe, live, peff = _gossip_on_card(cuda, m, n, dtype, offset, seed=m)
+        want = am_ref.gossip_boundary(x, mix, wsafe, live, peff, 0.6)
+        assert am_ops.gossip_boundary_(x, mix, wsafe, live, peff, 0.6) == (x, mix)
+        assert torch.equal(x, want[0]) and torch.equal(mix, want[1]), (n, offset)
+        x2, mix2, *rest = _gossip_on_card(cuda, m, n, dtype, offset, seed=m)
+        am_ops.gossip_boundary_(x2, mix2, *rest, 0.6)
+        assert torch.equal(x2, x) and torch.equal(mix2, mix)
+
+
+@pytest.mark.cuda
+def test_gossip_and_adamw_wrappers_raise_on_card(cuda):
+    """A CUDA tensor beside a CPU one, or a strided CUDA buffer, raises; no
+    wrapper falls back to the plain version."""
+    x, mix, wsafe, live, peff = _gossip_on_card(cuda, 4, 64, torch.float32, False, seed=0)
+    with pytest.raises(ValueError, match="devices"):
+        am_ops.gossip_boundary_(x, mix, wsafe.cpu(), live, peff, 0.6)
+    with pytest.raises(ValueError, match="contiguous"):
+        am_ops.gossip_boundary_(x.t().contiguous().t(), mix, wsafe, live, peff, 0.6)
+    with pytest.raises(ValueError, match="z must match"):
+        am_ops.anchor_mix(x, mix.cpu(), 0.6)
+    lr = torch.full((), 0.05, device=cuda)
+    with pytest.raises(ValueError, match="device"):
+        opt_ops.adamw_step(x, mix, x.clone(), x.clone(), lr, lr.cpu(), lr, b1=0.9, b2=0.95, eps=1e-8,
+                           weight_decay=0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        opt_ops.adamw_step(x.t().contiguous().t(), mix, x.clone(), x.clone(), lr, lr, lr, b1=0.9, b2=0.95, eps=1e-8,
+                           weight_decay=0.0)
 
 
 # (B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM slice's

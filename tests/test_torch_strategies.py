@@ -25,7 +25,10 @@ rounds, where the workers differ), carried over bit for bit by
   an ulp of its leaf's threshold may be sent by one package and held back
   as error feedback by the other, and the fit carries that difference on;
 * boundaries in bf16: see ``test_boundaries_bf16_match_jax``; the LM
-  round in bf16: see ``test_lm_gossip_round_bf16_matches_jax``.
+  round in bf16: see ``test_lm_gossip_round_bf16_matches_jax``;
+* the gossip boundary's one pass (K5's gossip form) against the reference's
+  packed boundary on seeded planes: the f32 and bf16 bounds above (4 f32
+  ulps of each slot's largest magnitude; one bf16 ulp of max|x|).
 
 Sparse anchor is held against the reference's per-leaf oracle
 (``packed=False``, ``repro.core.strategy.sparsify_topk``). Its tie rule:
@@ -50,22 +53,28 @@ from repro.config import get_arch as jax_get_arch
 from repro.core import make_strategy as jmake_strategy
 from repro.core import strategy as jstrategy
 from repro.core import topology as jtopology
+from repro.fault import membership as jmembership
 from repro.data import loaders as jloaders
 from repro.models import classifier as jclf
 from repro.optim import from_config as jopt_from_config
 from repro.optim import schedules as jsched
 from repro.parallel import packing as jpacking
+from repro.parallel.packing import Packed as JPacked
 from repro.training import make_round_step as jmake_round_step
 from repro.training import make_train_state as jmake_train_state
 from repro_torch import interop
 from repro_torch.api import ClassificationSpec, Experiment, TokenStream
 from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
 from repro_torch.core import STRATEGIES, make_strategy, sparsify_topk_, topology
+from repro_torch.core import strategy as pstrategy
 from repro_torch.core.strategy import _ALIASES, _quantile_linear
+from repro_torch.fault import membership as pmembership
+from repro_torch.kernels.anchor_mix import ops as am_ops
 from repro_torch.launch import train as train_cli
 from repro_torch.models import classifier as clf
 from repro_torch.optim import schedules
 from repro_torch.parallel import packing
+from repro_torch.parallel.packing import Packed
 
 SMALL = dict(n=2000, holdout=500)
 
@@ -390,6 +399,100 @@ def test_fit_losses_match_jax_over_20_rounds(strategy, rtol):
     jl, pl = np.asarray(j.fit(rounds=20).losses), np.asarray(p.fit(rounds=20).losses)
     np.testing.assert_allclose(pl, jl, rtol=rtol)
     assert abs(p.evaluate()["test_acc"] - j.evaluate()["test_acc"]) <= 2 / SMALL["holdout"]
+
+
+# -- the gossip boundary in one pass (K5's gossip form) ----------------------------------------
+
+GOSSIP_N = 301  # columns: no vector width divides it, so every plan runs its scalar tail
+
+
+def _gossip_inputs(m, dtype, masked, seed):
+    """Seeded numpy planes for one gossip boundary over ``GOSSIP_N``
+    columns: x, the consumed mix, its push weights (row 0 received no mass),
+    the workers' weights, and a live mask (row m-1 dead when ``masked``).
+    Push weights lie in [0.6, 1]: a ring's stay at 1, and at most 1 the
+    push keeps |mix'| within the binade of max|x| that the bf16 bound names."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, GOSSIP_N)).astype(np.float32)
+    mix = rng.normal(size=(m, GOSSIP_N)).astype(np.float32)
+    wmix = rng.uniform(0.6, 1.0, m).astype(np.float32)
+    wmix[0] = 0.0
+    w = rng.uniform(0.6, 1.0, m).astype(np.float32)
+    mask = np.ones(m, np.float32)
+    if masked:
+        mask[m - 1] = 0.0
+    return x, mix, wmix, w, mask
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["live", "dead_row"])
+@pytest.mark.parametrize("topology", ["ring", "exp"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [2, 4, 16, 17])
+def test_gossip_form_matches_jax_packed_boundary(m, dtype, topology, masked):
+    """The port's gossip boundary (one ``gossip_boundary_`` a bucket, its
+    plain version here) against ``GossipPushSumStrategy._packed_boundary``
+    on the same planes, at phase 1 of the topology: x, the next mix, the
+    workers' and the pushed weights. A row with no received mass, and with
+    ``masked`` a row dead in the membership, keep x."""
+    x, mix, wmix, w, mask = _gossip_inputs(m, dtype, masked, seed=100 * m + 7)
+    tdt = getattr(torch, dtype)
+    jlay = jpacking.layout_of({"w": jnp.zeros(GOSSIP_N, dtype)})
+    jstrat = jmake_strategy(JAlgo(name="gossip_pushsum", topology=topology))
+    jvars = jstrategy.AlgoVars(extra=(jnp.asarray(w), jnp.asarray(1, jnp.int32)))
+    jinfl = jstrategy.GossipInflight(mix=JPacked((jnp.asarray(mix, dtype),), jlay), w=jnp.asarray(wmix))
+    jmem = jmembership.from_mask(mask) if masked else None
+    want = jstrat._packed_boundary(JPacked((jnp.asarray(x, dtype),), jlay), jvars, jinfl, membership=jmem)
+    play = packing.layout_of({"w": torch.zeros(GOSSIP_N, dtype=tdt)})
+    pstrat = make_strategy(AlgoConfig(name="gossip_pushsum", topology=topology))
+    px = Packed((torch.from_numpy(x).to(tdt),), play)
+    pvars = pstrategy.AlgoVars(extra=(torch.from_numpy(w), torch.tensor(1, dtype=torch.int32)))
+    pinfl = pstrategy.GossipInflight(mix=Packed((torch.from_numpy(mix).to(tdt),), play), w=torch.from_numpy(wmix))
+    pmem = pmembership.from_mask(mask) if masked else None
+    got = pstrat.boundary_round(px, pvars, pinfl, membership=pmem)
+    assert got[0] is px and got[2].mix.buffers[0] is pinfl.mix.buffers[0]  # in place
+    want, got = _slots(want), _slots(got)
+    assert sorted(want) == sorted(got)
+    held = [0] + ([m - 1] if masked else [])
+    np.testing.assert_array_equal(got["[0]0"][held], torch.from_numpy(x[held]).to(tdt).float().numpy())
+    if dtype == "float32":
+        _within_ulps(want, got, 4)
+        return
+    lim = np.ldexp(np.float32(1), np.frexp(np.abs(want["[0]0"]).max())[1] - 8)
+    for k in want:
+        assert np.abs(got[k] - want[k]).max() <= lim, (k, np.abs(got[k] - want[k]).max(), lim)
+
+
+def test_gossip_boundary_makes_one_launch_a_bucket_and_reads_nothing_back(monkeypatch):
+    """The boundary on the meta device (no data: a host read raises) with a
+    stand-in for the gossip form: one call a bucket, each with the bucket's
+    x and mix and the (m,)/(m, m) float32 operands, and none of the other
+    wrappers."""
+    m, meta = 5, torch.device("meta")
+    params = {"a": torch.zeros(3, 70), "b": torch.zeros(40, dtype=torch.bfloat16)}
+    lay = packing.layout_of(params)
+    px = Packed(tuple(torch.empty(m, n, dtype=getattr(torch, d), device=meta)
+                      for n, d in zip(lay.bucket_sizes, lay.bucket_dtypes)), lay)
+    mix = Packed(tuple(torch.empty_like(b) for b in px.buffers), lay)
+    calls = []
+
+    def stand_in(x, mx, wsafe, live, peff, alpha):
+        assert all(t.device == meta for t in (x, mx, wsafe, live, peff))
+        assert (wsafe.shape, live.shape, peff.shape) == ((m,), (m,), (m, m))
+        assert wsafe.dtype == live.dtype == peff.dtype == torch.float32
+        calls.append((x, mx))
+        return x, mx
+
+    strat = make_strategy(AlgoConfig(name="gossip_ring"))
+    vars_ = pstrategy.AlgoVars(extra=(torch.ones(m, device=meta), torch.zeros((), dtype=torch.int32, device=meta)))
+    inflight = pstrategy.GossipInflight(mix=mix, w=torch.ones(m, device=meta))
+    membership = pmembership.Membership(mask=torch.ones(m, device=meta), weights=torch.ones(m, device=meta))
+    monkeypatch.setattr(am_ops, "gossip_boundary_", stand_in)
+    for mem in (None, membership):
+        calls.clear()
+        out = strat.boundary_round(px, vars_, inflight, membership=mem)
+        assert [(a is x, b is z) for (a, b), x, z in zip(calls, px.buffers, mix.buffers)] == [(True, True)] * 2
+        assert len(calls) == lay.num_buckets == 2
+        assert out[1].extra[0].device == meta and out[2].w.shape == (m,)
 
 
 # -- the LM path: gossip_ring on the reduced qwen2-7b ----------------------------------------
