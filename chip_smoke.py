@@ -219,7 +219,7 @@ def device_us(fn, iters: int = 200) -> dict:
     """Device time a call of ``fn`` under ``torch.profiler`` over ``iters``
     calls: each CUDA kernel's own mean time a launch, summed over the kernels
     a call launches, and the kernels' names with their launches a call (so a
-    row shows which kernel it timed)."""
+    row shows which kernel it timed) and with their own µs a launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -235,7 +235,8 @@ def device_us(fn, iters: int = 200) -> dict:
     if not kern:
         return dict(device_us="not measured (no device events in the trace)", device_kernels={})
     return dict(device_us=sum(e.self_device_time_total / e.count for e in kern),
-                device_kernels={e.key[:60]: e.count / iters for e in kern})
+                device_kernels={e.key[:60]: e.count / iters for e in kern},
+                device_kernel_us={e.key[:60]: e.self_device_time_total / e.count for e in kern})
 
 
 def timed(fn, plain, library, nbytes, flops=0.0) -> dict:
@@ -500,9 +501,10 @@ def check_paged_attend(dev, gen):
     lens_list = [0, 17, 300, maxp * PAGE - 1]
     worst, timing, coverage, d80 = 0.0, None, None, None
     # the serving slice's group (qwen2-7b: 4 KV heads, G 7, D 128), mistral-large's
-    # (8 KV heads, G 12: the kernel instance of group capacity 16) and
-    # h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV heads: G 4)
-    for kv, g, d in ((4, 7, 128), (8, 12, 128), (8, 4, 80)):
+    # (8 KV heads, G 12), h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV
+    # heads: G 4) and the largest group one m16 tile holds (G 16: checked,
+    # not timed)
+    for kv, g, d in ((4, 7, 128), (8, 12, 128), (8, 4, 80), (2, 16, 128)):
         for dtype in (torch.bfloat16, torch.float32):
             for window in (None, 64):
                 pt, lens = _tables(gen, dev, SLOTS, maxp, lens_list)
@@ -524,15 +526,27 @@ def check_paged_attend(dev, gen):
                            max_rel_err=float((err / want.abs().clamp_min(1e-30)).max()), bound=stated, ok=ok)
                 if dtype == torch.bfloat16 and g == 7:
                     worst = max(worst, float(err.max()))
-                if dtype == torch.bfloat16 and window is None:
-                    rec["ms"] = time_ms(lambda: ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=None))
-                    rec["plain_ms"] = time_ms(lambda: ref.paged_attend_gqa(
-                        q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens, window=None))
+                if dtype == torch.bfloat16 and window is None and g != 16:
+                    def kernel():
+                        return ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=None)
+
                     # yardstick: SDPA over the already gathered cache, q as (S, KV, G, D)
                     kg = ref.paged_gather(pool_k, pt).permute(0, 2, 1, 3).contiguous()
                     vg = ref.paged_gather(pool_v, pt).permute(0, 2, 1, 3).contiguous()
                     mask = (torch.arange(maxp * PAGE, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
-                    rec["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask, scale=1.0))
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask, scale=1.0)
+
+                    rec["ms"], rec["library_ms"] = median_ms(kernel), median_ms(sdpa)
+                    rec["plain_ms"] = time_ms(lambda: ref.paged_attend_gqa(
+                        q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens, window=None))
+                    rec["host_us"] = host_us(kernel)
+                    rec.update(device_us(kernel))
+                    lib = device_us(sdpa)
+                    rec["library_device_us"], rec["library_device_kernels"] = lib["device_us"], lib["device_kernels"]
+                    splits, span = ops.decode_splits(SLOTS, kv, maxp, PAGE)
+                    rec.update(splits=splits, span=span, grid=[SLOTS, kv, splits])
                     visible = sum(min(n, maxp * PAGE - 1) + 1 for n in lens_list)
                     pages = sum(min(n, maxp * PAGE - 1) // PAGE + 1 for n in lens_list)
                     nbytes = 2 * q.numel() * 2 + 2 * visible * kv * d * 2 + 4 * pages + 4 * SLOTS
@@ -1535,19 +1549,76 @@ def _ssd_work(b, s, h, p, g, n, L, elt):
     return {"fwd": fwd, "bwd": bwd}
 
 
+def _ssd_chunks(t, s, chunk):
+    """(B, S, ...) zero-padded to whole chunks, as (B, nc, chunk, ...) in f32."""
+    import torch.nn.functional as F
+
+    pad = (-s) % chunk
+    t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t.float()
+    return t.reshape(t.shape[0], t.shape[1] // chunk, chunk, *t.shape[2:])
+
+
+def _ssd_cum(dt, A, s, chunk):
+    """The inclusive cumsum of dt A over each chunk, and its last value."""
+    import torch
+
+    cum = torch.cumsum(_ssd_chunks(dt, s, chunk) * A, dim=2)
+    return cum, cum[:, :, -1]
+
+
+def _ssd_states_plain(x, dt, A, B, chunk):
+    """The plain version of the forward's first kernel: the chunk summary
+    states and their recurrence, as ``ref.ssd_chunked`` forms them: the state
+    entering each chunk (B·H, nc, P, N) and the final state (B, H, P, N)."""
+    import torch
+
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    cum, total = _ssd_cum(dt, A, s, chunk)
+    xbar = _ssd_chunks(x, s, chunk) * _ssd_chunks(dt, s, chunk)[..., None]
+    Bc = torch.repeat_interleave(_ssd_chunks(B, s, chunk), h // g, dim=3)
+    S_c = torch.einsum("bclh,bclhn,bclhp->bchpn", torch.exp(total[:, :, None] - cum), Bc, xbar)
+    state, prevs = torch.zeros((b, h, p, n), device=x.device), []
+    for ci in range(S_c.shape[1]):
+        prevs.append(state)
+        state = torch.exp(total[:, ci])[..., None, None] * state + S_c[:, ci]
+    return torch.stack(prevs, dim=2).reshape(b * h, len(prevs), p, n), state
+
+
+def _ssd_dstates_plain(dt, A, C, dy, dstate, chunk):
+    """The plain version of the backward's first kernel: the cotangent of the
+    state leaving each chunk (B·H, nc, P, N), backward from ``dstate``."""
+    import torch
+
+    b, s, h, p = dy.shape
+    g, n = C.shape[2], C.shape[3]
+    cum, total = _ssd_cum(dt, A, s, chunk)
+    Cc = torch.repeat_interleave(_ssd_chunks(C, s, chunk), h // g, dim=3)
+    dS_c = torch.einsum("bclh,bclhp,bclhn->bchpn", torch.exp(cum), _ssd_chunks(dy, s, chunk), Cc)
+    nc, D, outs = dS_c.shape[1], dstate, []
+    for ci in reversed(range(nc)):
+        outs.append(D)
+        D = torch.exp(total[:, ci])[..., None, None] * D + dS_c[:, ci]
+    return torch.stack(outs[::-1], dim=2).reshape(b * h, nc, p, n)
+
+
 def check_ssd(dev, gen):
-    """K11 forward and the backward kernel against the plain ``ssd_chunked``
+    """K11 forward and the backward kernels against the plain ``ssd_chunked``
     (y before the D-skip: D = 0, x/B/C read in f32) and torch autograd
     through it, at the reduced shape (f32) and the slice's (bf16 x/B/C, f32
-    dt and A), with cotangents for y and the final state; the same bits on
-    a second launch; times at the slice's shape beside the plain version
-    and the bound. No single torch call computes the SSD scan."""
+    dt and A), with cotangents for y and the final state; each direction's
+    first kernel alone against its plain version (the states entering the
+    chunks; the cotangents leaving them); the same bits on a second launch;
+    times at the slice's shape beside the plain version and the bound: each
+    direction's whole call (both launches; each kernel's device µs from the
+    profiler) and its first kernel alone. No single torch call computes the
+    SSD scan."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd_scan import ops, ref
 
-    worst, timing = {"fwd": 0.0, "bwd": 0.0}, {}
+    worst, timing = {"fwd": 0.0, "bwd": 0.0, "fwd_local": 0.0, "bwd_local": 0.0}, {}
     for name, b, s, h, p, g, n, chunk, dtype in SSD_CASES:
         bnd = SSD_BOUND[dtype]
         dt_ = getattr(torch, dtype)
@@ -1560,8 +1631,10 @@ def check_ssd(dev, gen):
         y, st, states = ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True)
         grads = ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk)
         y2, st2, states2 = ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True)
+        dws = ops.ssd_dstates_bh(dt, A, C, dy, dstate, chunk=chunk)
         same = torch.equal(y, y2) and torch.equal(st, st2) and torch.equal(states, states2) and all(
-            torch.equal(a, c) for a, c in zip(grads, ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk)))
+            torch.equal(a, c) for a, c in zip(grads, ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk))
+        ) and torch.equal(dws, ops.ssd_dstates_bh(dt, A, C, dy, dstate, chunk=chunk))
         ins = [t.detach().clone().requires_grad_(True) for t in (x, dt, A, B, C)]
         zero_d = torch.zeros(h, device=dev)
 
@@ -1570,35 +1643,63 @@ def check_ssd(dev, gen):
 
         yp, stp = plain_fwd()
         plain = torch.autograd.grad((yp, stp), ins, (dy, dstate), retain_graph=True)  # kept: timed below
-        errs = dict(y=_rel(y, yp), state=_rel(st, stp), **{f"d{nm}": _rel(gk, pg) for nm, gk, pg in zip(("x", "dt", "A", "B", "C"), grads, plain)})
-        ok = (errs["y"] <= bnd["y"] and errs["state"] <= bnd["state"] and same
+        with torch.no_grad():
+            states_p, _ = _ssd_states_plain(x, dt, A, B, chunk)
+            dws_p = _ssd_dstates_plain(dt, A, C, dy, dstate, chunk)
+        errs = dict(y=_rel(y, yp), state=_rel(st, stp), states=_rel(states, states_p), dstates=_rel(dws, dws_p),
+                    **{f"d{nm}": _rel(gk, pg) for nm, gk, pg in zip(("x", "dt", "A", "B", "C"), grads, plain)})
+        ok = (errs["y"] <= bnd["y"] and all(errs[k] <= bnd["state"] for k in ("state", "states", "dstates")) and same
               and all(errs[f"d{nm}"] <= bnd["grad"] for nm in ("x", "B", "C"))
               and all(errs[f"d{nm}"] <= bnd["grad_f32"] for nm in ("dt", "A"))
               and all(bool(torch.isfinite(t).all()) for t in (y, st, *grads)))
         rec = dict(kernel="K11 ssd_scan", case=name, shape=dict(B=b, S=s, H=h, P=p, G=g, N=n, chunk=chunk),
                    dtype=dtype, dt_dtype="float32", rel_err=errs,
                    max_abs_err=dict(y=float((y - yp).abs().max()), state=float((st - stp).abs().max()),
+                                    states=float((states - states_p).abs().max()),
+                                    dstates=float((dws - dws_p).abs().max()),
                                     grads=max(float((gk.float() - pg.float()).abs().max()) for gk, pg in zip(grads, plain))),
-                   bound={key: f"max|d|/max|plain| <= {val}" for key, val in bnd.items()}, deterministic=same, ok=ok)
+                   bound={key: f"max|d|/max|plain| <= {val}" for key, val in bnd.items()}, deterministic=same,
+                   heads_per_cta=ops.heads_per_cta(b, -(-s // chunk), h, g), ok=ok)
         worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["y"], rec["max_abs_err"]["state"])
         worst["bwd"] = max(worst["bwd"], rec["max_abs_err"]["grads"])
+        worst["fwd_local"] = max(worst["fwd_local"], rec["max_abs_err"]["states"])
+        worst["bwd_local"] = max(worst["bwd_local"], rec["max_abs_err"]["dstates"])
         if name == "slice":
-            work = _ssd_work(b, s, h, p, g, n, chunk, torch.finfo(x.dtype).bits // 8)
+            elt = torch.finfo(x.dtype).bits // 8
+            work = _ssd_work(b, s, h, p, g, n, chunk, elt)
+            nc, state_bytes = -(-s // chunk), b * h * p * n * 4
+            # the first kernels' functions: read x, dt, A, B (the backward's: dt, A, C, dy and dstate) once,
+            # write the state entering (leaving) each chunk
+            local_bytes = {"fwd_local": b * s * h * (p * elt + 4) + h * 4 + b * s * g * n * elt + (nc + 1) * state_bytes,
+                           "bwd_local": b * s * h * (p * 4 + 4) + h * 4 + b * s * g * n * elt + (nc + 1) * state_bytes}
+            calls = {"fwd": lambda: ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True),
+                     "bwd": lambda: ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk),
+                     "fwd_local": lambda: ops.ssd_states_bh(x, dt, A, B, chunk=chunk),
+                     "bwd_local": lambda: ops.ssd_dstates_bh(dt, A, C, dy, dstate, chunk=chunk)}
+            plains = {"fwd": plain_fwd,
+                      "bwd": lambda: torch.autograd.grad((yp, stp), ins, (dy, dstate), retain_graph=True),
+                      "fwd_local": lambda: _ssd_states_plain(x, dt, A, B, chunk),
+                      "bwd_local": lambda: _ssd_dstates_plain(dt, A, C, dy, dstate, chunk)}
             t = {}
-            with torch.no_grad():
-                t["fwd"] = dict(ms=time_ms(lambda: ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True), 20),
-                                plain_ms=time_ms(plain_fwd, 5))
-            t["bwd"] = dict(ms=time_ms(lambda: ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk), 20),
-                            plain_ms=time_ms(lambda: torch.autograd.grad((yp, stp), ins, (dy, dstate), retain_graph=True), 5))
-            for part in ("fwd", "bwd"):
-                t[part]["bound_ms"], t[part]["bound_by"], t[part]["bound_term"] = _wkv_bound(work[part], dtype)
-                t[part].update(work[part], library_ms=None, library="none (no single torch call computes the SSD scan)")
-            t["plain_note"] = "forward: ssd_chunked under no_grad; backward: torch autograd of it, graph kept"
+            for part, fn in calls.items():
+                with torch.no_grad():
+                    t[part] = dict(ms=median_ms(fn, 20), plain_ms=time_ms(plains[part], 5), **device_us(fn, 50))
+                if part in work:
+                    t[part]["bound_ms"], t[part]["bound_by"], t[part]["bound_term"] = _wkv_bound(work[part], dtype)
+                    t[part].update(work[part])
+                else:
+                    t[part]["bound_ms"], t[part]["bound_by"] = bound(local_bytes[part])
+                    t[part]["bound_term"], t[part]["bytes"] = "bytes", local_bytes[part]
+                t[part].update(share_of_bound=t[part]["bound_ms"] / t[part]["ms"], library_ms=None,
+                               library="none (no single torch call computes the SSD scan)")
+            t["plain_note"] = ("forward: ssd_chunked under no_grad; backward: torch autograd of it, graph kept; "
+                               "the first kernels: the chunk states and their recurrence as ssd_chunked forms them")
+            t["heads_per_cta"] = rec["heads_per_cta"]
             rec["timing"] = timing = t
         log(json.dumps(rec))
         if not ok:
             raise AssertionError(f"K11 ssd_scan kernels disagree with plain (or are not deterministic): {rec}")
-        del x, dt, A, B, C, dy, dstate, y, st, states, grads, ins, yp, stp, plain, y2, st2, states2
+        del x, dt, A, B, C, dy, dstate, y, st, states, grads, ins, yp, stp, plain, y2, st2, states2, dws, dws_p
         _free()
     return worst, timing
 
@@ -2730,15 +2831,18 @@ def lm_rwkv6_full_width(dev, kernels):
 
 def zamba2_launches(steps, m, L, buckets, rounds):
     """The zamba2 LM path's launches: K11 forward and backward once a mamba2
-    layer; K6 forward and both backward kernels once a shared-attention
-    position; K7 forward and backward at each mamba2 layer's ln1 and gated
-    norm, each shared position's ln1 and ln2, and the final norm. The full
-    model's 38 layers: 33 mamba2 and 5 shared positions (i % 7 == 6),
-    counted here by hand, not from the model code."""
+    layer, each two kernels (the chunk-local states with their scan, then
+    the rest: 2 launches a call each way); K6 forward and both backward
+    kernels once a shared-attention position; K7 forward and backward at
+    each mamba2 layer's ln1 and gated norm, each shared position's ln1 and
+    ln2, and the final norm. The full model's 38 layers: 33 mamba2 and 5
+    shared positions (i % 7 == 6), counted here by hand, not from the model
+    code."""
     mamba, shared = 33, 5
     assert L == mamba + shared, L
     per = steps * m
-    return dict(ssd_fwd=per * mamba, ssd_bwd=per * mamba, flash_attention_fwd=per * shared,
+    return dict(ssd_fwd_local=per * mamba, ssd_fwd=per * mamba, ssd_bwd_local=per * mamba, ssd_bwd=per * mamba,
+                flash_attention_fwd=per * shared,
                 flash_attention_bwd_dq=per * shared, flash_attention_bwd_dkdv=per * shared,
                 rmsnorm=per * (2 * mamba + 2 * shared + 1), rmsnorm_bwd=per * (2 * mamba + 2 * shared + 1),
                 sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
@@ -2776,7 +2880,8 @@ def lm_zamba2_full_width(dev, kernels):
 
     cfg = get_arch("zamba2-1.2b").model
     return lm_full_width(dev, kernels, cfg, zamba2_launches,
-                         shares=("ssd_fwd_kernel", "ssd_bwd_kernel", *K6_SHARES, "rmsnorm"))
+                         shares=("ssd_fwd_local_kernel", "ssd_fwd_kernel", "ssd_bwd_local_kernel", "ssd_bwd_kernel",
+                                 *K6_SHARES, "rmsnorm"))
 
 
 # ---------------------------------------------------------------------------
@@ -2879,7 +2984,7 @@ def main() -> int:
     ssd_slice = "bf16 x/B/C, f32 dt and A: B=2 S=512 H=64 P=N=64 G=1 chunk 128 (the zamba2 slice)"
     for name in ("wkv_fwd", "wkv_bwd"):
         launches[name] = rwkv["launches"][name]
-    for name in ("ssd_fwd", "ssd_bwd"):
+    for name in ("ssd_fwd_local", "ssd_fwd", "ssd_bwd_local", "ssd_bwd"):
         launches[name] = zamba["launches"][name]
     rows = [
         ("rmsnorm", "rmsnorm", "K7 rmsnorm_2d", "src/repro/kernels/rmsnorm/kernel.py:26", rms_err, rms_t[4],
@@ -2915,10 +3020,17 @@ def main() -> int:
          wkv_t["fwd"], wkv_slice, None),
         ("wkv_bwd", "rwkv6_wkv", "K12 backward (new; the reference differentiates a jnp recompute, ops.py:43-50)",
          "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["bwd"], wkv_t["bwd"], wkv_slice, None),
-        ("ssd_fwd", "ssd_scan", "K11 ssd_scan_bh (forward)", "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["fwd"],
-         ssd_t["fwd"], ssd_slice, None),
-        ("ssd_bwd", "ssd_scan", "K11 backward (new; the reference differentiates a jnp recompute, ops.py:52-57)",
-         "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["bwd"], ssd_t["bwd"], ssd_slice, None),
+        ("ssd_fwd_local", "ssd_scan", "K11 forward, first kernel: the chunk-local states and their scan "
+         "(ssd_fwd_local; timed alone)", "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["fwd_local"],
+         ssd_t["fwd_local"], ssd_slice, None),
+        ("ssd_fwd", "ssd_scan", "K11 ssd_scan_bh (forward; ms: the whole call, both kernels)",
+         "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["fwd"], ssd_t["fwd"], ssd_slice, None),
+        ("ssd_bwd_local", "ssd_scan", "K11 backward, first kernel: the chunk-local state cotangents and their scan "
+         "(ssd_bwd_local; new; timed alone)", "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["bwd_local"],
+         ssd_t["bwd_local"], ssd_slice, None),
+        ("ssd_bwd", "ssd_scan", "K11 backward (new; the reference differentiates a jnp recompute, ops.py:52-57; "
+         "ms: the whole call, both kernels)", "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["bwd"], ssd_t["bwd"],
+         ssd_slice, None),
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     split_keys = ("host_us", "device_us", "device_kernels")  # K7 and K10: host or device time a call
@@ -3012,6 +3124,8 @@ def main() -> int:
             entry["reduced"] = "f32 B=2 S=45 H=4 N=P=32 chunk 16: checked, not timed"
         if name.startswith("ssd_"):
             entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
+            entry["share_of_bound"], entry["device_kernel_us"] = t["share_of_bound"], t["device_kernel_us"]
+            entry["heads_per_cta"] = ssd_t["heads_per_cta"]
             entry["reduced"] = "f32 B=2 S=45 H=16 P=32 G=1 N=16 chunk 16: checked, not timed"
         if name == "flash_attention_dkdv_sum":
             entry["library"], entry["splits"] = t["library"], t["splits"]
@@ -3031,12 +3145,14 @@ def main() -> int:
             if part != "fwd":  # the dQ and dK/dV launches together, beside SDPA's whole backward
                 entry["backward_total"] = {sh: {k: fa_t[sh]["bwd"][k] for k in keys + rates} for sh in FA_TIMED}
                 entry["backward_total"]["bound"] = "S, dP, dV, dK and dQ once each; q, out, dO, k, v, lse read once"
-        if name == "paged_attend":  # mistral-large's group of 12 (the group-capacity-16 instance)
+        if name == "paged_attend":  # the split grid; mistral-large's group of 12
+            k9 = keys + split_keys + ("library_device_us", "splits", "span", "grid")
+            entry.update({k: t[k] for k in k9 if k not in keys + split_keys})
             entry["group_12"] = dict(shape="bf16 S=4 KV=8 G=12 D=128", max_abs_err=att_g12["max_abs_err"],
-                                     **{k: att_g12[k] for k in keys})
+                                     **{k: att_g12[k] for k in k9})
             # h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV heads)
             entry["head_dim_80"] = dict(shape="bf16 S=4 KV=8 G=4 D=80", max_abs_err=att_d80["max_abs_err"],
-                                        f32_max_abs_err=att_d80["f32_max_abs_err"], **{k: att_d80[k] for k in keys})
+                                        f32_max_abs_err=att_d80["f32_max_abs_err"], **{k: att_d80[k] for k in k9})
         if name in ("rmsnorm", "rmsnorm_bwd"):  # the rwkv6 group norm's rows, zamba2's two widths
             for key, rows_, d_, what in RMS_SHAPES:
                 rec_ = rms_shapes[key]["fwd" if name == "rmsnorm" else "bwd"]

@@ -8,7 +8,9 @@ versions in ``ref`` for CPU tensors (counterpart of
   so chunked prefill appends go through the kernel too. Kernel and plain
   version apply the same last-writer rule and agree bitwise.
 * :func:`paged_attend_gqa` — for T == 1 (joint decode) ``csrc/paged_attend.cu``
-  (replaces ``paged_attn/kernel.py::paged_attend_decode``). Chunked prefill
+  (replaces ``paged_attn/kernel.py::paged_attend_decode``), its grid split over
+  the positions by :func:`decode_splits` and merged in the same launch through
+  a workspace and ticket counters that the wrapper holds per device. Chunked prefill
   (T > 1) stays the plain ``ref.paged_attend_gqa`` on every device: the JAX
   package also computes it outside any Pallas kernel (``paged_attn/ops.py``),
   so it is not a port of a TPU kernel. Kernel vs plain, stated bound:
@@ -27,11 +29,59 @@ from repro_torch.kernels.paged_attn import ref
 
 APPEND = Kernel("paged_append", {"paged_append_launch": [P, P, P, P, I, I, I, I, I, I, P],
                                  "paged_append_kv_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P]})
-ATTEND = Kernel(
-    "paged_attend", {"paged_attend_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]}
-)
-GROUP_MAX = 16  # query heads per KV head the decode kernel takes (mistral-large's 12 among them)
-HEAD_DIMS = (32, 64, 80, 128, 256)  # a lane owns ceil(head_dim / 32) columns, the last lanes fewer at 80
+ATTEND = Kernel("paged_attend", {"paged_attend_launch": [P] * 8 + [I] * 11 + [P]})
+GROUP_MAX = 16  # query heads per KV head the decode kernel takes (mistral-large's 12 among them): one m16 tile
+HEAD_DIMS = (32, 64, 80, 128, 256)  # multiples of 16 (the tensor cores' k step), each with its own instance
+SPLIT_CTAS = 264  # the decode grid aims at two CTAs on each of the H100's 132 SMs
+SPLIT_MIN = 64  # positions: a split is at least the bf16 kernel's tile (16 positions a warp)
+
+
+def decode_splits(slots: int, kv: int, maxp: int, page: int):
+    """(splits, span): the decode kernel's grid is (slots, KV heads, splits),
+    a split covering ``span`` positions, whole pages, at least
+    :data:`SPLIT_MIN`. At most :data:`SPLIT_CTAS` CTAs where the table is
+    long enough (serving's 4 slots x 4 KV heads: 8 splits of 64 positions
+    at max_len 512, 128 CTAs; 8 KV heads: 8 splits, 256 CTAs); from
+    host-known shapes only, never from the lengths, so the result's bits
+    depend on the shapes alone."""
+    want = max(1, SPLIT_CTAS // (slots * kv))
+    pages = max(-(-maxp // want), -(-SPLIT_MIN // page))
+    return -(-maxp // pages), pages * page
+
+
+def split_span(split: int, span: int, length: int, window: Optional[int], maxp: int, page: int):
+    """Positions [lo, hi] of a slot of this length that ``split`` covers, as
+    the kernel computes them (empty when lo > hi): the visible positions
+    (at most ``length``, inside the table and the window) within
+    [split·span, (split+1)·span)."""
+    hi = min(length, maxp * page - 1)
+    lo = max(0, length - window + 1) if window else 0
+    return max(lo, split * span), min(hi, split * span + span - 1)
+
+
+_PLANS: dict = {}  # (device index, slots, KV, G, D, maxp, page) -> (splits, span, workspace and counters pointers)
+_WORK: dict = {}  # device index -> (f32 workspace, int32 ticket counters), grown when needed
+
+
+def _plan(device, slots: int, kv: int, g: int, d: int, maxp: int, page: int):
+    """The split grid of a decode call at these shapes and the pointers of
+    the workspace (each split's f32 accumulator, m and l, 16-byte aligned)
+    and ticket counters (zero, and left zero by every launch) it runs on:
+    held per device across calls, grown when a shape needs more, and
+    planned once a shape (a plan keeps the buffers it was given alive)."""
+    key = (device.index, slots, kv, g, d, maxp, page)
+    plan = _PLANS.get(key)
+    if plan is None:
+        splits, span = decode_splits(slots, kv, maxp, page)
+        floats = slots * kv * splits * (-(-g * (d + 2) // 4) * 4)
+        ws, cnt = _WORK.get(device.index, (None, None))
+        if ws is None or ws.numel() < floats:
+            ws = torch.empty(floats, dtype=torch.float32, device=device)
+        if cnt is None or cnt.numel() < slots * kv:
+            cnt = torch.zeros(slots * kv, dtype=torch.int32, device=device)
+        _WORK[device.index] = (ws, cnt)
+        plan = _PLANS[key] = (splits, span, ws.data_ptr(), cnt.data_ptr(), ws, cnt)
+    return plan
 
 
 def check_decode_shape(group: int, head_dim: int) -> None:
@@ -154,11 +204,12 @@ def paged_attend_decode(q, pool_k, pool_v, page_tables, lengths, *, window: Opti
     if not (q.is_contiguous() and pool_k.is_contiguous() and pool_v.is_contiguous()):
         raise ValueError("paged_attend_decode: q and pools must be contiguous")
     out = torch.empty_like(q)
+    dev, maxp, page = q.device, page_tables.shape[1], pool_k.shape[1]
+    splits, span, ws, cnt = _plan(dev, s_, kv, g, d, maxp, page)[:4]
     ATTEND.launch(
         "paged_attend_launch", q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), s_, kv, g, d,
-        page_tables.shape[1], pool_k.shape[1], pool_k.shape[0], window or 0,
-        dtype_code(q.dtype), stream_ptr(q.device),
+        page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws, cnt, s_, kv, g, d,
+        maxp, page, pool_k.shape[0], window or 0, splits, span, dtype_code(q.dtype), stream_ptr(dev),
     )
     return out
 

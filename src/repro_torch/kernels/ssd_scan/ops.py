@@ -1,35 +1,42 @@
 """Mamba2 SSD scan wrapper: the CUDA kernels of ``csrc/ssd_scan.cu`` for CUDA
 tensors, the plain ``ref.ssd_chunked`` for CPU tensors (counterpart of
 ``repro.kernels.ssd_scan.ops``), and an autograd Function whose backward is
-the backward kernel.
+the backward kernels.
 
-The forward kernel (K11) writes y before the D-skip term, in f32, and, when
-a gradient is wanted, the state entering each chunk; the backward kernel
-walks the chunks in reverse from those states and takes the cotangents of
-y and of the final state. The D-skip term is torch here: ``y + x·D`` in f32,
-then one rounding to x's type. That is the rounding of the reference's
-``ssd_chunked`` (``ref.py:120-121``), the reference model's CPU route, which
-the port follows on both devices; the reference's Pallas route rounds y to
-x's type before it adds ``x·D`` in that type (ROADMAP Queue 3, "Known
-differences"). Each wrapper counts its own launches. Unlike the reference's
-wrapper nothing is padded, transposed or repeated: the kernels read the
-(B, S, H, ·) layout directly, read B and C by group (head h reads group
-h // (H/G)) and bounds-check the last chunk, so S need not be a whole number
-of chunks and S < chunk is one ragged chunk (the reference's Pallas route
-would shrink the chunk to S instead).
+Each direction is two launches, each counted on a ``Kernel`` of its own. The
+forward's first (``ssd_fwd_local``) computes every chunk's local state and,
+in the CTA that finishes a (batch, head) row last, runs the state's
+recurrence over the row's chunks: the state entering each chunk (kept for
+the backward when a gradient is wanted) and the final state. Its second
+(``ssd_fwd``, K11) writes y before the D-skip term, in f32, a chunk a CTA.
+The backward's first (``ssd_bwd_local``) does the same for the cotangent of
+the state, backward from the final state's; its second (``ssd_bwd``) the
+gradients, a CTA per (batch, chunk, block of heads of one group). The D-skip
+term is torch here: ``y + x·D`` in f32, then one rounding to x's type. That
+is the rounding of the reference's ``ssd_chunked`` (``ref.py:120-121``), the
+reference model's CPU route, which the port follows on both devices; the
+reference's Pallas route rounds y to x's type before it adds ``x·D`` in that
+type (ROADMAP Queue 3, "Known differences"). Unlike the reference's wrapper
+nothing is padded, transposed or repeated: the kernels read the (B, S, H, ·)
+layout directly, read B and C by group (head h reads group h // (H/G)) and
+bounds-check the last chunk, so S need not be a whole number of chunks and
+S < chunk is one ragged chunk (the reference's Pallas route would shrink the
+chunk to S instead).
 
 Types: x, B, C in one type (float32 or bfloat16), dt and A in float32; y
 before the D-skip and the states in f32; the gradients in their inputs'
-types. dB and dC sum the heads of a group, and dA the batch rows, from
-per-row partials in a fixed order (no float atomics).
+types. dB and dC sum a group's heads: a CTA sums its block of heads
+(:func:`heads_per_cta`), and the blocks' partials are summed here in a fixed
+order, as are dA's per-chunk partials (no float atomics).
 
 Kernel vs plain, stated bounds (checked on the card by ``chip_smoke.py``
 and ``tests/test_torch_kernels.py``), as max|kernel − plain| / max|plain|,
 the plain backward being torch autograd of ``ssd_chunked``: with either
 input type, 2e-5 for y before the D-skip and for the final state (both f32,
-summed in other orders); f32 inputs 1e-4 for each gradient; bf16 x/B/C
-2^-7 for dx, dB and dC (one rounding of each, where a value near a
-rounding boundary may round either way) and 1e-4 for ddt and dA (f32).
+summed in other orders, the tensor cores' products of bf16 high and low
+parts); f32 inputs 1e-4 for each gradient; bf16 x/B/C 2^-7 for dx, dB and dC
+(one rounding of each, where a value near a rounding boundary may round
+either way) and 1e-4 for ddt and dA (f32).
 """
 from __future__ import annotations
 
@@ -40,10 +47,36 @@ import torch
 from repro_torch.kernels._build import I, Kernel, P, dtype_code, stream_ptr
 from repro_torch.kernels.ssd_scan import ref as _ref
 
-FWD = Kernel("ssd_fwd", {"ssd_fwd_launch": [P] * 8 + [I] * 8 + [P]}, source="ssd_scan")
-BWD = Kernel("ssd_bwd", {"ssd_bwd_launch": [P] * 13 + [I] * 8 + [P]}, source="ssd_scan")
-MAX_DIM = 64  # head_dim P and state N: the backward's tiles fill ~215 KB of shared memory at 64/64, chunk 128
-MAX_CHUNK = 128
+FWD_LOCAL = Kernel("ssd_fwd_local", {"ssd_fwd_local_launch": [P] * 8 + [I] * 8 + [P]}, source="ssd_scan")
+FWD = Kernel("ssd_fwd", {"ssd_fwd_launch": [P] * 7 + [I] * 8 + [P]}, source="ssd_scan")
+BWD_LOCAL = Kernel("ssd_bwd_local", {"ssd_bwd_local_launch": [P] * 8 + [I] * 8 + [P]}, source="ssd_scan")
+BWD = Kernel("ssd_bwd", {"ssd_bwd_launch": [P] * 13 + [I] * 9 + [P]}, source="ssd_scan")
+MAX_DIM = 64  # head_dim P and state N: a tile row is 64 bf16 values
+MAX_CHUNK = 128  # a warp a 16 rows of the chunk, eight warps
+WAVE = 128  # the backward's main grid aims at about one wave of the H100's 132 SMs
+
+
+def heads_per_cta(b: int, nc: int, h: int, g: int) -> int:
+    """Heads a CTA of the backward's main kernel takes (consecutive heads of
+    one group; it sums their dB and dC): the largest power of two dividing
+    the heads of a group that keeps at least :data:`WAVE` CTAs (4 at
+    zamba2's slice: B 2 x 4 chunks x 16 blocks of 4 of the 64 heads)."""
+    k = 1
+    while (h // g) % (2 * k) == 0 and b * nc * (h // (2 * k)) >= WAVE:
+        k *= 2
+    return k
+
+
+_COUNTERS: dict = {}  # device index -> int32 ticket counters, zero, grown when needed
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The local kernels' ticket counters (one a (batch, head) row; every
+    launch leaves them zero), held per device across calls."""
+    cnt = _COUNTERS.get(device.index)
+    if cnt is None or cnt.numel() < n:
+        cnt = _COUNTERS[device.index] = torch.zeros(n, dtype=torch.int32, device=device)
+    return cnt
 
 
 def _check(x, dt, A, B, C, chunk):
@@ -70,6 +103,26 @@ def _on_card(name, tensors, x, B, dt, A, chunk):
         raise TypeError(f"{name}: dt and A must be float32, got {dt.dtype}, {A.dtype}")
 
 
+def _dims(x, B):
+    b, s, h, p = x.shape
+    return b, s, h, B.shape[2], p, B.shape[3]
+
+
+def ssd_states_bh(x, dt, A, B, *, chunk: int = 64):
+    """(the state entering each chunk (B·H, nc, P, N) f32, the final state
+    (B,H,P,N) f32): the forward's first launch (``ssd_fwd_local``) on
+    contiguous card tensors already checked by :func:`ssd_scan_bh`."""
+    b, s, h, g, p, n = _dims(x, B)
+    nc, rows = -(-s // chunk), b * h
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(rows * nc * (p * n + 1), dtype=torch.float32, device=x.device)
+    states, tbuf = scratch[: rows * nc * p * n].view(rows, nc, p, n), scratch[rows * nc * p * n:]
+    FWD_LOCAL.launch("ssd_fwd_local_launch", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                     states.data_ptr(), tbuf.data_ptr(), state.data_ptr(), _counters(x.device, rows).data_ptr(),
+                     b, s, h, g, p, n, chunk, dtype_code(x.dtype), stream_ptr(x.device))
+    return states, state
+
+
 def ssd_scan_bh(x, dt, A, B, C, *, chunk: int = 64, save_states: bool = False):
     """(y (B,S,H,P) f32 before the D-skip, final state (B,H,P,N) f32, the
     chunks' starting states (B·H, nc, P, N) f32 when ``save_states``, else
@@ -79,54 +132,66 @@ def ssd_scan_bh(x, dt, A, B, C, *, chunk: int = 64, save_states: bool = False):
     if not (x.dtype == B.dtype == C.dtype):
         raise TypeError(f"ssd_scan_bh: x, B, C dtypes differ: {x.dtype}, {B.dtype}, {C.dtype}")
     x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    nc = -(-s // chunk)
+    states, state = ssd_states_bh(x, dt, A, B, chunk=chunk)
     y = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-    states = torch.empty((b * h, nc, p, n), dtype=torch.float32, device=x.device) if save_states else None
     FWD.launch("ssd_fwd_launch", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-               state.data_ptr(), 0 if states is None else states.data_ptr(), b, s, h, g, p, n, chunk,
-               dtype_code(x.dtype), stream_ptr(x.device))
-    return y, state, states
+               states.data_ptr(), *_dims(x, B), chunk, dtype_code(x.dtype), stream_ptr(x.device))
+    return y, state, (states if save_states else None)
+
+
+def ssd_dstates_bh(dt, A, C, dy, dstate, *, chunk: int = 64):
+    """The cotangent of the state leaving each chunk (B·H, nc, P, N) f32,
+    from dy (B,S,H,P) f32 and the final state's cotangent (None for zero):
+    the backward's first launch (``ssd_bwd_local``) on contiguous card
+    tensors already checked by :func:`ssd_scan_bwd_bh`."""
+    b, s, h, p = dy.shape
+    g, n = C.shape[2], C.shape[3]
+    nc, rows = -(-s // chunk), b * h
+    scratch = torch.empty(rows * nc * (p * n + 1), dtype=torch.float32, device=dy.device)
+    dws, tbuf = scratch[: rows * nc * p * n].view(rows, nc, p, n), scratch[rows * nc * p * n:]
+    BWD_LOCAL.launch("ssd_bwd_local_launch", dt.data_ptr(), A.data_ptr(), C.data_ptr(), dy.data_ptr(),
+                     0 if dstate is None else dstate.data_ptr(), dws.data_ptr(), tbuf.data_ptr(),
+                     _counters(dy.device, rows).data_ptr(), b, s, h, g, p, n, chunk, dtype_code(C.dtype),
+                     stream_ptr(dy.device))
+    return dws
 
 
 def ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate: Optional[torch.Tensor], *, chunk: int = 64):
     """(dx, ddt, dA, dB, dC) from the forward's chunk states and the
     cotangents of y (f32, before the D-skip) and of the final state
-    (``dstate`` None for zero); the backward kernel (new for the port). The
-    kernel writes per-row partials of dA and per-head partials of dB and
-    dC; they are summed here over the batch rows and over the heads of each
-    group, in a fixed order."""
+    (``dstate`` None for zero); the backward kernels (new for the port). The
+    main kernel writes each chunk's share of dA and each block of heads'
+    share of dB and dC; they are summed here, over the chunks and batch rows
+    and over the blocks of each group, in a fixed order."""
     _check(x, dt, A, B, C, chunk)
     tensors = (x, dt, A, B, C, dy, states) + (() if dstate is None else (dstate,))
     _on_card("ssd_scan_bwd_bh", tensors, x, B, dt, A, chunk)
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
+    b, s, h, g, p, n = _dims(x, B)
+    nc = -(-s // chunk)
     if dy.shape != x.shape or dy.dtype != torch.float32:
         raise ValueError(f"ssd_scan_bwd_bh: dy must be f32 {tuple(x.shape)}, got {tuple(dy.shape)} {dy.dtype}")
-    if states.shape != (b * h, -(-s // chunk), p, n) or (dstate is not None and dstate.shape != (b, h, p, n)):
+    if states.shape != (b * h, nc, p, n) or (dstate is not None and dstate.shape != (b, h, p, n)):
         raise ValueError("ssd_scan_bwd_bh: chunk states or dstate of the wrong shape")
     x, dt, A, B, C, dy, states = (t.contiguous() for t in (x, dt, A, B, C, dy, states))
     dstate = None if dstate is None else dstate.to(torch.float32).contiguous()
+    dws = ssd_dstates_bh(dt, A, C, dy, dstate, chunk=chunk)
+    hpc = heads_per_cta(b, nc, h, g)
+    blocks = h // hpc
     dx, ddt = torch.empty_like(x), torch.empty_like(dt)
-    da_part = torch.empty((b, h), dtype=torch.float32, device=x.device)
-    db_part = torch.empty((b, s, h, n), dtype=torch.float32, device=x.device)
-    dc_part = torch.empty((b, s, h, n), dtype=torch.float32, device=x.device)
+    sizes = (b * s * blocks * n, b * s * blocks * n, b * nc * h)
+    db_part, dc_part, da_part = torch.empty(sum(sizes), dtype=torch.float32, device=x.device).split(sizes)
     BWD.launch("ssd_bwd_launch", x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
-               states.data_ptr(), 0 if dstate is None else dstate.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
-               da_part.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(), b, s, h, g, p, n, chunk,
-               dtype_code(x.dtype), stream_ptr(x.device))
-    dA = da_part[0]
-    for i in range(1, b):
-        dA = dA + da_part[i]
-    dB = db_part.reshape(b, s, g, h // g, n).sum(dim=3).to(B.dtype)
-    dC = dc_part.reshape(b, s, g, h // g, n).sum(dim=3).to(C.dtype)
+               states.data_ptr(), dws.data_ptr(), dx.data_ptr(), ddt.data_ptr(), da_part.data_ptr(),
+               db_part.data_ptr(), dc_part.data_ptr(), b, s, h, g, p, n, chunk, hpc, dtype_code(x.dtype),
+               stream_ptr(x.device))
+    dA = da_part.view(b * nc, h).sum(0)
+    dB = db_part.view(b, s, g, blocks // g, n).sum(3).to(B.dtype)
+    dC = dc_part.view(b, s, g, blocks // g, n).sum(3).to(C.dtype)
     return dx, ddt, dA.to(A.dtype), dB, dC
 
 
 class SSDScan(torch.autograd.Function):
-    """Forward kernel (saving the chunks' starting states); backward kernel.
+    """Forward kernels (saving the chunks' starting states); backward kernels.
     Returns y before the D-skip, in f32, and the final state."""
 
     @staticmethod

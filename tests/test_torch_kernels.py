@@ -553,6 +553,41 @@ def test_paged_attend_prefill_chunk_plain_vs_jax_ref(window, rng, jx):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-6, atol=2e-6)
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_paged_attend_decode_splits_cover_each_position_once(seed):
+    """The decode kernel's split planner (a host function of the shapes
+    only): for random slot counts, KV heads, table widths, page sizes,
+    lengths and windows, every visible position of every slot falls in
+    exactly one split, and no split reaches past the visible set; the
+    grid stays within two CTAs an SM of the H100's 132, a split at least
+    the kernel's 64-position tile."""
+    gen = np.random.default_rng(seed)
+    for _ in range(50):
+        slots, kv, maxp, page = (int(v) for v in (gen.integers(1, 9), gen.integers(1, 17), gen.integers(1, 65),
+                                                   gen.choice([1, 8, 16, 32])))
+        splits, span = pa_ops.decode_splits(slots, kv, maxp, page)
+        assert span % page == 0 and span >= pa_ops.SPLIT_MIN and splits * span >= maxp * page > (splits - 1) * span
+        assert slots * kv * splits <= max(pa_ops.SPLIT_CTAS, slots * kv)
+        for _ in range(4):
+            length = int(gen.integers(0, maxp * page + 8))
+            window = None if gen.random() < 0.3 else int(gen.integers(1, maxp * page + 8))
+            visible = {k for k in range(maxp * page) if k <= length and (window is None or k > length - window)}
+            seen = []
+            for sp in range(splits):
+                lo, hi = pa_ops.split_span(sp, span, length, window, maxp, page)
+                seen += range(lo, hi + 1)
+            assert sorted(seen) == sorted(visible), (slots, kv, maxp, page, length, window)
+
+
+def test_paged_attend_decode_splits_at_the_serving_shapes():
+    """qwen2-7b serving (4 slots, 4 KV heads, max_len 512, page 16): 8
+    splits of 64 positions, 128 CTAs; mistral-large's 8 KV heads: 8 of 64,
+    256 CTAs; one slot and one KV head over 2048 pages: 256 splits of 128."""
+    assert pa_ops.decode_splits(4, 4, 32, 16) == (8, 64)
+    assert pa_ops.decode_splits(4, 8, 32, 16) == (8, 64)
+    assert pa_ops.decode_splits(1, 1, 2048, 16) == (256, 128)
+
+
 def test_paged_gather_and_targets_match_jax(rng, jx):
     pool = rng.normal(size=(5, 4, 3)).astype(np.float32)
     pt = np.asarray([[2, 4], [1, 3]], np.int32)
@@ -1024,20 +1059,52 @@ def test_rmsnorm_kernels_at_every_plan_on_card(cuda, dtype, d):
             assert bool((e <= lim).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("window", [None, 64])
-def test_paged_attend_kernel_vs_plain_on_card(cuda, window):
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    pk = torch.randn(129, 16, 4, 128, generator=gen, device=cuda)
-    pv = torch.randn(129, 16, 4, 128, generator=gen, device=cuda)
-    pt = (torch.randperm(128, generator=gen, device=cuda).to(torch.int32) + 1).reshape(4, 32).contiguous()
-    pt[0] = 0
-    lens = torch.tensor([0, 17, 300, 511], dtype=torch.int32, device=cuda)
-    q = torch.randn(4, 4, 7, 128, generator=gen, device=cuda) / 128**0.5
-    got = pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=window)
-    want = pa_ref.paged_attend_gqa(q.reshape(4, 1, 28, 128), pk, pv, pt, lens, window=window).reshape(q.shape)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+def _paged_on_card(cuda, gen, kv, g, d, dtype, lens, windows, slots=4, page=16, maxp=32):
+    """The decode kernel against the plain version at (slots, kv, g, d) for
+    each window, with the bound chip_smoke.py states (f32 1e-5 absolute,
+    bf16 2^-8·|plain| + 1e-5), and the same bits on a second launch;
+    returns the outputs."""
+    pk, pv = (torch.randn(slots * maxp + 1, page, kv, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    pt = (torch.randperm(slots * maxp, generator=gen, device=cuda).to(torch.int32) + 1).reshape(slots, maxp)
+    pt = pt.contiguous()
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = (torch.randn(slots, kv, g, d, generator=gen, device=cuda) / d**0.5).to(dtype)
+    outs = []
+    for window in windows:
+        got = pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=window)
+        want = pa_ref.paged_attend_gqa(q.reshape(slots, 1, kv * g, d), pk, pv, pt, lens, window=window)
+        want = want.reshape(slots, kv, g, d)
+        lim = 2.0**-8 * want.abs() + 1e-5 if dtype == torch.bfloat16 else torch.full_like(want, 1e-5)
+        assert bool(((got.float() - want).abs() <= lim).all()), (kv, g, d, dtype, window)
+        assert torch.equal(pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=window), got)
+        outs.append((got, (q, pk, pv, pt, lens, window)))
+    return outs
 
+
+def _split_lengths(slots, kv, maxp=32, page=16):
+    """Lengths that end one before a split's edge, on it, one past it, and
+    0 (the last slot at the table's last position)."""
+    _, span = pa_ops.decode_splits(slots, kv, maxp, page)
+    return [0, span - 1, span, maxp * page - 1] if slots == 4 else [span, span + 1, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 64])
+def test_paged_attend_kernel_vs_plain_on_card(cuda, window, dtype):
+    """The serving slice's decode (qwen2-7b: 4 KV heads, G 7, D 128) and the
+    other groups one m16 tile holds (G 1, 12, 16), at lengths on, before and
+    past a split's edge and 0, with no window, a window of 64 (which empties
+    the early splits of the long slots) and one of 300; bitwise on a second
+    launch. Then the workspace, reused across calls of other shapes, gives
+    the same bits as before."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    first = None
+    for kv, g in ((4, 7), (4, 1), (2, 16), (8, 12)):
+        outs = _paged_on_card(cuda, gen, kv, g, 128, dtype, _split_lengths(4, kv), (window, 300))
+        first = first or outs[0]
+    got, (q, pk, pv, pt, lens, w) = first
+    assert torch.equal(pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=w), got)
 
 
 def _card_case(cuda, dtype, m=16, n=17408):
@@ -1253,20 +1320,14 @@ def test_rmsnorm_bwd_kernel_vs_plain_on_card(cuda, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attend_kernel_group_12_on_card(cuda, dtype):
-    """mistral-large's GQA group (96 heads over 8 KV heads: G = 12), which
-    takes the kernel's group-capacity-16 instance; bounds as chip_smoke.py
-    states them: f32 1e-5 absolute, bf16 2^-8·|plain| + 1e-5."""
+    """mistral-large's GQA group (96 heads over 8 KV heads: G = 12, four
+    splits of 128 positions at max_len 512), with and without a window, at
+    lengths on and past a split's edge; and three slots over 8 KV heads (a
+    grid of other splits); bounds as chip_smoke.py states them: f32 1e-5
+    absolute, bf16 2^-8·|plain| + 1e-5; bitwise on a second launch."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    pk, pv = (torch.randn(129, 16, 8, 128, generator=gen, device=cuda).to(dtype) for _ in range(2))
-    pt = (torch.randperm(128, generator=gen, device=cuda).to(torch.int32) + 1).reshape(4, 32).contiguous()
-    pt[0] = 0
-    lens = torch.tensor([0, 17, 300, 511], dtype=torch.int32, device=cuda)
-    q = (torch.randn(4, 8, 12, 128, generator=gen, device=cuda) / 128**0.5).to(dtype)
-    for window in (None, 64):
-        got = pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=window)
-        want = pa_ref.paged_attend_gqa(q.reshape(4, 1, 96, 128), pk, pv, pt, lens, window=window).reshape(4, 8, 12, 128)
-        lim = 2.0**-8 * want.abs() + 1e-5 if dtype == torch.bfloat16 else torch.full_like(want, 1e-5)
-        assert bool(((got.float() - want).abs() <= lim).all())
+    _paged_on_card(cuda, gen, 8, 12, 128, dtype, _split_lengths(4, 8), (None, 64))
+    _paged_on_card(cuda, gen, 8, 12, 128, dtype, _split_lengths(3, 8), (None, 64), slots=3)
 
 
 # (B, S, H, N = P, chunk, r/k/v/u dtype): the reduced rwkv6-7b's shape with a
@@ -1318,38 +1379,41 @@ def test_wkv_kernels_vs_plain_on_card(cuda, case):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_attend_kernel_head_dim_80_on_card(cuda, dtype):
     """h2o-danube-1.8b's decode attention (32 heads over 8 KV heads, G 4,
-    head_dim 80: lanes own three columns, the last lanes fewer, and the Q.K
-    loop ends on a 16-column tail); bounds as chip_smoke.py states them: f32
-    1e-5 absolute, bf16 2^-8·|plain| + 1e-5."""
+    head_dim 80: five k steps of 16 on the tensor cores; on the CUDA cores
+    lanes own three columns, the last lanes fewer, and the Q.K loop ends on a
+    16-column tail), then every other head dim the kernel takes (32, 64,
+    256); bounds as chip_smoke.py states them: f32 1e-5 absolute, bf16
+    2^-8·|plain| + 1e-5; bitwise on a second launch."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    pk, pv = (torch.randn(129, 16, 8, 80, generator=gen, device=cuda).to(dtype) for _ in range(2))
-    pt = (torch.randperm(128, generator=gen, device=cuda).to(torch.int32) + 1).reshape(4, 32).contiguous()
-    pt[0] = 0
-    lens = torch.tensor([0, 17, 300, 511], dtype=torch.int32, device=cuda)
-    q = (torch.randn(4, 8, 4, 80, generator=gen, device=cuda) / 80**0.5).to(dtype)
-    for window in (None, 64):
-        got = pa_ops.paged_attend_decode(q, pk, pv, pt, lens, window=window)
-        want = pa_ref.paged_attend_gqa(q.reshape(4, 1, 32, 80), pk, pv, pt, lens, window=window).reshape(4, 8, 4, 80)
-        lim = 2.0**-8 * want.abs() + 1e-5 if dtype == torch.bfloat16 else torch.full_like(want, 1e-5)
-        assert bool(((got.float() - want).abs() <= lim).all())
+    for d in (80, 32, 64, 256):
+        _paged_on_card(cuda, gen, 8, 4, d, dtype, _split_lengths(4, 8), (None, 64))
 
 
 # (B, S, H, P, G, N, chunk, x/B/C dtype): the reduced zamba2's SSM shape with a
-# ragged last chunk, and the zamba2 slice's; dt and A are f32 in both
-SSD_CARD = [(2, 45, 16, 32, 1, 16, 16, torch.float32), (2, 512, 64, 64, 1, 64, 128, torch.bfloat16)]
+# ragged last chunk, and the zamba2 slice's; one chunk (nc 1), a ragged last
+# chunk of the slice's widths, S shorter than the chunk, S 4096 (nc 32),
+# four groups, the f32 route at the largest tiles, and P, N that are not
+# multiples of 16; dt and A are f32 in all
+SSD_CARD = [(2, 45, 16, 32, 1, 16, 16, torch.float32), (2, 512, 64, 64, 1, 64, 128, torch.bfloat16),
+            (2, 128, 8, 64, 1, 64, 128, torch.bfloat16), (1, 300, 8, 64, 1, 64, 128, torch.bfloat16),
+            (2, 50, 8, 64, 1, 64, 128, torch.bfloat16), (1, 4096, 8, 64, 1, 64, 128, torch.bfloat16),
+            (2, 256, 16, 64, 4, 64, 128, torch.bfloat16), (1, 256, 8, 64, 2, 64, 128, torch.float32),
+            (1, 70, 4, 40, 1, 24, 32, torch.float32)]
+SSD_CARD_IDS = ["reduced", "slice", "nc1", "ragged", "short", "nc32", "groups4", "f32_full", "odd_dims"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", SSD_CARD, ids=["reduced", "slice"])
+@pytest.mark.parametrize("case", SSD_CARD, ids=SSD_CARD_IDS)
 def test_ssd_kernels_vs_plain_on_card(cuda, case):
-    """K11 forward and the backward kernel against the plain ``ssd_chunked``
+    """K11 forward and the backward kernels against the plain ``ssd_chunked``
     (y before the D-skip: D = 0, x/B/C read in f32) and torch autograd
     through it, with cotangents for y and the final state; bounds as
     chip_smoke.py states them (max|Δ| / max|plain|): f32 2e-5 for y and the
     state, 1e-4 for each gradient; bf16 inputs the same for the f32 y and
     state, 2^-7 for dx, dB and dC (rounded once to bf16) and 1e-4 for the
-    f32 ddt and dA. The same bits on a second launch; the autograd Function
-    counts one launch of each."""
+    f32 ddt and dA. The chunk states the forward saves against the plain
+    recurrence's; the same bits on a second launch; the autograd Function
+    counts one launch of each of the four kernels."""
     b, s, h, p, g, n, chunk, dtype = case
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
@@ -1370,16 +1434,24 @@ def test_ssd_kernels_vs_plain_on_card(cuda, case):
         return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
     assert rel(y, yp) <= 2e-5 and rel(st, stp) <= 2e-5
+    nc = -(-s // chunk)
+    with torch.no_grad():  # the state entering each chunk: the plain recurrence over prefixes of whole chunks
+        for c in range(1, nc):
+            _, prev = ssd_ref.ssd_chunked(x[:, :c * chunk].float(), dt[:, :c * chunk], A, B[:, :c * chunk].float(),
+                                          C[:, :c * chunk].float(), torch.zeros(h, device=cuda), chunk=chunk)
+            assert rel(states[:, c].reshape(b, h, p, n), prev) <= 2e-5, c
     for name, gk, pg in zip(("x", "dt", "A", "B", "C"), grads, plain):
         bound = 1e-4 if f32 or name in ("dt", "A") else 2.0**-7
         assert gk.dtype == pg.dtype and rel(gk, pg) <= bound, (name, rel(gk, pg))
     again = ssd_ops.ssd_scan_bwd_bh(x, dt, A, B, C, dy, states, dstate, chunk=chunk)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
-    assert torch.equal(ssd_ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk)[0], y)
-    before = (ssd_ops.FWD.launches, ssd_ops.BWD.launches)
+    y2, st2, states2 = ssd_ops.ssd_scan_bh(x, dt, A, B, C, chunk=chunk, save_states=True)
+    assert torch.equal(y2, y) and torch.equal(st2, st) and torch.equal(states2, states)
+    kernels = (ssd_ops.FWD_LOCAL, ssd_ops.FWD, ssd_ops.BWD_LOCAL, ssd_ops.BWD)
+    before = [k.launches for k in kernels]
     D = torch.zeros(h, device=cuda)
     ya, sa = ssd_ops.ssd_scan(*ins, D, chunk=chunk)
     got = torch.autograd.grad((ya, sa), ins, (dy.to(dtype), dstate))
-    assert (ssd_ops.FWD.launches, ssd_ops.BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert [k.launches for k in kernels] == [c + 1 for c in before]
     assert torch.equal(ya, y.to(dtype)) and torch.equal(sa, st)
     assert all(rel(a, c) <= 2.0**-7 for a, c in zip(got, grads))

@@ -593,3 +593,36 @@ def test_zamba2_path_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[0] == "1"
+
+
+def test_full_width_first_loss_is_the_random_init_expectation():
+    """The first loss of zamba2-1.2b at full width (d_model 2048, vocab 32000,
+    tied head) with seeded random weights, cut in depth to one mamba2 layer
+    and one shared-attention position, f32, batch 4 x seq 64, weights drawn
+    by the reference and carried across: the port's ``lm_loss`` within rtol
+    1e-5 of the reference's, and both within 0.25 of ln 32000 + 2048·0.02²/2
+    = 10.783. The final norm leaves h at RMS 1 and the tied embeddings are
+    N(0, 0.02²) (``models/params.py``), so the logits are N(0, 2048·0.02²)
+    and independent of the next token's embedding: E[loss] = ln V + σ²/2.
+    Over 256 tokens the target logit's mean has a standard deviation of
+    about 0.057, so 0.25 is more than 4σ. This is why the full zamba2's
+    losses sit near 10.78, above ln V. (Observed: 10.7948 both, rtol
+    1.8e-7; peak ≈ 2.3 GB of host memory.)"""
+    jfull = jax_get_arch("zamba2-1.2b").model
+    jcfg = dataclasses.replace(jfull, dtype="float32", num_layers=2, layer_pattern=("mamba2", "shared_attn"),
+                               shared_attn_every=2)
+    tcfg = dataclasses.replace(get_arch("zamba2-1.2b").model, dtype="float32", num_layers=2,
+                               layer_pattern=("mamba2", "shared_attn"), shared_attn_every=2)
+    assert (tcfg.d_model, tcfg.vocab_size, tcfg.tie_embeddings) == (2048, 32000, True)
+    assert [k for k, _ in T.segments(tcfg)] == ["mamba2", "shared_attn"]
+    jparams, _ = JT.init_model(jcfg, jax.random.PRNGKey(0))
+    tparams = interop.params_from_numpy(_np(jparams))
+    toks, tgts = next(jloaders.lm_batch_stream(4, 64, jcfg.vocab_size, seed=3))
+    jloss = float(JT.lm_loss(jcfg, jparams, dict(tokens=jnp.asarray(toks), targets=jnp.asarray(tgts)))[0])
+    del jparams
+    with torch.no_grad():
+        tloss = float(T.lm_loss(tcfg, tparams, dict(tokens=torch.from_numpy(toks), targets=torch.from_numpy(tgts)))[0])
+    expect = np.log(32000) + 2048 * 0.02**2 / 2
+    assert abs(expect - 10.783) < 1e-3
+    assert abs(tloss - jloss) <= 1e-5 * abs(jloss), (tloss, jloss)
+    assert abs(jloss - expect) <= 0.25 and abs(tloss - expect) <= 0.25, (jloss, tloss, expect)
