@@ -58,12 +58,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    also at mistral-large's GQA group of 12 and at h2o-danube-1.8b's
    head_dim 80 (32 heads over 8 KV heads), in bf16 and f32, timed beside
    SDPA on the gathered cache;
-   (d) K12, the RWKV-6 chunked WKV, forward and backward, against the plain
-   ``wkv_chunked`` and torch autograd through it at the reduced rwkv6-7b's
-   shape (B 2, S 45, H 4, N 32, chunk 16, f32) and the rwkv6 slice's (B 2,
-   S 512, H 64, N 64, chunk 32, bf16 r/k/v/u and f32 w), the same bits on a
-   second launch, timed beside the plain version and a bound set by its
-   exponentials; K7 forward and backward at the group norm's (65,536, 64)
+   (d) K12, the RWKV-6 chunked WKV, forward and backward (four kernels:
+   each direction's chunk-local states and their scan, then y or the
+   gradients), against the plain ``wkv_chunked`` and torch autograd through
+   it, each first kernel against ``wkv_states`` / ``wkv_dstates``, at the
+   reduced rwkv6-7b's shape (B 2, S 45, H 4, N 32, chunk 16, f32) and the
+   rwkv6 slice's (B 2, S 512, H 64, N 64, chunk 32, bf16 r/k/v/u and f32
+   w), each also at strong decay (w of 1e-30, 1e-12, 0.5 and 1), the same
+   bits on a second launch, each kernel and each whole call timed beside
+   the plain version and its bound; K7 forward and backward at the group norm's (65,536, 64)
    and at zamba2-1.2b's (1024, 2048) and (1024, 4096), the same bits on a
    second backward launch;
    (e) K11, the Mamba2 SSD chunked scan, forward and backward, against the
@@ -131,7 +134,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    rwkv6 slice: the reduced rwkv6-7b (f32, seq 128, m = 2, 3 rounds) on the
    card and the CPU, losses compared; full-width rwkv6-7b (d_model 4096, 64
    heads of 64) cut to 4 layers, bf16, m = 4, seq 512, 3 rounds as in (b):
-   K12 forward and backward steps x workers x layers, K7 forward and
+   each of K12's four kernels steps x workers x layers, K7 forward and
    backward steps x workers x (3 layers + 1), no attention kernel, bitwise
    replay, rounds/s, step ms, peak memory and K12's share of a profiled
    round. (g) The zamba2 slice: the reduced zamba2-1.2b (f32, seq 128,
@@ -145,7 +148,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
-   K3/K4, K9, K10, K11 and K12 forward and backward), then the device line
+   K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
+   call), then the device line
    last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
@@ -1283,15 +1287,23 @@ def check_rmsnorm_bwd(dev, gen):
 # log2; CUDA C++ Programming Guide, arithmetic instruction throughput,
 # compute capability 9.0) at the 1.98 GHz boost clock
 SFU_PER_S = 132 * 16 * 1.98e9
-# (name, B, S, H, N = P, chunk, r/k/v/u dtype): the reduced rwkv6-7b's shape
-# with S 45 (a ragged last chunk), and the slice's (full-width rwkv6-7b at
-# batch 2 x seq 512); w is f32 in both
-WKV_CASES = [("reduced", 2, 45, 4, 32, 16, "float32"), ("slice", 2, 512, 64, 64, 32, "bfloat16")]
+# (name, B, S, H, N = P, chunk, r/k/v/u dtype, decays): the reduced
+# rwkv6-7b's shape with S 45 (a ragged last chunk), and the slice's
+# (full-width rwkv6-7b at batch 2 x seq 512), each with the reference's
+# kernel-test decays; then both at strong decay, each w one of WKV_STRONG.
+# w is f32 in all
+WKV_CASES = [("reduced", 2, 45, 4, 32, 16, "float32", "model"), ("slice", 2, 512, 64, 64, 32, "bfloat16", "model")]
+WKV_STRONG_CASES = [("strong_reduced", 2, 45, 4, 32, 16, "float32", "strong"),
+                    ("strong_slice", 2, 512, 64, 64, 32, "bfloat16", "strong")]
+WKV_STRONG = (1e-30, 1e-12, 0.5, 1.0)
 # stated bounds, max|kernel - plain| / max|plain| (kernels/rwkv6_wkv/ops.py):
 # f32 sums in other orders; in bf16 one rounding of each output where a value
-# near a rounding boundary may round either way. The state is f32 in both.
+# near a rounding boundary may round either way. The state, the chunk states
+# and their cotangents are f32 in both.
 WKV_BOUND = {"float32": {"y": 2e-5, "state": 2e-5, "grad": 1e-4},
              "bfloat16": {"y": 2.0**-7, "state": 2e-5, "grad": 2.0**-5}}
+# the four kernels, and each direction's whole call
+WKV_PARTS = ("wkv_fwd_local", "wkv_fwd", "wkv_bwd_local", "wkv_bwd", "wkv_fwd_call", "wkv_bwd_call")
 
 
 def _wkv_work(b, s, h, n, L, elt):
@@ -1300,25 +1312,32 @@ def _wkv_work(b, s, h, n, L, elt):
     input read once and each output written once (the backward takes r, k,
     v, w, u, dy and the final state's cotangent, and writes dr, dk, dv, dw
     and du; the chunk states the forward saves for it are this kernel's
-    choice and not counted); each exponential (and log) once on the SFU,
-    the pairwise e^(cum_excl_l - cum_m) over L(L-1)/2 pairs a chunk plus the
-    per-element ones; the pairwise sums' flops once on the CUDA cores (an
-    exp-weighted sum, no GEMM); the GEMM-shaped products (A.v, the state
+    choice and not counted); each exponential (and log) once on the SFU:
+    the pairwise e^(cum_excl_l - cum_m) only in the diagonal 16 x 16 blocks
+    (every other pair factors through the sub-block's last cum into two
+    scaled operands of one product: 120 pairs a block, 240 a chunk at L 32)
+    plus the per-element ones; the diagonal blocks' sums on the CUDA cores;
+    the GEMM-shaped products (the off-diagonal scores, A.v, the state
     product and update; their backward) at the tensor-core rate of the
-    input type."""
+    input type. ``all_pairs_exps`` counts every pair's exponential instead
+    (L(L-1)/2 a chunk), the count of the bound the rows before this design
+    state, so that they still compare."""
     rows, nc, tri = b * h, -(-s // L), L * (L - 1) // 2
+    diag = (L // 16) * 120
     io, state = b * s * h * n, rows * n * n * 4
     per = rows * nc
-    exps = per * (tri * n + 3 * L * n + n)
-    fwd = dict(bytes=4 * io * elt + h * n * elt + 4 * io + state, exps=exps,
-               cuda_flops=per * (4 * tri * n + 5 * L * n),
-               tensor_flops=per * (2 * (tri + L) * n + 4 * L * n * n + n * n))
-    # backward, per (l, m, n) pair: the exponent, e*k, e*r, A's sum, dr's,
-    # dk's and the decay's (r * dA * e * k): 11 flops in one pass
+    exps = per * (diag * n + 3 * L * n + n)
+    all_pairs_exps = per * (tri * n + 3 * L * n + n)
+    fwd = dict(bytes=4 * io * elt + h * n * elt + 4 * io + state, exps=exps, all_pairs_exps=all_pairs_exps,
+               cuda_flops=per * (4 * diag * n + 5 * L * n),
+               tensor_flops=per * (2 * (tri + L) * n + 2 * (tri - diag) * n + 4 * L * n * n + n * n))
+    # backward, per diagonal (l, m, n) pair: the exponent, e*k, e*r, A's sum,
+    # Q's, R's and the decay's (r * dA * e * k): 11 flops in one pass; per
+    # off-diagonal pair the scores, Q and R on the tensor cores
     bwd = dict(bytes=4 * io * elt + h * n * elt + 4 * io + state + 3 * io * elt + 4 * io + h * n * elt, exps=exps,
-               cuda_flops=per * (11 * tri * n + 20 * L * n),
-               tensor_flops=per * (4 * (tri + L) * n + 8 * L * n * n + 3 * n * n))
-    return {"fwd": fwd, "bwd": bwd}
+               all_pairs_exps=all_pairs_exps, cuda_flops=per * (11 * diag * n + 20 * L * n),
+               tensor_flops=per * (4 * (tri + L) * n + 6 * (tri - diag) * n + 8 * L * n * n + 3 * n * n))
+    return {"wkv_fwd_call": fwd, "wkv_bwd_call": bwd}
 
 
 def _wkv_bound(work, dtype):
@@ -1332,13 +1351,35 @@ def _wkv_bound(work, dtype):
     return terms[term] * 1e3, ("bytes" if term == "bytes" else "operations"), term
 
 
+def _wkv_kernel_bytes(b, s, h, n, L, elt):
+    """Each kernel's own function at these shapes, in bytes, each input read
+    once and each output written once: the forward's first reads k, v, w and
+    writes the state entering each chunk and the final one; its second reads
+    r, k, v, w, u and those states and writes y; the backward's first reads
+    r, w, dy and dstate and writes the cotangent leaving each chunk; its
+    second reads r, k, v, w, u, dy, the states and the cotangents and writes
+    dr, dk, dv, dw and du's partials."""
+    io, nc = b * s * h * n, -(-s // L)
+    st = b * h * n * n * 4  # one state a row
+    return {"wkv_fwd_local": 2 * io * elt + 4 * io + (nc + 1) * st,
+            "wkv_fwd": 4 * io * elt + 4 * io + h * n * elt + nc * st,
+            "wkv_bwd_local": 2 * io * elt + 4 * io + (nc + 1) * st,
+            "wkv_bwd": 7 * io * elt + 8 * io + h * n * elt + 2 * nc * st + b * h * nc * n * 4}
+
+
 def _wkv_inputs(case, gen, dev):
+    """r, k, v, w, u, dy, dstate of a case: the reference's kernel-test decays
+    (0.2 .. 0.99), or each w drawn from ``WKV_STRONG``."""
     import torch
 
-    _, b, s, h, n, chunk, dtype = case
+    _, b, s, h, n, chunk, dtype, decays = case
     dt = getattr(torch, dtype)
     r, k, v = (torch.randn(b, s, h, n, generator=gen, device=dev).to(dt) for _ in range(3))
-    w = 0.2 + 0.79 * torch.rand(b, s, h, n, generator=gen, device=dev)  # the reference's kernel-test decays
+    if decays == "strong":
+        pick = torch.randint(0, len(WKV_STRONG), (b, s, h, n), generator=gen, device=dev)
+        w = torch.tensor(WKV_STRONG, dtype=torch.float32, device=dev)[pick]
+    else:
+        w = 0.2 + 0.79 * torch.rand(b, s, h, n, generator=gen, device=dev)
     u = torch.randn(h, n, generator=gen, device=dev).to(dt)
     dy = torch.randn(b, s, h, n, generator=gen, device=dev).to(dt)
     dstate = torch.randn(b, h, n, n, generator=gen, device=dev)
@@ -1346,61 +1387,119 @@ def _wkv_inputs(case, gen, dev):
 
 
 def check_wkv(dev, gen):
-    """K12 forward and the backward kernel against the plain ``wkv_chunked``
-    and torch autograd through it, at the reduced shape (f32) and the slice's
-    (bf16 r/k/v/u, f32 w), with cotangents for y and the final state; the
-    same bits on a second launch; times at the slice's shape beside the
-    plain version and the bound. No single torch call computes the WKV."""
+    """K12's four kernels against their plain versions, at the reduced shape
+    (f32) and the slice's (bf16 r/k/v/u, f32 w), each also at strong decay:
+    the forward (both kernels) against ``wkv_chunked``, the backward against
+    torch autograd through it, with cotangents for y and the final state;
+    each direction's first kernel alone against ``ref.wkv_states`` /
+    ``ref.wkv_dstates``; every output finite; the same bits on a second
+    launch. At strong decay dw is held as dw·w (dlog w, what reaches the
+    model's parameters through w = exp(-exp(x))): dw = dlog w / w carries
+    the f32 rounding of a sum of O(1) terms times up to 1e30 in both
+    versions. Times at the slice's shape beside the plain version and the
+    bound, as ``check_ssd``'s: each kernel alone and each direction's whole
+    call, with the device µs of each kernel. No single torch call computes
+    the WKV."""
     import torch
 
     from repro_torch.kernels.rwkv6_wkv import ops, ref
 
-    worst, timing = {"fwd": 0.0, "bwd": 0.0}, {}
-    for case in WKV_CASES:
-        name, b, s, h, n, chunk, dtype = case
+    worst, timing, checked = {part: 0.0 for part in WKV_PARTS}, {}, []
+    for case in WKV_CASES + WKV_STRONG_CASES:
+        name, b, s, h, n, chunk, dtype, decays = case
         bnd = WKV_BOUND[dtype]
         r, k, v, w, u, dy, dstate = _wkv_inputs(case, gen, dev)
         y, st, states = ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True)
         grads = ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)
+        dws = ops.wkv_dstates_bh(r, w, dy, dstate, chunk=chunk)
         y2, st2, states2 = ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True)
-        same = torch.equal(y, y2) and torch.equal(st, st2) and torch.equal(states, states2) and all(
-            torch.equal(a, c) for a, c in zip(grads, ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)))
+        same = (torch.equal(y, y2) and torch.equal(st, st2) and torch.equal(states, states2)
+                and all(torch.equal(a, c) for a, c in zip(grads, ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate,
+                                                                                chunk=chunk)))
+                and torch.equal(dws, ops.wkv_dstates_bh(r, w, dy, dstate, chunk=chunk)))
         ins = [t.detach().clone().requires_grad_(True) for t in (r, k, v, w, u)]
         yp, stp = ref.wkv_chunked(*ins, chunk=chunk)
         plain = torch.autograd.grad((yp, stp), ins, (dy, dstate), retain_graph=True)  # kept: timed below
-        errs = dict(y=_rel(y, yp), state=_rel(st, stp), **{f"d{nm}": _rel(g, pg) for nm, g, pg in zip("rkvwu", grads, plain)})
-        ok = (errs["y"] <= bnd["y"] and errs["state"] <= bnd["state"] and same
-              and all(errs[f"d{nm}"] <= bnd["grad"] for nm in "rkvwu")
-              and all(bool(torch.isfinite(t).all()) for t in (y, st, *grads)))
-        rec = dict(kernel="K12 wkv", case=name, shape=dict(B=b, S=s, H=h, N=n, P=n, chunk=chunk), dtype=dtype,
-                   w_dtype="float32", rel_err=errs,
+        with torch.no_grad():
+            states_p, _ = ref.wkv_states(k, v, w, chunk)
+            dws_p = ref.wkv_dstates(r, w, dy, dstate, chunk)
+        cmp = list(zip("rkvwu", grads, plain))
+        if decays == "strong":
+            cmp[3] = ("w", grads[3] * w, plain[3] * w)
+        errs = dict(y=_rel(y, yp), state=_rel(st, stp), states=_rel(states, states_p), dstates=_rel(dws, dws_p),
+                    **{f"d{nm}": _rel(g, pg) for nm, g, pg in cmp})
+        finite = all(bool(torch.isfinite(t).all()) for t in (y, st, states, dws, *grads))
+        ok = (errs["y"] <= bnd["y"] and all(errs[key] <= bnd["state"] for key in ("state", "states", "dstates"))
+              and all(errs[f"d{nm}"] <= bnd["grad"] for nm in "rkvwu") and same and finite)
+        rec = dict(kernel="K12 wkv", case=name, decays=decays if decays == "model" else list(WKV_STRONG),
+                   shape=dict(B=b, S=s, H=h, N=n, P=n, chunk=chunk), dtype=dtype, w_dtype="float32", rel_err=errs,
                    max_abs_err=dict(y=float((y.float() - yp.float()).abs().max()),
                                     state=float((st - stp).abs().max()),
-                                    grads=max(float((g.float() - pg.float()).abs().max()) for g, pg in zip(grads, plain))),
-                   bound={key: f"max|d|/max|plain| <= {val}" for key, val in bnd.items()}, deterministic=same, ok=ok)
-        worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["y"], rec["max_abs_err"]["state"])
-        worst["bwd"] = max(worst["bwd"], rec["max_abs_err"]["grads"])
+                                    states=float((states - states_p).abs().max()),
+                                    dstates=float((dws - dws_p).abs().max()),
+                                    grads=max(float((g.float() - pg.float()).abs().max()) for _, g, pg in cmp)),
+                   dw_compared="dw*w (dlog w)" if decays == "strong" else "dw",
+                   bound={key: f"max|d|/max|plain| <= {val}" for key, val in bnd.items()}, finite=finite,
+                   deterministic=same, ok=ok)
+        mae = rec["max_abs_err"]
+        for part, val in (("wkv_fwd_local", mae["states"]), ("wkv_fwd", max(mae["y"], mae["state"])),
+                          ("wkv_bwd_local", mae["dstates"]), ("wkv_bwd", mae["grads"])):
+            worst[part] = max(worst[part], val)
+        worst["wkv_fwd_call"] = max(worst["wkv_fwd_call"], worst["wkv_fwd"])
+        worst["wkv_bwd_call"] = max(worst["wkv_bwd_call"], worst["wkv_bwd"])
+        checked.append(name)
         if name == "slice":
-            elt = torch.finfo(r.dtype).bits // 8
-            work = _wkv_work(b, s, h, n, chunk, elt)
-            t = {}
-            with torch.no_grad():
-                t["fwd"] = dict(ms=time_ms(lambda: ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True), 20),
-                                plain_ms=time_ms(lambda: ref.wkv_chunked(r, k, v, w, u, chunk=chunk), 5))
-            t["bwd"] = dict(ms=time_ms(lambda: ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk), 20),
-                            plain_ms=time_ms(lambda: torch.autograd.grad((yp, stp), ins, (dy, dstate),
-                                                                         retain_graph=True), 5))
-            for part in ("fwd", "bwd"):
-                t[part]["bound_ms"], t[part]["bound_by"], t[part]["bound_term"] = _wkv_bound(work[part], dtype)
-                t[part].update(work[part], library_ms=None, library="none (no single torch call computes the WKV)")
-            t["plain_note"] = "forward: wkv_chunked under no_grad; backward: torch autograd of it, graph kept"
-            rec["timing"] = timing = t
+            timing = _wkv_timing(ops, ref, case, (r, k, v, w, u, dy, dstate), states, dws, ins, yp, stp)
+            rec["timing"] = timing
         log(json.dumps(rec))
         if not ok:
             raise AssertionError(f"K12 wkv kernels disagree with plain (or are not deterministic): {rec}")
-        del r, k, v, w, u, dy, dstate, y, st, states, grads, ins, yp, stp, plain, y2, st2, states2
+        del r, k, v, w, u, dy, dstate, y, st, states, grads, ins, yp, stp, plain, y2, st2, states2, dws, dws_p
         _free()
+    timing["checked"] = checked
     return worst, timing
+
+
+def _wkv_timing(ops, ref, case, tensors, states, dws, ins, yp, stp):
+    """Times at the slice: each of the four kernels alone (the second ones
+    from the saved states and cotangents) and each direction's whole call,
+    by median CUDA-event time, the device µs of each kernel
+    (``torch.profiler``) and the plain version's time; bounds: each
+    kernel's own bytes, the whole calls' ``_wkv_work``."""
+    import torch
+
+    name, b, s, h, n, chunk, dtype, _ = case
+    r, k, v, w, u, dy, dstate = tensors
+    elt = torch.finfo(r.dtype).bits // 8
+    work, kbytes = _wkv_work(b, s, h, n, chunk, elt), _wkv_kernel_bytes(b, s, h, n, chunk, elt)
+    calls = {"wkv_fwd_local": lambda: ops.wkv_states_bh(k, v, w, chunk=chunk),
+             "wkv_fwd": lambda: ops.wkv_y_bh(r, k, v, w, u, states, chunk=chunk),
+             "wkv_bwd_local": lambda: ops.wkv_dstates_bh(r, w, dy, dstate, chunk=chunk),
+             "wkv_bwd": lambda: ops.wkv_grads_bh(r, k, v, w, u, dy, states, dws, chunk=chunk),
+             "wkv_fwd_call": lambda: ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True),
+             "wkv_bwd_call": lambda: ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)}
+    plain_fwd = lambda: ref.wkv_chunked(r, k, v, w, u, chunk=chunk)  # noqa: E731
+    plain_bwd = lambda: torch.autograd.grad((yp, stp), ins, (dy, dstate), retain_graph=True)  # noqa: E731
+    plains = {"wkv_fwd_local": lambda: ref.wkv_states(k, v, w, chunk), "wkv_fwd": plain_fwd,
+              "wkv_bwd_local": lambda: ref.wkv_dstates(r, w, dy, dstate, chunk), "wkv_bwd": plain_bwd,
+              "wkv_fwd_call": plain_fwd, "wkv_bwd_call": plain_bwd}
+    t = {}
+    for part in WKV_PARTS:
+        with torch.no_grad():
+            t[part] = dict(ms=median_ms(calls[part], 20), plain_ms=time_ms(plains[part], 5),
+                           **device_us(calls[part], 50))
+        if part in work:
+            t[part]["bound_ms"], t[part]["bound_by"], t[part]["bound_term"] = _wkv_bound(work[part], dtype)
+            t[part].update(work[part])
+            t[part]["all_pairs_exps_ms"] = work[part]["all_pairs_exps"] / SFU_PER_S * 1e3
+        else:
+            t[part]["bound_ms"], t[part]["bound_by"] = bound(kbytes[part])
+            t[part]["bound_term"], t[part]["bytes"] = "bytes", kbytes[part]
+        t[part].update(share_of_bound=t[part]["bound_ms"] / t[part]["ms"], library_ms=None,
+                       library="none (no single torch call computes the WKV)")
+    t["plain_note"] = ("the whole calls and the second kernels: wkv_chunked under no_grad, torch autograd of it (graph "
+                       "kept); the first kernels: ref.wkv_states / ref.wkv_dstates")
+    return t
 
 
 # the K7 planner's branches (kernels/rmsnorm/ops.py::plan, bwd_plan): a
@@ -2783,11 +2882,12 @@ RWKV_LAYERS = 4  # of 32: m = 4 workers' planes at 4 layers hold ~42.5 GB before
 
 
 def rwkv6_launches(steps, m, L, buckets, rounds):
-    """The rwkv6 LM path's launches: K12 forward and backward once a layer;
+    """The rwkv6 LM path's launches: each of K12's four kernels once a layer;
     K7 forward and backward at ln1, ln2 and the group norm of every layer and
     at the final norm; no attention kernel."""
-    return dict(wkv_fwd=steps * m * L, wkv_bwd=steps * m * L, rmsnorm=steps * m * (3 * L + 1),
-                rmsnorm_bwd=steps * m * (3 * L + 1), sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
+    return dict(wkv_fwd_local=steps * m * L, wkv_fwd=steps * m * L, wkv_bwd_local=steps * m * L,
+                wkv_bwd=steps * m * L, rmsnorm=steps * m * (3 * L + 1), rmsnorm_bwd=steps * m * (3 * L + 1),
+                sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
 
 
 def lm_rwkv6_card_vs_cpu(dev):
@@ -2820,7 +2920,9 @@ def lm_rwkv6_full_width(dev, kernels):
 
     cfg = dataclasses.replace(get_arch("rwkv6-7b").model, num_layers=RWKV_LAYERS,
                               layer_pattern=("rwkv6",) * RWKV_LAYERS)
-    return lm_full_width(dev, kernels, cfg, rwkv6_launches, shares=("wkv_fwd_kernel", "wkv_bwd_kernel", "rmsnorm"))
+    return lm_full_width(dev, kernels, cfg, rwkv6_launches,
+                         shares=("wkv_fwd_local_kernel", "wkv_fwd_kernel", "wkv_bwd_local_kernel", "wkv_bwd_kernel",
+                                 "rmsnorm"))
 
 
 # ---------------------------------------------------------------------------
@@ -2982,8 +3084,10 @@ def main() -> int:
     fa_slice = "bf16 B=2 S=512 H=28 Hkv=4 D=128 causal (the LM slice)"
     wkv_slice = "bf16 r/k/v/u, f32 w: B=2 S=512 H=64 N=P=64 chunk 32 (the rwkv6 slice)"
     ssd_slice = "bf16 x/B/C, f32 dt and A: B=2 S=512 H=64 P=N=64 G=1 chunk 128 (the zamba2 slice)"
-    for name in ("wkv_fwd", "wkv_bwd"):
+    for name in ("wkv_fwd_local", "wkv_fwd", "wkv_bwd_local", "wkv_bwd"):
         launches[name] = rwkv["launches"][name]
+    # a whole call launches each of its two kernels once
+    launches["wkv_fwd_call"], launches["wkv_bwd_call"] = launches["wkv_fwd"], launches["wkv_bwd"]
     for name in ("ssd_fwd_local", "ssd_fwd", "ssd_bwd_local", "ssd_bwd"):
         launches[name] = zamba["launches"][name]
     rows = [
@@ -3016,10 +3120,21 @@ def main() -> int:
          dict(fa_sum["long"], shape=f"f32 partials (2, {fa_sum['long']['splits']}, 1, 4096, 4, 128) -> bf16")),
         ("rmsnorm_bwd", "rmsnorm", "K7 backward (new; the reference has none)", "src/repro/kernels/rmsnorm/ops.py:11",
          rb_err, rb_t, "bf16 rows=1024 d=3584 (the LM slice)", None),
-        ("wkv_fwd", "rwkv6_wkv", "K12 wkv_bh (forward)", "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["fwd"],
-         wkv_t["fwd"], wkv_slice, None),
-        ("wkv_bwd", "rwkv6_wkv", "K12 backward (new; the reference differentiates a jnp recompute, ops.py:43-50)",
-         "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["bwd"], wkv_t["bwd"], wkv_slice, None),
+        ("wkv_fwd_local", "rwkv6_wkv", "K12 forward, first kernel: the chunk-local states and their scan "
+         "(wkv_fwd_local; timed alone)", "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["wkv_fwd_local"],
+         wkv_t["wkv_fwd_local"], wkv_slice, None),
+        ("wkv_fwd", "rwkv6_wkv", "K12 forward, second kernel: y from the chunk states (wkv_fwd; timed alone)",
+         "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["wkv_fwd"], wkv_t["wkv_fwd"], wkv_slice, None),
+        ("wkv_fwd_call", "rwkv6_wkv", "K12 wkv_bh (forward; the whole call: wkv_fwd_local + wkv_fwd)",
+         "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["wkv_fwd_call"], wkv_t["wkv_fwd_call"], wkv_slice, None),
+        ("wkv_bwd_local", "rwkv6_wkv", "K12 backward, first kernel: the chunk-local state cotangents and their scan "
+         "(wkv_bwd_local; new; timed alone)", "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["wkv_bwd_local"],
+         wkv_t["wkv_bwd_local"], wkv_slice, None),
+        ("wkv_bwd", "rwkv6_wkv", "K12 backward, second kernel: the gradients (wkv_bwd; new; timed alone)",
+         "src/repro/kernels/rwkv6_wkv/kernel.py:63", wkv_err["wkv_bwd"], wkv_t["wkv_bwd"], wkv_slice, None),
+        ("wkv_bwd_call", "rwkv6_wkv", "K12 backward (new; the reference differentiates a jnp recompute, ops.py:43-50; "
+         "the whole call: wkv_bwd_local + wkv_bwd + the du sum)", "src/repro/kernels/rwkv6_wkv/kernel.py:63",
+         wkv_err["wkv_bwd_call"], wkv_t["wkv_bwd_call"], wkv_slice, None),
         ("ssd_fwd_local", "ssd_scan", "K11 forward, first kernel: the chunk-local states and their scan "
          "(ssd_fwd_local; timed alone)", "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["fwd_local"],
          ssd_t["fwd_local"], ssd_slice, None),
@@ -3121,7 +3236,11 @@ def main() -> int:
             entry["launches_by_path"] = by_path[name]
         if name.startswith("wkv_"):
             entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
-            entry["reduced"] = "f32 B=2 S=45 H=4 N=P=32 chunk 16: checked, not timed"
+            entry["share_of_bound"], entry["device_kernel_us"] = t["share_of_bound"], t["device_kernel_us"]
+            entry["checked"] = ("f32 B=2 S=45 H=4 N=P=32 chunk 16 and the slice's shape, each also at strong decay "
+                                f"(w in {list(WKV_STRONG)}): {wkv_t['checked']}")
+            if "all_pairs_exps_ms" in t:
+                entry["all_pairs_exps_ms"] = t["all_pairs_exps_ms"]
         if name.startswith("ssd_"):
             entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
             entry["share_of_bound"], entry["device_kernel_us"] = t["share_of_bound"], t["device_kernel_us"]

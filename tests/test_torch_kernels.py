@@ -34,9 +34,11 @@ kernel adds in float64 over its grid: within rtol 1e-6 of the plain
 version; the fused output equals K8's bit for bit, and K8 gives the same
 bits on every run. The probe's CPU tests against the JAX package are in
 ``tests/test_torch_control.py``; the WKV's (K12), in
-``tests/test_torch_rwkv6.py``. On the card K12 and its backward kernel are
-held against the plain ``wkv_chunked`` and its torch autograd (f32 2e-5 for
-y and the state, 1e-4 for the gradients; bf16 2^-7 and 2^-5), K6 also at
+``tests/test_torch_rwkv6.py``. On the card K12's four kernels are held
+against the plain ``wkv_chunked`` and its torch autograd (f32 2e-5 for y
+and the state, 1e-4 for the gradients; bf16 2^-7 and 2^-5), each
+direction's first kernel against ``wkv_states`` / ``wkv_dstates``, also at
+strong decay, K6 also at
 head_dim 80 and at zamba2's shared block (its bf16 kernels run on the
 tensor cores and round P and dS to bf16, within the same bounds; the split
 of its dK/dV pass over a GQA group is pinned on the CPU), K9 also at a GQA
@@ -897,6 +899,11 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     wr = _t(rng.normal(size=(1, 5, 2, 4)).astype(np.float32)).requires_grad_(True)
     y, st = wkv_ops.wkv(wr, wr, wr, torch.sigmoid(wr), wr[0, 0], chunk=4)
     (y.sum() + st.sum()).backward()
+    wd, wsig = wr.detach(), torch.sigmoid(wr.detach())
+    states, final = wkv_ops.wkv_states_bh(wd, wd, wsig, chunk=4)
+    want_states, want_final = wkv_ref.wkv_states(wd, wd, wsig, 4)
+    assert torch.equal(states, want_states) and torch.equal(final, want_final)
+    assert torch.equal(wkv_ops.wkv_dstates_bh(wd, wsig, wd, None, chunk=4), wkv_ref.wkv_dstates(wd, wsig, wd, None, 4))
     sx = _t(rng.normal(size=(1, 10, 2, 4)).astype(np.float32)).requires_grad_(True)
     sb = _t(rng.normal(size=(1, 10, 1, 3)).astype(np.float32)).requires_grad_(True)
     y, st = ssd_ops.ssd_scan(sx, torch.sigmoid(sx[..., 0]), -torch.ones(2), sb, sb, torch.ones(2), chunk=4)
@@ -1330,29 +1337,57 @@ def test_paged_attend_kernel_group_12_on_card(cuda, dtype):
     _paged_on_card(cuda, gen, 8, 12, 128, dtype, _split_lengths(3, 8), (None, 64), slots=3)
 
 
-# (B, S, H, N = P, chunk, r/k/v/u dtype): the reduced rwkv6-7b's shape with a
-# ragged last chunk, and the rwkv6 slice's; w is f32 in both
-WKV_CARD = [(2, 45, 4, 32, 16, torch.float32), (2, 512, 64, 64, 32, torch.bfloat16)]
+# (B, S, H, N = P, chunk, r/k/v/u dtype, decays): the reduced rwkv6-7b's
+# shape with a ragged last chunk, and the rwkv6 slice's; every other chunk
+# (16, 32, 64) at both head dims, ragged, in both types; and the strong-decay
+# case (w of 1e-30, 1e-12, 0.5 and exactly 1) at the reduced shape and the
+# slice's. w is f32 in all
+WKV_CARD = [(2, 45, 4, 32, 16, torch.float32, "model"), (2, 512, 64, 64, 32, torch.bfloat16, "model"),
+            (1, 100, 4, 32, 32, torch.bfloat16, "model"), (1, 150, 4, 32, 64, torch.float32, "model"),
+            (1, 70, 4, 64, 16, torch.bfloat16, "model"), (1, 96, 4, 64, 32, torch.float32, "model"),
+            (2, 200, 4, 64, 64, torch.bfloat16, "model"), (1, 130, 4, 64, 64, torch.float32, "model"),
+            (2, 45, 4, 32, 16, torch.float32, "strong"), (2, 512, 64, 64, 32, torch.bfloat16, "strong")]
+WKV_CARD_IDS = ["reduced", "slice", "n32_l32", "n32_l64_f32", "n64_l16", "n64_l32_f32", "n64_l64", "n64_l64_f32",
+                "strong_reduced", "strong_slice"]
+WKV_STRONG = (1e-30, 1e-12, 0.5, 1.0)
+
+
+def wkv_card_inputs(case, dev, gen):
+    """r, k, v, w, u, dy, dstate of a case: the reference's kernel-test decays
+    (0.2 .. 0.99), or each w drawn from ``WKV_STRONG``."""
+    b, s, h, n, _, dtype, decays = case
+    r, k, v = (torch.randn(b, s, h, n, generator=gen, device=dev).to(dtype) for _ in range(3))
+    if decays == "strong":
+        pick = torch.randint(0, len(WKV_STRONG), (b, s, h, n), generator=gen, device=dev)
+        w = torch.tensor(WKV_STRONG, dtype=torch.float32, device=dev)[pick]
+    else:
+        w = 0.2 + 0.79 * torch.rand(b, s, h, n, generator=gen, device=dev)
+    u = torch.randn(h, n, generator=gen, device=dev).to(dtype)
+    dy = torch.randn(b, s, h, n, generator=gen, device=dev).to(dtype)
+    dstate = torch.randn(b, h, n, n, generator=gen, device=dev)
+    return r, k, v, w, u, dy, dstate
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", WKV_CARD, ids=["reduced", "slice"])
+@pytest.mark.parametrize("case", WKV_CARD, ids=WKV_CARD_IDS)
 def test_wkv_kernels_vs_plain_on_card(cuda, case):
-    """K12 forward and the backward kernel against the plain ``wkv_chunked``
-    and torch autograd through it, with cotangents for y and the final
-    state; bounds as chip_smoke.py states them (max|Δ| / max|plain|): f32
-    2e-5 for y and the state, 1e-4 for each gradient; bf16 2^-7 for y, 2e-5
-    for the f32 state, 2^-5 for each gradient. The same bits on a second
-    launch."""
-    b, s, h, n, chunk, dtype = case
+    """K12's four kernels against the plain ``wkv_chunked`` and torch
+    autograd through it, with cotangents for y and the final state; bounds as
+    chip_smoke.py states them (max|Δ| / max|plain|): f32 2e-5 for y and the
+    state, 1e-4 for each gradient; bf16 2^-7 for y, 2e-5 for the f32 state,
+    2^-5 for each gradient. Each direction's first kernel alone against
+    ``ref.wkv_states`` / ``ref.wkv_dstates`` (the state bound). Every output
+    finite. At strong decay dw is compared as dw·w (d log w, what reaches
+    the model's parameters through w = exp(-exp(x))): dw = dlog w / w
+    multiplies the f32 rounding of dlog w, a sum of O(1) terms, by up to
+    1e30 in both versions. The same bits on a second launch; the autograd
+    Function counts one launch of each of the four kernels."""
+    b, s, h, n, chunk, dtype, decays = case
     gen = torch.Generator(device=cuda).manual_seed(0)
-    r, k, v = (torch.randn(b, s, h, n, generator=gen, device=cuda).to(dtype) for _ in range(3))
-    w = 0.2 + 0.79 * torch.rand(b, s, h, n, generator=gen, device=cuda)
-    u = torch.randn(h, n, generator=gen, device=cuda).to(dtype)
-    dy = torch.randn(b, s, h, n, generator=gen, device=cuda).to(dtype)
-    dstate = torch.randn(b, h, n, n, generator=gen, device=cuda)
+    r, k, v, w, u, dy, dstate = wkv_card_inputs(case, cuda, gen)
     y, st, states = wkv_ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True)
     grads = wkv_ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)
+    dws = wkv_ops.wkv_dstates_bh(r, w, dy, dstate, chunk=chunk)
     ins = [t.detach().clone().requires_grad_(True) for t in (r, k, v, w, u)]
     yp, stp = wkv_ref.wkv_chunked(*ins, chunk=chunk)
     plain = torch.autograd.grad((yp, stp), ins, (dy, dstate))
@@ -1361,17 +1396,29 @@ def test_wkv_kernels_vs_plain_on_card(cuda, case):
     def rel(a, b):
         return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
+    assert all(bool(torch.isfinite(t).all()) for t in (y, st, states, dws, *grads))
     assert rel(y, yp) <= (2e-5 if f32 else 2.0**-7) and rel(st, stp) <= 2e-5
-    for g, pg in zip(grads, plain):
-        assert g.dtype == pg.dtype and rel(g, pg) <= (1e-4 if f32 else 2.0**-5)
+    with torch.no_grad():
+        states_p, final_p = wkv_ref.wkv_states(k, v, w, chunk)
+        dws_p = wkv_ref.wkv_dstates(r, w, dy, dstate, chunk)
+    assert rel(states, states_p) <= 2e-5 and torch.equal(wkv_ops.wkv_states_bh(k, v, w, chunk=chunk)[1], st)
+    assert rel(dws, dws_p) <= 2e-5
+    for name, g, pg in zip("rkvwu", grads, plain):
+        if name == "w" and decays == "strong":
+            g, pg = g * w, pg * w
+        assert g.dtype == pg.dtype and rel(g, pg) <= (1e-4 if f32 else 2.0**-5), (name, rel(g, pg))
     again = wkv_ops.wkv_bwd_bh(r, k, v, w, u, dy, states, dstate, chunk=chunk)
     assert all(torch.equal(a, c) for a, c in zip(grads, again))
-    assert torch.equal(wkv_ops.wkv_bh(r, k, v, w, u, chunk=chunk)[0], y)
-    # the autograd Function: the same kernels, counted once each
-    before = (wkv_ops.FWD.launches, wkv_ops.BWD.launches)
+    y2, st2, states2 = wkv_ops.wkv_bh(r, k, v, w, u, chunk=chunk, save_states=True)
+    assert torch.equal(y2, y) and torch.equal(st2, st) and torch.equal(states2, states)
+    assert torch.equal(wkv_ops.wkv_dstates_bh(r, w, dy, dstate, chunk=chunk), dws)
+    assert torch.equal(wkv_ops.wkv_bh(r, k, v, w, u, chunk=chunk)[0], y)  # no states kept: the workspace
+    # the autograd Function: the same kernels, one launch of each
+    kernels = (wkv_ops.FWD_LOCAL, wkv_ops.FWD, wkv_ops.BWD_LOCAL, wkv_ops.BWD)
+    before = [kk.launches for kk in kernels]
     ya, sa = wkv_ops.wkv(*ins, chunk=chunk)
     got = torch.autograd.grad((ya, sa), ins, (dy, dstate))
-    assert (wkv_ops.FWD.launches, wkv_ops.BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert [kk.launches for kk in kernels] == [c + 1 for c in before]
     assert torch.equal(ya, y) and all(torch.equal(a, c) for a, c in zip(got, grads))
 
 

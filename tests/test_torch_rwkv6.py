@@ -160,6 +160,114 @@ def test_wkv_decode_step_matches_jax(rng):
     np.testing.assert_allclose(torch.stack(ys, 1).numpy(), np.asarray(ry), rtol=5e-4, atol=5e-4)
 
 
+@pytest.mark.parametrize("s,chunk", [(45, 16), (100, 32), (64, 32)])
+def test_wkv_states_match_jax_prefixes(rng, s, chunk):
+    """``ref.wkv_states`` (the plain version of the forward's first kernel):
+    the state entering chunk c equals the final state of JAX's
+    ``wkv_chunked`` over the first c·L steps, and the last output its final
+    state over all S (ragged S included); f32, 1e-5·max|state| (sums in
+    other orders; observed ≤ 1.8e-6)."""
+    b, h, n = 2, 3, 8
+    r, k, v, w, u = _wkv_inputs(rng, b, s, h, n, n)
+    states, final = wkv_ref.wkv_states(*map(torch.from_numpy, (k, v, w)), chunk)
+    nc = -(-s // chunk)
+    assert states.shape == (b * h, nc, n, n) and final.shape == (b, h, n, n)
+    assert torch.equal(states[:, 0], torch.zeros(b * h, n, n))
+    for c in range(1, nc + 1):
+        t = min(c * chunk, s)
+        _, jst = jwkv_ref.wkv_chunked(*(jnp.asarray(a[:, :t]) for a in (r, k, v, w)), jnp.asarray(u), chunk=chunk)
+        got = final if c == nc else states[:, c].reshape(b, h, n, n)
+        assert _rel(got, jst) <= 1e-5, (c, _rel(got, jst))
+
+
+def _wkv_injected(r, k, v, w, u, delta, c, chunk):
+    """The plain ``wkv_chunked`` with ``delta`` added to the state leaving
+    chunk c: the chunks up to c, then the rest from that state (its decayed
+    read-out r·e^cum_excl·S and its decay e^total to the final state, in
+    the chunked form's own terms)."""
+    t = (c + 1) * chunk
+    y1, s1 = wkv_ref.wkv_chunked(r[:, :t], k[:, :t], v[:, :t], w[:, :t], u, chunk=chunk)
+    s1 = s1 + delta
+    if t >= r.shape[1]:
+        return y1, s1
+    y2, s2 = wkv_ref.wkv_chunked(r[:, t:], k[:, t:], v[:, t:], w[:, t:], u, chunk=chunk)
+    logw = torch.log(torch.maximum(w[:, t:], torch.tensor(1e-30)))
+    cum_excl = torch.cumsum(logw, dim=1) - logw
+    y2 = y2 + torch.einsum("bshn,bhnp->bshp", r[:, t:] * torch.exp(cum_excl), s1)
+    s2 = s2 + torch.exp(logw.sum(1))[..., None] * s1
+    return torch.cat([y1, y2], dim=1), s2
+
+
+@pytest.mark.parametrize("s,chunk", [(45, 16), (64, 32)])
+def test_wkv_dstates_match_autograd(rng, s, chunk):
+    """``ref.wkv_dstates`` (the plain version of the backward's first
+    kernel): the cotangent of the state leaving chunk c is torch autograd of
+    the plain ``wkv_chunked`` with the state injected at that boundary
+    (``_wkv_injected``), under cotangents for y and the final state; f32,
+    1e-5·max|D| (observed ≤ 1.2e-7). That autograd is the one
+    ``test_wkv_autograd_matches_jax_vjp`` holds against ``jax.vjp``."""
+    b, h, n = 2, 2, 8
+    r, k, v, w, u = map(torch.from_numpy, _wkv_inputs(rng, b, s, h, n, n))
+    dy = torch.from_numpy(rng.normal(size=(b, s, h, n)).astype(np.float32))
+    dst = torch.from_numpy(rng.normal(size=(b, h, n, n)).astype(np.float32))
+    got = wkv_ref.wkv_dstates(r, w, dy, dst, chunk)
+    nc = -(-s // chunk)
+    assert got.shape == (b * h, nc, n, n)
+    for c in range(nc):
+        delta = torch.zeros(b, h, n, n, requires_grad=True)
+        y, st = _wkv_injected(r, k, v, w, u, delta, c, chunk)
+        (want,) = torch.autograd.grad((y * dy).sum() + (st * dst).sum(), (delta,))
+        assert _rel(got[:, c].reshape(b, h, n, n), want) <= 1e-5, (c, _rel(got[:, c].reshape(b, h, n, n), want))
+    assert torch.equal(got[:, nc - 1].reshape(b, h, n, n), dst)
+    assert torch.equal(wkv_ref.wkv_dstates(r, w, dy, None, chunk)[:, nc - 1], torch.zeros(b * h, n, n))
+
+
+WKV_STRONG = np.array([1e-30, 1e-12, 0.5, 1.0], np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_strong_decay_matches_jax(rng, dtype):
+    """Strong decay: each w one of 1e-30 (the clamp, where log w = -69.08),
+    1e-12, 0.5 and exactly 1, so that |cum| reaches 69·L inside a chunk.
+    Every output finite; the port's ``wkv_chunked`` and its autograd held
+    against JAX's ``wkv_chunked`` and ``jax.vjp``, and (f32) y and the state
+    against JAX's scan ``wkv_reference``, as max|Δ|/max|JAX|. bf16: the
+    existing 2^-8 (observed ≤ 1.7e-3). f32: 1e-4, the resolution of the f32
+    cumsum, not the existing 1e-5: e^(cum_excl_l - cum_m) carries ulp(|cum|)
+    ≈ 69·L·2^-24 (6.6e-5 at L 16) of relative error in each version, and
+    JAX's cumsum (reduce_window) and torch's (accumulated in f64 on the CPU)
+    round differently (observed ≤ 3.2e-5; ROADMAP Queue 3). dw is held as
+    dw·w (dlog w, what reaches the model's parameters through w =
+    exp(-exp(x))): dw = dlog w / w multiplies the f32 rounding of dlog w, a
+    sum of O(1) terms, by up to 1e30 in both versions. At w = 1e-30 both
+    take half the gradient of max(w, 1e-30), as jnp.maximum does."""
+    b, s, h, n, chunk = 2, 45, 2, 16, 16
+    r, k, v, _, u = _wkv_inputs(rng, b, s, h, n, n)
+    w = WKV_STRONG[rng.integers(0, len(WKV_STRONG), size=(b, s, h, n))]
+    dy = rng.normal(size=(b, s, h, n)).astype(np.float32)
+    dst = rng.normal(size=(b, h, n, n)).astype(np.float32)
+    jd = jnp.dtype(dtype)
+    jins = [jnp.asarray(r, jd), jnp.asarray(k, jd), jnp.asarray(v, jd), jnp.asarray(w), jnp.asarray(u, jd)]
+    (jy, jst), vjp = jax.vjp(lambda *a: jwkv_ref.wkv_chunked(*a, chunk=chunk), *jins)
+    jgrads = vjp((jnp.asarray(dy, jd), jnp.asarray(dst)))
+    tins = [interop.params_from_numpy(np.asarray(a)).requires_grad_(True) for a in jins]
+    y, st = wkv_ops.wkv(*tins, chunk=chunk)
+    grads = torch.autograd.grad((y, st), tins, (interop.params_from_numpy(np.asarray(jnp.asarray(dy, jd))),
+                                                torch.from_numpy(dst)))
+    assert all(bool(torch.isfinite(t).all()) for t in (y, st, *grads))
+    bound = 1e-4 if dtype == "float32" else 2.0**-8
+    assert _rel(y.float().detach(), jnp.asarray(jy, jnp.float32)) <= bound
+    assert _rel(st.detach(), jst) <= bound
+    for name, got, want in zip("rkvwu", grads, jgrads):
+        got, want = got.float().numpy(), np.asarray(jnp.asarray(want, jnp.float32))
+        if name == "w":
+            got, want = got * w, want * w
+        assert _rel(got, want) <= bound, (name, _rel(got, want))
+    if dtype == "float32":
+        ry, rst = jwkv_ref.wkv_reference(*map(jnp.asarray, (r, k, v, w, u)))
+        assert _rel(y.detach(), ry) <= bound and _rel(st.detach(), rst) <= bound
+
+
 def test_wkv_rejects_bad_inputs():
     z = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match=r"\(H, N\)"):
