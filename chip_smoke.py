@@ -83,7 +83,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens, logits are finite, every kernel's launch count is non-zero and
    equals what the number of forwards implies (K10 once a layer a forward,
    both pools in one launch), and a second run of the
-   same trace gives the same tokens and scheduler events.
+   same trace gives the same tokens and scheduler events; full-depth
+   dense ``generate`` of two of its requests beside it (tok/s, decode-step
+   ms, a profile). (c) Dense serving: the reduced qwen2-7b, rwkv6-7b and
+   zamba2-1.2b in f32, ``prefill`` then ``decode_step`` on the card and on
+   the CPU, logits within 1e-4, and on the card decode after prefill
+   within 2e-3 of the full prefill's last logits; full-width, full-depth
+   rwkv6-7b and zamba2-1.2b (bf16, seeded weights) through the engine's
+   dense fallback on the trace of (b): exactly ``max_new`` in-vocab tokens,
+   finite logits, launch counts exactly as the forwards imply (K12's or
+   K11's forward kernels and K6's forward once a layer a prefill, K7 every
+   forward, no backward kernel), the same tokens on a second run with no
+   growth of allocated or peak memory, tok/s, decode-step and prefill ms,
+   a profile of one request; full-width qwen2-7b at 2 layers in f32: dense
+   ``generate`` and the paged engine give the same tokens.
 4. The training slice, ``examples/quickstart.py``'s configuration at its
    real width through ``repro_torch.api.Experiment``: 16 workers, the
    30,000-sample task, batch 32 a worker, SGD + Nesterov, lr warmup then
@@ -102,7 +115,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    cocod and gossip_ring (one K8 a round), fit(faults=...) for 8 rounds
    (worker 1 crashed for rounds 2-4, worker 2 a 4x straggler) with overlap
    and easgd, and both together for 4 rounds: exact launch counts, bitwise replay, and the tau
-   schedule, decisions and fault log of the same run on the CPU.
+   schedule, decisions and fault log of the same run on the CPU. (b) The
+   checkpointer: the overlap run's TrainState after 10 rounds saved,
+   restored into a fresh template on the card bit for bit, and 10 more
+   rounds from it equal 20 uninterrupted rounds bit for bit.
 5. The LM slice through ``repro_torch.api.Experiment(arch=...)`` with the
    training CLI's defaults (Overlap-Local-SGD tau 2, alpha 0.6, beta 0.7;
    SGD lr 1e-2, Nesterov 0.9): (a) the reduced qwen2-7b with 2 KV heads,
@@ -130,7 +146,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    crashed for rounds 1-2, 6 rounds: fault holds at rounds 1-3, the re-synced
    row equal to the anchor, dead rows untouched by the masked boundaries, K3
    once a round with its probe and K8 never, the controller replayed, bitwise
-   replay, the peak within 1% of (b)'s, K8 over the final plane. (f) The
+   replay, the peak within 1% of (b)'s, K8 over the final plane. (b')
+   Serving off the plane, after (b)'s replay run: ``exp.serve`` serves
+   the consensus plane in place (every served leaf inside its buffers),
+   the serving trace with ``swap_plane(exp.anchor_plane())`` queued after
+   step 12 (applied at the next step; the tokens before it equal a
+   no-swap run's; every request exactly ``max_new`` tokens); then
+   ``swap_params`` from a params checkpoint of the reduced qwen2-7b. (f) The
    rwkv6 slice: the reduced rwkv6-7b (f32, seq 128, m = 2, 3 rounds) on the
    card and the CPU, losses compared; full-width rwkv6-7b (d_model 4096, 64
    heads of 64) cut to 4 layers, bf16, m = 4, seq 512, 3 rounds as in (b):
@@ -241,6 +263,12 @@ def device_us(fn, iters: int = 200) -> dict:
     return dict(device_us=sum(e.self_device_time_total / e.count for e in kern),
                 device_kernels={e.key[:60]: e.count / iters for e in kern},
                 device_kernel_us={e.key[:60]: e.self_device_time_total / e.count for e in kern})
+
+
+def host_device_split(fn) -> dict:
+    """The wrapper's host µs and the kernel's device µs a call (K1, K3, K4
+    and K8 at the classifier's plane, where the event time is the host's)."""
+    return dict(host_us=host_us(fn), **device_us(fn))
 
 
 def timed(fn, plain, library, nbytes, flops=0.0) -> dict:
@@ -637,6 +665,8 @@ def check_opt_step(dev, gen):
                     [x], [g], [m], weight_decay=1e-4, momentum=0.9, lr=0.05, dampening=0.0, nesterov=True,
                     maximize=False, is_first_step=False), it)
                 rec["bound_ms"], rec["bound_by"] = bound(5 * P * w * n, 8 * w * n)
+                if shape_name == "slice":
+                    rec.update(host_device_split(lambda: ops.sgd_step(x, g, m, lr, **sgd_kw)))
                 timing["K1"][shape_name] = rec
             log(json.dumps(rec))
             if not rec["ok"]:
@@ -752,6 +782,8 @@ def check_anchor_mix(dev, gen):
                     rec["plain_ms"] = time_ms(lambda: ref.pullback_mean_momentum(x, z, v, alpha, beta), it)
                     rec["library_ms"] = time_ms(lambda: dst.copy_(src), it)
                     rec["bound_ms"], rec["bound_by"] = bound(2 * P * m * n + 4 * P * n, 4 * m * n + 5 * n)
+                    if shape_name == "slice":
+                        rec.update(host_device_split(lambda: ops.pullback_mean_momentum(x, z, v, alpha, beta)))
                     timing["K3"][shape_name] = rec
                     del src, dst
                 log(json.dumps(rec))
@@ -774,6 +806,8 @@ def check_anchor_mix(dev, gen):
                         rec["plain_ms"] = time_ms(lambda: ref.pullback_mean(x, z, alpha), it)
                         rec["library_ms"] = time_ms(lambda: dst.copy_(src), it)
                         rec["bound_ms"], rec["bound_by"] = bound(2 * P * m * n + 2 * P * n, 4 * m * n + n)
+                        if shape_name == "slice":
+                            rec.update(host_device_split(lambda: ops.pullback_mean(x, z, alpha)))
                         timing["K4"][shape_name] = rec
                         del src, dst
                     log(json.dumps(rec))
@@ -937,6 +971,8 @@ def check_consensus_probe(dev, gen):
             rec["library_ms"] = time_ms(lambda: torch.linalg.vector_norm(x, dtype=torch.float32), it)
             rec["bound_ms"], rec["bound_by"] = bound(P * m * n, 5 * m * n + 3 * n)
             rec["library"] = "torch.linalg.vector_norm(x, dtype=torch.float32)"
+            if shape_name == "slice" and dtype == torch.float32:
+                rec.update(host_device_split(lambda: ops.probe_buffer(x)))
             timing["K8"][(shape_name, _name(dtype))] = rec
             log(json.dumps(rec))
             if not rec["ok"]:
@@ -1966,12 +2002,14 @@ def serve_full_width(dev, kernels):
     admits = sum(1 for e in events1 if e[0] == "admit")
     total = sum(len(v) for v in res1.values())
     med = lambda xs: sorted(xs)[len(xs) // 2]
+    dense = dense_generate_beside_paged(cfg, params, trace[:2])
     summary = dict(
         slice=f"{cfg.name} full width bf16", requests=len(trace), prompt_lens=[len(p) for _, p in trace],
         max_new=MAX_NEW, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, chunk=CHUNK, admits=admits,
         tokens=total, wall_s=wall, tok_s=total / wall, prefill_forwards=n_pre, decode_forwards=n_dec,
         decode_step_ms_median=med(timed.ms["decode"]), prefill_chunk_ms_median=med(timed.ms["prefill"]),
         peak_mem_bytes=peak, launches=launches, deterministic_replay=True, profile=profile,
+        dense_generate=dense,
     )
     return summary
 
@@ -2005,6 +2043,458 @@ def profile_run(eng, want_results, want_events):
         kernel_launches=sum(e.count for e in kern), aten_ops=cpu_ops,
         top=[dict(name=e.key[:90], count=e.count, device_us=e.self_device_time_total) for e in top],
     )
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (c): dense serving (prefill, decode_step, generate; the engine's
+# dense fallback for the recurrent and hybrid archs)
+# ---------------------------------------------------------------------------
+
+DENSE_ARCHS = ("qwen2-7b", "rwkv6-7b", "zamba2-1.2b")
+PROFILE_NEW = 8  # tokens of the profiled request: its prefill and 7 decode steps (a short trace to process)
+
+
+def dense_twins_card_vs_cpu(dev):
+    """The reduced qwen2-7b, rwkv6-7b and zamba2-1.2b in f32 (seeded weights,
+    one tree copied to both devices): prefill of 11 tokens at B 2 and of 37
+    (a ragged last chunk) at B 1, then decode_step of the next token, on the
+    card (K6, K11, K12 forwards, K7) and on the CPU (plain versions).
+    Bounds: card vs CPU logits max|Δ| / max|cpu| 1e-4 (f32 sums in other
+    orders); on the card, decode after prefill against the full prefill's
+    last logits 2e-3 relative (the reference's test_decode_matches_prefill)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving.engine import _grow_all
+
+    out = []
+    for arch in DENSE_ARCHS:
+        cfg = dataclasses.replace(get_arch(arch).model.reduced(), dtype="float32")
+        p_cpu = T.init_model(cfg, torch.Generator().manual_seed(SEED + 3))
+        params = {"cuda": _tree_to(p_cpu, dev), "cpu": p_cpu}
+        rng = np.random.default_rng(SEED)
+        worst = dict(prefill=0.0, decode=0.0, decode_vs_prefill=0.0)
+        for b, s in ((2, 12), (1, 38)):
+            toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+            got = {}
+            for key, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                t = torch.from_numpy(toks).to(device)
+                pre, caches = prefill(cfg, params[key], dict(tokens=t[:, : s - 1]))
+                caches = _grow_all(caches, cfg, s)
+                dec, _ = decode_step(cfg, params[key], t[:, s - 1 :], caches, s - 1)
+                full, _ = prefill(cfg, params[key], dict(tokens=t))
+                got[key] = (pre.float().cpu(), dec.float().cpu(), full.float().cpu())
+            for name, i in (("prefill", 0), ("decode", 1)):
+                worst[name] = max(worst[name], _rel(got["cuda"][i], got["cpu"][i]))
+            worst["decode_vs_prefill"] = max(worst["decode_vs_prefill"],
+                                             _rel(got["cuda"][1][:, -1], got["cuda"][2][:, -1]))
+            if not all(bool(torch.isfinite(x).all()) for x in got["cuda"]):
+                raise AssertionError(f"{arch}: non-finite logits")
+        rec = dict(check=f"dense serving reduced {arch} f32, card vs CPU", **worst,
+                   bound="card vs CPU 1e-4 of max|cpu|; decode vs full prefill 2e-3 (on the card)",
+                   ok=worst["prefill"] <= 1e-4 and worst["decode"] <= 1e-4 and worst["decode_vs_prefill"] < 2e-3)
+        log(json.dumps(rec))
+        if not rec["ok"]:
+            raise AssertionError(f"{arch} dense twin: {worst}")
+        out.append(rec)
+    return out
+
+
+class _StepTimer:
+    """Times serving's prefill and decode_step calls (synchronised; the
+    engine's ``generate`` looks both up in its module at each call) and
+    checks every logit is finite: ``aminmax`` propagates a NaN and keeps
+    an infinity, and allocates no logits-sized mask, so the timed run's
+    peak memory stays comparable with an untimed run's."""
+
+    def __init__(self):
+        import torch
+
+        from repro_torch.serving import engine
+
+        self.torch, self.engine = torch, engine
+        self.ms = {"prefill": [], "decode": []}
+        self.finite = True
+
+    def _wrap(self, fn, key):
+        torch = self.torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = fn(*a, **kw)
+            lo, hi = torch.aminmax(logits)
+            self.finite &= bool(torch.isfinite(lo) & torch.isfinite(hi))
+            self.ms[key].append((time.perf_counter() - t0) * 1e3)
+            return logits, caches
+        return timed
+
+    def __enter__(self):
+        self.saved = self.engine.prefill, self.engine.decode_step
+        self.engine.prefill = self._wrap(self.saved[0], "prefill")
+        self.engine.decode_step = self._wrap(self.saved[1], "decode")
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.prefill, self.engine.decode_step = self.saved
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def dense_generate_beside_paged(cfg, params, requests):
+    """Full-depth qwen2-7b (bf16) through dense ``generate``, one request at a
+    time (the engine's dense path): tok/s and the median decode-step and
+    prefill ms, beside the paged engine's numbers in the same summary."""
+    import torch
+
+    from repro_torch.serving import generate
+
+    generate(cfg, params, requests[0][1][None, :20], 2)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = [generate(cfg, params, prompt[None], MAX_NEW)[0] for _, prompt in requests]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with _StepTimer() as timer:
+        again = [generate(cfg, params, prompt[None], MAX_NEW)[0] for _, prompt in requests]
+    if any(a.tolist() != b.tolist() for a, b in zip(toks, again)) or not timer.finite:
+        raise AssertionError("dense qwen2-7b generate: replay differs or non-finite logits")
+    if any(len(t) != MAX_NEW or t.min() < 0 or t.max() >= cfg.vocab_size for t in toks):
+        raise AssertionError("dense qwen2-7b generate: wrong token count or out of vocab")
+    return dict(requests=len(requests), prompt_lens=[len(p) for _, p in requests], max_new=MAX_NEW,
+                tok_s=len(requests) * MAX_NEW / wall, wall_s=wall, decode_step_ms_median=_median(timer.ms["decode"]),
+                prefill_ms=timer.ms["prefill"], peak_mem_bytes=peak, profile=profile_generate(cfg, params, requests[0][1]))
+
+
+def profile_generate(cfg, params, prompt):
+    """One request (its prefill and ``PROFILE_NEW - 1`` decode steps) through
+    dense ``generate`` under torch.profiler: device busy time (sum of kernel
+    durations; one stream) against the wall time, aten ops a forward (host
+    dispatch), and the kernels that take the most device time. The
+    profiler's own per-op cost lengthens the wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import generate
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(cfg, params, prompt[None], PROFILE_NEW)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    averages = prof.key_averages()
+    kern = [e for e in averages if e.device_type == DeviceType.CUDA]
+    if not kern:
+        return dict(device_busy_us="not measured (no device events in the trace)", wall_us=wall_us)
+    busy_us = sum(e.self_device_time_total for e in kern)
+    aten = sum(e.count for e in averages if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(wall_us=wall_us, device_busy_us=busy_us, device_busy_share=busy_us / wall_us,
+                kernel_launches=sum(e.count for e in kern), aten_ops_per_forward=aten / PROFILE_NEW,
+                top=[dict(name=e.key[:90], count=e.count, device_us=e.self_device_time_total) for e in top])
+
+
+def dense_launches(arch, prefills, forwards):
+    """The dense path's launches, counted by hand from the full models: rwkv6
+    (32 layers) K12's two forward kernels once a layer a prefill, K7 at ln1,
+    ln2 and the group norm of each layer and the final norm a forward;
+    zamba2 (33 mamba2 layers, the shared block at 5 positions) K11's two
+    forward kernels once a mamba2 layer a prefill, K6's forward once a shared
+    position a prefill, K7 at each mamba2 layer's ln1 and gated norm, each
+    shared position's ln1 and ln2 and the final norm a forward. Decode
+    launches no K6, K11 or K12 (its attention and recurrences are plain
+    torch, as in the reference); nothing launches a backward kernel."""
+    if arch == "rwkv6-7b":
+        return dict(wkv_fwd_local=32 * prefills, wkv_fwd=32 * prefills, rmsnorm=(3 * 32 + 1) * forwards)
+    mamba, shared = 33, 5
+    return dict(ssd_fwd_local=mamba * prefills, ssd_fwd=mamba * prefills, flash_attention_fwd=shared * prefills,
+                rmsnorm=(2 * mamba + 2 * shared + 1) * forwards)
+
+
+def serve_dense_full_depth(dev, kernels, arch):
+    """Full-width, full-depth ``arch`` (bf16, seeded random weights) through
+    ``BatchedEngine``'s dense fallback on the serving trace (8 requests,
+    prompts 17-300, max_new 32): exact max_new in-vocab tokens, finite
+    logits, launch counts exactly as the forwards imply, the same tokens on a
+    second run (each prefill and decode step synchronised and timed) with no
+    growth of the allocated or peak memory (K12's workspace plans), tok/s
+    of the first run, and the second's median decode-step and prefill ms."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import num_params
+    from repro_torch.serving import BatchedEngine, generate
+
+    cfg = get_arch(arch).model
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_params = num_params(params)
+    log(f"full-width {cfg.name}: {cfg.num_layers} layers, {n_params} params in {cfg.dtype}, "
+        f"init {time.perf_counter() - t0:.1f}s")
+    trace = make_trace(cfg.vocab_size)
+    generate(cfg, params, trace[0][1][None, :20], 2)  # warm
+
+    def run():
+        eng = BatchedEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN, device=dev)
+        if eng.paged:
+            raise AssertionError(f"{arch}: expected the dense fallback")
+        for rid, prompt in trace:
+            eng.submit(rid, prompt, MAX_NEW)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = eng.run()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+
+    mem0 = torch.cuda.memory_allocated()
+    for k in kernels:
+        k.launches = 0
+    res1, wall, peak1, mem1 = run()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    with _StepTimer() as timer:
+        res2, _, peak2, mem2 = run()
+    for rid, _ in trace:
+        toks = res1[rid]
+        if len(toks) != MAX_NEW or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{arch} {rid}: {len(toks)} tokens, range [{toks.min()}, {toks.max()}]")
+        if res2[rid].tolist() != toks.tolist():
+            raise AssertionError(f"{arch} {rid}: tokens differ between runs of one trace")
+    if not timer.finite:
+        raise AssertionError(f"{arch}: non-finite logits")
+    n_pre, n_dec = len(timer.ms["prefill"]), len(timer.ms["decode"])
+    if (n_pre, n_dec) != (len(trace), len(trace) * (MAX_NEW - 1)):
+        raise AssertionError(f"{arch}: {n_pre} prefills, {n_dec} decode steps")
+    want = dense_launches(arch, n_pre, n_pre + n_dec)
+    if launches != want:
+        raise AssertionError(f"{arch} dense launches {launches} != implied by {n_pre} prefills + {n_dec} decodes: {want}")
+    if peak2 > peak1 or mem2 != mem1:
+        raise AssertionError(f"{arch}: memory grew between two runs: peak {peak1} -> {peak2}, allocated {mem1} -> {mem2}")
+    total = sum(len(v) for v in res1.values())
+    profile = profile_generate(cfg, params, trace[0][1])
+    summary = dict(
+        slice=f"{cfg.name} full width and depth bf16, dense fallback", params=n_params, layers=cfg.num_layers,
+        requests=len(trace), prompt_lens=[len(p) for _, p in trace], max_new=MAX_NEW, tokens=total,
+        wall_s=wall, tok_s=total / wall,
+        decode_step_ms_median=_median(timer.ms["decode"]), prefill_ms_median=_median(timer.ms["prefill"]),
+        prefill_ms_max=max(timer.ms["prefill"]), prefills=n_pre, decode_steps=n_dec, launches=launches,
+        params_bytes=mem0, peak_mem_bytes=peak1, second_run_peak_mem_bytes=peak2, allocated_after_bytes=[mem1, mem2],
+        deterministic_replay=True, profile=profile,
+    )
+    log(json.dumps(summary))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def qwen2_dense_vs_paged(dev):
+    """Full-width qwen2-7b cut to 2 layers, f32: the paged engine on the
+    serving trace and dense ``generate`` per request give the same tokens
+    (the reference states that the two agree; f32 keeps the two attention
+    routes, K9 against the plain dense decode, within rounding)."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import BatchedEngine, generate
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=2, dtype="float32")
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED + 5), device=dev)
+    trace = make_trace(cfg.vocab_size)
+    eng = BatchedEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, chunk=CHUNK, device=dev)
+    for rid, prompt in trace:
+        eng.submit(rid, prompt, MAX_NEW)
+    paged = eng.run()
+    dense = {rid: generate(cfg, params, prompt[None], MAX_NEW)[0] for rid, prompt in trace}
+    differ = [rid for rid, _ in trace if dense[rid].tolist() != paged[rid].tolist()]
+    rec = dict(check="qwen2-7b 2-layer f32: dense generate vs the paged engine, token for token",
+               requests=len(trace), tokens=sum(len(v) for v in dense.values()), differ=differ, ok=not differ)
+    log(json.dumps(rec))
+    if differ:
+        raise AssertionError(f"dense and paged tokens differ for {differ}")
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 4 (b): the checkpointer (the classifier's TrainState)
+# ---------------------------------------------------------------------------
+
+CKPT_ROUNDS = 10
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import _nodes
+    from repro_torch.parallel.packing import Packed
+
+    na, nb = _nodes(a), _nodes(b)
+    if [k for k, _ in na] != [k for k, _ in nb]:
+        return False
+    for (_, x), (_, y) in zip(na, nb):
+        xs = x.buffers if isinstance(x, Packed) else (x,)
+        ys = y.buffers if isinstance(y, Packed) else (y,)
+        if not all(u.device == v.device and u.dtype == v.dtype and torch.equal(u, v) for u, v in zip(xs, ys)):
+            return False
+    return True
+
+
+def checkpoint_classifier(dev):
+    """The classifier slice's TrainState (overlap, 16 workers) after 10 rounds
+    on the card is saved, restored into a fresh template on the card and
+    equal bit for bit; 10 more rounds from the restore equal 20 uninterrupted
+    rounds bit for bit (crash recovery; the data stream is the host's and
+    continues)."""
+    import os
+
+    from repro_torch import checkpoint
+    from repro_torch.config import AlgoConfig
+
+    overlap = AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6, anchor_beta=0.7)
+    path = str(ROOT / "build" / "ckpt" / "classifier.npz")
+    straight = _experiment(dev, overlap)
+    straight.fit(rounds=2 * CKPT_ROUNDS)
+    crashed = _experiment(dev, overlap)
+    crashed.fit(rounds=CKPT_ROUNDS)
+    t0 = time.perf_counter()
+    checkpoint.save(path, crashed.state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = checkpoint.restore(path, _experiment(dev, overlap).build().state)
+    restore_s = time.perf_counter() - t0
+    if not _states_equal(restored, crashed.state):
+        raise AssertionError("checkpoint round trip is not bitwise")
+    crashed.state = restored
+    crashed.fit(rounds=CKPT_ROUNDS)
+    if not _states_equal(crashed.state, straight.state):
+        raise AssertionError("10 rounds after a restore differ from 20 uninterrupted rounds")
+    rec = dict(check="classifier checkpoint: save, restore on the card, 10 more rounds vs 20 uninterrupted",
+               rounds=CKPT_ROUNDS, file_bytes=os.path.getsize(path), save_s=save_s, restore_s=restore_s,
+               roundtrip_bitwise=True, crash_recovery_bitwise=True, ok=True)
+    log(json.dumps(rec))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (b'): serving off the plane (Experiment.serve, swap_plane,
+# swap_params)
+# ---------------------------------------------------------------------------
+
+SWAP_AT_STEP = 12
+
+
+def _views_of(tree, plane) -> bool:
+    from repro_torch.parallel.packing import tree_flatten
+
+    bufs = [(b.data_ptr(), b.data_ptr() + b.numel() * b.element_size()) for b in plane.buffers]
+    leaves, _ = tree_flatten(tree)
+    return all(any(lo <= t.data_ptr() and t.data_ptr() + t.numel() * t.element_size() <= hi for lo, hi in bufs)
+               for t in leaves)
+
+
+def serve_off_the_plane(exp):
+    """After the 2-layer qwen2 LM run: ``exp.serve`` serves the consensus
+    plane in place (every served leaf inside the plane's buffers); the
+    serving trace on it, and again with ``swap_plane(exp.anchor_plane())``
+    queued after step 6: the plane changes only at the next step, the tokens
+    decoded before the boundary equal the no-swap run's, and every request
+    gets exactly max_new tokens."""
+    import torch
+
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, chunk=CHUNK)
+    trace = make_trace(exp.model_cfg.vocab_size)
+    base = exp.serve(**kw)
+    if not _views_of(base.params, base.plane):
+        raise AssertionError("Experiment.serve: a served leaf is not a view of the plane")
+    for rid, prompt in trace:
+        base.submit(rid, prompt, MAX_NEW)
+    base.run()
+    eng = exp.serve(**kw)
+    for rid, prompt in trace:
+        eng.submit(rid, prompt, MAX_NEW)
+    for _ in range(SWAP_AT_STEP):
+        eng.step()
+    anchor, before = exp.anchor_plane(), eng.plane
+    eng.swap_plane(anchor)
+    if eng.plane is not before:
+        raise AssertionError("swap_plane applied mid-step")
+    decoded = 0
+    for a in eng.sched.active:
+        if a is not None:
+            decoded += len(a.generated)
+            if base.results[a.req.rid][: len(a.generated)].tolist() != list(a.generated):
+                raise AssertionError(f"{a.req.rid}: tokens before the swap differ from the no-swap run")
+    res = eng.run()
+    if eng.plane is not anchor or not _views_of(eng.params, anchor):
+        raise AssertionError("swap_plane: the anchor plane is not served in place")
+    for rid, _ in trace:
+        toks = res[rid]
+        if len(toks) != MAX_NEW or toks.min() < 0 or toks.max() >= exp.model_cfg.vocab_size:
+            raise AssertionError(f"after the swap {rid}: {len(toks)} tokens")
+    changed = sum(res[r].tolist() != base.results[r].tolist() for r in res)
+    rec = dict(check="qwen2-7b 2-layer bf16: exp.serve in place; swap_plane(anchor) at a step boundary",
+               requests=len(trace), swap_after_step=SWAP_AT_STEP, tokens_before_swap=decoded,
+               requests_changed_by_swap=changed, served_in_place=True, ok=True)
+    log(json.dumps(rec))
+    del base, eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def swap_params_reduced(dev):
+    """``swap_params`` on a plane engine (the reduced qwen2-7b, f32): a params
+    checkpoint of other weights restores onto the served layout, applies at
+    the next step, and serves the tokens of a fresh engine on those weights."""
+    import torch
+
+    from repro_torch import checkpoint
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.packing import pack
+    from repro_torch.serving import BatchedEngine
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model.reduced(), dtype="float32")
+    p1, p2 = (T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED + i), device=dev) for i in (7, 8))
+    path = str(ROOT / "build" / "ckpt" / "reduced_qwen2.npz")
+    checkpoint.save(path, p2)
+    trace = make_trace(cfg.vocab_size)[:3]
+    kw = dict(slots=2, max_len=MAX_LEN, page_size=PAGE, chunk=CHUNK, device=dev)
+    fresh = BatchedEngine(cfg, pack(p2), **kw)
+    eng = BatchedEngine(cfg, pack(p1), **kw)
+    served = eng.plane
+    eng.swap_params(path)
+    if eng.plane is not served:
+        raise AssertionError("swap_params applied before a step boundary")
+    for e in (fresh, eng):
+        for rid, prompt in trace:
+            e.submit(rid, prompt, 8)
+    want, got = fresh.run(), eng.run()
+    if any(want[r].tolist() != got[r].tolist() for r in want):
+        raise AssertionError("swap_params: tokens differ from a fresh engine on the checkpoint's weights")
+    rec = dict(check="swap_params from a reduced qwen2-7b params checkpoint (per-leaf file onto the plane)",
+               requests=len(trace), ok=True)
+    log(json.dumps(rec))
+    return rec
+
 
 
 # ---------------------------------------------------------------------------
@@ -2517,7 +3007,7 @@ def qwen2_launches(steps, m, L, buckets, rounds):
                 rmsnorm_bwd=steps * m * (2 * L + 1), sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
 
 
-def lm_full_width(dev, kernels, cfg, expect=qwen2_launches, shares=()):
+def lm_full_width(dev, kernels, cfg, expect=qwen2_launches, shares=(), after=None):
     """A full-width LM cut in depth (``cfg``; qwen2-7b at 2 layers, rwkv6-7b
     at 4), bf16, m = 4 workers, seq 512, 3 rounds (6 local steps) from
     zeroed counters: finite losses, exact launch counts (``expect``), a
@@ -2574,6 +3064,7 @@ def lm_full_width(dev, kernels, cfg, expect=qwen2_launches, shares=()):
         raise AssertionError("LM run is not deterministic: final planes differ")
     del plane
     check_plane_scale(again)
+    served = after(again) if after is not None else None
     del again
     gc.collect()
     torch.cuda.empty_cache()
@@ -2585,6 +3076,8 @@ def lm_full_width(dev, kernels, cfg, expect=qwen2_launches, shares=()):
         nonzero_grad_every_leaf=True, deterministic_replay=True, profile=profile,
     )
     log(json.dumps(summary))
+    if served is not None:
+        summary["served_plane"] = served
     return summary
 
 
@@ -3008,6 +3501,11 @@ def main() -> int:
     from repro_torch.config import get_arch
     from repro_torch.kernels import _build, all_kernels
 
+    t_start = time.perf_counter()
+
+    def mark(what):  # where the script's time goes, phase by phase
+        log(f"elapsed {time.perf_counter() - t_start:.1f}s after {what}")
+
     # phase 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -3023,6 +3521,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {k.name}: {line.strip()}")
 
+    mark("phase 1 (build)")
     # phase 2
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3042,6 +3541,7 @@ def main() -> int:
     wkv_err, wkv_t = check_wkv(dev, gen)
     rms_shapes = check_rmsnorm_shapes(dev, gen)
     ssd_err, ssd_t = check_ssd(dev, gen)
+    mark("phase 2 (kernels against their plain versions)")
 
     # phases 3, 4 and 5: serving, classifier training, LM training
     serving = [k for k in kernels if k.name in ("rmsnorm", "paged_attend", "paged_append")]
@@ -3049,13 +3549,30 @@ def main() -> int:
     summary = serve_full_width(dev, serving)
     summary["card"] = card
     log(json.dumps(summary))
+    mark("phase 3 (a, b: paged serving)")
+    dense_twins_card_vs_cpu(dev)
+    dense = {}
+    for arch in ("rwkv6-7b", "zamba2-1.2b"):
+        dense[arch] = serve_dense_full_depth(dev, kernels, arch)
+        mark(f"dense {arch}")
+        log(json.dumps(dict(dense_serving=arch, card=card, tok_s=dense[arch]["tok_s"],
+                            decode_step_ms_median=dense[arch]["decode_step_ms_median"],
+                            prefill_ms_median=dense[arch]["prefill_ms_median"],
+                            peak_mem_bytes=dense[arch]["peak_mem_bytes"])))
+    qwen2_dense_vs_paged(dev)
+    mark("phase 3 (c: dense serving)")
     runs, _ = train_slice(dev, kernels)
+    ckpt = checkpoint_classifier(dev)
+    ckpt["card"] = card
+    log(json.dumps(ckpt))
     runs.update(train_strategies(dev, kernels))
     runs.update(train_adaptive_and_faulted(dev, kernels))
+    mark("phase 4 (classifier training, checkpoint)")
     lm_card_vs_cpu(dev)
     lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
-    lm = lm_full_width(dev, kernels, lm_cfg, shares=K6_SHARES)
+    lm = lm_full_width(dev, kernels, lm_cfg, shares=K6_SHARES, after=serve_off_the_plane)
     lm["card"] = card
+    swap_params_reduced(dev)
     gossip = lm_gossip_full_width(dev, kernels)
     gossip["card"] = card
     adaptive_lm = lm_adaptive_faulted(dev, kernels, lm_cfg, overlap_peak=lm["peak_mem_bytes"])
@@ -3066,6 +3583,7 @@ def main() -> int:
     lm_zamba2_card_vs_cpu(dev)
     zamba = lm_zamba2_full_width(dev, kernels)
     zamba["card"] = card
+    mark("phase 5 (LM training, serving off the plane)")
 
     # phase 6
     launches = dict(summary["launches"])
@@ -3234,6 +3752,9 @@ def main() -> int:
         elif name in by_path and any(by_path[name][p] for p in ("serving", "classifier", "lm")) and any(
                 by_path[name][p] for p in ("lm rwkv6", "lm zamba2")):
             entry["launches_by_path"] = by_path[name]
+        dense_name = "wkv_fwd" if name == "wkv_fwd_call" else name
+        if dense_name in ("rmsnorm", "flash_attention_fwd", "wkv_fwd_local", "wkv_fwd", "ssd_fwd_local", "ssd_fwd"):
+            entry["launches_dense_serving"] = {a: d["launches"].get(dense_name, 0) for a, d in dense.items()}
         if name.startswith("wkv_"):
             entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
             entry["share_of_bound"], entry["device_kernel_us"] = t["share_of_bound"], t["device_kernel_us"]

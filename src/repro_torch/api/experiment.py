@@ -38,8 +38,10 @@ copy.
 
 LM archs: the GQA text archs (qwen2-7b), rwkv6-7b (K12 WKV on the card)
 and zamba2-1.2b (mamba2 with one shared attention block and tied
-embeddings: K11 SSD scan and K6 on the card). Not here yet (each raises):
-``serve()`` (item 7) and the archs ``_check_supported`` rejects (MoE, MLA,
+embeddings: K11 SSD scan and K6 on the card). ``serve()`` serves the
+consensus plane in place through :class:`repro_torch.serving.BatchedEngine`
+(paged for the GQA archs, the dense fallback for rwkv6 and zamba2). Not
+here yet (each raises): the archs ``_check_supported`` rejects (MoE, MLA,
 frontends: item 8); the strategies (every name and alias of the reference)
 raise for ``AlgoConfig.packed=False`` (item 4b) and ``AlgoConfig.offload``
 (item 9).
@@ -331,6 +333,20 @@ class Experiment:
         if not isinstance(z, Packed):
             raise ValueError("anchor_plane() requires a packed anchor strategy (state.vars.z is the plane)")
         return z
+
+    def serve(self, slots: int = 4, max_len: int = 256, **engine_kw):
+        """A :class:`~repro_torch.serving.BatchedEngine` over the consensus
+        plane (LM experiments only), served in place: the engine reads its
+        weights as views of the plane (no unpack), so a later
+        ``engine.swap_plane(exp.anchor_plane())`` hot-swaps the anchor the
+        trainer keeps averaging into the running engine at a step boundary."""
+        from repro_torch.serving import BatchedEngine
+
+        self.build()
+        if self.model_cfg is None:
+            raise ValueError("serve() requires an LM experiment (arch=...), not a classification task")
+        engine_kw.setdefault("device", self.dev)
+        return BatchedEngine(self.model_cfg, self.consensus_plane(), slots=slots, max_len=max_len, **engine_kw)
 
     def evaluate(self, eval_batches: int = 8) -> dict:
         """Evaluate the consensus model: classification → held-out accuracy;

@@ -209,5 +209,9 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None, q_offset: int = 0):
     """q: (B,Sq,H,D), k/v: (B,Sk,Hkv,D) -> (B,Sq,H,D); q pre-scaled. The
-    reference's public ``flash_attention``, differentiable."""
+    reference's public ``flash_attention``, differentiable. When no gradient
+    is wanted (serving's prefill) it is the forward alone: nothing is saved
+    for a backward."""
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention_fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)[0]
     return FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -8,7 +8,7 @@ forward's first (``wkv_fwd_local``) computes every chunk's local state and,
 in the CTA that finishes a (batch, head) row last, runs the state's
 recurrence over the row's chunks: the state entering each chunk (kept for
 the backward when a gradient is wanted, else left in a workspace planned
-once a shape) and the final state. Its second (``wkv_fwd``, K12) writes y, a
+once a chunk count) and the final state. Its second (``wkv_fwd``, K12) writes y, a
 chunk a CTA. The backward's first (``wkv_bwd_local``) does the same for the
 cotangent of the state, backward from the final state's; its second
 (``wkv_bwd``) the gradients, a chunk a CTA, du as a partial a (row, chunk)
@@ -45,22 +45,28 @@ HEAD_DIMS = (32, 64)
 CHUNKS = (16, 32, 64)
 
 _WORK: dict = {}  # device index -> (f32 workspace, int32 ticket counters), grown when needed
-_PLANS: dict = {}  # (device index, B, S, H, N, chunk, states kept) -> views of the workspace
+_PLANS: dict = {}  # (device index, B·H, chunks, N, states kept) -> views of the workspace
 
 
 def _plan(device, b: int, s: int, h: int, n: int, chunk: int, keep: bool):
     """(tbuf, the chunk states or None, counters) of one shape: each chunk's
     total (B·H, nc, N) and, unless the caller keeps the states, the states'
     (B·H, nc, N, N) f32, as views of a per-device workspace; the ticket
-    counters (one a row, left zero by every launch). Planned once a shape
-    (a plan keeps the buffers it was given alive)."""
-    key = (device.index, b, s, h, n, chunk, keep)
+    counters (one a row, left zero by every launch). Planned once per
+    (rows, chunk count, N): the views depend on nothing else, so serving's
+    many prompt lengths share a plan per chunk count. When the workspace
+    grows, the device's plans are dropped with the old workspace, so no
+    plan keeps a stale buffer alive and the workspace is the largest shape
+    seen, once."""
+    rows, nc = b * h, -(-s // chunk)
+    key = (device.index, rows, nc, n, keep)
     plan = _PLANS.get(key)
     if plan is None:
-        rows, nc = b * h, -(-s // chunk)
         size = rows * nc * n * (1 if keep else n + 1)
         ws, cnt = _WORK.get(device.index, (None, None))
         if ws is None or ws.numel() < size or cnt.numel() < rows:
+            for stale in [k for k in _PLANS if k[0] == device.index]:
+                del _PLANS[stale]
             ws = torch.empty(max(size, 0 if ws is None else ws.numel()), dtype=torch.float32, device=device)
             cnt = torch.zeros(max(rows, 0 if cnt is None else cnt.numel()), dtype=torch.int32, device=device)
             _WORK[device.index] = (ws, cnt)
@@ -244,8 +250,8 @@ def wkv(r, k, v, w, u, chunk: int = 32) -> Tuple[torch.Tensor, torch.Tensor]:
 def wkv_decode_step(state, r_t, k_t, v_t, w_t, u):
     """Single-token recurrence: state (B,H,N,P) f32; r/k/w (B,H,N); v (B,H,P)
     -> (y (B,H,P) in r's type, new state). Plain torch on either device, as
-    the reference's ``ops.wkv_decode_step``; the dense decode path that calls
-    it is ROADMAP Queue 1 item 7."""
+    the reference's ``ops.wkv_decode_step`` (serving's dense decode,
+    ``models/layers/rwkv6.py``)."""
     f32 = torch.float32
     rf, kf, vf, wf = (t.to(f32) for t in (r_t, k_t, v_t, w_t))
     kv = torch.einsum("bhn,bhp->bhnp", kf, vf)

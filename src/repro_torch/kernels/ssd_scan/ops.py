@@ -233,8 +233,8 @@ def ssd_scan(x, dt, A, B, C, D, chunk: int = 64) -> Tuple[torch.Tensor, torch.Te
 def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t, D):
     """Single-token recurrent update: state (B,H,P,N) f32; x_t (B,H,P); dt_t
     (B,H); B_t/C_t (B,G,N) -> (y (B,H,P) in x_t's type, new state). Plain
-    torch on either device, as the reference's ``ops.ssd_decode_step``; the
-    dense decode path that calls it is ROADMAP Queue 1 item 7."""
+    torch on either device, as the reference's ``ops.ssd_decode_step``
+    (serving's dense decode, ``models/layers/mamba2.py``)."""
     f32 = torch.float32
     h, g = x_t.shape[1], B_t.shape[1]
     Bh = torch.repeat_interleave(B_t, h // g, dim=1).to(f32)

@@ -1,10 +1,13 @@
 """Serving launcher: batched generation with the reduced (or full) config.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --full
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --device cpu
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device.
-Runs on the GPU unless ``--device cpu`` is given.
+The GQA archs are served paged; rwkv6-7b and zamba2-1.2b by the dense
+fallback (one request at a time through ``generate``). Runs on the GPU
+unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -36,7 +39,8 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
     params = T.init_model(cfg, gen, device=device)
     eng = BatchedEngine(cfg, params, slots=args.slots, page_size=args.page_size, device=device)
-    print(f"engine: paged (page_size={eng.page_size}, pool={eng.num_pages} pages) on {device}")
+    kind = f"paged (page_size={eng.page_size}, pool={eng.num_pages} pages)" if eng.paged else "dense fallback"
+    print(f"engine: {kind} on {device}")
     rng = np.random.default_rng(0)
     for i in range(args.requests):
         eng.submit(f"req-{i}", rng.integers(0, cfg.vocab_size, (4 + i % 5,)).astype(np.int32), args.max_new)

@@ -10,14 +10,15 @@
 ``--arch`` takes every ported arch (qwen2-7b, rwkv6-7b, zamba2-1.2b),
 reduced unless ``--full`` is given. Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
 strategy of the reference and its aliases (``dasgd``, ``loscar``,
-``overlap``, ``sgp``); ``--ckpt`` needs the checkpointer (ROADMAP Queue 1
-item 6b) and raises.
+``overlap``, ``sgp``); ``--ckpt PATH`` saves the final ``TrainState`` there
+(:mod:`repro_torch.checkpoint`, the reference's .npz format).
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+from repro_torch import checkpoint
 from repro_torch.api import Experiment, TokenStream
 from repro_torch.config import AlgoConfig, OptimizerConfig, list_archs
 from repro_torch.core import STRATEGIES
@@ -43,8 +44,6 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.ckpt:
-        raise NotImplementedError("--ckpt needs the checkpointer, ROADMAP Queue 1 item 6b")
 
     exp = Experiment(
         arch=args.arch,
@@ -78,6 +77,9 @@ def main(argv=None) -> None:
             print(f"round {r:4d}  loss {loss:.4f}  ({time.time()-t0:.0f}s)")
 
     exp.fit(log=log)
+    if args.ckpt:
+        checkpoint.save(args.ckpt, exp.state)
+        print(f"checkpoint -> {args.ckpt}")
 
 
 if __name__ == "__main__":

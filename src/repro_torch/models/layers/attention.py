@@ -2,18 +2,31 @@
 ``repro.models.layers.attention``).
 
 Ported: ``init_gqa``, ``_project_qkv`` (with ``qkv_bias``), the pre-scaling
-``q / sqrt(head_dim)`` in the activation dtype, and two modes of
+``q / sqrt(head_dim)`` in the activation dtype, and every mode of
 ``gqa_apply``:
 
 * ``mode="train"``: causal (optionally windowed) attention over the whole
   sequence through ``_sdpa``, which is kernel K6 (``flash_attention``,
   forward and backward kernels) for CUDA tensors and its plain version for
   CPU tensors;
+* ``mode="prefill"``: the same attention (K6's forward alone when no
+  gradient is wanted), and the dense cache made from the prompt's K and V
+  (``_init_cache_from_prefill``: the last ``window`` positions under a
+  sliding window);
 * ``mode="decode"`` with ``paged=``: append K and V (kernel K10, both pools
   in one launch, in place), then attend (kernel K9 for one token per slot;
-  the plain chunked-prefill body for T > 1).
+  the plain chunked-prefill body for T > 1);
+* dense ``mode="decode"``: write the token's K and V into its ring slot,
+  then ``_decode_attend``, plain torch on either device as in the
+  reference (f32 scores, masked by each slot's absolute position).
 
-MLA, prefill caches and the dense decode path come in later slices.
+The dense cache is ``k``/``v`` (B, L, Hkv, D), ``positions`` (L,) int32 (the
+absolute position each slot holds, -1 when empty) and ``pos`` (0-dim
+int32, the next position); a segment's caches carry a leading layer axis.
+Unlike the reference, dense decode writes the cache **in place** (the
+slot's K/V and position; the new ``pos`` is returned and written back by
+``apply_model``), so a step costs no copy of the cache. MLA comes in a
+later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -21,6 +34,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config.base import AttentionConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -81,8 +95,9 @@ def gqa_apply(
     cache: Optional[dict] = None,
     paged=None,  # serving.paged_cache.PagedState
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """The reference's ``gqa_apply`` for ``mode="train"`` and for
-    ``mode="decode"`` with ``paged=`` (pools updated in place)."""
+    """The reference's ``gqa_apply``: ``mode="train"``, ``"prefill"`` (returns
+    the dense cache), ``"decode"`` with ``paged=`` (pools updated in place)
+    or with a dense ``cache`` (its slot written in place)."""
     q, k, v = _project_qkv(params, cfg, x)
     if cfg.rope != "none" and cos is not None:
         q = rope_mod.apply_rope(q, cos, sin)
@@ -90,18 +105,100 @@ def gqa_apply(
     q = q / _sqrt_in(cfg.head_dim, q.dtype)
     window = cfg.sliding_window
 
+    new_cache = None
     if mode == "train":
         out = _sdpa(q, k, v, causal=True, window=window, q_offset=0)
+    elif mode == "prefill":
+        out = _sdpa(q, k, v, causal=True, window=window, q_offset=0)
+        new_cache = _init_cache_from_prefill(k, v, window)
     elif mode == "decode" and paged is not None:
         pool_k, pool_v = pa_ops.paged_append_kv_(cache["pool_k"], cache["pool_v"], k, v, paged.page_tables,
                                                  paged.lengths)
         out = pa_ops.paged_attend_gqa(q, pool_k, pool_v, paged.page_tables, paged.lengths, window=window)
+        new_cache = cache
+    elif mode == "decode":
+        if cache is None or "k" not in cache:
+            raise ValueError("gqa_apply(mode='decode') needs a dense cache (k, v, positions, pos) or paged=")
+        k_all, v_all, positions, pos = _cache_append(cache, k, v)
+        out = _decode_attend(q, k_all, v_all, positions=positions, pos=pos, window=window)
+        new_cache = dict(cache, k=k_all, v=v_all, positions=positions, pos=pos + 1)
     else:
-        raise NotImplementedError(f"gqa_apply(mode={mode!r}, paged={paged is not None}): prefill caches and the "
-                                  "dense decode path are ROADMAP Queue 1 item 7")
+        raise ValueError(f"gqa_apply: unknown mode {mode!r}")
 
     b_, s = out.shape[0], out.shape[1]
     y = out.to(x.dtype).reshape(b_, s, cfg.num_heads * cfg.head_dim) @ params["wo"]
     if cfg.out_bias:
         y = y + params["bo"]
-    return y, cache
+    return y, new_cache
+
+
+# -- dense KV cache (full or a sliding-window ring buffer) ---------------------------
+
+
+def _init_cache_from_prefill(k, v, window: Optional[int]) -> dict:
+    s = k.shape[1]
+    if window is not None and s > window:
+        k, v = k[:, -window:], v[:, -window:]
+    positions = torch.arange(s - k.shape[1], s, dtype=torch.int32, device=k.device)
+    return dict(k=k.contiguous(), v=v.contiguous(), positions=positions,
+                pos=torch.tensor(s, dtype=torch.int32, device=k.device))
+
+
+def grow_cache(cache: dict, new_len: int) -> dict:
+    """Extend a prefill cache's buffers to ``new_len`` slots (new slots empty:
+    zero K/V, position -1); recurrent caches are returned as they are. Any
+    leading (layer) axes are kept."""
+    if "k" not in cache:
+        return cache
+    cur = cache["k"].shape[-3]
+    if cur >= new_len:
+        return cache
+    pad = new_len - cur
+    out = dict(cache)
+    out["k"] = F.pad(cache["k"], (0, 0, 0, 0, 0, pad))
+    out["v"] = F.pad(cache["v"], (0, 0, 0, 0, 0, pad))
+    out["positions"] = F.pad(cache["positions"], (0, pad), value=-1)
+    return out
+
+
+def make_decode_cache(batch: int, max_len: int, cfg: AttentionConfig, dtype, device="cpu") -> dict:
+    """A cache 'already full' at ``pos = max_len - 1`` for pure-decode runs: a
+    warm ring buffer whose slot i holds the most recent absolute position
+    congruent to i modulo its length (the window's, under a sliding window)."""
+    window = cfg.sliding_window
+    length = min(max_len, window) if window else max_len
+    pos = max_len - 1
+    idx = torch.arange(length, dtype=torch.int32, device=device)
+    positions = pos - torch.remainder(pos - idx, length)
+    shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    return dict(k=torch.zeros(shape, dtype=dtype, device=device), v=torch.zeros(shape, dtype=dtype, device=device),
+                positions=positions.to(torch.int32), pos=torch.tensor(pos, dtype=torch.int32, device=device))
+
+
+def _cache_append(cache: dict, k_new, v_new):
+    """Write the new token's K/V and position at its ring slot, in place;
+    returns the cache's buffers and the token's position."""
+    pos = cache["pos"]
+    slot = torch.remainder(pos, cache["k"].shape[1]).reshape(1).long()
+    k_all = cache["k"].index_copy_(1, slot, k_new[:, :1].to(cache["k"].dtype))
+    v_all = cache["v"].index_copy_(1, slot, v_new[:, :1].to(cache["v"].dtype))
+    positions = cache["positions"].index_copy_(0, slot, pos.reshape(1).to(cache["positions"].dtype))
+    return k_all, v_all, positions, pos
+
+
+def _decode_attend(q, k, v, *, positions, pos, window: Optional[int]):
+    """Single-token attention against the cache, in f32. q: (B,1,H,D); k/v:
+    (B,L,Hkv,D); ``positions`` (L,) holds each slot's absolute position (-1
+    empty), so one body serves growing caches, warm rings and windows."""
+    b, _, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, 1, kvh, g, d)
+    scores = torch.einsum("bqhgd,blhd->bhgql", qg.to(torch.float32), k.to(torch.float32))
+    valid = (positions >= 0) & (positions <= pos)
+    if window is not None:
+        valid &= positions > (pos - window)
+    scores = scores.masked_fill(~valid, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgql,blhd->bqhgd", p, v.to(torch.float32))
+    return out.reshape(b, 1, h, d)

@@ -12,10 +12,14 @@ does, ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``, with its gradient
 scan's D-skip term is rounded once with y, as the reference's CPU route
 (``kernels/ssd_scan/ops.py``).
 
-Train mode only: the prefill and decode caches (``make_mamba_cache``, the
-``conv_state``/``ssd_state`` carry) are ROADMAP Queue 1 item 7. The
-reference's ``constrain`` sharding hints are no-ops on one card and are
-dropped.
+Modes as the reference's: ``"train"``; ``"prefill"`` (K11's forward, with
+no gradient its no-grad route, returning the cache ``ssd_state`` (B,H,P,N)
+f32 and ``conv_state``, the last ``conv_width - 1`` rows of the conv
+stream before the conv, zero-padded on the left when the prompt is
+shorter); and ``"decode"`` (one token: the conv over the window
+``conv_state`` + the token, and the plain ``ssd_decode_step``, on either
+device). :func:`make_mamba_cache` makes an empty cache. The reference's
+``constrain`` sharding hints are no-ops on one card and are dropped.
 """
 from __future__ import annotations
 
@@ -27,8 +31,6 @@ import torch.nn.functional as F
 from repro_torch.config.base import SSMConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
-
-ITEM7 = "ROADMAP Queue 1 item 7"
 
 
 def _dims(d_model: int, cfg: SSMConfig):
@@ -97,19 +99,48 @@ def mamba2_apply(
     cache: Optional[dict] = None,
     eps: float = 1e-5,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    if mode != "train" or cache is not None:
-        raise NotImplementedError(f"mamba2_apply(mode={mode!r}): the prefill and decode caches are {ITEM7}")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mamba2_apply: unknown mode {mode!r}")
     b_, s, d_model = x.shape
+    if mode == "decode" and (cache is None or s != 1):
+        raise ValueError(f"mamba2_apply(mode='decode') takes one token and a cache, got S={s}")
     xz = x @ params["in_proj"]
     z, xbc, dt, d_inner, heads, groups, n = _split(params, cfg, d_model, xz)
     A = -torch.exp(params["a_log"].to(torch.float32))
-    xbc_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"], cfg.conv_width)
-    xs, B, C = torch.split(xbc_conv, [d_inner, groups * n, groups * n], dim=-1)
-    xh = xs.reshape(b_, s, heads, cfg.head_dim)
-    Bh = B.reshape(b_, s, groups, n)
-    Ch = C.reshape(b_, s, groups, n)
-    dt_s = softplus(dt.to(torch.float32) + params["dt_bias"])
-    y, _ = ssd_ops.ssd_scan(xh, dt_s, A, Bh, Ch, params["d_skip"], cfg.chunk_size)
-    y = y.reshape(b_, s, d_inner)
+    new_cache = None
+    if mode in ("train", "prefill"):
+        xbc_conv = _causal_conv(xbc, params["conv_w"], params["conv_b"], cfg.conv_width)
+        xs, B, C = torch.split(xbc_conv, [d_inner, groups * n, groups * n], dim=-1)
+        xh = xs.reshape(b_, s, heads, cfg.head_dim)
+        Bh = B.reshape(b_, s, groups, n)
+        Ch = C.reshape(b_, s, groups, n)
+        dt_s = softplus(dt.to(torch.float32) + params["dt_bias"])
+        y, st = ssd_ops.ssd_scan(xh, dt_s, A, Bh, Ch, params["d_skip"], cfg.chunk_size)
+        y = y.reshape(b_, s, d_inner)
+        if mode == "prefill":
+            w1 = cfg.conv_width - 1
+            conv_state = F.pad(xbc, (0, 0, w1, 0))[:, xbc.shape[1]:]  # the last w1 rows, zeros before the prompt
+            new_cache = dict(ssd_state=st, conv_state=conv_state.contiguous())
+    else:  # one token against the cache
+        window = torch.cat([cache["conv_state"], xbc], dim=1)  # (B, width, conv_dim)
+        conv_out = torch.einsum("bwc,wc->bc", window, params["conv_w"]) + params["conv_b"]
+        xbc_conv = F.silu(conv_out)[:, None, :]
+        xs, B, C = torch.split(xbc_conv, [d_inner, groups * n, groups * n], dim=-1)
+        dt_s = softplus(dt[:, 0].to(torch.float32) + params["dt_bias"])  # (B, H)
+        y, st = ssd_ops.ssd_decode_step(cache["ssd_state"], xs[:, 0].reshape(b_, heads, cfg.head_dim), dt_s, A,
+                                        B[:, 0].reshape(b_, groups, n), C[:, 0].reshape(b_, groups, n),
+                                        params["d_skip"])
+        y = y.reshape(b_, 1, d_inner)
+        new_cache = dict(ssd_state=st, conv_state=window[:, 1:])
     y = rmsnorm(params["norm"], y * F.silu(z), eps)
-    return y @ params["out_proj"], None
+    return y @ params["out_proj"], new_cache
+
+
+def make_mamba_cache(batch: int, d_model: int, cfg: SSMConfig, dtype, device="cpu") -> dict:
+    d_inner, heads, groups = _dims(d_model, cfg)
+    n = cfg.state_dim
+    conv_dim = d_inner + 2 * groups * n
+    return dict(
+        ssd_state=torch.zeros((batch, heads, cfg.head_dim, n), dtype=torch.float32, device=device),
+        conv_state=torch.zeros((batch, cfg.conv_width - 1, conv_dim), dtype=dtype, device=device),
+    )

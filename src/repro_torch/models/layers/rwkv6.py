@@ -17,10 +17,13 @@ route exactly (``wkv_chunked`` with an f32 w); its Pallas route casts w to
 r's type, which in bf16 rounds every decay within 2^-9 of 1 to exactly 1
 (values just below 1 are 2^-8 apart there).
 
-Train mode only: the prefill and decode caches (``make_rwkv_cache``, the
-``tm_last``/``cm_last``/``wkv_state`` carry) are ROADMAP Queue 1 item 7.
-The reference's ``constrain`` sharding hints are no-ops on one card and are
-dropped.
+Modes as the reference's: ``"train"``; ``"prefill"`` (K12's forward, with
+no gradient its no-grad route, returning the cache ``wkv_state`` (B,H,N,N)
+f32 and ``tm_last``, the last input row; the block adds ``cm_last``); and
+``"decode"`` (one token: the shift from ``tm_last``/``cm_last`` and the
+plain ``wkv_decode_step``, on either device). :func:`make_rwkv_cache` makes
+an empty cache. The reference's ``constrain`` sharding hints are no-ops on
+one card and are dropped.
 """
 from __future__ import annotations
 
@@ -36,7 +39,6 @@ from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 _MIX = ("r", "k", "v", "w", "g")
 _LORA_RANK = 32
 _DECAY_RANK = 64
-ITEM7 = "ROADMAP Queue 1 item 7"
 
 
 def init_rwkv6(b, name: str, d_model: int, cfg: SSMConfig):
@@ -86,11 +88,14 @@ def rwkv6_timemix_apply(
     cache: Optional[dict] = None,
     eps: float = 1e-5,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    if mode != "train" or cache is not None:
-        raise NotImplementedError(f"rwkv6_timemix_apply(mode={mode!r}): the prefill and decode caches are {ITEM7}")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"rwkv6_timemix_apply: unknown mode {mode!r}")
     b_, s, d = x.shape
+    if mode == "decode" and (cache is None or s != 1):
+        raise ValueError(f"rwkv6_timemix_apply(mode='decode') takes one token and a cache, got S={s}")
     h, n = cfg.num_heads, cfg.head_dim
-    prev = _shift(x, None)
+    last = cache["tm_last"][:, None, :] if cache is not None else None
+    prev = _shift(x, last)
     dx = prev - x
 
     # ddlerp: x_s = x + dx * (mu_s + lora_s(x + dx * mu_x))
@@ -108,9 +113,17 @@ def rwkv6_timemix_apply(
     dlora = (torch.tanh(xw @ params["decay_w1"]) @ params["decay_w2"]).reshape(b_, s, h, n)
     w = torch.exp(-torch.exp((params["w0"] + dlora).to(torch.float32)))  # (B, S, H, N) in (0, 1), f32
 
-    y, _ = wkv_ops.wkv(r, k, v, w, params["u_bonus"], cfg.chunk_size)
+    new_cache = None
+    if mode in ("train", "prefill"):
+        y, st = wkv_ops.wkv(r, k, v, w, params["u_bonus"], cfg.chunk_size)
+        if mode == "prefill":
+            new_cache = dict(wkv_state=st, tm_last=x[:, -1])
+    else:
+        y, st = wkv_ops.wkv_decode_step(cache["wkv_state"], r[:, 0], k[:, 0], v[:, 0], w[:, 0], params["u_bonus"])
+        y = y[:, None]
+        new_cache = dict(wkv_state=st, tm_last=x[:, 0])
     y = rmsnorm(params["gnorm"], y, eps).reshape(b_, s, h * n) * g
-    return y @ params["wo"], None
+    return y @ params["wo"], new_cache
 
 
 def rwkv6_channelmix_apply(
@@ -120,12 +133,21 @@ def rwkv6_channelmix_apply(
     *,
     cache: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    if cache is not None:
-        raise NotImplementedError(f"rwkv6_channelmix_apply: the decode cache is {ITEM7}")
-    prev = _shift(x, None)
+    last = cache["cm_last"][:, None, :] if cache is not None else None
+    prev = _shift(x, last)
     dx = prev - x
     xk = x + dx * params_tm["cmix_mu_k"]
     xr = x + dx * params_tm["cmix_mu_r"]
     kk = torch.square(torch.relu(xk @ params_ffn["wk"]))
     out = torch.sigmoid(xr @ params_ffn["wr"]) * (kk @ params_ffn["wv"])
-    return out, None
+    new_cache = dict(cm_last=x[:, -1]) if cache is not None else None
+    return out, new_cache
+
+
+def make_rwkv_cache(batch: int, d_model: int, cfg: SSMConfig, dtype, device="cpu") -> dict:
+    h, n = cfg.num_heads, cfg.head_dim
+    return dict(
+        wkv_state=torch.zeros((batch, h, n, n), dtype=torch.float32, device=device),
+        tm_last=torch.zeros((batch, d_model), dtype=dtype, device=device),
+        cm_last=torch.zeros((batch, d_model), dtype=dtype, device=device),
+    )

@@ -17,11 +17,18 @@ the top-level ``shared_block`` scope is applied (zamba2; it owns no
 ``seg{i}`` parameters, so the ``seg{i}`` keys have gaps, and its gradient
 sums every position's), with tied embeddings (the head is
 ``hidden @ tok_emb.T`` and there is no ``head`` leaf): ``segments``,
-``init_model``, ``apply_model`` in ``mode="train"`` (the LM training path:
-K6 attention, K12 WKV or K11 SSD scan, K7 norms) and, for attention-only
-archs, in ``mode="decode"`` with ``paged=`` (the serving path),
+``init_model``, ``init_caches``, ``apply_model`` in every mode (``"train"``,
+the LM training path: K6 attention, K12 WKV or K11 SSD scan, K7 norms;
+``"prefill"``, which returns the dense caches; ``"decode"`` against the
+dense caches or, for attention-only archs, with ``paged=``),
 ``softmax_xent`` and ``lm_loss``. MoE, MLA, frontends and MTP (ROADMAP
-Queue 1 item 8), prefill caches and dense decode (item 7) raise here.
+Queue 1 item 8) raise here.
+
+Caches are laid out as the reference's: under ``seg{i}``, each leaf stacked
+over the segment's layers (a ``shared_attn`` position's cache unstacked),
+so the two packages' caches compare leaf for leaf. Prefill builds them;
+dense decode writes every layer's new state into them in place and returns
+the same dict.
 """
 from __future__ import annotations
 
@@ -142,22 +149,63 @@ def split_layers(path: Tuple[str, ...], leaf: torch.Tensor):
 
 
 def _apply_block(cfg: ModelConfig, kind: str, prm, x, cos, sin, *, mode, cache, eps, paged):
+    """(x, the block's new cache: None in train mode)."""
     if kind == "rwkv6":
         h = rmsnorm(prm["ln1"], x, eps)
-        y, _ = rwkv_mod.rwkv6_timemix_apply(prm["tm"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
+        y, tm_cache = rwkv_mod.rwkv6_timemix_apply(prm["tm"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
         x = x + y
         h2 = rmsnorm(prm["ln2"], x, eps)
-        y2, _ = rwkv_mod.rwkv6_channelmix_apply(prm["tm"], prm["cm"], h2, cache=cache)
-        return x + y2
+        y2, cm_cache = rwkv_mod.rwkv6_channelmix_apply(prm["tm"], prm["cm"], h2, cache=cache)
+        new_cache = None
+        if tm_cache is not None:
+            new_cache = dict(tm_cache)
+            if cm_cache is not None:
+                new_cache.update(cm_cache)
+            else:  # prefill: the channel-mix ran without a cache
+                new_cache["cm_last"] = h2[:, -1]
+        return x + y2, new_cache
     if kind == "mamba2":
         h = rmsnorm(prm["ln1"], x, eps)
-        y, _ = mamba_mod.mamba2_apply(prm["block"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
-        return x + y
+        y, new_cache = mamba_mod.mamba2_apply(prm["block"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
+        return x + y, new_cache
     h = rmsnorm(prm["ln1"], x, eps)
-    y, cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, mode=mode, cache=cache, paged=paged)
+    y, new_cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, mode=mode, cache=cache, paged=paged)
     x = x + y
     h2 = rmsnorm(prm["ln2"], x, eps)
-    return x + mlp_mod.swiglu(prm["ffn"], h2)
+    return x + mlp_mod.swiglu(prm["ffn"], h2), new_cache
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device="cpu") -> dict:
+    """Preallocated per-segment dense caches for pure-decode runs (attention
+    caches 'full' at ``pos = max_len - 1``), stacked over each segment's
+    layers as the reference lays them out."""
+    _check_supported(cfg)
+    dtype = dtype or cfg.param_dtype
+    caches: Dict[str, Any] = {}
+    for si, (kind, n) in enumerate(segments(cfg)):
+        one = _init_block_cache(cfg, kind, batch, max_len, dtype, device)
+        if kind == "shared_attn":
+            caches[f"seg{si}"] = one
+        else:
+            caches[f"seg{si}"] = {k: t[None].repeat((n,) + (1,) * t.dim()) for k, t in one.items()}
+    return caches
+
+
+def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype, device):
+    if kind in ("attn", "shared_attn"):
+        return attn_mod.make_decode_cache(batch, max_len, cfg.attention, dtype, device=device)
+    if kind == "mamba2":
+        return mamba_mod.make_mamba_cache(batch, cfg.d_model, cfg.ssm, dtype, device=device)
+    if kind == "rwkv6":
+        return rwkv_mod.make_rwkv_cache(batch, cfg.d_model, cfg.ssm, dtype, device=device)
+    raise ValueError(kind)
+
+
+def _write_back(cache: dict, new: dict) -> None:
+    """Dense decode: a layer's new state into its (view of the) cache."""
+    for key, t in new.items():
+        if t is not cache[key]:
+            cache[key].copy_(t)
 
 
 def _embed(cfg: ModelConfig, params, inputs) -> torch.Tensor:
@@ -188,33 +236,56 @@ def apply_model(
     *,
     mode: str = "train",
     caches: Optional[Dict[str, Any]] = None,
+    decode_pos=None,
     paged=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Returns (logits, aux) with aux ``caches`` and ``hidden``.
 
     ``mode="train"``: ``inputs`` holds ``tokens`` (B, S); causal attention
-    over the whole sequence, no caches. ``mode="decode"`` with ``paged``:
-    ``inputs`` holds ``tokens`` (S, T) and per-row ``positions`` (S, T);
-    ``caches`` the per-segment page pools, updated in place."""
+    over the whole sequence, no caches. ``mode="prefill"``: the same forward,
+    and ``aux["caches"]`` the new dense caches. ``mode="decode"`` with
+    ``paged``: ``inputs`` holds ``tokens`` (S, T) and per-row ``positions``
+    (S, T); ``caches`` the per-segment page pools, updated in place.
+    ``mode="decode"`` without ``paged``: ``tokens`` (B, 1) at absolute
+    position ``decode_pos`` (an int or a 0-dim tensor) against the dense
+    ``caches``, updated in place and returned."""
     _check_supported(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"apply_model: unknown mode {mode!r}")
+    dense_decode = mode == "decode" and paged is None
+    if dense_decode and not caches:
+        raise ValueError("apply_model(mode='decode') needs the dense caches (from prefill or init_caches) or paged=")
     x = _embed(cfg, params, inputs)
     b_, s = x.shape[0], x.shape[1]
-    cos, sin = _rope_for(cfg, inputs, b_, s)
+    cos, sin = _rope_for(cfg, inputs, b_, s, decode_pos if dense_decode else 0)
     eps = cfg.norm_eps
+    new_caches: Dict[str, Any] = {}
     for si, (kind, n) in enumerate(segments(cfg)):
+        key = f"seg{si}"
+        seg_cache = caches.get(key) if caches else None
         if kind == "shared_attn":  # the one shared block, at every shared_attn position
-            cache = caches.get(f"seg{si}") if caches else None
-            x = _apply_block(cfg, kind, params["shared_block"], x, cos, sin, mode=mode, cache=cache, eps=eps,
-                             paged=paged)
+            x, nc = _apply_block(cfg, kind, params["shared_block"], x, cos, sin, mode=mode, cache=seg_cache,
+                                 eps=eps, paged=paged)
+            if mode == "prefill":
+                new_caches[key] = nc
+            elif dense_decode:
+                _write_back(seg_cache, nc)
             continue
-        seg_params = params[f"seg{si}"]
-        seg_cache = caches[f"seg{si}"] if caches else None
+        seg_params = params[key]
+        layer_caches = []
         for i in range(n):
             cache = _layer(seg_cache, i) if seg_cache is not None else None
-            x = _apply_block(cfg, kind, _layer(seg_params, i), x, cos, sin, mode=mode, cache=cache, eps=eps,
-                             paged=paged)
+            x, nc = _apply_block(cfg, kind, _layer(seg_params, i), x, cos, sin, mode=mode, cache=cache, eps=eps,
+                                 paged=paged)
+            if mode == "prefill":
+                layer_caches.append(nc)
+            elif dense_decode:
+                _write_back(cache, nc)
+        if mode == "prefill":  # stacked over the segment's layers, as the reference's scan stacks them
+            new_caches[key] = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
     hidden = rmsnorm(params["final_norm"], x, eps)
-    return _head(cfg, params, hidden), dict(caches=caches or {}, hidden=hidden)
+    out_caches = new_caches if mode == "prefill" else (caches or {})
+    return _head(cfg, params, hidden), dict(caches=out_caches, hidden=hidden)
 
 
 def softmax_xent(logits, targets) -> torch.Tensor:

@@ -185,6 +185,18 @@ def unpack(packed: Packed) -> dict:
     return tree_unflatten(packed.layout.paths, leaf_views(packed))
 
 
+class ParamView(dict):
+    """The model's parameter tree over a plane with no lead axis (the
+    reference's ``ParamView``): nested dicts whose leaves are views of the
+    plane's buffers (:func:`unpack`), so a model reads its weights straight
+    from the plane, with no copy."""
+
+    def __init__(self, packed: Packed):
+        if packed.lead_shape != ():
+            raise ValueError(f"ParamView takes a plane with no lead axis, got lead {packed.lead_shape}")
+        super().__init__(unpack(packed))
+
+
 def packed_like(packed: Packed, fill: float = 0.0, dtype: Optional[torch.dtype] = None) -> Packed:
     """A new plane of the same layout and lead shape, filled with ``fill``
     (retagged to ``dtype`` when given — see :meth:`Layout.with_dtype`)."""

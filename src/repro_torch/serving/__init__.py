@@ -1,4 +1,12 @@
-from repro_torch.serving.engine import BatchedEngine, paged_step, resolve_device
+from repro_torch.serving.engine import (
+    BatchedEngine,
+    decode_step,
+    generate,
+    hot_swap,
+    paged_step,
+    prefill,
+    resolve_device,
+)
 from repro_torch.serving.paged_cache import (
     PageAllocator,
     PagedState,
@@ -15,10 +23,14 @@ __all__ = [
     "PagedState",
     "Request",
     "Scheduler",
+    "decode_step",
+    "generate",
+    "hot_swap",
     "init_paged_pools",
     "paged_step",
     "paged_supported",
     "pages_for",
     "pool_bytes",
+    "prefill",
     "resolve_device",
 ]

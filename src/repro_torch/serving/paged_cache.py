@@ -25,37 +25,40 @@ class PagedState(NamedTuple):
     lengths: Any  # (S,) — tokens resident before this step's append
 
 
-def _paged_refusal(cfg: ModelConfig) -> Optional[Exception]:
-    """None where the port pages ``cfg``, else the error that says why not.
-    The port pages GQA text archs whose every segment is ``"attn"``. The
-    reference also pages MLA and MoE archs; those come to the port with
-    their model code. A recurrent or hybrid arch (rwkv6, zamba2's mamba2
-    segments) keeps an O(1) state, not a KV cache to page: the reference
-    serves it by dense decode, ROADMAP Queue 1 item 7."""
-    from repro_torch.models.transformer import _check_supported, segments
-
-    refused = ValueError(f"{getattr(cfg, 'name', cfg)}: the port pages GQA attention-only text archs")
-    if cfg is None:
-        return refused
-    if cfg.attention is None or any(kind != "attn" for kind, _ in segments(cfg)):
-        return NotImplementedError(f"{cfg.name}: a recurrent or hybrid arch is served by dense decode, not paged; "
-                                   "the dense path is ROADMAP Queue 1 item 7")
-    try:
-        _check_supported(cfg)
-    except NotImplementedError:
-        return refused
-    return None
-
-
 def paged_supported(cfg: ModelConfig) -> bool:
-    return _paged_refusal(cfg) is None
+    """The reference's rule: paged serving covers attention-family text
+    archs (every segment ``"attn"`` or ``"moe"``, no frontend, no M-RoPE).
+    Recurrent and hybrid archs (rwkv6, zamba2's mamba2 segments) keep the
+    dense engine: their decode state is O(1) in the sequence length, so
+    there is nothing to page. Of the paged archs the port runs the GQA ones
+    (:func:`require_paged`)."""
+    from repro_torch.models.transformer import segments
+
+    if cfg is None:
+        return False
+    if cfg.frontend is not None or cfg.attention is None:
+        return False
+    if cfg.attention.rope == "mrope":
+        return False
+    return all(kind in ("attn", "moe") for kind, _ in segments(cfg))
 
 
 def require_paged(cfg: ModelConfig) -> None:
-    """Raise unless the port pages ``cfg`` (see :func:`_paged_refusal`)."""
-    err = _paged_refusal(cfg)
-    if err is not None:
-        raise err
+    """Raise unless the port pages ``cfg``: a recurrent or hybrid arch is
+    served densely (``BatchedEngine`` with ``paged="auto"``); of the archs
+    the reference pages, the port pages the GQA archs whose every segment is
+    ``"attn"`` (MLA and MoE come with their model code, ROADMAP Queue 1 item
+    8)."""
+    from repro_torch.models.transformer import _check_supported
+
+    if not paged_supported(cfg):
+        raise ValueError(f"{getattr(cfg, 'name', cfg)}: paged serving requires an attention-only text arch; "
+                         "recurrent and hybrid archs are served by dense decode")
+    refused = ValueError(f"{cfg.name}: the port pages GQA attention-only text archs")
+    try:
+        _check_supported(cfg)
+    except NotImplementedError:
+        raise refused from None
 
 
 def pages_for(tokens: int, page_size: int) -> int:

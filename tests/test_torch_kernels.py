@@ -1502,3 +1502,123 @@ def test_ssd_kernels_vs_plain_on_card(cuda, case):
     assert [k.launches for k in kernels] == [c + 1 for c in before]
     assert torch.equal(ya, y.to(dtype)) and torch.equal(sa, st)
     assert all(rel(a, c) <= 2.0**-7 for a, c in zip(got, grads))
+
+
+# -- the serving prefill's kernel calls: B 1, ragged and short S, no gradient -------
+#
+# Serving's dense prefill calls K6, K11 and K12 through their public functions
+# under torch.no_grad(), at B 1 and one S a prompt length. (kind, S, dtype):
+# K6 at qwen2-7b's heads (28 over 4 of 128) and at zamba2-1.2b's shared block
+# (32 of 64, its window 4096 wider than S); K11 at zamba2's widths (64 heads
+# of 64, state 64, chunk 128); K12 at rwkv6-7b's (64 heads of 64, chunk 32).
+# S below one chunk, one chunk and one more token, ragged multi-chunk
+SERVE_CARD = [("fa_qwen2", 17, torch.bfloat16), ("fa_qwen2", 300, torch.bfloat16), ("fa_qwen2", 45, torch.float32),
+              ("fa_zamba2", 17, torch.bfloat16), ("fa_zamba2", 211, torch.bfloat16),
+              ("ssd", 17, torch.bfloat16), ("ssd", 129, torch.bfloat16), ("ssd", 300, torch.bfloat16),
+              ("ssd", 45, torch.float32),
+              ("wkv", 17, torch.bfloat16), ("wkv", 33, torch.bfloat16), ("wkv", 300, torch.bfloat16),
+              ("wkv", 45, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SERVE_CARD, ids=[f"{k}-{s}-{str(d).split('.')[-1]}" for k, s, d in SERVE_CARD])
+def test_serving_prefill_kernels_no_grad_on_card(cuda, case):
+    """Each public function under no_grad at B 1 against its plain version
+    (max|Δ| / max|plain|: f32 1e-5 for K6, 2e-5 for K11's and K12's outputs
+    and states; bf16 2^-7 for an output rounded to bf16); only the forward
+    kernels launch (no saved states, no backward)."""
+    kind, s, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    f32 = dtype == torch.float32
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dt)
+
+    all_k = {k.name: k for k in all_kernels()}
+    before = {n: k.launches for n, k in all_k.items()}
+    with torch.no_grad():
+        if kind.startswith("fa"):
+            h, hkv, d, window = (28, 4, 128, None) if kind == "fa_qwen2" else (32, 32, 64, 4096)
+            q, k, v = randn(1, s, h, d) / d**0.5, randn(1, s, hkv, d), randn(1, s, hkv, d)
+            out = fa_ops.flash_attention(q, k, v, True, window, 0)
+            want, _ = fa_ref.flash_attention_fwd(q, k, v, causal=True, window=window, q_offset=0)
+            assert out.dtype == dtype and rel(out, want) <= (1e-5 if f32 else 2.0**-7)
+            fired = {"flash_attention_fwd": 1}
+        elif kind == "ssd":
+            h, p, n = 64, 64, 64
+            x, B, C = randn(1, s, h, p), randn(1, s, 1, n), randn(1, s, 1, n)
+            dt = torch.nn.functional.softplus(randn(1, s, h, dt=torch.float32))
+            A = -torch.exp(0.5 * randn(h, dt=torch.float32))
+            D = randn(h, dt=torch.float32)
+            y, st = ssd_ops.ssd_scan(x, dt, A, B, C, D, chunk=128)
+            yp, stp = ssd_ref.ssd_chunked(x.float(), dt, A, B.float(), C.float(), D, chunk=128)
+            assert y.dtype == dtype and rel(y, yp) <= (2e-5 if f32 else 2.0**-7) and rel(st, stp) <= 2e-5
+            fired = {"ssd_fwd_local": 1, "ssd_fwd": 1}
+        else:
+            h, n = 64, 64
+            r, k, v, u = randn(1, s, h, n), randn(1, s, h, n), randn(1, s, h, n), 0.3 * randn(h, n)
+            w = torch.exp(-torch.exp(0.5 * randn(1, s, h, n, dt=torch.float32) - 1.0))
+            y, st = wkv_ops.wkv(r, k, v, w, u, chunk=32)
+            yp, stp = wkv_ref.wkv_chunked(r.float(), k.float(), v.float(), w, u.float(), chunk=32)
+            assert y.dtype == dtype and rel(y, yp) <= (2e-5 if f32 else 2.0**-7) and rel(st, stp) <= 2e-5
+            fired = {"wkv_fwd_local": 1, "wkv_fwd": 1}
+    torch.cuda.synchronize()
+    moved = {n: k.launches - before[n] for n, k in all_k.items() if k.launches != before[n]}
+    assert moved == fired
+
+
+@pytest.mark.cuda
+def test_wkv_plans_stay_flat_over_many_prompt_lengths_on_card(cuda):
+    """Serving prefills one prompt length at a time: from no plan on the
+    device, the second pass over 40 lengths allocates nothing more, and the
+    plans number the chunk counts."""
+    for key in [k for k in wkv_ops._PLANS if k[0] == cuda.index]:
+        del wkv_ops._PLANS[key]
+    wkv_ops._WORK.pop(cuda.index, None)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    lengths = [int(s) for s in torch.randint(17, 301, (40,), generator=torch.Generator().manual_seed(1))]
+
+    def pass_():
+        with torch.no_grad():
+            for s in lengths:
+                r, k, v = (torch.randn(1, s, 64, 64, generator=gen, device=cuda).to(torch.bfloat16) for _ in range(3))
+                w = torch.full((1, s, 64, 64), 0.9, device=cuda)
+                wkv_ops.wkv(r, k, v, w, torch.zeros(64, 64, device=cuda, dtype=torch.bfloat16), chunk=32)
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    first = pass_()
+    assert pass_() == first
+    plans = [key for key in wkv_ops._PLANS if key[0] == cuda.index]
+    assert len(plans) <= len({-(-s // 32) for s in lengths})
+
+
+def test_wkv_plans_are_keyed_by_chunk_count_and_dropped_on_growth():
+    """The workspace plan (host bookkeeping, run here on CPU tensors): one plan
+    per (rows, chunk count, N, kept), shared by every S of a chunk count;
+    growing the workspace drops the device's old plans, so none keeps a
+    stale buffer alive."""
+    dev = torch.device("cpu")
+    saved = dict(wkv_ops._PLANS), dict(wkv_ops._WORK)
+    wkv_ops._PLANS.clear()
+    wkv_ops._WORK.clear()
+    try:
+        a = wkv_ops._plan(dev, 1, 40, 4, 32, 32, False)
+        assert wkv_ops._plan(dev, 1, 64, 4, 32, 32, False) is a  # 2 chunks either way
+        assert len(wkv_ops._PLANS) == 1
+        wkv_ops._plan(dev, 1, 17, 4, 32, 32, False)  # 1 chunk: fits the workspace, a plan of its own
+        assert len(wkv_ops._PLANS) == 2
+        ws = wkv_ops._WORK[None][0]
+        big = wkv_ops._plan(dev, 1, 300, 4, 32, 32, False)  # 10 chunks: the workspace grows
+        assert wkv_ops._WORK[None][0] is not ws and big[1].shape == (4, 10, 32, 32)
+        assert list(wkv_ops._PLANS) == [(None, 4, 10, 32, False)]
+        small = wkv_ops._plan(dev, 1, 40, 4, 32, 32, False)
+        assert small[0].untyped_storage().data_ptr() == wkv_ops._WORK[None][0].untyped_storage().data_ptr()
+    finally:
+        wkv_ops._PLANS.clear()
+        wkv_ops._WORK.clear()
+        wkv_ops._PLANS.update(saved[0])
+        wkv_ops._WORK.update(saved[1])

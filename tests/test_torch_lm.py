@@ -248,12 +248,14 @@ def test_lm_experiment_defaults_to_cuda():
         train_cli.main(["--arch", "qwen2-7b", "--rounds", "1"])
 
 
-def test_train_launcher_on_cpu(capsys):
-    train_cli.main(["--arch", "qwen2-7b", "--rounds", "2", "--device", "cpu", "--seq", "16", "--workers", "2"])
+def test_train_launcher_on_cpu(capsys, tmp_path):
+    ckpt = str(tmp_path / "final.npz")
+    train_cli.main(["--arch", "qwen2-7b", "--rounds", "2", "--device", "cpu", "--seq", "16", "--workers", "2",
+                    "--ckpt", ckpt])
     out = capsys.readouterr().out
-    assert "qwen2-7b-smoke" in out and "round    1  loss" in out
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        train_cli.main(["--arch", "qwen2-7b", "--device", "cpu", "--ckpt", "x.npz"])
+    assert "qwen2-7b-smoke" in out and "round    1  loss" in out and f"checkpoint -> {ckpt}" in out
+    with np.load(ckpt) as z:
+        assert "x::0" in z.files and "x::__layout__" in z.files and int(z["step"]) == 4
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "qwen2-7b", "--algo", "bogus"])
 
@@ -269,8 +271,10 @@ def test_lm_paths_outside_the_slice_raise_with_their_roadmap_item():
     with pytest.raises(ValueError, match="not both"):
         Experiment(arch="qwen2-7b", task=object(), device="cpu")
     params = T.init_model(tcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        T.apply_model(tcfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)}, mode="prefill")
+    with pytest.raises(ValueError, match="unknown mode"):
+        T.apply_model(tcfg, params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)}, mode="score")
+    with pytest.raises(ValueError, match="dense caches"):
+        T.apply_model(tcfg, params, {"tokens": torch.zeros(1, 1, dtype=torch.int32)}, mode="decode")
 
 
 def test_lm_path_imports_no_jax():

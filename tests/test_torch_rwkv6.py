@@ -322,7 +322,7 @@ def test_timemix_and_channelmix_match_jax(rng):
     jc, _ = jrwkv.rwkv6_channelmix_apply(jparams["tm"], jparams["cm"], jnp.asarray(x))
     tc, _ = rwkv.rwkv6_channelmix_apply(tparams["tm"], tparams["cm"], torch.from_numpy(x))
     assert np.abs(tc.numpy() - np.asarray(jc)).max() <= 1e-5 * np.abs(np.asarray(jc)).max()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="one token and a cache"):
         rwkv.rwkv6_timemix_apply(tparams["tm"], tcfg.ssm, torch.from_numpy(x), mode="decode")
 
 
@@ -598,19 +598,20 @@ def _port_model(jcfg) -> ModelConfig:
 
 
 def test_what_the_slice_does_not_cover_raises_with_its_roadmap_item():
-    """The engine refuses a recurrent or hybrid arch (rwkv6; zamba2, whose
-    mamba2 segments keep an O(1) state) naming item 7 (the dense decode
-    path), and a GQA group its decode kernel does not take (over 16), before
-    it allocates any pool."""
+    """The engine refuses to page a recurrent or hybrid arch (rwkv6; zamba2,
+    whose mamba2 segments keep an O(1) state), as the reference does, and
+    serves it by the dense fallback instead; it refuses a GQA group its
+    decode kernel does not take (over 16) before it allocates any pool."""
     _, tcfg = _cfgs()
     assert not paged_supported(tcfg) and paged_supported(get_arch("qwen2-7b").model.reduced())
     params = T.init_model(tcfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        BatchedEngine(tcfg, params, device="cpu")
+    with pytest.raises(ValueError, match="paged serving requires"):
+        BatchedEngine(tcfg, params, paged=True, device="cpu")
+    assert not BatchedEngine(tcfg, params, device="cpu").paged
     zamba = get_arch("zamba2-1.2b").model.reduced()
     assert not paged_supported(zamba)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        BatchedEngine(zamba, T.init_model(zamba, torch.Generator().manual_seed(0)), device="cpu")
+    with pytest.raises(ValueError, match="paged serving requires"):
+        BatchedEngine(zamba, T.init_model(zamba, torch.Generator().manual_seed(0)), paged=True, device="cpu")
     qcfg = get_arch("qwen2-7b").model.reduced()
     wide = dataclasses.replace(qcfg, attention=dataclasses.replace(qcfg.attention, num_heads=17, num_kv_heads=1))
     with pytest.raises(NotImplementedError, match="GQA group of 1..16"):

@@ -343,10 +343,11 @@ def test_experiment_defaults_to_cuda():
 
 def test_unported_paths_raise_with_their_roadmap_item():
     """What still raises, each naming its ROADMAP item: the MoE archs (8),
-    host offload (9), the per-leaf oracle (4b), the checkpointer (6b) and
-    the runtime model behind ``FaultPlan.runtime_config`` (10). The probe and
-    the membership of every boundary, ``fit(adaptive_tau=...)`` and
-    ``fit(faults=...)`` are ported and run."""
+    host offload (9), the per-leaf oracle (4b) and the runtime model behind
+    ``FaultPlan.runtime_config`` (10). The probe and the membership of every
+    boundary, ``fit(adaptive_tau=...)``, ``fit(faults=...)`` and the
+    checkpointer (``--ckpt``, tests/test_torch_checkpoint.py) are ported and
+    run."""
     from repro_torch.fault import FaultPlan, from_mask
     from repro_torch.launch import train as train_cli
 
@@ -356,8 +357,8 @@ def test_unported_paths_raise_with_their_roadmap_item():
         Experiment(arch=moe, device="cpu").build()
     with pytest.raises(NotImplementedError, match="item 9"):
         make_strategy(AlgoConfig(offload=True))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        train_cli.main(["--arch", "qwen2-7b", "--device", "cpu", "--ckpt", "x.npz"])
+    with pytest.raises(SystemExit):  # the launcher's flags: an unknown strategy
+        train_cli.main(["--arch", "qwen2-7b", "--device", "cpu", "--algo", "bogus"])
     with pytest.raises(NotImplementedError, match="item 10"):
         FaultPlan(m=2).runtime_config()
     for name in ("overlap_local_sgd", "easgd", "delayed_avg", "gossip_ring", "loscar"):
