@@ -2103,6 +2103,101 @@ def dense_twins_card_vs_cpu(dev):
     return out
 
 
+# the dense prefill's kernel calls at the serving path's own shapes: B 1, no
+# gradient, through the public functions the layers call. (kind, heads,
+# kv heads or state, head_dim, chunk or window): K6 at qwen2-7b's heads (28
+# over 4 of 128, no window) and at zamba2-1.2b's shared block (32 of 64, its
+# window 4096 wider than every prompt); K11 at zamba2's mamba2 widths (64
+# heads of 64, state 64, one group, chunk 128); K12 at rwkv6-7b's (64 heads
+# of 64, chunk 32). In bf16 (the models' type; w, dt and A f32 as the layers
+# make them) at S below one chunk, one chunk and a token, ragged multi-chunk
+# and every prompt length of the serving trace; in f32 at S 45
+PREFILL_KINDS = {"fa_qwen2": (28, 4, 128, None), "fa_zamba2": (32, 32, 64, 4096), "ssd": (64, 64, 64, 128),
+                 "wkv": (64, 64, 64, 32)}
+PREFILL_S = (17, 33, 129, 300)
+PREFILL_F32_S = (45,)
+# stated bounds, max|kernel - plain| / max|plain|: FA_BOUND's, SSD_BOUND's and
+# WKV_BOUND's for the outputs (f32 sums in other orders; a bf16 output rounded
+# once) and the f32 states
+PREFILL_BOUND = {"float32": {"fa": 1e-5, "y": 2e-5, "state": 2e-5},
+                 "bfloat16": {"fa": 2.0**-7, "y": 2.0**-7, "state": 2e-5}}
+# the kernels each public function launches under no_grad, once a call
+PREFILL_FIRES = {"fa": ("flash_attention_fwd",), "ssd": ("ssd_fwd_local", "ssd_fwd"),
+                 "wkv": ("wkv_fwd_local", "wkv_fwd")}
+
+
+def check_serving_prefill_kernels(dev, gen, kernels):
+    """K6, K11 and K12 through the public functions the dense prefill calls
+    (``flash_attention``, ``ssd_scan``, ``wkv``) under torch.no_grad at B 1
+    and the serving path's widths, against their plain versions on the same
+    inputs, at every S of ``PREFILL_S`` and the serving trace's prompt
+    lengths (bf16) and of ``PREFILL_F32_S`` (f32): each output and final
+    state within ``PREFILL_BOUND``, every value finite, and only the forward
+    kernels launched, once each a call. Returns, per kind, the worst errors
+    and the lengths checked."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops, ref as wkv_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops, ref as ssd_ref
+
+    trace_s = sorted({len(p) for _, p in make_trace(2)})
+    by_name = {k.name: k for k in kernels}
+    out = {}
+    for kind, (h, hkv, d, extra) in PREFILL_KINDS.items():
+        family = kind.split("_")[0]
+        rec = dict(kind=kind, heads=h, kv_heads_or_state=hkv, head_dim=d, chunk_or_window=extra, B=1,
+                   rel_err={}, max_abs_err={}, checked={})
+        for dtype, lengths in ((torch.bfloat16, sorted(set(PREFILL_S) | set(trace_s))), (torch.float32, PREFILL_F32_S)):
+            bnd, dn = PREFILL_BOUND[_name(dtype)], _name(dtype)
+            worst_rel, worst_abs = {}, {}
+
+            def randn(*shape, dt=dtype):
+                return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+            for s in lengths:
+                before = {n: by_name[n].launches for n in by_name}
+                with torch.no_grad():
+                    if family == "fa":
+                        q, k, v = randn(1, s, h, d) / d**0.5, randn(1, s, hkv, d), randn(1, s, hkv, d)
+                        got = {"out": fa_ops.flash_attention(q, k, v, True, extra, 0)}
+                        want = {"out": fa_ref.flash_attention_fwd(q, k, v, causal=True, window=extra, q_offset=0)[0]}
+                        bounds = {"out": bnd["fa"]}
+                    elif family == "ssd":
+                        x, B, C = randn(1, s, h, d), randn(1, s, 1, hkv), randn(1, s, 1, hkv)
+                        dt = F.softplus(randn(1, s, h, dt=torch.float32))
+                        A = -torch.exp(0.5 * randn(h, dt=torch.float32))
+                        D = randn(h)
+                        y, st = ssd_ops.ssd_scan(x, dt, A, B, C, D, chunk=extra)
+                        yp, stp = ssd_ref.ssd_chunked(x.float(), dt, A, B.float(), C.float(), D.float(), chunk=extra)
+                        got, want, bounds = dict(y=y, state=st), dict(y=yp, state=stp), dict(y=bnd["y"], state=bnd["state"])
+                    else:
+                        r, k, v, u = randn(1, s, h, d), randn(1, s, h, d), randn(1, s, h, d), 0.3 * randn(h, d)
+                        w = torch.exp(-torch.exp(0.5 * randn(1, s, h, d, dt=torch.float32) - 1.0))
+                        y, st = wkv_ops.wkv(r, k, v, w, u, chunk=extra)
+                        yp, stp = wkv_ref.wkv_chunked(r.float(), k.float(), v.float(), w, u.float(), chunk=extra)
+                        got, want, bounds = dict(y=y, state=st), dict(y=yp, state=stp), dict(y=bnd["y"], state=bnd["state"])
+                torch.cuda.synchronize()
+                fired = {n: by_name[n].launches - before[n] for n in by_name if by_name[n].launches != before[n]}
+                errs = {key: _rel(got[key], want[key]) for key in got}
+                for key in got:
+                    worst_rel[key] = max(worst_rel.get(key, 0.0), errs[key])
+                    worst_abs[key] = max(worst_abs.get(key, 0.0), float((got[key].float() - want[key].float()).abs().max()))
+                ok = (all(errs[key] <= bounds[key] for key in got) and all(bool(torch.isfinite(t).all()) for t in got.values())
+                      and got[next(iter(got))].dtype == dtype and fired == {n: 1 for n in PREFILL_FIRES[family]})
+                if not ok:
+                    raise AssertionError(f"serving prefill {kind} {dn} S={s}: rel {errs} (bounds {bounds}), "
+                                         f"launches {fired}, dtype {got[next(iter(got))].dtype}")
+            rec["rel_err"][dn], rec["max_abs_err"][dn], rec["checked"][dn] = worst_rel, worst_abs, list(lengths)
+            rec.setdefault("bound", {})[dn] = {key: f"max|d|/max|plain| <= {b}" for key, b in bounds.items()}
+        rec["ok"] = True
+        log(json.dumps(dict(check="serving prefill kernels, no_grad, B 1", **rec)))
+        out[kind] = rec
+        _free()
+    return out
+
+
 class _StepTimer:
     """Times serving's prefill and decode_step calls (synchronised; the
     engine's ``generate`` looks both up in its module at each call) and
@@ -3550,6 +3645,7 @@ def main() -> int:
     summary["card"] = card
     log(json.dumps(summary))
     mark("phase 3 (a, b: paged serving)")
+    prefill_chk = check_serving_prefill_kernels(dev, gen, kernels)
     dense_twins_card_vs_cpu(dev)
     dense = {}
     for arch in ("rwkv6-7b", "zamba2-1.2b"):
@@ -3755,6 +3851,14 @@ def main() -> int:
         dense_name = "wkv_fwd" if name == "wkv_fwd_call" else name
         if dense_name in ("rmsnorm", "flash_attention_fwd", "wkv_fwd_local", "wkv_fwd", "ssd_fwd_local", "ssd_fwd"):
             entry["launches_dense_serving"] = {a: d["launches"].get(dense_name, 0) for a, d in dense.items()}
+        # the dense prefill's calls at B 1 (phase 3(c)), folded into the row's worst error
+        fam = {"flash_attention_fwd": ("fa_qwen2", "fa_zamba2"), "wkv_fwd_local": ("wkv",), "wkv_fwd": ("wkv",),
+               "wkv_fwd_call": ("wkv",), "ssd_fwd_local": ("ssd",), "ssd_fwd": ("ssd",)}.get(name, ())
+        if fam:
+            entry["serving_prefill"] = {kd: {k2: prefill_chk[kd][k2] for k2 in ("rel_err", "max_abs_err", "checked", "bound")}
+                                        for kd in fam}
+            entry["max_abs_err"] = max([entry["max_abs_err"]] + [v for kd in fam for per in prefill_chk[kd]["max_abs_err"].values()
+                                                                 for v in per.values()])
         if name.startswith("wkv_"):
             entry["bound_term"], entry["library"] = t["bound_term"], t["library"]
             entry["share_of_bound"], entry["device_kernel_us"] = t["share_of_bound"], t["device_kernel_us"]

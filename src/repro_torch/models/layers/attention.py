@@ -24,8 +24,8 @@ The dense cache is ``k``/``v`` (B, L, Hkv, D), ``positions`` (L,) int32 (the
 absolute position each slot holds, -1 when empty) and ``pos`` (0-dim
 int32, the next position); a segment's caches carry a leading layer axis.
 Unlike the reference, dense decode writes the cache **in place** (the
-slot's K/V and position; the new ``pos`` is returned and written back by
-``apply_model``), so a step costs no copy of the cache. MLA comes in a
+slot's K/V and position, and ``pos`` advanced by one) and returns it, so a
+step costs no copy of the cache. MLA comes in a
 later slice (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
@@ -119,9 +119,10 @@ def gqa_apply(
     elif mode == "decode":
         if cache is None or "k" not in cache:
             raise ValueError("gqa_apply(mode='decode') needs a dense cache (k, v, positions, pos) or paged=")
-        k_all, v_all, positions, pos = _cache_append(cache, k, v)
-        out = _decode_attend(q, k_all, v_all, positions=positions, pos=pos, window=window)
-        new_cache = dict(cache, k=k_all, v=v_all, positions=positions, pos=pos + 1)
+        _cache_append(cache, k, v)
+        out = _decode_attend(q, cache["k"], cache["v"], positions=cache["positions"], pos=cache["pos"], window=window)
+        cache["pos"].add_(1)
+        new_cache = cache
     else:
         raise ValueError(f"gqa_apply: unknown mode {mode!r}")
 
@@ -176,14 +177,12 @@ def make_decode_cache(batch: int, max_len: int, cfg: AttentionConfig, dtype, dev
 
 
 def _cache_append(cache: dict, k_new, v_new):
-    """Write the new token's K/V and position at its ring slot, in place;
-    returns the cache's buffers and the token's position."""
+    """Write the new token's K/V and position at its ring slot, in place."""
     pos = cache["pos"]
     slot = torch.remainder(pos, cache["k"].shape[1]).reshape(1).long()
-    k_all = cache["k"].index_copy_(1, slot, k_new[:, :1].to(cache["k"].dtype))
-    v_all = cache["v"].index_copy_(1, slot, v_new[:, :1].to(cache["v"].dtype))
-    positions = cache["positions"].index_copy_(0, slot, pos.reshape(1).to(cache["positions"].dtype))
-    return k_all, v_all, positions, pos
+    cache["k"].index_copy_(1, slot, k_new[:, :1].to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new[:, :1].to(cache["v"].dtype))
+    cache["positions"].index_copy_(0, slot, pos.reshape(1).to(cache["positions"].dtype))
 
 
 def _decode_attend(q, k, v, *, positions, pos, window: Optional[int]):

@@ -18,7 +18,7 @@ f32 and ``conv_state``, the last ``conv_width - 1`` rows of the conv
 stream before the conv, zero-padded on the left when the prompt is
 shorter); and ``"decode"`` (one token: the conv over the window
 ``conv_state`` + the token, and the plain ``ssd_decode_step``, on either
-device). :func:`make_mamba_cache` makes an empty cache. The reference's
+device; the cache is written in place and returned). :func:`make_mamba_cache` makes an empty cache. The reference's
 ``constrain`` sharding hints are no-ops on one card and are dropped.
 """
 from __future__ import annotations
@@ -131,7 +131,9 @@ def mamba2_apply(
                                         B[:, 0].reshape(b_, groups, n), C[:, 0].reshape(b_, groups, n),
                                         params["d_skip"])
         y = y.reshape(b_, 1, d_inner)
-        new_cache = dict(ssd_state=st, conv_state=window[:, 1:])
+        cache["ssd_state"].copy_(st)
+        cache["conv_state"].copy_(window[:, 1:])
+        new_cache = cache
     y = rmsnorm(params["norm"], y * F.silu(z), eps)
     return y @ params["out_proj"], new_cache
 

@@ -21,7 +21,8 @@ Modes as the reference's: ``"train"``; ``"prefill"`` (K12's forward, with
 no gradient its no-grad route, returning the cache ``wkv_state`` (B,H,N,N)
 f32 and ``tm_last``, the last input row; the block adds ``cm_last``); and
 ``"decode"`` (one token: the shift from ``tm_last``/``cm_last`` and the
-plain ``wkv_decode_step``, on either device). :func:`make_rwkv_cache` makes
+plain ``wkv_decode_step``, on either device; the cache is written in place
+and returned). :func:`make_rwkv_cache` makes
 an empty cache. The reference's ``constrain`` sharding hints are no-ops on
 one card and are dropped.
 """
@@ -121,7 +122,9 @@ def rwkv6_timemix_apply(
     else:
         y, st = wkv_ops.wkv_decode_step(cache["wkv_state"], r[:, 0], k[:, 0], v[:, 0], w[:, 0], params["u_bonus"])
         y = y[:, None]
-        new_cache = dict(wkv_state=st, tm_last=x[:, 0])
+        cache["wkv_state"].copy_(st)
+        cache["tm_last"].copy_(x[:, 0])
+        new_cache = cache
     y = rmsnorm(params["gnorm"], y, eps).reshape(b_, s, h * n) * g
     return y @ params["wo"], new_cache
 
@@ -140,8 +143,9 @@ def rwkv6_channelmix_apply(
     xr = x + dx * params_tm["cmix_mu_r"]
     kk = torch.square(torch.relu(xk @ params_ffn["wk"]))
     out = torch.sigmoid(xr @ params_ffn["wr"]) * (kk @ params_ffn["wv"])
-    new_cache = dict(cm_last=x[:, -1]) if cache is not None else None
-    return out, new_cache
+    if cache is not None:
+        cache["cm_last"].copy_(x[:, -1])
+    return out, cache
 
 
 def make_rwkv_cache(batch: int, d_model: int, cfg: SSMConfig, dtype, device="cpu") -> dict:

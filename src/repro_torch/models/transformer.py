@@ -156,13 +156,8 @@ def _apply_block(cfg: ModelConfig, kind: str, prm, x, cos, sin, *, mode, cache, 
         x = x + y
         h2 = rmsnorm(prm["ln2"], x, eps)
         y2, cm_cache = rwkv_mod.rwkv6_channelmix_apply(prm["tm"], prm["cm"], h2, cache=cache)
-        new_cache = None
-        if tm_cache is not None:
-            new_cache = dict(tm_cache)
-            if cm_cache is not None:
-                new_cache.update(cm_cache)
-            else:  # prefill: the channel-mix ran without a cache
-                new_cache["cm_last"] = h2[:, -1]
+        # prefill: the channel-mix ran without a cache; decode: both wrote the one cache in place
+        new_cache = dict(tm_cache, cm_last=h2[:, -1]) if mode == "prefill" else cm_cache
         return x + y2, new_cache
     if kind == "mamba2":
         h = rmsnorm(prm["ln1"], x, eps)
@@ -199,13 +194,6 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dty
     if kind == "rwkv6":
         return rwkv_mod.make_rwkv_cache(batch, cfg.d_model, cfg.ssm, dtype, device=device)
     raise ValueError(kind)
-
-
-def _write_back(cache: dict, new: dict) -> None:
-    """Dense decode: a layer's new state into its (view of the) cache."""
-    for key, t in new.items():
-        if t is not cache[key]:
-            cache[key].copy_(t)
 
 
 def _embed(cfg: ModelConfig, params, inputs) -> torch.Tensor:
@@ -268,8 +256,6 @@ def apply_model(
                                  eps=eps, paged=paged)
             if mode == "prefill":
                 new_caches[key] = nc
-            elif dense_decode:
-                _write_back(seg_cache, nc)
             continue
         seg_params = params[key]
         layer_caches = []
@@ -279,8 +265,6 @@ def apply_model(
                                  paged=paged)
             if mode == "prefill":
                 layer_caches.append(nc)
-            elif dense_decode:
-                _write_back(cache, nc)
         if mode == "prefill":  # stacked over the segment's layers, as the reference's scan stacks them
             new_caches[key] = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
     hidden = rmsnorm(params["final_norm"], x, eps)

@@ -185,16 +185,14 @@ def unpack(packed: Packed) -> dict:
     return tree_unflatten(packed.layout.paths, leaf_views(packed))
 
 
-class ParamView(dict):
+def param_view(packed: Packed) -> dict:
     """The model's parameter tree over a plane with no lead axis (the
     reference's ``ParamView``): nested dicts whose leaves are views of the
     plane's buffers (:func:`unpack`), so a model reads its weights straight
     from the plane, with no copy."""
-
-    def __init__(self, packed: Packed):
-        if packed.lead_shape != ():
-            raise ValueError(f"ParamView takes a plane with no lead axis, got lead {packed.lead_shape}")
-        super().__init__(unpack(packed))
+    if packed.lead_shape != ():
+        raise ValueError(f"param_view takes a plane with no lead axis, got lead {packed.lead_shape}")
+    return unpack(packed)
 
 
 def packed_like(packed: Packed, fill: float = 0.0, dtype: Optional[torch.dtype] = None) -> Packed:

@@ -20,7 +20,7 @@ buffers: ``paged_step`` returns the same pool tensors it was given.
 :class:`BatchedEngine` pages the attention-family archs and serves
 recurrent and hybrid ones (rwkv6, zamba2) by the dense fallback, one
 request at a time through ``generate``. It serves a parameter tree or a
-packed plane in place (:class:`~repro_torch.parallel.packing.ParamView`:
+packed plane in place (:func:`~repro_torch.parallel.packing.param_view`:
 the leaves are views of the plane); ``swap_plane`` hot-swaps the plane at
 the next step boundary and ``swap_params`` restores a checkpoint through
 :func:`hot_swap`, which retries transient read failures.
@@ -41,7 +41,7 @@ import torch
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models import transformer as T
-from repro_torch.parallel.packing import Packed, ParamView, tree_flatten
+from repro_torch.parallel.packing import Packed, param_view, tree_flatten
 from repro_torch.serving.paged_cache import PagedState, init_paged_pools, pages_for, paged_supported, require_paged
 from repro_torch.serving.scheduler import Request, Scheduler
 
@@ -67,12 +67,12 @@ def paged_step(
     (in place) and attend. tokens (S, T) — T == 1 is joint decode across
     slots, T > 1 a prefill chunk. ``lengths`` is each slot's resident token
     count, i.e. the position of tokens[:, 0]; idle rows carry a zero (trash)
-    page-table row and length 0. ``params``: a tree or a plane."""
+    page-table row and length 0."""
     t = tokens.shape[1]
     positions = lengths[:, None] + torch.arange(t, dtype=torch.int32, device=lengths.device)[None, :]
     inputs = dict(tokens=tokens, positions=positions)
     logits, aux = T.apply_model(
-        cfg, _served(params), inputs, mode="decode", caches=caches, paged=PagedState(page_tables, lengths)
+        cfg, params, inputs, mode="decode", caches=caches, paged=PagedState(page_tables, lengths)
     )
     return logits, aux["caches"]
 
@@ -80,7 +80,7 @@ def paged_step(
 def prefill(cfg: ModelConfig, params, inputs) -> Tuple[torch.Tensor, dict]:
     """The prompt's forward with no gradient: (logits (B, S, V), the dense caches)."""
     with torch.no_grad():
-        logits, aux = T.apply_model(cfg, _served(params), inputs, mode="prefill")
+        logits, aux = T.apply_model(cfg, params, inputs, mode="prefill")
     return logits, aux["caches"]
 
 
@@ -88,14 +88,9 @@ def decode_step(cfg: ModelConfig, params, tokens, caches, pos) -> Tuple[torch.Te
     """tokens (B, 1) at absolute position ``pos`` (an int or a 0-dim tensor)
     against the dense caches, which are written in place and returned."""
     with torch.no_grad():
-        logits, aux = T.apply_model(cfg, _served(params), dict(tokens=tokens), mode="decode", caches=caches,
+        logits, aux = T.apply_model(cfg, params, dict(tokens=tokens), mode="decode", caches=caches,
                                     decode_pos=pos)
     return logits, aux["caches"]
-
-
-def _served(params):
-    """A plane is served through its views; a tree as it is."""
-    return ParamView(params) if isinstance(params, Packed) else params
 
 
 def _grow_all(caches: dict, cfg: ModelConfig, target_len: int) -> dict:
@@ -141,7 +136,8 @@ def generate(cfg: ModelConfig, params, prompt, max_new: int, temperature: float 
     if not isinstance(prompt, torch.Tensor):
         prompt = torch.from_numpy(np.ascontiguousarray(prompt, np.int32))
     prompt = prompt.to(device=device, dtype=torch.int32)
-    params = _served(params)
+    if isinstance(params, Packed):  # served through its views, built once
+        params = param_view(params)
     logits, caches = prefill(cfg, params, dict(tokens=prompt))
     s0 = prompt.shape[1]
     caches = _grow_all(caches, cfg, s0 + max_new)
@@ -220,9 +216,7 @@ class BatchedEngine:
         self._plane: Optional[Packed] = None
         self._pending_plane: Optional[Packed] = None
         if isinstance(params, Packed):
-            if params.lead_shape != ():
-                raise ValueError(f"serving plane must have no lead axis, got {params.lead_shape}")
-            self._plane, self.params = params, ParamView(params)
+            self._plane, self.params = params, param_view(params)
         else:
             self.params = params
         leaf = self.params["tok_emb"]
@@ -328,7 +322,7 @@ class BatchedEngine:
         if not self.paged:
             raise RuntimeError("step() drives the paged engine; the dense fallback runs via run()")
         if self._pending_plane is not None:  # between steps, never mid-step
-            self._plane, self.params = self._pending_plane, ParamView(self._pending_plane)
+            self._plane, self.params = self._pending_plane, param_view(self._pending_plane)
             self._pending_plane = None
         sched = self.sched
         finished = []

@@ -395,21 +395,24 @@ def test_hot_swap_reads_a_truncated_file_as_transient(tmp_path):
 
 def test_experiment_serve_serves_the_consensus_plane_in_place(rng):
     """``Experiment.serve`` after a fit: a plane-resident engine whose served
-    leaves are views of the consensus plane (no unpack), with the tokens of
-    an engine on an unpacked copy; then ``swap_plane(exp.anchor_plane())``
-    between two steps, every request still getting exactly max_new tokens."""
+    leaves are views of the consensus plane (no unpack), and which, left
+    alone, gives the tokens of an engine on an unpacked copy; then
+    ``swap_plane(exp.anchor_plane())`` between two steps of another, every
+    request still getting exactly max_new tokens."""
     from repro_torch.api import Experiment
 
     exp = Experiment(arch="qwen2-7b", workers=2, rounds=1, device="cpu")
     exp.fit()
     eng = exp.serve(slots=2, max_len=32, page_size=8)
-    assert eng.plane is not None and eng.plane.lead_shape == ()
-    _assert_views_of(eng.params, eng.plane)
-    copy = BatchedEngine(exp.model_cfg, {k: v for k, v in packing.unpack(packing.Packed(
-        tuple(b.clone() for b in eng.plane.buffers), eng.plane.layout)).items()}, slots=2, max_len=32, page_size=8,
+    still = exp.serve(slots=2, max_len=32, page_size=8)  # the same consensus plane, never swapped
+    for e in (eng, still):
+        assert e.plane is not None and e.plane.lead_shape == ()
+        _assert_views_of(e.params, e.plane)
+    copy = BatchedEngine(exp.model_cfg, packing.unpack(packing.Packed(
+        tuple(b.clone() for b in eng.plane.buffers), eng.plane.layout)), slots=2, max_len=32, page_size=8,
         device="cpu")
     trace = _trace(rng, 3, exp.model_cfg.vocab_size, lp=(4, 10), mn=(5, 8))
-    for e in (eng, copy):
+    for e in (eng, still, copy):
         for rid, prompt, mn in trace:
             e.submit(rid, prompt, mn)
     for _ in range(3):
@@ -420,14 +423,15 @@ def test_experiment_serve_serves_the_consensus_plane_in_place(rng):
     res = eng.run()
     assert eng.plane is anchor
     _assert_views_of(eng.params, anchor)
-    want = copy.run()
+    want, got = copy.run(), still.run()
+    assert {r: t.tolist() for r, t in got.items()} == {r: t.tolist() for r, t in want.items()}
     for rid, _, mn in trace:
         assert len(res[rid]) == mn
+    assert sorted(want) == sorted(res)
     with pytest.raises(ValueError, match="LM experiment"):
         from repro_torch.api import ClassificationSpec
 
         Experiment(task=ClassificationSpec(n=200, holdout=50), device="cpu").serve()
-    assert sorted(want) == sorted(res)
 
 
 def test_serve_launcher_serves_recurrent_archs_densely(capsys):
