@@ -14,7 +14,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    slice's shapes, in bf16 and f32: K10 bitwise for one pool and for both
    pools in one launch (the serving path's call) at T 1, T 32 and T 700
    (S*T over several CTAs and tiles of targets), timed beside one
-   ``index_put_`` a pool and two for both; K7 forward and backward at every
+   ``index_put_`` a pool and two for both, also at 8 KV heads of 128 and
+   of 80 (the other GQA archs' caches); K7 forward and backward at every
    branch of its launch planner (d 64, 80, 2048, 3584, 4096, 4097 at ragged
    rows), the same bits on a second launch; each K7 and K10 timed row also
    gives the wrapper's host µs a call (``time.perf_counter_ns``) and the
@@ -57,7 +58,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    LM slice's and S 4096's partials, bit for bit its plain version; K9
    also at mistral-large's GQA group of 12 and at h2o-danube-1.8b's
    head_dim 80 (32 heads over 8 KV heads), in bf16 and f32, timed beside
-   SDPA on the gathered cache;
+   SDPA on the gathered cache; K6 also at the heads of mistral-large-123b
+   (96 over 8 KV heads of 128: a group of 12), command-r-35b (64 over 8)
+   and arctic-480b (56 over 8), each timed; K7 also at the d_model of
+   mistral-large (12288), arctic (7168), command-r (8192) and h2o-danube
+   (2560), each at 1024 training rows and 4 decode rows; K9 also at the
+   groups 12, 8 and 7 over 8 KV heads
+   (mistral-large, command-r-35b, arctic) and at head_dim 80 with the
+   4096-token window active over a 4224-position table, each timed; K1 and
+   K3 once a bucket on a two-bucket plane (bf16 and an f32 router), each
+   bitwise its plain version;
    (d) K12, the RWKV-6 chunked WKV, forward and backward (four kernels:
    each direction's chunk-local states and their scan, then y or the
    gradients), against the plain ``wkv_chunked`` and torch autograd through
@@ -167,7 +177,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    backward steps x workers x 5 (group 1: no split sum), K7 forward and
    backward steps x workers x 77, bitwise replay, rounds/s, step ms, peak memory and K11's and K6's
    shares of a profiled round.
-6. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+6. The other GQA text archs and the MoE FFN, full width, bf16, weights
+   drawn on the card from a seed: (a) the reduced f32 twins of
+   h2o-danube-1.8b, mistral-large-123b, command-r-35b, arctic-480b and a
+   QK-norm h2o-danube, trained on the card and the CPU (losses rtol 1e-4);
+   the same four archs join (c)'s dense twins; (b) paged serving through
+   ``BatchedEngine`` (4 of the serving trace's requests, 16 new tokens
+   each): h2o-danube at its full 24 layers with a 4,200-token request
+   whose decode runs past its 4096 window, mistral-large at 12 of 88
+   layers, command-r at 20 of 40, arctic at 1 of 35 with all 128 experts;
+   exact max_new, finite logits, K7/K9/K10 counts exactly as the forwards
+   imply, the peak at init and while serving; h2o-danube at 2 layers in
+   f32 over the long request, paged tokens == dense ``generate``'s; (c)
+   training with the CLI's defaults (Overlap-Local-SGD, batch 2 x seq 512,
+   2 rounds): h2o-danube at 24 layers (m = 4), mistral-large and command-r
+   at 1 layer (m = 2), arctic at 1 layer with 8 of its 128 experts (m = 4,
+   a bf16 + f32 plane): a non-zero gradient in every leaf, finite losses,
+   exact launch counts (K1 and K3 once a bucket), the peaks.
+7. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
@@ -180,6 +207,7 @@ run outside a checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -193,6 +221,7 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 SLOTS, MAX_LEN, PAGE, CHUNK = 4, 512, 16, 32
 N_REQUESTS, MAX_NEW, SEED = 8, 32, 0
+LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4200, 24, 4224  # h2o-danube's long request: decode past its 4096 window
 
 
 def log(msg: str) -> None:
@@ -360,20 +389,24 @@ def check_paged_append(dev, gen):
     """K10 against its plain version, bitwise: one pool (``paged_append_``)
     and both pools in one launch (``paged_append_kv_``, the serving path's
     call), at T 1 and T 32 and at an S*T that spans several CTAs and several
-    tiles of targets; timed in bf16 beside ``index_put_`` (one call a pool),
-    with the wrapper's host and device time a call."""
+    tiles of targets; at the serving slice's 4 KV heads of 128 and at the
+    other GQA archs' 8 KV heads of 128 (mistral-large, command-r, arctic)
+    and of 80 (h2o-danube); timed at the first (bf16) beside ``index_put_``
+    (one call a pool), with the wrapper's host and device time a call.
+    Returns (the worst error, the timed records, the worst error at each
+    other head shape)."""
     import torch
 
     from repro_torch.kernels.paged_attn import ops, ref
 
-    kv, d, maxp = 4, 128, MAX_LEN // PAGE
+    maxp = MAX_LEN // PAGE
     num_pages = SLOTS * maxp + 1
-    worst, timing = 0.0, {}
+    worst, timing, by_heads = 0.0, {}, {}
     # ragged lengths, page-boundary crossings, the last position maxp*page-1,
     # positions clamped past the table end (T=32 from 500; T=700 from 0 runs
     # 188 tokens past it), idle slot 0
     cases = {1: [0, 17, 300, maxp * PAGE - 1], 32: [0, 17, 290, 500], 700: [0, 0, 17, 300]}
-    for dtype in (torch.bfloat16, torch.float32):
+    for (kv, d), dtype in itertools.product(((4, 128), (8, 128), (8, 80)), (torch.bfloat16, torch.float32)):
         for t, lens_list in cases.items():
             pt, lens = _tables(gen, dev, SLOTS, maxp, lens_list)
             pool0 = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
@@ -387,11 +420,14 @@ def check_paged_append(dev, gen):
             err = max(float((a.float() - b.float()).abs().max()) for a, b in
                       ((got, want), (got_kv[0], want), (got_kv[1], want_v)))
             ok = err == 0.0 and not torch.equal(got, pool0)
-            rec = dict(kernel="K10 paged_append", dtype=str(dtype).split(".")[-1], slots=SLOTS, T=t,
+            rec = dict(kernel="K10 paged_append", dtype=str(dtype).split(".")[-1], slots=SLOTS, T=t, kv=kv, d=d,
                        lengths=lens_list, max_abs_err=err, bound="bitwise (same last-writer rule), one pool and both",
                        ok=ok)
-            if dtype == torch.bfloat16 and t in (1, 32):
-                worst = max(worst, err)
+            worst = max(worst, err)
+            if (kv, d) != (4, 128):
+                key = f"kv{kv}_d{d}"
+                by_heads[key] = max(by_heads.get(key, 0.0), err)
+            elif dtype == torch.bfloat16 and t in (1, 32):
                 pool, poolv = pool0.clone(), poolv0.clone()
                 idx, rows = _last_writer_rows(new, pt, lens, t)
                 _, rows_v = _last_writer_rows(newv, pt, lens, t)
@@ -415,7 +451,7 @@ def check_paged_append(dev, gen):
             log(json.dumps(rec))
             if not ok:
                 raise AssertionError(f"K10 paged_append kernel disagrees with plain: {rec}")
-    return worst, timing
+    return worst, timing, by_heads
 
 
 def paged_append_host_split(dev, gen):
@@ -522,79 +558,115 @@ def rmsnorm_host_split(dev, gen):
     return split
 
 
+# K9's cases: (name, KV heads, group, head_dim, lengths, pages a table,
+# windows, timed). The serving slice's group (qwen2-7b: 4 KV heads, G 7,
+# D 128); mistral-large-123b's (8 KV heads, G 12), command-r-35b's (8, G 8)
+# and arctic-480b's (8, G 7); h2o-danube-1.8b's head_dim 80 (32 heads over
+# 8 KV heads: G 4) on the serving table and on a table of LONG_MAX_LEN
+# positions with its 4096-token window active (lengths past it); the
+# largest group one m16 tile holds (G 16: checked, not timed). Timed (bf16)
+# at the first of its windows.
+SERVE_LENS = [0, 17, 300, MAX_LEN - 1]
+K9_CASES = [
+    ("slice", 4, 7, 128, SERVE_LENS, MAX_LEN // PAGE, (None, 64), True),
+    ("group_12", 8, 12, 128, SERVE_LENS, MAX_LEN // PAGE, (None, 64), True),
+    ("group_8", 8, 8, 128, SERVE_LENS, MAX_LEN // PAGE, (None,), True),
+    ("group_7", 8, 7, 128, SERVE_LENS, MAX_LEN // PAGE, (None,), True),
+    ("head_dim_80", 8, 4, 80, SERVE_LENS, MAX_LEN // PAGE, (None, 64), True),
+    ("d80_window", 8, 4, 80, [4095, 4096, 4200, LONG_MAX_LEN - 1], LONG_MAX_LEN // PAGE, (4096, None), True),
+    ("group_16", 2, 16, 128, SERVE_LENS, MAX_LEN // PAGE, (None, 64), False),
+]
+
+
 def check_paged_attend(dev, gen):
+    """K9 against its plain version at each of ``K9_CASES``, bf16 and f32,
+    each window; the same bits on a second launch. Timed cases (bf16)
+    beside the plain version and SDPA over the already gathered cache under
+    the same mask, with the host and device time a call, the split grid and
+    the bound. Returns (the slice's worst bf16 error, each timed case's bf16
+    record with its f32 error)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attn import ops, ref
 
-    maxp = MAX_LEN // PAGE
-    num_pages = SLOTS * maxp + 1
-    lens_list = [0, 17, 300, maxp * PAGE - 1]
-    worst, timing, coverage, d80 = 0.0, None, None, None
-    # the serving slice's group (qwen2-7b: 4 KV heads, G 7, D 128), mistral-large's
-    # (8 KV heads, G 12), h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV
-    # heads: G 4) and the largest group one m16 tile holds (G 16: checked,
-    # not timed)
-    for kv, g, d in ((4, 7, 128), (8, 12, 128), (8, 4, 80), (2, 16, 128)):
+    worst, recs = 0.0, {}
+    for name, kv, g, d, lens_list, maxp, windows, is_timed in K9_CASES:
+        num_pages = SLOTS * maxp + 1
         for dtype in (torch.bfloat16, torch.float32):
-            for window in (None, 64):
+            for window in windows:
                 pt, lens = _tables(gen, dev, SLOTS, maxp, lens_list)
                 pool_k = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
                 pool_v = torch.randn(num_pages, PAGE, kv, d, generator=gen, device=dev).to(dtype)
                 q = (torch.randn(SLOTS, kv, g, d, generator=gen, device=dev) / d**0.5).to(dtype)
-                got = ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=window)
-                want = ref.paged_attend_gqa(
-                    q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens, window=window
-                ).reshape(SLOTS, kv, g, d)
+
+                def kernel():
+                    return ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=window)
+
+                def plain():
+                    return ref.paged_attend_gqa(q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens,
+                                                window=window)
+
+                got, want = kernel(), plain().reshape(SLOTS, kv, g, d)
                 err = (got.float() - want).abs()
                 if dtype == torch.bfloat16:
                     lim, stated = 2.0**-8 * want.abs() + 1e-5, "2^-8*|plain| + 1e-5 (one bf16 rounding)"
                 else:
                     lim, stated = torch.full_like(want, 1e-5), "1e-5 absolute"
-                ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all())
-                rec = dict(kernel="K9 paged_attend", dtype=str(dtype).split(".")[-1], slots=SLOTS, kv=kv, g=g, d=d,
-                           window=window, lengths=lens_list, max_abs_err=float(err.max()),
-                           max_rel_err=float((err / want.abs().clamp_min(1e-30)).max()), bound=stated, ok=ok)
-                if dtype == torch.bfloat16 and g == 7:
+                ok = bool((err <= lim).all()) and bool(torch.isfinite(got).all()) and torch.equal(kernel(), got)
+                rec = dict(kernel="K9 paged_attend", case=name, dtype=_name(dtype), slots=SLOTS, kv=kv, g=g, d=d,
+                           maxp=maxp, window=window, lengths=lens_list, max_abs_err=float(err.max()),
+                           max_rel_err=float((err / want.abs().clamp_min(1e-30)).max()), bound=stated,
+                           same_bits=True, ok=ok)
+                if dtype == torch.bfloat16 and name == "slice":
                     worst = max(worst, float(err.max()))
-                if dtype == torch.bfloat16 and window is None and g != 16:
-                    def kernel():
-                        return ops.paged_attend_decode(q, pool_k, pool_v, pt, lens, window=None)
-
-                    # yardstick: SDPA over the already gathered cache, q as (S, KV, G, D)
-                    kg = ref.paged_gather(pool_k, pt).permute(0, 2, 1, 3).contiguous()
-                    vg = ref.paged_gather(pool_v, pt).permute(0, 2, 1, 3).contiguous()
-                    mask = (torch.arange(maxp * PAGE, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
-
-                    def sdpa():
-                        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask, scale=1.0)
-
-                    rec["ms"], rec["library_ms"] = median_ms(kernel), median_ms(sdpa)
-                    rec["plain_ms"] = time_ms(lambda: ref.paged_attend_gqa(
-                        q.reshape(SLOTS, 1, kv * g, d), pool_k, pool_v, pt, lens, window=None))
-                    rec["host_us"] = host_us(kernel)
-                    rec.update(device_us(kernel))
-                    lib = device_us(sdpa)
-                    rec["library_device_us"], rec["library_device_kernels"] = lib["device_us"], lib["device_kernels"]
-                    splits, span = ops.decode_splits(SLOTS, kv, maxp, PAGE)
-                    rec.update(splits=splits, span=span, grid=[SLOTS, kv, splits])
-                    visible = sum(min(n, maxp * PAGE - 1) + 1 for n in lens_list)
-                    pages = sum(min(n, maxp * PAGE - 1) // PAGE + 1 for n in lens_list)
-                    nbytes = 2 * q.numel() * 2 + 2 * visible * kv * d * 2 + 4 * pages + 4 * SLOTS
-                    rec["bound_ms"], rec["bound_by"] = bound(nbytes, 4.0 * visible * kv * g * d)
-                    if d == 80:
-                        d80 = rec
-                    elif g == 7:
-                        timing = rec
+                if is_timed and window == windows[0]:
+                    if dtype == torch.bfloat16:
+                        rec.update(_time_paged_attend(dev, kernel, plain, q, pool_k, pool_v, pt, lens, window))
+                        recs[name] = rec
                     else:
-                        coverage = rec
-                if d == 80 and dtype == torch.float32 and window is None:
-                    d80["f32_max_abs_err"] = rec["max_abs_err"]
+                        recs[name]["f32_max_abs_err"] = rec["max_abs_err"]
                 log(json.dumps(rec))
                 if not ok:
                     raise AssertionError(f"K9 paged_attend kernel disagrees with plain: {rec}")
-    return worst, timing, coverage, d80
+        _free()
+    return worst, recs
+
+
+def _time_paged_attend(dev, kernel, plain, q, pool_k, pool_v, pt, lens, window):
+    """A K9 call's times beside the plain version and SDPA (q as (S, KV, G,
+    D) over the gathered cache, the same mask), its split grid, and the
+    bound: q read and the output written once, each visible position's K
+    and V rows and each visible page's table entry read once."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attn import ops, ref
+
+    slots, kv, g, d = q.shape
+    maxp = pt.shape[1]
+    pos = torch.arange(maxp * PAGE, device=dev)[None, :]
+    vis = pos <= lens[:, None]
+    if window:
+        vis &= pos > (lens[:, None] - window)
+    kg = ref.paged_gather(pool_k, pt).permute(0, 2, 1, 3).contiguous()
+    vg = ref.paged_gather(pool_v, pt).permute(0, 2, 1, 3).contiguous()
+    mask = vis[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask, scale=1.0)
+
+    t = dict(ms=median_ms(kernel), library_ms=median_ms(sdpa), plain_ms=time_ms(plain), host_us=host_us(kernel))
+    t.update(device_us(kernel))
+    lib = device_us(sdpa)
+    t["library_device_us"], t["library_device_kernels"] = lib["device_us"], lib["device_kernels"]
+    splits, span = ops.decode_splits(slots, kv, maxp, PAGE)
+    t.update(splits=splits, span=span, grid=[slots, kv, splits])
+    vis_host = vis.cpu()
+    visible = int(vis_host.sum())
+    pages = sum(len(set((torch.nonzero(row)[:, 0] // PAGE).tolist())) for row in vis_host)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * visible * kv * d * q.element_size() + 4 * pages + 4 * slots
+    t["bound_ms"], t["bound_by"] = bound(nbytes, 4.0 * visible * kv * g * d)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -1045,13 +1117,18 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate, NVIDIA data sheet
 
 # (name, B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM
 # slice's own shape (full-width qwen2-7b at seq 512), h2o-danube-1.8b's
-# (head_dim 80) and zamba2-1.2b's shared block (32 heads of 64, no GQA,
+# (head_dim 80), mistral-large-123b's (96 heads over 8 KV heads of 128: a
+# group of 12), command-r-35b's (64 over 8: a group of 8), arctic-480b's (56
+# over 8: a group of 7) and zamba2-1.2b's shared block (32 heads of 64, no GQA,
 # window 4096) at the same batch, a ragged S with a padded K, a sliding
 # window, a q_offset; and a long shape, timed where the operations bound the
 # work
 FA_CASES = [
     ("slice", 2, 512, 512, 28, 4, 128, True, None, 0, None),
     ("danube", 2, 512, 512, 32, 8, 80, True, None, 0, None),
+    ("mistral", 2, 512, 512, 96, 8, 128, True, None, 0, None),
+    ("command_r", 2, 512, 512, 64, 8, 128, True, None, 0, None),
+    ("arctic", 2, 512, 512, 56, 8, 128, True, None, 0, None),
     ("zamba2", 2, 512, 512, 32, 32, 64, True, 4096, 0, None),
     ("ragged", 1, 130, 160, 4, 2, 64, False, None, 0, 130),
     ("window", 2, 256, 256, 8, 2, 128, True, 64, 0, None),
@@ -1060,8 +1137,8 @@ FA_CASES = [
 FA_LONG = ("long", 1, 4096, 4096, 28, 4, 128, True, None, 0, None)
 # K6's bf16 kernels in a profile: the forward, the dQ pass, the dK/dV pass with its split sum
 K6_SHARES = ("tc::fwd_kernel", "tc::dq_kernel", "tc::dkdv")
-FA_TIMED = ("slice", "danube", "zamba2", "long")
-FA_COVERED = ("danube", "zamba2")  # their errors go into the kernels line
+FA_TIMED = ("slice", "danube", "mistral", "command_r", "arctic", "zamba2", "long")
+FA_COVERED = ("danube", "mistral", "command_r", "arctic", "zamba2")  # their errors go into the kernels line
 # stated bounds, as max|kernel - plain| / max|plain| (see the module docstring
 # of repro_torch/kernels/flash_attention/ops.py): both sides compute in f32 and
 # sum in other orders; in bf16 a value near a rounding boundary (of p before
@@ -1592,14 +1669,26 @@ def check_rmsnorm_plans(dev, gen):
 # (key, rows, d, what): the rwkv6 group norm, B*S*H rows (2 * 512 * 64) of
 # head_dim 64; zamba2-1.2b's norms at B*S = 1024 rows, d_model 2048 (ln1 of
 # each mamba2 layer and of the shared block, its ln2, the final norm) and
-# d_inner 4096 (the gated norm of each mamba2 layer); eps 1e-5 in all three
+# d_inner 4096 (the gated norm of each mamba2 layer); the d_model of
+# mistral-large-123b (12288), arctic-480b (7168), command-r-35b (8192: its
+# final norm; its blocks' ln1 is a LayerNorm) and h2o-danube-1.8b (2560),
+# each at the training path's 1024 rows and at serving's decode rows (one
+# a slot); eps 1e-5 in all
 RMS_SHAPES = [("group_norm", 65536, 64, "the rwkv6 group norm"),
               ("zamba2_d_model", 1024, 2048, "zamba2 ln1, ln2, final norm"),
-              ("zamba2_gated", 1024, 4096, "zamba2 gated norm, d_inner")]
+              ("zamba2_gated", 1024, 4096, "zamba2 gated norm, d_inner"),
+              ("mistral_d_model", 1024, 12288, "mistral-large ln1, ln2, final norm"),
+              ("arctic_d_model", 1024, 7168, "arctic ln1, ln2, final norm"),
+              ("command_r_d_model", 1024, 8192, "command-r final norm"),
+              ("danube_d_model", 1024, 2560, "h2o-danube ln1, ln2, final norm"),
+              ("mistral_decode", SLOTS, 12288, "mistral-large decode rows"),
+              ("arctic_decode", SLOTS, 7168, "arctic decode rows"),
+              ("command_r_decode", SLOTS, 8192, "command-r decode rows"),
+              ("danube_decode", SLOTS, 2560, "h2o-danube decode rows")]
 
 
 def check_rmsnorm_shapes(dev, gen):
-    """K7 forward and backward at the rwkv6 and zamba2 paths' shapes, each by
+    """K7 forward and backward at each of ``RMS_SHAPES``, each by
     ``check_rmsnorm_at``."""
     return {key: check_rmsnorm_at(dev, gen, rows, d, what) for key, rows, d, what in RMS_SHAPES}
 
@@ -1918,17 +2007,16 @@ def make_trace(vocab: int):
     return [(f"r{i}", rng.integers(0, vocab, (n,)).astype(np.int32)) for i, n in enumerate(lens)]
 
 
-def serve_full_width(dev, kernels):
+def _counting_engine():
+    """A ``BatchedEngine`` that times each forward (synchronised), counts the
+    prefill-chunk and decode forwards, and checks every logit is finite
+    (``aminmax`` keeps a NaN and an infinity, with no logits-sized mask)
+    and its shape."""
     import torch
 
-    from repro_torch.config import get_arch
-    from repro_torch.models import transformer as T
-    from repro_torch.models.params import num_params
     from repro_torch.serving import BatchedEngine
 
-    class TimedEngine(BatchedEngine):
-        """Times each forward (synchronised) and checks its logits are finite."""
-
+    class CountingEngine(BatchedEngine):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.ms = {"prefill": [], "decode": []}
@@ -1938,11 +2026,23 @@ def serve_full_width(dev, kernels):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits = super()._run_step(tokens, page_tables, lengths)
-            self.finite &= bool(torch.isfinite(logits).all())
+            lo, hi = torch.aminmax(logits)
+            self.finite &= bool(torch.isfinite(lo) & torch.isfinite(hi))
             self.ms["decode" if tokens.shape[1] == 1 else "prefill"].append((time.perf_counter() - t0) * 1e3)
             if logits.shape[-1] != self.cfg.vocab_size:
                 raise AssertionError(f"logits shape {tuple(logits.shape)}")
             return logits
+
+    return CountingEngine
+
+
+def serve_full_width(dev, kernels):
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import num_params
+    from repro_torch.serving import BatchedEngine
 
     cfg = get_arch("qwen2-7b").model
     t0 = time.perf_counter()
@@ -1978,7 +2078,7 @@ def serve_full_width(dev, kernels):
     events1 = list(eng.sched.events)
 
     # the same trace again, each forward timed and its logits checked
-    timed = engine(TimedEngine)
+    timed = engine(_counting_engine())
     res2 = timed.run()
     if list(timed.sched.events) != events1:
         raise AssertionError("scheduler events differ between two runs of one trace")
@@ -2050,7 +2150,8 @@ def profile_run(eng, want_results, want_events):
 # dense fallback for the recurrent and hybrid archs)
 # ---------------------------------------------------------------------------
 
-DENSE_ARCHS = ("qwen2-7b", "rwkv6-7b", "zamba2-1.2b")
+DENSE_ARCHS = ("qwen2-7b", "rwkv6-7b", "zamba2-1.2b", "h2o-danube-1.8b", "mistral-large-123b", "command-r-35b",
+               "arctic-480b")
 PROFILE_NEW = 8  # tokens of the profiled request: its prefill and 7 decode steps (a short trace to process)
 
 
@@ -2984,28 +3085,38 @@ def _lm_experiment(dev, cfg, workers, seq):
                       workers=workers, device=dev)
 
 
+def lm_twin_card_vs_cpu(dev, cfg, label):
+    """A reduced LM twin (``cfg``), f32, seq 128, m = 2, 3 rounds of the
+    training CLI's defaults on the card (kernels) and on the CPU (plain
+    versions), from the same weights. Bound: per-round losses rtol 1e-4 (f32
+    matmuls, exp and log on cuBLAS/CUDA and on the CPU sum and round in
+    other orders; six SGD steps carry those differences without amplifying
+    them past 1e-4). Returns the largest relative difference."""
+    import numpy as np
+
+    losses = {}
+    for key, device in (("cuda", dev), ("cpu", "cpu")):
+        losses[key] = np.asarray(_lm_experiment(device, cfg, 2, 128).fit(rounds=LM_ROUNDS).losses)
+    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
+    rec = dict(check=f"LM reduced {label} f32, card kernels vs CPU plain", rounds=LM_ROUNDS,
+               losses_card=losses["cuda"].tolist(), losses_cpu=losses["cpu"].tolist(), max_rel_err=rel,
+               bound="rtol 1e-4", ok=rel <= 1e-4)
+    log(json.dumps(rec))
+    if not rec["ok"]:
+        raise AssertionError(f"{label} card vs CPU losses: max rel {rel} > 1e-4")
+    return rel
+
+
 def lm_card_vs_cpu(dev):
-    """The reduced qwen2-7b with 2 KV heads (group 2), f32, seq 128, m = 2,
-    3 rounds on the card (kernels) and on the CPU (plain versions), from the
-    same weights. Bound: per-round losses rtol 1e-4 (f32 matmuls, exp and log
-    on cuBLAS/CUDA and on the CPU sum and round in other orders; six SGD
-    steps carry those differences without amplifying them past 1e-4)."""
+    """The reduced qwen2-7b with 2 KV heads (group 2) by
+    :func:`lm_twin_card_vs_cpu`, then the same twin under a controller."""
     import numpy as np
 
     from repro_torch.config import get_arch
 
     base = get_arch("qwen2-7b").model.reduced()
     cfg = dataclasses.replace(base, attention=dataclasses.replace(base.attention, num_kv_heads=2))
-    losses = {}
-    for key, device in (("cuda", dev), ("cpu", "cpu")):
-        losses[key] = np.asarray(_lm_experiment(device, cfg, 2, 128).fit(rounds=LM_ROUNDS).losses)
-    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
-    rec = dict(check="LM reduced qwen2-7b (group 2) f32, card kernels vs CPU plain", rounds=LM_ROUNDS,
-               losses_card=losses["cuda"].tolist(), losses_cpu=losses["cpu"].tolist(), max_rel_err=rel,
-               bound="rtol 1e-4", ok=rel <= 1e-4)
-    log(json.dumps(rec))
-    if not rec["ok"]:
-        raise AssertionError(f"LM card vs CPU losses: max rel {rel} > 1e-4")
+    lm_twin_card_vs_cpu(dev, cfg, "qwen2-7b (group 2)")
     # the same twin under a controller from tau 1 with worker 1 crashed in round 1:
     # the same schedule (rounds 1 and 2 fault holds), drift and scale rtol 1e-5
     from repro_torch.control import TauController
@@ -3479,25 +3590,11 @@ def rwkv6_launches(steps, m, L, buckets, rounds):
 
 
 def lm_rwkv6_card_vs_cpu(dev):
-    """The reduced rwkv6-7b (d_model 256, 4 heads of 32, chunk 16), f32,
-    seq 128, m = 2, 3 rounds on the card (K12, K7 and the training kernels)
-    and on the CPU (plain versions), from the same weights. Bound: per-round
-    losses rtol 1e-4, as the qwen2 twin (f32 sums in other orders)."""
-    import numpy as np
-
+    """The reduced rwkv6-7b (d_model 256, 4 heads of 32, chunk 16; K12, K7
+    and the training kernels) by :func:`lm_twin_card_vs_cpu`."""
     from repro_torch.config import get_arch
 
-    cfg = get_arch("rwkv6-7b").model.reduced()
-    losses = {}
-    for key, device in (("cuda", dev), ("cpu", "cpu")):
-        losses[key] = np.asarray(_lm_experiment(device, cfg, 2, 128).fit(rounds=LM_ROUNDS).losses)
-    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
-    rec = dict(check="LM reduced rwkv6-7b f32, card kernels vs CPU plain", rounds=LM_ROUNDS,
-               losses_card=losses["cuda"].tolist(), losses_cpu=losses["cpu"].tolist(), max_rel_err=rel,
-               bound="rtol 1e-4", ok=rel <= 1e-4)
-    log(json.dumps(rec))
-    if not rec["ok"]:
-        raise AssertionError(f"rwkv6 card vs CPU losses: max rel {rel} > 1e-4")
+    lm_twin_card_vs_cpu(dev, get_arch("rwkv6-7b").model.reduced(), "rwkv6-7b")
 
 
 def lm_rwkv6_full_width(dev, kernels):
@@ -3540,25 +3637,11 @@ def zamba2_launches(steps, m, L, buckets, rounds):
 
 def lm_zamba2_card_vs_cpu(dev):
     """The reduced zamba2-1.2b ([mamba2, shared_attn], d_model 256, SSM heads
-    of 32 with state 16, chunk 16, tied embeddings), f32, seq 128, m = 2, 3
-    rounds on the card (K11, K6, K7 and the training kernels) and on the CPU
-    (plain versions), from the same weights. Bound: per-round losses rtol
-    1e-4, as the qwen2 twin (f32 sums in other orders)."""
-    import numpy as np
-
+    of 32 with state 16, chunk 16, tied embeddings; K11, K6, K7 and the
+    training kernels) by :func:`lm_twin_card_vs_cpu`."""
     from repro_torch.config import get_arch
 
-    cfg = get_arch("zamba2-1.2b").model.reduced()
-    losses = {}
-    for key, device in (("cuda", dev), ("cpu", "cpu")):
-        losses[key] = np.asarray(_lm_experiment(device, cfg, 2, 128).fit(rounds=LM_ROUNDS).losses)
-    rel = float(np.max(np.abs(losses["cuda"] - losses["cpu"]) / np.abs(losses["cpu"])))
-    rec = dict(check="LM reduced zamba2-1.2b f32, card kernels vs CPU plain", rounds=LM_ROUNDS,
-               losses_card=losses["cuda"].tolist(), losses_cpu=losses["cpu"].tolist(), max_rel_err=rel,
-               bound="rtol 1e-4", ok=rel <= 1e-4)
-    log(json.dumps(rec))
-    if not rec["ok"]:
-        raise AssertionError(f"zamba2 card vs CPU losses: max rel {rel} > 1e-4")
+    lm_twin_card_vs_cpu(dev, get_arch("zamba2-1.2b").model.reduced(), "zamba2-1.2b")
 
 
 def lm_zamba2_full_width(dev, kernels):
@@ -3572,6 +3655,357 @@ def lm_zamba2_full_width(dev, kernels):
     return lm_full_width(dev, kernels, cfg, zamba2_launches,
                          shares=("ssd_fwd_local_kernel", "ssd_fwd_kernel", "ssd_bwd_local_kernel", "ssd_bwd_kernel",
                                  *K6_SHARES, "rmsnorm"))
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the other GQA text archs (h2o-danube-1.8b, mistral-large-123b,
+# command-r-35b) and the MoE FFN (arctic-480b), served and trained at full
+# width
+# ---------------------------------------------------------------------------
+
+# (arch, layers served, layers trained, workers, experts trained): each cut in
+# depth (and arctic's training in experts) so its weights, pools and planes
+# fit one 80 GB card; the widths are the published ones
+NEW_ARCHS = (
+    ("h2o-danube-1.8b", 24, 24, 4, None),  # full depth both ways: 3.7 GB of weights; m = 4 planes ≈ 56 GB
+    ("mistral-large-123b", 12, 1, 2, None),  # 12 of 88 layers ≈ 35 GB served; 1 layer, m = 2 ≈ 46 GB trained
+    ("command-r-35b", 20, 1, 2, None),  # 20 of 40 ≈ 32 GB served; the tied 256,000-row head leads training
+    ("arctic-480b", 1, 1, 4, 8),  # 1 of 35 layers, 128 experts ≈ 28 GB served; 8 experts trained
+)
+NEW_REQUESTS, NEW_MAX_NEW = 4, 16  # the first requests of the serving trace, each this many new tokens
+NEW_ROUNDS = 2
+
+
+def _cut(cfg, layers, experts=None):
+    """``cfg`` cut to ``layers`` layers (and ``experts`` experts): the
+    published widths, seeded random weights."""
+    kw = dict(num_layers=layers)
+    if cfg.layer_pattern:
+        kw["layer_pattern"] = cfg.layer_pattern[:layers]
+    if experts is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=experts)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _norms_per_forward(cfg):
+    """K7 launches a forward: ln1 and ln2 of each pre-norm block (none for
+    command-r's parallel blocks, whose ln1 is a LayerNorm in plain torch),
+    q_norm and k_norm of each block with QK-norm, and the final norm."""
+    per_layer = (0 if cfg.use_parallel_block else 2) + (2 if cfg.use_qk_norm else 0)
+    return per_layer * cfg.num_layers + 1
+
+
+def _expect_launches(what, got, want):
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} != {want}")
+
+
+def check_two_bucket_plane(dev, gen):
+    """K1 and K3 on a two-bucket plane, as a bf16 MoE model packs: a bf16
+    bucket of 2^24 columns and the f32 router's bucket (arctic's 7168 x 8 of
+    the trained cut), m = 4; one launch each a bucket, each bitwise its plain
+    version on that bucket; timed beside the bound (K1 5·P·m·n bytes, K3
+    2P·m·n + 4P·n)."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix import ops as am_ops
+    from repro_torch.kernels.anchor_mix import ref as am_ref
+    from repro_torch.kernels.opt_step import ops as opt_ops
+    from repro_torch.kernels.opt_step import ref as opt_ref
+    from repro_torch.parallel import packing
+
+    m = 4
+    tree = {"w": torch.randn(m, 1 << 24, generator=gen, device=dev).to(torch.bfloat16),
+            "router": 0.02 * torch.randn(m, 7168, 8, generator=gen, device=dev)}
+    x = packing.pack(tree, lead=1)
+    del tree
+    lr = torch.full((), 1e-2, dtype=torch.float32, device=dev)
+    kw = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
+    out = dict(buckets=list(x.layout.bucket_dtypes), bucket_sizes=list(x.layout.bucket_sizes))
+    before = opt_ops.SGD.launches, am_ops.MOMENTUM.launches
+    for xb in x.buffers:
+        g = torch.randn(xb.shape, generator=gen, device=dev).to(xb.dtype)
+        mom = torch.randn(xb.shape, generator=gen, device=dev).to(xb.dtype)
+        want = opt_ref.sgd_update(xb, g, mom, lr, **kw)
+        k1 = all(torch.equal(a, b) for a, b in zip(opt_ops.sgd_step(xb, g, mom, lr, **kw), want))
+        z = xb[0].clone()
+        v = torch.randn(xb.shape[1], generator=gen, device=dev).to(xb.dtype)
+        want = am_ref.pullback_mean_momentum(xb, z, v, 0.6, 0.7)
+        k3 = all(torch.equal(a, b) for a, b in zip(am_ops.pullback_mean_momentum(xb, z, v, 0.6, 0.7), want))
+        P, n = xb.element_size(), xb.shape[1]
+        rec = dict(dtype=_name(xb.dtype), shape=list(xb.shape), k1_bitwise=k1, k3_bitwise=k3)
+        rec["k1_ms"] = median_ms(lambda: opt_ops.sgd_step(xb, g, mom, lr, **kw), iters=20)
+        rec["k1_bound_ms"] = bound(5 * P * m * n)[0]
+        rec["k3_ms"] = median_ms(lambda: am_ops.pullback_mean_momentum(xb, z, v, 0.6, 0.7), iters=20)
+        rec["k3_bound_ms"] = bound(2 * P * m * n + 4 * P * n)[0]
+        out[rec["dtype"]] = rec
+        if not (k1 and k3):
+            raise AssertionError(f"K1/K3 on the two-bucket plane disagree with plain: {rec}")
+        del g, mom, want
+    # the checks' first launches: one K1 and one K3 a bucket before the timing loops
+    out["bitwise"] = True
+    out["launched"] = opt_ops.SGD.launches > before[0] and am_ops.MOMENTUM.launches > before[1]
+    log(json.dumps(dict(check="K1 and K3 on a two-bucket plane (bf16 + the f32 router)", **out)))
+    del x
+    _free()
+    return out
+
+
+def serve_new_arch(dev, kernels, arch, layers):
+    """``arch`` at full width cut to ``layers`` layers (bf16, seeded random
+    weights drawn on the card) through ``BatchedEngine``, paged: the first
+    ``NEW_REQUESTS`` requests of the serving trace with ``NEW_MAX_NEW`` new
+    tokens each (h2o-danube also a ``LONG_PROMPT``-token request whose
+    decode runs past its 4096-token window, at max_len ``LONG_MAX_LEN``):
+    exactly max_new in-vocab tokens a request, finite logits, and K7, K9
+    and K10 launched exactly as the forwards imply; the peak memory at init
+    and while serving, tok/s and the median decode-step and prefill-chunk ms
+    (each forward synchronised)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import num_params
+
+    cfg = _cut(get_arch(arch).model, layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s, init_peak, weights = time.perf_counter() - t0, torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    n_params = num_params(params)
+    log(f"full-width {cfg.name} x{layers} layers: {n_params} params in {cfg.dtype}, init {init_s:.1f}s, "
+        f"init peak {init_peak / 1e9:.2f} GB")
+    trace = [(rid, p, NEW_MAX_NEW) for rid, p in make_trace(cfg.vocab_size)[:NEW_REQUESTS]]
+    max_len = MAX_LEN
+    if arch == "h2o-danube-1.8b":
+        rng = np.random.default_rng(SEED + 24)
+        trace.append(("long", rng.integers(0, cfg.vocab_size, (LONG_PROMPT,)).astype(np.int32), LONG_NEW))
+        max_len = LONG_MAX_LEN
+    engine = _counting_engine()
+    kw = dict(slots=SLOTS, max_len=max_len, page_size=PAGE, chunk=CHUNK, device=dev)
+    warm = engine(cfg, params, **kw)
+    warm.submit("warm", trace[0][1][:40], 2)
+    warm.run()
+    del warm
+    eng = engine(cfg, params, **kw)
+    if not eng.paged:
+        raise AssertionError(f"{arch}: expected the paged engine")
+    for rid, prompt, mn in trace:
+        eng.submit(rid, prompt, mn)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    for rid, _, mn in trace:
+        toks = res[rid]
+        if len(toks) != mn or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{arch} {rid}: {len(toks)} tokens, range [{toks.min()}, {toks.max()}]")
+    if not eng.finite:
+        raise AssertionError(f"{arch}: non-finite logits")
+    n_pre, n_dec = len(eng.ms["prefill"]), len(eng.ms["decode"])
+    L = cfg.num_layers
+    want = {"rmsnorm": _norms_per_forward(cfg) * (n_pre + n_dec), "paged_append": L * (n_pre + n_dec),
+            "paged_attend": L * n_dec}
+    _expect_launches(f"{arch} serving, {n_pre} prefill + {n_dec} decode forwards", launches, want)
+    tokens = sum(len(v) for v in res.values())
+    summary = dict(
+        slice=f"{cfg.name} full width, {layers} of {get_arch(arch).model.num_layers} layers, bf16, paged",
+        params=n_params, weights_bytes=weights, init_s=init_s, init_peak_mem_bytes=init_peak,
+        requests=len(trace), prompt_lens=[len(p) for _, p, _ in trace], max_new=[mn for *_, mn in trace],
+        max_len=max_len, tokens=tokens, wall_s=wall, tok_s=tokens / wall, prefill_forwards=n_pre,
+        decode_forwards=n_dec, decode_step_ms_median=_median(eng.ms["decode"]),
+        prefill_chunk_ms_median=_median(eng.ms["prefill"]), peak_mem_bytes=peak, launches=launches,
+        exact_max_new=True, forwards_synchronised=True,
+    )
+    log(json.dumps(summary))
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def danube_window_dense_vs_paged(dev):
+    """h2o-danube-1.8b at full width cut to 2 layers, f32: the
+    ``LONG_PROMPT``-token request (its prefill longer than the 4096-token
+    window: K6 with the window active in dense prefill) then ``LONG_NEW``
+    tokens, through the paged engine (K9 with the window) and dense
+    ``generate``: the same tokens."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import BatchedEngine, generate
+
+    cfg = dataclasses.replace(get_arch("h2o-danube-1.8b").model, num_layers=2, dtype="float32")
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED + 6), device=dev)
+    prompt = np.random.default_rng(SEED + 24).integers(0, cfg.vocab_size, (LONG_PROMPT,)).astype(np.int32)
+    eng = BatchedEngine(cfg, params, slots=1, max_len=LONG_MAX_LEN, page_size=PAGE, chunk=CHUNK, device=dev)
+    eng.submit("long", prompt, LONG_NEW)
+    paged = eng.run()["long"]
+    dense = generate(cfg, params, prompt[None], LONG_NEW)[0]
+    rec = dict(check="h2o-danube-1.8b 2-layer f32, a prompt past the 4096 window: dense generate vs paged",
+               prompt=LONG_PROMPT, max_new=LONG_NEW, window=cfg.attention.sliding_window,
+               tokens=len(dense), equal=dense.tolist() == paged.tolist(), ok=dense.tolist() == paged.tolist())
+    log(json.dumps(rec))
+    if not rec["ok"]:
+        raise AssertionError(f"h2o-danube window: dense {dense.tolist()} != paged {paged.tolist()}")
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def new_arch_launches(cfg, steps, m, buckets, rounds, split):
+    """The training path's launches on a GQA arch, from the config: K6's
+    forward and both backward kernels once a layer, the dK/dV split sum too
+    where the group splits (``split``), K7 forward and backward as
+    :func:`_norms_per_forward` counts them, K1 once a bucket a step, K3 once
+    a bucket a round."""
+    L, per = cfg.num_layers, steps * m
+    out = dict(flash_attention_fwd=per * L, flash_attention_bwd_dq=per * L, flash_attention_bwd_dkdv=per * L,
+               rmsnorm=per * _norms_per_forward(cfg), rmsnorm_bwd=per * _norms_per_forward(cfg),
+               sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
+    if split:
+        out["flash_attention_dkdv_sum"] = per * L
+    return out
+
+
+def train_new_arch(dev, kernels, arch, layers, workers, experts):
+    """``arch`` at full width cut to ``layers`` layers (and ``experts``
+    experts), bf16, weights drawn on the card, trained with the training
+    CLI's defaults (Overlap-Local-SGD tau 2, alpha 0.6, beta 0.7; SGD lr
+    1e-2 + Nesterov 0.9) through the port's training API
+    (``make_train_state``, ``make_round_step``, the LM batch stream), m =
+    ``workers``, batch 2 x seq 512, ``NEW_ROUNDS`` rounds from zeroed
+    counters: a non-zero gradient in every leaf of every worker in the
+    first step, finite losses, exact launch counts (K1 and K3 once a
+    bucket: two on arctic's bf16 + f32 plane), the peak at init, after the
+    state is packed and while training; step ms."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
+    from repro_torch.core.strategy import resolve_strategy
+    from repro_torch.data import lm_batch_fn, round_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import num_params
+    from repro_torch.optim import from_config
+    from repro_torch.optim import schedules
+    from repro_torch.parallel.packing import leaf_views
+    from repro_torch.training import make_round_step, make_train_state
+    from repro_torch.training.train_loop import batch_map, gradient_plane
+
+    cfg = _cut(get_arch(arch).model, layers, experts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    n_params = num_params(params)
+    strategy = resolve_strategy(AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6, anchor_beta=0.7))
+    opt = from_config(OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True))
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    state = make_train_state(params, workers, opt, strategy)
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    build_s, state_bytes = time.perf_counter() - t0, torch.cuda.memory_allocated()
+    build_peak = torch.cuda.max_memory_allocated()
+    layout = state.x.layout
+    log(f"full-width {cfg.name} x{layers} layers: {n_params} params in {cfg.dtype}, plane "
+        f"{[list(b.shape) for b in state.x.buffers]} {list(layout.bucket_dtypes)}, built in {build_s:.1f}s")
+
+    def loss_fn(p, b):
+        return T.lm_loss(cfg, p, b)
+
+    step_fn = make_round_step(loss_fn, opt, strategy, schedules.constant(1e-2), per_worker=T.split_layers)
+    stream = lm_batch_fn(cfg, workers, LM_BATCH, LM_SEQ, seed=0)
+
+    def to_dev(batch):
+        return batch_map(lambda a: torch.from_numpy(a).to(dev, non_blocking=True), batch)
+
+    # the first local step's gradient: every leaf of every worker non-zero
+    pg, first = gradient_plane(loss_fn, state.x, to_dev(stream()), per_worker=T.split_layers)
+    zero = [("/".join(p), int((~(v.reshape(workers, -1) != 0).any(dim=1)).sum()))
+            for p, v in zip(layout.paths, leaf_views(pg))]
+    zero = [z for z in zero if z[1]]
+    grad_peak = torch.cuda.max_memory_allocated()
+    first_loss = first["loss"].float().cpu().tolist()
+    del pg, first
+    _free()
+    if zero:
+        raise AssertionError(f"{arch}: leaves with an all-zero gradient in some worker (leaf, workers): {zero}")
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses, metrics = [], {}
+    for _ in range(NEW_ROUNDS):
+        state, ms = step_fn(state, to_dev(round_batch(stream, strategy.tau)))
+        losses.append(float(ms["loss"].float().mean()))
+        metrics = {k: v.float().cpu().tolist() for k, v in ms.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.name: k.launches for k in kernels}
+    steps = NEW_ROUNDS * strategy.tau
+    a = cfg.attention
+    split = fa_ops.dkdv_splits(LM_BATCH, a.num_kv_heads, a.num_heads // a.num_kv_heads, LM_SEQ, fa_ops._sms(dev)) > 1
+    want = {k.name: 0 for k in kernels}
+    want.update(new_arch_launches(cfg, steps, workers, layout.num_buckets, NEW_ROUNDS, split))
+    _expect_launches(f"{arch} training, {steps} steps x {workers} workers", launches, want)
+    if not all(math.isfinite(x) for x in losses + first_loss):
+        raise AssertionError(f"{arch} LM losses not finite: {first_loss}, {losses}")
+    summary = dict(
+        slice=f"{cfg.name} full width, {layers} of {get_arch(arch).model.num_layers} layers"
+              + (f", {experts} of {get_arch(arch).model.moe.num_experts} experts" if experts else "") + ", bf16",
+        params=n_params, workers=workers, batch_per_worker=LM_BATCH, seq_len=LM_SEQ, rounds=NEW_ROUNDS, steps=steps,
+        buckets=list(layout.bucket_dtypes), plane=[list(b.shape) for b in state.x.buffers], leaves=len(layout.paths),
+        build_s=build_s, init_peak_mem_bytes=init_peak, state_bytes=state_bytes, build_peak_mem_bytes=build_peak,
+        first_step_peak_mem_bytes=grad_peak, peak_mem_bytes=peak, wall_s=wall, step_ms=wall / steps * 1e3,
+        first_step_losses=first_loss, losses=losses, last_round_metrics=metrics, launches=launches,
+        dkdv_split=split, nonzero_grad_every_leaf=True,
+    )
+    log(json.dumps(summary))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def new_arch_twins_card_vs_cpu(dev):
+    """The reduced f32 twin of each new arch (h2o-danube, mistral-large,
+    command-r, arctic, and h2o-danube with QK-norm: K7 on q and k) by
+    :func:`lm_twin_card_vs_cpu`."""
+    from repro_torch.config import get_arch
+
+    out = {}
+    for arch, qk in [(a, False) for a, *_ in NEW_ARCHS] + [("h2o-danube-1.8b", True)]:
+        cfg = get_arch(arch).model.reduced()
+        if qk:
+            cfg = dataclasses.replace(cfg, use_qk_norm=True)
+        label = arch + ("+qk_norm" if qk else "")
+        out[label] = lm_twin_card_vs_cpu(dev, cfg, label)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3623,9 +4057,9 @@ def main() -> int:
     rms_err, rms_t = check_rmsnorm(dev, gen)
     rms_plans = check_rmsnorm_plans(dev, gen)
     rms_split = rmsnorm_host_split(dev, gen)
-    app_err, app_t = check_paged_append(dev, gen)
+    app_err, app_t, app_heads = check_paged_append(dev, gen)
     app_split = paged_append_host_split(dev, gen)
-    att_err, att_t, att_g12, att_d80 = check_paged_attend(dev, gen)
+    att_err, att = check_paged_attend(dev, gen)
     opt_err, opt_t = check_opt_step(dev, gen)
     mix_err, mix_t = check_anchor_mix(dev, gen)
     gossip_err, gossip_t = check_gossip_form(dev, gen)
@@ -3636,6 +4070,7 @@ def main() -> int:
     wkv_err, wkv_t = check_wkv(dev, gen)
     rms_shapes = check_rmsnorm_shapes(dev, gen)
     ssd_err, ssd_t = check_ssd(dev, gen)
+    two_bucket = check_two_bucket_plane(dev, gen)
     mark("phase 2 (kernels against their plain versions)")
 
     # phases 3, 4 and 5: serving, classifier training, LM training
@@ -3681,6 +4116,19 @@ def main() -> int:
     zamba["card"] = card
     mark("phase 5 (LM training, serving off the plane)")
 
+    # phase 6: the other GQA archs and the MoE FFN
+    new_twins = new_arch_twins_card_vs_cpu(dev)
+    mark("phase 6 (a: reduced twins)")
+    new_serving, new_training = {}, {}
+    for arch, served, _, _, _ in NEW_ARCHS:
+        new_serving[arch] = dict(serve_new_arch(dev, serving, arch, served), card=card)
+        mark(f"phase 6 (b: serving {arch})")
+    window_check = danube_window_dense_vs_paged(dev)
+    mark("phase 6 (b: h2o-danube window, dense == paged)")
+    for arch, _, trained, workers, experts in NEW_ARCHS:
+        new_training[arch] = dict(train_new_arch(dev, kernels, arch, trained, workers, experts), card=card)
+        mark(f"phase 6 (c: training {arch})")
+
     # phase 6
     launches = dict(summary["launches"])
     launches["sgd_step"] = runs["overlap_local_sgd"]["launches"]["sgd_step"]
@@ -3708,7 +4156,7 @@ def main() -> int:
         ("rmsnorm", "rmsnorm", "K7 rmsnorm_2d", "src/repro/kernels/rmsnorm/kernel.py:26", rms_err, rms_t[4],
          "bf16 rows=4 d=3584 (decode)", None),
         ("paged_attend", "paged_attend", "K9 paged_attend_decode", "src/repro/kernels/paged_attn/kernel.py:89",
-         att_err, att_t, "bf16 S=4 KV=4 G=7 D=128 page=16 maxp=32 lengths 0/17/300/511", None),
+         att_err, att["slice"], "bf16 S=4 KV=4 G=7 D=128 page=16 maxp=32 lengths 0/17/300/511", None),
         ("paged_append", "paged_append", "K10 paged_append_decode", "src/repro/kernels/paged_attn/kernel.py:145",
          app_err, app_t[1], "bf16 S=4 T=1 KV=4 D=128 (decode)", None),
         ("sgd_step", "opt_step", "K1 sgd_step_flat", "src/repro/kernels/opt_step/kernel.py:48", opt_err["K1"],
@@ -3889,18 +4337,24 @@ def main() -> int:
             if part != "fwd":  # the dQ and dK/dV launches together, beside SDPA's whole backward
                 entry["backward_total"] = {sh: {k: fa_t[sh]["bwd"][k] for k in keys + rates} for sh in FA_TIMED}
                 entry["backward_total"]["bound"] = "S, dP, dV, dK and dQ once each; q, out, dO, k, v, lse read once"
-        if name == "paged_attend":  # the split grid; mistral-large's group of 12
+        if name == "paged_attend":  # the split grid; the other timed cases of K9_CASES, their errors folded in
             k9 = keys + split_keys + ("library_device_us", "splits", "span", "grid")
             entry.update({k: t[k] for k in k9 if k not in keys + split_keys})
-            entry["group_12"] = dict(shape="bf16 S=4 KV=8 G=12 D=128", max_abs_err=att_g12["max_abs_err"],
-                                     **{k: att_g12[k] for k in k9})
-            # h2o-danube-1.8b's head_dim 80 (32 heads over 8 KV heads)
-            entry["head_dim_80"] = dict(shape="bf16 S=4 KV=8 G=4 D=80", max_abs_err=att_d80["max_abs_err"],
-                                        f32_max_abs_err=att_d80["f32_max_abs_err"], **{k: att_d80[k] for k in k9})
+            entry["f32_max_abs_err"] = t["f32_max_abs_err"]
+            for case, kv_, g_, d_, lens_, maxp_, windows_, _ in K9_CASES:
+                if case in att and case != "slice":
+                    r = att[case]
+                    entry[case] = dict(shape=f"bf16 S={SLOTS} KV={kv_} G={g_} D={d_} maxp={maxp_} window={windows_[0]} "
+                                             f"lengths {'/'.join(map(str, lens_))}", max_abs_err=r["max_abs_err"],
+                                       f32_max_abs_err=r["f32_max_abs_err"], **{k: r[k] for k in k9})
+                    entry["max_abs_err"] = max(entry["max_abs_err"], r["max_abs_err"])
         if name in ("rmsnorm", "rmsnorm_bwd"):  # the rwkv6 group norm's rows, zamba2's two widths
             for key, rows_, d_, what in RMS_SHAPES:
                 rec_ = rms_shapes[key]["fwd" if name == "rmsnorm" else "bwd"]
-                entry[key] = dict(shape=f"bf16 rows={rows_} d={d_} ({what})", max_abs_err=rms_shapes[key]["max_abs_err"],
+                errs_ = rms_shapes[key]["max_abs_err"]
+                entry["max_abs_err"] = max([entry["max_abs_err"]] + [errs_[k] for k in
+                                                                     (("y",) if name == "rmsnorm" else ("dx", "dscale"))])
+                entry[key] = dict(shape=f"bf16 rows={rows_} d={d_} ({what})", max_abs_err=errs_,
                                   **{k: rec_[k] for k in keys + split_keys})
             entry["launches_by_path"] = by_path[name]
             entry["planner"] = dict(plans=rms_plans["plans"], max_abs_err=rms_plans["max_abs_err"])
@@ -3912,6 +4366,21 @@ def main() -> int:
             entry["T32"] = dict(shape="bf16 S=4 T=32 KV=4 D=128 (a prefill chunk)",
                                 **{k: app_t[32][k] for k in keys + split_keys}, kv=app_t[32]["kv"])
             entry["host_split_us"] = app_split
+            entry["other_heads"] = dict(shapes="S=4 T=1/32/700, bf16 and f32, KV=8 D=128 and KV=8 D=80",
+                                        max_abs_err=app_heads, bound="bitwise")
+        # phase 6: the launches on the other GQA archs' and arctic's paths, and the kernel shapes they bring
+        new_paths = {f"{arch} {kind}": r[arch]["launches"].get(name, 0)
+                     for kind, r in (("serving", new_serving), ("training", new_training)) for arch in r}
+        if any(new_paths.values()):
+            entry["launches_new_archs"] = new_paths
+        if name.startswith("flash_attention") and name != "flash_attention_dkdv_sum":
+            for case, key, what in (("mistral", "group_12", "H=96 Hkv=8 D=128 causal (mistral-large)"),
+                                    ("command_r", "group_8", "H=64 Hkv=8 D=128 causal (command-r)"),
+                                    ("arctic", "group_7_kv8", "H=56 Hkv=8 D=128 causal (arctic)")):
+                entry[key] = dict(shape=f"bf16 B=2 S=512 {what}", rel_err=fa_cov[case],
+                                  **{k: fa_t[case][part][k] for k in keys})
+        if name in ("sgd_step", "pullback_momentum"):
+            entry["two_bucket_plane"] = two_bucket
         out.append(entry)
     out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys + split_keys})
     out[0]["prefill"] = dict(shape="bf16 rows=32 d=3584 (a prefill chunk)", **{k: rms_t[32][k] for k in keys + split_keys})

@@ -1,4 +1,13 @@
 """Ported architecture configs. Importing this package registers them."""
-from repro_torch.configs import qwen2_7b, rwkv6_7b, zamba2_1_2b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    arctic_480b,
+    command_r_35b,
+    h2o_danube_1_8b,
+    mistral_large_123b,
+    qwen2_7b,
+    rwkv6_7b,
+    zamba2_1_2b,
+)
 
-ASSIGNED = ["qwen2-7b", "rwkv6-7b", "zamba2-1.2b"]
+ASSIGNED = ["qwen2-7b", "rwkv6-7b", "zamba2-1.2b", "h2o-danube-1.8b", "mistral-large-123b", "command-r-35b",
+            "arctic-480b"]

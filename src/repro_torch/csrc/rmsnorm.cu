@@ -432,7 +432,10 @@ int bwd(const void* x, const void* scale, const void* dy, void* dx, void* dscale
         static_cast<uint4*>(dx), static_cast<float*>(partial), rows, nv, eps, lanes, rows_per_block);
   } else {
     const int smem = d * (int)sizeof(float);
-    if (smem > 48 * 1024) {
+    // the opt-in counts the static shared memory too (warp_sums and stats):
+    // at d = 12288 the dynamic part alone is exactly the 48 KiB default
+    constexpr int kStatic = (2 * kWarps + 2) * (int)sizeof(float);
+    if (smem + kStatic > 48 * 1024) {
       cudaError_t e = cudaFuncSetAttribute(rmsnorm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return (int)e;
     }

@@ -4,7 +4,9 @@ module imports no JAX; it reads the reference's objects by their fields.
 
 * :func:`params_from_numpy` — a parameter tree (nested dicts; stacked
   ``seg{i}`` leaves keep their leading layer axis) → the port's tree, leaf
-  for leaf.
+  for leaf: LayerNorm and QK-norm scales, the MoE's f32 router and its
+  stacked experts ``(n, E, d, f)`` as any other leaf. A bf16 + f32 tree
+  (a bf16 MoE model) packs into a two-bucket plane in both packages.
 * :func:`packed_from_numpy` — a packed plane → the port's ``Packed``, bit
   for bit (the two packages lay a tree out identically).
 * :func:`state_from_numpy` — a plane-resident ``TrainState`` (x, opt, vars,

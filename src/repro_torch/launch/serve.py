@@ -5,7 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --device cpu
 
 Weights are random, drawn from a seeded ``torch.Generator`` on the device.
-The GQA archs are served paged; rwkv6-7b and zamba2-1.2b by the dense
+The GQA archs (arctic-480b's MoE among them) are served paged; rwkv6-7b
+and zamba2-1.2b by the dense
 fallback (one request at a time through ``generate``). Runs on the GPU
 unless ``--device cpu`` is given.
 """

@@ -7,7 +7,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --rounds 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --full --rounds 3 --seq 512
 
-``--arch`` takes every ported arch (qwen2-7b, rwkv6-7b, zamba2-1.2b),
+``--arch`` takes every ported arch (qwen2-7b, h2o-danube-1.8b,
+mistral-large-123b, command-r-35b, arctic-480b, rwkv6-7b, zamba2-1.2b),
 reduced unless ``--full`` is given. Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
 strategy of the reference and its aliases (``dasgd``, ``loscar``,
 ``overlap``, ``sgp``); ``--ckpt PATH`` saves the final ``TrainState`` there

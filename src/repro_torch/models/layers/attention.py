@@ -1,9 +1,11 @@
 """Grouped-query attention (counterpart of the GQA parts of
 ``repro.models.layers.attention``).
 
-Ported: ``init_gqa``, ``_project_qkv`` (with ``qkv_bias``), the pre-scaling
-``q / sqrt(head_dim)`` in the activation dtype, and every mode of
-``gqa_apply``:
+Ported: ``init_gqa``, ``init_qk_norm``, ``_project_qkv`` (with
+``qkv_bias``), the optional QK-norm (an RMSNorm of each head's q and k over
+head_dim before RoPE, through kernel K7 on the card, forward and backward),
+the pre-scaling ``q / sqrt(head_dim)`` in the activation dtype, and every
+mode of ``gqa_apply``:
 
 * ``mode="train"``: causal (optionally windowed) attention over the whole
   sequence through ``_sdpa``, which is kernel K6 (``flash_attention``,
@@ -40,6 +42,7 @@ from repro_torch.config.base import AttentionConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attn import ops as pa_ops
 from repro_torch.models.layers import rope as rope_mod
+from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
 
 
 def init_gqa(b, name: str, d_model: int, cfg: AttentionConfig):
@@ -56,6 +59,12 @@ def init_gqa(b, name: str, d_model: int, cfg: AttentionConfig):
             b.param("bv", (kv * hd,), init="zeros")
         if cfg.out_bias:
             b.param("bo", (d_model,), init="zeros")
+
+
+def init_qk_norm(b, name: str, cfg: AttentionConfig):
+    with b.scope(name):
+        init_rmsnorm(b, "q_norm", cfg.head_dim)
+        init_rmsnorm(b, "k_norm", cfg.head_dim)
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,12 +102,19 @@ def gqa_apply(
     *,
     mode: str = "train",
     cache: Optional[dict] = None,
+    eps: float = 1e-5,
+    qk_norm_params=None,
     paged=None,  # serving.paged_cache.PagedState
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """The reference's ``gqa_apply``: ``mode="train"``, ``"prefill"`` (returns
     the dense cache), ``"decode"`` with ``paged=`` (pools updated in place)
-    or with a dense ``cache`` (its slot written in place)."""
+    or with a dense ``cache`` (its slot written in place). With
+    ``qk_norm_params`` (the block's ``qknorm`` scope), q and k are
+    RMS-normalised per head before RoPE."""
     q, k, v = _project_qkv(params, cfg, x)
+    if qk_norm_params is not None:
+        q = rmsnorm(qk_norm_params["q_norm"], q, eps)
+        k = rmsnorm(qk_norm_params["k_norm"], k, eps)
     if cfg.rope != "none" and cos is not None:
         q = rope_mod.apply_rope(q, cos, sin)
         k = rope_mod.apply_rope(k, cos, sin)

@@ -9,20 +9,25 @@ Python loop over its layers here, indexing the stacked weights and pools
 how the training loop hands each layer its own gradient window; see
 :func:`split_layers`).
 
-Ported for ``"attn"`` segments of GQA text archs (pre-norm RMSNorm blocks
-with SwiGLU), ``"rwkv6"`` segments (RMSNorm, RWKV-6 time-mix and
-channel-mix), ``"mamba2"`` segments (RMSNorm, the Mamba2 SSD block) and
-``"shared_attn"`` positions, where the one weight-shared attention block of
-the top-level ``shared_block`` scope is applied (zamba2; it owns no
-``seg{i}`` parameters, so the ``seg{i}`` keys have gaps, and its gradient
-sums every position's), with tied embeddings (the head is
-``hidden @ tok_emb.T`` and there is no ``head`` leaf): ``segments``,
-``init_model``, ``init_caches``, ``apply_model`` in every mode (``"train"``,
-the LM training path: K6 attention, K12 WKV or K11 SSD scan, K7 norms;
-``"prefill"``, which returns the dense caches; ``"decode"`` against the
-dense caches or, for attention-only archs, with ``paged=``),
-``softmax_xent`` and ``lm_loss``. MoE, MLA, frontends and MTP (ROADMAP
-Queue 1 item 8) raise here.
+Ported for the GQA text archs: ``"attn"`` segments (pre-norm RMSNorm blocks
+with SwiGLU, or command-r's parallel blocks: one bias-free LayerNorm feeding
+attention and the FFN, ``x + attn(h) + ffn(h)``, no ``ln2``; optional
+QK-norm), ``"moe"`` segments (the same blocks with the MoE FFN of
+:mod:`repro_torch.models.layers.moe`; the router's aux loss is carried
+across layers as ``moe_aux``), ``"rwkv6"`` segments (RMSNorm, RWKV-6
+time-mix and channel-mix), ``"mamba2"`` segments (RMSNorm, the Mamba2 SSD
+block) and ``"shared_attn"`` positions, where the one weight-shared
+attention block of the top-level ``shared_block`` scope is applied (zamba2;
+it owns no ``seg{i}`` parameters, so the ``seg{i}`` keys have gaps, and its
+gradient sums every position's), with tied or untied embeddings (tied: the
+head is ``hidden @ tok_emb.T`` and there is no ``head`` leaf) and the
+head's ``logit_scale``: ``segments``, ``init_model``, ``init_caches``,
+``apply_model`` in every mode (``"train"``, the LM training path: K6
+attention, K12 WKV or K11 SSD scan, K7 norms; ``"prefill"``, which returns
+the dense caches; ``"decode"`` against the dense caches or, for
+attention-only archs, with ``paged=``), ``softmax_xent`` and ``lm_loss``
+(with the router term for MoE archs). MLA, M-RoPE, GELU MLPs, frontends
+and MTP (ROADMAP Queue 1 item 8) raise here.
 
 Caches are laid out as the reference's: under ``seg{i}``, each leaf stacked
 over the segment's layers (a ``shared_attn`` position's cache unstacked),
@@ -42,9 +47,10 @@ from repro_torch.models import params as P
 from repro_torch.models.layers import attention as attn_mod
 from repro_torch.models.layers import mamba2 as mamba_mod
 from repro_torch.models.layers import mlp as mlp_mod
+from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers import rope as rope_mod
 from repro_torch.models.layers import rwkv6 as rwkv_mod
-from repro_torch.models.layers.norms import init_rmsnorm, rmsnorm
+from repro_torch.models.layers.norms import init_layernorm, init_rmsnorm, layernorm, rmsnorm
 
 
 def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -63,13 +69,14 @@ _SSM_KINDS = ("rwkv6", "mamba2")
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise unless the port runs ``cfg``: a text arch whose segments are
-    ``"attn"`` (GQA, SiLU), ``"rwkv6"``, ``"mamba2"`` or ``"shared_attn"``
-    (with ``shared_attn_every`` set), the recurrent segments taking the
+    ``"attn"`` or ``"moe"`` (GQA, SiLU; parallel blocks and QK-norm allowed),
+    ``"rwkv6"``, ``"mamba2"`` or ``"shared_attn"`` (with
+    ``shared_attn_every`` set), the recurrent segments taking the
     ``ssm.kind`` of their name; tied or untied embeddings."""
-    if cfg.frontend is not None or cfg.moe is not None or cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: frontends, MoE and multi-token prediction are {ITEM8}")
+    if cfg.frontend is not None or cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}: frontends and multi-token prediction are {ITEM8}")
     kinds = {kind for kind, _ in segments(cfg)}
-    other = kinds - {"attn", "shared_attn", *_SSM_KINDS}
+    other = kinds - {"attn", "moe", "shared_attn", *_SSM_KINDS}
     if other:
         raise NotImplementedError(f"{cfg.name}: segment kinds {sorted(other)} are {ITEM8}")
     for kind in kinds & set(_SSM_KINDS):
@@ -77,24 +84,32 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{cfg.name}: {kind} segments take ssm.kind {kind!r} ({ITEM8})")
     if "shared_attn" in kinds and not cfg.shared_attn_every:
         raise ValueError(f"{cfg.name}: shared_attn positions need shared_attn_every (the shared_block scope)")
-    if not kinds & {"attn", "shared_attn"}:
+    if "moe" in kinds and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: moe segments need a MoE config")
+    if not kinds & {"attn", "moe", "shared_attn"}:
         if cfg.attention is not None:
             raise NotImplementedError(f"{cfg.name}: attention config without attention segments ({ITEM8})")
         return
     a = cfg.attention
     if a is None or a.kind != "gqa" or a.rope == "mrope":
         raise NotImplementedError(f"{cfg.name}: the port covers GQA text archs; MLA and M-RoPE are {ITEM8}")
-    if cfg.use_parallel_block or cfg.use_qk_norm or cfg.act != "silu":
-        raise NotImplementedError(f"{cfg.name}: parallel blocks, QK-norm and GELU MLPs are {ITEM8}")
+    if cfg.act != "silu":
+        raise NotImplementedError(f"{cfg.name}: GELU MLPs are {ITEM8}")
 
 
 def _init_block(b, cfg: ModelConfig, kind: str):
     d = cfg.d_model
-    if kind in ("attn", "shared_attn"):
-        init_rmsnorm(b, "ln1", d)
+    if kind in ("attn", "moe", "shared_attn"):
+        (init_layernorm if cfg.use_parallel_block else init_rmsnorm)(b, "ln1", d)
         attn_mod.init_gqa(b, "attn", d, cfg.attention)
-        init_rmsnorm(b, "ln2", d)
-        mlp_mod.init_swiglu(b, "ffn", d, cfg.d_ff)
+        if cfg.use_qk_norm:
+            attn_mod.init_qk_norm(b, "qknorm", cfg.attention)
+        if not cfg.use_parallel_block:
+            init_rmsnorm(b, "ln2", d)
+        if kind == "moe":
+            moe_mod.init_moe(b, "ffn", d, cfg.moe)
+        else:
+            mlp_mod.init_swiglu(b, "ffn", d, cfg.d_ff)
     elif kind == "rwkv6":
         init_rmsnorm(b, "ln1", d)
         init_rmsnorm(b, "ln2", d)
@@ -148,8 +163,17 @@ def split_layers(path: Tuple[str, ...], leaf: torch.Tensor):
     return list(leaf.unbind(0)) if path[0].startswith("seg") else leaf
 
 
+def _ffn(cfg: ModelConfig, kind: str, prm, h, mode: str):
+    """(the block's FFN of h, its router stats or None). The MoE's capacity
+    factor: the config's in training, 4.0 when serving."""
+    if kind == "moe":
+        return moe_mod.moe_apply(prm, cfg.moe, h, cfg.act, capacity_factor=0.0 if mode == "train" else 4.0)
+    return mlp_mod.swiglu(prm, h), None
+
+
 def _apply_block(cfg: ModelConfig, kind: str, prm, x, cos, sin, *, mode, cache, eps, paged):
-    """(x, the block's new cache: None in train mode)."""
+    """(x, the block's new cache: None in train mode, its router stats: None
+    unless ``kind`` is ``"moe"``)."""
     if kind == "rwkv6":
         h = rmsnorm(prm["ln1"], x, eps)
         y, tm_cache = rwkv_mod.rwkv6_timemix_apply(prm["tm"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
@@ -158,16 +182,22 @@ def _apply_block(cfg: ModelConfig, kind: str, prm, x, cos, sin, *, mode, cache, 
         y2, cm_cache = rwkv_mod.rwkv6_channelmix_apply(prm["tm"], prm["cm"], h2, cache=cache)
         # prefill: the channel-mix ran without a cache; decode: both wrote the one cache in place
         new_cache = dict(tm_cache, cm_last=h2[:, -1]) if mode == "prefill" else cm_cache
-        return x + y2, new_cache
+        return x + y2, new_cache, None
     if kind == "mamba2":
         h = rmsnorm(prm["ln1"], x, eps)
         y, new_cache = mamba_mod.mamba2_apply(prm["block"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
-        return x + y, new_cache
+        return x + y, new_cache, None
+    attend = dict(mode=mode, cache=cache, eps=eps, qk_norm_params=prm.get("qknorm"), paged=paged)
+    if cfg.use_parallel_block:  # command-r: x + attn(ln(x)) + ffn(ln(x))
+        h = layernorm(prm["ln1"], x, eps)
+        y_attn, new_cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, **attend)
+        y_ffn, stats = _ffn(cfg, kind, prm["ffn"], h, mode)
+        return x + y_attn + y_ffn, new_cache, stats
     h = rmsnorm(prm["ln1"], x, eps)
-    y, new_cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, mode=mode, cache=cache, paged=paged)
+    y, new_cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, **attend)
     x = x + y
-    h2 = rmsnorm(prm["ln2"], x, eps)
-    return x + mlp_mod.swiglu(prm["ffn"], h2), new_cache
+    y2, stats = _ffn(cfg, kind, prm["ffn"], rmsnorm(prm["ln2"], x, eps), mode)
+    return x + y2, new_cache, stats
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device="cpu") -> dict:
@@ -187,7 +217,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device="
 
 
 def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype, device):
-    if kind in ("attn", "shared_attn"):
+    if kind in ("attn", "moe", "shared_attn"):
         return attn_mod.make_decode_cache(batch, max_len, cfg.attention, dtype, device=device)
     if kind == "mamba2":
         return mamba_mod.make_mamba_cache(batch, cfg.d_model, cfg.ssm, dtype, device=device)
@@ -227,7 +257,9 @@ def apply_model(
     decode_pos=None,
     paged=None,
 ) -> Tuple[torch.Tensor, dict]:
-    """Returns (logits, aux) with aux ``caches`` and ``hidden``.
+    """Returns (logits, aux) with aux ``caches``, ``hidden`` and ``moe_aux``
+    (0-dim f32: the sum over MoE layers of the router's aux loss; zero
+    without MoE).
 
     ``mode="train"``: ``inputs`` holds ``tokens`` (B, S); causal attention
     over the whole sequence, no caches. ``mode="prefill"``: the same forward,
@@ -247,13 +279,14 @@ def apply_model(
     b_, s = x.shape[0], x.shape[1]
     cos, sin = _rope_for(cfg, inputs, b_, s, decode_pos if dense_decode else 0)
     eps = cfg.norm_eps
+    moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Dict[str, Any] = {}
     for si, (kind, n) in enumerate(segments(cfg)):
         key = f"seg{si}"
         seg_cache = caches.get(key) if caches else None
         if kind == "shared_attn":  # the one shared block, at every shared_attn position
-            x, nc = _apply_block(cfg, kind, params["shared_block"], x, cos, sin, mode=mode, cache=seg_cache,
-                                 eps=eps, paged=paged)
+            x, nc, _ = _apply_block(cfg, kind, params["shared_block"], x, cos, sin, mode=mode, cache=seg_cache,
+                                    eps=eps, paged=paged)
             if mode == "prefill":
                 new_caches[key] = nc
             continue
@@ -261,15 +294,17 @@ def apply_model(
         layer_caches = []
         for i in range(n):
             cache = _layer(seg_cache, i) if seg_cache is not None else None
-            x, nc = _apply_block(cfg, kind, _layer(seg_params, i), x, cos, sin, mode=mode, cache=cache, eps=eps,
-                                 paged=paged)
+            x, nc, stats = _apply_block(cfg, kind, _layer(seg_params, i), x, cos, sin, mode=mode, cache=cache,
+                                        eps=eps, paged=paged)
+            if stats is not None:  # the reference's scan carry, layer by layer
+                moe_aux = moe_aux + stats["aux_loss"]
             if mode == "prefill":
                 layer_caches.append(nc)
         if mode == "prefill":  # stacked over the segment's layers, as the reference's scan stacks them
             new_caches[key] = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
     hidden = rmsnorm(params["final_norm"], x, eps)
     out_caches = new_caches if mode == "prefill" else (caches or {})
-    return _head(cfg, params, hidden), dict(caches=out_caches, hidden=hidden)
+    return _head(cfg, params, hidden), dict(caches=out_caches, hidden=hidden, moe_aux=moe_aux)
 
 
 def softmax_xent(logits, targets) -> torch.Tensor:
@@ -283,7 +318,15 @@ def softmax_xent(logits, targets) -> torch.Tensor:
 
 def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
     """``batch``: dict(tokens=(B, S), targets=(B, S)) -> (loss, metrics), as
-    the reference's ``lm_loss`` for a text arch without MoE or MTP."""
-    logits, _ = apply_model(cfg, params, batch, mode="train")
-    loss = softmax_xent(logits, batch["targets"])
-    return loss, dict(xent=loss, loss=loss)
+    the reference's ``lm_loss`` for a text arch without MTP: with MoE the
+    loss adds ``router_aux_weight * moe_aux / num_layers`` and the metrics
+    hold ``moe_aux``."""
+    logits, aux = apply_model(cfg, params, batch, mode="train")
+    xent = softmax_xent(logits, batch["targets"])
+    metrics = dict(xent=xent)
+    loss = xent
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux["moe_aux"] / max(cfg.num_layers, 1)
+        metrics["moe_aux"] = aux["moe_aux"]
+    metrics["loss"] = loss
+    return loss, metrics

@@ -104,7 +104,7 @@ def _grow_all(caches: dict, cfg: ModelConfig, target_len: int) -> dict:
         if key not in caches:
             continue
         c = caches[key]
-        out[key] = grow_cache(c, target_len) if kind in ("attn", "shared_attn") else c
+        out[key] = grow_cache(c, target_len) if kind in ("attn", "moe", "shared_attn") else c
     return out
 
 

@@ -30,8 +30,8 @@ def paged_supported(cfg: ModelConfig) -> bool:
     archs (every segment ``"attn"`` or ``"moe"``, no frontend, no M-RoPE).
     Recurrent and hybrid archs (rwkv6, zamba2's mamba2 segments) keep the
     dense engine: their decode state is O(1) in the sequence length, so
-    there is nothing to page. Of the paged archs the port runs the GQA ones
-    (:func:`require_paged`)."""
+    there is nothing to page. Of the paged archs the port runs the GQA ones,
+    MoE included (:func:`require_paged`)."""
     from repro_torch.models.transformer import segments
 
     if cfg is None:
@@ -47,14 +47,14 @@ def require_paged(cfg: ModelConfig) -> None:
     """Raise unless the port pages ``cfg``: a recurrent or hybrid arch is
     served densely (``BatchedEngine`` with ``paged="auto"``); of the archs
     the reference pages, the port pages the GQA archs whose every segment is
-    ``"attn"`` (MLA and MoE come with their model code, ROADMAP Queue 1 item
-    8)."""
+    ``"attn"`` or ``"moe"`` (MLA comes with its model code, ROADMAP Queue 1
+    item 8)."""
     from repro_torch.models.transformer import _check_supported
 
     if not paged_supported(cfg):
         raise ValueError(f"{getattr(cfg, 'name', cfg)}: paged serving requires an attention-only text arch; "
                          "recurrent and hybrid archs are served by dense decode")
-    refused = ValueError(f"{cfg.name}: the port pages GQA attention-only text archs")
+    refused = ValueError(f"{cfg.name}: the port pages GQA attention and MoE text archs")
     try:
         _check_supported(cfg)
     except NotImplementedError:

@@ -317,3 +317,50 @@ def test_train_launcher_saves_a_checkpoint_that_restores(tmp_path, capsys):
     state = checkpoint.restore(path, template)
     assert int(state.step) == 4  # 2 rounds of tau 2
     assert not torch.equal(state.x.buffers[0], template.x.buffers[0])
+
+
+def test_two_bucket_lm_state_roundtrips_between_the_packages(tmp_path):
+    """The reduced arctic-480b in bf16 (a bf16 bucket and the MoE router's
+    f32 bucket), after one Overlap-Local-SGD round of the reference: the
+    reference's file restores in the port bitwise, the port's file (after a
+    round of its own) restores in the reference bitwise, and both write the
+    same keys, values and layout sidecars."""
+    from repro.api import Experiment as JExperiment
+    from repro.api import TokenStream as JTokenStream
+    from repro.config import get_arch as jget_arch
+    from repro_torch.api import Experiment, TokenStream
+    from repro_torch.config import get_arch
+
+    def pair():
+        jcfg = dataclasses.replace(jget_arch("arctic-480b").model.reduced(), dtype="bfloat16")
+        tcfg = dataclasses.replace(get_arch("arctic-480b").model.reduced(), dtype="bfloat16")
+        kw = dict(workers=2, rounds=1)
+        j = JExperiment(arch=jcfg, optimizer=JOpt(name="sgd", lr=LR), schedule=jsched.constant(LR),
+                        data=JTokenStream(2, 16), **kw).build()
+        p = Experiment(arch=tcfg, optimizer=OptimizerConfig(name="sgd", lr=LR), schedule=schedules.constant(LR),
+                       data=TokenStream(2, 16), device="cpu", **kw).build()
+        return j, p, packing.layout_of(p.params)
+
+    j, p, layout = pair()
+    jinit = j.state
+    assert j.state.x.layout.bucket_dtypes == ("bfloat16", "float32") == layout.bucket_dtypes
+    j.fit(rounds=1)
+    jpath = str(tmp_path / "ref.npz")
+    jsave(jpath, j.state)
+    restored = checkpoint.restore(jpath, interop.state_from_numpy(_np(jinit), layout))
+    _assert_bitwise(restored, j.state)
+    assert [b.dtype for b in restored.x.buffers] == [torch.bfloat16, torch.float32]
+
+    p.state = restored
+    p.fit(rounds=1)
+    ppath = str(tmp_path / "port.npz")
+    checkpoint.save(ppath, p.state)
+    back = jrestore(ppath, jinit)
+    _assert_bitwise(p.state, back)
+    jsave(str(tmp_path / "again.npz"), back)
+    with np.load(ppath) as a, np.load(str(tmp_path / "again.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert any(k.endswith("::1") for k in a.files)  # the f32 bucket of each plane
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

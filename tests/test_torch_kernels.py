@@ -189,7 +189,7 @@ def test_rmsnorm_bwd_plain_is_autograd_of_plain_forward(rng):
     assert rms_ops.rmsnorm(x.detach(), s.detach()).grad_fn is None
 
 
-RMS_PLAN_DS = (64, 80, 2048, 3584, 4096, 4097)
+RMS_PLAN_DS = (64, 80, 2048, 2560, 3584, 4096, 4097, 7168, 8192, 12288)
 RMS_PLAN_ROWS = (1, 7, 33, 300, 65536)
 
 
@@ -220,6 +220,8 @@ def test_rmsnorm_plan_lays_every_vector_once(d, elem):
         assert lanes % 32 == 0 and 32 < lanes <= rms_ops.WIDE_THREADS
         if elem == 2 and d in (2048, 3584, 4096):  # whole vectors a thread: 256, 448, 512 threads of one
             assert (lanes, vecs) == (d // 8, 1)
+        if elem == 2 and d in (7168, 12288):  # arctic's and mistral-large's d_model: 448 of two, 384 of four
+            assert (lanes, vecs) == {7168: (448, 2), 12288: (384, 4)}[d]
     assert d != 64 or elem != 2 or (lanes, vecs) == (8, 1)  # the group norm: 8 lanes of one vector, 32 rows a CTA
 
 
@@ -984,14 +986,19 @@ def test_paged_append_kernel_bitwise_on_card(cuda, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("t", [1, 32, 700])
-def test_paged_append_kv_kernel_bitwise_on_card(cuda, t):
+@pytest.mark.parametrize("kv,d,dtype", [(4, 128, torch.bfloat16), (8, 128, torch.bfloat16), (8, 128, torch.float32),
+                                        (8, 80, torch.bfloat16), (8, 80, torch.float32)],
+                         ids=["kv4_d128", "kv8_d128", "kv8_d128_f32", "kv8_d80", "kv8_d80_f32"])
+def test_paged_append_kv_kernel_bitwise_on_card(cuda, kv, d, dtype, t):
     """Both pools in one launch, bitwise the plain version on each pool: at
     decode, at a prefill chunk, and at S*T = 2,800 rows (350 CTAs, the later
     writers' targets in three tiles), with two idle slots on page 0 and
-    positions clamped past the table's end."""
+    positions clamped past the table's end; at the serving slice's 4 KV
+    heads of 128 and the other GQA archs' 8 of 128 (mistral-large,
+    command-r, arctic) and of 80 (h2o-danube)."""
     gen = torch.Generator(device=cuda).manual_seed(0)
-    pools = [torch.randn(129, 16, 4, 128, generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2)]
-    news = [torch.randn(4, t, 4, 128, generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2)]
+    pools = [torch.randn(129, 16, kv, d, generator=gen, device=cuda).to(dtype) for _ in range(2)]
+    news = [torch.randn(4, t, kv, d, generator=gen, device=cuda).to(dtype) for _ in range(2)]
     pt = (torch.randperm(128, generator=gen, device=cuda).to(torch.int32) + 1).reshape(4, 32).contiguous()
     pt[0] = 0
     pt[2] = 0
@@ -1100,14 +1107,15 @@ def _split_lengths(slots, kv, maxp=32, page=16):
 @pytest.mark.parametrize("window", [None, 64])
 def test_paged_attend_kernel_vs_plain_on_card(cuda, window, dtype):
     """The serving slice's decode (qwen2-7b: 4 KV heads, G 7, D 128) and the
-    other groups one m16 tile holds (G 1, 12, 16), at lengths on, before and
+    other groups one m16 tile holds (G 1, 12, 16; and over 8 KV heads the
+    groups of mistral-large, command-r and arctic: 12, 8, 7), at lengths on, before and
     past a split's edge and 0, with no window, a window of 64 (which empties
     the early splits of the long slots) and one of 300; bitwise on a second
     launch. Then the workspace, reused across calls of other shapes, gives
     the same bits as before."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     first = None
-    for kv, g in ((4, 7), (4, 1), (2, 16), (8, 12)):
+    for kv, g in ((4, 7), (4, 1), (2, 16), (8, 12), (8, 8), (8, 7)):
         outs = _paged_on_card(cuda, gen, kv, g, 128, dtype, _split_lengths(4, kv), (window, 300))
         first = first or outs[0]
     got, (q, pk, pv, pt, lens, w) = first
@@ -1247,11 +1255,15 @@ def test_gossip_and_adamw_wrappers_raise_on_card(cuda):
 
 
 # (B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM slice's
-# shape, h2o-danube-1.8b's head_dim 80, zamba2-1.2b's shared block, a ragged
+# shape, h2o-danube-1.8b's head_dim 80, mistral-large-123b's group of 12 (96
+# heads over 8 KV heads), zamba2-1.2b's shared block, a ragged
 # S with a padded K (NaN past sk_valid), a window, a q_offset
 FA_CARD = [
     (2, 512, 512, 28, 4, 128, True, None, 0, None),
     (2, 512, 512, 32, 8, 80, True, None, 0, None),
+    (2, 512, 512, 96, 8, 128, True, None, 0, None),
+    (2, 512, 512, 64, 8, 128, True, None, 0, None),
+    (2, 512, 512, 56, 8, 128, True, None, 0, None),
     (2, 512, 512, 32, 32, 64, True, 4096, 0, None),
     (1, 130, 160, 4, 2, 64, False, None, 0, 130),
     (2, 256, 256, 8, 2, 128, True, 64, 0, None),
@@ -1261,7 +1273,9 @@ FA_CARD = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", FA_CARD, ids=["slice", "head_dim_80", "zamba2", "ragged", "window", "q_offset"])
+@pytest.mark.parametrize("case", FA_CARD,
+                         ids=["slice", "head_dim_80", "group_12", "group_8", "group_7_kv8", "zamba2", "ragged", "window",
+                              "q_offset"])
 def test_flash_attention_kernels_vs_plain_on_card(cuda, case, dtype):
     """Bounds as chip_smoke.py states them (max|Δ| / max|plain|): f32 1e-5
     forward, 2e-5 gradients; bf16 2^-7 both. Keys past sk_valid hold NaN,
@@ -1430,10 +1444,14 @@ def test_paged_attend_kernel_head_dim_80_on_card(cuda, dtype):
     lanes own three columns, the last lanes fewer, and the Q.K loop ends on a
     16-column tail), then every other head dim the kernel takes (32, 64,
     256); bounds as chip_smoke.py states them: f32 1e-5 absolute, bf16
-    2^-8·|plain| + 1e-5; bitwise on a second launch."""
+    2^-8·|plain| + 1e-5; bitwise on a second launch. Then head_dim 80 with
+    h2o-danube's 4096-token window active: a 264-page table (4224
+    positions) and lengths past the window, whose early splits fall wholly
+    out of it."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     for d in (80, 32, 64, 256):
         _paged_on_card(cuda, gen, 8, 4, d, dtype, _split_lengths(4, 8), (None, 64))
+    _paged_on_card(cuda, gen, 8, 4, 80, dtype, [4095, 4096, 4200, 4223], (4096, None), maxp=264)
 
 
 # (B, S, H, P, G, N, chunk, x/B/C dtype): the reduced zamba2's SSM shape with a
@@ -1622,3 +1640,33 @@ def test_wkv_plans_are_keyed_by_chunk_count_and_dropped_on_growth():
         wkv_ops._WORK.clear()
         wkv_ops._PLANS.update(saved[0])
         wkv_ops._WORK.update(saved[1])
+
+
+# -- arctic's MoE: a bf16 model with an f32 router ---------------------------------
+
+
+@pytest.mark.cuda
+def test_opt_step_and_boundary_on_a_two_bucket_plane_on_card(cuda):
+    """A bf16 model with an f32 MoE router packs into two buckets: K1 and K3
+    run once on each, each bitwise its plain version on that bucket."""
+    from repro_torch.parallel import packing
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tree = {"w": torch.randn(4, 300, 70, generator=gen, device=cuda).to(torch.bfloat16),
+            "router": torch.randn(4, 70, 8, generator=gen, device=cuda)}
+    x = packing.pack(tree, lead=1)
+    assert x.layout.bucket_dtypes == ("bfloat16", "float32")
+    lr = torch.full((), 0.05, device=cuda)
+    kw = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
+    launches = opt_ops.SGD.launches, am_ops.MOMENTUM.launches
+    for xb in x.buffers:
+        g = torch.randn(xb.shape, generator=gen, device=cuda).to(xb.dtype)
+        m = torch.randn(xb.shape, generator=gen, device=cuda).to(xb.dtype)
+        want = opt_ref.sgd_update(xb, g, m, lr, **kw)
+        got = opt_ops.sgd_step(xb.clone(), g, m.clone(), lr, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        z, v = xb[0].clone(), torch.randn(xb.shape[1], generator=gen, device=cuda).to(xb.dtype)
+        want = am_ref.pullback_mean_momentum(xb, z, v, 0.6, 0.7)
+        got = am_ops.pullback_mean_momentum(xb.clone(), z, v.clone(), 0.6, 0.7)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (opt_ops.SGD.launches - launches[0], am_ops.MOMENTUM.launches - launches[1]) == (2, 2)

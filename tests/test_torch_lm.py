@@ -45,7 +45,7 @@ from repro.models import transformer as JT
 from repro.optim import schedules as jsched
 from repro_torch import interop
 from repro_torch.api import Experiment, TokenStream
-from repro_torch.config import AlgoConfig, MoEConfig, OptimizerConfig, get_arch
+from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
 from repro_torch.data import loaders
 from repro_torch.launch import train as train_cli
 from repro_torch.models import transformer as T
@@ -262,10 +262,9 @@ def test_train_launcher_on_cpu(capsys, tmp_path):
 
 def test_lm_paths_outside_the_slice_raise_with_their_roadmap_item():
     _, tcfg = _cfgs()
-    moe = dataclasses.replace(tcfg, moe=MoEConfig(num_experts=4, top_k=2, expert_ff=64),
-                              layer_pattern=("moe", "moe"))
+    mla = dataclasses.replace(tcfg, attention=dataclasses.replace(tcfg.attention, kind="mla"))
     with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(arch=moe, device="cpu").build()
+        Experiment(arch=mla, device="cpu").build()
     with pytest.raises(NotImplementedError, match="item 8"):
         Experiment(arch=dataclasses.replace(tcfg, mtp_depth=1), device="cpu").build()
     with pytest.raises(ValueError, match="not both"):

@@ -303,8 +303,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         assert not bad, bad
         assert "repro_torch.serving.engine" in names and "repro_torch.launch.serve" in names, names
         for n in ("api.experiment", "core.strategy", "training.train_loop", "optim.optimizers",
-                  "parallel.packing", "kernels.opt_step.ops", "kernels.anchor_mix.ops", "data.loaders"):
+                  "parallel.packing", "kernels.opt_step.ops", "kernels.anchor_mix.ops", "data.loaders",
+                  "models.layers.moe", "models.layers.norms", "models.layers.attention",
+                  "configs.h2o_danube_1_8b", "configs.mistral_large_123b", "configs.command_r_35b",
+                  "configs.arctic_480b"):
             assert "repro_torch." + n in names, n
+        from repro_torch.config import list_archs
+        assert set(["h2o-danube-1.8b", "mistral-large-123b", "command-r-35b", "arctic-480b"]) <= set(list_archs())
         print(len(names))
         """
     )

@@ -44,7 +44,7 @@ from repro.training import make_round_step as jmake_round_step
 from repro.training import make_train_state as jmake_train_state
 from repro_torch import interop
 from repro_torch.api import ClassificationSpec, Experiment
-from repro_torch.config import AlgoConfig, MoEConfig, OptimizerConfig, get_arch
+from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
 from repro_torch.core import make_strategy
 from repro_torch.data import loaders
 from repro_torch.models import classifier as clf
@@ -342,7 +342,7 @@ def test_experiment_defaults_to_cuda():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """What still raises, each naming its ROADMAP item: the MoE archs (8),
+    """What still raises, each naming its ROADMAP item: the MLA archs (8),
     host offload (9), the per-leaf oracle (4b) and the runtime model behind
     ``FaultPlan.runtime_config`` (10). The probe and the membership of every
     boundary, ``fit(adaptive_tau=...)``, ``fit(faults=...)`` and the
@@ -351,10 +351,10 @@ def test_unported_paths_raise_with_their_roadmap_item():
     from repro_torch.fault import FaultPlan, from_mask
     from repro_torch.launch import train as train_cli
 
-    moe = dataclasses.replace(get_arch("qwen2-7b").model.reduced(), layer_pattern=("moe", "moe"),
-                              moe=MoEConfig(num_experts=4, top_k=2, expert_ff=64))
+    qcfg = get_arch("qwen2-7b").model.reduced()
+    mla = dataclasses.replace(qcfg, attention=dataclasses.replace(qcfg.attention, kind="mla"))
     with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(arch=moe, device="cpu").build()
+        Experiment(arch=mla, device="cpu").build()
     with pytest.raises(NotImplementedError, match="item 9"):
         make_strategy(AlgoConfig(offload=True))
     with pytest.raises(SystemExit):  # the launcher's flags: an unknown strategy
