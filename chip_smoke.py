@@ -194,12 +194,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    at 1 layer (m = 2), arctic at 1 layer with 8 of its 128 experts (m = 4,
    a bf16 + f32 plane): a non-zero gradient in every leaf, finite losses,
    exact launch counts (K1 and K3 once a bucket), the peaks.
-7. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+7. deepseek-v3-671b (MLA, the MTP loss, the latent paged pools), full
+   width, bf16, weights drawn on the card: (a) K6 at head_dim 192 (v
+   zero-padded from 128, as ``mla_apply`` pads it) forward, dQ and dK/dV
+   in f32 and bf16 against the plain versions with K6's stated bounds (the
+   training shape B 2, S 512, 128 heads; a ragged S with a padded K; a
+   q_offset; a window over a GQA group), timed beside SDPA on the same
+   padded operands, with the bound of the unpadded work beside it; K10 on
+   the rank-3 latent pools (ckv rows of 512, krope rows of 64, one launch)
+   bitwise at T 1, 32 and 700, timed beside two ``index_put_``; (b) the
+   reduced f32 twin trained and served (prefill, decode) on the card and
+   the CPU; (c) paged serving at the first 4 of 61 layers (the 3 dense
+   layers and one MoE layer with all 256 experts) as in phase 6 (K7 and
+   K10 exact, K9 never), then dense ``generate`` of two requests on the
+   same weights (K6's forward and K7 exact), and the first layer in f32:
+   paged tokens == dense ``generate``'s; (d) training at one MoE layer
+   with 16 of the 256 experts (top-8 kept) and the MTP module, m = 2:
+   exact K1, K3, K6 and K7 counts (the MTP block's K6 and norms
+   included), finite losses, the first cross-entropy within 0.25 of ln V +
+   1/2, peaks under 80 GB.
+8. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
-   call), then the device line
-   last.
+   call; K6's rows with their ``d192`` case and K10's with its ``latent``
+   case), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -1154,10 +1173,12 @@ def _rel(got, want) -> float:
 def _fa_inputs(case, dtype, gen, dev):
     import torch
 
-    _, b, sq, sk, h, hkv, d, *_ = case
+    name, b, sq, sk, h, hkv, d, *_ = case
     q = (torch.randn(b, sq, h, d, generator=gen, device=dev) / d**0.5).to(dtype)
     k = torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dtype)
     v = torch.randn(b, sk, hkv, d, generator=gen, device=dev).to(dtype)
+    if name.startswith("mla"):  # MLA's v of 128 columns, zero-padded to the q/k head dim as mla_apply pads it
+        v[..., MLA_DV:] = 0
     dout = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dtype)
     return q, k, v, dout
 
@@ -1184,18 +1205,20 @@ def _fa_work(case, dtype):
             "bwd": (4 * nq + 4 * nk + stats, 5 * per)}
 
 
-def check_flash_attention(dev, gen):
+def check_flash_attention(dev, gen, cases=None, timed_cases=FA_TIMED, covered=FA_COVERED):
     """K6 forward and both backward kernels against their plain versions on
     the card (f32 and bf16), the backward also against torch autograd of the
     plain forward; times in bf16 beside the plain versions, SDPA with GQA
-    expanded (forward; backward alone; forward + backward) and the bound."""
+    expanded (forward; backward alone; forward + backward) and the bound.
+    ``cases`` (default: ``FA_CASES`` and ``FA_LONG``), of which
+    ``timed_cases`` are timed and ``covered`` return their errors."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops, ref
 
     worst = {"fwd": 0.0, "dq": 0.0, "dkdv": 0.0}
-    timing, coverage = {}, {name: {} for name in FA_COVERED}
-    for case in FA_CASES + [FA_LONG]:
+    timing, coverage = {}, {name: {} for name in covered}
+    for case in cases or FA_CASES + [FA_LONG]:
         name, b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
         kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
         for dtype in (torch.float32, torch.bfloat16) if name != "long" else (torch.bfloat16,):
@@ -1234,9 +1257,9 @@ def check_flash_attention(dev, gen):
             worst["fwd"] = max(worst["fwd"], rec["max_abs_err"]["out"])
             worst["dq"] = max(worst["dq"], rec["max_abs_err"]["dq"])
             worst["dkdv"] = max(worst["dkdv"], rec["max_abs_err"]["dk"], rec["max_abs_err"]["dv"])
-            if dtype == torch.bfloat16 and name in FA_TIMED:
+            if dtype == torch.bfloat16 and name in timed_cases:
                 rec["timing"] = timing[name] = _time_flash_attention(case, dtype, q, k, v, dout, out, lse, delta)
-            if name in FA_COVERED:
+            if name in covered:
                 coverage[name][_name(dtype)] = errs
             log(json.dumps(rec))
             if not ok:
@@ -2155,7 +2178,7 @@ DENSE_ARCHS = ("qwen2-7b", "rwkv6-7b", "zamba2-1.2b", "h2o-danube-1.8b", "mistra
 PROFILE_NEW = 8  # tokens of the profiled request: its prefill and 7 decode steps (a short trace to process)
 
 
-def dense_twins_card_vs_cpu(dev):
+def dense_twins_card_vs_cpu(dev, archs=DENSE_ARCHS):
     """The reduced qwen2-7b, rwkv6-7b and zamba2-1.2b in f32 (seeded weights,
     one tree copied to both devices): prefill of 11 tokens at B 2 and of 37
     (a ragged last chunk) at B 1, then decode_step of the next token, on the
@@ -2172,7 +2195,7 @@ def dense_twins_card_vs_cpu(dev):
     from repro_torch.serving.engine import _grow_all
 
     out = []
-    for arch in DENSE_ARCHS:
+    for arch in archs:
         cfg = dataclasses.replace(get_arch(arch).model.reduced(), dtype="float32")
         p_cpu = T.init_model(cfg, torch.Generator().manual_seed(SEED + 3))
         params = {"cuda": _tree_to(p_cpu, dev), "cpu": p_cpu}
@@ -3676,23 +3699,31 @@ NEW_REQUESTS, NEW_MAX_NEW = 4, 16  # the first requests of the serving trace, ea
 NEW_ROUNDS = 2
 
 
-def _cut(cfg, layers, experts=None):
-    """``cfg`` cut to ``layers`` layers (and ``experts`` experts): the
-    published widths, seeded random weights."""
-    kw = dict(num_layers=layers)
-    if cfg.layer_pattern:
-        kw["layer_pattern"] = cfg.layer_pattern[:layers]
-    if experts is not None:
-        kw["moe"] = dataclasses.replace(cfg.moe, num_experts=experts)
-    return dataclasses.replace(cfg, **kw)
+def _cut(cfg, layers, experts=None, pattern=None):
+    """``cfg`` cut to ``layers`` layers (and ``experts`` experts) as the
+    launchers' ``--layers``/``--experts`` cut it, its layer pattern the
+    first ``layers`` kinds or ``pattern``: the published widths, seeded
+    random weights."""
+    from repro_torch.launch import cut
+
+    cfg = cut(cfg, layers, experts)
+    return cfg if pattern is None else dataclasses.replace(cfg, layer_pattern=tuple(pattern))
+
+
+def _block_norms(cfg):
+    """K7 launches an attention block: ln1 and ln2 of a pre-norm block (none
+    for command-r's parallel blocks, whose ln1 is a LayerNorm in plain
+    torch), q_norm and k_norm with QK-norm, MLA's q_norm (with a q LoRA) and
+    kv_norm."""
+    n = 0 if cfg.use_parallel_block else 2
+    if cfg.attention.kind == "mla":
+        return n + (2 if cfg.attention.q_lora_rank else 1)
+    return n + (2 if cfg.use_qk_norm else 0)
 
 
 def _norms_per_forward(cfg):
-    """K7 launches a forward: ln1 and ln2 of each pre-norm block (none for
-    command-r's parallel blocks, whose ln1 is a LayerNorm in plain torch),
-    q_norm and k_norm of each block with QK-norm, and the final norm."""
-    per_layer = (0 if cfg.use_parallel_block else 2) + (2 if cfg.use_qk_norm else 0)
-    return per_layer * cfg.num_layers + 1
+    """K7 launches a forward of the layers: each block's and the final norm."""
+    return _block_norms(cfg) * cfg.num_layers + 1
 
 
 def _expect_launches(what, got, want):
@@ -3751,16 +3782,18 @@ def check_two_bucket_plane(dev, gen):
     return out
 
 
-def serve_new_arch(dev, kernels, arch, layers):
+def serve_new_arch(dev, kernels, arch, layers, keep=False):
     """``arch`` at full width cut to ``layers`` layers (bf16, seeded random
     weights drawn on the card) through ``BatchedEngine``, paged: the first
     ``NEW_REQUESTS`` requests of the serving trace with ``NEW_MAX_NEW`` new
     tokens each (h2o-danube also a ``LONG_PROMPT``-token request whose
     decode runs past its 4096-token window, at max_len ``LONG_MAX_LEN``):
     exactly max_new in-vocab tokens a request, finite logits, and K7, K9
-    and K10 launched exactly as the forwards imply; the peak memory at init
-    and while serving, tok/s and the median decode-step and prefill-chunk ms
-    (each forward synchronised)."""
+    and K10 launched exactly as the forwards imply (K9 never under MLA,
+    whose decode is plain torch); the peak memory at init and while
+    serving, tok/s and the median decode-step and prefill-chunk ms (each
+    forward synchronised). With ``keep`` it returns (the summary, (the cut
+    config, its weights, the trace)) for a run on the same weights."""
     import gc
 
     import numpy as np
@@ -3815,8 +3848,9 @@ def serve_new_arch(dev, kernels, arch, layers):
         raise AssertionError(f"{arch}: non-finite logits")
     n_pre, n_dec = len(eng.ms["prefill"]), len(eng.ms["decode"])
     L = cfg.num_layers
-    want = {"rmsnorm": _norms_per_forward(cfg) * (n_pre + n_dec), "paged_append": L * (n_pre + n_dec),
-            "paged_attend": L * n_dec}
+    want = {"rmsnorm": _norms_per_forward(cfg) * (n_pre + n_dec), "paged_append": L * (n_pre + n_dec)}
+    if cfg.attention.kind != "mla":
+        want["paged_attend"] = L * n_dec
     _expect_launches(f"{arch} serving, {n_pre} prefill + {n_dec} decode forwards", launches, want)
     tokens = sum(len(v) for v in res.values())
     summary = dict(
@@ -3829,7 +3863,10 @@ def serve_new_arch(dev, kernels, arch, layers):
         exact_max_new=True, forwards_synchronised=True,
     )
     log(json.dumps(summary))
-    del params, eng
+    del eng
+    if keep:
+        return summary, (cfg, params, trace)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return summary
@@ -3870,21 +3907,23 @@ def danube_window_dense_vs_paged(dev):
 
 
 def new_arch_launches(cfg, steps, m, buckets, rounds, split):
-    """The training path's launches on a GQA arch, from the config: K6's
-    forward and both backward kernels once a layer, the dK/dV split sum too
-    where the group splits (``split``), K7 forward and backward as
-    :func:`_norms_per_forward` counts them, K1 once a bucket a step, K3 once
-    a bucket a round."""
-    L, per = cfg.num_layers, steps * m
-    out = dict(flash_attention_fwd=per * L, flash_attention_bwd_dq=per * L, flash_attention_bwd_dkdv=per * L,
-               rmsnorm=per * _norms_per_forward(cfg), rmsnorm_bwd=per * _norms_per_forward(cfg),
+    """The training path's launches on a GQA or MLA arch, from the config:
+    K6's forward and both backward kernels once a layer (and once for the
+    MTP module's block), the dK/dV split sum too where the group splits
+    (``split``), K7 forward and backward as :func:`_norms_per_forward`
+    counts them (plus the MTP module's ``ln_in`` and its block's norms), K1
+    once a bucket a step, K3 once a bucket a round."""
+    L, per, mtp = cfg.num_layers, steps * m, cfg.mtp_depth
+    norms = _norms_per_forward(cfg) + mtp * (1 + _block_norms(cfg))
+    out = dict(flash_attention_fwd=per * (L + mtp), flash_attention_bwd_dq=per * (L + mtp),
+               flash_attention_bwd_dkdv=per * (L + mtp), rmsnorm=per * norms, rmsnorm_bwd=per * norms,
                sgd_step=steps * buckets, pullback_momentum=rounds * buckets)
     if split:
-        out["flash_attention_dkdv_sum"] = per * L
+        out["flash_attention_dkdv_sum"] = per * (L + mtp)
     return out
 
 
-def train_new_arch(dev, kernels, arch, layers, workers, experts):
+def train_new_arch(dev, kernels, arch, layers, workers, experts, pattern=None):
     """``arch`` at full width cut to ``layers`` layers (and ``experts``
     experts), bf16, weights drawn on the card, trained with the training
     CLI's defaults (Overlap-Local-SGD tau 2, alpha 0.6, beta 0.7; SGD lr
@@ -3894,7 +3933,12 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts):
     counters: a non-zero gradient in every leaf of every worker in the
     first step, finite losses, exact launch counts (K1 and K3 once a
     bucket: two on arctic's bf16 + f32 plane), the peak at init, after the
-    state is packed and while training; step ms."""
+    state is packed and while training; step ms. ``pattern`` replaces the
+    cut's layer pattern (deepseek trains its MoE layer, not its first dense
+    one); with multi-token prediction the first step's cross-entropy must
+    lie within 0.25 of ln V + 1/2 (random weights: unit-RMS hidden rows
+    through an N(0, 1/d) head give logits of variance 1) and the peak under
+    80 GB."""
     import gc
     import math
 
@@ -3912,7 +3956,7 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts):
     from repro_torch.training import make_round_step, make_train_state
     from repro_torch.training.train_loop import batch_map, gradient_plane
 
-    cfg = _cut(get_arch(arch).model, layers, experts)
+    cfg = _cut(get_arch(arch).model, layers, experts, pattern)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3948,6 +3992,7 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts):
     zero = [z for z in zero if z[1]]
     grad_peak = torch.cuda.max_memory_allocated()
     first_loss = first["loss"].float().cpu().tolist()
+    first_metrics = {k: v.float().cpu().tolist() for k, v in first.items()}
     del pg, first
     _free()
     if zero:
@@ -3975,6 +4020,11 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts):
     _expect_launches(f"{arch} training, {steps} steps x {workers} workers", launches, want)
     if not all(math.isfinite(x) for x in losses + first_loss):
         raise AssertionError(f"{arch} LM losses not finite: {first_loss}, {losses}")
+    expected_xent = math.log(cfg.vocab_size) + 0.5
+    if cfg.mtp_depth and (max(abs(x - expected_xent) for x in first_metrics["xent"]) > 0.25
+                          or max(peak, grad_peak, build_peak) >= 80e9):
+        raise AssertionError(f"{arch}: first xent {first_metrics['xent']} not within 0.25 of {expected_xent}, or a "
+                             f"peak past 80 GB ({peak}, {grad_peak}, {build_peak})")
     summary = dict(
         slice=f"{cfg.name} full width, {layers} of {get_arch(arch).model.num_layers} layers"
               + (f", {experts} of {get_arch(arch).model.moe.num_experts} experts" if experts else "") + ", bf16",
@@ -3982,8 +4032,9 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts):
         buckets=list(layout.bucket_dtypes), plane=[list(b.shape) for b in state.x.buffers], leaves=len(layout.paths),
         build_s=build_s, init_peak_mem_bytes=init_peak, state_bytes=state_bytes, build_peak_mem_bytes=build_peak,
         first_step_peak_mem_bytes=grad_peak, peak_mem_bytes=peak, wall_s=wall, step_ms=wall / steps * 1e3,
-        first_step_losses=first_loss, losses=losses, last_round_metrics=metrics, launches=launches,
-        dkdv_split=split, nonzero_grad_every_leaf=True,
+        first_step_losses=first_loss, first_step_metrics=first_metrics, expected_xent=expected_xent, losses=losses,
+        last_round_metrics=metrics, launches=launches, dkdv_split=split, nonzero_grad_every_leaf=True,
+        pattern=list(cfg.pattern()), mtp_depth=cfg.mtp_depth,
     )
     log(json.dumps(summary))
     del state
@@ -4006,6 +4057,216 @@ def new_arch_twins_card_vs_cpu(dev):
         label = arch + ("+qk_norm" if qk else "")
         out[label] = lm_twin_card_vs_cpu(dev, cfg, label)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: deepseek-v3-671b (MLA in every mode, the MTP loss, the latent
+# paged pools), served and trained at full width; K6 at head_dim 192 and K10
+# on the latent pools
+# ---------------------------------------------------------------------------
+
+DEEPSEEK = "deepseek-v3-671b"
+MLA_DV = 128  # deepseek's v head dim, zero-padded to the q/k head dim of 192 for K6
+# K6 at MLA's head_dim 192 (128 no-RoPE + 64 RoPE columns, v zero-padded from
+# 128): the training shape (B 2, S 512, all 128 heads, group 1), a ragged S
+# with a padded K, a q_offset, and a window over a GQA group (the kernel takes
+# any group at 192; deepseek's is 1)
+FA_MLA = [
+    ("mla", 2, 512, 512, 128, 128, 192, True, None, 0, None),
+    ("mla_ragged", 1, 200, 240, 8, 8, 192, False, None, 0, 200),
+    ("mla_q_offset", 2, 64, 320, 8, 8, 192, True, None, 256, None),
+    ("mla_window", 2, 256, 256, 8, 2, 192, True, 64, 0, None),
+]
+# the serving cut: the first 4 of 61 layers (the 3 dense layers, then one MoE
+# layer with all 256 experts); the training cut: one MoE layer with 16 of the
+# 256 experts (top-8 kept, so the routing is real) and the MTP module, m = 2
+DEEPSEEK_SERVED, DEEPSEEK_TRAINED, DEEPSEEK_WORKERS, DEEPSEEK_EXPERTS = 4, ("moe",), 2, 16
+LATENT = (512, 64)  # deepseek's kv_lora_rank and qk_rope_head_dim: a token's ckv and krope rows
+
+
+def check_flash_attention_d192(dev, gen):
+    """K6 at head_dim 192 by :func:`check_flash_attention` (forward, dQ and
+    dK/dV, f32 and bf16, the stated bounds, the same bits on a second
+    launch), v zero-padded from 128; the training shape timed beside SDPA on
+    the same padded operands. Also the bound of the unpadded work (v and the
+    output at 128 columns, P·V and dV over 128), which shows what the
+    padding wastes."""
+    import torch
+
+    worst, timing, cov = check_flash_attention(dev, gen, cases=FA_MLA, timed_cases=("mla",), covered=("mla",))
+    _, b, sq, sk, h, hkv, d, causal, *_ = FA_MLA[0]
+    t = timing["mla"]
+    pairs = sq * (sq + 1) // 2
+    nqk, nvo, stats = b * sq * h * d * 2, b * sq * h * MLA_DV * 2, b * h * sq * 4
+    per_qk, per_v = 2 * b * h * pairs * d, 2 * b * h * pairs * MLA_DV
+    unpadded = {"fwd": (2 * nqk + 2 * nvo + stats, per_qk + per_v),
+                # q, k, dq at 192; v, out, dO at 128; S and dQ over 192, dP over 128
+                "dq": (3 * nqk + 3 * nvo + 2 * stats, 2 * per_qk + per_v),
+                # q, k, dk at 192; dO, v, dv at 128; S and dK over 192, dP and dV over 128
+                "dkdv": (3 * nqk + 3 * nvo + 2 * stats, 2 * per_qk + 2 * per_v)}
+    for part, (nbytes, flops) in unpadded.items():
+        t[part]["bound_unpadded_ms"], t[part]["bound_unpadded_by"] = bound(nbytes, flops, BF16_FLOPS)
+    t["padding_note"] = ("v and the output carry 64 zero columns (192 for 128): a third of P.V, of V's bytes and "
+                         "of dV's bytes is waste; bound_unpadded_ms counts the work at v 128")
+    log(json.dumps(dict(check="K6 at head_dim 192 (v padded from 128)", worst_max_abs_err=worst,
+                        rel_err=cov["mla"], bound_unpadded_ms={p: t[p]["bound_unpadded_ms"] for p in unpadded})))
+    torch.cuda.empty_cache()
+    return worst, timing, cov
+
+
+def check_paged_append_latent(dev, gen):
+    """K10 on MLA's rank-3 latent pools (deepseek: ckv rows of 512, krope
+    rows of 64; different widths, one launch as the MLA layer calls it),
+    and each pool alone, bitwise against the plain version at T 1, 32 and
+    700 (ragged lengths, page crossings, clamped positions, an idle slot),
+    bf16 and f32; timed in bf16 at T 1 and 32 beside two ``index_put_``
+    calls with the wrapper's host and device time a call; bound: each new
+    row read once and written once, 2 S T 1152 bytes in bf16, plus the
+    lengths and the page-table entries."""
+    import torch
+
+    from repro_torch.kernels.paged_attn import ops, ref
+
+    maxp = MAX_LEN // PAGE
+    num_pages = SLOTS * maxp + 1
+    worst, timing = 0.0, {}
+    cases = {1: [0, 17, 300, maxp * PAGE - 1], 32: [0, 17, 290, 500], 700: [0, 0, 17, 300]}
+    for dtype in (torch.bfloat16, torch.float32):
+        for t, lens_list in cases.items():
+            pt, lens = _tables(gen, dev, SLOTS, maxp, lens_list)
+            pools0 = [torch.randn(num_pages, PAGE, w, generator=gen, device=dev).to(dtype) for w in LATENT]
+            news = [torch.randn(SLOTS, t, w, generator=gen, device=dev).to(dtype) for w in LATENT]
+            got = ops.paged_append_kv_(pools0[0].clone(), pools0[1].clone(), news[0], news[1], pt, lens)
+            want = [ref.paged_append_(p.clone(), n, pt, lens) for p, n in zip(pools0, news)]
+            alone = [ops.paged_append_(p.clone(), n, pt, lens) for p, n in zip(pools0, news)]
+            err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(list(got) + alone, want + want))
+            ok = err == 0.0 and not torch.equal(got[0], pools0[0]) and not torch.equal(got[1], pools0[1])
+            rec = dict(kernel="K10 paged_append, latent pools", dtype=_name(dtype), slots=SLOTS, T=t,
+                       widths=list(LATENT), lengths=lens_list, max_abs_err=err,
+                       bound="bitwise (same last-writer rule), both pools in one launch and each alone", ok=ok)
+            worst = max(worst, err)
+            if dtype == torch.bfloat16 and t in (1, 32):
+                pools = [p.clone() for p in pools0]
+                resolved = [_last_writer_rows(n, pt, lens, t) for n in news]
+                views = [p.view(-1, w) for p, w in zip(pools, LATENT)]
+
+                def two_index_puts():
+                    for view, (idx, rows) in zip(views, resolved):
+                        view.index_put_((idx,), rows)
+
+                nbytes = 2 * SLOTS * t * sum(LATENT) * 2 + 4 * SLOTS + 4 * SLOTS * t
+                rec.update(timed(lambda: ops.paged_append_kv_(pools[0], pools[1], news[0], news[1], pt, lens),
+                                 lambda: [ref.paged_append_(p, n, pt, lens) for p, n in zip(pools, news)],
+                                 two_index_puts, nbytes))
+                rec["library"] = "two index_put_ calls (ckv and krope), the last writers already resolved"
+                timing[t] = rec
+            log(json.dumps(rec))
+            if not ok:
+                raise AssertionError(f"K10 on the latent pools disagrees with plain: {rec}")
+    return worst, timing
+
+
+def deepseek_dense_generate(dev, kernels, cfg, params, trace):
+    """Dense ``generate`` at the serving cut, one request at a time (the
+    first two of the trace, ``NEW_MAX_NEW`` tokens each): exactly max_new
+    in-vocab tokens, finite logits, K6's forward once a layer a prefill and
+    K7 :func:`_norms_per_forward` times a forward, nothing else launched
+    (MLA's decode is plain torch; no page pool); tok/s, decode-step and
+    prefill ms, the peak."""
+    import torch
+
+    from repro_torch.serving import generate
+
+    requests = trace[:2]
+    generate(cfg, params, requests[0][1][None, :20], 2)  # warm
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _StepTimer() as timer:
+        toks = [generate(cfg, params, prompt[None], NEW_MAX_NEW)[0] for _, prompt, _ in requests]
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    forwards = len(requests) * NEW_MAX_NEW  # each request: its prefill, then max_new - 1 decode steps
+    _expect_launches(f"{DEEPSEEK} dense generate", launches,
+                     {"flash_attention_fwd": cfg.num_layers * len(requests),
+                      "rmsnorm": _norms_per_forward(cfg) * forwards})
+    if any(len(t) != NEW_MAX_NEW or t.min() < 0 or t.max() >= cfg.vocab_size for t in toks) or not timer.finite:
+        raise AssertionError(f"{DEEPSEEK} dense generate: wrong token count, out of vocab or non-finite logits")
+    rec = dict(requests=len(requests), prompt_lens=[len(p) for _, p, _ in requests], max_new=NEW_MAX_NEW,
+               tok_s=forwards / wall, wall_s=wall, decode_step_ms_median=_median(timer.ms["decode"]),
+               prefill_ms=timer.ms["prefill"], peak_mem_bytes=peak, launches=launches, tokens=[t.tolist() for t in toks])
+    log(json.dumps(dict(check=f"{DEEPSEEK} dense generate at the serving cut", **rec)))
+    return rec
+
+
+def serve_deepseek(dev, kernels):
+    """deepseek-v3-671b at full width cut to its first ``DEEPSEEK_SERVED``
+    layers (bf16, seeded weights drawn on the card), paged by
+    :func:`serve_new_arch` (the latent pools: K10 once a layer a forward,
+    K9 never, K7 at ln1, ln2, q_norm and kv_norm of each layer and the final
+    norm), then dense ``generate`` on the same weights
+    (:func:`deepseek_dense_generate`)."""
+    import gc
+
+    import torch
+
+    summary, (cfg, params, trace) = serve_new_arch(dev, kernels, DEEPSEEK, DEEPSEEK_SERVED, keep=True)
+    summary["dense_generate"] = deepseek_dense_generate(dev, kernels, cfg, params, trace)
+    summary["launches_dense_generate"] = summary["dense_generate"]["launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def deepseek_dense_vs_paged(dev):
+    """deepseek-v3-671b at full width cut to its first layer (dense FFN,
+    MLA; the MTP module is built and unused), f32: the first two requests of
+    the serving trace through the paged engine (chunked prefill and decode
+    through the latent pools, absorbed attention) and through dense
+    ``generate`` (K6 prefill at head_dim 192 with v padded, absorbed decode
+    against the dense latent cache): the same tokens."""
+    import gc
+
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import BatchedEngine, generate
+
+    cfg = dataclasses.replace(_cut(get_arch(DEEPSEEK).model, 1), dtype="float32")
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED + 7), device=dev)
+    requests = make_trace(cfg.vocab_size)[:2]
+    eng = BatchedEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, chunk=CHUNK, device=dev)
+    for rid, prompt in requests:
+        eng.submit(rid, prompt, NEW_MAX_NEW)
+    paged = eng.run()
+    dense = {rid: generate(cfg, params, prompt[None], NEW_MAX_NEW)[0] for rid, prompt in requests}
+    equal = all(dense[rid].tolist() == paged[rid].tolist() for rid, _ in requests)
+    rec = dict(check=f"{DEEPSEEK} 1 layer f32 at full width: dense generate vs paged", requests=len(requests),
+               prompt_lens=[len(p) for _, p in requests], max_new=NEW_MAX_NEW, equal=equal, ok=equal)
+    log(json.dumps(rec))
+    if not equal:
+        raise AssertionError(f"{DEEPSEEK} dense {dense} != paged {paged}")
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def deepseek_twins_card_vs_cpu(dev):
+    """The reduced deepseek-v3 (f32; [attn, moe] with MLA at dqk 80 and dv 64,
+    so K6 at 80 with v padded; 4 experts top-2 with the shared expert; MTP
+    depth 1): trained by :func:`lm_twin_card_vs_cpu`, and prefill/decode by
+    :func:`dense_twins_card_vs_cpu`."""
+    from repro_torch.config import get_arch
+
+    rel = lm_twin_card_vs_cpu(dev, get_arch(DEEPSEEK).model.reduced(), DEEPSEEK)
+    dense = dense_twins_card_vs_cpu(dev, archs=(DEEPSEEK,))
+    return dict(train_max_rel_err=rel, dense=dense)
 
 
 # ---------------------------------------------------------------------------
@@ -4129,7 +4390,21 @@ def main() -> int:
         new_training[arch] = dict(train_new_arch(dev, kernels, arch, trained, workers, experts), card=card)
         mark(f"phase 6 (c: training {arch})")
 
-    # phase 6
+    # phase 7: deepseek-v3 (MLA, MTP, the latent pools), K6 at 192, K10 on the latent pools
+    fa192_err, fa192_t, fa192_cov = check_flash_attention_d192(dev, gen)
+    lat_err, lat_t = check_paged_append_latent(dev, gen)
+    mark("phase 7 (a: K6 at head_dim 192, K10 on the latent pools)")
+    deepseek_twins_card_vs_cpu(dev)
+    mark("phase 7 (b: reduced twin)")
+    new_serving[DEEPSEEK] = dict(serve_deepseek(dev, kernels), card=card)
+    mark("phase 7 (c: serving deepseek-v3, paged and dense)")
+    deepseek_dense_vs_paged(dev)
+    mark("phase 7 (c: deepseek-v3 1 layer f32, dense == paged)")
+    new_training[DEEPSEEK] = dict(train_new_arch(dev, kernels, DEEPSEEK, 1, DEEPSEEK_WORKERS, DEEPSEEK_EXPERTS,
+                                                 pattern=DEEPSEEK_TRAINED), card=card)
+    mark("phase 7 (d: training deepseek-v3)")
+
+    # the kernels line
     launches = dict(summary["launches"])
     launches["sgd_step"] = runs["overlap_local_sgd"]["launches"]["sgd_step"]
     launches["pullback_momentum"] = runs["overlap_local_sgd"]["launches"]["pullback_momentum"]
@@ -4381,6 +4656,20 @@ def main() -> int:
                                   **{k: fa_t[case][part][k] for k in keys})
         if name in ("sgd_step", "pullback_momentum"):
             entry["two_bucket_plane"] = two_bucket
+        # phase 7: K6 at deepseek's head_dim 192 (v padded from 128), K10 on its latent pools
+        if name.startswith("flash_attention") and name != "flash_attention_dkdv_sum":
+            entry["d192"] = dict(shape="bf16 B=2 S=512 H=128 Hkv=128 D=192 causal, v zero-padded from 128 (deepseek-v3)",
+                                 rel_err=fa192_cov["mla"], max_abs_err=fa192_err[part],
+                                 **{k: fa192_t["mla"][part][k] for k in keys + ("bound_unpadded_ms", "tflops")})
+            entry["d192"]["checked"] = [c[0] for c in FA_MLA]
+            entry["max_abs_err"] = max(entry["max_abs_err"], fa192_err[part])
+            if part != "fwd":
+                entry["d192"]["backward_total"] = {k: fa192_t["mla"]["bwd"][k] for k in keys}
+        if name == "paged_append":
+            entry["latent"] = dict(shape="bf16 S=4 T=1, ckv rows of 512 and krope rows of 64 in one launch "
+                                         "(deepseek-v3's latent pools)", max_abs_err=lat_err, bound="bitwise",
+                                   **{k: lat_t[1][k] for k in keys + split_keys}, library=lat_t[1]["library"])
+            entry["latent"]["T32"] = {k: lat_t[32][k] for k in keys + split_keys}
         out.append(entry)
     out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys + split_keys})
     out[0]["prefill"] = dict(shape="bf16 rows=32 d=3584 (a prefill chunk)", **{k: rms_t[32][k] for k in keys + split_keys})

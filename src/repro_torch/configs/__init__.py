@@ -2,6 +2,7 @@
 from repro_torch.configs import (  # noqa: F401
     arctic_480b,
     command_r_35b,
+    deepseek_v3_671b,
     h2o_danube_1_8b,
     mistral_large_123b,
     qwen2_7b,
@@ -10,4 +11,4 @@ from repro_torch.configs import (  # noqa: F401
 )
 
 ASSIGNED = ["qwen2-7b", "rwkv6-7b", "zamba2-1.2b", "h2o-danube-1.8b", "mistral-large-123b", "command-r-35b",
-            "arctic-480b"]
+            "arctic-480b", "deepseek-v3-671b"]

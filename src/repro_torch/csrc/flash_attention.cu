@@ -1,5 +1,7 @@
 // Flash attention, forward and backward (FlashAttention-2), causal / sliding
-// window / GQA, for float32 and bfloat16 with head_dim 64, 80 or 128.
+// window / GQA, for float32 and bfloat16 with head_dim 64, 80, 128 or 192
+// (DeepSeek-V3's MLA: 128 no-RoPE + 64 RoPE columns, v zero-padded from 128
+// by the caller, as the reference pads it for its Pallas kernel).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention/kernel.py::
 // flash_attention_bhsd (_fa_kernel). The reference has no backward kernel (it
@@ -58,6 +60,12 @@
 //             partials, and dkdv_sum_kernel, a second grid behind its own
 //             entry point (flash_attention_dkdv_sum_launch, counted on its
 //             own wrapper), adds them in split order and rounds once.
+//   head_dim 192 (three column blocks): the forward walks 64-key blocks (Q
+//             and three stages of 128-key K and V would need 336 KB of
+//             shared memory), and the dK/dV pass is dkdv_ws_kernel: 64
+//             keys a CTA, warpgroup 0 computing P and dV, warpgroup 1 dP,
+//             dS (from P handed over in shared memory) and dK, so that a
+//             thread holds one 64 x 192 accumulator (96 registers), not two.
 //   Rounding: scores, statistics and accumulators in f32; p (forward), P
 //   and dS (backward) rounded to bf16 as the tensor cores' operands; each
 //   output rounded once. Every sum runs in a fixed order: a second launch
@@ -717,6 +725,32 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t* a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 // 2^x on the special-function unit (an input of -inf gives 0; results below 2^-126 flush to 0)
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -808,8 +842,16 @@ __device__ __forceinline__ void key_span(int q0, int nq, int bk, const Shape& s,
   *end = e;
 }
 
+// The forward's key block: 128 keys, or 64 at head_dim 192, where Q and a
+// three-stage ring of 128-key K and V tiles (336 KB) would not fit the 227 KB
+// a CTA may hold, and O (96 f32 a thread) beside 128-key scores and P
+// fragments would pass the 255 registers a thread.
 template <int D>
-constexpr int fwd_smem() { return 1024 + 7 * tile_elems<128, D>() * 2; }  // Q, three stages of K and V
+__host__ __device__ constexpr int fwd_bk() { return D > 128 ? 64 : 128; }
+template <int D>
+constexpr int fwd_smem() {  // Q, three stages of K and V
+  return 1024 + (tile_elems<128, D>() + 6 * tile_elems<fwd_bk<D>(), D>()) * 2;
+}
 template <int D>
 constexpr int dq_smem() {  // Q, dO, two stages of K and V (64 rows), lse, delta
   return 1024 + (2 * tile_elems<128, D>() + 4 * tile_elems<64, D>()) * 2 + 2 * 128 * 4;
@@ -818,21 +860,31 @@ template <int D>
 constexpr int dkdv_smem() {  // K, V, two stages of Q, dO (64 rows), lse, delta
   return 1024 + (2 * tile_elems<128, D>() + 4 * tile_elems<64, D>()) * 2 + 4 * 64 * 4;
 }
+template <int D>
+constexpr int dkdv_ws_smem() {  // K, V (64 rows), two stages of Q, dO (64 rows), lse, delta, P in f32
+  return 1024 + 6 * tile_elems<64, D>() * 2 + 4 * 64 * 4 + 32 * 128 * 4;
+}
+// Every instance fits the 227 KB of shared memory a CTA may opt into (the
+// static barriers, a few dozen bytes, come on top).
+static_assert(fwd_smem<192>() + 64 <= 232448 && dq_smem<192>() + 64 <= 232448 &&
+              dkdv_ws_smem<192>() + 64 <= 232448 && fwd_smem<80>() + 64 <= 232448 && fwd_smem<128>() + 64 <= 232448 &&
+              dq_smem<128>() + 64 <= 232448 && dkdv_smem<128>() + 64 <= 232448, "shared memory");
 
 // Forward: one CTA per (b h, 128 query rows), q-blocks in reverse so that the
 // longest causal rows start first; warpgroup g owns rows [64 g, 64 g + 64).
-// Key blocks of 128 stream by TMA through a three-stage ring. Each
+// Key blocks of fwd_bk (128; 64 at head_dim 192) stream by TMA through a
+// three-stage ring. Each
 // warpgroup issues S_j = Q K_j^T and then O += P_{j-1} V_{j-1}, and runs the
 // softmax of block j while the second product is on the tensor cores.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, float* __restrict__ lse, Shape s) {
-  constexpr int BQ = 128, BK = 128, TILE = tile_elems<128, D>(), STAGE = 2 * TILE;
+  constexpr int BQ = 128, BK = fwd_bk<D>(), QT = tile_elems<128, D>(), TILE = tile_elems<BK, D>(), STAGE = 2 * TILE;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t bar[4];  // the three K/V stages, then Q
   bf16* Qs = tiles(smem_raw);
-  bf16* KV = Qs + TILE;  // stage st: K at KV + st STAGE, V at KV + st STAGE + TILE
+  bf16* KV = Qs + QT;  // stage st: K at KV + st STAGE, V at KV + st STAGE + TILE
 
   const int bh = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
   const int b = bh / s.h, h = bh % s.h, hk = h / s.group;
@@ -849,7 +901,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    mbar_expect(&bar[3], TILE * 2);
+    mbar_expect(&bar[3], QT * 2);
     tma_tile<BQ, D>(Qs, &tq, h, q0, b, &bar[3]);
     if (nblk > 0) {
       mbar_expect(&bar[0], STAGE * 2);
@@ -1237,6 +1289,151 @@ dkdv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
   }
 }
 
+// dK / dV at head_dim 192. Two 64 x 192 f32 accumulators in one warpgroup
+// would take 192 registers a thread before the scores, so the warpgroups
+// split the work by output instead of by keys: one CTA per (b, kv-head,
+// split of its q-heads, 64 keys), both warpgroups on the same keys.
+// Warpgroup 0 computes S^T = K Q^T and P, hands P over in f32 through shared
+// memory, and accumulates dV += P^T dO; warpgroup 1 computes dP^T = V dO^T,
+// dS = P (dP - delta) from the P it is handed, and accumulates
+// dK += dS^T Q. Each element's arithmetic is that of dkdv_kernel; the ring
+// of Q, dO and statistics is the same.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_ws_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, float* __restrict__ part, int nsplit, Shape s) {
+  constexpr int BK = 64, BQ = 64, TILE = tile_elems<64, D>();
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bar[3];  // the two Q/dO stages, then K and V
+  bf16* Ks = tiles(smem_raw);
+  bf16* Vs = Ks + TILE;
+  bf16* QO = Vs + TILE;  // stage st: Q at QO + 2 st TILE, dO after it
+  float* stats = reinterpret_cast<float*>(QO + 4 * TILE);  // stage st: lse at stats + 2 st BQ, delta after it
+  float* Pbuf = stats + 4 * BQ;  // P of the current step: element i of thread t at i * 128 + t
+
+  const int sp = blockIdx.x % nsplit, bk = blockIdx.x / nsplit, k0 = blockIdx.y * BK;
+  const int b = bk / s.hkv, hk = bk % s.hkv;
+  const int g0 = sp * s.group / nsplit, g1 = (sp + 1) * s.group / nsplit;
+  const long long kv_stride = (long long)s.hkv * D, kv_base = (long long)b * s.sk * kv_stride + (long long)hk * D;
+  const int wg = threadIdx.x / 128, t128 = threadIdx.x % 128, warp = t128 / 32, lane = threadIdx.x % 32;
+  const int k_lo = k0 + 16 * warp + lane / 4, col = 2 * (lane % 4);
+
+  // the query rows that can see a key in [k0, k_last]
+  const int k_last = min(k0 + BK, s.sk) - 1;
+  int qbegin = 0, qend = s.sq;
+  if (s.causal) qbegin = max(0, k0 - s.q_offset);
+  if (s.has_window) qend = min(qend, k_last + s.window - s.q_offset);
+  if (k0 >= s.sk_valid) qend = 0;
+  qbegin = (qbegin / BQ) * BQ;
+  const int nqb = qend > qbegin ? (qend - qbegin + BQ - 1) / BQ : 0;
+  const int total = (g1 - g0) * nqb;
+
+  auto issue = [&](int t, int st) {
+    const int h = hk * s.group + g0 + t / nqb, qb0 = qbegin + (t % nqb) * BQ;
+    if (threadIdx.x == 0) {
+      mbar_expect(&bar[st], 2 * TILE * 2);
+      tma_tile<BQ, D>(QO + 2 * st * TILE, &tq, h, qb0, b, &bar[st]);
+      tma_tile<BQ, D>(QO + (2 * st + 1) * TILE, &tdo, h, qb0, b, &bar[st]);
+    }
+    const long long row = (long long)(b * s.h + h) * s.sq;
+    load_stats(stats + 2 * st * BQ, lse + row, qb0, BQ, s.sq);
+    load_stats(stats + (2 * st + 1) * BQ, delta + row, qb0, BQ, s.sq);
+    cp_async_commit();
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect(&bar[2], 2 * TILE * 2);
+    tma_tile<BK, D>(Ks, &tk, hk, k0, b, &bar[2]);
+    tma_tile<BK, D>(Vs, &tv, hk, k0, b, &bar[2]);
+  }
+  if (total > 0) issue(0, 0);
+
+  float acc[D / 2];  // warpgroup 0: dV; warpgroup 1: dK
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint64_t dA = desc_k<BK>(wg == 0 ? Ks : Vs, 0);
+  mbar_wait(&bar[2], 0);
+  for (int t = 0; t < total; ++t) {
+    const int st = t & 1, qb0 = qbegin + (t % nqb) * BQ;
+    mbar_wait(&bar[st], (t >> 1) & 1);
+    cp_async_wait_all();
+    __syncthreads();  // this step's statistics have landed; nobody still reads step t - 1's stage or P
+    if (t + 1 < total) issue(t + 1, (t + 1) & 1);
+    const bf16* Qt = QO + 2 * st * TILE;
+    const bf16* dOt = Qt + TILE;
+    const float* lse_t = stats + 2 * st * BQ;
+    const float* dl_t = lse_t + BQ;
+    float sc[BQ / 2];  // warpgroup 0: S^T, then P; warpgroup 1: dP^T, then dS
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) sc[i] = 0.f;
+    wgmma_fence();
+    const uint64_t dB = desc_k<BQ>(wg == 0 ? Qt : dOt, 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BQ>(sc, dA + k_slice<BK>(kk), dB + k_slice<BQ>(kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(sc);
+    if (wg == 0) {  // element (key row, query column c): rows past sq are masked too
+      const bool full = qb0 + BQ <= s.sq && block_visible(qb0, BQ, k0, BK, s);
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + col + e % 2, key = k_lo + 8 * (e / 2);
+          const bool vis = full || (qb0 + c < s.sq && visible(s.q_offset + qb0 + c, key, s));
+          const float p = vis ? exp2_ftz(fmaf(sc[4 * n + e], kLog2e, -lse_t[c] * kLog2e)) : 0.f;
+          sc[4 * n + e] = p;
+          Pbuf[(4 * n + e) * 128 + t128] = p;
+        }
+    }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");  // P is in shared memory
+    if (wg == 1) {
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + col + e % 2;
+          sc[4 * n + e] = Pbuf[(4 * n + e) * 128 + t128] * (sc[4 * n + e] - dl_t[c]);
+        }
+    }
+    uint32_t af[BQ / 4];  // P (warpgroup 0) or dS (warpgroup 1) rounded to bf16 for the tensor cores
+#pragma unroll
+    for (int t2 = 0; t2 < BQ / 4; ++t2) af[t2] = pack_bf16(sc[2 * t2], sc[2 * t2 + 1]);
+    wgmma_fence();
+    const uint64_t dm = desc_mn<BQ>(wg == 0 ? dOt : Qt, 0);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(acc, af + 4 * kk, dm + kMnSlice * kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(acc);
+    keep(af);
+  }
+  cp_async_wait_all();
+  const long long n_el = (long long)(gridDim.x / nsplit) * s.sk * D;  // elements of dk
+  bf16* dst = wg == 0 ? dv : dk;
+  float* pdst = part + (wg == 0 ? nsplit + sp : sp) * n_el;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k_lo + 8 * i;
+    if (key >= s.sk) continue;
+    const long long off = kv_base + (long long)key * kv_stride + col;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int e = 4 * n + 2 * i;
+      if (nsplit == 1)
+        *reinterpret_cast<uint32_t*>(dst + off + 8 * n) = pack_bf16(acc[e], acc[e + 1]);
+      else
+        *reinterpret_cast<float2*>(pdst + off + 8 * n) = make_float2(acc[e], acc[e + 1]);
+    }
+  }
+}
+
 // dK, dV = the sum of the splits' f32 partials, in split order, rounded once.
 __global__ void __launch_bounds__(256)
 dkdv_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk, bf16* __restrict__ dv, long long n_el,
@@ -1293,8 +1490,9 @@ int fwd(const void* q, const void* k, const void* v, void* out, void* lse, int b
   static const cudaError_t ready = allow_smem(fwd_kernel<D>, fwd_smem<D>());
   if (ready != cudaSuccess) return (int)ready;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, b, s.sq, s.sq, s.h, D, 128) || !make_map(&tk, k, b, s.sk, s.sk_valid, s.hkv, D, 128) ||
-      !make_map(&tv, v, b, s.sk, s.sk_valid, s.hkv, D, 128))
+  if (!make_map(&tq, q, b, s.sq, s.sq, s.h, D, 128) ||
+      !make_map(&tk, k, b, s.sk, s.sk_valid, s.hkv, D, fwd_bk<D>()) ||
+      !make_map(&tv, v, b, s.sk, s.sk_valid, s.hkv, D, fwd_bk<D>()))
     return (int)cudaErrorInvalidValue;
   const dim3 grid(b * s.h, (s.sq + 127) / 128);
   fwd_kernel<D><<<grid, kThreads, fwd_smem<D>(), st>>>(tq, tk, tv, static_cast<bf16*>(out),
@@ -1321,17 +1519,31 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* out, const v
 template <int D>
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
              void* dk, void* dv, void* part, int nsplit, int b, const Shape& s, cudaStream_t st) {
-  static const cudaError_t ready = allow_smem(dkdv_kernel<D>, dkdv_smem<D>());
-  if (ready != cudaSuccess) return (int)ready;
-  CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, b, s.sq, s.sq, s.h, D, 64) || !make_map(&tdo, dout, b, s.sq, s.sq, s.h, D, 64) ||
-      !make_map(&tk, k, b, s.sk, s.sk_valid, s.hkv, D, 128) || !make_map(&tv, v, b, s.sk, s.sk_valid, s.hkv, D, 128))
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(b * s.hkv * nsplit, (s.sk + 127) / 128);
-  dkdv_kernel<D><<<grid, kThreads, dkdv_smem<D>(), st>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), static_cast<float*>(part), nsplit, s);
-  return (int)cudaGetLastError();
+  if constexpr (D > 128) {  // the warpgroups split by output, 64 keys a CTA
+    static const cudaError_t ready = allow_smem(dkdv_ws_kernel<D>, dkdv_ws_smem<D>());
+    if (ready != cudaSuccess) return (int)ready;
+    CUtensorMap tq, tk, tv, tdo;
+    if (!make_map(&tq, q, b, s.sq, s.sq, s.h, D, 64) || !make_map(&tdo, dout, b, s.sq, s.sq, s.h, D, 64) ||
+        !make_map(&tk, k, b, s.sk, s.sk_valid, s.hkv, D, 64) || !make_map(&tv, v, b, s.sk, s.sk_valid, s.hkv, D, 64))
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid(b * s.hkv * nsplit, (s.sk + 63) / 64);
+    dkdv_ws_kernel<D><<<grid, kThreads, dkdv_ws_smem<D>(), st>>>(
+        tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), static_cast<float*>(part), nsplit, s);
+    return (int)cudaGetLastError();
+  } else {
+    static const cudaError_t ready = allow_smem(dkdv_kernel<D>, dkdv_smem<D>());
+    if (ready != cudaSuccess) return (int)ready;
+    CUtensorMap tq, tk, tv, tdo;
+    if (!make_map(&tq, q, b, s.sq, s.sq, s.h, D, 64) || !make_map(&tdo, dout, b, s.sq, s.sq, s.h, D, 64) ||
+        !make_map(&tk, k, b, s.sk, s.sk_valid, s.hkv, D, 128) || !make_map(&tv, v, b, s.sk, s.sk_valid, s.hkv, D, 128))
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid(b * s.hkv * nsplit, (s.sk + 127) / 128);
+    dkdv_kernel<D><<<grid, kThreads, dkdv_smem<D>(), st>>>(
+        tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), static_cast<float*>(part), nsplit, s);
+    return (int)cudaGetLastError();
+  }
 }
 
 }  // namespace tc
@@ -1344,10 +1556,11 @@ int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, cons
     case 64: return CALL(64);            \
     case 80: return CALL(80);            \
     case 128: return CALL(128);          \
+    case 192: return CALL(192);          \
     default: return (int)cudaErrorInvalidValue; \
   }
 
-// dtype: 0 = float32, 1 = bfloat16; d: 64, 80 or 128; window <= 0: none.
+// dtype: 0 = float32, 1 = bfloat16; d: 64, 80, 128 or 192; window <= 0: none.
 // q, out: (b, sq, h, d); k, v: (b, sk, hkv, d); lse: (b, h, sq) f32. All contiguous, 16-byte aligned.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* out, void* lse, int b,
                                           int sq, int sk, int h, int hkv, int d, int causal, int window,

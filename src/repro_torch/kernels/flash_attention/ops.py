@@ -10,6 +10,12 @@ reference's wrapper, nothing is padded: neither the head dim to 128 lanes
 nor the sequence to whole blocks (both TPU artifacts); the kernels
 bounds-check their tiles and mask keys at or past ``sk_valid``.
 
+Head dims 64, 80, 128 and 192 (DeepSeek-V3's MLA: 128 no-RoPE + 64 RoPE
+columns; its v of 128 is zero-padded to 192 by the caller, as the
+reference pads it for its Pallas kernel, and the output sliced back). At
+192 the bf16 forward walks 64-key blocks (its plain version too), and the
+bf16 dK/dV pass gives one warpgroup P and dV, the other dS and dK.
+
 Routes, picked by the input dtype alone: bfloat16 runs the tensor-core
 kernels (``wgmma``, tiles streamed by TMA into a ring), float32 the CUDA-core
 ones (the tensor cores would take f32 only as TF32, which cannot meet the
@@ -46,7 +52,7 @@ BWD_DKDV = Kernel("flash_attention_bwd_dkdv", {"flash_attention_bwd_dkdv_launch"
                   source="flash_attention")
 BWD_DKDV_SUM = Kernel("flash_attention_dkdv_sum", {"flash_attention_dkdv_sum_launch": [P, P, P, L, I, P]},
                       source="flash_attention")
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 128, 192)  # 192: DeepSeek-V3's MLA, v zero-padded from 128
 
 
 def dkdv_splits(b: int, hkv: int, group: int, sk: int, sms: int) -> int:

@@ -10,8 +10,9 @@ pre-scaled q, and ``q_offset``, the absolute position of q[:, 0].
   Pallas body op for op (f32 scores; the masks ``k < sk_valid``, causal and
   window; ``safe_m`` for rows with every key masked; p rounded to v's dtype
   before P·V; f32 accumulation; division by ``max(l, 1e-30)``), walking the
-  keys in blocks of 128, the bf16 CUDA kernel's and the Pallas body's own,
-  so p is rounded at the same running max. It also returns the per-row f32
+  keys in blocks of 128, the bf16 CUDA kernel's and the Pallas body's own
+  (64 at head_dim 192, the kernel's block there), so p is rounded at the
+  same running max. It also returns the per-row f32
   log-sum-exp the backward kernel needs (``+inf`` for a fully masked row).
 * :func:`flash_attention_bwd` — the plain version of the backward kernels
   (FlashAttention-2): p recomputed in f32 from the log-sum-exp and **not**
@@ -35,6 +36,13 @@ NEG_INF = float("-inf")
 BLOCK_K = 128  # keys per block of the online softmax: the bf16 kernel's and the Pallas body's
 
 
+def block_k_for(d: int) -> int:
+    """Keys per block of the bf16 forward kernel at head_dim ``d``:
+    :data:`BLOCK_K`, or 64 above 128 (at 192 the kernel's shared memory holds
+    Q and a ring of 64-key K and V tiles)."""
+    return BLOCK_K if d <= 128 else 64
+
+
 def visible(sq: int, sk: int, *, causal: bool, window: Optional[int], q_offset: int,
             sk_valid: Optional[int] = None, device=None) -> torch.Tensor:
     """(Sq, Sk) bool: which keys each query attends to."""
@@ -54,10 +62,12 @@ def _grouped(q: torch.Tensor, hkv: int) -> torch.Tensor:
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, window: Optional[int] = None, q_offset: int = 0,
-                        sk_valid: Optional[int] = None, block_k: int = BLOCK_K) -> Tuple[torch.Tensor, torch.Tensor]:
+                        sk_valid: Optional[int] = None, block_k: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) f32). The
-    online softmax walks ``block_k`` keys at a time, as the kernel does, so
-    p is rounded to v's dtype at the same scale in both."""
+    online softmax walks ``block_k`` keys at a time (default
+    :func:`block_k_for` of the head dim), as the kernel does, so p is
+    rounded to v's dtype at the same scale in both."""
+    block_k = block_k or block_k_for(q.shape[-1])
     b, sq, h, _ = q.shape
     k, v = _valid(k, sk_valid), _valid(v, sk_valid)
     sk, hkv = k.shape[1], k.shape[2]

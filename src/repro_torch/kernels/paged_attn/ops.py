@@ -5,8 +5,15 @@ versions in ``ref`` for CPU tensors (counterpart of
 * :func:`paged_append_kv_` (both pools in one launch, as the attention layer
   calls it) and :func:`paged_append_` (one pool) — ``csrc/paged_append.cu``
   (replaces ``paged_attn/kernel.py::paged_append_decode``) for every T ≥ 1,
-  so chunked prefill appends go through the kernel too. Kernel and plain
-  version apply the same last-writer rule and agree bitwise.
+  so chunked prefill appends go through the kernel too. The GQA pools are
+  ``(P, page, KV, D)``; MLA's latent pools are rank 3, ``(P, page, r)``,
+  taken as one head of width r, and the two latent pools (ckv and krope)
+  have rows of different widths, still appended in one launch. (The
+  reference sends a rank-3 append to its jnp path, ``ops.py:41``.) Kernel
+  and plain version apply the same last-writer rule and agree bitwise.
+* :func:`paged_attend_mla` — the absorbed MLA decode over the latent pools:
+  plain torch on every device (``ref.paged_attend_mla``), as the reference
+  keeps it jnp on every backend; it is no Pallas kernel.
 * :func:`paged_attend_gqa` — for T == 1 (joint decode) ``csrc/paged_attend.cu``
   (replaces ``paged_attn/kernel.py::paged_attend_decode``), its grid split over
   the positions by :func:`decode_splits` and merged in the same launch through
@@ -20,6 +27,7 @@ versions in ``ref`` for CPU tensors (counterpart of
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -28,7 +36,7 @@ from repro_torch.kernels._build import I, Kernel, P, dtype_code, stream_ptr
 from repro_torch.kernels.paged_attn import ref
 
 APPEND = Kernel("paged_append", {"paged_append_launch": [P, P, P, P, I, I, I, I, I, I, P],
-                                 "paged_append_kv_launch": [P, P, P, P, P, P, I, I, I, I, I, I, P]})
+                                 "paged_append_kv_launch": [P, P, P, P, P, P, I, I, I, I, I, I, I, P]})
 ATTEND = Kernel("paged_attend", {"paged_attend_launch": [P] * 8 + [I] * 11 + [P]})
 GROUP_MAX = 16  # query heads per KV head the decode kernel takes (mistral-large's 12 among them): one m16 tile
 HEAD_DIMS = (32, 64, 80, 128, 256)  # multiples of 16 (the tensor cores' k step), each with its own instance
@@ -121,11 +129,21 @@ def _on_cpu(*ts: torch.Tensor) -> bool:
     return True
 
 
+paged_attend_mla = ref.paged_attend_mla
+
+
 def _check_append(pool, new):
+    """The shapes of a pool (P, page, KV, D) or (P, page, r) and its new
+    rows (S, T, KV, D) or (S, T, r)."""
     pshape, nshape = pool.shape, new.shape
-    if len(pshape) != 4 or len(nshape) != 4 or nshape[2:] != pshape[2:]:
-        raise ValueError(f"pool (P, page, KV, D) and new (S, T, KV, D), got {tuple(pshape)}, {tuple(nshape)}")
+    if len(pshape) not in (3, 4) or len(nshape) != len(pshape) or nshape[2:] != pshape[2:]:
+        raise ValueError(f"pool (P, page, KV, D) or (P, page, r) and new (S, T, KV, D) or (S, T, r), got "
+                         f"{tuple(pshape)}, {tuple(nshape)}")
     return pshape, nshape
+
+
+def _row_bytes(pool) -> int:
+    return math.prod(pool.shape[2:]) * pool.element_size()
 
 
 def _as_pool(new, dtype):
@@ -137,9 +155,11 @@ def _as_pool(new, dtype):
 
 
 def paged_append_(pool, new, page_tables, lengths):
-    """(P, page, KV, D) pool ← (S, T, KV, D) new tokens, in place; returns
-    ``pool``. Replaces JAX's aliased/donated pool update."""
-    (num_pages, page, kvh, hd), (s_, t, _, _) = _check_append(pool, new)
+    """(P, page, KV, D) pool ← (S, T, KV, D) new tokens (or a rank-3 latent
+    pool (P, page, r) ← (S, T, r)), in place; returns ``pool``. Replaces
+    JAX's aliased/donated pool update."""
+    pshape, nshape = _check_append(pool, new)
+    (num_pages, page), (s_, t) = pshape[:2], nshape[:2]
     if _on_cpu(pool, new, page_tables, lengths):
         return ref.paged_append_(pool, new, page_tables, lengths)
     _check_tables(page_tables, lengths, s_)
@@ -149,19 +169,23 @@ def paged_append_(pool, new, page_tables, lengths):
     new = _as_pool(new, pool.dtype)
     APPEND.launch(
         "paged_append_launch", pool.data_ptr(), new.data_ptr(), page_tables.data_ptr(), lengths.data_ptr(), s_, t,
-        page_tables.shape[1], page, num_pages, kvh * hd * pool.element_size(), stream_ptr(pool.device),
+        page_tables.shape[1], page, num_pages, _row_bytes(pool), stream_ptr(pool.device),
     )
     return pool
 
 
 def paged_append_kv_(pool_k, pool_v, k, v, page_tables, lengths):
-    """K and V appended to their pools in one launch, in place; returns
-    ``(pool_k, pool_v)``. The pools share one shape and dtype, k and v one
-    shape; the plain version is :func:`ref.paged_append_` on each pool."""
+    """Two pools appended in one launch, in place; returns ``(pool_k,
+    pool_v)``: GQA's K and V pools, or MLA's latent pools (``pool_ckv``
+    (P, page, r) ← ckv (S, T, r) and ``pool_krope`` (P, page, dr) ← krope
+    (S, T, dr)). The pools share their pages, page size and dtype, k and v
+    their (S, T); their rows may differ in width. The plain version is
+    :func:`ref.paged_append_` on each pool."""
     pshape, kshape = _check_append(pool_k, k)
-    if pool_v.shape != pshape or v.shape != kshape:
-        raise ValueError(f"pool_v {tuple(pool_v.shape)} and v {tuple(v.shape)} must match "
-                         f"pool_k {tuple(pshape)} and k {tuple(kshape)}")
+    if (pool_v.dim() != len(pshape) or pool_v.shape[:2] != pshape[:2] or v.shape[:2] != kshape[:2]
+            or v.shape[2:] != pool_v.shape[2:]):
+        raise ValueError(f"pool_v {tuple(pool_v.shape)} and v {tuple(v.shape)} must match pool_k {tuple(pshape)} "
+                         f"and k {tuple(kshape)} in rank, (P, page) and (S, T), and each other in their rows")
     dtype = pool_k.dtype
     if pool_v.dtype != dtype:
         raise TypeError(f"pool_k/pool_v dtypes differ: {dtype}, {pool_v.dtype}")
@@ -173,11 +197,11 @@ def paged_append_kv_(pool_k, pool_v, k, v, page_tables, lengths):
         raise ValueError("paged_append_kv_: pools must be contiguous (they are written in place)")
     dtype_code(dtype)  # raises on an element type the kernel does not take
     k, v = _as_pool(k, dtype), _as_pool(v, dtype)
-    num_pages, page, kvh, hd = pshape
+    num_pages, page = pshape[:2]
     APPEND.launch(
         "paged_append_kv_launch", pool_k.data_ptr(), pool_v.data_ptr(), k.data_ptr(), v.data_ptr(),
         page_tables.data_ptr(), lengths.data_ptr(), s_, t, page_tables.shape[1], page, num_pages,
-        kvh * hd * pool_k.element_size(), stream_ptr(pool_k.device),
+        _row_bytes(pool_k), _row_bytes(pool_v), stream_ptr(pool_k.device),
     )
     return pool_k, pool_v
 

@@ -2,7 +2,8 @@
 ``repro.kernels.paged_attn.ref`` (same layouts, einsum strings, f32 upcasts,
 mask values and softmax).
 
-A *pool* is ``(num_pages, page_size, kv_heads, head_dim)``; a slot's page
+A *pool* is ``(num_pages, page_size, kv_heads, head_dim)`` (GQA) or
+``(num_pages, page_size, rank)`` (MLA's latent pools); a slot's page
 table ``(slots, max_pages)`` maps its logical pages to physical ones, and
 ``lengths (slots,)`` counts the tokens already resident, which is also the
 position of the first token appended this call. Physical page 0 is the trash
@@ -94,3 +95,29 @@ def paged_attend_gqa(
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgql,blhd->bqhgd", p, v.to(torch.float32))
     return out.reshape(b, t, h, d)
+
+
+def paged_attend_mla(
+    q_lat: torch.Tensor,  # (S, T, H, r): the W_uk-absorbed no-RoPE query
+    q_rope: torch.Tensor,  # (S, T, H, dr)
+    pool_ckv: torch.Tensor,  # (P, page, r)
+    pool_krope: torch.Tensor,  # (P, page, dr)
+    page_tables: torch.Tensor,
+    lengths: torch.Tensor,
+    *,
+    scale: float,
+) -> torch.Tensor:
+    """Absorbed MLA decode over the paged latent cache (the reference's
+    ``paged_attend_mla``, which has no Pallas kernel on any backend): f32
+    scores over ckv and krope, ``scale`` applied in f32, the in-chunk causal
+    mask, softmax, then the latent output (S, T, H, r) in f32; the caller
+    applies W_uv."""
+    ckv = paged_gather(pool_ckv, page_tables)  # (S, L, r)
+    kr = paged_gather(pool_krope, page_tables)  # (S, L, dr)
+    s_nope = torch.einsum("bshr,blr->bhsl", q_lat.to(torch.float32), ckv.to(torch.float32))
+    s_rope = torch.einsum("bshk,blk->bhsl", q_rope.to(torch.float32), kr.to(torch.float32))
+    scores = (s_nope + s_rope) * scale
+    valid = _causal_valid(lengths, q_lat.shape[1], ckv.shape[1], None)  # (S, T, L)
+    scores = scores.masked_fill(~valid[:, None, :, :], float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhsl,blr->bshr", p, ckv.to(torch.float32))

@@ -6,10 +6,13 @@
         [--algo overlap_local_sgd] [--tau 2] [--alpha 0.6] [--workers 4] [--full]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --rounds 3 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --full --rounds 3 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b --full --layers 1 --workers 2 --seq 512
 
 ``--arch`` takes every ported arch (qwen2-7b, h2o-danube-1.8b,
-mistral-large-123b, command-r-35b, arctic-480b, rwkv6-7b, zamba2-1.2b),
-reduced unless ``--full`` is given. Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
+mistral-large-123b, command-r-35b, arctic-480b, deepseek-v3-671b,
+rwkv6-7b, zamba2-1.2b), reduced unless ``--full`` is given; ``--layers N``
+and ``--experts E`` cut the config to its first N layers and E routed
+experts (the published widths at a depth one card holds). Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
 strategy of the reference and its aliases (``dasgd``, ``loscar``,
 ``overlap``, ``sgp``); ``--ckpt PATH`` saves the final ``TrainState`` there
 (:mod:`repro_torch.checkpoint`, the reference's .npz format).
@@ -21,9 +24,10 @@ import time
 
 from repro_torch import checkpoint
 from repro_torch.api import Experiment, TokenStream
-from repro_torch.config import AlgoConfig, OptimizerConfig, list_archs
+from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch, list_archs
 from repro_torch.core import STRATEGIES
 from repro_torch.core.strategy import _ALIASES
+from repro_torch.launch import cut
 from repro_torch.optim import schedules
 
 
@@ -42,12 +46,15 @@ def main(argv=None) -> None:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--full", action="store_true", help="use the full (not reduced) model config")
+    ap.add_argument("--layers", type=int, default=None, help="cut the model to its first N layers")
+    ap.add_argument("--experts", type=int, default=None, help="cut a MoE model to E routed experts")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
+    model = get_arch(args.arch).model
     exp = Experiment(
-        arch=args.arch,
+        arch=cut(model if args.full else model.reduced(), args.layers, args.experts),
         strategy=AlgoConfig(
             name=args.algo,
             tau=args.tau,
@@ -61,7 +68,6 @@ def main(argv=None) -> None:
         data=TokenStream(batch_per_worker=args.batch, seq_len=args.seq),
         workers=args.workers,
         rounds=args.rounds,
-        full=args.full,
         device=args.device,
     )
     exp.build()

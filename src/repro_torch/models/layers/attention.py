@@ -1,5 +1,5 @@
-"""Grouped-query attention (counterpart of the GQA parts of
-``repro.models.layers.attention``).
+"""Grouped-query attention and DeepSeek-V3's multi-head latent attention
+(counterpart of ``repro.models.layers.attention``).
 
 Ported: ``init_gqa``, ``init_qk_norm``, ``_project_qkv`` (with
 ``qkv_bias``), the optional QK-norm (an RMSNorm of each head's q and k over
@@ -27,8 +27,26 @@ absolute position each slot holds, -1 when empty) and ``pos`` (0-dim
 int32, the next position); a segment's caches carry a leading layer axis.
 Unlike the reference, dense decode writes the cache **in place** (the
 slot's K/V and position, and ``pos`` advanced by one) and returns it, so a
-step costs no copy of the cache. MLA comes in a
-later slice (ROADMAP Queue 1 item 8).
+step costs no copy of the cache.
+
+MLA (``init_mla``, ``mla_apply``; arXiv:2412.19437): the query through the
+low-rank ``wdq`` → ``q_norm`` (K7) → ``wuq`` (or one ``wq`` without a q
+LoRA), the shared latent ``wdkv`` → ``kv_norm`` (K7), and one RoPE key of
+``qk_rope_head_dim`` from ``wkr``, broadcast over the heads. In every mode
+as the reference:
+
+* ``mode="train"`` and ``"prefill"``: k = [latent·wuk ; RoPE key], v =
+  latent·wuv, q pre-scaled by 1/√(dn + dr) rounded to x's dtype, and K6
+  at head_dim dn + dr with v zero-padded to it and the output sliced back
+  (the reference's Pallas route, ``attention.py:303-305``; on the CPU the
+  plain K6 body on the same padded operands); prefill's cache is the
+  latent ``ckv`` (B, S, r), ``krope`` (B, S, dr) and ``pos``;
+* ``mode="decode"`` with ``paged=``: the latent rows appended to
+  ``pool_ckv`` and ``pool_krope`` in one K10 launch, then the absorbed
+  attention (q through wuk into the latent, ``paged_attend_mla``, wuv),
+  plain torch on every device as in the reference;
+* dense ``mode="decode"``: the absorbed attention against the latent
+  cache, whose slot ``min(pos, L - 1)`` and ``pos`` are written in place.
 """
 from __future__ import annotations
 
@@ -61,6 +79,25 @@ def init_gqa(b, name: str, d_model: int, cfg: AttentionConfig):
             b.param("bo", (d_model,), init="zeros")
 
 
+def init_mla(b, name: str, d_model: int, cfg: AttentionConfig):
+    """MLA projections fused over (heads × per-head dims), as in the reference."""
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    with b.scope(name):
+        if cfg.q_lora_rank:
+            b.param("wdq", (d_model, cfg.q_lora_rank))
+            init_rmsnorm(b, "q_norm", cfg.q_lora_rank)
+            b.param("wuq", (cfg.q_lora_rank, h * (dn + dr)))
+        else:
+            b.param("wq", (d_model, h * (dn + dr)))
+        b.param("wdkv", (d_model, cfg.kv_lora_rank))
+        init_rmsnorm(b, "kv_norm", cfg.kv_lora_rank)
+        b.param("wuk", (cfg.kv_lora_rank, h * dn))
+        b.param("wuv", (cfg.kv_lora_rank, h * dv))
+        b.param("wkr", (d_model, dr))
+        b.param("wo", (h * dv, d_model))
+
+
 def init_qk_norm(b, name: str, cfg: AttentionConfig):
     with b.scope(name):
         init_rmsnorm(b, "q_norm", cfg.head_dim)
@@ -73,6 +110,14 @@ def _sqrt_in(n: int, dtype: torch.dtype) -> float:
     ``jnp.sqrt(jnp.asarray(n, q.dtype))`` — as a Python float, so scaling q
     makes no host-to-device copy (which would synchronise the stream)."""
     return float(torch.sqrt(torch.tensor(float(n), dtype=dtype)))
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_scale(n: int, dtype: torch.dtype) -> Tuple[float, float]:
+    """(1/√n in f32, the same rounded to ``dtype``) as Python floats: the
+    reference's f32 ``scale`` and its ``scale.astype(x.dtype)``."""
+    s = 1.0 / torch.sqrt(torch.tensor(float(n), dtype=torch.float32))
+    return float(s), float(s.to(dtype))
 
 
 def _project_qkv(params, cfg: AttentionConfig, x):
@@ -149,6 +194,79 @@ def gqa_apply(
     return y, new_cache
 
 
+def mla_apply(
+    params,
+    cfg: AttentionConfig,
+    x,  # (B, S, d_model)
+    cos,
+    sin,
+    *,
+    mode: str = "train",
+    cache: Optional[dict] = None,
+    eps: float = 1e-5,
+    paged=None,  # serving.paged_cache.PagedState
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """The reference's ``mla_apply`` in every mode (see the module docstring)."""
+    b_, s, _ = x.shape
+    h = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if cfg.q_lora_rank:
+        q = rmsnorm(params["q_norm"], x @ params["wdq"], eps) @ params["wuq"]
+    else:
+        q = x @ params["wq"]
+    q = q.reshape(b_, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], rope_mod.apply_rope(q[..., dn:], cos, sin)
+    ckv = rmsnorm(params["kv_norm"], x @ params["wdkv"], eps)  # (B, S, r)
+    k_rope = rope_mod.apply_rope((x @ params["wkr"])[:, :, None, :], cos, sin)  # (B, S, 1, dr)
+    scale, scale_x = _mla_scale(dn + dr, x.dtype)
+    r = cfg.kv_lora_rank
+
+    new_cache = None
+    if mode in ("train", "prefill"):
+        k_nope = (ckv @ params["wuk"]).reshape(b_, s, h, dn)
+        v = (ckv @ params["wuv"]).reshape(b_, s, h, dv)
+        k = torch.cat([k_nope, k_rope.expand(b_, s, h, dr)], dim=-1)
+        qcat = torch.cat([q_nope, q_rope], dim=-1) * scale_x
+        # v zero-padded to the q/k head dim for the one-D kernel, the output sliced back
+        out = fa_ops.flash_attention(qcat, k, F.pad(v, (0, dn + dr - dv)), True, None, 0)[..., :dv]
+        if mode == "prefill":
+            new_cache = dict(ckv=ckv.contiguous(), krope=k_rope[:, :, 0, :].contiguous(),
+                             pos=torch.tensor(s, dtype=torch.int32, device=x.device))
+    elif mode == "decode" and paged is not None:
+        pa_ops.paged_append_kv_(cache["pool_ckv"], cache["pool_krope"], ckv, k_rope[:, :, 0, :], paged.page_tables,
+                                paged.lengths)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["wuk"].reshape(r, h, dn))
+        o_lat = pa_ops.paged_attend_mla(q_lat, q_rope, cache["pool_ckv"], cache["pool_krope"], paged.page_tables,
+                                        paged.lengths, scale=scale)
+        out = torch.einsum("bshr,rhk->bshk", o_lat, params["wuv"].reshape(r, h, dv).to(torch.float32))
+        new_cache = cache
+    elif mode == "decode":
+        if cache is None or "ckv" not in cache:
+            raise ValueError("mla_apply(mode='decode') needs a latent cache (ckv, krope, pos) or paged=")
+        pos = cache["pos"]
+        slot = torch.clamp(pos, max=cache["ckv"].shape[1] - 1).reshape(1).long()
+        cache["ckv"].index_copy_(1, slot, ckv[:, :1].to(cache["ckv"].dtype))
+        cache["krope"].index_copy_(1, slot, k_rope[:, :1, 0].to(cache["krope"].dtype))
+        # absorb W_uk into q: (B, 1, h, dn) x (r, h, dn) -> (B, 1, h, r)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, params["wuk"].reshape(r, h, dn))
+        ckv_all, kr_all = cache["ckv"].to(torch.float32), cache["krope"].to(torch.float32)
+        s_nope = torch.einsum("bshr,blr->bhsl", q_lat.to(torch.float32), ckv_all)
+        s_rope = torch.einsum("bshk,blk->bhsl", q_rope.to(torch.float32), kr_all)
+        scores = (s_nope + s_rope) * scale
+        valid = torch.arange(ckv_all.shape[1], device=x.device) <= pos
+        scores = scores.masked_fill(~valid, float("-inf"))
+        p = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhsl,blr->bshr", p, ckv_all)
+        out = torch.einsum("bshr,rhk->bshk", o_lat, params["wuv"].reshape(r, h, dv).to(torch.float32))
+        pos.add_(1)
+        new_cache = cache
+    else:
+        raise ValueError(f"mla_apply: unknown mode {mode!r}")
+
+    y = out.to(x.dtype).reshape(b_, out.shape[1], h * dv) @ params["wo"]
+    return y, new_cache
+
+
 # -- dense KV cache (full or a sliding-window ring buffer) ---------------------------
 
 
@@ -163,8 +281,16 @@ def _init_cache_from_prefill(k, v, window: Optional[int]) -> dict:
 
 def grow_cache(cache: dict, new_len: int) -> dict:
     """Extend a prefill cache's buffers to ``new_len`` slots (new slots empty:
-    zero K/V, position -1); recurrent caches are returned as they are. Any
-    leading (layer) axes are kept."""
+    zero K/V, position -1; MLA's latent rows zero); recurrent caches are
+    returned as they are. Any leading (layer) axes are kept."""
+    if "ckv" in cache:  # MLA latent cache
+        cur = cache["ckv"].shape[-2]
+        if cur >= new_len:
+            return cache
+        out = dict(cache)
+        out["ckv"] = F.pad(cache["ckv"], (0, 0, 0, new_len - cur))
+        out["krope"] = F.pad(cache["krope"], (0, 0, 0, new_len - cur))
+        return out
     if "k" not in cache:
         return cache
     cur = cache["k"].shape[-3]
@@ -181,7 +307,12 @@ def grow_cache(cache: dict, new_len: int) -> dict:
 def make_decode_cache(batch: int, max_len: int, cfg: AttentionConfig, dtype, device="cpu") -> dict:
     """A cache 'already full' at ``pos = max_len - 1`` for pure-decode runs: a
     warm ring buffer whose slot i holds the most recent absolute position
-    congruent to i modulo its length (the window's, under a sliding window)."""
+    congruent to i modulo its length (the window's, under a sliding window);
+    MLA's latent cache is zero rows of ``max_len`` at that ``pos``."""
+    if cfg.kind == "mla":
+        return dict(ckv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+                    krope=torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dtype, device=device),
+                    pos=torch.tensor(max_len - 1, dtype=torch.int32, device=device))
     window = cfg.sliding_window
     length = min(max_len, window) if window else max_len
     pos = max_len - 1

@@ -9,11 +9,12 @@ Python loop over its layers here, indexing the stacked weights and pools
 how the training loop hands each layer its own gradient window; see
 :func:`split_layers`).
 
-Ported for the GQA text archs: ``"attn"`` segments (pre-norm RMSNorm blocks
+Ported for the text archs: ``"attn"`` segments (pre-norm RMSNorm blocks
 with SwiGLU, or command-r's parallel blocks: one bias-free LayerNorm feeding
-attention and the FFN, ``x + attn(h) + ffn(h)``, no ``ln2``; optional
-QK-norm), ``"moe"`` segments (the same blocks with the MoE FFN of
-:mod:`repro_torch.models.layers.moe`; the router's aux loss is carried
+attention and the FFN, ``x + attn(h) + ffn(h)``, no ``ln2``; GQA attention
+with optional QK-norm, or DeepSeek-V3's MLA), ``"moe"`` segments (the same
+blocks with the MoE FFN of :mod:`repro_torch.models.layers.moe`; the
+router's aux loss is carried
 across layers as ``moe_aux``), ``"rwkv6"`` segments (RMSNorm, RWKV-6
 time-mix and channel-mix), ``"mamba2"`` segments (RMSNorm, the Mamba2 SSD
 block) and ``"shared_attn"`` positions, where the one weight-shared
@@ -26,8 +27,10 @@ head's ``logit_scale``: ``segments``, ``init_model``, ``init_caches``,
 attention, K12 WKV or K11 SSD scan, K7 norms; ``"prefill"``, which returns
 the dense caches; ``"decode"`` against the dense caches or, for
 attention-only archs, with ``paged=``), ``softmax_xent`` and ``lm_loss``
-(with the router term for MoE archs). MLA, M-RoPE, GELU MLPs, frontends
-and MTP (ROADMAP Queue 1 item 8) raise here.
+(with the router term for MoE archs and DeepSeek-V3's multi-token
+prediction loss: one ``mtp`` module, an unstacked scope of ``ln_in``,
+``proj`` and one dense ``"attn"`` block, weight 0.3). M-RoPE, GELU MLPs and
+frontends (ROADMAP Queue 1 item 8) raise here.
 
 Caches are laid out as the reference's: under ``seg{i}``, each leaf stacked
 over the segment's layers (a ``shared_attn`` position's cache unstacked),
@@ -69,12 +72,13 @@ _SSM_KINDS = ("rwkv6", "mamba2")
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise unless the port runs ``cfg``: a text arch whose segments are
-    ``"attn"`` or ``"moe"`` (GQA, SiLU; parallel blocks and QK-norm allowed),
-    ``"rwkv6"``, ``"mamba2"`` or ``"shared_attn"`` (with
+    ``"attn"`` or ``"moe"`` (GQA or MLA, SiLU; parallel blocks and QK-norm
+    allowed), ``"rwkv6"``, ``"mamba2"`` or ``"shared_attn"`` (with
     ``shared_attn_every`` set), the recurrent segments taking the
-    ``ssm.kind`` of their name; tied or untied embeddings."""
-    if cfg.frontend is not None or cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: frontends and multi-token prediction are {ITEM8}")
+    ``ssm.kind`` of their name; tied or untied embeddings; multi-token
+    prediction (one module, as the reference builds it)."""
+    if cfg.frontend is not None:
+        raise NotImplementedError(f"{cfg.name}: frontends are {ITEM8}")
     kinds = {kind for kind, _ in segments(cfg)}
     other = kinds - {"attn", "moe", "shared_attn", *_SSM_KINDS}
     if other:
@@ -91,8 +95,8 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(f"{cfg.name}: attention config without attention segments ({ITEM8})")
         return
     a = cfg.attention
-    if a is None or a.kind != "gqa" or a.rope == "mrope":
-        raise NotImplementedError(f"{cfg.name}: the port covers GQA text archs; MLA and M-RoPE are {ITEM8}")
+    if a is None or a.kind not in ("gqa", "mla") or a.rope == "mrope":
+        raise NotImplementedError(f"{cfg.name}: the port covers GQA and MLA text archs; M-RoPE is {ITEM8}")
     if cfg.act != "silu":
         raise NotImplementedError(f"{cfg.name}: GELU MLPs are {ITEM8}")
 
@@ -101,9 +105,12 @@ def _init_block(b, cfg: ModelConfig, kind: str):
     d = cfg.d_model
     if kind in ("attn", "moe", "shared_attn"):
         (init_layernorm if cfg.use_parallel_block else init_rmsnorm)(b, "ln1", d)
-        attn_mod.init_gqa(b, "attn", d, cfg.attention)
-        if cfg.use_qk_norm:
-            attn_mod.init_qk_norm(b, "qknorm", cfg.attention)
+        if cfg.attention.kind == "mla":
+            attn_mod.init_mla(b, "attn", d, cfg.attention)
+        else:
+            attn_mod.init_gqa(b, "attn", d, cfg.attention)
+            if cfg.use_qk_norm:
+                attn_mod.init_qk_norm(b, "qknorm", cfg.attention)
         if not cfg.use_parallel_block:
             init_rmsnorm(b, "ln2", d)
         if kind == "moe":
@@ -125,8 +132,8 @@ def _init_block(b, cfg: ModelConfig, kind: str):
 def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu") -> dict:
     """Parameters as nested dicts of tensors on ``device``, each stacked
     segment under ``seg{i}`` with a leading layer axis, the shared attention
-    block (if any) under ``shared_block``, and no ``head`` when the
-    embeddings are tied."""
+    block (if any) under ``shared_block``, the multi-token prediction module
+    (if any) under ``mtp``, and no ``head`` when the embeddings are tied."""
     _check_supported(cfg)
     b = P.Builder(generator, cfg.param_dtype, device)
     d = cfg.d_model
@@ -137,6 +144,11 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu") -> di
     if cfg.shared_attn_every:
         with b.scope("shared_block"):
             _init_block(b, cfg, "shared_attn")
+    if cfg.mtp_depth:
+        with b.scope("mtp"):
+            init_rmsnorm(b, "ln_in", d)
+            b.param("proj", (2 * d, d))
+            _init_block(b, cfg, "attn")
     params = b.params
     for si, (kind, n) in enumerate(segments(cfg)):
         if kind == "shared_attn":
@@ -187,14 +199,21 @@ def _apply_block(cfg: ModelConfig, kind: str, prm, x, cos, sin, *, mode, cache, 
         h = rmsnorm(prm["ln1"], x, eps)
         y, new_cache = mamba_mod.mamba2_apply(prm["block"], cfg.ssm, h, mode=mode, cache=cache, eps=eps)
         return x + y, new_cache, None
-    attend = dict(mode=mode, cache=cache, eps=eps, qk_norm_params=prm.get("qknorm"), paged=paged)
+    if cfg.attention.kind == "mla":
+        def attend(h):
+            return attn_mod.mla_apply(prm["attn"], cfg.attention, h, cos, sin, mode=mode, cache=cache, eps=eps,
+                                      paged=paged)
+    else:
+        def attend(h):
+            return attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, mode=mode, cache=cache, eps=eps,
+                                      qk_norm_params=prm.get("qknorm"), paged=paged)
     if cfg.use_parallel_block:  # command-r: x + attn(ln(x)) + ffn(ln(x))
         h = layernorm(prm["ln1"], x, eps)
-        y_attn, new_cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, **attend)
+        y_attn, new_cache = attend(h)
         y_ffn, stats = _ffn(cfg, kind, prm["ffn"], h, mode)
         return x + y_attn + y_ffn, new_cache, stats
     h = rmsnorm(prm["ln1"], x, eps)
-    y, new_cache = attn_mod.gqa_apply(prm["attn"], cfg.attention, h, cos, sin, **attend)
+    y, new_cache = attend(h)
     x = x + y
     y2, stats = _ffn(cfg, kind, prm["ffn"], rmsnorm(prm["ln2"], x, eps), mode)
     return x + y2, new_cache, stats
@@ -233,13 +252,14 @@ def _embed(cfg: ModelConfig, params, inputs) -> torch.Tensor:
 
 
 def _rope_for(cfg: ModelConfig, inputs, batch: int, seq: int, offset=0):
+    """cos/sin over the head dim (MLA: its RoPE part, ``qk_rope_head_dim``)."""
     a = cfg.attention
     if a is None or a.rope == "none":
         return None, None
     pos = inputs.get("positions")
     if pos is None:
         pos = rope_mod.text_positions(batch, seq, offset, device=inputs["tokens"].device)
-    return rope_mod.rope_cos_sin(pos, a.head_dim, a.rope_theta)
+    return rope_mod.rope_cos_sin(pos, a.qk_rope_head_dim if a.kind == "mla" else a.head_dim, a.rope_theta)
 
 
 def _head(cfg: ModelConfig, params, hidden):
@@ -318,9 +338,10 @@ def softmax_xent(logits, targets) -> torch.Tensor:
 
 def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
     """``batch``: dict(tokens=(B, S), targets=(B, S)) -> (loss, metrics), as
-    the reference's ``lm_loss`` for a text arch without MTP: with MoE the
-    loss adds ``router_aux_weight * moe_aux / num_layers`` and the metrics
-    hold ``moe_aux``."""
+    the reference's ``lm_loss`` for a text arch: with MoE the loss adds
+    ``router_aux_weight * moe_aux / num_layers`` and the metrics hold
+    ``moe_aux``; with multi-token prediction it adds ``0.3 * mtp`` and the
+    metrics hold ``mtp`` (:func:`_mtp_loss`)."""
     logits, aux = apply_model(cfg, params, batch, mode="train")
     xent = softmax_xent(logits, batch["targets"])
     metrics = dict(xent=xent)
@@ -328,5 +349,25 @@ def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux["moe_aux"] / max(cfg.num_layers, 1)
         metrics["moe_aux"] = aux["moe_aux"]
+    if cfg.mtp_depth:
+        mtp = _mtp_loss(cfg, params, batch, aux["hidden"])
+        loss = loss + 0.3 * mtp
+        metrics["mtp"] = mtp
     metrics["loss"] = loss
     return loss, metrics
+
+
+def _mtp_loss(cfg: ModelConfig, params, batch, hidden) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction, as the reference's: predict
+    token t + 2 from [ln_in(h_t) ; emb(token t + 1)] through ``proj``, the
+    module's ``"attn"`` block and the shared head, scored against
+    ``targets[:, 1:]``. ``tok_emb`` gets gradient from this gather too, and
+    ``head`` from both heads."""
+    tgt = batch["targets"]
+    emb_next = F.embedding(tgt.long(), params["tok_emb"])  # the embedding of token t + 1
+    mtp = params["mtp"]
+    h = rmsnorm(mtp["ln_in"], hidden, cfg.norm_eps)
+    z = torch.cat([h[:, :-1], emb_next[:, :-1].to(h.dtype)], dim=-1) @ mtp["proj"]
+    cos, sin = _rope_for(cfg, dict(tokens=tgt), z.shape[0], z.shape[1])
+    z, _, _ = _apply_block(cfg, "attn", mtp, z, cos, sin, mode="train", cache=None, eps=cfg.norm_eps, paged=None)
+    return softmax_xent(_head(cfg, params, z), tgt[:, 1:])

@@ -11,9 +11,12 @@ place, step by step.
 
 ``paged_step`` serves both chunked prefill (tokens ``(1, C)``) and joint
 decode (tokens ``(slots, 1)``) against the shared page pool. Every RMSNorm
-goes through kernel K7, every K/V append through K10 and every decode
+goes through kernel K7, every K/V append through K10 and every GQA decode
 attention through K9 when the tensors are on the card; the T > 1 prefill
-attention is the plain body, as in the reference. The pools are updated
+attention is the plain body, as in the reference. MLA (deepseek-v3) pages
+its latent rows (``pool_ckv``, ``pool_krope``; both appended in one K10
+launch a layer) and attends in the absorbed form, plain torch on every
+device as the reference computes it. The pools are updated
 **in place** on the device, which replaces JAX's donated, aliased pool
 buffers: ``paged_step`` returns the same pool tensors it was given.
 
@@ -211,7 +214,8 @@ class BatchedEngine:
         if self.paged:
             require_paged(cfg)
             a = cfg.attention
-            pa_ops.check_decode_shape(a.num_heads // a.num_kv_heads, a.head_dim)
+            if a.kind != "mla":  # MLA's absorbed decode is plain torch, not K9
+                pa_ops.check_decode_shape(a.num_heads // a.num_kv_heads, a.head_dim)
         self.device = resolve_device(device)
         self._plane: Optional[Packed] = None
         self._pending_plane: Optional[Packed] = None

@@ -2,7 +2,11 @@
 ``repro.serving.paged_cache``).
 
 One pool pair per attention segment, with a leading layer axis:
-``pool_k`` / ``pool_v`` are (n, num_pages, page_size, kv_heads, head_dim).
+
+* GQA: ``pool_k`` / ``pool_v`` — (n, num_pages, page_size, kv_heads, head_dim);
+* MLA: ``pool_ckv`` / ``pool_krope`` — (n, num_pages, page_size, rank), the
+  latent of ``kv_lora_rank`` and the RoPE key of ``qk_rope_head_dim``.
+
 The page table and lengths are host-owned scheduler state passed per step
 as a :class:`PagedState`, shared by every layer. Physical page 0 is the
 trash page: idle rows carry a zero table row and length 0, so their
@@ -30,8 +34,8 @@ def paged_supported(cfg: ModelConfig) -> bool:
     archs (every segment ``"attn"`` or ``"moe"``, no frontend, no M-RoPE).
     Recurrent and hybrid archs (rwkv6, zamba2's mamba2 segments) keep the
     dense engine: their decode state is O(1) in the sequence length, so
-    there is nothing to page. Of the paged archs the port runs the GQA ones,
-    MoE included (:func:`require_paged`)."""
+    there is nothing to page. Of the paged archs the port runs the GQA and
+    MLA ones, MoE included (:func:`require_paged`)."""
     from repro_torch.models.transformer import segments
 
     if cfg is None:
@@ -47,14 +51,13 @@ def require_paged(cfg: ModelConfig) -> None:
     """Raise unless the port pages ``cfg``: a recurrent or hybrid arch is
     served densely (``BatchedEngine`` with ``paged="auto"``); of the archs
     the reference pages, the port pages the GQA archs whose every segment is
-    ``"attn"`` or ``"moe"`` (MLA comes with its model code, ROADMAP Queue 1
-    item 8)."""
+    ``"attn"`` or ``"moe"``, and the MLA archs (deepseek-v3)."""
     from repro_torch.models.transformer import _check_supported
 
     if not paged_supported(cfg):
         raise ValueError(f"{getattr(cfg, 'name', cfg)}: paged serving requires an attention-only text arch; "
                          "recurrent and hybrid archs are served by dense decode")
-    refused = ValueError(f"{cfg.name}: the port pages GQA attention and MoE text archs")
+    refused = ValueError(f"{cfg.name}: the port pages GQA and MLA attention and MoE text archs")
     try:
         _check_supported(cfg)
     except NotImplementedError:
@@ -76,6 +79,12 @@ def init_paged_pools(
     a = cfg.attention
     pools: Dict[str, Any] = {}
     for si, (_, n) in enumerate(segments(cfg)):
+        if a.kind == "mla":
+            pools[f"seg{si}"] = dict(
+                pool_ckv=torch.zeros((n, num_pages, page_size, a.kv_lora_rank), dtype=dtype, device=device),
+                pool_krope=torch.zeros((n, num_pages, page_size, a.qk_rope_head_dim), dtype=dtype, device=device),
+            )
+            continue
         shape = (n, num_pages, page_size, a.num_kv_heads, a.head_dim)
         pools[f"seg{si}"] = dict(
             pool_k=torch.zeros(shape, dtype=dtype, device=device),
@@ -90,7 +99,8 @@ def pool_bytes(cfg: ModelConfig, num_pages: int, page_size: int, dtype=None) -> 
     dtype = dtype or cfg.param_dtype
     a = cfg.attention
     itemsize = torch.empty((), dtype=dtype).element_size()
-    per_layer = 2 * num_pages * page_size * a.num_kv_heads * a.head_dim * itemsize
+    row = a.kv_lora_rank + a.qk_rope_head_dim if a.kind == "mla" else 2 * a.num_kv_heads * a.head_dim
+    per_layer = num_pages * page_size * row * itemsize
     return sum(n * per_layer for _, n in segments(cfg))
 
 

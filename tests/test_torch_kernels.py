@@ -917,8 +917,8 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
 def test_wrappers_reject_bad_inputs(rng):
     with pytest.raises(ValueError, match="rows, d"):
         rms_ops.rmsnorm_2d(torch.zeros(2, 3, 4), torch.ones(4))
-    with pytest.raises(ValueError, match="pool"):
-        pa_ops.paged_append_(torch.zeros(4, 4, 2), torch.zeros(1, 1, 2), torch.zeros(1, 1, dtype=torch.int32),
+    with pytest.raises(ValueError, match="pool"):  # a rank-3 (latent) pool takes rank-3 rows
+        pa_ops.paged_append_(torch.zeros(4, 4, 2), torch.zeros(1, 1, 1, 2), torch.zeros(1, 1, dtype=torch.int32),
                              torch.zeros(1, dtype=torch.int32))
     with pytest.raises(ValueError, match="window"):
         q, pk, pv, pt, lens = _attend_case(rng)
@@ -1006,6 +1006,29 @@ def test_paged_append_kv_kernel_bitwise_on_card(cuda, kv, d, dtype, t):
     got = pa_ops.paged_append_kv_(pools[0].clone(), pools[1].clone(), news[0], news[1], pt, lens)
     for g, pool, new in zip(got, pools, news):
         assert torch.equal(g, pa_ref.paged_append_(pool.clone(), new, pt, lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 32, 700])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_append_latent_kernel_bitwise_on_card(cuda, dtype, t):
+    """MLA's rank-3 latent pools (deepseek-v3: ckv rows of 512, krope rows
+    of 64) in one launch, rows of different widths, and each pool alone:
+    bitwise the plain version, with idle slots on page 0 and positions
+    clamped past the table's end."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    pools = [torch.randn(129, 16, w, generator=gen, device=cuda).to(dtype) for w in (512, 64)]
+    news = [torch.randn(4, t, w, generator=gen, device=cuda).to(dtype) for w in (512, 64)]
+    pt = (torch.randperm(128, generator=gen, device=cuda).to(torch.int32) + 1).reshape(4, 32).contiguous()
+    pt[0] = 0
+    pt[2] = 0
+    lens = torch.tensor([0, 17, 0, {1: 511, 32: 500, 700: 300}[t]], dtype=torch.int32, device=cuda)
+    before = pa_ops.APPEND.launches
+    got = pa_ops.paged_append_kv_(pools[0].clone(), pools[1].clone(), news[0], news[1], pt, lens)
+    assert pa_ops.APPEND.launches == before + 1
+    for g, pool, new in zip(got, pools, news):
+        want = pa_ref.paged_append_(pool.clone(), new, pt, lens)
+        assert torch.equal(g, want) and torch.equal(pa_ops.paged_append_(pool.clone(), new, pt, lens), want)
 
 
 @pytest.mark.cuda
@@ -1304,6 +1327,52 @@ def test_flash_attention_kernels_vs_plain_on_card(cuda, case, dtype):
         assert bool(torch.isfinite(a).all()) and rel(a, w) <= (2e-5 if f32 else 2.0**-7)
     again = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, w) for a, w in zip(got, again))
+
+
+# K6 at DeepSeek-V3's head_dim 192 (MLA: v of 128 zero-padded to 192, as
+# mla_apply pads it): the training shape (128 heads, group 1), a ragged S
+# with a padded K, a window over a GQA group
+FA_CARD_192 = [
+    (2, 512, 512, 128, 128, 192, True, None, 0, None),
+    (1, 200, 240, 8, 8, 192, False, None, 0, 200),
+    (2, 256, 256, 8, 2, 192, True, 64, 0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_CARD_192, ids=["mla", "mla_ragged", "mla_window_group_4"])
+def test_flash_attention_kernels_at_head_dim_192_on_card(cuda, case, dtype):
+    """The forward (64-key blocks at 192), dQ and the dK/dV kernel whose
+    warpgroups split by output, against the plain versions with the bounds
+    of :func:`test_flash_attention_kernels_vs_plain_on_card`; the padded
+    columns of the output and of dV stay zero; a second launch gives the
+    same bits."""
+    b, sq, sk, h, hkv, d, causal, window, q_offset, sk_valid = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset, sk_valid=sk_valid)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = (torch.randn(b, sq, h, d, generator=gen, device=cuda) / d**0.5).to(dtype)
+    k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    v[..., 128:] = 0
+    dout = torch.randn(b, sq, h, d, generator=gen, device=cuda).to(dtype)
+    dout[..., 128:] = 0
+    if sk_valid is not None:
+        k[:, sk_valid:], v[:, sk_valid:] = float("nan"), float("nan")
+    out, lse = fa_ops.flash_attention_fwd(q, k, v, **kw)
+    out_p, _ = fa_ref.flash_attention_fwd(q, k, v, **kw)
+    f32 = dtype == torch.float32
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    assert rel(out, out_p) <= (1e-5 if f32 else 2.0**-7) and not out[..., 128:].any()
+    got = fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = fa_ref.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all()) and rel(a, w) <= (2e-5 if f32 else 2.0**-7)
+    assert not got[2][:, :sk_valid or sk, :, 128:].any()
+    again = (*fa_ops.flash_attention_fwd(q, k, v, **kw), *fa_ops.flash_attention_bwd(q, k, v, out, lse, dout, **kw))
+    assert all(torch.equal(a, w) for a, w in zip((out, lse, *got), again))
 
 
 @pytest.mark.cuda

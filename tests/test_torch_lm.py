@@ -262,11 +262,11 @@ def test_train_launcher_on_cpu(capsys, tmp_path):
 
 def test_lm_paths_outside_the_slice_raise_with_their_roadmap_item():
     _, tcfg = _cfgs()
-    mla = dataclasses.replace(tcfg, attention=dataclasses.replace(tcfg.attention, kind="mla"))
+    mrope = dataclasses.replace(tcfg, attention=dataclasses.replace(tcfg.attention, rope="mrope"))
     with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(arch=mla, device="cpu").build()
+        Experiment(arch=mrope, device="cpu").build()
     with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(arch=dataclasses.replace(tcfg, mtp_depth=1), device="cpu").build()
+        Experiment(arch=dataclasses.replace(tcfg, act="gelu"), device="cpu").build()
     with pytest.raises(ValueError, match="not both"):
         Experiment(arch="qwen2-7b", task=object(), device="cpu")
     params = T.init_model(tcfg, torch.Generator().manual_seed(0))

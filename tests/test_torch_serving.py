@@ -260,9 +260,9 @@ def test_engine_validations(qwen):
         eng.submit("d", np.ones(14, np.int32), 8)
     with pytest.raises(ValueError, match="params live on"):
         BatchedEngine(tcfg, dict(tparams, tok_emb=tparams["tok_emb"].to("meta")), device="cpu")
-    mla = dataclasses.replace(tcfg, attention=dataclasses.replace(tcfg.attention, kind="mla"))
+    gelu = dataclasses.replace(tcfg, act="gelu")  # paged by the reference, not run by the port (item 8)
     with pytest.raises(ValueError, match="GQA"):
-        BatchedEngine(mla, tparams, device="cpu")
+        BatchedEngine(gelu, tparams, device="cpu")
 
 
 def test_entry_points_default_to_cuda(qwen):

@@ -342,7 +342,7 @@ def test_experiment_defaults_to_cuda():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """What still raises, each naming its ROADMAP item: the MLA archs (8),
+    """What still raises, each naming its ROADMAP item: M-RoPE archs (8),
     host offload (9), the per-leaf oracle (4b) and the runtime model behind
     ``FaultPlan.runtime_config`` (10). The probe and the membership of every
     boundary, ``fit(adaptive_tau=...)``, ``fit(faults=...)`` and the
@@ -352,9 +352,9 @@ def test_unported_paths_raise_with_their_roadmap_item():
     from repro_torch.launch import train as train_cli
 
     qcfg = get_arch("qwen2-7b").model.reduced()
-    mla = dataclasses.replace(qcfg, attention=dataclasses.replace(qcfg.attention, kind="mla"))
+    mrope = dataclasses.replace(qcfg, attention=dataclasses.replace(qcfg.attention, rope="mrope"))
     with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(arch=mla, device="cpu").build()
+        Experiment(arch=mrope, device="cpu").build()
     with pytest.raises(NotImplementedError, match="item 9"):
         make_strategy(AlgoConfig(offload=True))
     with pytest.raises(SystemExit):  # the launcher's flags: an unknown strategy
