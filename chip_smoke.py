@@ -200,7 +200,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    in f32 and bf16 against the plain versions with K6's stated bounds (the
    training shape B 2, S 512, 128 heads; a ragged S with a padded K; a
    q_offset; a window over a GQA group), timed beside SDPA on the same
-   padded operands, with the bound of the unpadded work beside it; K10 on
+   padded operands, its bound the work MLA needs (v at 128 columns), the
+   padded operands' bound beside it; K7 at MLA's q_norm (1536) and kv_norm
+   (512) widths runs in phase 2 with the other ``RMS_SHAPES``; K10 on
    the rank-3 latent pools (ckv rows of 512, krope rows of 64, one launch)
    bitwise at T 1, 32 and 700, timed beside two ``index_put_``; (b) the
    reduced f32 twin trained and served (prefill, decode) on the card and
@@ -1696,7 +1698,9 @@ def check_rmsnorm_plans(dev, gen):
 # mistral-large-123b (12288), arctic-480b (7168), command-r-35b (8192: its
 # final norm; its blocks' ln1 is a LayerNorm) and h2o-danube-1.8b (2560),
 # each at the training path's 1024 rows and at serving's decode rows (one
-# a slot); eps 1e-5 in all
+# a slot); deepseek-v3's MLA norms, q_norm over q_lora_rank 1536 and
+# kv_norm over kv_lora_rank 512, at the training path's 1024 rows, a
+# prefill chunk's rows and the decode rows; eps 1e-5 in all
 RMS_SHAPES = [("group_norm", 65536, 64, "the rwkv6 group norm"),
               ("zamba2_d_model", 1024, 2048, "zamba2 ln1, ln2, final norm"),
               ("zamba2_gated", 1024, 4096, "zamba2 gated norm, d_inner"),
@@ -1707,7 +1711,13 @@ RMS_SHAPES = [("group_norm", 65536, 64, "the rwkv6 group norm"),
               ("mistral_decode", SLOTS, 12288, "mistral-large decode rows"),
               ("arctic_decode", SLOTS, 7168, "arctic decode rows"),
               ("command_r_decode", SLOTS, 8192, "command-r decode rows"),
-              ("danube_decode", SLOTS, 2560, "h2o-danube decode rows")]
+              ("danube_decode", SLOTS, 2560, "h2o-danube decode rows"),
+              ("deepseek_q_norm", 1024, 1536, "deepseek-v3 q_norm"),
+              ("deepseek_kv_norm", 1024, 512, "deepseek-v3 kv_norm"),
+              ("deepseek_q_norm_prefill", CHUNK, 1536, "deepseek-v3 q_norm, a prefill chunk"),
+              ("deepseek_kv_norm_prefill", CHUNK, 512, "deepseek-v3 kv_norm, a prefill chunk"),
+              ("deepseek_q_norm_decode", SLOTS, 1536, "deepseek-v3 q_norm decode rows"),
+              ("deepseek_kv_norm_decode", SLOTS, 512, "deepseek-v3 kv_norm decode rows")]
 
 
 def check_rmsnorm_shapes(dev, gen):
@@ -3700,8 +3710,8 @@ NEW_ROUNDS = 2
 
 
 def _cut(cfg, layers, experts=None, pattern=None):
-    """``cfg`` cut to ``layers`` layers (and ``experts`` experts) as the
-    launchers' ``--layers``/``--experts`` cut it, its layer pattern the
+    """``cfg`` cut to ``layers`` layers (and ``experts`` experts) by
+    ``repro_torch.launch.cut``, as the launchers' ``--layers`` cuts it, its layer pattern the
     first ``layers`` kinds or ``pattern``: the published widths, seeded
     random weights."""
     from repro_torch.launch import cut
@@ -4088,9 +4098,11 @@ def check_flash_attention_d192(dev, gen):
     """K6 at head_dim 192 by :func:`check_flash_attention` (forward, dQ and
     dK/dV, f32 and bf16, the stated bounds, the same bits on a second
     launch), v zero-padded from 128; the training shape timed beside SDPA on
-    the same padded operands. Also the bound of the unpadded work (v and the
-    output at 128 columns, P·V and dV over 128), which shows what the
-    padding wastes."""
+    the same padded operands. ``bound_ms`` is the bound of the work MLA
+    needs (q and k at 192; v, the output, dO and dV at 128 columns; P·V, dP
+    and dV over 128), and the rates and shares of the bound count that work;
+    ``bound_padded_ms`` beside it counts the padded operands, which shows
+    what the padding wastes."""
     import torch
 
     worst, timing, cov = check_flash_attention(dev, gen, cases=FA_MLA, timed_cases=("mla",), covered=("mla",))
@@ -4103,13 +4115,23 @@ def check_flash_attention_d192(dev, gen):
                 # q, k, dq at 192; v, out, dO at 128; S and dQ over 192, dP over 128
                 "dq": (3 * nqk + 3 * nvo + 2 * stats, 2 * per_qk + per_v),
                 # q, k, dk at 192; dO, v, dv at 128; S and dK over 192, dP and dV over 128
-                "dkdv": (3 * nqk + 3 * nvo + 2 * stats, 2 * per_qk + 2 * per_v)}
+                "dkdv": (3 * nqk + 3 * nvo + 2 * stats, 2 * per_qk + 2 * per_v),
+                # q, k, dq, dk at 192; out, dO, v, dv at 128; S, dK, dQ over 192, dP and dV over 128
+                "bwd": (4 * nqk + 4 * nvo + stats, 3 * per_qk + 2 * per_v)}
     for part, (nbytes, flops) in unpadded.items():
-        t[part]["bound_unpadded_ms"], t[part]["bound_unpadded_by"] = bound(nbytes, flops, BF16_FLOPS)
+        r = t[part]
+        r["bound_padded_ms"], r["bound_padded_by"], r["flops_padded"] = r["bound_ms"], r["bound_by"], r["flops"]
+        r["bound_ms"], r["bound_by"] = bound(nbytes, flops, BF16_FLOPS)
+        r["flops"], r["bytes"] = flops, nbytes
+        r["tflops"], r["share_of_bound"] = flops / r["ms"] / 1e9, r["bound_ms"] / r["ms"]
+        if "library_tflops" in r:
+            r["library_tflops"], r["library_share_of_bound"] = flops / r["library_ms"] / 1e9, r["bound_ms"] / r["library_ms"]
     t["padding_note"] = ("v and the output carry 64 zero columns (192 for 128): a third of P.V, of V's bytes and "
-                         "of dV's bytes is waste; bound_unpadded_ms counts the work at v 128")
-    log(json.dumps(dict(check="K6 at head_dim 192 (v padded from 128)", worst_max_abs_err=worst,
-                        rel_err=cov["mla"], bound_unpadded_ms={p: t[p]["bound_unpadded_ms"] for p in unpadded})))
+                         "of dV's bytes is waste; bound_ms counts the work at v 128, bound_padded_ms the padded "
+                         "operands")
+    log(json.dumps(dict(check="K6 at head_dim 192 (v padded from 128)", worst_max_abs_err=worst, rel_err=cov["mla"],
+                        **{f"{p} ms / bound / padded bound": [t[p]["ms"], t[p]["bound_ms"], t[p]["bound_padded_ms"]]
+                           for p in unpadded})))
     torch.cuda.empty_cache()
     return worst, timing, cov
 
@@ -4660,11 +4682,11 @@ def main() -> int:
         if name.startswith("flash_attention") and name != "flash_attention_dkdv_sum":
             entry["d192"] = dict(shape="bf16 B=2 S=512 H=128 Hkv=128 D=192 causal, v zero-padded from 128 (deepseek-v3)",
                                  rel_err=fa192_cov["mla"], max_abs_err=fa192_err[part],
-                                 **{k: fa192_t["mla"][part][k] for k in keys + ("bound_unpadded_ms", "tflops")})
+                                 **{k: fa192_t["mla"][part][k] for k in keys + ("bound_padded_ms", "tflops", "share_of_bound")})
             entry["d192"]["checked"] = [c[0] for c in FA_MLA]
             entry["max_abs_err"] = max(entry["max_abs_err"], fa192_err[part])
             if part != "fwd":
-                entry["d192"]["backward_total"] = {k: fa192_t["mla"]["bwd"][k] for k in keys}
+                entry["d192"]["backward_total"] = {k: fa192_t["mla"]["bwd"][k] for k in keys + ("bound_padded_ms",)}
         if name == "paged_append":
             entry["latent"] = dict(shape="bf16 S=4 T=1, ckv rows of 512 and krope rows of 64 in one launch "
                                          "(deepseek-v3's latent pools)", max_abs_err=lat_err, bound="bitwise",

@@ -1519,31 +1519,24 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* out, const v
 template <int D>
 int bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse, const void* delta,
              void* dk, void* dv, void* part, int nsplit, int b, const Shape& s, cudaStream_t st) {
-  if constexpr (D > 128) {  // the warpgroups split by output, 64 keys a CTA
-    static const cudaError_t ready = allow_smem(dkdv_ws_kernel<D>, dkdv_ws_smem<D>());
-    if (ready != cudaSuccess) return (int)ready;
-    CUtensorMap tq, tk, tv, tdo;
-    if (!make_map(&tq, q, b, s.sq, s.sq, s.h, D, 64) || !make_map(&tdo, dout, b, s.sq, s.sq, s.h, D, 64) ||
-        !make_map(&tk, k, b, s.sk, s.sk_valid, s.hkv, D, 64) || !make_map(&tv, v, b, s.sk, s.sk_valid, s.hkv, D, 64))
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid(b * s.hkv * nsplit, (s.sk + 63) / 64);
-    dkdv_ws_kernel<D><<<grid, kThreads, dkdv_ws_smem<D>(), st>>>(
-        tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), static_cast<float*>(part), nsplit, s);
-    return (int)cudaGetLastError();
-  } else {
-    static const cudaError_t ready = allow_smem(dkdv_kernel<D>, dkdv_smem<D>());
-    if (ready != cudaSuccess) return (int)ready;
-    CUtensorMap tq, tk, tv, tdo;
-    if (!make_map(&tq, q, b, s.sq, s.sq, s.h, D, 64) || !make_map(&tdo, dout, b, s.sq, s.sq, s.h, D, 64) ||
-        !make_map(&tk, k, b, s.sk, s.sk_valid, s.hkv, D, 128) || !make_map(&tv, v, b, s.sk, s.sk_valid, s.hkv, D, 128))
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid(b * s.hkv * nsplit, (s.sk + 127) / 128);
-    dkdv_kernel<D><<<grid, kThreads, dkdv_smem<D>(), st>>>(
-        tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), static_cast<float*>(part), nsplit, s);
-    return (int)cudaGetLastError();
-  }
+  // past D 128 the warpgroups split by output, 64 keys a CTA
+  constexpr int bk = D > 128 ? 64 : 128;
+  constexpr int smem = D > 128 ? dkdv_ws_smem<D>() : dkdv_smem<D>();
+  const auto kernel = [] {
+    if constexpr (D > 128) return &dkdv_ws_kernel<D>;
+    else return &dkdv_kernel<D>;
+  }();
+  static const cudaError_t ready = allow_smem(kernel, smem);
+  if (ready != cudaSuccess) return (int)ready;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, q, b, s.sq, s.sq, s.h, D, 64) || !make_map(&tdo, dout, b, s.sq, s.sq, s.h, D, 64) ||
+      !make_map(&tk, k, b, s.sk, s.sk_valid, s.hkv, D, bk) || !make_map(&tv, v, b, s.sk, s.sk_valid, s.hkv, D, bk))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(b * s.hkv * nsplit, (s.sk + bk - 1) / bk);
+  kernel<<<grid, kThreads, smem, st>>>(tq, tk, tv, tdo, static_cast<const float*>(lse),
+                                       static_cast<const float*>(delta), static_cast<bf16*>(dk),
+                                       static_cast<bf16*>(dv), static_cast<float*>(part), nsplit, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tc

@@ -16,6 +16,6 @@ def cut(cfg, layers: Optional[int] = None, experts: Optional[int] = None):
         kw.update(num_layers=layers, layer_pattern=cfg.pattern()[:layers])
     if experts is not None:
         if cfg.moe is None or not cfg.moe.top_k <= experts <= cfg.moe.num_experts:
-            raise ValueError(f"--experts needs a MoE config and top_k <= experts <= num_experts, got {experts}")
+            raise ValueError(f"experts needs a MoE config and top_k <= experts <= num_experts, got {experts}")
         kw.update(moe=dataclasses.replace(cfg.moe, num_experts=experts))
     return dataclasses.replace(cfg, **kw) if kw else cfg

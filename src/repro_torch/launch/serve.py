@@ -8,10 +8,9 @@
 Weights are random, drawn from a seeded ``torch.Generator`` on the device.
 The GQA archs (arctic-480b's MoE among them) and deepseek-v3-671b (MLA's
 latent pools) are served paged; rwkv6-7b and zamba2-1.2b by the dense
-fallback (one request at a time through ``generate``). ``--layers N`` and
-``--experts E`` cut the config to its first N layers and E routed experts
-(deepseek-v3-671b's 671 G parameters do not fit one card). Runs on the GPU
-unless ``--device cpu`` is given.
+fallback (one request at a time through ``generate``). ``--layers N`` cuts
+the config to its first N layers (deepseek-v3-671b's 671 G parameters do not
+fit one card). Runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -36,12 +35,11 @@ def main(argv=None) -> None:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--layers", type=int, default=None, help="cut the model to its first N layers")
-    ap.add_argument("--experts", type=int, default=None, help="cut a MoE model to E routed experts")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
-    cfg = cut(arch.model if args.full else arch.model.reduced(), args.layers, args.experts)
+    cfg = cut(arch.model if args.full else arch.model.reduced(), args.layers)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = T.init_model(cfg, gen, device=device)

@@ -11,8 +11,8 @@
 ``--arch`` takes every ported arch (qwen2-7b, h2o-danube-1.8b,
 mistral-large-123b, command-r-35b, arctic-480b, deepseek-v3-671b,
 rwkv6-7b, zamba2-1.2b), reduced unless ``--full`` is given; ``--layers N``
-and ``--experts E`` cut the config to its first N layers and E routed
-experts (the published widths at a depth one card holds). Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
+cuts the config to its first N layers (the published widths at a depth one
+card holds). Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
 strategy of the reference and its aliases (``dasgd``, ``loscar``,
 ``overlap``, ``sgp``); ``--ckpt PATH`` saves the final ``TrainState`` there
 (:mod:`repro_torch.checkpoint`, the reference's .npz format).
@@ -47,14 +47,13 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--full", action="store_true", help="use the full (not reduced) model config")
     ap.add_argument("--layers", type=int, default=None, help="cut the model to its first N layers")
-    ap.add_argument("--experts", type=int, default=None, help="cut a MoE model to E routed experts")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
     model = get_arch(args.arch).model
     exp = Experiment(
-        arch=cut(model if args.full else model.reduced(), args.layers, args.experts),
+        arch=cut(model if args.full else model.reduced(), args.layers),
         strategy=AlgoConfig(
             name=args.algo,
             tau=args.tau,

@@ -546,7 +546,7 @@ def test_launchers_take_the_arch(capsys):
     serve_cli.main(["--arch", ARCH, "--device", "cpu", "--requests", "3", "--max-new", "3"])
     out = capsys.readouterr().out
     assert "engine: paged" in out and "served 3 requests / 9 tokens" in out
-    # --layers / --experts: the published widths cut in depth and experts (as --full runs on one card)
+    # --layers and cut(): the published widths cut in depth and experts (as --full runs on one card)
     from repro_torch.launch import cut
 
     full = get_arch(ARCH).model
