@@ -171,12 +171,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    replay, rounds/s, step ms, peak memory and K12's share of a profiled
    round. (g) The zamba2 slice: the reduced zamba2-1.2b (f32, seq 128,
    m = 2, 3 rounds) on the card and the CPU, losses compared; full-width
-   zamba2-1.2b at full depth (38 layers: 33 mamba2, one shared attention
-   block at 5 positions, tied embeddings; bf16, m = 4, seq 512, 3 rounds)
-   as in (b): K11 forward and backward steps x workers x 33, K6 forward and
-   backward steps x workers x 5 (group 1: no split sum), K7 forward and
-   backward steps x workers x 77, bitwise replay, rounds/s, step ms, peak memory and K11's and K6's
-   shares of a profiled round.
+   zamba2-1.2b cut to its first ``ZAMBA_LAYERS`` = 14 of 38 layers (12
+   mamba2, the shared attention block at 2 positions, tied embeddings;
+   bf16, m = 4, seq 512, 3 rounds; cut from full depth so that phase 8
+   fits the script's time) as in (b): K11 forward and backward steps x
+   workers x 12, K6 forward and backward steps x workers x 2 (group 1: no
+   split sum), K7 forward and backward steps x workers x 29, bitwise
+   replay, rounds/s, step ms, peak memory and K11's and K6's shares of a
+   profiled round.
 6. The other GQA text archs and the MoE FFN, full width, bf16, weights
    drawn on the card from a seed: (a) the reduced f32 twins of
    h2o-danube-1.8b, mistral-large-123b, command-r-35b, arctic-480b and a
@@ -215,12 +217,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    exact K1, K3, K6 and K7 counts (the MTP block's K6 and norms
    included), finite losses, the first cross-entropy within 0.25 of ln V +
    1/2, peaks under 80 GB.
-8. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+8. The modality frontends, full width, bf16, weights drawn on the card:
+   (a) K6 at their shapes in f32 and bf16 against the plain versions with
+   K6's stated bounds (qwen2-vl-7b's training sequence of 1024 image and
+   512 text tokens, B 2, 28 heads over 4 of 128; musicgen-large's B 2, S
+   512, 32 heads over 32 of 64; qwen2-vl's ragged image prefill, B 1, S
+   1041), the two training shapes timed beside SDPA and their bounds; (b)
+   qwen2-vl-7b at its full 28 layers: ``prefill`` of one seeded image
+   (1024 x 1280 embeddings through the projector) and a 64-token prompt,
+   then 32 greedy ``decode_step``s past the image, and 4 text requests
+   through ``BatchedEngine``'s dense fallback (``generate`` on the first
+   gives the engine's tokens); (c) musicgen-large at its full 48 layers:
+   ``prefill`` of (4, 4, 64) codebook tokens, then 32 ``decode_step``s of
+   (4, 4, 1) (the reference serves audio this way, with no engine); K6 and
+   K7 exact in (b) and (c); (d) training with the CLI's defaults (batch 2 x
+   seq 512, qwen2-vl adding its 1024 image tokens, 2 rounds): qwen2-vl at
+   2 of 28 layers (m = 4), musicgen at its full 48 layers (m = 2): a
+   non-zero gradient in every leaf, exact K1, K3, K6 and K7 counts, the
+   first cross-entropy within 0.25 of ln V + 1/2, peaks under 80 GB; (e)
+   the reduced f32 twins trained, and served (an image prefill with and
+   without grid M-RoPE positions, codebook tokens; decode past them) on
+   the card and the CPU.
+9. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
-   call; K6's rows with their ``d192`` case and K10's with its ``latent``
-   case), then the device line last.
+   call; K6's rows with their ``d192``, ``qwen2_vl`` and ``musicgen`` cases
+   and K10's with its ``latent`` case), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -3655,11 +3678,11 @@ def zamba2_launches(steps, m, L, buckets, rounds):
     the rest: 2 launches a call each way); K6 forward and both backward
     kernels once a shared-attention position; K7 forward and backward at
     each mamba2 layer's ln1 and gated norm, each shared position's ln1 and
-    ln2, and the final norm. The full model's 38 layers: 33 mamba2 and 5
-    shared positions (i % 7 == 6), counted here by hand, not from the model
-    code."""
-    mamba, shared = 33, 5
-    assert L == mamba + shared, L
+    ln2, and the final norm. Of the first L layers the shared positions are
+    i % 7 == 6 and the rest mamba2 (the full model's 38: 33 and 5), counted
+    here by hand, not from the model code."""
+    shared = (L + 1) // 7
+    mamba = L - shared
     per = steps * m
     return dict(ssd_fwd_local=per * mamba, ssd_fwd=per * mamba, ssd_bwd_local=per * mamba, ssd_bwd=per * mamba,
                 flash_attention_fwd=per * shared,
@@ -3677,14 +3700,18 @@ def lm_zamba2_card_vs_cpu(dev):
     lm_twin_card_vs_cpu(dev, get_arch("zamba2-1.2b").model.reduced(), "zamba2-1.2b")
 
 
+ZAMBA_LAYERS = 14  # of 38: 12 mamba2 and the shared block at positions 6 and 13
+
+
 def lm_zamba2_full_width(dev, kernels):
-    """Full-width zamba2-1.2b at full depth (38 layers: 33 mamba2 and one
-    shared attention block at 5 positions; d_model 2048, vocab 32000, tied,
-    bf16; 977,005,376 parameters), through ``lm_full_width``: m = 4, batch
-    2 x seq 512, 3 rounds; K11's and K6's shares of the profiled round."""
+    """Full-width zamba2-1.2b cut to its first ``ZAMBA_LAYERS`` layers (12
+    mamba2 and the one shared attention block at 2 positions; d_model 2048,
+    vocab 32000, tied, bf16), through ``lm_full_width``: m = 4, batch 2 x
+    seq 512, 3 rounds; K11's and K6's shares of the profiled round. The
+    cut from full depth (38 layers) pays for phase 8's time."""
     from repro_torch.config import get_arch
 
-    cfg = get_arch("zamba2-1.2b").model
+    cfg = _cut(get_arch("zamba2-1.2b").model, ZAMBA_LAYERS)
     return lm_full_width(dev, kernels, cfg, zamba2_launches,
                          shares=("ssd_fwd_local_kernel", "ssd_fwd_kernel", "ssd_bwd_local_kernel", "ssd_bwd_kernel",
                                  *K6_SHARES, "rmsnorm"))
@@ -3943,12 +3970,15 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts, pattern=None):
     counters: a non-zero gradient in every leaf of every worker in the
     first step, finite losses, exact launch counts (K1 and K3 once a
     bucket: two on arctic's bf16 + f32 plane), the peak at init, after the
-    state is packed and while training; step ms. ``pattern`` replaces the
-    cut's layer pattern (deepseek trains its MoE layer, not its first dense
-    one); with multi-token prediction the first step's cross-entropy must
-    lie within 0.25 of ln V + 1/2 (random weights: unit-RMS hidden rows
-    through an N(0, 1/d) head give logits of variance 1) and the peak under
-    80 GB."""
+    state is packed and while training; step ms (the host batches drawn
+    before the clock starts, their copies to the card inside it).
+    ``pattern`` replaces the cut's layer pattern (deepseek trains its MoE
+    layer, not its first dense one); with multi-token prediction or a
+    frontend the first step's
+    cross-entropy must lie within 0.25 of ln V + 1/2 (random weights:
+    unit-RMS hidden rows through an N(0, 1/d) head, a codebook's head too,
+    give logits of variance 1) and the peak under 80 GB. A vision batch
+    puts its 1024 image tokens before the text, so K6 runs at 1024 + seq."""
     import gc
     import math
 
@@ -4008,14 +4038,17 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts, pattern=None):
     if zero:
         raise AssertionError(f"{arch}: leaves with an all-zero gradient in some worker (leaf, workers): {zero}")
 
+    # the rounds' host batches drawn before the clock starts: a vision round
+    # draws 2 x 4 x 2 x 1024 x 1280 normals (≈ 0.2 s a step on the host)
+    rounds = [round_batch(stream, strategy.tau) for _ in range(NEW_ROUNDS)]
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     losses, metrics = [], {}
-    for _ in range(NEW_ROUNDS):
-        state, ms = step_fn(state, to_dev(round_batch(stream, strategy.tau)))
+    for rb in rounds:
+        state, ms = step_fn(state, to_dev(rb))
         losses.append(float(ms["loss"].float().mean()))
         metrics = {k: v.float().cpu().tolist() for k, v in ms.items()}
     torch.cuda.synchronize()
@@ -4024,15 +4057,17 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts, pattern=None):
     launches = {k.name: k.launches for k in kernels}
     steps = NEW_ROUNDS * strategy.tau
     a = cfg.attention
-    split = fa_ops.dkdv_splits(LM_BATCH, a.num_kv_heads, a.num_heads // a.num_kv_heads, LM_SEQ, fa_ops._sms(dev)) > 1
+    fe = cfg.frontend
+    s_attn = LM_SEQ + (fe.tokens_per_item if fe is not None and fe.kind == "vision" else 0)  # the image's tokens first
+    split = fa_ops.dkdv_splits(LM_BATCH, a.num_kv_heads, a.num_heads // a.num_kv_heads, s_attn, fa_ops._sms(dev)) > 1
     want = {k.name: 0 for k in kernels}
     want.update(new_arch_launches(cfg, steps, workers, layout.num_buckets, NEW_ROUNDS, split))
     _expect_launches(f"{arch} training, {steps} steps x {workers} workers", launches, want)
     if not all(math.isfinite(x) for x in losses + first_loss):
         raise AssertionError(f"{arch} LM losses not finite: {first_loss}, {losses}")
     expected_xent = math.log(cfg.vocab_size) + 0.5
-    if cfg.mtp_depth and (max(abs(x - expected_xent) for x in first_metrics["xent"]) > 0.25
-                          or max(peak, grad_peak, build_peak) >= 80e9):
+    if (cfg.mtp_depth or fe is not None) and (max(abs(x - expected_xent) for x in first_metrics["xent"]) > 0.25
+                                              or max(peak, grad_peak, build_peak) >= 80e9):
         raise AssertionError(f"{arch}: first xent {first_metrics['xent']} not within 0.25 of {expected_xent}, or a "
                              f"peak past 80 GB ({peak}, {grad_peak}, {build_peak})")
     summary = dict(
@@ -4044,7 +4079,7 @@ def train_new_arch(dev, kernels, arch, layers, workers, experts, pattern=None):
         first_step_peak_mem_bytes=grad_peak, peak_mem_bytes=peak, wall_s=wall, step_ms=wall / steps * 1e3,
         first_step_losses=first_loss, first_step_metrics=first_metrics, expected_xent=expected_xent, losses=losses,
         last_round_metrics=metrics, launches=launches, dkdv_split=split, nonzero_grad_every_leaf=True,
-        pattern=list(cfg.pattern()), mtp_depth=cfg.mtp_depth,
+        pattern=list(cfg.pattern()), mtp_depth=cfg.mtp_depth, attention_seq=s_attn,
     )
     log(json.dumps(summary))
     del state
@@ -4212,9 +4247,7 @@ def deepseek_dense_generate(dev, kernels, cfg, params, trace):
     wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     launches = {k.name: k.launches for k in kernels if k.launches}
     forwards = len(requests) * NEW_MAX_NEW  # each request: its prefill, then max_new - 1 decode steps
-    _expect_launches(f"{DEEPSEEK} dense generate", launches,
-                     {"flash_attention_fwd": cfg.num_layers * len(requests),
-                      "rmsnorm": _norms_per_forward(cfg) * forwards})
+    _expect_launches(f"{DEEPSEEK} dense generate", launches, _dense_attn_launches(cfg, len(requests), forwards))
     if any(len(t) != NEW_MAX_NEW or t.min() < 0 or t.max() >= cfg.vocab_size for t in toks) or not timer.finite:
         raise AssertionError(f"{DEEPSEEK} dense generate: wrong token count, out of vocab or non-finite logits")
     rec = dict(requests=len(requests), prompt_lens=[len(p) for _, p, _ in requests], max_new=NEW_MAX_NEW,
@@ -4289,6 +4322,300 @@ def deepseek_twins_card_vs_cpu(dev):
     rel = lm_twin_card_vs_cpu(dev, get_arch(DEEPSEEK).model.reduced(), DEEPSEEK)
     dense = dense_twins_card_vs_cpu(dev, archs=(DEEPSEEK,))
     return dict(train_max_rel_err=rel, dense=dense)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the modality frontends, qwen2-vl-7b (M-RoPE, the vision
+# projector, the loss over the text) and musicgen-large (GELU MLPs, four
+# codebooks), served and trained at full width
+# ---------------------------------------------------------------------------
+
+VL, MG = "qwen2-vl-7b", "musicgen-large"
+# K6 at the frontends' shapes: qwen2-vl's training sequence (1024 image
+# tokens before the 512 text tokens, qwen2's 28 heads over 4 of 128),
+# musicgen's (32 heads over 32 of 64, no window), and qwen2-vl's ragged
+# prefill of an image and a 17-token prompt
+FA_FRONTENDS = [
+    ("qwen2_vl", 2, 1536, 1536, 28, 4, 128, True, None, 0, None),
+    ("musicgen", 2, 512, 512, 32, 32, 64, True, None, 0, None),
+    ("qwen2_vl_prefill", 1, 1041, 1041, 28, 4, 128, True, None, 0, None),
+]
+FE_TIMED = ("qwen2_vl", "musicgen")
+FE_PROMPT, FE_DECODE = 64, 32  # qwen2-vl: one image and a 64-token prompt, then 32 greedy decode steps
+MG_BATCH = 4  # musicgen: (4, 4, 64) codebook tokens, then 32 decode steps of (4, 4, 1)
+# (arch, layers trained, workers): qwen2-vl at qwen2-7b's cut (2 of 28
+# layers, m = 4); musicgen at its full 48 layers with m = 2 (m = 4's planes
+# alone would take ~ 73 GB)
+FE_TRAINED = ((VL, 2, 4), (MG, 48, 2))
+
+
+def check_flash_attention_frontends(dev, gen):
+    """K6 at the frontends' shapes by :func:`check_flash_attention`
+    (forward, dQ and dK/dV, f32 and bf16, the stated bounds, the same bits
+    on a second launch); the two training shapes timed beside SDPA on the
+    same operands with their bounds (:func:`_fa_work`)."""
+    import torch
+
+    worst, timing, cov = check_flash_attention(dev, gen, cases=FA_FRONTENDS, timed_cases=FE_TIMED,
+                                               covered=tuple(c[0] for c in FA_FRONTENDS))
+    log(json.dumps(dict(check="K6 at the frontends' shapes", worst_max_abs_err=worst, rel_err=cov,
+                        **{f"{n} {p} ms / bound / SDPA": [timing[n][p]["ms"], timing[n][p]["bound_ms"],
+                                                          timing[n][p]["library_ms"]]
+                           for n in FE_TIMED for p in ("fwd", "bwd")})))
+    torch.cuda.empty_cache()
+    return worst, timing, cov
+
+
+def _dense_attn_launches(cfg, prefills, forwards):
+    """The dense serving path's launches on an attention arch: K6's forward
+    once a layer a prefill, K7 at every norm of every forward
+    (:func:`_norms_per_forward`); nothing else (dense decode attends in
+    plain torch)."""
+    return {"flash_attention_fwd": cfg.num_layers * prefills, "rmsnorm": _norms_per_forward(cfg) * forwards}
+
+
+def _greedy(logits):
+    """The next tokens from the last position's logits: (B, 1), or (B, K, 1) for audio."""
+    import torch
+
+    return logits[..., -1:, :].argmax(dim=-1).to(torch.int32)
+
+
+def _decode_run(cfg, params, inputs, s0, steps):
+    """``prefill`` of ``inputs`` then ``steps`` greedy ``decode_step``s from
+    position ``s0`` (through the engine module, so :class:`_StepTimer`
+    times them): the generated tokens, (B, steps + 1) or (B, K, steps + 1)."""
+    import torch
+
+    from repro_torch.serving import engine as E
+
+    logits, caches = E.prefill(cfg, params, inputs)
+    caches = E._grow_all(caches, cfg, s0 + steps)
+    out = [_greedy(logits)]
+    for i in range(steps):
+        logits, caches = E.decode_step(cfg, params, out[-1], caches, s0 + i)
+        out.append(_greedy(logits))
+    return torch.cat(out, dim=-1)
+
+
+def _timed_decode_run(dev, kernels, cfg, params, inputs, s0, steps):
+    """:func:`_decode_run` once to warm, then counted and timed: (tokens,
+    the record: prefill ms, the median decode-step ms, the decode wall, the
+    peak memory, the launches)."""
+    import torch
+
+    _decode_run(cfg, params, inputs, s0, 2)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _StepTimer() as timer:
+        toks = _decode_run(cfg, params, inputs, s0, steps)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    _expect_launches(f"{cfg.name} prefill + {steps} decode steps", launches, _dense_attn_launches(cfg, 1, 1 + steps))
+    if not timer.finite or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: non-finite logits or out-of-vocab tokens")
+    rec = dict(prefill_ms=timer.ms["prefill"][0], decode_step_ms_median=_median(timer.ms["decode"]),
+               decode_wall_ms=sum(timer.ms["decode"]), decode_steps=len(timer.ms["decode"]),
+               peak_mem_bytes=torch.cuda.max_memory_allocated(), launches=launches)
+    return toks, rec
+
+
+def serve_qwen2_vl(dev, kernels):
+    """qwen2-vl-7b at full width and depth (bf16, seeded weights drawn on the
+    card), served as the reference serves it: (1) ``prefill`` of one seeded
+    image (1024 x 1280 f32 embeddings, through the projector) and a
+    64-token prompt, then 32 greedy ``decode_step``s at positions 1088 …
+    1119 (past the image); (2) ``BatchedEngine``'s dense fallback (M-RoPE
+    and a frontend are not paged) on 4 text requests of the serving trace,
+    16 new tokens each, and ``generate`` on the first of them (the same
+    tokens). Exact K6 and K7 counts, finite logits, in-vocab tokens;
+    prefill and decode-step ms, tok/s, the peaks."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import num_params
+    from repro_torch.serving import BatchedEngine, generate
+
+    cfg = get_arch(VL).model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s, init_peak, weights = time.perf_counter() - t0, torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    n_params = num_params(params)
+    log(f"full-width {cfg.name}: {cfg.num_layers} layers, {n_params} params in {cfg.dtype}, init {init_s:.1f}s")
+    fe = cfg.frontend
+    rng = np.random.default_rng(SEED + 26)
+    img = torch.from_numpy(rng.normal(size=(1, fe.tokens_per_item, fe.embed_dim)).astype(np.float32)).to(dev)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, FE_PROMPT)).astype(np.int32)).to(dev)
+    s0 = fe.tokens_per_item + FE_PROMPT
+    toks, image = _timed_decode_run(dev, kernels, cfg, params, dict(tokens=prompt, image_embeds=img), s0, FE_DECODE)
+    image.update(tokens=toks[0].tolist(), tok_s=FE_DECODE / image["decode_wall_ms"] * 1e3,
+                 positions=[s0, s0 + FE_DECODE - 1])
+    log(json.dumps(dict(check=f"{VL} image prefill + decode, full depth", **image)))
+
+    trace = [(rid, p) for rid, p in make_trace(cfg.vocab_size)[:NEW_REQUESTS]]
+    generate(cfg, params, trace[0][1][None, :20], 2)  # warm
+    eng = BatchedEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN, device=dev)
+    if eng.paged:
+        raise AssertionError(f"{VL}: expected the dense fallback")
+    for rid, p in trace:
+        eng.submit(rid, p, NEW_MAX_NEW)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _StepTimer() as timer:
+        res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    n_pre, n_dec = len(timer.ms["prefill"]), len(timer.ms["decode"])
+    _expect_launches(f"{VL} dense engine, {n_pre} prefills + {n_dec} decodes", launches,
+                     _dense_attn_launches(cfg, n_pre, n_pre + n_dec))
+    if (n_pre, n_dec) != (len(trace), len(trace) * (NEW_MAX_NEW - 1)) or not timer.finite:
+        raise AssertionError(f"{VL}: {n_pre} prefills, {n_dec} decode steps, finite {timer.finite}")
+    for rid, _ in trace:
+        if len(res[rid]) != NEW_MAX_NEW or res[rid].min() < 0 or res[rid].max() >= cfg.vocab_size:
+            raise AssertionError(f"{VL} {rid}: {res[rid].tolist()}")
+    again = generate(cfg, params, trace[0][1][None], NEW_MAX_NEW)[0]
+    if again.tolist() != res[trace[0][0]].tolist():
+        raise AssertionError(f"{VL}: generate {again.tolist()} != the engine's {res[trace[0][0]].tolist()}")
+    tokens = sum(len(v) for v in res.values())
+    text = dict(requests=len(trace), prompt_lens=[len(p) for _, p in trace], max_new=NEW_MAX_NEW, tokens=tokens,
+                wall_s=wall, tok_s=tokens / wall, decode_step_ms_median=_median(timer.ms["decode"]),
+                prefill_ms_median=_median(timer.ms["prefill"]), peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                launches=launches, generate_equals_engine=True)
+    log(json.dumps(dict(check=f"{VL} text through the engine's dense fallback, full depth", **text)))
+    summary = dict(slice=f"{cfg.name} full width and depth, bf16, dense", params=n_params, weights_bytes=weights,
+                   init_s=init_s, init_peak_mem_bytes=init_peak, image=image, text=text,
+                   launches={k: image["launches"].get(k, 0) + text["launches"].get(k, 0)
+                             for k in set(image["launches"]) | set(text["launches"])})
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def serve_musicgen(dev, kernels):
+    """musicgen-large at full width and depth (bf16, seeded weights drawn on
+    the card) through ``prefill`` of (4, 4, 64) codebook tokens and 32
+    greedy ``decode_step``s of (4, 4, 1), as the reference serves audio (it
+    has no engine): exact K6 and K7 counts, finite logits, in-vocab tokens;
+    prefill and decode-step ms, frames/s (a frame: one step's K tokens of
+    one sequence), the peak."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import num_params
+
+    cfg = get_arch(MG).model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    init_s, init_peak, weights = time.perf_counter() - t0, torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    n_params = num_params(params)
+    log(f"full-width {cfg.name}: {cfg.num_layers} layers, {n_params} params in {cfg.dtype}, init {init_s:.1f}s")
+    k = cfg.frontend.num_codebooks
+    rng = np.random.default_rng(SEED + 27)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (MG_BATCH, k, FE_PROMPT)).astype(np.int32)).to(dev)
+    out, rec = _timed_decode_run(dev, kernels, cfg, params, dict(tokens=toks), FE_PROMPT, FE_DECODE)
+    if tuple(out.shape) != (MG_BATCH, k, FE_DECODE + 1):
+        raise AssertionError(f"{MG}: generated codebook tokens of shape {tuple(out.shape)}")
+    summary = dict(slice=f"{cfg.name} full width and depth, bf16, prefill + decode_step", params=n_params,
+                   weights_bytes=weights, init_s=init_s, init_peak_mem_bytes=init_peak, batch=MG_BATCH, codebooks=k,
+                   prompt=FE_PROMPT, **rec, frames_s=MG_BATCH * FE_DECODE / rec["decode_wall_ms"] * 1e3,
+                   first_frames=out[0, :, :4].tolist())
+    log(json.dumps(dict(check=f"{MG} prefill + decode, full depth", **summary)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def frontend_twins_card_vs_cpu(dev):
+    """The reduced f32 qwen2-vl-7b and musicgen-large: one round each trained
+    on the card and the CPU by :func:`lm_twin_card_vs_cpu` (losses rtol
+    1e-4); and, from one seeded tree copied to both devices, prefill of an
+    image and 11 text tokens (qwen2-vl, also with grid M-RoPE positions) or
+    of (2, 4, 11) codebook tokens (musicgen), then the next token's
+    ``decode_step`` past them, beside the full prefill. Bounds, as
+    :func:`dense_twins_card_vs_cpu`: card vs CPU logits 1e-4 of max|cpu|;
+    on the card, decode against the full prefill's last logits 2e-3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import decode_step, prefill
+    from repro_torch.serving.engine import _grow_all
+
+    out = {}
+    for arch in (VL, MG):
+        cfg = get_arch(arch).model.reduced()
+        train_rel = lm_twin_card_vs_cpu(dev, cfg, arch)
+        p_cpu = T.init_model(cfg, torch.Generator().manual_seed(SEED + 3))
+        params = {"cuda": _tree_to(p_cpu, dev), "cpu": p_cpu}
+        rng = np.random.default_rng(SEED)
+        fe, s = cfg.frontend, 12
+        cases = {}
+        if arch == VL:
+            img = rng.normal(size=(2, fe.tokens_per_item, fe.embed_dim)).astype(np.float32)
+            toks = rng.integers(0, cfg.vocab_size, (2, s)).astype(np.int32)
+            side = int(round(fe.tokens_per_item ** 0.5))
+            grid = np.arange(fe.tokens_per_item)
+            pos = np.concatenate([np.stack([0 * grid, grid // side, grid % side]),
+                                  np.broadcast_to(side + np.arange(s), (3, s))], axis=1).astype(np.int32)
+            cases["image"] = (dict(tokens=toks, image_embeds=img), fe.tokens_per_item)
+            cases["image+positions"] = (dict(tokens=toks, image_embeds=img,
+                                             positions=np.ascontiguousarray(np.broadcast_to(pos, (2, 3, pos.shape[1])))),
+                                        None)
+        else:
+            cases["audio"] = (dict(tokens=rng.integers(0, cfg.vocab_size, (2, fe.num_codebooks, s)).astype(np.int32)), 0)
+        worst = dict(prefill=0.0, decode=0.0, decode_vs_prefill=0.0)
+        for name, (inp, s_img) in cases.items():
+            got = {}
+            for key, device in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                t = {k: torch.from_numpy(v).to(device) for k, v in inp.items()}
+                full, _ = prefill(cfg, params[key], t)
+                if s_img is None:  # explicit positions: the full forward alone
+                    got[key] = (full.float().cpu(),)
+                    continue
+                head = {k: (v[..., : s - 1] if k == "tokens" else v) for k, v in t.items()}
+                pre, caches = prefill(cfg, params[key], head)
+                caches = _grow_all(caches, cfg, s_img + s)
+                dec, _ = decode_step(cfg, params[key], t["tokens"][..., s - 1 :], caches, s_img + s - 1)
+                got[key] = (full.float().cpu(), pre.float().cpu(), dec.float().cpu())
+            worst["prefill"] = max(worst["prefill"], _rel(got["cuda"][0], got["cpu"][0]))
+            if s_img is not None:
+                worst["prefill"] = max(worst["prefill"], _rel(got["cuda"][1], got["cpu"][1]))
+                worst["decode"] = max(worst["decode"], _rel(got["cuda"][2], got["cpu"][2]))
+                worst["decode_vs_prefill"] = max(worst["decode_vs_prefill"],
+                                                 _rel(got["cuda"][2][..., -1, :], got["cuda"][0][..., -1, :]))
+            if not all(bool(torch.isfinite(x).all()) for x in got["cuda"]):
+                raise AssertionError(f"{arch} {name}: non-finite logits")
+        rec = dict(check=f"frontend twin reduced {arch} f32, card vs CPU", train_max_rel_err=train_rel, cases=list(cases),
+                   **worst, bound="card vs CPU 1e-4 of max|cpu|; decode vs full prefill 2e-3 (on the card)",
+                   ok=worst["prefill"] <= 1e-4 and worst["decode"] <= 1e-4 and worst["decode_vs_prefill"] < 2e-3)
+        log(json.dumps(rec))
+        if not rec["ok"]:
+            raise AssertionError(f"{arch} frontend twin: {worst}")
+        out[arch] = rec
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4383,17 +4710,22 @@ def main() -> int:
     runs.update(train_adaptive_and_faulted(dev, kernels))
     mark("phase 4 (classifier training, checkpoint)")
     lm_card_vs_cpu(dev)
+    mark("phase 5 (a: qwen2 twins)")
     lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
     lm = lm_full_width(dev, kernels, lm_cfg, shares=K6_SHARES, after=serve_off_the_plane)
     lm["card"] = card
     swap_params_reduced(dev)
+    mark("phase 5 (b: qwen2, serving off the plane)")
     gossip = lm_gossip_full_width(dev, kernels)
     gossip["card"] = card
+    mark("phase 5 (c: qwen2 gossip_ring)")
     adaptive_lm = lm_adaptive_faulted(dev, kernels, lm_cfg, overlap_peak=lm["peak_mem_bytes"])
     adaptive_lm["card"] = card
+    mark("phase 5 (d: qwen2 adaptive tau and faults)")
     lm_rwkv6_card_vs_cpu(dev)
     rwkv = lm_rwkv6_full_width(dev, kernels)
     rwkv["card"] = card
+    mark("phase 5 (f: rwkv6)")
     lm_zamba2_card_vs_cpu(dev)
     zamba = lm_zamba2_full_width(dev, kernels)
     zamba["card"] = card
@@ -4425,6 +4757,19 @@ def main() -> int:
     new_training[DEEPSEEK] = dict(train_new_arch(dev, kernels, DEEPSEEK, 1, DEEPSEEK_WORKERS, DEEPSEEK_EXPERTS,
                                                  pattern=DEEPSEEK_TRAINED), card=card)
     mark("phase 7 (d: training deepseek-v3)")
+
+    # phase 8: the modality frontends (qwen2-vl-7b, musicgen-large), K6 at their shapes
+    fe_err, fe_t, fe_cov = check_flash_attention_frontends(dev, gen)
+    mark("phase 8 (a: K6 at the frontends' shapes)")
+    new_serving[VL] = dict(serve_qwen2_vl(dev, kernels), card=card)
+    mark("phase 8 (b: serving qwen2-vl-7b)")
+    new_serving[MG] = dict(serve_musicgen(dev, kernels), card=card)
+    mark("phase 8 (c: serving musicgen-large)")
+    for arch, layers, workers in FE_TRAINED:
+        new_training[arch] = dict(train_new_arch(dev, kernels, arch, layers, workers, None), card=card)
+        mark(f"phase 8 (d: training {arch})")
+    frontend_twins_card_vs_cpu(dev)
+    mark("phase 8 (e: reduced twins)")
 
     # the kernels line
     launches = dict(summary["launches"])
@@ -4687,6 +5032,17 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], fa192_err[part])
             if part != "fwd":
                 entry["d192"]["backward_total"] = {k: fa192_t["mla"]["bwd"][k] for k in keys + ("bound_padded_ms",)}
+        # phase 8: K6 at the frontends' shapes (qwen2-vl's image + text sequence, musicgen's heads)
+        if name.startswith("flash_attention") and name != "flash_attention_dkdv_sum":
+            for case, what in (("qwen2_vl", "B=2 S=1536 (1024 image + 512 text) H=28 Hkv=4 D=128 causal (qwen2-vl-7b)"),
+                               ("musicgen", "B=2 S=512 H=32 Hkv=32 D=64 causal (musicgen-large)")):
+                entry[case] = dict(shape=f"bf16 {what}", rel_err=fe_cov[case],
+                                   **{k: fe_t[case][part][k] for k in keys + ("tflops", "share_of_bound")})
+                if part != "fwd":
+                    entry[case]["backward_total"] = {k: fe_t[case]["bwd"][k] for k in keys}
+            entry["qwen2_vl_prefill"] = dict(shape="B=1 S=1041 H=28 Hkv=4 D=128 causal (an image and a 17-token "
+                                                   "prompt): checked, not timed", rel_err=fe_cov["qwen2_vl_prefill"])
+            entry["max_abs_err"] = max(entry["max_abs_err"], fe_err[part])
         if name == "paged_append":
             entry["latent"] = dict(shape="bf16 S=4 T=1, ckv rows of 512 and krope rows of 64 in one launch "
                                          "(deepseek-v3's latent pools)", max_abs_err=lat_err, bound="bitwise",

@@ -36,19 +36,21 @@ from the anchor first); the two compose, fault rounds becoming
 losses (with the probe's two scalars when there is a controller) in one
 copy.
 
-LM archs: the GQA text archs (qwen2-7b, h2o-danube-1.8b, mistral-large-123b,
-command-r-35b; arctic-480b with its MoE FFN, whose f32 router makes a bf16
-model's plane two buckets), deepseek-v3-671b (MLA: K6 at head_dim 192
-with v zero-padded; the MTP loss; the sigmoid-routed MoE with its shared
-expert), rwkv6-7b (K12 WKV on the card)
-and zamba2-1.2b (mamba2 with one shared attention block and tied
-embeddings: K11 SSD scan and K6 on the card). ``serve()`` serves the
-consensus plane in place through :class:`repro_torch.serving.BatchedEngine`
-(paged for the GQA archs and deepseek's latent pools, the dense fallback
-for rwkv6 and zamba2). Not here yet (each raises): the archs
-``_check_supported`` rejects (frontends, M-RoPE, GELU: item 8); the strategies (every name and alias of the reference)
-raise for ``AlgoConfig.packed=False`` (item 4b) and ``AlgoConfig.offload``
-(item 9).
+LM archs: every arch of the reference. The GQA text archs (qwen2-7b,
+h2o-danube-1.8b, mistral-large-123b, command-r-35b; arctic-480b with its
+MoE FFN, whose f32 router makes a bf16 model's plane two buckets),
+deepseek-v3-671b (MLA: K6 at head_dim 192 with v zero-padded; the MTP loss;
+the sigmoid-routed MoE with its shared expert), rwkv6-7b (K12 WKV on the
+card), zamba2-1.2b (mamba2 with one shared attention block and tied
+embeddings: K11 SSD scan and K6 on the card), qwen2-vl-7b (M-RoPE; batches
+carry image embeddings, prepended through the projector; the loss over the
+text) and musicgen-large (GELU MLPs; four codebooks in and out).
+``serve()`` serves the consensus plane in place through
+:class:`repro_torch.serving.BatchedEngine` (paged for the GQA text archs
+and deepseek's latent pools, the dense fallback for rwkv6, zamba2 and
+qwen2-vl; musicgen has no engine and raises). Not here yet (each raises):
+the strategies (every name and alias of the reference) raise for
+``AlgoConfig.packed=False`` (item 4b) and ``AlgoConfig.offload`` (item 9).
 """
 from __future__ import annotations
 

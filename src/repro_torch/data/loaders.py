@@ -2,8 +2,9 @@
 numpy, byte-identical to the reference's batches for the same seed). A
 *batch fn* is a zero-arg callable returning one per-step batch of numpy
 arrays shaped (m, b, ...); :func:`round_batch` stacks τ of them into the
-(τ, m, b, ...) round the engine walks. The LM batch fn covers text archs;
-the modality frontends' extra inputs are ROADMAP Queue 1 item 8."""
+(τ, m, b, ...) round the engine walks. The LM batch fn covers text archs
+and the modality frontends' batches (vision patch embeddings, audio
+codebooks)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -26,16 +27,28 @@ def round_batch(next_batch: Callable, tau: int):
 
 
 def lm_batch_fn(cfg, m: int, batch: int, seq: int, seed: int = 0) -> Callable:
-    """Worker-stacked synthetic LM batches for a text arch: a dict of
-    ``tokens`` and ``targets``, each (m, batch, seq) int32; worker i reads
-    the stream seeded ``seed + i``."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: LM batches for modality frontends are ROADMAP Queue 1 item 8")
+    """Worker-stacked synthetic LM batches for ``cfg``: a dict of ``tokens``
+    and ``targets``, each (m, batch, seq) int32, worker i reading the stream
+    seeded ``seed + i``. The frontends draw from one more generator,
+    ``default_rng(seed)``, after every worker's text batch, which is drawn
+    (and, for audio, thrown away) each step as in the reference: a vision
+    batch adds ``image_embeds`` (m, batch, tokens_per_item, embed_dim) f32;
+    an audio batch's ``tokens`` and ``targets`` are (m, batch, K, seq)."""
     streams = [lm_batch_stream(batch, seq, cfg.vocab_size, seed=seed + i) for i in range(m)]
+    rng = np.random.default_rng(seed)
+    fe = cfg.frontend
 
     def next_batch():
         toks, tgts = zip(*[next(s) for s in streams])
-        return dict(tokens=np.stack(toks), targets=np.stack(tgts))
+        if fe is not None and fe.kind == "audio":
+            shape = (m, batch, fe.num_codebooks, seq)
+            toks = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+            return dict(tokens=toks, targets=rng.integers(0, cfg.vocab_size, shape).astype(np.int32))
+        out = dict(tokens=np.stack(toks), targets=np.stack(tgts))
+        if fe is not None and fe.kind == "vision":
+            shape = (m, batch, fe.tokens_per_item, fe.embed_dim)
+            out["image_embeds"] = rng.normal(size=shape).astype(np.float32)
+        return out
 
     return next_batch
 

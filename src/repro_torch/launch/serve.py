@@ -10,7 +10,10 @@ The GQA archs (arctic-480b's MoE among them) and deepseek-v3-671b (MLA's
 latent pools) are served paged; rwkv6-7b and zamba2-1.2b by the dense
 fallback (one request at a time through ``generate``). ``--layers N`` cuts
 the config to its first N layers (deepseek-v3-671b's 671 G parameters do not
-fit one card). Runs on the GPU unless ``--device cpu`` is given.
+fit one card). qwen2-vl-7b serves text requests by the dense fallback (its
+image path is ``prefill`` with ``image_embeds``, then ``decode_step``);
+musicgen-large has no engine, and the launcher raises for it as the
+engine does. Runs on the GPU unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -40,6 +43,9 @@ def main(argv=None) -> None:
 
     arch = get_arch(args.arch)
     cfg = cut(arch.model if args.full else arch.model.reduced(), args.layers)
+    if cfg.frontend is not None:
+        print("note: the serving launcher serves text requests; a frontend's own inputs (image embeddings, "
+              "codebook tokens) go through prefill and decode_step")
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = T.init_model(cfg, gen, device=device)

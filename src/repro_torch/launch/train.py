@@ -8,9 +8,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --full --rounds 3 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b --full --layers 1 --workers 2 --seq 512
 
-``--arch`` takes every ported arch (qwen2-7b, h2o-danube-1.8b,
+``--arch`` takes every arch of the reference (qwen2-7b, h2o-danube-1.8b,
 mistral-large-123b, command-r-35b, arctic-480b, deepseek-v3-671b,
-rwkv6-7b, zamba2-1.2b), reduced unless ``--full`` is given; ``--layers N``
+rwkv6-7b, zamba2-1.2b, qwen2-vl-7b with its image batches, musicgen-large
+on codebook tokens), reduced unless ``--full`` is given; ``--layers N``
 cuts the config to its first N layers (the published widths at a depth one
 card holds). Runs on the GPU unless ``--device cpu`` is given. ``--algo`` takes every
 strategy of the reference and its aliases (``dasgd``, ``loscar``,

@@ -17,7 +17,9 @@ off; several dropped tokens may write that row, every other slot is written
 once). The token ids are scattered into the slot table, the hidden rows
 gathered from it, the experts run as three batched matmuls over the expert
 axis (the reference's einsums, outside any Pallas kernel), and each token
-gathers its k slots back, weighted by its gates in f32.
+gathers its k slots back, weighted by its gates in f32. The experts, the
+shared experts and the dense residual are SwiGLU, gated by SiLU for ``act``
+"silu" and by GELU otherwise, as the reference's.
 
 The top-k is a stable descending sort of the router's scores: on equal
 scores the lower expert index comes first, as ``jax.lax.top_k`` orders them.
@@ -30,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config.base import MoEConfig
-from repro_torch.models.layers.mlp import init_swiglu, swiglu
+from repro_torch.models.layers.mlp import gelu, init_swiglu, swiglu
 
 
 def init_moe(b, name: str, d_model: int, cfg: MoEConfig):
@@ -85,8 +87,6 @@ def moe_apply(params, cfg: MoEConfig, x, act: str = "silu", capacity_factor: flo
     balance term), ``load`` (each expert's share of assignments, normalised
     to 1 at balance), ``mean_prob`` and ``dropped`` (the share of the
     token-expert assignments past capacity), all f32."""
-    if act != "silu":
-        raise NotImplementedError(f"moe_apply: the port's experts are SwiGLU (act 'silu'), got {act!r}")
     b_, s, d = x.shape
     t = b_ * s
     e, k = cfg.num_experts, cfg.top_k
@@ -112,7 +112,7 @@ def moe_apply(params, cfg: MoEConfig, x, act: str = "silu", capacity_factor: flo
     # the experts: batched matmuls over the expert axis
     g = torch.bmm(buf, params["wi_gate"])
     u = torch.bmm(buf, params["wi_up"])
-    y = torch.bmm(F.silu(g) * u, params["wo"])
+    y = torch.bmm((F.silu(g) if act == "silu" else gelu(g)) * u, params["wo"])
 
     # combine: each token's k slots, weighted by its gates in f32
     y_flat = torch.cat([y.reshape(e * capacity, d), y.new_zeros((1, d))], dim=0)
@@ -121,9 +121,9 @@ def moe_apply(params, cfg: MoEConfig, x, act: str = "silu", capacity_factor: flo
     out = out.reshape(b_, s, d)
 
     if cfg.num_shared_experts:
-        out = out + swiglu(params["shared"], x)
+        out = out + swiglu(params["shared"], x, act)
     if cfg.dense_residual_ff:
-        out = out + swiglu(params["dense_residual"], x)
+        out = out + swiglu(params["dense_residual"], x, act)
 
     # switch-style aux loss: E * sum_e f_e * p_e
     frac_tokens = assigned.to(torch.float32).mean(0) * (e / k)  # load fraction (normalised)

@@ -9,28 +9,41 @@ Python loop over its layers here, indexing the stacked weights and pools
 how the training loop hands each layer its own gradient window; see
 :func:`split_layers`).
 
-Ported for the text archs: ``"attn"`` segments (pre-norm RMSNorm blocks
-with SwiGLU, or command-r's parallel blocks: one bias-free LayerNorm feeding
-attention and the FFN, ``x + attn(h) + ffn(h)``, no ``ln2``; GQA attention
-with optional QK-norm, or DeepSeek-V3's MLA), ``"moe"`` segments (the same
-blocks with the MoE FFN of :mod:`repro_torch.models.layers.moe`; the
-router's aux loss is carried
-across layers as ``moe_aux``), ``"rwkv6"`` segments (RMSNorm, RWKV-6
-time-mix and channel-mix), ``"mamba2"`` segments (RMSNorm, the Mamba2 SSD
-block) and ``"shared_attn"`` positions, where the one weight-shared
-attention block of the top-level ``shared_block`` scope is applied (zamba2;
-it owns no ``seg{i}`` parameters, so the ``seg{i}`` keys have gaps, and its
-gradient sums every position's), with tied or untied embeddings (tied: the
-head is ``hidden @ tok_emb.T`` and there is no ``head`` leaf) and the
-head's ``logit_scale``: ``segments``, ``init_model``, ``init_caches``,
-``apply_model`` in every mode (``"train"``, the LM training path: K6
-attention, K12 WKV or K11 SSD scan, K7 norms; ``"prefill"``, which returns
-the dense caches; ``"decode"`` against the dense caches or, for
-attention-only archs, with ``paged=``), ``softmax_xent`` and ``lm_loss``
-(with the router term for MoE archs and DeepSeek-V3's multi-token
-prediction loss: one ``mtp`` module, an unstacked scope of ``ln_in``,
-``proj`` and one dense ``"attn"`` block, weight 0.3). M-RoPE, GELU MLPs and
-frontends (ROADMAP Queue 1 item 8) raise here.
+Ported for every arch of the reference: ``"attn"`` segments (pre-norm
+RMSNorm blocks with SwiGLU or musicgen's GELU MLP with biases, or
+command-r's parallel blocks: one bias-free LayerNorm feeding attention and
+the FFN, ``x + attn(h) + ffn(h)``, no ``ln2``; GQA attention with optional
+QK-norm, or DeepSeek-V3's MLA), ``"moe"`` segments (the same blocks with
+the MoE FFN of :mod:`repro_torch.models.layers.moe`; the router's aux loss
+is carried across layers as ``moe_aux``), ``"rwkv6"`` segments (RMSNorm,
+RWKV-6 time-mix and channel-mix), ``"mamba2"`` segments (RMSNorm, the
+Mamba2 SSD block) and ``"shared_attn"`` positions, where the one
+weight-shared attention block of the top-level ``shared_block`` scope is
+applied (zamba2; it owns no ``seg{i}`` parameters, so the ``seg{i}`` keys
+have gaps, and its gradient sums every position's), with tied or untied
+embeddings (tied: the head is ``hidden @ tok_emb.T`` and there is no
+``head`` leaf), the head's ``logit_scale``, RoPE or Qwen2-VL's M-RoPE
+(``positions`` (B, 3, S); without them every stream holds the text
+positions), and the two modality frontends as the reference stubs them:
+
+* vision (qwen2-vl): precomputed patch embeddings ``image_embeds`` (B,
+  S_img, embed_dim), cast to the parameter dtype, go through the
+  ``projector`` (``gelu(img @ w1) @ w2``) and are prepended to the text
+  embeddings; attention is causal over the whole sequence, and the loss
+  covers the text positions alone;
+* audio (musicgen): ``tokens`` (B, K, S) of K codebooks, embedded by the
+  (K, V, d) ``tok_emb`` and summed over k = 0 … K-1 in order in the
+  parameter dtype; the head is (K, d, V), the logits (B, K, S, V), and the
+  loss their mean over every codebook.
+
+``segments``, ``init_model``, ``init_caches``, ``apply_model`` in every
+mode (``"train"``, the LM training path: K6 attention, K12 WKV or K11 SSD
+scan, K7 norms; ``"prefill"``, which returns the dense caches; ``"decode"``
+against the dense caches or, for attention-only text archs, with
+``paged=``), ``softmax_xent`` and ``lm_loss`` (with the router term for MoE
+archs and DeepSeek-V3's multi-token prediction loss: one ``mtp`` module, an
+unstacked scope of ``ln_in``, ``proj`` and one dense ``"attn"`` block,
+weight 0.3, off with a frontend as in the reference).
 
 Caches are laid out as the reference's: under ``seg{i}``, each leaf stacked
 over the segment's layers (a ``shared_attn`` position's cache unstacked),
@@ -66,39 +79,37 @@ def segments(cfg: ModelConfig) -> List[Tuple[str, int]]:
     return out
 
 
-ITEM8 = "ROADMAP Queue 1 item 8"
 _SSM_KINDS = ("rwkv6", "mamba2")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """Raise unless the port runs ``cfg``: a text arch whose segments are
-    ``"attn"`` or ``"moe"`` (GQA or MLA, SiLU; parallel blocks and QK-norm
-    allowed), ``"rwkv6"``, ``"mamba2"`` or ``"shared_attn"`` (with
-    ``shared_attn_every`` set), the recurrent segments taking the
-    ``ssm.kind`` of their name; tied or untied embeddings; multi-token
-    prediction (one module, as the reference builds it)."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: frontends are {ITEM8}")
+    """Raise ``ValueError`` for a configuration outside the reference's
+    model: an unknown frontend or segment kind, attention segments without
+    an attention config, a recurrent segment whose ``ssm.kind`` is another,
+    ``"shared_attn"`` positions without ``shared_attn_every``, ``"moe"``
+    segments without a MoE config, M-RoPE sections that do not tile the
+    rotary half of the head dim."""
+    fe = cfg.frontend
+    if fe is not None and fe.kind not in ("vision", "audio"):
+        raise ValueError(f"{cfg.name}: unknown frontend kind {fe.kind!r} (vision or audio)")
     kinds = {kind for kind, _ in segments(cfg)}
     other = kinds - {"attn", "moe", "shared_attn", *_SSM_KINDS}
     if other:
-        raise NotImplementedError(f"{cfg.name}: segment kinds {sorted(other)} are {ITEM8}")
+        raise ValueError(f"{cfg.name}: unknown segment kinds {sorted(other)}")
     for kind in kinds & set(_SSM_KINDS):
         if cfg.ssm is None or cfg.ssm.kind != kind:
-            raise NotImplementedError(f"{cfg.name}: {kind} segments take ssm.kind {kind!r} ({ITEM8})")
+            raise ValueError(f"{cfg.name}: {kind} segments take ssm.kind {kind!r}")
     if "shared_attn" in kinds and not cfg.shared_attn_every:
         raise ValueError(f"{cfg.name}: shared_attn positions need shared_attn_every (the shared_block scope)")
     if "moe" in kinds and cfg.moe is None:
         raise ValueError(f"{cfg.name}: moe segments need a MoE config")
-    if not kinds & {"attn", "moe", "shared_attn"}:
-        if cfg.attention is not None:
-            raise NotImplementedError(f"{cfg.name}: attention config without attention segments ({ITEM8})")
-        return
     a = cfg.attention
-    if a is None or a.kind not in ("gqa", "mla") or a.rope == "mrope":
-        raise NotImplementedError(f"{cfg.name}: the port covers GQA and MLA text archs; M-RoPE is {ITEM8}")
-    if cfg.act != "silu":
-        raise NotImplementedError(f"{cfg.name}: GELU MLPs are {ITEM8}")
+    if a is None and kinds & {"attn", "moe", "shared_attn"}:
+        raise ValueError(f"{cfg.name}: attention segments need an attention config")
+    if a is not None and a.rope == "mrope":
+        half = (a.qk_rope_head_dim if a.kind == "mla" else a.head_dim) // 2
+        if sum(a.mrope_sections) != half:
+            raise ValueError(f"{cfg.name}: M-RoPE sections {tuple(a.mrope_sections)} must sum to {half}")
 
 
 def _init_block(b, cfg: ModelConfig, kind: str):
@@ -115,6 +126,8 @@ def _init_block(b, cfg: ModelConfig, kind: str):
             init_rmsnorm(b, "ln2", d)
         if kind == "moe":
             moe_mod.init_moe(b, "ffn", d, cfg.moe)
+        elif cfg.act == "gelu":
+            mlp_mod.init_gelu_mlp(b, "ffn", d, cfg.d_ff)
         else:
             mlp_mod.init_swiglu(b, "ffn", d, cfg.d_ff)
     elif kind == "rwkv6":
@@ -133,14 +146,23 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu") -> di
     """Parameters as nested dicts of tensors on ``device``, each stacked
     segment under ``seg{i}`` with a leading layer axis, the shared attention
     block (if any) under ``shared_block``, the multi-token prediction module
-    (if any) under ``mtp``, and no ``head`` when the embeddings are tied."""
+    (if any) under ``mtp``, the vision ``projector`` (``w1`` (embed_dim, d),
+    ``w2`` (d, d)) with a vision frontend, and no ``head`` when the
+    embeddings are tied. An audio frontend's ``tok_emb`` is (K, V, d) and
+    its ``head`` (K, d, V)."""
     _check_supported(cfg)
     b = P.Builder(generator, cfg.param_dtype, device)
     d = cfg.d_model
-    b.param("tok_emb", (cfg.vocab_size, d), init="normal")
+    fe = cfg.frontend
+    audio = fe is not None and fe.kind == "audio"
+    b.param("tok_emb", ((fe.num_codebooks,) if audio else ()) + (cfg.vocab_size, d), init="normal")
+    if fe is not None and fe.kind == "vision":
+        with b.scope("projector"):
+            b.param("w1", (fe.embed_dim, d))
+            b.param("w2", (d, d))
     init_rmsnorm(b, "final_norm", d)
     if not cfg.tie_embeddings:
-        b.param("head", (d, cfg.vocab_size))
+        b.param("head", ((fe.num_codebooks,) if audio else ()) + (d, cfg.vocab_size))
     if cfg.shared_attn_every:
         with b.scope("shared_block"):
             _init_block(b, cfg, "shared_attn")
@@ -180,7 +202,9 @@ def _ffn(cfg: ModelConfig, kind: str, prm, h, mode: str):
     factor: the config's in training, 4.0 when serving."""
     if kind == "moe":
         return moe_mod.moe_apply(prm, cfg.moe, h, cfg.act, capacity_factor=0.0 if mode == "train" else 4.0)
-    return mlp_mod.swiglu(prm, h), None
+    if cfg.act == "gelu":
+        return mlp_mod.gelu_mlp(prm, h), None
+    return mlp_mod.swiglu(prm, h, cfg.act), None
 
 
 def _apply_block(cfg: ModelConfig, kind: str, prm, x, cos, sin, *, mode, cache, eps, paged):
@@ -245,26 +269,58 @@ def _init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dty
     raise ValueError(kind)
 
 
-def _embed(cfg: ModelConfig, params, inputs) -> torch.Tensor:
-    # a row gather; its backward on the card (embedding_dense_backward) sums
-    # repeated tokens in a fixed order, so replays are bitwise
-    return F.embedding(inputs["tokens"].long(), params["tok_emb"]).to(cfg.param_dtype)
+def _embed(cfg: ModelConfig, params, inputs) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(x (B, S, d) in the parameter dtype, the loss mask: False over the
+    image positions and True over the text when ``image_embeds`` are given,
+    else None). Each embedding is a row gather; its backward on the card
+    (embedding_dense_backward) sums repeated tokens in a fixed order, so
+    replays are bitwise."""
+    fe = cfg.frontend
+    toks = inputs["tokens"].long()
+    if fe is not None and fe.kind == "audio":  # (B, K, S): one table a codebook, summed in order
+        emb = params["tok_emb"]
+        x = F.embedding(toks[:, 0], emb[0])
+        for k in range(1, fe.num_codebooks):
+            x = x + F.embedding(toks[:, k], emb[k])
+        return x.to(cfg.param_dtype), None
+    x = F.embedding(toks, params["tok_emb"])
+    if fe is None or fe.kind != "vision" or "image_embeds" not in inputs:
+        return x.to(cfg.param_dtype), None
+    img = inputs["image_embeds"].to(cfg.param_dtype)  # (B, S_img, embed_dim)
+    proj = params["projector"]
+    x = torch.cat([mlp_mod.gelu(img @ proj["w1"]) @ proj["w2"], x], dim=1)
+    b_, s_img = img.shape[0], img.shape[1]
+    mask = torch.cat([torch.zeros((b_, s_img), dtype=torch.bool, device=x.device),
+                      torch.ones((b_, toks.shape[1]), dtype=torch.bool, device=x.device)], dim=1)
+    return x.to(cfg.param_dtype), mask
 
 
 def _rope_for(cfg: ModelConfig, inputs, batch: int, seq: int, offset=0):
-    """cos/sin over the head dim (MLA: its RoPE part, ``qk_rope_head_dim``)."""
+    """cos/sin over the head dim (MLA: its RoPE part, ``qk_rope_head_dim``);
+    M-RoPE from ``positions`` (B, 3, S), or the text positions in all three
+    streams."""
     a = cfg.attention
     if a is None or a.rope == "none":
         return None, None
+    dim = a.qk_rope_head_dim if a.kind == "mla" else a.head_dim
     pos = inputs.get("positions")
+    device = inputs["tokens"].device
+    if a.rope == "mrope":
+        if pos is None:
+            pos = rope_mod.text_mrope_positions(batch, seq, offset, device=device)
+        return rope_mod.mrope_cos_sin(pos, dim, a.rope_theta, a.mrope_sections)
     if pos is None:
-        pos = rope_mod.text_positions(batch, seq, offset, device=inputs["tokens"].device)
-    return rope_mod.rope_cos_sin(pos, a.qk_rope_head_dim if a.kind == "mla" else a.head_dim, a.rope_theta)
+        pos = rope_mod.text_positions(batch, seq, offset, device=device)
+    return rope_mod.rope_cos_sin(pos, dim, a.rope_theta)
 
 
 def _head(cfg: ModelConfig, params, hidden):
-    w = params["tok_emb"].T if cfg.tie_embeddings else params["head"]
-    return (hidden @ w) * cfg.logit_scale
+    fe = cfg.frontend
+    if fe is not None and fe.kind == "audio":  # one head a codebook: (B, K, S, V)
+        logits = torch.einsum("bsd,kdv->bksv", hidden, params["head"])
+    else:
+        logits = hidden @ (params["tok_emb"].T if cfg.tie_embeddings else params["head"])
+    return logits * cfg.logit_scale
 
 
 def apply_model(
@@ -277,17 +333,20 @@ def apply_model(
     decode_pos=None,
     paged=None,
 ) -> Tuple[torch.Tensor, dict]:
-    """Returns (logits, aux) with aux ``caches``, ``hidden`` and ``moe_aux``
+    """Returns (logits, aux) with aux ``caches``, ``hidden``, ``moe_aux``
     (0-dim f32: the sum over MoE layers of the router's aux loss; zero
-    without MoE).
+    without MoE) and ``loss_mask`` (see :func:`_embed`).
 
-    ``mode="train"``: ``inputs`` holds ``tokens`` (B, S); causal attention
-    over the whole sequence, no caches. ``mode="prefill"``: the same forward,
+    ``mode="train"``: ``inputs`` holds ``tokens`` (B, S), or (B, K, S) with
+    an audio frontend, and, with a vision frontend, optionally
+    ``image_embeds`` (B, S_img, embed_dim), prepended; M-RoPE archs may pass
+    ``positions`` (B, 3, S). Causal attention over the whole sequence, no
+    caches. ``mode="prefill"``: the same forward,
     and ``aux["caches"]`` the new dense caches. ``mode="decode"`` with
     ``paged``: ``inputs`` holds ``tokens`` (S, T) and per-row ``positions``
     (S, T); ``caches`` the per-segment page pools, updated in place.
-    ``mode="decode"`` without ``paged``: ``tokens`` (B, 1) at absolute
-    position ``decode_pos`` (an int or a 0-dim tensor) against the dense
+    ``mode="decode"`` without ``paged``: ``tokens`` (B, 1) (audio: (B, K,
+    1)) at absolute position ``decode_pos`` (an int or a 0-dim tensor) against the dense
     ``caches``, updated in place and returned."""
     _check_supported(cfg)
     if mode not in ("train", "prefill", "decode"):
@@ -295,7 +354,7 @@ def apply_model(
     dense_decode = mode == "decode" and paged is None
     if dense_decode and not caches:
         raise ValueError("apply_model(mode='decode') needs the dense caches (from prefill or init_caches) or paged=")
-    x = _embed(cfg, params, inputs)
+    x, loss_mask = _embed(cfg, params, inputs)
     b_, s = x.shape[0], x.shape[1]
     cos, sin = _rope_for(cfg, inputs, b_, s, decode_pos if dense_decode else 0)
     eps = cfg.norm_eps
@@ -324,12 +383,13 @@ def apply_model(
             new_caches[key] = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
     hidden = rmsnorm(params["final_norm"], x, eps)
     out_caches = new_caches if mode == "prefill" else (caches or {})
-    return _head(cfg, params, hidden), dict(caches=out_caches, hidden=hidden, moe_aux=moe_aux)
+    return _head(cfg, params, hidden), dict(caches=out_caches, hidden=hidden, moe_aux=moe_aux, loss_mask=loss_mask)
 
 
 def softmax_xent(logits, targets) -> torch.Tensor:
-    """Mean next-token cross-entropy in f32 (the reference's ``softmax_xent``
-    without the loss mask, which only the vision frontend uses)."""
+    """Mean next-token cross-entropy in f32 over every leading position
+    (the reference's ``softmax_xent`` without the loss mask, which its
+    ``lm_loss`` never passes)."""
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
@@ -338,18 +398,24 @@ def softmax_xent(logits, targets) -> torch.Tensor:
 
 def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, dict]:
     """``batch``: dict(tokens=(B, S), targets=(B, S)) -> (loss, metrics), as
-    the reference's ``lm_loss`` for a text arch: with MoE the loss adds
-    ``router_aux_weight * moe_aux / num_layers`` and the metrics hold
-    ``moe_aux``; with multi-token prediction it adds ``0.3 * mtp`` and the
-    metrics hold ``mtp`` (:func:`_mtp_loss`)."""
+    the reference's ``lm_loss``: audio ``tokens`` and ``targets`` are (B, K,
+    S) and the loss the mean over codebooks too; a vision batch may add
+    ``image_embeds`` and the loss is taken over the last S logits (the
+    text); with MoE the loss adds ``router_aux_weight * moe_aux /
+    num_layers`` and the metrics hold ``moe_aux``; with multi-token
+    prediction and no frontend it adds ``0.3 * mtp`` and the metrics hold
+    ``mtp`` (:func:`_mtp_loss`)."""
     logits, aux = apply_model(cfg, params, batch, mode="train")
-    xent = softmax_xent(logits, batch["targets"])
+    fe, targets = cfg.frontend, batch["targets"]
+    if fe is not None and fe.kind == "vision":  # the logits cover [image ; text]
+        logits = logits[:, -targets.shape[1]:]
+    xent = softmax_xent(logits, targets)
     metrics = dict(xent=xent)
     loss = xent
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_weight * aux["moe_aux"] / max(cfg.num_layers, 1)
         metrics["moe_aux"] = aux["moe_aux"]
-    if cfg.mtp_depth:
+    if cfg.mtp_depth and fe is None:
         mtp = _mtp_loss(cfg, params, batch, aux["hidden"])
         loss = loss + 0.3 * mtp
         metrics["mtp"] = mtp

@@ -7,7 +7,12 @@ gradient) returns the per-layer caches, and each decode step appends one
 token (plain torch on either device, as the reference: ``_decode_attend``,
 ``wkv_decode_step``, ``ssd_decode_step``; K7 for every norm). ``generate``
 is greedy or sampled generation over them; the dense caches are written in
-place, step by step.
+place, step by step. The modality frontends are served as the reference
+serves them: qwen2-vl's text through ``generate`` (and the engine's dense
+fallback), an image through ``prefill`` with ``image_embeds`` and then
+``decode_step`` at the positions past it; musicgen only through
+``prefill`` and ``decode_step`` on (B, K, S) codebook tokens (``generate``
+and the engine raise for it, where the reference's crash).
 
 ``paged_step`` serves both chunked prefill (tokens ``(1, C)``) and joint
 decode (tokens ``(slots, 1)``) against the shared page pool. Every RMSNorm
@@ -88,12 +93,20 @@ def prefill(cfg: ModelConfig, params, inputs) -> Tuple[torch.Tensor, dict]:
 
 
 def decode_step(cfg: ModelConfig, params, tokens, caches, pos) -> Tuple[torch.Tensor, dict]:
-    """tokens (B, 1) at absolute position ``pos`` (an int or a 0-dim tensor)
-    against the dense caches, which are written in place and returned."""
+    """tokens (B, 1) (audio: (B, K, 1)) at absolute position ``pos`` (an int
+    or a 0-dim tensor) against the dense caches, which are written in place
+    and returned."""
     with torch.no_grad():
         logits, aux = T.apply_model(cfg, params, dict(tokens=tokens), mode="decode", caches=caches,
                                     decode_pos=pos)
     return logits, aux["caches"]
+
+
+def _refuse_audio(cfg: ModelConfig, what: str) -> None:
+    fe = getattr(cfg, "frontend", None)
+    if fe is not None and fe.kind == "audio":
+        raise ValueError(f"{cfg.name}: {what} serves text tokens; the audio frontend decodes ({fe.num_codebooks} "
+                         "codebooks a step) through prefill and decode_step on (B, K, S) tokens")
 
 
 def _grow_all(caches: dict, cfg: ModelConfig, target_len: int) -> dict:
@@ -128,13 +141,15 @@ def _device_of(params) -> torch.device:
 def generate(cfg: ModelConfig, params, prompt, max_new: int, temperature: float = 0.0, seed: int = 0) -> np.ndarray:
     """Greedy or sampled generation: ``prompt`` (B, S0) int tokens (numpy or a
     tensor) -> (B, max_new) int32 numpy. Runs on the device of ``params`` (a
-    tree or a plane); the tokens stay there until the end."""
+    tree or a plane); the tokens stay there until the end. Text only: an
+    audio arch raises."""
     if prompt.ndim != 2:
         raise ValueError(f"prompt must be (batch, seq) int tokens, got shape {tuple(prompt.shape)}")
     if prompt.shape[0] == 0 or prompt.shape[1] == 0:
         raise ValueError(f"empty prompt batch: shape {tuple(prompt.shape)}")
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {max_new}")
+    _refuse_audio(cfg, "generate")
     device = _device_of(params)
     if not isinstance(prompt, torch.Tensor):
         prompt = torch.from_numpy(np.ascontiguousarray(prompt, np.int32))
@@ -177,13 +192,15 @@ def hot_swap(path: str, template, retries: int = 3, backoff: float = 0.05,
 class BatchedEngine:
     """Continuous-batching serving engine.
 
-    Attention-family archs run paged: fixed-size pages in a global pool,
+    Attention-family text archs run paged: fixed-size pages in a global pool,
     per-slot page tables, chunked prefill filling pages incrementally, and
     one joint decode forward per step across every active slot. A request
     admits, decodes exactly its own ``max_new`` tokens, and frees its pages
     the moment it finishes. Recurrent and hybrid archs (``paged="auto"``
     picks by :func:`paged_supported`) fall back to per-request ``generate``
-    in :meth:`run`: exact logits and exactly ``max_new`` tokens each.
+    in :meth:`run`: exact logits and exactly ``max_new`` tokens each; so
+    does qwen2-vl (M-RoPE and the vision frontend; text requests). An audio
+    arch raises: it has no engine.
     Greedy sampling (``torch.argmax`` on the device).
 
     ``params`` is a nested tree or a packed plane with no lead axis, served
@@ -210,6 +227,7 @@ class BatchedEngine:
             raise ValueError(f"max_len must be >= 2 (one prompt token + one generated), got {max_len}")
         if page_size < 1 or chunk < 1:
             raise ValueError(f"page_size and chunk must be >= 1, got {page_size}, {chunk}")
+        _refuse_audio(cfg, "BatchedEngine")
         self.paged = paged_supported(cfg) if paged == "auto" else bool(paged)
         if self.paged:
             require_paged(cfg)

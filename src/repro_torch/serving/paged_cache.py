@@ -31,11 +31,11 @@ class PagedState(NamedTuple):
 
 def paged_supported(cfg: ModelConfig) -> bool:
     """The reference's rule: paged serving covers attention-family text
-    archs (every segment ``"attn"`` or ``"moe"``, no frontend, no M-RoPE).
-    Recurrent and hybrid archs (rwkv6, zamba2's mamba2 segments) keep the
-    dense engine: their decode state is O(1) in the sequence length, so
-    there is nothing to page. Of the paged archs the port runs the GQA and
-    MLA ones, MoE included (:func:`require_paged`)."""
+    archs (every segment ``"attn"`` or ``"moe"``, GQA or MLA, SiLU or GELU
+    MLPs; no frontend, no M-RoPE). Recurrent and hybrid archs (rwkv6,
+    zamba2's mamba2 segments) keep the dense engine: their decode state is
+    O(1) in the sequence length, so there is nothing to page; so do the
+    modality frontends and M-RoPE's multi-axis positions."""
     from repro_torch.models.transformer import segments
 
     if cfg is None:
@@ -48,20 +48,15 @@ def paged_supported(cfg: ModelConfig) -> bool:
 
 
 def require_paged(cfg: ModelConfig) -> None:
-    """Raise unless the port pages ``cfg``: a recurrent or hybrid arch is
-    served densely (``BatchedEngine`` with ``paged="auto"``); of the archs
-    the reference pages, the port pages the GQA archs whose every segment is
-    ``"attn"`` or ``"moe"``, and the MLA archs (deepseek-v3)."""
+    """Raise unless ``cfg`` is paged (:func:`paged_supported`): the other
+    archs are served by dense decode (``BatchedEngine`` with
+    ``paged="auto"``)."""
     from repro_torch.models.transformer import _check_supported
 
     if not paged_supported(cfg):
         raise ValueError(f"{getattr(cfg, 'name', cfg)}: paged serving requires an attention-only text arch; "
-                         "recurrent and hybrid archs are served by dense decode")
-    refused = ValueError(f"{cfg.name}: the port pages GQA and MLA attention and MoE text archs")
-    try:
-        _check_supported(cfg)
-    except NotImplementedError:
-        raise refused from None
+                         "recurrent and hybrid archs, the modality frontends and M-RoPE are served by dense decode")
+    _check_supported(cfg)
 
 
 def pages_for(tokens: int, page_size: int) -> int:

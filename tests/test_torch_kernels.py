@@ -1280,7 +1280,10 @@ def test_gossip_and_adamw_wrappers_raise_on_card(cuda):
 # (B, Sq, Sk, H, Hkv, D, causal, window, q_offset, sk_valid): the LM slice's
 # shape, h2o-danube-1.8b's head_dim 80, mistral-large-123b's group of 12 (96
 # heads over 8 KV heads), zamba2-1.2b's shared block, a ragged
-# S with a padded K (NaN past sk_valid), a window, a q_offset
+# S with a padded K (NaN past sk_valid), a window, a q_offset; the modality
+# frontends' training shapes (qwen2-vl-7b: 1024 image + 512 text tokens over
+# qwen2's heads; musicgen-large: 32 heads of 64, no GQA, no window) and
+# qwen2-vl's ragged image prefill (1024 + 17 tokens)
 FA_CARD = [
     (2, 512, 512, 28, 4, 128, True, None, 0, None),
     (2, 512, 512, 32, 8, 80, True, None, 0, None),
@@ -1291,6 +1294,9 @@ FA_CARD = [
     (1, 130, 160, 4, 2, 64, False, None, 0, 130),
     (2, 256, 256, 8, 2, 128, True, 64, 0, None),
     (2, 64, 320, 8, 4, 64, True, None, 256, None),
+    (2, 1536, 1536, 28, 4, 128, True, None, 0, None),
+    (2, 512, 512, 32, 32, 64, True, None, 0, None),
+    (1, 1041, 1041, 28, 4, 128, True, None, 0, None),
 ]
 
 
@@ -1298,7 +1304,7 @@ FA_CARD = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FA_CARD,
                          ids=["slice", "head_dim_80", "group_12", "group_8", "group_7_kv8", "zamba2", "ragged", "window",
-                              "q_offset"])
+                              "q_offset", "qwen2_vl", "musicgen", "qwen2_vl_prefill"])
 def test_flash_attention_kernels_vs_plain_on_card(cuda, case, dtype):
     """Bounds as chip_smoke.py states them (max|Δ| / max|plain|): f32 1e-5
     forward, 2e-5 gradients; bf16 2^-7 both. Keys past sk_valid hold NaN,

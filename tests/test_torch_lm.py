@@ -261,12 +261,19 @@ def test_train_launcher_on_cpu(capsys, tmp_path):
 
 
 def test_lm_paths_outside_the_slice_raise_with_their_roadmap_item():
+    """M-RoPE and GELU MLPs (ROADMAP item 8) are ported: each config builds
+    and runs one round (tests/test_torch_frontends.py holds them against the
+    reference); M-RoPE sections that do not tile head_dim/2 raise, as the
+    reference's assertion does."""
     _, tcfg = _cfgs()
-    mrope = dataclasses.replace(tcfg, attention=dataclasses.replace(tcfg.attention, rope="mrope"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(arch=mrope, device="cpu").build()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(arch=dataclasses.replace(tcfg, act="gelu"), device="cpu").build()
+    mrope = dataclasses.replace(tcfg, attention=dataclasses.replace(tcfg.attention, rope="mrope",
+                                                                   mrope_sections=(16, 8, 8)))
+    for cfg in (mrope, dataclasses.replace(tcfg, act="gelu")):
+        res = Experiment(arch=cfg, workers=2, data=TokenStream(1, 16), device="cpu").fit(rounds=1)
+        assert np.isfinite(res.losses).all()
+    with pytest.raises(ValueError, match="must sum to 32"):
+        Experiment(arch=dataclasses.replace(mrope, attention=dataclasses.replace(mrope.attention, mrope_sections=())),
+                   device="cpu").build()
     with pytest.raises(ValueError, match="not both"):
         Experiment(arch="qwen2-7b", task=object(), device="cpu")
     params = T.init_model(tcfg, torch.Generator().manual_seed(0))

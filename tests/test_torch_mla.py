@@ -143,14 +143,33 @@ def test_config_equals_the_reference_and_is_registered(cfgs):
 
 
 def test_mla_and_mtp_run_and_what_still_raises(cfgs):
-    """``_check_supported`` takes MLA and MTP; M-RoPE, GELU and frontends still
-    raise under ROADMAP item 8."""
-    _, tcfg = cfgs
+    """``_check_supported`` takes MLA and MTP, and since ROADMAP item 8 also
+    M-RoPE (over MLA's RoPE part, ``qk_rope_head_dim``) and GELU (the dense
+    layer's GELU MLP, the experts' and the shared expert's GELU gate): the
+    reduced deepseek with both gives the reference's logits and loss (1e-5
+    of max|ref|, rtol 1e-6, as the MLA forward); M-RoPE sections that do not
+    tile qk_rope_head_dim/2 raise, as the reference's assertion does."""
+    jcfg, tcfg = cfgs
     T._check_supported(tcfg)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    both = []
+    for c in (jcfg, tcfg):
+        c = dataclasses.replace(c, act="gelu")
+        both.append(dataclasses.replace(c, attention=dataclasses.replace(c.attention, rope="mrope",
+                                                                         mrope_sections=(4, 2, 2))))
+    with pytest.raises(ValueError, match="must sum to 8"):
         T._check_supported(dataclasses.replace(tcfg, attention=dataclasses.replace(tcfg.attention, rope="mrope")))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T._check_supported(dataclasses.replace(tcfg, act="gelu"))
+    jparams, _ = JT.init_model(both[0], jax.random.PRNGKey(0))
+    tparams = interop.params_from_numpy(_np(jparams))
+    assert "bi" in tparams["seg0"]["ffn"]  # the dense layer's GELU MLP
+    toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    batch = dict(tokens=toks, targets=np.roll(toks, -1, axis=1))
+    jl, _ = JT.apply_model(both[0], jparams, dict(tokens=jnp.asarray(toks)), mode="train")
+    tl, _ = T.apply_model(both[1], tparams, dict(tokens=torch.from_numpy(toks)), mode="train")
+    assert np.abs(tl.numpy() - np.asarray(jl)).max() <= 1e-5 * np.abs(np.asarray(jl)).max()
+    jloss, _ = JT.lm_loss(both[0], jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tloss, tm = T.lm_loss(both[1], tparams, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert "mtp" in tm
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-6)
 
 
 def test_params_match_the_reference_leaf_for_leaf(cfgs, model):

@@ -260,9 +260,14 @@ def test_engine_validations(qwen):
         eng.submit("d", np.ones(14, np.int32), 8)
     with pytest.raises(ValueError, match="params live on"):
         BatchedEngine(tcfg, dict(tparams, tok_emb=tparams["tok_emb"].to("meta")), device="cpu")
-    gelu = dataclasses.replace(tcfg, act="gelu")  # paged by the reference, not run by the port (item 8)
-    with pytest.raises(ValueError, match="GQA"):
-        BatchedEngine(gelu, tparams, device="cpu")
+    # a GELU text arch (item 8) is paged, as by the reference: the same tokens and events
+    jgelu, tgelu = (dataclasses.replace(c, act="gelu") for c in _cfgs())
+    jgp = _jax_params(jgelu)
+    trace = _trace(np.random.default_rng(3), 4, jgelu.vocab_size, lp=(3, 14), mn=(2, 6))
+    kw = dict(slots=2, max_len=24, page_size=4, num_pages=9, chunk=8)
+    eng = BatchedEngine(tgelu, interop.params_from_numpy(_to_numpy(jgp)), device="cpu", **kw)
+    assert eng.paged
+    assert _drive(eng, trace) == _drive(JaxEngine(jgelu, jgp, **kw), trace)
 
 
 def test_entry_points_default_to_cuda(qwen):

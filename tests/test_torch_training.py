@@ -342,19 +342,22 @@ def test_experiment_defaults_to_cuda():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """What still raises, each naming its ROADMAP item: M-RoPE archs (8),
-    host offload (9), the per-leaf oracle (4b) and the runtime model behind
-    ``FaultPlan.runtime_config`` (10). The probe and the membership of every
-    boundary, ``fit(adaptive_tau=...)``, ``fit(faults=...)`` and the
-    checkpointer (``--ckpt``, tests/test_torch_checkpoint.py) are ported and
-    run."""
+    """What still raises, each naming its ROADMAP item: host offload (9), the
+    per-leaf oracle (4b) and the runtime model behind
+    ``FaultPlan.runtime_config`` (10). M-RoPE archs (item 8) build and run a
+    round; the probe and the membership of every boundary,
+    ``fit(adaptive_tau=...)``, ``fit(faults=...)`` and the checkpointer
+    (``--ckpt``, tests/test_torch_checkpoint.py) are ported and run."""
     from repro_torch.fault import FaultPlan, from_mask
     from repro_torch.launch import train as train_cli
 
     qcfg = get_arch("qwen2-7b").model.reduced()
-    mrope = dataclasses.replace(qcfg, attention=dataclasses.replace(qcfg.attention, rope="mrope"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Experiment(arch=mrope, device="cpu").build()
+    mrope = dataclasses.replace(qcfg, attention=dataclasses.replace(qcfg.attention, rope="mrope",
+                                                                   mrope_sections=(16, 8, 8)))
+    from repro_torch.api import TokenStream
+
+    res = Experiment(arch=mrope, workers=2, data=TokenStream(1, 16), device="cpu").fit(rounds=1)
+    assert np.isfinite(res.losses).all()
     with pytest.raises(NotImplementedError, match="item 9"):
         make_strategy(AlgoConfig(offload=True))
     with pytest.raises(SystemExit):  # the launcher's flags: an unknown strategy
