@@ -98,8 +98,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ms, a profile). (c) Dense serving: the reduced qwen2-7b, rwkv6-7b and
    zamba2-1.2b in f32, ``prefill`` then ``decode_step`` on the card and on
    the CPU, logits within 1e-4, and on the card decode after prefill
-   within 2e-3 of the full prefill's last logits; full-width, full-depth
-   rwkv6-7b and zamba2-1.2b (bf16, seeded weights) through the engine's
+   within 2e-3 of the full prefill's last logits; full-width rwkv6-7b and
+   zamba2-1.2b (bf16, seeded weights; full depth through PR 26, half since
+   PR 27: 16 of 32 and 19 of 38 layers) through the engine's
    dense fallback on the trace of (b): exactly ``max_new`` in-vocab tokens,
    finite logits, launch counts exactly as the forwards imply (K12's or
    K11's forward kernels and K6's forward once a layer a prefill, K7 every
@@ -238,12 +239,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    the reduced f32 twins trained, and served (an image prefill with and
    without grid M-RoPE positions, codebook tokens; decode past them) on
    the card and the CPU.
-9. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+9. Host offload (``AlgoConfig.offload``): (a) K1 ``sgd_step_window`` and
+   K2 ``adamw_step_window`` (the window form: a chunk's columns of x and g,
+   row stride n, against a staged (m, c) state chunk) on every chunk of
+   the classifier's plane (chunks of 4,096 columns) and of a 4 x 2^27
+   plane in 64 MiB chunks, f32 and bf16: bit for bit the plain version on
+   each window and the whole-plane launch, the staging tail untouched;
+   timed at the first window beside the whole-plane launch on a
+   contiguous plane of the same bytes, the plain version, the library's
+   fused step and the bytes bound; (b) the host link's GB/s for one 64 MiB
+   pinned chunk on the offload copy streams: host to device, device to
+   host, both at once; (c) the quickstart classifier (16 workers, tau 3)
+   offloaded in 5 chunks a plane against resident, for overlap (beta
+   0.7), local_sgd and delayed_avg (delay 2 and 3), each with SGD and
+   AdamW: losses and every plane bit for bit, one window launch a chunk a
+   step; the reference's faulted run (crash:1@2-5, slow:2x4, m 4, seed 7)
+   offloaded against resident, worker 1 re-synced; (d) musicgen-large at
+   its full 48 layers through ``Experiment`` (weights drawn on the card;
+   tau 2, alpha 0.6, beta 0.7; SGD lr 1e-2 + Nesterov 0.9; batch 2 x seq
+   512), m = 2 offloaded then resident, 2 rounds each: every plane bit
+   for bit, exact launch counts, step ms and the exposed host-link time a
+   step; (e) m = 4 offloaded (its resident planes alone would take ~ 73
+   GB): 2 rounds, finite losses, the first cross-entropy within 0.1 of ln
+   V + 1/2, the peaks under 80 GB, the pinned host bytes and the stream
+   bytes a round; the host's free memory before (d) and (e).
+10. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
-   call; K6's rows with their ``d192``, ``qwen2_vl`` and ``musicgen`` cases
-   and K10's with its ``latent`` case), then the device line last.
+   call, K1's and K2's window forms; K6's rows with their ``d192``,
+   ``qwen2_vl`` and ``musicgen`` cases and K10's with its ``latent``
+   case), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -2455,25 +2481,31 @@ def profile_generate(cfg, params, prompt):
                 top=[dict(name=e.key[:90], count=e.count, device_us=e.self_device_time_total) for e in top])
 
 
-def dense_launches(arch, prefills, forwards):
-    """The dense path's launches, counted by hand from the full models: rwkv6
-    (32 layers) K12's two forward kernels once a layer a prefill, K7 at ln1,
-    ln2 and the group norm of each layer and the final norm a forward;
-    zamba2 (33 mamba2 layers, the shared block at 5 positions) K11's two
+# the dense fallback's depth: full through PR 26, cut to half in PR 27 (rwkv6
+# 16 of 32 layers; zamba2 its first 19 of 38: 17 mamba2, the shared block at
+# 2 positions) to pay for phase 9's time; the published widths
+DENSE_LAYERS = {"rwkv6-7b": 16, "zamba2-1.2b": 19}
+
+
+def dense_launches(cfg, prefills, forwards):
+    """The dense path's launches, counted from the layer pattern: rwkv6 K12's
+    two forward kernels once a layer a prefill, K7 at ln1, ln2 and the group
+    norm of each layer and the final norm a forward; zamba2 K11's two
     forward kernels once a mamba2 layer a prefill, K6's forward once a shared
     position a prefill, K7 at each mamba2 layer's ln1 and gated norm, each
     shared position's ln1 and ln2 and the final norm a forward. Decode
     launches no K6, K11 or K12 (its attention and recurrences are plain
     torch, as in the reference); nothing launches a backward kernel."""
-    if arch == "rwkv6-7b":
-        return dict(wkv_fwd_local=32 * prefills, wkv_fwd=32 * prefills, rmsnorm=(3 * 32 + 1) * forwards)
-    mamba, shared = 33, 5
+    pattern = cfg.pattern()
+    rwkv, mamba, shared = (pattern.count(k) for k in ("rwkv6", "mamba2", "shared_attn"))
+    if rwkv:
+        return dict(wkv_fwd_local=rwkv * prefills, wkv_fwd=rwkv * prefills, rmsnorm=(3 * rwkv + 1) * forwards)
     return dict(ssd_fwd_local=mamba * prefills, ssd_fwd=mamba * prefills, flash_attention_fwd=shared * prefills,
                 rmsnorm=(2 * mamba + 2 * shared + 1) * forwards)
 
 
 def serve_dense_full_depth(dev, kernels, arch):
-    """Full-width, full-depth ``arch`` (bf16, seeded random weights) through
+    """Full-width ``arch`` at :data:`DENSE_LAYERS` (bf16, seeded random weights) through
     ``BatchedEngine``'s dense fallback on the serving trace (8 requests,
     prompts 17-300, max_new 32): exact max_new in-vocab tokens, finite
     logits, launch counts exactly as the forwards imply, the same tokens on a
@@ -2489,12 +2521,12 @@ def serve_dense_full_depth(dev, kernels, arch):
     from repro_torch.models.params import num_params
     from repro_torch.serving import BatchedEngine, generate
 
-    cfg = get_arch(arch).model
+    cfg = _cut(get_arch(arch).model, DENSE_LAYERS[arch])
     t0 = time.perf_counter()
     params = T.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     torch.cuda.synchronize()
     n_params = num_params(params)
-    log(f"full-width {cfg.name}: {cfg.num_layers} layers, {n_params} params in {cfg.dtype}, "
+    log(f"full-width {cfg.name}: {cfg.num_layers} of {get_arch(arch).model.num_layers} layers, {n_params} params in {cfg.dtype}, "
         f"init {time.perf_counter() - t0:.1f}s")
     trace = make_trace(cfg.vocab_size)
     generate(cfg, params, trace[0][1][None, :20], 2)  # warm
@@ -2530,7 +2562,7 @@ def serve_dense_full_depth(dev, kernels, arch):
     n_pre, n_dec = len(timer.ms["prefill"]), len(timer.ms["decode"])
     if (n_pre, n_dec) != (len(trace), len(trace) * (MAX_NEW - 1)):
         raise AssertionError(f"{arch}: {n_pre} prefills, {n_dec} decode steps")
-    want = dense_launches(arch, n_pre, n_pre + n_dec)
+    want = dense_launches(cfg, n_pre, n_pre + n_dec)
     if launches != want:
         raise AssertionError(f"{arch} dense launches {launches} != implied by {n_pre} prefills + {n_dec} decodes: {want}")
     if peak2 > peak1 or mem2 != mem1:
@@ -2538,7 +2570,8 @@ def serve_dense_full_depth(dev, kernels, arch):
     total = sum(len(v) for v in res1.values())
     profile = profile_generate(cfg, params, trace[0][1])
     summary = dict(
-        slice=f"{cfg.name} full width and depth bf16, dense fallback", params=n_params, layers=cfg.num_layers,
+        slice=f"{cfg.name} full width, {cfg.num_layers} of {get_arch(arch).model.num_layers} layers, bf16, dense fallback",
+        params=n_params, layers=cfg.num_layers,
         requests=len(trace), prompt_lens=[len(p) for _, p in trace], max_new=MAX_NEW, tokens=total,
         wall_s=wall, tok_s=total / wall,
         decode_step_ms_median=_median(timer.ms["decode"]), prefill_ms_median=_median(timer.ms["prefill"]),
@@ -3128,9 +3161,12 @@ LM_BATCH, LM_SEQ = 2, 512
 LM_TWIN_CTRL = dict(tau=1, tau_min=1, tau_max=4, lo=2e-3, hi=1e-1)
 
 
-def _lm_experiment(dev, cfg, workers, seq):
+def _lm_experiment(dev, cfg, workers, seq, init_on_device=False):
     """The training CLI's defaults: Overlap-Local-SGD tau 2, alpha 0.6, beta
-    0.7, packed; SGD lr 1e-2 constant with Nesterov momentum 0.9."""
+    0.7, packed; SGD lr 1e-2 constant with Nesterov momentum 0.9.
+    ``init_on_device``: the full-width runs draw their weights on the card
+    (since PR 27; the CPU draw of a billion and more parameters took ~10 s a
+    build), the card-vs-CPU twins on the CPU, so both start equal."""
     from repro_torch.api import Experiment, TokenStream
     from repro_torch.config import AlgoConfig, OptimizerConfig
     from repro_torch.optim import schedules
@@ -3138,7 +3174,7 @@ def _lm_experiment(dev, cfg, workers, seq):
     return Experiment(arch=cfg, strategy=AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6, anchor_beta=0.7),
                       optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
                       schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=seq),
-                      workers=workers, device=dev)
+                      workers=workers, device=dev, init_on_device=init_on_device)
 
 
 def lm_twin_card_vs_cpu(dev, cfg, label):
@@ -3282,7 +3318,7 @@ def lm_full_width(dev, kernels, cfg, expect=qwen2_launches, shares=(), after=Non
     import torch
 
     t0 = time.perf_counter()
-    exp = _lm_experiment(dev, cfg, LM_WORKERS, LM_SEQ).build()
+    exp = _lm_experiment(dev, cfg, LM_WORKERS, LM_SEQ, init_on_device=True).build()
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     plane_shape, n_params = [list(b.shape) for b in exp.state.x.buffers], exp.num_params
@@ -3318,7 +3354,7 @@ def lm_full_width(dev, kernels, cfg, expect=qwen2_launches, shares=(), after=Non
     gc.collect()
     torch.cuda.empty_cache()
 
-    again = _lm_experiment(dev, cfg, LM_WORKERS, LM_SEQ).build()
+    again = _lm_experiment(dev, cfg, LM_WORKERS, LM_SEQ, init_on_device=True).build()
     second = again.fit(rounds=LM_ROUNDS).losses
     if second != losses:
         raise AssertionError(f"LM run is not deterministic: losses {losses} vs {second}")
@@ -3379,7 +3415,7 @@ def lm_gossip_full_width(dev, kernels):
         return Experiment(arch=cfg, strategy=AlgoConfig(name="gossip_ring", tau=2, alpha=0.6),
                           optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
                           schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ),
-                          workers=LM_WORKERS, device=dev).build()
+                          workers=LM_WORKERS, device=dev, init_on_device=True).build()
 
     t0 = time.perf_counter()
     exp = experiment()
@@ -3508,7 +3544,7 @@ def lm_adaptive_faulted(dev, kernels, cfg, overlap_peak=None):
         return Experiment(arch=cfg, strategy=AlgoConfig(name="overlap_local_sgd", tau=1, alpha=0.6, anchor_beta=0.7),
                           optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
                           schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ),
-                          workers=m, device=dev).build()
+                          workers=m, device=dev, init_on_device=True).build()
 
     def ends(b, i):
         return b[i, :t].clone(), b[i, -t:].clone()
@@ -4619,6 +4655,427 @@ def frontend_twins_card_vs_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: host offload (AlgoConfig.offload): the streamed optimizer step on
+# pinned host planes, K1 and K2 on chunk windows, musicgen-large trained at
+# its full 48 layers with m = 4
+# ---------------------------------------------------------------------------
+
+# K1/K2's window form: (case, m, n, dtype, chunk columns). The classifier's
+# plane in 4,096-column chunks (a ragged last one); the 4 x 2^27 plane in the
+# default plan's 64 MiB chunks, in f32 (2^24 columns a chunk) and in bf16
+# (2^25: musicgen's chunk at m 4, the offloaded path's shape), the last two
+# timed on their first window
+WINDOW_CASES = [("classifier", 16, 17408, "float32", 4096), ("large_f32", 4, 1 << 27, "float32", 1 << 24),
+                ("large_bf16", 4, 1 << 27, "bfloat16", 1 << 25)]
+WINDOW_TIMED = ("large_f32", "large_bf16")
+LINK_BYTES = 64 << 20  # one 64 MiB pinned chunk
+OFF_CLF_CHUNK_MB = 1 / 64  # the classifier's 17,408-column plane in 5 chunks of 4,096 f32
+OFF_VARIANTS = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("local_sgd", {}), ("delayed_avg", dict(delay_steps=2)),
+                ("delayed_avg", dict(delay_steps=3))]
+OFF_ROUNDS = 6
+MG_OFF_ROUNDS = 2
+MG_OFF_WORKERS = (2, 4)  # m 2: resident against offloaded; m 4: offloaded alone (resident does not fit)
+
+
+def check_opt_windows(dev, gen):
+    """K1 ``sgd_step_window`` and K2 ``adamw_step_window`` on every chunk
+    window of each :data:`WINDOW_CASES` plane: the window of x and g (row
+    stride n) against a staged (m, c) state chunk (row stride c), bit for
+    bit the plain version on the same window and the whole-plane launch on
+    the whole plane; the staging chunk's tail past a ragged window untouched.
+    Timed on the first window of the large planes beside the whole-plane
+    launch on a contiguous (m, c) plane of the same bytes, the plain
+    version, the library's fused step on that plane, and the bytes bound."""
+    import torch
+
+    from repro_torch.kernels.opt_step import ops, ref
+
+    sgd_kw = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
+    adam_kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=1e-4)
+    worst, timing = {"K1": 0.0, "K2": 0.0}, {"K1": {}, "K2": {}}
+    for case, m, n, dname, c in WINDOW_CASES:
+        dtype = getattr(torch, dname)
+        P = torch.finfo(dtype).bits // 8
+        x = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+        g = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+        mom = (0.1 * torch.randn(m, n, generator=gen, device=dev)).to(dtype)
+        mu = 0.1 * torch.randn(m, n, generator=gen, device=dev)
+        nu = torch.rand(m, n, generator=gen, device=dev)
+        lr = torch.full((), 0.05, device=dev)
+        c1, c2 = torch.full((), 1 - 0.9**3, device=dev), torch.full((), 1 - 0.95**3, device=dev)
+        ok = True
+        for key in ("K1", "K2"):
+            xw = x.clone()
+            whole = (ops.sgd_step(x.clone(), g, mom.clone(), lr, **sgd_kw) if key == "K1" else
+                     ops.adamw_step(x.clone(), g, mu.clone(), nu.clone(), lr, c1, c2, **adam_kw))
+            for i in range(-(-n // c)):
+                c0, w = i * c, min(c, n - i * c)
+                sl = slice(c0, c0 + w)
+                if key == "K1":
+                    st = [torch.zeros(m, c, dtype=dtype, device=dev)]
+                    st[0][:, :w] = mom[:, sl]
+                    want = ref.sgd_update(x[:, sl], g[:, sl], mom[:, sl], lr, **sgd_kw)
+                    ops.sgd_step_window(xw[:, sl], g[:, sl], st[0][:, :w], lr, **sgd_kw)
+                else:
+                    st = [torch.zeros(m, c, device=dev), torch.zeros(m, c, device=dev)]
+                    st[0][:, :w], st[1][:, :w] = mu[:, sl], nu[:, sl]
+                    want = ref.adamw_update(x[:, sl], g[:, sl], mu[:, sl], nu[:, sl], lr, c1, c2, **adam_kw)
+                    ops.adamw_step_window(xw[:, sl], g[:, sl], st[0][:, :w], st[1][:, :w], lr, c1, c2, **adam_kw)
+                got = (xw[:, sl],) + tuple(s[:, :w] for s in st)
+                ok &= all(torch.equal(a, b) for a, b in zip(got, want))
+                ok &= all(torch.equal(a, b[:, sl]) for a, b in zip(got[1:], whole[1:]))
+                ok &= all(not bool(s[:, w:].any()) for s in st)
+                worst[key] = max([worst[key]] + [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)])
+                del want, got, st
+            ok &= torch.equal(xw, whole[0])
+            del whole, xw
+        rec = dict(check=f"K1/K2 window form, {case}: {dname} m={m} n={n} in chunks of {c}", chunks=-(-n // c),
+                   bound="bitwise (plain version on each window; whole-plane launch)", ok=bool(ok),
+                   max_abs_err={k: worst[k] for k in worst})
+        if case in WINDOW_TIMED:
+            win = (x[:, :c], g[:, :c])
+            xc, gc, mc = x[:, :c].contiguous(), g[:, :c].contiguous(), mom[:, :c].contiguous()
+            mw = mom[:, :c].contiguous()
+            it = 20
+            t = dict(shape=f"{dname} window m={m} w={c} of an (m, {n}) plane (row stride {n})")
+            t["ms"] = median_ms(lambda: ops.sgd_step_window(*win, mw, lr, **sgd_kw), it)
+            t["whole_plane_ms"] = median_ms(lambda: ops.sgd_step(xc, gc, mc, lr, **sgd_kw), it)
+            t["plain_ms"] = time_ms(lambda: ref.sgd_update(*win, mw, lr, **sgd_kw), it)
+            t["library_ms"] = median_ms(lambda: torch._fused_sgd_(
+                [xc], [gc], [mc], weight_decay=1e-4, momentum=0.9, lr=0.05, dampening=0.0, nesterov=True,
+                maximize=False, is_first_step=False), it)
+            t["bound_ms"], t["bound_by"] = bound(5 * P * m * c, 8 * m * c)
+            timing["K1"][case] = t
+            muc, nuc = mu[:, :c].contiguous(), nu[:, :c].contiguous()
+            mup, nup = muc.clone(), nuc.clone()
+            steps = [torch.full((), 3.0, device=dev)]
+            t = dict(shape=f"{dname} x, g window m={m} w={c} (row stride {n}); f32 moments")
+            t["ms"] = median_ms(lambda: ops.adamw_step_window(*win, mup, nup, lr, c1, c2, **adam_kw), it)
+            t["whole_plane_ms"] = median_ms(lambda: ops.adamw_step(xc, gc, muc, nuc, lr, c1, c2, **adam_kw), it)
+            t["plain_ms"] = time_ms(lambda: ref.adamw_update(*win, mup, nup, lr, c1, c2, **adam_kw), it)
+            t["library_ms"] = (median_ms(lambda: torch._fused_adamw_(
+                [xc], [gc], [muc], [nuc], [], steps, amsgrad=False, lr=0.05, beta1=0.9, beta2=0.95,
+                weight_decay=1e-4, eps=1e-8, maximize=False), it) if dtype == torch.float32 else None)
+            t["bound_ms"], t["bound_by"] = bound((3 * P + 16) * m * c, 16 * m * c)
+            timing["K2"][case] = t
+            rec["timing"] = {k: timing[k][case] for k in timing}
+            del xc, gc, mc, mw, muc, nuc, mup, nup
+        log(json.dumps(rec))
+        if not rec["ok"]:
+            raise AssertionError(f"K1/K2 window form disagrees: {rec}")
+        del x, g, mom, mu, nu
+        _free()
+    return worst, timing
+
+
+def host_link_rate(dev):
+    """The host link's rate for one 64 MiB pinned chunk (the default plan's
+    chunk), on the offload module's copy streams: host to device alone,
+    device to host alone, and both at once (the streamed step's traffic);
+    CUDA events around 20 copies, the median of five runs."""
+    import torch
+
+    from repro_torch.parallel import offload as off
+
+    h_in = off._host_stack((LINK_BYTES,), torch.uint8, pinned=True)
+    h_out = off._host_stack((LINK_BYTES,), torch.uint8, pinned=True)
+    d_in, d_out = torch.empty(LINK_BYTES, dtype=torch.uint8, device=dev), torch.zeros(LINK_BYTES, dtype=torch.uint8,
+                                                                                      device=dev)
+    h_in.fill_(1)
+    link, iters = off._link(dev), 20
+
+    def run(h2d, d2h):
+        cur = torch.cuda.current_stream(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record(cur)
+        link.h2d.wait_stream(cur)
+        link.d2h.wait_stream(cur)
+        for _ in range(iters):
+            if h2d:
+                with torch.cuda.stream(link.h2d):
+                    d_in.copy_(h_in, non_blocking=True)
+            if d2h:
+                with torch.cuda.stream(link.d2h):
+                    h_out.copy_(d_out, non_blocking=True)
+        cur.wait_stream(link.h2d)
+        cur.wait_stream(link.d2h)
+        end.record(cur)
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    out = dict(check="host link, one 64 MiB pinned chunk a copy", chunk_bytes=LINK_BYTES, copies=iters)
+    for key, (a, b) in (("h2d", (True, False)), ("d2h", (False, True)), ("both", (True, True))):
+        run(a, b)
+        ms = sorted(run(a, b) for _ in range(5))[2]
+        out[f"{key}_ms"] = ms
+        out[f"{key}_GBps_each_way"] = iters * LINK_BYTES / (ms / 1e3) / 1e9
+    out["both_GBps_total"] = 2 * out["both_GBps_each_way"]
+    torch.cuda.synchronize()
+    del h_in, h_out
+    log(json.dumps(out))
+    return out
+
+
+def _host_equals(hp, px) -> bool:
+    """Every chunk of a HostPlane equals the same columns of a resident
+    plane, bit for bit (one chunk on the card at a time)."""
+    import torch
+
+    hp.host_ready()
+    for b, (stack, buf) in enumerate(zip(hp.chunks, px.buffers)):
+        k, c = hp.plan.grid(b)
+        n = buf.shape[-1]
+        for i in range(k):
+            c0, w = i * c, min(c, n - i * c)
+            if not torch.equal(stack[i].to(buf.device)[..., :w], buf[..., c0 : c0 + w]):
+                return False
+    return True
+
+
+def _states_equal_offloaded(s_off, s_res) -> bool:
+    """An offloaded TrainState against a resident one: x, the optimizer
+    planes, vars (z, v) and the in-flight plane(s), bit for bit."""
+    import torch
+
+    from repro_torch.parallel import offload as off
+    from repro_torch.parallel.packing import Packed
+
+    def pairs(a, b):
+        if isinstance(a, off.HostPlane):
+            yield a, b
+        elif isinstance(a, Packed):
+            yield a, b
+        elif isinstance(a, tuple) and hasattr(a, "_fields"):
+            for f in a._fields:
+                yield from pairs(getattr(a, f), getattr(b, f))
+        elif isinstance(a, torch.Tensor):
+            yield a, b
+
+    for a, b in pairs(s_off._replace(membership=None), s_res._replace(membership=None)):
+        if isinstance(a, off.HostPlane):
+            if not _host_equals(a, b):
+                return False
+        elif isinstance(a, Packed):
+            if not all(torch.equal(x, y) for x, y in zip(a.buffers, b.buffers)):
+                return False
+        elif not torch.equal(a, b):
+            return False
+    return True
+
+
+def train_offloaded_classifier(dev, kernels):
+    """The quickstart classifier (16 workers, tau 3, alpha 0.6) with
+    ``AlgoConfig(offload=True, offload_chunk_mb=1/64)`` (the plane in 5
+    chunks) against the same run resident, for the reference's four
+    variants (overlap beta 0.7, local_sgd, delayed_avg with delay 2 and 3)
+    with SGD and AdamW, OFF_ROUNDS rounds each: losses and every plane bit
+    for bit, the window launches one a chunk a step (no whole-plane K1/K2);
+    then the reference's faulted run (crash:1@2-5, slow:2x4, m 4, seed 7;
+    tau 4, alpha 0.5, beta 0.7; 6 rounds), offloaded against resident:
+    losses bit for bit, worker 1 re-synced."""
+    import torch
+
+    from repro_torch.api import ClassificationSpec, Experiment
+    from repro_torch.config import AlgoConfig
+    from repro_torch.fault import FaultPlan
+    from repro_torch.parallel import offload as off
+
+    out, windows = {}, {"sgd_step_window": 0, "adamw_step_window": 0}
+    for name, kw in OFF_VARIANTS:
+        for opt in ("sgd", "adamw"):
+            runs = {}
+            for offload in (True, False):
+                exp = _experiment(dev, AlgoConfig(name=name, tau=3, alpha=0.6, offload=offload,
+                                                  offload_chunk_mb=OFF_CLF_CHUNK_MB, **kw), opt)
+                runs[offload] = (exp, _fit(exp, kernels, OFF_ROUNDS))
+            (e_off, r_off), (e_res, r_res) = runs[True], runs[False]
+            plan = off.plan_of(e_off.state.opt)
+            chunks = sum(plan.num_chunks)
+            steps = OFF_ROUNDS * 3
+            kname, whole = ("sgd_step_window", "sgd_step") if opt == "sgd" else ("adamw_step_window", "adamw_step")
+            windows[kname] += r_off["launches"][kname]
+            rec = dict(check=f"offloaded classifier {name} {kw} {opt}", chunks=chunks, steps=steps,
+                       losses_equal=r_off["losses"] == r_res["losses"],
+                       planes_equal=_states_equal_offloaded(e_off.state, e_res.state),
+                       window_launches=r_off["launches"][kname], whole_launches=r_off["launches"][whole],
+                       resident_whole_launches=r_res["launches"][whole], wall_s_offloaded=r_off["wall_s"],
+                       wall_s_resident=r_res["wall_s"], host_bytes=off.host_nbytes(e_off.state))
+            rec["ok"] = (rec["losses_equal"] and rec["planes_equal"] and rec["window_launches"] == steps * chunks
+                         and rec["whole_launches"] == 0 and rec["resident_whole_launches"] == steps
+                         and off.is_offloaded(e_off.state.opt))
+            log(json.dumps(rec))
+            if not rec["ok"]:
+                raise AssertionError(f"offloaded classifier disagrees with resident: {rec}")
+            out[f"{name} {kw} {opt}"] = rec
+    kw = dict(name="overlap_local_sgd", tau=4, alpha=0.5, anchor_beta=0.7, offload_chunk_mb=OFF_CLF_CHUNK_MB)
+    faulted = {}
+    for offload in (True, False):
+        exp = Experiment(task=ClassificationSpec(n=2000, holdout=500), strategy=AlgoConfig(offload=offload, **kw),
+                         device=dev)
+        faulted[offload] = exp.fit(rounds=6, faults=FaultPlan.parse("crash:1@2-5,slow:2x4", m=4, seed=7))
+    torch.cuda.synchronize()
+    rec = dict(check="offloaded faulted classifier (crash:1@2-5,slow:2x4, m 4, seed 7)",
+               losses=faulted[True].losses, losses_equal=faulted[True].losses == faulted[False].losses,
+               resynced=[r["resynced"] for r in faulted[True].fault_log if r.get("resynced")])
+    rec["ok"] = rec["losses_equal"] and any(1 in r for r in rec["resynced"])
+    log(json.dumps(rec))
+    if not rec["ok"]:
+        raise AssertionError(f"offloaded faulted run: {rec}")
+    out["faulted"] = rec
+    out["window_launches"] = windows
+    return out
+
+
+def _mg_experiment(dev, workers, offload):
+    """musicgen-large at its published widths and full 48 layers through
+    ``Experiment``: the CLI's training settings (Overlap-Local-SGD tau 2,
+    alpha 0.6, beta 0.7; SGD lr 1e-2 + Nesterov 0.9; batch 2 x seq 512;
+    the per-worker gradient), weights drawn on the card from SEED."""
+    from repro_torch.api import Experiment, TokenStream
+    from repro_torch.config import AlgoConfig, OptimizerConfig
+    from repro_torch.optim import schedules
+
+    return Experiment(arch=MG, full=True, workers=workers, device=dev, init_on_device=True, seed=SEED,
+                      strategy=AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6, anchor_beta=0.7, offload=offload),
+                      optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
+                      schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ))
+
+
+def _meminfo() -> dict:
+    """The host's MemTotal and MemAvailable (bytes), read from /proc/meminfo."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def train_musicgen_offloaded(dev, kernels, workers, offload, first_xent=False):
+    """One musicgen-large run (:func:`_mg_experiment`) of MG_OFF_ROUNDS
+    rounds from zeroed counters: build time and peak, pinned host bytes,
+    the stream bytes a round as DESIGN.md §9 counts them (tau trips of the
+    optimizer state, one of vars and the in-flight plane), step ms (host
+    clock over the rounds, each round's too), the peak while training,
+    exact launch counts (K1's window form one a chunk a step when
+    offloaded, the whole-plane K1 one a step when resident). With
+    ``first_xent`` the first step's cross-entropy, from a gradient plane
+    of the stream's first batch taken before the fit. Returns the summary
+    and the experiment (its state kept)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import offload as off
+    from repro_torch.training.train_loop import batch_map, gradient_plane
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    exp = _mg_experiment(dev, workers, offload).build()
+    torch.cuda.synchronize()
+    build_s, build_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    state, cfg, tau = exp.state, exp.model_cfg, exp.strategy_obj.tau
+    host = off.host_nbytes(state)
+    stream = (tau * off.stream_roundtrip_bytes(state.opt) + off.stream_roundtrip_bytes(state.vars)
+              + off.stream_roundtrip_bytes(state.inflight))
+    xent = None
+    if first_xent:
+        batch = lm_batch_fn(cfg, workers, LM_BATCH, LM_SEQ, seed=0)()
+        pg, first = gradient_plane(exp.loss_fn, state.x, batch_map(lambda a: torch.from_numpy(a).to(dev), batch),
+                                   per_worker=T.split_layers)
+        xent = first["xent"].float().cpu().tolist()
+        del pg, first
+        _free()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [time.perf_counter()]
+    res = exp.fit(rounds=MG_OFF_ROUNDS, log=lambda r, loss: marks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - marks[0]
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.name: k.launches for k in kernels}
+    steps = MG_OFF_ROUNDS * tau
+    a = cfg.attention
+    split = fa_ops.dkdv_splits(LM_BATCH, a.num_kv_heads, a.num_heads // a.num_kv_heads, LM_SEQ, fa_ops._sms(dev)) > 1
+    buckets = state.x.layout.num_buckets
+    want = {k.name: 0 for k in kernels}
+    want.update(new_arch_launches(cfg, steps, workers, buckets, MG_OFF_ROUNDS, split))
+    plan = off.plan_of(exp.state.opt)
+    if offload:
+        want["sgd_step"], want["sgd_step_window"] = 0, steps * sum(plan.num_chunks)
+    _expect_launches(f"musicgen m {workers} {'offloaded' if offload else 'resident'}", launches, want)
+    if not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError(f"musicgen m {workers}: losses not finite: {res.losses}")
+    summary = dict(
+        slice=f"{cfg.name} full width, {cfg.num_layers} layers, bf16, m {workers}, "
+              + ("offloaded (AlgoConfig.offload)" if offload else "resident"),
+        params=exp.num_params, workers=workers, rounds=MG_OFF_ROUNDS, steps=steps, build_s=build_s,
+        build_peak_mem_bytes=build_peak, peak_mem_bytes=peak, wall_s=wall, step_ms=wall / steps * 1e3,
+        round_ms=[(b - a_) * 1e3 for a_, b in zip(marks, marks[1:])], losses=res.losses, launches=launches,
+        host_nbytes=host, stream_bytes_per_round=stream,
+        plan=None if plan is None else dict(chunk_elems=list(plan.chunk_elems), num_chunks=list(plan.num_chunks)),
+        staging_bytes=None if plan is None else off.staging_bytes(plan, state.x.layout, 1) * workers,
+    )
+    if xent is not None:
+        summary["first_step_xent"], summary["expected_xent"] = xent, math.log(cfg.vocab_size) + 0.5
+    log(json.dumps(summary))
+    gc.collect()
+    return summary, exp
+
+
+def musicgen_offload(dev, kernels, card):
+    """(d) musicgen-large, 48 layers, m 2: offloaded, then resident, each 2
+    rounds from one seed; every plane bit for bit, the losses equal; the
+    exposed host-link time a step (offloaded step less resident). (e) m 4
+    offloaded (its resident planes alone would take ~ 73 GB): 2 rounds,
+    finite losses, the first cross-entropy within 0.1 of ln V + 1/2 = 8.12,
+    the peak under 80 GB, the pinned host bytes."""
+    import gc
+    import math
+
+    import torch
+
+    log(json.dumps(dict(host_memory=_meminfo(), when="before musicgen-large offloaded")))
+    m2_off, exp_off = train_musicgen_offloaded(dev, kernels, 2, True)
+    state_off = exp_off.state
+    del exp_off
+    gc.collect()
+    _free()
+    m2_res, exp_res = train_musicgen_offloaded(dev, kernels, 2, False)
+    equal = _states_equal_offloaded(state_off, exp_res.state)
+    rec = dict(check="musicgen-large 48 layers m 2: offloaded against resident after 2 rounds", card=card,
+               planes_equal=equal, losses_equal=m2_off["losses"] == m2_res["losses"],
+               step_ms_offloaded=m2_off["step_ms"], step_ms_resident=m2_res["step_ms"],
+               exposed_ms_per_step=m2_off["step_ms"] - m2_res["step_ms"],
+               peak_offloaded=m2_off["peak_mem_bytes"], peak_resident=m2_res["peak_mem_bytes"])
+    log(json.dumps(rec))
+    del state_off, exp_res
+    gc.collect()
+    _free()
+    if not (equal and rec["losses_equal"]):
+        raise AssertionError(f"musicgen m 2 offloaded disagrees with resident: {rec}")
+    log(json.dumps(dict(host_memory=_meminfo(), when="before musicgen-large m 4 offloaded")))
+    m4, exp4 = train_musicgen_offloaded(dev, kernels, 4, True, first_xent=True)
+    del exp4
+    gc.collect()
+    _free()
+    xent_ok = max(abs(x - m4["expected_xent"]) for x in m4["first_step_xent"]) <= 0.1
+    peak_ok = max(m4["peak_mem_bytes"], m4["build_peak_mem_bytes"]) < 80e9
+    if not (xent_ok and peak_ok and all(math.isfinite(x) for x in m4["losses"])):
+        raise AssertionError(f"musicgen m 4 offloaded: {m4}")
+    return dict(m2_offloaded=m2_off, m2_resident=m2_res, m2_check=rec, m4_offloaded=m4, card=card)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4771,6 +5228,27 @@ def main() -> int:
     frontend_twins_card_vs_cpu(dev)
     mark("phase 8 (e: reduced twins)")
 
+    # phase 9: host offload (the streamed step on pinned host planes, K1/K2 on chunk windows)
+    win_err, win_t = check_opt_windows(dev, gen)
+    mark("phase 9 (a: K1/K2 window form)")
+    link = dict(host_link_rate(dev), card=card)
+    mark("phase 9 (b: host link)")
+    off_clf = train_offloaded_classifier(dev, kernels)
+    mark("phase 9 (c: offloaded classifier)")
+    mg_off = musicgen_offload(dev, kernels, card)
+    m2o, m2r, m4 = mg_off["m2_offloaded"], mg_off["m2_resident"], mg_off["m4_offloaded"]
+    log(json.dumps(dict(
+        offload_summary="musicgen-large 48 layers, bf16, batch 2 x seq 512, tau 2", card=card,
+        step_ms={"m2 resident": m2r["step_ms"], "m2 offloaded": m2o["step_ms"], "m4 offloaded": m4["step_ms"]},
+        exposed_host_link_ms_per_step_m2=mg_off["m2_check"]["exposed_ms_per_step"],
+        link_GBps={k: link[f"{k}_GBps_each_way"] for k in ("h2d", "d2h", "both")},
+        stream_bytes_per_round={"m2": m2o["stream_bytes_per_round"], "m4": m4["stream_bytes_per_round"]},
+        peak_mem_bytes={"m2 resident": m2r["peak_mem_bytes"], "m2 offloaded": m2o["peak_mem_bytes"],
+                        "m4 offloaded": m4["peak_mem_bytes"], "m4 build": m4["build_peak_mem_bytes"]},
+        pinned_host_bytes={"m2": m2o["host_nbytes"], "m4": m4["host_nbytes"]},
+        m4_first_step_xent=m4["first_step_xent"], m2_bitwise=mg_off["m2_check"]["planes_equal"])))
+    mark("phase 9 (d, e: musicgen-large offloaded)")
+
     # the kernels line
     launches = dict(summary["launches"])
     launches["sgd_step"] = runs["overlap_local_sgd"]["launches"]["sgd_step"]
@@ -4851,6 +5329,23 @@ def main() -> int:
          "ms: the whole call, both kernels)", "src/repro/kernels/ssd_scan/kernel.py:63", ssd_err["bwd"], ssd_t["bwd"],
          ssd_slice, None),
     ]
+    # phase 9: K1/K2's window form, on the offloaded paths
+    rows += [
+        ("sgd_step_window", "opt_step", "K1 sgd_step_flat, window form (sgd_step_launch on a chunk's columns of x "
+         "and g against a staged momentum chunk: host offload's streamed step)", "src/repro/kernels/opt_step/kernel.py:48",
+         win_err["K1"], win_t["K1"]["large_bf16"], "bf16 window m=4 w=2^25 of a (4, 2^27) plane (the 64 MiB chunk "
+         "of musicgen-large at m 4)", win_t["K1"]["large_f32"]),
+        ("adamw_step_window", "opt_step", "K2 adamw_step_flat, window form (adamw_step_launch on a chunk's columns "
+         "against staged mu, nu chunks)", "src/repro/kernels/opt_step/kernel.py:81", win_err["K2"],
+         win_t["K2"]["large_f32"], "f32 window m=4 w=2^24 of a (4, 2^27) plane (a 64 MiB f32 chunk)",
+         win_t["K2"]["large_bf16"]),
+    ]
+    launches["sgd_step_window"] = m4["launches"]["sgd_step_window"]
+    launches["adamw_step_window"] = off_clf["window_launches"]["adamw_step_window"]
+    window_paths = {"sgd_step_window": {"musicgen m4 offloaded": m4["launches"]["sgd_step_window"],
+                                        "musicgen m2 offloaded": m2o["launches"]["sgd_step_window"],
+                                        "classifier offloaded": off_clf["window_launches"]["sgd_step_window"]},
+                    "adamw_step_window": {"classifier offloaded": off_clf["window_launches"]["adamw_step_window"]}}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     split_keys = ("host_us", "device_us", "device_kernels")  # K7 and K10: host or device time a call
     k5 = mix_t["K5"]
@@ -5023,6 +5518,9 @@ def main() -> int:
                                   **{k: fa_t[case][part][k] for k in keys})
         if name in ("sgd_step", "pullback_momentum"):
             entry["two_bucket_plane"] = two_bucket
+        if name.endswith("_window"):  # beside the whole-plane launch on the same bytes
+            entry["whole_plane_ms"], entry["large"]["whole_plane_ms"] = t["whole_plane_ms"], large["whole_plane_ms"]
+            entry["launches_by_path"] = window_paths[name]
         # phase 7: K6 at deepseek's head_dim 192 (v padded from 128), K10 on its latent pools
         if name.startswith("flash_attention") and name != "flash_attention_dkdv_sum":
             entry["d192"] = dict(shape="bf16 B=2 S=512 H=128 Hkv=128 D=192 causal, v zero-padded from 128 (deepseek-v3)",

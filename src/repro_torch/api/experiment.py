@@ -24,7 +24,8 @@ every kernel wrapper takes its plain PyTorch version.
 
 The state is plane-resident: ``state.x`` is the worker-stacked packed
 parameter plane. The initial weights come from a seeded ``torch.Generator``
-on the CPU (so the CPU and GPU runs of one seed start equal); they differ
+on the CPU (so the CPU and GPU runs of one seed start equal), or, for an
+LM with ``init_on_device=True``, on the device; they differ
 from the reference's ``jax.random`` draws, so parity tests carry the
 reference's initial state over with :mod:`repro_torch.interop`.
 
@@ -48,9 +49,15 @@ text) and musicgen-large (GELU MLPs; four codebooks in and out).
 ``serve()`` serves the consensus plane in place through
 :class:`repro_torch.serving.BatchedEngine` (paged for the GQA text archs
 and deepseek's latent pools, the dense fallback for rwkv6, zamba2 and
-qwen2-vl; musicgen has no engine and raises). Not here yet (each raises):
+qwen2-vl; musicgen has no engine and raises). Not here yet (it raises):
 the strategies (every name and alias of the reference) raise for
-``AlgoConfig.packed=False`` (item 4b) and ``AlgoConfig.offload`` (item 9).
+``AlgoConfig.packed=False`` (item 4b).
+
+``AlgoConfig(offload=True)`` trains with the optimizer state and the
+strategy's anchor-shaped planes in host memory between boundaries (pinned
+on the GPU; :mod:`repro_torch.parallel.offload`): x stays on the device, so
+``consensus()`` and ``consensus_plane()`` read it as before, while
+``anchor_plane()`` raises, the anchor z being host-resident.
 """
 from __future__ import annotations
 
@@ -141,6 +148,9 @@ class Experiment:
     full: bool = False  # the full (not reduced) registered model config
     seed: int = 0
     device: Union[str, torch.device] = "cuda"
+    # draw an LM's initial weights on the device: another draw than the CPU's
+    # (which takes seconds a billion parameters), the same on every run
+    init_on_device: bool = False
 
     def __post_init__(self):
         if self.arch is None and self.task is None:
@@ -190,7 +200,10 @@ class Experiment:
                 cfg = model if self.full else model.reduced()
             self.model_cfg = cfg
             stream = self.data or TokenStream()
-            params = T.init_model(cfg, gen)
+            if self.init_on_device:
+                params = T.init_model(cfg, torch.Generator(device=self.dev).manual_seed(self.seed), device=self.dev)
+            else:
+                params = T.init_model(cfg, gen)
             self.loss_fn, self._per_worker = (lambda p, b: T.lm_loss(cfg, p, b)), T.split_layers
             self.next_batch = lm_batch_fn(cfg, self.workers, stream.batch_per_worker, stream.seq_len, seed=stream.seed)
         leaves, paths = tree_flatten(params)
@@ -336,6 +349,7 @@ class Experiment:
         strategies), by reference."""
         self.build()
         z = self.state.vars.z if self.state.vars is not None else None
+        # an offloaded z is a HostPlane: no device plane to share by reference
         if not isinstance(z, Packed):
             raise ValueError("anchor_plane() requires a packed anchor strategy (state.vars.z is the plane)")
         return z

@@ -10,7 +10,13 @@ either package restores in the other:
   template's dtype on restore;
 * each :class:`~repro_torch.parallel.packing.Packed` node stores its buffers
   under ``<prefix>::<bucket>`` and its layout table, as the reference's
-  JSON, byte for byte, under ``<prefix>::__layout__``.
+  JSON, byte for byte, under ``<prefix>::__layout__``;
+* each :class:`~repro_torch.parallel.offload.HostPlane` (an offloaded
+  state's optimizer state, vars and in-flight plane) stores its chunk
+  stacks, ``(num_chunks,) + lead + (chunk_elems,)``, under
+  ``<prefix>::<bucket>``, and no layout, as the reference's pytree
+  flattening does; it restores into a HostPlane template (pinned where the
+  template's stacks are).
 
 The sidecar makes restores across formats work as in the reference: a
 packed checkpoint into a template whose subtree is per-leaf (each stored
@@ -37,6 +43,8 @@ from typing import Any, Callable, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel import offload as off
+from repro_torch.parallel.offload import HostPlane
 from repro_torch.parallel.packing import Layout, Packed
 
 _SEP = "::"
@@ -57,7 +65,7 @@ def _walk(node, prefix: str, visit: Callable[[str, Any], Any]):
     sorted dict keys, sequence indices; ``None`` kept as it is)."""
     if node is None:
         return None
-    if isinstance(node, Packed):
+    if isinstance(node, (Packed, HostPlane)):
         return visit(prefix, node)
     if _is_power_state(node):
         q = tuple(None if t is None else visit(_join(prefix, "q", *path), t)
@@ -111,6 +119,9 @@ def save(path: str, tree: Any) -> None:
             for i, buf in enumerate(node.buffers):
                 arrays[_join(key, str(i))] = _to_numpy(buf)
             layouts[_join(key, _LAYOUT_KEY)] = _encode_layout(node.layout)
+        elif isinstance(node, HostPlane):
+            for i, stack in enumerate(node.host_ready().chunks):
+                arrays[_join(key, str(i))] = _to_numpy(stack)
         else:
             arrays[key] = _to_numpy(node)
     arrays.update(layouts)
@@ -217,6 +228,15 @@ def restore(path: str, template: Any, elastic: bool = False) -> Any:
                 stored, bufkeys = _pack_perleaf_into(arrays, key, node), [key] * len(node.buffers)
             return Packed(tuple(_to_tensor(_fit_leaf(a, tuple(b.shape), k, elastic), b)
                                 for a, b, k in zip(stored, node.buffers, bufkeys)), node.layout)
+        if isinstance(node, HostPlane):
+            stacks = []
+            for i, like in enumerate(node.chunks):
+                k = _join(key, str(i))
+                if k not in arrays:
+                    raise KeyError(f"checkpoint missing {k!r}")
+                stack = off._host_stack(tuple(like.shape), like.dtype, pinned=like.is_pinned())
+                stacks.append(stack.copy_(_to_tensor(_fit_leaf(arrays[k], tuple(like.shape), k), like)))
+            return HostPlane(stacks, node.layout, node.plan, node.device)
         if key not in arrays:
             raise KeyError(f"checkpoint missing {key!r}")
         return _to_tensor(_fit_leaf(arrays[key], tuple(node.shape), key, elastic), node)

@@ -33,8 +33,14 @@ gossip_full), else one standalone K8 launch a bucket. ``membership`` (a
 workers: dead rows pass through, worker means are the renormalised weighted
 sums; the probe still covers all m rows. ``None`` is the fully-live path.
 
-Not here (each raises, naming its ROADMAP item): the per-leaf oracle
-(``packed=False``, item 4b) and host offload (item 9).
+With ``AlgoConfig.offload`` the round engine keeps vars and the in-flight
+plane in host memory between boundaries (:mod:`repro_torch.parallel.offload`)
+and hands the hooks resident planes; :attr:`CommStrategy.consumes_inflight_midround`
+tells it to restore the in-flight plane before the window, not at the
+boundary.
+
+Not here (it raises, naming its ROADMAP item): the per-leaf oracle
+(``packed=False``, item 4b).
 """
 from __future__ import annotations
 
@@ -117,14 +123,15 @@ class CommStrategy:
     """Base strategy: Local SGD without averaging (every hook a no-op)."""
 
     name = "base"
+    # under AlgoConfig.offload the in-flight plane comes back to the device
+    # at the boundary, unless the strategy reads it inside the window
+    consumes_inflight_midround = False
 
     def __init__(self, cfg: AlgoConfig):
         if not cfg.packed:
             raise NotImplementedError(
                 "the per-leaf oracle path (AlgoConfig.packed=False) is ROADMAP Queue 1 item 4b"
             )
-        if cfg.offload:
-            raise NotImplementedError("host offload (AlgoConfig.offload) is ROADMAP Queue 1 item 9")
         self.cfg = cfg
         self.tau = cfg.tau
 
@@ -340,6 +347,11 @@ class DelayedAveragingStrategy(_AvgRebaseStrategy):
         if not 1 <= cfg.delay_steps <= cfg.tau:
             raise ValueError(f"delay_steps must be in [1, tau={cfg.tau}], got {cfg.delay_steps}")
         self.delay = cfg.delay_steps
+
+    @property
+    def consumes_inflight_midround(self) -> bool:
+        # delay < τ: the average is applied inside the window
+        return self.delay < self.tau
 
     def local_post_update_packed(self, px: Packed, vars, inflight, k_in_round: int) -> Packed:
         if self.delay < self.tau and k_in_round == self.delay - 1:

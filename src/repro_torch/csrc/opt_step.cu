@@ -27,8 +27,17 @@
 // Design: a grid-stride loop in which each thread takes one 16-byte vector
 // of the parameter dtype (4 float or 8 bf16 elements) and the matching
 // vectors of every other buffer, so neighbouring threads read neighbouring
-// 16-byte chunks and every load coalesces. A tail (n not a multiple of the
-// vector) or a misaligned buffer takes the element-wise loop.
+// 16-byte chunks and every load coalesces. A tail (a width not a multiple of
+// the vector) or a misaligned buffer takes the element-wise loop.
+//
+// Both kernels take a window: `rows` rows of `width` elements, x and g with
+// row stride `ldx`, the optimizer state with row stride `lds`. The streamed
+// step of host offload (repro/parallel/offload.py:12-16, streamed_update)
+// applies the update to one chunk at a time: the columns [c0, c0 + w) of an
+// (m, n) bucket of x and g (row stride n) against a staged (m, c) state
+// chunk (row stride c). The whole-plane call is the window of one row whose
+// width is the plane's size, so one kernel body serves both. The grid's y
+// dimension walks the rows; its x dimension the vectors of a row.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -65,29 +74,30 @@ __device__ __forceinline__ void sgd_elem(T& x, T g, T& m, float lr, const SgdArg
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sgd_kernel(T* __restrict__ x, const T* __restrict__ g, T* __restrict__ m, const float* __restrict__ scalars,
-           long long n, SgdArgs a, int vec) {
+           long long rows, long long width, long long ldx, long long lds, SgdArgs a, int vec) {
   constexpr int V = 16 / sizeof(T);
   const float lr = scalars[0];
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
-  long long done = 0;
-  if (vec) {
-    const long long nv = n / V;
+  const long long nv = vec ? width / V : 0;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    T* xr = x + r * ldx;
+    const T* gr = g + r * ldx;
+    T* mr = m + r * lds;
     for (long long i = tid; i < nv; i += step) {
-      uint4 xr = reinterpret_cast<const uint4*>(x)[i];
-      const uint4 gr = reinterpret_cast<const uint4*>(g)[i];
-      uint4 mr = reinterpret_cast<const uint4*>(m)[i];
-      T* xe = reinterpret_cast<T*>(&xr);
-      const T* ge = reinterpret_cast<const T*>(&gr);
-      T* me = reinterpret_cast<T*>(&mr);
+      uint4 xv = reinterpret_cast<const uint4*>(xr)[i];
+      const uint4 gv = reinterpret_cast<const uint4*>(gr)[i];
+      uint4 mv = reinterpret_cast<const uint4*>(mr)[i];
+      T* xe = reinterpret_cast<T*>(&xv);
+      const T* ge = reinterpret_cast<const T*>(&gv);
+      T* me = reinterpret_cast<T*>(&mv);
 #pragma unroll
       for (int j = 0; j < V; ++j) sgd_elem(xe[j], ge[j], me[j], lr, a);
-      reinterpret_cast<uint4*>(x)[i] = xr;
-      reinterpret_cast<uint4*>(m)[i] = mr;
+      reinterpret_cast<uint4*>(xr)[i] = xv;
+      reinterpret_cast<uint4*>(mr)[i] = mv;
     }
-    done = nv * V;
+    for (long long i = nv * V + tid; i < width; i += step) sgd_elem(xr[i], gr[i], mr[i], lr, a);
   }
-  for (long long i = done + tid; i < n; i += step) sgd_elem(x[i], g[i], m[i], lr, a);
 }
 
 struct AdamArgs {
@@ -111,91 +121,115 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(T* __restrict__ x, const T* __restrict__ g, float* __restrict__ mu, float* __restrict__ nu,
              const float* __restrict__ lr_p, const float* __restrict__ c1_p, const float* __restrict__ c2_p,
-             long long n, AdamArgs a, int vec) {
+             long long rows, long long width, long long ldx, long long lds, AdamArgs a, int vec) {
   constexpr int V = 16 / sizeof(T);  // elements of T in 16 bytes; V / 4 float4s of moments
   const float lr = *lr_p, c1 = *c1_p, c2 = *c2_p;
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
-  long long done = 0;
-  if (vec) {
-    const long long nv = n / V;
+  const long long nv = vec ? width / V : 0;
+  for (long long r = blockIdx.y; r < rows; r += gridDim.y) {
+    T* xr = x + r * ldx;
+    const T* gr = g + r * ldx;
+    float* mur_ = mu + r * lds;
+    float* nur_ = nu + r * lds;
     for (long long i = tid; i < nv; i += step) {
-      uint4 xr = reinterpret_cast<const uint4*>(x)[i];
-      const uint4 gr = reinterpret_cast<const uint4*>(g)[i];
+      uint4 xv = reinterpret_cast<const uint4*>(xr)[i];
+      const uint4 gv = reinterpret_cast<const uint4*>(gr)[i];
       float4 mur[V / 4], nur[V / 4];
 #pragma unroll
       for (int k = 0; k < V / 4; ++k) {
-        mur[k] = reinterpret_cast<const float4*>(mu)[i * (V / 4) + k];
-        nur[k] = reinterpret_cast<const float4*>(nu)[i * (V / 4) + k];
+        mur[k] = reinterpret_cast<const float4*>(mur_)[i * (V / 4) + k];
+        nur[k] = reinterpret_cast<const float4*>(nur_)[i * (V / 4) + k];
       }
-      T* xe = reinterpret_cast<T*>(&xr);
-      const T* ge = reinterpret_cast<const T*>(&gr);
+      T* xe = reinterpret_cast<T*>(&xv);
+      const T* ge = reinterpret_cast<const T*>(&gv);
       float* mue = reinterpret_cast<float*>(mur);
       float* nue = reinterpret_cast<float*>(nur);
 #pragma unroll
       for (int j = 0; j < V; ++j) adamw_elem(xe[j], ge[j], mue[j], nue[j], lr, c1, c2, a);
-      reinterpret_cast<uint4*>(x)[i] = xr;
+      reinterpret_cast<uint4*>(xr)[i] = xv;
 #pragma unroll
       for (int k = 0; k < V / 4; ++k) {
-        reinterpret_cast<float4*>(mu)[i * (V / 4) + k] = mur[k];
-        reinterpret_cast<float4*>(nu)[i * (V / 4) + k] = nur[k];
+        reinterpret_cast<float4*>(mur_)[i * (V / 4) + k] = mur[k];
+        reinterpret_cast<float4*>(nur_)[i * (V / 4) + k] = nur[k];
       }
     }
-    done = nv * V;
+    for (long long i = nv * V + tid; i < width; i += step)
+      adamw_elem(xr[i], gr[i], mur_[i], nur_[i], lr, c1, c2, a);
   }
-  for (long long i = done + tid; i < n; i += step) adamw_elem(x[i], g[i], mu[i], nu[i], lr, c1, c2, a);
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-int blocks_for(long long n, int per_thread) {
-  const long long want = (n / per_thread + kThreads - 1) / kThreads;
-  return (int)(want < 1 ? 1 : (want > kMaxBlocks ? kMaxBlocks : want));
+// The grid of a window: y walks the rows (at most 65,535 at once), x the
+// vectors of a row; at most kMaxBlocks blocks in all.
+dim3 grid_for(long long rows, long long width, int per_thread) {
+  const long long gy = rows < 65535 ? rows : 65535;
+  long long cap = kMaxBlocks / gy;
+  if (cap < 1) cap = 1;
+  long long gx = (width / per_thread + kThreads - 1) / kThreads;
+  gx = gx < 1 ? 1 : (gx > cap ? cap : gx);
+  return dim3((unsigned)gx, (unsigned)gy);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, g, m). n: elements of each buffer.
-extern "C" int sgd_step_launch(void* x, const void* g, void* m, const void* scalars, long long n, float mom,
-                               float wd, int has_wd, int nesterov, int dtype, void* stream) {
-  if (n <= 0) return 0;
+// A window of `rows` rows of `width` elements: x, g with row stride ldx, m
+// with row stride lds (elements). dtype: 0 = float32, 1 = bfloat16 (x, g, m).
+// The whole plane: rows 1, width = its size.
+extern "C" int sgd_step_launch(void* x, const void* g, void* m, const void* scalars, long long rows,
+                               long long width, long long ldx, long long lds, float mom, float wd, int has_wd,
+                               int nesterov, int dtype, void* stream) {
+  if (rows <= 0 || width <= 0) return 0;
+  if (rows > 1 && (ldx < width || lds < width)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const SgdArgs a{mom, wd, has_wd, nesterov};
-  const int vec = aligned16(x) && aligned16(g) && aligned16(m);
+  const int V = dtype == 0 ? 4 : 8;
+  const int vec = aligned16(x) && aligned16(g) && aligned16(m) && (rows == 1 || (ldx % V == 0 && lds % V == 0));
   const float* s = static_cast<const float*>(scalars);
+  const dim3 grid = grid_for(rows, width, V);
   if (dtype == 0) {
-    sgd_kernel<float><<<blocks_for(n, 4), kThreads, 0, st>>>(
-        static_cast<float*>(x), static_cast<const float*>(g), static_cast<float*>(m), s, n, a, vec);
+    sgd_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<float*>(x), static_cast<const float*>(g), static_cast<float*>(m), s, rows, width, ldx, lds, a,
+        vec);
   } else if (dtype == 1) {
-    sgd_kernel<__nv_bfloat16><<<blocks_for(n, 8), kThreads, 0, st>>>(
+    sgd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         static_cast<__nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), static_cast<__nv_bfloat16*>(m),
-        s, n, a, vec);
+        s, rows, width, ldx, lds, a, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, g); mu, nu float32; lr, c1, c2: one
-// float32 each.
+// A window as sgd_step_launch's: x, g (parameter dtype, dtype 0 = float32,
+// 1 = bfloat16) with row stride ldx; mu, nu float32 with row stride lds; lr,
+// c1, c2: one float32 each.
 extern "C" int adamw_step_launch(void* x, const void* g, void* mu, void* nu, const void* lr, const void* c1,
-                                 const void* c2, long long n, float b1, float omb1, float b2, float omb2, float eps,
-                                 float wd, int has_wd, int dtype, void* stream) {
-  if (n <= 0) return 0;
+                                 const void* c2, long long rows, long long width, long long ldx, long long lds,
+                                 float b1, float omb1, float b2, float omb2, float eps, float wd, int has_wd,
+                                 int dtype, void* stream) {
+  if (rows <= 0 || width <= 0) return 0;
+  if (rows > 1 && (ldx < width || lds < width)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const AdamArgs a{b1, omb1, b2, omb2, eps, wd, has_wd};
-  const int vec = aligned16(x) && aligned16(g) && aligned16(mu) && aligned16(nu);
+  const int V = dtype == 0 ? 4 : 8;
+  const int vec = aligned16(x) && aligned16(g) && aligned16(mu) && aligned16(nu) &&
+                  (rows == 1 || (ldx % V == 0 && lds % 4 == 0));
   const float* lrf = static_cast<const float*>(lr);
   const float* c1f = static_cast<const float*>(c1);
   const float* c2f = static_cast<const float*>(c2);
   float* muf = static_cast<float*>(mu);
   float* nuf = static_cast<float*>(nu);
+  const dim3 grid = grid_for(rows, width, V);
   if (dtype == 0) {
-    adamw_kernel<float><<<blocks_for(n, 4), kThreads, 0, st>>>(
-        static_cast<float*>(x), static_cast<const float*>(g), muf, nuf, lrf, c1f, c2f, n, a, vec);
+    adamw_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<float*>(x), static_cast<const float*>(g), muf, nuf, lrf, c1f, c2f, rows, width, ldx, lds, a,
+        vec);
   } else if (dtype == 1) {
-    adamw_kernel<__nv_bfloat16><<<blocks_for(n, 8), kThreads, 0, st>>>(
-        static_cast<__nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), muf, nuf, lrf, c1f, c2f, n, a, vec);
+    adamw_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<__nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g), muf, nuf, lrf, c1f, c2f, rows, width,
+        ldx, lds, a, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -8,6 +8,10 @@ recovery point — and (2) installs the round's
 ``TrainState.membership``, so the boundary runs masked. Fully-live rounds
 install ``None``, so clean rounds run the unmasked boundary.
 
+Under ``AlgoConfig.offload`` the anchor-shaped planes are host-resident
+between rounds: the re-sync reads a device copy of the in-flight plane or
+of z, restored for it alone, and leaves the state's host planes as they are.
+
 The plane is updated in place: a rejoining worker's rows are copied from
 the anchor (no full-plane temporary, as the reference's ``jnp.where``
 would make), and the gossip anchor Σ_i mix_i / Σ_i w_i is summed over
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.fault.membership import Membership, from_mask
 from repro_torch.fault.plan import FaultPlan
+from repro_torch.parallel import offload as off
 from repro_torch.parallel.packing import Packed
 
 # columns a chunk of an anchor sum takes: its f32 temporary stays near
@@ -49,13 +54,16 @@ def _anchor_of(state) -> Optional[Packed]:
     when the strategy carries no anchor (local_sgd, sync_sgd): the caller
     falls back to the live-worker mean."""
     infl = state.inflight
+    if infl is not None and off.is_offloaded(infl):
+        infl = off.tree_restore(infl)  # a read-only device copy; the state keeps its host planes
     if infl is not None:
         mix, w = getattr(infl, "mix", None), getattr(infl, "w", None)
         if mix is not None and w is not None:
             wsum = torch.sum(w.float())
             return Packed(tuple(_row_sum(b, lambda t: torch.sum(t, dim=0) / wsum) for b in mix.buffers), mix.layout)
         return getattr(infl, "avg", infl)
-    return getattr(state.vars, "z", None)
+    z = getattr(state.vars, "z", None)
+    return off.tree_restore(z) if z is not None and off.is_offloaded(z) else z
 
 
 def resync_from_anchor(state, resync_mask):

@@ -17,6 +17,9 @@ module imports no JAX; it reads the reference's objects by their fields.
   err)``. The parity tests start both packages from the reference's
   ``Experiment.build()`` state this way (the classifier's and the LM's),
   because ``jax.random`` and ``torch.Generator`` draw different weights.
+  An offloaded state's ``HostPlane`` slots (the reference's chunk stacks,
+  its ``OffloadPlan``) become the port's HostPlanes, stack for stack,
+  pinned when ``device`` is a CUDA device.
 """
 from __future__ import annotations
 
@@ -76,10 +79,29 @@ def state_from_numpy(state, layout, device="cpu"):
     def tensor(a):
         return _tensor(a).to(device)
 
+    def host_plane(v):
+        """A reference HostPlane (numpy chunk stacks) → the port's."""
+        from repro_torch.parallel import offload as off
+
+        lay = layout
+        if tuple(v.layout.bucket_dtypes) != lay.bucket_dtypes:
+            lay = lay.with_dtype(getattr(torch, v.layout.bucket_dtypes[0]))
+        if tuple(v.layout.bucket_sizes) != lay.bucket_sizes:
+            raise ValueError("the reference plane's layout differs from the port's")
+        plan = off.OffloadPlan(tuple(int(c) for c in v.plan.chunk_elems), tuple(int(k) for k in v.plan.num_chunks))
+        pinned = torch.device(device).type == "cuda"
+        stacks = []
+        for ch in v.chunks:
+            src = _tensor(ch)
+            stacks.append(off._host_stack(tuple(src.shape), src.dtype, pinned).copy_(src))
+        return off.HostPlane(stacks, lay, plan, device)
+
     def slot(v):
         """Any strategy slot: a plane, a named slot tuple, a tuple of arrays."""
         if v is None:
             return None
+        if hasattr(v, "chunks") and hasattr(v, "plan"):
+            return host_plane(v)
         if hasattr(v, "buffers") and hasattr(v, "layout"):
             return packed_from_numpy(v, layout, device)
         fields = getattr(v, "_fields", None)

@@ -6,6 +6,7 @@ from repro_torch.optim.optimizers import (
     adamw,
     clip_packed_by_global_norm_,
     from_config,
+    offload_capable,
     packed_global_norm,
     sgd,
 )
@@ -17,6 +18,7 @@ __all__ = [
     "adamw",
     "clip_packed_by_global_norm_",
     "from_config",
+    "offload_capable",
     "packed_global_norm",
     "schedules",
     "sgd",

@@ -37,6 +37,17 @@ device: a round returns them as ``(τ, m)`` tensors. The boundary runs under
 unchanged); with ``probe=True`` the round's metrics also hold the
 pre-boundary plane's ``consensus_drift`` and ``consensus_scale`` (0-dim),
 the adaptive-τ controller's inputs.
+
+With ``AlgoConfig.offload`` (the reference's residency, DESIGN.md §9) the
+optimizer state, vars and the in-flight plane are host-resident
+:class:`~repro_torch.parallel.offload.HostPlane` trees between rounds; x
+stays on the device. A round restores vars at its start (the copy overlaps
+the first step's gradient; the compute stream waits for it just before the
+first hook that reads vars), streams the optimizer state through
+``step_streamed`` every local step, restores the in-flight plane at the
+boundary (before the window when the strategy consumes it mid-round) and
+sends vars and the in-flight plane back to their host stacks after the
+boundary. A resident state is adopted into the offloaded form.
 """
 from __future__ import annotations
 
@@ -45,7 +56,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.optim.optimizers import Optimizer, clip_packed_by_global_norm_
+from repro_torch.optim.optimizers import Optimizer, clip_packed_by_global_norm_, offload_capable
+from repro_torch.parallel import offload as off
 from repro_torch.parallel.packing import Packed, leaf_views, packed_like, tree_unflatten
 from repro_torch.training.train_state import TrainState
 
@@ -140,9 +152,26 @@ def make_round_step(
     updated in place and returned. ``per_worker``: see the module
     docstring; ``probe``: add the consensus stats to the metrics."""
     per_bucket_clip = bool(strategy.cfg.packed_clip)
+    offload_on = bool(strategy.cfg.offload)
+    # offload never falls back to a resident step: that would keep the state
+    # on the card the flag was set to relieve
+    if offload_on and not (strategy.cfg.packed and offload_capable(optimizer)):
+        raise ValueError("AlgoConfig.offload requires a packed strategy and an optimizer with a streamed step "
+                         "(step_streamed)")
+    chunk_mb = float(strategy.cfg.offload_chunk_mb)
 
     def round_step(state: TrainState, round_batch) -> Tuple[TrainState, dict]:
         x, opt, vars, step, inflight, membership = state
+        if offload_on:
+            plan = off.plan_of(opt)
+            if plan is None:  # adoption: a resident state entering the offloaded engine
+                plan = off.OffloadPlan.for_layout(x.layout, chunk_mb)
+                opt = off.tree_offload(opt, plan)
+            host_vars, host_inflight = vars, inflight
+            vars, pending = off.tree_restore_async(vars)  # the H2D rides the first step's gradient
+            if strategy.consumes_inflight_midround:
+                inflight, infl_pending = off.tree_restore_async(inflight)
+                pending.add(infl_pending)
         per_step = []
         for k in range(_first(round_batch).shape[0]):
             lr = schedule(step)
@@ -150,14 +179,26 @@ def make_round_step(
                                          per_worker=per_worker)
             if grad_clip > 0.0:
                 clip_packed_by_global_norm_(pg, grad_clip, per_bucket=per_bucket_clip)
+            if offload_on:
+                pending.wait()  # vars (and a mid-round inflight) on the device from here on
             pg, vars = strategy.transform_grads_packed(pg, vars)
-            opt, x = optimizer.step_packed(opt, x, pg, lr)
+            if offload_on:
+                opt, x = optimizer.step_streamed(opt, x, pg, lr)
+            else:
+                opt, x = optimizer.step_packed(opt, x, pg, lr)
             del pg  # free this step's gradient plane before the next one is made
             x = strategy.local_post_update_packed(x, vars, inflight, k)
             step = step + 1
             per_step.append(dict(metrics, lr=lr.expand_as(metrics["loss"])))
+        if offload_on:
+            pending.wait()
+            inflight = off.tree_restore(inflight)  # a no-op when already on the device
         out = strategy.boundary_round(x, vars, inflight, probe=probe, membership=membership)
         x, vars, inflight = out[:3]
+        if offload_on:
+            # D2H: the boundary's outputs back into their host stacks until the next round
+            vars = off.tree_offload(vars, plan, into=host_vars)
+            inflight = off.tree_offload(inflight, plan, into=host_inflight)
         metrics = {name: torch.stack([m[name] for m in per_step]) for name in per_step[0]}
         if probe:
             metrics.update(consensus_drift=out[3].drift, consensus_scale=out[3].scale)

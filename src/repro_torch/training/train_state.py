@@ -8,6 +8,11 @@ steps and the round boundaries. ``opt`` holds the optimizer's flat state,
 launched at the last boundary and consumed at the next, and ``membership``
 the live workers of a degraded round (``None``: fully live), which the fault
 harness installs and clears between rounds.
+
+With ``AlgoConfig.offload`` the state is built offloaded, as the reference
+builds it: ``opt``, ``vars`` and ``inflight`` are
+:class:`~repro_torch.parallel.offload.HostPlane` trees from the start (x
+stays on the device), chunked by the plan of ``offload_chunk_mb``.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core.strategy import AlgoVars, CommStrategy
-from repro_torch.optim.optimizers import Optimizer
+from repro_torch.optim.optimizers import Optimizer, offload_capable
+from repro_torch.parallel import offload as off
 from repro_torch.parallel.packing import Packed, leaf_views, pack, tree_flatten, tree_unflatten
 
 
@@ -34,12 +40,16 @@ def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy: CommS
     leaves, paths = tree_flatten(params)
     x = pack(tree_unflatten(paths, [t.expand(m, *t.shape) for t in leaves]), lead=1)
     vars = strategy.init_vars(x)
+    opt, inflight = optimizer.init_packed(x), strategy.init_inflight(x, vars)
+    if strategy.cfg.offload and offload_capable(optimizer):
+        plan = off.OffloadPlan.for_layout(x.layout, float(strategy.cfg.offload_chunk_mb))
+        opt, vars, inflight = (off.tree_offload(t, plan) for t in (opt, vars, inflight))
     return TrainState(
         x=x,
-        opt=optimizer.init_packed(x),
+        opt=opt,
         vars=vars,
         step=torch.zeros((), dtype=torch.int32, device=leaves[0].device),
-        inflight=strategy.init_inflight(x, vars),
+        inflight=inflight,
     )
 
 

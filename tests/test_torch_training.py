@@ -342,10 +342,10 @@ def test_experiment_defaults_to_cuda():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """What still raises, each naming its ROADMAP item: host offload (9), the
-    per-leaf oracle (4b) and the runtime model behind
-    ``FaultPlan.runtime_config`` (10). M-RoPE archs (item 8) build and run a
-    round; the probe and the membership of every boundary,
+    """What still raises, each naming its ROADMAP item: the per-leaf oracle
+    (4b) and the runtime model behind ``FaultPlan.runtime_config`` (10).
+    Host offload (item 9) builds and runs a round with finite losses; M-RoPE
+    archs (item 8) build and run a round; the probe and the membership of every boundary,
     ``fit(adaptive_tau=...)``, ``fit(faults=...)`` and the checkpointer
     (``--ckpt``, tests/test_torch_checkpoint.py) are ported and run."""
     from repro_torch.fault import FaultPlan, from_mask
@@ -358,8 +358,9 @@ def test_unported_paths_raise_with_their_roadmap_item():
 
     res = Experiment(arch=mrope, workers=2, data=TokenStream(1, 16), device="cpu").fit(rounds=1)
     assert np.isfinite(res.losses).all()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        make_strategy(AlgoConfig(offload=True))
+    off_exp = Experiment(task=ClassificationSpec(**SMALL), strategy=AlgoConfig(offload=True), workers=2, device="cpu")
+    assert np.isfinite(off_exp.fit(rounds=1).losses).all()
+    assert type(off_exp.state.opt.momentum).__name__ == "HostPlane"
     with pytest.raises(SystemExit):  # the launcher's flags: an unknown strategy
         train_cli.main(["--arch", "qwen2-7b", "--device", "cpu", "--algo", "bogus"])
     with pytest.raises(NotImplementedError, match="item 10"):
