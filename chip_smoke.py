@@ -263,8 +263,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    GB): 2 rounds, finite losses, the first cross-entropy within 0.1 of ln
    V + 1/2, the peaks under 80 GB, the pinned host bytes and the stream
    bytes a round; the host's free memory before (d) and (e).
-10. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
-   with the standalone form beside it, K6 forward, backward
+10. The per-leaf oracle (``AlgoConfig.packed=False``): (a) K5's row form
+   (x (m, *s), one z of shape s for every row: the per-leaf pullback)
+   bitwise its plain version at the classifier's six leaves (m 16), a
+   qwen2-7b FFN leaf (m 4, 3584 x 18944, bf16), a ragged leaf and one row
+   (there also bitwise the same-shape launch), f32 and bf16; timed at the
+   classifier's leaves and the FFN leaf beside the plain version, the
+   same-shape launch on a materialised z, ``torch.lerp_`` with the
+   broadcast z and the (2m+1)·P·n bytes bound; (b) the quickstart
+   classifier (16 workers, tau 3), each case of the reference's
+   ``ALL_PACKABLE`` and gossip_ring, packed then per leaf, 3 rounds: the
+   per-leaf launches exact (one K5 a leaf a boundary, nothing else), x, the
+   optimizer state, the in-flight value and vars bit for bit the packed
+   run's, the per-leaf losses card vs CPU within phase 4's bounds; every
+   other name and alias per leaf for a round; a legacy ``Algorithm`` and an
+   optimizer with no packed step bit for bit the native per-leaf run; (c)
+   full-width qwen2-7b at phase 5's 2 layers (bf16, m 4, seq 512, tau 2,
+   beta 0.7, 3 rounds) per leaf, then packed, from one seed: exact launches
+   (K5's row form once a leaf a boundary, no K1 or K3 per leaf), finite
+   losses, step ms and peak memory of both, and x, the in-flight anchor and
+   vars bit for bit.
+11. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+   with the standalone form beside it and its row form, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
    call, K1's and K2's window forms; K6's rows with their ``d192``,
@@ -987,7 +1007,7 @@ def check_gossip_form(dev, gen):
     the host and device split at the classifier's plane."""
     import torch
 
-    from repro_torch.core.strategy import _column_chunks
+    from repro_torch.parallel.packing import column_chunks
     from repro_torch.kernels.anchor_mix import ops, ref
 
     alpha, worst, timing = 0.6, 0.0, {}
@@ -1017,7 +1037,7 @@ def check_gossip_form(dev, gen):
             def three_ops():  # the boundary's body before the gossip form, every row moving
                 mix.div_(wb)
                 ops.anchor_mix(x, mix, alpha)
-                for c in _column_chunks(x):
+                for c in column_chunks(x):
                     mix[:, c] = torch.matmul(peff, x[:, c].float())
 
             it = TIMING_ITERS[shape_name]
@@ -5076,6 +5096,318 @@ def musicgen_offload(dev, kernels, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the per-leaf oracle (AlgoConfig.packed=False): K5's row form, the
+# classifier per leaf against packed, full-width qwen2-7b per leaf against packed
+# ---------------------------------------------------------------------------
+
+# K5's row form: (case, m, leaf shapes, dtypes). The per-leaf classifier's
+# six leaves at its 16 workers (the quickstart MLP 64-128-64-10), a qwen2-7b
+# FFN leaf at the LM's 4 workers, a ragged leaf (no vector width divides it:
+# the scalar tail) and one row (bitwise the same-shape launch)
+K5_ROW_CASES = [
+    ("classifier", 16, [(64, 128), (128,), (128, 64), (64,), (64, 10), (10,)], ("float32", "bfloat16")),
+    ("qwen2_ffn", 4, [(3584, 18944)], ("bfloat16",)),
+    ("ragged", 16, [(100003,)], ("float32", "bfloat16")),
+    ("one_row", 1, [(17408,)], ("float32", "bfloat16")),
+]
+K5_ROW_TIMED = ("classifier", "qwen2_ffn")
+
+
+def check_anchor_mix_rows(dev, gen):
+    """K5's row form (x (m, *s), one z of shape s for every row) against its
+    plain version, bitwise, at ``K5_ROW_CASES``; at one row also bitwise the
+    same-shape launch. Timed at the classifier's leaves (the six launches of
+    one per-leaf pullback, ``pullback_tree``) and at the qwen2-7b FFN leaf:
+    CUDA events, device µs from the profiler, the plain version, the
+    same-shape launch on a z materialised to x's shape (what the row form
+    saves: m − 1 reads of z), ``torch.lerp_`` with the broadcast z (the
+    yardstick), and the bound, (2m + 1)·P·n bytes."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix import ops, ref
+
+    alpha, worst, timing, checked = 0.6, 0.0, {}, []
+    for case, m, shapes, dtypes in K5_ROW_CASES:
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            P = torch.finfo(dtype).bits // 8
+            xs = [torch.randn((m,) + s, generator=gen, device=dev).to(dtype) for s in shapes]
+            zs = [torch.randn(s, generator=gen, device=dev).to(dtype) for s in shapes]
+            for x, z in zip(xs, zs):
+                want = ref.anchor_mix(x, z, alpha)
+                got = ops.anchor_mix(x.clone(), z, alpha)
+                ok, err = bool(torch.equal(got, want)), float((got.float() - want.float()).abs().max())
+                if m == 1:
+                    same = ops.anchor_mix(x.clone()[0], z, alpha)
+                    ok = ok and bool(torch.equal(same, got[0]))
+                worst = max(worst, err)
+                checked.append(dict(case=case, dtype=dname, m=m, leaf=list(z.shape), max_abs_err=err, ok=ok))
+                if not ok:
+                    raise AssertionError(f"K5 row form disagrees with plain (or, at one row, with the same-shape "
+                                         f"launch): {checked[-1]}")
+                del got, want
+            if case in K5_ROW_TIMED:
+                n_all = sum(z.numel() for z in zs)
+                xt, zt = {str(i): x for i, x in enumerate(xs)}, {str(i): z for i, z in enumerate(zs)}
+                zfull = [z.expand_as(x).contiguous() for x, z in zip(xs, zs)]
+                it = 10 if case == "qwen2_ffn" else 50
+                rows = lambda: ops.pullback_tree(xt, zt, alpha)  # noqa: E731
+                plain = lambda: [ref.anchor_mix(x, z, alpha) for x, z in zip(xs, zs)]  # noqa: E731
+                same = lambda: [ops.anchor_mix(x, zf, alpha) for x, zf in zip(xs, zfull)]  # noqa: E731
+                lerp = lambda: [x.lerp_(z, alpha) for x, z in zip(xs, zs)]  # noqa: E731
+                rec = dict(case=case, dtype=dname, m=m, leaves=[list(z.shape) for z in zs], launches_a_call=len(xs),
+                           ms=median_ms(rows, it), host_us=host_us(rows), **device_us(rows), plain_ms=time_ms(plain, it),
+                           same_shape_ms=median_ms(same, it), library_ms=median_ms(lerp, it),
+                           library="torch.lerp_ with z broadcast over x's rows (one call a leaf)",
+                           same_shape="the same-shape launch on z materialised to x's shape (3 P m n bytes)")
+                rec["bound_ms"], rec["bound_by"] = bound((2 * m + 1) * P * n_all, 3 * m * n_all)
+                rec["bound"] = "(2m+1)·P·n bytes: x read and written, z read once"
+                timing[(case, dname)] = rec
+                log(json.dumps(rec))
+                del zfull
+            del xs, zs
+            _free()
+    log(json.dumps(dict(check="K5 row form against its plain version", bound="bitwise", cases=len(checked),
+                        max_abs_err=worst)))
+    return worst, timing
+
+
+# the reference's ALL_PACKABLE (tests/test_strategies.py) and gossip_ring,
+# per leaf and packed on the quickstart configuration (16 workers, tau 3)
+PERLEAF_CASES = [
+    ("overlap_local_sgd", dict(anchor_beta=0.0)),
+    ("overlap_local_sgd", dict(anchor_beta=0.7)),
+    ("local_sgd", {}),
+    ("sync_sgd", {}),
+    ("easgd", {}),
+    ("cocod", {}),
+    ("powersgd", {}),
+    ("delayed_avg", dict(delay_steps=2)),
+    ("delayed_avg", dict(delay_steps=3)),
+    ("sparse_anchor", dict(sparse_k=0.5)),
+    ("sparse_anchor", dict(sparse_k=1.0)),
+    ("gossip_ring", {}),
+]
+PERLEAF_ROUNDS = 3
+# the per-leaf pullback: K5's row form for one anchor, the same-shape K5 for
+# gossip's per-worker anchors; one launch a leaf a boundary
+PERLEAF_PULLBACK = {"overlap_local_sgd": "anchor_mix_rows", "easgd": "anchor_mix_rows",
+                    "sparse_anchor": "anchor_mix_rows", "gossip_ring": "anchor_mix"}
+
+
+def _canonical(v, name="", out=None):
+    """Every tensor of a state or slot by name, a plane by its leaves (views)
+    and a per-leaf tree by its leaves in flatten order, so a packed and a
+    per-leaf state give the same names (the packed Adam count aside)."""
+    import torch
+
+    from repro_torch.parallel.packing import Packed, leaf_views, tree_flatten
+
+    out = {} if out is None else out
+    if v is None:
+        return out
+    if isinstance(v, Packed):
+        for i, t in enumerate(leaf_views(v)):
+            out[f"{name}/{i}"] = t
+    elif isinstance(v, dict):
+        for i, t in enumerate(tree_flatten(v)[0]):
+            _canonical(t, f"{name}/{i}", out)
+    elif hasattr(v, "_fields"):
+        for f in v._fields:
+            _canonical(getattr(v, f), f"{name}.{f}", out)
+    elif isinstance(v, (tuple, list)):
+        for i, a in enumerate(v):
+            _canonical(a, f"{name}/{i}", out)
+    elif isinstance(v, torch.Tensor):
+        out[name] = v
+    return out
+
+
+def _state_slots(state) -> dict:
+    """x, the optimizer state, the in-flight value and vars of a state."""
+    return _canonical((state.x, state.opt, state.inflight, state.vars))
+
+
+def train_perleaf_classifier(dev, kernels):
+    """Each of ``PERLEAF_CASES`` on the quickstart configuration (16 workers,
+    tau 3, alpha 0.6), packed then per leaf, 3 rounds each from zeroed
+    counters: the per-leaf run's launches exact (one K5 a leaf a boundary:
+    the row form, gossip's same-shape form; nothing else: its optimizer
+    step and means are plain PyTorch), x, the optimizer state, the
+    in-flight value and vars bit for bit the packed run's, the same losses;
+    the per-leaf run on the CPU (plain versions) within the card-vs-CPU
+    bounds of phase 4 (rtol 1e-4; sparse_anchor at k 0.5 1e-3)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.config import AlgoConfig
+    from repro_torch.parallel.packing import tree_flatten
+
+    runs = {}
+    for name, kw in PERLEAF_CASES:
+        key = f"{name}{''.join(f' {k}={v}' for k, v in kw.items())}"
+        cfg = AlgoConfig(name=name, tau=3, alpha=0.6, **kw)
+        packed = _experiment(dev, cfg)
+        p_out = _fit(packed, kernels, PERLEAF_ROUNDS)
+        leafy = _experiment(dev, dataclasses.replace(cfg, packed=False))
+        l_out = _fit(leafy, kernels, PERLEAF_ROUNDS)
+        leaves = len(tree_flatten(leafy.state.x)[0])
+        want = {k.name: 0 for k in kernels}
+        if name in PERLEAF_PULLBACK:
+            want[PERLEAF_PULLBACK[name]] = leaves * PERLEAF_ROUNDS
+        if l_out["launches"] != want:
+            raise AssertionError(f"per-leaf {key}: launches {l_out['launches']} != {want}")
+        got, ref = _state_slots(leafy.state), _state_slots(packed.state)
+        got.pop(".opt.count", None), ref.pop(".opt.count", None)
+        differ = sorted(k for k in ref if k not in got or not torch.equal(got[k], ref[k]))
+        if differ or sorted(got) != sorted(ref) or l_out["losses"] != p_out["losses"]:
+            raise AssertionError(f"per-leaf {key} differs from packed: slots {differ}, losses {l_out['losses']} vs "
+                                 f"{p_out['losses']}")
+        rtol = 1e-3 if kw.get("sparse_k", 1.0) < 1.0 else 1e-4
+        cpu = np.asarray(_experiment("cpu", dataclasses.replace(cfg, packed=False)).fit(rounds=PERLEAF_ROUNDS).losses)
+        rel = float(np.max(np.abs(np.asarray(l_out["losses"]) - cpu) / np.abs(cpu)))
+        rec = dict(run=f"classifier per leaf {key}", rounds=PERLEAF_ROUNDS, steps=l_out["steps"], leaves=leaves,
+                   losses=l_out["losses"], wall_s=l_out["wall_s"], packed_wall_s=p_out["wall_s"],
+                   launches={k: v for k, v in l_out["launches"].items() if v},
+                   packed_launches={k: v for k, v in p_out["launches"].items() if v}, slots_bitwise=len(ref),
+                   card_vs_cpu_max_rel=rel, bound=f"per leaf == packed bitwise; card vs CPU rtol {rtol}",
+                   ok=rel <= rtol and all(math.isfinite(v) for v in l_out["losses"]))
+        log(json.dumps(rec))
+        if not rec["ok"]:
+            raise AssertionError(f"per-leaf {key}: card vs CPU losses max rel {rel} > {rtol} (or non-finite)")
+        runs[key] = rec
+        del packed, leafy
+    runs["more"] = perleaf_names_and_shims(dev)
+    return runs
+
+
+def perleaf_names_and_shims(dev):
+    """The rest of the reference's names and aliases per leaf on the card (1
+    round each, finite losses, a per-leaf state); a legacy ``Algorithm``
+    (the overlap shim, beta 0.7) and an optimizer with no packed step under
+    the packed overlap strategy, 3 rounds each: x bit for bit the native
+    per-leaf run's, and the legacy anchor (its ``vars.z``) the native
+    in-flight anchor."""
+    import math
+    import warnings
+
+    import torch
+
+    from repro_torch.api import ClassificationSpec, Experiment
+    from repro_torch.config import AlgoConfig, OptimizerConfig
+    from repro_torch.core import algorithms
+    from repro_torch.core.strategy import _ALIASES, STRATEGIES
+    from repro_torch.optim import from_config, schedules
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.parallel.packing import tree_flatten
+
+    names = sorted((set(STRATEGIES) | set(_ALIASES)) - {n for n, _ in PERLEAF_CASES})
+    for name in names:
+        exp = _experiment(dev, AlgoConfig(name=name, tau=2, alpha=0.6, packed=False))
+        losses = exp.fit(rounds=1).losses
+        if not (isinstance(exp.state.x, dict) and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"per-leaf {name}: {losses}")
+    cfg = AlgoConfig(name="overlap_local_sgd", tau=3, alpha=0.6, anchor_beta=0.7)
+    native = _experiment(dev, dataclasses.replace(cfg, packed=False))
+    native.fit(rounds=PERLEAF_ROUNDS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        legacy = _experiment(dev, algorithms.make_algorithm(cfg))
+    legacy.fit(rounds=PERLEAF_ROUNDS)
+    opt = from_config(OptimizerConfig(name="sgd", lr=0.1, momentum=0.9, nesterov=True))
+    leafy_opt = Experiment(task=ClassificationSpec(n=30000, holdout=4000, batch_per_worker=32), strategy=cfg,
+                           optimizer=Optimizer(init=opt.init, step=opt.step),
+                           schedule=schedules.warmup_step_decay(0.1, 20, (TRAIN_STEPS // 2,)), workers=16, device=dev)
+    leafy_opt.fit(rounds=PERLEAF_ROUNDS)
+    want = tree_flatten(native.state.x)[0]
+    ok = dict(
+        legacy_x=all(torch.equal(a, b) for a, b in zip(tree_flatten(legacy.state.x)[0], want)),
+        legacy_anchor=all(torch.equal(a, b) for a, b in zip(tree_flatten(legacy.state.vars.z)[0],
+                                                             tree_flatten(native.state.inflight)[0])),
+        optimizer_without_packed_step_x=all(torch.equal(a, b) for a, b in zip(tree_flatten(leafy_opt.state.x)[0], want)))
+    rec = dict(check="per leaf on the card: every other name and alias, a legacy Algorithm, an optimizer with no "
+                     "packed step", names=names, bound="finite; the shims bitwise the native per-leaf run", **ok)
+    log(json.dumps(rec))
+    if not all(ok.values()):
+        raise AssertionError(f"per-leaf shims differ from the native per-leaf run: {rec}")
+    return rec
+
+
+def lm_perleaf_full_width(dev, kernels):
+    """Full-width qwen2-7b cut to phase 5's 2 layers (bf16, m = 4, seq 512,
+    tau 2, beta 0.7, SGD as phase 5), 3 rounds per leaf, then packed, from
+    one seed (weights drawn on the card), counters zeroed before each run:
+    finite losses, exact launches (per leaf: K6/K7 as packed, K5's row form
+    once a leaf a boundary, no K1 or K3), step ms and peak memory of both,
+    and x, the in-flight anchor and vars (z, v) of the two runs bit for bit
+    (the per-leaf run's copied to the host, the packed run's compared leaf
+    by leaf) with the same losses."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.api import Experiment, TokenStream
+    from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
+    from repro_torch.optim import schedules
+    from repro_torch.parallel.packing import tree_flatten
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+    runs, snapshot = {}, None
+    for packed in (False, True):
+        exp = Experiment(arch=cfg, strategy=AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6, anchor_beta=0.7,
+                                                       packed=packed),
+                         optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
+                         schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ),
+                         workers=LM_WORKERS, device=dev, init_on_device=True).build()
+        params = tree_flatten(exp.params)[0]
+        leaves, buckets = len(params), len({t.dtype for t in params})
+        del params
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = exp.fit(rounds=LM_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in kernels}
+        steps, losses = res.steps, res.losses
+        del res
+        want = {k.name: 0 for k in kernels}
+        want.update(qwen2_launches(steps, LM_WORKERS, LM_LAYERS, buckets, LM_ROUNDS))
+        if not packed:
+            want.update(sgd_step=0, pullback_momentum=0, anchor_mix_rows=leaves * LM_ROUNDS)
+        if launches != want:
+            raise AssertionError(f"qwen2 {'packed' if packed else 'per leaf'}: launches {launches} != {want}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"qwen2 per-leaf phase: losses not finite: {losses}")
+        slots = _canonical((exp.state.x, exp.state.inflight, exp.state.vars))
+        if snapshot is None:
+            snapshot = {k: t.to("cpu", copy=True) for k, t in slots.items()}
+        else:
+            differ = [k for k, t in slots.items() if not torch.equal(t.cpu(), snapshot[k])]
+            if differ or sorted(slots) != sorted(snapshot):
+                raise AssertionError(f"qwen2 per leaf != packed: slots {differ}")
+        runs["packed" if packed else "per_leaf"] = dict(
+            losses=losses, steps=steps, wall_s=wall, step_ms=wall / steps * 1e3,
+            peak_mem_bytes=torch.cuda.max_memory_allocated(), launches={k: v for k, v in launches.items() if v})
+        del exp, slots
+        gc.collect()
+        torch.cuda.empty_cache()
+    if runs["per_leaf"]["losses"] != runs["packed"]["losses"]:
+        raise AssertionError(f"qwen2 per leaf and packed losses differ: {runs}")
+    summary = dict(run=f"qwen2-7b full width, {LM_LAYERS} layers, bf16, per leaf vs packed", workers=LM_WORKERS,
+                   seq_len=LM_SEQ, rounds=LM_ROUNDS, leaves=leaves, k5_rows_launches_a_boundary=leaves,
+                   slots_bitwise=len(snapshot), bound="per leaf == packed bitwise (x, inflight, vars; losses)", **runs)
+    del snapshot
+    log(json.dumps(summary))
+    return summary
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -5249,6 +5581,14 @@ def main() -> int:
         m4_first_step_xent=m4["first_step_xent"], m2_bitwise=mg_off["m2_check"]["planes_equal"])))
     mark("phase 9 (d, e: musicgen-large offloaded)")
 
+    # phase 10: the per-leaf oracle (K5's row form; per leaf against packed, classifier and qwen2-7b)
+    row_err, row_t = check_anchor_mix_rows(dev, gen)
+    mark("phase 10 (a: K5's row form)")
+    leaf_clf = train_perleaf_classifier(dev, kernels)
+    mark("phase 10 (b: classifier per leaf against packed)")
+    leaf_lm = dict(lm_perleaf_full_width(dev, kernels), card=card)
+    mark("phase 10 (c: qwen2-7b per leaf against packed)")
+
     # the kernels line
     launches = dict(summary["launches"])
     launches["sgd_step"] = runs["overlap_local_sgd"]["launches"]["sgd_step"]
@@ -5340,6 +5680,13 @@ def main() -> int:
          win_t["K2"]["large_f32"], "f32 window m=4 w=2^24 of a (4, 2^27) plane (a 64 MiB f32 chunk)",
          win_t["K2"]["large_bf16"]),
     ]
+    # phase 10: K5's row form, the per-leaf pullback (the LM's per-leaf run is its main path)
+    rows.append(("anchor_mix_rows", "anchor_mix",
+                 "K5 anchor_mix_flat, row form (anchor_mix_launch with rows and z's row stride 0: the per-leaf "
+                 "pullback, one launch a leaf; the reference vmaps K5 over the workers, strategy.py:155-158)",
+                 "src/repro/kernels/anchor_mix/kernel.py:51", row_err, row_t[("qwen2_ffn", "bfloat16")],
+                 "bf16 m=4 leaf 3584x18944 (a qwen2-7b FFN leaf)", None))
+    launches["anchor_mix_rows"] = leaf_lm["per_leaf"]["launches"]["anchor_mix_rows"]
     launches["sgd_step_window"] = m4["launches"]["sgd_step_window"]
     launches["adamw_step_window"] = off_clf["window_launches"]["adamw_step_window"]
     window_paths = {"sgd_step_window": {"musicgen m4 offloaded": m4["launches"]["sgd_step_window"],
@@ -5364,6 +5711,10 @@ def main() -> int:
     launches["gossip_boundary"] = gossip["launches"]["gossip_boundary"]
     by_path["gossip_boundary"] = {p: c["gossip_boundary"] for p, c in gossip_paths.items()}
     by_path["anchor_mix"] = {p: c["anchor_mix"] for p, c in gossip_paths.items()}
+    by_path["anchor_mix"]["classifier per-leaf gossip_ring"] = leaf_clf["gossip_ring"]["launches"].get("anchor_mix", 0)
+    row_paths = {f"classifier per-leaf {k}": r["launches"].get("anchor_mix_rows", 0) for k, r in leaf_clf.items()
+                 if k != "more"}
+    row_paths["lm per-leaf overlap"] = leaf_lm["per_leaf"]["launches"]["anchor_mix_rows"]
     # K8 and the probe output of K3/K4: the adaptive classifier runs (K8 on the
     # standalone path, its main path here; K3 and K4 with the probe on the
     # fused paths), the LM under adaptive tau and faults (K3 with the probe, K8 never)
@@ -5518,6 +5869,16 @@ def main() -> int:
                                   **{k: fa_t[case][part][k] for k in keys})
         if name in ("sgd_step", "pullback_momentum"):
             entry["two_bucket_plane"] = two_bucket
+        if name == "anchor_mix_rows":  # phase 10: the classifier's leaves, the same-shape and lerp_ yardsticks
+            cl = row_t[("classifier", "float32")]
+            entry.update(same_shape_ms=t["same_shape_ms"], library=t["library"], bound_note=t["bound"],
+                         launches_by_path=row_paths)
+            entry["classifier"] = dict(shape="f32 m=16, the MLP's six leaves (one per-leaf pullback, six launches)",
+                                       same_shape_ms=cl["same_shape_ms"],
+                                       **{k: cl[k] for k in keys + split_keys if k in cl})
+            entry["classifier_bf16"] = {k: row_t[("classifier", "bfloat16")][k] for k in keys + ("same_shape_ms",)}
+            entry["per_leaf_runs"] = dict(classifier={k: r["slots_bitwise"] for k, r in leaf_clf.items() if k != "more"},
+                                          lm={k: leaf_lm[k] for k in ("leaves", "slots_bitwise", "bound")})
         if name.endswith("_window"):  # beside the whole-plane launch on the same bytes
             entry["whole_plane_ms"], entry["large"]["whole_plane_ms"] = t["whole_plane_ms"], large["whole_plane_ms"]
             entry["launches_by_path"] = window_paths[name]

@@ -22,8 +22,8 @@ The experiment runs on the GPU (``device="cuda"``, the default) and raises
 where there is none, unless the caller passes ``device="cpu"``; on the CPU
 every kernel wrapper takes its plain PyTorch version.
 
-The state is plane-resident: ``state.x`` is the worker-stacked packed
-parameter plane. The initial weights come from a seeded ``torch.Generator``
+By default the state is plane-resident: ``state.x`` is the worker-stacked
+packed parameter plane. The initial weights come from a seeded ``torch.Generator``
 on the CPU (so the CPU and GPU runs of one seed start equal), or, for an
 LM with ``init_on_device=True``, on the device; they differ
 from the reference's ``jax.random`` draws, so parity tests carry the
@@ -49,9 +49,15 @@ text) and musicgen-large (GELU MLPs; four codebooks in and out).
 ``serve()`` serves the consensus plane in place through
 :class:`repro_torch.serving.BatchedEngine` (paged for the GQA text archs
 and deepseek's latent pools, the dense fallback for rwkv6, zamba2 and
-qwen2-vl; musicgen has no engine and raises). Not here yet (it raises):
-the strategies (every name and alias of the reference) raise for
-``AlgoConfig.packed=False`` (item 4b).
+qwen2-vl; musicgen has no engine and raises).
+
+``strategy`` is a name, an ``AlgoConfig``, a ``CommStrategy`` or a legacy
+``Algorithm`` (:mod:`repro_torch.core.algorithms`, wrapped). With
+``AlgoConfig(packed=False)``, a legacy ``Algorithm`` or an optimizer with no
+packed step, the state is per leaf (``state.x`` a nested dict of
+worker-stacked leaves): ``consensus()``, ``evaluate()`` and ``serve()`` read
+it as they read the plane, ``fit(adaptive_tau=…)`` and ``fit(faults=…)`` run
+per leaf, and ``consensus_plane()`` and ``anchor_plane()`` raise.
 
 ``AlgoConfig(offload=True)`` trains with the optimizer state and the
 strategy's anchor-shaped planes in host memory between boundaries (pinned
@@ -137,7 +143,7 @@ class Experiment:
 
     arch: Union[str, ModelConfig, None] = None
     task: Optional[ClassificationSpec] = None
-    strategy: Union[str, AlgoConfig, CommStrategy] = "overlap_local_sgd"
+    strategy: Union[str, AlgoConfig, CommStrategy, Any] = "overlap_local_sgd"  # Any: a legacy Algorithm
     optimizer: Union[str, OptimizerConfig, Optimizer] = field(default_factory=OptimizerConfig)
     data: Optional[TokenStream] = None
     workers: int = 4
@@ -342,6 +348,8 @@ class Experiment:
         mean of each bucket, cast back to the bucket dtype."""
         self.build()
         x = self.state.x
+        if not isinstance(x, Packed):
+            raise ValueError("consensus_plane() requires a plane-resident (packed) experiment; use consensus()")
         return Packed(tuple(torch.mean(b.float(), dim=0).to(b.dtype) for b in x.buffers), x.layout)
 
     def anchor_plane(self) -> Packed:
@@ -359,14 +367,21 @@ class Experiment:
         plane (LM experiments only), served in place: the engine reads its
         weights as views of the plane (no unpack), so a later
         ``engine.swap_plane(exp.anchor_plane())`` hot-swaps the anchor the
-        trainer keeps averaging into the running engine at a step boundary."""
+        trainer keeps averaging into the running engine at a step boundary.
+        A per-leaf experiment serves its consensus tree cast to the
+        parameter dtype."""
         from repro_torch.serving import BatchedEngine
 
         self.build()
         if self.model_cfg is None:
             raise ValueError("serve() requires an LM experiment (arch=...), not a classification task")
         engine_kw.setdefault("device", self.dev)
-        return BatchedEngine(self.model_cfg, self.consensus_plane(), slots=slots, max_len=max_len, **engine_kw)
+        if isinstance(self.state.x, Packed):
+            params = self.consensus_plane()
+        else:
+            leaves, paths = tree_flatten(self.consensus())
+            params = tree_unflatten(paths, [t.to(self.model_cfg.param_dtype) for t in leaves])
+        return BatchedEngine(self.model_cfg, params, slots=slots, max_len=max_len, **engine_kw)
 
     def evaluate(self, eval_batches: int = 8) -> dict:
         """Evaluate the consensus model: classification → held-out accuracy;

@@ -26,10 +26,12 @@ optimizer's scalar step count to and from per-worker ``(m,)`` counts.
 ``elastic=True`` resizes the worker axis (shrink keeps the first rows, grow
 seeds new rows from row 0).
 
-One container differs between the packages: PowerSGD's ``q`` factors are a
-tuple over the layout's leaves here (``None`` for an uncompressed leaf) and
-a parameter-shaped dict in the reference. They are stored under the
-reference's dict paths, taken from the error plane's layout.
+One container differs between the packages: on the packed path PowerSGD's
+``q`` factors are a tuple over the layout's leaves here (``None`` for an
+uncompressed leaf) and a parameter-shaped dict in the reference. They are
+stored under the reference's dict paths, taken from the error plane's
+layout. Per leaf (``AlgoConfig.packed=False``) ``q`` is the reference's
+dict, and every per-leaf state is stored and restored as the reference's.
 
 Restored leaves are tensors of the template's dtype on the template leaf's
 device. This module imports numpy and torch only.

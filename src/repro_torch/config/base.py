@@ -293,8 +293,9 @@ class ArchConfig:
 @dataclass(frozen=True)
 class AlgoConfig:
     """Distributed-optimization algorithm selection (the paper's subject).
-    The port runs every strategy on the packed plane; ``packed=False``
-    raises (see ``repro_torch.core.strategy``). ``offload`` keeps the
+    ``packed`` (the default) runs the boundary on the packed plane;
+    ``packed=False`` runs the per-leaf oracle (see
+    ``repro_torch.core.strategy``). ``offload`` keeps the
     optimizer state and the anchor-shaped planes in (pinned) host memory
     between boundaries, streamed in ``offload_chunk_mb`` chunks
     (``repro_torch.parallel.offload``)."""

@@ -1,6 +1,6 @@
-"""Two-phase communication strategies over the packed plane (counterpart of
-the packed path of ``repro.core.strategy``: every strategy and alias of
-the reference).
+"""Two-phase communication strategies (counterpart of
+``repro.core.strategy``: every strategy and alias of the reference, on the
+packed plane and per leaf).
 
 The paper's structure: the anchor collective launched at one round
 boundary is consumed τ local steps later. The round engine calls one hook a
@@ -8,9 +8,11 @@ round, :meth:`CommStrategy.boundary_round`, which consumes the in-flight
 collective launched at the previous boundary (eq. 4) and launches this
 round's (eq. 5); the launched value rides in ``TrainState.inflight``.
 Delayed averaging consumes it mid-round instead, through
-:meth:`CommStrategy.local_post_update_packed`, which the engine calls after
-every optimizer step; PowerSGD and sync-SGD act on the gradient plane
-through :meth:`CommStrategy.transform_grads_packed`.
+:meth:`CommStrategy.local_post_update_packed` (per leaf
+:meth:`CommStrategy.local_post_update`), which the engine calls after every
+optimizer step; PowerSGD and sync-SGD act on the gradients through
+:meth:`CommStrategy.transform_grads_packed` (per leaf
+:meth:`CommStrategy.transform_grads`).
 
 On one card the m workers are stacked in one ``(m, n)`` plane per dtype,
 so the worker-mean "collective" is a reduction over the worker axis (inside
@@ -22,7 +24,7 @@ is pure, so it may hand the plane itself over as the in-flight value
 (the gossip mix, the rebase strategies' x₀); here x is written in place, so
 every in-flight plane has a buffer of its own, reused round after round.
 Full-plane f32 temporaries are avoided: expressions over a whole plane run
-over column chunks (:func:`_column_chunks`) or as one mixed-dtype in-place
+over column chunks (:func:`~repro_torch.parallel.packing.column_chunks`) or as one mixed-dtype in-place
 op, with the values of the reference's expressions.
 
 ``boundary_round(..., probe=True)`` also returns the consensus stats of the
@@ -39,8 +41,20 @@ and hands the hooks resident planes; :attr:`CommStrategy.consumes_inflight_midro
 tells it to restore the in-flight plane before the window, not at the
 boundary.
 
-Not here (it raises, naming its ROADMAP item): the per-leaf oracle
-(``packed=False``, item 4b).
+**The per-leaf oracle** (``AlgoConfig.packed=False``, and every legacy
+``Algorithm`` through :class:`LegacyStrategy`): x is a nested dict of
+worker-stacked leaves ``(m, ...)``, each with its own storage, and the
+boundary runs the reference's two phases in turn, ``boundary_apply`` then
+``boundary_launch`` (``probe`` by the plain
+:func:`~repro_torch.kernels.consensus_probe.tree_probe`). Anchor-shaped
+state (z, v, the in-flight anchor, error feedback) is unstacked per leaf.
+The pullback is K5's row form, one launch a leaf (a stacked anchor, gossip's
+debiased mix, takes the same-shape K5). Every expression is the packed
+path's, op for op: worker means sum the rows 0 .. m−1 in float32 and divide
+by m (K3/K4's order, also on the packed path's own means), so on one device
+the per-leaf boundary equals the packed one bit for bit. A packed strategy
+handed a per-leaf x (an optimizer without a packed step, as in the
+reference) runs its boundary on x's plane and writes the result back.
 """
 from __future__ import annotations
 
@@ -50,24 +64,29 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import AlgoConfig
-from repro_torch.core import powersgd
 from repro_torch.core.topology import cached_topology, compose_membership
 from repro_torch.kernels.anchor_mix import ops as anchor_ops
-from repro_torch.kernels.consensus_probe import packed_probe, stats_from_partials
+from repro_torch.kernels.anchor_mix.ref import push, worker_mean
+from repro_torch.kernels.consensus_probe import packed_probe, stats_from_partials, tree_probe
 from repro_torch.kernels.opt_step.ref import weak
-from repro_torch.parallel.packing import Packed, buffer_map, leaf_segments, packed_like
-
-# columns a chunk of a plane-wide expression takes, per worker row: its f32
-# temporaries stay near 2^26 elements (256 MB) whatever the plane's size
-_CHUNK_ELEMS = 1 << 26
-
+from repro_torch.parallel.packing import (
+    Packed,
+    column_chunks,
+    leaf_segments,
+    leaf_views,
+    pack,
+    packed_like,
+    tensors_of,
+    tree_flatten,
+)
+from repro_torch.utils.tree import tree_lerp, tree_map
 
 class AlgoVars(NamedTuple):
     """Strategy-owned state slots (unused slots are None)."""
 
     z: Any = None  # anchor (easgd, sparse_anchor; overlap's consumed anchor with momentum)
     v: Any = None  # anchor momentum
-    extra: Any = None  # gossip (w, t) / sparse error plane / PowerState
+    extra: Any = None  # gossip (w, t) / sparse error feedback / PowerState / legacy cocod's round start
 
 
 def _mem_weights(membership):
@@ -75,20 +94,57 @@ def _mem_weights(membership):
     return None if membership is None else membership.weights
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """A worker-stacked tensor as its (m, n) view."""
+    return t.reshape(t.shape[0], -1)
+
+
+def _mean_rows(t: torch.Tensor, weights=None) -> torch.Tensor:
+    """The worker mean of an (m, ...) tensor, or with ``weights`` the
+    weighted sum Σ_i w_i·t_i: the rows summed 0 .. m−1 in float32 and divided
+    by m (K3/K4's order), cast to t's dtype, over column chunks. Shape
+    ``t.shape[1:]``."""
+    rows = _rows(t)
+    out = torch.empty(rows.shape[1], dtype=t.dtype, device=t.device)
+    for c in column_chunks(rows):
+        out[c] = worker_mean(rows[:, c], weights).to(t.dtype)
+    return out.reshape(t.shape[1:])
+
+
 def _packed_worker_mean(p: Packed, weights=None) -> Packed:
-    """One f32 worker mean per bucket, cast back to the bucket dtype; with
-    ``weights`` the weighted sum Σ_i w_i·x_i (over column chunks)."""
-    if weights is None:
-        return buffer_map(lambda b: torch.mean(b, dim=0, dtype=torch.float32).to(b.dtype), p)
-    wf = weights.float()[:, None]
+    """One worker mean (or weighted sum) per bucket, :func:`_mean_rows`."""
+    return Packed(tuple(_mean_rows(b, weights) for b in p.buffers), p.layout)
 
-    def weighted(b):
-        out = torch.empty(b.shape[1], dtype=b.dtype, device=b.device)
-        for c in _column_chunks(b):
-            out[c] = torch.sum(b[:, c].float() * wf, dim=0).to(b.dtype)
-        return out
 
-    return buffer_map(weighted, p)
+def _worker_mean(x, weights=None):
+    """The per-leaf worker mean (or weighted sum) of a worker-stacked tree."""
+    return tree_map(lambda t: _mean_rows(t, weights), x)
+
+
+def _live_where_(mask, new, old):
+    """Per leaf, in place on ``new``: live rows (``mask > 0``) keep their new
+    value, the others take ``old``'s (they sat the boundary out)."""
+    live = mask > 0
+
+    def one(n, o):
+        torch.where(live.reshape((-1,) + (1,) * (n.dim() - 1)), n, o, out=n)
+        return n
+
+    return tree_map(one, new, old)
+
+
+def _clone(x):
+    return tree_map(torch.clone, x)
+
+
+def _first_row(x):
+    """A copy of worker 0's leaves (all workers start equal)."""
+    return tree_map(lambda t: t[0].clone(), x)
+
+
+def _leading(x) -> int:
+    """m, the worker count of a plane or a worker-stacked tree."""
+    return tensors_of(x)[0].shape[0]
 
 
 def _with_stats(out: tuple, stats) -> tuple:
@@ -101,6 +157,19 @@ def _fused_stats(outs, m: int, probe: bool):
     return stats_from_partials([o[-1] for o in outs], m) if probe else None
 
 
+def _as_plane(x) -> Packed:
+    """x's plane: a ``Packed`` as it is, a per-leaf tree packed (a copy)."""
+    return x if isinstance(x, Packed) else pack(x, lead=1)
+
+
+def _write_back(x, px: Packed):
+    """Copy a plane made by :func:`_as_plane` back into the per-leaf x."""
+    if px is not x:
+        for t, v in zip(tree_flatten(x)[0], leaf_views(px)):
+            t.copy_(v)
+    return x
+
+
 def _pack_anchor(px: Packed) -> Packed:
     """A copy of worker 0's row of every bucket (all workers start equal)."""
     return Packed(tuple(b[0].clone() for b in px.buffers), px.layout)
@@ -110,17 +179,20 @@ def _copy_plane(px: Packed) -> Packed:
     return Packed(tuple(b.clone() for b in px.buffers), px.layout)
 
 
-def _column_chunks(b: torch.Tensor):
-    """Column slices of an (m, n) buffer, each at most ``_CHUNK_ELEMS``
-    elements in all."""
-    m, n = b.shape
-    step = max(1, _CHUNK_ELEMS // max(m, 1))
-    for c0 in range(0, n, step):
-        yield slice(c0, min(n, c0 + step))
+def _pullback(x, z, alpha: float, membership=None):
+    """Paper eq. (4) per leaf, x ← (1−α)·x + α·z, in place (K5's row form,
+    or the same-shape K5 for a stacked z): the reference's ``_pullback``.
+    With ``membership`` the dead rows keep their values."""
+    old = None if membership is None else _clone(x)
+    anchor_ops.pullback_tree(x, z, alpha)
+    return x if old is None else _live_where_(membership.mask, x, old)
 
 
 class CommStrategy:
-    """Base strategy: Local SGD without averaging (every hook a no-op)."""
+    """Base strategy: Local SGD without averaging (every hook a no-op).
+
+    ``x`` is the worker-stacked plane (``Packed``) when :attr:`packed`,
+    else a nested dict of worker-stacked leaves (the per-leaf oracle)."""
 
     name = "base"
     # under AlgoConfig.offload the in-flight plane comes back to the device
@@ -128,37 +200,81 @@ class CommStrategy:
     consumes_inflight_midround = False
 
     def __init__(self, cfg: AlgoConfig):
-        if not cfg.packed:
-            raise NotImplementedError(
-                "the per-leaf oracle path (AlgoConfig.packed=False) is ROADMAP Queue 1 item 4b"
-            )
         self.cfg = cfg
         self.tau = cfg.tau
+        # the packed boundary (the default), or the per-leaf oracle
+        self.packed = bool(cfg.packed)
 
-    def init_vars(self, px: Packed) -> AlgoVars:
+    def init_vars(self, x) -> AlgoVars:
         return AlgoVars()
 
-    def init_inflight(self, px: Packed, vars: AlgoVars):
+    def init_inflight(self, x, vars: AlgoVars):
         """The carried collective round 0's boundary consumes."""
         return None
+
+    # ---- per-local-step hooks ----
+    def transform_grads(self, grads, vars: AlgoVars):
+        """Gradient-space hook on the per-leaf worker-stacked gradients."""
+        return grads, vars
 
     def transform_grads_packed(self, pg: Packed, vars: AlgoVars):
         """Gradient-space hook on the worker-stacked gradient plane."""
         return pg, vars
 
+    def local_post_update(self, x, vars: AlgoVars, inflight, k_in_round: int):
+        """Per-leaf mid-round consumption point, after the optimizer update of
+        local step ``k_in_round`` (0-based)."""
+        return x
+
     def local_post_update_packed(self, px: Packed, vars: AlgoVars, inflight, k_in_round: int) -> Packed:
-        """Mid-round consumption point, after the optimizer update of local
-        step ``k_in_round`` (0-based)."""
+        """:meth:`local_post_update` on the plane."""
         return px
 
-    def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
+    # ---- per-leaf round-boundary phases ----
+    def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
+        """Phase 1: consume the collective launched last round (eq. 4); it
+        starts no collective. Returns ``(x, vars)``."""
+        return x, vars
+
+    def boundary_launch(self, x, vars: AlgoVars, membership=None):
+        """Phase 2: launch this round's collective (eq. 5). Returns
+        ``(vars, inflight)``."""
+        return vars, None
+
+    def boundary_round(self, x, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         """One round boundary: consume ``inflight`` (eq. 4), launch the next
-        collective (eq. 5). Returns ``(px, vars, inflight)``, with ``probe``
+        collective (eq. 5). Returns ``(x, vars, inflight)``, with ``probe``
         also the pre-boundary plane's
         :class:`~repro_torch.kernels.consensus_probe.ConsensusStats`.
-        ``membership`` masks the boundary; with no boundary math (base,
-        sync_sgd, powersgd) the plane passes through."""
+        ``membership`` masks the boundary. Per leaf, the two phases in turn;
+        packed, one fused pass (:meth:`_packed_boundary`)."""
+        if not self.packed:
+            return self._boundary_phases(x, vars, inflight, probe=probe, membership=membership)
+        px = _as_plane(x)
+        out = self._packed_boundary(px, vars, inflight, probe=probe, membership=membership)
+        return (_write_back(x, px),) + tuple(out[1:])
+
+    def _boundary_phases(self, x, vars: AlgoVars, inflight, probe: bool = False, membership=None):
+        """The per-leaf composition: apply, then launch."""
+        stats = tree_probe(x) if probe else None
+        x, vars = self.boundary_apply(x, vars, inflight, membership=membership)
+        vars, inflight = self.boundary_launch(x, vars, membership=membership)
+        return _with_stats((x, vars, inflight), stats)
+
+    def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
+        """The packed boundary; with no boundary math (base, sync_sgd,
+        powersgd) the plane passes through."""
         return _with_stats((px, vars, None), packed_probe(px) if probe else None)
+
+    # ---- diagnostics ----
+    def metrics(self, x, vars: AlgoVars) -> dict:
+        """``consensus_dist``: Σ_i ‖x_i − x̄‖² / m over the leaves (0-dim f32)."""
+        leaves = leaf_views(x) if isinstance(x, Packed) else tree_flatten(x)[0]
+        total = 0.0
+        for t in leaves:
+            mean = _mean_rows(t)
+            total = total + torch.sum(torch.square(t.float() - mean[None].float()))
+        return {"consensus_dist": total / max(_leading(x), 1)}
 
 
 class SyncSGDStrategy(CommStrategy):
@@ -170,6 +286,12 @@ class SyncSGDStrategy(CommStrategy):
         super().__init__(cfg)
         self.tau = 1
 
+    def transform_grads(self, grads, vars):
+        """Per leaf, the worker mean written back to every worker's row."""
+        for g in tree_flatten(grads)[0]:
+            g.copy_(_mean_rows(g).expand_as(g))
+        return grads, vars
+
     def transform_grads_packed(self, pg: Packed, vars):
         """One worker mean per bucket, written back to every worker's row."""
         for b, g in zip(pg.buffers, _packed_worker_mean(pg).buffers):
@@ -177,20 +299,46 @@ class SyncSGDStrategy(CommStrategy):
         return pg, vars
 
 
+def _average_rows_(t: torch.Tensor, weights=None, mask=None) -> None:
+    """Local SGD's average of one (m, ...) buffer in place: every row (with
+    ``mask`` only the live rows) takes the (weighted) worker mean."""
+    avg = _mean_rows(t, weights)
+    if mask is None:
+        t.copy_(avg.expand_as(t))
+    else:  # dead rows keep their stale parameters (they re-sync on rejoin)
+        torch.where((mask > 0).reshape((-1,) + (1,) * (t.dim() - 1)), avg[None], t, out=t)
+
+
 class LocalSGDStrategy(CommStrategy):
     """Periodic model averaging, eq. (2); blocking: nothing is launched."""
 
     name = "local_sgd"
 
-    def boundary_round(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
+    def boundary_apply(self, x, vars, inflight, membership=None):
+        mask = None if membership is None else membership.mask
+        for t in tree_flatten(x)[0]:
+            _average_rows_(t, _mem_weights(membership), mask)
+        return x, vars
+
+    def _packed_boundary(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
         # the probe reads the pre-average plane: after the average the drift is 0
         stats = packed_probe(px) if probe else None
-        for b, avg in zip(px.buffers, _packed_worker_mean(px, _mem_weights(membership)).buffers):
-            if membership is None:
-                b.copy_(avg.expand_as(b))
-            else:  # dead rows keep their stale parameters (they re-sync on rejoin); in place
-                torch.where((membership.mask > 0)[:, None], avg[None], b, out=b)
+        mask = None if membership is None else membership.mask
+        for b in px.buffers:
+            _average_rows_(b, _mem_weights(membership), mask)
         return _with_stats((px, vars, None), stats)
+
+
+def _momentum_(v: torch.Tensor, mean: torch.Tensor, z: torch.Tensor, beta: float) -> torch.Tensor:
+    """Eqs. (10)–(11), K3's chain: v ← β·v + (mean − z) in place; returns
+    z' = z + v. Over chunks of the flattened anchor."""
+    z_next = torch.empty_like(z)
+    vf, mf, zf, of = (t.reshape(1, -1) for t in (v, mean, z, z_next))
+    for c in column_chunks(vf):
+        zc = zf[:, c].float()
+        vf[:, c] = (beta * vf[:, c].float() + (mf[:, c].float() - zc)).to(v.dtype)
+        of[:, c] = (zc + vf[:, c].float()).to(z.dtype)
+    return z_next
 
 
 class OverlapLocalSGDStrategy(CommStrategy):
@@ -198,7 +346,8 @@ class OverlapLocalSGDStrategy(CommStrategy):
 
     Per bucket one fused kernel: the pullback toward the anchor launched a
     round ago (eq. 4), the worker mean of the pulled-back plane (eq. 5) and,
-    with momentum, v ← β·v + (mean − z), z ← z + v (eqs. 10–11)."""
+    with momentum, v ← β·v + (mean − z), z ← z + v (eqs. 10–11). Per leaf:
+    K5's row form, then the worker mean and the momentum chain."""
 
     name = "overlap_local_sgd"
 
@@ -206,16 +355,32 @@ class OverlapLocalSGDStrategy(CommStrategy):
         super().__init__(cfg)
         self.momentum = cfg.anchor_beta > 0
 
-    def init_vars(self, px: Packed) -> AlgoVars:
+    def init_vars(self, x) -> AlgoVars:
         if not self.momentum:
             return AlgoVars()
-        z = _pack_anchor(px)
-        return AlgoVars(z=z, v=packed_like(z, 0.0))
+        if self.packed:
+            z = _pack_anchor(_as_plane(x))
+            return AlgoVars(z=z, v=packed_like(z, 0.0))
+        z = _first_row(x)
+        return AlgoVars(z=z, v=tree_map(torch.zeros_like, z))
 
-    def init_inflight(self, px: Packed, vars):
-        return _pack_anchor(px)
+    def init_inflight(self, x, vars):
+        return _pack_anchor(_as_plane(x)) if self.packed else _first_row(x)
 
-    def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
+    def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
+        _pullback(x, inflight, self.cfg.alpha, membership)
+        if self.momentum:  # the consumed anchor: launch needs it for eq. (10)
+            vars = AlgoVars(z=inflight, v=vars.v, extra=vars.extra)
+        return x, vars
+
+    def boundary_launch(self, x, vars: AlgoVars, membership=None):
+        mean_x = _worker_mean(x, _mem_weights(membership))
+        if not self.momentum:
+            return vars, mean_x
+        beta = self.cfg.anchor_beta
+        return vars, tree_map(lambda v, m, z: _momentum_(v, m, z, beta), vars.v, mean_x, vars.z)
+
+    def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         alpha, weights = self.cfg.alpha, _mem_weights(membership)
         if self.momentum:
             beta = self.cfg.anchor_beta
@@ -238,33 +403,59 @@ def _pullback_mean(px: Packed, z: Packed, alpha: float, mean_pre: bool = False, 
             for bx, bz in zip(px.buffers, z.buffers)]
 
 
+def _easgd_rate(alpha: float, m: int, membership):
+    """z's mixing rate min(α·m_live, 1): a Python float when fully live, a
+    device tensor when masked (the reference's traced rate)."""
+    if membership is None:
+        return min(alpha * m, 1.0)
+    return torch.clamp(alpha * membership.live_count(), max=1.0)
+
+
 class EASGDStrategy(CommStrategy):
     """Elastic-averaging SGD [19], blocking: per bucket K4 pulls x toward z
     and takes the mean of the *pre*-pullback plane (``mean_pre``, the
     symmetric mix), then z ← (1 − r)·z + r·mean with r = min(α·m, 1), in
     the plane's dtype (the reference's ``tree_lerp`` at native dtype). Masked,
     r = min(α·m_live, 1) is a device tensor and the lerp runs in f32, as the
-    reference's traced rate makes it."""
+    reference's traced rate makes it. Per leaf: the mean of x first, then
+    K5's row form and :func:`~repro_torch.utils.tree.tree_lerp`."""
 
     name = "easgd"
 
-    def init_vars(self, px: Packed) -> AlgoVars:
-        return AlgoVars(z=_pack_anchor(px))
+    def init_vars(self, x) -> AlgoVars:
+        return AlgoVars(z=_pack_anchor(_as_plane(x)) if self.packed else _first_row(x))
 
-    def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
+    def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
+        rate = _easgd_rate(self.cfg.alpha, _leading(x), membership)
+        mean_x = _worker_mean(x, _mem_weights(membership))  # pre-pullback models (symmetric W)
+        _pullback(x, vars.z, self.cfg.alpha, membership)
+        return x, AlgoVars(z=tree_lerp(vars.z, mean_x, rate), v=vars.v, extra=vars.extra)
+
+    def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         alpha = self.cfg.alpha
         outs = _pullback_mean(px, vars.z, alpha, mean_pre=True, probe=probe, weights=_mem_weights(membership))
+        rate = _easgd_rate(alpha, px.lead_shape[0], membership)
         if membership is None:
-            rate = min(alpha * px.lead_shape[0], 1.0)
             for bz, o in zip(vars.z.buffers, outs):
                 # (1 - r)·z + r·mean, each product and the sum rounded to z's
                 # dtype; the constants are rounded to it first (JAX weak types)
                 bz.mul_(weak(1.0 - rate, bz.dtype)).add_(o[1].mul_(weak(rate, bz.dtype)))
         else:
-            rate = torch.clamp(alpha * membership.live_count(), max=1.0)
             for bz, o in zip(vars.z.buffers, outs):
                 bz.copy_(((1.0 - rate) * bz.float() + rate * o[1].float()).to(bz.dtype))
         return _with_stats((px, vars, None), _fused_stats(outs, px.lead_shape[0], probe))
+
+
+def _rebase_rows_(bx: torch.Tensor, b0: torch.Tensor, av: torch.Tensor, membership=None) -> None:
+    """x_i ← (avg + x_i) − x₀ᵢ in f32, cast to x's dtype, in place on the
+    (m, ...) buffer ``bx`` over column chunks; with ``membership`` only the
+    live rows."""
+    bx, b0, av = _rows(bx), _rows(b0), av.reshape(-1)
+    for c in column_chunks(bx):
+        new = (av[None, c].float() + bx[:, c].float() - b0[:, c].float()).to(bx.dtype)
+        if membership is not None:
+            new = torch.where((membership.mask > 0)[:, None], new, bx[:, c])
+        bx[:, c] = new
 
 
 class _AvgRebaseStrategy(CommStrategy):
@@ -274,22 +465,29 @@ class _AvgRebaseStrategy(CommStrategy):
 
     class Inflight(NamedTuple):
         avg: Any  # mean of the launch-time models (the overlapped collective)
-        x0: Any  # the launch-time plane, a buffer of its own
+        x0: Any  # the launch-time models, a copy of their own
 
-    def init_inflight(self, px: Packed, vars):
-        return self.Inflight(avg=_packed_worker_mean(px), x0=_copy_plane(px))
+    def init_inflight(self, x, vars):
+        if self.packed:
+            px = _as_plane(x)
+            return self.Inflight(avg=_packed_worker_mean(px), x0=_copy_plane(px))
+        return self.Inflight(avg=_worker_mean(x), x0=_clone(x))
+
+    @staticmethod
+    def _rebase(x, inflight, membership=None):
+        """The rebase per leaf, in place."""
+        tree_map(lambda t, t0, av: _rebase_rows_(t, t0, av, membership), x, inflight.x0, inflight.avg)
+        return x
 
     @staticmethod
     def _rebase_packed(px: Packed, inflight, membership=None) -> Packed:
-        """x_i ← (avg + x_i) − x₀ᵢ in f32, cast to x's dtype, in place, over
-        column chunks; with ``membership`` only the live rows."""
+        """The rebase over the plane, in place."""
         for bx, b0, av in zip(px.buffers, inflight.x0.buffers, inflight.avg.buffers):
-            for c in _column_chunks(bx):
-                new = (av[None, c].float() + bx[:, c].float() - b0[:, c].float()).to(bx.dtype)
-                if membership is not None:
-                    new = torch.where((membership.mask > 0)[:, None], new, bx[:, c])
-                bx[:, c] = new
+            _rebase_rows_(bx, b0, av, membership)
         return px
+
+    def boundary_launch(self, x, vars, membership=None):
+        return vars, self.Inflight(avg=_worker_mean(x, _mem_weights(membership)), x0=_clone(x))
 
     def _packed_launch(self, px: Packed, inflight, weights=None):
         """The next collective from the plane: the (weighted) worker mean, and
@@ -307,7 +505,10 @@ class CoCoDStrategy(_AvgRebaseStrategy):
 
     name = "cocod"
 
-    def boundary_round(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
+    def boundary_apply(self, x, vars, inflight, membership=None):
+        return self._rebase(x, inflight, membership), vars
+
+    def _packed_boundary(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
         # the rebase reads no pullback kernel: the standalone probe of the pre-rebase plane
         stats = packed_probe(px) if probe else None
         self._rebase_packed(px, inflight, membership)
@@ -317,21 +518,35 @@ class CoCoDStrategy(_AvgRebaseStrategy):
 class PowerSGDStrategy(CommStrategy):
     """PowerSGD [5]: rank-r gradient compression, synchronous (τ = 1); the
     compressed collectives live in the gradient hook
-    (:mod:`repro_torch.core.powersgd`), the boundary is empty."""
+    (:mod:`repro_torch.core.powersgd`, which this strategy delegates to), the
+    boundary is empty."""
 
     name = "powersgd"
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
         self.tau = 1
-        self.rank = cfg.powersgd_rank
+        from repro_torch.core.powersgd import PowerSGD  # deferred: powersgd imports the legacy shim
 
-    def init_vars(self, px: Packed) -> AlgoVars:
-        return AlgoVars(extra=powersgd.init_state(px, self.rank))
+        self._impl = PowerSGD(cfg)
+        self.rank = self._impl.rank
+
+    def init_vars(self, x) -> AlgoVars:
+        if self.packed:
+            return self._impl.init_vars_packed(_as_plane(x))
+        return self._impl.init_vars(x)
+
+    def transform_grads(self, grads, vars: AlgoVars):
+        if isinstance(vars.extra.err, Packed):
+            # a packed state but per-leaf gradients (an optimizer without a
+            # packed step): the transform runs on their plane
+            pg = pack(grads, lead=1)
+            pg, vars = self._impl.transform_grads_packed(pg, vars)
+            return _write_back(grads, pg), vars
+        return self._impl.transform_grads(grads, vars)
 
     def transform_grads_packed(self, pg: Packed, vars: AlgoVars):
-        pg, st = powersgd.transform_grads_packed(pg, vars.extra)
-        return pg, AlgoVars(z=vars.z, v=vars.v, extra=st)
+        return self._impl.transform_grads_packed(pg, vars)
 
 
 class DelayedAveragingStrategy(_AvgRebaseStrategy):
@@ -353,14 +568,30 @@ class DelayedAveragingStrategy(_AvgRebaseStrategy):
         # delay < τ: the average is applied inside the window
         return self.delay < self.tau
 
+    def _arrives(self, k_in_round: int) -> bool:
+        return self.delay < self.tau and k_in_round == self.delay - 1
+
+    def local_post_update(self, x, vars, inflight, k_in_round: int):
+        if not self._arrives(k_in_round):
+            return x
+        if self.packed:  # a packed in-flight plane, per-leaf x
+            px = pack(x, lead=1)
+            return _write_back(x, self._rebase_packed(px, inflight))
+        return self._rebase(x, inflight)
+
     def local_post_update_packed(self, px: Packed, vars, inflight, k_in_round: int) -> Packed:
-        if self.delay < self.tau and k_in_round == self.delay - 1:
+        if self._arrives(k_in_round):
             self._rebase_packed(px, inflight)
         return px
 
-    def boundary_round(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
+    def boundary_apply(self, x, vars, inflight, membership=None):
         # the mask covers the boundary's consumption only: the mid-round rebase
         # consumes a collective launched under the last round's membership
+        if self.delay >= self.tau:
+            self._rebase(x, inflight, membership)
+        return x, vars
+
+    def _packed_boundary(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
         stats = packed_probe(px) if probe else None
         if self.delay >= self.tau:
             self._rebase_packed(px, inflight, membership)
@@ -383,12 +614,28 @@ def _quantile_linear(a: torch.Tensor, q: float) -> torch.Tensor:
     return srt[low] * float(lw) + srt[high] * float(hw)
 
 
+def sparsify_topk(delta, k: float):
+    """Per leaf of a nested dict, the top-``k`` fraction of ``delta`` by
+    magnitude: an element is kept where |d| ≥ the (1 − k) linear quantile
+    of the leaf's |d| (ties at the threshold are kept), else zeroed; leaves
+    of ≤ 1 element are kept whole; k ≥ 1 is the identity. The reference's
+    per-leaf oracle, a new tree."""
+    if k >= 1.0:
+        return delta
+
+    def one(d):
+        if d.numel() <= 1:
+            return d
+        thresh = _quantile_linear(d.float().abs().reshape(-1), 1.0 - k)
+        return torch.where(d.abs() >= thresh.to(d.dtype), d, torch.zeros_like(d))
+
+    return tree_map(one, delta)
+
+
 def sparsify_topk_(delta: torch.Tensor, layout, bucket: int, k: float) -> torch.Tensor:
-    """Per leaf of ``bucket``, the top-``k`` fraction of the f32 anchor delta
-    by magnitude: an element is kept where |d| ≥ the (1 − k) linear quantile
-    of the leaf's |d| (ties at the threshold are kept), else zeroed, in
-    place. Leaves of ≤ 1 element are kept whole; padding lanes hold zeros
-    and stay zero. Returns ``delta`` (now the sparse payload s)."""
+    """:func:`sparsify_topk` over the leaves of ``bucket`` of an f32 anchor
+    delta plane, in place. Padding lanes hold zeros and stay zero. Returns
+    ``delta`` (now the sparse payload s)."""
     for slot in leaf_segments(layout, bucket):
         if slot.size <= 1:
             continue
@@ -415,15 +662,32 @@ class SparseAnchorStrategy(CommStrategy):
             raise ValueError(f"sparse_k must be in (0, 1], got {cfg.sparse_k}")
         self.k = cfg.sparse_k
 
-    def init_vars(self, px: Packed) -> AlgoVars:
-        z = _pack_anchor(px)
-        # f32 shadow of the anchor plane: the error feedback, element-aligned with z
-        return AlgoVars(z=z, extra=packed_like(z, 0.0, dtype=torch.float32))
+    def init_vars(self, x) -> AlgoVars:
+        if self.packed:
+            z = _pack_anchor(_as_plane(x))
+            # f32 shadow of the anchor plane: the error feedback, element-aligned with z
+            return AlgoVars(z=z, extra=packed_like(z, 0.0, dtype=torch.float32))
+        z = _first_row(x)
+        return AlgoVars(z=z, extra=tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device), z))
 
-    def init_inflight(self, px: Packed, vars):
-        return _pack_anchor(px)
+    def init_inflight(self, x, vars):
+        return _pack_anchor(_as_plane(x)) if self.packed else _first_row(x)
 
-    def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
+    def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
+        _pullback(x, inflight, self.cfg.alpha, membership)
+        # the consumed anchor is the base of this round's launched delta
+        return x, AlgoVars(z=inflight, v=vars.v, extra=vars.extra)
+
+    def boundary_launch(self, x, vars: AlgoVars, membership=None):
+        mean_x = _worker_mean(x, _mem_weights(membership))
+        if self.k >= 1.0:  # dense: z' = mean(x), nothing truncated
+            return vars, mean_x
+        delta = tree_map(lambda m, z, e: m.float() - z.float() + e, mean_x, vars.z, vars.extra)
+        s = sparsify_topk(delta, self.k)
+        tree_map(lambda e, d, si: e.copy_(d - si), vars.extra, delta, s)
+        return vars, tree_map(lambda z, si: (z.float() + si).to(z.dtype), vars.z, s)
+
+    def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         outs = _pullback_mean(px, inflight, self.cfg.alpha, probe=probe, weights=_mem_weights(membership))
         means = [o[1] for o in outs]
         if self.k >= 1.0:  # dense: z' = mean(x), nothing truncated
@@ -442,11 +706,22 @@ class SparseAnchorStrategy(CommStrategy):
 
 class GossipInflight(NamedTuple):
     """A launched gossip push: the received neighbour-weighted sums (a
-    worker-stacked plane of its own) and the (m,) f32 received push weights
-    that debias them at the next boundary (z_i = mix_i / w_i)."""
+    worker-stacked plane or tree of its own) and the (m,) f32 received push
+    weights that debias them at the next boundary (z_i = mix_i / w_i)."""
 
     mix: Any
     w: Any
+
+
+def _push(peff: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Peff @ t over the worker axis of an (m, ...) tensor, K5's gossip
+    form's push (:func:`~repro_torch.kernels.anchor_mix.ref.push`) over
+    column chunks, cast to t's dtype."""
+    rows = _rows(t)
+    out = torch.empty_like(rows)
+    for c in column_chunks(rows):
+        out[:, c] = push(peff, rows[:, c]).to(t.dtype)
+    return out.reshape(t.shape)
 
 
 class GossipPushSumStrategy(CommStrategy):
@@ -467,7 +742,11 @@ class GossipPushSumStrategy(CommStrategy):
     received no push mass (it was dead when the consumed mix was launched),
     takes the identity. The (m,)-sized work (which rows move, the weights,
     Peff) stays on the device: the boundary reads nothing back to the host.
-    The ``full`` topology takes Overlap-Local-SGD's exact K4 path with β = 0."""
+    The ``full`` topology takes Overlap-Local-SGD's exact K4 path with β = 0.
+
+    Per leaf the debias, the pullback (the same-shape K5 on each leaf, the
+    rows that stay restored) and the push (:func:`_push`, new mix trees) are
+    separate ops, with the fused kernel's values."""
 
     name = "gossip_pushsum"
     topology: Optional[str] = None  # subclasses pin it; None defers to cfg.topology
@@ -478,16 +757,17 @@ class GossipPushSumStrategy(CommStrategy):
         self.full = self.topo_name == "full"
         self._mats = {}  # (m, device) -> the topology's (L, m, m) matrices on that device
 
-    def init_vars(self, px: Packed) -> AlgoVars:
-        dev = px.buffers[0].device
-        w = torch.ones((px.lead_shape[0],), dtype=torch.float32, device=dev)
-        return AlgoVars(extra=(w, torch.zeros((), dtype=torch.int32, device=dev)))
+    def init_vars(self, x) -> AlgoVars:
+        first = tensors_of(x)[0]
+        w = torch.ones((first.shape[0],), dtype=torch.float32, device=first.device)
+        return AlgoVars(extra=(w, torch.zeros((), dtype=torch.int32, device=first.device)))
 
-    def init_inflight(self, px: Packed, vars: AlgoVars):
+    def init_inflight(self, x, vars: AlgoVars):
         if self.full:
-            return _pack_anchor(px)
+            return _pack_anchor(_as_plane(x)) if self.packed else _first_row(x)
         # w' = 1: round 0's debias divides by exactly 1.0
-        return GossipInflight(mix=_copy_plane(px), w=torch.ones_like(vars.extra[0]))
+        mix = _copy_plane(_as_plane(x)) if self.packed else _clone(x)
+        return GossipInflight(mix=mix, w=torch.ones_like(vars.extra[0]))
 
     def _push_matrix(self, m: int, t: torch.Tensor, w: torch.Tensor, membership=None) -> torch.Tensor:
         """Round t's P̃_t · diag(w), (m, m) f32, chosen on the device; P̃ is
@@ -501,14 +781,46 @@ class GossipPushSumStrategy(CommStrategy):
             P = compose_membership(P, membership.mask)
         return P * w[None, :]
 
-    def boundary_round(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
+    @staticmethod
+    def _tick(vars: AlgoVars, w) -> AlgoVars:
+        return AlgoVars(z=vars.z, v=vars.v, extra=(w, vars.extra[1] + 1))
+
+    def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
+        alpha = self.cfg.alpha
+        if self.full:
+            return _pullback(x, inflight, alpha, membership), vars
+        w, t = vars.extra
+        wmix = inflight.w
+        # a row that received no push mass (dead when this collective
+        # launched, rejoining now) keeps x: nothing arrived to debias
+        moves = wmix > 0
+        if membership is not None:
+            moves = moves & (membership.mask > 0)
+        wsafe = torch.where(wmix > 0, wmix, torch.ones_like(wmix))
+
+        def debias(mix):
+            return (mix.float() / wsafe.reshape((-1,) + (1,) * (mix.dim() - 1))).to(mix.dtype)
+
+        old = _clone(x)
+        anchor_ops.pullback_tree(x, tree_map(debias, inflight.mix), alpha)
+        _live_where_(moves.to(torch.float32), x, old)
+        return x, AlgoVars(z=vars.z, v=vars.v, extra=(torch.where(moves, wmix, w), t))
+
+    def boundary_launch(self, x, vars: AlgoVars, membership=None):
+        w, t = vars.extra
+        if self.full:
+            return self._tick(vars, w), _worker_mean(x, _mem_weights(membership))
+        Peff = self._push_matrix(_leading(x), t, w, membership)
+        mix = tree_map(lambda leaf: _push(Peff, leaf), x)
+        return self._tick(vars, w), GossipInflight(mix=mix, w=torch.sum(Peff, dim=1))
+
+    def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         alpha = self.cfg.alpha
         w, t = vars.extra
         m = px.lead_shape[0]
         if self.full:
             outs = _pullback_mean(px, inflight, alpha, probe=probe, weights=_mem_weights(membership))
-            out = (px, AlgoVars(z=vars.z, v=vars.v, extra=(w, t + 1)),
-                   Packed(tuple(o[1] for o in outs), inflight.layout))
+            out = (px, self._tick(vars, w), Packed(tuple(o[1] for o in outs), inflight.layout))
             return _with_stats(out, _fused_stats(outs, m, probe))
         # the push does not read through K3/K4: the standalone probe
         stats = packed_probe(px) if probe else None
@@ -546,6 +858,48 @@ class GossipExpStrategy(GossipPushSumStrategy):
     topology = "exp"
 
 
+class LegacyStrategy(CommStrategy):
+    """Runs a legacy single-hook ``Algorithm``
+    (:mod:`repro_torch.core.algorithms`) under the two-phase protocol: its
+    whole ``boundary`` runs in the apply phase (blocking), nothing is
+    launched, on the per-leaf path."""
+
+    def __init__(self, algorithm):
+        self.algorithm = algorithm
+        self.cfg = algorithm.cfg
+        self.tau = algorithm.tau
+        self.name = algorithm.name
+        self.needs_anchor = algorithm.needs_anchor
+        self.packed = False  # legacy semantics are the per-leaf reference
+
+    def init_vars(self, x) -> AlgoVars:
+        return self.algorithm.init_vars(x)
+
+    def transform_grads(self, grads, vars):
+        return self.algorithm.transform_grads(grads, vars)
+
+    def boundary_apply(self, x, vars, inflight, membership=None):
+        if membership is not None:
+            raise ValueError("legacy algorithms predate the membership contract; run fault plans against a "
+                             "native strategy")
+        return self.algorithm.boundary(x, vars)
+
+    def metrics(self, x, vars):
+        return self.algorithm.metrics(x, vars)
+
+
+def as_strategy(algorithm_or_strategy) -> CommStrategy:
+    """A strategy as it is; a legacy ``Algorithm`` wrapped in
+    :class:`LegacyStrategy`."""
+    if isinstance(algorithm_or_strategy, CommStrategy):
+        return algorithm_or_strategy
+    from repro_torch.core.algorithms import Algorithm
+
+    if isinstance(algorithm_or_strategy, Algorithm):
+        return LegacyStrategy(algorithm_or_strategy)
+    raise TypeError(f"expected a CommStrategy or Algorithm, got {type(algorithm_or_strategy).__name__}")
+
+
 STRATEGIES = {
     "overlap_local_sgd": OverlapLocalSGDStrategy,
     "local_sgd": LocalSGDStrategy,
@@ -578,11 +932,14 @@ def make_strategy(cfg: AlgoConfig) -> CommStrategy:
 
 def resolve_strategy(strategy) -> CommStrategy:
     """A name → ``AlgoConfig`` with library defaults → :func:`make_strategy`;
-    an ``AlgoConfig`` → :func:`make_strategy`; a strategy passes through."""
+    an ``AlgoConfig`` → :func:`make_strategy`; a strategy passes through and
+    a legacy ``Algorithm`` is wrapped (:func:`as_strategy`)."""
     if isinstance(strategy, str):
         strategy = AlgoConfig(name=strategy)
     if isinstance(strategy, AlgoConfig):
         return make_strategy(strategy)
-    if isinstance(strategy, CommStrategy):
-        return strategy
-    raise TypeError(f"expected a strategy name, AlgoConfig or CommStrategy, got {type(strategy).__name__}")
+    try:
+        return as_strategy(strategy)
+    except TypeError:
+        raise TypeError(f"expected a strategy name, AlgoConfig, CommStrategy or Algorithm, got "
+                        f"{type(strategy).__name__}") from None

@@ -16,6 +16,14 @@
 // element rounded as the plain version rounds it (__f*_rn: no contraction),
 // so the two agree bit for bit.
 //
+// K5, row form: x is `rows` rows of `width` elements, ldx apart, and z the
+// same with ldz apart; ldz = 0 gives every row one z (the per-leaf pullback
+// of a worker-stacked leaf toward the unstacked anchor, which the reference
+// runs as K5 vmapped over the workers). A thread owns a vector of columns
+// and walks the rows, so with ldz = 0 it reads its z vector once for all of
+// them: (2 rows + 1) P width bytes. The one-row launch is the same-shape K5
+// above (the loop body is the same expression, mix1), bit for bit.
+//
 // K5, gossip form: the push-sum gossip boundary over one dtype bucket in one
 // pass, in place on x and mix (m, n). Per column j:
 //   z_i    = round(f32(mix_ij) / wsafe_i)                       (the debias)
@@ -385,35 +393,49 @@ __device__ __forceinline__ float mix1(float oma, float alpha, float x, float z) 
   return __fadd_rn(__fmul_rn(oma, x), __fmul_rn(alpha, z));
 }
 
-// K5: x[j] <- (1 - a) x[j] + a z[j] for j < n, V elements a vector.
+// K5: x[i, j] <- (1 - a) x[i, j] + a z[i, j] for i < rows, j < width, V
+// elements a vector; x's rows ldx apart, z's ldz apart (0: one z row).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mix_kernel(T* __restrict__ x, const T* __restrict__ z, long long n, float oma, float alpha, int vec) {
+mix_kernel(T* __restrict__ x, const T* __restrict__ z, int rows, long long width, long long ldx, long long ldz,
+           float oma, float alpha, int vec) {
   constexpr int V = 16 / sizeof(T);
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
   long long done = 0;
   if (vec) {
-    const long long nv = n / V;
+    const long long nv = width / V;
     for (long long c = tid; c < nv; c += step) {
-      Lanes<T, V> xr, zr;
-      xr.load(x + c * V);
+      Lanes<T, V> zr;
       zr.load(z + c * V);
+      for (int i = 0; i < rows; ++i) {
+        if (ldz != 0 && i > 0) zr.load(z + i * ldz + c * V);
+        T* xp = x + i * ldx + c * V;
+        Lanes<T, V> xr;
+        xr.load(xp);
 #pragma unroll
-      for (int k = 0; k < V; ++k) xr.e[k] = from_f<T>(mix1(oma, alpha, to_f(xr.e[k]), to_f(zr.e[k])));
-      xr.store(x + c * V);
+        for (int k = 0; k < V; ++k) xr.e[k] = from_f<T>(mix1(oma, alpha, to_f(xr.e[k]), to_f(zr.e[k])));
+        xr.store(xp);
+      }
     }
     done = nv * V;
   }
-  for (long long j = done + tid; j < n; j += step) x[j] = from_f<T>(mix1(oma, alpha, to_f(x[j]), to_f(z[j])));
+  for (long long j = done + tid; j < width; j += step) {
+    for (int i = 0; i < rows; ++i) {
+      T* xp = x + i * ldx + j;
+      *xp = from_f<T>(mix1(oma, alpha, to_f(*xp), to_f(z[i * ldz + j])));
+    }
+  }
 }
 
 template <typename T>
-int launch_mix(void* x, const void* z, long long n, float oma, float alpha, cudaStream_t st) {
+int launch_mix(void* x, const void* z, int rows, long long width, long long ldx, long long ldz, float oma,
+               float alpha, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
-  const int vec = aligned16(x) && aligned16(z);
-  mix_kernel<T><<<tile_grid(vec ? n / V : n, kThreads), kThreads, 0, st>>>(static_cast<T*>(x), static_cast<const T*>(z),
-                                                                           n, oma, alpha, vec);
+  // every row's start must keep the 16-byte alignment of the first
+  const int vec = aligned16(x) && aligned16(z) && (rows == 1 || (ldx % V == 0 && ldz % V == 0));
+  mix_kernel<T><<<tile_grid(vec ? width / V : width, kThreads), kThreads, 0, st>>>(
+      static_cast<T*>(x), static_cast<const T*>(z), rows, width, ldx, ldz, oma, alpha, vec);
   return (int)cudaGetLastError();
 }
 
@@ -573,14 +595,15 @@ int launch_gossip(void* xv, void* mixv, const GossipArgs& a, cudaStream_t st) {
 
 }  // namespace
 
-// K5. x, z: n elements each, x updated in place. dtype: 0 = float32,
-// 1 = bfloat16 (x and z).
-extern "C" int anchor_mix_launch(void* x, const void* z, long long n, float oma, float alpha, int dtype,
-                                 void* stream) {
-  if (n <= 0) return 0;
+// K5. x: rows of width elements, ldx apart, updated in place; z: rows of
+// width elements ldz apart (ldz 0: one row for all of x's). The same-shape
+// launch is rows 1, width n. dtype: 0 = float32, 1 = bfloat16 (x and z).
+extern "C" int anchor_mix_launch(void* x, const void* z, int rows, long long width, long long ldx, long long ldz,
+                                 float oma, float alpha, int dtype, void* stream) {
+  if (rows <= 0 || width <= 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_mix<float>(x, z, n, oma, alpha, st);
-  if (dtype == 1) return launch_mix<__nv_bfloat16>(x, z, n, oma, alpha, st);
+  if (dtype == 0) return launch_mix<float>(x, z, rows, width, ldx, ldz, oma, alpha, st);
+  if (dtype == 1) return launch_mix<__nv_bfloat16>(x, z, rows, width, ldx, ldz, oma, alpha, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,7 +15,8 @@ of z, restored for it alone, and leaves the state's host planes as they are.
 The plane is updated in place: a rejoining worker's rows are copied from
 the anchor (no full-plane temporary, as the reference's ``jnp.where``
 would make), and the gossip anchor Σ_i mix_i / Σ_i w_i is summed over
-column chunks.
+column chunks. A per-leaf state (``AlgoConfig.packed=False``) is re-synced
+the same way, leaf by leaf, from its per-leaf anchor.
 """
 from __future__ import annotations
 
@@ -27,23 +28,25 @@ import torch
 from repro_torch.fault.membership import Membership, from_mask
 from repro_torch.fault.plan import FaultPlan
 from repro_torch.parallel import offload as off
-from repro_torch.parallel.packing import Packed
-
-# columns a chunk of an anchor sum takes: its f32 temporary stays near
-# 2^26 elements whatever the plane's size
-_CHUNK_ELEMS = 1 << 26
-
+from repro_torch.parallel.packing import Packed, column_chunks, tensors_of, tree_flatten, tree_unflatten
 
 def _row_sum(b: torch.Tensor, scale_fn) -> torch.Tensor:
     """``scale_fn(Σ_i b_i in f32 over a column chunk)`` cast to b's dtype,
-    over column chunks of the (m, n) buffer ``b``; returns an (n,) buffer."""
-    m, n = b.shape
-    out = torch.empty(n, dtype=b.dtype, device=b.device)
-    step = max(1, _CHUNK_ELEMS // max(m, 1))
-    for c0 in range(0, n, step):
-        c = slice(c0, min(n, c0 + step))
-        out[c] = scale_fn(b[:, c].float()).to(b.dtype)
-    return out
+    over column chunks of the (m, ...) buffer ``b``; returns a buffer of
+    shape ``b.shape[1:]``."""
+    rows = b.reshape(b.shape[0], -1)
+    out = torch.empty(rows.shape[1], dtype=b.dtype, device=b.device)
+    for c in column_chunks(rows):
+        out[c] = scale_fn(rows[:, c].float()).to(b.dtype)
+    return out.reshape(b.shape[1:])
+
+
+def _map(fn, x):
+    """``fn`` over the buffers of a plane or the leaves of a per-leaf tree."""
+    if isinstance(x, Packed):
+        return Packed(tuple(fn(b) for b in x.buffers), x.layout)
+    leaves, paths = tree_flatten(x)
+    return tree_unflatten(paths, [fn(t) for t in leaves])
 
 
 def _anchor_of(state) -> Optional[Packed]:
@@ -60,17 +63,18 @@ def _anchor_of(state) -> Optional[Packed]:
         mix, w = getattr(infl, "mix", None), getattr(infl, "w", None)
         if mix is not None and w is not None:
             wsum = torch.sum(w.float())
-            return Packed(tuple(_row_sum(b, lambda t: torch.sum(t, dim=0) / wsum) for b in mix.buffers), mix.layout)
+            return _map(lambda b: _row_sum(b, lambda t: torch.sum(t, dim=0) / wsum), mix)
         return getattr(infl, "avg", infl)
     z = getattr(state.vars, "z", None)
     return off.tree_restore(z) if z is not None and off.is_offloaded(z) else z
 
 
 def resync_from_anchor(state, resync_mask):
-    """Overwrite the plane rows of the workers flagged in ``resync_mask``
-    ((m,) bool, on the host) with the anchor, in place; other rows are left
-    as they are. Only x is re-synced: the worker's optimizer state and the
-    strategy's anchor-shaped state stay. Returns the state."""
+    """Overwrite the plane rows (per leaf: the leaves' rows) of the workers
+    flagged in ``resync_mask`` ((m,) bool, on the host) with the anchor, in
+    place; other rows are left as they are. Only x is re-synced: the
+    worker's optimizer state and the strategy's anchor-shaped state stay.
+    Returns the state."""
     mask = np.asarray(resync_mask, bool)
     rows = [int(i) for i in np.nonzero(mask)[0]]
     anchor = _anchor_of(state)
@@ -79,9 +83,9 @@ def resync_from_anchor(state, resync_mask):
         # no anchor: recover onto the mean of the workers that were not excluded
         w = (~mask).astype(np.float32)
         w = w / np.sum(w, dtype=np.float32)
-        wt = torch.from_numpy(w).to(x.buffers[0].device)[:, None]
-        anchor = Packed(tuple(_row_sum(b, lambda t: torch.sum(t * wt, dim=0)) for b in x.buffers), x.layout)
-    for b, a in zip(x.buffers, anchor.buffers):
+        wt = torch.from_numpy(w).to(tensors_of(x)[0].device)[:, None]
+        anchor = _map(lambda b: _row_sum(b, lambda t: torch.sum(t * wt, dim=0)), x)
+    for b, a in zip(tensors_of(x), tensors_of(anchor)):
         for i in rows:
             b[i].copy_(a)
     return state
@@ -115,7 +119,7 @@ class FaultHarness:
         resync = self.plan.resync_at(r)
         if resync.any():
             state = resync_from_anchor(state, resync)
-        mem = self.membership_at(r, device=state.x.buffers[0].device)
+        mem = self.membership_at(r, device=tensors_of(state.x)[0].device)
         if mem is not None or resync.any():
             mask = self.plan.mask_at(r)
             self.records.append(

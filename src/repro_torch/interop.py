@@ -9,8 +9,10 @@ module imports no JAX; it reads the reference's objects by their fields.
   (a bf16 MoE model) packs into a two-bucket plane in both packages.
 * :func:`packed_from_numpy` — a packed plane → the port's ``Packed``, bit
   for bit (the two packages lay a tree out identically).
-* :func:`state_from_numpy` — a plane-resident ``TrainState`` (x, opt, vars,
-  step, inflight) → the port's ``TrainState``, bit for bit, f32 or bf16,
+* :func:`state_from_numpy` — a ``TrainState`` (x, opt, vars, step,
+  inflight), plane-resident or per leaf (``packed=False``: nested dicts of
+  worker-stacked leaves, the per-leaf optimizer states with their (m,)
+  Adam counts) → the port's ``TrainState``, bit for bit, f32 or bf16,
   with every strategy's slots: the gossip push weights and phase ``(w, t)``
   and ``GossipInflight(mix, w)``, the rebase strategies' ``Inflight(avg,
   x0)``, sparse_anchor's f32 error plane and PowerSGD's ``PowerState(q,
@@ -72,12 +74,18 @@ def state_from_numpy(state, layout, device="cpu"):
     from repro_torch.core.powersgd import PowerState
     from repro_torch.core.strategy import AlgoVars, GossipInflight, _AvgRebaseStrategy
     from repro_torch.fault.membership import Membership
-    from repro_torch.optim.optimizers import PackedAdamState, PackedSGDState
+    from repro_torch.optim.optimizers import AdamState, PackedAdamState, PackedSGDState, SGDState
     from repro_torch.parallel.packing import tree_flatten
     from repro_torch.training.train_state import TrainState
 
     def tensor(a):
         return _tensor(a).to(device)
+
+    def tree(v):
+        """A per-leaf tree (nested dicts, ``None`` kept) of arrays."""
+        if isinstance(v, dict):
+            return {k: tree(a) for k, a in v.items()}
+        return None if v is None else tensor(v)
 
     def host_plane(v):
         """A reference HostPlane (numpy chunk stacks) → the port's."""
@@ -104,12 +112,16 @@ def state_from_numpy(state, layout, device="cpu"):
             return host_plane(v)
         if hasattr(v, "buffers") and hasattr(v, "layout"):
             return packed_from_numpy(v, layout, device)
+        if isinstance(v, dict):
+            return tree(v)
         fields = getattr(v, "_fields", None)
         if fields == ("mix", "w"):
             return GossipInflight(mix=slot(v.mix), w=tensor(v.w))
         if fields == ("avg", "x0"):
             return _AvgRebaseStrategy.Inflight(avg=slot(v.avg), x0=slot(v.x0))
         if fields == ("q", "err"):
+            if isinstance(v.err, dict):  # the per-leaf state keeps the reference's q tree
+                return PowerState(q=tree(v.q), err=tree(v.err))
             qs, _ = tree_flatten(v.q)  # the reference's per-leaf tree, in the layout's leaf order
             return PowerState(q=tuple(None if q is None else tensor(q) for q in qs), err=slot(v.err))
         if isinstance(v, tuple) and fields is None:
@@ -118,9 +130,10 @@ def state_from_numpy(state, layout, device="cpu"):
 
     opt = state.opt
     if hasattr(opt, "momentum"):
-        opt = PackedSGDState(momentum=slot(opt.momentum))
+        opt = (SGDState if isinstance(opt.momentum, dict) else PackedSGDState)(momentum=slot(opt.momentum))
     elif hasattr(opt, "mu"):
-        opt = PackedAdamState(mu=slot(opt.mu), nu=slot(opt.nu), count=tensor(opt.count))
+        kind = AdamState if isinstance(opt.mu, dict) else PackedAdamState
+        opt = kind(mu=slot(opt.mu), nu=slot(opt.nu), count=tensor(opt.count))
     else:
         raise ValueError(f"unsupported optimizer state {type(opt).__name__}")
     v = state.vars

@@ -9,6 +9,11 @@ anchor (K4's mean, K3's ``z_next``) gets a buffer of its own, so the
 consumed anchor ``z`` stays intact (the strategy keeps it as ``vars.z``).
 K5 takes x and z of one shape (any shape, contiguous) and needs no padding:
 the reference pads a flat buffer to 128 lanes, the kernel masks its tail.
+Its row form takes a worker-stacked x ``(m, *s)`` and one z of shape ``s``
+for every row (the per-leaf pullback, which the reference runs as K5
+vmapped over the workers): one launch, each CTA reading its z tile once for
+all m rows; it counts on :data:`MIX_ROWS`, the same-shape launch on
+:data:`MIX`.
 The gossip form runs the push-sum boundary of one bucket (debias, K5 on the
 rows that move, the push ``Peff @ x'``) in one launch, x and the in-flight
 mix in place; it counts on :data:`GOSSIP`, a count of its own.
@@ -35,7 +40,10 @@ from repro_torch.kernels.anchor_mix import ref as _ref
 from repro_torch.kernels.consensus_probe import ops as _probe
 from repro_torch.kernels.consensus_probe.ref import plane_probe
 
-MIX = Kernel("anchor_mix", {"anchor_mix_launch": [P, P, L, F, F, I, P]}, source="anchor_mix")
+_MIX_ARGS = {"anchor_mix_launch": [P, P, I, L, L, L, F, F, I, P]}
+MIX = Kernel("anchor_mix", _MIX_ARGS, source="anchor_mix")
+# the row form (z broadcast over the rows of a worker-stacked x), counted apart
+MIX_ROWS = Kernel("anchor_mix_rows", _MIX_ARGS, source="anchor_mix")
 GOSSIP = Kernel("gossip_boundary", {"gossip_boundary_launch": [P, P, P, P, P, I, L, F, F, I, P]},
                 source="anchor_mix")
 MEAN = Kernel("pullback_mean", {"pullback_mean_launch": [P, P, P, P, I, L, F, F, I, P, P, P, I, P]},
@@ -47,11 +55,15 @@ MOMENTUM = Kernel(
 
 
 def anchor_mix(x, z, alpha: float):
-    """Eq. (4), x ← (1−α)·x + α·z, in place on x; x and z of one shape,
-    dtype and device. Replaces ``anchor_mix/kernel.py::anchor_mix_flat``.
-    Returns x."""
-    if z.shape != x.shape or z.dtype != x.dtype or z.get_device() != x.get_device():
-        raise ValueError(f"anchor_mix: z must match x {tuple(x.shape)} {x.dtype} on {x.device}, "
+    """Eq. (4), x ← (1−α)·x + α·z, in place on x. z has x's shape, or x is
+    worker-stacked ``(m, *s)`` and z of shape ``s`` is the one anchor of
+    every row (the row form). One dtype and device. Replaces
+    ``anchor_mix/kernel.py::anchor_mix_flat`` (vmapped over the workers in
+    the row form). Returns x."""
+    rows_form = z.shape != x.shape
+    if ((rows_form and (x.dim() == 0 or z.shape != x.shape[1:])) or z.dtype != x.dtype
+            or z.get_device() != x.get_device()):
+        raise ValueError(f"anchor_mix: z must match x {tuple(x.shape)} (or its rows) {x.dtype} on {x.device}, "
                          f"got {tuple(z.shape)} {z.dtype} on {z.device}")
     if x.is_cpu:
         if not z.is_cpu:
@@ -61,8 +73,12 @@ def anchor_mix(x, z, alpha: float):
         raise ValueError(f"anchor_mix: unsupported device {x.device}")
     if not (x.is_contiguous() and z.is_contiguous()):
         raise ValueError("anchor_mix: CUDA buffers must be contiguous")
-    MIX.launch("anchor_mix_launch", x.data_ptr(), z.data_ptr(), x.numel(), float(1.0 - alpha), float(alpha),
-               dtype_code(x.dtype), stream_ptr(x.device))
+    if rows_form:
+        kernel, rows, width, ldz = MIX_ROWS, x.shape[0], z.numel(), 0
+    else:
+        kernel, rows, width, ldz = MIX, 1, x.numel(), x.numel()
+    kernel.launch("anchor_mix_launch", x.data_ptr(), z.data_ptr(), rows, width, width, ldz, float(1.0 - alpha),
+                  float(alpha), dtype_code(x.dtype), stream_ptr(x.device))
     return x
 
 
@@ -100,7 +116,11 @@ def gossip_boundary_(x, mix, wsafe, live, peff, alpha: float):
 
 def pullback_tree(x_tree, z_tree, alpha: float):
     """:func:`anchor_mix` on every leaf of two nested dicts of one
-    structure (the per-leaf pullback), x's leaves in place."""
+    structure (the per-leaf pullback), x's leaves in place: one launch a
+    leaf. x's leaves are worker-stacked ``(m, *s)``; z's leaves are
+    unstacked ``s`` (one anchor for all workers: the row form, the
+    reference's ``_pullback``) or stacked like x (a worker's own anchor:
+    gossip's debiased mix)."""
     if isinstance(x_tree, dict):
         return {k: pullback_tree(x_tree[k], z_tree[k], alpha) for k in x_tree}
     return anchor_mix(x_tree, z_tree, alpha)

@@ -1,7 +1,7 @@
 """Plain PyTorch round boundaries, op for op the reference
 ``repro.kernels.anchor_mix.ref`` (counterpart; the CUDA kernels in
 ``csrc/anchor_mix.cu`` compute the same chain): the plain pullback
-:func:`anchor_mix` (K5), the gossip boundary :func:`gossip_boundary` (K5's
+:func:`anchor_mix` (K5, also its row form), the gossip boundary :func:`gossip_boundary` (K5's
 gossip form) and the fused boundaries (K3, K4).
 
 The worker mean is summed in float32 in the fixed order i = 0 .. m-1 and
@@ -19,7 +19,9 @@ import torch
 
 
 def anchor_mix(x: torch.Tensor, z: torch.Tensor, alpha: float) -> torch.Tensor:
-    """(1 - alpha)·x + alpha·z (paper eq. 4) in float32, cast to x's dtype."""
+    """(1 - alpha)·x + alpha·z (paper eq. 4) in float32, cast to x's dtype.
+    z has x's shape, or x's shape without its first dim (the row form: one z
+    for every row of a worker-stacked x, broadcast)."""
     return ((1.0 - alpha) * x.float() + alpha * z.float()).to(x.dtype)
 
 
@@ -33,11 +35,18 @@ def gossip_boundary(x, mix, wsafe, live, peff, alpha: float):
     CUDA kernel uses; XLA's einsum leaves it open). Returns new (x', mix')."""
     z = (mix.float() / wsafe[:, None]).to(x.dtype)
     x_new = torch.where((live > 0)[:, None], anchor_mix(x, z, alpha), x)
-    xf = x_new.float()
+    return x_new, push(peff, x_new).to(x.dtype)
+
+
+def push(peff: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Peff @ x in float32 for x (m, n): the products and sums k = 0 .. m−1
+    in order, one rounded mul and add at a time (the order the CUDA kernel
+    uses; XLA's einsum leaves it open). Returns the (m, n) f32 sums."""
+    xf = x.float()
     acc = peff[:, :1] * xf[:1]
     for k in range(1, x.shape[0]):
         acc = acc + peff[:, k : k + 1] * xf[k : k + 1]
-    return x_new, acc.to(x.dtype)
+    return acc
 
 
 def worker_mean(src: torch.Tensor, weights=None) -> torch.Tensor:

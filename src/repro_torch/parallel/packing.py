@@ -213,6 +213,22 @@ def buffer_map(fn: Callable, *packeds: Packed, layout: Optional[Layout] = None) 
     return Packed(out, layout or packeds[0].layout)
 
 
+def tensors_of(x) -> list:
+    """The buffers of a plane, or the leaves of a nested dict of tensors (a
+    per-leaf state), in flatten order."""
+    return list(x.buffers) if isinstance(x, Packed) else tree_flatten(x)[0]
+
+
+def column_chunks(b: torch.Tensor, max_elems: int = 1 << 26):
+    """Column slices of an (m, n) tensor, each at most ``max_elems``
+    elements in all: the windows over which a plane- or leaf-wide expression
+    runs, so its f32 temporaries stay bounded whatever the tensor's size."""
+    m, n = b.shape
+    step = max(1, max_elems // max(m, 1))
+    for c0 in range(0, n, step):
+        yield slice(c0, min(n, c0 + step))
+
+
 def leaf_segments(layout: Layout, bucket: int) -> Tuple[LeafSlot, ...]:
     """The slots of ``bucket``, in offset order."""
     return tuple(s for s in layout.slots if s.bucket == bucket)

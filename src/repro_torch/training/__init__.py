@@ -2,6 +2,6 @@
 the strategy's round boundary. Most callers go through
 :class:`repro_torch.api.Experiment`."""
 from repro_torch.training.train_loop import make_round_step
-from repro_torch.training.train_state import TrainState, consensus_params, make_train_state
+from repro_torch.training.train_state import TrainState, consensus_params, make_train_state, params_view
 
-__all__ = ["TrainState", "consensus_params", "make_round_step", "make_train_state"]
+__all__ = ["TrainState", "consensus_params", "make_round_step", "make_train_state", "params_view"]

@@ -1,11 +1,21 @@
-"""Round engine over the plane-resident state (counterpart of the packed path
-of ``repro.training.train_loop``).
+"""Round engine (counterpart of ``repro.training.train_loop``).
 
 One round is τ local steps, then the strategy's boundary:
 
     τ × [gradient plane → transform_grads_packed → optimizer step (K1/K2)
          → local_post_update_packed]
     boundary_round (K3/K4 for Overlap-Local-SGD, K5 for sparse gossip)
+
+That is the plane-resident path (a packed strategy and an optimizer with a
+packed step). The per-leaf path (``AlgoConfig.packed=False``, a legacy
+``Algorithm``, an optimizer without a packed step) runs the same round over
+a nested dict of worker-stacked leaves: per-leaf gradients (each leaf's
+``.grad`` preset to a zeroed tensor of its own), per-worker
+``clip_by_global_norm_``, ``transform_grads``, the optimizer's per-leaf
+``step`` (the reference's ``jax.vmap`` over the workers, batched) and
+``local_post_update``; then ``boundary_round``, which runs the strategy's
+two phases per leaf (``tree_probe`` with ``probe=True``). A per-leaf state
+handed to the packed engine migrates its x into the plane first.
 
 The gradient is taken with the plane itself as the variable. Each leaf is
 a view of the parameter plane, made an autograd leaf whose ``.grad`` is
@@ -56,10 +66,26 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.optim.optimizers import Optimizer, clip_packed_by_global_norm_, offload_capable
+from repro_torch.core.strategy import as_strategy
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    clip_by_global_norm_,
+    clip_packed_by_global_norm_,
+    offload_capable,
+    packed_capable,
+)
 from repro_torch.parallel import offload as off
-from repro_torch.parallel.packing import Packed, leaf_views, packed_like, tree_unflatten
+from repro_torch.parallel.packing import (
+    Packed,
+    leaf_views,
+    pack,
+    packed_like,
+    tensors_of,
+    tree_flatten,
+    tree_unflatten,
+)
 from repro_torch.training.train_state import TrainState
+from repro_torch.utils.tree import tree_map
 
 
 def batch_map(fn: Callable, batch):
@@ -89,21 +115,37 @@ def _as_leaves(views, grads) -> list:
     return list(views)
 
 
-def _grads_into(loss_fn: Callable, px: Packed, pg: Packed, batch, split: Optional[Callable]) -> dict:
-    """Accumulate each worker's gradient into ``pg`` (in place); return the
-    detached metrics, each (m,). ``split``: the ``per_worker`` mode."""
-    paths = px.layout.paths
+def _grad_leaves(x, g):
+    """(paths, leaves of x, matching leaves of g): views of the planes, or
+    per leaf fresh aliases of x's tensors (the state's own tensors never
+    become autograd leaves)."""
+    if isinstance(x, Packed):
+        return x.layout.paths, leaf_views(x), leaf_views(g)
+    leaves, paths = tree_flatten(x)
+    return paths, [t.detach() for t in leaves], tree_flatten(g)[0]
+
+
+def _zeros_like(x, dtype=None):
+    if isinstance(x, Packed):
+        return packed_like(x, 0.0, dtype=dtype)
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=dtype or t.dtype, device=t.device), x)
+
+
+def _grads_into(loss_fn: Callable, x, g, batch, split: Optional[Callable]) -> dict:
+    """Accumulate each worker's gradient into ``g`` (a plane like ``x``, or
+    a tree like it), in place; return the detached metrics, each (m,).
+    ``split``: the ``per_worker`` mode."""
+    paths, views, gviews = _grad_leaves(x, g)
     if split is None:
-        views = _as_leaves(leaf_views(px), leaf_views(pg))
+        views = _as_leaves(views, gviews)
         losses, metrics = loss_fn(tree_unflatten(paths, views), batch)
         _backward(torch.sum(losses), views)
         return {k: v.detach() for k, v in metrics.items()}
-    views, gviews = leaf_views(px), leaf_views(pg)
     per_worker_metrics = []
-    for i in range(px.lead_shape[0]):
+    for i in range(views[0].shape[0]):
         tree, leaves = [], []
-        for path, v, g in zip(paths, views, gviews):
-            piece, gpiece = split(path, v[i]), split(path, g[i])
+        for path, v, gv in zip(paths, views, gviews):
+            piece, gpiece = split(path, v[i]), split(path, gv[i])
             many = isinstance(piece, list)
             leaves += _as_leaves(piece if many else [piece], gpiece if many else [gpiece])
             tree.append(piece)
@@ -113,27 +155,29 @@ def _grads_into(loss_fn: Callable, px: Packed, pg: Packed, batch, split: Optiona
     return {k: torch.stack([mt[k] for mt in per_worker_metrics]) for k in per_worker_metrics[0]}
 
 
-def gradient_plane(loss_fn: Callable, px: Packed, batch, *, microbatch: Optional[int] = None,
-                   per_worker: Optional[Callable] = None) -> Tuple[Packed, dict]:
-    """The worker-stacked gradient plane of one local step (with microbatch
-    accumulation in f32, as the reference) and the step's metrics."""
+def gradient_plane(loss_fn: Callable, px, batch, *, microbatch: Optional[int] = None,
+                   per_worker: Optional[Callable] = None):
+    """The worker-stacked gradients of one local step (with microbatch
+    accumulation in f32, as the reference) and the step's metrics: a plane
+    for a plane ``px``, a tree of (m, ...) leaves for a per-leaf ``px``."""
     b = _first(batch).shape[1]
     if microbatch is None or b <= microbatch:
-        pg = packed_like(px, 0.0)
+        pg = _zeros_like(px)
         return pg, _grads_into(loss_fn, px, pg, batch, per_worker)
     k = b // microbatch
-    acc = packed_like(px, 0.0, dtype=torch.float32)
+    acc = _zeros_like(px, dtype=torch.float32)
     msum = None
     for j in range(k):
         mb = batch_map(lambda t: t[:, j * microbatch : (j + 1) * microbatch], batch)
-        pg = packed_like(px, 0.0)
+        pg = _zeros_like(px)
         mets = _grads_into(loss_fn, px, pg, mb, per_worker)
-        for a, g in zip(acc.buffers, pg.buffers):
+        for a, g in zip(tensors_of(acc), tensors_of(pg)):
             a.add_(g.float())
         mets = {name: v.float() for name, v in mets.items()}
         msum = mets if msum is None else {name: msum[name] + v for name, v in mets.items()}
-    kt = torch.full((), float(k), dtype=torch.float32, device=px.buffers[0].device)
-    pg = Packed(tuple((a / kt).to(xb.dtype) for a, xb in zip(acc.buffers, px.buffers)), px.layout)
+    kt = torch.full((), float(k), dtype=torch.float32, device=tensors_of(px)[0].device)
+    means = [(a / kt).to(xb.dtype) for a, xb in zip(tensors_of(acc), tensors_of(px))]
+    pg = Packed(tuple(means), px.layout) if isinstance(px, Packed) else tree_unflatten(tree_flatten(px)[1], means)
     return pg, {name: v / kt for name, v in msum.items()}
 
 
@@ -149,19 +193,24 @@ def make_round_step(
 ):
     """``round_step(state, round_batch) -> (state, metrics)``; ``round_batch``
     is a tuple or dict of device tensors ``(τ, m, b, ...)``. The state is
-    updated in place and returned. ``per_worker``: see the module
-    docstring; ``probe``: add the consensus stats to the metrics."""
+    updated in place and returned. ``strategy``: a CommStrategy or a legacy
+    ``Algorithm`` (wrapped); ``per_worker``: see the module docstring;
+    ``probe``: add the consensus stats to the metrics."""
+    strategy = as_strategy(strategy)
+    packed_step = strategy.packed and packed_capable(optimizer)
     per_bucket_clip = bool(strategy.cfg.packed_clip)
     offload_on = bool(strategy.cfg.offload)
     # offload never falls back to a resident step: that would keep the state
     # on the card the flag was set to relieve
-    if offload_on and not (strategy.cfg.packed and offload_capable(optimizer)):
+    if offload_on and not (packed_step and offload_capable(optimizer)):
         raise ValueError("AlgoConfig.offload requires a packed strategy and an optimizer with a streamed step "
                          "(step_streamed)")
     chunk_mb = float(strategy.cfg.offload_chunk_mb)
 
     def round_step(state: TrainState, round_batch) -> Tuple[TrainState, dict]:
         x, opt, vars, step, inflight, membership = state
+        if packed_step and not isinstance(x, Packed):
+            x = pack(x, lead=1)  # a per-leaf x migrates into the plane
         if offload_on:
             plan = off.plan_of(opt)
             if plan is None:  # adoption: a resident state entering the offloaded engine
@@ -177,17 +226,24 @@ def make_round_step(
             lr = schedule(step)
             pg, metrics = gradient_plane(loss_fn, x, batch_map(lambda t: t[k], round_batch), microbatch=microbatch,
                                          per_worker=per_worker)
-            if grad_clip > 0.0:
-                clip_packed_by_global_norm_(pg, grad_clip, per_bucket=per_bucket_clip)
-            if offload_on:
-                pending.wait()  # vars (and a mid-round inflight) on the device from here on
-            pg, vars = strategy.transform_grads_packed(pg, vars)
-            if offload_on:
-                opt, x = optimizer.step_streamed(opt, x, pg, lr)
-            else:
-                opt, x = optimizer.step_packed(opt, x, pg, lr)
-            del pg  # free this step's gradient plane before the next one is made
-            x = strategy.local_post_update_packed(x, vars, inflight, k)
+            if packed_step:
+                if grad_clip > 0.0:
+                    clip_packed_by_global_norm_(pg, grad_clip, per_bucket=per_bucket_clip)
+                if offload_on:
+                    pending.wait()  # vars (and a mid-round inflight) on the device from here on
+                pg, vars = strategy.transform_grads_packed(pg, vars)
+                if offload_on:
+                    opt, x = optimizer.step_streamed(opt, x, pg, lr)
+                else:
+                    opt, x = optimizer.step_packed(opt, x, pg, lr)
+                x = strategy.local_post_update_packed(x, vars, inflight, k)
+            else:  # per leaf: the reference's vmapped clip, hook and step, batched over the workers
+                if grad_clip > 0.0:
+                    clip_by_global_norm_(pg, grad_clip)
+                pg, vars = strategy.transform_grads(pg, vars)
+                opt, x = optimizer.step(opt, x, pg, lr)
+                x = strategy.local_post_update(x, vars, inflight, k)
+            del pg  # free this step's gradients before the next ones are made
             step = step + 1
             per_step.append(dict(metrics, lr=lr.expand_as(metrics["loss"])))
         if offload_on:

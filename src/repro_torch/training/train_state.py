@@ -1,12 +1,19 @@
-"""Worker-stacked, plane-resident training state (counterpart of the packed
-path of ``repro.training.train_state``).
+"""Worker-stacked training state (counterpart of
+``repro.training.train_state``).
 
-``x`` is the worker-stacked :class:`~repro_torch.parallel.packing.Packed`
-plane for its whole life: packed once here, updated in place by the local
-steps and the round boundaries. ``opt`` holds the optimizer's flat state,
-``vars`` the strategy's anchor-shaped planes, ``inflight`` the anchor
-launched at the last boundary and consumed at the next, and ``membership``
-the live workers of a degraded round (``None``: fully live), which the fault
+With a packed strategy and an optimizer with a packed step (the default)
+the state is plane-resident: ``x`` is the worker-stacked
+:class:`~repro_torch.parallel.packing.Packed` plane for its whole life,
+packed once here and updated in place by the local steps and the round
+boundaries, and ``opt`` holds the optimizer's flat state. Otherwise
+(``AlgoConfig.packed=False``, a legacy ``Algorithm``, or an optimizer with
+no packed step) ``x`` is a nested dict of worker-stacked leaves ``(m, ...)``,
+each with its own storage, and ``opt`` the per-leaf optimizer state. ``vars``
+holds the strategy's anchor-shaped state and ``inflight`` the anchor
+launched at the last boundary and consumed at the next, both from the
+strategy's ``init_vars``/``init_inflight`` (a packed strategy packs a
+per-leaf x for its own slots, as the reference does); ``membership`` the
+live workers of a degraded round (``None``: fully live), which the fault
 harness installs and clears between rounds.
 
 With ``AlgoConfig.offload`` the state is built offloaded, as the reference
@@ -20,28 +27,36 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.strategy import AlgoVars, CommStrategy
-from repro_torch.optim.optimizers import Optimizer, offload_capable
+from repro_torch.core.strategy import AlgoVars, as_strategy
+from repro_torch.optim.optimizers import Optimizer, offload_capable, packed_capable
 from repro_torch.parallel import offload as off
 from repro_torch.parallel.packing import Packed, leaf_views, pack, tree_flatten, tree_unflatten
 
 
 class TrainState(NamedTuple):
-    x: Packed  # worker-stacked parameter plane (m, n) per bucket
-    opt: Any  # PackedSGDState / PackedAdamState
+    x: Any  # worker-stacked parameter plane (m, n) per bucket, or per-leaf (m, ...) leaves
+    opt: Any  # PackedSGDState / PackedAdamState, or SGDState / AdamState per leaf
     vars: AlgoVars
     step: torch.Tensor  # 0-dim int32: local steps taken
     inflight: Any = None  # anchor launched last boundary, consumed next
     membership: Any = None  # repro_torch.fault.Membership of a degraded round; None = fully live
 
 
-def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy: CommStrategy) -> TrainState:
-    """All m workers start at ``params`` (Theorem 1's initialization)."""
+def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy) -> TrainState:
+    """All m workers start at ``params`` (Theorem 1's initialization).
+    ``strategy``: a CommStrategy or a legacy ``Algorithm`` (wrapped)."""
+    strategy = as_strategy(strategy)
     leaves, paths = tree_flatten(params)
-    x = pack(tree_unflatten(paths, [t.expand(m, *t.shape) for t in leaves]), lead=1)
+    stacked = [t.expand(m, *t.shape) for t in leaves]
+    if strategy.packed and packed_capable(optimizer):
+        x = pack(tree_unflatten(paths, stacked), lead=1)
+        opt = optimizer.init_packed(x)
+    else:  # per leaf: each worker-stacked leaf a tensor of its own
+        x = tree_unflatten(paths, [t.contiguous() for t in stacked])
+        opt = optimizer.init(x)
     vars = strategy.init_vars(x)
-    opt, inflight = optimizer.init_packed(x), strategy.init_inflight(x, vars)
-    if strategy.cfg.offload and offload_capable(optimizer):
+    inflight = strategy.init_inflight(x, vars)
+    if strategy.cfg.offload and isinstance(x, Packed) and offload_capable(optimizer):
         plan = off.OffloadPlan.for_layout(x.layout, float(strategy.cfg.offload_chunk_mb))
         opt, vars, inflight = (off.tree_offload(t, plan) for t in (opt, vars, inflight))
     return TrainState(
@@ -53,8 +68,15 @@ def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy: CommS
     )
 
 
+def params_view(state: TrainState) -> dict:
+    """The worker-stacked params as a nested dict (views of the plane when
+    ``x`` is packed), whatever representation ``x`` is in."""
+    x = state.x
+    return tree_unflatten(x.layout.paths, leaf_views(x)) if isinstance(x, Packed) else x
+
+
 def consensus_params(state: TrainState) -> dict:
     """The averaged model used for evaluation (the paper's y_k): the f32
-    worker mean of every leaf."""
-    means = [torch.mean(v.float(), dim=0) for v in leaf_views(state.x)]
-    return tree_unflatten(state.x.layout.paths, means)
+    worker mean of every leaf, packed or per leaf."""
+    leaves, paths = tree_flatten(params_view(state))
+    return tree_unflatten(paths, [torch.mean(v.float(), dim=0) for v in leaves])

@@ -737,6 +737,19 @@ def test_anchor_mix_plain_matches_jax(against, dtype, shape, rng, jx):
             assert (np.abs(got - want) <= ulp).all(), alpha
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_anchor_mix_row_form_plain_matches_vmapped_jax(dtype, rng, jx):
+    """The row form's plain version (z broadcast over x's rows) against the
+    reference's K5 vmapped over the workers, bitwise, x in place."""
+    tdt = getattr(torch, dtype)
+    x = rng.normal(size=(5, 13, 7)).astype(np.float32)
+    z = rng.normal(size=(13, 7)).astype(np.float32)
+    want = jx.jax.vmap(lambda xi: jx.am_ref.anchor_mix(xi, jx.jnp.asarray(z, dtype), 0.6))(jx.jnp.asarray(x, dtype))
+    tx = _t(x, tdt)
+    assert am_ops.anchor_mix(tx, _t(z, tdt), 0.6) is tx
+    assert np.array_equal(tx.float().numpy(), np.asarray(want.astype(jx.jnp.float32)))
+
+
 def test_pullback_tree_maps_anchor_mix_over_a_tree(rng):
     x = {"a": _t(rng.normal(size=(4, 3)).astype(np.float32)), "b": {"c": _t(rng.normal(size=(7,)).astype(np.float32))}}
     z = {"a": torch.zeros(4, 3), "b": {"c": torch.ones(7)}}
@@ -888,6 +901,7 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     opt_ops.adamw_step(buf, buf.clone(), buf.clone(), buf.clone(), lr, lr, lr, b1=0.9, b2=0.95, eps=1e-8,
                        weight_decay=0.0)
     am_ops.anchor_mix(buf, buf.clone(), 0.6)
+    am_ops.anchor_mix(buf, buf[0].clone(), 0.6)  # the row form
     am_ops.gossip_boundary_(buf, buf.clone(), torch.ones(2), torch.ones(2), torch.eye(2), 0.6)
     am_ops.pullback_mean(buf, buf[0].clone(), 0.6)
     am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7)
@@ -936,6 +950,8 @@ def test_wrappers_reject_bad_inputs(rng):
         am_ops.pullback_mean(buf, torch.zeros(64), 0.6)
     with pytest.raises(ValueError, match="z must match"):
         am_ops.anchor_mix(buf, buf.bfloat16(), 0.6)
+    with pytest.raises(ValueError, match="z must match"):  # neither x's shape nor its rows'
+        am_ops.anchor_mix(buf, torch.zeros(2), 0.6)
     with pytest.raises(ValueError, match="weights"):
         am_ops.pullback_mean(buf, torch.zeros(128), 0.6, weights=torch.ones(3))
     with pytest.raises(ValueError, match=r"\(m, n\)"):
@@ -1224,6 +1240,36 @@ def test_anchor_mix_kernel_bitwise_on_card(cuda, dtype):
     for xs, zs in ((x.clone(), z), (flat_x[:n].clone(), flat_z[:n]), (flat_x[1:], flat_z[1:])):
         want = am_ref.anchor_mix(xs, zs, 0.6)
         assert am_ops.anchor_mix(xs, zs, 0.6) is xs and torch.equal(xs, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_anchor_mix_row_form_bitwise_on_card(cuda, dtype):
+    """K5's row form (x (m, *s), one z of shape s for every row): bitwise
+    its plain version at m 1, 4, 16 and 17, on aligned, ragged (the scalar
+    tail) and misaligned (the scalar path) leaves, one launch counted on
+    MIX_ROWS each; at m 1 bitwise the same-shape launch; a stacked z takes
+    the same-shape launch."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for m in (1, 4, 16, 17):
+        for shape in ((64, 128), (10,), (3, 5, 7), (1,)):
+            x = torch.randn((m,) + shape, generator=gen, device=cuda).to(dtype)
+            z = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            want = am_ref.anchor_mix(x, z, 0.6)
+            rows, same = am_ops.MIX_ROWS.launches, am_ops.MIX.launches
+            got = am_ops.anchor_mix(x.clone(), z, 0.6)
+            assert torch.equal(got, want) and am_ops.MIX_ROWS.launches == rows + 1
+            if m == 1:
+                assert torch.equal(am_ops.anchor_mix(x.clone()[0], z, 0.6), got[0])
+                assert am_ops.MIX.launches == same + 1
+            buf = torch.zeros(x.numel() + 1, dtype=dtype, device=cuda)
+            xs = buf[1:].view(x.shape)  # contiguous, one element off 16-byte alignment
+            xs.copy_(x)
+            assert torch.equal(am_ops.anchor_mix(xs, z, 0.6), want)
+    zs = torch.randn(4, 64, 128, generator=gen, device=cuda).to(dtype)
+    x = torch.randn(4, 64, 128, generator=gen, device=cuda).to(dtype)
+    tree = am_ops.pullback_tree({"a": x.clone(), "b": x.clone()}, {"a": zs, "b": zs[0]}, 0.3)
+    assert torch.equal(tree["a"], am_ref.anchor_mix(x, zs, 0.3)) and torch.equal(tree["b"], am_ref.anchor_mix(x, zs[0], 0.3))
 
 
 def _gossip_on_card(cuda, m, n, dtype, offset, seed):

@@ -342,8 +342,9 @@ def test_experiment_defaults_to_cuda():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """What still raises, each naming its ROADMAP item: the per-leaf oracle
-    (4b) and the runtime model behind ``FaultPlan.runtime_config`` (10).
+    """What still raises, naming its ROADMAP item: the runtime model behind
+    ``FaultPlan.runtime_config`` (10). The per-leaf oracle (``packed=False``,
+    item 4b) builds and runs one probed, masked boundary per leaf.
     Host offload (item 9) builds and runs a round with finite losses; M-RoPE
     archs (item 8) build and run a round; the probe and the membership of every boundary,
     ``fit(adaptive_tau=...)``, ``fit(faults=...)`` and the checkpointer
@@ -366,8 +367,13 @@ def test_unported_paths_raise_with_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="item 10"):
         FaultPlan(m=2).runtime_config()
     for name in ("overlap_local_sgd", "easgd", "delayed_avg", "gossip_ring", "loscar"):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            make_strategy(AlgoConfig(name=name, packed=False))
+        leafy = make_strategy(AlgoConfig(name=name, packed=False))
+        assert not leafy.packed
+        x = {"w": torch.arange(6.0).reshape(2, 3)}
+        vars = leafy.init_vars(x)
+        out = leafy.boundary_round(x, vars, leafy.init_inflight(x, vars), probe=True,
+                                   membership=from_mask(np.ones(2, np.float32)))
+        assert len(out) == 4 and out[0] is x and torch.isfinite(out[3].drift) and torch.isfinite(x["w"]).all()
         strat = make_strategy(AlgoConfig(name=name))
         px = packing.pack({"w": torch.arange(6.0).reshape(2, 3)}, lead=1)
         vars = strat.init_vars(px)
