@@ -283,13 +283,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    (K5's row form once a leaf a boundary, no K1 or K3 per leaf), finite
    losses, step ms and peak memory of both, and x, the in-flight anchor and
    vars bit for bit.
-11. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+11. The worker axis over ``torch.distributed`` ranks: (a) K3/K4's rank form
+   (one rank's rows: the anchor finished from the all-reduced f32 worker
+   sum, the rows pulled back, their f32 partial sum written) bitwise its
+   plain version, K3 and K4, f32 and bf16, 1 and 2 rows, a first and a
+   later boundary, at the classifier's plane and at qwen2-7b's 2-layer
+   plane (three windows of 2^22 columns), timed beside the plain version
+   and a ``copy_`` of the same bytes; (b) full-width qwen2-7b at
+   ``RANK_LAYERS`` layers, bf16, m 1, 2 rounds of Overlap-Local-SGD
+   stacked, then on one NCCL rank (a one-process group in this process)
+   from the same weights and batches: bitwise after ``drain``, exact
+   launches, step and boundary ms, the wire buffer's bytes, the peak; (c)
+   two ranks spawned with ``torch.multiprocessing`` sharing the card over
+   gloo (CUDA tensors): the classifier at m 2 (beta 0.7 and 0) and
+   qwen2-7b at 2 layers at m 2, each bitwise the stacked run rank 0 makes
+   after it, z, v and the in-flight anchor equal on both ranks.
+12. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it and its row form, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
-   call, K1's and K2's window forms; K6's rows with their ``d192``,
-   ``qwen2_vl`` and ``musicgen`` cases and K10's with its ``latent``
-   case), then the device line last.
+   call, K1's and K2's window forms, K3's and K4's rank forms; K6's rows
+   with their ``d192``, ``qwen2_vl`` and ``musicgen`` cases and K10's with
+   its ``latent`` case), then the device line last.
 
 Exits with code 2 and prints no result when there is no GPU, or when it is
 run outside a checkout of the repository.
@@ -5408,6 +5423,436 @@ def lm_perleaf_full_width(dev, kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the worker axis over torch.distributed ranks: K3/K4's rank form,
+# one NCCL rank at full width, two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+RANK_ALPHA, RANK_BETA, RANK_ROUNDS = 0.6, 0.7, 2
+RANK_WINDOW = 1 << 22  # columns of the LM plane checked at its start, middle and end
+# phase 11(b): full-width qwen2-7b on one NCCL rank, m 1, cut to the depth
+# whose rank run (the f32 wire buffer included) and the stacked twin's host
+# copy fit the card and the host
+RANK_LAYERS = 10
+RANK_CLASSIFIER = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("overlap_local_sgd", dict(anchor_beta=0.0))]
+
+
+def _lm_plane_n(layers):
+    """The packed plane's width of full-width qwen2-7b at ``layers`` layers
+    (meta tensors: nothing is allocated)."""
+    from repro_torch.config import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.packing import layout_of
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=layers)
+    return layout_of(T.init_model(cfg, None, device="meta")).bucket_sizes[0]
+
+
+def _rank_bytes(P, rows, finish, momentum):
+    """The rank form's bytes a column: the rows read and written, S read
+    (finish) and written (rows > 0), z read (unless K4 finishes), z' written
+    and v read and written (finish)."""
+    b = 2 * P * rows + (4 if rows else 0) + (4 if finish else 0)
+    b += 0 if (finish and not momentum) else P
+    if finish:
+        b += P + (2 * P if momentum else 0)
+    return b
+
+
+def _rank_flops(rows, finish, momentum):
+    return 4 * rows + ((1 + (4 if momentum else 0)) if finish else 0)
+
+
+def check_rank_form(dev, gen):
+    """K3/K4's rank form against its plain version, bitwise: K3 and K4, f32
+    and bf16, 1 and 2 rows, the first boundary's launch (no finish) and a
+    later one (finish from S), at the classifier's plane (every column) and
+    at full-width qwen2-7b's 2-layer plane (one launch over the whole plane,
+    then three windows of ``RANK_WINDOW`` columns, at its start, middle and
+    end, against the plain version run on those columns: the kernel is
+    elementwise across columns). Timed (finish, one row) beside the plain
+    version, a ``copy_`` of the same bytes and the bytes bound."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix import ops, ref
+
+    worst, timing, checked = 0.0, {}, []
+    for plane, n in (("classifier", TRAIN_SHAPES["slice"][1]), ("lm", _lm_plane_n(LM_LAYERS))):
+        windows = [slice(0, n)] if plane == "classifier" else [
+            slice(0, RANK_WINDOW), slice(n // 2 - RANK_WINDOW // 2, n // 2 + RANK_WINDOW // 2), slice(n - RANK_WINDOW, n)]
+        for dtype in (torch.float32, torch.bfloat16):
+            P = torch.finfo(dtype).bits // 8
+            z = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+            for rows in (1, 2):
+                m = 2 * rows  # the workers over two ranks
+                for kname, momentum in (("K3", True), ("K4", False)):
+                    beta = RANK_BETA if momentum else None
+                    for finish in (False, True):
+                        x = torch.randn(rows, n, generator=gen, device=dev, dtype=dtype)
+                        v = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype) if momentum else None
+                        s = 3.0 * torch.randn(n, generator=gen, device=dev)
+                        want = [ref.pullback_rank(x[:, c], z[c], None if v is None else v[c], s[c], m, RANK_ALPHA,
+                                                  beta, finish) for c in windows]
+                        z_next = ops.pullback_rank(x, z, v, s, m, RANK_ALPHA, beta, finish)
+                        torch.cuda.synchronize()
+                        ok, err = True, 0.0
+                        for c, (wx, wz, wv, ws) in zip(windows, want):
+                            pairs = [(x[:, c], wx), (z_next[c], wz), (s[c], ws)] + ([(v[c], wv)] if wv is not None else [])
+                            ok = ok and all(torch.equal(a, b) for a, b in pairs)
+                            err = max([err] + [float((a.float() - b.float()).abs().max()) for a, b in pairs])
+                        worst = max(worst, err)
+                        rec = dict(kernel=f"{kname} rank form", plane=plane, dtype=_name(dtype), rows=rows, n=n,
+                                   finish=finish, columns_checked=sum(c.stop - c.start for c in windows),
+                                   max_abs_err=err, bound="bitwise", ok=ok)
+                        checked.append(rec)
+                        if not ok:
+                            raise AssertionError(f"K3/K4 rank form disagrees with plain: {rec}")
+                        del want, z_next
+                        # timed at one row, finishing; on the LM plane in bf16 (the LM's
+                        # dtype: the f32 plane's copy_ yardstick would not fit beside it)
+                        if rows == 1 and finish and (plane == "classifier" or dtype == torch.bfloat16):
+                            it = 50 if plane == "classifier" else 10
+                            launch = lambda: ops.pullback_rank(x, z, v, s, m, RANK_ALPHA, beta, True)  # noqa: E731
+                            plain = lambda: ref.pullback_rank(x, z, v, s, m, RANK_ALPHA, beta, True)  # noqa: E731
+                            nbytes = _rank_bytes(P, rows, True, momentum) * n
+                            rec["ms"] = median_ms(launch, it)
+                            if plane == "classifier":
+                                rec.update(host_device_split(launch))
+                            rec["plain_ms"] = time_ms(plain, 3 if plane == "lm" else it)
+                            src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+                            dst = torch.empty_like(src)
+                            rec["copy_ms"] = time_ms(lambda: dst.copy_(src), it)
+                            del src, dst
+                            rec["library_ms"] = None
+                            rec["library"] = ("none (no single torch call); copy_ moves the same bytes: (2P·r + 4P + 8)·n "
+                                              "for K3, (2P·r + P + 8)·n for K4")
+                            rec["bound_ms"], rec["bound_by"] = bound(nbytes, _rank_flops(rows, True, momentum) * n)
+                            timing[(kname, plane, _name(dtype))] = rec
+                            log(json.dumps(rec))
+                        del x, v, s
+                        _free()
+            del z
+            _free()
+    log(json.dumps(dict(check="K3/K4 rank form against its plain version", bound="bitwise", cases=len(checked),
+                        max_abs_err=worst)))
+    return worst, timing
+
+
+def _digest(t):
+    """A 64-bit digest of a tensor's bits: Σ_i bits_i · c_i mod 2^64 with an
+    odd multiplier c_i a position, over 2^26-element windows. Any single
+    differing element changes it (c_i is odd and |Δbits| < 2^32)."""
+    import torch
+
+    flat = t.reshape(-1)
+    bits = flat.view(torch.int16) if flat.element_size() == 2 else flat.view(torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    step = 1 << 26
+    for i in range(0, bits.numel(), step):
+        idx = torch.arange(i, min(i + step, bits.numel()), dtype=torch.int64, device=t.device)
+        total += (bits[i : i + step].to(torch.int64) * (idx * 0x9E3779B1 * 2 + 1)).sum()
+    return int(total)
+
+
+def _rank_state(state):
+    """x, the momentum, z, v and the in-flight anchor of a (drained) state, by name."""
+    out = {"x": state.x.buffers, "momentum": state.opt.momentum.buffers}
+    if state.vars.z is not None:
+        out["z"], out["v"] = state.vars.z.buffers, state.vars.v.buffers
+    out["inflight"] = state.inflight.buffers
+    return out
+
+
+def _round_batches(exp, rounds):
+    from repro_torch.data.loaders import round_batch
+
+    return [round_batch(exp.next_batch, exp.tau) for _ in range(rounds)]
+
+
+def rank_nccl_full_width(dev, kernels, card):
+    """Phase 11(b): full-width qwen2-7b cut to ``RANK_LAYERS`` layers, bf16,
+    m 1, Overlap-Local-SGD (tau 2, alpha 0.6, beta 0.7), 2 rounds: first the
+    stacked engine (its planes copied to the host), then one NCCL rank (a
+    one-process group, the worker mesh of ``make_smoke_mesh``) from the same
+    weights and batches, from zeroed counters, then ``drain``: x, the
+    momentum, z, v and the drained in-flight anchor bit for bit the stacked
+    run's, the same losses; K1 a step, K3's rank form a boundary and once
+    for the drain, the stacked K3 never. Step and boundary ms (CUDA events
+    around the boundary on the compute stream), the wire buffer's bytes,
+    the peak."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import get_arch
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.training import drain
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=RANK_LAYERS)
+    exp = _lm_experiment(dev, cfg, 1, LM_SEQ, init_on_device=True).build()
+    batches = _round_batches(exp, RANK_ROUNDS)
+    torch.cuda.reset_peak_memory_stats()
+    want_losses = []
+    for rb in batches:
+        exp.state, ms = exp.step_fn(exp.state, exp.to_device(rb))
+        want_losses.append(ms["loss"].float().cpu().tolist())
+    want = {k: [b.to("cpu", copy=True) for b in v] for k, v in _rank_state(exp.state).items()}
+    stacked_peak = torch.cuda.max_memory_allocated()
+    n_params = exp.num_params
+    del exp
+    gc.collect()
+    _free()
+
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0)
+    try:
+        mesh = make_smoke_mesh(1)
+        with mesh_context(mesh):
+            exp = _lm_experiment(dev, cfg, 1, LM_SEQ, init_on_device=True).build()
+            strat = exp.strategy_obj
+            real_boundary = strat.boundary_round
+            marks = []
+
+            def boundary_round(*a, **kw):  # CUDA events around the boundary, on the compute stream
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = real_boundary(*a, **kw)
+                e1.record()
+                marks.append((e0, e1))
+                return out
+
+            strat.boundary_round = boundary_round
+            device_batches = [exp.to_device(rb) for rb in batches]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            losses, round_ms = [], []
+            for rb in device_batches:
+                r0 = time.perf_counter()
+                exp.state, ms = exp.step_fn(exp.state, rb)
+                torch.cuda.synchronize()
+                round_ms.append((time.perf_counter() - r0) * 1e3)
+                losses.append(ms["loss"].float().cpu().tolist())
+            state = drain(exp.state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated()
+            del strat.boundary_round
+            wire = 4 * sum(b.shape[-1] for b in state.x.buffers)
+            got = _rank_state(state)
+            differ = sorted(k for k in want if len(got[k]) != len(want[k]) or not all(
+                torch.equal(g, w.to(g.device)) for g, w in zip(got[k], want[k])))
+            del state, got, exp
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    _free()
+    boundary_ms = [a.elapsed_time(b) for a, b in marks]
+    tau = 2
+    step_ms = [(r - b) / tau for r, b in zip(round_ms, boundary_ms)]
+    want_launches = {k.name: 0 for k in kernels}
+    want_launches.update(qwen2_launches(RANK_ROUNDS * tau, 1, RANK_LAYERS, 1, RANK_ROUNDS))
+    want_launches["pullback_momentum"] = 0
+    want_launches["pullback_momentum_rank"] = RANK_ROUNDS + 1  # a boundary each, and the drain
+    rec = dict(run=f"qwen2-7b full width, {RANK_LAYERS} layers, bf16, m 1 on one NCCL rank", card=card,
+               params=n_params, rounds=RANK_ROUNDS, tau=tau, losses=losses, stacked_losses=want_losses,
+               planes_differing=differ, bound="bitwise (x, momentum, z, v, drained inflight; losses)",
+               round_ms=round_ms, boundary_ms=boundary_ms, step_ms=step_ms, wall_s=wall,
+               wire_buffer_bytes=wire, peak_mem_bytes=peak, stacked_peak_mem_bytes=stacked_peak,
+               launches={k: v for k, v in launches.items() if v})
+    log(json.dumps(rec))
+    if differ or losses != want_losses:
+        raise AssertionError(f"one NCCL rank differs from the stacked run at m 1: {rec}")
+    if launches != want_launches:
+        raise AssertionError(f"NCCL rank launches {launches} != {want_launches}")
+    return rec
+
+
+def _gloo_rank(rank, world, rdv, out_path, src):
+    """One of phase 11(c)'s two ranks on the same card (gloo on CUDA
+    tensors): ``RANK_CLASSIFIER`` on the quickstart classifier at m 2, then
+    full-width qwen2-7b at ``LM_LAYERS`` layers at m 2 (bf16, seq 512), each
+    for 2 rounds from zeroed counters and drained. Rank 1 sends its x rows
+    to rank 0 and both exchange digests of z, v and the in-flight anchor;
+    rank 0 then frees the rank run, runs the stacked engine at m 2 on the
+    same weights and batches and compares every plane bit for bit. Every
+    run is compared and reported; the caller fails on any difference."""
+    import gc
+    import traceback
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from repro_torch.config import AlgoConfig, get_arch
+        from repro_torch.kernels import all_kernels
+        from repro_torch.launch.mesh import make_smoke_mesh
+        from repro_torch.parallel.sharding import mesh_context
+        from repro_torch.training import drain
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels = all_kernels()
+        dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world, rank=rank)
+        mesh = make_smoke_mesh(world, backend="gloo")
+        lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+        runs = [(f"classifier {n} beta={kw['anchor_beta']} (per-worker losses)",
+                 lambda d, n=n, kw=kw: _rank_classifier(d, AlgoConfig(name=n, tau=2, alpha=0.6, **kw)))
+                for n, kw in RANK_CLASSIFIER]
+        runs.append((f"qwen2-7b full width, {LM_LAYERS} layers, bf16",
+                     lambda d: _lm_experiment(d, lm_cfg, world, LM_SEQ, init_on_device=True)))
+        results = []
+        for label, make in runs:
+            with mesh_context(mesh):
+                exp = make(dev).build()
+                batches = _round_batches(exp, RANK_ROUNDS)
+                device_batches = [exp.to_device(rb) for rb in batches]
+                torch.cuda.synchronize()
+                for k in kernels:
+                    k.launches = 0
+                t0 = time.perf_counter()
+                losses = []
+                for rb in device_batches:
+                    exp.state, ms = exp.step_fn(exp.state, rb)
+                    losses.append(ms["loss"].float().cpu().tolist())
+                state = drain(exp.state)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k.name: k.launches for k in kernels if k.launches}
+                got = _rank_state(state)
+                digests = {k: [_digest(b) for b in v] for k, v in got.items() if k not in ("x", "momentum")}
+                del exp, state, device_batches
+            all_digests = [None] * world
+            dist.all_gather_object(all_digests, digests)
+            all_losses = [None] * world
+            dist.all_gather_object(all_losses, losses)
+            rows = {}
+            for key in ("x", "momentum"):  # rank 1's rows to rank 0, exactly
+                for b, t in enumerate(got[key]):
+                    if rank == 0:
+                        other = torch.empty(t.shape, dtype=torch.int16 if t.element_size() == 2 else torch.int32)
+                        dist.recv(other, src=1)
+                        rows[(key, b)] = other.view(t.dtype)
+                    else:
+                        dist.send(t.cpu().view(torch.int16 if t.element_size() == 2 else torch.int32), dst=1 - rank)
+            if rank != 0:
+                del got
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+            if rank == 0:
+                stacked = make(dev).build()  # no mesh: all m rows here
+                stacked_losses = []
+                for rb in batches:
+                    stacked.state, ms = stacked.step_fn(stacked.state, stacked.to_device(rb))
+                    stacked_losses.append(ms["loss"].float().cpu().tolist())
+                want = _rank_state(stacked.state)
+                differ = []
+                for key, bufs in want.items():
+                    for b, w in enumerate(bufs):
+                        if key in ("x", "momentum"):
+                            same = torch.equal(w[:1], got[key][b]) and torch.equal(w[1:].cpu(), rows[(key, b)])
+                        else:
+                            same = torch.equal(w, got[key][b])
+                        if not same:
+                            differ.append(f"{key}{b}")
+                merged = [[a + b for a, b in zip(r0, r1)] for r0, r1 in zip(*all_losses)]
+                results.append(dict(run=f"{label}, m 2 on two gloo ranks sharing one card", rounds=RANK_ROUNDS,
+                                    wall_s=wall, launches=launches, losses=merged, stacked_losses=stacked_losses,
+                                    planes_differing=differ,
+                                    anchor_equal_on_ranks=all(d == all_digests[0] for d in all_digests),
+                                    bound="bitwise (x, momentum, z, v, drained inflight; losses); z, v, inflight "
+                                          "equal on both ranks (64-bit digests)"))
+                del stacked, want, got, rows
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        dist.destroy_process_group()
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(results, f)
+    except BaseException:
+        with open(f"{out_path}.rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _rank_classifier(dev, strategy):
+    """The quickstart classifier's configuration at m 2 (the rank phase),
+    built, its round step taking each worker's loss on its own (the round
+    engine's ``per_worker`` mode, every leaf whole). The default stacked
+    loss runs the m workers as one batched matmul, and cuBLAS computes a
+    batch of 1 (a rank's row) and a batch of 2 (both rows) with other
+    kernels: worker 0's first loss came out 2.547734260559082 on its rank
+    against 2.547734022140503 stacked (NVIDIA H100 80GB HBM3, 700 W), a
+    difference of the GEMM and not of the boundary this phase holds."""
+    from repro_torch.api import ClassificationSpec, Experiment
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.optim import schedules
+    from repro_torch.training import make_round_step
+
+    exp = Experiment(task=ClassificationSpec(n=30000, holdout=4000, batch_per_worker=32), strategy=strategy,
+                     optimizer=OptimizerConfig(name="sgd", lr=0.1, momentum=0.9, nesterov=True),
+                     schedule=schedules.warmup_step_decay(0.1, 20, (TRAIN_STEPS // 2,)), workers=2,
+                     device=dev).build()
+    exp.step_fn = make_round_step(exp.loss_fn, exp.opt_obj, exp.strategy_obj, exp.schedule_fn,
+                                  per_worker=lambda path, leaf: leaf)
+    return exp
+
+
+def rank_gloo_two_on_one_card(card):
+    """Phase 11(c): two ranks spawned with ``torch.multiprocessing``, a
+    ``file://`` rendezvous in a temporary directory, gloo on CUDA tensors
+    (:func:`_gloo_rank`). Fails when a rank fails or a plane differs."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    out = os.path.join(tmp, "results.json")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_rank, args=(r, 2, os.path.join(tmp, "rendezvous"), out, str(SRC)))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    try:
+        while any(p.is_alive() for p in procs):
+            if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+    errors = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
+    if errors or any(p.exitcode != 0 for p in procs) or not os.path.exists(out):
+        raise AssertionError(f"gloo ranks failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    with open(out) as f:
+        results = json.load(f)
+    for rec in results:
+        rec["card"] = card
+        log(json.dumps(rec))
+    bad = [rec["run"] for rec in results
+           if rec["planes_differing"] or rec["losses"] != rec["stacked_losses"] or not rec["anchor_equal_on_ranks"]]
+    if bad:
+        raise AssertionError(f"two gloo ranks differ from the stacked run at m 2: {bad}")
+    log(f"phase 11(c): two gloo ranks, {len(results)} runs, {time.perf_counter() - t0:.1f}s with the spawn")
+    return results
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -5589,6 +6034,16 @@ def main() -> int:
     leaf_lm = dict(lm_perleaf_full_width(dev, kernels), card=card)
     mark("phase 10 (c: qwen2-7b per leaf against packed)")
 
+    # phase 11: the worker axis over torch.distributed ranks (K3/K4's rank form;
+    # one NCCL rank at full width; two gloo ranks sharing the card)
+    rank_err, rank_t = check_rank_form(dev, gen)
+    mark("phase 11 (a: K3/K4's rank form)")
+    rank_nccl = rank_nccl_full_width(dev, kernels, card)
+    mark("phase 11 (b: one NCCL rank, qwen2-7b)")
+    _free()
+    rank_gloo = rank_gloo_two_on_one_card(card)
+    mark("phase 11 (c: two gloo ranks sharing the card)")
+
     # the kernels line
     launches = dict(summary["launches"])
     launches["sgd_step"] = runs["overlap_local_sgd"]["launches"]["sgd_step"]
@@ -5739,6 +6194,25 @@ def main() -> int:
         "classifier adaptive overlap_local_sgd": runs["adaptive overlap_local_sgd"]["launches"]["pullback_momentum"],
         "lm adaptive+faults": adaptive_lm["launches"]["pullback_momentum"]}
     by_path["pullback_mean_probe"] = {"classifier adaptive easgd": launches["pullback_mean_probe"]}
+    # phase 11: K3/K4's rank form; K3's main path is the NCCL rank's qwen2-7b
+    # run, K4's the gloo ranks' classifier at beta 0
+    k3r, k4r = rank_t[("K3", "lm", "bfloat16")], rank_t[("K4", "classifier", "float32")]
+    rows += [
+        ("pullback_momentum_rank", "anchor_mix",
+         "K3 pullback_momentum_flat, rank form (pullback_rank_launch: one rank's rows when the worker axis is spread "
+         "over torch.distributed ranks; the anchor finished from the all-reduced f32 worker sum, the rows pulled back, "
+         "their f32 partial sum written for the next all-reduce)", "src/repro/kernels/anchor_mix/kernel.py:190",
+         rank_err, k3r, f"bf16 r=1 n={k3r['n']} (qwen2-7b's 2-layer plane, one row on the rank)", None),
+        ("pullback_mean_rank", "anchor_mix", "K4 pullback_mean_flat, rank form (pullback_rank_launch with no momentum)",
+         "src/repro/kernels/anchor_mix/kernel.py:120", rank_err, k4r,
+         f"f32 r=1 n={k4r['n']} (the classifier plane, one row a rank)", None),
+    ]
+    gloo_runs = {r["run"]: r["launches"] for r in rank_gloo}
+    launches["pullback_momentum_rank"] = rank_nccl["launches"]["pullback_momentum_rank"]
+    launches["pullback_mean_rank"] = next(c["pullback_mean_rank"] for r, c in gloo_runs.items() if "beta=0.0" in r)
+    rank_paths = {name: {rank_nccl["run"]: rank_nccl["launches"].get(name, 0),
+                         **{f"{r} (rank 0)": c.get(name, 0) for r, c in gloo_runs.items()}}
+                  for name in ("pullback_momentum_rank", "pullback_mean_rank")}
     out = []
     for name, source, label, replaces, err, t, shape, large in rows:
         entry = dict(
@@ -5907,6 +6381,15 @@ def main() -> int:
                                          "(deepseek-v3's latent pools)", max_abs_err=lat_err, bound="bitwise",
                                    **{k: lat_t[1][k] for k in keys + split_keys}, library=lat_t[1]["library"])
             entry["latent"]["T32"] = {k: lat_t[32][k] for k in keys + split_keys}
+        if name in rank_paths:  # phase 11: the other plane, the copy_ yardstick, every rank path's launches
+            other = rank_t[("K3", "classifier", "float32")] if name == "pullback_momentum_rank" else \
+                rank_t[("K4", "lm", "bfloat16")]
+            entry.update(copy_ms=t["copy_ms"], library=t["library"], launches_by_path=rank_paths[name],
+                         checked="K3 and K4, f32 and bf16, 1 and 2 rows, first and later boundary, at the classifier's "
+                                 "plane and qwen2-7b's 2-layer plane (three windows of 2^22 columns)")
+            entry["other_plane"] = dict(shape=f"{other['dtype']} r=1 n={other['n']} ({other['plane']})",
+                                        copy_ms=other["copy_ms"],
+                                        **{k: other[k] for k in keys + split_keys if k in other})
         out.append(entry)
     out[0]["train"] = dict(shape="bf16 rows=1024 d=3584 (the LM slice)", **{k: rms_t[1024][k] for k in keys + split_keys})
     out[0]["prefill"] = dict(shape="bf16 rows=32 d=3584 (a prefill chunk)", **{k: rms_t[32][k] for k in keys + split_keys})

@@ -59,6 +59,13 @@ worker-stacked leaves): ``consensus()``, ``evaluate()`` and ``serve()`` read
 it as they read the plane, ``fit(adaptive_tau=…)`` and ``fit(faults=…)`` run
 per leaf, and ``consensus_plane()`` and ``anchor_plane()`` raise.
 
+On a worker mesh (:func:`repro_torch.parallel.sharding.mesh_context`, one
+process a rank) ``build()`` makes the rank's m/W rows and ``step_fn`` runs
+a round on them (the round engine slices the rank's rows of the full batch);
+``repro_torch.training.drain`` finishes the in-flight anchor. ``fit``,
+``consensus``, ``consensus_plane``, ``evaluate`` and ``serve`` read all m
+workers and raise there (ROADMAP item 10b).
+
 ``AlgoConfig(offload=True)`` trains with the optimizer state and the
 strategy's anchor-shaped planes in host memory between boundaries (pinned
 on the GPU; :mod:`repro_torch.parallel.offload`): x stays on the device, so
@@ -90,6 +97,7 @@ from repro_torch.models.classifier import accuracy, init_mlp, mlp_loss
 from repro_torch.optim import from_config as opt_from_config
 from repro_torch.optim import schedules
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.parallel import sharding
 from repro_torch.parallel.packing import Packed, tree_flatten, tree_unflatten
 from repro_torch.serving.engine import resolve_device
 from repro_torch.training import consensus_params, make_round_step, make_train_state
@@ -234,6 +242,11 @@ class Experiment:
 
         return batch_map(move, batch)
 
+    @staticmethod
+    def _not_on_ranks(what: str) -> None:
+        if sharding.current_mesh() is not None:
+            raise sharding.unsupported_on_ranks(what)
+
     # -- introspection ------------------------------------------------------
 
     @property
@@ -262,6 +275,7 @@ class Experiment:
         local steps taken). ``faults`` (a :class:`~repro_torch.fault.FaultPlan`)
         runs every round under the plan's membership and fills ``fault_log``;
         with both, fault rounds are ``fault_hold`` decisions."""
+        self._not_on_ranks("Experiment.fit")
         self.build()
         if faults is not None:
             return self._fit_faulted(faults, rounds or self.rounds, log, ctrl=adaptive_tau)
@@ -340,12 +354,14 @@ class Experiment:
 
     def consensus(self) -> dict:
         """The float32 consensus (worker-averaged) model."""
+        self._not_on_ranks("Experiment.consensus")
         self.build()
         return consensus_params(self.state)
 
     def consensus_plane(self) -> Packed:
         """The consensus model as a packed plane (no lead dim): the f32 worker
         mean of each bucket, cast back to the bucket dtype."""
+        self._not_on_ranks("Experiment.consensus_plane")
         self.build()
         x = self.state.x
         if not isinstance(x, Packed):
@@ -372,6 +388,7 @@ class Experiment:
         parameter dtype."""
         from repro_torch.serving import BatchedEngine
 
+        self._not_on_ranks("Experiment.serve")
         self.build()
         if self.model_cfg is None:
             raise ValueError("serve() requires an LM experiment (arch=...), not a classification task")
@@ -387,6 +404,7 @@ class Experiment:
         """Evaluate the consensus model: classification → held-out accuracy;
         LM → mean loss on ``eval_batches`` fresh token batches (the stream
         seeded ``seed + 7919``, the consensus cast to the param dtype)."""
+        self._not_on_ranks("Experiment.evaluate")
         self.build()
         if self.task is not None:
             x, y = self.to_device((self.splits.test.x, self.splits.test.y))

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.parallel import offload as off
+from repro_torch.parallel import sharding
 from repro_torch.parallel.offload import HostPlane
 from repro_torch.parallel.packing import Layout, Packed
 
@@ -113,7 +114,10 @@ def _encode_layout(layout: Layout) -> np.ndarray:
 
 def save(path: str, tree: Any) -> None:
     """Write ``tree`` (tensors, Packed planes, NamedTuples, dicts, tuples)
-    to ``path`` atomically (a ``.tmp`` file, then a rename)."""
+    to ``path`` atomically (a ``.tmp`` file, then a rename). Not on a
+    worker mesh (ROADMAP item 10b)."""
+    if sharding.current_mesh() is not None:
+        raise sharding.unsupported_on_ranks("the checkpointer")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     arrays, layouts = {}, {}
     for key, node in _nodes(tree):
@@ -210,7 +214,10 @@ def restore(path: str, template: Any, elastic: bool = False) -> Any:
     """Rebuild ``template``'s structure from the checkpoint at ``path``, each
     leaf a tensor of the template leaf's dtype on its device. ``elastic``
     resizes the worker axis of any leaf or packed buffer whose trailing dims
-    match the template (the reference's ``restore(..., elastic=True)``)."""
+    match the template (the reference's ``restore(..., elastic=True)``).
+    Not on a worker mesh (ROADMAP item 10b)."""
+    if sharding.current_mesh() is not None:
+        raise sharding.unsupported_on_ranks("the checkpointer")
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
     layouts = {}

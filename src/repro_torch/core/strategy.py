@@ -41,6 +41,22 @@ and hands the hooks resident planes; :attr:`CommStrategy.consumes_inflight_midro
 tells it to restore the in-flight plane before the window, not at the
 boundary.
 
+**On a worker mesh** (:mod:`repro_torch.parallel.sharding`: the worker
+axis over ``torch.distributed`` ranks, each holding m/W rows of the plane)
+the three strategies with a rank boundary (:attr:`CommStrategy.rank_capable`)
+run it from :meth:`CommStrategy.boundary_round`. Overlap-Local-SGD's worker
+sum becomes a real collective: each rank pulls its rows back and writes their
+f32 partial sum into one flat f32 wire buffer, ``all_reduce_async`` launches
+the sum, and the in-flight slot carries the handle
+(:class:`RankInflight`); the next boundary waits on it, after τ local steps,
+and finishes the anchor (K3/K4's rank form,
+:func:`~repro_torch.kernels.anchor_mix.ops.pullback_rank`).
+:func:`finish_inflight` does that finish alone (the round engine's
+``drain``). Local SGD all-reduces the same partial sums at its boundary,
+sync-SGD the gradient plane at every step, both blocking. Every other
+strategy, the probe, a membership, offload and the per-leaf path raise
+(:func:`check_rank_path`, ROADMAP item 10b).
+
 **The per-leaf oracle** (``AlgoConfig.packed=False``, and every legacy
 ``Algorithm`` through :class:`LegacyStrategy`): x is a nested dict of
 worker-stacked leaves ``(m, ...)``, each with its own storage, and the
@@ -66,9 +82,10 @@ import torch
 from repro_torch.config.base import AlgoConfig
 from repro_torch.core.topology import cached_topology, compose_membership
 from repro_torch.kernels.anchor_mix import ops as anchor_ops
-from repro_torch.kernels.anchor_mix.ref import push, worker_mean
+from repro_torch.kernels.anchor_mix.ref import push, row_sum, worker_mean
 from repro_torch.kernels.consensus_probe import packed_probe, stats_from_partials, tree_probe
 from repro_torch.kernels.opt_step.ref import weak
+from repro_torch.parallel import sharding
 from repro_torch.parallel.packing import (
     Packed,
     column_chunks,
@@ -188,6 +205,79 @@ def _pullback(x, z, alpha: float, membership=None):
     return x if old is None else _live_where_(membership.mask, x, old)
 
 
+class RankInflight(NamedTuple):
+    """The in-flight anchor of a rank boundary: ``z`` the anchor that
+    boundary pulled toward (the base of the next anchor), ``buf`` the one
+    flat f32 wire buffer of every bucket's partial worker sum (the sum over
+    all ranks once ``handle``, the async all-reduce, is waited), ``m`` the
+    worker count over all ranks, ``beta`` the anchor momentum (None: K4)."""
+
+    z: Any
+    buf: torch.Tensor
+    handle: Any
+    m: int
+    beta: Optional[float]
+
+
+def _wire_buffer(px: Packed) -> torch.Tensor:
+    """One flat f32 buffer for every bucket of x's plane (f32 for a bf16
+    plane too: the worker sum is taken in f32)."""
+    return torch.empty(sum(b.shape[-1] for b in px.buffers), dtype=torch.float32, device=px.buffers[0].device)
+
+
+def _wire_views(buf: torch.Tensor, px: Packed):
+    """``buf`` cut into one (n,) view a bucket."""
+    return torch.split(buf, [b.shape[-1] for b in px.buffers])
+
+
+def finish_inflight(inflight: RankInflight, vars: AlgoVars) -> Packed:
+    """Wait on a rank boundary's all-reduce and finish its anchor (the tail
+    of K3/K4: the mean, and with momentum v updated in place): the in-flight
+    anchor the stacked run holds at the same step."""
+    inflight.handle.wait()
+    vs = vars.v.buffers if inflight.beta is not None else (None,) * len(inflight.z.buffers)
+    return Packed(tuple(anchor_ops.pullback_rank(bz[None][:0], bz, bv, s, inflight.m, 0.0, inflight.beta, finish=True)
+                        for bz, bv, s in zip(inflight.z.buffers, vs, _wire_views(inflight.buf, inflight.z))),
+                  inflight.z.layout)
+
+
+def _rank_average_(px: Packed, mesh) -> None:
+    """Every row of every bucket takes the worker mean over all ranks: the
+    f32 row sums of this rank's rows, one blocking all-reduce, then
+    round(S / m) — :func:`_average_rows_`'s values."""
+    buf = _wire_buffer(px)
+    views = _wire_views(buf, px)
+    for b, s in zip(px.buffers, views):
+        rows = _rows(b)
+        for c in column_chunks(rows):
+            s[c] = row_sum(rows[:, c])
+    sharding.all_reduce_async(buf, mesh).wait()
+    m = px.lead_shape[0] * mesh.size
+    mt = torch.full((), float(m), dtype=torch.float32, device=buf.device)
+    for b, s in zip(px.buffers, views):
+        rows = _rows(b)
+        for c in column_chunks(rows):
+            rows[:, c].copy_((s[c] / mt).to(b.dtype).expand(rows.shape[0], -1))
+
+
+def check_rank_path(strategy, packed_step: bool = True, probe: bool = False, membership=None) -> None:
+    """Raise ``NotImplementedError`` (ROADMAP item 10b) for what the worker
+    mesh does not run: a strategy without a rank boundary, the per-leaf path
+    (``packed=False``, a legacy ``Algorithm``, an optimizer with no packed
+    step), offload, the consensus probe and a membership."""
+    if not strategy.packed or not packed_step:
+        raise sharding.unsupported_on_ranks("the per-leaf path (packed=False, a legacy Algorithm or an optimizer "
+                                            "without a packed step)")
+    if not strategy.rank_capable:
+        raise sharding.unsupported_on_ranks(f"strategy {strategy.name!r}")
+    if strategy.cfg.offload:
+        raise sharding.unsupported_on_ranks("AlgoConfig.offload")
+    if probe:
+        raise sharding.unsupported_on_ranks("the consensus probe (probe=True, adaptive tau)")
+    if membership is not None:
+        raise sharding.unsupported_on_ranks("a membership (faults)")
+
+
 class CommStrategy:
     """Base strategy: Local SGD without averaging (every hook a no-op).
 
@@ -198,6 +288,8 @@ class CommStrategy:
     # under AlgoConfig.offload the in-flight plane comes back to the device
     # at the boundary, unless the strategy reads it inside the window
     consumes_inflight_midround = False
+    # runs its boundary on a worker mesh (_rank_boundary)
+    rank_capable = False
 
     def __init__(self, cfg: AlgoConfig):
         self.cfg = cfg
@@ -247,7 +339,12 @@ class CommStrategy:
         also the pre-boundary plane's
         :class:`~repro_torch.kernels.consensus_probe.ConsensusStats`.
         ``membership`` masks the boundary. Per leaf, the two phases in turn;
-        packed, one fused pass (:meth:`_packed_boundary`)."""
+        packed, one fused pass (:meth:`_packed_boundary`); on a worker mesh
+        the rank boundary (:meth:`_rank_boundary`)."""
+        mesh = sharding.current_mesh()
+        if mesh is not None:
+            check_rank_path(self, packed_step=isinstance(x, Packed), probe=probe, membership=membership)
+            return self._rank_boundary(x, vars, inflight, mesh)
         if not self.packed:
             return self._boundary_phases(x, vars, inflight, probe=probe, membership=membership)
         px = _as_plane(x)
@@ -266,6 +363,12 @@ class CommStrategy:
         powersgd) the plane passes through."""
         return _with_stats((px, vars, None), packed_probe(px) if probe else None)
 
+    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh):
+        """The boundary of this rank's rows on a worker mesh; returns
+        ``(x, vars, inflight)``. Only the strategies with
+        :attr:`rank_capable` define it."""
+        raise sharding.unsupported_on_ranks(f"strategy {self.name!r}")
+
     # ---- diagnostics ----
     def metrics(self, x, vars: AlgoVars) -> dict:
         """``consensus_dist``: Σ_i ‖x_i − x̄‖² / m over the leaves (0-dim f32)."""
@@ -281,6 +384,7 @@ class SyncSGDStrategy(CommStrategy):
     """Fully synchronous SGD: the gradient mean every local step (τ = 1)."""
 
     name = "sync_sgd"
+    rank_capable = True
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
@@ -293,10 +397,18 @@ class SyncSGDStrategy(CommStrategy):
         return grads, vars
 
     def transform_grads_packed(self, pg: Packed, vars):
-        """One worker mean per bucket, written back to every worker's row."""
+        """One worker mean per bucket, written back to every worker's row; on
+        a worker mesh over all ranks (a blocking all-reduce a step)."""
+        mesh = sharding.current_mesh()
+        if mesh is not None:
+            _rank_average_(pg, mesh)
+            return pg, vars
         for b, g in zip(pg.buffers, _packed_worker_mean(pg).buffers):
             b.copy_(g.expand_as(b))
         return pg, vars
+
+    def _rank_boundary(self, px: Packed, vars, inflight, mesh):
+        return px, vars, None
 
 
 def _average_rows_(t: torch.Tensor, weights=None, mask=None) -> None:
@@ -313,6 +425,12 @@ class LocalSGDStrategy(CommStrategy):
     """Periodic model averaging, eq. (2); blocking: nothing is launched."""
 
     name = "local_sgd"
+    rank_capable = True
+
+    def _rank_boundary(self, px: Packed, vars, inflight, mesh):
+        """The worker mean over all ranks, blocking."""
+        _rank_average_(px, mesh)
+        return px, vars, None
 
     def boundary_apply(self, x, vars, inflight, membership=None):
         mask = None if membership is None else membership.mask
@@ -350,6 +468,7 @@ class OverlapLocalSGDStrategy(CommStrategy):
     K5's row form, then the worker mean and the momentum chain."""
 
     name = "overlap_local_sgd"
+    rank_capable = True
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
@@ -394,6 +513,30 @@ class OverlapLocalSGDStrategy(CommStrategy):
             outs = _pullback_mean(px, inflight, alpha, probe=probe, weights=weights)
         z_next = Packed(tuple(o[1] for o in outs), inflight.layout)
         return _with_stats((px, vars, z_next), _fused_stats(outs, px.lead_shape[0], probe))
+
+    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh):
+        """Wait on the all-reduce the last boundary launched (τ local steps
+        ran under it) and finish its anchor; pull this rank's rows back
+        toward it and launch the sum of their partial sums (K3/K4's rank
+        form, one launch a bucket, then one ``all_reduce_async``). The
+        first boundary (and the first after a drain) finds the final anchor
+        in ``inflight`` and starts at the pullback."""
+        alpha = self.cfg.alpha
+        beta = self.cfg.anchor_beta if self.momentum else None
+        pending = isinstance(inflight, RankInflight)
+        if pending:
+            inflight.handle.wait()
+            base, buf = inflight.z, inflight.buf
+        else:
+            base, buf = inflight, _wire_buffer(px)
+        m = px.lead_shape[0] * mesh.size
+        vs = vars.v.buffers if self.momentum else (None,) * len(px.buffers)
+        z = Packed(tuple(anchor_ops.pullback_rank(bx, bz, bv, s, m, alpha, beta, finish=pending)
+                         for bx, bz, bv, s in zip(px.buffers, base.buffers, vs, _wire_views(buf, px))), base.layout)
+        handle = sharding.all_reduce_async(buf, mesh)
+        if self.momentum:  # the consumed anchor, as on one device
+            vars = AlgoVars(z=z, v=vars.v, extra=vars.extra)
+        return px, vars, RankInflight(z=z, buf=buf, handle=handle, m=m, beta=beta)
 
 
 def _pullback_mean(px: Packed, z: Packed, alpha: float, mean_pre: bool = False, probe: bool = False, weights=None):

@@ -100,6 +100,26 @@
 // equal the plain version bit for bit. x is updated in place (each thread
 // reads x_i before it writes x'_i); the anchor outputs go to their own
 // buffers. Every op rounds on its own (__f*_rn intrinsics).
+// K3 and K4, rank form: the boundary of one rank's rows when the worker axis
+// is spread over torch.distributed ranks (repro_torch/parallel/sharding.py).
+// The stacked K3/K4 pull back all m rows and sum them in one pass; on W ranks
+// the worker sum is an all-reduce of per-rank f32 partial sums, launched at
+// boundary k and waited on at boundary k+1. So the rank form runs the two
+// ends of K3/K4 around that collective, per column j, in one pass:
+//   finish (S holds boundary k's worker sum S_k):
+//     mean = round(S_k / m)                 (K3/K4's __fdiv_rn and rounding)
+//     K3: v' = round(b v + (mean - z_k)),  z_{k+1} = round(z_k + v')
+//     K4: z_{k+1} = mean
+//   pull back the rank's r rows toward z_{k+1} (eq. 4) and write their f32
+//   sum, rows 0 .. r-1 in order, over S (the next all-reduce's input).
+// Without finish (the first boundary, or after a drain) z is the final
+// anchor and only the second part runs; with r = 0 (the drain) only the
+// first. The rounding chain is boundary_columns', op for op, so on one rank,
+// or on two ranks of one row each (a two-term f32 sum commutes), the run
+// equals the stacked one bit for bit. Bound by bytes: x read and written
+// (2 P r n), S read and written (8 n: f32 for bf16 planes too, as the
+// reference sums in f32), z read and z', v, v' (4 P n; K4 reads no z when it
+// finishes and writes z' alone). Replaces the same Pallas kernels as K3/K4.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -303,6 +323,95 @@ boundary_kernel(T* __restrict__ x, const T* __restrict__ z, T* __restrict__ v, T
   if constexpr (kProbe) probe_finish(drift, scale, p);
 }
 
+// V consecutive floats of the rank form's f32 wire buffer, as 16-byte
+// accesses when V is a multiple of 4 (the caller's vector path aligns them).
+template <int V>
+__device__ __forceinline__ void load_f32(float* d, const float* p) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) *reinterpret_cast<float4*>(d + 4 * q) = *reinterpret_cast<const float4*>(p + 4 * q);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) d[k] = p[k];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_f32(float* p, const float* d) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) *reinterpret_cast<float4*>(p + 4 * q) = *reinterpret_cast<const float4*>(d + 4 * q);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) p[k] = d[k];
+  }
+}
+
+struct RankArgs {
+  float oma, alpha, beta;
+  int rows;    // this rank's rows of x (0: finish only, the drain)
+  int m;       // the worker count over all ranks (the mean's divisor)
+  int finish;  // s holds the last boundary's worker sum: finish its anchor first
+};
+
+// The rank form on columns j0 .. j0+V-1 (see the header). v == nullptr: K4.
+template <typename T, int V>
+__device__ __forceinline__ void rank_columns(T* x, const T* z, T* v, float* s, T* z_out, long long n, long long j0,
+                                             const RankArgs& a) {
+  Lanes<T, V> zr;
+  if (!a.finish || v != nullptr) zr.load(z + j0);
+  if (a.finish) {
+    float sr[V];
+    load_f32<V>(sr, s + j0);
+    Lanes<T, V> vr{};
+    if (v != nullptr) vr.load(v + j0);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const T mean = from_f<T>(__fdiv_rn(sr[k], (float)a.m));
+      if (v == nullptr) {
+        zr.e[k] = mean;
+      } else {
+        const float zf = to_f(zr.e[k]);
+        vr.e[k] = from_f<T>(__fadd_rn(__fmul_rn(a.beta, to_f(vr.e[k])), __fsub_rn(to_f(mean), zf)));
+        zr.e[k] = from_f<T>(__fadd_rn(zf, to_f(vr.e[k])));
+      }
+    }
+    if (v != nullptr) vr.store(v + j0);
+    zr.store(z_out + j0);
+  }
+  if (a.rows == 0) return;
+  float acc[V];
+  for (int i = 0; i < a.rows; ++i) {
+    T* row = x + (long long)i * n + j0;
+    Lanes<T, V> xr;
+    xr.load(row);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      xr.e[k] = from_f<T>(__fadd_rn(__fmul_rn(a.oma, to_f(xr.e[k])), __fmul_rn(a.alpha, to_f(zr.e[k]))));
+      const float term = to_f(xr.e[k]);
+      acc[k] = i == 0 ? term : __fadd_rn(acc[k], term);
+    }
+    xr.store(row);
+  }
+  store_f32<V>(s + j0, acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rank_kernel(T* __restrict__ x, const T* __restrict__ z, T* __restrict__ v, float* __restrict__ s,
+            T* __restrict__ z_out, long long n, RankArgs a, int vec) {
+  constexpr int V = 16 / sizeof(T);
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n / V;
+    for (long long c = tid; c < nv; c += step) rank_columns<T, V>(x, z, v, s, z_out, n, c * V, a);
+    done = nv * V;
+  }
+  for (long long j = done + tid; j < n; j += step) rank_columns<T, 1>(x, z, v, s, z_out, n, j, a);
+}
+
 // K8 standalone: the same grid and column mapping as boundary_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -344,6 +453,18 @@ int launch(void* x, const void* z, void* v, void* z_out, const float* w, long lo
     boundary_kernel<T, true><<<grid_for<T>(n), kThreads, 0, st>>>(xt, zt, vt, ot, w, n, a, vec, p);
   else
     boundary_kernel<T, false><<<grid_for<T>(n), kThreads, 0, st>>>(xt, zt, vt, ot, w, n, a, vec, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_rank(void* x, const void* z, void* v, float* s, void* z_out, long long n, const RankArgs& a,
+                cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  // rows are n apart: the vector path needs n to keep every row 16-byte aligned
+  const int vec = (n % V == 0) && aligned16(x) && aligned16(z) && aligned16(s) && aligned16(z_out) &&
+                  aligned16(v);
+  rank_kernel<T><<<grid_for<T>(n), kThreads, 0, st>>>(static_cast<T*>(x), static_cast<const T*>(z),
+                                                       static_cast<T*>(v), s, static_cast<T*>(z_out), n, a, vec);
   return (int)cudaGetLastError();
 }
 
@@ -640,6 +761,23 @@ extern "C" int pullback_momentum_launch(void* x, const void* z, void* v, const v
                                         void* counter, int dtype, void* stream) {
   const MixArgs a{oma, alpha, beta, m, 0};
   return dispatch(x, z, v, z_next, w, m, n, a, probe_args(stats, ws, counter), dtype, stream);
+}
+
+// K3/K4, rank form. x: (rows, n), this rank's rows, updated in place (rows 0:
+// the drain); z: (n,) the anchor (finish: z_k, the momentum's base; else the
+// final anchor); v: (n,) updated in place, or null (K4); s: (n,) float32,
+// read when finish (S_k), overwritten with the rows' partial sum when rows
+// > 0; z_out: (n,) z_{k+1}, written when finish. m: the worker count over
+// all ranks. dtype: 0 = float32, 1 = bfloat16 (x, z, v, z_out).
+extern "C" int pullback_rank_launch(void* x, const void* z, void* v, void* s, void* z_out, int rows, long long n,
+                                    int m, float oma, float alpha, float beta, int finish, int dtype, void* stream) {
+  if (n <= 0 || rows < 0 || m <= 0) return n <= 0 ? 0 : (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const RankArgs a{oma, alpha, beta, rows, m, finish};
+  float* sf = static_cast<float*>(s);
+  if (dtype == 0) return launch_rank<float>(x, z, v, sf, z_out, n, a, st);
+  if (dtype == 1) return launch_rank<__nv_bfloat16>(x, z, v, sf, z_out, n, a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K8. x: (m, n) read; stats: (2,) float32 written, [drift_sq, scale_sq];

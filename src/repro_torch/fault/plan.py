@@ -175,9 +175,19 @@ class FaultPlan:
         return dict(events=self.events(), rounds=rounds, degraded=len(schedule), schedule=schedule)
 
     def runtime_config(self, base=None):
-        """A runtime-model config matched to this plan: the runtime model
-        (``core/runtime_model``) is not ported yet."""
-        raise NotImplementedError("FaultPlan.runtime_config needs core/runtime_model, ROADMAP Queue 1 item 10")
+        """A :class:`repro_torch.core.runtime_model.RuntimeConfig` matched to
+        this plan: worker count and seed from the plan, the cfg's own
+        straggler knobs zeroed — when ``simulate(..., fault_plan=self)``
+        runs, the plan's per-round factors are the straggler model, and
+        leaving the cfg knobs on would double-count the noise. ``base``
+        supplies the hardware constants (e.g.
+        :func:`~repro_torch.core.runtime_model.calibrated_config` output)."""
+        from dataclasses import replace
+
+        from repro_torch.core.runtime_model import RuntimeConfig
+
+        cfg = base if base is not None else RuntimeConfig()
+        return replace(cfg, m=self.m, seed=self.seed, straggle_std=0.0, straggle_prob=0.0)
 
     def fault_reason(self, r: int) -> Optional[str]:
         """Compact per-round label for controller telemetry (None = clean)."""

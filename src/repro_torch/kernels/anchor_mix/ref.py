@@ -2,7 +2,8 @@
 ``repro.kernels.anchor_mix.ref`` (counterpart; the CUDA kernels in
 ``csrc/anchor_mix.cu`` compute the same chain): the plain pullback
 :func:`anchor_mix` (K5, also its row form), the gossip boundary :func:`gossip_boundary` (K5's
-gossip form) and the fused boundaries (K3, K4).
+gossip form), the fused boundaries (K3, K4) and their rank form
+:func:`pullback_rank` (the worker axis over ranks).
 
 The worker mean is summed in float32 in the fixed order i = 0 .. m-1 and
 divided by m (a true division, by a tensor: PyTorch divides by a Python
@@ -49,14 +50,24 @@ def push(peff: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def row_sum(src: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of the rows of ``src`` (r, n), in order 0 .. r−1."""
+    acc = src[0].float()
+    for i in range(1, src.shape[0]):
+        acc = acc + src[i].float()
+    return acc
+
+
+def _over_m(acc: torch.Tensor, m: int) -> torch.Tensor:
+    """acc / m, a true division by a tensor (the kernels' __fdiv_rn)."""
+    return acc / torch.full((), float(m), dtype=torch.float32, device=acc.device)
+
+
 def worker_mean(src: torch.Tensor, weights=None) -> torch.Tensor:
     """f32 mean over the rows of ``src`` (m, n) in order, or the weighted sum."""
     m = src.shape[0]
     if weights is None:
-        acc = src[0].float()
-        for i in range(1, m):
-            acc = acc + src[i].float()
-        return acc / torch.full((), float(m), dtype=torch.float32, device=src.device)
+        return _over_m(row_sum(src), m)
     w = weights.float()
     acc = src[0].float() * w[0]
     for i in range(1, m):
@@ -84,3 +95,26 @@ def pullback_mean_momentum(x, z, v, alpha: float, beta: float, weights=None):
     v_new = (beta * v.float() + (mean.float() - zf)).to(v.dtype)
     z_next = (zf + v_new.float()).to(z.dtype)
     return x_new, z_next, v_new
+
+
+def pullback_rank(x, z, v, s, m: int, alpha: float, beta, finish: bool):
+    """K3/K4's rank form: the boundary of one rank's rows ``x`` (r, n) when
+    the worker axis is spread over ranks. With ``finish``, first the tail of
+    K3/K4 on ``s``, the f32 worker sum of the last boundary over all m
+    workers: mean = round(s / m); K3 (``v`` given): v' = round(β·v + (mean −
+    z)), z' = round(z + v'); K4: z' = mean. Then the rows pulled back toward
+    z' (eq. 4; toward z without ``finish``) and their f32 partial sum in row
+    order (None for r = 0). Returns new (x_new, z', v' or None, partial)."""
+    v_new = None
+    if finish:
+        mean = _over_m(s, m).to(z.dtype)
+        if v is None:
+            z_next = mean
+        else:
+            zf = z.float()
+            v_new = (beta * v.float() + (mean.float() - zf)).to(v.dtype)
+            z_next = (zf + v_new.float()).to(z.dtype)
+    else:
+        z_next = z
+    x_new = ((1.0 - alpha) * x.float() + alpha * z_next.float()[None]).to(x.dtype)
+    return x_new, z_next, v_new, (row_sum(x_new) if x.shape[0] else None)

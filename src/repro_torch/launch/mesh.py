@@ -1,0 +1,30 @@
+"""Worker meshes (counterpart of ``repro.launch.mesh``).
+
+:func:`make_smoke_mesh` makes the worker mesh of an initialised process
+group: one process a worker rank, each holding m/W rows of the plane
+(:mod:`repro_torch.parallel.sharding`)::
+
+    torch.distributed.init_process_group("nccl", init_method=..., world_size=W, rank=r)
+    with mesh_context(make_smoke_mesh(W)):
+        exp = Experiment(arch="qwen2-7b", workers=m).build()   # the rank's m/W rows
+        ...
+
+The reference's production mesh (``make_production_mesh``, the v5e pod)
+and its TPU constants wait for ROADMAP Queue 1 item 10d; within-worker
+sharding (fsdp, tensor > 1) for item 10c.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.config.base import ParallelPlan
+from repro_torch.parallel.sharding import WorkerMesh, logical_mesh
+
+
+def make_smoke_mesh(workers: int = 2, fsdp: int = 1, tensor: int = 1, *, device="cuda",
+                    backend: Optional[str] = None) -> WorkerMesh:
+    """The mesh of ``workers`` ranks over the default process group: NCCL
+    on the rank's card (``device="cuda"``: the card of ``LOCAL_RANK``),
+    gloo with ``device="cpu"``. ``backend`` names another (gloo on CUDA
+    tensors lets two ranks share one card); nothing picks it on its own."""
+    return logical_mesh(ParallelPlan(workers, fsdp, tensor), device=device, backend=backend)

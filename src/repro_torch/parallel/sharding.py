@@ -1,0 +1,129 @@
+"""The worker axis over ``torch.distributed`` ranks (counterpart of the
+worker axis of ``repro.parallel.sharding``).
+
+The reference lays a logical (worker, fsdp, tensor) mesh over its devices
+and lets XLA's partitioner place the worker-stacked plane along the worker
+axis. Here a mesh is a process group of W ranks, one card each (NCCL) or CPU
+ranks (gloo). Rank r holds the rows ``[r·m/W, (r+1)·m/W)`` of every
+``(m, n)`` bucket of the plane; the anchor z, its momentum v and the
+optimizer's scalars are replicated, equal bit for bit on every rank. The
+worker-mean "collective" of a boundary is then a real one: each rank sums
+its own rows in f32 and :func:`all_reduce_async` adds the partial sums over
+the ranks, launched at one boundary and waited on at the next
+(:class:`repro_torch.core.strategy.RankInflight`).
+
+A mesh is entered with :func:`mesh_context`; while one is current,
+``make_train_state`` builds the rank's rows and the round engine slices its
+rows of each round batch and runs the strategies' rank boundaries.
+
+Only the worker axis is here (ROADMAP Queue 1 item 10a). Within-worker
+sharding (fsdp, tensor), the logical rule table and the ZeRO-sharded anchor
+are item 10c; the paths that raise on a mesh name item 10b
+(:func:`unsupported_on_ranks`).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.config.base import ParallelPlan
+
+
+@dataclass(frozen=True)
+class WorkerMesh:
+    """W ranks along the worker axis: ``group`` is their process group,
+    ``rank`` this process's place in it, ``device`` the card (or the CPU)
+    that holds its rows."""
+
+    group: Any
+    rank: int
+    size: int
+    device: torch.device
+
+    def rows(self, m: int) -> Tuple[int, int]:
+        """This rank's rows ``[lo, hi)`` of m workers; m must divide by W."""
+        if m < self.size or m % self.size:
+            raise ValueError(f"m={m} workers do not divide over {self.size} ranks")
+        per = m // self.size
+        return self.rank * per, (self.rank + 1) * per
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh: Optional[WorkerMesh] = None
+
+
+_CTX = _Ctx()
+
+
+def unsupported_on_ranks(what: str, item: str = "10b") -> NotImplementedError:
+    """The error of a path not ported to a worker mesh (ROADMAP Queue 1)."""
+    return NotImplementedError(f"{what} on a worker mesh (torch.distributed ranks): ROADMAP Queue 1 item {item}")
+
+
+def _rank_device(device) -> torch.device:
+    """``device`` for this rank: ``"cuda"`` is the card of ``LOCAL_RANK``
+    (else of the rank) modulo the cards present; the CPU as it is."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' for CPU ranks over gloo")
+        if dev.index is None:
+            local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+            dev = torch.device("cuda", local % torch.cuda.device_count())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def logical_mesh(plan: ParallelPlan, device="cuda", backend: Optional[str] = None) -> WorkerMesh:
+    """The worker mesh of ``plan`` over the initialised default process
+    group (``torch.distributed.init_process_group``, one process a worker
+    rank; every rank calls this). Its worker group is NCCL on a card, gloo
+    on the CPU; ``backend`` overrides that choice (gloo on CUDA tensors: two
+    ranks sharing one card). fsdp or tensor > 1 raise (item 10c)."""
+    if plan.fsdp != 1 or plan.tensor != 1:
+        raise unsupported_on_ranks(f"within-worker sharding (fsdp={plan.fsdp}, tensor={plan.tensor})", "10c")
+    if not dist.is_initialized():
+        raise RuntimeError("logical_mesh needs an initialised process group (torch.distributed.init_process_group)")
+    world = dist.get_world_size()
+    if plan.workers != world:
+        raise ValueError(f"a mesh of {plan.workers} worker ranks needs as many processes, the group has {world}")
+    dev = _rank_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    group = dist.new_group(ranks=list(range(world)), backend=backend or ("nccl" if dev.type == "cuda" else "gloo"))
+    return WorkerMesh(group=group, rank=dist.get_rank(), size=world, device=dev)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: WorkerMesh):
+    """Make ``mesh`` current in this thread for the duration."""
+    prev = _CTX.mesh
+    _CTX.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _CTX.mesh = prev
+
+
+def current_mesh() -> Optional[WorkerMesh]:
+    """The mesh of the enclosing :func:`mesh_context`, or None (one process
+    holds all m workers)."""
+    return _CTX.mesh
+
+
+def all_reduce_async(buf: torch.Tensor, mesh: Optional[WorkerMesh] = None):
+    """Launch the sum of ``buf`` over the worker ranks, in place; returns the
+    handle, whose ``wait()`` makes the sum visible (on a card: orders the
+    current stream after it)."""
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        raise RuntimeError("all_reduce_async needs a worker mesh (mesh_context)")
+    return dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group, async_op=True)

@@ -48,6 +48,14 @@ unchanged); with ``probe=True`` the round's metrics also hold the
 pre-boundary plane's ``consensus_drift`` and ``consensus_scale`` (0-dim),
 the adaptive-τ controller's inputs.
 
+On a worker mesh (:mod:`repro_torch.parallel.sharding`) the state holds
+this rank's m/W rows; a round takes the full ``(τ, m, b, …)`` batch and
+slices the rank's rows, runs the local steps on its rows unchanged, and
+ends in the strategy's rank boundary, whose collective may still be in
+flight when the round returns. :func:`drain` waits on it and finishes the
+anchor, so that the state equals the one-device run's at the same step.
+Per-worker metrics are the rank's own rows.
+
 With ``AlgoConfig.offload`` (the reference's residency, DESIGN.md §9) the
 optimizer state, vars and the in-flight plane are host-resident
 :class:`~repro_torch.parallel.offload.HostPlane` trees between rounds; x
@@ -66,7 +74,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.core.strategy import as_strategy
+from repro_torch.core.strategy import RankInflight, as_strategy, check_rank_path, finish_inflight
 from repro_torch.optim.optimizers import (
     Optimizer,
     clip_by_global_norm_,
@@ -75,6 +83,7 @@ from repro_torch.optim.optimizers import (
     packed_capable,
 )
 from repro_torch.parallel import offload as off
+from repro_torch.parallel import sharding
 from repro_torch.parallel.packing import (
     Packed,
     leaf_views,
@@ -211,6 +220,14 @@ def make_round_step(
         x, opt, vars, step, inflight, membership = state
         if packed_step and not isinstance(x, Packed):
             x = pack(x, lead=1)  # a per-leaf x migrates into the plane
+        mesh = sharding.current_mesh()
+        if mesh is not None:  # this rank's rows of the round batch
+            check_rank_path(strategy, packed_step=packed_step, probe=probe, membership=membership)
+            lo, hi = mesh.rows(x.lead_shape[0] * mesh.size)
+            if _first(round_batch).shape[1] != mesh.size * (hi - lo):
+                raise ValueError(f"on a worker mesh a round batch holds all {mesh.size * (hi - lo)} workers, "
+                                 f"got {_first(round_batch).shape[1]}")
+            round_batch = batch_map(lambda t: t[:, lo:hi], round_batch)
         if offload_on:
             plan = off.plan_of(opt)
             if plan is None:  # adoption: a resident state entering the offloaded engine
@@ -261,3 +278,14 @@ def make_round_step(
         return TrainState(x=x, opt=opt, vars=vars, step=step, inflight=inflight, membership=membership), metrics
 
     return round_step
+
+
+def drain(state: TrainState) -> TrainState:
+    """Wait on the collective a rank boundary left in flight and finish its
+    anchor: ``state.inflight`` and ``state.vars`` then equal the one-device
+    run's at the same step. Idempotent, and a no-op off a worker mesh; the
+    next boundary starts at its pullback. Call it at the end of a run and
+    before anything reads the anchor."""
+    if not isinstance(state.inflight, RankInflight):
+        return state
+    return state._replace(inflight=finish_inflight(state.inflight, state.vars))

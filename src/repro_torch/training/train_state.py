@@ -16,6 +16,11 @@ per-leaf x for its own slots, as the reference does); ``membership`` the
 live workers of a degraded round (``None``: fully live), which the fault
 harness installs and clears between rounds.
 
+On a worker mesh (:func:`repro_torch.parallel.sharding.mesh_context`) the
+state is this rank's: x holds its m/W rows (m must divide by W) and the
+optimizer state matches them, while vars and the first in-flight anchor are
+built from the full ``params``, as on one device, and stay replicated.
+
 With ``AlgoConfig.offload`` the state is built offloaded, as the reference
 builds it: ``opt``, ``vars`` and ``inflight`` are
 :class:`~repro_torch.parallel.offload.HostPlane` trees from the start (x
@@ -27,9 +32,10 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.strategy import AlgoVars, as_strategy
+from repro_torch.core.strategy import AlgoVars, as_strategy, check_rank_path
 from repro_torch.optim.optimizers import Optimizer, offload_capable, packed_capable
 from repro_torch.parallel import offload as off
+from repro_torch.parallel import sharding
 from repro_torch.parallel.packing import Packed, leaf_views, pack, tree_flatten, tree_unflatten
 
 
@@ -44,8 +50,14 @@ class TrainState(NamedTuple):
 
 def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy) -> TrainState:
     """All m workers start at ``params`` (Theorem 1's initialization).
-    ``strategy``: a CommStrategy or a legacy ``Algorithm`` (wrapped)."""
+    ``strategy``: a CommStrategy or a legacy ``Algorithm`` (wrapped). On a
+    worker mesh, this rank's m/W of them."""
     strategy = as_strategy(strategy)
+    mesh = sharding.current_mesh()
+    if mesh is not None:
+        check_rank_path(strategy, packed_step=packed_capable(optimizer))
+        lo, hi = mesh.rows(m)
+        m = hi - lo
     leaves, paths = tree_flatten(params)
     stacked = [t.expand(m, *t.shape) for t in leaves]
     if strategy.packed and packed_capable(optimizer):

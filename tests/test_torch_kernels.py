@@ -21,7 +21,9 @@ recompute, and dS = p∘(dP − Δ) cancels; observed ≤ 1.7e-2). Paged append:
 own kernel tolerance: online vs two-pass softmax). Optimizer steps (K1, K2)
 and fused boundaries (K3, K4): f32 within 2 ulp (XLA's CPU fusion may
 contract or reorder the reference's ops), bf16 equal or 1 bf16 ulp (XLA may
-keep an f32 intermediate where the reference rounds to bf16). The plain
+keep an f32 intermediate where the reference rounds to bf16); their rank
+form on one rank of every row (a launch, then the drain) the same bounds,
+and bit for bit the plain stacked K3/K4. The plain
 pullback (K5): bitwise against the reference's ``ref.py``, and within one
 ulp of max(|x|, |z|) of the Pallas kernel in interpret mode (which
 contracts ``a*b + c``). K5's gossip form (the gossip boundary in one pass):
@@ -857,6 +859,91 @@ def test_pullback_plain_matches_jax(against, dtype, m, rng, jx):
                 _close(a.float().numpy(), np.asarray(b.astype(jx.jnp.float32)), dtype, sc)
 
 
+def _rank_chain(x, z, v, alpha, beta, splits=(None,)):
+    """K3/K4's rank form over ranks holding the row ranges ``splits``
+    (``None``: all rows on one rank): each rank's first launch (no finish),
+    the partial sums added in rank order (the all-reduce), then the drain
+    (rows 0, finish). Returns (x', the partial sums, z', v')."""
+    m, n = x.shape
+    bounds = [0] + [s for s in splits if s is not None] + [m]
+    x = x.clone()
+    vv = None if v is None else v.clone()
+    total = None
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        s = torch.empty(n)
+        assert am_ops.pullback_rank(x[lo:hi], z, vv, s, m, alpha, beta, finish=False) is z
+        total = s.clone() if total is None else total + s
+    z_next = am_ops.pullback_rank(x[:0], z, vv, total, m, alpha, beta, finish=True)
+    return x, total, z_next, vv
+
+
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("against", ["ref", "pallas_interpret"])
+def test_pullback_rank_plain_matches_jax(against, dtype, m, rng, jx):
+    """K3/K4's rank form on one rank holding every row (the first
+    boundary's launch, then the drain) gives the reference's fused boundary:
+    the pulled-back rows, and K3's new anchor and momentum or K4's mean,
+    within the bounds of ``test_pullback_plain_matches_jax``."""
+    n, alpha, beta = 384, 0.6, 0.7
+    tdt = getattr(torch, dtype)
+    x = rng.normal(size=(m, n)).astype(np.float32)
+    z = rng.normal(size=(n,)).astype(np.float32)
+    v = 0.1 * rng.normal(size=(n,)).astype(np.float32)
+    jx_ = lambda a: jx.jnp.asarray(a, dtype)  # noqa: E731
+    want = _jax_call(jx, against, "am.pullback_mean_momentum.pullback_mean_momentum", jx_(x), jx_(z), jx_(v), alpha,
+                     beta)
+    xr, _, z_next, v_new = _rank_chain(_t(x, tdt), _t(z, tdt), _t(v, tdt), alpha, beta)
+    for a, b in zip((xr, z_next, v_new), want):
+        sc = _scale(against, x, z[None], v[None], like=a)
+        _close(a.float().numpy(), np.asarray(b.astype(jx.jnp.float32)), dtype, sc)
+    want = _jax_call(jx, against, "am.pullback_mean.pullback_mean", jx_(x), jx_(z), alpha)
+    xr, _, mean, none = _rank_chain(_t(x, tdt), _t(z, tdt), None, alpha, None)
+    assert none is None
+    for a, b in zip((xr, mean), want):
+        _close(a.float().numpy(), np.asarray(b.astype(jx.jnp.float32)), dtype, _scale(against, x, z[None], like=a))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pullback_rank_is_the_stacked_boundary_bitwise(dtype, rng):
+    """The plain rank form against the plain stacked K3/K4, bit for bit: on
+    one rank of m rows, on m ranks of one row at m 2 (a two-term f32 sum
+    commutes), and a finishing launch (S, z, v → z', then the pullback
+    toward z') against the next stacked boundary, which consumes that z'."""
+    n, alpha, beta = 1000, 0.6, 0.7
+    x = _t(rng.normal(size=(2, n)).astype(np.float32), dtype)
+    z = _t(rng.normal(size=(n,)).astype(np.float32), dtype)
+    v = _t(0.1 * rng.normal(size=(n,)).astype(np.float32), dtype)
+    x_a, z_a, v_a = am_ref.pullback_mean_momentum(x, z, v, alpha, beta)
+    x_b, mean_b = am_ref.pullback_mean(x, z, alpha)
+    for splits in ((None,), (1,)):
+        xr, total, z_next, vr = _rank_chain(x, z, v, alpha, beta, splits)
+        assert torch.equal(xr, x_a) and torch.equal(z_next, z_a) and torch.equal(vr, v_a)
+        assert torch.equal(total, am_ref.row_sum(x_a))
+        xr, _, mean, _ = _rank_chain(x, z, None, alpha, None, splits)
+        assert torch.equal(xr, x_b) and torch.equal(mean, mean_b)
+    # a later boundary: finish from S, pull back toward the new anchor
+    x2 = _t(rng.normal(size=(2, n)).astype(np.float32), dtype)
+    s = am_ref.row_sum(x_a)
+    vr, xr = v.clone(), x2.clone()
+    z1 = am_ops.pullback_rank(xr, z, vr, s, 2, alpha, beta, finish=True)
+    want_x, _, _ = am_ref.pullback_mean_momentum(x2, z_a, v_a.clone(), alpha, beta)
+    assert torch.equal(z1, z_a) and torch.equal(vr, v_a) and torch.equal(xr, want_x)
+    assert torch.equal(s, am_ref.row_sum(want_x))
+
+
+def test_pullback_rank_checks():
+    x, z = torch.zeros(2, 8), torch.zeros(8)
+    with pytest.raises(ValueError, match="float32"):
+        am_ops.pullback_rank(x, z, None, torch.zeros(8, dtype=torch.bfloat16), 2, 0.6, None, False)
+    with pytest.raises(ValueError, match=r"\(8,\)"):
+        am_ops.pullback_rank(x, z, None, torch.zeros(7), 2, 0.6, None, False)
+    with pytest.raises(ValueError, match="beta"):
+        am_ops.pullback_rank(x, z, z.clone(), torch.zeros(8), 2, 0.6, None, True)
+    with pytest.raises(ValueError, match="anchor"):
+        am_ops.pullback_rank(x, z.bfloat16(), None, torch.zeros(8), 2, 0.6, None, False)
+
+
 def test_worker_mean_sums_rows_in_order(rng):
     """The plain worker mean is the f32 row sum in order 0..m-1 over m — the
     order the CUDA kernel uses, so the card can hold them bit for bit."""
@@ -907,6 +994,8 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7)
     am_ops.pullback_mean(buf, buf[0].clone(), 0.6, probe=True)
     am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7, probe=True)
+    am_ops.pullback_rank(buf, buf[0].clone(), buf[0].clone(), torch.zeros(128), 2, 0.6, 0.7, finish=True)
+    am_ops.pullback_rank(buf[:0], buf[0].clone(), None, torch.zeros(128), 2, 0.6, None, finish=True)
     probe_ops.probe_buffer(buf)
     fq = _t(rng.normal(size=(1, 4, 2, 64)).astype(np.float32)).requires_grad_(True)
     fa_ops.flash_attention(fq, fq[:, :, :1], fq[:, :, :1]).sum().backward()
@@ -1200,6 +1289,48 @@ def test_anchor_mix_kernels_bitwise_on_card(cuda, dtype, masked):
         want = am_ref.pullback_mean(x, z, 0.6, mean_pre=mean_pre, weights=w)
         got = am_ops.pullback_mean(x.clone(), z, 0.6, mean_pre=mean_pre, weights=w)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# K3/K4's rank form on the card: phase 11(a)'s shapes, the classifier's
+# plane (17,408 columns) and a ragged width (the scalar tail), 1 and 2 rows
+RANK_CARD = [(17408, 1), (17408, 2), (100003, 1), (100003, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("momentum", [True, False], ids=["K3", "K4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,rows", RANK_CARD)
+def test_pullback_rank_kernel_bitwise_on_card(cuda, n, rows, dtype, momentum):
+    """The rank form against its plain version, bit for bit: the first
+    boundary's launch (no finish), a later one (finish from S, then the
+    pullback), the drain (no rows); one launch counted on its kernel each,
+    the wire buffer's partial sums too; a view off 16-byte alignment takes
+    the scalar path with the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(n + rows)
+    x = torch.randn(rows, n, generator=gen, device=cuda).to(dtype)
+    z = torch.randn(n, generator=gen, device=cuda).to(dtype)
+    v = (0.1 * torch.randn(n, generator=gen, device=cuda)).to(dtype) if momentum else None
+    s = 3.0 * torch.randn(n, generator=gen, device=cuda)
+    kernel = am_ops.MOMENTUM_RANK if momentum else am_ops.MEAN_RANK
+    for finish, xs in ((False, x), (True, x), (True, x[:0])):
+        x_new, z_next, v_new, partial = am_ref.pullback_rank(xs, z, v, s, 4, 0.6, 0.7 if momentum else None, finish)
+        gx, gv, gs = xs.clone(), None if v is None else v.clone(), s.clone()
+        before = kernel.launches
+        gz = am_ops.pullback_rank(gx, z, gv, gs, 4, 0.6, 0.7 if momentum else None, finish)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(gx, x_new) and torch.equal(gz, z_next)
+        assert (gz is z) == (not finish)
+        if momentum:
+            assert torch.equal(gv, v_new if finish else v)
+        assert torch.equal(gs, s if partial is None else partial)
+    buf = torch.zeros(rows * n + 1, dtype=dtype, device=cuda)
+    xo = buf[1:].view(rows, n)  # contiguous, one element off 16-byte alignment
+    xo.copy_(x)
+    x_new, z_next, _, partial = am_ref.pullback_rank(x, z, v, s, 4, 0.6, 0.7 if momentum else None, True)
+    gs = s.clone()
+    gz = am_ops.pullback_rank(xo, z, None if v is None else v.clone(), gs, 4, 0.6, 0.7 if momentum else None, True)
+    assert torch.equal(xo, x_new) and torch.equal(gz, z_next) and torch.equal(gs, partial)
 
 
 @pytest.mark.cuda

@@ -342,8 +342,10 @@ def test_experiment_defaults_to_cuda():
 
 
 def test_unported_paths_raise_with_their_roadmap_item():
-    """What still raises, naming its ROADMAP item: the runtime model behind
-    ``FaultPlan.runtime_config`` (10). The per-leaf oracle (``packed=False``,
+    """What still raises, naming its ROADMAP item: the paths not ported to a
+    worker mesh (10b, ``tests/test_torch_dist.py``). The runtime model
+    behind ``FaultPlan.runtime_config`` is ported (10a), the plan's m and
+    seed on the paper's constants. The per-leaf oracle (``packed=False``,
     item 4b) builds and runs one probed, masked boundary per leaf.
     Host offload (item 9) builds and runs a round with finite losses; M-RoPE
     archs (item 8) build and run a round; the probe and the membership of every boundary,
@@ -364,8 +366,8 @@ def test_unported_paths_raise_with_their_roadmap_item():
     assert type(off_exp.state.opt.momentum).__name__ == "HostPlane"
     with pytest.raises(SystemExit):  # the launcher's flags: an unknown strategy
         train_cli.main(["--arch", "qwen2-7b", "--device", "cpu", "--algo", "bogus"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FaultPlan(m=2).runtime_config()
+    rt = FaultPlan(m=2, seed=3).runtime_config()
+    assert (rt.m, rt.seed, rt.straggle_std, rt.straggle_prob, rt.t_step) == (2, 3, 0.0, 0.0, 0.19)
     for name in ("overlap_local_sgd", "easgd", "delayed_avg", "gossip_ring", "loscar"):
         leafy = make_strategy(AlgoConfig(name=name, packed=False))
         assert not leafy.packed

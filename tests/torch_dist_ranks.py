@@ -1,0 +1,209 @@
+"""Rank program of ``tests/test_torch_dist.py``: W gloo ranks on the CPU,
+spawned with ``torch.multiprocessing``, each training its m/W rows of the
+cases handed to it. Importing JAX here fails (``sys.modules["jax"] = None``
+in every process), so the ranks run the port alone.
+
+    python tests/torch_dist_ranks.py CASES.pkl OUT_DIR W
+
+``CASES.pkl`` holds a list of cases (see :func:`run_case`); each rank writes
+``OUT_DIR/rank<r>.pkl``, the results of every case, and the program exits 0
+when every rank did. The test process imports this module and calls
+:func:`run_case` itself, with no mesh, for the one-process run of the same
+cases.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import pickle
+import sys
+import time
+import traceback
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+if SRC not in sys.path:
+    sys.path.insert(0, SRC)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# one case: model ("classifier" or an arch name, reduced), strategy (AlgoConfig
+# fields), dtype, m, params (nested dict of float32 numpy arrays), batches
+# (one numpy round batch a round: a tuple, or a dict for an LM), lr (None:
+# the OptimizerConfig default and its schedule), record (trace the
+# collectives and the optimizer steps)
+
+
+def _planes(p) -> list:
+    return [b.float().numpy().copy() for b in p.buffers]
+
+
+def _params(case):
+    from repro_torch import interop
+
+    return interop.params_from_numpy(case["params"], dtype=getattr(torch, case["dtype"]))
+
+
+def _step_and_state(case, params, rec=None):
+    from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
+    from repro_torch.core import make_strategy
+    from repro_torch.models import classifier as clf
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import from_config, schedules
+    from repro_torch.training import make_round_step, make_train_state
+
+    lr = case.get("lr")
+    ocfg = OptimizerConfig() if lr is None else OptimizerConfig(name="sgd", lr=lr)
+    sched = schedules.from_config(ocfg) if lr is None else schedules.constant(lr)
+    opt, strat = from_config(ocfg), make_strategy(AlgoConfig(**case["strategy"]))
+    if rec is not None:
+        opt = rec.wrap(opt)
+    if case["model"] == "classifier":
+        loss, split = clf.mlp_loss, None
+    else:
+        cfg = dataclasses.replace(get_arch(case["model"]).model.reduced(), dtype=case["dtype"])
+        loss, split = (lambda p, b: T.lm_loss(cfg, p, b)), T.split_layers
+    state = make_train_state(params, case["m"], opt, strat)
+    return make_round_step(loss, opt, strat, sched, per_worker=split), state
+
+
+def _batch(nb):
+    if isinstance(nb, dict):
+        return {k: torch.from_numpy(np.array(v)) for k, v in nb.items()}
+    return tuple(torch.from_numpy(np.array(v)) for v in nb)
+
+
+class _Recorder:
+    """Wraps ``sharding.all_reduce_async`` (until :meth:`close`) and an
+    optimizer's packed step (:meth:`wrap`): ``events`` lists ("step",),
+    ("launch", k) and ("wait", k) in order."""
+
+    def __init__(self):
+        from repro_torch.parallel import sharding
+
+        self.events, self.sharding = [], sharding
+        self.real_reduce = sharding.all_reduce_async
+        rec = self
+
+        class Handle:
+            def __init__(self, work, k):
+                self.work, self.k = work, k
+
+            def wait(self):
+                rec.events.append(("wait", self.k))
+                return self.work.wait()
+
+        def reduce(buf, mesh=None):
+            k = sum(1 for e in rec.events if e[0] == "launch")
+            rec.events.append(("launch", k))
+            return Handle(rec.real_reduce(buf, mesh), k)
+
+        sharding.all_reduce_async = reduce
+
+    def wrap(self, opt):
+        real = opt.step_packed
+
+        def step(*a, **kw):
+            self.events.append(("step",))
+            return real(*a, **kw)
+
+        return dataclasses.replace(opt, step_packed=step)
+
+    def close(self):
+        self.sharding.all_reduce_async = self.real_reduce
+
+
+def run_case(case) -> dict:
+    """Train ``case`` for its rounds (on the current mesh, if any) and return
+    float32 numpy copies of the state: x after the first round and after the
+    last, vars.z after each, and after :func:`drain` at the end v, the
+    in-flight anchor and the momentum; the losses; with ``record`` the
+    trace of collectives and steps."""
+    from repro_torch.training import drain
+
+    rec = _Recorder() if case.get("record") else None
+    out = {"loss": []}
+    try:
+        step, state = _step_and_state(case, _params(case), rec)
+        for r, nb in enumerate(case["batches"]):
+            state, ms = step(state, _batch(nb))
+            out["loss"].append(ms["loss"].float().numpy().copy())
+            out[f"x{r}"] = _planes(state.x)
+            if state.vars.z is not None:
+                out[f"z{r}"] = _planes(state.vars.z)
+        state = drain(state)
+        assert drain(state) is state  # idempotent
+    finally:
+        if rec is not None:
+            rec.close()
+    out["x"] = _planes(state.x)
+    out["momentum"] = _planes(state.opt.momentum)
+    if state.vars.z is not None:
+        out["z"], out["v"] = _planes(state.vars.z), _planes(state.vars.v)
+    if state.inflight is not None:
+        out["inflight"] = _planes(state.inflight)
+    if rec is not None:
+        out["events"] = rec.events
+    return out
+
+
+def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
+    import torch.distributed as dist
+
+    sys.modules["jax"] = None  # the ranks import no JAX
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import mesh_context
+
+    torch.set_num_threads(1)
+    try:
+        with open(cases_path, "rb") as f:
+            cases = pickle.load(f)
+        dist.init_process_group("gloo", init_method="file://" + os.path.join(out_dir, "rendezvous"),
+                                world_size=world, rank=rank, timeout=datetime.timedelta(seconds=_timeout()))
+        try:
+            with mesh_context(make_smoke_mesh(world, device="cpu")):
+                results = [run_case(c) for c in cases]
+        finally:
+            dist.destroy_process_group()
+        assert not any(k == "jax" or k.startswith(("jax.", "repro.")) for k in sys.modules if sys.modules[k])
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _timeout() -> int:
+    """The spawn's wall-clock budget (REPRO_SUBPROC_TIMEOUT, the test's own)."""
+    return int(os.environ.get("REPRO_SUBPROC_TIMEOUT", "300"))
+
+
+def main(argv) -> int:
+    import torch.multiprocessing as mp
+
+    sys.modules["jax"] = None
+    cases_path, out_dir, world = argv[0], argv[1], int(argv[2])
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank, args=(r, world, cases_path, out_dir)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + _timeout() - 10
+    # a rank that fails leaves the others waiting in a collective: stop them all
+    while any(p.is_alive() for p in procs):
+        if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+            for p in procs:
+                p.terminate()
+        time.sleep(0.05)
+    for p in procs:
+        p.join(10)
+    errors = [open(os.path.join(out_dir, f)).read() for f in sorted(os.listdir(out_dir)) if f.endswith(".err")]
+    if errors or any(p.exitcode != 0 for p in procs):
+        print("\n".join(errors) or f"exit codes {[p.exitcode for p in procs]}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
