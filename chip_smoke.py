@@ -93,9 +93,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens, logits are finite, every kernel's launch count is non-zero and
    equals what the number of forwards implies (K10 once a layer a forward,
    both pools in one launch), and a second run of the
-   same trace gives the same tokens and scheduler events; full-depth
-   dense ``generate`` of two of its requests beside it (tok/s, decode-step
-   ms, a profile). (c) Dense serving: the reduced qwen2-7b, rwkv6-7b and
+   same trace gives the same tokens and scheduler events; a profile of the
+   trace's first ``PROFILE_REQUESTS`` requests (cut from the whole trace to
+   pay for phase 12's time: the profiler's processing of the whole trace
+   took 110.1 s); full-depth dense ``generate`` of two of its requests
+   beside it (tok/s, decode-step ms, a profile). (c) Dense serving: the reduced qwen2-7b, rwkv6-7b and
    zamba2-1.2b in f32, ``prefill`` then ``decode_step`` on the card and on
    the CPU, logits within 1e-4, and on the card decode after prefill
    within 2e-3 of the full prefill's last logits; full-width rwkv6-7b and
@@ -298,11 +300,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    gloo (CUDA tensors): the classifier at m 2 (beta 0.7 and 0) and
    qwen2-7b at 2 layers at m 2, each bitwise the stacked run rank 0 makes
    after it, z, v and the in-flight anchor equal on both ranks.
-12. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+12. The paper's experiment on worker ranks: (a) K3/K4's rank form with the
+   masked operands (the rows' membership weights with a dead row, K3 and K4,
+   launching and with the weighted finish) and EASGD's ``mean_pre`` (K4, 1
+   and 2 rows), bitwise its plain version, and K8's rank form (one rank's
+   rows against the global f32 column mean, float64 sums) within rtol 1e-6
+   of its plain version, f32 and bf16, at the classifier's plane and
+   qwen2-7b's 2-layer plane, timed beside the plain version and a ``copy_``
+   of the same bytes; (b) ``Experiment.fit(adaptive_tau=...)`` of
+   full-width qwen2-7b at ``RANK_LAYERS`` layers, bf16, m 1, on one NCCL
+   rank against the stacked fit from the same weights and batches: losses,
+   the tau schedule (its drift and scale too) and every plane bit for bit,
+   exact launches (K8's rank form a boundary), rounds/s, boundary ms, the
+   peak; (c) two gloo ranks sharing the card: the classifier (losses worker
+   by worker) at m 2 and m 4, each of the seven strategy cases
+   (overlap_local_sgd beta 0.7 and 0, local_sgd, sync_sgd, easgd, cocod,
+   delayed_avg) under a fault plan, with and without adaptive tau, and
+   qwen2-7b at 2 layers, m 2, overlap beta 0.7 under a crash plan (worker
+   1 crashed in round 0, re-synced in round 1: two rounds) and adaptive
+   tau; each against the stacked fit rank 0 makes after it: bit
+   for bit at one row a rank, within 2(m - 1) f32 ulps at two, the
+   schedule's decisions and the fault log exactly, the readers
+   (``consensus_plane``, ``anchor_plane``, ``evaluate``) equal on both
+   ranks.
+13. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it and its row form, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
-   call, K1's and K2's window forms, K3's and K4's rank forms; K6's rows
+   call, K1's and K2's window forms, K3's and K4's rank forms with their
+   masked and ``mean_pre`` forms, K8's rank form; K6's rows
    with their ``d192``, ``qwen2_vl`` and ``musicgen`` cases and K10's with
    its ``latent`` case), then the device line last.
 
@@ -314,6 +340,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -326,6 +353,7 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 SLOTS, MAX_LEN, PAGE, CHUNK = 4, 512, 16, 32
 N_REQUESTS, MAX_NEW, SEED = 8, 32, 0
+PROFILE_REQUESTS = 4  # the serving profile's share of the trace (phase 3(b))
 LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4200, 24, 4224  # h2o-danube's long request: decode past its 4096 window
 
 
@@ -2170,9 +2198,9 @@ def serve_full_width(dev, kernels):
     log(f"full-width {cfg.name}: {n_params} params in {cfg.dtype}, init {time.perf_counter() - t0:.1f}s")
     trace = make_trace(cfg.vocab_size)
 
-    def engine(cls):
+    def engine(cls, requests=trace):
         eng = cls(cfg, params, slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, chunk=CHUNK, device=dev)
-        for rid, prompt in trace:
+        for rid, prompt in requests:
             eng.submit(rid, prompt, MAX_NEW)
         return eng
 
@@ -2207,7 +2235,14 @@ def serve_full_width(dev, kernels):
         toks = res1[rid]
         if len(toks) != MAX_NEW or toks.min() < 0 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"{rid}: {len(toks)} tokens, range [{toks.min()}, {toks.max()}]")
-    profile = profile_run(engine(BatchedEngine), res1, events1)
+    # the profiled run: the trace's first PROFILE_REQUESTS requests, held
+    # against a plain run of the same requests (the profiler's processing of
+    # the whole trace's ~0.7 M events took 110.1 s on an NVIDIA H100 80GB
+    # HBM3 at 700 W)
+    head = engine(BatchedEngine, trace[:PROFILE_REQUESTS])
+    head_res = head.run()
+    profile = profile_run(engine(BatchedEngine, trace[:PROFILE_REQUESTS]), head_res, list(head.sched.events))
+    profile["requests"] = PROFILE_REQUESTS
     n_pre, n_dec = len(timed.ms["prefill"]), len(timed.ms["decode"])
     layers = cfg.num_layers
     expect = {"rmsnorm": (2 * layers + 1) * (n_pre + n_dec), "paged_append": layers * (n_pre + n_dec),
@@ -5853,6 +5888,544 @@ def rank_gloo_two_on_one_card(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the paper's experiment on worker ranks: K3/K4's rank form with
+# the masked and EASGD operands and K8's rank form, Experiment.fit on one
+# NCCL rank and on two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# the strategy cases of Experiment.fit on ranks: (AlgoConfig name, fields)
+FIT_CASES = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("overlap_local_sgd", dict(anchor_beta=0.0)),
+             ("local_sgd", {}), ("sync_sgd", {}), ("easgd", {}), ("cocod", {}), ("delayed_avg", dict(delay_steps=1))]
+FIT_PLANS = {2: "crash:1@1-2", 4: "crash:1@1-2,slow:2x4"}  # seed 7; worker 1 crashed in round 1, re-synced in 2
+FIT_SEED, CLF_FIT_ROUNDS, LM_FIT_ROUNDS = 7, 4, 3
+# the qwen2 LM on the gloo ranks: worker 1 crashed in round 0 and re-synced
+# in round 1, two rounds at tau 1 (fault_hold) under the controller (each
+# 6.2 GB all-reduce staged through host memory costs seconds)
+LM_GLOO_PLAN, LM_GLOO_ROUNDS, LM_GLOO_CTRL = "crash:1@0-1", 2, dict(LM_CTRL, tau_max=2)
+
+
+def _rank_probe_bytes(P, rows):
+    """K8's rank form: the rows read, x̄ (f32) read, a column."""
+    return P * rows + 4
+
+
+def _probe_rows_plain(x, xbar):
+    """K8's rank form's plain version over column chunks of 2^26, the chunks'
+    float64 sums added (the whole LM plane's float64 squares would not fit)."""
+    import torch
+
+    from repro_torch.kernels.consensus_probe import ref
+
+    out = torch.zeros(2, dtype=torch.float64, device=x.device)
+    step = 1 << 26
+    for j in range(0, x.shape[1], step):
+        out += ref.rows_probe(x[:, j : j + step], xbar[j : j + step])
+    return out
+
+
+def check_rank_forms_masked(dev, gen):
+    """K3/K4's rank form with the masked and EASGD operands bitwise its plain
+    version: the rows' weights with a dead row (K3 and K4, launching and
+    with the weighted finish, round(S)), ``mean_pre`` (EASGD's K4, 1 and 2
+    rows, with and without weights), f32 and bf16, at the classifier's plane
+    and at qwen2-7b's 2-layer plane (three windows of ``RANK_WINDOW``
+    columns against the plain version, as phase 11(a)); K8's rank form
+    within rtol 1e-6 of its plain version (float64 sums in another order),
+    1 and 2 rows. Timed at one row beside the plain version and a ``copy_``
+    of the same bytes: the weighted finish (K3), ``mean_pre`` (K4) and K8's
+    rank form."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix import ops, ref
+    from repro_torch.kernels.consensus_probe import ops as probe_ops
+
+    worst, worst_probe, timing, checked = 0.0, 0.0, {}, 0
+    for plane, n in (("classifier", TRAIN_SHAPES["slice"][1]), ("lm", _lm_plane_n(LM_LAYERS))):
+        windows = [slice(0, n)] if plane == "classifier" else [
+            slice(0, RANK_WINDOW), slice(n // 2 - RANK_WINDOW // 2, n // 2 + RANK_WINDOW // 2), slice(n - RANK_WINDOW, n)]
+        it = 50 if plane == "classifier" else 10
+        for dtype in (torch.float32, torch.bfloat16):
+            P = torch.finfo(dtype).bits // 8
+            z = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+            # (form, momentum, rows, weights, finish, mean_pre)
+            forms = [("K3 weighted", True, 2, (0.5, 0.0), f, False) for f in (0, 2)]
+            forms += [("K4 weighted", False, 2, (0.5, 0.0), f, False) for f in (0, 2)]
+            forms += [("K4 mean_pre", False, r, w, 0, True) for r in (1, 2) for w in (None, (0.5, 0.0)[:r])]
+            forms += [("K3 weighted", True, 1, (0.5,), 2, False)]  # timed: the weighted finish
+            for form, momentum, rows, wts, finish, mean_pre in forms:
+                beta = RANK_BETA if momentum else None
+                w = None if wts is None else torch.tensor(wts, device=dev)
+                x = torch.randn(rows, n, generator=gen, device=dev, dtype=dtype)
+                v = (0.1 * torch.randn(n, generator=gen, device=dev)).to(dtype) if momentum else None
+                s = 3.0 * torch.randn(n, generator=gen, device=dev)
+                want = [ref.pullback_rank(x[:, c], z[c], None if v is None else v[c], s[c], 2 * rows, RANK_ALPHA, beta,
+                                          finish, w, mean_pre) for c in windows]
+                z_next = ops.pullback_rank(x, z, v, s, 2 * rows, RANK_ALPHA, beta, finish, weights=w, mean_pre=mean_pre)
+                torch.cuda.synchronize()
+                ok, err = True, 0.0
+                for c, (wx, wz, wv, wsum) in zip(windows, want):
+                    pairs = [(x[:, c], wx), (z_next[c], wz), (s[c], wsum)] + ([(v[c], wv)] if wv is not None else [])
+                    ok = ok and all(torch.equal(a, b) for a, b in pairs)
+                    err = max([err] + [float((a.float() - b.float()).abs().max()) for a, b in pairs])
+                worst, checked = max(worst, err), checked + 1
+                rec = dict(kernel=f"{form} rank form", plane=plane, dtype=_name(dtype), rows=rows, n=n, finish=finish,
+                           weights=wts, mean_pre=mean_pre, max_abs_err=err, bound="bitwise", ok=ok)
+                if not ok:
+                    raise AssertionError(f"masked rank form disagrees with plain: {rec}")
+                del want
+                key = ("K3 weighted finish" if momentum else "K4 mean_pre", plane, _name(dtype))
+                timed = rows == 1 and (plane == "classifier" or dtype == torch.bfloat16) and key not in timing and (
+                    (momentum and finish == 2) or (mean_pre and wts is None))
+                if timed:
+                    launch = lambda: ops.pullback_rank(x, z, v, s, 2, RANK_ALPHA, beta, finish, weights=w,  # noqa: E731
+                                                       mean_pre=mean_pre)
+                    plain = lambda: ref.pullback_rank(x, z, v, s, 2, RANK_ALPHA, beta, finish, w, mean_pre)  # noqa: E731
+                    nbytes = _rank_bytes(P, rows, bool(finish), momentum) * n
+                    rec["ms"] = median_ms(launch, it)
+                    if plane == "classifier":
+                        rec.update(host_device_split(launch))
+                    rec["plain_ms"] = time_ms(plain, 3 if plane == "lm" else it)
+                    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+                    dst = torch.empty_like(src)
+                    rec["copy_ms"] = time_ms(lambda: dst.copy_(src), it)
+                    del src, dst
+                    rec["library_ms"], rec["library"] = None, "none (no single torch call); copy_ moves the same bytes"
+                    rec["bound_ms"], rec["bound_by"] = bound(nbytes, _rank_flops(rows, bool(finish), momentum) * n)
+                    timing[key] = rec
+                    log(json.dumps(rec))
+                del x, v, s, z_next
+                _free()
+            for rows in (1, 2):  # K8's rank form
+                x = torch.randn(rows, n, generator=gen, device=dev, dtype=dtype)
+                xbar = (x.float().sum(0) / rows + 0.01 * torch.randn(n, generator=gen, device=dev))
+                got = probe_ops.probe_rows(x, xbar)
+                again = probe_ops.probe_rows(x, xbar)
+                want = _probe_rows_plain(x, xbar)
+                torch.cuda.synchronize()
+                rel = float(((got - want).abs() / want.abs()).max())
+                worst_probe, checked = max(worst_probe, rel), checked + 1
+                rec = dict(kernel="K8 rank form", plane=plane, dtype=_name(dtype), rows=rows, n=n, rel_err=rel,
+                           bound="rtol 1e-6 (float64 sums in another order); the same bits on a second launch",
+                           repeat_equal=bool(torch.equal(got, again)), ok=rel <= 1e-6 and bool(torch.equal(got, again)))
+                if not rec["ok"]:
+                    raise AssertionError(f"K8 rank form disagrees with plain: {rec}")
+                key = ("K8 rank", plane, _name(dtype))
+                if rows == 1 and (plane == "classifier" or dtype == torch.bfloat16):
+                    nbytes = _rank_probe_bytes(P, rows) * n
+                    launch = lambda: probe_ops.probe_rows(x, xbar)  # noqa: E731
+                    rec["ms"] = median_ms(launch, it)
+                    if plane == "classifier":
+                        rec.update(host_device_split(launch))
+                    rec["plain_ms"] = time_ms(lambda: _probe_rows_plain(x, xbar), 3 if plane == "lm" else it)
+                    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+                    dst = torch.empty_like(src)
+                    rec["copy_ms"] = time_ms(lambda: dst.copy_(src), it)
+                    del src, dst
+                    rec["library_ms"], rec["library"] = None, ("none (no single torch call forms the squared "
+                                                               "deviations from a given mean); copy_ moves the same bytes")
+                    rec["bound_ms"], rec["bound_by"] = bound(nbytes, (3 * rows + 2) * n)
+                    timing[key] = rec
+                    log(json.dumps(rec))
+                del x, xbar
+                _free()
+            del z
+            _free()
+    log(json.dumps(dict(check="K3/K4 masked and mean_pre rank forms, K8 rank form", cases=checked,
+                        max_abs_err=worst, probe_max_rel_err=worst_probe)))
+    return worst, worst_probe, timing
+
+
+def _fit_record(res):
+    """A fit's losses, schedule (decisions apart from the stats) and fault log."""
+    sched = None if res.tau_schedule is None else [
+        (h["round"], h["tau"], h["decision"], h["next_tau"], h.get("fault")) for h in res.tau_schedule]
+    stats = None if res.tau_schedule is None else [(h["drift"], h["scale"]) for h in res.tau_schedule]
+    return dict(losses=list(res.losses), schedule=sched, stats=stats, fault_log=res.fault_log, steps=res.steps)
+
+
+def rank_nccl_fit(dev, kernels, card):
+    """Phase 12(b): ``Experiment.fit`` of full-width qwen2-7b cut to
+    ``RANK_LAYERS`` layers, bf16, m 1, Overlap-Local-SGD (tau from 1, alpha
+    0.6, beta 0.7) under ``adaptive_tau`` (``LM_CTRL``) for
+    ``LM_FIT_ROUNDS`` rounds: first stacked (its planes copied to the host),
+    then on one NCCL rank from the same weights and batches and zeroed
+    counters: losses, the tau schedule (decisions, drift and scale) and,
+    after ``drain``, x, the momentum, z, v and the in-flight anchor bit for
+    bit; ``anchor_plane()`` the stacked z. Launches: K1 a step, K3's rank
+    form a boundary and once for the drain, K8's rank form a boundary, the
+    stacked K3 and K8 never. Rounds/s, boundary ms (CUDA events on the
+    compute stream), the peak."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.config import get_arch
+    from repro_torch.control import TauController
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.training import drain
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=RANK_LAYERS)
+    exp = _lm_experiment(dev, cfg, 1, LM_SEQ, init_on_device=True).build()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = exp.fit(rounds=LM_FIT_ROUNDS, adaptive_tau=TauController(**LM_CTRL))
+    torch.cuda.synchronize()
+    stacked_wall = time.perf_counter() - t0
+    want_fit = _fit_record(res)
+    want = {k: [b.to("cpu", copy=True) for b in v] for k, v in _rank_state(exp.state).items()}
+    stacked_peak = torch.cuda.max_memory_allocated()
+    del exp, res
+    gc.collect()
+    _free()
+
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl_fit_")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0)
+    try:
+        with mesh_context(make_smoke_mesh(1)):
+            exp = _lm_experiment(dev, cfg, 1, LM_SEQ, init_on_device=True).build()
+            strat = exp.strategy_obj
+            real_boundary = strat.boundary_round
+            marks = []
+
+            def boundary_round(*a, **kw):  # CUDA events around the boundary, on the compute stream
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = real_boundary(*a, **kw)
+                e1.record()
+                marks.append((e0, e1))
+                return out
+
+            strat.boundary_round = boundary_round
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            res = exp.fit(rounds=LM_FIT_ROUNDS, adaptive_tau=TauController(**LM_CTRL))
+            exp.state = drain(exp.state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated()
+            del strat.boundary_round
+            got_fit = _fit_record(res)
+            got = _rank_state(exp.state)
+            differ = sorted(k for k in want if len(got[k]) != len(want[k]) or not all(
+                torch.equal(g, w.to(g.device)) for g, w in zip(got[k], want[k])))
+            anchor_same = all(torch.equal(a, w.to(a.device)) for a, w in zip(exp.anchor_plane().buffers, want["z"]))
+            del got, exp, res
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    _free()
+    boundary_ms = [a.elapsed_time(b) for a, b in marks]
+    steps = got_fit["steps"]
+    want_launches = {k.name: 0 for k in kernels}
+    want_launches.update(qwen2_launches(steps, 1, RANK_LAYERS, 1, LM_FIT_ROUNDS))
+    want_launches["pullback_momentum"] = 0
+    want_launches["pullback_momentum_rank"] = LM_FIT_ROUNDS + 1  # a boundary each, and the drain
+    want_launches["consensus_probe_rank"] = LM_FIT_ROUNDS  # the probe of each boundary
+    rec = dict(run=f"Experiment.fit(adaptive_tau) of qwen2-7b full width, {RANK_LAYERS} layers, bf16, m 1 on one "
+                   f"NCCL rank", card=card, rounds=LM_FIT_ROUNDS, steps=steps, fit=got_fit, stacked_fit=want_fit,
+               planes_differing=differ, anchor_plane_equal=anchor_same,
+               bound="bitwise (x, momentum, z, v, drained inflight; losses; the schedule with its drift and scale)",
+               wall_s=wall, rounds_per_s=LM_FIT_ROUNDS / wall, stacked_wall_s=stacked_wall,
+               stacked_rounds_per_s=LM_FIT_ROUNDS / stacked_wall, boundary_ms=boundary_ms, peak_mem_bytes=peak,
+               stacked_peak_mem_bytes=stacked_peak, launches={k: v for k, v in launches.items() if v})
+    log(json.dumps(rec))
+    if differ or got_fit != want_fit or not anchor_same:
+        raise AssertionError(f"Experiment.fit on one NCCL rank differs from the stacked fit: {rec}")
+    if launches != want_launches:
+        raise AssertionError(f"NCCL rank fit launches {launches} != {want_launches}")
+    return rec
+
+
+def _fit_classifier(dev, strategy, m, splits=None):
+    """The quickstart classifier's configuration at m workers (``splits``:
+    its task's splits, built once for every fit of a process), its round
+    steps (plain and probed) taking each worker's loss on its own (the round
+    engine's ``per_worker`` mode: see :func:`_rank_classifier`)."""
+    from repro_torch.api import ClassificationSpec, Experiment
+    from repro_torch.config import OptimizerConfig
+    from repro_torch.optim import schedules
+    from repro_torch.training import make_round_step
+
+    exp = Experiment(task=ClassificationSpec(n=30000, holdout=4000, batch_per_worker=32, splits=splits),
+                     strategy=strategy, optimizer=OptimizerConfig(name="sgd", lr=0.1, momentum=0.9, nesterov=True),
+                     schedule=schedules.warmup_step_decay(0.1, 20, (TRAIN_STEPS // 2,)), workers=m,
+                     device=dev).build()
+    exp._per_worker = lambda path, leaf: leaf
+    exp.step_fn = make_round_step(exp.loss_fn, exp.opt_obj, exp.strategy_obj, exp.schedule_fn,
+                                  per_worker=exp._per_worker)
+    return exp
+
+
+def _fit_runs(lm_cfg):
+    """Phase 12(c)'s runs: (label, m, make(dev) → Experiment, rounds, plan
+    spec, controller fields or None)."""
+    from repro_torch.config import AlgoConfig
+    from repro_torch.data.loaders import make_classification_splits
+
+    runs = []
+    for m in (2, 4):
+        # the task's splits, the other fields of ClassificationSpec at their defaults
+        splits = make_classification_splits(m, n=30000, holdout=4000)
+        for name, kw in FIT_CASES:
+            for ctrl in (None, ADAPTIVE_CTRL):
+                label = f"classifier m {m} {name} {kw or ''} faults{' + adaptive tau' if ctrl else ''}"
+                runs.append((label, m, lambda d, m=m, name=name, kw=kw, splits=splits: _fit_classifier(
+                    d, AlgoConfig(name=name, tau=2, alpha=0.6, **kw), m, splits), CLF_FIT_ROUNDS, FIT_PLANS[m],
+                    ctrl))
+    runs.append((f"qwen2-7b full width, {LM_LAYERS} layers, bf16, m 2 overlap beta=0.7 faults + adaptive tau", 2,
+                 lambda d: _lm_experiment(d, lm_cfg, 2, LM_SEQ, init_on_device=True), LM_GLOO_ROUNDS, LM_GLOO_PLAN,
+                 LM_GLOO_CTRL))
+    return runs
+
+
+def _fit_readers(exp):
+    """The readers of all m workers: consensus_plane, anchor_plane (if any)
+    and evaluate."""
+    out = {"consensus_plane": list(exp.consensus_plane().buffers), "evaluate": exp.evaluate()}
+    if exp.state.vars.z is not None:
+        out["anchor_plane"] = list(exp.anchor_plane().buffers)
+    return out
+
+
+def _ulps_apart(got, want):
+    """max |got − want| in f32 ulps of want's largest magnitude."""
+    import torch
+
+    g, w = got.float(), want.float()
+    ulp = float(torch.finfo(torch.float32).eps) / 2 * 2.0 ** (int(torch.frexp(w.abs().max())[1]))
+    return float((g - w).abs().max()) / ulp
+
+
+def _gloo_fit_rank(rank, world, rdv, out_path, src):
+    """One of phase 12(c)'s two ranks on the same card (gloo on CUDA
+    tensors): every run of :func:`_fit_runs` on the mesh from zeroed
+    counters, ``Experiment.fit`` under its fault plan (and controller), then
+    ``drain`` and the readers. Rank 1 sends its rows of x and the momentum
+    (and an avg-rebase in-flight's x0) to rank 0; both exchange the losses,
+    schedules, fault logs, evaluations and 64-bit digests of z, v, the
+    in-flight value and the readers' planes. Rank 0 then frees the rank run,
+    fits the stacked engine on the same weights and batches and compares:
+    bit for bit at one row a rank (m 2), within 2(m − 1) f32 ulps of each
+    plane's largest magnitude at two (m 4); the schedule's decisions and the
+    fault log exactly."""
+    import gc
+    import traceback
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from repro_torch.config import get_arch
+        from repro_torch.control import TauController
+        from repro_torch.fault import FaultPlan
+        from repro_torch.kernels import all_kernels
+        from repro_torch.launch.mesh import make_smoke_mesh
+        from repro_torch.parallel.sharding import mesh_context
+        from repro_torch.training import drain
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels = all_kernels()
+        dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world, rank=rank)
+        mesh = make_smoke_mesh(world, backend="gloo")
+        lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+        results = []
+
+        def fit(exp, m, rounds, plan, ctrl):
+            return exp.fit(rounds=rounds, faults=FaultPlan.parse(plan, m=m, seed=FIT_SEED),
+                           adaptive_tau=None if ctrl is None else TauController(**ctrl))
+
+        def planes(state):
+            out = {"x": state.x.buffers, "momentum": state.opt.momentum.buffers}
+            if state.vars.z is not None:
+                out["z"] = state.vars.z.buffers
+                if state.vars.v is not None:
+                    out["v"] = state.vars.v.buffers
+            infl = state.inflight
+            if hasattr(infl, "x0"):
+                out["inflight"], out["x0"] = infl.avg.buffers, infl.x0.buffers
+            elif infl is not None:
+                out["inflight"] = infl.buffers
+            return out
+
+        for label, m, make, rounds, plan, ctrl in _fit_runs(lm_cfg):
+            with mesh_context(mesh):
+                exp = make(dev)
+                torch.cuda.synchronize()
+                for k in kernels:
+                    k.launches = 0
+                t0 = time.perf_counter()
+                res = fit(exp, m, rounds, plan, ctrl)
+                exp.state = drain(exp.state)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k.name: k.launches for k in kernels if k.launches}
+                got_fit = _fit_record(res)
+                del res  # its state holds the last boundary's wire buffer
+                readers = _fit_readers(exp)
+                got = planes(exp.state)
+                shared = dict(fit=got_fit, evaluate=readers["evaluate"],
+                              digests={k: [_digest(b) for b in v] for k, v in got.items()
+                                       if k not in ("x", "momentum", "x0")},
+                              reader_digests={k: [_digest(b) for b in v] for k, v in readers.items()
+                                              if k != "evaluate"})
+                small = not label.startswith("qwen2")
+                if not small:  # the LM's readers: held across the ranks by digest only (memory)
+                    readers = {"evaluate": readers["evaluate"]}
+                del exp
+            everyone = [None] * world
+            dist.all_gather_object(everyone, shared)
+            rows = {}
+            for key in ("x", "momentum", "x0"):  # rank 1's rows to rank 0, exactly
+                for b, t in enumerate(got.get(key, ())):
+                    bits = torch.int16 if t.element_size() == 2 else torch.int32
+                    if rank == 0:
+                        other = torch.empty(t.shape, dtype=bits)
+                        dist.recv(other, src=1)
+                        rows[(key, b)] = other.view(t.dtype)
+                    else:
+                        dist.send(t.cpu().view(bits), dst=0)
+            if rank != 0:
+                del got, readers
+            if not small:  # the LM's planes: free them before the stacked fit
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+            if rank == 0:
+                stacked = make(dev)  # no mesh: all m rows here
+                sres = fit(stacked, m, rounds, plan, ctrl)
+                want_fit = _fit_record(sres)
+                del sres
+                want = planes(stacked.state)
+                want_readers = _fit_readers(stacked) if small else {"evaluate": stacked.evaluate()}
+                bitwise = m == world
+                r = m // world
+                worst, differ = 0.0, []
+                for key, bufs in want.items():
+                    for b, w in enumerate(bufs):
+                        if key in ("x", "momentum", "x0"):  # this rank's rows on the card, rank 1's on the host
+                            if bitwise:
+                                same = torch.equal(w[:r], got[key][b]) and torch.equal(w[r:].cpu(), rows[(key, b)])
+                            else:
+                                g = torch.cat([got[key][b], rows[(key, b)].to(dev)])
+                        else:
+                            g = got[key][b]
+                            same = torch.equal(g, w)
+                        if not bitwise:
+                            ulps = _ulps_apart(g, w)
+                            worst = max(worst, ulps)
+                            same = ulps <= 2 * (m - 1)
+                        if not same:
+                            differ.append(f"{key}{b}")
+                for key, bufs in want_readers.items():
+                    if key == "evaluate":
+                        continue
+                    for b, w in enumerate(bufs):
+                        if bitwise:
+                            same = torch.equal(readers[key][b], w)
+                        else:
+                            ulps = _ulps_apart(readers[key][b], w)
+                            worst = max(worst, ulps)
+                            same = ulps <= 2 * (m - 1)
+                        if not same:
+                            differ.append(f"reader {key}{b}")
+                losses_ok = got_fit["losses"] == want_fit["losses"] if bitwise else all(
+                    abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got_fit["losses"], want_fit["losses"]))
+                if bitwise and readers["evaluate"] != want_readers["evaluate"]:
+                    differ.append("evaluate")
+                # at consensus (sync-SGD) the drift is only the rounding of worker
+                # means summed in other orders: rtol 1e-6 plus one f32 ulp of the scale
+                stats_ok = got_fit["stats"] is None or all(
+                    abs(gd - wd) <= 1e-6 * abs(wd) + 2.0 ** (math.frexp(ws)[1] - 24) and abs(gs - ws) <= 1e-6 * abs(ws)
+                    for (gd, gs), (wd, ws) in zip(got_fit["stats"], want_fit["stats"]))
+                results.append(dict(
+                    run=f"{label}, two gloo ranks sharing one card ({m // world} row{'s' if m > world else ''} a rank)",
+                    m=m, rounds=rounds, steps=got_fit["steps"], wall_s=wall, rounds_per_s=rounds / wall,
+                    launches=launches, losses=got_fit["losses"], stacked_losses=want_fit["losses"],
+                    schedule=got_fit["schedule"], schedule_equal=got_fit["schedule"] == want_fit["schedule"],
+                    stats_within_rtol_1e6=stats_ok, fault_log_equal=got_fit["fault_log"] == want_fit["fault_log"],
+                    losses_ok=losses_ok, planes_differing=differ, worst_ulps=worst,
+                    equal_on_ranks=all(e == everyone[0] for e in everyone),
+                    bound=("bitwise (x, momentum, z, v, drained inflight, readers; losses)" if bitwise else
+                           "within 2(m - 1) f32 ulps of each plane's largest magnitude; losses rtol 1e-5") +
+                          ("" if small else "; the readers' planes held across the ranks only (by digest), "
+                                            "evaluate against the stacked fit's") +
+                          "; the schedule's decisions and the fault log exactly; scale rtol 1e-6, drift rtol 1e-6 "
+                          "plus one f32 ulp of the scale; "
+                          "losses, schedule, fault log, evaluate and the digests of z, v, inflight and the "
+                          "readers equal on both ranks"))
+                log(f"phase 12(c) {label}: {wall:.1f}s on the ranks, {len(differ)} differing")
+                del stacked, want, got, rows, readers, want_readers
+                if not small:
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        dist.destroy_process_group()
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(results, f)
+    except BaseException:
+        with open(f"{out_path}.rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def rank_gloo_fit_two_on_one_card(card):
+    """Phase 12(c): two ranks spawned with ``torch.multiprocessing`` as
+    phase 11(c), running :func:`_gloo_fit_rank`. Fails when a rank fails or
+    a run breaks its bound."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_fit_")
+    out = os.path.join(tmp, "results.json")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_fit_rank, args=(r, 2, os.path.join(tmp, "rendezvous"), out, str(SRC)))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    try:
+        while any(p.is_alive() for p in procs):
+            if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+    errors = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
+    if errors or any(p.exitcode != 0 for p in procs) or not os.path.exists(out):
+        raise AssertionError(f"gloo fit ranks failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    with open(out) as f:
+        results = json.load(f)
+    for rec in results:
+        rec["card"] = card
+        log(json.dumps(rec))
+    bad = [rec["run"] for rec in results if rec["planes_differing"] or not rec["losses_ok"]
+           or not rec["schedule_equal"] or not rec["fault_log_equal"] or not rec["stats_within_rtol_1e6"]
+           or not rec["equal_on_ranks"]]
+    if bad:
+        raise AssertionError(f"Experiment.fit on two gloo ranks breaks its bounds: {bad}")
+    log(f"phase 12(c): two gloo ranks, {len(results)} fits, {time.perf_counter() - t0:.1f}s with the spawn")
+    return results
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -6044,6 +6617,17 @@ def main() -> int:
     rank_gloo = rank_gloo_two_on_one_card(card)
     mark("phase 11 (c: two gloo ranks sharing the card)")
 
+    # phase 12: the paper's experiment on worker ranks (K3/K4's masked and
+    # mean_pre rank forms, K8's rank form; Experiment.fit with faults and
+    # adaptive tau on one NCCL rank and on two gloo ranks sharing the card)
+    masked_err, probe_rank_err, masked_t = check_rank_forms_masked(dev, gen)
+    mark("phase 12 (a: the masked and mean_pre rank forms, K8's rank form)")
+    fit_nccl = rank_nccl_fit(dev, kernels, card)
+    mark("phase 12 (b: Experiment.fit on one NCCL rank, qwen2-7b)")
+    _free()
+    fit_gloo = rank_gloo_fit_two_on_one_card(card)
+    mark("phase 12 (c: Experiment.fit on two gloo ranks sharing the card)")
+
     # the kernels line
     launches = dict(summary["launches"])
     launches["sgd_step"] = runs["overlap_local_sgd"]["launches"]["sgd_step"]
@@ -6213,6 +6797,42 @@ def main() -> int:
     rank_paths = {name: {rank_nccl["run"]: rank_nccl["launches"].get(name, 0),
                          **{f"{r} (rank 0)": c.get(name, 0) for r, c in gloo_runs.items()}}
                   for name in ("pullback_momentum_rank", "pullback_mean_rank")}
+    # phase 12: the masked and mean_pre forms of K3/K4's rank form and K8's
+    # rank form; their main paths are Experiment.fit on the ranks
+    k3m, k4p = masked_t[("K3 weighted finish", "lm", "bfloat16")], masked_t[("K4 mean_pre", "classifier", "float32")]
+    k8r = masked_t[("K8 rank", "lm", "bfloat16")]
+    rows += [
+        ("pullback_momentum_rank_masked", "anchor_mix",
+         "K3 pullback_momentum_flat, rank form, masked (pullback_rank_launch with the rows' membership weights: dead "
+         "rows pass through, the partial sum weighted; the weighted finish round(S) with no division)",
+         "src/repro/kernels/anchor_mix/kernel.py:190", masked_err, k3m,
+         f"bf16 r=1 n={k3m['n']} (qwen2-7b's 2-layer plane, one row on the rank, the weighted finish)", None),
+        ("pullback_mean_rank_pre", "anchor_mix",
+         "K4 pullback_mean_flat, rank form with mean_pre (EASGD: the partial sum of the pre-pullback rows)",
+         "src/repro/kernels/anchor_mix/kernel.py:120", masked_err, k4p,
+         f"f32 r=1 n={k4p['n']} (the classifier plane, one row a rank)", None),
+        ("consensus_probe_rank", "anchor_mix",
+         "K8 probe_flat, rank form (consensus_probe_rank_launch: one rank's rows against the all-reduced f32 column "
+         "mean, the float64 sums returned for the ranks' float64 sum)",
+         "src/repro/kernels/consensus_probe/kernel.py:66", probe_rank_err, k8r,
+         f"bf16 r=1 n={k8r['n']} (qwen2-7b's 2-layer plane, one row on the rank)", None),
+    ]
+    fit_runs = {r["run"]: r["launches"] for r in fit_gloo}
+    masked_paths = {
+        "pullback_momentum_rank_masked": {r: c.get("pullback_momentum_rank", 0) for r, c in fit_runs.items()
+                                          if "beta': 0.7" in r or "qwen2" in r},
+        "pullback_mean_rank_pre": {r: c.get("pullback_mean_rank", 0) for r, c in fit_runs.items() if "easgd" in r},
+        "consensus_probe_rank": {fit_nccl["run"]: fit_nccl["launches"].get("consensus_probe_rank", 0),
+                                 **{r: c.get("consensus_probe_rank", 0) for r, c in fit_runs.items() if "adaptive" in r}},
+    }
+    launches["pullback_momentum_rank_masked"] = next(c for r, c in masked_paths["pullback_momentum_rank_masked"].items()
+                                                     if "qwen2" in r)
+    launches["pullback_mean_rank_pre"] = next(c for r, c in masked_paths["pullback_mean_rank_pre"].items()
+                                              if "m 2" in r and "adaptive" in r)
+    launches["consensus_probe_rank"] = fit_nccl["launches"]["consensus_probe_rank"]
+    for name, paths in masked_paths.items():
+        if not all(paths.values()):
+            raise AssertionError(f"{name} was not launched on every path that runs it: {paths}")
     out = []
     for name, source, label, replaces, err, t, shape, large in rows:
         entry = dict(
@@ -6381,6 +7001,19 @@ def main() -> int:
                                          "(deepseek-v3's latent pools)", max_abs_err=lat_err, bound="bitwise",
                                    **{k: lat_t[1][k] for k in keys + split_keys}, library=lat_t[1]["library"])
             entry["latent"]["T32"] = {k: lat_t[32][k] for k in keys + split_keys}
+        if name in masked_paths:  # phase 12: the other plane, the copy_ yardstick, every fit path's launches
+            other = {"pullback_momentum_rank_masked": ("K3 weighted finish", "classifier", "float32"),
+                     "pullback_mean_rank_pre": ("K4 mean_pre", "lm", "bfloat16"),
+                     "consensus_probe_rank": ("K8 rank", "classifier", "float32")}[name]
+            other = masked_t[other]
+            entry.update(copy_ms=t["copy_ms"], library=t["library"], launches_by_path=masked_paths[name],
+                         checked="K3 and K4 with the rows' weights (a dead row), launching and with the weighted "
+                                 "finish, K4 with mean_pre (1 and 2 rows, with and without weights), K8's rank form "
+                                 "(1 and 2 rows), f32 and bf16, at the classifier's plane and qwen2-7b's 2-layer "
+                                 "plane; bitwise (K8: rtol 1e-6)")
+            entry["other_plane"] = dict(shape=f"{other['dtype']} r=1 n={other['n']} ({other['plane']})",
+                                        copy_ms=other["copy_ms"],
+                                        **{k: other[k] for k in keys + split_keys if k in other})
         if name in rank_paths:  # phase 11: the other plane, the copy_ yardstick, every rank path's launches
             other = rank_t[("K3", "classifier", "float32")] if name == "pullback_momentum_rank" else \
                 rank_t[("K4", "lm", "bfloat16")]

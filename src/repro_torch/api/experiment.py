@@ -60,11 +60,18 @@ it as they read the plane, ``fit(adaptive_tau=…)`` and ``fit(faults=…)`` run
 per leaf, and ``consensus_plane()`` and ``anchor_plane()`` raise.
 
 On a worker mesh (:func:`repro_torch.parallel.sharding.mesh_context`, one
-process a rank) ``build()`` makes the rank's m/W rows and ``step_fn`` runs
-a round on them (the round engine slices the rank's rows of the full batch);
-``repro_torch.training.drain`` finishes the in-flight anchor. ``fit``,
-``consensus``, ``consensus_plane``, ``evaluate`` and ``serve`` read all m
-workers and raise there (ROADMAP item 10b).
+process a rank, every rank running the same calls) ``build()`` makes the
+rank's m/W rows and ``step_fn`` runs a round on them (the round engine
+slices the rank's rows of the full batch). ``fit`` runs there plain, with
+``faults=`` and with ``adaptive_tau=`` for the strategies with a rank
+boundary (overlap_local_sgd, local_sgd, sync_sgd, easgd, cocod,
+delayed_avg): each round's loss is the mean over all m workers, the rows'
+losses gathered over the ranks in the round's one host read, and every rank
+ends with the same losses, τ schedule and fault log. ``consensus()`` and
+``consensus_plane()`` come from one blocking all-reduce of the rows' f32
+sums; ``anchor_plane()`` drains the in-flight collective first
+(``repro_torch.training.drain``); ``evaluate()`` and ``serve()`` read the
+consensus, alike on every rank.
 
 ``AlgoConfig(offload=True)`` trains with the optimizer state and the
 strategy's anchor-shaped planes in host memory between boundaries (pinned
@@ -84,7 +91,7 @@ import torch
 from repro_torch.config.base import AlgoConfig, ModelConfig, OptimizerConfig
 from repro_torch.config.registry import get_arch
 from repro_torch.control import RoundProgramCache, TauController
-from repro_torch.core.strategy import CommStrategy, resolve_strategy
+from repro_torch.core.strategy import CommStrategy, rank_worker_mean, resolve_strategy
 from repro_torch.data.loaders import (
     ClassificationSplits,
     classification_batch_fn,
@@ -98,9 +105,9 @@ from repro_torch.optim import from_config as opt_from_config
 from repro_torch.optim import schedules
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.parallel import sharding
-from repro_torch.parallel.packing import Packed, tree_flatten, tree_unflatten
+from repro_torch.parallel.packing import Packed, tree_flatten, tree_unflatten, unpack
 from repro_torch.serving.engine import resolve_device
-from repro_torch.training import consensus_params, make_round_step, make_train_state
+from repro_torch.training import consensus_params, drain, make_round_step, make_train_state
 from repro_torch.training.train_loop import batch_map
 
 
@@ -242,11 +249,6 @@ class Experiment:
 
         return batch_map(move, batch)
 
-    @staticmethod
-    def _not_on_ranks(what: str) -> None:
-        if sharding.current_mesh() is not None:
-            raise sharding.unsupported_on_ranks(what)
-
     # -- introspection ------------------------------------------------------
 
     @property
@@ -275,7 +277,6 @@ class Experiment:
         local steps taken). ``faults`` (a :class:`~repro_torch.fault.FaultPlan`)
         runs every round under the plan's membership and fills ``fault_log``;
         with both, fault rounds are ``fault_hold`` decisions."""
-        self._not_on_ranks("Experiment.fit")
         self.build()
         if faults is not None:
             return self._fit_faulted(faults, rounds or self.rounds, log, ctrl=adaptive_tau)
@@ -324,6 +325,7 @@ class Experiment:
         total_steps = 0
         t0 = time.time()
         state = self.state
+        mesh = sharding.current_mesh()
         for r in range(rounds):
             if harness is not None:
                 state = harness.before_round(state, r)
@@ -334,6 +336,8 @@ class Experiment:
                 step = self.tau_programs.program_for(tau)
             state, ms = step(state, self.to_device(round_batch(self.next_batch, tau)))
             loss = ms["loss"]
+            if mesh is not None:  # (τ, m/W) rows → (τ, m) on every rank
+                loss = sharding.all_gather_rows(loss, mesh)
             if ctrl is None:
                 losses.append(float(loss.cpu().numpy().mean()))
             else:
@@ -354,24 +358,32 @@ class Experiment:
 
     def consensus(self) -> dict:
         """The float32 consensus (worker-averaged) model."""
-        self._not_on_ranks("Experiment.consensus")
         self.build()
+        mesh = sharding.current_mesh()
+        if mesh is not None:
+            return unpack(rank_worker_mean(self.state.x, mesh))
         return consensus_params(self.state)
 
     def consensus_plane(self) -> Packed:
         """The consensus model as a packed plane (no lead dim): the f32 worker
         mean of each bucket, cast back to the bucket dtype."""
-        self._not_on_ranks("Experiment.consensus_plane")
         self.build()
         x = self.state.x
         if not isinstance(x, Packed):
             raise ValueError("consensus_plane() requires a plane-resident (packed) experiment; use consensus()")
+        mesh = sharding.current_mesh()
+        if mesh is not None:
+            means = rank_worker_mean(x, mesh).buffers
+            return Packed(tuple(mb.to(b.dtype) for mb, b in zip(means, x.buffers)), x.layout)
         return Packed(tuple(torch.mean(b.float(), dim=0).to(b.dtype) for b in x.buffers), x.layout)
 
     def anchor_plane(self) -> Packed:
         """The anchor plane z consumed at the last boundary (anchor-momentum
-        strategies), by reference."""
+        strategies), by reference; on a worker mesh after draining the
+        in-flight collective."""
         self.build()
+        if sharding.current_mesh() is not None:
+            self.state = drain(self.state)
         z = self.state.vars.z if self.state.vars is not None else None
         # an offloaded z is a HostPlane: no device plane to share by reference
         if not isinstance(z, Packed):
@@ -388,7 +400,6 @@ class Experiment:
         parameter dtype."""
         from repro_torch.serving import BatchedEngine
 
-        self._not_on_ranks("Experiment.serve")
         self.build()
         if self.model_cfg is None:
             raise ValueError("serve() requires an LM experiment (arch=...), not a classification task")
@@ -404,7 +415,6 @@ class Experiment:
         """Evaluate the consensus model: classification → held-out accuracy;
         LM → mean loss on ``eval_batches`` fresh token batches (the stream
         seeded ``seed + 7919``, the consensus cast to the param dtype)."""
-        self._not_on_ranks("Experiment.evaluate")
         self.build()
         if self.task is not None:
             x, y = self.to_device((self.splits.test.x, self.splits.test.y))

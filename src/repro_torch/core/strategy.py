@@ -43,19 +43,31 @@ boundary.
 
 **On a worker mesh** (:mod:`repro_torch.parallel.sharding`: the worker
 axis over ``torch.distributed`` ranks, each holding m/W rows of the plane)
-the three strategies with a rank boundary (:attr:`CommStrategy.rank_capable`)
-run it from :meth:`CommStrategy.boundary_round`. Overlap-Local-SGD's worker
-sum becomes a real collective: each rank pulls its rows back and writes their
-f32 partial sum into one flat f32 wire buffer, ``all_reduce_async`` launches
-the sum, and the in-flight slot carries the handle
+the strategies with a rank boundary (:attr:`CommStrategy.rank_capable`:
+Overlap-Local-SGD, Local SGD, sync-SGD, EASGD, CoCoD-SGD and delayed
+averaging) run it from :meth:`CommStrategy.boundary_round`, with the probe
+and the membership as on one process. Overlap-Local-SGD's worker sum becomes
+a real collective: each rank pulls its rows back and writes their f32
+(weighted) partial sum into one flat f32 wire buffer, ``all_reduce_async``
+launches the sum, and the in-flight slot carries the handle
 (:class:`RankInflight`); the next boundary waits on it, after τ local steps,
 and finishes the anchor (K3/K4's rank form,
-:func:`~repro_torch.kernels.anchor_mix.ops.pullback_rank`).
-:func:`finish_inflight` does that finish alone (the round engine's
-``drain``). Local SGD all-reduces the same partial sums at its boundary,
-sync-SGD the gradient plane at every step, both blocking. Every other
-strategy, the probe, a membership, offload and the per-leaf path raise
-(:func:`check_rank_path`, ROADMAP item 10b).
+:func:`~repro_torch.kernels.anchor_mix.ops.pullback_rank`). CoCoD-SGD and
+delayed averaging launch their average the same way
+(:class:`RankRebaseInflight`, x₀ the rank's own rows), waited at the next
+boundary or ``delay_steps`` local steps into the round. :func:`finish_inflight`
+does the wait and finish alone (the round engine's ``drain``). Local SGD
+all-reduces the rows' partial sums at its boundary, EASGD the pre-pullback
+ones (K4's rank form with ``mean_pre``), sync-SGD the gradient plane at
+every step, all blocking. A membership ((m,), alike on every rank) is cut to
+the rank's rows (:func:`~repro_torch.parallel.sharding.rows_of`); a mean
+over a membership is its weighted sum, which the finish takes with no
+division. The probe (:func:`rank_probe`) needs x̄ of all m rows before the
+boundary moves them: one blocking n-wide all-reduce of the unweighted row
+sums (Local SGD unmasked reuses its own), then K8's rank form a bucket and
+a float64 sum of the drift over the ranks. sparse_anchor, powersgd, the
+gossip family, offload and the per-leaf path raise (:func:`check_rank_path`,
+ROADMAP item 10b).
 
 **The per-leaf oracle** (``AlgoConfig.packed=False``, and every legacy
 ``Algorithm`` through :class:`LegacyStrategy`): x is a nested dict of
@@ -83,7 +95,7 @@ from repro_torch.config.base import AlgoConfig
 from repro_torch.core.topology import cached_topology, compose_membership
 from repro_torch.kernels.anchor_mix import ops as anchor_ops
 from repro_torch.kernels.anchor_mix.ref import push, row_sum, worker_mean
-from repro_torch.kernels.consensus_probe import packed_probe, stats_from_partials, tree_probe
+from repro_torch.kernels.consensus_probe import ConsensusStats, packed_probe, probe_rows, stats_from_partials, tree_probe
 from repro_torch.kernels.opt_step.ref import weak
 from repro_torch.parallel import sharding
 from repro_torch.parallel.packing import (
@@ -210,13 +222,39 @@ class RankInflight(NamedTuple):
     boundary pulled toward (the base of the next anchor), ``buf`` the one
     flat f32 wire buffer of every bucket's partial worker sum (the sum over
     all ranks once ``handle``, the async all-reduce, is waited), ``m`` the
-    worker count over all ranks, ``beta`` the anchor momentum (None: K4)."""
+    worker count over all ranks, ``beta`` the anchor momentum (None: K4),
+    ``weighted`` whether the sum is a membership's weighted sum (the mean
+    then takes no division; the next boundary's membership may differ)."""
 
     z: Any
     buf: torch.Tensor
     handle: Any
     m: int
     beta: Optional[float]
+    weighted: bool = False
+
+
+class RankRebaseInflight:
+    """The in-flight average of an avg-rebase rank boundary (CoCoD, delayed
+    averaging): ``x0`` the rank's own launch-time rows (a plane of their
+    own), ``buf`` the flat f32 wire buffer of the rows' (weighted) partial
+    sums, summed over the ranks once ``handle`` is waited, ``m`` the worker
+    count over all ranks. :meth:`finished` waits once and returns the
+    one-process in-flight value, ``Inflight(avg, x0)``, which it keeps: the
+    average may be consumed mid-round and the buffers reused at the
+    boundary."""
+
+    def __init__(self, x0: Packed, buf: torch.Tensor, handle, m: int, weighted: bool):
+        self.x0, self.buf, self.handle, self.m, self.weighted = x0, buf, handle, m, weighted
+        self._done = None
+
+    def finished(self):
+        if self._done is None:
+            self.handle.wait()
+            avg = Packed(tuple(_finish_sum(s, self.m, self.weighted, b.dtype)
+                               for s, b in zip(_wire_views(self.buf, self.x0), self.x0.buffers)), self.x0.layout)
+            self._done = _AvgRebaseStrategy.Inflight(avg=avg, x0=self.x0)
+        return self._done
 
 
 def _wire_buffer(px: Packed) -> torch.Tensor:
@@ -230,41 +268,104 @@ def _wire_views(buf: torch.Tensor, px: Packed):
     return torch.split(buf, [b.shape[-1] for b in px.buffers])
 
 
-def finish_inflight(inflight: RankInflight, vars: AlgoVars) -> Packed:
-    """Wait on a rank boundary's all-reduce and finish its anchor (the tail
-    of K3/K4: the mean, and with momentum v updated in place): the in-flight
-    anchor the stacked run holds at the same step."""
+def _finish_sum(s: torch.Tensor, m: int, weighted: bool, dtype) -> torch.Tensor:
+    """The worker mean from an all-reduced f32 worker sum: round(s / m)
+    (a true division, K3/K4's), or round(s) for a weighted sum."""
+    if weighted:
+        return s.to(dtype, copy=True)  # a buffer of its own: the wire buffer is reused
+    return (s / torch.full((), float(m), dtype=torch.float32, device=s.device)).to(dtype)
+
+
+def _rank_sums(px: Packed, weights=None, buf=None) -> torch.Tensor:
+    """The f32 partial worker sums of this rank's rows, every bucket into
+    one wire buffer (``buf``, or a new one), over column chunks: rows
+    0 .. r−1 in order, each term weighted with ``weights`` (the rows'
+    slice of a membership's weights) — the stacked worker mean's order."""
+    buf = _wire_buffer(px) if buf is None else buf
+    for b, s in zip(px.buffers, _wire_views(buf, px)):
+        rows = _rows(b)
+        for c in column_chunks(rows):
+            s[c] = row_sum(rows[:, c]) if weights is None else worker_mean(rows[:, c], weights)
+    return buf
+
+
+def finish_inflight(inflight, vars: AlgoVars):
+    """Wait on a rank boundary's all-reduce and finish what it carries: the
+    anchor (the tail of K3/K4: the mean, and with momentum v updated in
+    place) or the avg-rebase average — the in-flight value the stacked run
+    holds at the same step."""
+    if isinstance(inflight, RankRebaseInflight):
+        return inflight.finished()
     inflight.handle.wait()
     vs = vars.v.buffers if inflight.beta is not None else (None,) * len(inflight.z.buffers)
-    return Packed(tuple(anchor_ops.pullback_rank(bz[None][:0], bz, bv, s, inflight.m, 0.0, inflight.beta, finish=True)
+    fin = 2 if inflight.weighted else 1
+    return Packed(tuple(anchor_ops.pullback_rank(bz[None][:0], bz, bv, s, inflight.m, 0.0, inflight.beta, fin)
                         for bz, bv, s in zip(inflight.z.buffers, vs, _wire_views(inflight.buf, inflight.z))),
                   inflight.z.layout)
 
 
-def _rank_average_(px: Packed, mesh) -> None:
-    """Every row of every bucket takes the worker mean over all ranks: the
-    f32 row sums of this rank's rows, one blocking all-reduce, then
-    round(S / m) — :func:`_average_rows_`'s values."""
-    buf = _wire_buffer(px)
-    views = _wire_views(buf, px)
-    for b, s in zip(px.buffers, views):
-        rows = _rows(b)
-        for c in column_chunks(rows):
-            s[c] = row_sum(rows[:, c])
-    sharding.all_reduce_async(buf, mesh).wait()
+def is_rank_inflight(inflight) -> bool:
+    """Whether ``inflight`` is a rank boundary's pending collective."""
+    return isinstance(inflight, (RankInflight, RankRebaseInflight))
+
+
+def rank_probe(px: Packed, mesh, sums=None) -> ConsensusStats:
+    """The consensus stats of the pre-boundary plane over all ranks, as the
+    stacked probe gives them: x̄ from the unweighted f32 row sums (one
+    blocking n-wide all-reduce, or ``sums``, the all-reduced sums the
+    boundary already holds), K8's rank form a bucket, the buckets' drift
+    sums added over the ranks in float64 (one scalar all-reduce) and
+    rounded to f32 once."""
     m = px.lead_shape[0] * mesh.size
-    mt = torch.full((), float(m), dtype=torch.float32, device=buf.device)
-    for b, s in zip(px.buffers, views):
+    own = sums is None
+    if own:
+        sums = sharding.all_reduce_(_rank_sums(px), mesh)
+    mt = torch.full((), float(m), dtype=torch.float32, device=sums.device)
+    xbar = sums.div_(mt) if own else sums / mt  # in place in a buffer of its own (a plane's f32 bytes)
+    parts = torch.stack([probe_rows(_rows(b), xb) for b, xb in zip(px.buffers, _wire_views(xbar, px))])
+    drift = sharding.all_reduce_(parts[:, 0].contiguous(), mesh)
+    return stats_from_partials([torch.stack([d, sc]).float() for d, sc in zip(drift, parts[:, 1])], m)
+
+
+def rank_worker_mean(px: Packed, mesh) -> Packed:
+    """The f32 worker mean of every bucket over all ranks, alike on every
+    rank: the rows' f32 sums, one blocking all-reduce, divided by m. f32
+    buffers of the plane's layout, with no lead axis."""
+    m = px.lead_shape[0] * mesh.size
+    buf = sharding.all_reduce_(_rank_sums(px), mesh)
+    buf.div_(torch.full((), float(m), dtype=torch.float32, device=buf.device))
+    return Packed(_wire_views(buf, px), px.layout)
+
+
+def _rank_average_(px: Packed, mesh, membership=None, probe: bool = False):
+    """Every row (with ``membership`` only the live rows) of every bucket
+    takes the (weighted) worker mean over all ranks: the rows' f32 partial
+    sums, one blocking all-reduce, then round(S / m) or round(S) —
+    :func:`_average_rows_`'s values. With ``probe``, the pre-average stats
+    (the same sums serve the probe when unweighted). Returns the stats or
+    None."""
+    mem = sharding.rows_of(membership, mesh)
+    stats = rank_probe(px, mesh) if probe and mem is not None else None
+    buf = sharding.all_reduce_(_rank_sums(px, None if mem is None else mem.weights), mesh)
+    if probe and mem is None:
+        stats = rank_probe(px, mesh, sums=buf)
+    m = px.lead_shape[0] * mesh.size
+    for b, s in zip(px.buffers, _wire_views(buf, px)):
         rows = _rows(b)
         for c in column_chunks(rows):
-            rows[:, c].copy_((s[c] / mt).to(b.dtype).expand(rows.shape[0], -1))
+            avg = _finish_sum(s[c], m, mem is not None, b.dtype)[None]
+            if mem is None:
+                rows[:, c].copy_(avg.expand(rows.shape[0], -1))
+            else:  # dead rows keep their stale parameters (they re-sync on rejoin)
+                torch.where((mem.mask > 0)[:, None], avg, rows[:, c], out=rows[:, c])
+    return stats
 
 
-def check_rank_path(strategy, packed_step: bool = True, probe: bool = False, membership=None) -> None:
+def check_rank_path(strategy, packed_step: bool = True) -> None:
     """Raise ``NotImplementedError`` (ROADMAP item 10b) for what the worker
-    mesh does not run: a strategy without a rank boundary, the per-leaf path
-    (``packed=False``, a legacy ``Algorithm``, an optimizer with no packed
-    step), offload, the consensus probe and a membership."""
+    mesh does not run: a strategy without a rank boundary (sparse_anchor,
+    powersgd, the gossip family), the per-leaf path (``packed=False``, a
+    legacy ``Algorithm``, an optimizer with no packed step) and offload."""
     if not strategy.packed or not packed_step:
         raise sharding.unsupported_on_ranks("the per-leaf path (packed=False, a legacy Algorithm or an optimizer "
                                             "without a packed step)")
@@ -272,10 +373,6 @@ def check_rank_path(strategy, packed_step: bool = True, probe: bool = False, mem
         raise sharding.unsupported_on_ranks(f"strategy {strategy.name!r}")
     if strategy.cfg.offload:
         raise sharding.unsupported_on_ranks("AlgoConfig.offload")
-    if probe:
-        raise sharding.unsupported_on_ranks("the consensus probe (probe=True, adaptive tau)")
-    if membership is not None:
-        raise sharding.unsupported_on_ranks("a membership (faults)")
 
 
 class CommStrategy:
@@ -343,8 +440,8 @@ class CommStrategy:
         the rank boundary (:meth:`_rank_boundary`)."""
         mesh = sharding.current_mesh()
         if mesh is not None:
-            check_rank_path(self, packed_step=isinstance(x, Packed), probe=probe, membership=membership)
-            return self._rank_boundary(x, vars, inflight, mesh)
+            check_rank_path(self, packed_step=isinstance(x, Packed))
+            return self._rank_boundary(x, vars, inflight, mesh, probe=probe, membership=membership)
         if not self.packed:
             return self._boundary_phases(x, vars, inflight, probe=probe, membership=membership)
         px = _as_plane(x)
@@ -363,9 +460,11 @@ class CommStrategy:
         powersgd) the plane passes through."""
         return _with_stats((px, vars, None), packed_probe(px) if probe else None)
 
-    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh):
+    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh, probe: bool = False, membership=None):
         """The boundary of this rank's rows on a worker mesh; returns
-        ``(x, vars, inflight)``. Only the strategies with
+        ``(x, vars, inflight)``, with ``probe`` also the stats of the
+        pre-boundary plane over all ranks. ``membership`` is the round's
+        (m,) one, alike on every rank. Only the strategies with
         :attr:`rank_capable` define it."""
         raise sharding.unsupported_on_ranks(f"strategy {self.name!r}")
 
@@ -407,8 +506,9 @@ class SyncSGDStrategy(CommStrategy):
             b.copy_(g.expand_as(b))
         return pg, vars
 
-    def _rank_boundary(self, px: Packed, vars, inflight, mesh):
-        return px, vars, None
+    def _rank_boundary(self, px: Packed, vars, inflight, mesh, probe: bool = False, membership=None):
+        # no boundary math and no membership, as on one process
+        return _with_stats((px, vars, None), rank_probe(px, mesh) if probe else None)
 
 
 def _average_rows_(t: torch.Tensor, weights=None, mask=None) -> None:
@@ -427,10 +527,11 @@ class LocalSGDStrategy(CommStrategy):
     name = "local_sgd"
     rank_capable = True
 
-    def _rank_boundary(self, px: Packed, vars, inflight, mesh):
-        """The worker mean over all ranks, blocking."""
-        _rank_average_(px, mesh)
-        return px, vars, None
+    def _rank_boundary(self, px: Packed, vars, inflight, mesh, probe: bool = False, membership=None):
+        """The (masked) worker mean over all ranks, blocking; unmasked, its
+        one all-reduce also gives the probe its mean."""
+        stats = _rank_average_(px, mesh, membership, probe=probe)
+        return _with_stats((px, vars, None), stats)
 
     def boundary_apply(self, x, vars, inflight, membership=None):
         mask = None if membership is None else membership.mask
@@ -514,29 +615,36 @@ class OverlapLocalSGDStrategy(CommStrategy):
         z_next = Packed(tuple(o[1] for o in outs), inflight.layout)
         return _with_stats((px, vars, z_next), _fused_stats(outs, px.lead_shape[0], probe))
 
-    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh):
+    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh, probe: bool = False, membership=None):
         """Wait on the all-reduce the last boundary launched (τ local steps
-        ran under it) and finish its anchor; pull this rank's rows back
-        toward it and launch the sum of their partial sums (K3/K4's rank
-        form, one launch a bucket, then one ``all_reduce_async``). The
-        first boundary (and the first after a drain) finds the final anchor
-        in ``inflight`` and starts at the pullback."""
+        ran under it) and finish its anchor (a mean, or the weighted sum of
+        its membership); pull this rank's rows back toward it (dead rows
+        pass through) and launch the sum of their (weighted) partial sums
+        (K3/K4's rank form, one launch a bucket, then one
+        ``all_reduce_async``). The first boundary (and the first after a
+        drain) finds the final anchor in ``inflight`` and starts at the
+        pullback. With ``probe`` the pre-pullback stats come first, from a
+        blocking all-reduce of the rows' sums and K8's rank form."""
+        stats = rank_probe(px, mesh) if probe else None
         alpha = self.cfg.alpha
         beta = self.cfg.anchor_beta if self.momentum else None
+        mem = sharding.rows_of(membership, mesh)
+        weights = None if mem is None else mem.weights
         pending = isinstance(inflight, RankInflight)
         if pending:
             inflight.handle.wait()
-            base, buf = inflight.z, inflight.buf
+            base, buf, fin = inflight.z, inflight.buf, 2 if inflight.weighted else 1
         else:
-            base, buf = inflight, _wire_buffer(px)
+            base, buf, fin = inflight, _wire_buffer(px), 0
         m = px.lead_shape[0] * mesh.size
         vs = vars.v.buffers if self.momentum else (None,) * len(px.buffers)
-        z = Packed(tuple(anchor_ops.pullback_rank(bx, bz, bv, s, m, alpha, beta, finish=pending)
+        z = Packed(tuple(anchor_ops.pullback_rank(bx, bz, bv, s, m, alpha, beta, fin, weights=weights)
                          for bx, bz, bv, s in zip(px.buffers, base.buffers, vs, _wire_views(buf, px))), base.layout)
         handle = sharding.all_reduce_async(buf, mesh)
         if self.momentum:  # the consumed anchor, as on one device
             vars = AlgoVars(z=z, v=vars.v, extra=vars.extra)
-        return px, vars, RankInflight(z=z, buf=buf, handle=handle, m=m, beta=beta)
+        out = (px, vars, RankInflight(z=z, buf=buf, handle=handle, m=m, beta=beta, weighted=weights is not None))
+        return _with_stats(out, stats)
 
 
 def _pullback_mean(px: Packed, z: Packed, alpha: float, mean_pre: bool = False, probe: bool = False, weights=None):
@@ -564,6 +672,7 @@ class EASGDStrategy(CommStrategy):
     K5's row form and :func:`~repro_torch.utils.tree.tree_lerp`."""
 
     name = "easgd"
+    rank_capable = True
 
     def init_vars(self, x) -> AlgoVars:
         return AlgoVars(z=_pack_anchor(_as_plane(x)) if self.packed else _first_row(x))
@@ -577,16 +686,36 @@ class EASGDStrategy(CommStrategy):
     def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         alpha = self.cfg.alpha
         outs = _pullback_mean(px, vars.z, alpha, mean_pre=True, probe=probe, weights=_mem_weights(membership))
-        rate = _easgd_rate(alpha, px.lead_shape[0], membership)
-        if membership is None:
-            for bz, o in zip(vars.z.buffers, outs):
-                # (1 - r)·z + r·mean, each product and the sum rounded to z's
-                # dtype; the constants are rounded to it first (JAX weak types)
-                bz.mul_(weak(1.0 - rate, bz.dtype)).add_(o[1].mul_(weak(rate, bz.dtype)))
-        else:
-            for bz, o in zip(vars.z.buffers, outs):
-                bz.copy_(((1.0 - rate) * bz.float() + rate * o[1].float()).to(bz.dtype))
+        self._lerp_anchor_(vars.z, [o[1] for o in outs], _easgd_rate(alpha, px.lead_shape[0], membership))
         return _with_stats((px, vars, None), _fused_stats(outs, px.lead_shape[0], probe))
+
+    @staticmethod
+    def _lerp_anchor_(z: Packed, means, rate) -> None:
+        """z ← (1 − r)·z + r·mean per bucket, in place (``means`` scaled in
+        place too): fully live each product and the sum rounded to z's dtype,
+        the constants rounded to it first (JAX weak types); masked (a device
+        rate) in f32."""
+        for bz, mean in zip(z.buffers, means):
+            if isinstance(rate, torch.Tensor):
+                bz.copy_(((1.0 - rate) * bz.float() + rate * mean.float()).to(bz.dtype))
+            else:
+                bz.mul_(weak(1.0 - rate, bz.dtype)).add_(mean.mul_(weak(rate, bz.dtype)))
+
+    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh, probe: bool = False, membership=None):
+        """Blocking: K4's rank form pulls the rows toward z and writes the
+        (weighted) partial sums of the pre-pullback rows; one all-reduce;
+        z lerps toward their mean at min(α·m_live, 1) over all m workers."""
+        stats = rank_probe(px, mesh) if probe else None
+        alpha, m = self.cfg.alpha, px.lead_shape[0] * mesh.size
+        mem = sharding.rows_of(membership, mesh)
+        weights = None if mem is None else mem.weights
+        buf = _wire_buffer(px)
+        for bx, bz, s in zip(px.buffers, vars.z.buffers, _wire_views(buf, px)):
+            anchor_ops.pullback_rank(bx, bz, None, s, m, alpha, None, 0, weights=weights, mean_pre=True)
+        sharding.all_reduce_(buf, mesh)
+        means = [_finish_sum(s, m, weights is not None, bz.dtype) for s, bz in zip(_wire_views(buf, px), vars.z.buffers)]
+        self._lerp_anchor_(vars.z, means, _easgd_rate(alpha, m, membership))
+        return _with_stats((px, vars, None), stats)
 
 
 def _rebase_rows_(bx: torch.Tensor, b0: torch.Tensor, av: torch.Tensor, membership=None) -> None:
@@ -610,10 +739,19 @@ class _AvgRebaseStrategy(CommStrategy):
         avg: Any  # mean of the launch-time models (the overlapped collective)
         x0: Any  # the launch-time models, a copy of their own
 
+    rank_capable = True
+
     def init_inflight(self, x, vars):
         if self.packed:
             px = _as_plane(x)
-            return self.Inflight(avg=_packed_worker_mean(px), x0=_copy_plane(px))
+            mesh = sharding.current_mesh()
+            if mesh is None:
+                return self.Inflight(avg=_packed_worker_mean(px), x0=_copy_plane(px))
+            # every row starts equal: the mean of m copies of this rank's first
+            # row is the stacked run's mean, bit for bit, with no collective
+            m = px.lead_shape[0] * mesh.size
+            avg = Packed(tuple(_mean_rows(b[:1].expand(m, -1)) for b in px.buffers), px.layout)
+            return self.Inflight(avg=avg, x0=_copy_plane(px))
         return self.Inflight(avg=_worker_mean(x), x0=_clone(x))
 
     @staticmethod
@@ -638,6 +776,30 @@ class _AvgRebaseStrategy(CommStrategy):
         for b0, bx in zip(inflight.x0.buffers, px.buffers):
             b0.copy_(bx)
         return self.Inflight(avg=_packed_worker_mean(px, weights), x0=inflight.x0)
+
+    def _consumes_at_boundary(self) -> bool:
+        return True
+
+    def _rank_boundary(self, px: Packed, vars, inflight, mesh, probe: bool = False, membership=None):
+        """Rebase the rank's live rows onto the average launched a round ago
+        (waited on here, unless consumed mid-round), then launch the next:
+        x₀ ← the rows, and an async all-reduce of their (weighted) f32
+        partial sums into the consumed in-flight's wire buffer. With
+        ``probe`` the pre-rebase stats come first (a blocking all-reduce of
+        the rows' sums and K8's rank form)."""
+        stats = rank_probe(px, mesh) if probe else None
+        mem = sharding.rows_of(membership, mesh)
+        pending = isinstance(inflight, RankRebaseInflight)
+        done = inflight.finished() if pending else inflight  # waits, also when not consumed here
+        if self._consumes_at_boundary():
+            self._rebase_packed(px, done, mem)
+        for b0, bx in zip(done.x0.buffers, px.buffers):
+            b0.copy_(bx)
+        weights = None if mem is None else mem.weights
+        buf = _rank_sums(px, weights, inflight.buf if pending else None)
+        handle = sharding.all_reduce_async(buf, mesh)
+        out = RankRebaseInflight(done.x0, buf, handle, px.lead_shape[0] * mesh.size, weights is not None)
+        return _with_stats((px, vars, out), stats)
 
 
 class CoCoDStrategy(_AvgRebaseStrategy):
@@ -723,9 +885,12 @@ class DelayedAveragingStrategy(_AvgRebaseStrategy):
         return self._rebase(x, inflight)
 
     def local_post_update_packed(self, px: Packed, vars, inflight, k_in_round: int) -> Packed:
-        if self._arrives(k_in_round):
-            self._rebase_packed(px, inflight)
+        if self._arrives(k_in_round):  # on a worker mesh: the average's all-reduce is waited here
+            self._rebase_packed(px, inflight.finished() if isinstance(inflight, RankRebaseInflight) else inflight)
         return px
+
+    def _consumes_at_boundary(self) -> bool:
+        return self.delay >= self.tau
 
     def boundary_apply(self, x, vars, inflight, membership=None):
         # the mask covers the boundary's consumption only: the mid-round rebase

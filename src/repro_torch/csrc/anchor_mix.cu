@@ -120,6 +120,21 @@
 // (2 P r n), S read and written (8 n: f32 for bf16 planes too, as the
 // reference sums in f32), z read and z', v, v' (4 P n; K4 reads no z when it
 // finishes and writes z' alone). Replaces the same Pallas kernels as K3/K4.
+// The same body takes the masked and EASGD boundaries' operands:
+//   w (the rank's rows' slice of a membership's (m,) weights): dead rows
+//     (w_i = 0) pass through and the partial sum is sum_i w_i x_i, each
+//     product rounded, as boundary_columns weights its terms;
+//   mean_pre: the partial sum is of the pre-pullback rows (EASGD's
+//     symmetric mix);
+//   finish 2: S is a weighted sum, so the mean is round(S_k) with no
+//     division (the membership of boundary k, not k+1, decides the form).
+//
+// K8, rank form: one rank's rows x (r, n) and the global f32 column mean
+// xbar (the all-reduced unweighted row sums over m, which no rank holds
+// before the collective) give sum_{i,j} (x_ij - xbar_j)^2 over the rank's
+// rows and sum_j xbar_j^2, the float64 sums K8 keeps, written as float64 so
+// that the ranks' drift sums add in float64 before the one rounding to f32.
+// The same per-thread sums, block tree and last-block reduction as K8.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -179,6 +194,7 @@ struct Probe {
   float* out;
   double* ws;
   unsigned int* counter;
+  double* out64 = nullptr;  // K8's rank form: the float64 sums, not rounded
 };
 
 // K8's per-column work, shared by the standalone kernel and K3/K4: columns
@@ -252,8 +268,13 @@ __device__ __forceinline__ void probe_finish(double drift, double scale, const P
   ss[t] = s;
   block_tree(sd, ss);
   if (t == 0) {
-    p.out[0] = __double2float_rn(sd[0]);
-    p.out[1] = __double2float_rn(ss[0]);
+    if (p.out64 != nullptr) {
+      p.out64[0] = sd[0];
+      p.out64[1] = ss[0];
+    } else {
+      p.out[0] = __double2float_rn(sd[0]);
+      p.out[1] = __double2float_rn(ss[0]);
+    }
     *p.counter = 0u;
   }
 }
@@ -349,15 +370,17 @@ __device__ __forceinline__ void store_f32(float* p, const float* d) {
 
 struct RankArgs {
   float oma, alpha, beta;
-  int rows;    // this rank's rows of x (0: finish only, the drain)
-  int m;       // the worker count over all ranks (the mean's divisor)
-  int finish;  // s holds the last boundary's worker sum: finish its anchor first
+  int rows;      // this rank's rows of x (0: finish only, the drain)
+  int m;         // the worker count over all ranks (the mean's divisor)
+  int finish;    // s holds the last boundary's worker sum: finish its anchor first (2: a weighted sum)
+  int mean_pre;  // the partial sum of the pre-pullback rows (EASGD)
 };
 
-// The rank form on columns j0 .. j0+V-1 (see the header). v == nullptr: K4.
+// The rank form on columns j0 .. j0+V-1 (see the header). v == nullptr: K4;
+// w == nullptr: unmasked.
 template <typename T, int V>
-__device__ __forceinline__ void rank_columns(T* x, const T* z, T* v, float* s, T* z_out, long long n, long long j0,
-                                             const RankArgs& a) {
+__device__ __forceinline__ void rank_columns(T* x, const T* z, T* v, const float* w, float* s, T* z_out, long long n,
+                                             long long j0, const RankArgs& a) {
   Lanes<T, V> zr;
   if (!a.finish || v != nullptr) zr.load(z + j0);
   if (a.finish) {
@@ -367,7 +390,7 @@ __device__ __forceinline__ void rank_columns(T* x, const T* z, T* v, float* s, T
     if (v != nullptr) vr.load(v + j0);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      const T mean = from_f<T>(__fdiv_rn(sr[k], (float)a.m));
+      const T mean = from_f<T>(a.finish == 2 ? sr[k] : __fdiv_rn(sr[k], (float)a.m));
       if (v == nullptr) {
         zr.e[k] = mean;
       } else {
@@ -383,33 +406,74 @@ __device__ __forceinline__ void rank_columns(T* x, const T* z, T* v, float* s, T
   float acc[V];
   for (int i = 0; i < a.rows; ++i) {
     T* row = x + (long long)i * n + j0;
-    Lanes<T, V> xr;
+    Lanes<T, V> xr, out;
     xr.load(row);
+    const bool dead = w != nullptr && !(w[i] > 0.f);
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      xr.e[k] = from_f<T>(__fadd_rn(__fmul_rn(a.oma, to_f(xr.e[k])), __fmul_rn(a.alpha, to_f(zr.e[k]))));
-      const float term = to_f(xr.e[k]);
+      const T xn = from_f<T>(__fadd_rn(__fmul_rn(a.oma, to_f(xr.e[k])), __fmul_rn(a.alpha, to_f(zr.e[k]))));
+      out.e[k] = dead ? xr.e[k] : xn;
+      const float src = to_f(a.mean_pre ? xr.e[k] : out.e[k]);
+      const float term = w != nullptr ? __fmul_rn(src, w[i]) : src;
       acc[k] = i == 0 ? term : __fadd_rn(acc[k], term);
     }
-    xr.store(row);
+    out.store(row);
   }
   store_f32<V>(s + j0, acc);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rank_kernel(T* __restrict__ x, const T* __restrict__ z, T* __restrict__ v, float* __restrict__ s,
-            T* __restrict__ z_out, long long n, RankArgs a, int vec) {
+rank_kernel(T* __restrict__ x, const T* __restrict__ z, T* __restrict__ v, const float* __restrict__ w,
+            float* __restrict__ s, T* __restrict__ z_out, long long n, RankArgs a, int vec) {
   constexpr int V = 16 / sizeof(T);
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   const long long step = (long long)gridDim.x * kThreads;
   long long done = 0;
   if (vec) {
     const long long nv = n / V;
-    for (long long c = tid; c < nv; c += step) rank_columns<T, V>(x, z, v, s, z_out, n, c * V, a);
+    for (long long c = tid; c < nv; c += step) rank_columns<T, V>(x, z, v, w, s, z_out, n, c * V, a);
     done = nv * V;
   }
-  for (long long j = done + tid; j < n; j += step) rank_columns<T, 1>(x, z, v, s, z_out, n, j, a);
+  for (long long j = done + tid; j < n; j += step) rank_columns<T, 1>(x, z, v, w, s, z_out, n, j, a);
+}
+
+// K8's rank form on columns j0 .. j0+V-1 of the rank's rows, xbar given (f32):
+// the squares of K8's probe_columns without its mean.
+template <typename T, int V>
+__device__ __forceinline__ void probe_rank_columns(const T* x, const float* xbar, long long n, long long j0, int rows,
+                                                   double& drift, double& scale) {
+  float mu[V];
+  load_f32<V>(mu, xbar + j0);
+#pragma unroll
+  for (int k = 0; k < V; ++k) scale += (double)__fmul_rn(mu[k], mu[k]);
+  for (int i = 0; i < rows; ++i) {
+    Lanes<T, V> xr;
+    xr.load(x + (long long)i * n + j0);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float d = __fsub_rn(to_f(xr.e[k]), mu[k]);
+      drift += (double)__fmul_rn(d, d);
+    }
+  }
+}
+
+// K8, rank form: the same grid and column mapping as K8.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+probe_rank_kernel(const T* __restrict__ x, const float* __restrict__ xbar, long long n, int rows, int vec, Probe p) {
+  constexpr int V = 16 / sizeof(T);
+  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long step = (long long)gridDim.x * kThreads;
+  double drift = 0.0, scale = 0.0;
+  long long done = 0;
+  if (vec) {
+    const long long nv = n / V;
+    for (long long c = tid; c < nv; c += step) probe_rank_columns<T, V>(x, xbar, n, c * V, rows, drift, scale);
+    done = nv * V;
+  }
+  for (long long j = done + tid; j < n; j += step) probe_rank_columns<T, 1>(x, xbar, n, j, rows, drift, scale);
+  probe_finish(drift, scale, p);
 }
 
 // K8 standalone: the same grid and column mapping as boundary_kernel.
@@ -457,14 +521,22 @@ int launch(void* x, const void* z, void* v, void* z_out, const float* w, long lo
 }
 
 template <typename T>
-int launch_rank(void* x, const void* z, void* v, float* s, void* z_out, long long n, const RankArgs& a,
-                cudaStream_t st) {
+int launch_rank(void* x, const void* z, void* v, const float* w, float* s, void* z_out, long long n,
+                const RankArgs& a, cudaStream_t st) {
   constexpr int V = 16 / sizeof(T);
   // rows are n apart: the vector path needs n to keep every row 16-byte aligned
   const int vec = (n % V == 0) && aligned16(x) && aligned16(z) && aligned16(s) && aligned16(z_out) &&
                   aligned16(v);
   rank_kernel<T><<<grid_for<T>(n), kThreads, 0, st>>>(static_cast<T*>(x), static_cast<const T*>(z),
-                                                       static_cast<T*>(v), s, static_cast<T*>(z_out), n, a, vec);
+                                                       static_cast<T*>(v), w, s, static_cast<T*>(z_out), n, a, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_probe_rank(const void* x, const float* xbar, int rows, long long n, const Probe& p, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const int vec = (n % V == 0) && aligned16(x) && aligned16(xbar);
+  probe_rank_kernel<T><<<grid_for<T>(n), kThreads, 0, st>>>(static_cast<const T*>(x), xbar, n, rows, vec, p);
   return (int)cudaGetLastError();
 }
 
@@ -765,18 +837,38 @@ extern "C" int pullback_momentum_launch(void* x, const void* z, void* v, const v
 
 // K3/K4, rank form. x: (rows, n), this rank's rows, updated in place (rows 0:
 // the drain); z: (n,) the anchor (finish: z_k, the momentum's base; else the
-// final anchor); v: (n,) updated in place, or null (K4); s: (n,) float32,
-// read when finish (S_k), overwritten with the rows' partial sum when rows
-// > 0; z_out: (n,) z_{k+1}, written when finish. m: the worker count over
-// all ranks. dtype: 0 = float32, 1 = bfloat16 (x, z, v, z_out).
-extern "C" int pullback_rank_launch(void* x, const void* z, void* v, void* s, void* z_out, int rows, long long n,
-                                    int m, float oma, float alpha, float beta, int finish, int dtype, void* stream) {
-  if (n <= 0 || rows < 0 || m <= 0) return n <= 0 ? 0 : (int)cudaErrorInvalidValue;
+// final anchor); v: (n,) updated in place, or null (K4); w: (rows,) float32,
+// the rows' membership weights, or null (unmasked); s: (n,) float32, read
+// when finish (S_k), overwritten with the rows' partial sum (of the
+// pre-pullback rows when mean_pre) when rows > 0; z_out: (n,) z_{k+1},
+// written when finish. m: the worker count over all ranks. finish: 0 none,
+// 1 mean = S / m, 2 mean = S (a weighted sum). dtype: 0 = float32,
+// 1 = bfloat16 (x, z, v, z_out).
+extern "C" int pullback_rank_launch(void* x, const void* z, void* v, const void* w, void* s, void* z_out, int rows,
+                                    long long n, int m, float oma, float alpha, float beta, int finish, int mean_pre,
+                                    int dtype, void* stream) {
+  if (n <= 0 || rows < 0 || m <= 0 || finish < 0 || finish > 2) return n <= 0 ? 0 : (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const RankArgs a{oma, alpha, beta, rows, m, finish};
+  const RankArgs a{oma, alpha, beta, rows, m, finish, mean_pre};
   float* sf = static_cast<float*>(s);
-  if (dtype == 0) return launch_rank<float>(x, z, v, sf, z_out, n, a, st);
-  if (dtype == 1) return launch_rank<__nv_bfloat16>(x, z, v, sf, z_out, n, a, st);
+  const float* wf = static_cast<const float*>(w);
+  if (dtype == 0) return launch_rank<float>(x, z, v, wf, sf, z_out, n, a, st);
+  if (dtype == 1) return launch_rank<__nv_bfloat16>(x, z, v, wf, sf, z_out, n, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K8, rank form. x: (rows, n) read; xbar: (n,) float32, the global column
+// mean; stats: (2,) float64 written, [drift_sq over the rows, scale_sq]; ws
+// and counter as for K4. dtype: 0 = float32, 1 = bfloat16 (x).
+extern "C" int consensus_probe_rank_launch(const void* x, int rows, long long n, const void* xbar, void* stats,
+                                           void* ws, void* counter, int dtype, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (n <= 0 || rows <= 0) return (int)cudaMemsetAsync(stats, 0, 2 * sizeof(double), st);
+  Probe p = probe_args(nullptr, ws, counter);
+  p.out64 = static_cast<double*>(stats);
+  const float* xb = static_cast<const float*>(xbar);
+  if (dtype == 0) return launch_probe_rank<float>(x, xb, rows, n, p, st);
+  if (dtype == 1) return launch_probe_rank<__nv_bfloat16>(x, xb, rows, n, p, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,15 @@ the anchor (no full-plane temporary, as the reference's ``jnp.where``
 would make), and the gossip anchor Σ_i mix_i / Σ_i w_i is summed over
 column chunks. A per-leaf state (``AlgoConfig.packed=False``) is re-synced
 the same way, leaf by leaf, from its per-leaf anchor.
+
+On a worker mesh (:mod:`repro_torch.parallel.sharding`) every rank replays
+the same plan, so every rank installs the same (m,) membership and keeps the
+same ``records``. A re-sync first drains the rank boundary's pending
+collective (:func:`repro_torch.training.drain`: the anchor, or the
+avg-rebase average, finished once, and the next boundary starts from it),
+then copies the anchor into the rejoining workers' rows that live on this
+rank; the live-mean fallback sums the rows' weighted f32 partial sums over
+the ranks (one blocking all-reduce).
 """
 from __future__ import annotations
 
@@ -28,7 +37,10 @@ import torch
 from repro_torch.fault.membership import Membership, from_mask
 from repro_torch.fault.plan import FaultPlan
 from repro_torch.parallel import offload as off
+from repro_torch.parallel import sharding
 from repro_torch.parallel.packing import Packed, column_chunks, tensors_of, tree_flatten, tree_unflatten
+from repro_torch.training import drain
+
 
 def _row_sum(b: torch.Tensor, scale_fn) -> torch.Tensor:
     """``scale_fn(Σ_i b_i in f32 over a column chunk)`` cast to b's dtype,
@@ -77,18 +89,42 @@ def resync_from_anchor(state, resync_mask):
     Returns the state."""
     mask = np.asarray(resync_mask, bool)
     rows = [int(i) for i in np.nonzero(mask)[0]]
+    mesh = sharding.current_mesh()
+    lo, hi = (0, len(mask)) if mesh is None else mesh.rows(len(mask))
+    if mesh is not None:
+        state = drain(state)
     anchor = _anchor_of(state)
     x = state.x
     if anchor is None:
         # no anchor: recover onto the mean of the workers that were not excluded
         w = (~mask).astype(np.float32)
         w = w / np.sum(w, dtype=np.float32)
-        wt = torch.from_numpy(w).to(tensors_of(x)[0].device)[:, None]
-        anchor = _map(lambda b: _row_sum(b, lambda t: torch.sum(t * wt, dim=0)), x)
+        wt = torch.from_numpy(w[lo:hi]).to(tensors_of(x)[0].device)[:, None]
+        if mesh is None:
+            anchor = _map(lambda b: _row_sum(b, lambda t: torch.sum(t * wt, dim=0)), x)
+        else:
+            anchor = _live_mean_over_ranks(x, wt, mesh)
     for b, a in zip(tensors_of(x), tensors_of(anchor)):
         for i in rows:
-            b[i].copy_(a)
+            if lo <= i < hi:  # the row lives on this rank
+                b[i - lo].copy_(a)
     return state
+
+
+def _live_mean_over_ranks(x, wt: torch.Tensor, mesh):
+    """Σ_i w_i·x_i over all m workers, cast to each buffer's dtype: the
+    rank's rows' f32 partial sums over column chunks (``wt`` their (r, 1)
+    weights), added over the ranks by one blocking all-reduce."""
+    bufs = tensors_of(x)
+    sums = torch.empty(sum(b[0].numel() for b in bufs), dtype=torch.float32, device=bufs[0].device)
+    views = torch.split(sums, [b[0].numel() for b in bufs])
+    for b, s in zip(bufs, views):
+        rows = b.reshape(b.shape[0], -1)
+        for c in column_chunks(rows):
+            s[c] = torch.sum(rows[:, c].float() * wt, dim=0)
+    sharding.all_reduce_(sums, mesh)
+    it = iter(views)
+    return _map(lambda b: next(it).to(b.dtype).reshape(b.shape[1:]), x)
 
 
 class FaultHarness:

@@ -21,5 +21,6 @@ def all_kernels():
             opt_ops.ADAMW_WINDOW, am_ops.MIX, am_ops.MIX_ROWS,
             am_ops.GOSSIP, am_ops.MEAN, am_ops.MOMENTUM, am_ops.MEAN_RANK, am_ops.MOMENTUM_RANK, fa_ops.FWD,
             fa_ops.BWD_DQ, fa_ops.BWD_DKDV,
-            fa_ops.BWD_DKDV_SUM, probe_ops.PROBE, wkv_ops.FWD_LOCAL, wkv_ops.FWD, wkv_ops.BWD_LOCAL, wkv_ops.BWD,
+            fa_ops.BWD_DKDV_SUM, probe_ops.PROBE, probe_ops.PROBE_RANK, wkv_ops.FWD_LOCAL, wkv_ops.FWD,
+            wkv_ops.BWD_LOCAL, wkv_ops.BWD,
             ssd_ops.FWD_LOCAL, ssd_ops.FWD, ssd_ops.BWD_LOCAL, ssd_ops.BWD]

@@ -17,8 +17,10 @@ all m rows; it counts on :data:`MIX_ROWS`, the same-shape launch on
 :data:`MIX`.
 The rank form (:func:`pullback_rank`) is K3/K4 on one rank's rows when the
 worker axis is spread over ``torch.distributed`` ranks: it finishes the
-anchor from the all-reduced f32 worker sum of the last boundary, pulls the
-rows back and leaves their f32 partial sum in the wire buffer for the next
+anchor from the all-reduced f32 worker sum of the last boundary (a mean, or
+a membership's weighted sum), pulls the rows back (dead rows pass through
+under the rows' weights) and leaves their f32 partial sum (weighted, or of
+the pre-pullback rows for EASGD) in the wire buffer for the next
 all-reduce; it counts on :data:`MOMENTUM_RANK` (K3) or :data:`MEAN_RANK`
 (K4).
 The gossip form runs the push-sum boundary of one bucket (debias, K5 on the
@@ -60,7 +62,7 @@ MOMENTUM = Kernel(
     source="anchor_mix",
 )
 # K3/K4's rank form (one launch body), each counted on its own
-_RANK_ARGS = {"pullback_rank_launch": [P, P, P, P, P, I, L, I, F, F, F, I, I, P]}
+_RANK_ARGS = {"pullback_rank_launch": [P, P, P, P, P, P, I, L, I, F, F, F, I, I, I, P]}
 MOMENTUM_RANK = Kernel("pullback_momentum_rank", _RANK_ARGS, source="anchor_mix")
 MEAN_RANK = Kernel("pullback_mean_rank", _RANK_ARGS, source="anchor_mix")
 
@@ -207,22 +209,27 @@ def pullback_mean_momentum(x, z, v, alpha: float, beta: float, probe: bool = Fal
     return (x, z_next, v, stats) if probe else (x, z_next, v)
 
 
-def pullback_rank(x, z, v, s, m: int, alpha: float, beta, finish: bool):
+def pullback_rank(x, z, v, s, m: int, alpha: float, beta, finish, weights=None, mean_pre: bool = False):
     """K3 (``v`` given) or K4 (``v`` None) on one rank's rows: with
     ``finish``, the anchor z' from ``s``, the f32 worker sum of the last
-    boundary over all ``m`` workers (K3: v updated in place); then the rows
+    boundary over all ``m`` workers (``finish == 2``: a weighted sum, taken
+    as the mean with no division; K3: v updated in place); then the rows
     of x (r, n; r may be 0, the drain) pulled back in place toward z' (toward
-    z without ``finish``) and their f32 partial sum written over ``s``. z,
-    v: (n,) of x's dtype; s: (n,) float32. Returns z' (a new buffer), or z
-    itself without ``finish``."""
-    _check("pullback_rank", x, (z,) if v is None else (z, v), None)
+    z without ``finish``) and their f32 partial sum written over ``s``:
+    with ``weights`` ((r,) float32, the rows' membership weights) dead rows
+    pass through and the sum is Σ w_i·x_i; with ``mean_pre`` it is of the
+    pre-pullback rows. z, v: (n,) of x's dtype; s: (n,) float32. Returns z'
+    (a new buffer), or z itself without ``finish``."""
+    finish = int(finish)
+    _check("pullback_rank", x, (z,) if v is None else (z, v), weights)
     if s.shape != (x.shape[1],) or s.dtype != torch.float32 or s.device != x.device:
         raise ValueError(f"pullback_rank: s must be ({x.shape[1]},) float32 on {x.device}, got {tuple(s.shape)} "
                          f"{s.dtype} on {s.device}")
-    if m < 1 or (v is not None and beta is None):
-        raise ValueError(f"pullback_rank: m must be >= 1 and K3 needs beta, got m={m}, beta={beta}")
+    if m < 1 or finish not in (0, 1, 2) or (v is not None and beta is None):
+        raise ValueError(f"pullback_rank: m must be >= 1, finish 0, 1 or 2, and K3 needs beta, got m={m}, "
+                         f"finish={finish}, beta={beta}")
     if x.device.type == "cpu":
-        x_new, z_next, v_new, partial = _ref.pullback_rank(x, z, v, s, m, alpha, beta, finish)
+        x_new, z_next, v_new, partial = _ref.pullback_rank(x, z, v, s, m, alpha, beta, finish, weights, mean_pre)
         x.copy_(x_new)
         if v_new is not None:
             v.copy_(v_new)
@@ -234,8 +241,8 @@ def pullback_rank(x, z, v, s, m: int, alpha: float, beta, finish: bool):
     z_next = torch.empty_like(z) if finish else z
     kernel = MEAN_RANK if v is None else MOMENTUM_RANK
     kernel.launch(
-        "pullback_rank_launch", x.data_ptr(), z.data_ptr(), 0 if v is None else v.data_ptr(), s.data_ptr(),
-        z_next.data_ptr() if finish else 0, x.shape[0], x.shape[1], int(m), float(1.0 - alpha), float(alpha),
-        float(beta or 0.0), int(bool(finish)), dtype_code(x.dtype), stream_ptr(x.device),
+        "pullback_rank_launch", x.data_ptr(), z.data_ptr(), 0 if v is None else v.data_ptr(), _wptr(weights),
+        s.data_ptr(), z_next.data_ptr() if finish else 0, x.shape[0], x.shape[1], int(m), float(1.0 - alpha),
+        float(alpha), float(beta or 0.0), finish, int(bool(mean_pre)), dtype_code(x.dtype), stream_ptr(x.device),
     )
     return z_next

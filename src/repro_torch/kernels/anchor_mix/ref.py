@@ -51,8 +51,9 @@ def push(peff: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def row_sum(src: torch.Tensor) -> torch.Tensor:
-    """The f32 sum of the rows of ``src`` (r, n), in order 0 .. r−1."""
-    acc = src[0].float()
+    """The f32 sum of the rows of ``src`` (r, n), in order 0 .. r−1: a new
+    tensor also for one f32 row (never a view of ``src``)."""
+    acc = src[0].to(torch.float32, copy=True)
     for i in range(1, src.shape[0]):
         acc = acc + src[i].float()
     return acc
@@ -97,17 +98,22 @@ def pullback_mean_momentum(x, z, v, alpha: float, beta: float, weights=None):
     return x_new, z_next, v_new
 
 
-def pullback_rank(x, z, v, s, m: int, alpha: float, beta, finish: bool):
+def pullback_rank(x, z, v, s, m: int, alpha: float, beta, finish, weights=None, mean_pre: bool = False):
     """K3/K4's rank form: the boundary of one rank's rows ``x`` (r, n) when
     the worker axis is spread over ranks. With ``finish``, first the tail of
     K3/K4 on ``s``, the f32 worker sum of the last boundary over all m
-    workers: mean = round(s / m); K3 (``v`` given): v' = round(β·v + (mean −
-    z)), z' = round(z + v'); K4: z' = mean. Then the rows pulled back toward
-    z' (eq. 4; toward z without ``finish``) and their f32 partial sum in row
-    order (None for r = 0). Returns new (x_new, z', v' or None, partial)."""
+    workers: mean = round(s / m) (``finish == 2``: s is a weighted sum and
+    mean = round(s)); K3 (``v`` given): v' = round(β·v + (mean − z)), z' =
+    round(z + v'); K4: z' = mean. Then the rows pulled back toward z' (eq. 4;
+    toward z without ``finish``) and their f32 partial sum in row order
+    (None for r = 0): with ``weights`` ((r,) f32, the rows' slice of a
+    membership) dead rows keep x and the sum is Σ w_i·x_i; with
+    ``mean_pre`` the sum is of the pre-pullback rows. Returns new (x_new,
+    z', v' or None, partial)."""
     v_new = None
     if finish:
-        mean = _over_m(s, m).to(z.dtype)
+        # a buffer of its own: s is overwritten with the rows' partial sum
+        mean = s.to(z.dtype, copy=True) if finish == 2 else _over_m(s, m).to(z.dtype)
         if v is None:
             z_next = mean
         else:
@@ -117,4 +123,9 @@ def pullback_rank(x, z, v, s, m: int, alpha: float, beta, finish: bool):
     else:
         z_next = z
     x_new = ((1.0 - alpha) * x.float() + alpha * z_next.float()[None]).to(x.dtype)
-    return x_new, z_next, v_new, (row_sum(x_new) if x.shape[0] else None)
+    if weights is not None:
+        x_new = torch.where((weights.float() > 0)[:, None], x_new, x)
+    if not x.shape[0]:
+        return x_new, z_next, v_new, None
+    src = x if mean_pre else x_new
+    return x_new, z_next, v_new, (row_sum(src) if weights is None else worker_mean(src, weights))

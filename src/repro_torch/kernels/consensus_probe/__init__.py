@@ -6,8 +6,9 @@ from repro_torch.kernels.consensus_probe.ops import (
     ConsensusStats,
     packed_probe,
     probe_buffer,
+    probe_rows,
     stats_from_partials,
     tree_probe,
 )
 
-__all__ = ["ConsensusStats", "packed_probe", "probe_buffer", "stats_from_partials", "tree_probe"]
+__all__ = ["ConsensusStats", "packed_probe", "probe_buffer", "probe_rows", "stats_from_partials", "tree_probe"]

@@ -10,6 +10,10 @@ raw sums, also those K3/K4 emit with ``probe=True``, into the controller's
 :class:`ConsensusStats`. Everything stays on the device: the stats are
 0-dim float32 tensors, read by the host once a round with the losses.
 
+``probe_rows`` is K8's rank form (the worker axis over ranks): one rank's
+rows against the global f32 column mean, the float64 sums returned for the
+ranks' float64 sum (:func:`repro_torch.core.strategy.rank_probe`).
+
 The kernel keeps a float64 workspace (one pair a block) and an unsigned
 counter per device, allocated at its first launch there and shared with the
 fused probe of K3/K4; launches on one device are ordered by its current
@@ -33,6 +37,9 @@ from repro_torch.kernels.consensus_probe import ref as _ref
 from repro_torch.parallel.packing import Packed, tree_flatten
 
 PROBE = Kernel("consensus_probe", {"consensus_probe_launch": [P, I, L, P, P, P, I, P]}, source="anchor_mix")
+# K8's rank form (one rank's rows against the global mean), counted apart
+PROBE_RANK = Kernel("consensus_probe_rank", {"consensus_probe_rank_launch": [P, I, L, P, P, P, P, I, P]},
+                    source="anchor_mix")
 MAX_BLOCKS = 132 * 16  # kMaxBlocks in csrc/anchor_mix.cu: the workspace holds one pair a block
 
 _WORKSPACES = {}
@@ -80,6 +87,27 @@ def probe_buffer(x: torch.Tensor) -> torch.Tensor:
     out, (po, pw, pc) = probe_args(x)
     PROBE.launch("consensus_probe_launch", x.data_ptr(), x.shape[0], x.shape[1], po, pw, pc, dtype_code(x.dtype),
                  stream_ptr(x.device))
+    return out
+
+
+def probe_rows(x: torch.Tensor, xbar: torch.Tensor) -> torch.Tensor:
+    """K8's rank form: x (r, n), one rank's rows, and ``xbar`` (n,) float32,
+    the global column mean over all m workers → (2,) float64
+    ``[drift_sq over the rows, scale_sq]``, the sums not rounded to f32 (the
+    ranks add their drift sums in float64). One launch on the GPU."""
+    if x.dim() != 2 or xbar.shape != (x.shape[1],) or xbar.dtype != torch.float32 or xbar.device != x.device:
+        raise ValueError(f"probe_rows: x must be (r, n) and xbar (n,) float32 on x's device, got {tuple(x.shape)} "
+                         f"and {tuple(xbar.shape)} {xbar.dtype} on {xbar.device}")
+    if x.device.type == "cpu":
+        return _ref.rows_probe(x, xbar)
+    if x.device.type != "cuda":
+        raise ValueError(f"probe_rows: unsupported device {x.device}")
+    if not (x.is_contiguous() and xbar.is_contiguous()):
+        raise ValueError("probe_rows: CUDA buffers must be contiguous")
+    out = torch.empty(2, dtype=torch.float64, device=x.device)
+    ws, counter = workspace(x.device)
+    PROBE_RANK.launch("consensus_probe_rank_launch", x.data_ptr(), x.shape[0], x.shape[1], xbar.data_ptr(),
+                      out.data_ptr(), ws.data_ptr(), counter.data_ptr(), dtype_code(x.dtype), stream_ptr(x.device))
     return out
 
 

@@ -22,3 +22,14 @@ def plane_probe(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     mean = worker_mean(xf)
     return torch.stack([torch.sum(torch.square(xf - mean[None, :])), torch.sum(torch.square(mean))])
+
+
+def rows_probe(x: torch.Tensor, xbar: torch.Tensor) -> torch.Tensor:
+    """K8's rank form: one rank's rows x (r, n) and the global f32 column
+    mean ``xbar`` (n,). Returns a (2,) float64 tensor ``[drift_sq, scale_sq]``:
+    Σ (x_i − x̄)² over the rows and elements and Σ x̄² over elements, each
+    square rounded to float32 and the squares added in float64 (K8's sums),
+    so that the ranks' drift sums add in float64."""
+    xf = x.float()
+    return torch.stack([torch.sum(torch.square(xf - xbar[None, :]).double()),
+                        torch.sum(torch.square(xbar.float()).double())])

@@ -7,7 +7,17 @@ group: one process a worker rank, each holding m/W rows of the plane
     torch.distributed.init_process_group("nccl", init_method=..., world_size=W, rank=r)
     with mesh_context(make_smoke_mesh(W)):
         exp = Experiment(arch="qwen2-7b", workers=m).build()   # the rank's m/W rows
-        ...
+        res = exp.fit(rounds=8, adaptive_tau=TauController(...), faults=FaultPlan.parse("crash:1@2-5", m=m, seed=7))
+        exp.evaluate()                                         # the consensus of all m workers
+
+What runs on a mesh (ROADMAP item 10b's first part): ``Experiment.fit``,
+plain, with ``faults=``, with ``adaptive_tau=`` and with both, for
+overlap_local_sgd, local_sgd, sync_sgd, easgd, cocod and delayed_avg; the
+readers ``consensus()``, ``consensus_plane()``, ``anchor_plane()``,
+``evaluate()`` and ``serve()``. Every rank makes the same calls and ends
+with the same losses, τ schedule, fault log, anchor and readers.
+sparse_anchor, powersgd, the gossip family, offload, the per-leaf path and
+the checkpointer raise (item 10b's second part).
 
 The reference's production mesh (``make_production_mesh``, the v5e pod)
 and its TPU constants wait for ROADMAP Queue 1 item 10d; within-worker

@@ -16,10 +16,18 @@ A mesh is entered with :func:`mesh_context`; while one is current,
 ``make_train_state`` builds the rank's rows and the round engine slices its
 rows of each round batch and runs the strategies' rank boundaries.
 
-Only the worker axis is here (ROADMAP Queue 1 item 10a). Within-worker
-sharding (fsdp, tensor), the logical rule table and the ZeRO-sharded anchor
-are item 10c; the paths that raise on a mesh name item 10b
-(:func:`unsupported_on_ranks`).
+Besides the async sum, the boundaries and the experiment use blocking
+collectives over the same group: :func:`all_reduce_` (an f32 plane-wide sum,
+or a float64 scalar sum of the probe's drift), and :func:`all_gather_rows`
+(the rows' per-worker losses gathered along the worker axis). A fault plan's
+membership is resolved on the host alike on every rank and stays (m,) in the
+state; :func:`rows_of` cuts the rank's rows out of it for a boundary.
+
+Only the worker axis is here (ROADMAP Queue 1 items 10a and 10b's first
+part). Within-worker sharding (fsdp, tensor), the logical rule table and the
+ZeRO-sharded anchor are item 10c; the paths that still raise on a mesh
+(sparse_anchor, powersgd, the gossip family, offload, the per-leaf path, the
+checkpointer) name item 10b (:func:`unsupported_on_ranks`).
 """
 from __future__ import annotations
 
@@ -123,7 +131,40 @@ def all_reduce_async(buf: torch.Tensor, mesh: Optional[WorkerMesh] = None):
     """Launch the sum of ``buf`` over the worker ranks, in place; returns the
     handle, whose ``wait()`` makes the sum visible (on a card: orders the
     current stream after it)."""
+    mesh = _mesh(mesh, "all_reduce_async")
+    return dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group, async_op=True)
+
+
+def _mesh(mesh: Optional[WorkerMesh], what: str) -> WorkerMesh:
     mesh = mesh or current_mesh()
     if mesh is None:
-        raise RuntimeError("all_reduce_async needs a worker mesh (mesh_context)")
-    return dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group, async_op=True)
+        raise RuntimeError(f"{what} needs a worker mesh (mesh_context)")
+    return mesh
+
+
+def all_reduce_(buf: torch.Tensor, mesh: Optional[WorkerMesh] = None) -> torch.Tensor:
+    """The sum of ``buf`` over the worker ranks, in place, blocking (on a
+    card: the current stream ordered after it). Returns ``buf``."""
+    all_reduce_async(buf, _mesh(mesh, "all_reduce_")).wait()
+    return buf
+
+
+def all_gather_rows(t: torch.Tensor, mesh: Optional[WorkerMesh] = None) -> torch.Tensor:
+    """Each rank's ``t`` (..., r), one value a row of its m/W workers on the
+    last axis, gathered into (..., m) in worker order on every rank. A sum
+    of zero-padded copies (x + 0 is x), so that it runs on every backend,
+    gloo on CUDA tensors included."""
+    mesh = _mesh(mesh, "all_gather_rows")
+    r = t.shape[-1]
+    out = torch.zeros(t.shape[:-1] + (r * mesh.size,), dtype=t.dtype, device=t.device)
+    out[..., mesh.rank * r : (mesh.rank + 1) * r] = t
+    return all_reduce_(out, mesh)
+
+
+def rows_of(membership, mesh: Optional[WorkerMesh] = None):
+    """The rank's rows of a membership (its (m,) mask and weights cut to
+    ``[lo, hi)``, as the same NamedTuple), or None for None."""
+    if membership is None:
+        return None
+    lo, hi = _mesh(mesh, "rows_of").rows(int(membership.mask.shape[0]))
+    return membership._replace(mask=membership.mask[lo:hi], weights=membership.weights[lo:hi])

@@ -51,10 +51,12 @@ the adaptive-τ controller's inputs.
 On a worker mesh (:mod:`repro_torch.parallel.sharding`) the state holds
 this rank's m/W rows; a round takes the full ``(τ, m, b, …)`` batch and
 slices the rank's rows, runs the local steps on its rows unchanged, and
-ends in the strategy's rank boundary, whose collective may still be in
-flight when the round returns. :func:`drain` waits on it and finishes the
-anchor, so that the state equals the one-device run's at the same step.
-Per-worker metrics are the rank's own rows.
+ends in the strategy's rank boundary (with ``probe`` and the state's (m,)
+membership, as on one process), whose collective may still be in flight
+when the round returns. :func:`drain` waits on it and finishes it, so that
+the state equals the one-device run's at the same step. Per-worker metrics
+are the rank's own rows; the probe's stats are over all m workers, equal on
+every rank.
 
 With ``AlgoConfig.offload`` (the reference's residency, DESIGN.md §9) the
 optimizer state, vars and the in-flight plane are host-resident
@@ -74,7 +76,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.core.strategy import RankInflight, as_strategy, check_rank_path, finish_inflight
+from repro_torch.core.strategy import as_strategy, check_rank_path, finish_inflight, is_rank_inflight
 from repro_torch.optim.optimizers import (
     Optimizer,
     clip_by_global_norm_,
@@ -222,7 +224,7 @@ def make_round_step(
             x = pack(x, lead=1)  # a per-leaf x migrates into the plane
         mesh = sharding.current_mesh()
         if mesh is not None:  # this rank's rows of the round batch
-            check_rank_path(strategy, packed_step=packed_step, probe=probe, membership=membership)
+            check_rank_path(strategy, packed_step=packed_step)
             lo, hi = mesh.rows(x.lead_shape[0] * mesh.size)
             if _first(round_batch).shape[1] != mesh.size * (hi - lo):
                 raise ValueError(f"on a worker mesh a round batch holds all {mesh.size * (hi - lo)} workers, "
@@ -281,11 +283,12 @@ def make_round_step(
 
 
 def drain(state: TrainState) -> TrainState:
-    """Wait on the collective a rank boundary left in flight and finish its
-    anchor: ``state.inflight`` and ``state.vars`` then equal the one-device
-    run's at the same step. Idempotent, and a no-op off a worker mesh; the
-    next boundary starts at its pullback. Call it at the end of a run and
-    before anything reads the anchor."""
-    if not isinstance(state.inflight, RankInflight):
+    """Wait on the collective a rank boundary left in flight and finish it
+    (Overlap-Local-SGD's anchor, the avg-rebase strategies' average):
+    ``state.inflight`` and ``state.vars`` then equal the one-device run's at
+    the same step. Idempotent, and a no-op off a worker mesh; the next
+    boundary starts from the finished value, as the first one does. Call it
+    at the end of a run and before anything reads the anchor."""
+    if not is_rank_inflight(state.inflight):
         return state
     return state._replace(inflight=finish_inflight(state.inflight, state.vars))

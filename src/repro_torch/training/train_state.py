@@ -19,7 +19,9 @@ harness installs and clears between rounds.
 On a worker mesh (:func:`repro_torch.parallel.sharding.mesh_context`) the
 state is this rank's: x holds its m/W rows (m must divide by W) and the
 optimizer state matches them, while vars and the first in-flight anchor are
-built from the full ``params``, as on one device, and stay replicated.
+built from the full ``params``, as on one device, and stay replicated (the
+avg-rebase strategies' first average is the mean of m copies of a row, its
+x₀ the rank's own rows).
 
 With ``AlgoConfig.offload`` the state is built offloaded, as the reference
 builds it: ``opt``, ``vars`` and ``inflight`` are

@@ -293,9 +293,11 @@ def test_one_rank_is_the_stacked_run_bit_for_bit(one_rank, strat):
 
 def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
     """Every path not ported to a worker mesh raises NotImplementedError
-    naming ROADMAP item 10b (strategies, the per-leaf path, offload, the
-    probe, a membership, the checkpointer, Experiment.fit and the readers of
-    all m workers) or 10c (within-worker sharding)."""
+    naming ROADMAP item 10b (sparse_anchor, powersgd and the gossip
+    strategies, the per-leaf path, offload, the checkpointer) or 10c
+    (within-worker sharding); what 10b's first part ported runs (easgd,
+    cocod, delayed_avg, the probe, a membership, Experiment.fit and the
+    readers of all m workers)."""
     import torch.distributed as dist
 
     from repro_torch import checkpoint
@@ -319,9 +321,11 @@ def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
     params = clf.init_mlp(torch.Generator().manual_seed(0), 8, 3, hidden=(4,))
     opt = from_config(OptimizerConfig())
     with mesh_context(one_rank):
-        for name in ("easgd", "cocod", "delayed_avg", "sparse_anchor", "powersgd", "gossip_ring", "gossip_full"):
+        for name in ("sparse_anchor", "powersgd", "gossip_ring", "gossip_full"):
             with pytest.raises(NotImplementedError, match=f"'{name}'.*item 10b"):
                 make_train_state(params, 2, opt, make_strategy(AlgoConfig(name=name)))
+        for name in ("easgd", "cocod", "delayed_avg"):  # ported: the rank's rows
+            assert make_train_state(params, 2, opt, make_strategy(AlgoConfig(name=name))).x.lead_shape == (2,)
         for strategy in (AlgoConfig(packed=False), AlgoConfig(offload=True)):
             with pytest.raises(NotImplementedError, match="item 10b"):
                 make_train_state(params, 2, opt, make_strategy(strategy))
@@ -334,11 +338,12 @@ def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
         x = torch.zeros(2, 2, 2, 8)
         batch = (x, torch.zeros(2, 2, 2, dtype=torch.int32))
         probed = make_round_step(clf.mlp_loss, opt, strat, schedules.constant(0.1), probe=True)
-        with pytest.raises(NotImplementedError, match="probe.*item 10b"):
-            probed(state, batch)
+        _, ms = probed(state, batch)  # ported: the probe's stats over all ranks
+        assert torch.isfinite(ms["consensus_drift"]) and torch.isfinite(ms["consensus_scale"])
         plain = make_round_step(clf.mlp_loss, opt, strat, schedules.constant(0.1))
-        with pytest.raises(NotImplementedError, match="membership.*item 10b"):
-            plain(state._replace(membership=from_mask(np.ones(2, np.float32))), batch)
+        # ported: a membership masks the rank boundary
+        state = plain(state._replace(membership=from_mask(np.array([1.0, 0.0], np.float32))), batch)[0]
+        state = state._replace(membership=None)
         with pytest.raises(ValueError, match="all 2 workers"):
             plain(state, (x[:, :1], batch[1][:, :1]))
         with pytest.raises(NotImplementedError, match="checkpointer.*item 10b"):
@@ -347,9 +352,12 @@ def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
             checkpoint.restore(str(tmp_path / "c.npz"), state)
         exp = Experiment(task=ClassificationSpec(n=600, holdout=100), workers=2, device="cpu").build()
         assert exp.state.x.buffers[0].shape[0] == 2  # W 1: all rows on this rank
-        for call in (exp.fit, exp.consensus, exp.consensus_plane, exp.evaluate, exp.serve):
-            with pytest.raises(NotImplementedError, match="Experiment.*item 10b"):
-                call()
+        # ported: fit and the readers of all m workers run on the mesh
+        assert len(exp.fit(rounds=2).losses) == 2
+        assert exp.consensus_plane().lead_shape == () and set(exp.consensus()) == set(exp.params)
+        assert 0.0 <= exp.evaluate()["test_acc"] <= 1.0
+        with pytest.raises(ValueError, match="LM experiment"):  # the task's own refusal, not the mesh's
+            exp.serve()
 
 
 def test_sharding_refuses_without_a_group_or_a_mesh():

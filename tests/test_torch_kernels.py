@@ -996,7 +996,10 @@ def test_cpu_tensors_take_the_plain_path_without_building(rng):
     am_ops.pullback_mean_momentum(buf, buf[0].clone(), buf[0].clone(), 0.6, 0.7, probe=True)
     am_ops.pullback_rank(buf, buf[0].clone(), buf[0].clone(), torch.zeros(128), 2, 0.6, 0.7, finish=True)
     am_ops.pullback_rank(buf[:0], buf[0].clone(), None, torch.zeros(128), 2, 0.6, None, finish=True)
+    am_ops.pullback_rank(buf, buf[0].clone(), None, torch.zeros(128), 2, 0.6, None, 2, weights=torch.ones(2) / 2,
+                         mean_pre=True)
     probe_ops.probe_buffer(buf)
+    probe_ops.probe_rows(buf, torch.zeros(128))
     fq = _t(rng.normal(size=(1, 4, 2, 64)).astype(np.float32)).requires_grad_(True)
     fa_ops.flash_attention(fq, fq[:, :, :1], fq[:, :, :1]).sum().backward()
     fa_ops.dkdv_sum(torch.zeros(2, 3, 1, 4, 1, 64), torch.bfloat16)
@@ -1331,6 +1334,42 @@ def test_pullback_rank_kernel_bitwise_on_card(cuda, n, rows, dtype, momentum):
     gs = s.clone()
     gz = am_ops.pullback_rank(xo, z, None if v is None else v.clone(), gs, 4, 0.6, 0.7 if momentum else None, True)
     assert torch.equal(xo, x_new) and torch.equal(gz, z_next) and torch.equal(gs, partial)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mean_pre", [False, True], ids=["post", "pre"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,rows", RANK_CARD)
+def test_pullback_rank_masked_forms_and_probe_rows_on_card(cuda, n, rows, dtype, mean_pre):
+    """The rank form's masked and EASGD operands against its plain version,
+    bit for bit: the rows' weights with a dead row, ``mean_pre``, the
+    weighted finish (K3 and K4); K8's rank form within rtol 1e-6 of its
+    plain version (float64 sums in another order), the same bits on a second
+    launch, one launch counted on its kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(7 * n + rows)
+    x = torch.randn(rows, n, generator=gen, device=cuda).to(dtype)
+    z = torch.randn(n, generator=gen, device=cuda).to(dtype)
+    v = (0.1 * torch.randn(n, generator=gen, device=cuda)).to(dtype)
+    s = 3.0 * torch.randn(n, generator=gen, device=cuda)
+    w = torch.tensor([0.0, 0.5][:rows] if rows > 1 else [0.25], device=cuda)
+    for vv, beta in ((None, None), (v, 0.7)):
+        if mean_pre and vv is not None:
+            continue  # EASGD's mean_pre is K4's
+        for finish in (0, 2):
+            x_new, z_next, v_new, partial = am_ref.pullback_rank(x, z, vv, s, 4, 0.6, beta, finish, w, mean_pre)
+            gx, gv, gs = x.clone(), None if vv is None else vv.clone(), s.clone()
+            gz = am_ops.pullback_rank(gx, z, gv, gs, 4, 0.6, beta, finish, weights=w, mean_pre=mean_pre)
+            torch.cuda.synchronize()
+            assert torch.equal(gx, x_new) and torch.equal(gz, z_next) and torch.equal(gs, partial)
+            if vv is not None:
+                assert torch.equal(gv, v_new if finish else vv)
+    xbar = 0.5 * torch.randn(n, generator=gen, device=cuda)
+    before = probe_ops.PROBE_RANK.launches
+    got = probe_ops.probe_rows(x, xbar)
+    again = probe_ops.probe_rows(x, xbar)
+    torch.cuda.synchronize()
+    assert probe_ops.PROBE_RANK.launches == before + 2 and got.dtype == torch.float64 and torch.equal(got, again)
+    torch.testing.assert_close(got, probe_ref.rows_probe(x, xbar), rtol=1e-6, atol=0)
 
 
 @pytest.mark.cuda

@@ -5,11 +5,13 @@ in every process), so the ranks run the port alone.
 
     python tests/torch_dist_ranks.py CASES.pkl OUT_DIR W
 
-``CASES.pkl`` holds a list of cases (see :func:`run_case`); each rank writes
+``CASES.pkl`` holds a list of cases (see :func:`run_case`, and
+:func:`run_fit_case` for a case with ``fit`` set: ``Experiment.fit`` with
+faults and adaptive τ, ``tests/test_torch_dist_fit.py``); each rank writes
 ``OUT_DIR/rank<r>.pkl``, the results of every case, and the program exits 0
 when every rank did. The test process imports this module and calls
-:func:`run_case` itself, with no mesh, for the one-process run of the same
-cases.
+:func:`run_case` / :func:`run_fit_case` itself, with no mesh, for the
+one-process run of the same cases.
 """
 from __future__ import annotations
 
@@ -148,6 +150,59 @@ def run_case(case) -> dict:
     return out
 
 
+def _slot_planes(v) -> list:
+    """Every plane of an in-flight value or vars slot, as float32 numpy
+    copies: a Packed's buffers, a NamedTuple's fields in order."""
+    if v is None:
+        return []
+    if hasattr(v, "buffers"):
+        return _planes(v)
+    return [a for f in v for a in _slot_planes(f)]
+
+
+def run_fit_case(case) -> dict:
+    """``Experiment.fit`` of the small classification task (2,000 samples,
+    500 held out) from ``case["params"]`` (cast to ``case["dtype"]``) for
+    ``case["rounds"]`` rounds, on the current mesh if any: with
+    ``case["plan"]`` (spec, seed) under that fault plan, with
+    ``case["ctrl"]`` (TauController fields) under adaptive τ. Returns the
+    losses, τ schedule, fault log and steps; after ``drain`` x, the momentum,
+    vars and the in-flight value's planes; and the readers: ``consensus()``
+    (its leaves), ``consensus_plane()``, ``anchor_plane()`` where there is
+    one and ``evaluate()``."""
+    from repro_torch.api import ClassificationSpec, Experiment
+    from repro_torch.config import AlgoConfig
+    from repro_torch.control import TauController
+    from repro_torch.fault import FaultPlan
+    from repro_torch.parallel.packing import tree_flatten
+    from repro_torch.training import drain, make_train_state
+
+    exp = Experiment(task=ClassificationSpec(n=2000, holdout=500), strategy=AlgoConfig(**case["strategy"]),
+                     workers=case["m"], device="cpu").build()
+    exp.state = make_train_state(_params(case), case["m"], exp.opt_obj, exp.strategy_obj)
+    kw = {}
+    if case.get("plan"):
+        spec, seed = case["plan"]
+        kw["faults"] = FaultPlan.parse(spec, m=case["m"], seed=seed)
+    if case.get("ctrl"):
+        kw["adaptive_tau"] = TauController(**case["ctrl"])
+    res = exp.fit(rounds=case["rounds"], **kw)
+    state = exp.state = drain(exp.state)
+    out = dict(loss=list(res.losses), tau_schedule=res.tau_schedule, fault_log=res.fault_log, steps=res.steps,
+               x=_planes(state.x), momentum=_planes(state.opt.momentum), vars=_slot_planes(state.vars))
+    infl = state.inflight
+    if hasattr(infl, "x0"):  # the avg-rebase in-flight: the average (replicated) and x0 (the rows)
+        out["inflight"], out["inflight_x0"] = _planes(infl.avg), _planes(infl.x0)
+    elif infl is not None:
+        out["inflight"] = _planes(infl)
+    out["consensus"] = [t.numpy().copy() for t in tree_flatten(exp.consensus())[0]]
+    out["consensus_plane"] = _planes(exp.consensus_plane())
+    if state.vars.z is not None:
+        out["anchor_plane"] = _planes(exp.anchor_plane())
+    out["evaluate"] = exp.evaluate()
+    return out
+
+
 def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
     import torch.distributed as dist
 
@@ -163,7 +218,7 @@ def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
                                 world_size=world, rank=rank, timeout=datetime.timedelta(seconds=_timeout()))
         try:
             with mesh_context(make_smoke_mesh(world, device="cpu")):
-                results = [run_case(c) for c in cases]
+                results = [run_fit_case(c) if c.get("fit") else run_case(c) for c in cases]
         finally:
             dist.destroy_process_group()
         assert not any(k == "jax" or k.startswith(("jax.", "repro.")) for k in sys.modules if sys.modules[k])
