@@ -96,7 +96,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    same trace gives the same tokens and scheduler events; a profile of the
    trace's first ``PROFILE_REQUESTS`` requests (cut from the whole trace to
    pay for phase 12's time: the profiler's processing of the whole trace
-   took 110.1 s); full-depth dense ``generate`` of two of its requests
+   took 110.1 s; from 4 requests to 2 for phase 13's); full-depth dense ``generate`` of two of its requests
    beside it (tok/s, decode-step ms, a profile). (c) Dense serving: the reduced qwen2-7b, rwkv6-7b and
    zamba2-1.2b in f32, ``prefill`` then ``decode_step`` on the card and on
    the CPU, logits within 1e-4, and on the card decode after prefill
@@ -168,7 +168,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``swap_params`` from a params checkpoint of the reduced qwen2-7b. (f) The
    rwkv6 slice: the reduced rwkv6-7b (f32, seq 128, m = 2, 3 rounds) on the
    card and the CPU, losses compared; full-width rwkv6-7b (d_model 4096, 64
-   heads of 64) cut to 4 layers, bf16, m = 4, seq 512, 3 rounds as in (b):
+   heads of 64) cut to 2 layers (4 before phase 13 was added), bf16, m = 4, seq 512, 3 rounds as in (b):
    each of K12's four kernels steps x workers x layers, K7 forward and
    backward steps x workers x (3 layers + 1), no attention kernel, bitwise
    replay, rounds/s, step ms, peak memory and K12's share of a profiled
@@ -323,8 +323,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    schedule's decisions and the fault log exactly, the readers
    (``consensus_plane``, ``anchor_plane``, ``evaluate``) equal on both
    ranks.
-13. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
-   with the standalone form beside it and its row form, K6 forward, backward
+13. Every strategy and the checkpointer on worker ranks: (a) K5's gossip
+   rank form (one rank's rows when the push is a neighbour exchange: the
+   mix formed from the held launch-time rows, the debias, K5 and the new
+   launch-time copy) bitwise its plain version, f32 and bf16, 1 and 2 rows
+   a rank at m 4, the ring's and the exp pattern's exchanges, a held row
+   and a row with no push mass, the boundary, the first boundary's
+   finished mix and the drain, at the classifier's plane and qwen2-7b's
+   2-layer plane, timed beside the plain version and a ``copy_`` of the
+   same bytes; (b) full-width qwen2-7b at 2 layers, bf16, m 4, seq 512, 2
+   rounds of gossip_ring and of sparse_anchor (k 0.1), stacked, then on
+   one NCCL rank holding all four rows: every array of the drained state
+   bit for bit the stacked run's (64-bit digests), exact launches (K5's
+   gossip rank form once a bucket a boundary and for the drain; K4's rank
+   form once a bucket a boundary), step and boundary ms, the held rows'
+   bytes, the peak; (b') the gossip state at m 1 (the m 4 state's file is
+   74 GB; the script keeps its disk writes under 45 GiB) saved as a checkpoint on the
+   rank (its arrays the stacked state's) and restored, timed; (c) two gloo
+   ranks sharing the card: the classifier at m 2 and m 4, gossip_ring,
+   gossip_exp, gossip_pushsum (ring), gossip_full, sparse_anchor and
+   powersgd under phase 12's fault plans, with and without adaptive tau,
+   against the stacked fit as in 12(c); at one row a rank a checkpoint
+   saved on the ranks and restored in one process, and one saved in one
+   process and restored on the ranks, bit for bit; the exchange's transport
+   named.
+14. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+   with the standalone form beside it, its row form and its gossip rank
+   form, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
    call, K1's and K2's window forms, K3's and K4's rank forms with their
@@ -353,7 +378,7 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 
 SLOTS, MAX_LEN, PAGE, CHUNK = 4, 512, 16, 32
 N_REQUESTS, MAX_NEW, SEED = 8, 32, 0
-PROFILE_REQUESTS = 4  # the serving profile's share of the trace (phase 3(b))
+PROFILE_REQUESTS = 2  # the serving profile's share of the trace (phase 3(b); 4 before phase 13 was added)
 LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4200, 24, 4224  # h2o-danube's long request: decode past its 4096 window
 
 
@@ -3739,7 +3764,7 @@ def lm_adaptive_faulted(dev, kernels, cfg, overlap_peak=None):
 # phase 5 (f): the rwkv6 LM (K12 forward and backward on every layer)
 # ---------------------------------------------------------------------------
 
-RWKV_LAYERS = 4  # of 32: m = 4 workers' planes at 4 layers hold ~42.5 GB before activations
+RWKV_LAYERS = 2  # of 32 (4 before phase 13 was added, cut for its time): m = 4 workers' planes at 4 layers hold ~42.5 GB
 
 
 def rwkv6_launches(steps, m, L, buckets, rounds):
@@ -3761,7 +3786,7 @@ def lm_rwkv6_card_vs_cpu(dev):
 
 def lm_rwkv6_full_width(dev, kernels):
     """Full-width rwkv6-7b (d_model 4096, 64 heads of 64, d_ff 14336, vocab
-    65536, bf16) cut to 4 of its 32 layers, through ``lm_full_width``: m = 4,
+    65536, bf16) cut to ``RWKV_LAYERS`` of its 32 layers, through ``lm_full_width``: m = 4,
     batch 2 x seq 512, 3 rounds; K12's share of the profiled round."""
     from repro_torch.config import get_arch
 
@@ -5464,10 +5489,11 @@ def lm_perleaf_full_width(dev, kernels):
 
 RANK_ALPHA, RANK_BETA, RANK_ROUNDS = 0.6, 0.7, 2
 RANK_WINDOW = 1 << 22  # columns of the LM plane checked at its start, middle and end
-# phase 11(b): full-width qwen2-7b on one NCCL rank, m 1, cut to the depth
-# whose rank run (the f32 wire buffer included) and the stacked twin's host
-# copy fit the card and the host
-RANK_LAYERS = 10
+# phase 11(b) and 12(b): full-width qwen2-7b on one NCCL rank, m 1, cut to
+# 10 layers at first (the depth whose rank run, the f32 wire buffer
+# included, and the stacked twin's host copy fit the card and the host) and
+# to 4 for phase 13's time
+RANK_LAYERS = 4
 RANK_CLASSIFIER = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("overlap_local_sgd", dict(anchor_beta=0.0))]
 
 
@@ -6203,19 +6229,25 @@ def _ulps_apart(got, want):
     return float((g - w).abs().max()) / ulp
 
 
-def _gloo_fit_rank(rank, world, rdv, out_path, src):
-    """One of phase 12(c)'s two ranks on the same card (gloo on CUDA
-    tensors): every run of :func:`_fit_runs` on the mesh from zeroed
-    counters, ``Experiment.fit`` under its fault plan (and controller), then
-    ``drain`` and the readers. Rank 1 sends its rows of x and the momentum
-    (and an avg-rebase in-flight's x0) to rank 0; both exchange the losses,
-    schedules, fault logs, evaluations and 64-bit digests of z, v, the
-    in-flight value and the readers' planes. Rank 0 then frees the rank run,
-    fits the stacked engine on the same weights and batches and compares:
-    bit for bit at one row a rank (m 2), within 2(m − 1) f32 ulps of each
-    plane's largest magnitude at two (m 4); the schedule's decisions and the
-    fault log exactly."""
+def _gloo_fit_rank(rank, world, rdv, out_path, src, which="12"):
+    """One of phase 12(c)'s (``which`` "13": phase 13(c)'s) two ranks on the
+    same card (gloo on CUDA tensors): every run of :func:`_fit_runs`
+    (:func:`_gossip_fit_runs`) on the mesh from zeroed counters,
+    ``Experiment.fit`` under its fault plan (and controller), then ``drain``
+    and the readers. Rank 1 sends its rows (``ROW_PLANES``: x, the momentum,
+    an avg-rebase in-flight's x0, a gossip mix, PowerSGD's error) to rank 0;
+    both exchange the losses, schedules, fault logs, evaluations and 64-bit
+    digests of the replicated slots and the readers' planes. Rank 0 then
+    frees the rank run, fits the stacked engine on the same weights and
+    batches and compares: bit for bit at one row a rank (m 2), within
+    2(m − 1) f32 ulps of each plane's largest magnitude at two (m 4); the
+    schedule's decisions and the fault log exactly. Phase 13 also names the
+    exchange's transport, and at one row a rank round-trips a checkpoint: saved on the
+    ranks and restored in one process (rank 0, against the stacked state),
+    saved in one process (the stacked state) and restored on the ranks
+    (against their own state before the save), bit for bit."""
     import gc
+    import os
     import traceback
 
     sys.path.insert(0, src)
@@ -6228,7 +6260,8 @@ def _gloo_fit_rank(rank, world, rdv, out_path, src):
         from repro_torch.fault import FaultPlan
         from repro_torch.kernels import all_kernels
         from repro_torch.launch.mesh import make_smoke_mesh
-        from repro_torch.parallel.sharding import mesh_context
+        from repro_torch import checkpoint
+        from repro_torch.parallel.sharding import exchange_transport, mesh_context
         from repro_torch.training import drain
 
         dev = torch.device("cuda", 0)
@@ -6240,25 +6273,19 @@ def _gloo_fit_rank(rank, world, rdv, out_path, src):
         mesh = make_smoke_mesh(world, backend="gloo")
         lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
         results = []
+        # gloo has point to point for CPU tensors only (a CUDA tensor's send
+        # fails in the transport and breaks the pair): the exchange stages
+        probe = dict(transport=exchange_transport(mesh)) if which == "13" else None
+        ckpt_dir = os.path.dirname(rdv)
 
         def fit(exp, m, rounds, plan, ctrl):
             return exp.fit(rounds=rounds, faults=FaultPlan.parse(plan, m=m, seed=FIT_SEED),
                            adaptive_tau=None if ctrl is None else TauController(**ctrl))
 
-        def planes(state):
-            out = {"x": state.x.buffers, "momentum": state.opt.momentum.buffers}
-            if state.vars.z is not None:
-                out["z"] = state.vars.z.buffers
-                if state.vars.v is not None:
-                    out["v"] = state.vars.v.buffers
-            infl = state.inflight
-            if hasattr(infl, "x0"):
-                out["inflight"], out["x0"] = infl.avg.buffers, infl.x0.buffers
-            elif infl is not None:
-                out["inflight"] = infl.buffers
-            return out
-
-        for label, m, make, rounds, plan, ctrl in _fit_runs(lm_cfg):
+        planes = _strategy_planes
+        runs = _fit_runs(lm_cfg) if which == "12" else _gossip_fit_runs()
+        for i_run, (label, m, make, rounds, plan, ctrl) in enumerate(runs):
+            round_trip = which == "13" and m == world
             with mesh_context(mesh):
                 exp = make(dev)
                 torch.cuda.synchronize()
@@ -6275,18 +6302,23 @@ def _gloo_fit_rank(rank, world, rdv, out_path, src):
                 readers = _fit_readers(exp)
                 got = planes(exp.state)
                 shared = dict(fit=got_fit, evaluate=readers["evaluate"],
-                              digests={k: [_digest(b) for b in v] for k, v in got.items()
-                                       if k not in ("x", "momentum", "x0")},
+                              digests={k: [_digest(b) for b in v] for k, v in got.items() if k not in ROW_PLANES},
                               reader_digests={k: [_digest(b) for b in v] for k, v in readers.items()
                                               if k != "evaluate"})
                 small = not label.startswith("qwen2")
                 if not small:  # the LM's readers: held across the ranks by digest only (memory)
                     readers = {"evaluate": readers["evaluate"]}
+                if round_trip:  # the ranks' checkpoint; their state before it, by digest
+                    pre = {k: [_digest(b) for b in v] for k, v in got.items()}
+                    path_mesh = os.path.join(ckpt_dir, f"run{i_run}_mesh.npz")
+                    path_one = os.path.join(ckpt_dir, f"run{i_run}_one.npz")
+                    checkpoint.save(path_mesh, exp.state)
+                    rank_exp = exp
                 del exp
             everyone = [None] * world
             dist.all_gather_object(everyone, shared)
             rows = {}
-            for key in ("x", "momentum", "x0"):  # rank 1's rows to rank 0, exactly
+            for key in ROW_PLANES:  # rank 1's rows to rank 0, exactly
                 for b, t in enumerate(got.get(key, ())):
                     bits = torch.int16 if t.element_size() == 2 else torch.int32
                     if rank == 0:
@@ -6313,7 +6345,7 @@ def _gloo_fit_rank(rank, world, rdv, out_path, src):
                 worst, differ = 0.0, []
                 for key, bufs in want.items():
                     for b, w in enumerate(bufs):
-                        if key in ("x", "momentum", "x0"):  # this rank's rows on the card, rank 1's on the host
+                        if key in ROW_PLANES:  # this rank's rows on the card, rank 1's on the host
                             if bitwise:
                                 same = torch.equal(w[:r], got[key][b]) and torch.equal(w[r:].cpu(), rows[(key, b)])
                             else:
@@ -6364,26 +6396,45 @@ def _gloo_fit_rank(rank, world, rdv, out_path, src):
                           "plus one f32 ulp of the scale; "
                           "losses, schedule, fault log, evaluate and the digests of z, v, inflight and the "
                           "readers equal on both ranks"))
-                log(f"phase 12(c) {label}: {wall:.1f}s on the ranks, {len(differ)} differing")
+                if round_trip:  # the stacked state saved in one process; the ranks' file restored here
+                    checkpoint.save(path_one, stacked.state)
+                    back = planes(checkpoint.restore(path_mesh, stacked.state))
+                    results[-1]["ckpt_mesh_to_one_equal"] = sorted(back) == sorted(want) and all(
+                        len(back[k]) == len(want[k]) and all(torch.equal(a, b) for a, b in zip(back[k], want[k]))
+                        for k in want)
+                    del back
+                log(f"phase {which}(c) {label}: {wall:.1f}s on the ranks, {len(differ)} differing")
                 del stacked, want, got, rows, readers, want_readers
                 if not small:
                     gc.collect()
                     torch.cuda.empty_cache()
             dist.barrier()
+            if round_trip:  # the one-process file restored on the ranks: their state before the save
+                with mesh_context(mesh):
+                    back = planes(checkpoint.restore(path_one, rank_exp.state))
+                    same = sorted(back) == sorted(pre) and all(
+                        [_digest(b) for b in back[k]] == pre[k] for k in pre)
+                del back, rank_exp
+                flags = [None] * world
+                dist.all_gather_object(flags, same)
+                if rank == 0:
+                    results[-1]["ckpt_one_to_mesh_equal"] = all(flags)
+                dist.barrier()
         dist.destroy_process_group()
         if rank == 0:
             with open(out_path, "w") as f:
-                json.dump(results, f)
+                json.dump(results if probe is None else dict(runs=results, probe=probe), f)
     except BaseException:
         with open(f"{out_path}.rank{rank}.err", "w") as f:
             f.write(traceback.format_exc())
         raise
 
 
-def rank_gloo_fit_two_on_one_card(card):
-    """Phase 12(c): two ranks spawned with ``torch.multiprocessing`` as
-    phase 11(c), running :func:`_gloo_fit_rank`. Fails when a rank fails or
-    a run breaks its bound."""
+def rank_gloo_fit_two_on_one_card(card, which="12"):
+    """Phase 12(c) (``which`` "13": phase 13(c)): two ranks spawned with
+    ``torch.multiprocessing`` as phase 11(c), running
+    :func:`_gloo_fit_rank`. Fails when a rank fails or a run breaks its
+    bound (phase 13: or a checkpoint round trip differs)."""
     import os
     import tempfile
 
@@ -6392,7 +6443,7 @@ def rank_gloo_fit_two_on_one_card(card):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_fit_")
     out = os.path.join(tmp, "results.json")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_gloo_fit_rank, args=(r, 2, os.path.join(tmp, "rendezvous"), out, str(SRC)))
+    procs = [ctx.Process(target=_gloo_fit_rank, args=(r, 2, os.path.join(tmp, "rendezvous"), out, str(SRC), which))
              for r in range(2)]
     t0 = time.perf_counter()
     for p in procs:
@@ -6413,16 +6464,414 @@ def rank_gloo_fit_two_on_one_card(card):
         raise AssertionError(f"gloo fit ranks failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
     with open(out) as f:
         results = json.load(f)
+    probe = None
+    if which == "13":
+        probe, results = dict(results["probe"], card=card), results["runs"]
+        log(json.dumps(dict(check="phase 13(c) transport", **probe)))
     for rec in results:
         rec["card"] = card
         log(json.dumps(rec))
     bad = [rec["run"] for rec in results if rec["planes_differing"] or not rec["losses_ok"]
            or not rec["schedule_equal"] or not rec["fault_log_equal"] or not rec["stats_within_rtol_1e6"]
-           or not rec["equal_on_ranks"]]
+           or not rec["equal_on_ranks"] or rec.get("ckpt_mesh_to_one_equal") is False
+           or rec.get("ckpt_one_to_mesh_equal") is False]
     if bad:
         raise AssertionError(f"Experiment.fit on two gloo ranks breaks its bounds: {bad}")
-    log(f"phase 12(c): two gloo ranks, {len(results)} fits, {time.perf_counter() - t0:.1f}s with the spawn")
-    return results
+    log(f"phase {which}(c): two gloo ranks, {len(results)} fits, {time.perf_counter() - t0:.1f}s with the spawn")
+    return results if probe is None else (results, probe)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: every strategy and the checkpointer on worker ranks: K5's gossip
+# rank form, gossip_ring and sparse_anchor on one NCCL rank holding all m
+# rows (with a checkpoint of the LM state), the gossip family, sparse_anchor
+# and PowerSGD on two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# (topology, phase) of the exchange the rank form is checked on at m 4
+GOSSIP_RANK_PATTERNS = (("ring", 0), ("exp", 0), ("exp", 1))
+LM13_ROUNDS, LM13_SPARSE_K = 2, 0.1
+# phase 13(c): the classifier fits on two gloo ranks (AlgoConfig name, fields)
+GOSSIP_FIT_CASES = [("gossip_ring", {}), ("gossip_exp", {}), ("gossip_pushsum", dict(topology="ring")),
+                    ("gossip_full", {}), ("sparse_anchor", dict(sparse_k=0.25)), ("powersgd", {})]
+
+
+def _gossip_rank_bytes(P, rows, held):
+    """K5's gossip rank form's bytes a column: the rows read and written, the
+    new launch-time copy written, every held row read."""
+    return (3 * rows + held) * P
+
+
+def _gossip_rank_flops(rows, held):
+    """A column: each row's mix (h products, h − 1 adds), the debias and K5."""
+    return rows * (2 * held + 4)
+
+
+def check_gossip_rank_form(dev, gen):
+    """Phase 13(a): K5's gossip rank form against its plain version
+    (``ref.gossip_rank``), bit for bit: f32 and bf16; m 4 on four ranks of
+    one row and two ranks of two rows, rank 0's and the last rank's rows;
+    the exchanges of the ring and of the exp pattern's two phases (the held
+    rows ``rank_peers`` gives); a held row (live 0) and a row with no push
+    mass (wsafe 1, live 0) beside a live one; the boundary (mode 0), the
+    first boundary's finished mix (mode 1) and the drain (mode 2); at the
+    classifier's plane (every column) and at full-width qwen2-7b's 2-layer
+    plane (one launch over the whole plane, then three windows of
+    ``RANK_WINDOW`` columns against the plain version on those columns).
+    Timed (mode 0, the ring, one row) beside the plain version, a ``copy_``
+    of the same bytes and the bytes bound."""
+    import torch
+
+    from repro_torch.core.topology import cached_topology, rank_peers
+    from repro_torch.kernels.anchor_mix import ops, ref
+
+    m, alpha = 4, RANK_ALPHA
+    worst, timing, checked = 0.0, {}, 0
+    for plane, n in (("classifier", TRAIN_SHAPES["slice"][1]), ("lm", _lm_plane_n(LM_LAYERS))):
+        lm = plane == "lm"
+        windows = [slice(0, n)] if not lm else [
+            slice(0, RANK_WINDOW), slice(n // 2 - RANK_WINDOW // 2, n // 2 + RANK_WINDOW // 2), slice(n - RANK_WINDOW, n)]
+        for dtype in (torch.float32, torch.bfloat16):
+            P = torch.finfo(dtype).bits // 8
+            for W in (4, 2):
+                rows = m // W
+                for name, phase in GOSSIP_RANK_PATTERNS:
+                    topo = cached_topology(name, m)
+                    peff = torch.rand(m, m, generator=gen, device=dev) * torch.as_tensor(
+                        topo.matrix(phase) > 0, device=dev)
+                    for q in ((0,) if lm else (0, W - 1)):
+                        pq = rank_peers(topo, m, W, phase)[q]
+                        lo, hi = pq.rows
+                        live = torch.tensor([1.0, 0.0][:rows] if rows == 2 else [float(q % 2 == 0)], device=dev)
+                        wsafe = torch.where(live > 0, 0.5 + torch.rand(rows, generator=gen, device=dev),
+                                            torch.ones(rows, device=dev))
+                        x0 = torch.randn(rows, n, generator=gen, device=dev, dtype=dtype)
+                        own0 = torch.randn(rows, n, generator=gen, device=dev, dtype=dtype)
+                        recv = torch.randn(len(pq.received), n, generator=gen, device=dev, dtype=dtype) \
+                            if pq.received else None
+                        for mode in ((0, 2) if lm else (0, 1, 2)):
+                            held, received, rv = (pq.held, pq.received, recv) if mode != 1 else (
+                                tuple(range(lo, hi)), (), None)
+                            want = [ref.gossip_rank(x0[:, c], own0[:, c], None if rv is None else rv[:, c], held,
+                                                    received, lo, peff, wsafe, live, alpha, mode) for c in windows]
+                            x, own = x0, own0  # in place: each mode's plain version reads the values it starts from
+                            ops.gossip_rank_(x, own, rv, held, received, lo, peff, wsafe, live, alpha, mode)
+                            torch.cuda.synchronize()
+                            ok, err = True, 0.0
+                            for c, (wx, wo) in zip(windows, want):
+                                ok = ok and torch.equal(x[:, c], wx) and torch.equal(own[:, c], wo)
+                                err = max(err, float((x[:, c].float() - wx.float()).abs().max()),
+                                          float((own[:, c].float() - wo.float()).abs().max()))
+                            worst, checked = max(worst, err), checked + 1
+                            rec = dict(kernel="K5 gossip rank form", plane=plane, dtype=_name(dtype), rows=rows,
+                                       held=len(held), pattern=f"{name} phase {phase}", rank=q, mode=mode, n=n,
+                                       max_abs_err=err, bound="bitwise", ok=ok)
+                            if not ok:
+                                raise AssertionError(f"K5's gossip rank form disagrees with plain: {rec}")
+                            del want
+                            key = (plane, _name(dtype))
+                            if (mode == 0 and rows == 1 and name == "ring" and q == 0 and key not in timing
+                                    and (not lm or dtype == torch.bfloat16)):
+                                it = 10 if lm else 50
+                                h = len(held)
+                                launch = lambda: ops.gossip_rank_(x, own, rv, held, received, lo, peff, wsafe,  # noqa: E731
+                                                                  live, alpha, 0)
+                                plain = lambda: ref.gossip_rank(x, own, rv, held, received, lo, peff, wsafe,  # noqa: E731
+                                                                live, alpha, 0)
+                                nbytes = _gossip_rank_bytes(P, rows, h) * n
+                                rec["ms"] = median_ms(launch, it)
+                                if not lm:
+                                    rec.update(host_device_split(launch))
+                                rec["plain_ms"] = time_ms(plain, 3 if lm else it)
+                                src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+                                dst = torch.empty_like(src)
+                                rec["copy_ms"] = time_ms(lambda: dst.copy_(src), it)
+                                del src, dst
+                                rec["library_ms"] = None
+                                rec["library"] = ("none (no single torch call: a fixed-order sum over the held rows, "
+                                                  "the debias and K5); copy_ moves the same bytes, (3r + h)·P·n")
+                                rec["bound_ms"], rec["bound_by"] = bound(nbytes, _gossip_rank_flops(rows, h) * n)
+                                timing[key] = rec
+                                log(json.dumps(rec))
+                        del x, own, x0, own0, recv
+                        _free()
+    log(json.dumps(dict(check="K5 gossip rank form against its plain version", bound="bitwise", cases=checked,
+                        max_abs_err=worst)))
+    return worst, timing
+
+
+def _ckpt_planes(state):
+    """(checkpoint key, tensor) of every array a checkpoint of ``state``
+    holds (the checkpointer's own walk: Packed buffers as ``<key>::<i>``)."""
+    from repro_torch.checkpoint.checkpointer import _join, _nodes
+    from repro_torch.parallel.packing import Packed
+
+    out = []
+    for key, node in _nodes(state):
+        if isinstance(node, Packed):
+            out += [(_join(key, str(i)), b) for i, b in enumerate(node.buffers)]
+        else:
+            out.append((key, node))
+    return out
+
+
+def _lm13_experiment(dev, name, workers=LM_WORKERS, **kw):
+    """Full-width qwen2-7b at ``LM_LAYERS`` layers, m ``workers``, the LM
+    phase's SGD and batches, trained with strategy ``name`` (tau 2, alpha
+    0.6)."""
+    from repro_torch.api import Experiment, TokenStream
+    from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
+    from repro_torch.optim import schedules
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+    return Experiment(arch=cfg, strategy=AlgoConfig(name=name, tau=2, alpha=0.6, **kw),
+                      optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
+                      schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ),
+                      workers=workers, device=dev, init_on_device=True)
+
+
+def rank_nccl_gossip_sparse(dev, kernels, card):
+    """Phase 13(b): full-width qwen2-7b at ``LM_LAYERS`` layers, bf16, m 4,
+    seq 512, ``LM13_ROUNDS`` rounds of gossip_ring and of sparse_anchor (k
+    ``LM13_SPARSE_K``), each first stacked (64-bit digests of every array a
+    checkpoint of its state holds) and then on one NCCL rank holding all m
+    rows, from the same weights and batches and zeroed counters, drained:
+    every array bit for bit the stacked run's (by digest), the same losses;
+    K5's gossip rank form once a bucket a boundary and once for the drain
+    (the stacked gossip form never), K4's rank form once a bucket a boundary
+    (the stacked K4 never). Step and boundary ms (CUDA events around the
+    boundary on the compute stream), the held rows' bytes, the peak."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import exchange_transport, mesh_context
+    from repro_torch.training import drain
+
+    out = {}
+    for name, kw in (("gossip_ring", {}), ("sparse_anchor", dict(sparse_k=LM13_SPARSE_K))):
+        exp = _lm13_experiment(dev, name, **kw).build()
+        batches = _round_batches(exp, LM13_ROUNDS)
+        torch.cuda.reset_peak_memory_stats()
+        want_losses = []
+        for rb in batches:
+            exp.state, ms = exp.step_fn(exp.state, exp.to_device(rb))
+            want_losses.append(ms["loss"].float().cpu().tolist())
+        want = {k: _digest(t) for k, t in _ckpt_planes(exp.state)}
+        stacked_peak = torch.cuda.max_memory_allocated()
+        del exp
+        gc.collect()
+        _free()
+
+        rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl13_")
+        dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0)
+        try:
+            mesh = make_smoke_mesh(1)
+            with mesh_context(mesh):
+                transport = exchange_transport()
+                exp = _lm13_experiment(dev, name, **kw).build()
+                strat = exp.strategy_obj
+                real_boundary = strat.boundary_round
+                marks = []
+
+                def boundary_round(*a, **kwargs):  # CUDA events around the boundary, on the compute stream
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    res = real_boundary(*a, **kwargs)
+                    e1.record()
+                    marks.append((e0, e1))
+                    return res
+
+                strat.boundary_round = boundary_round
+                device_batches = [exp.to_device(rb) for rb in batches]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for k in kernels:
+                    k.launches = 0
+                t0 = time.perf_counter()
+                losses, round_ms = [], []
+                for rb in device_batches:
+                    r0 = time.perf_counter()
+                    exp.state, ms = exp.step_fn(exp.state, rb)
+                    torch.cuda.synchronize()
+                    round_ms.append((time.perf_counter() - r0) * 1e3)
+                    losses.append(ms["loss"].float().cpu().tolist())
+                held = exp.state.inflight
+                held_bytes = None
+                if hasattr(held, "own"):  # the launch-time rows a boundary keeps, and the rows it receives
+                    held_bytes = dict(own=sum(b.numel() * b.element_size() for b in held.own.buffers),
+                                      received=len(held.peers.received) * sum(
+                                          b.shape[-1] * b.element_size() for b in held.own.buffers))
+                exp.state = drain(exp.state)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k.name: k.launches for k in kernels}
+                peak = torch.cuda.max_memory_allocated()
+                del strat.boundary_round
+                got = {k: _digest(t) for k, t in _ckpt_planes(exp.state)}
+                differ = sorted(k for k in set(want) | set(got) if got.get(k) != want.get(k))
+                del exp
+        finally:
+            dist.destroy_process_group()
+        gc.collect()
+        _free()
+        boundary_ms = [a.elapsed_time(b) for a, b in marks]
+        tau = 2
+        step_ms = [(r - b) / tau for r, b in zip(round_ms, boundary_ms)]
+        want_launches = {k.name: 0 for k in kernels}
+        want_launches.update(qwen2_launches(LM13_ROUNDS * tau, LM_WORKERS, LM_LAYERS, 1, LM13_ROUNDS))
+        want_launches["pullback_momentum"] = 0
+        if name == "gossip_ring":
+            want_launches["gossip_rank"] = LM13_ROUNDS + 1  # a boundary each (one bucket), and the drain
+        else:
+            want_launches["pullback_mean_rank"] = LM13_ROUNDS  # a boundary each; the drain finishes in torch
+        rec = dict(run=f"qwen2-7b full width, {LM_LAYERS} layers, bf16, m {LM_WORKERS} {name} {kw or ''} on one "
+                       f"NCCL rank holding all rows", card=card, transport=transport, rounds=LM13_ROUNDS, tau=tau,
+                   losses=losses, stacked_losses=want_losses, arrays_differing=differ,
+                   bound="bitwise (every array of the drained state against the stacked run's, 64-bit digests; "
+                         "losses)", round_ms=round_ms, boundary_ms=boundary_ms, step_ms=step_ms, wall_s=wall,
+                   held_bytes=held_bytes, peak_mem_bytes=peak, stacked_peak_mem_bytes=stacked_peak,
+                   launches={k: v for k, v in launches.items() if v})
+        log(json.dumps(rec))
+        if differ or losses != want_losses:
+            raise AssertionError(f"{name} on one NCCL rank differs from the stacked run: {rec}")
+        if launches != want_launches:
+            raise AssertionError(f"{name} NCCL rank launches {launches} != {want_launches}")
+        out[name] = rec
+    return out
+
+
+def rank_nccl_lm_checkpoint(dev, card):
+    """Phase 13(b'): the checkpointer at the 2-layer LM state: full-width
+    qwen2-7b at ``LM_LAYERS`` layers, bf16, gossip_ring, m 1 (a checkpoint
+    of the m 4 state widens 37 GB of bf16 planes to a 74 GB file; the
+    script keeps its disk writes under 45 GiB), ``LM13_ROUNDS``
+    rounds stacked (64-bit digests of every array its checkpoint holds),
+    then on one NCCL rank from the same weights and batches, drained: the
+    same digests; ``checkpoint.save`` on the rank (every key of the stacked
+    state's arrays in the file), then ``checkpoint.restore`` from the file
+    into the rank's state: the stacked state's digests again (the restore narrows the
+    file's f32 arrays back exactly, so these are the arrays the stacked
+    run's save writes). The save's and the restore's seconds and the file's
+    bytes."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.training import drain
+
+    exp = _lm13_experiment(dev, "gossip_ring", workers=1).build()
+    batches = _round_batches(exp, LM13_ROUNDS)
+    for rb in batches:
+        exp.state, _ = exp.step_fn(exp.state, exp.to_device(rb))
+    want = {k: _digest(t) for k, t in _ckpt_planes(exp.state)}
+    del exp
+    gc.collect()
+    _free()
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl13c_")
+    where = tempfile.mkdtemp(prefix="chip_smoke_ckpt13_")
+    path = os.path.join(where, "lm.npz")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0)
+    try:
+        with mesh_context(make_smoke_mesh(1)):
+            exp = _lm13_experiment(dev, "gossip_ring", workers=1).build()
+            for rb in batches:
+                exp.state, _ = exp.step_fn(exp.state, exp.to_device(rb))
+            exp.state = drain(exp.state)
+            got = {k: _digest(t) for k, t in _ckpt_planes(exp.state)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            checkpoint.save(path, exp.state)
+            save_s = time.perf_counter() - t0
+            file_bytes = os.path.getsize(path)
+            with np.load(path) as z:
+                stored = sorted(z.files)
+            t0 = time.perf_counter()
+            exp.state = checkpoint.restore(path, exp.state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            back = {k: _digest(t) for k, t in _ckpt_planes(exp.state)}
+            del exp
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(where, ignore_errors=True)
+    gc.collect()
+    _free()
+    rec = dict(run=f"checkpoint of qwen2-7b full width, {LM_LAYERS} layers, bf16, m 1 gossip_ring on one NCCL rank",
+               card=card, save_s=save_s, restore_s=restore_s, file_bytes=file_bytes, arrays=len(stored),
+               file_keys_missing=sorted(k for k in want if k not in stored),
+               rank_state_differing=sorted(k for k in want if got.get(k) != want[k]),
+               restored_arrays_differing=sorted(k for k in want if back.get(k) != want[k]),
+               bound="bitwise: the drained rank state and the state restored from the file (its f32 "
+                     "arrays narrowed back to the planes' dtypes, an exact round trip) against the stacked state's "
+                     "arrays (64-bit digests); the file holds every key")
+    log(json.dumps(rec))
+    if rec["rank_state_differing"] or rec["file_keys_missing"] or rec["restored_arrays_differing"]:
+        raise AssertionError(f"the LM checkpoint on one NCCL rank differs from the stacked state: {rec}")
+    return rec
+
+
+def _gossip_fit_runs():
+    """Phase 13(c)'s runs: (label, m, make(dev) → Experiment, rounds, plan
+    spec, controller fields or None), the classifier under phase 12's plans."""
+    from repro_torch.config import AlgoConfig
+    from repro_torch.data.loaders import make_classification_splits
+
+    runs = []
+    for m in (2, 4):
+        splits = make_classification_splits(m, n=30000, holdout=4000)
+        for name, kw in GOSSIP_FIT_CASES:
+            for ctrl in (None, ADAPTIVE_CTRL):
+                label = f"classifier m {m} {name} {kw or ''} faults{' + adaptive tau' if ctrl else ''}"
+                runs.append((label, m, lambda d, m=m, name=name, kw=kw, splits=splits: _fit_classifier(
+                    d, AlgoConfig(name=name, tau=2, alpha=0.6, **kw), m, splits), CLF_FIT_ROUNDS, FIT_PLANS[m],
+                    ctrl))
+    return runs
+
+
+ROW_PLANES = ("x", "momentum", "x0", "mix", "err")
+
+
+def _strategy_planes(state):
+    """x, the momentum and every slot of a drained state by name: the rows
+    (``ROW_PLANES``: x, the momentum, an avg-rebase x0, a gossip mix,
+    PowerSGD's error) and the replicated slots (z, v, sparse_anchor's e,
+    the gossip w and t, PowerSGD's q, the anchor or average in flight, its
+    push weights)."""
+    from repro_torch.parallel.packing import Packed
+
+    out = {"x": state.x.buffers, "momentum": state.opt.momentum.buffers}
+    vs = state.vars
+    if vs.z is not None:
+        out["z"] = vs.z.buffers
+    if vs.v is not None:
+        out["v"] = vs.v.buffers
+    extra = vs.extra
+    if isinstance(extra, Packed):
+        out["e"] = extra.buffers
+    elif hasattr(extra, "err"):
+        out["err"], out["q"] = extra.err.buffers, [q for q in extra.q if q is not None]
+    elif isinstance(extra, tuple) and extra:
+        out["wt"] = [extra[0], extra[1].reshape(1)]
+    infl = state.inflight
+    if hasattr(infl, "x0"):
+        out["inflight"], out["x0"] = infl.avg.buffers, infl.x0.buffers
+    elif hasattr(infl, "mix"):
+        out["mix"], out["inflight_w"] = infl.mix.buffers, [infl.w]
+    elif infl is not None:
+        out["inflight"] = infl.buffers
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6627,6 +7076,20 @@ def main() -> int:
     _free()
     fit_gloo = rank_gloo_fit_two_on_one_card(card)
     mark("phase 12 (c: Experiment.fit on two gloo ranks sharing the card)")
+
+    # phase 13: every strategy and the checkpointer on worker ranks (K5's
+    # gossip rank form; gossip_ring and sparse_anchor on one NCCL rank holding
+    # all rows, the LM checkpoint; the gossip family, sparse_anchor and
+    # PowerSGD on two gloo ranks sharing the card, checkpoint round trips)
+    grank_err, grank_t = check_gossip_rank_form(dev, gen)
+    mark("phase 13 (a: K5's gossip rank form)")
+    nccl13 = rank_nccl_gossip_sparse(dev, kernels, card)
+    mark("phase 13 (b: gossip_ring and sparse_anchor on one NCCL rank)")
+    ckpt13 = rank_nccl_lm_checkpoint(dev, card)
+    mark("phase 13 (b': the LM checkpoint on one NCCL rank)")
+    _free()
+    gloo13, probe13 = rank_gloo_fit_two_on_one_card(card, which="13")
+    mark("phase 13 (c: every strategy on two gloo ranks sharing the card)")
 
     # the kernels line
     launches = dict(summary["launches"])
@@ -6833,6 +7296,30 @@ def main() -> int:
     for name, paths in masked_paths.items():
         if not all(paths.values()):
             raise AssertionError(f"{name} was not launched on every path that runs it: {paths}")
+    # phase 13: K5's gossip rank form; its main path is the NCCL rank's
+    # qwen2-7b gossip_ring run; K4's rank form also runs sparse_anchor and
+    # gossip_full on the ranks
+    g13 = grank_t[("lm", "bfloat16")]
+    rows += [
+        ("gossip_rank", "anchor_mix",
+         "K5 anchor_mix_flat, gossip rank form (gossip_rank_launch: one rank's rows when the push is a neighbour "
+         "exchange; each row's mix formed from the held launch-time rows in the stacked push's order, the debias, K5 "
+         "on the rows that move and their new launch-time copy in one pass)", "src/repro/kernels/anchor_mix/kernel.py:51",
+         grank_err, g13, f"bf16 r=1 h={g13['held']} n={g13['n']} (qwen2-7b's 2-layer plane, one row a rank, the ring)",
+         None),
+    ]
+    gloo13_runs = {r["run"]: r["launches"] for r in gloo13}
+    grank_paths = {nccl13["gossip_ring"]["run"]: nccl13["gossip_ring"]["launches"].get("gossip_rank", 0),
+                   **{f"{r} (rank 0)": c.get("gossip_rank", 0) for r, c in gloo13_runs.items()
+                      if any(g in r for g in ("gossip_ring", "gossip_exp", "gossip_pushsum"))}}
+    if not all(grank_paths.values()):
+        raise AssertionError(f"gossip_rank was not launched on every path that runs it: {grank_paths}")
+    launches["gossip_rank"] = nccl13["gossip_ring"]["launches"]["gossip_rank"]
+    rank_paths["pullback_mean_rank"][nccl13["sparse_anchor"]["run"]] = \
+        nccl13["sparse_anchor"]["launches"].get("pullback_mean_rank", 0)
+    rank_paths["pullback_mean_rank"].update({f"{r} (rank 0)": c.get("pullback_mean_rank", 0)
+                                             for r, c in gloo13_runs.items()
+                                             if "sparse_anchor" in r or "gossip_full" in r})
     out = []
     for name, source, label, replaces, err, t, shape, large in rows:
         entry = dict(
@@ -7012,6 +7499,17 @@ def main() -> int:
                                  "(1 and 2 rows), f32 and bf16, at the classifier's plane and qwen2-7b's 2-layer "
                                  "plane; bitwise (K8: rtol 1e-6)")
             entry["other_plane"] = dict(shape=f"{other['dtype']} r=1 n={other['n']} ({other['plane']})",
+                                        copy_ms=other["copy_ms"],
+                                        **{k: other[k] for k in keys + split_keys if k in other})
+        if name == "gossip_rank":  # phase 13: the other plane, the copy_ yardstick, every rank path's launches
+            other = grank_t[("classifier", "float32")]
+            entry.update(copy_ms=t["copy_ms"], library=t["library"], launches_by_path=grank_paths, transport=probe13,
+                         checked="f32 and bf16, 1 and 2 rows a rank at m 4, the ring's and the exp pattern's "
+                                 "exchanges, a held row and a row with no push mass, the boundary, the finished mix "
+                                 "and the drain, at the classifier's plane and qwen2-7b's 2-layer plane (three "
+                                 "windows of 2^22 columns); bitwise")
+            entry["other_plane"] = dict(shape=f"{other['dtype']} r=1 h={other['held']} n={other['n']} (the "
+                                              f"classifier plane, one row a rank, the ring)",
                                         copy_ms=other["copy_ms"],
                                         **{k: other[k] for k in keys + split_keys if k in other})
         if name in rank_paths:  # phase 11: the other plane, the copy_ yardstick, every rank path's launches

@@ -33,6 +33,21 @@ stored under the reference's dict paths, taken from the error plane's
 layout. Per leaf (``AlgoConfig.packed=False``) ``q`` is the reference's
 dict, and every per-leaf state is stored and restored as the reference's.
 
+On a worker mesh (:mod:`repro_torch.parallel.sharding`) ``save`` first
+drains a state's in-flight collective (``repro_torch.training.drain``), then
+gathers every row-stacked plane (a ``Packed`` node with a worker axis: x, the
+optimizer's rows, PowerSGD's error, the avg-rebase x₀, the gossip mix) to
+rank 0 in column chunks, bit for bit
+(:func:`~repro_torch.parallel.sharding.gather_rows_exact`), into host memory
+(pinned on a card), and rank 0 writes the same file the one-process ``save``
+of the whole state writes; the replicated nodes (z, v, sparse_anchor's
+error, the gossip w and t, q, the step) are written once. ``restore`` on a
+mesh has every rank read the file and keep its rows; the in-flight value
+comes back finished, and the next rank boundary consumes it as the first
+one does. ``elastic=True`` resizes the stored worker axis to the mesh's m
+before the rows are cut, so a one-process file restores onto W ranks, a
+W-rank file into one process, and a file of W ranks onto W' at the same m.
+
 Restored leaves are tensors of the template's dtype on the template leaf's
 device. This module imports numpy and torch only.
 """
@@ -40,6 +55,7 @@ from __future__ import annotations
 
 import json
 import os
+import zipfile
 from typing import Any, Callable, List, Tuple
 
 import numpy as np
@@ -112,29 +128,120 @@ def _encode_layout(layout: Layout) -> np.ndarray:
     return np.frombuffer(payload.encode("utf-8"), np.uint8)
 
 
-def save(path: str, tree: Any) -> None:
-    """Write ``tree`` (tensors, Packed planes, NamedTuples, dicts, tuples)
-    to ``path`` atomically (a ``.tmp`` file, then a rename). Not on a
-    worker mesh (ROADMAP item 10b)."""
-    if sharding.current_mesh() is not None:
-        raise sharding.unsupported_on_ranks("the checkpointer")
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    arrays, layouts = {}, {}
+_GATHER_COLUMNS = 1 << 24  # columns of a row-stacked plane gathered at a time on a mesh
+
+
+def _drained(tree):
+    """A train state with its rank boundary's collective finished (the
+    finished in-flight value has the one-process structure)."""
+    from repro_torch.training import drain
+    from repro_torch.training.train_state import TrainState
+
+    return drain(tree) if isinstance(tree, TrainState) else tree
+
+
+def _gathered(buf: torch.Tensor, mesh) -> Any:
+    """All m rows of a rank's (r, n) bucket, bit for bit, on rank 0 (None on
+    the others, which take part in the gathers): the column chunks gathered
+    on the device and copied into one host array (pinned when the rows are
+    on a card)."""
+    r, n = buf.shape
+    host = torch.empty((r * mesh.size, n), dtype=buf.dtype, pin_memory=buf.is_cuda) if mesh.rank == 0 else None
+    for j in range(0, n, _GATHER_COLUMNS):
+        c = slice(j, min(n, j + _GATHER_COLUMNS))
+        rows = sharding.gather_rows_exact(buf[:, c].contiguous(), mesh)
+        if host is not None:
+            host[:, c].copy_(rows)
+    return None if host is None else _to_numpy(host)
+
+
+def _stacked(node) -> bool:
+    """A Packed plane with a worker axis (row-stacked; on a mesh the rank's rows)."""
+    return isinstance(node, Packed) and len(node.lead_shape) == 1
+
+
+def _arrays(tree, mesh):
+    """(key, numpy array) for every stored array of ``tree`` in the file's
+    order, the layout sidecars last; made one at a time, so a save holds one
+    array in host memory. On a mesh every rank runs the gathers of the
+    row-stacked planes and only rank 0 gets arrays (None elsewhere)."""
+    layouts = []
     for key, node in _nodes(tree):
-        if isinstance(node, Packed):
+        if mesh is not None and _stacked(node):  # every rank gathers, rank 0 keeps
             for i, buf in enumerate(node.buffers):
-                arrays[_join(key, str(i))] = _to_numpy(buf)
-            layouts[_join(key, _LAYOUT_KEY)] = _encode_layout(node.layout)
+                yield _join(key, str(i)), _gathered(buf, mesh)
+            layouts.append((_join(key, _LAYOUT_KEY), _encode_layout(node.layout)))
+        elif mesh is not None and mesh.rank != 0:
+            continue
+        elif isinstance(node, Packed):
+            for i, buf in enumerate(node.buffers):
+                yield _join(key, str(i)), _to_numpy(buf)
+            layouts.append((_join(key, _LAYOUT_KEY), _encode_layout(node.layout)))
         elif isinstance(node, HostPlane):
             for i, stack in enumerate(node.host_ready().chunks):
-                arrays[_join(key, str(i))] = _to_numpy(stack)
+                yield _join(key, str(i)), _to_numpy(stack)
         else:
-            arrays[key] = _to_numpy(node)
-    arrays.update(layouts)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez(f, **arrays)
-    os.replace(tmp, path)
+            yield key, _to_numpy(node)
+    yield from layouts
+
+
+def _write_npz(f, items) -> None:
+    """``np.savez`` of (key, array) items, written as they come: each array
+    an uncompressed ``<key>.npy`` member (zip64), as numpy writes them."""
+    with zipfile.ZipFile(f, mode="w", compression=zipfile.ZIP_STORED, allowZip64=True) as zf:
+        for key, arr in items:
+            with zf.open(key + ".npy", "w", force_zip64=True) as member:
+                np.lib.format.write_array(member, np.asanyarray(arr), allow_pickle=False)
+
+
+def save(path: str, tree: Any) -> None:
+    """Write ``tree`` (tensors, Packed planes, NamedTuples, dicts, tuples)
+    to ``path`` atomically (a ``.tmp`` file, then a rename), one array in
+    host memory at a time. On a worker mesh every rank calls it: a train
+    state is drained, the row-stacked planes gathered, and rank 0 writes
+    the one-process file."""
+    mesh = sharding.current_mesh()
+    if mesh is not None:
+        tree = _drained(tree)
+    items = _arrays(tree, mesh)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            _write_npz(f, items)
+        os.replace(tmp, path)
+    else:
+        for _ in items:  # the gathers rank 0 waits on
+            pass
+    if mesh is not None:  # the file is there before any rank returns (a one-element sum: a barrier)
+        sharding.all_reduce_(torch.zeros(1, device=mesh.device), mesh)
+
+
+class _Stored:
+    """The arrays of an open ``.npz`` read when asked for (not cached), with
+    entries added or popped over them: a restore holds the arrays of one
+    node at a time."""
+
+    def __init__(self, npz):
+        self.npz, self.keys, self.added = npz, set(npz.files), {}
+
+    def __contains__(self, key) -> bool:
+        return key in self.added or key in self.keys
+
+    def __getitem__(self, key):
+        return self.added[key] if key in self.added else self.npz[key]
+
+    def __setitem__(self, key, value) -> None:
+        self.added[key] = value
+
+    def __iter__(self):
+        return iter(sorted(self.keys | set(self.added)))
+
+    def pop(self, key):
+        value = self[key]
+        self.keys.discard(key)
+        self.added.pop(key, None)
+        return value
 
 
 def _fit_leaf(arr: np.ndarray, shape: Tuple[int, ...], key: str, elastic: bool = False) -> np.ndarray:
@@ -161,8 +268,12 @@ def _fit_leaf(arr: np.ndarray, shape: Tuple[int, ...], key: str, elastic: bool =
 
 
 def _to_tensor(arr: np.ndarray, like) -> torch.Tensor:
-    t = torch.from_numpy(np.array(arr, order="C"))
-    return t.to(device=like.device, dtype=like.dtype)
+    """``arr`` as a tensor of ``like``'s dtype on its device, cast on the
+    host first (a card holds no widened copy of a bf16 plane)."""
+    t = torch.from_numpy(np.require(arr, requirements=["C", "W"]))
+    if t.dtype != like.dtype:
+        t = t.to(like.dtype)
+    return t.to(like.device)
 
 
 def _expand_stored_packed(arrays: dict, layouts: dict, nodes) -> None:
@@ -215,11 +326,17 @@ def restore(path: str, template: Any, elastic: bool = False) -> Any:
     leaf a tensor of the template leaf's dtype on its device. ``elastic``
     resizes the worker axis of any leaf or packed buffer whose trailing dims
     match the template (the reference's ``restore(..., elastic=True)``).
-    Not on a worker mesh (ROADMAP item 10b)."""
-    if sharding.current_mesh() is not None:
-        raise sharding.unsupported_on_ranks("the checkpointer")
+    On a worker mesh every rank calls it with its own state as the template
+    (drained first): a row-stacked plane is fitted to all m = r·W workers
+    and the rank keeps its rows."""
+    mesh = sharding.current_mesh()
+    if mesh is not None:
+        template = _drained(template)
     with np.load(path) as z:
-        arrays = {k: z[k] for k in z.files}
+        return _restore(_Stored(z), template, elastic, mesh)
+
+
+def _restore(arrays, template: Any, elastic: bool, mesh) -> Any:
     layouts = {}
     for k in list(arrays):
         if k == _LAYOUT_KEY or k.endswith(_SEP + _LAYOUT_KEY):
@@ -235,6 +352,11 @@ def restore(path: str, template: Any, elastic: bool = False) -> Any:
                 stored = [arrays[k] for k in bufkeys]
             else:
                 stored, bufkeys = _pack_perleaf_into(arrays, key, node), [key] * len(node.buffers)
+            if mesh is not None and _stacked(node):  # all m rows fitted, then this rank's
+                m = node.lead_shape[0] * mesh.size
+                lo, hi = mesh.rows(m)
+                return Packed(tuple(_to_tensor(_fit_leaf(a, (m,) + tuple(b.shape[1:]), k, elastic)[lo:hi], b)
+                                    for a, b, k in zip(stored, node.buffers, bufkeys)), node.layout)
             return Packed(tuple(_to_tensor(_fit_leaf(a, tuple(b.shape), k, elastic), b)
                                 for a, b, k in zip(stored, node.buffers, bufkeys)), node.layout)
         if isinstance(node, HostPlane):

@@ -11,7 +11,22 @@ step (τ = 1).
 
 The factors are per-leaf work (the compression itself); the error-feedback
 add and the error update are one sweep per bucket of the f32 error plane.
-QR is ``torch.linalg.qr``, as the reference leaves QR to XLA.
+QR is ``torch.linalg.qr``, as the reference leaves QR to XLA. Each worker's
+product M_i q (and M_iᵀ P) is taken on its own and the workers' products
+summed in order 0 .. m−1 in f32, then divided by m (a true division): a
+batched product may pick another kernel for another batch size (cuBLAS
+does), and the worker sum on ranks is a sum of partial sums. So the packed
+path gathers the compressed leaves' factor sums, and the uncompressed
+leaves' raw-gradient sums, into one flat f32 buffer a phase.
+
+On a worker mesh (:mod:`repro_torch.parallel.sharding`) the gradient plane
+and the error are the rank's rows: each rank sums its rows' products into
+the flat buffer and one blocking ``all_reduce_`` adds the ranks' sums before
+the division by m; the QR runs replicated on every rank, then the same for
+Q' — two all-reduces a step whose size does not grow with n (the factors
+and the uncompressed leaves). The error stays the rank's own rows, q is
+replicated. On two ranks of one row each this is the one-process step bit
+for bit (a two-term sum commutes).
 
 The initial factors: the reference draws each leaf's q with
 ``jax.random.normal(PRNGKey(hash(shape) % 2**31))``; torch cannot draw
@@ -34,6 +49,8 @@ import torch
 
 from repro_torch.config.base import AlgoConfig
 from repro_torch.core.algorithms import Algorithm, AlgoVars
+from repro_torch.kernels.anchor_mix.ref import row_sum
+from repro_torch.parallel import sharding
 from repro_torch.parallel.packing import Packed, packed_like
 from repro_torch.utils.tree import tree_map
 
@@ -77,18 +94,34 @@ def init_state_tree(x, rank: int) -> PowerState:
                       err=tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device), x))
 
 
+def _over_m(acc: torch.Tensor, m: int) -> torch.Tensor:
+    """acc / m, a true division by a tensor."""
+    return acc / torch.full((), float(m), dtype=torch.float32, device=acc.device)
+
+
+def _sum_products(M: torch.Tensor, right: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """Σ_i M_i·right (or M_iᵀ·right), each worker's product on its own,
+    summed in f32 in order 0 .. r−1 over the (r, a, b) rows of M."""
+    acc = None
+    for i in range(M.shape[0]):
+        p = (M[i].T if transpose else M[i]) @ right
+        acc = p if acc is None else acc + p
+    return acc
+
+
 def _plain_mean(g: torch.Tensor) -> torch.Tensor:
-    """An uncompressed leaf's f32 worker mean ((m, size) → (size,))."""
-    return torch.mean(g.float().contiguous(), dim=0)
+    """An uncompressed leaf's f32 worker mean ((m, size) → (size,)): the
+    rows summed in order, over m."""
+    return _over_m(row_sum(g.float()), g.shape[0])
 
 
 def _compress_leaf(M: torch.Tensor, q: torch.Tensor):
     """One power-iteration step on a contiguous (m, a, b) f32 leaf M = g + e:
     P = QR(mean_i(M_i q)), Q' = mean_i(M_iᵀ P), ĝ = P Q'ᵀ. Returns (ĝ (a, b),
     Q')."""
-    P = torch.mean(M @ q, dim=0)  # (a, r): the mean of rank-r factors
-    P, _ = torch.linalg.qr(P)
-    Qn = torch.mean(torch.einsum("mab,ar->mbr", M, P), dim=0)  # (b, r)
+    m = M.shape[0]
+    P, _ = torch.linalg.qr(_over_m(_sum_products(M, q), m))  # (a, r): the mean of rank-r factors
+    Qn = _over_m(_sum_products(M, P, transpose=True), m)  # (b, r)
     return P @ Qn.T, Qn
 
 
@@ -118,26 +151,51 @@ def transform_grads(grads, st: PowerState) -> Tuple[Any, PowerState]:
 def transform_grads_packed(pg: Packed, st: PowerState) -> Tuple[Packed, PowerState]:
     """One compressed step over the gradient plane: ``pg`` is overwritten
     with the decoded gradient ĝ (every worker's row the same) and the error
-    plane with e' = M − ĝ, both in place; returns them with the new factors."""
-    m = pg.lead_shape[0]
+    plane with e' = M − ĝ, both in place; returns them with the new factors.
+    On a worker mesh ``pg`` and the error are the rank's rows and the two
+    factor sums are all-reduced over the ranks."""
+    mesh = sharding.current_mesh()
+    r = pg.lead_shape[0]
+    m = r * (1 if mesh is None else mesh.size)
+    Ms = [g.float() + e for g, e in zip(pg.buffers, st.err.buffers)]  # error-feedback add, one sweep per bucket
+    slots = [(slot, st.q[slot.index]) for slot in pg.layout.slots]
+
+    def leaf(slot):
+        seg = slice(slot.offset, slot.offset + slot.size)
+        a, b = _mat_shape(slot.shape)
+        return seg, Ms[slot.bucket][:, seg].reshape(r, a, b).contiguous()
+
+    def mean_over_workers(parts):  # the flat sum of every leaf's part, over the ranks, / m
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        if mesh is not None:
+            sharding.all_reduce_(flat, mesh)
+        return torch.split(_over_m(flat, m), [p.numel() for p in parts])
+
+    # phase 1: Σ_i M_i q of each compressed leaf and Σ_i g_i of each plain one
+    firsts = mean_over_workers([
+        row_sum(pg.buffers[slot.bucket][:, slot.offset : slot.offset + slot.size].float()) if q is None
+        else _sum_products(leaf(slot)[1], q) for slot, q in slots])
+    Ps = [None if q is None else torch.linalg.qr(f.reshape(-1, q.shape[1]))[0]
+          for (slot, q), f in zip(slots, firsts)]
+    # phase 2: Σ_i M_iᵀ P of each compressed leaf
+    comp = [(slot, P) for (slot, q), P in zip(slots, Ps) if q is not None]
+    seconds = iter(mean_over_workers([_sum_products(leaf(slot)[1], P, transpose=True) for slot, P in comp])) \
+        if comp else iter(())
     new_q = list(st.q)
-    for bi, (g, e) in enumerate(zip(pg.buffers, st.err.buffers)):
-        M = g.float() + e  # error-feedback add, one sweep per bucket
-        ghat = torch.zeros_like(M)  # padding lanes stay zero
-        compressed = torch.zeros(M.shape[1], dtype=torch.bool, device=M.device)
-        for slot in pg.layout.slots:
-            if slot.bucket != bi:
-                continue
-            seg = slice(slot.offset, slot.offset + slot.size)
-            q = st.q[slot.index]
-            if q is None:  # 1-D / scalar: the mean of the raw gradient, no error
-                ghat[:, seg] = _plain_mean(g[:, seg])
-                continue
-            compressed[slot.offset : slot.offset + slot.stride] = True
-            a, b = _mat_shape(slot.shape)
-            gh, new_q[slot.index] = _compress_leaf(M[:, seg].reshape(m, a, b).contiguous(), q)
-            ghat[:, seg] = gh.reshape(1, a * b)
-        e.copy_(torch.where(compressed, M - ghat, torch.zeros((), device=M.device)))
+    ghats = [torch.zeros_like(M) for M in Ms]  # padding lanes stay zero
+    compressed = [torch.zeros(M.shape[1], dtype=torch.bool, device=M.device) for M in Ms]
+    for (slot, q), f, P in zip(slots, firsts, Ps):
+        seg = slice(slot.offset, slot.offset + slot.size)
+        if q is None:  # 1-D / scalar: the mean of the raw gradient, no error
+            ghats[slot.bucket][:, seg] = f
+            continue
+        a, b = _mat_shape(slot.shape)
+        Qn = next(seconds).reshape(b, P.shape[1])
+        new_q[slot.index] = Qn
+        compressed[slot.bucket][slot.offset : slot.offset + slot.stride] = True
+        ghats[slot.bucket][:, seg] = (P @ Qn.T).reshape(1, a * b)
+    for g, e, M, ghat, c in zip(pg.buffers, st.err.buffers, Ms, ghats, compressed):
+        e.copy_(torch.where(c, M - ghat, torch.zeros((), device=M.device)))
         g.copy_(ghat)
     return pg, PowerState(q=tuple(new_q), err=st.err)
 

@@ -43,31 +43,39 @@ boundary.
 
 **On a worker mesh** (:mod:`repro_torch.parallel.sharding`: the worker
 axis over ``torch.distributed`` ranks, each holding m/W rows of the plane)
-the strategies with a rank boundary (:attr:`CommStrategy.rank_capable`:
-Overlap-Local-SGD, Local SGD, sync-SGD, EASGD, CoCoD-SGD and delayed
-averaging) run it from :meth:`CommStrategy.boundary_round`, with the probe
-and the membership as on one process. Overlap-Local-SGD's worker sum becomes
-a real collective: each rank pulls its rows back and writes their f32
-(weighted) partial sum into one flat f32 wire buffer, ``all_reduce_async``
-launches the sum, and the in-flight slot carries the handle
-(:class:`RankInflight`); the next boundary waits on it, after τ local steps,
-and finishes the anchor (K3/K4's rank form,
-:func:`~repro_torch.kernels.anchor_mix.ops.pullback_rank`). CoCoD-SGD and
-delayed averaging launch their average the same way
-(:class:`RankRebaseInflight`, x₀ the rank's own rows), waited at the next
-boundary or ``delay_steps`` local steps into the round. :func:`finish_inflight`
-does the wait and finish alone (the round engine's ``drain``). Local SGD
-all-reduces the rows' partial sums at its boundary, EASGD the pre-pullback
-ones (K4's rank form with ``mean_pre``), sync-SGD the gradient plane at
-every step, all blocking. A membership ((m,), alike on every rank) is cut to
-the rank's rows (:func:`~repro_torch.parallel.sharding.rows_of`); a mean
-over a membership is its weighted sum, which the finish takes with no
-division. The probe (:func:`rank_probe`) needs x̄ of all m rows before the
-boundary moves them: one blocking n-wide all-reduce of the unweighted row
-sums (Local SGD unmasked reuses its own), then K8's rank form a bucket and
-a float64 sum of the drift over the ranks. sparse_anchor, powersgd, the
-gossip family, offload and the per-leaf path raise (:func:`check_rank_path`,
-ROADMAP item 10b).
+every strategy runs its rank boundary from :meth:`CommStrategy.boundary_round`
+(:attr:`CommStrategy.rank_capable`), with the probe and the membership as on
+one process. Overlap-Local-SGD's worker sum becomes a real collective: each
+rank pulls its rows back and writes their f32 (weighted) partial sum into
+one flat f32 wire buffer, ``all_reduce_async`` launches the sum, and the
+in-flight slot carries the handle (:class:`RankInflight`); the next boundary
+waits on it, after τ local steps, and finishes the anchor (K3/K4's rank form,
+:func:`~repro_torch.kernels.anchor_mix.ops.pullback_rank`). gossip_full takes
+the same path with β = 0. sparse_anchor launches its worker sum the same way
+(:class:`RankSparseInflight`) and, where it is waited on, finishes the mean
+and takes the sparse step on the replicated n-wide f32 vectors (so its error
+feedback lags one boundary until the drain). CoCoD-SGD and delayed averaging
+launch their average the same way (:class:`RankRebaseInflight`, x₀ the
+rank's own rows), waited at the next boundary or ``delay_steps`` local steps
+into the round. The sparse gossip topologies push by a neighbour exchange
+(:func:`~repro_torch.parallel.sharding.exchange_rows`): the boundary forms
+each own row's mix from the rows the exchange launched a round ago brought
+(K5's gossip rank form,
+:func:`~repro_torch.kernels.anchor_mix.ops.gossip_rank_`), pulls the rows
+toward it and launches the next exchange of their launch-time copy
+(:class:`RankGossipInflight`). :func:`finish_inflight` does the wait and
+finish alone (the round engine's ``drain``). Local SGD all-reduces the rows'
+partial sums at its boundary, EASGD the pre-pullback ones (K4's rank form
+with ``mean_pre``), sync-SGD the gradient plane at every step and PowerSGD
+its two factor sums at every step (:mod:`repro_torch.core.powersgd`), all
+blocking. A membership ((m,), alike on every rank) is cut to the rank's rows
+(:func:`~repro_torch.parallel.sharding.rows_of`); a mean over a membership
+is its weighted sum, which the finish takes with no division. The probe
+(:func:`rank_probe`) needs x̄ of all m rows before the boundary moves them:
+one blocking n-wide all-reduce of the unweighted row sums (Local SGD
+unmasked reuses its own), then K8's rank form a bucket and a float64 sum of
+the drift over the ranks. Offload and the per-leaf path raise
+(:func:`check_rank_path`, ROADMAP item 10b).
 
 **The per-leaf oracle** (``AlgoConfig.packed=False``, and every legacy
 ``Algorithm`` through :class:`LegacyStrategy`): x is a nested dict of
@@ -92,7 +100,7 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import AlgoConfig
-from repro_torch.core.topology import cached_topology, compose_membership
+from repro_torch.core.topology import cached_rank_peers, cached_topology, compose_membership
 from repro_torch.kernels.anchor_mix import ops as anchor_ops
 from repro_torch.kernels.anchor_mix.ref import push, row_sum, worker_mean
 from repro_torch.kernels.consensus_probe import ConsensusStats, packed_probe, probe_rows, stats_from_partials, tree_probe
@@ -217,21 +225,32 @@ def _pullback(x, z, alpha: float, membership=None):
     return x if old is None else _live_where_(membership.mask, x, old)
 
 
-class RankInflight(NamedTuple):
+class RankInflight:
     """The in-flight anchor of a rank boundary: ``z`` the anchor that
     boundary pulled toward (the base of the next anchor), ``buf`` the one
     flat f32 wire buffer of every bucket's partial worker sum (the sum over
     all ranks once ``handle``, the async all-reduce, is waited), ``m`` the
     worker count over all ranks, ``beta`` the anchor momentum (None: K4),
     ``weighted`` whether the sum is a membership's weighted sum (the mean
-    then takes no division; the next boundary's membership may differ)."""
+    then takes no division; the next boundary's membership may differ).
+    It is finished once, by the next boundary (inside K3/K4's rank form) or
+    by :meth:`finished` (the drain: v updated in place), and keeps the
+    finished anchor: a state drained twice, or drained and then consumed,
+    moves v once."""
 
-    z: Any
-    buf: torch.Tensor
-    handle: Any
-    m: int
-    beta: Optional[float]
-    weighted: bool = False
+    def __init__(self, z: Packed, buf: torch.Tensor, handle, m: int, beta: Optional[float], weighted: bool = False):
+        self.z, self.buf, self.handle, self.m, self.beta, self.weighted = z, buf, handle, m, beta, weighted
+        self.done = None  # the finished anchor
+
+    def finished(self, vars: AlgoVars) -> Packed:
+        if self.done is None:
+            self.handle.wait()
+            vs = vars.v.buffers if self.beta is not None else (None,) * len(self.z.buffers)
+            fin = 2 if self.weighted else 1
+            self.done = Packed(tuple(anchor_ops.pullback_rank(bz[None][:0], bz, bv, s, self.m, 0.0, self.beta, fin)
+                                     for bz, bv, s in zip(self.z.buffers, vs, _wire_views(self.buf, self.z))),
+                               self.z.layout)
+        return self.done
 
 
 class RankRebaseInflight:
@@ -246,15 +265,37 @@ class RankRebaseInflight:
 
     def __init__(self, x0: Packed, buf: torch.Tensor, handle, m: int, weighted: bool):
         self.x0, self.buf, self.handle, self.m, self.weighted = x0, buf, handle, m, weighted
-        self._done = None
+        self.done = None
 
-    def finished(self):
-        if self._done is None:
+    def finished(self, vars: Optional[AlgoVars] = None):
+        if self.done is None:
             self.handle.wait()
             avg = Packed(tuple(_finish_sum(s, self.m, self.weighted, b.dtype)
                                for s, b in zip(_wire_views(self.buf, self.x0), self.x0.buffers)), self.x0.layout)
-            self._done = _AvgRebaseStrategy.Inflight(avg=avg, x0=self.x0)
-        return self._done
+            self.done = _AvgRebaseStrategy.Inflight(avg=avg, x0=self.x0)
+        return self.done
+
+
+class RankSparseInflight:
+    """The in-flight worker sum of a sparse_anchor rank boundary: ``z`` the
+    anchor that boundary pulled toward (the base of the sparse step),
+    ``buf`` the flat f32 wire buffer of the rows' (weighted) partial sums,
+    summed over the ranks once ``handle`` is waited, ``m`` the worker count
+    over all ranks, ``k`` the kept fraction. :meth:`finished` waits once,
+    takes the mean and the sparse step s = top_k(mean − z + e), e ← Δ − s
+    (e, vars.extra, in place), and returns z' = z + s, which it keeps."""
+
+    def __init__(self, z: Packed, buf: torch.Tensor, handle, m: int, weighted: bool, k: float):
+        self.z, self.buf, self.handle, self.m, self.weighted, self.k = z, buf, handle, m, weighted, k
+        self.done = None
+
+    def finished(self, vars: AlgoVars) -> Packed:
+        if self.done is None:
+            self.handle.wait()
+            means = [_finish_sum(s, self.m, self.weighted, bz.dtype)
+                     for s, bz in zip(_wire_views(self.buf, self.z), self.z.buffers)]
+            self.done = Packed(tuple(_sparse_step(means, self.z, vars.extra, self.k)), self.z.layout)
+        return self.done
 
 
 def _wire_buffer(px: Packed) -> torch.Tensor:
@@ -270,10 +311,13 @@ def _wire_views(buf: torch.Tensor, px: Packed):
 
 def _finish_sum(s: torch.Tensor, m: int, weighted: bool, dtype) -> torch.Tensor:
     """The worker mean from an all-reduced f32 worker sum: round(s / m)
-    (a true division, K3/K4's), or round(s) for a weighted sum."""
-    if weighted:
-        return s.to(dtype, copy=True)  # a buffer of its own: the wire buffer is reused
-    return (s / torch.full((), float(m), dtype=torch.float32, device=s.device)).to(dtype)
+    (a true division, K3/K4's), or round(s) for a weighted sum; a buffer of
+    its own (the wire buffer is reused), over column chunks."""
+    out = torch.empty(s.shape, dtype=dtype, device=s.device)
+    mt = torch.full((), float(m), dtype=torch.float32, device=s.device)
+    for c in column_chunks(s[None]):
+        out[c] = s[c].to(dtype) if weighted else (s[c] / mt).to(dtype)
+    return out
 
 
 def _rank_sums(px: Packed, weights=None, buf=None) -> torch.Tensor:
@@ -290,23 +334,17 @@ def _rank_sums(px: Packed, weights=None, buf=None) -> torch.Tensor:
 
 
 def finish_inflight(inflight, vars: AlgoVars):
-    """Wait on a rank boundary's all-reduce and finish what it carries: the
+    """Wait on a rank boundary's collective and finish what it carries: the
     anchor (the tail of K3/K4: the mean, and with momentum v updated in
-    place) or the avg-rebase average — the in-flight value the stacked run
-    holds at the same step."""
-    if isinstance(inflight, RankRebaseInflight):
-        return inflight.finished()
-    inflight.handle.wait()
-    vs = vars.v.buffers if inflight.beta is not None else (None,) * len(inflight.z.buffers)
-    fin = 2 if inflight.weighted else 1
-    return Packed(tuple(anchor_ops.pullback_rank(bz[None][:0], bz, bv, s, inflight.m, 0.0, inflight.beta, fin)
-                        for bz, bv, s in zip(inflight.z.buffers, vs, _wire_views(inflight.buf, inflight.z))),
-                  inflight.z.layout)
+    place), sparse_anchor's sparse step (its error feedback updated in
+    place), the avg-rebase average or the gossip mix of the rank's rows —
+    the in-flight value the stacked run holds at the same step."""
+    return inflight.finished(vars)
 
 
 def is_rank_inflight(inflight) -> bool:
     """Whether ``inflight`` is a rank boundary's pending collective."""
-    return isinstance(inflight, (RankInflight, RankRebaseInflight))
+    return isinstance(inflight, (RankInflight, RankRebaseInflight, RankSparseInflight, RankGossipInflight))
 
 
 def rank_probe(px: Packed, mesh, sums=None) -> ConsensusStats:
@@ -363,9 +401,9 @@ def _rank_average_(px: Packed, mesh, membership=None, probe: bool = False):
 
 def check_rank_path(strategy, packed_step: bool = True) -> None:
     """Raise ``NotImplementedError`` (ROADMAP item 10b) for what the worker
-    mesh does not run: a strategy without a rank boundary (sparse_anchor,
-    powersgd, the gossip family), the per-leaf path (``packed=False``, a
-    legacy ``Algorithm``, an optimizer with no packed step) and offload."""
+    mesh does not run: the per-leaf path (``packed=False``, a legacy
+    ``Algorithm``, an optimizer with no packed step), offload, and a
+    strategy of one's own with no rank boundary."""
     if not strategy.packed or not packed_step:
         raise sharding.unsupported_on_ranks("the per-leaf path (packed=False, a legacy Algorithm or an optimizer "
                                             "without a packed step)")
@@ -616,35 +654,46 @@ class OverlapLocalSGDStrategy(CommStrategy):
         return _with_stats((px, vars, z_next), _fused_stats(outs, px.lead_shape[0], probe))
 
     def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh, probe: bool = False, membership=None):
-        """Wait on the all-reduce the last boundary launched (τ local steps
-        ran under it) and finish its anchor (a mean, or the weighted sum of
-        its membership); pull this rank's rows back toward it (dead rows
-        pass through) and launch the sum of their (weighted) partial sums
-        (K3/K4's rank form, one launch a bucket, then one
-        ``all_reduce_async``). The first boundary (and the first after a
-        drain) finds the final anchor in ``inflight`` and starts at the
-        pullback. With ``probe`` the pre-pullback stats come first, from a
-        blocking all-reduce of the rows' sums and K8's rank form."""
-        stats = rank_probe(px, mesh) if probe else None
-        alpha = self.cfg.alpha
+        """:func:`_rank_anchor_boundary` with this strategy's α and β; the
+        consumed anchor becomes vars.z under momentum, as on one device."""
         beta = self.cfg.anchor_beta if self.momentum else None
-        mem = sharding.rows_of(membership, mesh)
-        weights = None if mem is None else mem.weights
-        pending = isinstance(inflight, RankInflight)
-        if pending:
-            inflight.handle.wait()
-            base, buf, fin = inflight.z, inflight.buf, 2 if inflight.weighted else 1
-        else:
-            base, buf, fin = inflight, _wire_buffer(px), 0
-        m = px.lead_shape[0] * mesh.size
-        vs = vars.v.buffers if self.momentum else (None,) * len(px.buffers)
-        z = Packed(tuple(anchor_ops.pullback_rank(bx, bz, bv, s, m, alpha, beta, fin, weights=weights)
-                         for bx, bz, bv, s in zip(px.buffers, base.buffers, vs, _wire_views(buf, px))), base.layout)
-        handle = sharding.all_reduce_async(buf, mesh)
-        if self.momentum:  # the consumed anchor, as on one device
+        z, out, stats = _rank_anchor_boundary(px, inflight, mesh, self.cfg.alpha, beta,
+                                              vars.v if self.momentum else None, probe, membership)
+        if self.momentum:
             vars = AlgoVars(z=z, v=vars.v, extra=vars.extra)
-        out = (px, vars, RankInflight(z=z, buf=buf, handle=handle, m=m, beta=beta, weighted=weights is not None))
-        return _with_stats(out, stats)
+        return _with_stats((px, vars, out), stats)
+
+
+def _rank_anchor_boundary(px: Packed, inflight, mesh, alpha: float, beta, v, probe: bool, membership):
+    """Overlap-Local-SGD's rank boundary: wait on the all-reduce the last
+    boundary launched (τ local steps ran under it) and finish its anchor (a
+    mean, or the weighted sum of its membership; with ``beta`` the momentum
+    v updated in place); pull this rank's rows back toward it (dead rows
+    pass through) and launch the sum of their (weighted) partial sums (K3/K4's
+    rank form, one launch a bucket, then one ``all_reduce_async``). The
+    first boundary (and the first after a drain) finds the final anchor in
+    ``inflight`` and starts at the pullback. With ``probe`` the pre-pullback
+    stats come first, from a blocking all-reduce of the rows' sums and K8's
+    rank form. Returns (the anchor pulled toward, the :class:`RankInflight`,
+    the stats or None)."""
+    stats = rank_probe(px, mesh) if probe else None
+    mem = sharding.rows_of(membership, mesh)
+    weights = None if mem is None else mem.weights
+    if isinstance(inflight, RankInflight) and inflight.done is None:  # finished inside the launch
+        inflight.handle.wait()
+        base, buf, fin = inflight.z, inflight.buf, 2 if inflight.weighted else 1
+    elif isinstance(inflight, RankInflight):  # finished by a drain
+        base, buf, fin = inflight.done, inflight.buf, 0
+    else:
+        base, buf, fin = inflight, _wire_buffer(px), 0
+    m = px.lead_shape[0] * mesh.size
+    vs = v.buffers if v is not None else (None,) * len(px.buffers)
+    z = Packed(tuple(anchor_ops.pullback_rank(bx, bz, bv, s, m, alpha, beta, fin, weights=weights)
+                     for bx, bz, bv, s in zip(px.buffers, base.buffers, vs, _wire_views(buf, px))), base.layout)
+    if isinstance(inflight, RankInflight):
+        inflight.done = z
+    handle = sharding.all_reduce_async(buf, mesh)
+    return z, RankInflight(z=z, buf=buf, handle=handle, m=m, beta=beta, weighted=weights is not None), stats
 
 
 def _pullback_mean(px: Packed, z: Packed, alpha: float, mean_pre: bool = False, probe: bool = False, weights=None):
@@ -827,6 +876,7 @@ class PowerSGDStrategy(CommStrategy):
     boundary is empty."""
 
     name = "powersgd"
+    rank_capable = True
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
@@ -851,7 +901,12 @@ class PowerSGDStrategy(CommStrategy):
         return self._impl.transform_grads(grads, vars)
 
     def transform_grads_packed(self, pg: Packed, vars: AlgoVars):
+        """On a worker mesh the factor sums are all-reduced over the ranks."""
         return self._impl.transform_grads_packed(pg, vars)
+
+    def _rank_boundary(self, px: Packed, vars, inflight, mesh, probe: bool = False, membership=None):
+        # no boundary math and no membership, as on one process
+        return _with_stats((px, vars, None), rank_probe(px, mesh) if probe else None)
 
 
 class DelayedAveragingStrategy(_AvgRebaseStrategy):
@@ -906,11 +961,35 @@ class DelayedAveragingStrategy(_AvgRebaseStrategy):
         return _with_stats((px, vars, self._packed_launch(px, inflight, _mem_weights(membership))), stats)
 
 
+_SORT_MAX = 1 << 24  # past this many elements a quantile's order statistics are searched for, not sorted
+
+
+def _order_statistic(a: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-th smallest (0-based) element of a 1-D float32 tensor of
+    non-negative finite values, exactly, without a sort: a binary search
+    over the float bit patterns (ordered as the values are) counting the
+    elements at or below the midpoint, 31 counting passes. A sort of a
+    full-width LM's embedding leaf would take 6 GiB of values and indices.
+    Returns a 0-dim float32 tensor on ``a``'s device."""
+    bits = a.view(torch.int32)
+    lo, hi = 0, 0x7F800000  # +0.0 .. +inf
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if int(torch.count_nonzero(bits <= mid)) > k:
+            hi = mid
+        else:
+            lo = mid + 1
+    return torch.tensor(lo, dtype=torch.int32, device=a.device).view(torch.float32)
+
+
 def _quantile_linear(a: torch.Tensor, q: float) -> torch.Tensor:
     """``jnp.quantile(a, q, method="linear")`` of a 1-D float32 tensor, in
     float32 as JAX computes it: position q·(n − 1) with q and n rounded to
     float32, the two neighbouring order statistics from a sort, and
-    lo·(1 − h) + hi·h. (``torch.quantile`` refuses more than 2^24 elements.)"""
+    lo·(1 − h) + hi·h. (``torch.quantile`` refuses more than 2^24 elements.)
+    Past ``_SORT_MAX`` elements of non-negative values (the magnitudes the
+    sparse step ranks) the order statistics come from
+    :func:`_order_statistic`: the same values, no sort."""
     n = a.numel()
     pos = np.float32(q) * (np.float32(n) - np.float32(1))
     low, high = np.floor(pos), np.ceil(pos)
@@ -918,6 +997,10 @@ def _quantile_linear(a: torch.Tensor, q: float) -> torch.Tensor:
     lw = np.float32(1) - hw
     last = np.float32(n) - np.float32(1)
     low, high = int(min(max(low, 0), last)), int(min(max(high, 0), last))
+    if n > _SORT_MAX:
+        lo_v = _order_statistic(a, low)
+        hi_v = lo_v if high == low else _order_statistic(a, high)
+        return lo_v * float(lw) + hi_v * float(hw)
     srt = torch.sort(a).values
     return srt[low] * float(lw) + srt[high] * float(hw)
 
@@ -953,6 +1036,29 @@ def sparsify_topk_(delta: torch.Tensor, layout, bucket: int, k: float) -> torch.
     return delta
 
 
+def _sparse_step(means, z: Packed, e: Packed, k: float) -> list:
+    """The sparse anchor step per bucket from the worker means: Δ = mean − z
+    + e in f32, s = the top-k of Δ leaf by leaf, e ← Δ − s in place, z' =
+    round(z + s); at k = 1 z' is the mean. Returns the buckets of z'. One
+    f32 plane of its own (Δ, made s in place; e takes Δ first), the rest over
+    column chunks: a full-width LM's plane holds no second f32 copy."""
+    if k >= 1.0:  # dense: z' = mean(x), nothing truncated
+        return list(means)
+    z_next = []
+    for bi, (bm, bz, be) in enumerate(zip(means, z.buffers, e.buffers)):
+        delta = torch.empty(bz.shape, dtype=torch.float32, device=bz.device)
+        for c in column_chunks(delta[None]):
+            delta[c] = bm[c].float() - bz[c].float() + be[c]
+        be.copy_(delta)
+        s = sparsify_topk_(delta, z.layout, bi, k)
+        be.sub_(s)
+        zn = torch.empty_like(bz)
+        for c in column_chunks(s[None]):
+            zn[c] = (bz[c].float() + s[c]).to(bz.dtype)
+        z_next.append(zn)
+    return z_next
+
+
 class SparseAnchorStrategy(CommStrategy):
     """LOSCAR-style top-k sparse anchor averaging with error feedback:
     Overlap-Local-SGD (β = 0, K4 per bucket) whose launched anchor moves
@@ -963,6 +1069,7 @@ class SparseAnchorStrategy(CommStrategy):
     At ``sparse_k = 1`` it is exactly Overlap-Local-SGD with β = 0."""
 
     name = "sparse_anchor"
+    rank_capable = True
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
@@ -997,19 +1104,33 @@ class SparseAnchorStrategy(CommStrategy):
 
     def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         outs = _pullback_mean(px, inflight, self.cfg.alpha, probe=probe, weights=_mem_weights(membership))
-        means = [o[1] for o in outs]
-        if self.k >= 1.0:  # dense: z' = mean(x), nothing truncated
-            z_next = means
-        else:
-            z_next = []
-            for bi, (bm, bz, be) in enumerate(zip(means, inflight.buffers, vars.extra.buffers)):
-                delta = bm.float() - bz.float() + be
-                s = sparsify_topk_(delta.clone(), inflight.layout, bi, self.k)
-                be.copy_(delta - s)
-                z_next.append((bz.float() + s).to(bz.dtype))
+        z_next = _sparse_step([o[1] for o in outs], inflight, vars.extra, self.k)
         # the consumed anchor is the base of this round's launched delta
         out = (px, AlgoVars(z=inflight, v=vars.v, extra=vars.extra), Packed(tuple(z_next), inflight.layout))
         return _with_stats(out, _fused_stats(outs, px.lead_shape[0], probe))
+
+    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh, probe: bool = False, membership=None):
+        """Wait on the worker sum the last boundary launched and take the
+        sparse step (:meth:`RankSparseInflight.finished`: z_k from z_{k−1}
+        and the mean, e updated); pull the rows toward z_k (dead rows pass
+        through) and launch the sum of their (weighted) partial sums (K4's
+        rank form, one launch a bucket, then one ``all_reduce_async`` into
+        the consumed wire buffer). The first boundary (and the first after a
+        drain) pulls toward the anchor in ``inflight``. With ``probe`` the
+        pre-pullback stats come first."""
+        stats = rank_probe(px, mesh) if probe else None
+        pending = isinstance(inflight, RankSparseInflight)
+        z = inflight.finished(vars) if pending else inflight
+        mem = sharding.rows_of(membership, mesh)
+        weights = None if mem is None else mem.weights
+        buf = inflight.buf if pending else _wire_buffer(px)
+        m = px.lead_shape[0] * mesh.size
+        for bx, bz, s in zip(px.buffers, z.buffers, _wire_views(buf, px)):
+            anchor_ops.pullback_rank(bx, bz, None, s, m, self.cfg.alpha, None, 0, weights=weights)
+        handle = sharding.all_reduce_async(buf, mesh)
+        out = RankSparseInflight(z, buf, handle, m, weights is not None, self.k)
+        # the consumed anchor is the base of this round's launched delta
+        return _with_stats((px, AlgoVars(z=z, v=vars.v, extra=vars.extra), out), stats)
 
 
 class GossipInflight(NamedTuple):
@@ -1019,6 +1140,48 @@ class GossipInflight(NamedTuple):
 
     mix: Any
     w: Any
+
+
+class DrainedGossipInflight(GossipInflight):
+    """A gossip in-flight value finished on a worker mesh: ``mix`` the
+    rank's rows of the mix, ``w`` the (m,) push weights; ``phase`` (an
+    attribute, not a field) the host's mirror of the phase counter, the
+    next boundary's t (read from the device when absent)."""
+
+
+class RankGossipInflight:
+    """The in-flight push of a gossip rank boundary: ``own`` the rank's
+    launch-time rows x' (a plane of their own, the exchange's send buffers),
+    ``exchange`` the launched neighbour exchange of phase ``phase`` (the
+    host's mirror of t at launch) and ``peers`` its schedule, ``peff`` the
+    launch's (m, m) f32 Peff and ``w`` = Σ_j Peff[i, j], the (m,) push
+    weights the next boundary debiases by. :meth:`finished` (the drain)
+    waits once and forms the mix of the rank's rows into ``own`` (K5's
+    gossip rank form, mode 2), the stacked run's in-flight value."""
+
+    # under the tests: the drain compares the host's phase with the device counter
+    check_phase = False
+
+    def __init__(self, own: Packed, exchange, peers, peff: torch.Tensor, w: torch.Tensor, phase: int):
+        self.own, self.exchange, self.peers, self.peff, self.w, self.phase = own, exchange, peers, peff, w, phase
+        self.done = None
+        self.consumed = False  # a boundary formed the mix and rewrote own
+
+    def finished(self, vars: AlgoVars) -> DrainedGossipInflight:
+        if self.done is None:
+            if self.consumed:
+                raise RuntimeError("this gossip exchange was consumed by a later boundary; drain the newer state")
+            if RankGossipInflight.check_phase and int(vars.extra[1]) != self.phase + 1:
+                raise AssertionError(f"gossip phase: host {self.phase + 1}, device {int(vars.extra[1])}")
+            recv = self.exchange.wait()
+            lo = self.peers.rows[0]
+            for b, bo in enumerate(self.own.buffers):
+                anchor_ops.gossip_rank_(bo, bo, recv[b] if self.peers.received else None, self.peers.held,
+                                        self.peers.received, lo, self.peff, self.w[:0].new_ones(bo.shape[0]),
+                                        self.w[:0].new_zeros(bo.shape[0]), 0.0, mode=2)
+            self.done = DrainedGossipInflight(mix=self.own, w=self.w)
+            self.done.phase = self.phase + 1
+        return self.done
 
 
 def _push(peff: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -1065,9 +1228,13 @@ class GossipPushSumStrategy(CommStrategy):
         self.full = self.topo_name == "full"
         self._mats = {}  # (m, device) -> the topology's (L, m, m) matrices on that device
 
+    rank_capable = True
+
     def init_vars(self, x) -> AlgoVars:
         first = tensors_of(x)[0]
-        w = torch.ones((first.shape[0],), dtype=torch.float32, device=first.device)
+        mesh = sharding.current_mesh()
+        m = first.shape[0] * (1 if mesh is None else mesh.size)  # the push weights of all m workers
+        w = torch.ones((m,), dtype=torch.float32, device=first.device)
         return AlgoVars(extra=(w, torch.zeros((), dtype=torch.int32, device=first.device)))
 
     def init_inflight(self, x, vars: AlgoVars):
@@ -1075,7 +1242,11 @@ class GossipPushSumStrategy(CommStrategy):
             return _pack_anchor(_as_plane(x)) if self.packed else _first_row(x)
         # w' = 1: round 0's debias divides by exactly 1.0
         mix = _copy_plane(_as_plane(x)) if self.packed else _clone(x)
-        return GossipInflight(mix=mix, w=torch.ones_like(vars.extra[0]))
+        if sharding.current_mesh() is None:
+            return GossipInflight(mix=mix, w=torch.ones_like(vars.extra[0]))
+        out = DrainedGossipInflight(mix=mix, w=torch.ones_like(vars.extra[0]))  # the rank's rows of the mix
+        out.phase = 0
+        return out
 
     def _push_matrix(self, m: int, t: torch.Tensor, w: torch.Tensor, membership=None) -> torch.Tensor:
         """Round t's P̃_t · diag(w), (m, m) f32, chosen on the device; P̃ is
@@ -1143,6 +1314,52 @@ class GossipPushSumStrategy(CommStrategy):
             anchor_ops.gossip_boundary_(bx, bm, wsafe, live, Peff, alpha)
         vars = AlgoVars(z=vars.z, v=vars.v, extra=(w_new, t + 1))
         return _with_stats((px, vars, GossipInflight(mix=inflight.mix, w=torch.sum(Peff, dim=1))), stats)
+
+    def _rank_boundary(self, px: Packed, vars: AlgoVars, inflight, mesh, probe: bool = False, membership=None):
+        """``full``: Overlap-Local-SGD's rank boundary with β = 0 (K4's rank
+        form and the async all-reduce). Else wait on the exchange the last
+        boundary launched and, per bucket in one launch of K5's gossip rank
+        form, form each own row's mix from the held launch-time rows with
+        that launch's Peff (the first boundary and the one after a drain:
+        the finished mix in ``inflight``), debias it, pull the live rows
+        toward it and write their new launch-time copy; then launch the next
+        exchange, of phase t (its schedule chosen on the host from the
+        mirror of t the in-flight value carries). Peff, the weights and t
+        stay (m,)-sized and replicated: no n-wide collective. With
+        ``probe`` the pre-boundary stats come first."""
+        w, t = vars.extra
+        if self.full:
+            _, out, stats = _rank_anchor_boundary(px, inflight, mesh, self.cfg.alpha, None, None, probe, membership)
+            return _with_stats((px, self._tick(vars, w), out), stats)
+        stats = rank_probe(px, mesh) if probe else None
+        m = px.lead_shape[0] * mesh.size
+        lo, hi = mesh.rows(m)
+        if isinstance(inflight, RankGossipInflight) and inflight.done is not None:
+            inflight = inflight.done  # drained through another reference to this state
+        if isinstance(inflight, RankGossipInflight):
+            recv, own, peff_prev, mode = inflight.exchange.wait(), inflight.own, inflight.peff, 0
+            held, received, phase = inflight.peers.held, inflight.peers.received, inflight.phase + 1
+            inflight.consumed = True
+        else:  # the finished mix of the rank's rows
+            own, peff_prev, mode, recv, held, received = inflight.mix, None, 1, (), tuple(range(lo, hi)), ()
+            phase = getattr(inflight, "phase", None)
+            phase = int(t) if phase is None else phase  # a restored state: one read of the counter
+        wmix = inflight.w
+        got = wmix > 0
+        moves = got if membership is None else got & (membership.mask > 0)
+        wsafe = torch.where(got, wmix, torch.ones_like(wmix))
+        w_new = torch.where(moves, wmix, w)
+        Peff = self._push_matrix(m, t, w_new, membership)
+        live = moves.to(torch.float32)
+        for b, (bx, bo) in enumerate(zip(px.buffers, own.buffers)):
+            anchor_ops.gossip_rank_(bx, bo, recv[b] if received else None, held, received, lo,
+                                    Peff if peff_prev is None else peff_prev, wsafe[lo:hi], live[lo:hi],
+                                    self.cfg.alpha, mode)
+        peers = cached_rank_peers(self.topo_name, m, mesh.size, phase)[mesh.rank]
+        exchange = sharding.exchange_rows(own.buffers, peers, mesh)
+        vars = AlgoVars(z=vars.z, v=vars.v, extra=(w_new, t + 1))
+        out = RankGossipInflight(own, exchange, peers, Peff, torch.sum(Peff, dim=1), phase)
+        return _with_stats((px, vars, out), stats)
 
 
 class GossipFullStrategy(GossipPushSumStrategy):

@@ -18,6 +18,12 @@ is live (push weights then stay at w ≡ 1):
 
 :func:`compose_membership` zeroes a dead worker's row and column and
 renormalises every live column to sum to 1 (the SGP recipe).
+
+On a worker mesh (W ranks, each holding m/W consecutive workers) a push is a
+neighbour exchange: :func:`rank_peers` gives, for each rank at a phase, the
+rows it sends to each peer and the rows it receives from each, read off
+``in_mask(phase)``. The membership does not enter it: composing one zeroes
+dead rows and columns in Peff's weights, so the transport schedule is static.
 """
 from __future__ import annotations
 
@@ -126,3 +132,71 @@ def cached_topology(name: str, m: int) -> Topology:
     if key not in _CACHE:
         _CACHE[key] = make_topology(name, m)
     return _CACHE[key]
+
+
+@dataclass(frozen=True)
+class RankPeers:
+    """One rank's neighbour exchange at one phase: ``rows`` its workers
+    ``[lo, hi)``; ``send`` (peer rank, the global indices of this rank's
+    rows that peer's rows receive from) and ``recv`` (peer rank, the global
+    indices of that peer's rows this rank's rows receive from), peers
+    ascending, rows ascending."""
+
+    rank: int
+    rows: Tuple[int, int]
+    send: Tuple[Tuple[int, Tuple[int, ...]], ...]
+    recv: Tuple[Tuple[int, Tuple[int, ...]], ...]
+
+    @property
+    def received(self) -> Tuple[int, ...]:
+        """The received rows' global indices, ascending (the order of the
+        receive buffer)."""
+        return tuple(sorted(j for _, rows in self.recv for j in rows))
+
+    @property
+    def held(self) -> Tuple[int, ...]:
+        """Every row this rank's mix reads, its own and the received ones,
+        ascending: the order of the mix's sum."""
+        return tuple(sorted(set(range(*self.rows)) | set(self.received)))
+
+
+def rank_peers(topo: Topology, m: int, W: int, phase: int) -> Tuple[RankPeers, ...]:
+    """The neighbour exchange of ``topo`` over m workers spread over W ranks
+    (rank q holds rows ``[q·m/W, (q+1)·m/W)``) at ``phase`` (taken modulo
+    the topology's phases): for each rank, whom it sends its rows to and
+    whom it receives rows from. Worker i receives from j where
+    ``in_mask(phase)[i, j]``; rows on the same rank move nothing."""
+    if topo.m != m or m % W or W < 1:
+        raise ValueError(f"rank_peers: a topology over {topo.m} workers cannot spread m={m} over {W} ranks")
+    per = m // W
+    mask = topo.in_mask(phase % topo.num_phases)
+    out = []
+    for q in range(W):
+        lo, hi = q * per, (q + 1) * per
+        send, recv = [], []
+        for p in range(W):
+            if p == q:
+                continue
+            plo, phi = p * per, (p + 1) * per
+            # rows of q that some row of p receives from; rows of p that some row of q receives from
+            to_p = tuple(j for j in range(lo, hi) if mask[plo:phi, j].any())
+            from_p = tuple(j for j in range(plo, phi) if mask[lo:hi, j].any())
+            if to_p:
+                send.append((p, to_p))
+            if from_p:
+                recv.append((p, from_p))
+        out.append(RankPeers(rank=q, rows=(lo, hi), send=tuple(send), recv=tuple(recv)))
+    return tuple(out)
+
+
+_PEERS: Dict[Tuple[str, int, int, int], Tuple[RankPeers, ...]] = {}
+
+
+def cached_rank_peers(name: str, m: int, W: int, phase: int) -> Tuple[RankPeers, ...]:
+    """Memoised :func:`rank_peers` of the named topology (phase modulo its
+    phases)."""
+    topo = cached_topology(name, m)
+    key = (name, m, W, phase % topo.num_phases)
+    if key not in _PEERS:
+        _PEERS[key] = rank_peers(topo, m, W, key[3])
+    return _PEERS[key]

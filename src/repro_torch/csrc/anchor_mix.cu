@@ -52,6 +52,31 @@
 // push. A scalar tail takes n not a multiple of V and buffers not aligned
 // to V. The grid gives every vector (or column) a thread, as K5's does.
 //
+// K5, gossip rank form: the push-sum gossip boundary of one rank's r rows
+// when the worker axis is spread over torch.distributed ranks. The stacked
+// form pushes mix' = Peff @ x' at boundary k and debiases it at k+1; on ranks
+// the push is a neighbour exchange of the launch-time rows x' (launched at
+// boundary k, waited on at k+1), and the mix is formed where it is consumed.
+// Per column j, from the h held rows (this rank's own launch-time copy `own`
+// and the received rows `recv`, in ascending global order g_0 < .. < g_{h-1}):
+//   mix_i  = round(sum_k Peff[lo+i, g_k] f32(held_kj)), k = 0 .. h-1 in order,
+//            each product and add rounded on its own       (mode 0)
+//   mix_i  = own_ij                                        (mode 1: own holds
+//            the finished mix, the first boundary and the one after a drain)
+//   z_i    = round(f32(mix_i) / wsafe_i),  x_ij <- live_i ? round((1-a) x_ij + a z_i) : x_ij
+//   own_ij <- x_ij                                         (the next launch-time copy)
+// and in mode 2 (the drain) out_ij <- mix_i alone, x untouched. The rows that
+// are not held have Peff = 0 in the stacked sum, whose terms are the same
+// products in the same order; a skipped exact 0 leaves a finite sum as it is
+// (only the sign of a zero sum may differ). wsafe, live (r,) and Peff (m, m)
+// are float32 on the device, the held table (2, h) int32: the row's source
+// (k >= 0: recv row k, < 0: own row -1-k) and its global index. Up to 16 held
+// rows a thread keeps them in registers for a vector of columns (bound mmax 4
+// and 16, as the gossip form), so it reads x, own and the received rows once
+// and writes x and own once: (3 r + h) P n bytes. Past 16 a thread owns a
+// column and reads the held rows from memory, pulling every row back before
+// it rewrites own. Bound by bytes.
+//
 // K3 and K4 replace the Pallas TPU kernels repro/kernels/anchor_mix/kernel.py::
 // pullback_mean_flat (_pullback_mean_kernel) and pullback_momentum_flat
 // (_pullback_momentum_kernel):
@@ -786,6 +811,162 @@ int launch_gossip(void* xv, void* mixv, const GossipArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+
+// ---- K5, gossip rank form ---------------------------------------------------
+
+struct GossipRankArgs {
+  const float* wsafe;  // (r,) the consumed push weights of the rank's rows
+  const float* live;   // (r,) > 0: the row moves
+  const float* peff;   // (m, m) row-major, the launch-time Peff
+  const int* held;     // (2, h): source code, global index
+  long long n;
+  int r, h, m, lo, own_at, mode;  // own_at: the first own row's place among the held rows
+  float oma, alpha;
+};
+
+// The register path: h <= HMAX. Columns j0 .. j0+V-1 of every held row are
+// loaded first; each own row's mix from them, then its pullback and copy.
+template <typename T, int V, int HMAX>
+__device__ __forceinline__ void gossip_rank_columns(T* x, T* own, const T* recv, T* out, long long j0,
+                                                    const GossipRankArgs& a, const float* sP, const int* sC) {
+  Lanes<T, V> hr[HMAX];
+#pragma unroll
+  for (int k = 0; k < HMAX; ++k) {
+    if (k < a.h) {
+      const int c = sC[k];
+      hr[k].load((c >= 0 ? recv + (long long)c * a.n : own + (long long)(-1 - c) * a.n) + j0);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < HMAX; ++i) {
+    if (i < a.r) {
+      Lanes<T, V> mix;
+      if (a.mode == 1) {
+#pragma unroll
+        for (int k = 0; k < HMAX; ++k)
+          if (k == a.own_at + i) mix = hr[k];
+      } else {
+        float acc[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = __fmul_rn(sP[i * HMAX], to_f(hr[0].e[e]));
+#pragma unroll
+        for (int k = 1; k < HMAX; ++k) {
+          if (k < a.h) {
+            const float p = sP[i * HMAX + k];
+#pragma unroll
+            for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(p, to_f(hr[k].e[e])));
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) mix.e[e] = from_f<T>(acc[e]);
+      }
+      if (a.mode == 2) {
+        mix.store(out + (long long)i * a.n + j0);
+        continue;
+      }
+      T* px = x + (long long)i * a.n + j0;
+      Lanes<T, V> xr;
+      xr.load(px);
+      if (a.live[i] > 0.f) {
+        const float w = a.wsafe[i];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float z = to_f(from_f<T>(__fdiv_rn(to_f(mix.e[e]), w)));
+          xr.e[e] = from_f<T>(mix1(a.oma, a.alpha, to_f(xr.e[e]), z));
+        }
+        xr.store(px);
+      }
+      xr.store(own + (long long)i * a.n + j0);
+    }
+  }
+}
+
+template <typename T, int HMAX>
+__global__ void __launch_bounds__(kGossipThreads)
+gossip_rank_kernel(T* __restrict__ x, T* own, const T* __restrict__ recv, T* out, GossipRankArgs a, int vec) {
+  constexpr int V = gossip_vec<T, HMAX>();
+  __shared__ float sP[HMAX * HMAX];
+  __shared__ int sC[HMAX];
+  for (int t = threadIdx.x; t < HMAX * HMAX; t += blockDim.x) {
+    const int i = t / HMAX, k = t % HMAX;
+    sP[t] = (i < a.r && k < a.h) ? a.peff[(long long)(a.lo + i) * a.m + a.held[a.h + k]] : 0.f;
+  }
+  for (int t = threadIdx.x; t < HMAX; t += blockDim.x) sC[t] = t < a.h ? a.held[t] : 0;
+  __syncthreads();
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  long long done = 0;
+  if (vec) {
+    const long long nv = a.n / V;
+    for (long long c = tid; c < nv; c += step) gossip_rank_columns<T, V, HMAX>(x, own, recv, out, c * V, a, sP, sC);
+    done = nv * V;
+  }
+  for (long long j = done + tid; j < a.n; j += step) gossip_rank_columns<T, 1, HMAX>(x, own, recv, out, j, a, sP, sC);
+}
+
+// Any h: a column a thread, the held rows read from memory. Modes 0 and 1
+// pull every row back first and then copy the rows into own, so that no
+// row's mix reads a rewritten own row; mode 2 writes out, which is not own.
+template <typename T>
+__global__ void __launch_bounds__(kGossipThreads)
+gossip_rank_column_kernel(T* __restrict__ x, T* own, const T* __restrict__ recv, T* out, GossipRankArgs a) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long j = tid; j < a.n; j += step) {
+    for (int i = 0; i < a.r; ++i) {
+      float mix;
+      if (a.mode == 1) {
+        mix = to_f(own[(long long)i * a.n + j]);
+      } else {
+        const float* prow = a.peff + (long long)(a.lo + i) * a.m;
+        float acc = 0.f;
+        for (int k = 0; k < a.h; ++k) {
+          const int c = __ldg(a.held + k);
+          const T v = c >= 0 ? recv[(long long)c * a.n + j] : own[(long long)(-1 - c) * a.n + j];
+          const float prod = __fmul_rn(__ldg(prow + __ldg(a.held + a.h + k)), to_f(v));
+          acc = k == 0 ? prod : __fadd_rn(acc, prod);
+        }
+        mix = to_f(from_f<T>(acc));
+      }
+      if (a.mode == 2) {
+        out[(long long)i * a.n + j] = from_f<T>(mix);
+      } else if (__ldg(a.live + i) > 0.f) {
+        T* px = x + (long long)i * a.n + j;
+        const float z = to_f(from_f<T>(__fdiv_rn(mix, __ldg(a.wsafe + i))));
+        *px = from_f<T>(mix1(a.oma, a.alpha, to_f(*px), z));
+      }
+    }
+    if (a.mode != 2)
+      for (int i = 0; i < a.r; ++i) own[(long long)i * a.n + j] = x[(long long)i * a.n + j];
+  }
+}
+
+template <typename T, int HMAX>
+int launch_gossip_rank_regs(T* x, T* own, const T* recv, T* out, const GossipRankArgs& a, cudaStream_t st) {
+  constexpr int V = gossip_vec<T, HMAX>();
+  const uintptr_t mask = (uintptr_t)(V * sizeof(T)) - 1;
+  const int use_vec = (a.n % V == 0) && !(reinterpret_cast<uintptr_t>(x) & mask) &&
+                      !(reinterpret_cast<uintptr_t>(own) & mask) && !(reinterpret_cast<uintptr_t>(recv) & mask) &&
+                      !(reinterpret_cast<uintptr_t>(out) & mask);
+  const long long units = use_vec ? a.n / V : a.n;
+  int threads = kGossipThreads;
+  while (threads > 32 && (units + threads - 1) / threads < num_sms()) threads /= 2;
+  gossip_rank_kernel<T, HMAX><<<tile_grid(units, threads), threads, 0, st>>>(x, own, recv, out, a, use_vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gossip_rank(void* xv, void* ownv, const void* recvv, void* outv, const GossipRankArgs& a, cudaStream_t st) {
+  T* x = static_cast<T*>(xv);
+  T* own = static_cast<T*>(ownv);
+  const T* recv = static_cast<const T*>(recvv);
+  T* out = static_cast<T*>(outv);
+  if (a.h <= 4) return launch_gossip_rank_regs<T, 4>(x, own, recv, out, a, st);
+  if (a.h <= 16) return launch_gossip_rank_regs<T, 16>(x, own, recv, out, a, st);
+  gossip_rank_column_kernel<T><<<tile_grid(a.n, kGossipThreads), kGossipThreads, 0, st>>>(x, own, recv, out, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K5. x: rows of width elements, ldx apart, updated in place; z: rows of
@@ -811,6 +992,27 @@ extern "C" int gossip_boundary_launch(void* x, void* mix, const void* wsafe, con
                      static_cast<const float*>(peff), n, m, oma, alpha};
   if (dtype == 0) return launch_gossip<float>(x, mix, a, st);
   if (dtype == 1) return launch_gossip<__nv_bfloat16>(x, mix, a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5, gossip rank form. x: (r, n) this rank's rows, updated in place (modes 0
+// and 1); own: (r, n) their launch-time copy, read, then overwritten with x
+// (modes 0 and 1); recv: (hr, n) the received rows (may be null when none);
+// out: (r, n) the mix (mode 2; may be own when h <= 16); held: (2, h) int32 on
+// the device; peff: (m, m), wsafe, live: (r,) float32. lo: the rank's first
+// global row; own_at: its place among the held rows. dtype: 0 = float32,
+// 1 = bfloat16 (x, own, recv, out).
+extern "C" int gossip_rank_launch(void* x, void* own, const void* recv, void* out, const void* held,
+                                  const void* peff, const void* wsafe, const void* live, int r, int h, int m, int lo,
+                                  int own_at, long long n, float oma, float alpha, int mode, int dtype, void* stream) {
+  if (n <= 0 || r <= 0) return 0;
+  if (h < r || mode < 0 || mode > 2 || lo < 0 || lo + r > m) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const GossipRankArgs a{static_cast<const float*>(wsafe), static_cast<const float*>(live),
+                         static_cast<const float*>(peff), static_cast<const int*>(held), n, r, h, m, lo, own_at, mode,
+                         oma, alpha};
+  if (dtype == 0) return launch_gossip_rank<float>(x, own, recv, out, a, st);
+  if (dtype == 1) return launch_gossip_rank<__nv_bfloat16>(x, own, recv, out, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -24,8 +24,11 @@ same ``records``. A re-sync first drains the rank boundary's pending
 collective (:func:`repro_torch.training.drain`: the anchor, or the
 avg-rebase average, finished once, and the next boundary starts from it),
 then copies the anchor into the rejoining workers' rows that live on this
-rank; the live-mean fallback sums the rows' weighted f32 partial sums over
-the ranks (one blocking all-reduce).
+rank. Two anchors are sums over all m workers, taken as the rows' f32
+partial sums added over the ranks (one blocking all-reduce): the gossip
+family's Σ_i mix_i / Σ_i w_i (the drained mix holds the rank's rows) and the
+live-mean fallback of the strategies with no anchor (local_sgd, sync_sgd,
+powersgd).
 """
 from __future__ import annotations
 
@@ -61,13 +64,14 @@ def _map(fn, x):
     return tree_unflatten(paths, [fn(t) for t in leaves])
 
 
-def _anchor_of(state) -> Optional[Packed]:
+def _anchor_of(state, mesh=None) -> Optional[Packed]:
     """The recovery point, the unstacked model a rejoining worker resumes
     from: the in-flight collective (the freshest anchor; an avg-rebase
     in-flight's ``avg``; a gossip push collapsed into the mass-weighted
-    consensus Σ_i mix_i / Σ_i w_i), else the strategy's anchor z. ``None``
-    when the strategy carries no anchor (local_sgd, sync_sgd): the caller
-    falls back to the live-worker mean."""
+    consensus Σ_i mix_i / Σ_i w_i, summed over the ranks on a ``mesh``),
+    else the strategy's anchor z. ``None`` when the strategy carries no
+    anchor (local_sgd, sync_sgd, powersgd): the caller falls back to the
+    live-worker mean."""
     infl = state.inflight
     if infl is not None and off.is_offloaded(infl):
         infl = off.tree_restore(infl)  # a read-only device copy; the state keeps its host planes
@@ -75,6 +79,8 @@ def _anchor_of(state) -> Optional[Packed]:
         mix, w = getattr(infl, "mix", None), getattr(infl, "w", None)
         if mix is not None and w is not None:
             wsum = torch.sum(w.float())
+            if mesh is not None:
+                return _live_mean_over_ranks(mix, None, mesh, scale=wsum)
             return _map(lambda b: _row_sum(b, lambda t: torch.sum(t, dim=0) / wsum), mix)
         return getattr(infl, "avg", infl)
     z = getattr(state.vars, "z", None)
@@ -93,7 +99,7 @@ def resync_from_anchor(state, resync_mask):
     lo, hi = (0, len(mask)) if mesh is None else mesh.rows(len(mask))
     if mesh is not None:
         state = drain(state)
-    anchor = _anchor_of(state)
+    anchor = _anchor_of(state, mesh)
     x = state.x
     if anchor is None:
         # no anchor: recover onto the mean of the workers that were not excluded
@@ -111,18 +117,21 @@ def resync_from_anchor(state, resync_mask):
     return state
 
 
-def _live_mean_over_ranks(x, wt: torch.Tensor, mesh):
-    """Σ_i w_i·x_i over all m workers, cast to each buffer's dtype: the
-    rank's rows' f32 partial sums over column chunks (``wt`` their (r, 1)
-    weights), added over the ranks by one blocking all-reduce."""
+def _live_mean_over_ranks(x, wt: Optional[torch.Tensor], mesh, scale: Optional[torch.Tensor] = None):
+    """Σ_i w_i·x_i over all m workers (``wt`` None: Σ_i x_i, then divided by
+    ``scale``), cast to each buffer's dtype: the rank's rows' f32 partial
+    sums over column chunks (``wt`` their (r, 1) weights), added over the
+    ranks by one blocking all-reduce."""
     bufs = tensors_of(x)
     sums = torch.empty(sum(b[0].numel() for b in bufs), dtype=torch.float32, device=bufs[0].device)
     views = torch.split(sums, [b[0].numel() for b in bufs])
     for b, s in zip(bufs, views):
         rows = b.reshape(b.shape[0], -1)
         for c in column_chunks(rows):
-            s[c] = torch.sum(rows[:, c].float() * wt, dim=0)
+            s[c] = torch.sum(rows[:, c].float() if wt is None else rows[:, c].float() * wt, dim=0)
     sharding.all_reduce_(sums, mesh)
+    if scale is not None:
+        sums.div_(scale)
     it = iter(views)
     return _map(lambda b: next(it).to(b.dtype).reshape(b.shape[1:]), x)
 

@@ -19,7 +19,7 @@ def all_kernels():
 
     return [rms_ops.KERNEL, rms_ops.BWD, pa_ops.ATTEND, pa_ops.APPEND, opt_ops.SGD, opt_ops.ADAMW, opt_ops.SGD_WINDOW,
             opt_ops.ADAMW_WINDOW, am_ops.MIX, am_ops.MIX_ROWS,
-            am_ops.GOSSIP, am_ops.MEAN, am_ops.MOMENTUM, am_ops.MEAN_RANK, am_ops.MOMENTUM_RANK, fa_ops.FWD,
+            am_ops.GOSSIP, am_ops.GOSSIP_RANK, am_ops.MEAN, am_ops.MOMENTUM, am_ops.MEAN_RANK, am_ops.MOMENTUM_RANK, fa_ops.FWD,
             fa_ops.BWD_DQ, fa_ops.BWD_DKDV,
             fa_ops.BWD_DKDV_SUM, probe_ops.PROBE, probe_ops.PROBE_RANK, wkv_ops.FWD_LOCAL, wkv_ops.FWD,
             wkv_ops.BWD_LOCAL, wkv_ops.BWD,

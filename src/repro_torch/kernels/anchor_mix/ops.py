@@ -25,7 +25,11 @@ all-reduce; it counts on :data:`MOMENTUM_RANK` (K3) or :data:`MEAN_RANK`
 (K4).
 The gossip form runs the push-sum boundary of one bucket (debias, K5 on the
 rows that move, the push ``Peff @ x'``) in one launch, x and the in-flight
-mix in place; it counts on :data:`GOSSIP`, a count of its own.
+mix in place; it counts on :data:`GOSSIP`, a count of its own. Its rank form
+(:func:`gossip_rank_`) runs it on one rank's rows when the push is a
+neighbour exchange: the mix formed from the held launch-time rows (the
+rank's own copy and the received rows), the debias and K5, and the new
+launch-time copy, in one launch a bucket; it counts on :data:`GOSSIP_RANK`.
 
 ``probe=True`` adds the consensus probe of adaptive τ to K3/K4: the
 ``[drift_sq, scale_sq]`` raw sums of the *pre-pullback* x over all m rows
@@ -55,6 +59,8 @@ MIX = Kernel("anchor_mix", _MIX_ARGS, source="anchor_mix")
 MIX_ROWS = Kernel("anchor_mix_rows", _MIX_ARGS, source="anchor_mix")
 GOSSIP = Kernel("gossip_boundary", {"gossip_boundary_launch": [P, P, P, P, P, I, L, F, F, I, P]},
                 source="anchor_mix")
+GOSSIP_RANK = Kernel("gossip_rank", {"gossip_rank_launch": [P, P, P, P, P, P, P, P, I, I, I, I, I, L, F, F, I, I, P]},
+                     source="anchor_mix")
 MEAN = Kernel("pullback_mean", {"pullback_mean_launch": [P, P, P, P, I, L, F, F, I, P, P, P, I, P]},
               source="anchor_mix")
 MOMENTUM = Kernel(
@@ -125,6 +131,75 @@ def gossip_boundary_(x, mix, wsafe, live, peff, alpha: float):
                   peff.data_ptr(), m, x.shape[1], float(1.0 - alpha), float(alpha), dtype_code(x.dtype),
                   stream_ptr(x.device))
     return x, mix
+
+
+_HELD = {}  # (held, received, lo, r, device) -> the (2, h) int32 table on that device
+
+
+def _held_table(held, received, lo: int, r: int, device) -> torch.Tensor:
+    """The held rows' (source, global index) table: source k >= 0 is row k
+    of the received rows, < 0 own row -1-k. Built once a schedule and device."""
+    key = (tuple(held), tuple(received), lo, r, str(device))
+    if key not in _HELD:
+        src = [j - lo if lo <= j < lo + r else received.index(j) for j in held]
+        src = [-1 - s if lo <= j < lo + r else s for s, j in zip(src, held)]
+        _HELD[key] = torch.tensor([src, list(held)], dtype=torch.int32, device=device)
+    return _HELD[key]
+
+
+def gossip_rank_(x, own, recv, held, received, lo: int, peff, wsafe, live, alpha: float, mode: int = 0):
+    """K5's gossip rank form on one rank's rows of one bucket, in place:
+    x (r, n) the rows ``[lo, lo + r)`` and own (r, n) their launch-time
+    copy, one dtype; recv (len(received), n) the received rows (``None``
+    when none); ``held`` every row the mix reads (global indices,
+    ascending: own and received); peff (m, m), wsafe and live (r,) float32.
+    mode 0: mix_i = Σ_k Peff[lo + i, held_k]·held_k in f32, k in order;
+    mode 1: own holds the finished mix; then z = mix / wsafe, x ← (1−α)·x
+    + α·z on the rows with ``live > 0``, own ← x. mode 2 (the drain): own ←
+    the mix, x unchanged. The plain version is ``ref.gossip_rank``. Returns
+    (x, own)."""
+    r, n = x.shape if x.dim() == 2 else (-1, -1)
+    if r < 1 or own.shape != x.shape or own.dtype != x.dtype:
+        raise ValueError(f"gossip_rank_: x and own must be (r, n) of one dtype, got {tuple(x.shape)} {x.dtype} and "
+                         f"{tuple(own.shape)} {own.dtype}")
+    if recv is not None and (recv.dim() != 2 or recv.shape[1] != n or recv.dtype != x.dtype):
+        raise ValueError(f"gossip_rank_: recv must be (h, {n}) {x.dtype}, got {tuple(recv.shape)} {recv.dtype}")
+    hr = 0 if recv is None else recv.shape[0]
+    m = peff.shape[0] if peff.dim() == 2 else -1
+    f32 = torch.float32
+    if (peff.shape != (m, m) or wsafe.shape != (r,) or live.shape != (r,) or peff.dtype != f32
+            or wsafe.dtype != f32 or live.dtype != f32):
+        raise ValueError(f"gossip_rank_: peff (m, m), wsafe and live ({r},) must be float32")
+    if (len(received) != hr or list(held) != sorted(set(held)) or not set(range(lo, lo + r)) <= set(held)
+            or set(held) - set(range(lo, lo + r)) != set(received) or lo < 0 or lo + r > m or mode not in (0, 1, 2)):
+        raise ValueError(f"gossip_rank_: held {held} must be the rows {lo}..{lo + r - 1} and the received rows "
+                         f"{received}, ascending, within m={m}; mode 0, 1 or 2 (got {mode})")
+    tensors = (x, own, peff, wsafe, live) + (() if recv is None else (recv,))
+    if all(t.is_cpu for t in tensors):
+        x_new, own_new = _ref.gossip_rank(x, own, recv, held, received, lo, peff, wsafe, live, alpha, mode)
+        if mode != 2:
+            x.copy_(x_new)
+        own.copy_(own_new)
+        return x, own
+    index = x.get_device()
+    if not x.is_cuda or any(t.get_device() != index for t in tensors):
+        raise ValueError("gossip_rank_: tensors on mixed or unsupported devices: "
+                         + ", ".join(str(t.device) for t in tensors))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("gossip_rank_: CUDA buffers must be contiguous")
+    if mode == 1:  # own holds the mix: the held rows are the rank's own
+        held, received, recv = tuple(range(lo, lo + r)), (), None
+    table = _held_table(held, received, lo, r, x.device)
+    h = len(held)
+    # past 16 held rows the kernel reads own while it writes the mix: a buffer of its own
+    out = own if mode != 2 or h <= 16 else torch.empty_like(own)
+    GOSSIP_RANK.launch("gossip_rank_launch", x.data_ptr(), own.data_ptr(), 0 if recv is None else recv.data_ptr(),
+                       out.data_ptr(), table.data_ptr(), peff.data_ptr(), wsafe.data_ptr(), live.data_ptr(), r, h, m,
+                       lo, held.index(lo), n, float(1.0 - alpha), float(alpha), mode, dtype_code(x.dtype),
+                       stream_ptr(x.device))
+    if out is not own:
+        own.copy_(out)
+    return x, own
 
 
 def pullback_tree(x_tree, z_tree, alpha: float):

@@ -2,8 +2,8 @@
 ``repro.kernels.anchor_mix.ref`` (counterpart; the CUDA kernels in
 ``csrc/anchor_mix.cu`` compute the same chain): the plain pullback
 :func:`anchor_mix` (K5, also its row form), the gossip boundary :func:`gossip_boundary` (K5's
-gossip form), the fused boundaries (K3, K4) and their rank form
-:func:`pullback_rank` (the worker axis over ranks).
+gossip form) and its rank form :func:`gossip_rank`, the fused boundaries (K3,
+K4) and their rank form :func:`pullback_rank` (the worker axis over ranks).
 
 The worker mean is summed in float32 in the fixed order i = 0 .. m-1 and
 divided by m (a true division, by a tensor: PyTorch divides by a Python
@@ -37,6 +37,31 @@ def gossip_boundary(x, mix, wsafe, live, peff, alpha: float):
     z = (mix.float() / wsafe[:, None]).to(x.dtype)
     x_new = torch.where((live > 0)[:, None], anchor_mix(x, z, alpha), x)
     return x_new, push(peff, x_new).to(x.dtype)
+
+
+def gossip_rank(x, own, recv, held, received, lo: int, peff, wsafe, live, alpha: float, mode: int):
+    """K5's gossip rank form on one rank's rows, as the stacked boundary
+    (:func:`gossip_boundary`) computes them: x (r, n) the rows ``[lo,
+    lo + r)``; own (r, n) their launch-time copy; recv the received rows
+    ``received``; ``held`` every row the mix reads (global, ascending).
+    mode 0: mix_i = round(Σ_k Peff[lo + i, held_k]·held_k), k in order
+    (:func:`push` over Peff's columns of the held rows); mode 1: own holds
+    the finished mix; then z = round(mix / wsafe) and x' = K5 toward z on
+    the rows with ``live > 0``, x elsewhere, and own ← x'. mode 2 (the
+    drain): the mix alone, x unchanged. wsafe, live: (r,) f32; peff (m, m)
+    f32. Returns new (x', own') — own' the mix in mode 2."""
+    r = x.shape[0]
+    if mode == 1:
+        mix = own
+    else:  # row j from own when it is the rank's, else from the received rows
+        rows = torch.stack([own[j - lo] if lo <= j < lo + r else recv[received.index(j)] for j in held])
+        cols = torch.as_tensor(held, dtype=torch.long, device=peff.device)
+        mix = push(peff[lo : lo + r].index_select(1, cols), rows).to(x.dtype)
+    if mode == 2:
+        return x, mix
+    z = (mix.float() / wsafe[:, None]).to(x.dtype)
+    x_new = torch.where((live > 0)[:, None], anchor_mix(x, z, alpha), x)
+    return x_new, x_new
 
 
 def push(peff: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

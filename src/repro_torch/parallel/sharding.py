@@ -23,11 +23,22 @@ or a float64 scalar sum of the probe's drift), and :func:`all_gather_rows`
 membership is resolved on the host alike on every rank and stays (m,) in the
 state; :func:`rows_of` cuts the rank's rows out of it for a boundary.
 
-Only the worker axis is here (ROADMAP Queue 1 items 10a and 10b's first
-part). Within-worker sharding (fsdp, tensor), the logical rule table and the
-ZeRO-sharded anchor are item 10c; the paths that still raise on a mesh
-(sparse_anchor, powersgd, the gossip family, offload, the per-leaf path, the
-checkpointer) name item 10b (:func:`unsupported_on_ranks`).
+The gossip family's push is a neighbour exchange, not a reduction:
+:func:`exchange_rows` sends the rank's launch-time rows to the peers whose
+rows receive from them and receives the rows its own rows receive from
+(:func:`repro_torch.core.topology.rank_peers`), launched at one boundary and
+waited on at the next. NCCL and gloo on CPU tensors run it as
+``batch_isend_irecv``; gloo has point-to-point only for CPU tensors, so on a
+gloo group with CUDA tensors (two ranks sharing one card) the rows are
+staged through pinned host buffers (:func:`exchange_transport` names the
+choice). The checkpointer gathers row-stacked planes with
+:func:`gather_rows_exact`, bit for bit (−0.0 included).
+
+Only the worker axis is here (ROADMAP Queue 1 item 10a and 10b's first two
+parts: every strategy and the checkpointer). Within-worker sharding (fsdp,
+tensor), the logical rule table and the ZeRO-sharded anchor are item 10c;
+offload and the per-leaf path still raise on a mesh, naming item 10b
+(:func:`unsupported_on_ranks`).
 """
 from __future__ import annotations
 
@@ -35,7 +46,7 @@ import contextlib
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -168,3 +179,91 @@ def rows_of(membership, mesh: Optional[WorkerMesh] = None):
         return None
     lo, hi = _mesh(mesh, "rows_of").rows(int(membership.mask.shape[0]))
     return membership._replace(mask=membership.mask[lo:hi], weights=membership.weights[lo:hi])
+
+
+def exchange_transport(mesh: Optional[WorkerMesh] = None, device=None) -> str:
+    """The transport :func:`exchange_rows` takes on ``mesh`` for tensors on
+    ``device`` (the mesh's by default): ``"none"`` at W 1, ``"nccl p2p"``,
+    ``"gloo p2p"`` (CPU tensors), or ``"gloo p2p staged through pinned host
+    buffers"`` (CUDA tensors on a gloo group: gloo sends CPU tensors only)."""
+    mesh = _mesh(mesh, "exchange_transport")
+    if mesh.size == 1:
+        return "none"
+    backend = str(dist.get_backend(mesh.group))
+    dev = torch.device(device) if device is not None else mesh.device
+    if backend == "gloo" and dev.type == "cuda":
+        return "gloo p2p staged through pinned host buffers"
+    return f"{backend} p2p"
+
+
+class Exchange:
+    """A launched neighbour exchange (:func:`exchange_rows`). ``index``: the
+    received rows' global worker indices, ascending; :meth:`wait` returns
+    the received rows, one ``(len(index), n_b)`` tensor a sent buffer, on
+    the sent buffers' device. Waiting also completes this rank's sends, so
+    the sent buffers may be written again afterwards."""
+
+    def __init__(self, works, received, staged, device, index, sent=()):
+        self.works, self.received, self.staged, self.device, self.index = works, received, staged, device, index
+        self.sent = sent  # the staged host rows, alive until the sends complete
+        self._rows = None
+
+    def wait(self) -> Tuple[torch.Tensor, ...]:
+        if self._rows is None:
+            for w in self.works:
+                w.wait()
+            self.works, self.sent = [], ()
+            # staged: the pinned host rows to the card (a copy the host waits for)
+            self._rows = tuple(r.to(self.device) for r in self.received) if self.staged else self.received
+            self.received = None
+        return self._rows
+
+
+def exchange_rows(send: Sequence[torch.Tensor], peers, mesh: Optional[WorkerMesh] = None) -> Exchange:
+    """Launch the neighbour exchange of one phase: ``send`` holds this
+    rank's rows, one ``(r, n_b)`` buffer a bucket (rows ``peers.rows``);
+    ``peers`` is this rank's :class:`~repro_torch.core.topology.RankPeers`.
+    Each row a peer's rows receive from goes to that peer, and the rows
+    ``peers.received`` come back, per bucket in ascending order. Returns
+    the :class:`Exchange`; at W 1 (or with no peer) it moves nothing. On a
+    gloo group with CUDA tensors the sent rows are copied to pinned host
+    buffers first (the current stream synchronised) and the received rows
+    copied to the card at :meth:`Exchange.wait`."""
+    mesh = _mesh(mesh, "exchange_rows")
+    device = send[0].device
+    index = peers.received
+    pos = {j: k for k, j in enumerate(index)}
+    staged = exchange_transport(mesh, device).endswith("pinned host buffers")
+    host = {"device": "cpu", "pin_memory": True} if staged else {"device": device}
+    received = tuple(torch.empty((len(index), b.shape[-1]), dtype=b.dtype, **host) for b in send)
+    if not index and not peers.send:
+        return Exchange([], received, False, device, index)
+    lo = peers.rows[0]
+    nb = len(send)
+    # staged: one copy to pinned host memory, after the kernels that wrote the rows
+    src = [torch.empty(b.shape, dtype=b.dtype, pin_memory=True).copy_(b) if staged else b for b in send]
+    ops = []
+    for peer, rows in peers.send:
+        for b in range(nb):
+            for j in rows:
+                ops.append(dist.P2POp(dist.isend, src[b][j - lo], peer, mesh.group, tag=j * nb + b))
+    for peer, rows in peers.recv:
+        for b in range(nb):
+            for j in rows:
+                ops.append(dist.P2POp(dist.irecv, received[b][pos[j]], peer, mesh.group, tag=j * nb + b))
+    return Exchange(dist.batch_isend_irecv(ops), received, staged, device, index, sent=src if staged else ())
+
+
+def gather_rows_exact(t: torch.Tensor, mesh: Optional[WorkerMesh] = None) -> torch.Tensor:
+    """Each rank's rows ``t`` (r, ...) gathered into (m, ...) in worker
+    order on every rank, bit for bit: the zero-padded copies are summed on
+    their bytes (a uint8 view: 0 + b is b, where a float sum would turn
+    −0.0 into +0.0), which every backend runs, gloo on CUDA tensors too."""
+    mesh = _mesh(mesh, "gather_rows_exact")
+    if mesh.size == 1:
+        return t.clone()
+    r = t.shape[0]
+    out = torch.zeros((r * mesh.size,) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
+    out[mesh.rank * r : (mesh.rank + 1) * r] = t
+    all_reduce_(out.view(torch.uint8), mesh)
+    return out

@@ -4,7 +4,8 @@ One round is τ local steps, then the strategy's boundary:
 
     τ × [gradient plane → transform_grads_packed → optimizer step (K1/K2)
          → local_post_update_packed]
-    boundary_round (K3/K4 for Overlap-Local-SGD, K5 for sparse gossip)
+    boundary_round (K3/K4 for Overlap-Local-SGD, K5 for sparse gossip; on a
+                    worker mesh their rank forms)
 
 That is the plane-resident path (a packed strategy and an optimizer with a
 packed step). The per-leaf path (``AlgoConfig.packed=False``, a legacy
@@ -52,9 +53,11 @@ On a worker mesh (:mod:`repro_torch.parallel.sharding`) the state holds
 this rank's m/W rows; a round takes the full ``(τ, m, b, …)`` batch and
 slices the rank's rows, runs the local steps on its rows unchanged, and
 ends in the strategy's rank boundary (with ``probe`` and the state's (m,)
-membership, as on one process), whose collective may still be in flight
-when the round returns. :func:`drain` waits on it and finishes it, so that
-the state equals the one-device run's at the same step. Per-worker metrics
+membership, as on one process), whose collective (an all-reduce, or the
+gossip family's neighbour exchange) may still be in flight when the round
+returns; PowerSGD's gradient hook all-reduces its factor sums at every
+step. :func:`drain` waits on the collective and finishes it, so that the
+state equals the one-device run's at the same step. Per-worker metrics
 are the rank's own rows; the probe's stats are over all m workers, equal on
 every rank.
 
@@ -284,7 +287,9 @@ def make_round_step(
 
 def drain(state: TrainState) -> TrainState:
     """Wait on the collective a rank boundary left in flight and finish it
-    (Overlap-Local-SGD's anchor, the avg-rebase strategies' average):
+    (Overlap-Local-SGD's anchor, sparse_anchor's sparse step with its error
+    feedback, the avg-rebase strategies' average, the gossip mix of the
+    rank's rows):
     ``state.inflight`` and ``state.vars`` then equal the one-device run's at
     the same step. Idempotent, and a no-op off a worker mesh; the next
     boundary starts from the finished value, as the first one does. Call it

@@ -293,11 +293,11 @@ def test_one_rank_is_the_stacked_run_bit_for_bit(one_rank, strat):
 
 def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
     """Every path not ported to a worker mesh raises NotImplementedError
-    naming ROADMAP item 10b (sparse_anchor, powersgd and the gossip
-    strategies, the per-leaf path, offload, the checkpointer) or 10c
-    (within-worker sharding); what 10b's first part ported runs (easgd,
-    cocod, delayed_avg, the probe, a membership, Experiment.fit and the
-    readers of all m workers)."""
+    naming ROADMAP item 10b (the per-leaf path, offload) or 10c
+    (within-worker sharding); what 10b's first two parts ported runs (every
+    strategy: easgd, cocod, delayed_avg, sparse_anchor, powersgd and the
+    gossip family; the probe, a membership, Experiment.fit and the readers
+    of all m workers; the checkpointer's save and restore)."""
     import torch.distributed as dist
 
     from repro_torch import checkpoint
@@ -321,11 +321,15 @@ def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
     params = clf.init_mlp(torch.Generator().manual_seed(0), 8, 3, hidden=(4,))
     opt = from_config(OptimizerConfig())
     with mesh_context(one_rank):
-        for name in ("sparse_anchor", "powersgd", "gossip_ring", "gossip_full"):
-            with pytest.raises(NotImplementedError, match=f"'{name}'.*item 10b"):
-                make_train_state(params, 2, opt, make_strategy(AlgoConfig(name=name)))
-        for name in ("easgd", "cocod", "delayed_avg"):  # ported: the rank's rows
-            assert make_train_state(params, 2, opt, make_strategy(AlgoConfig(name=name))).x.lead_shape == (2,)
+        # ported: the rank's rows, and a round through each rank boundary
+        for name in ("easgd", "cocod", "delayed_avg", "sparse_anchor", "powersgd", "gossip_ring", "gossip_exp",
+                     "gossip_full", "gossip_pushsum"):
+            strat = make_strategy(AlgoConfig(name=name))
+            state = make_train_state(params, 2, opt, strat)
+            assert state.x.lead_shape == (2,)
+            step = make_round_step(clf.mlp_loss, opt, strat, schedules.constant(0.1))
+            batch = (torch.zeros(strat.tau, 2, 2, 8), torch.zeros(strat.tau, 2, 2, dtype=torch.int32))
+            assert all(torch.isfinite(b).all() for b in step(state, batch)[0].x.buffers), name
         for strategy in (AlgoConfig(packed=False), AlgoConfig(offload=True)):
             with pytest.raises(NotImplementedError, match="item 10b"):
                 make_train_state(params, 2, opt, make_strategy(strategy))
@@ -346,10 +350,10 @@ def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
         state = state._replace(membership=None)
         with pytest.raises(ValueError, match="all 2 workers"):
             plain(state, (x[:, :1], batch[1][:, :1]))
-        with pytest.raises(NotImplementedError, match="checkpointer.*item 10b"):
-            checkpoint.save(str(tmp_path / "c.npz"), state)
-        with pytest.raises(NotImplementedError, match="checkpointer.*item 10b"):
-            checkpoint.restore(str(tmp_path / "c.npz"), state)
+        # ported: the checkpointer saves the drained state and restores it
+        checkpoint.save(str(tmp_path / "c.npz"), state)
+        back = checkpoint.restore(str(tmp_path / "c.npz"), state)
+        assert all(torch.equal(a, b) for a, b in zip(back.x.buffers, state.x.buffers))
         exp = Experiment(task=ClassificationSpec(n=600, holdout=100), workers=2, device="cpu").build()
         assert exp.state.x.buffers[0].shape[0] == 2  # W 1: all rows on this rank
         # ported: fit and the readers of all m workers run on the mesh

@@ -1961,3 +1961,34 @@ def test_opt_step_and_boundary_on_a_two_bucket_plane_on_card(cuda):
         got = am_ops.pullback_mean_momentum(xb.clone(), z, v.clone(), 0.6, 0.7)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (opt_ops.SGD.launches - launches[0], am_ops.MOMENTUM.launches - launches[1]) == (2, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gossip_rank_form_bitwise_on_card(cuda, dtype):
+    """K5's gossip rank form against ``ref.gossip_rank`` on the card, bit
+    for bit: m 4 over four and two ranks and m 32 on one (past the register
+    path's 16 held rows), the ring's and the exp pattern's exchanges, the
+    three modes, at the classifier's width and a ragged one."""
+    from repro_torch.core.topology import cached_topology, rank_peers
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for m, W in ((4, 4), (4, 2), (32, 1)):
+        for name in ("ring", "exp"):
+            topo = cached_topology(name, m)
+            peff = torch.rand(m, m, generator=gen, device=cuda) * torch.as_tensor(topo.matrix(0) > 0, device=cuda)
+            for n in (17408, 301):
+                for pq in rank_peers(topo, m, W, 0):
+                    lo, hi = pq.rows
+                    r = hi - lo
+                    x = torch.randn(r, n, generator=gen, device=cuda).to(dtype)
+                    own = torch.randn(r, n, generator=gen, device=cuda).to(dtype)
+                    recv = torch.randn(len(pq.received), n, generator=gen, device=cuda).to(dtype) if pq.received else None
+                    wsafe = 0.5 + torch.rand(r, generator=gen, device=cuda)
+                    live = (torch.arange(r, device=cuda) % 2 == 0).float()
+                    for mode in (0, 1, 2):
+                        held, received, rv = (pq.held, pq.received, recv) if mode != 1 else (tuple(range(lo, hi)), (), None)
+                        want = am_ref.gossip_rank(x, own, rv, held, received, lo, peff, wsafe, live, 0.6, mode)
+                        got = am_ops.gossip_rank_(x.clone(), own.clone(), rv, held, received, lo, peff, wsafe, live,
+                                                  0.6, mode)
+                        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (m, W, name, n, lo, mode)

@@ -5,9 +5,13 @@ in every process), so the ranks run the port alone.
 
     python tests/torch_dist_ranks.py CASES.pkl OUT_DIR W
 
-``CASES.pkl`` holds a list of cases (see :func:`run_case`, and
+``CASES.pkl`` holds a list of cases (see :func:`run_case`;
 :func:`run_fit_case` for a case with ``fit`` set: ``Experiment.fit`` with
-faults and adaptive τ, ``tests/test_torch_dist_fit.py``); each rank writes
+faults and adaptive τ, ``tests/test_torch_dist_fit.py`` and
+``tests/test_torch_dist_gossip.py``; :func:`run_ckpt_case` for a case with
+``ckpt`` set: the checkpointer on the mesh, ``tests/test_torch_dist_ckpt.py``;
+:func:`run_gather_case` for ``gather``: −0.0 through the exact gather); each
+rank writes
 ``OUT_DIR/rank<r>.pkl``, the results of every case, and the program exits 0
 when every rank did. The test process imports this module and calls
 :func:`run_case` / :func:`run_fit_case` itself, with no mesh, for the
@@ -152,12 +156,79 @@ def run_case(case) -> dict:
 
 def _slot_planes(v) -> list:
     """Every plane of an in-flight value or vars slot, as float32 numpy
-    copies: a Packed's buffers, a NamedTuple's fields in order."""
+    copies: a Packed's buffers, a tensor, a NamedTuple's or tuple's fields
+    in order (None skipped)."""
     if v is None:
         return []
     if hasattr(v, "buffers"):
         return _planes(v)
+    if isinstance(v, torch.Tensor):
+        return [v.float().numpy().copy()]
     return [a for f in v for a in _slot_planes(f)]
+
+
+def _split_slots(v):
+    """(replicated planes, row-stacked planes) of a vars slot: a Packed with
+    a worker axis is the rank's rows (PowerSGD's error), the rest is alike
+    on every rank."""
+    if v is None:
+        return [], []
+    if hasattr(v, "buffers"):
+        return ([], _planes(v)) if len(v.lead_shape) == 1 else (_planes(v), [])
+    if isinstance(v, torch.Tensor):
+        return [v.float().numpy().copy()], []
+    rep, rows = [], []
+    for f in v:
+        a, b = _split_slots(f)
+        rep, rows = rep + a, rows + b
+    return rep, rows
+
+
+def _experiment(case):
+    """The small classification task's experiment of ``case`` (on the
+    current mesh, if any), its state built from ``case["params"]``."""
+    from repro_torch.api import ClassificationSpec, Experiment
+    from repro_torch.config import AlgoConfig
+    from repro_torch.training import make_train_state
+
+    exp = Experiment(task=ClassificationSpec(n=2000, holdout=500), strategy=AlgoConfig(**case["strategy"]),
+                     workers=case["m"], device="cpu").build()
+    exp.state = make_train_state(_params(case), case["m"], exp.opt_obj, exp.strategy_obj)
+    if case.get("q") is not None:  # PowerSGD's starting factors, carried across (the reference's draw)
+        vars = exp.state.vars
+        q = tuple(None if a is None else torch.from_numpy(np.array(a)) for a in case["q"])
+        exp.state = exp.state._replace(vars=vars._replace(extra=vars.extra._replace(q=q)))
+    return exp
+
+
+def _fit(exp, case, rounds):
+    from repro_torch.control import TauController
+    from repro_torch.fault import FaultPlan
+
+    kw = {}
+    if case.get("plan"):
+        spec, seed = case["plan"]
+        kw["faults"] = FaultPlan.parse(spec, m=case["m"], seed=seed)
+    if case.get("ctrl"):
+        kw["adaptive_tau"] = TauController(**case["ctrl"])
+    return exp.fit(rounds=rounds, **kw)
+
+
+def _state_planes(state) -> dict:
+    """x, the momentum, vars (replicated, and the rows of a row-stacked
+    slot) and the in-flight value's planes of a drained state."""
+    rep, rows = _split_slots(state.vars)
+    out = dict(x=_planes(state.x), momentum=_planes(state.opt.momentum), vars=rep)
+    if rows:
+        out["vars_rows"] = rows
+    infl = state.inflight
+    if hasattr(infl, "x0"):  # the avg-rebase in-flight: the average (replicated) and x0 (the rows)
+        out["inflight"], out["inflight_x0"] = _planes(infl.avg), _planes(infl.x0)
+    elif hasattr(infl, "mix"):  # the gossip in-flight: the mix (the rows) and its push weights
+        out["inflight_mix"], out["inflight_w"] = _planes(infl.mix), _slot_planes(infl.w)
+    elif infl is not None:
+        out["inflight"] = _planes(infl)
+    return out
 
 
 def run_fit_case(case) -> dict:
@@ -170,31 +241,14 @@ def run_fit_case(case) -> dict:
     vars and the in-flight value's planes; and the readers: ``consensus()``
     (its leaves), ``consensus_plane()``, ``anchor_plane()`` where there is
     one and ``evaluate()``."""
-    from repro_torch.api import ClassificationSpec, Experiment
-    from repro_torch.config import AlgoConfig
-    from repro_torch.control import TauController
-    from repro_torch.fault import FaultPlan
     from repro_torch.parallel.packing import tree_flatten
-    from repro_torch.training import drain, make_train_state
+    from repro_torch.training import drain
 
-    exp = Experiment(task=ClassificationSpec(n=2000, holdout=500), strategy=AlgoConfig(**case["strategy"]),
-                     workers=case["m"], device="cpu").build()
-    exp.state = make_train_state(_params(case), case["m"], exp.opt_obj, exp.strategy_obj)
-    kw = {}
-    if case.get("plan"):
-        spec, seed = case["plan"]
-        kw["faults"] = FaultPlan.parse(spec, m=case["m"], seed=seed)
-    if case.get("ctrl"):
-        kw["adaptive_tau"] = TauController(**case["ctrl"])
-    res = exp.fit(rounds=case["rounds"], **kw)
+    exp = _experiment(case)
+    res = _fit(exp, case, case["rounds"])
     state = exp.state = drain(exp.state)
     out = dict(loss=list(res.losses), tau_schedule=res.tau_schedule, fault_log=res.fault_log, steps=res.steps,
-               x=_planes(state.x), momentum=_planes(state.opt.momentum), vars=_slot_planes(state.vars))
-    infl = state.inflight
-    if hasattr(infl, "x0"):  # the avg-rebase in-flight: the average (replicated) and x0 (the rows)
-        out["inflight"], out["inflight_x0"] = _planes(infl.avg), _planes(infl.x0)
-    elif infl is not None:
-        out["inflight"] = _planes(infl)
+               **_state_planes(state))
     out["consensus"] = [t.numpy().copy() for t in tree_flatten(exp.consensus())[0]]
     out["consensus_plane"] = _planes(exp.consensus_plane())
     if state.vars.z is not None:
@@ -203,14 +257,80 @@ def run_fit_case(case) -> dict:
     return out
 
 
+def run_ckpt_case(case) -> dict:
+    """The checkpointer of ``case`` (on the current mesh, if any; every path
+    under ``case["dir"]`` with the suffix ``case["tag"]``, "mesh" or "one"):
+    ``case["rounds"]`` rounds of ``Experiment.fit`` (0: none), then with
+    ``save`` the state saved to ``save-<tag>.npz`` (x's first element of
+    the last row set to −0.0 first with ``negzero``), restored into the
+    drained state and ``case["more"]`` more rounds; with ``restore`` the
+    file ``case["restore"]`` restored into the state (``elastic``) and
+    ``case["more"]`` rounds. Returns the losses and the drained planes after
+    the save, after the restore and at the end."""
+    from repro_torch import checkpoint
+    from repro_torch.parallel import sharding
+    from repro_torch.training import drain
+
+    tag = "mesh" if sharding.current_mesh() is not None else "one"
+    exp = _experiment(case)
+    out = {"loss": []}
+    if case["rounds"]:
+        out["loss"] += list(_fit(exp, case, case["rounds"]).losses)
+    if case.get("save"):
+        if case.get("negzero"):
+            exp.state.x.buffers[0][-1, 0] = -0.0
+        path = os.path.join(case["dir"], f"save-{case['name']}-{tag}.npz")
+        checkpoint.save(path, exp.state)
+        exp.state = drain(exp.state)
+        out["saved"] = _state_planes(exp.state)
+        exp.state = checkpoint.restore(path, exp.state)
+    if case.get("restore"):
+        exp.state = checkpoint.restore(case["restore"], exp.state, elastic=case.get("elastic", False))
+    out["restored"] = _state_planes(exp.state)
+    if case.get("more"):
+        out["loss"] += list(_fit(exp, case, case["more"]).losses)
+    exp.state = drain(exp.state)
+    out["end"] = _state_planes(exp.state)
+    return out
+
+
+def run_gather_case(case) -> dict:
+    """:func:`~repro_torch.parallel.sharding.gather_rows_exact` of this
+    rank's rows (rank r's rows hold r + 1, rank 1's with −0.0 at every
+    other column) in ``case["dtype"]``: the gathered rows as numpy and
+    their sign bits."""
+    from repro_torch.parallel import sharding
+
+    mesh = sharding.current_mesh()
+    rank = 0 if mesh is None else mesh.rank
+    t = torch.full((2, 8), float(rank + 1), dtype=getattr(torch, case["dtype"]))
+    if rank == 1:
+        t[:, ::2] = -0.0
+    got = sharding.gather_rows_exact(t, mesh) if mesh is not None else t
+    return dict(rows=got.float().numpy(), signbit=torch.signbit(got).numpy())
+
+
+def run_any(case) -> dict:
+    """The case's runner: fit, ckpt, gather, or a round case."""
+    if case.get("fit"):
+        return run_fit_case(case)
+    if case.get("ckpt"):
+        return run_ckpt_case(case)
+    if case.get("gather"):
+        return run_gather_case(case)
+    return run_case(case)
+
+
 def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
     import torch.distributed as dist
 
     sys.modules["jax"] = None  # the ranks import no JAX
+    from repro_torch.core.strategy import RankGossipInflight
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.parallel.sharding import mesh_context
 
     torch.set_num_threads(1)
+    RankGossipInflight.check_phase = True  # the drain holds the host's phase against the device counter
     try:
         with open(cases_path, "rb") as f:
             cases = pickle.load(f)
@@ -218,7 +338,7 @@ def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
                                 world_size=world, rank=rank, timeout=datetime.timedelta(seconds=_timeout()))
         try:
             with mesh_context(make_smoke_mesh(world, device="cpu")):
-                results = [run_fit_case(c) if c.get("fit") else run_case(c) for c in cases]
+                results = [run_any(c) for c in cases]
         finally:
             dist.destroy_process_group()
         assert not any(k == "jax" or k.startswith(("jax.", "repro.")) for k in sys.modules if sys.modules[k])
