@@ -298,8 +298,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches, step and boundary ms, the wire buffer's bytes, the peak; (c)
    two ranks spawned with ``torch.multiprocessing`` sharing the card over
    gloo (CUDA tensors): the classifier at m 2 (beta 0.7 and 0) and
-   qwen2-7b at 2 layers at m 2, each bitwise the stacked run rank 0 makes
-   after it, z, v and the in-flight anchor equal on both ranks.
+   qwen2-7b at ``GLOO_LM_LAYERS`` layers (1; 2 until PR 33) at m 2, each
+   bitwise the stacked run rank 0 makes after it, z, v and the in-flight
+   anchor equal on both ranks.
 12. The paper's experiment on worker ranks: (a) K3/K4's rank form with the
    masked operands (the rows' membership weights with a dead row, K3 and K4,
    launching and with the weighted finish) and EASGD's ``mean_pre`` (K4, 1
@@ -316,7 +317,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    by worker) at m 2 and m 4, each of the seven strategy cases
    (overlap_local_sgd beta 0.7 and 0, local_sgd, sync_sgd, easgd, cocod,
    delayed_avg) under a fault plan, with and without adaptive tau, and
-   qwen2-7b at 2 layers, m 2, overlap beta 0.7 under a crash plan (worker
+   qwen2-7b at ``GLOO_LM_LAYERS`` layers, m 2, overlap beta 0.7 under a crash plan (worker
    1 crashed in round 0, re-synced in round 1: two rounds) and adaptive
    tau; each against the stacked fit rank 0 makes after it: bit
    for bit at one row a rank, within 2(m - 1) f32 ulps at two, the
@@ -337,8 +338,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bit for bit the stacked run's (64-bit digests), exact launches (K5's
    gossip rank form once a bucket a boundary and for the drain; K4's rank
    form once a bucket a boundary), step and boundary ms, the held rows'
-   bytes, the peak; (b') the gossip state at m 1 (the m 4 state's file is
-   74 GB; the script keeps its disk writes under 45 GiB) saved as a checkpoint on the
+   bytes, the peak; (b') the gossip state at ``CKPT_LM_LAYERS`` layers
+   (1; 2 until PR 33) and m 1 (the m 4 state's file at 2 layers is 74 GB;
+   the script keeps its disk writes under 45 GiB) saved as a checkpoint on the
    rank (its arrays the stacked state's) and restored, timed; (c) two gloo
    ranks sharing the card: the classifier at m 2 and m 4, gossip_ring,
    gossip_exp, gossip_pushsum (ring), gossip_full, sparse_anchor and
@@ -347,13 +349,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    saved on the ranks and restored in one process, and one saved in one
    process and restored on the ranks, bit for bit; the exchange's transport
    named.
-14. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+14. Host offload and the per-leaf path on worker ranks: (a) the kernel
+   forms those paths launch at their shapes, against their plain
+   versions: K1/K2's window form on one and two rows of a rank in the
+   offloaded plan's chunks (bitwise), K8's rank form on each classifier
+   leaf's rows (the per-leaf probe; rtol 1e-6), K5's gossip rank form in
+   mode 2 on the leaves packed one flat buffer a dtype (the per-leaf
+   exchange's mix; bitwise); (b) musicgen-large at full width and all 48
+   layers, m 4, ``AlgoConfig(offload=True)``, Overlap-Local-SGD, on one
+   NCCL rank holding every row: every array of the drained state (the host
+   stacks chunk by chunk) bit for bit phase 9(e)'s stacked offloaded run by
+   64-bit digests, exact launches, the streamed step's and the exposed
+   host-link ms a step, the boundary ms, the pinned host bytes beside the
+   f32 wire buffer's, the peak; (b') qwen2-7b at 2 layers, m 4, beta 0.7,
+   per leaf and packed on one NCCL rank holding every row, each bit for bit
+   phase 10(c)'s stacked per-leaf run, exact launches, step and boundary
+   ms; (c) two gloo ranks sharing the card: the classifier offloaded and per
+   leaf for every strategy (and two legacy shims) under the fault plans,
+   overlap also under adaptive tau, at m 2 (bitwise the stacked fit, the
+   checkpoint file byte for byte the stacked state's and restored on the
+   ranks) and m 4 (within 2(m - 1) f32 ulps; v and e in ulps of z).
+15. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it, its row form and its gossip rank
    form, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
    K3/K4, K9, K10, K11's and K12's four kernels and each direction's whole
    call, K1's and K2's window forms, K3's and K4's rank forms with their
-   masked and ``mean_pre`` forms, K8's rank form; K6's rows
+   masked and ``mean_pre`` forms, K8's rank form, each with the launches
+   of every path that runs it, phase 14's too; K6's rows
    with their ``d192``, ``qwen2_vl`` and ``musicgen`` cases and K10's with
    its ``latent`` case), then the device line last.
 
@@ -4772,7 +4795,7 @@ MG_OFF_ROUNDS = 2
 MG_OFF_WORKERS = (2, 4)  # m 2: resident against offloaded; m 4: offloaded alone (resident does not fit)
 
 
-def check_opt_windows(dev, gen):
+def check_opt_windows(dev, gen, cases=WINDOW_CASES):
     """K1 ``sgd_step_window`` and K2 ``adamw_step_window`` on every chunk
     window of each :data:`WINDOW_CASES` plane: the window of x and g (row
     stride n) against a staged (m, c) state chunk (row stride c), bit for
@@ -4788,7 +4811,7 @@ def check_opt_windows(dev, gen):
     sgd_kw = dict(momentum=0.9, nesterov=True, weight_decay=1e-4)
     adam_kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=1e-4)
     worst, timing = {"K1": 0.0, "K2": 0.0}, {"K1": {}, "K2": {}}
-    for case, m, n, dname, c in WINDOW_CASES:
+    for case, m, n, dname, c in cases:
         dtype = getattr(torch, dname)
         P = torch.finfo(dtype).bits // 8
         x = torch.randn(m, n, generator=gen, device=dev).to(dtype)
@@ -5048,6 +5071,114 @@ def _meminfo() -> dict:
     return out
 
 
+class _StepSplit:
+    """The offloaded step split on the compute stream and on the host clock:
+    CUDA events and ``perf_counter`` at the entry and the exit of every
+    ``step_streamed`` (installed on ``exp``, whose round step is rebuilt).
+    From one step's exit to the next one's entry lie the gradient (the
+    forward and backward) and the strategy's hook; at a round's first step
+    also the boundary, the D2H of its outputs and the H2D of vars."""
+
+    def __init__(self, exp):
+        import torch
+
+        from repro_torch.training import make_round_step
+
+        opt, self.marks = exp.opt_obj, []
+
+        def step_streamed(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            h0 = time.perf_counter()
+            out = opt.step_streamed(*a, **kw)
+            e1.record()
+            self.marks.append((e0, e1, h0, time.perf_counter()))
+            return out
+
+        exp.opt_obj = dataclasses.replace(opt, step_streamed=step_streamed)
+        exp.step_fn = make_round_step(exp.loss_fn, exp.opt_obj, exp.strategy_obj, exp.schedule_fn,
+                                      per_worker=exp._per_worker)
+
+    def summary(self, tau: int) -> dict:
+        """Per step: the streamed step's device and host ms; between steps
+        within a round (the gradient) and across a round's turn, device and
+        host ms."""
+        ms = self.marks
+        between = [(i, a[1].elapsed_time(b[0]), (b[2] - a[3]) * 1e3) for i, (a, b) in enumerate(zip(ms, ms[1:]), 1)]
+        return dict(streamed_step_ms=[e0.elapsed_time(e1) for e0, e1, _, _ in ms],
+                    streamed_step_host_ms=[(h1 - h0) * 1e3 for _, _, h0, h1 in ms],
+                    gradient_ms=[d for i, d, _ in between if i % tau], gradient_host_ms=[h for i, _, h in between if i % tau],
+                    round_turn_ms=[d for i, d, _ in between if not i % tau],
+                    round_turn_host_ms=[h for i, _, h in between if not i % tau])
+
+
+class _Conditions:
+    """What the machine did over a timed run: the card's SM clock, power,
+    temperature and clock-event reasons sampled by ``nvidia-smi`` every
+    200 ms (a child process, stopped on exit); this process's CPU seconds
+    and involuntary context switches (all threads); the host's CPU and
+    memory stall time from ``/proc/pressure`` where it exists; the load
+    average and MemAvailable at both ends. Read only; ``record`` holds the
+    result after the ``with`` block."""
+
+    QUERY = "clocks.sm,power.draw,temperature.gpu,clocks_throttle_reasons.active"
+
+    @staticmethod
+    def _pressure() -> dict:
+        out = {}
+        for what in ("cpu", "memory", "io"):
+            try:
+                with open(f"/proc/pressure/{what}") as f:
+                    out[what] = int(f.readline().rsplit("total=", 1)[1])
+            except (OSError, IndexError, ValueError):
+                pass
+        return out
+
+    def __enter__(self):
+        import os
+        import resource
+
+        try:
+            self.proc = subprocess.Popen(["nvidia-smi", f"--query-gpu={self.QUERY}", "--format=csv,noheader,nounits",
+                                          "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        except OSError:
+            self.proc = None
+        self.t0, self.ru0, self.psi0 = time.perf_counter(), resource.getrusage(resource.RUSAGE_SELF), self._pressure()
+        self.load0, self.mem0 = os.getloadavg()[0], _meminfo().get("MemAvailable")
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        import resource
+
+        wall, ru, psi = time.perf_counter() - self.t0, resource.getrusage(resource.RUSAGE_SELF), self._pressure()
+        out, err = "", "nvidia-smi did not start"
+        if self.proc is not None:
+            self.proc.terminate()
+            try:
+                out, err = self.proc.communicate(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                out, err = self.proc.communicate()
+        rows = []
+        for line in out.splitlines():
+            f = [v.strip() for v in line.split(",")]
+            try:
+                rows.append((float(f[0]), float(f[1]), float(f[2]), f[3]))
+            except (ValueError, IndexError):
+                continue
+        self.record = dict(
+            wall_s=wall, cpu_s=(ru.ru_utime + ru.ru_stime) - (self.ru0.ru_utime + self.ru0.ru_stime),
+            involuntary_switches=ru.ru_nivcsw - self.ru0.ru_nivcsw, cores=os.cpu_count(),
+            loadavg_1m=[self.load0, os.getloadavg()[0]], mem_available_bytes=[self.mem0, _meminfo().get("MemAvailable")],
+            pressure_stall_ms={k: (psi[k] - self.psi0[k]) / 1e3 for k in psi if k in self.psi0},
+            samples=len(rows), sm_mhz=[min(r[0] for r in rows), sum(r[0] for r in rows) / len(rows)] if rows else None,
+            power_w=[sum(r[1] for r in rows) / len(rows), max(r[1] for r in rows)] if rows else None,
+            temperature_c=max(r[2] for r in rows) if rows else None,
+            clock_event_reasons=sorted({r[3] for r in rows}), smi_error=err.strip()[:200] or None)
+        return False
+
+
 def train_musicgen_offloaded(dev, kernels, workers, offload, first_xent=False):
     """One musicgen-large run (:func:`_mg_experiment`) of MG_OFF_ROUNDS
     rounds from zeroed counters: build time and peak, pinned host bytes,
@@ -5055,7 +5186,9 @@ def train_musicgen_offloaded(dev, kernels, workers, offload, first_xent=False):
     optimizer state, one of vars and the in-flight plane), step ms (host
     clock over the rounds, each round's too), the peak while training,
     exact launch counts (K1's window form one a chunk a step when
-    offloaded, the whole-plane K1 one a step when resident). With
+    offloaded, the whole-plane K1 one a step when resident), the machine's
+    conditions over the fit (:class:`_Conditions`) and, offloaded, the step
+    split (:class:`_StepSplit`). With
     ``first_xent`` the first step's cross-entropy, from a gradient plane
     of the stream's first batch taken before the fit. Returns the summary
     and the experiment (its state kept)."""
@@ -5088,14 +5221,16 @@ def train_musicgen_offloaded(dev, kernels, workers, offload, first_xent=False):
         xent = first["xent"].float().cpu().tolist()
         del pg, first
         _free()
+    step_split = _StepSplit(exp) if offload else None
     for k in kernels:
         k.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    marks = [time.perf_counter()]
-    res = exp.fit(rounds=MG_OFF_ROUNDS, log=lambda r, loss: marks.append(time.perf_counter()))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - marks[0]
+    with _Conditions() as cond:
+        marks = [time.perf_counter()]
+        res = exp.fit(rounds=MG_OFF_ROUNDS, log=lambda r, loss: marks.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - marks[0]
     peak = torch.cuda.max_memory_allocated()
     launches = {k.name: k.launches for k in kernels}
     steps = MG_OFF_ROUNDS * tau
@@ -5119,7 +5254,10 @@ def train_musicgen_offloaded(dev, kernels, workers, offload, first_xent=False):
         host_nbytes=host, stream_bytes_per_round=stream,
         plan=None if plan is None else dict(chunk_elems=list(plan.chunk_elems), num_chunks=list(plan.num_chunks)),
         staging_bytes=None if plan is None else off.staging_bytes(plan, state.x.layout, 1) * workers,
+        conditions=cond.record,
     )
+    if step_split is not None:
+        summary["step_split"] = step_split.summary(tau)
     if xent is not None:
         summary["first_step_xent"], summary["expected_xent"] = xent, math.log(cfg.vocab_size) + 0.5
     log(json.dumps(summary))
@@ -5160,6 +5298,7 @@ def musicgen_offload(dev, kernels, card):
         raise AssertionError(f"musicgen m 2 offloaded disagrees with resident: {rec}")
     log(json.dumps(dict(host_memory=_meminfo(), when="before musicgen-large m 4 offloaded")))
     m4, exp4 = train_musicgen_offloaded(dev, kernels, 4, True, first_xent=True)
+    m4_digests = _state_digests(exp4.state, dev)  # phase 14(b)'s reference
     del exp4
     gc.collect()
     _free()
@@ -5167,7 +5306,8 @@ def musicgen_offload(dev, kernels, card):
     peak_ok = max(m4["peak_mem_bytes"], m4["build_peak_mem_bytes"]) < 80e9
     if not (xent_ok and peak_ok and all(math.isfinite(x) for x in m4["losses"])):
         raise AssertionError(f"musicgen m 4 offloaded: {m4}")
-    return dict(m2_offloaded=m2_off, m2_resident=m2_res, m2_check=rec, m4_offloaded=m4, card=card)
+    return dict(m2_offloaded=m2_off, m2_resident=m2_res, m2_check=rec, m4_offloaded=m4, card=card,
+                m4_digests=m4_digests)
 
 
 # ---------------------------------------------------------------------------
@@ -5462,6 +5602,7 @@ def lm_perleaf_full_width(dev, kernels):
         slots = _canonical((exp.state.x, exp.state.inflight, exp.state.vars))
         if snapshot is None:
             snapshot = {k: t.to("cpu", copy=True) for k, t in slots.items()}
+            digests = {k: _digest(t) for k, t in slots.items()}  # phase 14(b')'s reference
         else:
             differ = [k for k, t in slots.items() if not torch.equal(t.cpu(), snapshot[k])]
             if differ or sorted(slots) != sorted(snapshot):
@@ -5479,6 +5620,7 @@ def lm_perleaf_full_width(dev, kernels):
                    slots_bitwise=len(snapshot), bound="per leaf == packed bitwise (x, inflight, vars; losses)", **runs)
     del snapshot
     log(json.dumps(summary))
+    summary["digests"] = digests
     return summary
 
 
@@ -5495,6 +5637,10 @@ RANK_WINDOW = 1 << 22  # columns of the LM plane checked at its start, middle an
 # to 4 for phase 13's time
 RANK_LAYERS = 4
 RANK_CLASSIFIER = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("overlap_local_sgd", dict(anchor_beta=0.0))]
+# qwen2-7b on two gloo ranks sharing the card (phases 11(c), 12(c)) and the
+# LM checkpoint on one NCCL rank (13(b')): cut from LM_LAYERS (2) to 1 for
+# phase 14's time
+GLOO_LM_LAYERS = CKPT_LM_LAYERS = 1
 
 
 def _lm_plane_n(layers):
@@ -5737,7 +5883,7 @@ def rank_nccl_full_width(dev, kernels, card):
 def _gloo_rank(rank, world, rdv, out_path, src):
     """One of phase 11(c)'s two ranks on the same card (gloo on CUDA
     tensors): ``RANK_CLASSIFIER`` on the quickstart classifier at m 2, then
-    full-width qwen2-7b at ``LM_LAYERS`` layers at m 2 (bf16, seq 512), each
+    full-width qwen2-7b at ``GLOO_LM_LAYERS`` layers at m 2 (bf16, seq 512), each
     for 2 rounds from zeroed counters and drained. Rank 1 sends its x rows
     to rank 0 and both exchange digests of z, v and the in-flight anchor;
     rank 0 then frees the rank run, runs the stacked engine at m 2 on the
@@ -5764,11 +5910,11 @@ def _gloo_rank(rank, world, rdv, out_path, src):
         kernels = all_kernels()
         dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world, rank=rank)
         mesh = make_smoke_mesh(world, backend="gloo")
-        lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+        lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=GLOO_LM_LAYERS)
         runs = [(f"classifier {n} beta={kw['anchor_beta']} (per-worker losses)",
                  lambda d, n=n, kw=kw: _rank_classifier(d, AlgoConfig(name=n, tau=2, alpha=0.6, **kw)))
                 for n, kw in RANK_CLASSIFIER]
-        runs.append((f"qwen2-7b full width, {LM_LAYERS} layers, bf16",
+        runs.append((f"qwen2-7b full width, {GLOO_LM_LAYERS} layers, bf16",
                      lambda d: _lm_experiment(d, lm_cfg, world, LM_SEQ, init_on_device=True)))
         results = []
         for label, make in runs:
@@ -6205,7 +6351,7 @@ def _fit_runs(lm_cfg):
                 runs.append((label, m, lambda d, m=m, name=name, kw=kw, splits=splits: _fit_classifier(
                     d, AlgoConfig(name=name, tau=2, alpha=0.6, **kw), m, splits), CLF_FIT_ROUNDS, FIT_PLANS[m],
                     ctrl))
-    runs.append((f"qwen2-7b full width, {LM_LAYERS} layers, bf16, m 2 overlap beta=0.7 faults + adaptive tau", 2,
+    runs.append((f"qwen2-7b full width, {GLOO_LM_LAYERS} layers, bf16, m 2 overlap beta=0.7 faults + adaptive tau", 2,
                  lambda d: _lm_experiment(d, lm_cfg, 2, LM_SEQ, init_on_device=True), LM_GLOO_ROUNDS, LM_GLOO_PLAN,
                  LM_GLOO_CTRL))
     return runs
@@ -6271,7 +6417,7 @@ def _gloo_fit_rank(rank, world, rdv, out_path, src, which="12"):
         kernels = all_kernels()
         dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world, rank=rank)
         mesh = make_smoke_mesh(world, backend="gloo")
-        lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+        lm_cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=GLOO_LM_LAYERS)
         results = []
         # gloo has point to point for CPU tensors only (a CUDA tensor's send
         # fails in the transport and breaks the pair): the exchange stages
@@ -6430,11 +6576,10 @@ def _gloo_fit_rank(rank, world, rdv, out_path, src, which="12"):
         raise
 
 
-def rank_gloo_fit_two_on_one_card(card, which="12"):
-    """Phase 12(c) (``which`` "13": phase 13(c)): two ranks spawned with
-    ``torch.multiprocessing`` as phase 11(c), running
-    :func:`_gloo_fit_rank`. Fails when a rank fails or a run breaks its
-    bound (phase 13: or a checkpoint round trip differs)."""
+def _spawn_gloo_pair(target, *args):
+    """Two ranks spawned with ``torch.multiprocessing`` on this card, each
+    running ``target(rank, 2, rendezvous, out_path, src, *args)``; returns
+    the JSON rank 0 wrote to ``out_path``. Raises when a rank fails."""
     import os
     import tempfile
 
@@ -6443,9 +6588,8 @@ def rank_gloo_fit_two_on_one_card(card, which="12"):
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_fit_")
     out = os.path.join(tmp, "results.json")
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_gloo_fit_rank, args=(r, 2, os.path.join(tmp, "rendezvous"), out, str(SRC), which))
+    procs = [ctx.Process(target=target, args=(r, 2, os.path.join(tmp, "rendezvous"), out, str(SRC)) + args)
              for r in range(2)]
-    t0 = time.perf_counter()
     for p in procs:
         p.start()
     deadline = time.monotonic() + 600
@@ -6463,7 +6607,16 @@ def rank_gloo_fit_two_on_one_card(card, which="12"):
     if errors or any(p.exitcode != 0 for p in procs) or not os.path.exists(out):
         raise AssertionError(f"gloo fit ranks failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
     with open(out) as f:
-        results = json.load(f)
+        return json.load(f)
+
+
+def rank_gloo_fit_two_on_one_card(card, which="12"):
+    """Phase 12(c) (``which`` "13": phase 13(c)): two ranks spawned with
+    ``torch.multiprocessing`` as phase 11(c), running
+    :func:`_gloo_fit_rank`. Fails when a rank fails or a run breaks its
+    bound (phase 13: or a checkpoint round trip differs)."""
+    t0 = time.perf_counter()
+    results = _spawn_gloo_pair(_gloo_fit_rank, which)
     probe = None
     if which == "13":
         probe, results = dict(results["probe"], card=card), results["runs"]
@@ -6615,15 +6768,15 @@ def _ckpt_planes(state):
     return out
 
 
-def _lm13_experiment(dev, name, workers=LM_WORKERS, **kw):
-    """Full-width qwen2-7b at ``LM_LAYERS`` layers, m ``workers``, the LM
+def _lm13_experiment(dev, name, workers=LM_WORKERS, layers=LM_LAYERS, **kw):
+    """Full-width qwen2-7b at ``layers`` layers, m ``workers``, the LM
     phase's SGD and batches, trained with strategy ``name`` (tau 2, alpha
     0.6)."""
     from repro_torch.api import Experiment, TokenStream
     from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
     from repro_torch.optim import schedules
 
-    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=layers)
     return Experiment(arch=cfg, strategy=AlgoConfig(name=name, tau=2, alpha=0.6, **kw),
                       optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
                       schedule=schedules.constant(1e-2), data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ),
@@ -6746,7 +6899,7 @@ def rank_nccl_gossip_sparse(dev, kernels, card):
 
 def rank_nccl_lm_checkpoint(dev, card):
     """Phase 13(b'): the checkpointer at the 2-layer LM state: full-width
-    qwen2-7b at ``LM_LAYERS`` layers, bf16, gossip_ring, m 1 (a checkpoint
+    qwen2-7b at ``CKPT_LM_LAYERS`` layers, bf16, gossip_ring, m 1 (a checkpoint
     of the m 4 state widens 37 GB of bf16 planes to a 74 GB file; the
     script keeps its disk writes under 45 GiB), ``LM13_ROUNDS``
     rounds stacked (64-bit digests of every array its checkpoint holds),
@@ -6771,7 +6924,7 @@ def rank_nccl_lm_checkpoint(dev, card):
     from repro_torch.parallel.sharding import mesh_context
     from repro_torch.training import drain
 
-    exp = _lm13_experiment(dev, "gossip_ring", workers=1).build()
+    exp = _lm13_experiment(dev, "gossip_ring", workers=1, layers=CKPT_LM_LAYERS).build()
     batches = _round_batches(exp, LM13_ROUNDS)
     for rb in batches:
         exp.state, _ = exp.step_fn(exp.state, exp.to_device(rb))
@@ -6785,7 +6938,7 @@ def rank_nccl_lm_checkpoint(dev, card):
     dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0)
     try:
         with mesh_context(make_smoke_mesh(1)):
-            exp = _lm13_experiment(dev, "gossip_ring", workers=1).build()
+            exp = _lm13_experiment(dev, "gossip_ring", workers=1, layers=CKPT_LM_LAYERS).build()
             for rb in batches:
                 exp.state, _ = exp.step_fn(exp.state, exp.to_device(rb))
             exp.state = drain(exp.state)
@@ -6808,7 +6961,7 @@ def rank_nccl_lm_checkpoint(dev, card):
         shutil.rmtree(where, ignore_errors=True)
     gc.collect()
     _free()
-    rec = dict(run=f"checkpoint of qwen2-7b full width, {LM_LAYERS} layers, bf16, m 1 gossip_ring on one NCCL rank",
+    rec = dict(run=f"checkpoint of qwen2-7b full width, {CKPT_LM_LAYERS} layers, bf16, m 1 gossip_ring on one NCCL rank",
                card=card, save_s=save_s, restore_s=restore_s, file_bytes=file_bytes, arrays=len(stored),
                file_keys_missing=sorted(k for k in want if k not in stored),
                rank_state_differing=sorted(k for k in want if got.get(k) != want[k]),
@@ -6872,6 +7025,556 @@ def _strategy_planes(state):
     elif infl is not None:
         out["inflight"] = infl.buffers
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: host offload and the per-leaf path on worker ranks: the kernel
+# forms those paths launch at their shapes; musicgen-large offloaded and
+# qwen2-7b per leaf on one NCCL rank holding every row; the classifier
+# offloaded and per leaf on two gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# K1/K2's window form on a rank's rows: the offloaded classifier's plane at
+# one and two rows a rank, in the plan's chunks (OFF_CLF_CHUNK_MB: 4,096 f32,
+# 8,192 bf16 columns)
+RANK_WINDOW_CASES = [("classifier r 1", 1, 17408, "float32", 4096), ("classifier r 2 bf16", 2, 17408, "bfloat16", 8192)]
+# phase 14(c): the classifier on two gloo ranks, offloaded and per leaf
+OFFLEAF_CASES = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("overlap_local_sgd", dict(anchor_beta=0.0)),
+                 ("local_sgd", {}), ("sync_sgd", {}), ("easgd", {}), ("cocod", {}), ("delayed_avg", dict(delay_steps=1)),
+                 ("sparse_anchor", dict(sparse_k=0.25)), ("powersgd", {}), ("gossip_full", {}), ("gossip_ring", {}),
+                 ("gossip_exp", {}), ("gossip_pushsum", dict(topology="ring"))]
+OFFLEAF_M4 = (0, 5, 7, 8, 10)  # OFFLEAF_CASES at m 4: overlap beta 0.7, cocod, sparse_anchor, powersgd, gossip_ring
+LEGACY14 = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("sync_sgd", {})]
+
+
+def check_rank_path_forms(dev, gen):
+    """Phase 14(a): the kernel forms the offloaded and per-leaf rank paths
+    launch, at their shapes, against their plain versions: K1/K2's window
+    form on a rank's rows (:data:`RANK_WINDOW_CASES`, phase 9(a)'s check),
+    bitwise; K8's rank form on each leaf's rows (the per-leaf probe on
+    ranks: the classifier's six leaves at one and two rows, f32 and bf16)
+    within rtol 1e-6 of its plain version and the same bits on a second
+    launch; K5's gossip rank form in mode 2 on every leaf's rows packed into
+    one flat buffer a dtype (the per-leaf gossip exchange's mix: the ring at
+    m 2 and m 4, one and two rows a rank), bitwise its plain version."""
+    import torch
+
+    from repro_torch.core.topology import make_topology, rank_peers
+    from repro_torch.kernels.anchor_mix import ops, ref
+    from repro_torch.kernels.consensus_probe import ops as probe_ops
+    from repro_torch.models.classifier import init_mlp
+    from repro_torch.parallel.packing import pack, tree_flatten
+
+    win_err, _ = check_opt_windows(dev, gen, RANK_WINDOW_CASES)
+    params = init_mlp(torch.Generator().manual_seed(SEED), 64, 10, hidden=(128, 64))
+    probe_rel, checked = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for r in (1, 2):
+            leaves = [(t[None] + 0.01 * torch.randn((r,) + tuple(t.shape))).to(dev, dtype)
+                      for t in tree_flatten(params)[0]]
+            for t in leaves:
+                x = t.reshape(r, -1)
+                xbar = x.float().sum(0) / r + 0.01 * torch.randn(x.shape[1], generator=gen, device=dev)
+                got, again = probe_ops.probe_rows(x, xbar), probe_ops.probe_rows(x, xbar)
+                want = _probe_rows_plain(x, xbar)
+                rel = float(((got - want).abs() / want.abs().clamp_min(1e-300)).max())
+                probe_rel, checked = max(probe_rel, rel), checked + 1
+                if rel > 1e-6 or not torch.equal(got, again):
+                    raise AssertionError(f"K8 rank form on a leaf's rows: rel {rel}, shape {tuple(x.shape)} {dtype}")
+    mix_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, W in ((2, 2), (4, 2)):
+            r = m // W
+            topo = make_topology("ring", m)
+            peff = (torch.as_tensor(topo.matrix(0), dtype=torch.float32) * 0.75).to(dev)
+            for q in range(W):
+                peers = rank_peers(topo, m, W, 0)[q]
+                lo = peers.rows[0]
+                tree = {k: (v[None] + 0.1 * torch.randn((r,) + tuple(v.shape))).to(dtype)
+                        for k, v in zip(map(str, range(6)), tree_flatten(params)[0])}
+                own = pack({k: v.to(dev) for k, v in tree.items()}, lead=1)
+                for b, bo in enumerate(own.buffers):
+                    recv = (torch.randn(len(peers.received), bo.shape[1], generator=gen, device=dev).to(dtype)
+                            if peers.received else None)
+                    args = (peers.held, peers.received, lo, peff, torch.ones(r, device=dev), torch.zeros(r, device=dev),
+                            0.0)
+                    _, want = ref.gossip_rank(bo, bo.clone(), recv, *args, 2)
+                    ops.gossip_rank_(bo, bo, recv, *args, mode=2)
+                    torch.cuda.synchronize()
+                    mix_err = max(mix_err, float((bo.float() - want.float()).abs().max()))
+                    checked += 1
+                    if not torch.equal(bo, want):
+                        raise AssertionError(f"K5's gossip rank form (mode 2) on the packed leaf rows: m {m} rank {q} "
+                                             f"{dtype}")
+    rec = dict(check="phase 14(a): the rank paths' kernel forms at their shapes", cases=checked,
+               window_max_abs_err=win_err, probe_leaf_max_rel_err=probe_rel, gossip_mix_max_abs_err=mix_err,
+               bound="K1/K2 window and K5's gossip rank form bitwise; K8's rank form rtol 1e-6")
+    log(json.dumps(rec))
+    return rec
+
+
+def _state_digests(state, dev):
+    """64-bit digests (:func:`_digest`) of every array of a train state by
+    its checkpoint key: device planes and tensors whole, host planes one
+    chunk of their stacks at a time through the card."""
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.parallel.offload import HostPlane
+    from repro_torch.parallel.packing import Packed
+
+    out = {}
+    for key, node in ck._nodes(state._replace(membership=None)):
+        if isinstance(node, HostPlane):
+            node.host_ready()
+            for b, stack in enumerate(node.chunks):
+                out[f"{key}::{b}"] = [_digest(stack[i].to(dev)) for i in range(stack.shape[0])]
+        elif isinstance(node, Packed):
+            for b, buf in enumerate(node.buffers):
+                out[f"{key}::{b}"] = _digest(buf)
+        else:
+            out[key] = _digest(node)
+    return out
+
+
+def _timed_boundary(strat, marks):
+    """Wrap ``strat.boundary_round`` (an instance attribute, deleted to undo)
+    with CUDA events on the compute stream, appended to ``marks``."""
+    import torch
+
+    real = strat.boundary_round
+
+    def boundary_round(*a, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        marks.append((e0, e1))
+        return out
+
+    strat.boundary_round = boundary_round
+
+
+def _nccl_one_rank():
+    """A one-process NCCL group in this process and the worker mesh over it
+    (every row on this rank); destroy the group after use."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    rdv = tempfile.mkdtemp(prefix="chip_smoke_nccl14_")
+    dist.init_process_group("nccl", init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0)
+    return make_smoke_mesh(1)
+
+
+def rank_nccl_musicgen_offload(dev, kernels, card, stacked, window_ms):
+    """Phase 14(b): musicgen-large at its published widths and all 48
+    layers, m 4, ``AlgoConfig(offload=True)``, Overlap-Local-SGD (the CLI's
+    settings, :func:`_mg_experiment`), 2 rounds on one NCCL rank holding
+    every row, from the seed and batches of phase 9(e)'s stacked offloaded
+    run (``stacked``: its summary and digests), drained: every array (x,
+    the optimizer state's host stacks chunk by chunk, vars and the in-flight
+    value) bit for bit the stacked run's by 64-bit digests, the same losses,
+    exact launches (K1's window form one a chunk a step, K3's rank form a
+    boundary and once for the drain, the stacked K3 and K1 never). The
+    streamed step's ms on the compute stream (:class:`_StepSplit`) and the
+    exposed host-link ms a step (that less the window launches' device
+    time, ``window_ms`` each from phase 9(a)), the gradient's and the
+    round turn's device and host ms, the boundary ms, the step ms (host
+    clock over the fit, as the stacked run's) beside the stacked run's, the
+    machine's conditions over both fits (:class:`_Conditions`), the pinned
+    host bytes, the f32 wire buffer's bytes, the peak."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.parallel import offload as off
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.training import drain
+
+    workers = 4
+    mesh = _nccl_one_rank()
+    try:
+        with mesh_context(mesh):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            exp = _mg_experiment(dev, workers, True).build()
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            cfg, tau = exp.model_cfg, exp.strategy_obj.tau
+            step_split = _StepSplit(exp)
+            marks = []
+            _timed_boundary(exp.strategy_obj, marks)
+            for k in kernels:
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with _Conditions() as cond:
+                rounds_t = [time.perf_counter()]
+                res = exp.fit(rounds=MG_OFF_ROUNDS, log=lambda r, loss: rounds_t.append(time.perf_counter()))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - rounds_t[0]
+            pinned, wire = off.host_nbytes(exp.state), 4 * exp.state.inflight.buf.numel()
+            state = drain(exp.state)
+            torch.cuda.synchronize()
+            launches = {k.name: k.launches for k in kernels}
+            peak = torch.cuda.max_memory_allocated()
+            plan = off.plan_of(state.opt)
+            del exp.strategy_obj.boundary_round
+            digests = _state_digests(state, dev)
+            losses = res.losses
+            del res, state, exp
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    _free()
+    steps = MG_OFF_ROUNDS * tau
+    chunks = sum(plan.num_chunks)
+    a = cfg.attention
+    split = fa_ops.dkdv_splits(LM_BATCH, a.num_kv_heads, a.num_heads // a.num_kv_heads, LM_SEQ, fa_ops._sms(dev)) > 1
+    want = {k.name: 0 for k in kernels}
+    want.update(new_arch_launches(cfg, steps, workers, 1, MG_OFF_ROUNDS, split))
+    want.update(sgd_step=0, sgd_step_window=steps * chunks, pullback_momentum=0,
+                pullback_momentum_rank=MG_OFF_ROUNDS + 1)
+    split = step_split.summary(tau)
+    streamed_ms = split["streamed_step_ms"]
+    boundary_ms = [e0.elapsed_time(e1) for e0, e1 in marks]
+    differ = sorted(k for k in stacked["digests"] if digests.get(k) != stacked["digests"][k])
+    rec = dict(run=f"musicgen-large full width, {cfg.num_layers} layers, bf16, m {workers}, offloaded, overlap beta 0.7, "
+                   f"on one NCCL rank holding every row", card=card, rounds=MG_OFF_ROUNDS, steps=steps,
+               losses=losses, stacked_losses=stacked["losses"], arrays=len(digests), arrays_differing=differ,
+               bound="bitwise the stacked offloaded run (every array by 64-bit digest; losses)", build_s=build_s,
+               wall_s=wall, step_ms=wall / steps * 1e3, stacked_step_ms=stacked["step_ms"],
+               round_ms=[(b - a_) * 1e3 for a_, b in zip(rounds_t, rounds_t[1:])],
+               stacked_round_ms=stacked["round_ms"], step_split=split, stacked_step_split=stacked.get("step_split"),
+               conditions=cond.record, stacked_conditions=stacked.get("conditions"),
+               streamed_step_ms=streamed_ms, window_kernel_ms=window_ms, chunks=chunks,
+               exposed_host_link_ms_per_step=sum(streamed_ms) / len(streamed_ms) - chunks * window_ms,
+               boundary_ms=boundary_ms, pinned_host_bytes=pinned, stacked_pinned_host_bytes=stacked["host_nbytes"],
+               wire_buffer_bytes=wire, peak_mem_bytes=peak, stacked_peak_mem_bytes=stacked["peak_mem_bytes"],
+               launches={k: v for k, v in launches.items() if v})
+    log(json.dumps(rec))
+    if differ or sorted(digests) != sorted(stacked["digests"]) or losses != stacked["losses"]:
+        raise AssertionError(f"musicgen offloaded on one NCCL rank differs from the stacked run: {rec}")
+    if launches != want:
+        raise AssertionError(f"musicgen offloaded on one NCCL rank: launches {launches} != {want}")
+    return rec
+
+
+def rank_nccl_qwen2_perleaf(dev, kernels, card, stacked_digests):
+    """Phase 14(b'): full-width qwen2-7b at phase 5's 2 layers (bf16, m 4,
+    seq 512, tau 2, beta 0.7, SGD as phase 5), 3 rounds per leaf, then
+    packed, each on one NCCL rank holding every row and drained: x, the
+    in-flight anchor and vars of both bit for bit phase 10(c)'s stacked
+    per-leaf run (``stacked_digests``: 64-bit digests by leaf), the same
+    losses in both; exact launches (per leaf: K5's row form once a leaf a
+    boundary, no K1, K3 or its rank form; packed: K3's rank form a boundary
+    and for the drain). Step and boundary ms (CUDA events around the
+    boundary on the compute stream), the wire buffer's bytes, the peak."""
+    import gc
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.api import Experiment, TokenStream
+    from repro_torch.config import AlgoConfig, OptimizerConfig, get_arch
+    from repro_torch.core.strategy import RankLeafInflight
+    from repro_torch.optim import schedules
+    from repro_torch.parallel.packing import tree_flatten
+    from repro_torch.parallel.sharding import mesh_context
+    from repro_torch.training import drain
+
+    cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=LM_LAYERS)
+    runs = {}
+    mesh = _nccl_one_rank()
+    try:
+        with mesh_context(mesh):
+            for packed in (False, True):
+                exp = Experiment(arch=cfg, strategy=AlgoConfig(name="overlap_local_sgd", tau=2, alpha=0.6,
+                                                               anchor_beta=0.7, packed=packed),
+                                 optimizer=OptimizerConfig(name="sgd", lr=1e-2, momentum=0.9, nesterov=True),
+                                 schedule=schedules.constant(1e-2),
+                                 data=TokenStream(batch_per_worker=LM_BATCH, seq_len=LM_SEQ), workers=LM_WORKERS,
+                                 device=dev, init_on_device=True).build()
+                leaves = len(tree_flatten(exp.params)[0])
+                marks = []
+                _timed_boundary(exp.strategy_obj, marks)
+                for k in kernels:
+                    k.launches = 0
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                res = exp.fit(rounds=LM_ROUNDS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                infl = exp.state.inflight
+                wire = 4 * infl.buf.numel()
+                state = drain(exp.state)
+                torch.cuda.synchronize()
+                launches = {k.name: k.launches for k in kernels}
+                peak = torch.cuda.max_memory_allocated()
+                del exp.strategy_obj.boundary_round
+                slots = _canonical((state.x, state.inflight, state.vars))
+                digests = {k: _digest(t) for k, t in slots.items()}
+                steps, losses = res.steps, res.losses
+                if not packed and not isinstance(infl, RankLeafInflight):
+                    raise AssertionError(f"qwen2 per leaf on a rank: the in-flight value is {type(infl).__name__}")
+                del res, state, slots, exp, infl
+                gc.collect()
+                _free()
+                want = {k.name: 0 for k in kernels}
+                want.update(qwen2_launches(steps, LM_WORKERS, LM_LAYERS, 1, LM_ROUNDS))
+                want["pullback_momentum"] = 0
+                if packed:
+                    want["pullback_momentum_rank"] = LM_ROUNDS + 1
+                else:
+                    want.update(sgd_step=0, anchor_mix_rows=leaves * LM_ROUNDS)
+                boundary_ms = [e0.elapsed_time(e1) for e0, e1 in marks]
+                differ = sorted(k for k in stacked_digests if digests.get(k) != stacked_digests[k])
+                runs["packed" if packed else "per_leaf"] = dict(
+                    losses=losses, steps=steps, wall_s=wall, step_ms=(wall * 1e3 - sum(boundary_ms)) / steps,
+                    boundary_ms=boundary_ms, wire_buffer_bytes=wire, peak_mem_bytes=peak,
+                    arrays_differing=differ, launches={k: v for k, v in launches.items() if v})
+                if differ or sorted(digests) != sorted(stacked_digests):
+                    raise AssertionError(f"qwen2 {'packed' if packed else 'per leaf'} on one NCCL rank differs from the "
+                                         f"stacked per-leaf run: {differ}")
+                if launches != want:
+                    raise AssertionError(f"qwen2 {'packed' if packed else 'per leaf'} on one NCCL rank: launches "
+                                         f"{launches} != {want}")
+                if not all(math.isfinite(v) for v in losses):
+                    raise AssertionError(f"qwen2 per-leaf rank phase: losses not finite: {losses}")
+    finally:
+        dist.destroy_process_group()
+    if runs["per_leaf"]["losses"] != runs["packed"]["losses"]:
+        raise AssertionError(f"qwen2 per leaf and packed on one NCCL rank: losses differ: {runs}")
+    rec = dict(run=f"qwen2-7b full width, {LM_LAYERS} layers, bf16, m {LM_WORKERS}, overlap beta 0.7, per leaf and "
+                   f"packed on one NCCL rank holding every row", card=card, rounds=LM_ROUNDS, leaves=leaves,
+               arrays=len(stacked_digests), bound="bitwise phase 10(c)'s stacked per-leaf run (x, inflight, vars by "
+                                                  "64-bit digest; losses), per leaf == packed", **runs)
+    log(json.dumps(rec))
+    return rec
+
+
+def _state_arrays(state):
+    """Every array of a drained train state by its checkpoint key, on the
+    host (host planes restored first), and the keys of the rows a rank
+    holds (a plane with a worker axis, a per-leaf row leaf)."""
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.parallel import offload as off
+    from repro_torch.parallel.packing import Packed
+
+    state = state._replace(opt=off.tree_restore(state.opt), vars=off.tree_restore(state.vars),
+                           inflight=off.tree_restore(state.inflight), membership=None)
+    row_ids = ck._row_leaves(state)
+    arrays, rows = {}, []
+    for key, node in ck._nodes(state):
+        if isinstance(node, Packed):
+            for b, buf in enumerate(node.buffers):
+                arrays[f"{key}::{b}"] = buf.cpu()
+                if len(node.lead_shape) == 1:
+                    rows.append(f"{key}::{b}")
+        else:
+            arrays[key] = node.cpu()
+            if id(node) in row_ids:
+                rows.append(key)
+    return arrays, rows
+
+
+def _offleaf_runs():
+    """Phase 14(c)'s runs: (label, m, strategy (an AlgoConfig, or a legacy
+    ``Algorithm``), fault plan spec or None, controller fields or None)."""
+    import warnings
+
+    from repro_torch.config import AlgoConfig
+    from repro_torch.core.algorithms import make_algorithm
+
+    runs = []
+    for m in (2, 4):
+        for i, (name, kw) in enumerate(OFFLEAF_CASES):
+            if m == 4 and i not in OFFLEAF_M4:
+                continue
+            ctrl = ADAPTIVE_CTRL if i == 0 else None
+            for path in ("offloaded", "per leaf"):
+                fields = dict(name=name, tau=2, alpha=0.6, **kw)
+                fields.update(offload=True, offload_chunk_mb=OFF_CLF_CHUNK_MB) if path == "offloaded" else \
+                    fields.update(packed=False)
+                label = f"classifier m {m} {path} {name} {kw or ''} faults{' + adaptive tau' if ctrl else ''}"
+                runs.append((label, m, AlgoConfig(**fields), FIT_PLANS[m], ctrl))
+    for name, kw in LEGACY14:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            algo = make_algorithm(AlgoConfig(name=name, tau=2, alpha=0.6, **kw))
+        runs.append((f"classifier m 2 legacy {name} {kw or ''} (no membership: the shims refuse one)", 2, algo, None,
+                     None))
+    return runs
+
+
+def _arrays_ulps(have, want, key):
+    """max |have − want| of one array in f32 ulps of the largest magnitude it
+    scales with: its own, and for v and e (differences of anchors) z's."""
+    import torch
+
+    mag = float(want[key].float().abs().max())
+    for slot in ("vars::v::", "vars::extra::"):
+        z = want.get(key.replace(slot, "vars::z::")) if key.startswith(slot) else None
+        if z is not None:
+            mag = max(mag, float(z.float().abs().max()))
+    ulp = float(torch.finfo(torch.float32).eps) / 2 * 2.0 ** math.frexp(mag)[1] if mag else 1.0
+    return float((have[key].float() - want[key].float()).abs().max()) / ulp
+
+
+def _gloo14_rank(rank, world, rdv, out_path, src):
+    """One of phase 14(c)'s two ranks on the same card (gloo on CUDA
+    tensors): every run of :func:`_offleaf_runs` on the mesh from zeroed
+    counters (``Experiment.fit`` under its plan and controller, then
+    ``drain``), its arrays gathered to rank 0 (:func:`_state_arrays`); at one
+    row a rank also a checkpoint round trip (saved on the ranks; the
+    stacked state's file saved by rank 0, byte for byte the ranks' file,
+    restored on the ranks: their state before the save). Rank 0 fits the
+    stacked engine on the same weights and batches and compares: bit for
+    bit at one row a rank, within 2(m − 1) f32 ulps at two (v and e in
+    ulps of z); the fault log and the schedule's decisions exactly."""
+    import os
+    import traceback
+
+    sys.path.insert(0, src)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from repro_torch import checkpoint
+        from repro_torch.control import TauController
+        from repro_torch.data.loaders import make_classification_splits
+        from repro_torch.fault import FaultPlan
+        from repro_torch.kernels import all_kernels
+        from repro_torch.launch.mesh import make_smoke_mesh
+        from repro_torch.parallel.sharding import mesh_context
+        from repro_torch.training import drain
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels = all_kernels()
+        dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world, rank=rank)
+        mesh = make_smoke_mesh(world, backend="gloo")
+        splits = {m: make_classification_splits(m, n=30000, holdout=4000) for m in (2, 4)}
+        ckpt_dir = os.path.dirname(rdv)
+        results = []
+
+        def fit(exp, m, plan, ctrl):
+            return exp.fit(rounds=CLF_FIT_ROUNDS, faults=None if plan is None else FaultPlan.parse(plan, m=m, seed=FIT_SEED),
+                           adaptive_tau=None if ctrl is None else TauController(**ctrl))
+
+        for i_run, (label, m, strategy, plan, ctrl) in enumerate(_offleaf_runs()):
+            round_trip = m == world
+            with mesh_context(mesh):
+                exp = _fit_classifier(dev, strategy, m, splits[m])
+                torch.cuda.synchronize()
+                for k in kernels:
+                    k.launches = 0
+                t0 = time.perf_counter()
+                res = fit(exp, m, plan, ctrl)
+                exp.state = drain(exp.state)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {k.name: k.launches for k in kernels if k.launches}
+                got_fit = _fit_record(res)
+                del res
+                arrays, rows = _state_arrays(exp.state)
+                evaluate = exp.evaluate()
+                ckpt_back = None
+                if round_trip:
+                    path_mesh = os.path.join(ckpt_dir, f"run{i_run}_mesh.npz")
+                    checkpoint.save(path_mesh, exp.state)
+                    back = _state_arrays(checkpoint.restore(path_mesh, exp.state))[0]
+                    ckpt_back = sorted(back) == sorted(arrays) and all(torch.equal(back[k], arrays[k]) for k in arrays)
+                del exp
+            everyone = [None] * world
+            dist.all_gather_object(everyone, dict(arrays=arrays, rows=rows, fit=got_fit, evaluate=evaluate,
+                                                  ckpt_back=ckpt_back))
+            if rank == 0:
+                got = {k: (torch.cat([e["arrays"][k] for e in everyone]) if k in rows else v) for k, v in arrays.items()}
+                replicated_equal = all(torch.equal(e["arrays"][k], arrays[k]) for e in everyone for k in arrays
+                                       if k not in rows)
+                stacked = _fit_classifier(dev, strategy, m, splits[m])
+                sres = fit(stacked, m, plan, ctrl)
+                want_fit = _fit_record(sres)
+                del sres
+                want, _ = _state_arrays(stacked.state)
+                bitwise = m == world
+                worst, differ = 0.0, []
+                for key in want:
+                    if key not in got:
+                        differ.append(f"{key} (missing)")
+                    elif bitwise or not want[key].is_floating_point():
+                        if not torch.equal(got[key], want[key]):
+                            differ.append(key)
+                    else:
+                        ulps = _arrays_ulps(got, want, key)
+                        worst = max(worst, ulps)
+                        if ulps > 2 * (m - 1):
+                            differ.append(key)
+                differ += [f"{k} (extra)" for k in got if k not in want]
+                losses_ok = got_fit["losses"] == want_fit["losses"] if bitwise else all(
+                    abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got_fit["losses"], want_fit["losses"]))
+                stats_ok = got_fit["stats"] is None or all(
+                    abs(gd - wd) <= 1e-6 * abs(wd) + 2.0 ** (math.frexp(ws)[1] - 24) and abs(gs - ws) <= 1e-6 * abs(ws)
+                    for (gd, gs), (wd, ws) in zip(got_fit["stats"], want_fit["stats"]))
+                rec = dict(run=f"{label}, two gloo ranks sharing one card ({m // world} row{'s' if m > world else ''} "
+                               f"a rank)", m=m, steps=got_fit["steps"], wall_s=wall, launches=launches,
+                           losses=got_fit["losses"], stacked_losses=want_fit["losses"], losses_ok=losses_ok,
+                           schedule_equal=got_fit["schedule"] == want_fit["schedule"], stats_within_rtol_1e6=stats_ok,
+                           fault_log_equal=got_fit["fault_log"] == want_fit["fault_log"], arrays=len(want),
+                           arrays_differing=differ, worst_ulps=worst, replicated_equal_on_ranks=replicated_equal,
+                           equal_on_ranks=all(e["fit"] == got_fit and e["evaluate"] == evaluate for e in everyone),
+                           evaluate_equal=evaluate == stacked.evaluate() if bitwise else None,
+                           bound="bitwise (every array of the drained state; losses; evaluate)" if bitwise else
+                           "within 2(m - 1) f32 ulps of each array's largest magnitude (v and e: of z's); "
+                           "losses rtol 1e-5")
+                if round_trip:  # the stacked state's file: the ranks' file byte for byte
+                    path_one = os.path.join(ckpt_dir, f"run{i_run}_one.npz")
+                    checkpoint.save(path_one, stacked.state)
+                    with np.load(path_mesh) as a, np.load(path_one) as b:
+                        rec["ckpt_file_equal"] = sorted(a.files) == sorted(b.files) and all(
+                            a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and a[k].tobytes() == b[k].tobytes()
+                            for k in a.files)
+                    rec["ckpt_restored_on_ranks_equal"] = all(e["ckpt_back"] for e in everyone)
+                results.append(rec)
+                log(f"phase 14(c) {label}: {wall:.1f}s on the ranks, {len(differ)} differing")
+                del stacked, want, got
+            dist.barrier()
+        dist.destroy_process_group()
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(results, f)
+    except BaseException:
+        with open(f"{out_path}.rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def rank_gloo_offload_perleaf(card):
+    """Phase 14(c): two ranks spawned as phase 12(c), running
+    :func:`_gloo14_rank`. Fails when a rank fails, a run breaks its bound
+    or a checkpoint round trip differs."""
+    t0 = time.perf_counter()
+    results = _spawn_gloo_pair(_gloo14_rank)
+    for rec in results:
+        rec["card"] = card
+        log(json.dumps(rec))
+    bad = [rec["run"] for rec in results if rec["arrays_differing"] or not rec["losses_ok"]
+           or not rec["schedule_equal"] or not rec["fault_log_equal"] or not rec["stats_within_rtol_1e6"]
+           or not rec["equal_on_ranks"] or not rec["replicated_equal_on_ranks"] or rec["evaluate_equal"] is False
+           or rec.get("ckpt_file_equal") is False or rec.get("ckpt_restored_on_ranks_equal") is False]
+    if bad:
+        raise AssertionError(f"offloaded and per-leaf fits on two gloo ranks break their bounds: {bad}")
+    log(f"phase 14(c): two gloo ranks, {len(results)} fits, {time.perf_counter() - t0:.1f}s with the spawn")
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -7090,6 +7793,21 @@ def main() -> int:
     _free()
     gloo13, probe13 = rank_gloo_fit_two_on_one_card(card, which="13")
     mark("phase 13 (c: every strategy on two gloo ranks sharing the card)")
+
+    # phase 14: host offload and the per-leaf path on worker ranks (the kernel
+    # forms at the new paths' shapes; musicgen-large offloaded and qwen2-7b per
+    # leaf on one NCCL rank holding every row, each bitwise its stacked run;
+    # the classifier offloaded and per leaf on two gloo ranks sharing the card)
+    check_rank_path_forms(dev, gen)
+    mark("phase 14 (a: the rank paths' kernel forms at their shapes)")
+    mg14 = rank_nccl_musicgen_offload(dev, kernels, card, dict(m4, digests=mg_off.pop("m4_digests")),
+                                      win_t["K1"]["large_bf16"]["ms"])
+    mark("phase 14 (b: musicgen-large offloaded on one NCCL rank)")
+    leaf14 = rank_nccl_qwen2_perleaf(dev, kernels, card, leaf_lm.pop("digests"))
+    mark("phase 14 (b': qwen2-7b per leaf and packed on one NCCL rank)")
+    _free()
+    gloo14 = rank_gloo_offload_perleaf(card)
+    mark("phase 14 (c: offloaded and per-leaf fits on two gloo ranks sharing the card)")
 
     # the kernels line
     launches = dict(summary["launches"])
@@ -7320,6 +8038,37 @@ def main() -> int:
     rank_paths["pullback_mean_rank"].update({f"{r} (rank 0)": c.get("pullback_mean_rank", 0)
                                              for r, c in gloo13_runs.items()
                                              if "sparse_anchor" in r or "gossip_full" in r})
+    # phase 14: the offloaded and per-leaf rank paths' launches (rank 0's on the
+    # gloo ranks); each kernel launched on every new path that runs it
+    g14 = {r["run"]: r["launches"] for r in gloo14}
+
+    def runs14(name, *needles, every=("",)):
+        return {r: c.get(name, 0) for r, c in g14.items() if all(n in r for n in needles)
+                and any(e in r for e in every)}
+
+    new14 = {
+        "sgd_step_window": {mg14["run"]: mg14["launches"]["sgd_step_window"],
+                            **runs14("sgd_step_window", " offloaded ")},
+        "pullback_momentum_rank": {mg14["run"]: mg14["launches"]["pullback_momentum_rank"],
+                                   leaf14["run"] + " (packed)": leaf14["packed"]["launches"]["pullback_momentum_rank"],
+                                   **runs14("pullback_momentum_rank", " offloaded overlap_local_sgd {'anchor_beta': 0.7}")},
+        "pullback_mean_rank": runs14("pullback_mean_rank", " offloaded ", every=("beta': 0.0", "sparse", "gossip_full")),
+        "anchor_mix_rows": {leaf14["run"] + " (per leaf)": leaf14["per_leaf"]["launches"]["anchor_mix_rows"],
+                            **runs14("anchor_mix_rows", " per leaf ", every=("overlap", "easgd", "sparse", "gossip_full"))},
+        "anchor_mix": runs14("anchor_mix", " per leaf ", every=("gossip_ring", "gossip_exp", "gossip_pushsum")),
+        "consensus_probe_rank": runs14("consensus_probe_rank", " per leaf ", "adaptive"),
+        "gossip_rank": runs14("gossip_rank", every=("gossip_ring", "gossip_exp", "gossip_pushsum")),
+    }
+    for name, paths in new14.items():
+        if not paths or not all(paths.values()):
+            raise AssertionError(f"{name} was not launched on every phase 14 path that runs it: {paths}")
+    window_paths["sgd_step_window"].update(new14["sgd_step_window"])
+    rank_paths["pullback_momentum_rank"].update(new14["pullback_momentum_rank"])
+    rank_paths["pullback_mean_rank"].update(new14["pullback_mean_rank"])
+    row_paths.update(new14["anchor_mix_rows"])
+    by_path["anchor_mix"].update(new14["anchor_mix"])
+    masked_paths["consensus_probe_rank"].update(new14["consensus_probe_rank"])
+    grank_paths.update(new14["gossip_rank"])
     out = []
     for name, source, label, replaces, err, t, shape, large in rows:
         entry = dict(

@@ -63,15 +63,16 @@ On a worker mesh (:func:`repro_torch.parallel.sharding.mesh_context`, one
 process a rank, every rank running the same calls) ``build()`` makes the
 rank's m/W rows and ``step_fn`` runs a round on them (the round engine
 slices the rank's rows of the full batch). ``fit`` runs there plain, with
-``faults=`` and with ``adaptive_tau=`` for every strategy of the packed
-path (overlap_local_sgd, local_sgd, sync_sgd, easgd, cocod, delayed_avg,
-sparse_anchor, powersgd and the gossip family): each round's loss is the
+``faults=`` and with ``adaptive_tau=`` for every strategy
+(overlap_local_sgd, local_sgd, sync_sgd, easgd, cocod, delayed_avg,
+sparse_anchor, powersgd and the gossip family), packed, per leaf (also the
+legacy shims) and offloaded: each round's loss is the
 mean over all m workers, the rows' losses gathered over the ranks in the
 round's one host read, and every rank ends with the same losses, τ schedule
 and fault log. ``checkpoint.save(path, exp.state)`` and
 ``checkpoint.restore`` run there too (:mod:`repro_torch.checkpoint`). ``consensus()`` and
 ``consensus_plane()`` come from one blocking all-reduce of the rows' f32
-sums; ``anchor_plane()`` drains the in-flight collective first
+sums (per leaf, of every leaf's rows); ``anchor_plane()`` drains the in-flight collective first
 (``repro_torch.training.drain``); ``evaluate()`` and ``serve()`` read the
 consensus, alike on every rank.
 
@@ -363,7 +364,8 @@ class Experiment:
         self.build()
         mesh = sharding.current_mesh()
         if mesh is not None:
-            return unpack(rank_worker_mean(self.state.x, mesh))
+            mean = rank_worker_mean(self.state.x, mesh)
+            return unpack(mean) if isinstance(mean, Packed) else mean
         return consensus_params(self.state)
 
     def consensus_plane(self) -> Packed:

@@ -47,6 +47,15 @@ comes back finished, and the next rank boundary consumes it as the first
 one does. ``elastic=True`` resizes the stored worker axis to the mesh's m
 before the rows are cut, so a one-process file restores onto W ranks, a
 W-rank file into one process, and a file of W ranks onto W' at the same m.
+An offloaded rank state's row-stacked host planes (the optimizer state of
+the rank's rows, PowerSGD's error) are gathered one chunk of their stacks
+at a time (through the mesh's device, a chunk's rows at a time: no plane
+makes a whole trip to the card) and restored into pinned stacks of the
+rank's rows. A per-leaf state's row-stacked leaves, which the types that
+hold them declare (a NamedTuple's ``ROWS`` names its row-stacked fields:
+x's, the optimizer state's with the per-worker Adam count, PowerSGD's
+error, the avg-rebase x₀, the gossip mix, legacy CoCoD's round start), are
+gathered leaf by leaf the same way.
 
 Restored leaves are tensors of the template's dtype on the template leaf's
 device. This module imports numpy and torch only.
@@ -64,7 +73,7 @@ import torch
 from repro_torch.parallel import offload as off
 from repro_torch.parallel import sharding
 from repro_torch.parallel.offload import HostPlane
-from repro_torch.parallel.packing import Layout, Packed
+from repro_torch.parallel.packing import Layout, Packed, tree_flatten
 
 _SEP = "::"
 _LAYOUT_KEY = "__layout__"
@@ -156,21 +165,72 @@ def _gathered(buf: torch.Tensor, mesh) -> Any:
 
 
 def _stacked(node) -> bool:
-    """A Packed plane with a worker axis (row-stacked; on a mesh the rank's rows)."""
-    return isinstance(node, Packed) and len(node.lead_shape) == 1
+    """A Packed plane (or its host form) with a worker axis (row-stacked; on
+    a mesh the rank's rows)."""
+    return isinstance(node, (Packed, HostPlane)) and len(node.lead_shape) == 1
+
+
+def _row_leaves(tree) -> set:
+    """The ids of a tree's row-stacked tensor leaves (on a mesh the rank's
+    rows): every tensor under a field that its NamedTuple names in its
+    ``ROWS`` — declared by the type that holds it: a per-leaf x
+    (``TrainState``), the per-leaf optimizer states, PowerSGD's error, the
+    avg-rebase x₀, the gossip mix, legacy CoCoD's round start. Packed and
+    host planes carry their own worker axis (:func:`_stacked`)."""
+    ids = set()
+
+    def visit(node, rows: bool):
+        if isinstance(node, torch.Tensor):
+            if rows:
+                ids.add(id(node))
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            declared = getattr(type(node), "ROWS", ())
+            for f in node._fields:
+                visit(getattr(node, f), rows or f in declared)
+        elif isinstance(node, dict):
+            for v in node.values():
+                visit(v, rows)
+        elif isinstance(node, (tuple, list)):
+            for v in node:
+                visit(v, rows)
+
+    visit(tree, False)
+    return ids
+
+
+def _gathered_stack(stack: torch.Tensor, mesh) -> Any:
+    """All m rows of a rank's host chunk stack (k, r, c), bit for bit, on
+    rank 0 (None elsewhere): one chunk's rows at a time through the mesh's
+    device, into one host array (k, m, c)."""
+    k, r, c = stack.shape
+    host = torch.empty((k, r * mesh.size, c), dtype=stack.dtype) if mesh.rank == 0 else None
+    for i in range(k):
+        rows = sharding.gather_rows_exact(stack[i].to(mesh.device), mesh)
+        if host is not None:
+            host[i].copy_(rows)
+    return None if host is None else _to_numpy(host)
 
 
 def _arrays(tree, mesh):
     """(key, numpy array) for every stored array of ``tree`` in the file's
     order, the layout sidecars last; made one at a time, so a save holds one
     array in host memory. On a mesh every rank runs the gathers of the
-    row-stacked planes and only rank 0 gets arrays (None elsewhere)."""
+    row-stacked planes and leaves and only rank 0 gets arrays (None
+    elsewhere)."""
     layouts = []
+    rows = _row_leaves(tree) if mesh is not None else set()
     for key, node in _nodes(tree):
-        if mesh is not None and _stacked(node):  # every rank gathers, rank 0 keeps
+        if mesh is not None and isinstance(node, HostPlane) and _stacked(node):  # a chunk at a time
+            for i, stack in enumerate(node.host_ready().chunks):
+                yield _join(key, str(i)), _gathered_stack(stack, mesh)
+        elif mesh is not None and _stacked(node):  # every rank gathers, rank 0 keeps
             for i, buf in enumerate(node.buffers):
                 yield _join(key, str(i)), _gathered(buf, mesh)
             layouts.append((_join(key, _LAYOUT_KEY), _encode_layout(node.layout)))
+        elif id(node) in rows:
+            r = node.shape[0]
+            got = _gathered(node.reshape(r, -1), mesh)
+            yield key, None if got is None else got.reshape((r * mesh.size,) + tuple(node.shape[1:]))
         elif mesh is not None and mesh.rank != 0:
             continue
         elif isinstance(node, Packed):
@@ -336,8 +396,19 @@ def restore(path: str, template: Any, elastic: bool = False) -> Any:
         return _restore(_Stored(z), template, elastic, mesh)
 
 
+def _fit_stack(arr: np.ndarray, shape: Tuple[int, ...], key: str, elastic: bool) -> np.ndarray:
+    """A stored chunk stack (k, m', c) of a row-stacked host plane fitted to
+    (k, m, c): with ``elastic`` the worker axis (axis 1) resized as
+    :func:`_fit_leaf` resizes axis 0."""
+    arr = np.asarray(arr)
+    if elastic and arr.ndim == 3 and arr.shape != shape and (arr.shape[0], arr.shape[2]) == (shape[0], shape[2]):
+        arr = np.moveaxis(_fit_leaf(np.moveaxis(arr, 1, 0), (shape[1], shape[0], shape[2]), key, True), 0, 1)
+    return _fit_leaf(arr, shape, key)
+
+
 def _restore(arrays, template: Any, elastic: bool, mesh) -> Any:
     layouts = {}
+    rows = _row_leaves(template) if mesh is not None else set()
     for k in list(arrays):
         if k == _LAYOUT_KEY or k.endswith(_SEP + _LAYOUT_KEY):
             prefix = "" if k == _LAYOUT_KEY else k[: -(len(_LAYOUT_KEY) + len(_SEP))]
@@ -365,11 +436,22 @@ def _restore(arrays, template: Any, elastic: bool, mesh) -> Any:
                 k = _join(key, str(i))
                 if k not in arrays:
                     raise KeyError(f"checkpoint missing {k!r}")
-                stack = off._host_stack(tuple(like.shape), like.dtype, pinned=like.is_pinned())
-                stacks.append(stack.copy_(_to_tensor(_fit_leaf(arrays[k], tuple(like.shape), k), like)))
+                shape = tuple(like.shape)
+                if _stacked(node):  # all m rows fitted (elastic: the worker axis), then this rank's
+                    lo, hi = (0, shape[1]) if mesh is None else mesh.rows(shape[1] * mesh.size)
+                    arr = _fit_stack(arrays[k], (shape[0], hi - lo if mesh is None else shape[1] * mesh.size,
+                                                 shape[2]), k, elastic)[:, lo:hi]
+                else:
+                    arr = _fit_leaf(arrays[k], shape, k)
+                stack = off._host_stack(shape, like.dtype, pinned=like.is_pinned())
+                stacks.append(stack.copy_(_to_tensor(arr, like)))
             return HostPlane(stacks, node.layout, node.plan, node.device)
         if key not in arrays:
             raise KeyError(f"checkpoint missing {key!r}")
+        if id(node) in rows:  # a row-stacked leaf: all m rows fitted, then this rank's
+            m = node.shape[0] * mesh.size
+            lo, hi = mesh.rows(m)
+            return _to_tensor(_fit_leaf(arrays[key], (m,) + tuple(node.shape[1:]), key, elastic)[lo:hi], node)
         return _to_tensor(_fit_leaf(arrays[key], tuple(node.shape), key, elastic), node)
 
     return _walk(template, "", visit)

@@ -9,7 +9,10 @@ statements inside ``boundary``. The classes are the seed's semantics on the
 per-leaf path: the round engine wraps them in
 :class:`~repro_torch.core.strategy.LegacyStrategy` (all their work in the
 apply phase, nothing launched), and the tests hold the native per-leaf
-strategies against them.
+strategies against them. On a worker mesh the shipped shims
+(``rank_capable``) run on the rank's rows: their worker means are
+:func:`~repro_torch.core.strategy._worker_mean`'s blocking all-reduce over
+the ranks, and EASGD's rate takes the m of all ranks.
 
 State layout: x is a nested dict of worker-stacked leaves ``(m, ...)``; the
 anchor z (and its momentum v) are unstacked. x is updated in place (the
@@ -43,6 +46,8 @@ class Algorithm:
 
     name = "base"
     needs_anchor = False
+    # reduces only through the mesh-aware worker mean: runs on a worker mesh
+    rank_capable = False
 
     def __init__(self, cfg: AlgoConfig):
         self.cfg = cfg
@@ -65,6 +70,7 @@ class SyncSGD(Algorithm):
     """Fully synchronous SGD: gradients averaged across workers every step."""
 
     name = "sync_sgd"
+    rank_capable = True
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
@@ -80,6 +86,7 @@ class LocalSGD(Algorithm):
     """Periodic model averaging (blocking), eq. (2) of the paper."""
 
     name = "local_sgd"
+    rank_capable = True
 
     def boundary(self, x_stacked, vars):
         for t, avg in zip(tree_flatten(x_stacked)[0], tree_flatten(_worker_mean(x_stacked))[0]):
@@ -95,6 +102,7 @@ class OverlapLocalSGD(Algorithm):
     consumer is the next round's pullback."""
 
     name = "overlap_local_sgd"
+    rank_capable = True
     needs_anchor = True
 
     def init_vars(self, x_stacked) -> AlgoVars:
@@ -120,6 +128,7 @@ class EASGD(Algorithm):
     pre-pullback models; blocking."""
 
     name = "easgd"
+    rank_capable = True
     needs_anchor = True
 
     def init_vars(self, x_stacked) -> AlgoVars:
@@ -133,21 +142,29 @@ class EASGD(Algorithm):
         return x_stacked, AlgoVars(z=tree_lerp(vars.z, mean_x, rate), v=None, extra=vars.extra)
 
 
+class RoundStartVars(AlgoVars):
+    """Legacy CoCoD's vars: ``extra`` the worker-stacked x at the start of
+    the current round (on a worker mesh the rank's rows)."""
+
+    ROWS = ("extra",)
+
+
 class CoCoDSGD(Algorithm):
     """CoCoD-SGD [20]: at each boundary the average of the round's
     *starting* models (``vars.extra``) re-bases every worker,
     x_i ← avg(x_start) + (x_i − x_start_i)."""
 
     name = "cocod"
+    rank_capable = True
 
     def init_vars(self, x_stacked) -> AlgoVars:
-        return AlgoVars(extra=_clone(x_stacked))  # x at the start of the current round
+        return RoundStartVars(extra=_clone(x_stacked))  # x at the start of the current round
 
     def boundary(self, x_stacked, vars: AlgoVars):
         x_start = vars.extra
         avg_start = _worker_mean(x_start)  # the overlapped collective
         tree_map(_rebase_rows_, x_stacked, x_start, avg_start)
-        return x_stacked, AlgoVars(extra=_clone(x_stacked))
+        return x_stacked, RoundStartVars(extra=_clone(x_stacked))
 
 
 def make_algorithm(cfg: AlgoConfig) -> Algorithm:

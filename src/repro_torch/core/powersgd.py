@@ -37,9 +37,11 @@ same number. The parity tests carry the reference's q across
 The per-leaf form (:meth:`PowerSGD.transform_grads`, the legacy
 ``Algorithm`` and ``AlgoConfig.packed=False``) keeps q as a dict shaped like
 the parameters (``None`` at an uncompressed leaf) and the error as a dict
-of f32 worker-stacked leaves, as the reference does. Both forms run each
-leaf through :func:`_compress_leaf` and :func:`_plain_mean` on contiguous
-operands, so on one device they agree bit for bit.
+of f32 worker-stacked leaves, as the reference does. It gathers every
+leaf's factor sums (an uncompressed leaf's raw gradient sum) into one flat
+f32 buffer a phase, as the packed form does, on one device and on a worker
+mesh (there two blocking all-reduces a step); both forms take each product
+on contiguous operands, so on one device they agree bit for bit.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ from repro_torch.config.base import AlgoConfig
 from repro_torch.core.algorithms import Algorithm, AlgoVars
 from repro_torch.kernels.anchor_mix.ref import row_sum
 from repro_torch.parallel import sharding
-from repro_torch.parallel.packing import Packed, packed_like
+from repro_torch.parallel.packing import Packed, packed_like, tree_flatten, tree_unflatten
 from repro_torch.utils.tree import tree_map
 
 
@@ -60,6 +62,8 @@ class PowerState(NamedTuple):
     # per leaf: the same factors in a dict shaped like the parameters
     q: Any
     err: Any  # f32 Packed shadow of the gradient plane, or a dict of f32 (m, ...) leaves
+
+    ROWS = ("err",)  # worker-stacked per leaf (on a worker mesh the rank's rows)
 
 
 def _mat_shape(shape) -> Tuple[int, int]:
@@ -109,43 +113,51 @@ def _sum_products(M: torch.Tensor, right: torch.Tensor, transpose: bool = False)
     return acc
 
 
-def _plain_mean(g: torch.Tensor) -> torch.Tensor:
-    """An uncompressed leaf's f32 worker mean ((m, size) → (size,)): the
-    rows summed in order, over m."""
-    return _over_m(row_sum(g.float()), g.shape[0])
-
-
-def _compress_leaf(M: torch.Tensor, q: torch.Tensor):
-    """One power-iteration step on a contiguous (m, a, b) f32 leaf M = g + e:
-    P = QR(mean_i(M_i q)), Q' = mean_i(M_iᵀ P), ĝ = P Q'ᵀ. Returns (ĝ (a, b),
-    Q')."""
-    m = M.shape[0]
-    P, _ = torch.linalg.qr(_over_m(_sum_products(M, q), m))  # (a, r): the mean of rank-r factors
-    Qn = _over_m(_sum_products(M, P, transpose=True), m)  # (b, r)
-    return P @ Qn.T, Qn
-
-
 def transform_grads(grads, st: PowerState) -> Tuple[Any, PowerState]:
     """The per-leaf compressed step: each leaf of the worker-stacked
-    gradients ``grads`` (a nested dict) is overwritten with its decoded ĝ
-    (every worker's row the same) and its error leaf with e' = M − ĝ (zero
-    at an uncompressed leaf), both in place; returns them with the new
-    factors."""
-
-    def leaf(g, q, e):
-        m = g.shape[0]
+    gradients ``grads`` (a nested dict, the rank's rows on a worker mesh) is
+    overwritten with its decoded ĝ (every worker's row the same) and its
+    error leaf with e' = M − ĝ (zero at an uncompressed leaf), both in
+    place; returns them with the new factors. Phase 1's Σ_i M_i q of each
+    compressed leaf (Σ_i g_i of a plain one) and phase 2's Σ_i M_iᵀ P are
+    each gathered into one flat f32 buffer, summed over the ranks on a mesh
+    and divided by m; the QR and the decode run per leaf, replicated. The
+    same values on every rank as the one-process step (bit for bit at one
+    row a rank: a two-term sum commutes)."""
+    mesh = sharding.current_mesh()
+    leaves, paths = tree_flatten(grads)
+    qs, es = tree_flatten(st.q)[0], tree_flatten(st.err)[0]
+    r = leaves[0].shape[0]
+    m = r * (1 if mesh is None else mesh.size)
+    Ms = [None if q is None else g.float().reshape(r, *_mat_shape(g.shape[1:])) + e.reshape(r, *_mat_shape(g.shape[1:]))
+          for g, q, e in zip(leaves, qs, es)]
+    firsts = _mean_over_ranks([row_sum(g.reshape(r, -1).float()) if q is None else _sum_products(M, q)
+                               for g, q, M in zip(leaves, qs, Ms)], m, mesh)
+    Ps = [None if q is None else torch.linalg.qr(f.reshape(-1, q.shape[1]))[0] for q, f in zip(qs, firsts)]
+    comp = [(M, P) for M, P in zip(Ms, Ps) if P is not None]
+    seconds = iter(_mean_over_ranks([_sum_products(M, P, transpose=True) for M, P in comp], m, mesh)) if comp else iter(())
+    new_q = []
+    for g, q, e, M, f, P in zip(leaves, qs, es, Ms, firsts, Ps):
         if q is None:  # 1-D / scalar: the mean of the raw gradient, no error
-            g.copy_(_plain_mean(g.reshape(m, -1)).reshape(g.shape[1:]).expand_as(g))
+            g.copy_(f.reshape(g.shape[1:]).expand_as(g))
             e.zero_()
-            return q
-        a, b = _mat_shape(g.shape[1:])
-        M = g.float().reshape(m, a, b) + e.reshape(m, a, b)
-        ghat, Qn = _compress_leaf(M, q)
+            new_q.append(None)
+            continue
+        Qn = next(seconds).reshape(M.shape[2], P.shape[1])
+        ghat = P @ Qn.T
         e.copy_((M - ghat[None]).reshape(e.shape))
         g.copy_(ghat.reshape(g.shape[1:]).expand_as(g))
-        return Qn
+        new_q.append(Qn)
+    return grads, PowerState(q=tree_unflatten(paths, new_q), err=st.err)
 
-    return grads, PowerState(q=tree_map(leaf, grads, st.q, st.err), err=st.err)
+
+def _mean_over_ranks(parts, m: int, mesh):
+    """Each part's sum over the ranks (one flat f32 buffer, one blocking
+    all-reduce) over m, cut back into the parts."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    if mesh is not None:
+        sharding.all_reduce_(flat, mesh)
+    return torch.split(_over_m(flat, m), [p.numel() for p in parts])
 
 
 def transform_grads_packed(pg: Packed, st: PowerState) -> Tuple[Packed, PowerState]:
@@ -166,10 +178,7 @@ def transform_grads_packed(pg: Packed, st: PowerState) -> Tuple[Packed, PowerSta
         return seg, Ms[slot.bucket][:, seg].reshape(r, a, b).contiguous()
 
     def mean_over_workers(parts):  # the flat sum of every leaf's part, over the ranks, / m
-        flat = torch.cat([p.reshape(-1) for p in parts])
-        if mesh is not None:
-            sharding.all_reduce_(flat, mesh)
-        return torch.split(_over_m(flat, m), [p.numel() for p in parts])
+        return _mean_over_ranks(parts, m, mesh)
 
     # phase 1: Σ_i M_i q of each compressed leaf and Σ_i g_i of each plain one
     firsts = mean_over_workers([
@@ -207,6 +216,7 @@ class PowerSGD(Algorithm):
     per-leaf hooks and their packed forms."""
 
     name = "powersgd"
+    rank_capable = True
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)

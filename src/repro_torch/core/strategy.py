@@ -74,8 +74,13 @@ is its weighted sum, which the finish takes with no division. The probe
 (:func:`rank_probe`) needs x̄ of all m rows before the boundary moves them:
 one blocking n-wide all-reduce of the unweighted row sums (Local SGD
 unmasked reuses its own), then K8's rank form a bucket and a float64 sum of
-the drift over the ranks. Offload and the per-leaf path raise
-(:func:`check_rank_path`, ROADMAP item 10b).
+the drift over the ranks. Under ``AlgoConfig.offload`` the rank in-flight
+kinds keep their anchor-shaped planes (the anchor a finish reads, x₀) on the
+host between boundaries, as the offloaded round engine keeps vars
+(:meth:`_RankPending.map_planes`, which the offload tree walks call); the
+f32 wire buffer, and the rows a pending neighbour exchange sends and
+receives, stay on the card until the collective is waited on.
+:func:`check_rank_path` raises only for a strategy with no rank boundary.
 
 **The per-leaf oracle** (``AlgoConfig.packed=False``, and every legacy
 ``Algorithm`` through :class:`LegacyStrategy`): x is a nested dict of
@@ -91,10 +96,26 @@ by m (K3/K4's order, also on the packed path's own means), so on one device
 the per-leaf boundary equals the packed one bit for bit. A packed strategy
 handed a per-leaf x (an optimizer without a packed step, as in the
 reference) runs its boundary on x's plane and writes the result back.
+
+On a worker mesh the per-leaf math stays per leaf and only the worker
+reductions become collectives: each worker mean (:func:`_worker_mean`) is
+the f32 partial sums of the rank's rows of every leaf in one flat f32 wire
+buffer, one all-reduce, and round(S / m) (or round(S) when weighted) per
+leaf, :func:`_finish_sum`'s values. Local SGD, EASGD, sync-SGD's gradient
+mean and the legacy shims block on it; Overlap-Local-SGD, gossip_full,
+sparse_anchor, CoCoD and delayed averaging launch it at one boundary and
+finish it where it is waited on (:class:`RankLeafInflight`: the momentum
+chain, the sparse step with its error feedback, the average). The gossip
+topologies send every leaf's launch-time rows in one flat buffer a dtype
+through the neighbour exchange and form each own row's mix with K5's gossip
+rank form (mode 2), the stacked push's order, then debias and pull back per
+leaf. PowerSGD all-reduces each step's two factor sums of every leaf, one
+flat buffer a phase. The probe is :func:`rank_probe` over the leaves' rows.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+import copy
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +136,7 @@ from repro_torch.parallel.packing import (
     packed_like,
     tensors_of,
     tree_flatten,
+    tree_unflatten,
 )
 from repro_torch.utils.tree import tree_lerp, tree_map
 
@@ -129,6 +151,12 @@ class AlgoVars(NamedTuple):
 def _mem_weights(membership):
     """The (m,) f32 weights of a membership, or None (fully live)."""
     return None if membership is None else membership.weights
+
+
+def _local(membership):
+    """A membership cut to this rank's rows on a worker mesh; as it is off one."""
+    mesh = sharding.current_mesh()
+    return membership if mesh is None else sharding.rows_of(membership, mesh)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -154,8 +182,28 @@ def _packed_worker_mean(p: Packed, weights=None) -> Packed:
 
 
 def _worker_mean(x, weights=None):
-    """The per-leaf worker mean (or weighted sum) of a worker-stacked tree."""
-    return tree_map(lambda t: _mean_rows(t, weights), x)
+    """The per-leaf worker mean (or weighted sum) of a worker-stacked tree.
+    On a worker mesh, over all ranks: the rank's rows' f32 partial sums of
+    every leaf in one flat f32 buffer (``weights``, the (m,) ones of a
+    membership, cut to the rows), one blocking all-reduce, then
+    :func:`_finish_sum` per leaf — :func:`_mean_rows`'s values."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return tree_map(lambda t: _mean_rows(t, weights), x)
+    leaves, paths = tree_flatten(x)
+    rows = [_rows(t) for t in leaves]
+    lo, hi = mesh.rows(rows[0].shape[0] * mesh.size)
+    buf = sharding.all_reduce_(_rank_sums(rows, None if weights is None else weights[lo:hi]), mesh)
+    return _leaf_finish(buf, leaves, paths, rows[0].shape[0] * mesh.size, weights is not None)
+
+
+def _leaf_finish(buf: torch.Tensor, leaves, paths, m: int, weighted: bool) -> dict:
+    """The per-leaf worker means from an all-reduced flat f32 sum of the
+    leaves' rows (:func:`_finish_sum` per leaf), shaped like the leaves
+    without their worker axis."""
+    views = _wire_views(buf, [_rows(t) for t in leaves])
+    return tree_unflatten(paths, [_finish_sum(s, m, weighted, t.dtype).reshape(t.shape[1:])
+                                  for s, t in zip(views, leaves)])
 
 
 def _live_where_(mask, new, old):
@@ -180,8 +228,10 @@ def _first_row(x):
 
 
 def _leading(x) -> int:
-    """m, the worker count of a plane or a worker-stacked tree."""
-    return tensors_of(x)[0].shape[0]
+    """m, the worker count of a plane or a worker-stacked tree (on a worker
+    mesh, over all ranks)."""
+    mesh = sharding.current_mesh()
+    return tensors_of(x)[0].shape[0] * (1 if mesh is None else mesh.size)
 
 
 def _with_stats(out: tuple, stats) -> tuple:
@@ -219,13 +269,50 @@ def _copy_plane(px: Packed) -> Packed:
 def _pullback(x, z, alpha: float, membership=None):
     """Paper eq. (4) per leaf, x ← (1−α)·x + α·z, in place (K5's row form,
     or the same-shape K5 for a stacked z): the reference's ``_pullback``.
-    With ``membership`` the dead rows keep their values."""
+    With ``membership`` ((m,), cut to the rank's rows on a worker mesh) the
+    dead rows keep their values."""
+    membership = _local(membership)
     old = None if membership is None else _clone(x)
     anchor_ops.pullback_tree(x, z, alpha)
     return x if old is None else _live_where_(membership.mask, x, old)
 
 
-class RankInflight:
+class _RankPending:
+    """What the rank boundaries' in-flight kinds share. ``done``, the
+    finished value, is set once, by whichever copy finishes: the copies
+    :meth:`map_planes` makes share it. ``HOST_PLANES`` names the attributes
+    that may live on the host between boundaries under ``AlgoConfig.offload``
+    (the anchor a finish reads, the rows' launch-time copy); the f32 wire
+    buffer, the handle and whatever the pending collective reads or writes
+    stay on the card until it is waited on."""
+
+    HOST_PLANES: Tuple[str, ...] = ()
+
+    def __init__(self):
+        self._done = [None]
+
+    @property
+    def done(self):
+        return self._done[0]
+
+    @done.setter
+    def done(self, value):
+        self._done[0] = value
+
+    def map_planes(self, fn, other=None):
+        """A copy with ``fn(plane, other's plane)`` at each of
+        :attr:`HOST_PLANES` (``other``: an earlier value of this kind, whose
+        host stacks may be reused, or None), the rest shared: the offload
+        tree walks' hook (:mod:`repro_torch.parallel.offload`)."""
+        if not self.HOST_PLANES:
+            return self
+        out = copy.copy(self)
+        for name in self.HOST_PLANES:
+            setattr(out, name, fn(getattr(self, name), getattr(other, name, None) if type(other) is type(self) else None))
+        return out
+
+
+class RankInflight(_RankPending):
     """The in-flight anchor of a rank boundary: ``z`` the anchor that
     boundary pulled toward (the base of the next anchor), ``buf`` the one
     flat f32 wire buffer of every bucket's partial worker sum (the sum over
@@ -238,9 +325,11 @@ class RankInflight:
     finished anchor: a state drained twice, or drained and then consumed,
     moves v once."""
 
+    HOST_PLANES = ("z",)
+
     def __init__(self, z: Packed, buf: torch.Tensor, handle, m: int, beta: Optional[float], weighted: bool = False):
+        super().__init__()
         self.z, self.buf, self.handle, self.m, self.beta, self.weighted = z, buf, handle, m, beta, weighted
-        self.done = None  # the finished anchor
 
     def finished(self, vars: AlgoVars) -> Packed:
         if self.done is None:
@@ -253,7 +342,7 @@ class RankInflight:
         return self.done
 
 
-class RankRebaseInflight:
+class RankRebaseInflight(_RankPending):
     """The in-flight average of an avg-rebase rank boundary (CoCoD, delayed
     averaging): ``x0`` the rank's own launch-time rows (a plane of their
     own), ``buf`` the flat f32 wire buffer of the rows' (weighted) partial
@@ -263,9 +352,11 @@ class RankRebaseInflight:
     average may be consumed mid-round and the buffers reused at the
     boundary."""
 
+    HOST_PLANES = ("x0",)
+
     def __init__(self, x0: Packed, buf: torch.Tensor, handle, m: int, weighted: bool):
+        super().__init__()
         self.x0, self.buf, self.handle, self.m, self.weighted = x0, buf, handle, m, weighted
-        self.done = None
 
     def finished(self, vars: Optional[AlgoVars] = None):
         if self.done is None:
@@ -276,7 +367,7 @@ class RankRebaseInflight:
         return self.done
 
 
-class RankSparseInflight:
+class RankSparseInflight(_RankPending):
     """The in-flight worker sum of a sparse_anchor rank boundary: ``z`` the
     anchor that boundary pulled toward (the base of the sparse step),
     ``buf`` the flat f32 wire buffer of the rows' (weighted) partial sums,
@@ -285,9 +376,11 @@ class RankSparseInflight:
     takes the mean and the sparse step s = top_k(mean − z + e), e ← Δ − s
     (e, vars.extra, in place), and returns z' = z + s, which it keeps."""
 
+    HOST_PLANES = ("z",)
+
     def __init__(self, z: Packed, buf: torch.Tensor, handle, m: int, weighted: bool, k: float):
+        super().__init__()
         self.z, self.buf, self.handle, self.m, self.weighted, self.k = z, buf, handle, m, weighted, k
-        self.done = None
 
     def finished(self, vars: AlgoVars) -> Packed:
         if self.done is None:
@@ -298,15 +391,71 @@ class RankSparseInflight:
         return self.done
 
 
-def _wire_buffer(px: Packed) -> torch.Tensor:
-    """One flat f32 buffer for every bucket of x's plane (f32 for a bf16
-    plane too: the worker sum is taken in f32)."""
-    return torch.empty(sum(b.shape[-1] for b in px.buffers), dtype=torch.float32, device=px.buffers[0].device)
+class RankLeafInflight(_RankPending):
+    """The in-flight worker sum of a per-leaf rank boundary: ``buf`` the one
+    flat f32 wire buffer of every leaf's (weighted) partial worker sum over
+    the rank's rows, summed over the ranks once ``handle`` is waited, ``m``
+    the worker count over all ranks, ``leaves``/``paths`` x's leaves at the
+    launch (their shapes and dtypes), ``finish(means, vars)`` the launching
+    strategy's tail, which turns the worker means into the one-process
+    in-flight value. :meth:`finished` waits once, takes the means
+    (:func:`_finish_sum` per leaf), runs ``finish`` and keeps its value."""
+
+    def __init__(self, buf: torch.Tensor, handle, m: int, weighted: bool, leaves, paths, finish):
+        super().__init__()
+        self.buf, self.handle, self.m, self.weighted = buf, handle, m, weighted
+        self.leaves, self.paths, self.finish = leaves, paths, finish
+
+    def finished(self, vars: Optional[AlgoVars] = None):
+        if self.done is None:
+            self.handle.wait()
+            self.done = self.finish(_leaf_finish(self.buf, self.leaves, self.paths, self.m, self.weighted), vars)
+        return self.done
 
 
-def _wire_views(buf: torch.Tensor, px: Packed):
-    """``buf`` cut into one (n,) view a bucket."""
-    return torch.split(buf, [b.shape[-1] for b in px.buffers])
+def _means(means, vars):
+    """A per-leaf boundary's tail when the in-flight value is the mean."""
+    return means
+
+
+def _launch_leaves(x, vars: AlgoVars, membership, finish=_means):
+    """A per-leaf boundary's launch. On a worker mesh: the rank's rows' f32
+    (weighted) partial sums of every leaf into one flat wire buffer, its
+    ``all_reduce_async``, and ``finish(means, vars)`` left for the wait;
+    else ``finish`` run on the worker mean at once."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return vars, finish(_worker_mean(x, _mem_weights(membership)), vars)
+    leaves, paths = tree_flatten(x)
+    mem = _local(membership)
+    buf = _rank_sums([_rows(t) for t in leaves], None if mem is None else mem.weights)
+    return vars, RankLeafInflight(buf, sharding.all_reduce_async(buf, mesh), _leading(x), mem is not None, leaves,
+                                  paths, finish)
+
+
+def _arrived(inflight, vars: Optional[AlgoVars] = None):
+    """The value a boundary or a mid-round rebase consumes: a rank
+    boundary's pending collective waited on and finished; anything else as
+    it is."""
+    return inflight.finished(vars) if isinstance(inflight, _RankPending) else inflight
+
+
+def _bufs(px):
+    """The buffers of a plane, or a list of (r, n) row tensors as it is."""
+    return px.buffers if isinstance(px, Packed) else px
+
+
+def _wire_buffer(px) -> torch.Tensor:
+    """One flat f32 buffer for every bucket of x's plane, or every (r, n)
+    tensor of a list (f32 for a bf16 plane too: the worker sum is taken in
+    f32)."""
+    bufs = _bufs(px)
+    return torch.empty(sum(b.shape[-1] for b in bufs), dtype=torch.float32, device=bufs[0].device)
+
+
+def _wire_views(buf: torch.Tensor, px):
+    """``buf`` cut into one (n,) view a bucket (a tensor of a list)."""
+    return torch.split(buf, [b.shape[-1] for b in _bufs(px)])
 
 
 def _finish_sum(s: torch.Tensor, m: int, weighted: bool, dtype) -> torch.Tensor:
@@ -320,13 +469,14 @@ def _finish_sum(s: torch.Tensor, m: int, weighted: bool, dtype) -> torch.Tensor:
     return out
 
 
-def _rank_sums(px: Packed, weights=None, buf=None) -> torch.Tensor:
-    """The f32 partial worker sums of this rank's rows, every bucket into
-    one wire buffer (``buf``, or a new one), over column chunks: rows
-    0 .. r−1 in order, each term weighted with ``weights`` (the rows'
-    slice of a membership's weights) — the stacked worker mean's order."""
+def _rank_sums(px, weights=None, buf=None) -> torch.Tensor:
+    """The f32 partial worker sums of this rank's rows, every bucket (every
+    (r, n) tensor of a list: the leaves' rows) into one wire buffer
+    (``buf``, or a new one), over column chunks: rows 0 .. r−1 in order,
+    each term weighted with ``weights`` (the rows' slice of a membership's
+    weights) — the stacked worker mean's order."""
     buf = _wire_buffer(px) if buf is None else buf
-    for b, s in zip(px.buffers, _wire_views(buf, px)):
+    for b, s in zip(_bufs(px), _wire_views(buf, px)):
         rows = _rows(b)
         for c in column_chunks(rows):
             s[c] = row_sum(rows[:, c]) if weights is None else worker_mean(rows[:, c], weights)
@@ -344,35 +494,40 @@ def finish_inflight(inflight, vars: AlgoVars):
 
 def is_rank_inflight(inflight) -> bool:
     """Whether ``inflight`` is a rank boundary's pending collective."""
-    return isinstance(inflight, (RankInflight, RankRebaseInflight, RankSparseInflight, RankGossipInflight))
+    return isinstance(inflight, _RankPending)
 
 
-def rank_probe(px: Packed, mesh, sums=None) -> ConsensusStats:
-    """The consensus stats of the pre-boundary plane over all ranks, as the
-    stacked probe gives them: x̄ from the unweighted f32 row sums (one
-    blocking n-wide all-reduce, or ``sums``, the all-reduced sums the
-    boundary already holds), K8's rank form a bucket, the buckets' drift
-    sums added over the ranks in float64 (one scalar all-reduce) and
-    rounded to f32 once."""
-    m = px.lead_shape[0] * mesh.size
+def rank_probe(px, mesh, sums=None) -> ConsensusStats:
+    """The consensus stats of the pre-boundary plane (or of a list of the
+    leaves' (r, n) rows) over all ranks, as the stacked probe gives them:
+    x̄ from the unweighted f32 row sums (one blocking n-wide all-reduce, or
+    ``sums``, the all-reduced sums the boundary already holds), K8's rank
+    form a bucket (a leaf), the drift sums added over the ranks in float64
+    (one scalar all-reduce) and rounded to f32 once."""
+    m = _bufs(px)[0].shape[0] * mesh.size
     own = sums is None
     if own:
         sums = sharding.all_reduce_(_rank_sums(px), mesh)
     mt = torch.full((), float(m), dtype=torch.float32, device=sums.device)
     xbar = sums.div_(mt) if own else sums / mt  # in place in a buffer of its own (a plane's f32 bytes)
-    parts = torch.stack([probe_rows(_rows(b), xb) for b, xb in zip(px.buffers, _wire_views(xbar, px))])
+    parts = torch.stack([probe_rows(_rows(b), xb) for b, xb in zip(_bufs(px), _wire_views(xbar, px))])
     drift = sharding.all_reduce_(parts[:, 0].contiguous(), mesh)
     return stats_from_partials([torch.stack([d, sc]).float() for d, sc in zip(drift, parts[:, 1])], m)
 
 
-def rank_worker_mean(px: Packed, mesh) -> Packed:
-    """The f32 worker mean of every bucket over all ranks, alike on every
-    rank: the rows' f32 sums, one blocking all-reduce, divided by m. f32
-    buffers of the plane's layout, with no lead axis."""
-    m = px.lead_shape[0] * mesh.size
-    buf = sharding.all_reduce_(_rank_sums(px), mesh)
+def rank_worker_mean(px, mesh):
+    """The f32 worker mean of every bucket (every leaf of a per-leaf x) over
+    all ranks, alike on every rank: the rows' f32 sums, one blocking
+    all-reduce, divided by m. f32 buffers of the plane's layout with no lead
+    axis, or a nested dict of f32 leaves without their worker axis."""
+    leaves, paths = (px.buffers, None) if isinstance(px, Packed) else tree_flatten(px)
+    rows = [_rows(t) for t in leaves]
+    m = rows[0].shape[0] * mesh.size
+    buf = sharding.all_reduce_(_rank_sums(rows), mesh)
     buf.div_(torch.full((), float(m), dtype=torch.float32, device=buf.device))
-    return Packed(_wire_views(buf, px), px.layout)
+    if paths is None:
+        return Packed(_wire_views(buf, rows), px.layout)
+    return tree_unflatten(paths, [v.reshape(t.shape[1:]) for v, t in zip(_wire_views(buf, rows), leaves)])
 
 
 def _rank_average_(px: Packed, mesh, membership=None, probe: bool = False):
@@ -399,18 +554,14 @@ def _rank_average_(px: Packed, mesh, membership=None, probe: bool = False):
     return stats
 
 
-def check_rank_path(strategy, packed_step: bool = True) -> None:
-    """Raise ``NotImplementedError`` (ROADMAP item 10b) for what the worker
-    mesh does not run: the per-leaf path (``packed=False``, a legacy
-    ``Algorithm``, an optimizer with no packed step), offload, and a
-    strategy of one's own with no rank boundary."""
-    if not strategy.packed or not packed_step:
-        raise sharding.unsupported_on_ranks("the per-leaf path (packed=False, a legacy Algorithm or an optimizer "
-                                            "without a packed step)")
+def check_rank_path(strategy) -> None:
+    """Raise ``NotImplementedError`` for a strategy of one's own (or a
+    legacy ``Algorithm`` of one's own) with no rank boundary: the one thing
+    the worker axis does not run."""
     if not strategy.rank_capable:
-        raise sharding.unsupported_on_ranks(f"strategy {strategy.name!r}")
-    if strategy.cfg.offload:
-        raise sharding.unsupported_on_ranks("AlgoConfig.offload")
+        raise NotImplementedError(f"strategy {strategy.name!r} has no rank boundary: it cannot run on a worker mesh "
+                                  f"(torch.distributed ranks); set rank_capable once its boundary reduces over the "
+                                  f"ranks")
 
 
 class CommStrategy:
@@ -478,8 +629,12 @@ class CommStrategy:
         the rank boundary (:meth:`_rank_boundary`)."""
         mesh = sharding.current_mesh()
         if mesh is not None:
-            check_rank_path(self, packed_step=isinstance(x, Packed))
-            return self._rank_boundary(x, vars, inflight, mesh, probe=probe, membership=membership)
+            check_rank_path(self)
+            if not self.packed:
+                return self._boundary_phases(x, vars, inflight, probe=probe, membership=membership)
+            px = _as_plane(x)
+            out = self._rank_boundary(px, vars, inflight, mesh, probe=probe, membership=membership)
+            return (_write_back(x, px),) + tuple(out[1:])
         if not self.packed:
             return self._boundary_phases(x, vars, inflight, probe=probe, membership=membership)
         px = _as_plane(x)
@@ -487,8 +642,13 @@ class CommStrategy:
         return (_write_back(x, px),) + tuple(out[1:])
 
     def _boundary_phases(self, x, vars: AlgoVars, inflight, probe: bool = False, membership=None):
-        """The per-leaf composition: apply, then launch."""
-        stats = tree_probe(x) if probe else None
+        """The per-leaf composition: apply, then launch (on a worker mesh the
+        probe over all ranks, :func:`rank_probe` on the leaves' rows)."""
+        mesh = sharding.current_mesh()
+        if probe and mesh is not None:
+            stats = rank_probe([_rows(t) for t in tensors_of(x)], mesh)
+        else:
+            stats = tree_probe(x) if probe else None
         x, vars = self.boundary_apply(x, vars, inflight, membership=membership)
         vars, inflight = self.boundary_launch(x, vars, membership=membership)
         return _with_stats((x, vars, inflight), stats)
@@ -514,7 +674,7 @@ class CommStrategy:
         for t in leaves:
             mean = _mean_rows(t)
             total = total + torch.sum(torch.square(t.float() - mean[None].float()))
-        return {"consensus_dist": total / max(_leading(x), 1)}
+        return {"consensus_dist": total / max(tensors_of(x)[0].shape[0], 1)}
 
 
 class SyncSGDStrategy(CommStrategy):
@@ -528,9 +688,10 @@ class SyncSGDStrategy(CommStrategy):
         self.tau = 1
 
     def transform_grads(self, grads, vars):
-        """Per leaf, the worker mean written back to every worker's row."""
-        for g in tree_flatten(grads)[0]:
-            g.copy_(_mean_rows(g).expand_as(g))
+        """Per leaf, the worker mean written back to every worker's row (on a
+        worker mesh over all ranks: one blocking all-reduce a step)."""
+        for g, avg in zip(tree_flatten(grads)[0], tree_flatten(_worker_mean(grads))[0]):
+            g.copy_(avg.expand_as(g))
         return grads, vars
 
     def transform_grads_packed(self, pg: Packed, vars):
@@ -549,10 +710,11 @@ class SyncSGDStrategy(CommStrategy):
         return _with_stats((px, vars, None), rank_probe(px, mesh) if probe else None)
 
 
-def _average_rows_(t: torch.Tensor, weights=None, mask=None) -> None:
+def _average_rows_(t: torch.Tensor, weights=None, mask=None, avg=None) -> None:
     """Local SGD's average of one (m, ...) buffer in place: every row (with
-    ``mask`` only the live rows) takes the (weighted) worker mean."""
-    avg = _mean_rows(t, weights)
+    ``mask`` only the live rows) takes the (weighted) worker mean, or
+    ``avg`` where it is given."""
+    avg = _mean_rows(t, weights) if avg is None else avg
     if mask is None:
         t.copy_(avg.expand_as(t))
     else:  # dead rows keep their stale parameters (they re-sync on rejoin)
@@ -572,9 +734,11 @@ class LocalSGDStrategy(CommStrategy):
         return _with_stats((px, vars, None), stats)
 
     def boundary_apply(self, x, vars, inflight, membership=None):
-        mask = None if membership is None else membership.mask
-        for t in tree_flatten(x)[0]:
-            _average_rows_(t, _mem_weights(membership), mask)
+        mem = _local(membership)
+        mask = None if mem is None else mem.mask
+        means = tree_flatten(_worker_mean(x, _mem_weights(membership)))[0]  # blocking over the ranks
+        for t, avg in zip(tree_flatten(x)[0], means):
+            _average_rows_(t, mask=mask, avg=avg)
         return x, vars
 
     def _packed_boundary(self, px: Packed, vars, inflight, probe: bool = False, membership=None):
@@ -626,17 +790,21 @@ class OverlapLocalSGDStrategy(CommStrategy):
         return _pack_anchor(_as_plane(x)) if self.packed else _first_row(x)
 
     def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
+        inflight = _arrived(inflight, vars)  # on a worker mesh: the sum waited on, the momentum chain run
         _pullback(x, inflight, self.cfg.alpha, membership)
         if self.momentum:  # the consumed anchor: launch needs it for eq. (10)
             vars = AlgoVars(z=inflight, v=vars.v, extra=vars.extra)
         return x, vars
 
     def boundary_launch(self, x, vars: AlgoVars, membership=None):
-        mean_x = _worker_mean(x, _mem_weights(membership))
         if not self.momentum:
-            return vars, mean_x
-        beta = self.cfg.anchor_beta
-        return vars, tree_map(lambda v, m, z: _momentum_(v, m, z, beta), vars.v, mean_x, vars.z)
+            return _launch_leaves(x, vars, membership)
+        z, beta = vars.z, self.cfg.anchor_beta
+
+        def finish(mean_x, vars):  # eqs. (10)-(11) from the launch's anchor (on a mesh, at the next boundary)
+            return tree_map(lambda v, mn, zz: _momentum_(v, mn, zz, beta), vars.v, mean_x, z)
+
+        return _launch_leaves(x, vars, membership, finish)
 
     def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         alpha, weights = self.cfg.alpha, _mem_weights(membership)
@@ -788,6 +956,8 @@ class _AvgRebaseStrategy(CommStrategy):
         avg: Any  # mean of the launch-time models (the overlapped collective)
         x0: Any  # the launch-time models, a copy of their own
 
+        ROWS = ("x0",)  # worker-stacked per leaf (on a worker mesh the rank's rows)
+
     rank_capable = True
 
     def init_inflight(self, x, vars):
@@ -801,12 +971,17 @@ class _AvgRebaseStrategy(CommStrategy):
             m = px.lead_shape[0] * mesh.size
             avg = Packed(tuple(_mean_rows(b[:1].expand(m, -1)) for b in px.buffers), px.layout)
             return self.Inflight(avg=avg, x0=_copy_plane(px))
-        return self.Inflight(avg=_worker_mean(x), x0=_clone(x))
+        if sharding.current_mesh() is None:
+            return self.Inflight(avg=_worker_mean(x), x0=_clone(x))
+        m = _leading(x)  # every row starts equal: the mean of m copies of a row, with no collective
+        return self.Inflight(avg=tree_map(lambda t: _mean_rows(t[:1].expand(m, *t.shape[1:])), x), x0=_clone(x))
 
     @staticmethod
     def _rebase(x, inflight, membership=None):
-        """The rebase per leaf, in place."""
-        tree_map(lambda t, t0, av: _rebase_rows_(t, t0, av, membership), x, inflight.x0, inflight.avg)
+        """The rebase per leaf, in place (``inflight`` a rank boundary's
+        pending average: waited on and finished first)."""
+        inflight, mem = _arrived(inflight), _local(membership)
+        tree_map(lambda t, t0, av: _rebase_rows_(t, t0, av, mem), x, inflight.x0, inflight.avg)
         return x
 
     @staticmethod
@@ -817,7 +992,8 @@ class _AvgRebaseStrategy(CommStrategy):
         return px
 
     def boundary_launch(self, x, vars, membership=None):
-        return vars, self.Inflight(avg=_worker_mean(x, _mem_weights(membership)), x0=_clone(x))
+        x0 = _clone(x)  # on a worker mesh finished where it is consumed
+        return _launch_leaves(x, vars, membership, lambda avg, _: self.Inflight(avg=avg, x0=x0))
 
     def _packed_launch(self, px: Packed, inflight, weights=None):
         """The next collective from the plane: the (weighted) worker mean, and
@@ -936,12 +1112,12 @@ class DelayedAveragingStrategy(_AvgRebaseStrategy):
             return x
         if self.packed:  # a packed in-flight plane, per-leaf x
             px = pack(x, lead=1)
-            return _write_back(x, self._rebase_packed(px, inflight))
+            return _write_back(x, self._rebase_packed(px, _arrived(inflight)))
         return self._rebase(x, inflight)
 
     def local_post_update_packed(self, px: Packed, vars, inflight, k_in_round: int) -> Packed:
         if self._arrives(k_in_round):  # on a worker mesh: the average's all-reduce is waited here
-            self._rebase_packed(px, inflight.finished() if isinstance(inflight, RankRebaseInflight) else inflight)
+            self._rebase_packed(px, _arrived(inflight))
         return px
 
     def _consumes_at_boundary(self) -> bool:
@@ -1059,6 +1235,18 @@ def _sparse_step(means, z: Packed, e: Packed, k: float) -> list:
     return z_next
 
 
+def _leaf_sparse_step(mean_x, z, e, k: float):
+    """The per-leaf sparse anchor step from the worker means: Δ = mean − z +
+    e in f32, s = the top-k of Δ leaf by leaf, e ← Δ − s in place; returns
+    z' = round(z + s) (the means at k = 1)."""
+    if k >= 1.0:  # dense: z' = mean(x), nothing truncated
+        return mean_x
+    delta = tree_map(lambda m, zl, el: m.float() - zl.float() + el, mean_x, z, e)
+    s = sparsify_topk(delta, k)
+    tree_map(lambda el, d, si: el.copy_(d - si), e, delta, s)
+    return tree_map(lambda zl, si: (zl.float() + si).to(zl.dtype), z, s)
+
+
 class SparseAnchorStrategy(CommStrategy):
     """LOSCAR-style top-k sparse anchor averaging with error feedback:
     Overlap-Local-SGD (β = 0, K4 per bucket) whose launched anchor moves
@@ -1089,18 +1277,14 @@ class SparseAnchorStrategy(CommStrategy):
         return _pack_anchor(_as_plane(x)) if self.packed else _first_row(x)
 
     def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
+        inflight = _arrived(inflight, vars)  # on a worker mesh: the sum waited on, the sparse step taken
         _pullback(x, inflight, self.cfg.alpha, membership)
         # the consumed anchor is the base of this round's launched delta
         return x, AlgoVars(z=inflight, v=vars.v, extra=vars.extra)
 
     def boundary_launch(self, x, vars: AlgoVars, membership=None):
-        mean_x = _worker_mean(x, _mem_weights(membership))
-        if self.k >= 1.0:  # dense: z' = mean(x), nothing truncated
-            return vars, mean_x
-        delta = tree_map(lambda m, z, e: m.float() - z.float() + e, mean_x, vars.z, vars.extra)
-        s = sparsify_topk(delta, self.k)
-        tree_map(lambda e, d, si: e.copy_(d - si), vars.extra, delta, s)
-        return vars, tree_map(lambda z, si: (z.float() + si).to(z.dtype), vars.z, s)
+        z, k = vars.z, self.k  # on a worker mesh the sparse step is taken where the sum is waited on
+        return _launch_leaves(x, vars, membership, lambda mean_x, vars: _leaf_sparse_step(mean_x, z, vars.extra, k))
 
     def _packed_boundary(self, px: Packed, vars: AlgoVars, inflight, probe: bool = False, membership=None):
         outs = _pullback_mean(px, inflight, self.cfg.alpha, probe=probe, weights=_mem_weights(membership))
@@ -1141,6 +1325,8 @@ class GossipInflight(NamedTuple):
     mix: Any
     w: Any
 
+    ROWS = ("mix",)  # worker-stacked per leaf (on a worker mesh the rank's rows)
+
 
 class DrainedGossipInflight(GossipInflight):
     """A gossip in-flight value finished on a worker mesh: ``mix`` the
@@ -1149,7 +1335,7 @@ class DrainedGossipInflight(GossipInflight):
     next boundary's t (read from the device when absent)."""
 
 
-class RankGossipInflight:
+class RankGossipInflight(_RankPending):
     """The in-flight push of a gossip rank boundary: ``own`` the rank's
     launch-time rows x' (a plane of their own, the exchange's send buffers),
     ``exchange`` the launched neighbour exchange of phase ``phase`` (the
@@ -1157,14 +1343,18 @@ class RankGossipInflight:
     launch's (m, m) f32 Peff and ``w`` = Σ_j Peff[i, j], the (m,) push
     weights the next boundary debiases by. :meth:`finished` (the drain)
     waits once and forms the mix of the rank's rows into ``own`` (K5's
-    gossip rank form, mode 2), the stacked run's in-flight value."""
+    gossip rank form, mode 2), the stacked run's in-flight value; with
+    ``leaves`` (the per-leaf path: ``own`` every leaf's rows packed into one
+    flat buffer a dtype) the mix comes back as per-leaf views."""
 
     # under the tests: the drain compares the host's phase with the device counter
     check_phase = False
 
-    def __init__(self, own: Packed, exchange, peers, peff: torch.Tensor, w: torch.Tensor, phase: int):
+    def __init__(self, own: Packed, exchange, peers, peff: torch.Tensor, w: torch.Tensor, phase: int,
+                 leaves: bool = False):
+        super().__init__()
         self.own, self.exchange, self.peers, self.peff, self.w, self.phase = own, exchange, peers, peff, w, phase
-        self.done = None
+        self.leaves = leaves
         self.consumed = False  # a boundary formed the mix and rewrote own
 
     def finished(self, vars: AlgoVars) -> DrainedGossipInflight:
@@ -1179,7 +1369,8 @@ class RankGossipInflight:
                 anchor_ops.gossip_rank_(bo, bo, recv[b] if self.peers.received else None, self.peers.held,
                                         self.peers.received, lo, self.peff, self.w[:0].new_ones(bo.shape[0]),
                                         self.w[:0].new_zeros(bo.shape[0]), 0.0, mode=2)
-            self.done = DrainedGossipInflight(mix=self.own, w=self.w)
+            mix = tree_unflatten(self.own.layout.paths, leaf_views(self.own)) if self.leaves else self.own
+            self.done = DrainedGossipInflight(mix=mix, w=self.w)
             self.done.phase = self.phase + 1
         return self.done
 
@@ -1266,9 +1457,12 @@ class GossipPushSumStrategy(CommStrategy):
 
     def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
         alpha = self.cfg.alpha
+        inflight = _arrived(inflight, vars)  # on a worker mesh: the exchange waited on, the rows' mix formed
         if self.full:
             return _pullback(x, inflight, alpha, membership), vars
         w, t = vars.extra
+        mesh = sharding.current_mesh()
+        lo, hi = (0, w.shape[0]) if mesh is None else mesh.rows(w.shape[0])  # the rank's rows of the (m,) vectors
         wmix = inflight.w
         # a row that received no push mass (dead when this collective
         # launched, rejoining now) keeps x: nothing arrived to debias
@@ -1277,19 +1471,28 @@ class GossipPushSumStrategy(CommStrategy):
             moves = moves & (membership.mask > 0)
         wsafe = torch.where(wmix > 0, wmix, torch.ones_like(wmix))
 
-        def debias(mix):
-            return (mix.float() / wsafe.reshape((-1,) + (1,) * (mix.dim() - 1))).to(mix.dtype)
+        def debias(mix):  # the rank's rows of the mix
+            return (mix.float() / wsafe[lo:hi].reshape((-1,) + (1,) * (mix.dim() - 1))).to(mix.dtype)
 
         old = _clone(x)
         anchor_ops.pullback_tree(x, tree_map(debias, inflight.mix), alpha)
-        _live_where_(moves.to(torch.float32), x, old)
+        _live_where_(moves.to(torch.float32)[lo:hi], x, old)
         return x, AlgoVars(z=vars.z, v=vars.v, extra=(torch.where(moves, wmix, w), t))
 
     def boundary_launch(self, x, vars: AlgoVars, membership=None):
         w, t = vars.extra
+        mesh = sharding.current_mesh()
         if self.full:
-            return self._tick(vars, w), _worker_mean(x, _mem_weights(membership))
+            return _launch_leaves(x, self._tick(vars, w), membership)
         Peff = self._push_matrix(_leading(x), t, w, membership)
+        if mesh is not None:
+            # every leaf's launch-time rows in one flat buffer a dtype, sent to the
+            # peers the phase's push reads them from (the phase: one read of t)
+            own, phase = pack(x, lead=1), int(t)
+            peers = cached_rank_peers(self.topo_name, _leading(x), mesh.size, phase)[mesh.rank]
+            out = RankGossipInflight(own, sharding.exchange_rows(own.buffers, peers, mesh), peers, Peff,
+                                     torch.sum(Peff, dim=1), phase, leaves=True)
+            return self._tick(vars, w), out
         mix = tree_map(lambda leaf: _push(Peff, leaf), x)
         return self._tick(vars, w), GossipInflight(mix=mix, w=torch.sum(Peff, dim=1))
 
@@ -1396,6 +1599,8 @@ class LegacyStrategy(CommStrategy):
         self.name = algorithm.name
         self.needs_anchor = algorithm.needs_anchor
         self.packed = False  # legacy semantics are the per-leaf reference
+        # the shipped shims reduce through the mesh-aware worker mean
+        self.rank_capable = getattr(algorithm, "rank_capable", False)
 
     def init_vars(self, x) -> AlgoVars:
         return self.algorithm.init_vars(x)

@@ -28,7 +28,10 @@ rank. Two anchors are sums over all m workers, taken as the rows' f32
 partial sums added over the ranks (one blocking all-reduce): the gossip
 family's Σ_i mix_i / Σ_i w_i (the drained mix holds the rank's rows) and the
 live-mean fallback of the strategies with no anchor (local_sgd, sync_sgd,
-powersgd).
+powersgd). A per-leaf state takes the same steps leaf by leaf (its drain
+finishes the per-leaf in-flight value), and an offloaded state is drained
+on device copies of its host planes (:func:`repro_torch.training.drain`):
+the anchor read for the re-sync is a device copy, the host planes stay.
 """
 from __future__ import annotations
 

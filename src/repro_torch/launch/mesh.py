@@ -10,17 +10,19 @@ group: one process a worker rank, each holding m/W rows of the plane
         res = exp.fit(rounds=8, adaptive_tau=TauController(...), faults=FaultPlan.parse("crash:1@2-5", m=m, seed=7))
         exp.evaluate()                                         # the consensus of all m workers
 
-What runs on a mesh (ROADMAP item 10b's first two parts): ``Experiment.fit``,
-plain, with ``faults=``, with ``adaptive_tau=`` and with both, for every
-strategy (overlap_local_sgd, local_sgd, sync_sgd, easgd, cocod, delayed_avg,
+What runs on a mesh (ROADMAP item 10b): ``Experiment.fit``, plain, with
+``faults=``, with ``adaptive_tau=`` and with both, for every strategy
+(overlap_local_sgd, local_sgd, sync_sgd, easgd, cocod, delayed_avg,
 sparse_anchor, powersgd and the gossip family: gossip_full, gossip_ring,
-gossip_exp, gossip_pushsum/sgp); the readers ``consensus()``,
-``consensus_plane()``, ``anchor_plane()``, ``evaluate()`` and ``serve()``;
-``checkpoint.save`` (rank 0 writes the one-process file) and
-``checkpoint.restore`` (each rank keeps its rows; ``elastic=True`` moves a
-state between W and m). Every rank makes the same calls and ends with the
-same losses, τ schedule, fault log, anchor and readers. Offload and the
-per-leaf path raise (item 10b's third part).
+gossip_exp, gossip_pushsum/sgp), on the packed plane, per leaf
+(``AlgoConfig(packed=False)``, the legacy ``Algorithm`` shims, an optimizer
+with no packed step) and host-offloaded (``AlgoConfig(offload=True)``: each
+rank's optimizer state on its own pinned host stacks); the readers
+``consensus()``, ``consensus_plane()``, ``anchor_plane()``, ``evaluate()``
+and ``serve()``; ``checkpoint.save`` (rank 0 writes the one-process file)
+and ``checkpoint.restore`` (each rank keeps its rows; ``elastic=True``
+moves a state between W and m). Every rank makes the same calls and ends
+with the same losses, τ schedule, fault log, anchor and readers.
 
 The reference's production mesh (``make_production_mesh``, the v5e pod)
 and its TPU constants wait for ROADMAP Queue 1 item 10d; within-worker

@@ -49,11 +49,17 @@ F32 = torch.float32
 class SGDState(NamedTuple):
     momentum: dict  # like the worker-stacked params
 
+    ROWS = ("momentum",)  # worker-stacked (on a worker mesh the rank's rows): the checkpointer's gather
+
+
+
 
 class AdamState(NamedTuple):
     mu: dict  # f32, like the worker-stacked params
     nu: dict
     count: torch.Tensor  # (m,) int32: each worker's count (the reference's vmapped count)
+
+    ROWS = ("mu", "nu", "count")
 
 
 class PackedSGDState(NamedTuple):

@@ -37,6 +37,17 @@ a ``non_blocking`` copy from pageable memory would block the host.
 
 Chunk shapes are static: :class:`OffloadPlan` is the reference's table,
 grid for grid, derived from the layout's bucket sizes and dtypes.
+
+The tree walks (:func:`tree_offload`, :func:`tree_restore`, ...) go
+through NamedTuples (their attributes kept: a drained gossip value's host
+phase), tuples, lists and dicts, and through any node with a
+``map_planes(fn, other)`` method: the rank boundaries' in-flight kinds
+(:mod:`repro_torch.core.strategy`), whose anchor-shaped planes move while
+the f32 wire buffer and what a pending collective reads stay on the
+device. On a worker mesh each rank's optimizer state holds its rows (the
+stacks' lead is r) and its plan is the same layout's. One walk maps a plane
+held at two places of the tree (a rank boundary's anchor is both vars.z and
+the in-flight value's base) to one host plane, and back.
 """
 from __future__ import annotations
 
@@ -320,17 +331,27 @@ def restore_plane(hp: HostPlane) -> Packed:
 # State trees (NamedTuples, tuples, lists, dicts; tensors and None pass through)
 
 
-def _map(fn: Callable, tree, other=None):
+def _map(fn: Callable, tree, other=None, memo=None):
     """Rebuild ``tree`` with ``fn(node, other_node)`` at every Packed and
-    HostPlane node; ``other`` is a tree of the same structure (or None)."""
+    HostPlane node; ``other`` is a tree of the same structure (or None).
+    With ``memo`` (a dict) a node met twice maps once."""
     if isinstance(tree, (Packed, HostPlane)):
-        return fn(tree, other)
+        if memo is None:
+            return fn(tree, other)
+        if id(tree) not in memo:
+            memo[id(tree)] = (tree, fn(tree, other))  # the node kept alive: its id stays its own
+        return memo[id(tree)][1]
+    if hasattr(tree, "map_planes"):  # a rank boundary's in-flight kind
+        return tree.map_planes(lambda n, o: _map(fn, n, o, memo), other)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(fn, v, _field(other, f)) for f, v in zip(tree._fields, tree)))
+        out = type(tree)(*(_map(fn, v, _field(other, f), memo) for f, v in zip(tree._fields, tree)))
+        if getattr(tree, "__dict__", None):
+            out.__dict__.update(tree.__dict__)
+        return out
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, v, _item(other, i)) for i, v in enumerate(tree))
+        return type(tree)(_map(fn, v, _item(other, i), memo) for i, v in enumerate(tree))
     if isinstance(tree, dict):
-        return {k: _map(fn, v, other.get(k) if isinstance(other, dict) else None) for k, v in tree.items()}
+        return {k: _map(fn, v, other.get(k) if isinstance(other, dict) else None, memo) for k, v in tree.items()}
     return tree
 
 
@@ -356,9 +377,10 @@ def is_offloaded(tree) -> bool:
 def tree_offload(tree, plan: OffloadPlan, into=None):
     """Offload every ``Packed`` plane in a state tree (vars, inflight, the
     optimizer state); other leaves (scalars, masks, tensors) pass through.
-    ``into``: the tree's previous host form, whose stacks are reused."""
+    ``into``: the tree's previous host form, whose stacks are reused. A
+    plane met twice becomes one host plane."""
     return _map(lambda n, o: offload_plane(n, plan, o if isinstance(o, HostPlane) else None)
-                if isinstance(n, Packed) else n, tree, into)
+                if isinstance(n, Packed) else n, tree, into, memo={})
 
 
 def tree_restore_async(tree):
@@ -373,7 +395,7 @@ def tree_restore_async(tree):
         pending.add(p)
         return px
 
-    return _map(restore, tree), pending
+    return _map(restore, tree, memo={}), pending
 
 
 def tree_restore(tree):
@@ -390,8 +412,10 @@ def plan_of(tree) -> Optional[OffloadPlan]:
 
 
 def host_nbytes(tree) -> int:
-    """Total host-resident bytes across every HostPlane in ``tree``."""
-    return sum(n.nbytes for n in _nodes(tree) if isinstance(n, HostPlane))
+    """Total host-resident bytes across every HostPlane in ``tree``, each
+    counted once (a rank boundary's anchor is vars.z and the in-flight
+    value's base: one host plane)."""
+    return sum(n.nbytes for n in {id(n): n for n in _nodes(tree) if isinstance(n, HostPlane)}.values())
 
 
 # ---------------------------------------------------------------------------

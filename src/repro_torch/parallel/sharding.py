@@ -34,10 +34,10 @@ staged through pinned host buffers (:func:`exchange_transport` names the
 choice). The checkpointer gathers row-stacked planes with
 :func:`gather_rows_exact`, bit for bit (−0.0 included).
 
-Only the worker axis is here (ROADMAP Queue 1 item 10a and 10b's first two
-parts: every strategy and the checkpointer). Within-worker sharding (fsdp,
-tensor), the logical rule table and the ZeRO-sharded anchor are item 10c;
-offload and the per-leaf path still raise on a mesh, naming item 10b
+Only the worker axis is here (ROADMAP Queue 1 items 10a and 10b: every
+strategy, packed, per leaf and host-offloaded, and the checkpointer).
+Within-worker sharding (fsdp, tensor), the logical rule table and the
+ZeRO-sharded anchor are item 10c, the one path that raises on a mesh
 (:func:`unsupported_on_ranks`).
 """
 from __future__ import annotations
@@ -81,7 +81,7 @@ class _Ctx(threading.local):
 _CTX = _Ctx()
 
 
-def unsupported_on_ranks(what: str, item: str = "10b") -> NotImplementedError:
+def unsupported_on_ranks(what: str, item: str = "10c") -> NotImplementedError:
     """The error of a path not ported to a worker mesh (ROADMAP Queue 1)."""
     return NotImplementedError(f"{what} on a worker mesh (torch.distributed ranks): ROADMAP Queue 1 item {item}")
 

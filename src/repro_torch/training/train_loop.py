@@ -59,7 +59,12 @@ returns; PowerSGD's gradient hook all-reduces its factor sums at every
 step. :func:`drain` waits on the collective and finishes it, so that the
 state equals the one-device run's at the same step. Per-worker metrics
 are the rank's own rows; the probe's stats are over all m workers, equal on
-every rank.
+every rank. The per-leaf path runs there too: x is a dict of the rank's
+``(r, ...)`` leaves and the per-leaf boundary reduces over the ranks
+(:mod:`repro_torch.core.strategy`). So does offload: each rank streams the
+optimizer state of its rows from its own pinned host stacks, and the rank
+in-flight kinds keep their anchor-shaped planes on the host between
+boundaries while their f32 wire buffer stays on the card.
 
 With ``AlgoConfig.offload`` (the reference's residency, DESIGN.md §9) the
 optimizer state, vars and the in-flight plane are host-resident
@@ -70,7 +75,9 @@ first hook that reads vars), streams the optimizer state through
 ``step_streamed`` every local step, restores the in-flight plane at the
 boundary (before the window when the strategy consumes it mid-round) and
 sends vars and the in-flight plane back to their host stacks after the
-boundary. A resident state is adopted into the offloaded form.
+boundary, in one walk, so that a plane held by both (a rank boundary's
+anchor is vars.z and the in-flight value's base) takes one host copy. A
+resident state is adopted into the offloaded form.
 """
 from __future__ import annotations
 
@@ -227,8 +234,8 @@ def make_round_step(
             x = pack(x, lead=1)  # a per-leaf x migrates into the plane
         mesh = sharding.current_mesh()
         if mesh is not None:  # this rank's rows of the round batch
-            check_rank_path(strategy, packed_step=packed_step)
-            lo, hi = mesh.rows(x.lead_shape[0] * mesh.size)
+            check_rank_path(strategy)
+            lo, hi = mesh.rows(tensors_of(x)[0].shape[0] * mesh.size)
             if _first(round_batch).shape[1] != mesh.size * (hi - lo):
                 raise ValueError(f"on a worker mesh a round batch holds all {mesh.size * (hi - lo)} workers, "
                                  f"got {_first(round_batch).shape[1]}")
@@ -275,8 +282,7 @@ def make_round_step(
         x, vars, inflight = out[:3]
         if offload_on:
             # D2H: the boundary's outputs back into their host stacks until the next round
-            vars = off.tree_offload(vars, plan, into=host_vars)
-            inflight = off.tree_offload(inflight, plan, into=host_inflight)
+            vars, inflight = off.tree_offload((vars, inflight), plan, into=(host_vars, host_inflight))
         metrics = {name: torch.stack([m[name] for m in per_step]) for name in per_step[0]}
         if probe:
             metrics.update(consensus_drift=out[3].drift, consensus_scale=out[3].scale)
@@ -289,11 +295,20 @@ def drain(state: TrainState) -> TrainState:
     """Wait on the collective a rank boundary left in flight and finish it
     (Overlap-Local-SGD's anchor, sparse_anchor's sparse step with its error
     feedback, the avg-rebase strategies' average, the gossip mix of the
-    rank's rows):
+    rank's rows; per leaf the same, leaf by leaf):
     ``state.inflight`` and ``state.vars`` then equal the one-device run's at
     the same step. Idempotent, and a no-op off a worker mesh; the next
     boundary starts from the finished value, as the first one does. Call it
-    at the end of a run and before anything reads the anchor."""
+    at the end of a run and before anything reads the anchor. An offloaded
+    state (its optimizer state on the host) is finished on device copies of
+    vars and the in-flight planes, and vars and the finished value go back
+    to the host: vars into their own stacks."""
     if not is_rank_inflight(state.inflight):
         return state
-    return state._replace(inflight=finish_inflight(state.inflight, state.vars))
+    plan = off.plan_of(state.opt)
+    if plan is None:
+        return state._replace(inflight=finish_inflight(state.inflight, state.vars))
+    vars = off.tree_restore(state.vars)
+    done = finish_inflight(off.tree_restore(state.inflight), vars)
+    vars, done = off.tree_offload((vars, done), plan, into=(state.vars, None))
+    return state._replace(vars=vars, inflight=done)

@@ -21,7 +21,10 @@ state is this rank's: x holds its m/W rows (m must divide by W) and the
 optimizer state matches them, while vars and the first in-flight anchor are
 built from the full ``params``, as on one device, and stay replicated (the
 avg-rebase strategies' first average is the mean of m copies of a row, its
-x₀ the rank's own rows).
+x₀ the rank's own rows). Per leaf, x is a dict of the rank's ``(r, ...)``
+leaves and the per-leaf optimizer state matches them; offloaded, the
+optimizer state of the rank's rows is chunked by the plan of the rank's
+layout (lead r).
 
 With ``AlgoConfig.offload`` the state is built offloaded, as the reference
 builds it: ``opt``, ``vars`` and ``inflight`` are
@@ -49,6 +52,8 @@ class TrainState(NamedTuple):
     inflight: Any = None  # anchor launched last boundary, consumed next
     membership: Any = None  # repro_torch.fault.Membership of a degraded round; None = fully live
 
+    ROWS = ("x",)  # a per-leaf x's leaves are worker-stacked (on a worker mesh the rank's rows)
+
 
 def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy) -> TrainState:
     """All m workers start at ``params`` (Theorem 1's initialization).
@@ -57,7 +62,7 @@ def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy) -> Tr
     strategy = as_strategy(strategy)
     mesh = sharding.current_mesh()
     if mesh is not None:
-        check_rank_path(strategy, packed_step=packed_capable(optimizer))
+        check_rank_path(strategy)
         lo, hi = mesh.rows(m)
         m = hi - lo
     leaves, paths = tree_flatten(params)

@@ -292,12 +292,14 @@ def test_one_rank_is_the_stacked_run_bit_for_bit(one_rank, strat):
 
 
 def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
-    """Every path not ported to a worker mesh raises NotImplementedError
-    naming ROADMAP item 10b (the per-leaf path, offload) or 10c
-    (within-worker sharding); what 10b's first two parts ported runs (every
-    strategy: easgd, cocod, delayed_avg, sparse_anchor, powersgd and the
-    gossip family; the probe, a membership, Experiment.fit and the readers
-    of all m workers; the checkpointer's save and restore)."""
+    """Within-worker sharding, the one path not ported to a worker mesh,
+    raises NotImplementedError naming ROADMAP item 10c, and a strategy of
+    one's own with no rank boundary raises; what item 10b ported runs
+    (every strategy: easgd, cocod, delayed_avg, sparse_anchor, powersgd and
+    the gossip family; the per-leaf path, a legacy Algorithm and offload,
+    each a round that ends with finite planes; the probe, a membership,
+    Experiment.fit and the readers of all m workers; the checkpointer's save
+    and restore)."""
     import torch.distributed as dist
 
     from repro_torch import checkpoint
@@ -308,8 +310,9 @@ def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
     from repro_torch.models import classifier as clf
     from repro_torch.optim import from_config, schedules
     from repro_torch.config import OptimizerConfig
+    from repro_torch.core.strategy import CommStrategy
     from repro_torch.parallel.sharding import logical_mesh, mesh_context
-    from repro_torch.training import make_round_step, make_train_state
+    from repro_torch.training import drain, make_round_step, make_train_state
 
     with pytest.raises(NotImplementedError, match="item 10c"):
         make_smoke_mesh(1, fsdp=2)
@@ -330,11 +333,22 @@ def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
             step = make_round_step(clf.mlp_loss, opt, strat, schedules.constant(0.1))
             batch = (torch.zeros(strat.tau, 2, 2, 8), torch.zeros(strat.tau, 2, 2, dtype=torch.int32))
             assert all(torch.isfinite(b).all() for b in step(state, batch)[0].x.buffers), name
-        for strategy in (AlgoConfig(packed=False), AlgoConfig(offload=True)):
-            with pytest.raises(NotImplementedError, match="item 10b"):
-                make_train_state(params, 2, opt, make_strategy(strategy))
-        with pytest.warns(DeprecationWarning), pytest.raises(NotImplementedError, match="per-leaf.*item 10b"):
-            make_train_state(params, 2, opt, make_algorithm(AlgoConfig()))
+        # ported (item 10b's third part): the per-leaf path, offload and a legacy Algorithm
+        with pytest.warns(DeprecationWarning):
+            legacy = make_algorithm(AlgoConfig())
+        for strategy in (make_strategy(AlgoConfig(packed=False)),
+                         make_strategy(AlgoConfig(offload=True, offload_chunk_mb=1 / 64)), legacy):
+            state = make_train_state(params, 2, opt, strategy)
+            step = make_round_step(clf.mlp_loss, opt, strategy, schedules.constant(0.1))
+            batch = (torch.zeros(strategy.tau, 2, 2, 8), torch.zeros(strategy.tau, 2, 2, dtype=torch.int32))
+            x = drain(step(state, batch)[0]).x
+            assert all(torch.isfinite(t).all() for t in (x.values() if isinstance(x, dict) else x.buffers))
+
+        class OwnStrategy(CommStrategy):  # a strategy of one's own: no rank boundary
+            name = "own"
+
+        with pytest.raises(NotImplementedError, match="no rank boundary"):
+            make_train_state(params, 2, opt, OwnStrategy(AlgoConfig()))
         with pytest.raises(ValueError, match="divide"):
             one_rank.rows(0)
         strat = make_strategy(AlgoConfig())

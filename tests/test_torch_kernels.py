@@ -1992,3 +1992,44 @@ def test_gossip_rank_form_bitwise_on_card(cuda, dtype):
                         got = am_ops.gossip_rank_(x.clone(), own.clone(), rv, held, received, lo, peff, wsafe, live,
                                                   0.6, mode)
                         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (m, W, name, n, lo, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rank_path_shapes_on_card(cuda, dtype):
+    """The kernel forms the offloaded and per-leaf rank paths launch, at
+    their shapes, against their plain versions on the card: K8's rank form
+    on one and two rows of each of the classifier's leaves (the per-leaf
+    probe on ranks; widths down to the 10-wide bias) within rtol 1e-6, the
+    same bits on a second launch; K1's and K2's window form on one and two
+    rows of a rank in the offloaded plan's chunks, bit for bit."""
+    from repro_torch.kernels.consensus_probe import ops as probe_ops
+    from repro_torch.kernels.consensus_probe import ref as probe_ref
+    from repro_torch.kernels.opt_step import ops, ref
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for r in (1, 2):
+        for n in (64 * 128, 128, 128 * 64, 64, 64 * 10, 10):
+            x = torch.randn(r, n, generator=gen, device=cuda).to(dtype)
+            xbar = x.float().sum(0) / r + 0.01 * torch.randn(n, generator=gen, device=cuda)
+            got, again = probe_ops.probe_rows(x, xbar), probe_ops.probe_rows(x, xbar)
+            want = probe_ref.rows_probe(x, xbar)
+            assert torch.equal(got, again) and torch.allclose(got, want, rtol=1e-6, atol=0.0), (r, n)
+        n, c = 17408, 4096 if dtype == torch.float32 else 8192
+        x, g = (torch.randn(r, n, generator=gen, device=cuda).to(dtype) for _ in range(2))
+        mom = (0.1 * torch.randn(r, n, generator=gen, device=cuda)).to(dtype)
+        mu, nu = 0.1 * torch.randn(r, n, generator=gen, device=cuda), torch.rand(r, n, generator=gen, device=cuda)
+        lr, c1, c2 = (torch.full((), v, device=cuda) for v in (0.05, 1 - 0.9**3, 1 - 0.95**3))
+        for c0 in range(0, n, c):
+            w = slice(c0, min(n, c0 + c))
+            xs, ms = x[:, w].clone(), mom[:, w].contiguous()
+            want = ref.sgd_update(xs, g[:, w], ms, lr, momentum=0.9, nesterov=True, weight_decay=1e-4)
+            xw = x.clone()
+            ops.sgd_step_window(xw[:, w], g[:, w], ms, lr, momentum=0.9, nesterov=True, weight_decay=1e-4)
+            assert torch.equal(xw[:, w], want[0]) and torch.equal(ms, want[1]), (r, c0)
+            mus, nus = mu[:, w].contiguous(), nu[:, w].contiguous()
+            want = ref.adamw_update(xs, g[:, w], mus, nus, lr, c1, c2, b1=0.9, b2=0.95, eps=1e-8, weight_decay=1e-4)
+            xw = x.clone()
+            ops.adamw_step_window(xw[:, w], g[:, w], mus, nus, lr, c1, c2, b1=0.9, b2=0.95, eps=1e-8,
+                                  weight_decay=1e-4)
+            assert all(torch.equal(a, b) for a, b in zip((xw[:, w], mus, nus), want)), (r, c0)

@@ -10,8 +10,10 @@ in every process), so the ranks run the port alone.
 faults and adaptive τ, ``tests/test_torch_dist_fit.py`` and
 ``tests/test_torch_dist_gossip.py``; :func:`run_ckpt_case` for a case with
 ``ckpt`` set: the checkpointer on the mesh, ``tests/test_torch_dist_ckpt.py``;
-:func:`run_gather_case` for ``gather``: −0.0 through the exact gather); each
-rank writes
+:func:`run_gather_case` for ``gather``: −0.0 through the exact gather;
+:func:`run_path_case` for ``path``: a fit of an offloaded or per-leaf
+state, its drain and checkpoint, ``tests/test_torch_dist_offload.py`` and
+``tests/test_torch_dist_perleaf.py``); each rank writes
 ``OUT_DIR/rank<r>.pkl``, the results of every case, and the program exits 0
 when every rank did. The test process imports this module and calls
 :func:`run_case` / :func:`run_fit_case` itself, with no mesh, for the
@@ -186,13 +188,31 @@ def _split_slots(v):
 
 def _experiment(case):
     """The small classification task's experiment of ``case`` (on the
-    current mesh, if any), its state built from ``case["params"]``."""
+    current mesh, if any), its state built from ``case["params"]``: with
+    ``case["optimizer"]`` that optimizer's defaults ("sgd" when absent;
+    ``case["leafy_opt"]``: the optimizer stripped of its packed step), with
+    ``case["legacy"]`` the strategy as the legacy ``Algorithm`` shim."""
+    import warnings
+
     from repro_torch.api import ClassificationSpec, Experiment
-    from repro_torch.config import AlgoConfig
+    from repro_torch.config import AlgoConfig, OptimizerConfig
+    from repro_torch.core.algorithms import make_algorithm
+    from repro_torch.optim import from_config, schedules
+    from repro_torch.optim.optimizers import Optimizer
     from repro_torch.training import make_train_state
 
-    exp = Experiment(task=ClassificationSpec(n=2000, holdout=500), strategy=AlgoConfig(**case["strategy"]),
-                     workers=case["m"], device="cpu").build()
+    ocfg = OptimizerConfig(name=case.get("optimizer", "sgd"))
+    kw = dict(optimizer=ocfg)
+    if case.get("leafy_opt"):
+        base = from_config(ocfg)
+        kw = dict(optimizer=Optimizer(init=base.init, step=base.step), schedule=schedules.from_config(ocfg))
+    strategy = AlgoConfig(**case["strategy"])
+    if case.get("legacy"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            strategy = make_algorithm(strategy)
+    exp = Experiment(task=ClassificationSpec(n=2000, holdout=500), strategy=strategy, workers=case["m"],
+                     device="cpu", **kw).build()
     exp.state = make_train_state(_params(case), case["m"], exp.opt_obj, exp.strategy_obj)
     if case.get("q") is not None:  # PowerSGD's starting factors, carried across (the reference's draw)
         vars = exp.state.vars
@@ -310,8 +330,96 @@ def run_gather_case(case) -> dict:
     return dict(rows=got.float().numpy(), signbit=torch.signbit(got).numpy())
 
 
+def _flat_state(state):
+    """Every array of a drained state under its checkpoint key, as numpy
+    (floats widened to float32; the host planes restored first), and the
+    keys of the row-stacked ones (a plane with a worker axis, a per-leaf
+    row leaf)."""
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.parallel import offload as off
+    from repro_torch.parallel.packing import Packed
+
+    state = state._replace(opt=off.tree_restore(state.opt), vars=off.tree_restore(state.vars),
+                           inflight=off.tree_restore(state.inflight))
+    row_ids = ck._row_leaves(state)
+    arrays, rows = {}, []
+
+    def one(t):
+        t = t.detach()
+        return (t.float() if t.is_floating_point() else t).numpy().copy()
+
+    for key, node in ck._nodes(state):
+        if isinstance(node, Packed):
+            for i, b in enumerate(node.buffers):
+                arrays[f"{key}::{i}"] = one(b)
+                if len(node.lead_shape) == 1:
+                    rows.append(f"{key}::{i}")
+        else:
+            arrays[key] = one(node)
+            if id(node) in row_ids:
+                rows.append(key)
+    return arrays, rows
+
+
+def run_path_case(case) -> dict:
+    """``Experiment.fit`` of an offloaded or per-leaf state (the small
+    classification task, :func:`_experiment`) for ``case["rounds"]`` rounds,
+    with ``case["plan"]``/``case["ctrl"]`` as :func:`run_fit_case`; the
+    drain, twice on the same state and once on its result; the state's
+    arrays (:func:`_flat_state`) and the readers (``consensus()``,
+    ``evaluate()``, whether ``anchor_plane()`` raises). Then, under
+    ``case["dir"]`` with the tag "mesh" or "one": with ``save`` the state
+    saved to ``save-<name>-<tag>.npz`` and restored into itself; with
+    ``restore`` the file ``case["restore"]`` restored (``elastic``); and
+    ``case["more"]`` more rounds."""
+    from repro_torch import checkpoint
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.packing import tree_flatten
+    from repro_torch.training import drain, params_view
+
+    tag = "mesh" if sharding.current_mesh() is not None else "one"
+    exp = _experiment(case)
+    out = {"loss": []}
+    if case["rounds"]:
+        res = _fit(exp, case, case["rounds"])
+        out.update(loss=list(res.losses), tau_schedule=res.tau_schedule, fault_log=res.fault_log, steps=res.steps)
+    pre = exp.state
+    state = exp.state = drain(pre)
+    again = drain(pre)
+    out["drain_idempotent"] = drain(state) is state and _same(_flat_state(again)[0], _flat_state(state)[0])
+    out["state"], out["rows"] = _flat_state(state)
+    out["x_leaves"] = [t.detach().float().numpy().copy() for t in tree_flatten(params_view(state))[0]]
+    out["consensus"] = [t.numpy().copy() for t in tree_flatten(exp.consensus())[0]]
+    out["evaluate"] = exp.evaluate()
+    try:
+        exp.anchor_plane()
+        out["anchor_plane"] = "ok"
+    except ValueError:
+        out["anchor_plane"] = "raises"
+    exp.state = drain(exp.state)  # anchor_plane() drained a state already drained: nothing moved
+    if case.get("save"):
+        path = os.path.join(case["dir"], f"save-{case['name']}-{tag}.npz")
+        checkpoint.save(path, exp.state)
+        exp.state = checkpoint.restore(path, exp.state)
+        out["restored"] = _flat_state(exp.state)[0]
+    if case.get("restore"):
+        exp.state = checkpoint.restore(case["restore"], exp.state, elastic=case.get("elastic", False))
+        out["restored"] = _flat_state(exp.state)[0]
+    if case.get("more"):
+        out["loss"] += list(_fit(exp, case, case["more"]).losses)
+        out["end"] = _flat_state(drain(exp.state))[0]
+    return out
+
+
+def _same(a: dict, b: dict) -> bool:
+    """Two dicts of numpy arrays equal key for key, byte for byte."""
+    return sorted(a) == sorted(b) and all(same_bytes(a[k], b[k]) for k in a)
+
+
 def run_any(case) -> dict:
-    """The case's runner: fit, ckpt, gather, or a round case."""
+    """The case's runner: path, fit, ckpt, gather, or a round case."""
+    if case.get("path"):
+        return run_path_case(case)
     if case.get("fit"):
         return run_fit_case(case)
     if case.get("ckpt"):
@@ -348,6 +456,62 @@ def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
         raise
+
+
+def spawn(where, cases, world: int) -> list:
+    """Run ``cases`` on ``world`` gloo CPU ranks in one spawn of this
+    program under the directory ``where`` (a ``pathlib.Path``); returns each
+    rank's list of results. Raises with the ranks' errors when one failed
+    or the spawn outlived its budget."""
+    import subprocess
+
+    with open(where / "cases.pkl", "wb") as f:
+        pickle.dump(cases, f)
+    env = dict(os.environ, PYTHONPATH=SRC, REPRO_SUBPROC_TIMEOUT=str(_timeout()))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), str(where / "cases.pkl"), str(where), str(world)],
+                          env=env, capture_output=True, text=True, timeout=_timeout())
+    if proc.returncode != 0:
+        raise RuntimeError(f"{world} ranks failed:\n{proc.stderr[-6000:]}")
+    out = []
+    for r in range(world):
+        with open(where / f"rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def gathered(per_rank, planes: str = "state") -> dict:
+    """The ranks' arrays of ``planes`` (a :func:`run_path_case` result): the
+    row-stacked ones concatenated in rank order, the others rank 0's
+    (checked byte for byte equal on every rank)."""
+    rows = set(per_rank[0]["rows"])
+    got = {}
+    for key, a in per_rank[0][planes].items():
+        if key in rows:
+            got[key] = np.concatenate([res[planes][key] for res in per_rank])
+        else:
+            if not all(same_bytes(res[planes][key], a) for res in per_rank[1:]):
+                raise AssertionError(f"{planes} {key}: the ranks' replicated copies differ")
+            got[key] = a
+    return got
+
+
+def magnitude(planes: dict, key: str) -> float:
+    """The largest magnitude an array's rounding error scales with: its own,
+    and for the anchor momentum v and sparse_anchor's error feedback e
+    (differences of anchors: a reordered worker sum's rounding is on the
+    mean) also the anchor z's."""
+    mag = float(np.abs(planes[key]).max())
+    for slot in ("vars::v::", "vars::extra::"):
+        z = planes.get(key.replace(slot, "vars::z::")) if key.startswith(slot) else None
+        if z is not None:
+            mag = max(mag, float(np.abs(z).max()))
+    return mag
+
+
+def same_bytes(a, b) -> bool:
+    """Two arrays of one dtype and shape with the same bytes."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
 
 def _timeout() -> int:
