@@ -101,8 +101,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    zamba2-1.2b in f32, ``prefill`` then ``decode_step`` on the card and on
    the CPU, logits within 1e-4, and on the card decode after prefill
    within 2e-3 of the full prefill's last logits; full-width rwkv6-7b and
-   zamba2-1.2b (bf16, seeded weights; full depth through PR 26, half since
-   PR 27: 16 of 32 and 19 of 38 layers) through the engine's
+   zamba2-1.2b (bf16, seeded weights; cut from full depth for the
+   script's time to 8 of 32 and 10 of 38 layers) through the engine's
    dense fallback on the trace of (b): exactly ``max_new`` in-vocab tokens,
    finite logits, launch counts exactly as the forwards imply (K12's or
    K11's forward kernels and K6's forward once a layer a prefill, K7 every
@@ -174,12 +174,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    replay, rounds/s, step ms, peak memory and K12's share of a profiled
    round. (g) The zamba2 slice: the reduced zamba2-1.2b (f32, seq 128,
    m = 2, 3 rounds) on the card and the CPU, losses compared; full-width
-   zamba2-1.2b cut to its first ``ZAMBA_LAYERS`` = 14 of 38 layers (12
-   mamba2, the shared attention block at 2 positions, tied embeddings;
+   zamba2-1.2b cut to its first ``ZAMBA_LAYERS`` = 7 of 38 layers (6
+   mamba2, the shared attention block at 1 position, tied embeddings;
    bf16, m = 4, seq 512, 3 rounds; cut from full depth so that phase 8
-   fits the script's time) as in (b): K11 forward and backward steps x
-   workers x 12, K6 forward and backward steps x workers x 2 (group 1: no
-   split sum), K7 forward and backward steps x workers x 29, bitwise
+   fits the script's time, and from 14 to 7 for phase 15's) as in (b): K11
+   forward and backward steps x workers x 6, K6 forward and backward steps
+   x workers x 1 (group 1: no split sum), K7 forward and backward steps x
+   workers x 15, bitwise
    replay, rounds/s, step ms, peak memory and K11's and K6's shares of a
    profiled round.
 6. The other GQA text archs and the MoE FFN, full width, bf16, weights
@@ -369,7 +370,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    overlap also under adaptive tau, at m 2 (bitwise the stacked fit, the
    checkpoint file byte for byte the stacked state's and restored on the
    ranks) and m 4 (within 2(m - 1) f32 ulps; v and e in ulps of z).
-15. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
+15. Within-worker sharding (ROADMAP 10c, first part): the (worker, fsdp)
+   mesh, ZeRO-3 on the packed plane (each rank its worker's rows cut to a
+   column slice: the row gathered over the fsdp group for the local step,
+   the f32 gradient reduce-scattered back) and the anchor stored once over
+   every axis (each rank 1/(W·F) of z and v; the in-flight worker sum a
+   reduce-scatter over the worker group, the finished piece all-gathered
+   before the pullback): (a) the kernel forms those paths launch, at their
+   shapes, against their plain versions: K3's and K4's rank form with no
+   rows (the finish of a piece, unweighted and weighted), K4's rank form
+   with no finish on a column slice (masked, ``mean_pre``), K1 and K2 on a
+   column slice, at the classifier's plane on (2, 2) and (1, 2) and at
+   full-width qwen2-7b's 1-layer plane on (2, 2), bitwise (K1/K2 in bf16
+   within 1 ulp, as phase 2), the LM's finish and pullback timed beside a
+   ``copy_`` of the same bytes; (b) full-width qwen2-7b at 1 layer, bf16,
+   m 2, Overlap-Local-SGD β 0.7, 2 rounds on a (2, 2) mesh of four gloo
+   ranks sharing the card: every rank's shares against the same cut of
+   the stacked run on the card (rank 0's whole, the others' in windows),
+   within 8 bf16 ulps of each plane's largest magnitude (the momentum 32),
+   the losses rtol 4e-3; each rank's peak and the bytes it holds (plane
+   and optimizer slices, z and v pieces, the gathered and gradient rows,
+   the wire buffer) beside phase 11(c)'s (2, 1) run; (c) the classifier at
+   m 2 under the fault plan and adaptive tau together on (2, 2) (every
+   strategy that runs on columns) and (1, 2) (four), within 16 f32 ulps of
+   the one-process fit on the card, the schedule and fault log exactly, a
+   checkpoint saved on (2, 2) and restored in one process and the reverse,
+   bit for bit; the collectives' transport named.
+16. One JSON line with every kernel's numbers (K1-K4, K5 as its gossip form
    with the standalone form beside it, its row form and its gossip rank
    form, K6 forward, backward
    and split sum, K7 forward and backward, K8 and the probe output of
@@ -2599,10 +2626,10 @@ def profile_generate(cfg, params, prompt):
                 top=[dict(name=e.key[:90], count=e.count, device_us=e.self_device_time_total) for e in top])
 
 
-# the dense fallback's depth: full through PR 26, cut to half in PR 27 (rwkv6
-# 16 of 32 layers; zamba2 its first 19 of 38: 17 mamba2, the shared block at
-# 2 positions) to pay for phase 9's time; the published widths
-DENSE_LAYERS = {"rwkv6-7b": 16, "zamba2-1.2b": 19}
+# the dense fallback's depth, cut from full depth to pay for phases 9 and
+# 15's time: rwkv6 8 of 32 layers, zamba2 its first 10 of 38 (9 mamba2, the
+# shared block at 1 position); the published widths
+DENSE_LAYERS = {"rwkv6-7b": 8, "zamba2-1.2b": 10}
 
 
 def dense_launches(cfg, prefills, forwards):
@@ -3854,12 +3881,12 @@ def lm_zamba2_card_vs_cpu(dev):
     lm_twin_card_vs_cpu(dev, get_arch("zamba2-1.2b").model.reduced(), "zamba2-1.2b")
 
 
-ZAMBA_LAYERS = 14  # of 38: 12 mamba2 and the shared block at positions 6 and 13
+ZAMBA_LAYERS = 7  # of 38: 6 mamba2 and the shared block at position 6 (cut for phases 8 and 15's time)
 
 
 def lm_zamba2_full_width(dev, kernels):
-    """Full-width zamba2-1.2b cut to its first ``ZAMBA_LAYERS`` layers (12
-    mamba2 and the one shared attention block at 2 positions; d_model 2048,
+    """Full-width zamba2-1.2b cut to its first ``ZAMBA_LAYERS`` layers (6
+    mamba2 and the one shared attention block at 1 position; d_model 2048,
     vocab 32000, tied, bf16), through ``lm_full_width``: m = 4, batch 2 x
     seq 512, 3 rounds; K11's and K6's shares of the profiled round. The
     cut from full depth (38 layers) pays for phase 8's time."""
@@ -5422,7 +5449,7 @@ def _canonical(v, name="", out=None):
     if v is None:
         return out
     if isinstance(v, Packed):
-        for i, t in enumerate(leaf_views(v)):
+        for i, t in enumerate(leaf_views(_whole(v))):
             out[f"{name}/{i}"] = t
     elif isinstance(v, dict):
         for i, t in enumerate(tree_flatten(v)[0]):
@@ -5633,9 +5660,9 @@ RANK_ALPHA, RANK_BETA, RANK_ROUNDS = 0.6, 0.7, 2
 RANK_WINDOW = 1 << 22  # columns of the LM plane checked at its start, middle and end
 # phase 11(b) and 12(b): full-width qwen2-7b on one NCCL rank, m 1, cut to
 # 10 layers at first (the depth whose rank run, the f32 wire buffer
-# included, and the stacked twin's host copy fit the card and the host) and
-# to 4 for phase 13's time
-RANK_LAYERS = 4
+# included, and the stacked twin's host copy fit the card and the host), to
+# 4 for phase 13's time and to 2 for phase 15's
+RANK_LAYERS = 2
 RANK_CLASSIFIER = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("overlap_local_sgd", dict(anchor_beta=0.0))]
 # qwen2-7b on two gloo ranks sharing the card (phases 11(c), 12(c)) and the
 # LM checkpoint on one NCCL rank (13(b')): cut from LM_LAYERS (2) to 1 for
@@ -5760,12 +5787,21 @@ def _digest(t):
     return int(total)
 
 
+def _whole(p):
+    """A plane whole: a rank's share of it (``Sharded``) gathered over the
+    current mesh (every rank calls it), anything else as it is."""
+    from repro_torch.parallel import sharding
+
+    return sharding.unshard(p)
+
+
 def _rank_state(state):
-    """x, the momentum, z, v and the in-flight anchor of a (drained) state, by name."""
-    out = {"x": state.x.buffers, "momentum": state.opt.momentum.buffers}
+    """x, the momentum, z, v and the in-flight anchor of a (drained) state,
+    by name, each plane whole (:func:`_whole`)."""
+    out = {"x": _whole(state.x).buffers, "momentum": _whole(state.opt.momentum).buffers}
     if state.vars.z is not None:
-        out["z"], out["v"] = state.vars.z.buffers, state.vars.v.buffers
-    out["inflight"] = state.inflight.buffers
+        out["z"], out["v"] = _whole(state.vars.z).buffers, _whole(state.vars.v).buffers
+    out["inflight"] = _whole(state.inflight).buffers
     return out
 
 
@@ -5865,7 +5901,9 @@ def rank_nccl_full_width(dev, kernels, card):
     want_launches = {k.name: 0 for k in kernels}
     want_launches.update(qwen2_launches(RANK_ROUNDS * tau, 1, RANK_LAYERS, 1, RANK_ROUNDS))
     want_launches["pullback_momentum"] = 0
-    want_launches["pullback_momentum_rank"] = RANK_ROUNDS + 1  # a boundary each, and the drain
+    # the anchor's piece: finished at every boundary after the first and by the drain; the pullback a boundary
+    want_launches["pullback_momentum_rank"] = RANK_ROUNDS
+    want_launches["pullback_mean_rank"] = RANK_ROUNDS
     rec = dict(run=f"qwen2-7b full width, {RANK_LAYERS} layers, bf16, m 1 on one NCCL rank", card=card,
                params=n_params, rounds=RANK_ROUNDS, tau=tau, losses=losses, stacked_losses=want_losses,
                planes_differing=differ, bound="bitwise (x, momentum, z, v, drained inflight; losses)",
@@ -5923,6 +5961,7 @@ def _gloo_rank(rank, world, rdv, out_path, src):
                 batches = _round_batches(exp, RANK_ROUNDS)
                 device_batches = [exp.to_device(rb) for rb in batches]
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 for k in kernels:
                     k.launches = 0
                 t0 = time.perf_counter()
@@ -5934,6 +5973,7 @@ def _gloo_rank(rank, world, rdv, out_path, src):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches = {k.name: k.launches for k in kernels if k.launches}
+                memory = dict(peak_mem_bytes=torch.cuda.max_memory_allocated(), held=_share_bytes(state, mesh))
                 got = _rank_state(state)
                 digests = {k: [_digest(b) for b in v] for k, v in got.items() if k not in ("x", "momentum")}
                 del exp, state, device_batches
@@ -5941,6 +5981,8 @@ def _gloo_rank(rank, world, rdv, out_path, src):
             dist.all_gather_object(all_digests, digests)
             all_losses = [None] * world
             dist.all_gather_object(all_losses, losses)
+            all_memory = [None] * world  # each rank's peak and the bytes it holds (phase 15(b) sets (2, 2) beside it)
+            dist.all_gather_object(all_memory, memory)
             rows = {}
             for key in ("x", "momentum"):  # rank 1's rows to rank 0, exactly
                 for b, t in enumerate(got[key]):
@@ -5974,7 +6016,7 @@ def _gloo_rank(rank, world, rdv, out_path, src):
                 merged = [[a + b for a, b in zip(r0, r1)] for r0, r1 in zip(*all_losses)]
                 results.append(dict(run=f"{label}, m 2 on two gloo ranks sharing one card", rounds=RANK_ROUNDS,
                                     wall_s=wall, launches=launches, losses=merged, stacked_losses=stacked_losses,
-                                    planes_differing=differ,
+                                    planes_differing=differ, rank_memory=all_memory,
                                     anchor_equal_on_ranks=all(d == all_digests[0] for d in all_digests),
                                     bound="bitwise (x, momentum, z, v, drained inflight; losses); z, v, inflight "
                                           "equal on both ranks (64-bit digests)"))
@@ -6019,35 +6061,8 @@ def rank_gloo_two_on_one_card(card):
     """Phase 11(c): two ranks spawned with ``torch.multiprocessing``, a
     ``file://`` rendezvous in a temporary directory, gloo on CUDA tensors
     (:func:`_gloo_rank`). Fails when a rank fails or a plane differs."""
-    import os
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
-    out = os.path.join(tmp, "results.json")
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_gloo_rank, args=(r, 2, os.path.join(tmp, "rendezvous"), out, str(SRC)))
-             for r in range(2)]
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + 600
-    try:
-        while any(p.is_alive() for p in procs):
-            if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-            p.join(30)
-    errors = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
-    if errors or any(p.exitcode != 0 for p in procs) or not os.path.exists(out):
-        raise AssertionError(f"gloo ranks failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
-    with open(out) as f:
-        results = json.load(f)
+    results = _spawn_gloo_ranks(_gloo_rank, 2)
     for rec in results:
         rec["card"] = card
         log(json.dumps(rec))
@@ -6298,7 +6313,9 @@ def rank_nccl_fit(dev, kernels, card):
     want_launches = {k.name: 0 for k in kernels}
     want_launches.update(qwen2_launches(steps, 1, RANK_LAYERS, 1, LM_FIT_ROUNDS))
     want_launches["pullback_momentum"] = 0
-    want_launches["pullback_momentum_rank"] = LM_FIT_ROUNDS + 1  # a boundary each, and the drain
+    # the anchor's piece: finished at every boundary after the first and by the drain; the pullback a boundary
+    want_launches["pullback_momentum_rank"] = LM_FIT_ROUNDS
+    want_launches["pullback_mean_rank"] = LM_FIT_ROUNDS
     want_launches["consensus_probe_rank"] = LM_FIT_ROUNDS  # the probe of each boundary
     rec = dict(run=f"Experiment.fit(adaptive_tau) of qwen2-7b full width, {RANK_LAYERS} layers, bf16, m 1 on one "
                    f"NCCL rank", card=card, rounds=LM_FIT_ROUNDS, steps=steps, fit=got_fit, stacked_fit=want_fit,
@@ -6580,34 +6597,7 @@ def _spawn_gloo_pair(target, *args):
     """Two ranks spawned with ``torch.multiprocessing`` on this card, each
     running ``target(rank, 2, rendezvous, out_path, src, *args)``; returns
     the JSON rank 0 wrote to ``out_path``. Raises when a rank fails."""
-    import os
-    import tempfile
-
-    import torch.multiprocessing as mp
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_fit_")
-    out = os.path.join(tmp, "results.json")
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=target, args=(r, 2, os.path.join(tmp, "rendezvous"), out, str(SRC)) + args)
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + 600
-    try:
-        while any(p.is_alive() for p in procs):
-            if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-            p.join(30)
-    errors = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
-    if errors or any(p.exitcode != 0 for p in procs) or not os.path.exists(out):
-        raise AssertionError(f"gloo fit ranks failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
-    with open(out) as f:
-        return json.load(f)
+    return _spawn_gloo_ranks(target, 2, *args)
 
 
 def rank_gloo_fit_two_on_one_card(card, which="12"):
@@ -6761,6 +6751,7 @@ def _ckpt_planes(state):
 
     out = []
     for key, node in _nodes(state):
+        node = _whole(node)
         if isinstance(node, Packed):
             out += [(_join(key, str(i)), b) for i, b in enumerate(node.buffers)]
         else:
@@ -7004,12 +6995,12 @@ def _strategy_planes(state):
     push weights)."""
     from repro_torch.parallel.packing import Packed
 
-    out = {"x": state.x.buffers, "momentum": state.opt.momentum.buffers}
+    out = {"x": _whole(state.x).buffers, "momentum": _whole(state.opt.momentum).buffers}
     vs = state.vars
     if vs.z is not None:
-        out["z"] = vs.z.buffers
+        out["z"] = _whole(vs.z).buffers
     if vs.v is not None:
-        out["v"] = vs.v.buffers
+        out["v"] = _whole(vs.v).buffers
     extra = vs.extra
     if isinstance(extra, Packed):
         out["e"] = extra.buffers
@@ -7019,11 +7010,11 @@ def _strategy_planes(state):
         out["wt"] = [extra[0], extra[1].reshape(1)]
     infl = state.inflight
     if hasattr(infl, "x0"):
-        out["inflight"], out["x0"] = infl.avg.buffers, infl.x0.buffers
+        out["inflight"], out["x0"] = _whole(infl.avg).buffers, _whole(infl.x0).buffers
     elif hasattr(infl, "mix"):
-        out["mix"], out["inflight_w"] = infl.mix.buffers, [infl.w]
+        out["mix"], out["inflight_w"] = _whole(infl.mix).buffers, [infl.w]
     elif infl is not None:
-        out["inflight"] = infl.buffers
+        out["inflight"] = _whole(infl).buffers
     return out
 
 
@@ -7123,6 +7114,7 @@ def _state_digests(state, dev):
 
     out = {}
     for key, node in ck._nodes(state._replace(membership=None)):
+        node = _whole(node)
         if isinstance(node, HostPlane):
             node.host_ready()
             for b, stack in enumerate(node.chunks):
@@ -7311,7 +7303,9 @@ def rank_nccl_qwen2_perleaf(dev, kernels, card, stacked_digests):
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 infl = exp.state.inflight
-                wire = 4 * infl.buf.numel()
+                # the f32 wire buffer (sharded: the slice's partial sums and the summed pieces)
+                wire = 4 * infl.buf.numel() if not packed else 4 * (infl.wire.numel() + (
+                    infl.sums.numel() if infl.sums.data_ptr() != infl.wire.data_ptr() else 0))  # W 1: one buffer
                 state = drain(exp.state)
                 torch.cuda.synchronize()
                 launches = {k.name: k.launches for k in kernels}
@@ -7328,8 +7322,8 @@ def rank_nccl_qwen2_perleaf(dev, kernels, card, stacked_digests):
                 want = {k.name: 0 for k in kernels}
                 want.update(qwen2_launches(steps, LM_WORKERS, LM_LAYERS, 1, LM_ROUNDS))
                 want["pullback_momentum"] = 0
-                if packed:
-                    want["pullback_momentum_rank"] = LM_ROUNDS + 1
+                if packed:  # the anchor's piece finished after the first boundary and by the drain; a pullback each
+                    want.update(pullback_momentum_rank=LM_ROUNDS, pullback_mean_rank=LM_ROUNDS)
                 else:
                     want.update(sgd_step=0, anchor_mix_rows=leaves * LM_ROUNDS)
                 boundary_ms = [e0.elapsed_time(e1) for e0, e1 in marks]
@@ -7371,6 +7365,7 @@ def _state_arrays(state):
     row_ids = ck._row_leaves(state)
     arrays, rows = {}, []
     for key, node in ck._nodes(state):
+        node = _whole(node)
         if isinstance(node, Packed):
             for b, buf in enumerate(node.buffers):
                 arrays[f"{key}::{b}"] = buf.cpu()
@@ -7578,6 +7573,572 @@ def rank_gloo_offload_perleaf(card):
 
 
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 15: within-worker sharding (ROADMAP 10c, first part): the (worker,
+# fsdp) mesh, ZeRO-3 on the packed plane and the anchor stored once over
+# every axis; the kernel forms at the new shapes, qwen2-7b and the
+# classifier on four (and two) gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+FSDP_LM_LAYERS = 1
+FSDP_ROUNDS = 3  # the classifier fits' rounds
+FSDP_STRATS = [("overlap_local_sgd", dict(anchor_beta=0.7)), ("overlap_local_sgd", dict(anchor_beta=0.0)),
+               ("local_sgd", {}), ("sync_sgd", {}), ("easgd", {}), ("cocod", {}), ("delayed_avg", dict(delay_steps=1)),
+               ("gossip_full", {}), ("gossip_ring", {}), ("gossip_exp", {}), ("gossip_pushsum", dict(topology="ring"))]
+FSDP12_STRATS = (0, 4, 5, 8)  # on (1, 2): overlap beta 0.7, easgd, cocod, gossip_ring
+FSDP_ULPS = 16  # f32 ulps of each plane's largest magnitude: tests/test_torch_dist_fsdp.py's bound
+FSDP_LM_ULPS = {"x": 8, "momentum": 32, "z": 8, "v": 8, "inflight": 8}  # bf16 ulps (the CPU tests' bf16 bound; the
+FSDP_LM_LOSS_RTOL = 4e-3  # momentum's: the LM momentum's f32 bound, tests/test_torch_dist_fsdp_ckpt.py)
+FSDP_WINDOW = 1 << 22  # columns of another rank's LM share compared at its start, middle and end
+
+
+def _fsdp_widths(n, W, F):
+    """(c, a): the column slice and the anchor piece of an n-wide bucket on
+    a W × F mesh (``repro_torch.parallel.sharding.plane_split``)."""
+    up = lambda k: -(-k // 128) * 128  # noqa: E731
+    c = n if F == 1 else up(-(-n // F))
+    return c, (c if W == 1 else up(-(-c // W)))
+
+
+def _windows(n):
+    """The columns compared of an n-wide LM share: all of a small one, else
+    three ``FSDP_WINDOW`` windows at its start, middle and end."""
+    if n <= 3 * FSDP_WINDOW:
+        return [slice(0, n)]
+    return [slice(0, FSDP_WINDOW), slice(n // 2 - FSDP_WINDOW // 2, n // 2 + FSDP_WINDOW // 2), slice(n - FSDP_WINDOW, n)]
+
+
+def check_fsdp_forms(dev, gen):
+    """Phase 15(a): the kernel forms the sharded paths launch, at their
+    shapes, against their plain versions: K3's and K4's rank form with no
+    rows (the finish of the rank's anchor piece, unweighted and weighted; K3
+    moves v), K4's rank form with no finish on the rows' column slice (the
+    pullback and the partial sums; masked; ``mean_pre``), K1 and K2 on the
+    column slice: at the classifier's plane on (2, 2) and (1, 2) (every
+    column, f32 and bf16) and at full-width qwen2-7b's 1-layer plane on (2, 2)
+    (bf16, windows of ``FSDP_WINDOW`` at the start, middle and end of the
+    whole launch). K3/K4 bitwise, K1/K2 as phase 2 (bitwise in f32, 1 bf16
+    ulp). Timed at the LM's shapes beside a ``copy_`` of the same bytes."""
+    import torch
+
+    from repro_torch.kernels.anchor_mix import ops, ref
+    from repro_torch.kernels.opt_step import ops as opt_ops
+    from repro_torch.kernels.opt_step import ref as opt_ref
+
+    checked, timing = [], {}
+    sgd_kw = dict(momentum=0.9, nesterov=True, weight_decay=0.0)
+    planes = [("classifier", TRAIN_SHAPES["slice"][1], (2, 2), (torch.float32, torch.bfloat16)),
+              ("classifier", TRAIN_SHAPES["slice"][1], (1, 2), (torch.float32,)),
+              ("lm", _lm_plane_n(FSDP_LM_LAYERS), (2, 2), (torch.bfloat16,))]
+    for plane, n, (W, F), dtypes in planes:
+        c, a = _fsdp_widths(n, W, F)
+        rows, m = 2 // W, 2
+        for dtype in dtypes:
+            P = torch.finfo(dtype).bits // 8
+            # the finish of the piece: K3 (v) and K4, unweighted and weighted (rows 0)
+            for kname, momentum in (("K3", True), ("K4", False)):
+                for fin in (1, 2):
+                    z = torch.randn(a, generator=gen, device=dev).to(dtype)
+                    v = (0.1 * torch.randn(a, generator=gen, device=dev)).to(dtype) if momentum else None
+                    s = 3.0 * torch.randn(a, generator=gen, device=dev)
+                    beta = RANK_BETA if momentum else None
+                    wins = _windows(a)
+                    want = [ref.pullback_rank(z[None][:0, w], z[w], None if v is None else v[w], s[w], m, 0.0, beta,
+                                              fin) for w in wins]
+                    got = ops.pullback_rank(z[None][:0], z, v, s, m, 0.0, beta, fin)
+                    torch.cuda.synchronize()
+                    pairs = [(got[w], wz) for w, (_, wz, _, _) in zip(wins, want)]
+                    pairs += [(v[w], wv) for w, (_, _, wv, _) in zip(wins, want) if wv is not None]
+                    ok = all(torch.equal(g, w) for g, w in pairs)
+                    rec = dict(kernel=f"{kname} rank form, finish only", plane=plane, mesh=[W, F], dtype=_name(dtype),
+                               n=a, weighted=fin == 2, max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                                                        for g, w in pairs), bound="bitwise", ok=ok)
+                    checked.append(rec)
+                    if not ok:
+                        raise AssertionError(f"the piece's finish disagrees with plain: {rec}")
+                    if plane == "lm" and fin == 1:
+                        nbytes = _rank_bytes(P, 0, True, momentum) * a
+                        rec["ms"] = median_ms(lambda: ops.pullback_rank(z[None][:0], z, v, s, m, 0.0, beta, 1), 10)
+                        src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+                        dst = torch.empty_like(src)
+                        rec["copy_ms"] = time_ms(lambda: dst.copy_(src), 10)
+                        del src, dst
+                        rec["bound_ms"], rec["bound_by"] = bound(nbytes, _rank_flops(0, True, momentum) * a)
+                        timing[f"{kname} finish"] = rec
+                        log(json.dumps(rec))
+                    del z, v, s, got, want
+                    _free()
+            # the pullback of the rows' column slice: K4 with no finish (masked; mean_pre)
+            for masked, mean_pre in ((False, False), (True, False), (False, True)):
+                x = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
+                z = torch.randn(c, generator=gen, device=dev).to(dtype)
+                s = torch.empty(c, device=dev)
+                wts = torch.tensor([1.0, 0.0][:rows] if rows > 1 else [0.5], device=dev) if masked else None
+                wins = _windows(c)
+                want = [ref.pullback_rank(x[:, w], z[w], None, s[w], m, RANK_ALPHA, None, 0, wts, mean_pre)
+                        for w in wins]
+                ops.pullback_rank(x, z, None, s, m, RANK_ALPHA, None, 0, weights=wts, mean_pre=mean_pre)
+                torch.cuda.synchronize()
+                pairs = [(x[:, w], wx) for w, (wx, _, _, _) in zip(wins, want)] + [
+                    (s[w], ws) for w, (_, _, _, ws) in zip(wins, want)]
+                ok = all(torch.equal(g, w) for g, w in pairs)
+                rec = dict(kernel="K4 rank form, no finish (the pullback of a column slice)", plane=plane,
+                           mesh=[W, F], dtype=_name(dtype), rows=rows, n=c, masked=masked, mean_pre=mean_pre,
+                           max_abs_err=max(float((g.float() - w.float()).abs().max()) for g, w in pairs),
+                           bound="bitwise", ok=ok)
+                checked.append(rec)
+                if not ok:
+                    raise AssertionError(f"the slice's pullback disagrees with plain: {rec}")
+                if plane == "lm" and not masked and not mean_pre:
+                    nbytes = _rank_bytes(P, rows, False, False) * c
+                    rec["ms"] = median_ms(lambda: ops.pullback_rank(x, z, None, s, m, RANK_ALPHA, None, 0), 10)
+                    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+                    dst = torch.empty_like(src)
+                    rec["copy_ms"] = time_ms(lambda: dst.copy_(src), 10)
+                    del src, dst
+                    rec["bound_ms"], rec["bound_by"] = bound(nbytes, _rank_flops(rows, False, False) * c)
+                    timing["K4 pullback"] = rec
+                    log(json.dumps(rec))
+                del x, z, s, want
+                _free()
+            # K1 (and on the classifier K2) on the column slice
+            x = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
+            g = torch.randn(rows, c, generator=gen, device=dev).to(dtype)
+            mo = (0.1 * torch.randn(rows, c, generator=gen, device=dev)).to(dtype)
+            lr = torch.full((), 0.05, dtype=torch.float32, device=dev)
+            wins = _windows(c)
+            want = [opt_ref.sgd_update(x[:, w], g[:, w], mo[:, w], lr, **sgd_kw) for w in wins]
+            got = opt_ops.sgd_step(x.clone(), g, mo.clone(), lr, **sgd_kw)
+            oks = [_ulp_check(gt[:, w], wt, dtype) for w, wb in zip(wins, want) for gt, wt in zip(got, wb)]
+            rec = dict(kernel="K1 sgd_step on a column slice", plane=plane, mesh=[W, F], dtype=_name(dtype),
+                       shape=[rows, c], max_abs_err=max(e for _, e in oks),
+                       bound="bitwise" if dtype == torch.float32 else "1 bf16 ulp of plain", ok=all(o for o, _ in oks))
+            checked.append(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"K1 on a column slice disagrees with plain: {rec}")
+            del got, want
+            if plane == "classifier":
+                mu, nu = 0.1 * torch.randn(rows, c, generator=gen, device=dev), torch.rand(rows, c, generator=gen,
+                                                                                          device=dev)
+                c1 = torch.full((), 1 - 0.9**3, dtype=torch.float32, device=dev)
+                c2 = torch.full((), 1 - 0.95**3, dtype=torch.float32, device=dev)
+                kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=1e-4)
+                want = opt_ref.adamw_update(x, g, mu, nu, lr, c1, c2, **kw)
+                got = opt_ops.adamw_step(x.clone(), g, mu.clone(), nu.clone(), lr, c1, c2, **kw)
+                oks = [_ulp_check(a_, b_, b_.dtype) for a_, b_ in zip(got, want)]
+                rec = dict(kernel="K2 adamw_step on a column slice", plane=plane, mesh=[W, F], dtype=_name(dtype),
+                           shape=[rows, c], max_abs_err=max(e for _, e in oks),
+                           bound="bitwise" if dtype == torch.float32 else "1 bf16 ulp of plain (x); mu, nu bitwise",
+                           ok=all(o for o, _ in oks))
+                checked.append(rec)
+                if not rec["ok"]:
+                    raise AssertionError(f"K2 on a column slice disagrees with plain: {rec}")
+                del got, want, mu, nu
+            del x, g, mo
+            _free()
+    log(json.dumps(dict(check="phase 15(a): the sharded paths' kernel forms against their plain versions",
+                        cases=len(checked), max_abs_err=max(r["max_abs_err"] for r in checked))))
+    return checked, timing
+
+
+def _share_bytes(state, mesh):
+    """What a rank holds of a drained state's planes, in bytes, and what the
+    sharded paths add in flight: the gathered row and the gradient row of a
+    local step (fsdp > 1), the f32 input of the gradient's reduce-scatter
+    (a chunk at most), the boundary's f32 wire buffer and summed pieces."""
+    from repro_torch.parallel import sharding
+
+    nb = lambda p: 0 if p is None else sum(b.numel() * b.element_size() for b in p.buffers)  # noqa: E731
+    x = state.x
+    r, elt = x.lead_shape[0], x.buffers[0].element_size()
+    sp = sharding.plane_split(x.layout, mesh)
+    row = r * sum(sp.widths) * elt
+    return dict(plane_slice=nb(x), optimizer_slice=nb(state.opt.momentum), z_piece=nb(state.vars.z),
+                v_piece=nb(state.vars.v), inflight_piece=nb(state.inflight),
+                gathered_row=row if mesh.fsdp > 1 else 0, gradient_row=row,
+                gradient_scatter_f32=4 * min(mesh.fsdp * r * max(sp.cols), sharding._SCATTER_ELEMS) if mesh.fsdp > 1 else 0,
+                wire_buffer=4 * mesh.size * sum(sp.pieces), summed_pieces=4 * sum(sp.pieces))
+
+
+def _fsdp_cases(W):
+    """(label, strategy index) of phase 15(c)'s classifier fits on a mesh of
+    W workers (m 2): every strategy of ``FSDP_STRATS`` on (2, 2), the four
+    of ``FSDP12_STRATS`` on (1, 2); each under ``FIT_PLANS[2]`` and adaptive
+    tau together."""
+    idx = range(len(FSDP_STRATS)) if W == 2 else FSDP12_STRATS
+    return [(f"classifier m 2 {FSDP_STRATS[i][0]} {FSDP_STRATS[i][1] or ''} faults + adaptive tau", i) for i in idx]
+
+
+def _fsdp_planes(exp):
+    """A drained experiment's planes whole, by name (the mesh's shares
+    gathered: the columns over the fsdp group, the anchor pieces over both
+    groups, the rows over the worker group), and its readers; every rank
+    of the mesh calls it."""
+    from repro_torch.parallel import sharding
+
+    mesh = sharding.current_mesh()
+    got = _strategy_planes(exp.state)
+    if mesh is not None:
+        got = {k: [sharding.gather_rows_exact(b.contiguous(), mesh) for b in v] if k in ROW_PLANES else v
+               for k, v in got.items()}
+    return {k: [b.cpu() for b in v] for k, v in got.items()}, {
+        k: v if k == "evaluate" else [b.cpu() for b in v] for k, v in _fit_readers(exp).items()}
+
+
+def _fsdp_ulps(got, want, bits=24, mag=None):
+    """max |got − want| in ulps (``bits`` of mantissa) of ``mag`` (want's
+    largest magnitude by default)."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    mag = float(w.abs().max()) if mag is None else mag
+    if mag == 0.0:
+        return 0.0 if err == 0.0 else float("inf")
+    return err / math.ldexp(1.0, math.frexp(mag)[1] - bits)
+
+
+def _equal_planes(a, b):
+    """Two dicts of lists of host tensors equal key for key, bit for bit."""
+    import torch
+
+    return sorted(a) == sorted(b) and all(len(a[k]) == len(b[k]) and all(
+        torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a)
+
+
+def _fsdp_rank(rank, world, rdv, out_path, src, fsdp, lm):
+    """One of phase 15's gloo ranks on the card, a mesh of world/fsdp
+    workers × ``fsdp`` (gloo on CUDA tensors; the collectives' transport
+    named): (c) the classifier fits of :func:`_fsdp_cases`, drained, their
+    planes whole on every rank, and on (2, 2) a checkpoint of the overlap
+    fit saved on the ranks; with ``lm``, (b) full-width qwen2-7b at
+    ``FSDP_LM_LAYERS`` layer, m 2, bf16, seq 512, ``RANK_ROUNDS`` rounds of
+    Overlap-Local-SGD β 0.7 from zeroed counters and drained: each rank's
+    peak, the bytes it holds (:func:`_share_bytes`), launches; its shares
+    copied to the host and the card freed. Rank 0 then runs every case in
+    one process (no mesh) and compares (:func:`_fsdp_compare_fits`,
+    :func:`_fsdp_compare_lm`); the ranks restore rank 0's one-process file."""
+    import gc
+    import os
+    import traceback
+
+    sys.path.insert(0, src)
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from repro_torch import checkpoint
+        from repro_torch.config import AlgoConfig, get_arch
+        from repro_torch.control import TauController
+        from repro_torch.data.loaders import make_classification_splits
+        from repro_torch.fault import FaultPlan
+        from repro_torch.kernels import all_kernels
+        from repro_torch.launch.mesh import make_smoke_mesh
+        from repro_torch.parallel import sharding
+        from repro_torch.parallel.sharding import mesh_context
+        from repro_torch.training import drain
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        kernels = all_kernels()
+        dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=world, rank=rank)
+        W = world // fsdp
+        mesh = make_smoke_mesh(W, fsdp, backend="gloo")
+        splits = make_classification_splits(2, n=30000, holdout=4000)
+        ckpt_dir = os.path.dirname(rdv)
+
+        def make(i):
+            name, kw = FSDP_STRATS[i]
+            return _fit_classifier(dev, AlgoConfig(name=name, tau=2, alpha=0.6, **kw), 2, splits)
+
+        def fit(exp):
+            return exp.fit(rounds=FSDP_ROUNDS, faults=FaultPlan.parse(FIT_PLANS[2], m=2, seed=FIT_SEED),
+                           adaptive_tau=TauController(**ADAPTIVE_CTRL))
+
+        out = dict(mesh=[W, fsdp], transport=sharding.collective_transport(mesh))
+        t0 = time.perf_counter()
+        mesh_runs, rank_exp = [], None
+        for label, i in _fsdp_cases(W):
+            with mesh_context(mesh):
+                exp = make(i)
+                for k in kernels:
+                    k.launches = 0
+                res = fit(exp)
+                exp.state = drain(exp.state)
+                launches = {k.name: k.launches for k in kernels if k.launches}
+                shares = {key: (node.axis if isinstance(node, sharding.Sharded) else "whole",
+                                [list(b.shape) for b in node.buffers])
+                          for key, node in (("x", exp.state.x), ("z", exp.state.vars.z)) if node is not None}
+                got, readers = _fsdp_planes(exp)
+                mesh_runs.append(dict(label=label, i=i, fit=_fit_record(res), got=got, readers=readers,
+                                      launches=launches, shares=shares))
+                if W == 2 and i == 0:  # the ranks' checkpoint of the overlap fit
+                    checkpoint.save(os.path.join(ckpt_dir, "fsdp_mesh.npz"), exp.state)
+                    rank_exp = exp
+                del exp, res
+        out["mesh_fits_s"] = time.perf_counter() - t0
+        if lm:
+            cfg = dataclasses.replace(get_arch("qwen2-7b").model, num_layers=FSDP_LM_LAYERS)
+            with mesh_context(mesh):
+                exp = _lm_experiment(dev, cfg, 2, LM_SEQ, init_on_device=True).build()
+                batches = _round_batches(exp, RANK_ROUNDS)
+                device_batches = [exp.to_device(rb) for rb in batches]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for k in kernels:
+                    k.launches = 0
+                t1 = time.perf_counter()
+                losses = []
+                for rb in device_batches:
+                    exp.state, ms = exp.step_fn(exp.state, rb)
+                    losses.append(ms["loss"].float().cpu().tolist())
+                state = drain(exp.state)
+                torch.cuda.synchronize()
+                lm_rec = dict(rank=rank, worker=mesh.rank, fsdp_index=mesh.fsdp_rank,
+                              wall_s=time.perf_counter() - t1, losses=losses,
+                              peak_mem_bytes=torch.cuda.max_memory_allocated(), held=_share_bytes(state, mesh),
+                              launches={k.name: k.launches for k in kernels if k.launches})
+                lm_shares = {key: [b.cpu() for b in p.buffers] for key, p in (
+                    ("x", state.x), ("momentum", state.opt.momentum), ("z", state.vars.z), ("v", state.vars.v),
+                    ("inflight", state.inflight))}
+                del exp, state, device_batches
+            gc.collect()
+            torch.cuda.empty_cache()
+            everyone = [None] * world
+            dist.all_gather_object(everyone, lm_rec)
+        dist.barrier()
+        if rank == 0:
+            out["fits"] = _fsdp_compare_fits(make, fit, mesh_runs, checkpoint, ckpt_dir)
+        dist.barrier()
+        if rank_exp is not None:  # rank 0's one-process file restored on the ranks
+            with mesh_context(mesh):
+                rank_exp.state = checkpoint.restore(os.path.join(ckpt_dir, "fsdp_one.npz"), rank_exp.state)
+                back, _ = _fsdp_planes(rank_exp)
+            del rank_exp
+            if rank == 0:
+                out["ckpt_one_to_mesh_equal"] = _equal_planes(back, torch.load(os.path.join(ckpt_dir, "fsdp_one.pt")))
+        if lm:
+            got = _fsdp_compare_lm(rank, world, fsdp, lm_shares, batches, cfg, dev)
+            if rank == 0:  # the workers' losses (equal on a worker's F ranks) against the stacked run's
+                mesh_losses = [[sum((everyone[w * fsdp]["losses"][k][t] for w in range(W)), [])
+                                for t in range(len(everyone[0]["losses"][k]))] for k in range(len(batches))]
+                same = all(everyone[w * fsdp + f]["losses"] == everyone[w * fsdp]["losses"]
+                           for w in range(W) for f in range(fsdp))
+                flat = lambda ls: [v for rnd in ls for step in rnd for v in step]  # noqa: E731
+                losses_ok = same and all(abs(a - b) <= FSDP_LM_LOSS_RTOL * abs(b)
+                                         for a, b in zip(flat(mesh_losses), flat(got["stacked_losses"])))
+                out["lm"] = dict(got, losses=mesh_losses, losses_ok=losses_ok, ranks=everyone)
+        dist.destroy_process_group()
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(out, f)
+    except BaseException:
+        with open(f"{out_path}.rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _fsdp_compare_fits(make, fit, mesh_runs, checkpoint, ckpt_dir):
+    """Rank 0 of phase 15(c): every classifier case fitted in one process
+    on the card (no mesh) and compared with the mesh's: every plane and
+    reader within ``FSDP_ULPS`` f32 ulps of its largest magnitude (v: of
+    z's too, a difference of anchors), the
+    losses rtol 1e-5, the schedule's decisions and the fault log exactly,
+    the probe's drift and scale rtol 1e-4 (tests/test_torch_dist_fsdp.py's
+    bounds). For the overlap fit on (2, 2): the ranks' file restored here
+    equals their planes bit for bit, and this state is saved for the ranks
+    (``fsdp_one.npz``, its planes in ``fsdp_one.pt``)."""
+    import os
+
+    import torch
+
+    from repro_torch.training import drain
+
+    recs = []
+    for run in mesh_runs:
+        one = make(run["i"])
+        want_fit = _fit_record(fit(one))
+        one.state = drain(one.state)
+        want, want_readers = _fsdp_planes(one)
+        worst, differ = 0.0, []
+        for kind, have, ref in (("", run["got"], want), ("reader ", run["readers"], want_readers)):
+            for key, bufs in ref.items():
+                if key == "evaluate":
+                    continue
+                for b, w in enumerate(bufs):
+                    # v, a difference of anchors: in ulps of z's magnitude too (as the CPU tests)
+                    mag = max(float(w.abs().max()), float(ref["z"][b].abs().max())) if key == "v" else None
+                    u = _fsdp_ulps(have[key][b], w, mag=mag)
+                    worst = max(worst, u)
+                    if u > FSDP_ULPS or have[key][b].shape != w.shape:
+                        differ.append(f"{kind}{key}{b}")
+        got_fit = run["fit"]
+        rec = dict(run=run["label"], worst_ulps=worst, planes_differing=differ, losses=got_fit["losses"],
+                   one_process_losses=want_fit["losses"],
+                   losses_ok=all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got_fit["losses"], want_fit["losses"])),
+                   schedule_equal=got_fit["schedule"] == want_fit["schedule"],
+                   stats_ok=all(abs(gd - wd) <= 1e-4 * abs(wd) and abs(gs - ws) <= 1e-4 * abs(ws)
+                                for (gd, gs), (wd, ws) in zip(got_fit["stats"], want_fit["stats"])),
+                   fault_log_equal=got_fit["fault_log"] == want_fit["fault_log"],
+                   test_acc=run["readers"]["evaluate"]["test_acc"],
+                   one_process_test_acc=want_readers["evaluate"]["test_acc"], launches=run["launches"],
+                   shares=run["shares"],
+                   bound=f"within {FSDP_ULPS} f32 ulps of each plane's largest magnitude (x, momentum, z, v, the "
+                         "in-flight value, the readers); losses rtol 1e-5; the schedule's decisions and the fault "
+                         "log exactly; drift and scale rtol 1e-4")
+        if run["i"] == 0 and os.path.exists(os.path.join(ckpt_dir, "fsdp_mesh.npz")):
+            checkpoint.save(os.path.join(ckpt_dir, "fsdp_one.npz"), one.state)
+            torch.save(want, os.path.join(ckpt_dir, "fsdp_one.pt"))
+            one.state = checkpoint.restore(os.path.join(ckpt_dir, "fsdp_mesh.npz"), one.state)
+            rec["ckpt_mesh_to_one_equal"] = _equal_planes(_fsdp_planes(one)[0], run["got"])
+        recs.append(rec)
+        del one
+    return recs
+
+
+def _fsdp_compare_lm(rank, world, fsdp, shares, batches, cfg, dev):
+    """Phase 15(b)'s comparison: rank 0 runs the stacked engine at m 2 on the
+    same weights and batches (no mesh) and holds every rank's shares against
+    the same cut of the stacked planes (``cut_to_rank`` with that rank's
+    split): its own whole, the other ranks' in ``_windows`` (sent over gloo
+    as raw bits), within ``FSDP_LM_ULPS`` bf16 ulps of each stacked plane's
+    largest magnitude (v, a difference of anchors: of z's too, as
+    ``tests/test_torch_dist_fsdp.py`` holds it); the losses rtol
+    ``FSDP_LM_LOSS_RTOL``. The other ranks send their windows and return
+    None."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel import sharding
+
+    keys = ("x", "momentum", "z", "v", "inflight")
+    bits = lambda t: t.view(torch.int16 if t.element_size() == 2 else torch.int32)  # noqa: E731
+    if rank != 0:
+        for key in keys:
+            for t in shares[key]:
+                for w in _windows(t.shape[-1]):
+                    dist.send(bits(t[..., w].contiguous()), dst=0)
+        return None
+    stacked = _lm_experiment(dev, cfg, 2, LM_SEQ, init_on_device=True).build()
+    losses = []
+    for rb in batches:
+        stacked.state, ms = stacked.step_fn(stacked.state, stacked.to_device(rb))
+        losses.append(ms["loss"].float().cpu().tolist())
+    st = stacked.state
+    want = {"x": st.x.buffers, "momentum": st.opt.momentum.buffers, "z": st.vars.z.buffers, "v": st.vars.v.buffers,
+            "inflight": st.inflight.buffers}
+    mags = {k: [float(b.abs().max().float()) for b in v] for k, v in want.items()}
+    W = world // fsdp
+    worst = {k: 0.0 for k in keys}
+    own = {k: 0.0 for k in keys}  # each plane in ulps of its own largest magnitude (v's is far below z's)
+    columns = 0
+    for r in range(world):
+        wr, fr = divmod(r, fsdp)
+        sp = sharding.plane_split(st.x.layout, sharding.WorkerMesh(group=None, rank=wr, size=W, device=dev,
+                                                                    fsdp=fsdp, fsdp_rank=fr))
+        rows = st.x.lead_shape[0] // W
+        for key in keys:
+            for b, full in enumerate(want[key]):
+                axis = "flat_param" if key in ("x", "momentum") else "anchor_flat"
+                part = full[wr * rows:(wr + 1) * rows] if axis == "flat_param" else full
+                cut = sharding.cut_to_rank(part, b, sp, axis)
+                if r == 0:
+                    pairs = [(shares[key][b].to(dev), cut)]
+                else:
+                    pairs = []
+                    for w in _windows(cut.shape[-1]):
+                        recv = torch.empty(cut[..., w].shape, dtype=torch.int16 if cut.element_size() == 2
+                                           else torch.int32)
+                        dist.recv(recv, src=r)
+                        pairs.append((recv.view(cut.dtype).to(dev), cut[..., w]))
+                for g, w in pairs:
+                    columns += w.shape[-1]
+                    # v, a difference of anchors: in ulps of z's magnitude too (as the CPU tests)
+                    mag = max(mags["v"][b], mags["z"][b]) if key == "v" else mags[key][b]
+                    worst[key] = max(worst[key], _fsdp_ulps(g, w, bits=8, mag=mag))
+                    own[key] = max(own[key], _fsdp_ulps(g, w, bits=8, mag=mags[key][b]))
+                del cut, part
+    ok = all(worst[k] <= FSDP_LM_ULPS[k] for k in keys)
+    del stacked, st, want
+    _free()
+    return dict(worst_bf16_ulps=worst, worst_bf16_ulps_of_own_magnitude=own, planes_ok=ok, stacked_losses=losses,
+                columns_compared=columns,
+                bound=f"each rank's shares against the same cut of the stacked run's planes (rank 0 whole, the "
+                      f"others in windows of {FSDP_WINDOW} columns at the start, middle and end): within "
+                      f"{FSDP_LM_ULPS} bf16 ulps of each plane's largest magnitude (v: of z's too, a difference "
+                      f"of anchors); losses rtol {FSDP_LM_LOSS_RTOL}")
+
+
+def _spawn_gloo_ranks(target, world, *args, budget=600):
+    """``world`` ranks spawned with ``torch.multiprocessing`` on this card,
+    each running ``target(rank, world, rendezvous, out_path, src, *args)``;
+    returns the JSON rank 0 wrote to ``out_path``. Raises when a rank fails
+    (the others are stopped)."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    out = os.path.join(tmp, "results.json")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, os.path.join(tmp, "rendezvous"), out, str(SRC)) + args)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + budget
+    try:
+        while any(p.is_alive() for p in procs):
+            if time.monotonic() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+    errors = [open(os.path.join(tmp, f)).read() for f in sorted(os.listdir(tmp)) if f.endswith(".err")]
+    if errors or any(p.exitcode != 0 for p in procs) or not os.path.exists(out):
+        raise AssertionError(f"gloo ranks failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    with open(out) as f:
+        return json.load(f)
+
+
+def fsdp_gloo_on_one_card(card):
+    """Phase 15(b) and (c): four gloo ranks sharing the card as a (2, 2)
+    mesh (the classifier fits, the checkpoint both ways, qwen2-7b), then two
+    as (1, 2) (the classifier fits). Fails when a rank fails or a run breaks
+    its bound."""
+    t0 = time.perf_counter()
+    out = {}
+    for W, F, lm in ((2, 2, True), (1, 2, False)):
+        t1 = time.perf_counter()
+        res = _spawn_gloo_ranks(_fsdp_rank, W * F, F, lm)
+        res["spawn_s"] = time.perf_counter() - t1
+        for rec in res["fits"]:
+            rec["card"] = card
+            log(json.dumps(dict(rec, mesh=[W, F])))
+        if lm:
+            log(json.dumps(dict(res["lm"], run=f"qwen2-7b full width, {FSDP_LM_LAYERS} layer, bf16, m 2, overlap "
+                                f"beta=0.7 on a (2, 2) mesh of four gloo ranks sharing one card", card=card)))
+        log(json.dumps(dict(check=f"phase 15 ({W}, {F})", transport=res["transport"], mesh_fits_s=res["mesh_fits_s"],
+                            spawn_s=res["spawn_s"], ckpt_one_to_mesh_equal=res.get("ckpt_one_to_mesh_equal"))))
+        bad = [rec["run"] for rec in res["fits"] if rec["planes_differing"] or not rec["losses_ok"]
+               or not rec["schedule_equal"] or not rec["fault_log_equal"] or not rec["stats_ok"]
+               or rec.get("ckpt_mesh_to_one_equal") is False]
+        if res.get("ckpt_one_to_mesh_equal") is False:
+            bad.append("the one-process checkpoint restored on the mesh")
+        if lm:
+            if not res["lm"]["planes_ok"] or not res["lm"]["losses_ok"]:
+                bad.append("qwen2-7b on (2, 2)")
+            out["lm"] = res["lm"]
+        if bad:
+            raise AssertionError(f"phase 15 on ({W}, {F}) breaks its bounds: {bad}")
+        out[(W, F)] = res
+    log(f"phase 15(b, c): {time.perf_counter() - t0:.1f}s with the spawns")
+    return out
 
 
 def main() -> int:
@@ -7808,6 +8369,16 @@ def main() -> int:
     _free()
     gloo14 = rank_gloo_offload_perleaf(card)
     mark("phase 14 (c: offloaded and per-leaf fits on two gloo ranks sharing the card)")
+
+    # phase 15: within-worker sharding (the (worker, fsdp) mesh, ZeRO-3 on
+    # the packed plane, the anchor stored once over every axis): the kernel
+    # forms at the sharded shapes; qwen2-7b and the classifier on (2, 2) and
+    # (1, 2) meshes of gloo ranks sharing the card
+    check_fsdp_forms(dev, gen)
+    mark("phase 15 (a: the sharded paths' kernel forms at their shapes)")
+    _free()
+    fsdp_gloo_on_one_card(card)
+    mark("phase 15 (b, c: qwen2-7b and the classifier on (2, 2) and (1, 2) meshes of gloo ranks)")
 
     # the kernels line
     launches = dict(summary["launches"])

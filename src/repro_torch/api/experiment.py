@@ -74,7 +74,11 @@ and fault log. ``checkpoint.save(path, exp.state)`` and
 ``consensus_plane()`` come from one blocking all-reduce of the rows' f32
 sums (per leaf, of every leaf's rows); ``anchor_plane()`` drains the in-flight collective first
 (``repro_torch.training.drain``); ``evaluate()`` and ``serve()`` read the
-consensus, alike on every rank.
+consensus, alike on every rank. On a (worker, fsdp) mesh (ROADMAP item
+10c, first part) the rank's rows are cut to a column slice and the anchor
+to a piece: the readers gather them (the consensus's slices over the fsdp
+group, ``anchor_plane()`` the anchor's pieces over both groups, a plane of
+its own), and an MoE arch raises (item 10c's second part).
 
 ``AlgoConfig(offload=True)`` trains with the optimizer state and the
 strategy's anchor-shaped planes in host memory between boundaries (pinned
@@ -384,11 +388,14 @@ class Experiment:
     def anchor_plane(self) -> Packed:
         """The anchor plane z consumed at the last boundary (anchor-momentum
         strategies), by reference; on a worker mesh after draining the
-        in-flight collective."""
+        in-flight collective, and where the rank holds a piece of it, the
+        whole anchor gathered from the mesh (a plane of its own)."""
         self.build()
         if sharding.current_mesh() is not None:
             self.state = drain(self.state)
         z = self.state.vars.z if self.state.vars is not None else None
+        if isinstance(z, sharding.Sharded):  # the rank's piece: the whole anchor gathered, a plane of its own
+            return sharding.unshard(z)
         # an offloaded z is a HostPlane: no device plane to share by reference
         if not isinstance(z, Packed):
             raise ValueError("anchor_plane() requires a packed anchor strategy (state.vars.z is the plane)")

@@ -57,6 +57,15 @@ x's, the optimizer state's with the per-worker Adam count, PowerSGD's
 error, the avg-rebase x₀, the gossip mix, legacy CoCoD's round start), are
 gathered leaf by leaf the same way.
 
+With fsdp > 1, or wherever the anchor is stored as the rank's piece
+(:class:`~repro_torch.parallel.sharding.Sharded`), ``save`` first makes each
+share whole (every rank: the column slices gathered over the fsdp group,
+the anchor pieces over both groups, the padding dropped) and then writes as
+above, so the file is the one-process file at any (W, F); ``restore`` fits
+the stored whole plane (rows, ``elastic``) and cuts the rank's share, so a
+file restores onto any (W, F) at the same m, and across m with
+``elastic=True``.
+
 Restored leaves are tensors of the template's dtype on the template leaf's
 device. This module imports numpy and torch only.
 """
@@ -155,7 +164,7 @@ def _gathered(buf: torch.Tensor, mesh) -> Any:
     on the device and copied into one host array (pinned when the rows are
     on a card)."""
     r, n = buf.shape
-    host = torch.empty((r * mesh.size, n), dtype=buf.dtype, pin_memory=buf.is_cuda) if mesh.rank == 0 else None
+    host = torch.empty((r * mesh.size, n), dtype=buf.dtype, pin_memory=buf.is_cuda) if mesh.first else None
     for j in range(0, n, _GATHER_COLUMNS):
         c = slice(j, min(n, j + _GATHER_COLUMNS))
         rows = sharding.gather_rows_exact(buf[:, c].contiguous(), mesh)
@@ -203,7 +212,7 @@ def _gathered_stack(stack: torch.Tensor, mesh) -> Any:
     rank 0 (None elsewhere): one chunk's rows at a time through the mesh's
     device, into one host array (k, m, c)."""
     k, r, c = stack.shape
-    host = torch.empty((k, r * mesh.size, c), dtype=stack.dtype) if mesh.rank == 0 else None
+    host = torch.empty((k, r * mesh.size, c), dtype=stack.dtype) if mesh.first else None
     for i in range(k):
         rows = sharding.gather_rows_exact(stack[i].to(mesh.device), mesh)
         if host is not None:
@@ -220,6 +229,8 @@ def _arrays(tree, mesh):
     layouts = []
     rows = _row_leaves(tree) if mesh is not None else set()
     for key, node in _nodes(tree):
+        if isinstance(node, sharding.Sharded):  # every rank: the whole rows (or the whole anchor), padding dropped
+            node = sharding.unshard(node, mesh)
         if mesh is not None and isinstance(node, HostPlane) and _stacked(node):  # a chunk at a time
             for i, stack in enumerate(node.host_ready().chunks):
                 yield _join(key, str(i)), _gathered_stack(stack, mesh)
@@ -231,7 +242,7 @@ def _arrays(tree, mesh):
             r = node.shape[0]
             got = _gathered(node.reshape(r, -1), mesh)
             yield key, None if got is None else got.reshape((r * mesh.size,) + tuple(node.shape[1:]))
-        elif mesh is not None and mesh.rank != 0:
+        elif mesh is not None and not mesh.first:
             continue
         elif isinstance(node, Packed):
             for i, buf in enumerate(node.buffers):
@@ -264,7 +275,7 @@ def save(path: str, tree: Any) -> None:
     if mesh is not None:
         tree = _drained(tree)
     items = _arrays(tree, mesh)
-    if mesh is None or mesh.rank == 0:
+    if mesh is None or mesh.first:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
@@ -273,8 +284,8 @@ def save(path: str, tree: Any) -> None:
     else:
         for _ in items:  # the gathers rank 0 waits on
             pass
-    if mesh is not None:  # the file is there before any rank returns (a one-element sum: a barrier)
-        sharding.all_reduce_(torch.zeros(1, device=mesh.device), mesh)
+    if mesh is not None:  # the file is there before any rank returns
+        sharding.barrier(mesh)
 
 
 class _Stored:
@@ -406,6 +417,21 @@ def _fit_stack(arr: np.ndarray, shape: Tuple[int, ...], key: str, elastic: bool)
     return _fit_leaf(arr, shape, key)
 
 
+def _shard_of(arr, like: torch.Tensor, bucket: int, key: str, node, mesh, elastic: bool) -> torch.Tensor:
+    """This rank's share of a stored whole bucket for a
+    :class:`~repro_torch.parallel.sharding.Sharded` template ``node``: its
+    rows (all m fitted first, ``elastic`` resizing them) and its column
+    slice, or its anchor piece."""
+    n = node.split.widths[bucket]
+    if node.anchor:
+        full = _to_tensor(_fit_leaf(arr, (n,), key), like)
+    else:
+        m = node.lead_shape[0] * mesh.size
+        lo, hi = mesh.rows(m)
+        full = _to_tensor(_fit_leaf(arr, (m, n), key, elastic)[lo:hi], like)
+    return sharding.cut_to_rank(full, bucket, node.split, node.axis)
+
+
 def _restore(arrays, template: Any, elastic: bool, mesh) -> Any:
     layouts = {}
     rows = _row_leaves(template) if mesh is not None else set()
@@ -423,6 +449,9 @@ def _restore(arrays, template: Any, elastic: bool, mesh) -> Any:
                 stored = [arrays[k] for k in bufkeys]
             else:
                 stored, bufkeys = _pack_perleaf_into(arrays, key, node), [key] * len(node.buffers)
+            if isinstance(node, sharding.Sharded):  # the whole plane fitted, then this rank's share
+                return node.with_buffers(tuple(_shard_of(a, b, i, k, node, mesh, elastic)
+                                               for i, (a, b, k) in enumerate(zip(stored, node.buffers, bufkeys))))
             if mesh is not None and _stacked(node):  # all m rows fitted, then this rank's
                 m = node.lead_shape[0] * mesh.size
                 lo, hi = mesh.rows(m)

@@ -82,6 +82,29 @@ f32 wire buffer, and the rows a pending neighbour exchange sends and
 receives, stay on the card until the collective is waited on.
 :func:`check_rank_path` raises only for a strategy with no rank boundary.
 
+**The sharded anchor** (ROADMAP item 10c, first part). On the packed
+resident path the anchor-shaped state of Overlap-Local-SGD, gossip_full,
+EASGD, CoCoD and delayed averaging (z, v, the in-flight anchor, the
+average) is the rank's piece (:class:`~repro_torch.parallel.sharding.Sharded`
+of ``anchor_flat``: 1/(W·F) of each bucket), for every W and F. The worker
+sum is then a reduce-scatter over the worker group
+(:func:`~repro_torch.parallel.sharding.reduce_scatter_async`):
+Overlap-Local-SGD's boundary waits on the one the last boundary launched,
+finishes its piece (K3/K4's rank form with no rows, :class:`RankShardInflight`),
+all-gathers the pieces of its column slice, pulls its rows back (K4's rank
+form with no finish, writing the partial sums over the slice into a wire
+buffer of W·a_b a bucket) and launches the next reduce-scatter
+(:func:`_shard_anchor_boundary`); EASGD blocks on one, CoCoD and delayed
+averaging launch one (:class:`RankRebaseInflight` with ``sums``). The
+finish is elementwise, so the values are the replicated path's bit for
+bit. The per-leaf and offloaded rank paths, sparse_anchor and PowerSGD
+keep a replicated anchor (at F = 1; with fsdp > 1 they raise,
+:func:`check_fsdp_path`). With fsdp > 1 x is the rank's column slice, and
+every other rank boundary runs on it as on whole rows: Local SGD and
+sync-SGD reduce over the worker group of their slice, the gossip family
+exchanges its slice within the worker group, and the probe adds the
+slices' drift and scale over the fsdp group (:func:`rank_probe`).
+
 **The per-leaf oracle** (``AlgoConfig.packed=False``, and every legacy
 ``Algorithm`` through :class:`LegacyStrategy`): x is a nested dict of
 worker-stacked leaves ``(m, ...)``, each with its own storage, and the
@@ -263,7 +286,24 @@ def _pack_anchor(px: Packed) -> Packed:
 
 
 def _copy_plane(px: Packed) -> Packed:
-    return Packed(tuple(b.clone() for b in px.buffers), px.layout)
+    return px.with_buffers(tuple(b.clone() for b in px.buffers))
+
+
+def _shards_anchor(strategy, x) -> bool:
+    """Whether ``strategy`` keeps its anchor-shaped state as this rank's
+    piece (:class:`~repro_torch.parallel.sharding.Sharded`, ``anchor_flat``):
+    on a worker mesh, the packed resident plane (not offloaded, not per
+    leaf), a strategy whose anchor is elementwise."""
+    return (sharding.current_mesh() is not None and isinstance(x, Packed) and strategy.shards_anchor
+            and not strategy.cfg.offload)
+
+
+def _init_anchor(strategy, x) -> Packed:
+    """Worker 0's row as the anchor: this rank's piece of it where the
+    strategy shards its anchor (:func:`_shards_anchor`), else the whole row
+    (of the rank's columns)."""
+    row = _pack_anchor(_as_plane(x))
+    return sharding.shard_anchor(row, sharding.current_mesh()) if _shards_anchor(strategy, x) else row
 
 
 def _pullback(x, z, alpha: float, membership=None):
@@ -342,6 +382,60 @@ class RankInflight(_RankPending):
         return self.done
 
 
+class RankShardInflight(_RankPending):
+    """The in-flight anchor of a sharded rank boundary: ``z`` this rank's
+    piece of the anchor that boundary pulled toward (a
+    :class:`~repro_torch.parallel.sharding.Sharded`), ``wire`` the flat f32
+    buffer of every bucket's partial worker sums over the rank's column
+    slice (W·a_b a bucket, zero past c_b), ``sums`` the flat f32 pieces
+    (a_b a bucket) that ``handle``, the reduce-scatter over the worker
+    group, writes: the sum over all m workers of the rank's piece once
+    waited. ``m``, ``beta``, ``weighted`` as :class:`RankInflight`.
+    :meth:`finished` waits once and finishes the piece (K3/K4's rank form
+    with no rows; v's piece updated in place), and keeps it."""
+
+    def __init__(self, z, wire: torch.Tensor, sums: torch.Tensor, handle, m: int, beta: Optional[float],
+                 weighted: bool = False):
+        super().__init__()
+        self.z, self.wire, self.sums, self.handle = z, wire, sums, handle
+        self.m, self.beta, self.weighted = m, beta, weighted
+
+    def finished(self, vars: AlgoVars):
+        if self.done is None:
+            self.handle.wait()
+            vs = vars.v.buffers if self.beta is not None else (None,) * len(self.z.buffers)
+            fin = 2 if self.weighted else 1
+            self.done = self.z.with_buffers(tuple(
+                anchor_ops.pullback_rank(bz[None][:0], bz, bv, s, self.m, 0.0, self.beta, fin)
+                for bz, bv, s in zip(self.z.buffers, vs, _piece_views(self.sums, self.z.split))))
+        return self.done
+
+
+def _shard_wire(split, device):
+    """(wire, sums) of a sharded boundary: a zeroed flat f32 buffer of W·a_b
+    a bucket (the partial sums over the column slice go in its first c_b;
+    the rest, padding, stays zero) and a flat f32 buffer of a_b a bucket
+    (the rank's summed pieces; at W 1 the wire itself: the sum over one
+    rank is its partial sum)."""
+    wire = torch.zeros(sum(split.workers * a for a in split.pieces), dtype=torch.float32, device=device)
+    return wire, (wire if split.workers == 1 else torch.empty(sum(split.pieces), dtype=torch.float32, device=device))
+
+
+def _wire_segments(wire: torch.Tensor, split):
+    """``wire`` cut into one (W·a_b,) segment a bucket."""
+    return torch.split(wire, [split.workers * a for a in split.pieces])
+
+
+def _wire_cols(wire: torch.Tensor, split):
+    """Each bucket's segment cut to its column slice's c_b partial sums."""
+    return [seg[:c] for seg, c in zip(_wire_segments(wire, split), split.cols)]
+
+
+def _piece_views(sums: torch.Tensor, split):
+    """``sums`` cut into one (a_b,) piece a bucket."""
+    return torch.split(sums, list(split.pieces))
+
+
 class RankRebaseInflight(_RankPending):
     """The in-flight average of an avg-rebase rank boundary (CoCoD, delayed
     averaging): ``x0`` the rank's own launch-time rows (a plane of their
@@ -354,15 +448,21 @@ class RankRebaseInflight(_RankPending):
 
     HOST_PLANES = ("x0",)
 
-    def __init__(self, x0: Packed, buf: torch.Tensor, handle, m: int, weighted: bool):
+    def __init__(self, x0: Packed, buf: torch.Tensor, handle, m: int, weighted: bool, sums=None, like=None):
         super().__init__()
         self.x0, self.buf, self.handle, self.m, self.weighted = x0, buf, handle, m, weighted
+        # sharded (``like``: the average's last piece): ``buf`` is the wire, the reduce-scatter writes ``sums``
+        self.sums, self.like = sums, like
 
     def finished(self, vars: Optional[AlgoVars] = None):
         if self.done is None:
             self.handle.wait()
-            avg = Packed(tuple(_finish_sum(s, self.m, self.weighted, b.dtype)
-                               for s, b in zip(_wire_views(self.buf, self.x0), self.x0.buffers)), self.x0.layout)
+            if self.like is None:
+                avg = Packed(tuple(_finish_sum(s, self.m, self.weighted, b.dtype)
+                                   for s, b in zip(_wire_views(self.buf, self.x0), self.x0.buffers)), self.x0.layout)
+            else:
+                avg = self.like.with_buffers(tuple(_finish_sum(s, self.m, self.weighted, b.dtype) for s, b in
+                                                   zip(_piece_views(self.sums, self.like.split), self.like.buffers)))
             self.done = _AvgRebaseStrategy.Inflight(avg=avg, x0=self.x0)
         return self.done
 
@@ -476,11 +576,17 @@ def _rank_sums(px, weights=None, buf=None) -> torch.Tensor:
     each term weighted with ``weights`` (the rows' slice of a membership's
     weights) — the stacked worker mean's order."""
     buf = _wire_buffer(px) if buf is None else buf
-    for b, s in zip(_bufs(px), _wire_views(buf, px)):
+    _write_sums(px, _wire_views(buf, px), weights)
+    return buf
+
+
+def _write_sums(px, views, weights=None) -> None:
+    """The f32 partial worker sums of the rank's rows, one bucket (one (r, n)
+    tensor of a list) into each of ``views``: :func:`_rank_sums`'s values."""
+    for b, s in zip(_bufs(px), views):
         rows = _rows(b)
         for c in column_chunks(rows):
             s[c] = row_sum(rows[:, c]) if weights is None else worker_mean(rows[:, c], weights)
-    return buf
 
 
 def finish_inflight(inflight, vars: AlgoVars):
@@ -503,7 +609,9 @@ def rank_probe(px, mesh, sums=None) -> ConsensusStats:
     x̄ from the unweighted f32 row sums (one blocking n-wide all-reduce, or
     ``sums``, the all-reduced sums the boundary already holds), K8's rank
     form a bucket (a leaf), the drift sums added over the ranks in float64
-    (one scalar all-reduce) and rounded to f32 once."""
+    (one scalar all-reduce) and rounded to f32 once. With fsdp > 1 x̄ is
+    the rank's column slice's, and the slices' drift and scale parts add
+    over the fsdp group."""
     m = _bufs(px)[0].shape[0] * mesh.size
     own = sums is None
     if own:
@@ -511,22 +619,25 @@ def rank_probe(px, mesh, sums=None) -> ConsensusStats:
     mt = torch.full((), float(m), dtype=torch.float32, device=sums.device)
     xbar = sums.div_(mt) if own else sums / mt  # in place in a buffer of its own (a plane's f32 bytes)
     parts = torch.stack([probe_rows(_rows(b), xb) for b, xb in zip(_bufs(px), _wire_views(xbar, px))])
-    drift = sharding.all_reduce_(parts[:, 0].contiguous(), mesh)
-    return stats_from_partials([torch.stack([d, sc]).float() for d, sc in zip(drift, parts[:, 1])], m)
+    drift, scale = sharding.all_reduce_(parts[:, 0].contiguous(), mesh), parts[:, 1]
+    if mesh.fsdp > 1:  # every column slice's drift and scale, over the worker's F ranks
+        drift, scale = sharding.all_reduce_fsdp_(torch.stack([drift, scale]), mesh)
+    return stats_from_partials([torch.stack([d, sc]).float() for d, sc in zip(drift, scale)], m)
 
 
 def rank_worker_mean(px, mesh):
     """The f32 worker mean of every bucket (every leaf of a per-leaf x) over
     all ranks, alike on every rank: the rows' f32 sums, one blocking
     all-reduce, divided by m. f32 buffers of the plane's layout with no lead
-    axis, or a nested dict of f32 leaves without their worker axis."""
+    axis (a column slice's means gathered over the fsdp group into whole
+    rows), or a nested dict of f32 leaves without their worker axis."""
     leaves, paths = (px.buffers, None) if isinstance(px, Packed) else tree_flatten(px)
     rows = [_rows(t) for t in leaves]
     m = rows[0].shape[0] * mesh.size
     buf = sharding.all_reduce_(_rank_sums(rows), mesh)
     buf.div_(torch.full((), float(m), dtype=torch.float32, device=buf.device))
-    if paths is None:
-        return Packed(_wire_views(buf, rows), px.layout)
+    if paths is None:  # a column slice's means: the worker's row gathered over its F ranks
+        return sharding.unshard(px.with_buffers(_wire_views(buf, rows)), mesh)
     return tree_unflatten(paths, [v.reshape(t.shape[1:]) for v, t in zip(_wire_views(buf, rows), leaves)])
 
 
@@ -564,6 +675,29 @@ def check_rank_path(strategy) -> None:
                                   f"ranks")
 
 
+def check_fsdp_path(strategy, packed_step: bool, paths=()) -> None:
+    """On a mesh with fsdp > 1, raise ``NotImplementedError`` (ROADMAP item
+    10c's second part) for what only runs on whole rows: the per-leaf path
+    (``packed_step`` False: ``AlgoConfig.packed=False``, a legacy
+    ``Algorithm``, an optimizer with no packed step), offload, a strategy
+    whose anchor step is not elementwise (sparse_anchor's per-leaf top-k,
+    PowerSGD's per-leaf factors) and MoE segments (a ``router`` among the
+    parameter ``paths``: capacity and aux loss are functions of the whole
+    token set)."""
+    mesh = sharding.current_mesh()
+    if mesh is None or mesh.fsdp == 1:
+        return
+    if not packed_step:
+        raise sharding.unsupported_on_ranks("the per-leaf path (AlgoConfig.packed=False, a legacy Algorithm or an "
+                                            "optimizer with no packed step) with fsdp > 1")
+    if strategy.cfg.offload:
+        raise sharding.unsupported_on_ranks("host offload (AlgoConfig.offload) with fsdp > 1")
+    if not strategy.fsdp_capable:
+        raise sharding.unsupported_on_ranks(f"strategy {strategy.name!r} with fsdp > 1 (its anchor step is per leaf)")
+    if any(p and p[-1] == "router" for p in paths):
+        raise sharding.unsupported_on_ranks("MoE segments with fsdp > 1")
+
+
 class CommStrategy:
     """Base strategy: Local SGD without averaging (every hook a no-op).
 
@@ -576,6 +710,10 @@ class CommStrategy:
     consumes_inflight_midround = False
     # runs its boundary on a worker mesh (_rank_boundary)
     rank_capable = False
+    # on a mesh, its packed resident anchor is stored as the rank's piece (anchor_flat)
+    shards_anchor = False
+    # runs on column slices (fsdp > 1): its boundary is elementwise over the columns
+    fsdp_capable = True
 
     def __init__(self, cfg: AlgoConfig):
         self.cfg = cfg
@@ -772,6 +910,7 @@ class OverlapLocalSGDStrategy(CommStrategy):
 
     name = "overlap_local_sgd"
     rank_capable = True
+    shards_anchor = True
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
@@ -781,13 +920,13 @@ class OverlapLocalSGDStrategy(CommStrategy):
         if not self.momentum:
             return AlgoVars()
         if self.packed:
-            z = _pack_anchor(_as_plane(x))
+            z = _init_anchor(self, x)
             return AlgoVars(z=z, v=packed_like(z, 0.0))
         z = _first_row(x)
         return AlgoVars(z=z, v=tree_map(torch.zeros_like, z))
 
     def init_inflight(self, x, vars):
-        return _pack_anchor(_as_plane(x)) if self.packed else _first_row(x)
+        return _init_anchor(self, x) if self.packed else _first_row(x)
 
     def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
         inflight = _arrived(inflight, vars)  # on a worker mesh: the sum waited on, the momentum chain run
@@ -843,7 +982,9 @@ def _rank_anchor_boundary(px: Packed, inflight, mesh, alpha: float, beta, v, pro
     ``inflight`` and starts at the pullback. With ``probe`` the pre-pullback
     stats come first, from a blocking all-reduce of the rows' sums and K8's
     rank form. Returns (the anchor pulled toward, the :class:`RankInflight`,
-    the stats or None)."""
+    the stats or None). A sharded anchor takes :func:`_shard_anchor_boundary`."""
+    if isinstance(inflight, (RankShardInflight, sharding.Sharded)):
+        return _shard_anchor_boundary(px, inflight, mesh, alpha, beta, v, probe, membership)
     stats = rank_probe(px, mesh) if probe else None
     mem = sharding.rows_of(membership, mesh)
     weights = None if mem is None else mem.weights
@@ -862,6 +1003,35 @@ def _rank_anchor_boundary(px: Packed, inflight, mesh, alpha: float, beta, v, pro
         inflight.done = z
     handle = sharding.all_reduce_async(buf, mesh)
     return z, RankInflight(z=z, buf=buf, handle=handle, m=m, beta=beta, weighted=weights is not None), stats
+
+
+def _shard_anchor_boundary(px: Packed, inflight, mesh, alpha: float, beta, v, probe: bool, membership):
+    """Overlap-Local-SGD's rank boundary with the anchor stored as the
+    rank's piece: wait on the reduce-scatter the last boundary launched and
+    finish the piece (:meth:`RankShardInflight.finished`: K3/K4's rank form
+    with no rows, v's piece in place); all-gather the pieces of the rank's
+    column slice over the worker group; pull the rows back toward it and
+    write their (weighted) partial sums over the slice (K4's rank form with
+    no finish, one launch a bucket); launch the reduce-scatter of those sums
+    over the worker group. The first boundary (and the first after a drain)
+    finds the finished piece in ``inflight``. The values are the replicated
+    path's: the finish is elementwise. Returns (the piece pulled toward, the
+    :class:`RankShardInflight`, the stats or None)."""
+    stats = rank_probe(px, mesh) if probe else None
+    mem = sharding.rows_of(membership, mesh)
+    weights = None if mem is None else mem.weights
+    if isinstance(inflight, RankShardInflight):
+        z = inflight.finished(AlgoVars(v=v))
+        wire, sums = inflight.wire, inflight.sums
+    else:
+        z = inflight
+        wire, sums = _shard_wire(z.split, z.buffers[0].device)
+    m = px.lead_shape[0] * mesh.size
+    cols = sharding.anchor_columns(z, mesh)
+    for bx, bz, s in zip(px.buffers, cols.buffers, _wire_cols(wire, z.split)):
+        anchor_ops.pullback_rank(bx, bz, None, s, m, alpha, None, 0, weights=weights)
+    handle = sharding.reduce_scatter_async(_wire_segments(wire, z.split), _piece_views(sums, z.split), mesh)
+    return z, RankShardInflight(z, wire, sums, handle, m, beta, weights is not None), stats
 
 
 def _pullback_mean(px: Packed, z: Packed, alpha: float, mean_pre: bool = False, probe: bool = False, weights=None):
@@ -890,9 +1060,10 @@ class EASGDStrategy(CommStrategy):
 
     name = "easgd"
     rank_capable = True
+    shards_anchor = True
 
     def init_vars(self, x) -> AlgoVars:
-        return AlgoVars(z=_pack_anchor(_as_plane(x)) if self.packed else _first_row(x))
+        return AlgoVars(z=_init_anchor(self, x) if self.packed else _first_row(x))
 
     def boundary_apply(self, x, vars: AlgoVars, inflight, membership=None):
         rate = _easgd_rate(self.cfg.alpha, _leading(x), membership)
@@ -926,11 +1097,20 @@ class EASGDStrategy(CommStrategy):
         alpha, m = self.cfg.alpha, px.lead_shape[0] * mesh.size
         mem = sharding.rows_of(membership, mesh)
         weights = None if mem is None else mem.weights
-        buf = _wire_buffer(px)
-        for bx, bz, s in zip(px.buffers, vars.z.buffers, _wire_views(buf, px)):
+        if isinstance(vars.z, sharding.Sharded):  # z's piece: gathered over the slice, the sums reduce-scattered
+            sp = vars.z.split
+            buf, sums = _shard_wire(sp, vars.z.buffers[0].device)
+            z_cols, views, pieces = sharding.anchor_columns(vars.z, mesh), _wire_cols(buf, sp), _piece_views(sums, sp)
+        else:
+            buf = _wire_buffer(px)
+            z_cols, views = vars.z, _wire_views(buf, px)
+        for bx, bz, s in zip(px.buffers, z_cols.buffers, views):
             anchor_ops.pullback_rank(bx, bz, None, s, m, alpha, None, 0, weights=weights, mean_pre=True)
-        sharding.all_reduce_(buf, mesh)
-        means = [_finish_sum(s, m, weights is not None, bz.dtype) for s, bz in zip(_wire_views(buf, px), vars.z.buffers)]
+        if isinstance(vars.z, sharding.Sharded):
+            sharding.reduce_scatter_async(_wire_segments(buf, sp), pieces, mesh).wait()
+        else:
+            pieces = _wire_views(sharding.all_reduce_(buf, mesh), px)
+        means = [_finish_sum(s, m, weights is not None, bz.dtype) for s, bz in zip(pieces, vars.z.buffers)]
         self._lerp_anchor_(vars.z, means, _easgd_rate(alpha, m, membership))
         return _with_stats((px, vars, None), stats)
 
@@ -959,6 +1139,7 @@ class _AvgRebaseStrategy(CommStrategy):
         ROWS = ("x0",)  # worker-stacked per leaf (on a worker mesh the rank's rows)
 
     rank_capable = True
+    shards_anchor = True
 
     def init_inflight(self, x, vars):
         if self.packed:
@@ -970,6 +1151,8 @@ class _AvgRebaseStrategy(CommStrategy):
             # row is the stacked run's mean, bit for bit, with no collective
             m = px.lead_shape[0] * mesh.size
             avg = Packed(tuple(_mean_rows(b[:1].expand(m, -1)) for b in px.buffers), px.layout)
+            if _shards_anchor(self, x):
+                avg = sharding.shard_anchor(avg, mesh)
             return self.Inflight(avg=avg, x0=_copy_plane(px))
         if sharding.current_mesh() is None:
             return self.Inflight(avg=_worker_mean(x), x0=_clone(x))
@@ -986,8 +1169,12 @@ class _AvgRebaseStrategy(CommStrategy):
 
     @staticmethod
     def _rebase_packed(px: Packed, inflight, membership=None) -> Packed:
-        """The rebase over the plane, in place."""
-        for bx, b0, av in zip(px.buffers, inflight.x0.buffers, inflight.avg.buffers):
+        """The rebase over the plane, in place (a sharded average's pieces
+        all-gathered over the rank's column slice first)."""
+        avg = inflight.avg
+        if isinstance(avg, sharding.Sharded) and avg.anchor:
+            avg = sharding.anchor_columns(avg)
+        for bx, b0, av in zip(px.buffers, inflight.x0.buffers, avg.buffers):
             _rebase_rows_(bx, b0, av, membership)
         return px
 
@@ -1021,9 +1208,17 @@ class _AvgRebaseStrategy(CommStrategy):
         for b0, bx in zip(done.x0.buffers, px.buffers):
             b0.copy_(bx)
         weights = None if mem is None else mem.weights
+        m = px.lead_shape[0] * mesh.size
+        if isinstance(done.avg, sharding.Sharded):  # the average's pieces: a reduce-scatter of the slice's sums
+            sp = done.avg.split
+            buf, sums = (inflight.buf, inflight.sums) if pending else _shard_wire(sp, done.avg.buffers[0].device)
+            _write_sums(px, _wire_cols(buf, sp), weights)
+            handle = sharding.reduce_scatter_async(_wire_segments(buf, sp), _piece_views(sums, sp), mesh)
+            out = RankRebaseInflight(done.x0, buf, handle, m, weights is not None, sums=sums, like=done.avg)
+            return _with_stats((px, vars, out), stats)
         buf = _rank_sums(px, weights, inflight.buf if pending else None)
         handle = sharding.all_reduce_async(buf, mesh)
-        out = RankRebaseInflight(done.x0, buf, handle, px.lead_shape[0] * mesh.size, weights is not None)
+        out = RankRebaseInflight(done.x0, buf, handle, m, weights is not None)
         return _with_stats((px, vars, out), stats)
 
 
@@ -1053,6 +1248,7 @@ class PowerSGDStrategy(CommStrategy):
 
     name = "powersgd"
     rank_capable = True
+    fsdp_capable = False
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
@@ -1258,6 +1454,7 @@ class SparseAnchorStrategy(CommStrategy):
 
     name = "sparse_anchor"
     rank_capable = True
+    fsdp_capable = False
 
     def __init__(self, cfg: AlgoConfig):
         super().__init__(cfg)
@@ -1421,6 +1618,10 @@ class GossipPushSumStrategy(CommStrategy):
 
     rank_capable = True
 
+    @property
+    def shards_anchor(self) -> bool:
+        return self.full  # gossip_full is Overlap-Local-SGD with beta 0
+
     def init_vars(self, x) -> AlgoVars:
         first = tensors_of(x)[0]
         mesh = sharding.current_mesh()
@@ -1430,7 +1631,7 @@ class GossipPushSumStrategy(CommStrategy):
 
     def init_inflight(self, x, vars: AlgoVars):
         if self.full:
-            return _pack_anchor(_as_plane(x)) if self.packed else _first_row(x)
+            return _init_anchor(self, x) if self.packed else _first_row(x)
         # w' = 1: round 0's debias divides by exactly 1.0
         mix = _copy_plane(_as_plane(x)) if self.packed else _clone(x)
         if sharding.current_mesh() is None:

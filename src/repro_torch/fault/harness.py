@@ -24,7 +24,8 @@ same ``records``. A re-sync first drains the rank boundary's pending
 collective (:func:`repro_torch.training.drain`: the anchor, or the
 avg-rebase average, finished once, and the next boundary starts from it),
 then copies the anchor into the rejoining workers' rows that live on this
-rank. Two anchors are sums over all m workers, taken as the rows' f32
+rank (a sharded anchor's pieces all-gathered over the rank's column slice
+first: with fsdp > 1 each rank re-syncs its rows on its columns). Two anchors are sums over all m workers, taken as the rows' f32
 partial sums added over the ranks (one blocking all-reduce): the gossip
 family's Σ_i mix_i / Σ_i w_i (the drained mix holds the rank's rows) and the
 live-mean fallback of the strategies with no anchor (local_sgd, sync_sgd,
@@ -113,6 +114,8 @@ def resync_from_anchor(state, resync_mask):
             anchor = _map(lambda b: _row_sum(b, lambda t: torch.sum(t * wt, dim=0)), x)
         else:
             anchor = _live_mean_over_ranks(x, wt, mesh)
+    elif isinstance(anchor, sharding.Sharded) and anchor.anchor:  # the pieces over the rank's column slice
+        anchor = sharding.anchor_columns(anchor, mesh)
     for b, a in zip(tensors_of(x), tensors_of(anchor)):
         for i in rows:
             if lo <= i < hi:  # the row lives on this rank

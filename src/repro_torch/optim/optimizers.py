@@ -39,7 +39,7 @@ import torch
 from repro_torch.config.base import OptimizerConfig
 from repro_torch.kernels.opt_step import ops as opt_ops
 from repro_torch.kernels.opt_step import ref as opt_ref
-from repro_torch.parallel import offload
+from repro_torch.parallel import offload, sharding
 from repro_torch.parallel.packing import Packed, column_chunks, packed_like, tensors_of, view_leaf
 from repro_torch.utils.tree import tree_map
 
@@ -231,7 +231,12 @@ def packed_global_norm(pg: Packed, per_bucket: bool = False) -> torch.Tensor:
     By default each leaf's window is reduced and the leaves summed in
     flatten order, as the reference's per-leaf walk; ``per_bucket`` sums one
     partial per bucket (``AlgoConfig.packed_clip``). The sums inside a leaf
-    run in PyTorch's order, so either is a few ulps from the reference."""
+    run in PyTorch's order, so either is a few ulps from the reference. A
+    rank's column slice (fsdp > 1) sums its buckets' squares and adds them
+    over the worker's F ranks (one blocking all-reduce)."""
+    if isinstance(pg, sharding.Sharded):  # a column slice: its rows' sums of squares, over the worker's F ranks
+        sq = sum(torch.sum(torch.square(b.float()), dim=-1) for b in pg.buffers)
+        return torch.sqrt(sharding.all_reduce_fsdp_(sq))
     if per_bucket:
         sq = sum(torch.sum(torch.square(b.float()), dim=-1) for b in pg.buffers)
     else:

@@ -123,6 +123,12 @@ class Packed:
     def lead_shape(self) -> Tuple[int, ...]:
         return tuple(self.buffers[0].shape[:-1]) if self.buffers else ()
 
+    def with_buffers(self, buffers, layout: Optional[Layout] = None) -> "Packed":
+        """A plane of the same kind over ``buffers`` (``layout``, or this
+        plane's): a rank's share of a plane stays one
+        (:class:`repro_torch.parallel.sharding.Sharded`)."""
+        return Packed(buffers, layout or self.layout)
+
     def __repr__(self):
         shapes = ", ".join(f"{tuple(b.shape)}:{self.layout.bucket_dtypes[i]}" for i, b in enumerate(self.buffers))
         return f"Packed([{shapes}], {self.layout.num_leaves} leaves)"
@@ -196,15 +202,16 @@ def param_view(packed: Packed) -> dict:
 
 
 def packed_like(packed: Packed, fill: float = 0.0, dtype: Optional[torch.dtype] = None) -> Packed:
-    """A new plane of the same layout and lead shape, filled with ``fill``
-    (retagged to ``dtype`` when given — see :meth:`Layout.with_dtype`)."""
+    """A new plane of the same layout, kind and buffer shapes, filled with
+    ``fill`` (retagged to ``dtype`` when given — see
+    :meth:`Layout.with_dtype`)."""
     layout = packed.layout if dtype is None else packed.layout.with_dtype(dtype)
     device = packed.buffers[0].device
     buffers = tuple(
-        torch.full(packed.lead_shape + (n,), fill, dtype=_dtype(d), device=device)
-        for n, d in zip(layout.bucket_sizes, layout.bucket_dtypes)
+        torch.full(tuple(b.shape), fill, dtype=_dtype(d), device=device)
+        for b, d in zip(packed.buffers, layout.bucket_dtypes)
     )
-    return Packed(buffers, layout)
+    return packed.with_buffers(buffers, layout)
 
 
 def buffer_map(fn: Callable, *packeds: Packed, layout: Optional[Layout] = None) -> Packed:

@@ -66,6 +66,17 @@ optimizer state of its rows from its own pinned host stacks, and the rank
 in-flight kinds keep their anchor-shaped planes on the host between
 boundaries while their f32 wire buffer stays on the card.
 
+With fsdp F > 1 (ROADMAP item 10c, first part: ZeRO-3 on the packed
+plane) the rank holds its rows' column slice: a local step gathers the
+worker's whole rows over the fsdp group, takes the gradient of the rank's
+b/F examples (``sharding.batch_shard``: a b or a ``microbatch`` that F does
+not divide raises), reduce-scatters it back in f32 over the fsdp group
+divided by F (the mean of the shards' means is the worker's whole-batch
+gradient: every loss of the port is a plain mean over equal shards) and
+steps K1/K2 on the slice; clipping adds the slices' squares over the fsdp
+group. A round's metrics are the means over the worker's F ranks (one
+all-reduce a round), equal on its F ranks.
+
 With ``AlgoConfig.offload`` (the reference's residency, DESIGN.md §9) the
 optimizer state, vars and the in-flight plane are host-resident
 :class:`~repro_torch.parallel.offload.HostPlane` trees between rounds; x
@@ -86,7 +97,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from repro_torch.core.strategy import as_strategy, check_rank_path, finish_inflight, is_rank_inflight
+from repro_torch.core.strategy import as_strategy, check_fsdp_path, check_rank_path, finish_inflight, is_rank_inflight
 from repro_torch.optim.optimizers import (
     Optimizer,
     clip_by_global_norm_,
@@ -233,13 +244,15 @@ def make_round_step(
         if packed_step and not isinstance(x, Packed):
             x = pack(x, lead=1)  # a per-leaf x migrates into the plane
         mesh = sharding.current_mesh()
-        if mesh is not None:  # this rank's rows of the round batch
+        fsdp = mesh is not None and mesh.fsdp > 1
+        if mesh is not None:  # this rank's rows of the round batch (with fsdp > 1, its share of their examples)
             check_rank_path(strategy)
+            check_fsdp_path(strategy, packed_step)
             lo, hi = mesh.rows(tensors_of(x)[0].shape[0] * mesh.size)
             if _first(round_batch).shape[1] != mesh.size * (hi - lo):
                 raise ValueError(f"on a worker mesh a round batch holds all {mesh.size * (hi - lo)} workers, "
                                  f"got {_first(round_batch).shape[1]}")
-            round_batch = batch_map(lambda t: t[:, lo:hi], round_batch)
+            round_batch = sharding.batch_shard(batch_map(lambda t: t[:, lo:hi], round_batch), mesh, microbatch)
         if offload_on:
             plan = off.plan_of(opt)
             if plan is None:  # adoption: a resident state entering the offloaded engine
@@ -250,11 +263,20 @@ def make_round_step(
             if strategy.consumes_inflight_midround:
                 inflight, infl_pending = off.tree_restore_async(inflight)
                 pending.add(infl_pending)
-        per_step = []
+        per_step, lrs = [], []
         for k in range(_first(round_batch).shape[0]):
             lr = schedule(step)
-            pg, metrics = gradient_plane(loss_fn, x, batch_map(lambda t: t[k], round_batch), microbatch=microbatch,
-                                         per_worker=per_worker)
+            lrs.append(lr)
+            if fsdp:  # ZeRO-3: the worker's whole rows gathered, the gradient reduce-scattered back
+                full = sharding.gather_columns(x, mesh)
+                pg, metrics = gradient_plane(loss_fn, full, batch_map(lambda t: t[k], round_batch),
+                                             microbatch=None if microbatch is None else microbatch // mesh.fsdp,
+                                             per_worker=per_worker)
+                del full
+                pg = sharding.reduce_scatter_columns(pg, x, mesh)
+            else:
+                pg, metrics = gradient_plane(loss_fn, x, batch_map(lambda t: t[k], round_batch),
+                                             microbatch=microbatch, per_worker=per_worker)
             if packed_step:
                 if grad_clip > 0.0:
                     clip_packed_by_global_norm_(pg, grad_clip, per_bucket=per_bucket_clip)
@@ -274,7 +296,15 @@ def make_round_step(
                 x = strategy.local_post_update(x, vars, inflight, k)
             del pg  # free this step's gradients before the next ones are made
             step = step + 1
-            per_step.append(dict(metrics, lr=lr.expand_as(metrics["loss"])))
+            per_step.append(metrics)
+        if fsdp:  # the worker's metrics: the mean of its F ranks' shard means, one sum a round
+            names = list(per_step[0])
+            sums = sharding.all_reduce_fsdp_(torch.stack([torch.stack([mt[n].float() for n in names])
+                                                          for mt in per_step]), mesh)
+            ft = torch.full((), float(mesh.fsdp), dtype=torch.float32, device=sums.device)
+            per_step = [{n: (sums[k, i] / ft).to(per_step[k][n].dtype) for i, n in enumerate(names)}
+                        for k in range(len(per_step))]
+        per_step = [dict(mt, lr=lr.expand_as(mt["loss"])) for mt, lr in zip(per_step, lrs)]
         if offload_on:
             pending.wait()
             inflight = off.tree_restore(inflight)  # a no-op when already on the device

@@ -17,14 +17,18 @@ live workers of a degraded round (``None``: fully live), which the fault
 harness installs and clears between rounds.
 
 On a worker mesh (:func:`repro_torch.parallel.sharding.mesh_context`) the
-state is this rank's: x holds its m/W rows (m must divide by W) and the
-optimizer state matches them, while vars and the first in-flight anchor are
-built from the full ``params``, as on one device, and stay replicated (the
-avg-rebase strategies' first average is the mean of m copies of a row, its
-x₀ the rank's own rows). Per leaf, x is a dict of the rank's ``(r, ...)``
-leaves and the per-leaf optimizer state matches them; offloaded, the
-optimizer state of the rank's rows is chunked by the plan of the rank's
-layout (lead r).
+state is this rank's: x holds its m/W rows (m must divide by W) and, with
+fsdp F > 1, their column slice (a :class:`~repro_torch.parallel.sharding.Sharded`
+of ``flat_param``), and the optimizer state matches them. The anchor-shaped
+state of the packed resident path (z, v, the first in-flight anchor, the
+avg-rebase average) is the rank's piece of worker 0's row (``anchor_flat``:
+1/(W·F) of each bucket); the avg-rebase strategies' first average is the
+mean of m copies of a row, its x₀ the rank's own rows. Per leaf (F = 1), x
+is a dict of the rank's ``(r, ...)`` leaves and the per-leaf optimizer state
+matches them; offloaded (F = 1), the optimizer state of the rank's rows is
+chunked by the plan of the rank's layout (lead r); both keep a replicated
+anchor, as do sparse_anchor and PowerSGD. With F > 1 those paths, and MoE
+segments, raise (:func:`~repro_torch.core.strategy.check_fsdp_path`).
 
 With ``AlgoConfig.offload`` the state is built offloaded, as the reference
 builds it: ``opt``, ``vars`` and ``inflight`` are
@@ -37,7 +41,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.core.strategy import AlgoVars, as_strategy, check_rank_path
+from repro_torch.core.strategy import AlgoVars, as_strategy, check_fsdp_path, check_rank_path
 from repro_torch.optim.optimizers import Optimizer, offload_capable, packed_capable
 from repro_torch.parallel import offload as off
 from repro_torch.parallel import sharding
@@ -66,9 +70,13 @@ def make_train_state(params: dict, m: int, optimizer: Optimizer, strategy) -> Tr
         lo, hi = mesh.rows(m)
         m = hi - lo
     leaves, paths = tree_flatten(params)
+    packed_step = strategy.packed and packed_capable(optimizer)
+    check_fsdp_path(strategy, packed_step, paths)
     stacked = [t.expand(m, *t.shape) for t in leaves]
-    if strategy.packed and packed_capable(optimizer):
+    if packed_step:
         x = pack(tree_unflatten(paths, stacked), lead=1)
+        if mesh is not None:  # with fsdp > 1: the rows' column slice
+            x = sharding.shard_columns(x, mesh)
         opt = optimizer.init_packed(x)
     else:  # per leaf: each worker-stacked leaf a tensor of its own
         x = tree_unflatten(paths, [t.contiguous() for t in stacked])

@@ -199,7 +199,8 @@ def test_two_ranks_of_one_row_are_the_stacked_run_bit_for_bit(two_ranks, idx):
 @pytest.mark.parametrize("strat", ["overlap", "overlap_beta0"])
 def test_the_handle_of_boundary_k_is_waited_at_boundary_k_plus_1(two_ranks, strat):
     """The recorded trace on each rank: every boundary launches one
-    all-reduce; the one launched at boundary k is first waited at boundary
+    collective (the anchor's reduce-scatter); the one launched at boundary k
+    is first waited at boundary
     k + 1, after that round's τ optimizer steps, and the last by drain."""
     idx = W2.index(("classifier", strat, "float32"))
     tau = 2
@@ -292,9 +293,11 @@ def test_one_rank_is_the_stacked_run_bit_for_bit(one_rank, strat):
 
 
 def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
-    """Within-worker sharding, the one path not ported to a worker mesh,
-    raises NotImplementedError naming ROADMAP item 10c, and a strategy of
-    one's own with no rank boundary raises; what item 10b ported runs
+    """Tensor parallelism, not ported to a worker mesh, raises
+    NotImplementedError naming ROADMAP item 10c (its second part), a mesh of
+    W x F ranks needs W·F processes (fsdp runs since item 10c's first part:
+    ``tests/test_torch_dist_fsdp.py``), and a strategy of one's own with no
+    rank boundary raises; what item 10b ported runs
     (every strategy: easgd, cocod, delayed_avg, sparse_anchor, powersgd and
     the gossip family; the per-leaf path, a legacy Algorithm and offload,
     each a round that ends with finite planes; the probe, a membership,
@@ -314,9 +317,9 @@ def test_unported_paths_on_ranks_raise_naming_their_item(one_rank, tmp_path):
     from repro_torch.parallel.sharding import logical_mesh, mesh_context
     from repro_torch.training import drain, make_round_step, make_train_state
 
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(ValueError, match="processes"):
         make_smoke_mesh(1, fsdp=2)
-    with pytest.raises(NotImplementedError, match="item 10c"):
+    with pytest.raises(NotImplementedError, match="item 10c, second part"):
         logical_mesh(ParallelPlan(1, 1, 2), device="cpu")
     with pytest.raises(ValueError, match="processes"):
         make_smoke_mesh(2, device="cpu")

@@ -3,7 +3,7 @@ spawned with ``torch.multiprocessing``, each training its m/W rows of the
 cases handed to it. Importing JAX here fails (``sys.modules["jax"] = None``
 in every process), so the ranks run the port alone.
 
-    python tests/torch_dist_ranks.py CASES.pkl OUT_DIR W
+    python tests/torch_dist_ranks.py CASES.pkl OUT_DIR WORLD [FSDP]
 
 ``CASES.pkl`` holds a list of cases (see :func:`run_case`;
 :func:`run_fit_case` for a case with ``fit`` set: ``Experiment.fit`` with
@@ -44,7 +44,11 @@ import torch  # noqa: E402
 
 
 def _planes(p) -> list:
-    return [b.float().numpy().copy() for b in p.buffers]
+    """A plane's buckets as float32 numpy copies; a rank's share of a plane
+    (``Sharded``) gathered whole first (a collective every rank makes)."""
+    from repro_torch.parallel import sharding
+
+    return [b.float().numpy().copy() for b in sharding.unshard(p).buffers]
 
 
 def _params(case):
@@ -83,15 +87,15 @@ def _batch(nb):
 
 
 class _Recorder:
-    """Wraps ``sharding.all_reduce_async`` (until :meth:`close`) and an
-    optimizer's packed step (:meth:`wrap`): ``events`` lists ("step",),
-    ("launch", k) and ("wait", k) in order."""
+    """Wraps ``sharding.all_reduce_async`` and ``sharding.reduce_scatter_async``
+    (until :meth:`close`) and an optimizer's packed step (:meth:`wrap`):
+    ``events`` lists ("step",), ("launch", k) and ("wait", k) in order."""
 
     def __init__(self):
         from repro_torch.parallel import sharding
 
         self.events, self.sharding = [], sharding
-        self.real_reduce = sharding.all_reduce_async
+        self.real_reduce, self.real_scatter = sharding.all_reduce_async, sharding.reduce_scatter_async
         rec = self
 
         class Handle:
@@ -107,7 +111,12 @@ class _Recorder:
             rec.events.append(("launch", k))
             return Handle(rec.real_reduce(buf, mesh), k)
 
-        sharding.all_reduce_async = reduce
+        def scatter(srcs, outs, mesh=None):
+            k = sum(1 for e in rec.events if e[0] == "launch")
+            rec.events.append(("launch", k))
+            return Handle(rec.real_scatter(srcs, outs, mesh), k)
+
+        sharding.all_reduce_async, sharding.reduce_scatter_async = reduce, scatter
 
     def wrap(self, opt):
         real = opt.step_packed
@@ -119,7 +128,7 @@ class _Recorder:
         return dataclasses.replace(opt, step_packed=step)
 
     def close(self):
-        self.sharding.all_reduce_async = self.real_reduce
+        self.sharding.all_reduce_async, self.sharding.reduce_scatter_async = self.real_reduce, self.real_scatter
 
 
 def run_case(case) -> dict:
@@ -268,13 +277,91 @@ def run_fit_case(case) -> dict:
     res = _fit(exp, case, case["rounds"])
     state = exp.state = drain(exp.state)
     out = dict(loss=list(res.losses), tau_schedule=res.tau_schedule, fault_log=res.fault_log, steps=res.steps,
-               **_state_planes(state))
+               shares=_shares(state), **_state_planes(state))
     out["consensus"] = [t.numpy().copy() for t in tree_flatten(exp.consensus())[0]]
     out["consensus_plane"] = _planes(exp.consensus_plane())
     if state.vars.z is not None:
         out["anchor_plane"] = _planes(exp.anchor_plane())
     out["evaluate"] = exp.evaluate()
     return out
+
+
+def _shares(state) -> dict:
+    """What the rank holds of each plane of a state, before any gather: per
+    checkpoint key, (the rule's axis, or "whole" for a plane the rank keeps
+    whole, and each buffer's shape)."""
+    from repro_torch.checkpoint import checkpointer as ck
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.packing import Packed
+
+    return {key: (node.axis if isinstance(node, sharding.Sharded) else "whole", [tuple(b.shape) for b in node.buffers])
+            for key, node in ck._nodes(state) if isinstance(node, Packed)}
+
+
+def run_refusal_case(case) -> dict:
+    """Every path that still raises on the current mesh (fsdp > 1): per
+    path, (the exception's type name, its message), or ("ok", "") when it
+    ran — the per-leaf path, a legacy Algorithm, an optimizer with no packed
+    step, offload, sparse_anchor, PowerSGD, MoE segments (the reduced
+    arctic's parameters), tensor > 1 (``logical_mesh``)."""
+    import warnings
+
+    from repro_torch.config import AlgoConfig, OptimizerConfig, ParallelPlan, get_arch
+    from repro_torch.core import make_strategy
+    from repro_torch.core.algorithms import make_algorithm
+    from repro_torch.models import classifier as clf
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import from_config
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.parallel import sharding
+    from repro_torch.training import make_round_step, make_train_state
+    from repro_torch.optim import schedules
+
+    params = clf.init_mlp(torch.Generator().manual_seed(0), 8, 3, hidden=(4,))
+    opt = from_config(OptimizerConfig())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        legacy = make_algorithm(AlgoConfig())
+    moe = T.init_model(get_arch("arctic-480b").model.reduced(), torch.Generator().manual_seed(0))
+    paths = {
+        "per_leaf": lambda: make_train_state(params, 2, opt, make_strategy(AlgoConfig(packed=False))),
+        "legacy": lambda: make_train_state(params, 2, opt, legacy),
+        "no_packed_step": lambda: make_train_state(params, 2, Optimizer(init=opt.init, step=opt.step),
+                                                   make_strategy(AlgoConfig())),
+        "offload": lambda: make_train_state(params, 2, opt, make_strategy(AlgoConfig(offload=True))),
+        "sparse_anchor": lambda: make_train_state(params, 2, opt, make_strategy(AlgoConfig(name="sparse_anchor"))),
+        "powersgd": lambda: make_train_state(params, 2, opt, make_strategy(AlgoConfig(name="powersgd"))),
+        "moe": lambda: make_train_state(moe, 2, opt, make_strategy(AlgoConfig())),
+        "tensor": lambda: sharding.logical_mesh(ParallelPlan(1, 1, 2), device="cpu"),
+        # the round engine refuses a per-leaf state it is handed on the mesh too
+        "round_per_leaf": lambda: make_round_step(clf.mlp_loss, opt, make_strategy(AlgoConfig(packed=False)),
+                                                  schedules.constant(0.1))(
+            _no_mesh_state(params, opt), (torch.zeros(2, 2, 2, 8), torch.zeros(2, 2, 2, dtype=torch.int32))),
+        # a worker batch that fsdp does not divide
+        "odd_batch": lambda: make_round_step(clf.mlp_loss, opt, make_strategy(AlgoConfig()), schedules.constant(0.1))(
+            make_train_state(params, 2, opt, make_strategy(AlgoConfig())),
+            (torch.zeros(2, 2, 3, 8), torch.zeros(2, 2, 3, dtype=torch.int32))),
+    }
+    out = {}
+    for name, fn in paths.items():
+        try:
+            fn()
+            out[name] = ("ok", "")
+        except Exception as e:  # noqa: BLE001 - the type is what is checked
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+def _no_mesh_state(params, opt):
+    """A per-leaf state of 2 workers built off the mesh (the round engine's
+    own refusal is then the one that fires)."""
+    from repro_torch.config import AlgoConfig
+    from repro_torch.core import make_strategy
+    from repro_torch.parallel import sharding
+    from repro_torch.training import make_train_state
+
+    with sharding.mesh_context(None):
+        return make_train_state(params, 2, opt, make_strategy(AlgoConfig(packed=False)))
 
 
 def run_ckpt_case(case) -> dict:
@@ -285,8 +372,10 @@ def run_ckpt_case(case) -> dict:
     the last row set to −0.0 first with ``negzero``), restored into the
     drained state and ``case["more"]`` more rounds; with ``restore`` the
     file ``case["restore"]`` restored into the state (``elastic``) and
-    ``case["more"]`` rounds. Returns the losses and the drained planes after
-    the save, after the restore and at the end."""
+    ``case["more"]`` rounds (with ``resave`` the restored state saved to
+    ``resave-<name>-<tag>.npz`` first). Returns the losses, the drained
+    planes after the save, after the restore and at the end, and what the
+    rank holds after the restore (:func:`_shares`)."""
     from repro_torch import checkpoint
     from repro_torch.parallel import sharding
     from repro_torch.training import drain
@@ -307,6 +396,9 @@ def run_ckpt_case(case) -> dict:
     if case.get("restore"):
         exp.state = checkpoint.restore(case["restore"], exp.state, elastic=case.get("elastic", False))
     out["restored"] = _state_planes(exp.state)
+    out["shares"] = _shares(exp.state)
+    if case.get("resave"):  # the restored state saved again, before any round
+        checkpoint.save(os.path.join(case["dir"], f"resave-{case['name']}-{tag}.npz"), exp.state)
     if case.get("more"):
         out["loss"] += list(_fit(exp, case, case["more"]).losses)
     exp.state = drain(exp.state)
@@ -337,6 +429,7 @@ def _flat_state(state):
     row leaf)."""
     from repro_torch.checkpoint import checkpointer as ck
     from repro_torch.parallel import offload as off
+    from repro_torch.parallel import sharding
     from repro_torch.parallel.packing import Packed
 
     state = state._replace(opt=off.tree_restore(state.opt), vars=off.tree_restore(state.vars),
@@ -349,6 +442,7 @@ def _flat_state(state):
         return (t.float() if t.is_floating_point() else t).numpy().copy()
 
     for key, node in ck._nodes(state):
+        node = sharding.unshard(node)  # a rank's share: the whole plane
         if isinstance(node, Packed):
             for i, b in enumerate(node.buffers):
                 arrays[f"{key}::{i}"] = one(b)
@@ -417,7 +511,9 @@ def _same(a: dict, b: dict) -> bool:
 
 
 def run_any(case) -> dict:
-    """The case's runner: path, fit, ckpt, gather, or a round case."""
+    """The case's runner: refusal, path, fit, ckpt, gather, or a round case."""
+    if case.get("refusal"):
+        return run_refusal_case(case)
     if case.get("path"):
         return run_path_case(case)
     if case.get("fit"):
@@ -429,7 +525,7 @@ def run_any(case) -> dict:
     return run_case(case)
 
 
-def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
+def _rank(rank: int, world: int, cases_path: str, out_dir: str, fsdp: int = 1) -> None:
     import torch.distributed as dist
 
     sys.modules["jax"] = None  # the ranks import no JAX
@@ -445,7 +541,7 @@ def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
         dist.init_process_group("gloo", init_method="file://" + os.path.join(out_dir, "rendezvous"),
                                 world_size=world, rank=rank, timeout=datetime.timedelta(seconds=_timeout()))
         try:
-            with mesh_context(make_smoke_mesh(world, device="cpu")):
+            with mesh_context(make_smoke_mesh(world // fsdp, fsdp, device="cpu")):
                 results = [run_any(c) for c in cases]
         finally:
             dist.destroy_process_group()
@@ -458,18 +554,19 @@ def _rank(rank: int, world: int, cases_path: str, out_dir: str) -> None:
         raise
 
 
-def spawn(where, cases, world: int) -> list:
-    """Run ``cases`` on ``world`` gloo CPU ranks in one spawn of this
-    program under the directory ``where`` (a ``pathlib.Path``); returns each
-    rank's list of results. Raises with the ranks' errors when one failed
-    or the spawn outlived its budget."""
+def spawn(where, cases, world: int, fsdp: int = 1) -> list:
+    """Run ``cases`` on ``world`` gloo CPU ranks (a mesh of world/fsdp
+    workers × ``fsdp``) in one spawn of this program under the directory
+    ``where`` (a ``pathlib.Path``); returns each rank's list of results, in
+    global rank order (w·fsdp + f). Raises with the ranks' errors when one
+    failed or the spawn outlived its budget."""
     import subprocess
 
     with open(where / "cases.pkl", "wb") as f:
         pickle.dump(cases, f)
     env = dict(os.environ, PYTHONPATH=SRC, REPRO_SUBPROC_TIMEOUT=str(_timeout()))
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), str(where / "cases.pkl"), str(where), str(world)],
-                          env=env, capture_output=True, text=True, timeout=_timeout())
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), str(where / "cases.pkl"), str(where), str(world),
+                           str(fsdp)], env=env, capture_output=True, text=True, timeout=_timeout())
     if proc.returncode != 0:
         raise RuntimeError(f"{world} ranks failed:\n{proc.stderr[-6000:]}")
     out = []
@@ -524,8 +621,9 @@ def main(argv) -> int:
 
     sys.modules["jax"] = None
     cases_path, out_dir, world = argv[0], argv[1], int(argv[2])
+    fsdp = int(argv[3]) if len(argv) > 3 else 1
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=_rank, args=(r, world, cases_path, out_dir)) for r in range(world)]
+    procs = [ctx.Process(target=_rank, args=(r, world, cases_path, out_dir, fsdp)) for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + _timeout() - 10
